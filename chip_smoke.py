@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port on one NVIDIA GPU and check it.
+
+Run from the repository root: ``python3 chip_smoke.py``. Phases, each
+printing one line:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: compile the CUDA flash-attention kernels from ``csrc/``;
+3. kernels: K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
+   PyTorch twins run in float32 on the same values, at the training shape
+   (8, 8, 2048, 64) bf16 causal (each bf16 output within half a bf16 ulp of
+   the twin, plus 1e-5 for the float32 sums' order) and at float32 edge
+   shapes (ragged L=300, GQA 8->2, segment ids with a fully masked row,
+   window 128; atol = rtol = 1e-4);
+4. reference: the full-width model's loss and gradients on a small input,
+   flash kernels against the plain blockwise attention;
+5. main path: a Parquet token store written with ``materialize_dataset``,
+   read through ``make_reader`` (NGram) -> ``TorchDataLoader`` ->
+   ``prefetch_to_device``, and AdamW steps of the flagship transformer LM
+   (vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048, L 2048, bf16,
+   ``attention='flash'``), with each kernel's launch count over those steps;
+6. times: each kernel's median time at the training shape beside its bound,
+   its plain twin's time and a library call's time as a yardstick (never
+   used by the port): ``scaled_dot_product_attention`` for the forward, and
+   aten's flash-attention backward, which computes dq, dk and dv in one call,
+   for K2 and K3 together.
+
+The line before the last is the JSON kernel table; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device the script exits non-zero before printing results.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+PATH_SHAPE = (8, 8, 2048, 64)     # B, H, L, head_dim of the LM's attention
+TOL_F32 = 1e-4                    # atol = rtol: float32 sums in other order
+TOL_SUM = 1e-5                    # bf16 outputs: float32 order, past rounding
+STEPS = 5                         # main-path train steps (the first warms up)
+BATCH = 8                         # windows of 2048 tokens per step
+ROWS = 320                        # store rows: 2 row groups, 318 windows
+REPS = 20                         # timed launches per kernel (median)
+
+KERNELS = {
+    'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd.cu',
+                  'petastorm_tpu/ops/attention.py:260'),
+    'flash_bwd_dq': ('petastorm_tpu_torch/csrc/flash_bwd.cu',
+                     'petastorm_tpu/ops/attention.py:658'),
+    'flash_bwd_dkdv': ('petastorm_tpu_torch/csrc/flash_bwd.cu',
+                       'petastorm_tpu/ops/attention.py:706'),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against plain twins
+# ---------------------------------------------------------------------------
+
+def _operands(torch, gen, b, h, hkv, lq, lk, d, dtype):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device='cuda').to(dtype)
+    return (rnd(b * h, lq, d), rnd(b * hkv, lk, d), rnd(b * hkv, lk, d),
+            rnd(b * h, lq, d))
+
+
+def _max_err(torch, got, ref, label):
+    """Max abs error of a kernel output against the float32 twin. A float32
+    output is held to atol = rtol = TOL_F32. A bfloat16 output comes from a
+    float32 sum rounded once to nearest, so it may differ from the twin by
+    half a bf16 ulp of the twin's value plus TOL_SUM (1 + |ref|) for the
+    order of the float32 sums: truncating, or holding p or ds in bf16, fails."""
+    check(bool(torch.isfinite(got).all()), '%s: non-finite output' % label)
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    if got.dtype == torch.float32:
+        limit = TOL_F32 * (1 + ref.abs())
+    else:
+        _, exp = torch.frexp(ref)
+        half_ulp = torch.ldexp(torch.ones_like(ref), exp - 9)
+        limit = half_ulp + TOL_SUM * (1 + ref.abs())
+    bad = err > limit
+    check(not bool(bad.any()),
+          '%s: %d elements beyond the limit (max abs err %.3g)'
+          % (label, int(bad.sum()), float(err.max())))
+    return float(err.max()) if err.numel() else 0.0
+
+
+def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
+                 causal=True, window=None, segmented=False):
+    """Each kernel on ``dtype`` operands against its twin on the same
+    values widened to float32 (exact), so the twin's sums stand before any
+    rounding to ``dtype``."""
+    q, k, v, do = _operands(torch, gen, b, h, hkv, lq, lk, d, dtype)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    kw = dict(n_heads=h, n_kv_heads=hkv, causal=causal, window=window)
+    if segmented:
+        seg = (torch.arange(lq, device='cuda') >= lq // 2).int()
+        kw['seg_q'] = seg.expand(b * h, lq).contiguous()
+        seg_kv = (torch.arange(lk, device='cuda') >= lk // 2).int()
+        seg_kv[0] = 7            # q row 0 sees only k=0: fully masked
+        kw['seg_kv'] = seg_kv.expand(b * hkv, lk).contiguous()
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = kernels.flash_fwd_plain(q32, k32, v32, **kw)
+    torch.cuda.synchronize()
+    errs = {'flash_fwd': max(_max_err(torch, o, o_ref, label + ' o'),
+                             _max_err(torch, lse, lse_ref, label + ' lse'))}
+    if segmented:
+        check(bool((lse[:, 0] == kernels.NEG_INF).all())
+              and not bool(o[:, 0].any()),
+              '%s: fully masked row must give o=0, lse=-1e30' % label)
+    # both backward passes see the twin's o and lse
+    delta = (do32 * o_ref).sum(-1)
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    dq_ref = kernels.flash_bwd_dq_plain(q32, k32, v32, do32, lse_ref, delta,
+                                        **kw)
+    dk, dv = kernels.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = kernels.flash_bwd_dkdv_plain(q32, k32, v32, do32,
+                                                  lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    want = torch.float32 if h != hkv else dtype   # GQA: float32 partials
+    check(dk.dtype == want and dq.dtype == dtype and o.dtype == dtype,
+          '%s: output dtypes o %s dq %s dk %s' % (label, o.dtype, dq.dtype,
+                                                  dk.dtype))
+    errs['flash_bwd_dq'] = _max_err(torch, dq, dq_ref, label + ' dq')
+    errs['flash_bwd_dkdv'] = max(
+        _max_err(torch, dk, dk_ref, label + ' dk'),
+        _max_err(torch, dv, dv_ref, label + ' dv'))
+    log('kernels %-22s max_abs_err fwd %.3g dq %.3g dkdv %.3g (limit %s)'
+        % (label, errs['flash_fwd'], errs['flash_bwd_dq'],
+           errs['flash_bwd_dkdv'],
+           'atol=rtol=%g' % TOL_F32 if dtype == torch.float32
+           else 'half bf16 ulp + %g(1+|ref|)' % TOL_SUM))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 4 / 5: reference and main path
+# ---------------------------------------------------------------------------
+
+def reference_check(torch, tlm, seed):
+    """Full-width model on a (1, 256) input: the flash path's loss and
+    gradients against the plain blockwise attention's."""
+    import dataclasses
+    cfg = tlm.TransformerConfig(attention='flash')
+    gen = torch.Generator().manual_seed(seed)
+    params = tlm.init(cfg, gen, device='cuda')
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 256), generator=gen)
+    tokens, targets = toks[0].cuda(), toks[1].cuda()
+    results = []
+    for mode in ('flash', 'blockwise'):
+        leaves = tlm.parameters(params)
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        c = dataclasses.replace(cfg, attention=mode)
+        loss = tlm.loss_fn(params, tokens, targets, c)
+        loss.backward()
+        results.append((loss.item(), [p.grad.clone() for p in leaves]))
+    (lf, gf), (lb, gb) = results
+    check(math.isfinite(lf) and abs(lf - lb) < 1e-2,
+          'reference: flash loss %r vs blockwise %r' % (lf, lb))
+    rel = max(float((a - b).norm() / (b.norm() + 1e-12))
+              for a, b in zip(gf, gb))
+    check(rel < 5e-2, 'reference: gradient relative error %.3g' % rel)
+    log('reference loss flash %.6f blockwise %.6f |dL| %.3g, max grad '
+        'rel err %.3g (tol loss 1e-2, grad 5e-2)' % (lf, lb, abs(lf - lb),
+                                                     rel))
+
+
+def write_store(np, url, seq_len, vocab, rows, seed):
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('TokenSchema', [
+        UnischemaField('step', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (seq_len,), NdarrayCodec(),
+                       False)])
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (rows, seq_len), dtype=np.int32)
+    with materialize_dataset(url, schema, rows_per_file=rows // 2,
+                             row_group_size_mb=64) as w:
+        w.write_rows({'step': np.int64(i), 'tokens': tokens[i]}
+                     for i in range(rows))
+
+
+def main_path(torch, np, tlm, kernels, args):
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.ngram import NGram
+    cfg = tlm.TransformerConfig(attention='flash')
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'tokens')
+        start = time.perf_counter()
+        write_store(np, url, cfg.max_seq_len, cfg.vocab_size, ROWS,
+                    args.seed)
+        log('store %d rows x %d tokens written in %.2f s'
+            % (ROWS, cfg.max_seq_len, time.perf_counter() - start))
+        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                          device='cuda')
+        _, step = tlm.make_train_step(cfg, params)
+        ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                      delta_threshold=1, timestamp_field='step')
+        losses, times = [], []
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with make_reader(url, schema_fields=ngram, num_epochs=None,
+                         workers_count=4, seed=args.seed) as reader:
+            loader = TorchDataLoader(reader, batch_size=BATCH,
+                                     drop_last=True, device='cuda')
+            batches = prefetch_to_device(iter(loader), size=2)
+            with contextlib.closing(batches):
+                for i in range(STEPS):
+                    t0 = time.perf_counter()
+                    batch = next(batches)
+                    tokens = batch[0]['tokens']
+                    nxt = batch[1]['tokens'][:, 0]
+                    targets = torch.cat([tokens[:, 1:], nxt[:, None]], 1)
+                    check(tokens.is_cuda and tuple(tokens.shape)
+                          == (BATCH, cfg.max_seq_len),
+                          'batch tokens %s on %s'
+                          % (tuple(tokens.shape), tokens.device))
+                    loss = float(step(tokens, targets))
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    losses.append(loss)
+                    times.append(dt)
+                    log('step %d loss %.6f time %.2f ms tokens/s %.0f'
+                        % (i, loss, dt * 1e3,
+                           BATCH * cfg.max_seq_len / dt))
+                launches = dict(kernels.LAUNCHES)
+                if args.profile:
+                    profile_steps(torch, step, batches, 2)
+    check(all(math.isfinite(x) for x in losses), 'non-finite loss')
+    check(all(n > 0 for n in launches.values()),
+          'a kernel was not launched on the main path: %r' % launches)
+    steady = times[1:] or times
+    log('main path %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
+        '%.0f tokens/s, launches %s'
+        % (len(losses), losses[0], losses[-1],
+           statistics.median(steady) * 1e3,
+           BATCH * cfg.max_seq_len / statistics.median(steady),
+           json.dumps(launches)))
+    return launches
+
+
+def profile_steps(torch, step, batches, n):
+    """Profile ``n`` more train steps: device time by kernel (top 12) and
+    the device's busy share of the wall time, to standard error."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            batch = next(batches)
+            tokens = batch[0]['tokens']
+            targets = torch.cat([tokens[:, 1:], batch[1]['tokens'][:, :1]],
+                                1)
+            step(tokens, targets)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+    # device-side events only: CPU ops and autograd ranges carry the time
+    # of the kernels they launched too, and would count it twice
+    dev = [(getattr(e, 'self_device_time_total', None)
+            or getattr(e, 'self_cuda_time_total', 0), e.key)
+           for e in prof.key_averages()
+           if getattr(e, 'device_type', None) == DeviceType.CUDA]
+    dev = sorted((t, k) for t, k in dev if t > 0)[::-1]
+    busy = sum(t for t, _ in dev)
+    print('profile %d steps: wall %.0f us, device busy %.0f us (%.1f%%)'
+          % (n, wall_us, busy, 100 * busy / wall_us), file=sys.stderr)
+    for t, k in dev[:12]:
+        print('  %10.0f us %5.1f%%  %s' % (t, 100 * t / max(busy, 1), k[:90]),
+              file=sys.stderr)
+    log('profile %d steps: device busy %.1f%% of wall, attention kernels '
+        '%.1f%% of device time'
+        % (n, 100 * busy / wall_us,
+           100 * sum(t for t, k in dev if 'flash' in k) / max(busy, 1)))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: times
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps):
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b))
+    return statistics.median(samples)
+
+
+def bounds(shape):
+    """(bound_ms, bound_by) per kernel at the causal bf16 path shape:
+    operations over the bf16 tensor-core peak against compulsory bytes
+    (each input read once, each output written once) over HBM rate."""
+    b, h, l, d = shape
+    pairs = b * h * l * (l + 1) // 2            # live causal (q, k) pairs
+    elem = b * h * l * d * 2                    # one bf16 (B, H, L, D)
+    row = b * h * l * 4                         # one float32 (B, H, L)
+    work = {'flash_fwd': (4 * d * pairs, 4 * elem + row),
+            'flash_bwd_dq': (6 * d * pairs, 5 * elem + 2 * row),
+            'flash_bwd_dkdv': (8 * d * pairs, 6 * elem + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     'operations' if t_ops >= t_bytes else 'bytes')
+    return out
+
+
+def timings(torch, kernels, gen, reps):
+    b, h, l, d = PATH_SHAPE
+    q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=h, causal=True)
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = {
+        'flash_fwd': (lambda: kernels.flash_fwd(q, k, v, **kw),
+                      lambda: kernels.flash_fwd_plain(q, k, v, **kw)),
+        'flash_bwd_dq': (
+            lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: kernels.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                               **kw)),
+        'flash_bwd_dkdv': (
+            lambda: kernels.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+            lambda: kernels.flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                 **kw)),
+    }
+    out = {}
+    for name, (kern, plain) in runs.items():
+        out[name] = {'ms': time_ms(torch, kern, reps),
+                     'plain_ms': time_ms(torch, plain, max(3, reps // 4))}
+    # yardsticks only: the port never calls these
+    q4, k4, v4, do4 = (x.view(b, h, l, d) for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out['flash_fwd']['library_ms'] = time_ms(
+        torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps)
+    out['flash_fwd']['library'] = 'scaled_dot_product_attention'
+    aten = torch.ops.aten
+    fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+    o4, lse4, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    lib_bwd = aten._scaled_dot_product_flash_attention_backward
+    bwd_ms = time_ms(torch, lambda: lib_bwd(do4, q4, k4, v4, o4, lse4, cum_q,
+                                            cum_k, max_q, max_k, 0.0, True,
+                                            seed, offset), reps)
+    for name in ('flash_bwd_dq', 'flash_bwd_dkdv'):
+        # one call computes dq, dk and dv: compare it with K2 + K3 together
+        out[name]['library_ms'] = bwd_ms
+        out[name]['library'] = ('_scaled_dot_product_flash_attention_backward'
+                                ' (dq, dk, dv in one call)')
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--seed', type=int, default=0,
+                        help='seed of the weights, the store and the inputs')
+    parser.add_argument('--profile', action='store_true',
+                        help='profile two more main-path steps (device time '
+                        'by kernel to standard error)')
+    parser.add_argument('--ptxas-log', action='store_true',
+                        help="print nvcc's register/shared-memory report")
+    args = parser.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 twins: full
+    torch.backends.cudnn.allow_tf32 = False         # float32, no TF32
+
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0])
+
+    start = time.perf_counter()
+    kernels.build()
+    log('build %.1f s (nvcc, one call, %s)'
+        % (time.perf_counter() - start,
+           'cached' if kernels.BUILD_INFO['cached'] else 'fresh'))
+    if args.ptxas_log:
+        print(kernels.BUILD_INFO['log'], file=sys.stderr)
+
+    gen = torch.Generator(device='cuda').manual_seed(args.seed)
+    b, h, l, d = PATH_SHAPE
+    errs = compare_case(torch, kernels, 'path bf16 causal', gen, b=b, h=h,
+                        hkv=h, lq=l, lk=l, d=d, dtype=torch.bfloat16)
+    f32 = dict(d=64, dtype=torch.float32)
+    compare_case(torch, kernels, 'f32 ragged L=300', gen, b=2, h=2, hkv=2,
+                 lq=300, lk=300, **f32)
+    compare_case(torch, kernels, 'f32 non-causal 300x170', gen, b=1, h=2,
+                 hkv=2, lq=300, lk=170, causal=False, **f32)
+    compare_case(torch, kernels, 'f32 gqa 8->2', gen, b=1, h=8, hkv=2,
+                 lq=256, lk=256, **f32)
+    compare_case(torch, kernels, 'f32 segments masked row', gen, b=2, h=2,
+                 hkv=2, lq=300, lk=300, segmented=True, **f32)
+    compare_case(torch, kernels, 'f32 window=128', gen, b=1, h=2, hkv=2,
+                 lq=512, lk=512, window=128, **f32)
+
+    reference_check(torch, tlm, args.seed)
+    launches = main_path(torch, np, tlm, kernels, args)
+    times = timings(torch, kernels, gen, REPS)
+    bound = bounds(PATH_SHAPE)
+    table = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[name]
+        table.append({'name': name, 'route': 'cuda', 'source': source,
+                      'replaces': replaces, 'status': 'ported',
+                      'launches': launches[name],
+                      'max_abs_err': errs[name], 'ms': t['ms'],
+                      'plain_ms': t['plain_ms'], 'bound_ms': bound[name][0],
+                      'bound_by': bound[name][1],
+                      'library_ms': t['library_ms'],
+                      'library': t['library']})
+        log('time %-15s %.3f ms (bound %.4f ms by %s, plain %.3f ms, '
+            'library %.3f ms: %s)'
+            % (name, t['ms'], bound[name][0], bound[name][1], t['plain_ms'],
+               t['library_ms'], t['library']))
+    print(json.dumps({'kernels': table}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

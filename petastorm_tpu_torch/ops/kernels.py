@@ -1,0 +1,424 @@
+"""Hand-written CUDA flash-attention kernels (``csrc/flash_*.cu``), their
+build and binding, and the plain PyTorch twin of each.
+
+Three kernels, each behind one wrapper with the same contract as its twin:
+
+- ``flash_fwd`` (K1, ``csrc/flash_fwd.cu``): ``(o, lse)``;
+- ``flash_bwd_dq`` (K2, ``csrc/flash_bwd.cu``): ``dq``;
+- ``flash_bwd_dkdv`` (K3, ``csrc/flash_bwd.cu``): ``(dk, dv)`` per q head.
+
+The kernel contract is over flattened, contiguous tensors: q/do/o
+``(BH, Lq, D)``, k/v ``(BHkv, Lk, D)`` with ``BH = B * H`` and ``BHkv = B *
+Hkv`` (grouped-query attention when ``Hkv < H``; q row ``b`` reads kv row
+``(b // H) * Hkv + (b % H) // (H // Hkv)``), lse/delta float32 ``(BH, Lq)``,
+segment ids int32 ``(BH, Lq)`` / ``(BHkv, Lk)`` or None, ``window`` 0 for
+none. A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
+launches its kernel or raises — there is no fallback.
+
+The kernels are compiled on first use with one ``nvcc`` call into
+``petastorm_tpu_torch/_build/<hash of the sources>`` and loaded with
+``ctypes``; nothing is built or imported from CUDA when this module is
+imported. They are instantiated for head dim 64 only (the flagship LM's);
+another head dim raises until a configuration needs it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+_CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+_SOURCES = ('flash_common.cuh', 'flash_fwd.cu', 'flash_bwd.cu')
+_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+_HEAD_DIM = 64                 # csrc/flash_common.cuh kHeadDim
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Launches per kernel since the last :func:`reset_launch_counts`; each
+#: wrapper adds one where it launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd_dq': 0,
+                            'flash_bwd_dkdv': 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+#: ``{'seconds': float, 'path': str, 'log': str, 'cached': bool}`` of the
+#: build that produced the loaded library.
+BUILD_INFO: Dict[str, object] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = '/usr/local/cuda/bin/nvcc'
+    if os.path.exists(default):
+        return default
+    raise RuntimeError('nvcc not found: the flash kernels are compiled on '
+                       'first use and need the CUDA toolkit')
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
+        for name in _SOURCES:
+            digest.update((_CSRC / name).read_bytes())
+        out_dir = _CSRC.parent / '_build' / digest.hexdigest()[:16]
+        lib_path = out_dir / 'libpetastorm_flash.so'
+        start = time.perf_counter()
+        log, cached = '', lib_path.exists()
+        if not cached:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out_dir / ('.tmp-%d.so' % os.getpid())
+            cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp),
+                   *(str(_CSRC / n) for n in _SOURCES if n.endswith('.cu'))]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed (%d):\n%s'
+                                   % (proc.returncode, log))
+            os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+            (out_dir / 'build.log').write_text(log)
+        lib = ctypes.CDLL(str(lib_path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # pointers; BH, H, Hkv, Lq, Lk, D, causal, window; scale; dtype
+        # (and out_f32); stream — as declared in csrc/flash_*.cu
+        lib.flash_fwd.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
+        lib.flash_bwd_dq.argtypes = [p] * 9 + [i] * 8 + [f, i, p]
+        lib.flash_bwd_dkdv.argtypes = [p] * 10 + [i] * 8 + [f, i, i, p]
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkdv):
+            fn.restype = ctypes.c_int
+        BUILD_INFO.update(seconds=time.perf_counter() - start,
+                          path=str(lib_path), log=log, cached=cached)
+        _lib = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# shared checks
+# ---------------------------------------------------------------------------
+
+def _heads(bh: int, bhkv: int, n_heads: int, n_kv_heads: int) -> None:
+    if (n_heads <= 0 or n_kv_heads <= 0 or n_heads % n_kv_heads
+            or bh % n_heads or bhkv % n_kv_heads
+            or bh // n_heads != bhkv // n_kv_heads):
+        raise ValueError('rows %d/%d do not factor as batch x heads with '
+                         'H=%d, Hkv=%d' % (bh, bhkv, n_heads, n_kv_heads))
+
+
+def kv_index(bh: int, n_heads: int, n_kv_heads: int,
+             device=None) -> torch.Tensor:
+    """Flat kv row read by every flat q row (the GQA head map)."""
+    b = torch.arange(bh, device=device)
+    group = n_heads // n_kv_heads
+    return (b // n_heads) * n_kv_heads + (b % n_heads) // group
+
+
+def _check_cuda(name, tensors, dtype, shapes):
+    for label, t in tensors.items():
+        if t is None:
+            continue
+        if not t.is_cuda:
+            raise ValueError('%s: %s is on %s, expected a CUDA tensor'
+                             % (name, label, t.device))
+        want = shapes[label][1]
+        if tuple(t.shape) != tuple(want):
+            raise ValueError('%s: %s has shape %s, expected %s'
+                             % (name, label, tuple(t.shape), tuple(want)))
+        if t.dtype != shapes[label][0]:
+            raise ValueError('%s: %s has dtype %s, expected %s'
+                             % (name, label, t.dtype, shapes[label][0]))
+        if not t.is_contiguous():
+            raise ValueError('%s: %s must be contiguous' % (name, label))
+    if dtype not in _DTYPES:
+        raise ValueError('%s: dtype %s not supported (float32, bfloat16)'
+                         % (name, dtype))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError('%s: CUDA launch failed with cudaError_t %d'
+                           % (name, err))
+
+
+def _geometry(q, k, n_heads, n_kv_heads, window):
+    bh, lq, d = q.shape
+    bhkv, lk, dk = k.shape
+    _heads(bh, bhkv, n_heads, n_kv_heads)
+    if dk != d:
+        raise ValueError('q and k head dims differ: %d vs %d' % (d, dk))
+    if window is not None and window < 1:
+        raise ValueError('window must be >= 1, got %r' % (window,))
+    return bh, bhkv, lq, lk, d
+
+
+# ---------------------------------------------------------------------------
+# plain twins (float32 math, kv streamed in blocks like the kernels)
+# ---------------------------------------------------------------------------
+
+_PLAIN_BLOCK = 512
+
+
+def _block_mask(q_pos, k_pos, lk, causal, window, seg_q, seg_k):
+    """(BH or 1, Lq, bk) validity of one kv block (the kernels' Mask)."""
+    mask = (k_pos < lk)[None, None, :].expand(1, q_pos.numel(), -1)
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])[None]
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)[None]
+    if seg_q is not None:
+        mask = mask & (seg_q[:, :, None] == seg_k[:, None, :])
+    return mask
+
+
+def _plain_setup(q, k, v, seg_q, seg_kv, n_heads, n_kv_heads):
+    """float32 operands with kv gathered per q row (GQA head map)."""
+    idx = kv_index(q.shape[0], n_heads, n_kv_heads, q.device)
+    k32, v32 = k.float()[idx], v.float()[idx]
+    sk = seg_kv[idx] if seg_kv is not None else None
+    return q.float(), k32, v32, sk
+
+
+def _kv_blocks(lk, block=_PLAIN_BLOCK):
+    for k0 in range(0, lk, block):
+        yield k0, min(k0 + block, lk)
+
+
+def flash_fwd_plain(q, k, v, *, n_heads, n_kv_heads, causal=True,
+                    window=None, seg_q=None, seg_kv=None, scale=None,
+                    block_k=_PLAIN_BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's function in plain PyTorch: online softmax over kv blocks of
+    ``block_k`` (differentiable by autograd)."""
+    bh, _, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    q32, k32, v32, sk = _plain_setup(q, k, v, seg_q, seg_kv, n_heads,
+                                     n_kv_heads)
+    q_pos = torch.arange(lq, device=q.device)
+    o = torch.zeros(bh, lq, d, dtype=torch.float32, device=q.device)
+    m = torch.full((bh, lq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(bh, lq, dtype=torch.float32, device=q.device)
+    for k0, k1 in _kv_blocks(lk, block_k):
+        k_pos = torch.arange(k0, k1, device=q.device)
+        mask = _block_mask(q_pos, k_pos, lk, causal, window, seg_q,
+                           None if sk is None else sk[:, k0:k1])
+        s = torch.einsum('bqd,bkd->bqk', q32, k32[:, k0:k1]) * scale
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum('bqk,bkd->bqd', p,
+                                               v32[:, k0:k1])
+        m = m_new
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(l == 0, torch.full_like(l, NEG_INF),
+                      m + torch.log(safe_l))
+    return (o / safe_l[..., None]).to(q.dtype), lse
+
+
+def _recompute_p_ds(q32, do32, k_blk, v_blk, lse, delta, mask, scale):
+    """The reference's ``_bwd_recompute_p_ds``: p gated by the mask and by
+    ``lse > NEG_INF / 2``; ds = p * (do v^T - delta) * scale."""
+    s = torch.einsum('bqd,bkd->bqk', q32, k_blk) * scale
+    live = mask & (lse > NEG_INF / 2)[..., None]
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum('bqd,bkd->bqk', do32, v_blk)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
+                       causal=True, window=None, seg_q=None, seg_kv=None,
+                       scale=None) -> torch.Tensor:
+    """K2's function in plain PyTorch: dq = sum over kv blocks of ds k."""
+    _, _, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    q32, k32, v32, sk = _plain_setup(q, k, v, seg_q, seg_kv, n_heads,
+                                     n_kv_heads)
+    do32 = do.float()
+    q_pos = torch.arange(lq, device=q.device)
+    dq = torch.zeros_like(q32)
+    for k0, k1 in _kv_blocks(lk):
+        k_pos = torch.arange(k0, k1, device=q.device)
+        mask = _block_mask(q_pos, k_pos, lk, causal, window, seg_q,
+                           None if sk is None else sk[:, k0:k1])
+        _, ds = _recompute_p_ds(q32, do32, k32[:, k0:k1], v32[:, k0:k1], lse,
+                                delta, mask, scale)
+        dq = dq + torch.einsum('bqk,bkd->bqd', ds, k32[:, k0:k1])
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
+                         causal=True, window=None, seg_q=None, seg_kv=None,
+                         scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain PyTorch: per-q-head dk = ds^T q, dv = p^T do,
+    in k's dtype for multi-head attention and float32 partials for GQA."""
+    bh, _, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    q32, k32, v32, sk = _plain_setup(q, k, v, seg_q, seg_kv, n_heads,
+                                     n_kv_heads)
+    do32 = do.float()
+    q_pos = torch.arange(lq, device=q.device)
+    dks, dvs = [], []
+    for k0, k1 in _kv_blocks(lk):
+        k_pos = torch.arange(k0, k1, device=q.device)
+        mask = _block_mask(q_pos, k_pos, lk, causal, window, seg_q,
+                           None if sk is None else sk[:, k0:k1])
+        p, ds = _recompute_p_ds(q32, do32, k32[:, k0:k1], v32[:, k0:k1], lse,
+                                delta, mask, scale)
+        dvs.append(torch.einsum('bqk,bqd->bkd', p, do32))
+        dks.append(torch.einsum('bqk,bqd->bkd', ds, q32))
+    out = torch.float32 if n_heads != n_kv_heads else k.dtype
+    if not dks:
+        empty = torch.zeros(bh, 0, d, dtype=out, device=q.device)
+        return empty, empty.clone()
+    return torch.cat(dks, 1).to(out), torch.cat(dvs, 1).to(out)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _seg_shapes(seg_q, seg_kv, bh, bhkv, lq, lk):
+    if (seg_q is None) != (seg_kv is None):
+        raise ValueError('pass both seg_q and seg_kv, or neither')
+    return {'seg_q': (torch.int32, (bh, lq)),
+            'seg_kv': (torch.int32, (bhkv, lk))}
+
+
+def _launch_args(q, n_heads, n_kv_heads, causal, window):
+    bh, lq, d = q.shape
+    if d != _HEAD_DIM:
+        raise ValueError('head dim %d not supported by the CUDA kernels '
+                         '(built for %d only)' % (d, _HEAD_DIM))
+    if bh > 65535:
+        raise ValueError('batch x heads = %d exceeds the grid limit 65535'
+                         % bh)
+    return (n_heads, n_kv_heads, int(bool(causal)),
+            int(window) if causal and window is not None else 0)
+
+
+def flash_fwd(q, k, v, *, n_heads, n_kv_heads, causal=True, window=None,
+              seg_q=None, seg_kv=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: ``(o, lse)``; o in q's dtype, lse float32 ``(BH, Lq)``."""
+    if not q.is_cuda:
+        return flash_fwd_plain(q, k, v, n_heads=n_heads,
+                               n_kv_heads=n_kv_heads, causal=causal,
+                               window=window, seg_q=seg_q, seg_kv=seg_kv)
+    bh, bhkv, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    shapes = {'q': (q.dtype, (bh, lq, d)), 'k': (q.dtype, (bhkv, lk, d)),
+              'v': (q.dtype, (bhkv, lk, d))}
+    shapes.update(_seg_shapes(seg_q, seg_kv, bh, bhkv, lq, lk))
+    _check_cuda('flash_fwd', {'q': q, 'k': k, 'v': v, 'seg_q': seg_q,
+                              'seg_kv': seg_kv}, q.dtype, shapes)
+    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, lq, dtype=torch.float32, device=q.device)
+    if lq == 0 or bh == 0:
+        return o, lse
+    lib = build()
+    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        _ptr(seg_q), _ptr(seg_kv), o.data_ptr(),
+                        lse.data_ptr(), bh, h, hkv, lq, lk, d, c, w,
+                        1.0 / math.sqrt(d), _DTYPES[q.dtype], _stream())
+    LAUNCHES['flash_fwd'] += 1
+    _raise_on('flash_fwd', err)
+    return o, lse
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, seg_q, seg_kv, n_heads,
+               n_kv_heads, window):
+    bh, bhkv, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    shapes = {'q': (q.dtype, (bh, lq, d)), 'k': (q.dtype, (bhkv, lk, d)),
+              'v': (q.dtype, (bhkv, lk, d)), 'do': (q.dtype, (bh, lq, d)),
+              'lse': (torch.float32, (bh, lq)),
+              'delta': (torch.float32, (bh, lq))}
+    shapes.update(_seg_shapes(seg_q, seg_kv, bh, bhkv, lq, lk))
+    _check_cuda(name, {'q': q, 'k': k, 'v': v, 'do': do, 'lse': lse,
+                       'delta': delta, 'seg_q': seg_q, 'seg_kv': seg_kv},
+                q.dtype, shapes)
+    return bh, bhkv, lq, lk, d
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
+                 causal=True, window=None, seg_q=None,
+                 seg_kv=None) -> torch.Tensor:
+    """K2: dq in q's dtype."""
+    if not q.is_cuda:
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, n_heads=n_heads,
+                                  n_kv_heads=n_kv_heads, causal=causal,
+                                  window=window, seg_q=seg_q, seg_kv=seg_kv)
+    bh, _, lq, lk, d = _check_bwd('flash_bwd_dq', q, k, v, do, lse, delta,
+                                  seg_q, seg_kv, n_heads, n_kv_heads, window)
+    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    dq = torch.empty_like(q)
+    if lq == 0 or bh == 0:
+        return dq
+    lib = build()
+    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           _ptr(seg_q), _ptr(seg_kv), dq.data_ptr(), bh, h,
+                           hkv, lq, lk, d, c, w, 1.0 / math.sqrt(d),
+                           _DTYPES[q.dtype], _stream())
+    LAUNCHES['flash_bwd_dq'] += 1
+    _raise_on('flash_bwd_dq', err)
+    return dq
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
+                   causal=True, window=None, seg_q=None,
+                   seg_kv=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: per-q-head ``(dk, dv)`` of shape ``(BH, Lk, D)``; k's dtype for
+    multi-head attention, float32 partials for GQA (sum them per group)."""
+    if not q.is_cuda:
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, n_heads=n_heads,
+                                    n_kv_heads=n_kv_heads, causal=causal,
+                                    window=window, seg_q=seg_q,
+                                    seg_kv=seg_kv)
+    bh, _, lq, lk, d = _check_bwd('flash_bwd_dkdv', q, k, v, do, lse, delta,
+                                  seg_q, seg_kv, n_heads, n_kv_heads, window)
+    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    out_f32 = n_heads != n_kv_heads
+    out = torch.float32 if out_f32 else k.dtype
+    dk = torch.empty(bh, lk, d, dtype=out, device=q.device)
+    dv = torch.empty(bh, lk, d, dtype=out, device=q.device)
+    if lk == 0 or bh == 0:
+        return dk, dv
+    lib = build()
+    err = lib.flash_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                             _ptr(seg_q), _ptr(seg_kv), dk.data_ptr(),
+                             dv.data_ptr(), bh, h, hkv, lq, lk, d, c, w,
+                             1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                             int(out_f32), _stream())
+    LAUNCHES['flash_bwd_dkdv'] += 1
+    _raise_on('flash_bwd_dkdv', err)
+    return dk, dv

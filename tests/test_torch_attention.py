@@ -1,0 +1,194 @@
+"""Parity of the port's attention (petastorm_tpu_torch.ops.attention) with the
+JAX package's Pallas flash kernels run in interpret mode.
+
+The same numpy inputs go through ``_pallas_flash`` / ``_pallas_flash_backward``
+(``interpret=True``) and through the port's CPU path, which is the plain
+PyTorch twin of each CUDA kernel (K1 forward, K2 dq, K3 dk/dv). All float32;
+tolerance ``atol = rtol = 2e-5`` (the two sum in different block orders:
+Pallas blocks of 16, the twins blocks of 512). A CUDA-marked test holds the
+kernels themselves against the twins on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from petastorm_tpu.ops.attention import (_pallas_flash,
+                                         _pallas_flash_backward,
+                                         flash_attention as jax_flash)
+from petastorm_tpu_torch.ops import attention as tatt
+from petastorm_tpu_torch.ops import kernels
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+BLOCK = 16
+
+# (name, q heads, kv heads, Lq, Lk, causal, window, segmented)
+CASES = [
+    ('causal', 2, 2, 40, 40, True, None, False),
+    ('non_causal_cross', 2, 2, 40, 24, False, None, False),
+    ('ragged', 2, 2, 37, 37, True, None, False),
+    ('gqa', 4, 2, 40, 40, True, None, False),
+    ('segments_masked_row', 2, 2, 40, 40, True, None, True),
+    ('window', 2, 2, 40, 40, True, 8, False),
+]
+
+
+def _inputs(seed, h, hkv, lq, lk, d=16, segmented=False):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, h, lq, d)).astype(np.float32)
+    k = rng.standard_normal((1, hkv, lk, d)).astype(np.float32)
+    v = rng.standard_normal((1, hkv, lk, d)).astype(np.float32)
+    do = rng.standard_normal((1, h, lq, d)).astype(np.float32)
+    segs = {}
+    if segmented:
+        # two documents; kv position 0 carries an id no query has, so query
+        # row 0 (causal: sees only k=0) is fully masked
+        seg_q = np.where(np.arange(lq) < lq // 2, 0, 1)[None].astype(np.int32)
+        seg_kv = np.where(np.arange(lk) < lk // 2, 0, 1)[None].astype(np.int32)
+        seg_kv[0, 0] = 7
+        segs = {'segment_ids': seg_q, 'kv_segment_ids': seg_kv}
+    return q, k, v, do, segs
+
+
+def _jax_segs(segs):
+    return {k: jnp.asarray(v) for k, v in segs.items()}
+
+
+def _torch_segs(segs):
+    return {k: torch.from_numpy(v) for k, v in segs.items()}
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_forward_matches_pallas_interpret(case):
+    _, h, hkv, lq, lk, causal, window, segmented = case
+    q, k, v, _, segs = _inputs(1, h, hkv, lq, lk, segmented=segmented)
+    o_ref, lse_ref = _pallas_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, BLOCK, BLOCK,
+        interpret=True, with_lse=True, window=window, **_jax_segs(segs))
+    o, lse = tatt.flash_attention_with_lse(*_t(q, k, v), causal=causal,
+                                           window=window, **_torch_segs(segs))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), **TOL)
+    if segmented:   # the fully masked row: o = 0, lse = -1e30
+        assert lse[0, 0, 0] == torch.tensor(kernels.NEG_INF)
+        assert not o[0, :, 0].any()
+
+
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_backward_matches_pallas_interpret(case):
+    _, h, hkv, lq, lk, causal, window, segmented = case
+    q, k, v, do, segs = _inputs(2, h, hkv, lq, lk, segmented=segmented)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = _pallas_flash(jq, jk, jv, causal, BLOCK, BLOCK, interpret=True,
+                           with_lse=True, window=window, **_jax_segs(segs))
+    ref = _pallas_flash_backward(jq, jk, jv, o, lse, jdo, causal=causal,
+                                 block_q=BLOCK, block_k=BLOCK, interpret=True,
+                                 window=window, **_jax_segs(segs))
+    got = tatt.flash_backward(*_t(q, k, v, np.array(o), np.array(lse),
+                                  do), causal=causal, window=window,
+                              **_torch_segs(segs))
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, ref):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+
+
+@pytest.mark.parametrize('case', [CASES[0], CASES[3], CASES[4]],
+                         ids=['causal', 'gqa', 'segments_masked_row'])
+def test_autograd_matches_jax_grad(case):
+    _, h, hkv, lq, lk, causal, window, segmented = case
+    q, k, v, w, segs = _inputs(3, h, hkv, lq, lk, segmented=segmented)
+
+    def jax_loss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, block_q=BLOCK, block_k=BLOCK,
+                      backend='interpret', window=window, **_jax_segs(segs))
+        return jnp.sum(o * jnp.asarray(w))
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    o = tatt.flash_attention(tq, tk, tv, causal=causal, window=window,
+                             **_torch_segs(segs))
+    (o * torch.from_numpy(w)).sum().backward()
+    for name, a, b in zip(('dq', 'dk', 'dv'), (tq.grad, tk.grad, tv.grad),
+                          ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+
+
+def test_blockwise_matches_flash_forward():
+    q, k, v, _, segs = _inputs(4, 2, 2, 40, 40, segmented=True)
+    tq, tk, tv = _t(q, k, v)
+    ref, _ = tatt.flash_attention_with_lse(tq, tk, tv, causal=True,
+                                           **_torch_segs(segs))
+    got = tatt.blockwise_attention(tq, tk, tv, causal=True, block_k=16,
+                                   **_torch_segs(segs))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
+
+
+def test_cpu_wrappers_count_no_launch():
+    kernels.reset_launch_counts()
+    q, k, v, do, _ = _inputs(5, 2, 2, 40, 40)
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    tatt.flash_attention(tq, tk, tv).sum().backward()
+    assert kernels.LAUNCHES == {'flash_fwd': 0, 'flash_bwd_dq': 0,
+                                'flash_bwd_dkdv': 0}
+
+
+def test_invalid_geometry_raises():
+    q = torch.zeros(1, 3, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match='GQA'):
+        tatt.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match='window requires causal'):
+        tatt.flash_attention(q, q, q, causal=False, window=4)
+
+
+def _assert_rounded(got, ref32, name):
+    """A bfloat16 kernel output against the float32 twin: the kernel sums in
+    float32 and rounds once to nearest, so it is within half a bfloat16 ulp
+    of ``ref32`` plus 1e-5 for the float32 sums' order."""
+    _, exp = torch.frexp(ref32)
+    half_ulp = torch.ldexp(torch.ones_like(ref32), exp - 9)
+    err = (got.float() - ref32).abs()
+    bad = err > half_ulp + 1e-5 * (1 + ref32.abs())
+    assert not bool(bad.any()), '%s: %d elements beyond half a bf16 ulp' % (
+        name, int(bad.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_cuda_kernels_match_plain_twins(dtype):
+    """K1-K3 on the card against their plain twins run in float32 on the CPU
+    on the same values: atol = rtol = 1e-4 for float32 outputs, half a bf16
+    ulp for bfloat16 ones (run on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    dt = getattr(torch, dtype)
+    q, k, v, do, segs = _inputs(6, 4, 2, 300, 300, d=64, segmented=True)
+    dev = [torch.from_numpy(x).cuda().to(dt) for x in (q, k, v, do)]
+    host = [x.cpu().float() for x in dev]
+    tsegs = _torch_segs(segs)
+    kw = dict(causal=True, window=128)
+    dsegs = {n: s.cuda() for n, s in tsegs.items()}
+
+    def close(got, ref, name):
+        if dt == torch.float32:
+            torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        else:
+            _assert_rounded(got.cpu(), ref, name)
+
+    o, lse = tatt.flash_attention_with_lse(*dev[:3], **kw, **dsegs)
+    o_ref, lse_ref = tatt.flash_attention_with_lse(*host[:3], **kw, **tsegs)
+    close(o, o_ref, 'o')
+    torch.testing.assert_close(lse.cpu(), lse_ref, atol=1e-4, rtol=1e-4)
+    grads = tatt.flash_backward(*dev[:3], o, lse, dev[3], **kw, **dsegs)
+    ref = tatt.flash_backward(*host[:3], o.cpu().float(), lse.cpu(), host[3],
+                              **kw, **tsegs)
+    for name, a, b in zip(('dq', 'dk', 'dv'), grads, ref):
+        close(a, b, name)
