@@ -2,28 +2,43 @@
 """Drive the PyTorch / CUDA port on one NVIDIA GPU and check it.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, each
-printing one line:
+printing one line or a few:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the CUDA flash-attention kernels from ``csrc/``;
+2. build: compile the four CUDA kernels from ``csrc/`` in one ``nvcc`` call;
 3. kernels: K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
    PyTorch twins run in float32 on the same values, at the training shape
    (8, 8, 2048, 64) bf16 causal (each bf16 output within half a bf16 ulp of
    the twin, plus 1e-5 for the float32 sums' order) and at float32 edge
    shapes (ragged L=300, GQA 8->2, segment ids with a fully masked row,
-   window 128; atol = rtol = 1e-4);
-4. reference: the full-width model's loss and gradients on a small input,
-   flash kernels against the plain blockwise attention;
-5. main path: a Parquet token store written with ``materialize_dataset``,
+   window 128; atol = rtol = 1e-4); K4 (image normalisation) against its
+   twin bit for bit, over every uint8 value in every channel (mean 0 / std 1
+   in bf16, ImageNet mean/std in bf16 and in float32), at the image line's
+   batch shape (64, 224, 224, 3) and on a misaligned input with a tail;
+4. reference: the full-width LM's loss and gradients on a small input,
+   flash kernels against the plain blockwise attention; the full-width image
+   CNN's loss on 8 images of 224 x 224 with K4 and with the twin's
+   normalisation, bit for bit;
+5. LM main path: a Parquet token store written with ``materialize_dataset``,
    read through ``make_reader`` (NGram) -> ``TorchDataLoader`` ->
    ``prefetch_to_device``, and AdamW steps of the flagship transformer LM
    (vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048, L 2048, bf16,
    ``attention='flash'``), with each kernel's launch count over those steps;
-6. times: each kernel's median time at the training shape beside its bound,
-   its plain twin's time and a library call's time as a yardstick (never
-   used by the port): ``scaled_dot_product_attention`` for the forward, and
-   aten's flash-attention backward, which computes dq, dk and dv in one call,
-   for K2 and K3 together.
+6. image main path: a png ``CompressedImageCodec`` store of 256 synthetic
+   variable-size images (375 x 500, each side +-20%), trained on by the
+   example's ``train()`` on the card: ``make_columnar_reader`` with the
+   resize to 224 x 224 on 8 worker threads -> ``TorchDataLoader`` ->
+   ``prefetch_to_device``, and SGD steps of the image CNN (widths
+   64/128/256, 2 blocks, 16 classes, bf16, batch 64), with K4's launch
+   count and the device's busy share over 2 profiled steps;
+7. MNIST line: a 2048-row store read row by row through ``make_reader`` ->
+   ``TorchDataLoader`` (shuffling) -> MLP SGD steps for one epoch;
+8. times: each kernel's time at its path shape beside its bound, its plain
+   twin's time and a library call's time as a yardstick (never used by the
+   port): ``scaled_dot_product_attention`` for the forward, aten's
+   flash-attention backward (dq, dk and dv in one call) for K2 and K3
+   together, and none for K4 (no PyTorch call computes it; ``x.to(bf16)``,
+   which moves the same bytes, is printed as a yardstick of bytes).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -48,6 +63,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12            # float32 outside the tensor cores
 
 PATH_SHAPE = (8, 8, 2048, 64)     # B, H, L, head_dim of the LM's attention
 TOL_F32 = 1e-4                    # atol = rtol: float32 sums in other order
@@ -57,6 +73,17 @@ BATCH = 8                         # windows of 2048 tokens per step
 ROWS = 320                        # store rows: 2 row groups, 318 windows
 REPS = 20                         # timed launches per kernel (median)
 
+IMAGE_CODEC = 'png'               # cv2 is on the card: decode runs there
+IMAGE_ROWS = 256                  # image store rows (~12 row groups)
+IMAGE_BATCH = 64
+IMAGE_SIZE = 224
+IMAGE_CLASSES = 16
+IMAGE_STEPS = 6                   # image main-path steps (the first warms up)
+IMAGE_WORKERS = 8
+K4_SHAPE = (IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
+K4_LOOP = 100                     # K4 launches between two events
+MNIST_ROWS = 2048
+
 KERNELS = {
     'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd.cu',
                   'petastorm_tpu/ops/attention.py:260'),
@@ -64,7 +91,12 @@ KERNELS = {
                      'petastorm_tpu/ops/attention.py:658'),
     'flash_bwd_dkdv': ('petastorm_tpu_torch/csrc/flash_bwd.cu',
                        'petastorm_tpu/ops/attention.py:706'),
+    'normalize': ('petastorm_tpu_torch/csrc/normalize.cu',
+                  'petastorm_tpu/ops/normalize.py:21'),
 }
+
+
+FLASH = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkdv')
 
 
 def log(msg):
@@ -158,7 +190,7 @@ def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
 
 
 # ---------------------------------------------------------------------------
-# phase 4 / 5: reference and main path
+# phase 4 / 5: LM reference and main path
 # ---------------------------------------------------------------------------
 
 def reference_check(torch, tlm, seed):
@@ -253,9 +285,14 @@ def main_path(torch, np, tlm, kernels, args):
                            BATCH * cfg.max_seq_len / dt))
                 launches = dict(kernels.LAUNCHES)
                 if args.profile:
-                    profile_steps(torch, step, batches, 2)
+                    def run_step():
+                        batch = next(batches)
+                        tokens = batch[0]['tokens']
+                        nxt = batch[1]['tokens'][:, :1]
+                        step(tokens, torch.cat([tokens[:, 1:], nxt], 1))
+                    profile_steps(torch, run_step, 2, 'flash', 'LM')
     check(all(math.isfinite(x) for x in losses), 'non-finite loss')
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[k] > 0 for k in FLASH),
           'a kernel was not launched on the main path: %r' % launches)
     steady = times[1:] or times
     log('main path %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
@@ -267,20 +304,18 @@ def main_path(torch, np, tlm, kernels, args):
     return launches
 
 
-def profile_steps(torch, step, batches, n):
-    """Profile ``n`` more train steps: device time by kernel (top 12) and
-    the device's busy share of the wall time, to standard error."""
+def profile_steps(torch, run_step, n, match, label):
+    """Profile ``n`` more train steps (``run_step()`` runs one): device time
+    by kernel (top 12) to standard error, and one line with the device's
+    busy share of the wall time and the share of device time in kernels
+    whose name contains ``match``. Returns the busy share (%)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            batch = next(batches)
-            tokens = batch[0]['tokens']
-            targets = torch.cat([tokens[:, 1:], batch[1]['tokens'][:, :1]],
-                                1)
-            step(tokens, targets)
+            run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -292,19 +327,179 @@ def profile_steps(torch, step, batches, n):
            if getattr(e, 'device_type', None) == DeviceType.CUDA]
     dev = sorted((t, k) for t, k in dev if t > 0)[::-1]
     busy = sum(t for t, _ in dev)
-    print('profile %d steps: wall %.0f us, device busy %.0f us (%.1f%%)'
-          % (n, wall_us, busy, 100 * busy / wall_us), file=sys.stderr)
+    print('profile %s, %d steps: wall %.0f us, device busy %.0f us (%.1f%%)'
+          % (label, n, wall_us, busy, 100 * busy / wall_us), file=sys.stderr)
     for t, k in dev[:12]:
         print('  %10.0f us %5.1f%%  %s' % (t, 100 * t / max(busy, 1), k[:90]),
               file=sys.stderr)
-    log('profile %d steps: device busy %.1f%% of wall, attention kernels '
-        '%.1f%% of device time'
-        % (n, 100 * busy / wall_us,
-           100 * sum(t for t, k in dev if 'flash' in k) / max(busy, 1)))
+    log('profile %s %d steps: wall %.0f us, device busy %.1f%% of wall, '
+        '%s kernels %.1f%% of device time'
+        % (label, n, wall_us, 100 * busy / wall_us, match,
+           100 * sum(t for t, k in dev if match in k) / max(busy, 1)))
+    return 100 * busy / wall_us
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 6 / 7: image and MNIST lines
+# ---------------------------------------------------------------------------
+
+def k4_check(torch, kernels, seed):
+    """K4 against its twin, bit for bit; returns the max abs error (0)."""
+    from petastorm_tpu_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+    v = torch.arange(256, dtype=torch.uint8).reshape(2, 16, 8)
+    exhaustive = torch.stack([v, v.roll(1), v.roll(2)], -1).cuda()
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    batch = torch.randint(0, 256, K4_SHAPE, generator=gen, device='cuda',
+                          dtype=torch.uint8)
+    flat = torch.arange(1 + 7 * 5 * 3, device='cuda').to(torch.uint8)
+    tail = flat[1:].view(1, 7, 5, 3)    # storage offset 1, 105 = 6 x 16 + 9
+    zero_one = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    imagenet = (IMAGENET_MEAN, IMAGENET_STD)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [('all uint8 x 3 ch, 0/1 bf16', exhaustive, zero_one, bf16),
+             ('all uint8 x 3 ch, imagenet bf16', exhaustive, imagenet, bf16),
+             ('all uint8 x 3 ch, imagenet f32', exhaustive, imagenet, f32),
+             ('batch %s 0/1 bf16' % (K4_SHAPE,), batch, zero_one, bf16),
+             ('batch %s imagenet bf16' % (K4_SHAPE,), batch, imagenet, bf16),
+             ('misaligned + tail, imagenet f32', tail, imagenet, f32)]
+    worst = 0.0
+    for label, x, (mean, std), dtype in cases:
+        m = torch.tensor(mean, dtype=torch.float32)
+        inv = 1.0 / torch.tensor(std, dtype=torch.float32)
+        got = kernels.normalize(x, m, inv, dtype)
+        ref = kernels.normalize_plain(x, m, inv, dtype)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == bf16 else torch.int32
+        differ = int((got.view(bits) != ref.view(bits)).sum())
+        err = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        log('kernels normalize %-36s %d of %d elements differ in any bit, '
+            'max_abs_err %.3g (limit: bit-equal)'
+            % (label, differ, got.numel(), err))
+        check(differ == 0 and got.dtype == dtype and got.shape == x.shape,
+              'normalize %s: %d elements differ from the twin'
+              % (label, differ))
+    return worst
+
+
+def image_reference_check(torch, kernels, seed):
+    """The full-width CNN's loss on 8 images of 224 x 224, with K4 and with
+    the twin's normalisation, on the same parameters: bit for bit."""
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    from petastorm_tpu_torch.ops.normalize import normalize_images
+    params = cnn.init(torch.Generator().manual_seed(seed),
+                      num_classes=IMAGE_CLASSES, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(seed + 1)
+    x = torch.randint(0, 256, (8, IMAGE_SIZE, IMAGE_SIZE, 3), generator=gen,
+                      device='cuda', dtype=torch.uint8)
+    labels = torch.randint(0, IMAGE_CLASSES, (8,), generator=gen,
+                           device='cuda')
+    zero, one = torch.zeros(3), torch.ones(3)
+    with torch.no_grad():
+        k4 = cnn.loss_fn(params, normalize_images(x, (0.0, 0.0, 0.0),
+                                                  (1.0, 1.0, 1.0)), labels)
+        plain = cnn.loss_fn(params, kernels.normalize_plain(
+            x, zero, one, torch.bfloat16), labels)
+    check(math.isfinite(k4.item()) and torch.equal(k4, plain),
+          'image reference: K4 loss %r vs twin %r' % (k4.item(),
+                                                      plain.item()))
+    log('reference image CNN loss with K4 %.9f, with the twin %.9f '
+        '(limit: bit-equal)' % (k4.item(), plain.item()))
+
+
+def image_main_path(torch, kernels, args):
+    """The example's ``train()`` on the card at its defaults, from a png
+    store; two more steps profiled on the same pipeline."""
+    from petastorm_tpu_torch.examples.imagenet.generate_imagenet import (
+        generate, synthetic_rows)
+    from petastorm_tpu_torch.examples.imagenet.main import train
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'images')
+        start = time.perf_counter()
+        n = generate(url, synthetic_rows(IMAGE_ROWS, classes=IMAGE_CLASSES,
+                                         seed=args.seed),
+                     row_group_size_mb=8, image_codec=IMAGE_CODEC)
+        log('store %d rows, image (None, None, 3) uint8 under '
+            'CompressedImageCodec(%r), 375 x 500 +-20%%, written in %.2f s'
+            % (n, IMAGE_CODEC, time.perf_counter() - start))
+        seen = {}
+
+        def then(batches, step):
+            seen['launches'] = dict(kernels.LAUNCHES)
+
+            def run_step():
+                b = next(batches)
+                images = b['image']
+                check(images.is_cuda and images.dtype == torch.uint8
+                      and tuple(images.shape) == K4_SHAPE,
+                      'image batch %s %s on %s' % (
+                          images.dtype, tuple(images.shape), images.device))
+                step(images, b['label'])
+            seen['busy'] = profile_steps(torch, run_step, 2, 'normalize',
+                                         'image')
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        params, losses, times = train(
+            url, batch_size=IMAGE_BATCH, steps=IMAGE_STEPS,
+            workers_count=IMAGE_WORKERS, num_classes=IMAGE_CLASSES,
+            image_size=IMAGE_SIZE, seed=args.seed, log_every=1,
+            log=lambda line: log('image ' + line), then=then)
+    launches = seen['launches']
+    # a step on a batch already on the card with the reader gone: what the
+    # step costs without the input pipeline beside it
+    gen = torch.Generator(device='cuda').manual_seed(args.seed)
+    images = torch.randint(0, 256, K4_SHAPE, generator=gen, device='cuda',
+                           dtype=torch.uint8)
+    labels = torch.randint(0, IMAGE_CLASSES, (IMAGE_BATCH,), generator=gen,
+                           device='cuda')
+    step = cnn.make_train_step(params, lr=1e-3)
+    alone = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        step(images, labels)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t0)
+    check(all(math.isfinite(x) for x in losses), 'image: non-finite loss')
+    check(launches['normalize'] == IMAGE_STEPS,
+          'K4 launched %d times in %d image steps'
+          % (launches['normalize'], IMAGE_STEPS))
+    steady = statistics.median(t for _, t in times[1:])
+    log('image main path %d steps, loss %.4f -> %.4f, steady step %.2f ms '
+        '(batch wait %.2f ms), %.0f images/s, device busy %.1f%%, K4 '
+        'launches %d; step alone on a batch on the card, reader stopped: '
+        '%.2f ms'
+        % (len(losses), losses[0], losses[-1], steady * 1e3,
+           statistics.median(w for w, _ in times[1:]) * 1e3,
+           IMAGE_BATCH / steady, seen['busy'], launches['normalize'],
+           statistics.median(alone[1:]) * 1e3))
+    return launches
+
+
+def mnist_line(torch, args):
+    from petastorm_tpu_torch.examples.mnist.main import (
+        generate_synthetic_mnist, train)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'mnist')
+        generate_synthetic_mnist(url, n=MNIST_ROWS, seed=args.seed)
+        start = time.perf_counter()
+        params, losses, acc = train(url, epochs=1, device='cuda',
+                                    seed=args.seed, log=log)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - start
+    check(params['w1'].is_cuda, 'MNIST params are not on the card')
+    check(all(math.isfinite(x) for x in losses), 'MNIST: non-finite loss')
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    check(last < first, 'MNIST loss did not fall: %.4f -> %.4f'
+          % (first, last))
+    log('mnist %d rows, %d steps in %.2f s, loss %.4f -> %.4f (first and '
+        'last 4 steps), accuracy %.3f' % (MNIST_ROWS, len(losses), dt, first,
+                                          last, acc))
+
+
+# ---------------------------------------------------------------------------
+# phase 8: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -384,6 +579,48 @@ def timings(torch, kernels, gen, reps):
     return out
 
 
+def loop_ms(torch, fn, n):
+    """Device time of one ``fn()`` from ``n`` calls between two events. A
+    sleep kernel queued first keeps the card busy while the host enqueues
+    the calls, so the events time the launches back to back and not the
+    host's launch rate; median of 5 such loops."""
+    for _ in range(3):
+        fn()
+    samples = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)          # ~25 ms at 2 GHz
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / n)
+    return statistics.median(samples)
+
+
+def k4_times(torch, kernels, seed):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randint(0, 256, K4_SHAPE, generator=gen, device='cuda',
+                      dtype=torch.uint8)
+    zero, one = torch.zeros(3), torch.ones(3)
+    bf16 = torch.bfloat16
+    nbytes = x.numel() * (1 + 2)        # read uint8 once, write bf16 once
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * x.numel() / PEAK_F32_FLOPS
+    return {
+        'ms': loop_ms(torch, lambda: kernels.normalize(x, zero, one, bf16),
+                      K4_LOOP),
+        'plain_ms': loop_ms(
+            torch, lambda: kernels.normalize_plain(x, zero, one, bf16), 20),
+        'yardstick_ms': loop_ms(torch, lambda: x.to(bf16), K4_LOOP),
+        'bound': (max(t_bytes, t_ops) * 1e3,
+                  'bytes' if t_bytes >= t_ops else 'operations'),
+    }
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None):
@@ -414,9 +651,9 @@ def main(argv=None):
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
 
-    start = time.perf_counter()
+    wall = start = time.perf_counter()
     kernels.build()
-    log('build %.1f s (nvcc, one call, %s)'
+    log('build %.1f s (nvcc, one call, 4 kernels, %s)'
         % (time.perf_counter() - start,
            'cached' if kernels.BUILD_INFO['cached'] else 'fresh'))
     if args.ptxas_log:
@@ -438,25 +675,58 @@ def main(argv=None):
     compare_case(torch, kernels, 'f32 window=128', gen, b=1, h=2, hkv=2,
                  lq=512, lk=512, window=128, **f32)
 
+    phase = time.perf_counter()
+    errs['normalize'] = k4_check(torch, kernels, args.seed)
+    log('phase K4 check %.1f s' % (time.perf_counter() - phase))
+
     reference_check(torch, tlm, args.seed)
+    phase = time.perf_counter()
+    image_reference_check(torch, kernels, args.seed)
+    log('phase image reference %.1f s' % (time.perf_counter() - phase))
+
     launches = main_path(torch, np, tlm, kernels, args)
+    phase = time.perf_counter()
+    launches['normalize'] = image_main_path(torch, kernels,
+                                            args)['normalize']
+    log('phase image main path %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    mnist_line(torch, args)
+    log('phase MNIST line %.1f s' % (time.perf_counter() - phase))
+
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)
+    phase = time.perf_counter()
+    k4 = k4_times(torch, kernels, args.seed)
+    log('phase K4 times %.1f s' % (time.perf_counter() - phase))
+    times['normalize'] = {
+        'ms': k4['ms'], 'plain_ms': k4['plain_ms'], 'library_ms': None,
+        'library': 'none: no single PyTorch call computes this function',
+        'yardstick_ms': k4['yardstick_ms'],
+        'yardstick': 'x.to(torch.bfloat16): the same bytes, not the function'}
+    bound['normalize'] = k4['bound']
     table = []
     for name, (source, replaces) in KERNELS.items():
         t = times[name]
-        table.append({'name': name, 'route': 'cuda', 'source': source,
-                      'replaces': replaces, 'status': 'ported',
-                      'launches': launches[name],
-                      'max_abs_err': errs[name], 'ms': t['ms'],
-                      'plain_ms': t['plain_ms'], 'bound_ms': bound[name][0],
-                      'bound_by': bound[name][1],
-                      'library_ms': t['library_ms'],
-                      'library': t['library']})
-        log('time %-15s %.3f ms (bound %.4f ms by %s, plain %.3f ms, '
-            'library %.3f ms: %s)'
+        row = {'name': name, 'route': 'cuda', 'source': source,
+               'replaces': replaces, 'status': 'ported',
+               'launches': launches[name],
+               'max_abs_err': errs[name], 'ms': t['ms'],
+               'plain_ms': t['plain_ms'], 'bound_ms': bound[name][0],
+               'bound_by': bound[name][1],
+               'library_ms': t['library_ms'], 'library': t['library']}
+        if 'yardstick_ms' in t:
+            row.update(yardstick_ms=t['yardstick_ms'],
+                       yardstick=t['yardstick'])
+        table.append(row)
+        log('time %-15s %.4f ms (bound %.4f ms by %s, plain %.4f ms, '
+            'library %s: %s%s)'
             % (name, t['ms'], bound[name][0], bound[name][1], t['plain_ms'],
-               t['library_ms'], t['library']))
+               'n/a' if t['library_ms'] is None
+               else '%.4f ms' % t['library_ms'], t['library'],
+               '; yardstick %.4f ms, %s' % (t['yardstick_ms'],
+                                            t['yardstick'])
+               if 'yardstick_ms' in t else ''))
+    log('wall %.1f s' % (time.perf_counter() - wall))
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

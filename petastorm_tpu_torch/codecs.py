@@ -1,8 +1,10 @@
-"""Per-field codecs of the port: ``NdarrayCodec`` and ``ScalarCodec``.
+"""Per-field codecs of the port: ``NdarrayCodec``, ``ScalarCodec``,
+``CompressedNdarrayCodec`` and ``CompressedImageCodec``.
 
-A copy of the two codecs the token-store path needs from
-``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247, ``ScalarCodec`` :633, the
-strict ``np.save`` header parser ``_parse_fast_npy_header`` :205). Codecs are
+A copy of the codecs the token and image paths need from
+``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247, ``CompressedNdarrayCodec``
+:387, ``CompressedImageCodec`` :421, ``ScalarCodec`` :633, the strict
+``np.save`` header parser ``_parse_fast_npy_header`` :205). Codecs are
 serialized to JSON by registered name, never pickled, under the same names
 as the JAX package, so stores written by either package read in the other.
 A schema naming any other codec raises ``NotImplementedError``.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import io
 import re
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import pyarrow as pa
@@ -20,9 +22,7 @@ import pyarrow as pa
 #: Codecs of the JAX package that this port does not carry yet, with the
 #: slice that brings them.
 _LATER = {
-    'compressed_image': 'the image slice',
-    'compressed_ndarray': 'the image slice',
-    'arrow_list': 'the columnar-reader slice',
+    'arrow_list': 'the MoE / GQA config slice',
 }
 
 
@@ -37,6 +37,39 @@ def split_binary_chunk(chunk: pa.Array):
     data = (np.frombuffer(data_buf, dtype=np.uint8)
             if data_buf is not None else np.empty(0, np.uint8))
     return offsets, data
+
+
+def _is_fixed(field) -> bool:
+    return field.shape is not None and all(s is not None for s in field.shape)
+
+
+def decode_cells(field, chunk: pa.Array,
+                 decode_cell: Callable) -> np.ndarray:
+    """Decode a binary chunk cell by cell (cells are zero-copy uint8 views):
+    ``(n, *shape)`` for a fixed-shape null-free field, else an object array
+    with ``None`` for null cells (the JAX reader's ``_decode_cells``)."""
+    n = len(chunk)
+    if n == 0:
+        if _is_fixed(field):
+            return np.empty((0,) + tuple(field.shape),
+                            np.dtype(field.numpy_dtype))
+        return np.empty(0, dtype=object)
+    offsets, data = split_binary_chunk(chunk)
+    valid = (chunk.is_valid().to_numpy(zero_copy_only=False)
+             if chunk.null_count else None)
+    cells = [data[int(offsets[i]):int(offsets[i + 1])]
+             if valid is None or valid[i] else None for i in range(n)]
+    if _is_fixed(field) and valid is None:
+        first = decode_cell(cells[0])
+        out = np.empty((n,) + first.shape, dtype=first.dtype)
+        out[0] = first
+        for i in range(1, n):
+            out[i] = decode_cell(cells[i])
+        return out
+    out = np.empty(n, dtype=object)
+    for i, cell in enumerate(cells):
+        out[i] = None if cell is None else decode_cell(cell)
+    return out
 
 
 def _is_compliant_shape(actual: tuple, expected: tuple) -> bool:
@@ -256,7 +289,127 @@ class ScalarCodec(_Codec):
             self._dtype if self._dtype is not None else '')
 
 
-_CODEC_REGISTRY = {c.codec_name: c for c in (NdarrayCodec, ScalarCodec)}
+class CompressedNdarrayCodec(_Codec):
+    """zlib-compressed ndarray via ``np.savez_compressed``."""
+
+    codec_name = 'compressed_ndarray'
+
+    def encode(self, field, value):
+        _check_dtype(field, value)
+        _check_shape(field, value)
+        memfile = io.BytesIO()
+        np.savez_compressed(memfile, arr=value)
+        return memfile.getvalue()
+
+    def decode(self, field, value):
+        return np.load(io.BytesIO(value))['arr']
+
+    def make_cell_decoder(self, field):
+        def decode_cell(cell):       # BytesIO takes buffer views directly
+            return np.load(io.BytesIO(cell))['arr']
+        return decode_cell
+
+    def decode_column(self, field, chunk: pa.Array) -> np.ndarray:
+        return decode_cells(field, chunk, self.make_cell_decoder(field))
+
+    def arrow_type(self, field):
+        return pa.binary()
+
+    def __repr__(self):
+        return 'CompressedNdarrayCodec()'
+
+
+class CompressedImageCodec(_Codec):
+    """png/jpeg image compression via OpenCV, imported when first used.
+
+    Values are uint8 (or uint16 for png) ``(H, W)`` or ``(H, W, 3)`` arrays
+    in RGB order; cv2's BGR order is converted at the codec boundary."""
+
+    codec_name = 'compressed_image'
+
+    def __init__(self, image_codec='png', quality=80):
+        if image_codec not in ('png', 'jpeg', 'jpg'):
+            raise ValueError('image_codec must be png or jpeg, got {!r}'
+                             .format(image_codec))
+        self._image_codec = '.' + image_codec
+        self._quality = int(quality)
+
+    @property
+    def image_codec(self):
+        return self._image_codec[1:]
+
+    @property
+    def quality(self):
+        return self._quality
+
+    def encode(self, field, value):
+        import cv2
+        _check_dtype(field, value)
+        _check_shape(field, value)
+        image = value
+        if value.ndim == 3 and value.shape[2] == 3:
+            image = cv2.cvtColor(value, cv2.COLOR_RGB2BGR)
+        params = ([int(cv2.IMWRITE_JPEG_QUALITY), self._quality]
+                  if self._image_codec in ('.jpeg', '.jpg') else [])
+        ok, contents = cv2.imencode(self._image_codec, image, params)
+        if not ok:
+            raise ValueError('cv2.imencode failed for field {!r}'
+                             .format(field.name))
+        return contents.tobytes()
+
+    def decode(self, field, value):
+        return self.make_cell_decoder(field)(value)
+
+    def make_cell_decoder(self, field):
+        """``decode`` with the cv2 lookups hoisted out of the per-cell loop;
+        takes bytes or a uint8 view."""
+        import cv2
+        imdecode, cvt_color = cv2.imdecode, cv2.cvtColor
+        bgr2rgb, flag = cv2.COLOR_BGR2RGB, cv2.IMREAD_UNCHANGED
+        name = field.name
+
+        def decode_cell(cell):
+            if not isinstance(cell, np.ndarray):
+                cell = np.frombuffer(cell, np.uint8)
+            img = imdecode(cell, flag)
+            if img is None:
+                raise ValueError('cv2.imdecode failed for field {!r}'
+                                 .format(name))
+            if img.ndim == 3 and img.shape[2] == 3:
+                return cvt_color(img, bgr2rgb)
+            return img
+        return decode_cell
+
+    def make_column_decoder(self, field):
+        """``decode_chunk(chunk)``: :meth:`decode_column` for one field."""
+        decode_cell = self.make_cell_decoder(field)
+        return lambda chunk: decode_cells(field, chunk, decode_cell)
+
+    def decode_column(self, field, chunk: pa.Array) -> np.ndarray:
+        """``(n, *shape)`` for a fixed-shape null-free column; wildcard
+        shapes (variable-size images) give an object array of frames."""
+        return decode_cells(field, chunk, self.make_cell_decoder(field))
+
+    def arrow_type(self, field):
+        return pa.binary()
+
+    def to_json_dict(self):
+        return {'codec': self.codec_name, 'image_codec': self.image_codec,
+                'quality': self._quality}
+
+    @classmethod
+    def from_json_dict(cls, d):
+        return cls(image_codec=d.get('image_codec', 'png'),
+                   quality=d.get('quality', 80))
+
+    def __repr__(self):
+        return 'CompressedImageCodec({!r}, quality={})'.format(
+            self.image_codec, self._quality)
+
+
+_CODEC_REGISTRY = {c.codec_name: c for c in (NdarrayCodec, ScalarCodec,
+                                             CompressedNdarrayCodec,
+                                             CompressedImageCodec)}
 
 
 def codec_from_json_dict(d: Dict[str, Any]):

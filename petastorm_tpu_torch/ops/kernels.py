@@ -1,13 +1,15 @@
-"""Hand-written CUDA flash-attention kernels (``csrc/flash_*.cu``), their
-build and binding, and the plain PyTorch twin of each.
+"""Hand-written CUDA kernels (``csrc/*.cu``), their build and binding, and
+the plain PyTorch twin of each.
 
-Three kernels, each behind one wrapper with the same contract as its twin:
+Four kernels, each behind one wrapper with the same contract as its twin:
 
 - ``flash_fwd`` (K1, ``csrc/flash_fwd.cu``): ``(o, lse)``;
 - ``flash_bwd_dq`` (K2, ``csrc/flash_bwd.cu``): ``dq``;
-- ``flash_bwd_dkdv`` (K3, ``csrc/flash_bwd.cu``): ``(dk, dv)`` per q head.
+- ``flash_bwd_dkdv`` (K3, ``csrc/flash_bwd.cu``): ``(dk, dv)`` per q head;
+- ``normalize`` (K4, ``csrc/normalize.cu``): a uint8 image batch
+  normalised per channel to bfloat16 or float32.
 
-The kernel contract is over flattened, contiguous tensors: q/do/o
+The attention kernels' contract is over flattened, contiguous tensors: q/do/o
 ``(BH, Lq, D)``, k/v ``(BHkv, Lk, D)`` with ``BH = B * H`` and ``BHkv = B *
 Hkv`` (grouped-query attention when ``Hkv < H``; q row ``b`` reads kv row
 ``(b // H) * Hkv + (b % H) // (H // Hkv)``), lse/delta float32 ``(BH, Lq)``,
@@ -18,8 +20,8 @@ launches its kernel or raises — there is no fallback.
 The kernels are compiled on first use with one ``nvcc`` call into
 ``petastorm_tpu_torch/_build/<hash of the sources>`` and loaded with
 ``ctypes``; nothing is built or imported from CUDA when this module is
-imported. They are instantiated for head dim 64 only (the flagship LM's);
-another head dim raises until a configuration needs it.
+imported. The attention kernels are instantiated for head dim 64 only (the
+flagship LM's); another head dim raises until a configuration needs it.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ import torch
 NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-_SOURCES = ('flash_common.cuh', 'flash_fwd.cu', 'flash_bwd.cu')
+_SOURCES = ('flash_common.cuh', 'flash_fwd.cu', 'flash_bwd.cu',
+            'normalize.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _HEAD_DIM = 64                 # csrc/flash_common.cuh kHeadDim
@@ -49,7 +52,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {'flash_fwd': 0, 'flash_bwd_dq': 0,
-                            'flash_bwd_dkdv': 0}
+                            'flash_bwd_dkdv': 0, 'normalize': 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -70,7 +73,7 @@ def _nvcc() -> str:
     default = '/usr/local/cuda/bin/nvcc'
     if os.path.exists(default):
         return default
-    raise RuntimeError('nvcc not found: the flash kernels are compiled on '
+    raise RuntimeError('nvcc not found: the CUDA kernels are compiled on '
                        'first use and need the CUDA toolkit')
 
 
@@ -84,7 +87,7 @@ def build() -> ctypes.CDLL:
         for name in _SOURCES:
             digest.update((_CSRC / name).read_bytes())
         out_dir = _CSRC.parent / '_build' / digest.hexdigest()[:16]
-        lib_path = out_dir / 'libpetastorm_flash.so'
+        lib_path = out_dir / 'libpetastorm_kernels.so'
         start = time.perf_counter()
         log, cached = '', lib_path.exists()
         if not cached:
@@ -106,7 +109,11 @@ def build() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
         lib.flash_bwd_dq.argtypes = [p] * 9 + [i] * 8 + [f, i, p]
         lib.flash_bwd_dkdv.argtypes = [p] * 10 + [i] * 8 + [f, i, i, p]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkdv):
+        # x, out; n; C; mean[4], inv_std[4]; out dtype; stream
+        lib.normalize_u8.argtypes = [p, p, ctypes.c_longlong, i] + [f] * 8 + [
+            i, p]
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkdv,
+                   lib.normalize_u8):
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.perf_counter() - start,
                           path=str(lib_path), log=log, cached=cached)
@@ -422,3 +429,58 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     LAUNCHES['flash_bwd_dkdv'] += 1
     _raise_on('flash_bwd_dkdv', err)
     return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# K4: image normalisation
+# ---------------------------------------------------------------------------
+
+def _check_channels(images, mean, inv_std, dtype):
+    if images.dtype != torch.uint8 or images.dim() != 4:
+        raise ValueError('normalize: images must be uint8 (N, H, W, C), got '
+                         '%s %s' % (images.dtype, tuple(images.shape)))
+    c = images.shape[-1]
+    for label, t in (('mean', mean), ('inv_std', inv_std)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise ValueError('normalize: %s must be float32 (%d,), got %s %s'
+                             % (label, c, t.dtype, tuple(t.shape)))
+    if dtype not in _DTYPES:
+        raise ValueError('normalize: dtype %s not supported (float32, '
+                         'bfloat16)' % (dtype,))
+
+
+def normalize_plain(images, mean, inv_std, dtype=torch.bfloat16):
+    """K4's function in plain PyTorch: ``((x * (1/255)) - mean) * inv_std``
+    in float32, each operation rounded on its own, then cast to ``dtype``.
+    ``mean`` and ``inv_std`` are float32 ``(C,)``."""
+    _check_channels(images, mean, inv_std, dtype)
+    x = images.float() * (1.0 / 255.0)
+    dev = images.device
+    return ((x - mean.to(dev)) * inv_std.to(dev)).to(dtype)
+
+
+def normalize(images, mean, inv_std, dtype=torch.bfloat16) -> torch.Tensor:
+    """K4: the uint8 ``(N, H, W, C)`` batch normalised per channel to
+    ``dtype`` (float32 or bfloat16), ``C <= 4``. ``mean`` and ``inv_std``
+    are float32 ``(C,)`` tensors on any device; their values travel to the
+    kernel as launch arguments."""
+    if not images.is_cuda:
+        return normalize_plain(images, mean, inv_std, dtype)
+    _check_channels(images, mean, inv_std, dtype)
+    if not images.is_contiguous():
+        raise ValueError('normalize: images must be contiguous')
+    c = images.shape[-1]
+    if c > 4:
+        raise ValueError('normalize: at most 4 channels, got %d' % c)
+    out = torch.empty(images.shape, dtype=dtype, device=images.device)
+    if images.numel() == 0:
+        return out
+    pad = [0.0] * (4 - c)
+    m = [float(v) for v in mean.cpu()] + pad
+    s = [float(v) for v in inv_std.cpu()] + pad
+    lib = build()
+    err = lib.normalize_u8(images.data_ptr(), out.data_ptr(), images.numel(),
+                           c, *m, *s, _DTYPES[dtype], _stream())
+    LAUNCHES['normalize'] += 1
+    _raise_on('normalize', err)
+    return out

@@ -1,8 +1,10 @@
-"""Column-major batching buffers: feed dicts of column arrays, take batches
-of exactly ``batch_size`` rows.
+"""Shuffling buffers: row-granular ones (add items, take one at a time) and
+column-major batching ones (feed dicts of column arrays, take batches of
+exactly ``batch_size`` rows).
 
-A copy of ``petastorm_tpu/readers/shuffling_buffer.py`` :131-286 (the
-batched no-op and random buffers).
+A copy of ``petastorm_tpu/readers/shuffling_buffer.py`` (the row buffers
+``NoopShufflingBuffer`` / ``RandomShufflingBuffer`` :48-128, and the batched
+no-op and random buffers :131-286).
 """
 
 from __future__ import annotations
@@ -10,6 +12,91 @@ from __future__ import annotations
 import collections
 
 import numpy as np
+
+
+class NoopShufflingBuffer:
+    """First in, first out."""
+
+    def __init__(self):
+        self._queue = collections.deque()
+        self._done = False
+
+    def add_many(self, items):
+        self._queue.extend(items)
+
+    def retrieve(self):
+        return self._queue.popleft()
+
+    def can_add(self):
+        return not self._done
+
+    def can_retrieve(self):
+        return len(self._queue) > 0
+
+    @property
+    def size(self):
+        return len(self._queue)
+
+    def finish(self):
+        self._done = True
+
+
+class RandomShufflingBuffer:
+    """Bounded uniform shuffling, seeded: each retrieve takes a random item
+    and moves the last one into its slot.
+
+    :param shuffling_buffer_capacity: ``can_add`` turns False at or above it
+        (one ``add_many`` may overshoot).
+    :param min_after_retrieve: ``can_retrieve`` needs this many items
+        buffered until :meth:`finish`.
+    :param extra_capacity: room for the overshoot.
+    """
+
+    def __init__(self, shuffling_buffer_capacity, min_after_retrieve,
+                 extra_capacity=1000, seed=None):
+        self._capacity = shuffling_buffer_capacity
+        self._min_after_retrieve = min_after_retrieve
+        self._items = [None] * (shuffling_buffer_capacity + extra_capacity)
+        self._size = 0
+        self._done_adding = False
+        self._random = np.random.RandomState(seed)
+
+    def add_many(self, items):
+        if self._done_adding:
+            raise RuntimeError('Cannot add to a finished shuffling buffer')
+        if not self.can_add():
+            raise RuntimeError('Buffer is over capacity; check can_add()')
+        needed = self._size + len(items)
+        if needed > len(self._items):
+            self._items.extend([None] * (needed - len(self._items)))
+        for item in items:
+            self._items[self._size] = item
+            self._size += 1
+
+    def retrieve(self):
+        if not self.can_retrieve():
+            raise RuntimeError('Not enough items in the buffer; check '
+                               'can_retrieve()')
+        idx = self._random.randint(self._size)
+        item = self._items[idx]
+        self._size -= 1
+        self._items[idx] = self._items[self._size]
+        self._items[self._size] = None
+        return item
+
+    def can_add(self):
+        return self._size < self._capacity and not self._done_adding
+
+    def can_retrieve(self):
+        floor = 1 if self._done_adding else self._min_after_retrieve
+        return self._size >= floor
+
+    @property
+    def size(self):
+        return self._size
+
+    def finish(self):
+        self._done_adding = True
 
 
 class BatchedBufferBase:

@@ -1,12 +1,13 @@
 """Torch loader and device staging: the port's counterpart of
 ``petastorm_tpu/jax_utils.py``.
 
-- :class:`TorchDataLoader` batches an NGram reader's window chunks into
-  ``{offset: {field: tensor}}`` batches of exactly ``batch_size`` windows
-  (the chunked path of ``JaxDataLoader``, ``jax_utils.py:656-697``, over
-  the batched buffers, ``_drive_batched_buffer`` :598-618). Windows shuffle
-  as whole units with a seeded buffer. Batches stay on the host, in pinned
-  memory when the loader's device is a CUDA device.
+- :class:`TorchDataLoader` batches a reader's NGram window chunks, row
+  groups of column arrays, or rows into batches of exactly ``batch_size``
+  (``JaxDataLoader``'s chunked NGram, batched and row paths over its
+  buffers, ``_drive_batched_buffer`` ``jax_utils.py:598-618`` and
+  ``_iter_row_stream`` :712-752). Items shuffle as whole units with a
+  seeded buffer. Batches stay on the host, in pinned memory when the
+  loader's device is a CUDA device.
 - :func:`prefetch_to_device` (``jax_utils.py:1193-1300``) stages batches
   ahead of the consumer on a background thread: ``non_blocking`` copies from
   pinned memory on a side CUDA stream, handed to the consumer's stream with
@@ -23,7 +24,8 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.readers.shuffling_buffer import (
-    BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer)
+    BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer,
+    NoopShufflingBuffer, RandomShufflingBuffer)
 
 
 def _map(batch, fn):
@@ -37,8 +39,16 @@ def _to_tensor(value, pin: bool):
     """numpy numeric/bool column → torch tensor (pinned when ``pin``);
     other columns (strings, ragged objects) stay numpy."""
     if isinstance(value, np.ndarray) and value.dtype.kind in 'biuf':
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        return t.pin_memory() if pin else t
+        if pin:             # one copy, straight into pinned memory
+            t = torch.empty(value.shape, pin_memory=True,
+                            dtype=torch.from_numpy(
+                                np.empty(0, value.dtype)).dtype)
+            np.copyto(t.numpy(), value)
+            return t
+        # a read-only column (a zero-copy arrow view) is copied: a tensor
+        # over it could be written to
+        return torch.from_numpy(np.ascontiguousarray(value)
+                                if value.flags.writeable else np.array(value))
     return value
 
 
@@ -53,11 +63,23 @@ def _take_rows(col, pos):
 
 
 class TorchDataLoader:
-    """Batches of exactly ``batch_size`` NGram windows (the last short one
-    dropped when ``drop_last``) from a ``make_reader(..., NGram)`` reader.
+    """Batches of exactly ``batch_size`` items (the last short one dropped
+    when ``drop_last``) from a reader of the port, as dicts of tensors:
 
-    :param shuffling_queue_capacity: 0 keeps reader order; otherwise windows
-        shuffle in a buffer of that many windows, seeded by ``seed``.
+    - an NGram reader (``make_reader(..., NGram)``): ``{offset: {field:
+      tensor}}`` batches of windows, collated column-wise from window
+      chunks (``jax_utils.py:656-697``);
+    - a columnar reader (``make_columnar_reader``, ``batched_output``):
+      ``{field: tensor}`` batches re-chunked from the row groups' column
+      arrays (``_iter_batched``, ``jax_utils.py:620-636``);
+    - a row reader (``make_reader(..., [fields] or None)``): ``{field:
+      tensor}`` batches collated from rows (``_iter_rows``,
+      ``jax_utils.py:638-654, 712-783``).
+
+    Numeric columns become tensors; strings and ragged columns stay numpy.
+
+    :param shuffling_queue_capacity: 0 keeps reader order; otherwise items
+        (windows, rows) shuffle in a buffer of that many, seeded by ``seed``.
     :param device: the device batches are meant for (``'cuda'`` by default,
         which raises without CUDA; ``'cpu'`` explicitly). On a CUDA device
         the host tensors are pinned so :func:`prefetch_to_device` copies
@@ -69,9 +91,10 @@ class TorchDataLoader:
         self.device = resolve_device(device)
         self.reader = reader
         self._ngram = getattr(reader, 'ngram', None)
-        if self._ngram is None or not getattr(reader, 'ngram_chunked', False):
+        if self._ngram is not None and not getattr(reader, 'ngram_chunked',
+                                                   False):
             raise NotImplementedError(
-                'TorchDataLoader batches chunked NGram readers in this slice')
+                'TorchDataLoader batches NGram readers through window chunks')
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.batch_size = batch_size
@@ -89,7 +112,7 @@ class TorchDataLoader:
                 batch_size=self.batch_size, seed=self.seed)
         return BatchedNoopShufflingBuffer(self.batch_size)
 
-    def _column_stream(self):
+    def _window_columns(self):
         offsets, base, fields_at = self._ngram.timestep_layout(
             self.reader.schema.fields)
         for chunk in self.reader.iter_ngram_chunks():
@@ -102,26 +125,91 @@ class TorchDataLoader:
                         flat[(off, name)] = _take_rows(col, pos)
             yield flat
 
-    def _finish(self, flat):
-        batch = {}
-        for (off, name), col in flat.items():
-            batch.setdefault(off, {})[name] = _to_tensor(col, self._pin)
-        return batch
+    def _row_group_columns(self):
+        for item in self.reader:
+            yield item._asdict()
 
-    def __iter__(self):
+    def _tensors(self, batch):
+        out = {}
+        for key, col in batch.items():
+            col = _to_tensor(col, self._pin)
+            if isinstance(key, tuple):             # (offset, field)
+                out.setdefault(key[0], {})[key[1]] = col
+            else:
+                out[key] = col
+        return out
+
+    def _drive_batched_buffer(self, column_stream):
+        """Feed column dicts, drain fixed-size batches, honour
+        ``drop_last`` on the tail."""
         buffer = self._make_buffer()
-        for columns in self._column_stream():
+        for columns in column_stream:
             while not buffer.can_add():
-                yield self._finish(buffer.retrieve())
+                yield self._tensors(buffer.retrieve())
             buffer.add_many(columns)
             while buffer.can_retrieve() and buffer.size >= self.batch_size:
-                yield self._finish(buffer.retrieve())
+                yield self._tensors(buffer.retrieve())
         buffer.finish()
         while buffer.can_retrieve():
             batch = buffer.retrieve()
             n = len(next(iter(batch.values())))
             if n == self.batch_size or not self.drop_last:
-                yield self._finish(batch)
+                yield self._tensors(batch)
+
+    def _iter_rows(self):
+        """Row stream through a row shuffling buffer, collated into
+        fixed-size batches."""
+        if self.shuffling_queue_capacity > 0:
+            buffer = RandomShufflingBuffer(
+                self.shuffling_queue_capacity,
+                min_after_retrieve=max(1, self.shuffling_queue_capacity - 1),
+                seed=self.seed)
+        else:
+            buffer = NoopShufflingBuffer()
+        pending = []
+
+        def drain(final):
+            while buffer.can_retrieve():
+                pending.append(buffer.retrieve())
+                if len(pending) == self.batch_size:
+                    yield self._tensors(_collate(pending))
+                    pending.clear()
+            if final and pending and not self.drop_last:
+                yield self._tensors(_collate(pending))
+
+        for row in self.reader:
+            while not buffer.can_add():
+                yield from drain(False)
+                if not buffer.can_retrieve():
+                    break
+            buffer.add_many([row._asdict()])
+            yield from drain(False)
+        buffer.finish()
+        yield from drain(True)
+
+    def __iter__(self):
+        if self._ngram is not None:
+            return self._drive_batched_buffer(self._window_columns())
+        if getattr(self.reader, 'batched_output', False):
+            return self._drive_batched_buffer(self._row_group_columns())
+        return self._iter_rows()
+
+
+def _collate(rows):
+    """Rows (dicts) → column arrays: stacked where every value has one
+    shape and a numeric dtype, else an object array of the values."""
+    out = {}
+    for key in rows[0]:
+        vals = [np.asarray(r[key]) for r in rows]
+        if (len({v.shape for v in vals}) == 1
+                and not {v.dtype.kind for v in vals} & set('USO')):
+            out[key] = np.stack(vals)
+        else:
+            col = np.empty(len(vals), dtype=object)
+            for i, v in enumerate(vals):
+                col[i] = v
+            out[key] = col
+    return out
 
 
 def prefetch_to_device(iterator, size=2, device=None):

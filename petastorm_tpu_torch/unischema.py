@@ -1,16 +1,20 @@
-"""Unischema of the port: typed fields, arrow storage schema, JSON form and
-row encoding.
+"""Unischema of the port: typed fields, row namedtuples, arrow storage
+schema, JSON form and row encoding.
 
-A copy of what the token-store path needs from ``petastorm_tpu/unischema.py``
-(``UnischemaField`` :35-99, ``Unischema`` :125-204, ``match_unischema_fields``
-:269, ``insert_explicit_nulls`` :279, ``encode_row`` :291). The JSON form is
-the JAX package's, so a schema written by either package loads in the other.
+A copy of what the token, image and row paths need from
+``petastorm_tpu/unischema.py`` (``UnischemaField`` :35-99,
+``_NamedtupleCache`` :102-122, ``Unischema`` :125-204,
+``match_unischema_fields`` :269, ``insert_explicit_nulls`` :279,
+``encode_row`` :291). The JSON form is the JAX package's, so a schema written
+by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import threading
+from collections import namedtuple
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -81,8 +85,27 @@ class UnischemaField:
         return cls(d['name'], dtype, shape, codec, d.get('nullable', False))
 
 
+class _NamedtupleCache:
+    """One namedtuple type per (schema name, field names), so rows of one
+    schema always share a type, whichever thread asks first."""
+
+    _store: Dict[str, Any] = {}
+    _lock = threading.Lock()
+
+    @classmethod
+    def get(cls, parent_name: str, field_names: Iterable[str]):
+        names = sorted(field_names)
+        key = ' '.join([parent_name] + names)
+        with cls._lock:
+            cached = cls._store.get(key)
+            if cached is None:
+                cached = cls._store[key] = namedtuple(parent_name, names)
+        return cached
+
+
 class Unischema:
-    """Fields by name (sorted), with views and the arrow storage schema."""
+    """Fields by name (sorted), with views, row types and the arrow storage
+    schema."""
 
     def __init__(self, name: str, fields: List[UnischemaField]):
         self._name = name
@@ -90,6 +113,10 @@ class Unischema:
                                                   key=lambda t: t.name)}
         for f in self._fields.values():
             setattr(self, f.name, f)
+
+    @property
+    def name(self) -> str:
+        return self._name
 
     @property
     def fields(self) -> Dict[str, UnischemaField]:
@@ -110,6 +137,25 @@ class Unischema:
         matched = match_unischema_fields(self, regexes)
         view = {f.name: f for f in objs + matched}
         return Unischema('{}_view'.format(self._name), list(view.values()))
+
+    def make_namedtuple(self, **values):
+        """A row namedtuple (fields in name order); a scalar string field's
+        value is cast to ``str``."""
+        typed = {}
+        for key, value in values.items():
+            field = self._fields[key]
+            is_str = (field.numpy_dtype is str
+                      or (not isinstance(field.numpy_dtype, type)
+                          and field.numpy_dtype.kind == 'U'))
+            if (value is not None and field.shape == () and is_str
+                    and not isinstance(value, str)):
+                value = str(value)
+            typed[key] = value
+        return _NamedtupleCache.get(self._name, self._fields)(**typed)
+
+    def make_batch_namedtuple(self, **columns):
+        """A namedtuple of whole column arrays, uncast."""
+        return _NamedtupleCache.get(self._name, self._fields)(**columns)
 
     def as_arrow_schema(self) -> pa.Schema:
         return pa.schema([

@@ -1,8 +1,12 @@
-"""Load the JAX package's transformer-LM parameters into the port.
+"""Load the JAX package's model parameters into the port.
 
-The JAX ``init`` pytree (``petastorm_tpu/models/transformer_lm.py:86-130``)
-is ``{'embed', 'final_norm', 'unembed', 'layers': [...]}`` of float32
-arrays. The port keeps that structure and layout unchanged:
+:func:`params_from_jax` (transformer LM), :func:`image_cnn_params_from_jax`
+and :func:`mnist_params_from_jax` take a numpy copy of the JAX ``init``
+pytree and return float32 torch tensors of the same structure and layout,
+with shape checks.
+
+The transformer LM's pytree (``petastorm_tpu/models/transformer_lm.py:86-130``)
+is ``{'embed', 'final_norm', 'unembed', 'layers': [...]}``:
 
 - ``embed`` ``(vocab, d_model)``; ``final_norm`` ``(d_model,)``;
   ``unembed`` ``(d_model, vocab)``;
@@ -43,11 +47,7 @@ def params_from_jax(numpy_pytree: Dict, config, device=None) -> Dict:
               'w_down': (c.d_ff, c.d_model)}
 
     def leaf(x, shape, name):
-        arr = np.asarray(x, dtype=np.float32)
-        if arr.shape != tuple(shape):
-            raise ValueError('%s has shape %s, config expects %s'
-                             % (name, arr.shape, tuple(shape)))
-        return torch.from_numpy(arr.copy()).to(device)
+        return _leaf(x, shape, name, device)
 
     layers = numpy_pytree['layers']
     if len(layers) != c.n_layers:
@@ -70,3 +70,68 @@ def params_from_jax(numpy_pytree: Dict, config, device=None) -> Dict:
                                       'layers[%d].%s' % (i, k))
                               for k in _LAYER_KEYS})
     return out
+
+
+def _leaf(x, shape, name, device):
+    arr = np.asarray(x, dtype=np.float32)
+    if arr.shape != tuple(shape):
+        raise ValueError('%s has shape %s, expected %s'
+                         % (name, arr.shape, tuple(shape)))
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def image_cnn_params_from_jax(numpy_pytree: Dict, device=None) -> Dict:
+    """The image CNN's parameters (``petastorm_tpu/models/image_cnn.py``
+    ``init`` :34-66): ``stem`` HWIO ``(7, 7, 3, w0)``, ``stem_scale`` /
+    ``stem_bias`` ``(w0,)``, ``stages`` a list of lists of blocks
+    (``conv1`` ``(3, 3, cin, w)``, ``conv2`` ``(3, 3, w, w)``, ``scale1/2``
+    ``bias1/2`` ``(w,)``, and ``proj`` ``(1, 1, cin, w)`` exactly where
+    ``cin != w``), ``head_w`` ``(cin, classes)``, ``head_b``
+    ``(classes,)``. The widths are read from the pytree and every leaf is
+    checked against them."""
+    device = resolve_device(device)
+    tree = numpy_pytree
+    w0 = np.shape(tree['stem'])[-1]
+    out = {'stem': _leaf(tree['stem'], (7, 7, 3, w0), 'stem', device),
+           'stem_scale': _leaf(tree['stem_scale'], (w0,), 'stem_scale',
+                               device),
+           'stem_bias': _leaf(tree['stem_bias'], (w0,), 'stem_bias', device),
+           'stages': []}
+    cin = w0
+    for s, stage in enumerate(tree['stages']):
+        blocks = []
+        for b, block in enumerate(stage):
+            name = 'stages[%d][%d].' % (s, b)
+            w = np.shape(block['conv1'])[-1]
+            shapes = {'conv1': (3, 3, cin, w), 'conv2': (3, 3, w, w),
+                      'scale1': (w,), 'bias1': (w,), 'scale2': (w,),
+                      'bias2': (w,)}
+            if cin != w:
+                shapes['proj'] = (1, 1, cin, w)
+            if set(block) != set(shapes):
+                raise ValueError('%s has leaves %s, expected %s'
+                                 % (name, sorted(block), sorted(shapes)))
+            blocks.append({k: _leaf(block[k], shape, name + k, device)
+                           for k, shape in shapes.items()})
+            cin = w
+        out['stages'].append(blocks)
+    classes = np.shape(tree['head_w'])[-1]
+    out['head_w'] = _leaf(tree['head_w'], (cin, classes), 'head_w', device)
+    out['head_b'] = _leaf(tree['head_b'], (classes,), 'head_b', device)
+    return out
+
+
+def mnist_params_from_jax(numpy_pytree: Dict, device=None) -> Dict:
+    """The MNIST MLP's parameters (``petastorm_tpu/models/mnist_mlp.py``
+    ``init`` :11-21): ``w1`` ``(input, hidden)``, ``b1`` ``(hidden,)``,
+    ``w2`` ``(hidden, classes)``, ``b2`` ``(classes,)``."""
+    device = resolve_device(device)
+    tree = numpy_pytree
+    d_in, hidden = np.shape(tree['w1'])
+    classes = np.shape(tree['w2'])[-1]
+    shapes = {'w1': (d_in, hidden), 'b1': (hidden,), 'w2': (hidden, classes),
+              'b2': (classes,)}
+    if set(tree) != set(shapes):
+        raise ValueError('MLP pytree has leaves %s, expected %s'
+                         % (sorted(tree), sorted(shapes)))
+    return {k: _leaf(tree[k], shape, k, device) for k, shape in shapes.items()}

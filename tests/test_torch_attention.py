@@ -137,7 +137,7 @@ def test_cpu_wrappers_count_no_launch():
     tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
     tatt.flash_attention(tq, tk, tv).sum().backward()
     assert kernels.LAUNCHES == {'flash_fwd': 0, 'flash_bwd_dq': 0,
-                                'flash_bwd_dkdv': 0}
+                                'flash_bwd_dkdv': 0, 'normalize': 0}
 
 
 def test_invalid_geometry_raises():

@@ -232,16 +232,15 @@ def test_pool_stress_delivers_each_item_once_per_epoch():
 
 
 def test_unported_codec_raises(tmp_path):
-    from petastorm_tpu.codecs import CompressedImageCodec
-    url = 'file://' + str(tmp_path / 'images')
-    schema = JUnischema('Img', [
+    from petastorm_tpu.codecs import ArrowListCodec
+    url = 'file://' + str(tmp_path / 'lists')
+    schema = JUnischema('Lists', [
         JField('step', np.int64, (), JScalarCodec(), False),
-        JField('image', np.uint8, (4, 4), CompressedImageCodec('png'),
-               False)])
+        JField('tokens', np.int32, (4,), ArrowListCodec(), False)])
     with petastorm_tpu.materialize_dataset(url, schema) as w:
         w.write_rows({'step': np.int64(i),
-                      'image': np.zeros((4, 4), np.uint8)} for i in range(3))
-    with pytest.raises(NotImplementedError, match='image slice'):
+                      'tokens': np.zeros(4, np.int32)} for i in range(3))
+    with pytest.raises(NotImplementedError, match='arrow_list'):
         make_reader(url, schema_fields=NGram({0: ['step']}, 1, 'step'))
 
 
