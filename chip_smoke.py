@@ -6,12 +6,20 @@ printing one line or a few:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the four CUDA kernels from ``csrc/`` in one ``nvcc`` call;
-3. kernels: K1 (forward), K2 (dq) and K3 (dk/dv) against their plain
-   PyTorch twins run in float32 on the same values, at the training shape
-   (8, 8, 2048, 64) bf16 causal (each bf16 output within half a bf16 ulp of
-   the twin, plus 1e-5 for the float32 sums' order) and at float32 edge
-   shapes (ragged L=300, GQA 8->2, segment ids with a fully masked row,
-   window 128; atol = rtol = 1e-4); K4 (image normalisation) against its
+3. kernels: the registers and spills of each kernel (``ptxas -v``); K1
+   (forward), K2 (dq) and K3 (dk/dv) against their plain PyTorch twins run
+   in float32 on the same values, at the training shape (8, 8, 2048, 64)
+   bf16 causal and at edge shapes in bf16 and in float32 (ragged L=300,
+   non-causal 300 x 170, GQA 8->2, segment ids with a fully masked row,
+   window 128). Float32 outputs: atol = rtol = 1e-4. bf16 dq: within half
+   a bf16 ulp of the twin plus 1e-5 (1 + |ref|) for the float32 sums'
+   order. bf16 o, dk and dv come from the tensor-core kernels, which round
+   p (and ds) to bf16 before the second product: within that plus
+   2^-8 B (``kernels.flash_gate_limit``); and on non-negative q, v and do
+   with delta = 0 (so p, ds and every term of o, dk and dv are
+   non-negative), the mean signed error within +-0.1 of the mean 2^-8 B
+   (``kernels.BIAS_LIMIT``: rounding to nearest has no bias; truncation
+   has). K4 (image normalisation) against its
    twin bit for bit, over every uint8 value in every channel (mean 0 / std 1
    in bf16, ImageNet mean/std in bf16 and in float32), at the image line's
    batch shape (64, 224, 224, 3) and on a misaligned input with a tail;
@@ -34,8 +42,8 @@ printing one line or a few:
 7. MNIST line: a 2048-row store read row by row through ``make_reader`` ->
    ``TorchDataLoader`` (shuffling) -> MLP SGD steps for one epoch;
 8. times: each kernel's time at its path shape beside its bound, its plain
-   twin's time and a library call's time as a yardstick (never used by the
-   port): ``scaled_dot_product_attention`` for the forward, aten's
+   twin's time, and a library call's time as a yardstick (never used by
+   the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
    together, and none for K4 (no PyTorch call computes it; ``x.to(bf16)``,
    which moves the same bytes, is printed as a yardstick of bytes).
@@ -85,11 +93,11 @@ K4_LOOP = 100                     # K4 launches between two events
 MNIST_ROWS = 2048
 
 KERNELS = {
-    'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd.cu',
+    'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
                   'petastorm_tpu/ops/attention.py:260'),
     'flash_bwd_dq': ('petastorm_tpu_torch/csrc/flash_bwd.cu',
                      'petastorm_tpu/ops/attention.py:658'),
-    'flash_bwd_dkdv': ('petastorm_tpu_torch/csrc/flash_bwd.cu',
+    'flash_bwd_dkdv': ('petastorm_tpu_torch/csrc/flash_bwd_sm90.cu',
                        'petastorm_tpu/ops/attention.py:706'),
     'normalize': ('petastorm_tpu_torch/csrc/normalize.cu',
                   'petastorm_tpu/ops/normalize.py:21'),
@@ -112,23 +120,29 @@ def check(cond, msg):
 # phase 3: kernels against plain twins
 # ---------------------------------------------------------------------------
 
-def _operands(torch, gen, b, h, hkv, lq, lk, d, dtype):
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device='cuda').to(dtype)
-    return (rnd(b * h, lq, d), rnd(b * hkv, lk, d), rnd(b * hkv, lk, d),
-            rnd(b * h, lq, d))
+def _operands(torch, gen, b, h, hkv, lq, lk, d, dtype, nonneg=False):
+    """q, k, v, do; with ``nonneg`` q, v and do are |randn|."""
+    def rnd(*shape, pos=False):
+        x = torch.randn(*shape, generator=gen, device='cuda')
+        return (x.abs() if pos else x).to(dtype)
+    return (rnd(b * h, lq, d, pos=nonneg), rnd(b * hkv, lk, d),
+            rnd(b * hkv, lk, d, pos=nonneg), rnd(b * h, lq, d, pos=nonneg))
 
 
-def _max_err(torch, got, ref, label):
-    """Max abs error of a kernel output against the float32 twin. A float32
-    output is held to atol = rtol = TOL_F32. A bfloat16 output comes from a
-    float32 sum rounded once to nearest, so it may differ from the twin by
-    half a bf16 ulp of the twin's value plus TOL_SUM (1 + |ref|) for the
-    order of the float32 sums: truncating, or holding p or ds in bf16, fails."""
+def _max_err(torch, got, ref, label, kernels=None, bound=None):
+    """Max abs error of a kernel output against the float32 twin. Given a
+    ``bound`` (an output of a bf16 tensor-core kernel, which rounds p or ds
+    to bf16 before its second product): ``kernels.flash_gate_limit``. Else a
+    float32 output is held to atol = rtol = TOL_F32, and a bfloat16 output,
+    a float32 sum rounded once to nearest, to half a bf16 ulp of the twin's
+    value plus TOL_SUM (1 + |ref|) for the order of the float32 sums:
+    truncating, or holding p or ds in bf16, fails."""
     check(bool(torch.isfinite(got).all()), '%s: non-finite output' % label)
     ref = ref.float()
     err = (got.float() - ref).abs()
-    if got.dtype == torch.float32:
+    if bound is not None:
+        limit = kernels.flash_gate_limit(ref, bound, got.dtype)
+    elif got.dtype == torch.float32:
         limit = TOL_F32 * (1 + ref.abs())
     else:
         _, exp = torch.frexp(ref)
@@ -142,11 +156,13 @@ def _max_err(torch, got, ref, label):
 
 
 def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
-                 causal=True, window=None, segmented=False):
+                 causal=True, window=None, segmented=False, nonneg=False):
     """Each kernel on ``dtype`` operands against its twin on the same
     values widened to float32 (exact), so the twin's sums stand before any
-    rounding to ``dtype``."""
-    q, k, v, do = _operands(torch, gen, b, h, hkv, lq, lk, d, dtype)
+    rounding to ``dtype``. With ``nonneg`` the backward passes get delta =
+    0, so ds = p (do v^T) scale >= 0 and a truncated ds biases dk. Returns
+    the max abs error per kernel."""
+    q, k, v, do = _operands(torch, gen, b, h, hkv, lq, lk, d, dtype, nonneg)
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     kw = dict(n_heads=h, n_kv_heads=hkv, causal=causal, window=window)
     if segmented:
@@ -157,15 +173,19 @@ def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
         kw['seg_kv'] = seg_kv.expand(b * hkv, lk).contiguous()
     o, lse = kernels.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = kernels.flash_fwd_plain(q32, k32, v32, **kw)
+    # both backward passes see the twin's o and lse
+    delta = (do32 * o_ref).sum(-1) * (0.0 if nonneg else 1.0)
+    bound = ({} if dtype == torch.float32 else
+             kernels.flash_rounding_bounds(q32, k32, v32, do32, lse_ref,
+                                           delta, **kw))
     torch.cuda.synchronize()
-    errs = {'flash_fwd': max(_max_err(torch, o, o_ref, label + ' o'),
-                             _max_err(torch, lse, lse_ref, label + ' lse'))}
+    errs = {'flash_fwd': max(
+        _max_err(torch, o, o_ref, label + ' o', kernels, bound.get('o')),
+        _max_err(torch, lse, lse_ref, label + ' lse'))}
     if segmented:
         check(bool((lse[:, 0] == kernels.NEG_INF).all())
               and not bool(o[:, 0].any()),
               '%s: fully masked row must give o=0, lse=-1e30' % label)
-    # both backward passes see the twin's o and lse
-    delta = (do32 * o_ref).sum(-1)
     dq = kernels.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
     dq_ref = kernels.flash_bwd_dq_plain(q32, k32, v32, do32, lse_ref, delta,
                                         **kw)
@@ -179,14 +199,36 @@ def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
                                                   dk.dtype))
     errs['flash_bwd_dq'] = _max_err(torch, dq, dq_ref, label + ' dq')
     errs['flash_bwd_dkdv'] = max(
-        _max_err(torch, dk, dk_ref, label + ' dk'),
-        _max_err(torch, dv, dv_ref, label + ' dv'))
-    log('kernels %-22s max_abs_err fwd %.3g dq %.3g dkdv %.3g (limit %s)'
+        _max_err(torch, dk, dk_ref, label + ' dk', kernels, bound.get('dk')),
+        _max_err(torch, dv, dv_ref, label + ' dv', kernels, bound.get('dv')))
+    bias = ''
+    if nonneg:
+        ratios = {n: kernels.rounding_bias(g, r, bound[n]) for n, g, r in
+                  (('o', o, o_ref), ('dk', dk, dk_ref), ('dv', dv, dv_ref))}
+        bias = '; bias o %+.4f dk %+.4f dv %+.4f (limit +-%g)' % (
+            ratios['o'], ratios['dk'], ratios['dv'], kernels.BIAS_LIMIT)
+        check(all(abs(r) < kernels.BIAS_LIMIT for r in ratios.values()),
+              '%s: rounding bias beyond +-%g: %r'
+              % (label, kernels.BIAS_LIMIT, ratios))
+    if dtype == torch.float32:
+        limits = 'atol=rtol=%g' % TOL_F32
+    else:
+        limits = ('o, dk, dv: half bf16 ulp + 2^-8 B + %g(1+|ref|); dq: half '
+                  'bf16 ulp + %g(1+|ref|)' % (TOL_SUM, TOL_SUM))
+    log('kernels %-26s max_abs_err fwd %.3g dq %.3g dkdv %.3g (limit %s)%s'
         % (label, errs['flash_fwd'], errs['flash_bwd_dq'],
-           errs['flash_bwd_dkdv'],
-           'atol=rtol=%g' % TOL_F32 if dtype == torch.float32
-           else 'half bf16 ulp + %g(1+|ref|)' % TOL_SUM))
+           errs['flash_bwd_dkdv'], limits, bias))
     return errs
+
+
+def ptxas_summary(log_text):
+    """One line per kernel entry from nvcc's ``-Xptxas -v`` report: its
+    (mangled) name, registers and spill stores/loads."""
+    import re
+    entry = re.compile(r"entry function '(\S+)'.*?(\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    return ['%s: %s registers, spill %s/%s B' % (name, regs, st, ld)
+            for name, st, ld, regs in entry.findall(log_text)]
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +698,8 @@ def main(argv=None):
     log('build %.1f s (nvcc, one call, 4 kernels, %s)'
         % (time.perf_counter() - start,
            'cached' if kernels.BUILD_INFO['cached'] else 'fresh'))
+    for line in ptxas_summary(kernels.BUILD_INFO['log']):
+        log('ptxas ' + line)
     if args.ptxas_log:
         print(kernels.BUILD_INFO['log'], file=sys.stderr)
 
@@ -663,17 +707,26 @@ def main(argv=None):
     b, h, l, d = PATH_SHAPE
     errs = compare_case(torch, kernels, 'path bf16 causal', gen, b=b, h=h,
                         hkv=h, lq=l, lk=l, d=d, dtype=torch.bfloat16)
-    f32 = dict(d=64, dtype=torch.float32)
-    compare_case(torch, kernels, 'f32 ragged L=300', gen, b=2, h=2, hkv=2,
-                 lq=300, lk=300, **f32)
-    compare_case(torch, kernels, 'f32 non-causal 300x170', gen, b=1, h=2,
-                 hkv=2, lq=300, lk=170, causal=False, **f32)
-    compare_case(torch, kernels, 'f32 gqa 8->2', gen, b=1, h=8, hkv=2,
-                 lq=256, lk=256, **f32)
-    compare_case(torch, kernels, 'f32 segments masked row', gen, b=2, h=2,
-                 hkv=2, lq=300, lk=300, segmented=True, **f32)
-    compare_case(torch, kernels, 'f32 window=128', gen, b=1, h=2, hkv=2,
-                 lq=512, lk=512, window=128, **f32)
+    edges = [('ragged L=300', dict(b=2, h=2, hkv=2, lq=300, lk=300)),
+             ('non-causal 300x170', dict(b=1, h=2, hkv=2, lq=300, lk=170,
+                                         causal=False)),
+             ('gqa 8->2', dict(b=1, h=8, hkv=2, lq=256, lk=256)),
+             ('segments masked row', dict(b=2, h=2, hkv=2, lq=300, lk=300,
+                                          segmented=True)),
+             ('window=128', dict(b=1, h=2, hkv=2, lq=512, lk=512,
+                                 window=128))]
+    for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+        for label, shape in edges:
+            case = compare_case(torch, kernels, '%s %s' % (tag, label), gen,
+                                d=64, dtype=dtype, **shape)
+            if dtype == torch.bfloat16:
+                for name, err in case.items():
+                    errs[name] = max(errs[name], err)
+    case = compare_case(torch, kernels, 'bf16 non-negative q, v, do', gen,
+                        b=2, h=4, hkv=4, lq=1024, lk=1024, d=64,
+                        dtype=torch.bfloat16, nonneg=True)
+    for name, err in case.items():
+        errs[name] = max(errs[name], err)
 
     phase = time.perf_counter()
     errs['normalize'] = k4_check(torch, kernels, args.seed)
@@ -718,9 +771,10 @@ def main(argv=None):
             row.update(yardstick_ms=t['yardstick_ms'],
                        yardstick=t['yardstick'])
         table.append(row)
-        log('time %-15s %.4f ms (bound %.4f ms by %s, plain %.4f ms, '
-            'library %s: %s%s)'
-            % (name, t['ms'], bound[name][0], bound[name][1], t['plain_ms'],
+        log('time %-15s %.4f ms, %.1f%% of its bound (bound %.4f ms by %s, '
+            'plain %.4f ms, library %s: %s%s)'
+            % (name, t['ms'], 100 * bound[name][0] / t['ms'], bound[name][0],
+               bound[name][1], t['plain_ms'],
                'n/a' if t['library_ms'] is None
                else '%.4f ms' % t['library_ms'], t['library'],
                '; yardstick %.4f ms, %s' % (t['yardstick_ms'],

@@ -21,12 +21,15 @@
 // causal, K2 does three products per live (q, k) pair (s, dp, dq) and K3
 // four (s, dp, dv, dk): 3*B*H*L^2*D and 4*B*H*L^2*D FLOP, 52 and 69 GFLOP,
 // against 85 MB and 102 MB of compulsory traffic. Both sit far above the
-// bf16 ridge, so they are bound by operations. As in the forward, this first
-// version computes on the FP32 CUDA cores from padded float32 shared-memory
-// tiles with 4 x 4 register micro-tiles; it recomputes p rather than
-// storing it, which is what keeps its traffic at the compulsory bytes.
-// wgmma / TMA versions are the next step.
+// bf16 ridge, so they are bound by operations. The kernels here compute on
+// the FP32 CUDA cores from padded float32 shared-memory tiles with 4 x 4
+// register micro-tiles; they recompute p rather than storing it, which is
+// what keeps their traffic at the compulsory bytes. K2 runs here in both
+// dtypes (a wgmma version of it is still to come); K3 runs here in float32
+// only (the tensor cores would multiply float32 as TF32), and its bf16
+// launches go to the wgmma / TMA kernel of flash_bwd_sm90.cu.
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace flash {
 
@@ -366,8 +369,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype as above; out_f32 = 1 writes float32 dk/dv (grouped-query partials),
-// 0 writes them in the input dtype.
+// dtype as above (bfloat16 on wgmma, flash_bwd_sm90.cu); out_f32 = 1 writes
+// float32 dk/dv (grouped-query partials), 0 writes them in the input dtype.
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, const int* segq,
@@ -383,13 +386,9 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                                 segq, segk, dk, dv, BH, H, Hkv,
                                                 Lq, Lk, causal, window, scale,
                                                 s);
-  if (dtype == 1 && out_f32)
-    return flash::launch_dkdv<__nv_bfloat16, float, HD>(
-        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk,
-        causal, window, scale, s);
   if (dtype == 1)
-    return flash::launch_dkdv<__nv_bfloat16, __nv_bfloat16, HD>(
-        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk,
-        causal, window, scale, s);
+    return flash::launch_dkdv_sm90(q, k, v, dout, lse, delta, segq, segk, dk,
+                                   dv, out_f32, BH, H, Hkv, Lq, Lk, causal,
+                                   window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,6 @@
-// Flash-attention forward (K1) for Hopper, CUDA C++.
+// Flash-attention forward (K1), float32, for Hopper's FP32 CUDA cores; and
+// the C entry point `flash_fwd`, which sends bf16 (dtype 1) to the
+// tensor-core kernel of flash_fwd_sm90.cu.
 //
 // Replaces: petastorm_tpu/ops/attention.py `_flash_kernel` (:260-348),
 // launched by `_pallas_flash` (:494-561).
@@ -18,16 +20,15 @@
 // no zero-padding copies: lse is written as (BH, Lq), segment ids are read
 // as (rows, L) int32, and the ragged edge is masked in the loads.
 //
-// What bounds it on the H100: at the slice's shape (8, 8, 2048, 64) bf16
-// causal the forward does 2*B*H*L^2*D = 34.4 GFLOP against 67.6 MB of
-// compulsory traffic, ~510 FLOP/byte: far above the bf16 ridge (~295), so it
-// is bound by operations. This first version does the products on the FP32
-// CUDA cores (67 TFLOP/s peak, not the 989 TFLOP/s of the tensor cores):
-// bf16 loads are widened to float32 into padded shared-memory tiles (row
-// stride D+1, conflict-free column reads), and each thread runs a 4 x 4
-// register micro-tile of the score block and a 4 x D/16 tile of the output.
-// Moving the two products onto wgmma with TMA-fed tiles is the next step.
+// Why float32 stays here: the tensor cores would multiply float32 as TF32
+// (about three decimal digits), and the float32 path is held to
+// atol = rtol = 1e-4. This kernel multiplies on the FP32 CUDA cores
+// (67 TFLOP/s peak): float32 tiles in padded shared memory (row stride
+// D+1, conflict-free column reads), a 4 x 4 register micro-tile of the
+// score block and a 4 x D/16 tile of the output per thread. No path of the
+// port runs float32 attention on the card; the bf16 path is the LM's.
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace flash {
 
@@ -189,7 +190,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* segq,
 
 }  // namespace flash
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (FP32 cores, above), 1 = bfloat16 (wgmma,
+// flash_fwd_sm90.cu). Returns a cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* segq, const int* segk, void* o, float* lse,
                          int BH, int H, int Hkv, int Lq, int Lk, int D,
@@ -202,8 +204,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     return flash::launch_fwd<float, HD>(q, k, v, segq, segk, o, lse, BH, H,
                                         Hkv, Lq, Lk, causal, window, scale, s);
   if (dtype == 1)
-    return flash::launch_fwd<__nv_bfloat16, HD>(q, k, v, segq, segk, o, lse,
-                                                BH, H, Hkv, Lq, Lk, causal,
-                                                window, scale, s);
+    return flash::launch_fwd_sm90(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq,
+                                  Lk, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

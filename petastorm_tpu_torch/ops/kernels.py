@@ -3,9 +3,13 @@ the plain PyTorch twin of each.
 
 Four kernels, each behind one wrapper with the same contract as its twin:
 
-- ``flash_fwd`` (K1, ``csrc/flash_fwd.cu``): ``(o, lse)``;
-- ``flash_bwd_dq`` (K2, ``csrc/flash_bwd.cu``): ``dq``;
-- ``flash_bwd_dkdv`` (K3, ``csrc/flash_bwd.cu``): ``(dk, dv)`` per q head;
+- ``flash_fwd`` (K1): ``(o, lse)``; bf16 on the tensor cores
+  (``csrc/flash_fwd_sm90.cu``: wgmma fed by TMA), float32 on the FP32 cores
+  (``csrc/flash_fwd.cu``);
+- ``flash_bwd_dq`` (K2, ``csrc/flash_bwd.cu``, FP32 cores): ``dq``;
+- ``flash_bwd_dkdv`` (K3): ``(dk, dv)`` per q head; bf16 on the tensor cores
+  (``csrc/flash_bwd_sm90.cu``), float32 on the FP32 cores
+  (``csrc/flash_bwd.cu``);
 - ``normalize`` (K4, ``csrc/normalize.cu``): a uint8 image batch
   normalised per channel to bfloat16 or float32.
 
@@ -22,6 +26,13 @@ The kernels are compiled on first use with one ``nvcc`` call into
 ``ctypes``; nothing is built or imported from CUDA when this module is
 imported. The attention kernels are instantiated for head dim 64 only (the
 flagship LM's); another head dim raises until a configuration needs it.
+
+The bf16 tensor-core kernels round p (K1), and p and ds (K3), to bf16
+before their second products, where the twins keep float32: their outputs
+are held to :func:`flash_gate_limit`, a bound derived from that one
+rounding (:func:`flash_rounding_bounds`), and to :func:`rounding_bias`
+within :data:`BIAS_LIMIT` on non-negative operands. K2 and every float32 output keep their earlier
+gates.
 """
 
 from __future__ import annotations
@@ -42,7 +53,8 @@ import torch
 NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
-_SOURCES = ('flash_common.cuh', 'flash_fwd.cu', 'flash_bwd.cu',
+_SOURCES = ('flash_common.cuh', 'sm90.cuh', 'flash_fwd.cu',
+            'flash_fwd_sm90.cu', 'flash_bwd.cu', 'flash_bwd_sm90.cu',
             'normalize.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -306,6 +318,67 @@ def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     return torch.cat(dks, 1).to(out), torch.cat(dvs, 1).to(out)
 
 
+#: Largest relative error of rounding a float32 to nearest bfloat16.
+BF16_ROUND = 2.0 ** -8
+
+
+def flash_rounding_bounds(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
+                          causal=True, window=None, seg_q=None, seg_kv=None,
+                          scale=None) -> Dict[str, torch.Tensor]:
+    """What one rounding of p (K1) or of p and ds (K3) to bf16 can move each
+    output, divided by :data:`BF16_ROUND`, from the twins' float32 values:
+    ``o``: sum_j (p_j / l) |v_j|; ``dv``: sum_i p_i |do_i|; ``dk``: sum_i
+    |ds_i| |q_i|, each shaped like the wrapper's output (dk, dv per q
+    head). For the gates of the tests and ``chip_smoke.py``; no path of the
+    port calls it."""
+    _, _, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, causal=causal,
+              window=window, seg_q=seg_q, seg_kv=seg_kv, scale=scale)
+    b_o, _ = flash_fwd_plain(q.float(), k.float(), v.float().abs(), **kw)
+    q32, k32, v32, sk = _plain_setup(q, k, v, seg_q, seg_kv, n_heads,
+                                     n_kv_heads)
+    do32 = do.float()
+    q_pos = torch.arange(lq, device=q.device)
+    b_dk = torch.zeros(q.shape[0], lk, d, device=q.device)
+    b_dv = torch.zeros_like(b_dk)
+    for k0, k1 in _kv_blocks(lk):
+        k_pos = torch.arange(k0, k1, device=q.device)
+        mask = _block_mask(q_pos, k_pos, lk, causal, window, seg_q,
+                           None if sk is None else sk[:, k0:k1])
+        p, ds = _recompute_p_ds(q32, do32, k32[:, k0:k1], v32[:, k0:k1], lse,
+                                delta, mask, scale)
+        b_dv[:, k0:k1] = torch.einsum('bqk,bqd->bkd', p, do32.abs())
+        b_dk[:, k0:k1] = torch.einsum('bqk,bqd->bkd', ds.abs(), q32.abs())
+    return {'o': b_o, 'dk': b_dk, 'dv': b_dv}
+
+
+def flash_gate_limit(ref, bound, dtype) -> torch.Tensor:
+    """Per-element limit on ``|kernel - twin|`` for an output of a bf16
+    tensor-core kernel: half a bf16 ulp of ``ref`` when the output is
+    stored in bf16, plus ``BF16_ROUND * bound`` for the rounding of p or
+    ds, plus ``1e-5 (1 + |ref|)`` for the float32 sums' order."""
+    ref = ref.float()
+    limit = BF16_ROUND * bound.float() + 1e-5 * (1 + ref.abs())
+    if dtype == torch.bfloat16:
+        _, exp = torch.frexp(ref)
+        limit = limit + torch.ldexp(torch.ones_like(ref), exp - 9)
+    return limit
+
+
+#: Largest ``|rounding_bias|`` an output on non-negative operands may show.
+BIAS_LIMIT = 0.1
+
+
+def rounding_bias(got, ref, bound) -> float:
+    """Mean signed error of ``got`` against ``ref`` over the mean of
+    ``BF16_ROUND * bound``. Near 0 for rounding to nearest; where every
+    term of the sums is non-negative, a truncating kernel reads clearly
+    negative (beyond :data:`BIAS_LIMIT`)."""
+    scale = float((BF16_ROUND * bound.float()).mean())
+    return float((got.float() - ref.float()).mean()) / max(scale, 1e-30)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -319,6 +392,16 @@ def _seg_shapes(seg_q, seg_kv, bh, bhkv, lq, lk):
         raise ValueError('pass both seg_q and seg_kv, or neither')
     return {'seg_q': (torch.int32, (bh, lq)),
             'seg_kv': (torch.int32, (bhkv, lk))}
+
+
+def _check_tma(name, *tensors):
+    """The bf16 kernels load tiles by TMA, which needs 16-byte-aligned
+    global addresses."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError('%s: bf16 operands must be 16-byte aligned for '
+                             'TMA (data_ptr %% 16 = %d)'
+                             % (name, t.data_ptr() % 16))
 
 
 def _launch_args(q, n_heads, n_kv_heads, causal, window):
@@ -347,10 +430,13 @@ def flash_fwd(q, k, v, *, n_heads, n_kv_heads, causal=True, window=None,
     _check_cuda('flash_fwd', {'q': q, 'k': k, 'v': v, 'seg_q': seg_q,
                               'seg_kv': seg_kv}, q.dtype, shapes)
     h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    if lq == 0 or bh == 0 or lk == 0:   # nothing to attend to: no launch
+        return (torch.zeros_like(q),
+                torch.full((bh, lq), NEG_INF, device=q.device))
+    if q.dtype == torch.bfloat16:
+        _check_tma('flash_fwd', q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(bh, lq, dtype=torch.float32, device=q.device)
-    if lq == 0 or bh == 0:
-        return o, lse
     lib = build()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         _ptr(seg_q), _ptr(seg_kv), o.data_ptr(),
@@ -415,10 +501,13 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
     out_f32 = n_heads != n_kv_heads
     out = torch.float32 if out_f32 else k.dtype
+    if lk == 0 or bh == 0 or lq == 0:   # no (q, k) pair: no launch
+        dk = torch.zeros(bh, lk, d, dtype=out, device=q.device)
+        return dk, dk.clone()
+    if q.dtype == torch.bfloat16:
+        _check_tma('flash_bwd_dkdv', q, k, v, do)
     dk = torch.empty(bh, lk, d, dtype=out, device=q.device)
     dv = torch.empty(bh, lk, d, dtype=out, device=q.device)
-    if lk == 0 or bh == 0:
-        return dk, dv
     lib = build()
     err = lib.flash_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
