@@ -24,10 +24,10 @@
 // bf16 ridge, so they are bound by operations. The kernels here compute on
 // the FP32 CUDA cores from padded float32 shared-memory tiles with 4 x 4
 // register micro-tiles; they recompute p rather than storing it, which is
-// what keeps their traffic at the compulsory bytes. K2 runs here in both
-// dtypes (a wgmma version of it is still to come); K3 runs here in float32
-// only (the tensor cores would multiply float32 as TF32), and its bf16
-// launches go to the wgmma / TMA kernel of flash_bwd_sm90.cu.
+// what keeps their traffic at the compulsory bytes. Both run here in
+// float32 only (the tensor cores would multiply float32 as TF32); their bf16
+// launches go to the wgmma / TMA kernels of flash_bwd_dq_sm90.cu (K2) and
+// flash_bwd_sm90.cu (K3).
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -347,8 +347,8 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, do and dq). Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, do and dq; on wgmma,
+// flash_bwd_dq_sm90.cu). Returns a cudaError_t (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const int* segq,
@@ -363,9 +363,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                                        dq, BH, H, Hkv, Lq, Lk, causal, window,
                                        scale, s);
   if (dtype == 1)
-    return flash::launch_dq<__nv_bfloat16, HD>(q, k, v, dout, lse, delta,
-                                               segq, segk, dq, BH, H, Hkv, Lq,
-                                               Lk, causal, window, scale, s);
+    return flash::launch_dq_sm90(q, k, v, dout, lse, delta, segq, segk, dq,
+                                 BH, H, Hkv, Lq, Lk, causal, window, scale,
+                                 s);
   return (int)cudaErrorInvalidValue;
 }
 

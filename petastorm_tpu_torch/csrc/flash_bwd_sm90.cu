@@ -5,7 +5,7 @@
 // (:706-754) with `_bwd_recompute_p_ds` (:619-655), launched by
 // `_flash_backward_from_prepared` (:861). The float32 instantiation stays on
 // the FP32-core kernel of flash_bwd.cu; the C entry point `flash_bwd_dkdv`
-// sends dtype 1 here. K2 (dq) is not changed.
+// sends dtype 1 here.
 //
 // What bounds it: at (8, 8, 2048, 64) bf16 causal K3 does four products per
 // live (q, k) pair, 69 GFLOP against 102 MB of compulsory traffic, ~680

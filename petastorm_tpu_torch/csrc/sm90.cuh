@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), in inline PTX: mbarriers, TMA
-// tile loads, wgmma shared-memory descriptors and the three wgmma shapes the
-// kernels issue. No CUTLASS: the one nvcc call stays in seconds.
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_sm90.cu), in inline
+// PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
+// three wgmma shapes the kernels issue. No CUTLASS: the one nvcc call
+// stays in seconds.
 //
 // Tiles are rows of 64 bf16 (128 bytes) stored by TMA with the 128-byte
 // swizzle: row r of a tile sits at byte 128 r, its 16-byte chunk c at chunk
@@ -287,12 +288,18 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 
 }  // namespace sm90
 
-// Launchers of the bf16 kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu),
-// called by the C entry points for dtype 1. Return a cudaError_t.
+// Launchers of the bf16 kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
+// flash_bwd_sm90.cu), called by the C entry points for dtype 1. Return a
+// cudaError_t.
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
                     const int* segq, const int* segk, void* o, float* lse,
                     int BH, int H, int Hkv, int Lq, int Lk, int causal,
                     int window, float scale, cudaStream_t stream);
+int launch_dq_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const int* segq, const int* segk, void* dq, int BH, int H,
+                   int Hkv, int Lq, int Lk, int causal, int window,
+                   float scale, cudaStream_t stream);
 int launch_dkdv_sm90(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const int* segq, const int* segk, void* dk, void* dv,

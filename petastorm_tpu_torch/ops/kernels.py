@@ -6,7 +6,9 @@ Four kernels, each behind one wrapper with the same contract as its twin:
 - ``flash_fwd`` (K1): ``(o, lse)``; bf16 on the tensor cores
   (``csrc/flash_fwd_sm90.cu``: wgmma fed by TMA), float32 on the FP32 cores
   (``csrc/flash_fwd.cu``);
-- ``flash_bwd_dq`` (K2, ``csrc/flash_bwd.cu``, FP32 cores): ``dq``;
+- ``flash_bwd_dq`` (K2): ``dq``; bf16 on the tensor cores
+  (``csrc/flash_bwd_dq_sm90.cu``), float32 on the FP32 cores
+  (``csrc/flash_bwd.cu``);
 - ``flash_bwd_dkdv`` (K3): ``(dk, dv)`` per q head; bf16 on the tensor cores
   (``csrc/flash_bwd_sm90.cu``), float32 on the FP32 cores
   (``csrc/flash_bwd.cu``);
@@ -27,12 +29,12 @@ The kernels are compiled on first use with one ``nvcc`` call into
 imported. The attention kernels are instantiated for head dim 64 only (the
 flagship LM's); another head dim raises until a configuration needs it.
 
-The bf16 tensor-core kernels round p (K1), and p and ds (K3), to bf16
-before their second products, where the twins keep float32: their outputs
-are held to :func:`flash_gate_limit`, a bound derived from that one
-rounding (:func:`flash_rounding_bounds`), and to :func:`rounding_bias`
-within :data:`BIAS_LIMIT` on non-negative operands. K2 and every float32 output keep their earlier
-gates.
+The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
+bf16 before their second products, where the twins keep float32: their
+outputs are held to :func:`flash_gate_limit`, a bound derived from that
+one rounding (:func:`flash_rounding_bounds`), and to :func:`rounding_bias`
+within :data:`BIAS_LIMIT` on non-negative operands. Every float32 output
+keeps atol = rtol = 1e-4.
 """
 
 from __future__ import annotations
@@ -54,8 +56,8 @@ NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _SOURCES = ('flash_common.cuh', 'sm90.cuh', 'flash_fwd.cu',
-            'flash_fwd_sm90.cu', 'flash_bwd.cu', 'flash_bwd_sm90.cu',
-            'normalize.cu')
+            'flash_fwd_sm90.cu', 'flash_bwd.cu', 'flash_bwd_dq_sm90.cu',
+            'flash_bwd_sm90.cu', 'normalize.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _HEAD_DIM = 64                 # csrc/flash_common.cuh kHeadDim
@@ -89,6 +91,29 @@ def _nvcc() -> str:
                        'first use and need the CUDA toolkit')
 
 
+#: Argument types of the C entry points, as declared in ``csrc/*.cu``: p a
+#: pointer (or the stream), i an int, l a long long, f a float. Flash: the
+#: pointers; BH, H, Hkv, Lq, Lk, D, causal, window; scale; dtype (and
+#: out_f32); stream. normalize_u8: x, out; n; C; mean[4], inv_std[4]; out
+#: dtype; stream.
+_SIGNATURES = {'flash_fwd': 'p' * 7 + 'i' * 8 + 'fip',
+               'flash_bwd_dq': 'p' * 9 + 'i' * 8 + 'fip',
+               'flash_bwd_dkdv': 'p' * 10 + 'i' * 8 + 'fiip',
+               'normalize_u8': 'ppli' + 'f' * 8 + 'ip'}
+_CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'l': ctypes.c_longlong,
+           'f': ctypes.c_float}
+
+
+def bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    """Declare ``argtypes`` and ``restype`` (a cudaError_t) of each entry
+    point named in ``signatures`` (name -> :data:`_SIGNATURES` string)."""
+    for name, sig in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in sig]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
@@ -114,19 +139,7 @@ def build() -> ctypes.CDLL:
                                    % (proc.returncode, log))
             os.replace(tmp, lib_path)   # atomic: concurrent builds agree
             (out_dir / 'build.log').write_text(log)
-        lib = ctypes.CDLL(str(lib_path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # pointers; BH, H, Hkv, Lq, Lk, D, causal, window; scale; dtype
-        # (and out_f32); stream — as declared in csrc/flash_*.cu
-        lib.flash_fwd.argtypes = [p] * 7 + [i] * 8 + [f, i, p]
-        lib.flash_bwd_dq.argtypes = [p] * 9 + [i] * 8 + [f, i, p]
-        lib.flash_bwd_dkdv.argtypes = [p] * 10 + [i] * 8 + [f, i, i, p]
-        # x, out; n; C; mean[4], inv_std[4]; out dtype; stream
-        lib.normalize_u8.argtypes = [p, p, ctypes.c_longlong, i] + [f] * 8 + [
-            i, p]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkdv,
-                   lib.normalize_u8):
-            fn.restype = ctypes.c_int
+        lib = bind(ctypes.CDLL(str(lib_path)), _SIGNATURES)
         BUILD_INFO.update(seconds=time.perf_counter() - start,
                           path=str(lib_path), log=log, cached=cached)
         _lib = lib
@@ -325,12 +338,12 @@ BF16_ROUND = 2.0 ** -8
 def flash_rounding_bounds(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
                           causal=True, window=None, seg_q=None, seg_kv=None,
                           scale=None) -> Dict[str, torch.Tensor]:
-    """What one rounding of p (K1) or of p and ds (K3) to bf16 can move each
-    output, divided by :data:`BF16_ROUND`, from the twins' float32 values:
-    ``o``: sum_j (p_j / l) |v_j|; ``dv``: sum_i p_i |do_i|; ``dk``: sum_i
-    |ds_i| |q_i|, each shaped like the wrapper's output (dk, dv per q
-    head). For the gates of the tests and ``chip_smoke.py``; no path of the
-    port calls it."""
+    """What one rounding of p (K1), ds (K2) or p and ds (K3) to bf16 can
+    move each output, divided by :data:`BF16_ROUND`, from the twins' float32
+    values: ``o``: sum_j (p_j / l) |v_j|; ``dq``: sum_j |ds_j| |k_j|;
+    ``dv``: sum_i p_i |do_i|; ``dk``: sum_i |ds_i| |q_i|, each shaped like
+    the wrapper's output (dk, dv per q head). For the gates of the tests
+    and ``chip_smoke.py``; no path of the port calls it."""
     _, _, lq, lk, d = _geometry(q, k, n_heads, n_kv_heads, window)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     kw = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, causal=causal,
@@ -342,6 +355,7 @@ def flash_rounding_bounds(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     q_pos = torch.arange(lq, device=q.device)
     b_dk = torch.zeros(q.shape[0], lk, d, device=q.device)
     b_dv = torch.zeros_like(b_dk)
+    b_dq = torch.zeros_like(q32)
     for k0, k1 in _kv_blocks(lk):
         k_pos = torch.arange(k0, k1, device=q.device)
         mask = _block_mask(q_pos, k_pos, lk, causal, window, seg_q,
@@ -350,7 +364,8 @@ def flash_rounding_bounds(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
                                 delta, mask, scale)
         b_dv[:, k0:k1] = torch.einsum('bqk,bqd->bkd', p, do32.abs())
         b_dk[:, k0:k1] = torch.einsum('bqk,bqd->bkd', ds.abs(), q32.abs())
-    return {'o': b_o, 'dk': b_dk, 'dv': b_dv}
+        b_dq += torch.einsum('bqk,bkd->bqd', ds.abs(), k32[:, k0:k1].abs())
+    return {'o': b_o, 'dq': b_dq, 'dk': b_dk, 'dv': b_dv}
 
 
 def flash_gate_limit(ref, bound, dtype) -> torch.Tensor:
@@ -472,9 +487,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     bh, _, lq, lk, d = _check_bwd('flash_bwd_dq', q, k, v, do, lse, delta,
                                   seg_q, seg_kv, n_heads, n_kv_heads, window)
     h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    if lq == 0 or bh == 0 or lk == 0:   # no (q, k) pair: no launch
+        return torch.zeros_like(q)
+    if q.dtype == torch.bfloat16:
+        _check_tma('flash_bwd_dq', q, k, v, do)
     dq = torch.empty_like(q)
-    if lq == 0 or bh == 0:
-        return dq
     lib = build()
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

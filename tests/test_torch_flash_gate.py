@@ -1,20 +1,21 @@
-"""The gate of the bf16 tensor-core flash kernels (K1 forward, K3 dk/dv).
+"""The gate of the bf16 tensor-core flash kernels (K1 forward, K2 dq, K3
+dk/dv).
 
-Those kernels round p (K1), and p and ds (K3), to nearest bf16 before their
-second products, where the float32 twins do not. Their outputs are held to
-``kernels.flash_gate_limit``: half a bf16 ulp + 2^-8 B + 1e-5 (1 + |ref|),
-with B from ``kernels.flash_rounding_bounds``; and, on non-negative q, v
-and do with delta = 0 (so p, ds and every term of o, dk and dv are
-non-negative), the mean signed error over the mean of 2^-8 B must lie
-within ``kernels.BIAS_LIMIT`` (``kernels.rounding_bias``), which rounding
-to nearest meets and truncation does not.
+Those kernels round p (K1), ds (K2), and p and ds (K3), to nearest bf16
+before their second products, where the float32 twins do not. Their
+outputs are held to ``kernels.flash_gate_limit``: half a bf16 ulp + 2^-8 B
++ 1e-5 (1 + |ref|), with B from ``kernels.flash_rounding_bounds``; and, on
+non-negative q, k, v and do with delta = 0 (so p, ds and every term of o,
+dq, dk and dv are non-negative), the mean signed error over the mean of
+2^-8 B must lie within ``kernels.BIAS_LIMIT`` (``kernels.rounding_bias``),
+which rounding to nearest meets and truncation does not.
 
 On the CPU an emulation of the kernels' arithmetic (below, not in the
-package: the twin with p and ds rounded blockwise at the kernels' 128-row
-kv tile) stands in for the kernels: the gate accepts it, and the bias check
-rejects its truncating variants (p truncated for o and dv, ds alone for
-dk). On the card (``-m cuda``) broken copies of
-the kernels, built alone, must each be rejected by the gate.
+package: the twin with p and ds rounded blockwise at each kernel's kv
+tile) stands in for the kernels: the gate accepts it, and the bias check
+rejects its truncating variants (p truncated for o and dv, ds alone for dk
+and dq). On the card (``-m cuda``) broken copies of the kernels, built
+alone, must each be rejected by the gate.
 """
 
 import math
@@ -27,6 +28,7 @@ from petastorm_tpu_torch.ops import kernels
 
 D = 64
 TILE = 128            # kv rows per tile of K1 (the online-softmax step)
+TILE_DQ = 64          # kv rows per tile of K2
 
 # (name, q heads, kv heads, Lq, Lk, causal, window, segmented)
 CASES = [
@@ -46,10 +48,16 @@ def _bf16_values(rng, shape, nonneg=False):
     return torch.from_numpy(x).to(torch.bfloat16).float()
 
 
-def _operands(seed, h, hkv, lq, lk, segmented=False, nonneg=False):
+def _operands(seed, h, hkv, lq, lk, segmented=False, nonneg=False,
+              low_scores=False):
+    """q, k, v, do (|x| with ``nonneg``). With ``low_scores`` q = |x| + 3
+    and k = -(|x| + 3), so every score q k^T / 8 lies near -115 and
+    exp(-lse) overflows float32."""
     rng = np.random.default_rng(seed)
     q = _bf16_values(rng, (h, lq, D), nonneg)
-    k = _bf16_values(rng, (hkv, lk, D))
+    k = _bf16_values(rng, (hkv, lk, D), nonneg)
+    if low_scores:
+        q, k = _nearest(q.abs() + 3), _nearest(-(k.abs() + 3))
     v = _bf16_values(rng, (hkv, lk, D), nonneg)
     do = _bf16_values(rng, (h, lq, D), nonneg)
     kw = {}
@@ -127,26 +135,57 @@ def _emulate_dkdv(q, k, v, do, lse, delta, rnd, *, n_heads, n_kv_heads,
     return torch.cat(dks, 1).to(out), torch.cat(dvs, 1).to(out)
 
 
-def _case(seed, case, nonneg=False):
+def _emulate_dq(q, k, v, do, lse, delta, rnd, *, n_heads, n_kv_heads,
+                causal=True, window=None, seg_q=None, seg_kv=None):
+    """K2's arithmetic: ds from lse as the twin has it, rounded by ``rnd``
+    per kv tile of 64 before ds k, summed in float32, dq rounded to
+    bf16."""
+    _, _, lq, lk, d = kernels._geometry(q, k, n_heads, n_kv_heads, window)
+    scale = 1.0 / math.sqrt(d)
+    q32, k32, v32, sk = kernels._plain_setup(q, k, v, seg_q, seg_kv,
+                                             n_heads, n_kv_heads)
+    q_pos = torch.arange(lq)
+    dq = torch.zeros_like(q32)
+    for k0, k1 in kernels._kv_blocks(lk, TILE_DQ):
+        mask = kernels._block_mask(q_pos, torch.arange(k0, k1), lk, causal,
+                                   window, seg_q,
+                                   None if sk is None else sk[:, k0:k1])
+        _, ds = kernels._recompute_p_ds(q32, do, k32[:, k0:k1],
+                                        v32[:, k0:k1], lse, delta, mask,
+                                        scale)
+        dq = dq + torch.einsum('bqk,bkd->bqd', rnd(ds), k32[:, k0:k1])
+    return dq.to(torch.bfloat16)
+
+
+OUTPUTS = ('o', 'dq', 'dk', 'dv')
+
+
+def _case(seed, case, nonneg=False, low_scores=False):
     """Operands, geometry keywords, the twins' outputs and the bounds.
     With ``nonneg`` delta is 0: ds = p (do v^T) scale is then non-negative
-    too, so a truncated ds biases dk as a truncated p biases o and dv."""
+    too (and so is k), so a truncated ds biases dq and dk as a truncated p
+    biases o and dv."""
     _, h, hkv, lq, lk, causal, window, segmented = case
-    q, k, v, do, segs = _operands(seed, h, hkv, lq, lk, segmented, nonneg)
+    q, k, v, do, segs = _operands(seed, h, hkv, lq, lk, segmented, nonneg,
+                                  low_scores)
     kw = dict(n_heads=h, n_kv_heads=hkv, causal=causal, window=window,
               **segs)
     o, lse = kernels.flash_fwd_plain(q, k, v, **kw)
     delta = torch.zeros_like(lse) if nonneg else (do * o).sum(-1)
+    dq = kernels.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = kernels.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, **kw)
     bounds = kernels.flash_rounding_bounds(q, k, v, do, lse, delta, **kw)
-    return (q, k, v, do, lse, delta), kw, {'o': o, 'dk': dk, 'dv': dv}, \
-        bounds
+    refs = {'o': o, 'dq': dq, 'dk': dk, 'dv': dv}
+    return (q, k, v, do, lse, delta), kw, refs, bounds
 
 
 def _emulate(ops, kw, rnd, rnd_ds=None):
     q, k, v, do, lse, delta = ops
     dk, dv = _emulate_dkdv(q, k, v, do, lse, delta, rnd, rnd_ds=rnd_ds, **kw)
-    return {'o': _emulate_fwd(q, k, v, rnd, **kw), 'dk': dk, 'dv': dv}
+    dq = _emulate_dq(q, k, v, do, lse, delta,
+                     rnd if rnd_ds is None else rnd_ds, **kw)
+    return {'o': _emulate_fwd(q, k, v, rnd, **kw), 'dq': dq, 'dk': dk,
+            'dv': dv}
 
 
 def _n_beyond(got, ref, bound):
@@ -158,8 +197,8 @@ def _n_beyond(got, ref, bound):
 def test_gate_accepts_rounded_emulation(case):
     ops, kw, refs, bounds = _case(11, case)
     got = _emulate(ops, kw, _nearest)
-    for name in ('o', 'dk', 'dv'):
-        assert got[name].dtype == (torch.float32 if name != 'o'
+    for name in OUTPUTS:
+        assert got[name].dtype == (torch.float32 if name in ('dk', 'dv')
                                    and kw['n_heads'] != kw['n_kv_heads']
                                    else torch.bfloat16)
         assert _n_beyond(got[name], refs[name], bounds[name]) == 0, name
@@ -167,30 +206,44 @@ def test_gate_accepts_rounded_emulation(case):
         assert not got['o'][:, 0].any()
 
 
+def test_gate_accepts_rounded_emulation_at_low_scores():
+    """Every score near -115, so exp(-lse) overflows float32 (the card case
+    that holds K2's kv-tail mask): the twins stay finite and the rounded
+    emulation within the gate."""
+    ops, kw, refs, bounds = _case(11, CASES[1], low_scores=True)
+    assert float(ops[4].max()) < -88
+    got = _emulate(ops, kw, _nearest)
+    for name in OUTPUTS:
+        assert bool(torch.isfinite(refs[name]).all()), name
+        assert _n_beyond(got[name], refs[name], bounds[name]) == 0, name
+
+
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_old_half_ulp_gate_is_too_tight_for_rounded_p(case):
     """Why the gate changed: the emulation, right by construction, has
-    elements beyond half a bf16 ulp + 1e-5 (1 + |ref|) of the twin."""
+    elements beyond half a bf16 ulp + 1e-5 (1 + |ref|) of the twin, in dq
+    alone as in o, dk and dv together."""
     ops, kw, refs, _ = _case(12, case)
     got = _emulate(ops, kw, _nearest)
     zero = {n: torch.zeros_like(r) for n, r in refs.items()}
     assert sum(_n_beyond(got[n], refs[n], zero[n])
                for n in ('o', 'dk', 'dv')) > 0
+    assert _n_beyond(got['dq'], refs['dq'], zero['dq']) > 0
 
 
-@pytest.mark.parametrize('output', ['o', 'dk', 'dv'])
+@pytest.mark.parametrize('output', ['o', 'dq', 'dk', 'dv'])
 def test_bias_check_rejects_truncation(output):
-    """Non-negative q, v and do, delta 0: rounding to nearest passes the
-    gate without bias; truncating p (o, dv), or ds alone (dk), reads a clear
-    negative bias."""
+    """Non-negative q, k, v and do, delta 0: rounding to nearest passes the
+    gate without bias; truncating p (o, dv), or ds alone (dq, dk), reads a
+    clear negative bias."""
     case = ('nonneg', 2, 2, 512, 512, True, None, False)
     ops, kw, refs, bounds = _case(13, case, nonneg=True)
     nearest = _emulate(ops, kw, _nearest)
-    for name in ('o', 'dk', 'dv'):
+    for name in OUTPUTS:
         assert _n_beyond(nearest[name], refs[name], bounds[name]) == 0, name
         assert abs(kernels.rounding_bias(nearest[name], refs[name],
                                          bounds[name])) < kernels.BIAS_LIMIT
-    if output == 'dk':
+    if output in ('dq', 'dk'):
         truncated = _emulate(ops, kw, _nearest, rnd_ds=_truncate)
         assert abs(kernels.rounding_bias(truncated['dv'], refs['dv'],
                                          bounds['dv'])) < kernels.BIAS_LIMIT
@@ -204,8 +257,9 @@ def test_bias_check_rejects_truncation(output):
 @pytest.mark.parametrize('case', [CASES[0], CASES[2], CASES[3]],
                          ids=['causal_ragged', 'gqa', 'segments_masked_row'])
 def test_bounds_match_their_definition(case):
-    """B of o, dv and dk against a dense computation: sum_j (p_j / l) |v_j|,
-    sum_i p_i |do_i|, sum_i |ds_i| |q_i| (per q head under GQA)."""
+    """B of o, dq, dv and dk against a dense computation: sum_j (p_j / l)
+    |v_j|, sum_j |ds_j| |k_j|, sum_i p_i |do_i|, sum_i |ds_i| |q_i| (per q
+    head under GQA)."""
     ops, kw, _, bounds = _case(14, case)
     q, k, v, do, lse, delta = ops
     _, h, hkv, lq, lk, causal, window, _ = case
@@ -228,10 +282,12 @@ def test_bounds_match_their_definition(case):
     torch.testing.assert_close(bounds['dk'],
                                ds.abs().transpose(1, 2) @ q.abs(),
                                atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(bounds['dq'], ds.abs() @ k.abs(),
+                               atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
-# on the card: broken copies of K1 and K3 must fail the gate
+# on the card: broken copies of K1, K2 and K3 must fail the gate
 # ---------------------------------------------------------------------------
 
 _TRUNCATE = ('__floats2bfloat162_rn(lo, hi)',
@@ -262,16 +318,40 @@ MUTANTS = {
     'dkdv_dsq_transpose_flipped': ('flash_bwd_dkdv', 'flash_bwd_sm90.cu',
                                    'wgmma_rs_n64<1>(dk_acc, dsa[kk]',
                                    'wgmma_rs_n64<0>(dk_acc, dsa[kk]'),
+    'dq_ds_truncated': ('flash_bwd_dq', 'sm90.cuh') + _TRUNCATE,
+    'dq_causal_diagonal_unmasked': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        'const bool diag = causal && k0 + kRowsK - 1 > r0;',
+        'const bool diag = false;'),
+    'dq_dsk_transpose_flipped': ('flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+                                 'wgmma_rs_n64<1>(dq_acc, dsa[kk]',
+                                 'wgmma_rs_n64<0>(dq_acc, dsa[kk]'),
+    'dq_window_edge_unmasked': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        '(causal && window > 0 && r0 + 63 - k0 >= window)', 'false'),
+    'dq_kv_tail_unmasked': ('flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+                            'k0 + kRowsK > Lk || ', ''),
 }
+# flash_bwd.cu's C entry points call into both sm90 backward files, and a
+# library missing either fails to load (ctypes binds every symbol at once)
+_BWD_SOURCES = ('flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')
 _KERNEL_SOURCES = {'flash_fwd': ('flash_fwd.cu', 'flash_fwd_sm90.cu'),
-                   'flash_bwd_dkdv': ('flash_bwd.cu', 'flash_bwd_sm90.cu')}
+                   'flash_bwd_dq': _BWD_SOURCES,
+                   'flash_bwd_dkdv': _BWD_SOURCES}
 
-# (label, case, non-negative operands)
+# (label, case, operands: None, 'nonneg' or 'low_scores'). K2's kv tail:
+# TMA fills K rows past Lk with zeros, so ds k adds exact zeros there even
+# unmasked, unless ds is not finite: exp(-lse) overflows float32 where every
+# score of a row lies below about -88, and inf * 0 is NaN. Only the
+# non-causal case has kv-tail tiles off the diagonal.
 CARD_CASES = [
-    ('causal 512', ('causal', 2, 2, 512, 512, True, None, False), False),
-    ('segments 300', CASES[3], False),
+    ('causal 512', ('causal', 2, 2, 512, 512, True, None, False), None),
+    ('non-causal 300x170', CASES[1], None),
+    ('non-causal 300x170, scores near -115', CASES[1], 'low_scores'),
+    ('segments 300', CASES[3], None),
+    ('window 384', CASES[4], None),
     ('non-negative 512', ('nonneg', 2, 2, 512, 512, True, None, False),
-     True),
+     'nonneg'),
 ]
 
 
@@ -279,14 +359,19 @@ def gate_verdicts(name):
     """For kernel ``name`` (the one bound in ``kernels._lib``): per card case,
     the elements beyond the limit and the bias ratio of each output."""
     out = {}
-    for label, case, nonneg in CARD_CASES:
-        ops, kw, refs, bounds = _case(15, case, nonneg)
+    for label, case, kind in CARD_CASES:
+        nonneg = kind == 'nonneg'
+        ops, kw, refs, bounds = _case(15, case, nonneg,
+                                      low_scores=kind == 'low_scores')
         q, k, v, do, lse, delta = (x.cuda() for x in ops)
         kwd = {n: (t.cuda() if torch.is_tensor(t) else t)
                for n, t in kw.items()}
         q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
         if name == 'flash_fwd':
             got = dict(zip(('o',), kernels.flash_fwd(q, k, v, **kwd)[:1]))
+        elif name == 'flash_bwd_dq':
+            got = {'dq': kernels.flash_bwd_dq(q, k, v, do, lse, delta,
+                                              **kwd)}
         else:
             got = dict(zip(('dk', 'dv'), kernels.flash_bwd_dkdv(
                 q, k, v, do, lse, delta, **kwd)))
@@ -322,10 +407,11 @@ def test_gate_accepts_kernel_on_card(kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize('mutant', sorted(MUTANTS))
 def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
-    """A broken copy of K1 or K3, built alone on the card, fails the gate in
-    some card case: truncated p (or p and ds, or ds alone), the causal mask
-    dropped on the diagonal tile, the transpose bit of P V (or dS^T Q)
-    flipped."""
+    """A broken copy of K1, K2 or K3, built alone on the card, fails the
+    gate in some card case: truncated p (or p and ds, or ds alone), the
+    causal mask dropped on the diagonal tile (K2: or on the window's edge
+    tile, or on the kv-tail tile), the transpose bit of P V (or dS K, or
+    dS^T Q) flipped."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernels have no CPU mode')
     import ctypes
@@ -342,12 +428,8 @@ def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
     subprocess.run([kernels._nvcc(), *flags, '-o', str(so),
                     *(str(csrc / n) for n in _KERNEL_SOURCES[kernel])],
                    check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = getattr(lib, kernel)
-    fn.argtypes = ([p] * 7 + [i] * 8 + [f, i, p] if kernel == 'flash_fwd'
-                   else [p] * 10 + [i] * 8 + [f, i, i, p])
-    fn.restype = i
+    lib = kernels.bind(ctypes.CDLL(str(so)),
+                       {kernel: kernels._SIGNATURES[kernel]})
     monkeypatch.setattr(kernels, '_lib', lib)
     verdicts = gate_verdicts(kernel)
     rejected = [c for c, v in verdicts.items() if _rejected(v)]
