@@ -44,7 +44,18 @@ printing one line or a few:
    count and the device's busy share over 2 profiled steps;
 7. MNIST line: a 2048-row store read row by row through ``make_reader`` ->
    ``TorchDataLoader`` (shuffling) -> MLP SGD steps for one epoch;
-8. times: each kernel's time at its path shape beside its bound, its plain
+8. batch line: a 60,000-row MNIST-size store (``idx``, ``digit``, and the
+   28 x 28 image under ``ArrowListCodec``, about 47 row groups) read
+   through ``make_batch_reader`` with ``filters`` (``idx`` < 54000: the
+   last 6,000 rows held out by footer statistics and the residual
+   predicate), a hash split (``in_pseudorandom_split``, 0.9) and shard 0
+   of 2 -> ``TorchDataLoader`` (shuffling, batch 512, ``drop_last``) ->
+   ``prefetch_to_device`` -> MLP SGD steps. The delivered ``idx`` set is
+   held against one worked out with pyarrow and ``hashlib`` alone; the
+   reader alone is timed over one more pass; and a small hive-partitioned
+   plain store is read with a partition filter and held against
+   ``pq.read_table(filters=...)``;
+9. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -93,6 +104,12 @@ IMAGE_WORKERS = 8
 K4_SHAPE = (IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
 K4_LOOP = 100                     # K4 launches between two events
 MNIST_ROWS = 2048
+BATCH_LINE_ROWS = 60000           # MNIST's training set
+BATCH_LINE_HOLDOUT = 54000        # filters keep idx < 54000
+BATCH_LINE_SPLIT = 0.9            # in_pseudorandom_split([0.9, 0.1], 0)
+BATCH_LINE_SHARDS = 2             # cur_shard 0 of 2
+BATCH_LINE_BATCH = 512
+BATCH_LINE_LR = 0.1
 
 KERNELS = {
     'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
@@ -537,8 +554,185 @@ def mnist_line(torch, args):
                                           last, acc))
 
 
+def write_mnist_list_store(np, url, rows, seed):
+    """The MNIST example's rows, the image stored as an arrow list."""
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import ArrowListCodec, ScalarCodec
+    from petastorm_tpu_torch.examples.mnist.main import synthetic_rows
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('MnistListSchema', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+        UnischemaField('digit', np.int64, (), ScalarCodec(), False),
+        UnischemaField('image', np.uint8, (28, 28), ArrowListCodec(),
+                       False)])
+    with materialize_dataset(url, schema, row_group_size_mb=1) as w:
+        w.write_rows(synthetic_rows(rows, seed))
+
+
+def expected_selection(path, holdout, split, shards):
+    """What the batch line's reader must deliver, worked out with pyarrow
+    and hashlib alone: ``(row groups, row groups whose min idx < holdout,
+    row groups of shard 0, set of idx)``. The row groups in (file, row
+    group) order; those whose footer min ``idx`` is below the holdout;
+    every ``shards``-th of them from the first; of their rows, those with
+    ``idx`` < holdout whose md5 bucket lies in [0, split)."""
+    import hashlib
+    import pyarrow.parquet as pq
+    groups = []
+    for name in sorted(os.listdir(path)):
+        if name.endswith('.parquet') and not name.startswith(('_', '.')):
+            md = pq.ParquetFile(os.path.join(path, name)).metadata
+            col = md.schema.names.index('idx')
+            groups.extend((os.path.join(path, name), rg,
+                           md.row_group(rg).column(col).statistics.min)
+                          for rg in range(md.num_row_groups))
+    kept = [(f, rg) for f, rg, lo in groups if lo < holdout]
+    shard = kept[::shards]
+    want = set()
+    for f, rg in shard:
+        for idx in pq.ParquetFile(f).read_row_group(
+                rg, columns=['idx']).column('idx').to_pylist():
+            bucket = (int(hashlib.md5(str(idx).encode('utf-8')).hexdigest(),
+                          16) / float(1 << 128))
+            if idx < holdout and bucket < split:
+                want.add(idx)
+    return [(f, rg) for f, rg, _ in groups], kept, shard, want
+
+
+def hive_filter_check(np, root):
+    """A plain hive-partitioned store (no metadata) read with a partition
+    filter: the same rows as ``pq.read_table(filters=...)``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch import make_batch_reader
+    n = 2000
+    ids = np.arange(n, dtype=np.int64)
+    table = pa.table({'id': ids, 'value': ids * 0.5,
+                      'name': ['row_%d' % i for i in ids],
+                      'split': np.where(ids % 5 == 0, 'val', 'train')})
+    pq.write_to_dataset(table, root, partition_cols=['split'])
+    filters = [('split', '=', 'train')]
+    with make_batch_reader('file://' + root, filters=filters,
+                           workers_count=2) as reader:
+        got = {}
+        for b in reader:
+            for i, v, name, split in zip(b.id, b.value, b.name, b.split):
+                check(int(i) not in got, 'hive: id %d read twice' % i)
+                got[int(i)] = (float(v), name, split)
+    ref = pq.read_table(root, filters=filters).to_pydict()
+    want = {i: (v, name, str(s)) for i, v, name, s in
+            zip(ref['id'], ref['value'], ref['name'], ref['split'])}
+    check(got == want and len(want) == 1600,
+          'hive: %d rows, pyarrow %d, equal %s' % (len(got), len(want),
+                                                   got == want))
+    return len(got)
+
+
+def batch_line(torch, np, args, device='cuda', rows=BATCH_LINE_ROWS,
+               holdout=BATCH_LINE_HOLDOUT):
+    """The selection surface at MNIST's size: store -> make_batch_reader
+    (filters, hash split, shard) -> TorchDataLoader -> prefetch_to_device
+    -> MLP SGD steps on ``device``. The reader-alone pass must deliver the
+    independently reckoned ``idx`` set exactly; the training pass, which
+    drops the last short batch, a subset short by less than one batch."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_batch_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.models import mnist_mlp
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'mnist')
+        url = 'file://' + path
+        start = time.perf_counter()
+        write_mnist_list_store(np, url, rows, args.seed)
+        log('batch store %d rows (idx, digit, image 28 x 28 uint8 under '
+            'ArrowListCodec) written in %.2f s'
+            % (rows, time.perf_counter() - start))
+        groups, kept, shard, want = expected_selection(
+            path, holdout, BATCH_LINE_SPLIT, BATCH_LINE_SHARDS)
+        filters = [('idx', '<', holdout)]
+
+        def reader(**kw):
+            return make_batch_reader(
+                url, filters=filters, predicate=in_pseudorandom_split(
+                    [BATCH_LINE_SPLIT, 1 - BATCH_LINE_SPLIT], 0, 'idx'),
+                num_epochs=1, seed=args.seed, workers_count=4, **kw)
+
+        with reader() as r:
+            pruned = [(p.path, p.row_group) for p in r.pieces]
+        check(pruned == kept, 'batch: %d row groups after pruning, the '
+              'footers say %d' % (len(pruned), len(kept)))
+        start = time.perf_counter()
+        seen = []
+        with reader(cur_shard=0, shard_count=BATCH_LINE_SHARDS) as r:
+            sharded = [(p.path, p.row_group) for p in r.pieces]
+            for b in r:
+                seen.append(b.idx)
+        alone = time.perf_counter() - start
+        seen = np.concatenate(seen)
+        check(sharded == shard, 'batch: shard 0 holds %d row groups, the '
+              'footers say %d' % (len(sharded), len(shard)))
+        check(len(np.unique(seen)) == len(seen) and set(seen.tolist()) == want,
+              'batch: reader delivered %d idx (%d unique), reckoned %d'
+              % (len(seen), len(np.unique(seen)), len(want)))
+        log('batch row groups %d, after pruning %d, after sharding %d; '
+            'reader alone (no model) %d rows in %.3f s, %.0f rows/s; '
+            'delivered idx set == reckoned (%d rows)'
+            % (len(groups), len(pruned), len(sharded), len(seen), alone,
+               len(seen) / alone, len(want)))
+
+        params = mnist_mlp.init(torch.Generator().manual_seed(args.seed),
+                                device=device)
+        losses, delivered = [], []
+        start = time.perf_counter()
+        with reader(cur_shard=0, shard_count=BATCH_LINE_SHARDS) as r:
+            loader = TorchDataLoader(r, batch_size=BATCH_LINE_BATCH,
+                                     shuffling_queue_capacity=4096,
+                                     drop_last=True, seed=args.seed,
+                                     device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for batch in batches:
+                    images = batch['image']
+                    check(images.device.type == device
+                          and images.dtype == torch.uint8
+                          and tuple(images.shape) == (BATCH_LINE_BATCH, 28,
+                                                      28),
+                          'batch: images %s %s on %s' % (
+                              images.dtype, tuple(images.shape),
+                              images.device))
+                    x = images.reshape(BATCH_LINE_BATCH, -1).float() / 255.0
+                    losses.append(mnist_mlp.train_step(
+                        params, x, batch['digit'], BATCH_LINE_LR))
+                    delivered.append(batch['idx'])
+        losses = [float(x) for x in losses]
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    delivered = torch.cat(delivered).cpu().numpy()
+    check(params['w1'].device.type == device,
+          'batch: parameters are not on %s' % device)
+    check(len(np.unique(delivered)) == len(delivered)
+          and set(delivered.tolist()) <= want
+          and len(want) - len(delivered) == len(want) % BATCH_LINE_BATCH,
+          'batch: trained on %d idx (%d unique) of %d reckoned'
+          % (len(delivered), len(np.unique(delivered)), len(want)))
+    check(all(math.isfinite(x) for x in losses), 'batch: non-finite loss')
+    first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
+    check(last < first, 'batch: loss did not fall: %.4f -> %.4f'
+          % (first, last))
+    log('batch line %d steps of %d on %s in %.2f s (%.0f rows/s), loss '
+        '%.4f -> %.4f (first and last 4 steps); losses %s'
+        % (len(losses), BATCH_LINE_BATCH, device, wall,
+           len(delivered) / wall, first, last,
+           ' '.join('%.4f' % x for x in losses)))
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        n = hive_filter_check(np, os.path.join(d, 'hive'))
+    log('batch hive store: split=train read with a partition filter, %d '
+        'rows == pq.read_table(filters=...)' % n)
+
+
 # ---------------------------------------------------------------------------
-# phase 8: times
+# phase 9: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -742,6 +936,9 @@ def main(argv=None):
     phase = time.perf_counter()
     mnist_line(torch, args)
     log('phase MNIST line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    batch_line(torch, np, args)
+    log('phase batch line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

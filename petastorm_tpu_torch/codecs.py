@@ -1,13 +1,15 @@
 """Per-field codecs of the port: ``NdarrayCodec``, ``ScalarCodec``,
-``CompressedNdarrayCodec`` and ``CompressedImageCodec``.
+``CompressedNdarrayCodec``, ``CompressedImageCodec`` and ``ArrowListCodec``.
 
-A copy of the codecs the token and image paths need from
-``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247, ``CompressedNdarrayCodec``
-:387, ``CompressedImageCodec`` :421, ``ScalarCodec`` :633, the strict
-``np.save`` header parser ``_parse_fast_npy_header`` :205). Codecs are
-serialized to JSON by registered name, never pickled, under the same names
-as the JAX package, so stores written by either package read in the other.
-A schema naming any other codec raises ``NotImplementedError``.
+A copy of the codecs of ``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247,
+``ArrowListCodec`` :349-384, ``CompressedNdarrayCodec`` :387,
+``CompressedImageCodec`` :421, ``ScalarCodec`` :633, the strict ``np.save``
+header parser ``_parse_fast_npy_header`` :205) and of the list-column
+conversion of ``readers/columnar_worker.py`` (``_list_column_to_numpy``
+:218-241). Codecs are serialized to JSON by registered name, never
+pickled, under the same names as the JAX package, so stores written by
+either package read in the other. A schema naming any other codec raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -18,12 +20,6 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import pyarrow as pa
-
-#: Codecs of the JAX package that this port does not carry yet, with the
-#: slice that brings them.
-_LATER = {
-    'arrow_list': 'the MoE / GQA config slice',
-}
 
 
 def split_binary_chunk(chunk: pa.Array):
@@ -289,6 +285,71 @@ class ScalarCodec(_Codec):
             self._dtype if self._dtype is not None else '')
 
 
+def list_column_to_numpy(column, field) -> np.ndarray:
+    """An arrow list column (an array or a chunked array) → numpy. A
+    null-free column of a fixed-shape field flattens in C++ into ``(n,
+    *shape)`` of the field's dtype; otherwise a fixed shape goes through
+    Python lists, and a wildcard shape gives an object array of 1-D
+    arrays."""
+    if isinstance(column, pa.ChunkedArray):
+        column = column.combine_chunks()
+    shape = tuple(field.shape) if field.shape else ()
+    fixed = shape and all(s is not None for s in shape)
+    if fixed and column.null_count == 0:
+        flat = column.flatten().to_numpy(zero_copy_only=False)
+        if field.numpy_dtype is not None:
+            target = np.dtype(field.numpy_dtype)
+            if flat.dtype != target and flat.dtype.kind in 'biuf':
+                flat = flat.astype(target)
+        if flat.size == len(column) * int(np.prod(shape)):
+            return flat.reshape((len(column),) + shape)
+        # ragged data under a fixed-shape schema: the Python path below
+    rows = column.to_pylist()
+    if fixed:
+        return np.asarray(rows, dtype=field.numpy_dtype).reshape(
+            (len(rows),) + shape)
+    out = np.empty(len(rows), dtype=object)
+    for i, r in enumerate(rows):
+        out[i] = np.asarray(r)
+    return out
+
+
+class ArrowListCodec(_Codec):
+    """Numeric ndarrays stored as native arrow list columns (the array
+    flattened), so a row group decodes with no Python per row. Needs a
+    numeric dtype; a wildcard shape must be 1-D."""
+
+    codec_name = 'arrow_list'
+
+    def encode(self, field, value):
+        value = np.asarray(value)
+        _check_dtype(field, value)
+        _check_shape(field, value)
+        return value.ravel()
+
+    def decode(self, field, value):
+        arr = np.asarray(value, dtype=np.dtype(field.numpy_dtype))
+        return arr.reshape(field.shape) if _is_fixed(field) else arr
+
+    def decode_column(self, field, chunk) -> np.ndarray:
+        return list_column_to_numpy(chunk, field)
+
+    def arrow_type(self, field):
+        dtype = np.dtype(field.numpy_dtype)
+        if dtype.kind not in 'biuf':
+            raise ValueError('ArrowListCodec requires a numeric dtype; field '
+                             '{!r} has {}'.format(field.name, dtype))
+        shape = field.shape
+        if shape and any(s is None for s in shape) and len(shape) != 1:
+            raise ValueError('ArrowListCodec wildcard shapes must be 1-D; '
+                             'field {!r} has shape {}'.format(field.name,
+                                                               shape))
+        return pa.list_(pa.from_numpy_dtype(dtype))
+
+    def __repr__(self):
+        return 'ArrowListCodec()'
+
+
 class CompressedNdarrayCodec(_Codec):
     """zlib-compressed ndarray via ``np.savez_compressed``."""
 
@@ -408,16 +469,13 @@ class CompressedImageCodec(_Codec):
 
 
 _CODEC_REGISTRY = {c.codec_name: c for c in (NdarrayCodec, ScalarCodec,
+                                             ArrowListCodec,
                                              CompressedNdarrayCodec,
                                              CompressedImageCodec)}
 
 
 def codec_from_json_dict(d: Dict[str, Any]):
     name = d['codec']
-    if name in _LATER:
-        raise NotImplementedError(
-            'codec {!r} is not ported to petastorm_tpu_torch yet; it comes '
-            'with {}'.format(name, _LATER[name]))
     if name not in _CODEC_REGISTRY:
         raise ValueError('Unknown codec name {!r}; known: {}'.format(
             name, sorted(_CODEC_REGISTRY)))

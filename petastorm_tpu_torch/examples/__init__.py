@@ -1,2 +1,2 @@
-"""Example lines of the port: the twins of ``examples/imagenet`` and
-``examples/mnist``."""
+"""Example lines of the port: the twins of ``examples/hello_world``,
+``examples/imagenet`` and ``examples/mnist``."""

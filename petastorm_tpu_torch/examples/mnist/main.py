@@ -26,20 +26,23 @@ MnistSchema = Unischema('MnistSchema', [
 ])
 
 
-def generate_synthetic_mnist(output_url, n=2048, seed=0):
-    """Class-dependent blob images: learnable, standalone, deterministic."""
-    from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset
+def synthetic_rows(n, seed=0):
+    """``n`` rows of class-dependent blob images (``idx`` 0 to n - 1):
+    learnable, standalone, deterministic."""
     rng = np.random.default_rng(seed)
-
-    def row(i):
+    for i in range(n):
         digit = int(rng.integers(0, 10))
         img = rng.integers(0, 30, (28, 28), dtype=np.uint8)
         r, c = divmod(digit, 4)
         img[5 + 6 * r: 11 + 6 * r, 3 + 6 * c: 9 + 6 * c] += 200
-        return {'idx': np.int64(i), 'digit': np.int64(digit), 'image': img}
+        yield {'idx': np.int64(i), 'digit': np.int64(digit), 'image': img}
 
+
+def generate_synthetic_mnist(output_url, n=2048, seed=0):
+    """A store of :func:`synthetic_rows`."""
+    from petastorm_tpu_torch.etl.dataset_metadata import materialize_dataset
     with materialize_dataset(output_url, MnistSchema, rows_per_file=512) as w:
-        w.write_rows(row(i) for i in range(n))
+        w.write_rows(synthetic_rows(n, seed))
 
 
 def train(dataset_url, epochs=5, lr=5e-2, batch_size=64, device=None,

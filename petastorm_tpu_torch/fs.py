@@ -1,7 +1,8 @@
 """Dataset URL resolution of the port: ``file://`` URLs and plain paths.
 
-The counterpart of ``petastorm_tpu/fs.py`` for local stores only; remote
-object stores and HDFS come with a later slice. The filesystem is the host's
+The counterpart of ``petastorm_tpu/fs.py`` (``normalize_dir_url`` :35,
+``normalize_dataset_url_or_urls`` :43) for local stores only; remote object
+stores and HDFS come with a later slice. The filesystem is the host's
 own (``os`` and ``open``), so no filesystem package is needed.
 """
 
@@ -20,6 +21,16 @@ def normalize_dir_url(dataset_url: str) -> str:
     return dataset_url.rstrip('/') or '/'
 
 
+def normalize_dataset_url_or_urls(dataset_url_or_urls):
+    """One URL, or a non-empty list of URLs (``make_batch_reader``'s list of
+    parquet files), with trailing slashes stripped."""
+    if isinstance(dataset_url_or_urls, (list, tuple)):
+        if not dataset_url_or_urls:
+            raise ValueError('dataset url list must be non-empty')
+        return [normalize_dir_url(u) for u in dataset_url_or_urls]
+    return normalize_dir_url(dataset_url_or_urls)
+
+
 def url_to_path(url: str) -> str:
     """``file:///abs/path`` or a plain path → an absolute local path."""
     url = normalize_dir_url(url)
@@ -36,6 +47,15 @@ def url_to_path(url: str) -> str:
             'file:// URLs must use three slashes (file:///abs/path); got {!r}'
             .format(url))
     return parsed.path
+
+
+def urls_to_path_or_paths(dataset_url_or_urls):
+    """:func:`url_to_path` of one URL, or the list of paths of a URL list
+    (in the caller's order)."""
+    urls = normalize_dataset_url_or_urls(dataset_url_or_urls)
+    if isinstance(urls, list):
+        return [url_to_path(u) for u in urls]
+    return url_to_path(urls)
 
 
 def list_files(root: str) -> List[str]:

@@ -69,9 +69,10 @@ class TorchDataLoader:
     - an NGram reader (``make_reader(..., NGram)``): ``{offset: {field:
       tensor}}`` batches of windows, collated column-wise from window
       chunks (``jax_utils.py:656-697``);
-    - a columnar reader (``make_columnar_reader``, ``batched_output``):
-      ``{field: tensor}`` batches re-chunked from the row groups' column
-      arrays (``_iter_batched``, ``jax_utils.py:620-636``);
+    - a columnar or batch reader (``make_columnar_reader``,
+      ``make_batch_reader``; ``batched_output``): ``{field: tensor}``
+      batches re-chunked from the row groups' column arrays
+      (``_iter_batched``, ``jax_utils.py:620-636``);
     - a row reader (``make_reader(..., [fields] or None)``): ``{field:
       tensor}`` batches collated from rows (``_iter_rows``,
       ``jax_utils.py:638-654, 712-783``).

@@ -1,9 +1,11 @@
 """User transforms run on the reader's workers, and the schema they imply.
 
 A copy of ``petastorm_tpu/transform.py`` (``TransformSpec`` :18-70,
-``transform_schema`` :73-90, ``apply_columnar_transform``) without the
-``device=`` flag, which fuses a transform into the JAX package's jitted
-device decode and has no counterpart here.
+``transform_schema`` :73-90, ``apply_columnar_transform``) and of the row
+reader's per-row contract (``readers/row_worker.py`` ``_apply_transform``
+:405-409), without the ``device=`` flag, which fuses a transform into the
+JAX package's jitted device decode and has no counterpart here. The batch
+reader's pandas contract lives in ``readers/batch_worker.py``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ class TransformSpec:
     """A transform applied on a worker before data reaches the consumer,
     plus the schema change it makes.
 
-    :param func: called with a dict of column arrays (``make_columnar_reader``)
-        and returns the transformed dict; ``None`` when only fields are
-        selected or removed.
+    :param func: called with one row dict (``make_reader``), a dict of
+        column arrays (``make_columnar_reader``) or a pandas DataFrame
+        (``make_batch_reader``), and returns the same kind transformed;
+        ``None`` when only fields are selected or removed.
     :param edit_fields: :class:`UnischemaField`\\ s (or 4-tuples
         ``(name, dtype, shape, nullable)``) the transform adds or changes.
     :param removed_fields: names the transform deletes.
@@ -67,7 +70,7 @@ def transform_schema(schema: Unischema,
                              .format(sorted(unknown)))
         fields = {name: field for name, field in fields.items()
                   if name in transform_spec.selected_fields}
-    return Unischema(schema.name + '_transformed', list(fields.values()))
+    return Unischema(schema._name + '_transformed', list(fields.values()))
 
 
 def apply_columnar_transform(transform_spec: TransformSpec,
@@ -78,3 +81,13 @@ def apply_columnar_transform(transform_spec: TransformSpec,
         columns = transform_spec.func(columns)
     return {name: columns[name] for name in transformed_schema.fields
             if name in columns}
+
+
+def apply_row_transform(transform_spec: TransformSpec,
+                        transformed_schema: Unischema, row: dict) -> dict:
+    """``func`` over one row dict, its result filtered to the transformed
+    schema's fields."""
+    if transform_spec.func is not None:
+        row = transform_spec.func(row)
+    return {name: row[name] for name in transformed_schema.fields
+            if name in row}

@@ -4,7 +4,8 @@ schema, JSON form and row encoding.
 A copy of what the token, image and row paths need from
 ``petastorm_tpu/unischema.py`` (``UnischemaField`` :35-99,
 ``_NamedtupleCache`` :102-122, ``Unischema`` :125-204,
-``match_unischema_fields`` :269, ``insert_explicit_nulls`` :279,
+``Unischema.from_arrow_schema`` and ``_numpy_and_codec_from_arrow_type``
+:208-266, ``match_unischema_fields`` :269, ``insert_explicit_nulls`` :279,
 ``encode_row`` :291). The JSON form is the JAX package's, so a schema written
 by either package loads in the other.
 """
@@ -115,10 +116,6 @@ class Unischema:
             setattr(self, f.name, f)
 
     @property
-    def name(self) -> str:
-        return self._name
-
-    @property
     def fields(self) -> Dict[str, UnischemaField]:
         return self._fields
 
@@ -173,6 +170,54 @@ class Unischema:
         d = json.loads(payload)
         return cls(d['name'], [UnischemaField.from_json_dict(fd)
                                for fd in d['fields']])
+
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema: pa.Schema,
+                          omit_unsupported_fields: bool = True,
+                          name: str = 'inferred_schema') -> 'Unischema':
+        """A Unischema inferred for a plain (non-petastorm) parquet store:
+        one codec-less field per column whose arrow type has a numpy
+        counterpart; others are left out (or raise)."""
+        fields = []
+        for column in arrow_schema:
+            try:
+                numpy_dtype, shape, codec = _numpy_and_codec_from_arrow_type(
+                    column.type)
+            except ValueError:
+                if omit_unsupported_fields:
+                    continue
+                raise
+            fields.append(UnischemaField(column.name, numpy_dtype, shape, codec,
+                                         nullable=column.nullable))
+        return cls(name, fields)
+
+
+_ARROW_SCALARS = (
+    (pa.types.is_int8, np.int8), (pa.types.is_uint8, np.uint8),
+    (pa.types.is_int16, np.int16), (pa.types.is_uint16, np.uint16),
+    (pa.types.is_int32, np.int32), (pa.types.is_uint32, np.uint32),
+    (pa.types.is_int64, np.int64), (pa.types.is_uint64, np.uint64),
+    (pa.types.is_float16, np.float16), (pa.types.is_float32, np.float32),
+    (pa.types.is_float64, np.float64), (pa.types.is_boolean, np.bool_),
+    (pa.types.is_string, str), (pa.types.is_large_string, str),
+    (pa.types.is_binary, bytes), (pa.types.is_large_binary, bytes),
+    (pa.types.is_decimal, np.object_), (pa.types.is_date, np.datetime64),
+    (pa.types.is_timestamp, np.datetime64))
+
+
+def _numpy_and_codec_from_arrow_type(arrow_type: pa.DataType):
+    """arrow type → ``(numpy dtype, shape, codec)``; lists are 1-D wildcard
+    fields of their value type, dictionaries take their value type."""
+    for is_type, numpy_dtype in _ARROW_SCALARS:
+        if is_type(arrow_type):
+            return numpy_dtype, (), None
+    if pa.types.is_list(arrow_type) or pa.types.is_large_list(arrow_type):
+        inner, _, _ = _numpy_and_codec_from_arrow_type(arrow_type.value_type)
+        return inner, (None,), None
+    if pa.types.is_dictionary(arrow_type):
+        return _numpy_and_codec_from_arrow_type(arrow_type.value_type)
+    raise ValueError('Cannot auto-create unischema field for arrow type {}'
+                     .format(arrow_type))
 
 
 def match_unischema_fields(schema: Unischema,

@@ -1,8 +1,9 @@
 """A thread pool fed by a seeded epoch ventilator.
 
 A small copy of ``petastorm_tpu/workers/thread_pool.py`` and
-``workers/ventilator.py``: the ventilator puts work items (row-group pieces)
-into the pool for ``num_epochs`` epochs (None = forever), reshuffling the
+``workers/ventilator.py``: the ventilator puts work items (a
+:class:`WorkItem` per row-group piece and row-drop partition, as the JAX
+reader ventilates them, ``reader.py:646-663``) into the pool for ``num_epochs`` epochs (None = forever), reshuffling the
 item order each epoch from one ``np.random.default_rng(seed)``, with at most
 ``max_in_flight`` items outstanding. Workers run ``process(item)`` and
 publish results; a worker exception is re-raised in the consumer by
@@ -13,11 +14,21 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 _DONE = object()
+
+
+class WorkItem(NamedTuple):
+    """One ventilated unit of work: a row-group piece, the row predicate of
+    that piece (the user's, combined with the residual of ``filters``
+    specialised to the piece; None for none) and its row-drop partition
+    ``(partition, num_partitions)``."""
+    piece: object
+    predicate: object = None
+    drop_partition: Tuple[int, int] = (0, 1)
 
 
 class EmptyResultError(Exception):

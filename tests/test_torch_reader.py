@@ -232,16 +232,29 @@ def test_pool_stress_delivers_each_item_once_per_epoch():
 
 
 def test_unported_codec_raises(tmp_path):
+    """Every codec of the JAX package is ported: a store it writes with
+    ``ArrowListCodec`` reads through the port's NGram reader, and only a
+    codec name neither package registers raises, naming it."""
     from petastorm_tpu.codecs import ArrowListCodec
+    from petastorm_tpu_torch.codecs import codec_from_json_dict
     url = 'file://' + str(tmp_path / 'lists')
     schema = JUnischema('Lists', [
         JField('step', np.int64, (), JScalarCodec(), False),
         JField('tokens', np.int32, (4,), ArrowListCodec(), False)])
     with petastorm_tpu.materialize_dataset(url, schema) as w:
         w.write_rows({'step': np.int64(i),
-                      'tokens': np.zeros(4, np.int32)} for i in range(3))
-    with pytest.raises(NotImplementedError, match='arrow_list'):
-        make_reader(url, schema_fields=NGram({0: ['step']}, 1, 'step'))
+                      'tokens': np.arange(4, dtype=np.int32) + i}
+                     for i in range(3))
+    with make_reader(url, schema_fields=NGram({0: ['step', 'tokens']}, 1,
+                                              'step'),
+                     workers_count=1) as reader:
+        chunks = list(reader.iter_ngram_chunks())
+    tokens = np.concatenate([c.columns['tokens'] for c in chunks])
+    assert tokens.dtype == np.int32
+    np.testing.assert_array_equal(
+        tokens, np.arange(4, dtype=np.int32) + np.arange(3)[:, None])
+    with pytest.raises(ValueError, match='no_such_codec'):
+        codec_from_json_dict({'codec': 'no_such_codec'})
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):

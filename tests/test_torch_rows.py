@@ -25,6 +25,7 @@ from petastorm_tpu_torch.examples.mnist.main import (
     MnistSchema, generate_synthetic_mnist as tgenerate, train as ttrain)
 from petastorm_tpu_torch.models import mnist_mlp as tmlp
 from petastorm_tpu_torch.ngram import NGram
+from petastorm_tpu_torch.predicates import in_lambda
 from petastorm_tpu_torch.reader import make_batch_reader
 from petastorm_tpu_torch.readers import shuffling_buffer as tbuffers
 from petastorm_tpu_torch.transform import TransformSpec
@@ -150,12 +151,21 @@ def test_row_shuffling_buffer_draws_jax_order():
 
 def test_unported_row_options_raise(tmp_path):
     url = _store(tmp_path, 'torch')
-    with pytest.raises(NotImplementedError, match='transform_spec'):
-        make_reader(url, transform_spec=TransformSpec())
-    with pytest.raises(NotImplementedError, match='predicate'):
-        make_reader(url, predicate=object())
-    with pytest.raises(NotImplementedError, match='make_batch_reader'):
-        make_batch_reader(url)
+    with pytest.raises(NotImplementedError, match='decode_hints'):
+        make_reader(url, decode_hints={'image': (14, 14)})
+    with pytest.raises(NotImplementedError, match='cache_type'):
+        make_batch_reader(url, cache_type='local-disk')
+    with pytest.raises(TypeError, match='no_such_option'):
+        make_reader(url, no_such_option=1)
+    with pytest.raises(NotImplementedError, match='NGram reader with a row '
+                       'predicate'):
+        make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
+                    predicate=in_lambda(['digit'], lambda v: True))
+    with pytest.raises(NotImplementedError, match='NGram reader'):
+        make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
+                    transform_spec=TransformSpec())
+    with pytest.raises(ValueError, match='make_batch_reader'):
+        make_reader([url + '/part_00000.parquet'])
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
                      workers_count=1) as reader:
         with pytest.raises(TypeError, match='iter_ngram_chunks'):
