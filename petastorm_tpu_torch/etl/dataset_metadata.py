@@ -29,8 +29,8 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch.errors import (PetastormMetadataError,
                                         PetastormMetadataGenerationError)
 from petastorm_tpu_torch.fs import list_files, url_to_path
-from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
-                                           encode_row)
+from petastorm_tpu_torch.unischema import (INFERRED_SCHEMA_NAME, Unischema,
+                                           UnischemaField, encode_row)
 
 #: ``_common_metadata`` keys, shared with the JAX package's stores.
 UNISCHEMA_KEY = b'petastorm_tpu.unischema.v1'
@@ -39,6 +39,7 @@ ROWGROUPS_INDEX_KEY = b'petastorm_tpu.rowgroup_index.v1'
 
 _COMMON_METADATA = '_common_metadata'
 _DEFAULT_ROW_GROUP_SIZE_MB = 32
+_FOOTER_READ_THREADS = 8
 
 
 def _is_data_file(path: str) -> bool:
@@ -217,8 +218,8 @@ def _partition_values(dataset_path, path: str) -> Tuple[Tuple[str, str], ...]:
     return tuple(sorted(_partition_values_from_relpath(rel).items()))
 
 
-def load_row_groups(dataset_path, footer_cache: Optional[Dict] = None,
-                    num_discovery_workers: int = 8) -> List[RowGroupPiece]:
+def load_row_groups(dataset_path, footer_cache: Optional[Dict] = None
+                    ) -> List[RowGroupPiece]:
     """All row groups as pieces: from the metadata's per-file counts when
     present, else from the file footers (read on a few threads, and kept in
     ``footer_cache`` by path when one is given). A store directory's pieces
@@ -244,7 +245,7 @@ def load_row_groups(dataset_path, footer_cache: Optional[Dict] = None,
         return path, md
 
     pieces = []
-    with ThreadPoolExecutor(max_workers=num_discovery_workers) as executor:
+    with ThreadPoolExecutor(max_workers=_FOOTER_READ_THREADS) as executor:
         for path, md in executor.map(footer, files):
             parts = _partition_values(dataset_path, path)
             pieces.extend(RowGroupPiece(path, rg, md.row_group(rg).num_rows,
@@ -296,6 +297,6 @@ def infer_or_load_unischema(dataset_path) -> Tuple[Unischema, bool]:
         extra = [UnischemaField(k, str, (), None, False) for k in keys
                  if k not in schema.fields]
         if extra:
-            schema = Unischema('inferred_schema',
+            schema = Unischema(INFERRED_SCHEMA_NAME,
                                list(schema.fields.values()) + extra)
         return schema, False

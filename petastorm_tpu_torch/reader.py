@@ -37,10 +37,8 @@ import collections
 import copy
 import functools
 
-from petastorm_tpu_torch.errors import (NoDataAvailableError,
-                                        PetastormMetadataError)
-from petastorm_tpu_torch.etl.dataset_metadata import (get_schema,
-                                                      infer_or_load_unischema,
+from petastorm_tpu_torch.errors import NoDataAvailableError
+from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
                                                       load_row_groups)
 from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
 from petastorm_tpu_torch.filters import (FiltersPredicate,
@@ -112,21 +110,14 @@ def _validate_shard_range(cur_shard, shard_count):
                              cur_shard, shard_count))
 
 
-def _metadata_path(factory, dataset_url):
-    """The path of a petastorm store; a URL list or a store without
-    metadata is refused with a pointer to ``make_batch_reader``."""
+def _single_path(factory, dataset_url):
+    """The path of one store; a URL list is refused with a pointer to
+    ``make_batch_reader``."""
     path = urls_to_path_or_paths(dataset_url)
     if isinstance(path, list):
         raise ValueError('{} supports a single dataset url; a list of file '
                          'urls is only supported by make_batch_reader'
                          .format(factory))
-    try:
-        get_schema(path)
-    except PetastormMetadataError as e:
-        raise RuntimeError(
-            'Dataset at {} is missing petastorm_tpu metadata ({}). If this is '
-            'a plain parquet store, use make_batch_reader instead.'.format(
-                dataset_url, e))
     return path
 
 
@@ -152,7 +143,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     times, each time with one slice of its rows). ``transform_spec.func``
     receives one row dict and returns it transformed."""
     _refuse_unported('make_reader', unported)
-    path = _metadata_path('make_reader', dataset_url)
+    path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     return Reader(path, copy.deepcopy(schema_fields), mode=mode,
                   num_epochs=num_epochs,
@@ -178,7 +169,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
-    path = _metadata_path('make_columnar_reader', dataset_url)
+    path = _single_path('make_columnar_reader', dataset_url)
     return Reader(path, schema_fields, mode='columnar',
                   num_epochs=num_epochs, shuffle_row_groups=shuffle_row_groups,
                   workers_count=workers_count, seed=seed,
@@ -257,7 +248,12 @@ class Reader:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
         _validate_shard_range(cur_shard, shard_count)
         self.dataset_path = dataset_path
-        self.stored_schema, _ = infer_or_load_unischema(dataset_path)
+        self.stored_schema, was_stored = infer_or_load_unischema(dataset_path)
+        if mode != 'batch' and not was_stored:
+            raise RuntimeError(
+                'Dataset at {} is missing petastorm_tpu metadata. If this is '
+                'a plain parquet store, use make_batch_reader instead.'.format(
+                    dataset_path))
         stored = self.stored_schema
         self.ngram = schema_fields if mode == 'ngram' else None
         #: every published item is a columnar NGram window chunk

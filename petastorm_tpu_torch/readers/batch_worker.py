@@ -6,9 +6,11 @@ The port's counterpart of ``petastorm_tpu/readers/batch_worker.py``
 list columns through :func:`~petastorm_tpu_torch.codecs.list_column_to_numpy`,
 everything else as arrow's ``to_numpy`` gives it, so a null-bearing integer
 column is float64 with NaN), and ``ArrowBatchWorker``'s load, predicate
-(read first, the other columns only at its rows), row-drop partition and
-pandas transform. Codec columns are not decoded: the batch reader reads
-columns as arrow stores them.
+(read first, the other columns only at its rows) and pandas transform.
+Codec columns are not decoded: the batch reader reads columns as arrow
+stores them. The batch reader has no row-drop partitions: every item reads
+its whole row group, as in the JAX package, whose ``make_batch_reader``
+fixes them at 1.
 
 ``TransformSpec.func`` receives a pandas DataFrame; a cell that is a numpy
 array of more than one dimension is checked against the transformed
@@ -25,7 +27,7 @@ import pyarrow as pa
 
 from petastorm_tpu_torch.codecs import list_column_to_numpy
 from petastorm_tpu_torch.readers.columnar_worker import (
-    drop_partition_bounds, make_partition_columns, read_row_group,
+    make_partition_columns, read_row_group,
     stored_columns, validate_predicate_fields)
 from petastorm_tpu_torch.unischema import Unischema
 
@@ -101,8 +103,7 @@ def load_batch_item(item, schema: Unischema, full_schema: Unischema,
                     ) -> Optional[pa.Table]:
     """One work item as an arrow table: the row group's columns of
     ``schema`` (the reader's view), its rows kept by the item's predicate,
-    its row-drop partition, then ``transform_spec``. None when no row is
-    left."""
+    then ``transform_spec``. None when no row is left."""
     if item.predicate is not None:
         table = _load_table_with_predicate(item.piece, schema, full_schema,
                                            item.predicate)
@@ -110,11 +111,6 @@ def load_batch_item(item, schema: Unischema, full_schema: Unischema,
         table = _load_table(item.piece, schema, full_schema)
     if table is None or table.num_rows == 0:
         return None
-    partition, num_partitions = item.drop_partition
-    if num_partitions > 1:
-        lo, hi = drop_partition_bounds(table.num_rows, partition,
-                                       num_partitions)
-        table = table.slice(lo, hi - lo)
     if transform_spec is not None:
         table = apply_pandas_transform(transform_spec, transformed_schema,
                                        table)

@@ -24,6 +24,8 @@ import pyarrow as pa
 from petastorm_tpu_torch.codecs import ScalarCodec, codec_from_json_dict
 
 _DEFAULT_SCALAR_CODEC = ScalarCodec()
+#: Name of every Unischema inferred from a plain parquet store.
+INFERRED_SCHEMA_NAME = 'inferred_schema'
 
 
 class UnischemaField:
@@ -172,24 +174,20 @@ class Unischema:
                                for fd in d['fields']])
 
     @classmethod
-    def from_arrow_schema(cls, arrow_schema: pa.Schema,
-                          omit_unsupported_fields: bool = True,
-                          name: str = 'inferred_schema') -> 'Unischema':
-        """A Unischema inferred for a plain (non-petastorm) parquet store:
-        one codec-less field per column whose arrow type has a numpy
-        counterpart; others are left out (or raise)."""
+    def from_arrow_schema(cls, arrow_schema: pa.Schema) -> 'Unischema':
+        """A Unischema named :data:`INFERRED_SCHEMA_NAME` for a plain
+        (non-petastorm) parquet store: one codec-less field per column whose arrow type has
+        a numpy counterpart; other columns are left out."""
         fields = []
         for column in arrow_schema:
             try:
                 numpy_dtype, shape, codec = _numpy_and_codec_from_arrow_type(
                     column.type)
             except ValueError:
-                if omit_unsupported_fields:
-                    continue
-                raise
+                continue
             fields.append(UnischemaField(column.name, numpy_dtype, shape, codec,
                                          nullable=column.nullable))
-        return cls(name, fields)
+        return cls(INFERRED_SCHEMA_NAME, fields)
 
 
 _ARROW_SCALARS = (
