@@ -55,7 +55,31 @@ printing one line or a few:
    reader alone is timed over one more pass; and a small hive-partitioned
    plain store is read with a partition filter and held against
    ``pq.read_table(filters=...)``;
-9. times: each kernel's time at its path shape beside its bound, its plain
+9. legacy store: the committed store written by original petastorm
+   (``tests/data/legacy/legacy_dataset``, a pickled schema) read through
+   ``make_reader``, ``make_columnar_reader`` and ``make_batch_reader`` ->
+   ``TorchDataLoader`` -> ``prefetch_to_device``: 24 rows equal to the
+   fixture's formula, and the stored schema (``image_png`` a png
+   ``CompressedImageCodec`` of (8, 6, 3));
+10. jpeg image line: the image line's 256 synthetic images in a jpeg store,
+   read by ``make_columnar_reader`` with ``decode_hints={'image': {'scale':
+   2}}``: without a transform each image equals ``cv2.imdecode(...,
+   IMREAD_REDUCED_COLOR_2)`` of its stored bytes, bit for bit, at (ceil
+   h/2, ceil w/2); the reader alone is timed with and without the hint;
+   then the 224 x 224 resize -> ``TorchDataLoader`` -> ``prefetch_to_device``
+   -> 4 CNN steps on K4;
+11. flagship under selection, then decode: a 320-row token store read by
+   ``make_reader`` with an NGram of two steps, a hash split
+   (``in_pseudorandom_split`` 0.9, subset 0), ``filters`` (``step`` < 288)
+   and 2 row-drop partitions, window by window -> ``TorchDataLoader`` ->
+   ``prefetch_to_device`` -> 5 AdamW steps of the flagship LM on K1-K3; the
+   set of window start steps of one reader pass is held against one worked
+   out with pyarrow and ``hashlib`` alone. Then ``generate`` continues 8
+   held-out prompts (subset 1) of 128 tokens by 64: greedy on a float32
+   copy of the trained weights, its logits held against the teacher-forced
+   ``forward`` (float32 K1), and sampled in bf16 (temperature 0.8, top-p
+   0.9);
+12. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -104,6 +128,25 @@ IMAGE_WORKERS = 8
 K4_SHAPE = (IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
 K4_LOOP = 100                     # K4 launches between two events
 MNIST_ROWS = 2048
+LEGACY_PATH = os.path.join(ROOT, 'tests', 'data', 'legacy', 'legacy_dataset')
+LEGACY_ROWS = 24
+JPEG_SCALE = 2                    # decode_hints={'image': {'scale': 2}}
+# jpeg cells are about 11x smaller than png's: 0.75 MB row groups hold the
+# png store's ~21 images each (12 row groups), so 8 workers share the store
+JPEG_ROW_GROUP_MB = 0.75
+JPEG_STEPS = 4
+SEL_HOLDOUT = 288                 # filters keep step < 288
+SEL_SPLIT = 0.9                   # in_pseudorandom_split([0.9, 0.1], ...)
+SEL_DROP = 2                      # shuffle_row_drop_partitions
+SEL_PROMPTS = 8                   # held-out prompts (subset 1)
+SEL_PROMPT_LEN = 128
+SEL_NEW = 64
+# Decode against teacher forcing, float32, no TF32: a sum of up to
+# d_ff = 2048 terms taken in another order moves by at most 2048 x 2^-24 =
+# 2^-13 of the sum of |terms|; the residual stream passes 8 such sums (4
+# layers x attention and FFN) before the unembedding, so the logits are
+# held to 8 x 2^-13 = 2^-10 (atol and rtol).
+DECODE_TOL = 2.0 ** -10
 BATCH_LINE_ROWS = 60000           # MNIST's training set
 BATCH_LINE_HOLDOUT = 54000        # filters keep idx < 54000
 BATCH_LINE_SPLIT = 0.9            # in_pseudorandom_split([0.9, 0.1], 0)
@@ -732,7 +775,372 @@ def batch_line(torch, np, args, device='cuda', rows=BATCH_LINE_ROWS,
 
 
 # ---------------------------------------------------------------------------
-# phase 9: times
+# phase 9-11: legacy store, jpeg image line, flagship under selection
+# ---------------------------------------------------------------------------
+
+def legacy_expected(np, i):
+    """Row ``i`` of the committed legacy fixture (the formula of its
+    generator, ``tests/data/legacy/generate_fixture.py``)."""
+    image = ((np.arange(8 * 6 * 3, dtype=np.int64).reshape(8, 6, 3)
+              * (i + 1)) % 251).astype(np.uint8)
+    matrix = np.arange(12, dtype=np.float32).reshape(3, 4) + i / 8.0
+    return {'sensor_name': 'sensor_{:02d}'.format(i % 4),
+            'image_png': image, 'matrix': matrix}
+
+
+def legacy_line(torch, np, device='cuda'):
+    """The store written by original petastorm through the three readers
+    and the loader onto ``device``: 24 rows equal to the formula, the
+    stored schema. The batch reader yields the stored bytes, decoded here
+    with the codecs of its schema."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_batch_reader,
+                                     make_columnar_reader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.codecs import CompressedImageCodec
+    for factory in (make_reader, make_columnar_reader, make_batch_reader):
+        name = factory.__name__
+        with factory('file://' + LEGACY_PATH, workers_count=2) as reader:
+            schema = reader.schema
+            image_field = schema.fields['image_png']
+            check(image_field.codec == CompressedImageCodec('png')
+                  and image_field.shape == (8, 6, 3),
+                  'legacy %s: image_png is %r' % (name, image_field))
+            loader = TorchDataLoader(reader, batch_size=LEGACY_ROWS,
+                                     device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            got = {}
+            with contextlib.closing(batches):
+                for b in batches:
+                    check(b['id'].device.type == device,
+                          'legacy %s: ids on %s' % (name, b['id'].device))
+                    for j, i in enumerate(b['id'].tolist()):
+                        check(i not in got, 'legacy %s: id %d twice'
+                              % (name, i))
+                        got[i] = {k: v[j] for k, v in b.items()}
+        check(sorted(got) == list(range(LEGACY_ROWS)),
+              'legacy %s: ids %s' % (name, sorted(got)))
+        for i, row in got.items():
+            want = legacy_expected(np, i)
+            image, matrix = row['image_png'], row['matrix']
+            if factory is make_batch_reader:
+                image = image_field.codec.decode(image_field, image)
+                matrix = schema.fields['matrix'].codec.decode(
+                    schema.fields['matrix'], matrix)
+            else:
+                check(image.device.type == device
+                      and matrix.device.type == device,
+                      'legacy %s: columns not on %s' % (name, device))
+                image, matrix = image.cpu().numpy(), matrix.cpu().numpy()
+            check(row['sensor_name'] == want['sensor_name']
+                  and np.array_equal(image, want['image_png'])
+                  and image.dtype == np.uint8
+                  and np.array_equal(matrix, want['matrix'])
+                  and matrix.dtype == np.float32,
+                  'legacy %s: row %d differs from the formula' % (name, i))
+        log('legacy %s: %d rows == formula; image_png %r %s'
+            % (name, len(got), image_field.codec, image_field.shape))
+
+
+def jpeg_line(torch, np, kernels, args, device='cuda', rows=IMAGE_ROWS,
+              batch=IMAGE_BATCH, size=IMAGE_SIZE, steps=JPEG_STEPS):
+    """The image line from a jpeg store with ``decode_hints``: the reduced
+    decode against cv2's of the stored bytes, the reader alone with and
+    without the hint, then CNN steps on ``device``. Returns the launch
+    counts of the steps."""
+    import cv2
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch import (TorchDataLoader, make_columnar_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.generate_imagenet import (
+        generate, synthetic_rows)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    hints = {'image': {'scale': JPEG_SCALE}}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'images_jpeg')
+        url = 'file://' + path
+        shapes = []
+
+        def recorded():
+            for row in synthetic_rows(rows, classes=IMAGE_CLASSES,
+                                      seed=args.seed):
+                shapes.append(row['image'].shape)
+                yield row
+
+        start = time.perf_counter()
+        generate(url, recorded(), row_group_size_mb=JPEG_ROW_GROUP_MB,
+                 image_codec='jpeg')
+        groups = sum(pq.ParquetFile(os.path.join(path, n)).num_row_groups
+                     for n in os.listdir(path) if n.endswith('.parquet')
+                     and not n.startswith(('_', '.')))
+        log('jpeg store %d rows in %d row groups, image (None, None, 3) '
+            "uint8 under CompressedImageCodec('jpeg', quality=80), written "
+            'in %.2f s' % (rows, groups, time.perf_counter() - start))
+        # the stored bytes in file order, as pyarrow reads them
+        cells = []
+        for name in sorted(os.listdir(path)):
+            if name.endswith('.parquet') and not name.startswith(('_', '.')):
+                cells.extend(pq.read_table(os.path.join(path, name),
+                                           columns=['image'])
+                             .column('image').to_pylist())
+        with make_columnar_reader(url, schema_fields=['image'],
+                                  decode_hints=hints, workers_count=1,
+                                  shuffle_row_groups=False) as reader:
+            check(reader.schema.fields['image'].shape == (None, None, 3),
+                  'jpeg: hinted schema %r' % reader.schema.fields['image'])
+            got = [img for b in reader for img in b.image]
+        check(len(got) == len(cells) == len(shapes) == rows,
+              'jpeg: %d images read, %d stored' % (len(got), len(cells)))
+        for k, (img, cell, shape) in enumerate(zip(got, cells, shapes)):
+            ref = cv2.cvtColor(cv2.imdecode(np.frombuffer(cell, np.uint8),
+                                            cv2.IMREAD_REDUCED_COLOR_2),
+                               cv2.COLOR_BGR2RGB)
+            want = (-(-shape[0] // JPEG_SCALE), -(-shape[1] // JPEG_SCALE), 3)
+            check(img.shape == want and np.array_equal(img, ref),
+                  'jpeg: image %d %s differs from cv2 reduced decode %s'
+                  % (k, img.shape, ref.shape))
+        log('jpeg hinted decode: %d images == cv2.imdecode(IMREAD_REDUCED_'
+            'COLOR_2) of the stored bytes, bit for bit, each (ceil h/2, '
+            'ceil w/2, 3)' % len(got))
+        rates = {}
+        for label, kw in (('full decode', {}), ('scale 2', {'decode_hints':
+                                                            hints})):
+            start = time.perf_counter()
+            n = 0
+            with make_columnar_reader(url, schema_fields=['image'],
+                                      workers_count=IMAGE_WORKERS,
+                                      seed=args.seed, **kw) as reader:
+                for b in reader:
+                    n += len(b.image)
+            rates[label] = n / (time.perf_counter() - start)
+            check(n == rows, 'jpeg: reader alone read %d of %d' % (n, rows))
+        log('jpeg reader alone (%d workers, no model): full decode %.0f '
+            'images/s, scale 2 %.0f images/s (%.2fx)'
+            % (IMAGE_WORKERS, rates['full decode'], rates['scale 2'],
+               rates['scale 2'] / rates['full decode']))
+
+        params = cnn.init(torch.Generator().manual_seed(args.seed),
+                          num_classes=IMAGE_CLASSES, device=device)
+        step = cnn.make_train_step(params, lr=1e-3)
+        losses, times = [], []
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with make_columnar_reader(url, num_epochs=None,
+                                  workers_count=IMAGE_WORKERS, seed=args.seed,
+                                  transform_spec=make_resize_transform(size),
+                                  decode_hints=hints) as reader:
+            loader = TorchDataLoader(reader, batch_size=batch, drop_last=True,
+                                     device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    b = next(batches)
+                    images = b['image']
+                    check(images.device.type == device
+                          and images.dtype == torch.uint8
+                          and tuple(images.shape) == (batch, size, size, 3),
+                          'jpeg: batch %s %s on %s' % (
+                              images.dtype, tuple(images.shape),
+                              images.device))
+                    losses.append(float(step(images, b['label'])))
+                    times.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+    check(all(math.isfinite(x) for x in losses), 'jpeg: non-finite loss')
+    steady = statistics.median(times[1:] or times)
+    log('jpeg image line %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
+        '%.0f images/s, launches %s'
+        % (len(losses), losses[0], losses[-1], steady * 1e3, batch / steady,
+           json.dumps(launches)))
+    return launches
+
+
+def md5_bucket(value):
+    """``in_pseudorandom_split``'s bucket of a value, from hashlib alone."""
+    import hashlib
+    return (int(hashlib.md5(str(value).encode('utf-8')).hexdigest(), 16)
+            / float(1 << 128))
+
+
+def expected_windows(path, holdout, split):
+    """The start steps of the selection line's windows, worked out with
+    pyarrow and hashlib alone: per row group, the steps below ``holdout``
+    whose bucket lies in [0, ``split``), then each kept step whose
+    successor is kept in the same row group (delta_threshold 1)."""
+    import pyarrow.parquet as pq
+    starts = set()
+    for name in sorted(os.listdir(path)):
+        if not name.endswith('.parquet') or name.startswith(('_', '.')):
+            continue
+        f = pq.ParquetFile(os.path.join(path, name))
+        for rg in range(f.metadata.num_row_groups):
+            steps = f.read_row_group(rg, columns=['step']).column(
+                'step').to_pylist()
+            kept = {s for s in steps if s < holdout and md5_bucket(s) < split}
+            starts.update(s for s in kept if s + 1 in kept)
+    return starts
+
+
+def selection_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                   rows=ROWS, prompt_len=SEL_PROMPT_LEN, new=SEL_NEW):
+    """The flagship LM trained on the NGram line under a hash split,
+    residual filters and row-drop partitions, then ``generate`` on held-out
+    prompts. Returns ``(launches of the training steps, launches of the
+    teacher-forced forward)``."""
+    import dataclasses
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.predicates import in_pseudorandom_split
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    split = [SEL_SPLIT, 1 - SEL_SPLIT]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'tokens')
+        url = 'file://' + path
+        write_store(np, url, cfg.max_seq_len, cfg.vocab_size, rows,
+                    args.seed)
+        want = expected_windows(path, SEL_HOLDOUT, SEL_SPLIT)
+
+        def reader(**kw):
+            return make_reader(
+                url, schema_fields=NGram({0: ['step', 'tokens'],
+                                          1: ['tokens']}, 1, 'step'),
+                predicate=in_pseudorandom_split(split, 0, 'step'),
+                filters=[('step', '<', SEL_HOLDOUT)],
+                shuffle_row_drop_partitions=SEL_DROP, seed=args.seed,
+                workers_count=4, **kw)
+
+        start = time.perf_counter()
+        with reader() as r:
+            check(not r.ngram_chunked, 'selection: the reader is chunked')
+            seen = [int(w[0].step) for w in r]
+        alone = time.perf_counter() - start
+        check(len(seen) == len(set(seen)) and set(seen) == want,
+              'selection: %d windows (%d unique), reckoned %d'
+              % (len(seen), len(set(seen)), len(want)))
+        log('selection windows: %d, == reckoned, none twice; reader alone '
+            '(no model) %.3f s, %.0f windows/s'
+            % (len(seen), alone, len(seen) / alone))
+
+        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                          device=device)
+        _, step = tlm.make_train_step(cfg, params)
+        losses, times, trained_on = [], [], []
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with reader(num_epochs=None) as r:
+            loader = TorchDataLoader(r, batch_size=BATCH, drop_last=True,
+                                     device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for _ in range(STEPS):
+                    t0 = time.perf_counter()
+                    batch = next(batches)
+                    tokens = batch[0]['tokens']
+                    check(tokens.device.type == device and tuple(tokens.shape)
+                          == (BATCH, cfg.max_seq_len),
+                          'selection: tokens %s on %s'
+                          % (tuple(tokens.shape), tokens.device))
+                    nxt = batch[1]['tokens'][:, :1]
+                    losses.append(float(step(
+                        tokens, torch.cat([tokens[:, 1:], nxt], 1))))
+                    if device == 'cuda':
+                        torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    trained_on.extend(batch[0]['step'].tolist())
+        launches = dict(kernels.LAUNCHES)
+        check(all(math.isfinite(x) for x in losses),
+              'selection: non-finite loss')
+        check(set(trained_on) <= want, 'selection: trained on a window '
+              'outside the reckoning')
+        steady = statistics.median(times[1:] or times)
+        log('selection LM %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
+            '%.0f tokens/s, launches %s'
+            % (len(losses), losses[0], losses[-1], steady * 1e3,
+               BATCH * cfg.max_seq_len / steady, json.dumps(launches)))
+
+        with make_reader(url, schema_fields=['step', 'tokens'],
+                         predicate=in_pseudorandom_split(split, 1, 'step'),
+                         workers_count=1, shuffle_row_groups=False) as r:
+            held = sorted((int(x.step), x.tokens) for x in r)[:SEL_PROMPTS]
+    check(len(held) == SEL_PROMPTS
+          and all(md5_bucket(s) >= SEL_SPLIT for s, _ in held),
+          'selection: held-out prompts %s' % [s for s, _ in held])
+    prompts = torch.from_numpy(np.stack([t[:prompt_len] for _, t in held])
+                               ).to(device)
+
+    def decode(p, c, **kw):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, logits = tlm.generate(p, prompts, c, new, generator=gen,
+                                   return_logits=True, **kw)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = prompt_len + new - 1
+        check(tuple(out.shape) == (SEL_PROMPTS, new)
+              and int(out.min()) >= 0 and int(out.max()) < c.vocab_size
+              and bool(torch.isfinite(logits).all()),
+              'generate: tokens %s in [%d, %d], finite logits %s'
+              % (tuple(out.shape), int(out.min()), int(out.max()),
+                 bool(torch.isfinite(logits).all())))
+        return out, logits, wall, steps
+
+    def timing(wall, steps):
+        return ('%.3f ms per step (one token of each of %d sequences, %d '
+                'steps: prompt %d + %d new - 1), %.0f tokens/s, %.0f new '
+                'tokens/s' % (wall / steps * 1e3, SEL_PROMPTS, steps,
+                              prompt_len, new,
+                              SEL_PROMPTS * steps / wall,
+                              SEL_PROMPTS * new / wall))
+
+    # greedy on a float32 copy, against the teacher-forced forward
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: ([{n: w.detach().clone() for n, w in layer.items()}
+                for layer in v] if k == 'layers' else v.detach().clone())
+           for k, v in params.items()}
+    kernels.reset_launch_counts()
+    out, logits, wall, steps = decode(p32, c32)
+    check(not any(kernels.LAUNCHES.values()),
+          'generate launched kernels: %r' % kernels.LAUNCHES)
+    log('generate float32 greedy: ' + timing(wall, steps))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        full = torch.cat([prompts, out], 1)
+        forced = tlm.forward(p32, full[:, :-1], c32)[:, prompt_len - 1:]
+        forced_launches = dict(kernels.LAUNCHES)
+    err = (logits - forced).abs()
+    limit = DECODE_TOL * (1 + forced.abs())
+    check(not bool((err > limit).any()),
+          'generate: decode logits off teacher forcing by %.3g (%d beyond '
+          'the limit)' % (float(err.max()), int((err > limit).sum())))
+    top2 = forced.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * DECODE_TOL * (
+        1 + top2[..., 0].abs())
+    agree = out.long() == forced.argmax(-1)
+    check(bool(agree[clear].all()),
+          'generate: %d greedy tokens differ from the forward argmax where '
+          'its margin is clear' % int((~agree & clear).sum()))
+    log('generate float32 decode logits == teacher-forced forward (float32 '
+        'K1, launches %s): max abs err %.3g (limit 2^-10 (1 + |ref|)); '
+        'tokens == forward argmax at %d of %d positions with a clear top-2 '
+        'margin, %d in all'
+        % (json.dumps(forced_launches), float(err.max()), int(clear.sum()),
+           clear.numel(), int(agree.sum())))
+    out, logits, wall, steps = decode(params, cfg, temperature=0.8,
+                                      top_p=0.9)
+    log('generate bf16 sampled (temperature 0.8, top-p 0.9): tokens in '
+        'range, logits finite; ' + timing(wall, steps))
+    return launches, forced_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -939,6 +1347,26 @@ def main(argv=None):
     phase = time.perf_counter()
     batch_line(torch, np, args)
     log('phase batch line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    legacy_line(torch, np)
+    log('phase legacy store %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    jpeg = jpeg_line(torch, np, kernels, args)
+    check(jpeg['normalize'] == JPEG_STEPS,
+          'K4 launched %d times in %d jpeg steps'
+          % (jpeg['normalize'], JPEG_STEPS))
+    launches['normalize'] += jpeg['normalize']
+    log('phase jpeg image line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    selected, forced = selection_line(torch, np, tlm, kernels, args)
+    check(all(selected[k] > 0 for k in FLASH),
+          'a kernel was not launched on the selection line: %r' % selected)
+    check(forced['flash_fwd'] > 0,
+          'float32 K1 was not launched by the teacher-forced forward')
+    for name in FLASH:
+        launches[name] += selected[name] + forced[name]
+    log('phase selection line and decode %.1f s'
+        % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

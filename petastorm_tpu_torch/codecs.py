@@ -3,18 +3,22 @@
 
 A copy of the codecs of ``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247,
 ``ArrowListCodec`` :349-384, ``CompressedNdarrayCodec`` :387,
-``CompressedImageCodec`` :421, ``ScalarCodec`` :633, the strict ``np.save``
-header parser ``_parse_fast_npy_header`` :205) and of the list-column
-conversion of ``readers/columnar_worker.py`` (``_list_column_to_numpy``
-:218-241). Codecs are serialized to JSON by registered name, never
-pickled, under the same names as the JAX package, so stores written by
-either package read in the other. A schema naming any other codec raises
+``CompressedImageCodec`` :421 with its scaled jpeg decode :522-615,
+``ScalarCodec`` :633, ``build_decode_overrides`` :712, the strict
+``np.save`` header parser ``_parse_fast_npy_header`` :205) and of the
+list-column conversion of ``readers/columnar_worker.py``
+(``_list_column_to_numpy`` :218-241). Codecs are serialized to JSON by
+registered name, never pickled, under the same names as the JAX package,
+so stores written by either package read in the other. A schema naming any other codec raises
 ``ValueError``.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import io
+import operator
 import re
 from typing import Any, Callable, Dict
 
@@ -451,6 +455,97 @@ class CompressedImageCodec(_Codec):
         shapes (variable-size images) give an object array of frames."""
         return decode_cells(field, chunk, self.make_cell_decoder(field))
 
+    def validate_decode_hint(self, field, min_shape=None, scale=None,
+                             allow_upscale=False):
+        """Check :meth:`decode_scaled`'s hint values when a reader is made,
+        so a bad value fails there and not on a worker."""
+        if min_shape is not None and scale is not None:
+            raise ValueError("decode hint takes 'min_shape' or 'scale', "
+                             'not both')
+        if scale is not None and scale not in (2, 4, 8):
+            raise ValueError('scale must be one of 2, 4, 8 (jpeg DCT '
+                             'denominators), got {!r}'.format(scale))
+        if min_shape is not None:
+            try:        # any 2-sequence of integral values
+                vals = [operator.index(s) for s in min_shape]
+                ok = len(vals) == 2 and all(v > 0 for v in vals)
+            except TypeError:
+                ok = False
+            if not ok:
+                raise ValueError(
+                    'min_shape must be a (height, width) pair of positive '
+                    'ints, got {!r}'.format(min_shape))
+
+    def _scalable_payload(self, field) -> bool:
+        """Whether the payload can decode scaled: jpeg only (png's reduced
+        decode rounds instead of taking the ceiling), uint8 only, gray or
+        3-channel. The spatial dims may be wildcards."""
+        shape = field.shape
+        return (self._image_codec in ('.jpg', '.jpeg')
+                and np.dtype(field.numpy_dtype) == np.uint8
+                and shape is not None and len(shape) >= 2
+                and (len(shape) == 2 or (len(shape) == 3 and shape[2] == 3)))
+
+    def can_scale(self, field) -> bool:
+        """Whether a ``min_shape`` hint can reduce this field: a scalable
+        payload with known spatial dims (the denominator depends on
+        them)."""
+        return (self._scalable_payload(field)
+                and all(s is not None for s in field.shape[:2]))
+
+    def _reduced_flag(self, field, denom):
+        import cv2
+        if len(field.shape) > 2:
+            return {2: cv2.IMREAD_REDUCED_COLOR_2,
+                    4: cv2.IMREAD_REDUCED_COLOR_4,
+                    8: cv2.IMREAD_REDUCED_COLOR_8}[denom]
+        return {2: cv2.IMREAD_REDUCED_GRAYSCALE_2,
+                4: cv2.IMREAD_REDUCED_GRAYSCALE_4,
+                8: cv2.IMREAD_REDUCED_GRAYSCALE_8}[denom]
+
+    def decode_scaled(self, field, value, min_shape=None, scale=None,
+                      allow_upscale=False):
+        """Decode at a reduced resolution, the jpeg DCT denominator (2, 4
+        or 8) applied during the entropy decode. Two hint forms:
+
+        - ``min_shape=(h, w)``: the largest denominator whose output still
+          covers ``min_shape`` (with ``allow_upscale``, stays within one
+          halving of it); a field with wildcard spatial dims decodes in
+          full;
+        - ``scale=2|4|8``: that denominator, for variable-shape fields,
+          where the caller knows the reduced size still covers its resize
+          target.
+
+        A payload that cannot scale (png, uint16, RGBA) decodes in full."""
+        if scale is not None:
+            if not self._scalable_payload(field):
+                return self.decode(field, value)
+            return self._decode_flag(field, value,
+                                     self._reduced_flag(field, scale))
+        if min_shape is None or not self.can_scale(field):
+            return self.decode(field, value)
+        shape = field.shape
+        min_h, min_w = int(min_shape[0]), int(min_shape[1])
+        chosen = None
+        for denom in (8, 4, 2):
+            h, w = -(-shape[0] // denom), -(-shape[1] // denom)
+            if (h >= min_h and w >= min_w) or (
+                    allow_upscale and 2 * h >= min_h and 2 * w >= min_w):
+                chosen = self._reduced_flag(field, denom)
+                break
+        return self._decode_flag(field, value, chosen)
+
+    def _decode_flag(self, field, value, flag):
+        import cv2
+        img = cv2.imdecode(np.frombuffer(value, dtype=np.uint8),
+                           cv2.IMREAD_UNCHANGED if flag is None else flag)
+        if img is None:
+            raise ValueError('cv2.imdecode failed for field {!r}'
+                             .format(field.name))
+        if img.ndim == 3 and img.shape[2] == 3:
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        return img
+
     def arrow_type(self, field):
         return pa.binary()
 
@@ -472,6 +567,34 @@ _CODEC_REGISTRY = {c.codec_name: c for c in (NdarrayCodec, ScalarCodec,
                                              ArrowListCodec,
                                              CompressedNdarrayCodec,
                                              CompressedImageCodec)}
+
+
+def build_decode_overrides(schema, decode_hints) -> Dict[str, Callable]:
+    """``{field name: decode(cell)}`` from a reader's ``decode_hints``
+    (field name -> keyword arguments of the codec's ``decode_scaled``, e.g.
+    ``{'image': {'scale': 2}}``). Checks, when the reader is made, that
+    each hinted field exists, that its codec has ``decode_scaled``, that
+    the keywords bind to it, and their values."""
+    overrides = {}
+    for name, hint in (decode_hints or {}).items():
+        field = schema.fields.get(name)
+        if field is None:
+            raise ValueError('decode_hints names unknown field {!r}'
+                             .format(name))
+        scaled = getattr(field.codec, 'decode_scaled', None)
+        if scaled is None:
+            raise ValueError(
+                'decode_hints for field {!r}: codec {!r} has no '
+                'decode_scaled'.format(name, type(field.codec).__name__))
+        try:
+            inspect.signature(scaled).bind(field, b'', **hint)
+        except TypeError as e:
+            raise ValueError(
+                'decode_hints for field {!r} do not match {}.decode_scaled: '
+                '{}'.format(name, type(field.codec).__name__, e))
+        field.codec.validate_decode_hint(field, **hint)
+        overrides[name] = functools.partial(scaled, field, **hint)
+    return overrides
 
 
 def codec_from_json_dict(d: Dict[str, Any]):

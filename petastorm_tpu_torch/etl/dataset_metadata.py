@@ -10,7 +10,9 @@ The metadata format is the JAX package's: the Unischema as JSON under
 ``petastorm_tpu.unischema.v1``, per-file row-group counts under
 ``petastorm_tpu.num_row_groups_per_file.v1`` and row-group indexes under
 ``petastorm_tpu.rowgroup_index.v1`` in ``_common_metadata``, so the two
-packages read each other's stores; nothing is pickled.
+packages read each other's stores; nothing is pickled. A store written by
+original petastorm, whose ``_common_metadata`` holds only its pickled
+schema, is read through :mod:`petastorm_tpu_torch.compat`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Dict, List, Optional, Tuple
 import pyarrow as pa
 import pyarrow.parquet as pq
 
+from petastorm_tpu_torch.compat import (PETASTORM_UNISCHEMA_KEY,
+                                        unischema_from_petastorm_pickle)
 from petastorm_tpu_torch.errors import (PetastormMetadataError,
                                         PetastormMetadataGenerationError)
 from petastorm_tpu_torch.fs import list_files, url_to_path
@@ -257,7 +261,8 @@ def load_row_groups(dataset_path, footer_cache: Optional[Dict] = None
 
 
 def get_schema(dataset_path) -> Unischema:
-    """The Unischema stored in ``_common_metadata``."""
+    """The Unischema stored in ``_common_metadata``: the JAX package's JSON,
+    or original petastorm's pickle (:mod:`petastorm_tpu_torch.compat`)."""
     metadata = read_common_metadata(dataset_path)
     if metadata is None:
         raise PetastormMetadataError(
@@ -265,6 +270,11 @@ def get_schema(dataset_path) -> Unischema:
             'materialize_dataset? A plain parquet store reads with '
             'make_batch_reader.'.format(dataset_path))
     if UNISCHEMA_KEY not in metadata:
+        if PETASTORM_UNISCHEMA_KEY in metadata:
+            # written by original petastorm: its pickled schema, decoded by
+            # the restricted unpickler
+            return unischema_from_petastorm_pickle(
+                metadata[PETASTORM_UNISCHEMA_KEY])
         raise PetastormMetadataError(
             '_common_metadata at {} does not carry a unischema (key {})'
             .format(dataset_path, UNISCHEMA_KEY))

@@ -1,2 +1,2 @@
 """Example lines of the port: the twins of ``examples/hello_world``,
-``examples/imagenet`` and ``examples/mnist``."""
+``examples/imagenet``, ``examples/mnist`` and ``examples/transformer_lm``."""

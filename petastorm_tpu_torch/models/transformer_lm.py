@@ -3,7 +3,9 @@
 Counterpart of ``petastorm_tpu/models/transformer_lm.py``
 (``TransformerConfig`` :36-80, ``init`` :86-130, ``_rms_norm``/``_rope`` :181-200, ``_attention``
 :228-269, ``_dense_ffn`` :272-275, ``forward``/``loss_fn`` :393-452,
-``make_train_step`` :620-653). Parameters are a plain dict of float32
+``make_train_step`` :620-653) and its KV-cache decode (``init_kv_cache``,
+``_attend_cache``, ``_decode_layer``, ``_sample_logits`` and ``generate``
+:459-613). Parameters are a plain dict of float32
 tensors with the JAX pytree's structure and layout (see
 :mod:`petastorm_tpu_torch.weights`): weights are ``(in, out)`` and applied
 as ``x @ w``. Compute runs in ``config.dtype`` (bfloat16 by default) with
@@ -11,8 +13,14 @@ explicit ``w.to(x.dtype)`` casts, as the JAX model does, so gradients land
 on the float32 parameters; norms, softmax statistics and the loss run in
 float32.
 
-Not in this slice: mixture-of-experts FFNs, ring attention (multi-GPU) and
-KV-cache decoding (``generate``); they raise ``NotImplementedError``.
+``generate`` decodes one token a step for every sequence, prompt included,
+through the same single-token path, against per-layer caches that it
+writes in place; it attends the cache with plain einsums, as the JAX
+decode does (no kernel), and samples with an explicit
+``torch.Generator``.
+
+Not in this slice: mixture-of-experts FFNs and ring attention (multi-GPU);
+they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,10 +60,14 @@ class TransformerConfig:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
 
-def _check_supported(config: TransformerConfig) -> None:
+def _check_dense(config: TransformerConfig) -> None:
     if config.n_experts > 0:
         raise NotImplementedError('mixture-of-experts FFNs are not ported '
                                   'yet (the MoE / GQA config slice)')
+
+
+def _check_supported(config: TransformerConfig) -> None:
+    _check_dense(config)
     if config.attention not in ('flash', 'blockwise'):
         raise NotImplementedError(
             "attention=%r is not ported yet (ring attention is the "
@@ -220,6 +232,150 @@ def loss_fn(params, tokens, targets, config: TransformerConfig, *,
         return nll.mean()
     w = weights.reshape(-1).float()
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# decoding (KV-cache autoregressive generation)
+# ---------------------------------------------------------------------------
+
+_NEG_INF_LOGIT = -1e30
+
+
+def init_kv_cache(config: TransformerConfig, batch_size: int, max_len: int,
+                  device=None) -> List[Dict]:
+    """Per-layer key and value caches ``(B, kv_heads, max_len, head_dim)``
+    of zeros in the compute dtype."""
+    c = config
+    shape = (batch_size, c.kv_heads, max_len, c.head_dim)
+    return [{'k': torch.zeros(shape, dtype=c.dtype, device=device),
+             'v': torch.zeros(shape, dtype=c.dtype, device=device)}
+            for _ in range(c.n_layers)]
+
+
+def _attend_cache(q, ck, cv, index: int, window: Optional[int] = None):
+    """One token's attention over the cache: q ``(B, H, 1, dh)``, cache
+    ``(B, Hkv, max, dh)``; a q head group shares one cache head (GQA).
+    Positions after ``index``, and with ``window`` those at ``index -
+    window`` or before, are masked. Scores and softmax in float32."""
+    b, h, _, dh = q.shape
+    hkv = ck.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, dh)
+    s = torch.einsum('bkgd,bkld->bkgl', qg.float(),
+                     ck.float()) / math.sqrt(dh)
+    pos = torch.arange(ck.shape[2], device=q.device)
+    mask = pos <= index
+    if window is not None:
+        mask = mask & (index - pos < window)
+    s = s.masked_fill(~mask, _NEG_INF_LOGIT)
+    o = torch.einsum('bkgl,bkld->bkgd', torch.softmax(s, dim=-1), cv.float())
+    return o.reshape(b, h, 1, dh).to(q.dtype)
+
+
+def _decode_layer(x, layer, config: TransformerConfig, cache, index: int):
+    """One layer for one token a sequence (x ``(B, 1, D)``) at position
+    ``index``: its key and value are written into ``cache`` in place, then
+    the token attends the cache. Returns ``(x, cache)``."""
+    c = config
+    _check_dense(c)
+    b = x.shape[0]
+    h, hkv, dh = c.n_heads, c.kv_heads, c.head_dim
+    positions = torch.arange(index, index + 1, device=x.device)
+    hn = _rms_norm(x, layer['ln1'])
+
+    def heads(w, n):
+        return (hn @ w.to(hn.dtype)).reshape(b, 1, n, dh).transpose(1, 2)
+
+    q = _rope(heads(layer['wq'], h), positions)
+    cache['k'][:, :, index] = _rope(heads(layer['wk'], hkv),
+                                    positions)[:, :, 0]
+    cache['v'][:, :, index] = heads(layer['wv'], hkv)[:, :, 0]
+    att = _attend_cache(q, cache['k'], cache['v'], index,
+                        window=c.attention_window)
+    x = x + att.transpose(1, 2).reshape(b, 1, h * dh) @ layer['wo'].to(
+        x.dtype)
+    return x + _dense_ffn(_rms_norm(x, layer['ln2']), layer), cache
+
+
+def _sample_logits(logits, temperature: float, top_k, top_p,
+                   generator: torch.Generator):
+    """One sampling step over ``(B, vocab)`` float32 logits: argmax at
+    temperature 0, else a categorical draw (Gumbel-max, as
+    ``jax.random.categorical``) after optional top-k and top-p (nucleus)
+    truncation, the smallest set of tokens whose probabilities reach
+    ``top_p``. Ranks come from a stable ascending sort, reversed, so of
+    tied logits the higher index ranks first, as in the JAX decode."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    logits = logits / temperature
+    if top_k is not None or top_p is not None:
+        order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+        sorted_desc = torch.gather(logits, -1, order)
+        keep = torch.ones_like(sorted_desc, dtype=torch.bool)
+        if top_k is not None:
+            keep &= torch.arange(keep.shape[-1], device=logits.device) < top_k
+        if top_p is not None:
+            probs = torch.softmax(
+                sorted_desc.masked_fill(~keep, _NEG_INF_LOGIT), dim=-1)
+            keep &= torch.cumsum(probs, dim=-1) - probs < top_p
+        # the keep-mask is over ranks: scatter it back to token ids
+        logits = logits.masked_fill(
+            ~torch.empty_like(keep).scatter_(-1, order, keep),
+            _NEG_INF_LOGIT)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return (logits + gumbel).argmax(dim=-1)
+
+
+def generate(params, tokens, config: TransformerConfig, max_new_tokens: int,
+             *, temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None,
+             return_logits: bool = False):
+    """Autoregressive decoding with per-layer KV caches, on the device of
+    ``tokens`` and ``params``.
+
+    ``tokens`` ``(B, Lp)`` prompts of one length → ``(B, max_new_tokens)``
+    continuations in ``tokens``' dtype. ``temperature`` 0 is greedy, > 0
+    samples with ``generator`` (seed 0 on ``tokens``' device when None),
+    after optional ``top_k`` / ``top_p`` truncation. The prompt goes
+    through the same single-token path as the continuation, so prefill and
+    decode are identical; the config's ``attention`` mode only affects
+    training. With ``return_logits``, also the float32 ``(B,
+    max_new_tokens, vocab)`` logits each new token was drawn from."""
+    c = config
+    b, prompt_len = tokens.shape
+    total = prompt_len + max_new_tokens
+    if c.attention_window is not None and c.attention_window < 1:
+        raise ValueError('attention_window must be >= 1, got %r'
+                         % (c.attention_window,))
+    if top_k is not None and not 1 <= top_k <= c.vocab_size:
+        raise ValueError('top_k must be in [1, vocab_size]')
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError('top_p must be in (0, 1]')
+    device = tokens.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    caches = init_kv_cache(c, b, total, device=device)
+    buf = torch.cat([tokens, tokens.new_zeros(b, max_new_tokens)], dim=1)
+    drawn = []
+    with torch.no_grad():
+        for t in range(total - 1):
+            x = params['embed'].to(c.dtype)[buf[:, t].long()][:, None, :]
+            for layer, cache in zip(params['layers'], caches):
+                x, _ = _decode_layer(x, layer, c, cache, t)
+            if t + 1 < prompt_len:
+                continue            # prefill: the next token is the prompt's
+            x = _rms_norm(x, params['final_norm'])
+            logits = (x @ params['unembed'].to(c.dtype))[:, 0].float()
+            buf[:, t + 1] = _sample_logits(logits, temperature, top_k, top_p,
+                                           generator).to(buf.dtype)
+            if return_logits:
+                drawn.append(logits)
+    out = buf[:, prompt_len:]
+    if return_logits:
+        return out, (torch.stack(drawn, dim=1) if drawn else
+                     torch.zeros(b, 0, c.vocab_size, device=device))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""NGram: windows of consecutive timestamp-sorted rows, formed column-wise.
+"""NGram: windows of consecutive timestamp-sorted rows.
 
-A copy of the columnar window path of ``petastorm_tpu/ngram.py``
-(``valid_window_starts`` :22-48, ``NGramWindowChunk`` :51-66, ``NGram``
-:69-184, ``form_windows_columnar`` :224-252). Windows never cross row-group
-boundaries. A window is ``{offset: {field: value}}`` for the offsets of
-``fields``; consumers take whole :class:`NGramWindowChunk`s and slice windows
-out column-wise.
+A copy of ``petastorm_tpu/ngram.py``: ``valid_window_starts`` (:22-48),
+``NGramWindowChunk`` (:51-66), ``NGram`` (:69-184), its row path
+(``_window_passes_threshold``, ``form_ngram_dicts``,
+``get_schema_at_timestep``, ``_timestep_view``, ``make_namedtuples`` and
+``form_ngram`` :157-290) and its column path (``form_windows_columnar``
+:224-252). Both paths sort by timestamp stably and apply the same
+``delta_threshold`` and ``timestamp_overlap`` rules. Windows never cross
+row-group boundaries. A window is ``{offset: {field: value}}`` for the
+offsets of ``fields``: the row path builds one dict per window, the column
+path a whole :class:`NGramWindowChunk` out of which consumers slice windows
+column-wise.
 """
 
 from __future__ import annotations
@@ -90,6 +95,9 @@ class NGram:
         self._delta_threshold = delta_threshold
         self._timestamp_field = timestamp_field
         self._timestamp_overlap = timestamp_overlap
+        # offset -> (schema, view): one view (and namedtuple type) per
+        # timestep, checked against the schema's identity
+        self._view_cache: Dict = {}
 
     @property
     def fields(self) -> Dict[int, List]:
@@ -136,6 +144,13 @@ class NGram:
         return [f.name if isinstance(f, UnischemaField) else f
                 for f in self._fields.get(timestep, [])]
 
+    def get_schema_at_timestep(self, schema: Unischema,
+                               timestep: int) -> Unischema:
+        """The view of ``schema`` holding this timestep's fields."""
+        return schema.create_schema_view(
+            [f for f in self._fields.get(timestep, [])
+             if f.name in schema.fields])
+
     def _declared(self) -> set:
         names = set()
         for field_list in self._fields.values():
@@ -156,6 +171,57 @@ class NGram:
                            if n in field_names]
                      for off in offsets}
         return offsets, offsets[0], fields_at
+
+    def _window_passes_threshold(self, window: List[dict]) -> bool:
+        ts_name = self.timestamp_field_name
+        return not any(current[ts_name] - previous[ts_name]
+                       > self._delta_threshold
+                       for previous, current in zip(window, window[1:]))
+
+    def form_ngram_dicts(self, data: List[dict],
+                         schema: Unischema) -> List[Dict[int, dict]]:
+        """Every valid window of the rows ``data`` (stably sorted by
+        timestamp) as ``{offset: {field: value}}``, each timestep holding
+        its fields of ``schema``."""
+        ts_name = self.timestamp_field_name
+        rows = sorted(data, key=lambda r: r[ts_name])
+        base = self._offsets[0]
+        ngrams = []
+        previous_end = None
+        for start in range(len(rows) - self.length + 1):
+            window = rows[start:start + self.length]
+            if not self._window_passes_threshold(window):
+                continue
+            if (not self._timestamp_overlap and previous_end is not None
+                    and window[0][ts_name] <= previous_end):
+                continue
+            ngrams.append({
+                off: {name: window[off - base][name]
+                      for name in self._timestep_view(schema, off).fields}
+                for off in self._offsets})
+            previous_end = window[-1][ts_name]
+        return ngrams
+
+    def _timestep_view(self, schema: Unischema, offset: int) -> Unischema:
+        cached = self._view_cache.get(offset)
+        if cached is not None and cached[0] is schema:
+            return cached[1]
+        view = self.get_schema_at_timestep(schema, offset)
+        self._view_cache[offset] = (schema, view)
+        return view
+
+    def make_namedtuples(self, window: Dict[int, dict],
+                         schema: Unischema) -> Dict[int, object]:
+        """One dict window as ``{offset: namedtuple}`` of the timestep
+        views of ``schema``."""
+        return {off: self._timestep_view(schema, off).make_namedtuple(**row)
+                for off, row in window.items()}
+
+    def form_ngram(self, data: List[dict],
+                   schema: Unischema) -> List[Dict[int, object]]:
+        """:meth:`form_ngram_dicts` then :meth:`make_namedtuples`."""
+        return [self.make_namedtuples(w, schema)
+                for w in self.form_ngram_dicts(data, schema)]
 
     def form_windows_columnar(self, columns: Dict[str, np.ndarray]
                               ) -> Optional[NGramWindowChunk]:

@@ -11,10 +11,15 @@ left), and ventilates one work item per piece and row-drop partition
 (seeded shuffle, epochs) into a thread pool whose workers read and decode
 each row group column-wise. A row predicate (the user's that needs stored
 columns, and the residual of ``filters`` specialised to the piece) runs on
-the workers. A reader yields one of four kinds of item:
+the workers. ``decode_hints`` decode jpeg fields at a reduced resolution
+(``_relax_hinted_shapes`` :140-161, applied :617-626). A reader yields one
+of five kinds of item:
 
 - ``make_reader(url, schema_fields=NGram(...))``: NGram window chunks,
-  through :meth:`Reader.iter_ngram_chunks`;
+  through :meth:`Reader.iter_ngram_chunks` (``ngram_chunked``: no row
+  predicate, residual filter or transform, as :941-944);
+- the same with a row predicate, residual filters or a transform: one
+  ``{offset: namedtuple}`` window per ``next(reader)``;
 - ``make_reader(url, schema_fields=[...] or None)``: one schema namedtuple
   per row, after an optional per-row
   :class:`~petastorm_tpu_torch.transform.TransformSpec`;
@@ -25,18 +30,17 @@ the workers. A reader yields one of four kinds of item:
   arrays per row group of any Parquet store, as arrow stores them
   (``batched_output``), after an optional pandas transform.
 
-Not ported yet (each raises ``NotImplementedError``): NGram with a
-predicate, residual filters, a transform or row-drop partitions; decode
-hints; caches; the process pool; lineage, health, tracing and autotune;
-resilience; remote object stores; JAX-process and elastic sharding.
+Not ported yet (each raises ``NotImplementedError``): caches; the process
+pool; readahead; lineage, health, tracing and autotune; resilience; remote
+object stores; JAX-process and elastic sharding.
 """
 
 from __future__ import annotations
 
-import collections
 import copy
 import functools
 
+from petastorm_tpu_torch.codecs import build_decode_overrides
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
                                                       load_row_groups)
@@ -55,19 +59,17 @@ from petastorm_tpu_torch.readers.columnar_worker import (load_columnar,
                                                          load_window_chunk)
 from petastorm_tpu_torch.readers.row_worker import load_row_item
 from petastorm_tpu_torch.transform import transform_schema
-from petastorm_tpu_torch.unischema import match_unischema_fields
+from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
+                                           match_unischema_fields)
 from petastorm_tpu_torch.utils import cast_partition_value
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      ThreadPool, WorkItem)
-
-_LATER = 'is not ported to petastorm_tpu_torch yet; it comes with a later slice'
 
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
     ('the process pool', ('reader_pool_type', 'results_queue_size',
                           'zmq_copy_buffers', 'profiling_enabled')),
-    ('decode hints', ('decode_hints',)),
     ('caches', ('cache_type', 'cache_location', 'cache_size_limit',
                 'cache_row_size_estimate', 'cache_extra_settings')),
     ('readahead', ('io_readahead',)),
@@ -110,6 +112,25 @@ def _validate_shard_range(cur_shard, shard_count):
                              cur_shard, shard_count))
 
 
+def _relax_hinted_shapes(schema, decode_hints, stored_schema):
+    """``schema`` with the spatial dims of hinted fields made wildcards,
+    since a scaled decode changes them: only for fields whose codec can
+    scale, and only where a transform did not redeclare the shape."""
+    fields = []
+    for f in schema.fields.values():
+        stored = stored_schema.fields.get(f.name)
+        scalable = (stored is not None
+                    and getattr(stored.codec, 'can_scale',
+                                lambda _f: False)(stored))
+        if (f.name in decode_hints and scalable and f.shape
+                and len(f.shape) >= 2 and f.shape == stored.shape):
+            f = UnischemaField(f.name, f.numpy_dtype,
+                               (None, None) + tuple(f.shape[2:]),
+                               f.codec, f.nullable)
+        fields.append(f)
+    return Unischema(schema._name, fields)
+
+
 def _single_path(factory, dataset_url):
     """The path of one store; a URL list is refused with a pointer to
     ``make_batch_reader``."""
@@ -125,12 +146,15 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 shuffle_row_groups=True, workers_count=10, seed=None,
                 transform_spec=None, predicate=None, filters=None,
                 rowgroup_selector=None, cur_shard=None, shard_count=None,
-                shuffle_row_drop_partitions=1, **unported):
+                shuffle_row_drop_partitions=1, decode_hints=None,
+                **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
-    chunks), a list of field names, regexes or fields, or None for every
-    field (one namedtuple per row). ``num_epochs=None`` loops forever;
-    ``seed`` fixes the per-epoch row-group order.
+    chunks, or ``{offset: namedtuple}`` windows under a row predicate,
+    residual filters or a transform), a list of field names, regexes or
+    fields, or None for every field (one namedtuple per row).
+    ``num_epochs=None`` loops forever; ``seed`` fixes the per-epoch
+    row-group order.
 
     Selection: ``predicate`` (a :mod:`~petastorm_tpu_torch.predicates`
     object; on partition keys only it prunes row groups, else it runs on
@@ -141,7 +165,10 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     ``shard_count``-th row group left, from ``cur_shard``), and
     ``shuffle_row_drop_partitions`` (each row group is ventilated that many
     times, each time with one slice of its rows). ``transform_spec.func``
-    receives one row dict and returns it transformed."""
+    receives one row dict and returns it transformed. ``decode_hints``:
+    ``{field: kwargs of CompressedImageCodec.decode_scaled}``, e.g.
+    ``{'image': {'scale': 2}}``; the hinted fields' spatial dims become
+    wildcards in ``schema``."""
     _refuse_unported('make_reader', unported)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
@@ -152,7 +179,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
-                  shuffle_row_drop_partitions=shuffle_row_drop_partitions)
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  decode_hints=decode_hints)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -160,11 +188,12 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          transform_spec=None, predicate=None, filters=None,
                          rowgroup_selector=None, cur_shard=None,
                          shard_count=None, shuffle_row_drop_partitions=1,
-                         **unported):
+                         decode_hints=None, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
-    workers. Selection as in :func:`make_reader`; NGram is not supported."""
+    workers. Selection and ``decode_hints`` as in :func:`make_reader`;
+    NGram is not supported."""
     _refuse_unported('make_columnar_reader', unported)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
@@ -176,7 +205,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
-                  shuffle_row_drop_partitions=shuffle_row_drop_partitions)
+                  shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                  decode_hints=decode_hints)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -232,16 +262,17 @@ class Reader:
     :func:`make_columnar_reader` and :func:`make_batch_reader`.
 
     ``schema`` is the schema of what the reader yields (the selected fields,
-    after the transform), ``stored_schema`` the store's full schema (stored
-    or inferred), ``ngram`` the resolved NGram of a window reader (else
-    None), ``pieces`` the row-group pieces this reader reads, after
-    pruning and sharding."""
+    after the transform, hinted spatial dims as wildcards),
+    ``stored_schema`` the store's full schema (stored or inferred),
+    ``ngram`` the resolved NGram of a window reader (else None),
+    ``ngram_chunked`` whether its items are window chunks, ``pieces`` the
+    row-group pieces this reader reads, after pruning and sharding."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, num_epochs,
                  shuffle_row_groups, workers_count, seed,
                  transform_spec=None, predicate=None, filters=None,
                  rowgroup_selector=None, cur_shard=None, shard_count=None,
-                 shuffle_row_drop_partitions=1):
+                 shuffle_row_drop_partitions=1, decode_hints=None):
         if num_epochs is not None and num_epochs < 1:
             raise ValueError('num_epochs must be >= 1 or None')
         if shuffle_row_drop_partitions < 1:
@@ -256,12 +287,18 @@ class Reader:
                     dataset_path))
         stored = self.stored_schema
         self.ngram = schema_fields if mode == 'ngram' else None
-        #: every published item is a columnar NGram window chunk
-        self.ngram_chunked = mode == 'ngram'
+        if (self.ngram is not None and not self.ngram.timestamp_overlap
+                and shuffle_row_drop_partitions > 1):
+            raise NotImplementedError(
+                'shuffle_row_drop_partitions is not supported with '
+                'timestamp_overlap=False')
         #: every item is a namedtuple of column arrays (one row group)
         self.batched_output = mode in ('columnar', 'batch')
-        self._rows = collections.deque()
+        self._rows = []
         self._batches = None
+        # the workers decode with the stored schema: a scaled decode picks
+        # its denominator from the stored shape
+        overrides = build_decode_overrides(stored, decode_hints)
 
         # footers read while listing a metadata-less store, kept for the
         # statistics pass of ``filters``
@@ -280,41 +317,49 @@ class Reader:
         #: the row-group pieces this reader reads
         self.pieces = pieces
 
-        if mode == 'ngram':
-            ngram = self.ngram
-            if (predicate is not None or filters_predicate is not None
-                    or transform_spec is not None
-                    or shuffle_row_drop_partitions > 1):
-                raise NotImplementedError(
-                    'an NGram reader with a row predicate, residual filters, '
-                    'a transform or row-drop partitions ' + _LATER)
+        ngram = self.ngram
+        if ngram is not None:
             ngram.resolve_regex_field_names(stored)
             missing = [n for n in ngram.get_all_field_names()
                        if n not in stored.fields]
             if missing:
                 raise ValueError('NGram fields {} are not in the store schema'
                                  .format(missing))
-            self.schema = stored.create_schema_view(
+            view = stored.create_schema_view(
                 [stored.fields[n] for n in ngram.get_all_field_names()])
-            process = functools.partial(load_window_chunk, schema=stored,
-                                        ngram=ngram)
         else:
             view = _view(stored, schema_fields)
-            self.schema = (transform_schema(view, transform_spec)
-                           if transform_spec is not None else view)
-            names = list(view.fields)
-            if mode == 'batch':
-                self._batches = BatchResultsReader(self.schema)
-                process = functools.partial(
-                    load_batch_item, schema=view, full_schema=stored,
-                    transform_spec=transform_spec,
-                    transformed_schema=self.schema)
-            else:
-                load = load_columnar if mode == 'columnar' else load_row_item
-                process = functools.partial(
-                    load, schema=stored, names=names,
-                    transform_spec=transform_spec,
-                    transformed_schema=self.schema)
+        self.schema = (transform_schema(view, transform_spec)
+                       if transform_spec is not None else view)
+        if decode_hints:
+            self.schema = _relax_hinted_shapes(self.schema, decode_hints,
+                                               stored)
+        #: every published item is a columnar NGram window chunk: an NGram
+        #: reader with no row predicate, residual filter or transform
+        self.ngram_chunked = (ngram is not None and transform_spec is None
+                              and predicate is None
+                              and filters_predicate is None)
+        names = list(view.fields)
+        if self.ngram_chunked:
+            process = functools.partial(load_window_chunk, schema=stored,
+                                        ngram=ngram, overrides=overrides)
+        elif mode == 'batch':
+            self._batches = BatchResultsReader(self.schema)
+            process = functools.partial(
+                load_batch_item, schema=view, full_schema=stored,
+                transform_spec=transform_spec,
+                transformed_schema=self.schema)
+        elif mode == 'columnar':
+            process = functools.partial(
+                load_columnar, schema=stored, names=names,
+                transform_spec=transform_spec,
+                transformed_schema=self.schema, overrides=overrides)
+        else:
+            process = functools.partial(
+                load_row_item, schema=stored, names=names,
+                transform_spec=transform_spec,
+                transformed_schema=self.schema, ngram=ngram,
+                overrides=overrides)
 
         items = []
         for piece in pieces:
@@ -411,9 +456,11 @@ class Reader:
                 return item
 
     def iter_ngram_chunks(self):
-        """Window chunks, one per row group that has a valid window."""
+        """Window chunks, one per work item that has a valid window."""
         if not self.ngram_chunked:
-            raise TypeError('iter_ngram_chunks needs an NGram reader')
+            raise TypeError('iter_ngram_chunks needs a chunked NGram reader '
+                            '(no row predicate, residual filters or '
+                            'transform); iterate windows with next()')
         while True:
             try:
                 yield self._next_item()
@@ -432,9 +479,14 @@ class Reader:
             return self._batches.to_batch(self._next_item())
         if self.batched_output:
             return self.schema.make_batch_namedtuple(**self._next_item())
-        while not self._rows:
-            self._rows.extend(self._next_item())
-        return self.schema.make_namedtuple(**self._rows.popleft())
+        # the last row (window) of an item first, as the JAX results reader
+        # pops them
+        if not self._rows:
+            self._rows = self._next_item()
+        item = self._rows.pop()
+        if self.ngram is not None:
+            return self.ngram.make_namedtuples(item, self.schema)
+        return self.schema.make_namedtuple(**item)
 
     def stop(self):
         self._pool.stop()

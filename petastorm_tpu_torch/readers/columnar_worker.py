@@ -3,14 +3,16 @@ or into a dict of column arrays.
 
 The port's counterpart of the JAX package's columnar loads: the window path
 (``readers/row_worker.py`` ``_load_window_columns`` / ``_form_window_chunk``
-:232-254, without row-drop partitions) and the columnar reader's load
+:232-254, row-drop partitions included) and the columnar reader's load
 (``readers/columnar_worker.py``: ``ColumnarWorker.process`` / ``_load`` /
 ``_load_with_predicate`` / ``_apply_transform`` :420-565, the helpers
 ``_column_to_numpy`` :244-284, ``validate_predicate_fields`` and
 ``make_partition_columns`` :287-313, ``predicate_row_mask`` :383-399;
 without its cache, quarantine and lineage branches). Each reads the row
 group's columns with pyarrow and decodes each column in one shot with its
-codec; hive partition columns are made from the piece's directory values.
+codec, or cell by cell through a decode hint's override
+(``readers/piece_worker.py`` ``_decode_table`` :541-545); hive partition
+columns are made from the piece's directory values.
 
 A null-bearing numeric scalar column decodes as arrow gives it, a float
 array with NaN at the nulls (float64 for an integer column), as the JAX
@@ -20,13 +22,13 @@ instead (``keep_none``).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-from petastorm_tpu_torch.codecs import ScalarCodec
+from petastorm_tpu_torch.codecs import ScalarCodec, decode_cells
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
 from petastorm_tpu_torch.ngram import NGram, NGramWindowChunk
 from petastorm_tpu_torch.transform import (TransformSpec,
@@ -42,11 +44,14 @@ def _is_numeric(field) -> bool:
             and field.numpy_dtype.kind in 'iuf')
 
 
-def decode_column(field, chunk: pa.Array, keep_none: bool = False
-                  ) -> np.ndarray:
-    """One column chunk decoded with the field's codec. Without
+def decode_column(field, chunk: pa.Array, keep_none: bool = False,
+                  override: Optional[Callable] = None) -> np.ndarray:
+    """One column chunk decoded with the field's codec, or cell by cell
+    with ``override`` (a decode hint's scaled decode). Without
     ``keep_none`` a numeric scalar column with nulls is arrow's NaN-holed
     float array; with it, an object array with ``None`` at the nulls."""
+    if override is not None:
+        return decode_cells(field, chunk, override)
     codec = field.codec or _SCALAR
     if (chunk.null_count and not keep_none and isinstance(codec, ScalarCodec)
             and _is_numeric(field)):
@@ -54,12 +59,15 @@ def decode_column(field, chunk: pa.Array, keep_none: bool = False
     return codec.decode_column(field, chunk)
 
 
-def decode_columns(table, schema: Unischema,
-                   keep_none: bool = False) -> Dict[str, np.ndarray]:
-    """Codec-decode every column of ``table`` that ``schema`` declares."""
+def decode_columns(table, schema: Unischema, keep_none: bool = False,
+                   overrides: Optional[Dict[str, Callable]] = None
+                   ) -> Dict[str, np.ndarray]:
+    """Codec-decode every column of ``table`` that ``schema`` declares,
+    through ``overrides[name]`` where a decode hint gives one."""
+    overrides = overrides or {}
     return {name: decode_column(schema.fields[name],
                                 table.column(name).combine_chunks(),
-                                keep_none)
+                                keep_none, overrides.get(name))
             for name in table.column_names if name in schema.fields}
 
 
@@ -95,13 +103,14 @@ def make_partition_columns(schema: Unischema, piece: RowGroupPiece, n: int,
 
 
 def load_columns(piece: RowGroupPiece, schema: Unischema, names: List[str],
-                 keep_none: bool = False) -> Dict[str, np.ndarray]:
+                 keep_none: bool = False, overrides=None
+                 ) -> Dict[str, np.ndarray]:
     """The row group's columns ``names`` (those ``schema`` declares),
     decoded, with partition columns made for the partition keys among
     them."""
     names = [n for n in names if n in schema.fields]
     table = read_row_group(piece, stored_columns(names, piece))
-    columns = decode_columns(table, schema, keep_none)
+    columns = decode_columns(table, schema, keep_none, overrides)
     columns.update(make_partition_columns(schema, piece, table.num_rows,
                                           set(names)))
     return columns
@@ -133,14 +142,14 @@ def predicate_row_mask(predicate, fields, cols, n: int) -> np.ndarray:
 
 
 def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
-                        names: List[str], predicate, keep_none: bool = False
-                        ) -> Optional[Dict[str, np.ndarray]]:
+                        names: List[str], predicate, keep_none: bool = False,
+                        overrides=None) -> Optional[Dict[str, np.ndarray]]:
     """Decode the predicate's columns first, then the other columns
     ``names`` only at the rows it keeps; None when it keeps none."""
     fields = validate_predicate_fields(predicate, schema)
     pred_table = read_row_group(piece, stored_columns(fields, piece))
     n = pred_table.num_rows
-    pred_cols = decode_columns(pred_table, schema, keep_none)
+    pred_cols = decode_columns(pred_table, schema, keep_none, overrides)
     pred_cols.update(make_partition_columns(schema, piece, n, set(fields)))
     mask = predicate_row_mask(predicate, fields, pred_cols, n)
     if not mask.any():
@@ -151,29 +160,44 @@ def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
     other_stored = stored_columns(other, piece)
     if other_stored:
         rest = read_row_group(piece, other_stored).take(pa.array(idx))
-        out.update(decode_columns(rest, schema, keep_none))
+        out.update(decode_columns(rest, schema, keep_none, overrides))
     out.update(make_partition_columns(schema, piece, len(idx), set(other)))
     return out
 
 
-def drop_partition_bounds(n: int, partition: int, num_partitions: int):
+def drop_partition_bounds(n: int, partition: int, num_partitions: int,
+                          extend: int = 0):
     """``(lo, hi)`` of the rows that row-drop partition ``partition`` of
-    ``num_partitions`` keeps of ``n``."""
+    ``num_partitions`` keeps of ``n``, extended by ``extend`` rows past its
+    end (an NGram's ``length - 1`` continuation rows)."""
     bounds = np.linspace(0, n, num_partitions + 1, dtype=int)
-    return int(bounds[partition]), int(bounds[partition + 1])
+    return int(bounds[partition]), min(int(bounds[partition + 1]) + extend,
+                                       n)
 
 
-def load_window_chunk(item, schema: Unischema,
-                      ngram: NGram) -> Optional[NGramWindowChunk]:
-    """All valid windows of one row group (None when there are none)."""
-    return ngram.form_windows_columnar(
-        load_columns(item.piece, schema, ngram.get_all_field_names()))
+def load_window_chunk(item, schema: Unischema, ngram: NGram,
+                      overrides=None) -> Optional[NGramWindowChunk]:
+    """All valid windows of one work item's row group, or of its row-drop
+    partition: a slice of the rows in file order, extended by ``length -
+    1`` rows so that the windows across its end survive, taken before the
+    timestamp sort. None when no window is valid."""
+    columns = load_columns(item.piece, schema, ngram.get_all_field_names(),
+                           overrides=overrides)
+    partition, num_partitions = item.drop_partition
+    if num_partitions > 1:
+        n = len(next(iter(columns.values()))) if columns else 0
+        lo, hi = drop_partition_bounds(n, partition, num_partitions,
+                                       ngram.length - 1)
+        if hi <= lo:
+            return None
+        columns = {k: v[lo:hi] for k, v in columns.items()}
+    return ngram.form_windows_columnar(columns)
 
 
 def load_columnar(item, schema: Unischema, names: List[str],
                   transform_spec: Optional[TransformSpec] = None,
-                  transformed_schema: Optional[Unischema] = None
-                  ) -> Optional[Dict[str, np.ndarray]]:
+                  transformed_schema: Optional[Unischema] = None,
+                  overrides=None) -> Optional[Dict[str, np.ndarray]]:
     """One work item as a dict of decoded column arrays: the row group,
     its rows kept by the item's predicate, its row-drop partition, then
     ``transform_spec`` (its ``func`` sees the whole dict; the result keeps
@@ -181,9 +205,10 @@ def load_columnar(item, schema: Unischema, names: List[str],
     partition, num_partitions = item.drop_partition
     if item.predicate is not None:
         columns = load_with_predicate(item.piece, schema, names,
-                                      item.predicate)
+                                      item.predicate, overrides=overrides)
     else:
-        columns = load_columns(item.piece, schema, names)
+        columns = load_columns(item.piece, schema, names,
+                               overrides=overrides)
     n = len(next(iter(columns.values()))) if columns else 0
     if not n:
         return None

@@ -1,10 +1,11 @@
 """Torch loader and device staging: the port's counterpart of
 ``petastorm_tpu/jax_utils.py``.
 
-- :class:`TorchDataLoader` batches a reader's NGram window chunks, row
-  groups of column arrays, or rows into batches of exactly ``batch_size``
-  (``JaxDataLoader``'s chunked NGram, batched and row paths over its
-  buffers, ``_drive_batched_buffer`` ``jax_utils.py:598-618`` and
+- :class:`TorchDataLoader` batches a reader's NGram window chunks, NGram
+  windows, row groups of column arrays, or rows into batches of exactly
+  ``batch_size`` (``JaxDataLoader``'s chunked NGram, per-window NGram,
+  batched and row paths over its buffers, ``_drive_batched_buffer``
+  ``jax_utils.py:598-618``, ``_iter_ngram`` :699-710 and
   ``_iter_row_stream`` :712-752). Items shuffle as whole units with a
   seeded buffer. Batches stay on the host, in pinned memory when the
   loader's device is a CUDA device.
@@ -68,7 +69,9 @@ class TorchDataLoader:
 
     - an NGram reader (``make_reader(..., NGram)``): ``{offset: {field:
       tensor}}`` batches of windows, collated column-wise from window
-      chunks (``jax_utils.py:656-697``);
+      chunks (``jax_utils.py:656-697``), or, under a row predicate,
+      residual filters or a transform, window by window
+      (``jax_utils.py:699-710``);
     - a columnar or batch reader (``make_columnar_reader``,
       ``make_batch_reader``; ``batched_output``): ``{field: tensor}``
       batches re-chunked from the row groups' column arrays
@@ -92,10 +95,6 @@ class TorchDataLoader:
         self.device = resolve_device(device)
         self.reader = reader
         self._ngram = getattr(reader, 'ngram', None)
-        if self._ngram is not None and not getattr(reader, 'ngram_chunked',
-                                                   False):
-            raise NotImplementedError(
-                'TorchDataLoader batches NGram readers through window chunks')
         if batch_size < 1:
             raise ValueError('batch_size must be >= 1')
         self.batch_size = batch_size
@@ -157,9 +156,10 @@ class TorchDataLoader:
             if n == self.batch_size or not self.drop_last:
                 yield self._tensors(batch)
 
-    def _iter_rows(self):
-        """Row stream through a row shuffling buffer, collated into
-        fixed-size batches."""
+    def _iter_rows(self, prepare, collate):
+        """Row (or window) stream, each item through ``prepare``, through a
+        row shuffling buffer, collated by ``collate`` into fixed-size
+        batches."""
         if self.shuffling_queue_capacity > 0:
             buffer = RandomShufflingBuffer(
                 self.shuffling_queue_capacity,
@@ -173,27 +173,30 @@ class TorchDataLoader:
             while buffer.can_retrieve():
                 pending.append(buffer.retrieve())
                 if len(pending) == self.batch_size:
-                    yield self._tensors(_collate(pending))
+                    yield self._tensors(collate(pending))
                     pending.clear()
             if final and pending and not self.drop_last:
-                yield self._tensors(_collate(pending))
+                yield self._tensors(collate(pending))
 
         for row in self.reader:
             while not buffer.can_add():
                 yield from drain(False)
                 if not buffer.can_retrieve():
                     break
-            buffer.add_many([row._asdict()])
+            buffer.add_many([prepare(row)])
             yield from drain(False)
         buffer.finish()
         yield from drain(True)
 
     def __iter__(self):
-        if self._ngram is not None:
+        if self._ngram is not None and self.reader.ngram_chunked:
             return self._drive_batched_buffer(self._window_columns())
+        if self._ngram is not None:
+            # windows shuffle as whole units; a batch is collated per offset
+            return self._iter_rows(lambda window: window, _collate_windows)
         if getattr(self.reader, 'batched_output', False):
             return self._drive_batched_buffer(self._row_group_columns())
-        return self._iter_rows()
+        return self._iter_rows(lambda row: row._asdict(), _collate)
 
 
 def _collate(rows):
@@ -211,6 +214,14 @@ def _collate(rows):
                 col[i] = v
             out[key] = col
     return out
+
+
+def _collate_windows(windows):
+    """``{offset: namedtuple}`` windows → ``{(offset, field): column}``."""
+    return {(off, name): col
+            for off in sorted(windows[0])
+            for name, col in _collate([w[off]._asdict()
+                                       for w in windows]).items()}
 
 
 def prefetch_to_device(iterator, size=2, device=None):

@@ -150,20 +150,31 @@ def test_row_shuffling_buffer_draws_jax_order():
 
 
 def test_unported_row_options_raise(tmp_path):
+    """What stays unported raises; decode hints and NGram under a row
+    predicate or a transform now read, as in JAX."""
     url = _store(tmp_path, 'torch')
-    with pytest.raises(NotImplementedError, match='decode_hints'):
-        make_reader(url, decode_hints={'image': (14, 14)})
+    # a hint on a codec without a scaled decode fails when the reader is
+    # made; make_batch_reader takes no decode_hints (as JAX's)
+    with pytest.raises(ValueError, match='has no decode_scaled'):
+        make_reader(url, decode_hints={'image': {'scale': 2}})
+    with pytest.raises(TypeError, match='decode_hints'):
+        make_batch_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(NotImplementedError, match='cache_type'):
         make_batch_reader(url, cache_type='local-disk')
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
-    with pytest.raises(NotImplementedError, match='NGram reader with a row '
-                       'predicate'):
-        make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
-                    predicate=in_lambda(['digit'], lambda v: True))
-    with pytest.raises(NotImplementedError, match='NGram reader'):
-        make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
-                    transform_spec=TransformSpec())
+    with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
+                     predicate=in_lambda(['digit'], lambda v: v['digit'] < 5),
+                     workers_count=1) as reader:
+        assert not reader.ngram_chunked
+        windows = list(reader)
+    with petastorm_tpu.make_reader(url, workers_count=1) as reader:
+        want = sorted(int(r.idx) for r in reader if r.digit < 5)
+    assert sorted(int(w[0].idx) for w in windows) == want
+    with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
+                     transform_spec=TransformSpec(),
+                     workers_count=1) as reader:
+        assert len(list(reader)) == ROWS
     with pytest.raises(ValueError, match='make_batch_reader'):
         make_reader([url + '/part_00000.parquet'])
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
