@@ -78,7 +78,8 @@ printing one line or a few:
    held-out prompts (subset 1) of 128 tokens by 64: greedy on a float32
    copy of the trained weights, its logits held against the teacher-forced
    ``forward`` (float32 K1), and sampled in bf16 (temperature 0.8, top-p
-   0.9);
+   0.9), then a short decode (23 steps) profiled for the device's busy
+   share;
 12. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
@@ -1136,6 +1137,12 @@ def selection_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
                                       top_p=0.9)
     log('generate bf16 sampled (temperature 0.8, top-p 0.9): tokens in '
         'range, logits finite; ' + timing(wall, steps))
+    if device == 'cuda':
+        # the device's share of a short decode (16 + 8 tokens: 23 steps)
+        profile_steps(torch, lambda: tlm.generate(
+            params, prompts[:, :16], cfg, 8, temperature=0.8, top_p=0.9,
+            generator=torch.Generator(device=device).manual_seed(0)),
+            1, 'gemv', 'decode bf16 top-p, 23 steps')
     return launches, forced_launches
 
 

@@ -244,8 +244,9 @@ _NEG_INF_LOGIT = -1e30
 def init_kv_cache(config: TransformerConfig, batch_size: int, max_len: int,
                   device=None) -> List[Dict]:
     """Per-layer key and value caches ``(B, kv_heads, max_len, head_dim)``
-    of zeros in the compute dtype."""
+    of zeros in the compute dtype, on the card unless ``device='cpu'``."""
     c = config
+    device = resolve_device(device)
     shape = (batch_size, c.kv_heads, max_len, c.head_dim)
     return [{'k': torch.zeros(shape, dtype=c.dtype, device=device),
              'v': torch.zeros(shape, dtype=c.dtype, device=device)}
