@@ -34,7 +34,9 @@ printing one line or a few:
    read through ``make_reader`` (NGram) -> ``TorchDataLoader`` ->
    ``prefetch_to_device``, and AdamW steps of the flagship transformer LM
    (vocab 32000, d_model 512, 8 heads, 4 layers, d_ff 2048, L 2048, bf16,
-   ``attention='flash'``), with each kernel's launch count over those steps;
+   ``attention='flash'``), with each kernel's launch count over those steps
+   and each step's goodput split (the loader's monitor, the step fenced on
+   a CUDA event) beside the consumer's own (batch wait, dispatch, fence);
 6. image main path: a png ``CompressedImageCodec`` store of 256 synthetic
    variable-size images (375 x 500, each side +-20%), trained on by the
    example's ``train()`` on the card: ``make_columnar_reader`` with the
@@ -80,7 +82,29 @@ printing one line or a few:
    ``forward`` (float32 K1), and sampled in bf16 (temperature 0.8, top-p
    0.9), then a short decode (23 steps) profiled for the device's busy
    share;
-12. times: each kernel's time at its path shape beside its bound, its plain
+12. packed MoE line: 2,048 documents of log-normal length (median 384, sigma
+   1, clipped to 32-2048) in a ragged ``tokens`` store, read by
+   ``make_reader`` -> ``make_torch_loader`` (``pad_spec`` to 2048, a
+   ``transform_fn`` that unpads and packs the 32 documents of a batch into
+   rows of 2048 with ``pack_documents`` and ``packed_lm_targets``,
+   ``inmemory_cache_all``) -> ``prefetch_to_device`` -> AdamW steps of the
+   flagship LM with grouped-query attention (8 -> 2 kv heads) and 8 experts
+   of top-2 routing (Mixtral 8x7B's routing and head ratio) on packed
+   documents: K1-K3 in bf16 with GQA and segment ids at L = 2048, every
+   step. Per step the loss, the aux loss, the units dropped and the goodput
+   split. One pass reads the store; the second comes from the loader's
+   cache (no transform call, no reader reset). Gates: every document's
+   tokens once, in order, positions from 0, against the store's generator
+   and a pyarrow read; the sparse MoE FFN against its dense oracle on one
+   layer's input (float32, capacity factor 8, 1e-5); the packed MoE + GQA
+   loss and gradients with the kernels against the plain blockwise path on
+   a small input (1e-2, 5e-2): top-2 in float32 and, on the bf16 kernels,
+   a router consulting every expert (top-2 routing is discontinuous, so
+   bf16 rounding flips choices); the float32 greedy MoE decode against
+   teacher forcing (float32 K1; logits within 2^-10 (1 + |ref|), each
+   greedy token the forward's argmax or tied with it within that); a bf16
+   top-p decode, timed;
+13. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -154,6 +178,14 @@ BATCH_LINE_SPLIT = 0.9            # in_pseudorandom_split([0.9, 0.1], 0)
 BATCH_LINE_SHARDS = 2             # cur_shard 0 of 2
 BATCH_LINE_BATCH = 512
 BATCH_LINE_LR = 0.1
+PACKED_DOCS = 2048                # documents in the packed line's store
+PACKED_MEDIAN = 384               # log-normal length median, sigma 1
+PACKED_MIN_LEN = 32
+PACKED_BATCH = 32                 # documents a loader batch, ~10 rows
+PACKED_PROMPTS = 8
+PACKED_PROMPT_LEN = 64
+PACKED_NEW = 32
+PACKED_GATE_ROWS = 4              # rows of 512 in the flash-vs-plain gate
 
 KERNELS = {
     'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
@@ -356,18 +388,21 @@ def main_path(torch, np, tlm, kernels, args):
         _, step = tlm.make_train_step(cfg, params)
         ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
                       delta_threshold=1, timestamp_field='step')
-        losses, times = [], []
+        losses, times, splits = [], [], []
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         with make_reader(url, schema_fields=ngram, num_epochs=None,
                          workers_count=4, seed=args.seed) as reader:
             loader = TorchDataLoader(reader, batch_size=BATCH,
                                      drop_last=True, device='cuda')
-            batches = prefetch_to_device(iter(loader), size=2)
+            goodput = loader.goodput
+            batches = prefetch_to_device(iter(loader), size=2,
+                                         goodput=goodput)
             with contextlib.closing(batches):
                 for i in range(STEPS):
                     t0 = time.perf_counter()
                     batch = next(batches)
+                    t1 = time.perf_counter()
                     tokens = batch[0]['tokens']
                     nxt = batch[1]['tokens'][:, 0]
                     targets = torch.cat([tokens[:, 1:], nxt[:, None]], 1)
@@ -375,14 +410,19 @@ def main_path(torch, np, tlm, kernels, args):
                           == (BATCH, cfg.max_seq_len),
                           'batch tokens %s on %s'
                           % (tuple(tokens.shape), tokens.device))
-                    loss = float(step(tokens, targets))
-                    torch.cuda.synchronize()
+                    out = step(tokens, targets)
+                    t2 = time.perf_counter()
+                    loss = float(goodput.fence(out))
                     dt = time.perf_counter() - t0
                     losses.append(loss)
                     times.append(dt)
-                    log('step %d loss %.6f time %.2f ms tokens/s %.0f'
+                    splits.append((t1 - t0, t2 - t1, dt - (t2 - t0)))
+                    log('step %d loss %.6f time %.2f ms tokens/s %.0f; '
+                        'consumer: batch wait %.2f ms, dispatch %.2f ms, '
+                        'fence %.2f ms'
                         % (i, loss, dt * 1e3,
-                           BATCH * cfg.max_seq_len / dt))
+                           BATCH * cfg.max_seq_len / dt,
+                           *(x * 1e3 for x in splits[-1])))
                 launches = dict(kernels.LAUNCHES)
                 if args.profile:
                     def run_step():
@@ -391,6 +431,7 @@ def main_path(torch, np, tlm, kernels, args):
                         nxt = batch[1]['tokens'][:, :1]
                         step(tokens, torch.cat([tokens[:, 1:], nxt], 1))
                     profile_steps(torch, run_step, 2, 'flash', 'LM')
+    log_goodput(goodput, 'LM')
     check(all(math.isfinite(x) for x in losses), 'non-finite loss')
     check(all(launches[k] > 0 for k in FLASH),
           'a kernel was not launched on the main path: %r' % launches)
@@ -402,6 +443,29 @@ def main_path(torch, np, tlm, kernels, args):
            BATCH * cfg.max_seq_len / statistics.median(steady),
            json.dumps(launches)))
     return launches
+
+
+def log_goodput(goodput, label, first=0):
+    """One line per ring entry of the loader's goodput monitor from step
+    ``first``: the split of the step's wall, in ms, and its verdict. The
+    loader runs on the prefetch thread, so its fetch overlaps the previous
+    step's compute and its train wall is the consumer's step period."""
+    from petastorm_tpu_torch.goodput import classify_step
+    entries = [e for e in goodput.steps() if e['step'] >= first]
+    for e in entries:
+        log('goodput %s step %d: total %.2f ms = infeed_wait %.2f (stall '
+            '%.2f + h2d_stage %.2f) + device_step %.2f + host_overhead %.2f;'
+            ' fenced %s, %s'
+            % (label, e['step'], e['total_s'] * 1e3, e['infeed_wait_s'] * 1e3,
+               e['stall_s'] * 1e3, e['h2d_stage_s'] * 1e3,
+               e['device_step_s'] * 1e3, e['host_overhead_s'] * 1e3,
+               e['fenced'], classify_step(e)))
+    summary = goodput.summary()
+    log('goodput %s: %d steps (%d fenced), goodput fraction %s, data stall '
+        'fraction %s' % (label, summary['steps'], summary['fenced_steps'],
+                         summary['goodput_fraction'],
+                         summary['data_stall_fraction']))
+    return entries
 
 
 def profile_steps(torch, run_step, n, match, label):
@@ -1147,7 +1211,340 @@ def selection_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 # ---------------------------------------------------------------------------
-# phase 12: times
+# phase 12: packed MoE line
+# ---------------------------------------------------------------------------
+
+def packed_docs(np, seed, n, vocab, median, longest):
+    """The packed line's documents, the store's generator formula: lengths
+    from a log-normal (``median``, sigma 1) rounded and clipped to
+    [``PACKED_MIN_LEN``, ``longest``], token ids uniform in [0, ``vocab``),
+    one draw for all documents, cut in order."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(np.rint(rng.lognormal(math.log(median), 1.0, n)),
+                      PACKED_MIN_LEN, longest).astype(np.int64)
+    flat = rng.integers(0, vocab, int(lengths.sum()), dtype=np.int32)
+    return np.split(flat, np.cumsum(lengths)[:-1])
+
+
+def write_doc_store(np, url, docs):
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('DocSchema', [
+        UnischemaField('doc_id', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (None,), NdarrayCodec(), False)])
+    with materialize_dataset(url, schema, row_group_size_mb=1) as w:
+        w.write_rows({'doc_id': np.int64(i), 'tokens': doc}
+                     for i, doc in enumerate(docs))
+
+
+def check_doc_store(np, path, docs):
+    """The store read with pyarrow alone (``np.load`` of each cell) equals
+    the generator's documents; returns the row-group count."""
+    import io
+    import pyarrow.parquet as pq
+    seen, groups = {}, 0
+    for name in sorted(os.listdir(path)):
+        if name.endswith('.parquet') and not name.startswith(('_', '.')):
+            f = pq.ParquetFile(os.path.join(path, name))
+            groups += f.metadata.num_row_groups
+            table = f.read(columns=['doc_id', 'tokens']).to_pydict()
+            for i, cell in zip(table['doc_id'], table['tokens']):
+                check(i not in seen, 'packed store: doc %d twice' % i)
+                seen[i] = np.load(io.BytesIO(cell))
+    check(sorted(seen) == list(range(len(docs)))
+          and all(np.array_equal(seen[i], d) and seen[i].dtype == np.int32
+                  for i, d in enumerate(docs)),
+          'packed store: the pyarrow read differs from the generator')
+    return groups
+
+
+def check_packed_batch(np, batch, docs, seen):
+    """Every document of a packed batch is one segment holding its tokens in
+    order, at positions 0, 1, ...; ``seen`` collects the doc ids."""
+    tokens, seg, pos = (batch[k].cpu().numpy() for k in
+                        ('tokens', 'segment_ids', 'positions'))
+    want = {docs[int(i)].tobytes(): int(i) for i in batch['doc_id'].tolist()}
+    check(len(want) == len(batch['doc_id']), 'packed: duplicate documents')
+    for row in range(tokens.shape[0]):
+        for s in np.unique(seg[row][seg[row] > 0]):
+            mask = seg[row] == s
+            key = tokens[row][mask].tobytes()
+            check(key in want, 'packed: a segment is no document of the batch')
+            i = want.pop(key)
+            check(i not in seen, 'packed: document %d twice' % i)
+            seen.add(i)
+            check(np.array_equal(pos[row][mask], np.arange(mask.sum())),
+                  'packed: positions of document %d do not start at 0' % i)
+    check(not want, 'packed: %d documents of the batch missing' % len(want))
+
+
+def packed_gates(torch, np, tlm, cfg, docs, seed, device):
+    """Before training, on fresh weights: the sparse MoE FFN against its
+    dense oracle on one layer's input (float32), and the packed MoE + GQA
+    loss and gradients with the kernels against the plain blockwise path."""
+    import dataclasses
+    from petastorm_tpu_torch.packing import pack_documents, packed_lm_targets
+    L = cfg.max_seq_len
+    params = tlm.init(cfg, torch.Generator().manual_seed(seed), device=device)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    packed = pack_documents(docs[:PACKED_BATCH], L, device=device)
+    layer = params['layers'][0]
+    with torch.no_grad():
+        x = params['embed'][packed.tokens.long()]
+        x = x + tlm._attention(tlm._rms_norm(x, layer['ln1']), layer, c32,
+                               packed.positions, packed.segment_ids)
+        h = tlm._rms_norm(x, layer['ln2'])
+        stats = {}
+        sparse, _ = tlm._moe_ffn(h, layer, dataclasses.replace(
+            c32, moe_capacity_factor=8.0), stats=stats)
+        dense = tlm._moe_ffn_dense(h, layer, c32)
+    err = (sparse - dense).abs()
+    check(int(stats['dropped']) == 0
+          and not bool((err > 1e-5 * (1 + dense.abs())).any()),
+          'packed: sparse MoE FFN off its dense oracle by %.3g (%d dropped)'
+          % (float(err.max()), int(stats['dropped'])))
+    log('packed gate: sparse MoE FFN == dense oracle on layer 0 of a packed '
+        'batch %s (float32, capacity factor 8, 0 dropped): max abs err %.3g '
+        '(limit 1e-5 (1 + |ref|))' % (tuple(h.shape), float(err.max())))
+
+    # The router's top-k is discontinuous: bf16 rounding that differs
+    # between the two attention paths flips some tokens' second expert, and
+    # one flip moves the router's gradient by O(1) (0.36 relative on the
+    # card). So the line's top-2 routing is held in float32 (float32
+    # K1-K3), and the bf16 tensor-core kernels under a router that
+    # consults every expert (top-8: continuous in its inputs, nothing
+    # dropped at capacity 1.25).
+    short = [d for d in docs if len(d) <= 256][:6 * PACKED_GATE_ROWS]
+    small = pack_documents(short, min(L, 512), device=device)
+    small = [t[:PACKED_GATE_ROWS] for t in small]
+    targets, weights = packed_lm_targets(small[0], small[1])
+    for label, c in (('top-2 float32', c32),
+                     ('top-%d bf16' % cfg.n_experts, dataclasses.replace(
+                         cfg, moe_top_k=cfg.n_experts))):
+        results = []
+        for mode in ('flash', 'blockwise'):
+            leaves = tlm.parameters(params)
+            for p in leaves:
+                p.grad = None
+                p.requires_grad_(True)
+            loss = tlm.loss_fn(params, small[0], targets,
+                               dataclasses.replace(c, attention=mode),
+                               positions=small[2], segment_ids=small[1],
+                               weights=weights)
+            loss.backward()
+            results.append((loss.item(), [p.grad.clone() for p in leaves]))
+        (lf, gf), (lb, gb) = results
+        rel = max(float((a - b).norm() / (b.norm() + 1e-12))
+                  for a, b in zip(gf, gb))
+        check(math.isfinite(lf) and abs(lf - lb) < 1e-2 and rel < 5e-2,
+              'packed gate %s: flash loss %r vs blockwise %r, gradient rel '
+              'err %.3g' % (label, lf, lb, rel))
+        log('packed gate: MoE %s + GQA packed loss %s flash %.6f blockwise '
+            '%.6f |dL| %.3g, max grad rel err %.3g over %d leaves (tol loss '
+            '1e-2, grad 5e-2)' % (label, tuple(small[0].shape), lf, lb,
+                                  abs(lf - lb), rel, len(gf)))
+
+
+def packed_moe_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                    n_docs=PACKED_DOCS, median=PACKED_MEDIAN,
+                    prompt_len=PACKED_PROMPT_LEN, new=PACKED_NEW):
+    """The flagship LM with GQA and top-2 MoE trained on packed documents
+    through the loader contract (``pad_spec``, ``transform_fn``,
+    ``inmemory_cache_all``, goodput), two passes, then its decode. Returns
+    ``(launches of the training steps, launches of the teacher-forced
+    forward)``."""
+    import dataclasses
+    from petastorm_tpu_torch import (make_reader, make_torch_loader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.packing import pack_documents, packed_lm_targets
+    cfg = cfg or tlm.TransformerConfig(attention='flash', n_kv_heads=2,
+                                       n_experts=8, moe_top_k=2)
+    L = cfg.max_seq_len
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    docs = packed_docs(np, args.seed, n_docs, cfg.vocab_size, median, L)
+    lengths = np.array([len(d) for d in docs])
+    packed_gates(torch, np, tlm, cfg, docs, args.seed, device)
+    calls = []
+
+    def transform(batch):
+        calls.append(1)
+        lens = batch['tokens_len'].tolist()
+        packed = pack_documents([batch['tokens'][i, :n]
+                                 for i, n in enumerate(lens)], L,
+                                device='cpu')
+        targets, weights = packed_lm_targets(packed.tokens,
+                                             packed.segment_ids)
+        return {'doc_id': batch['doc_id'], 'tokens': packed.tokens,
+                'segment_ids': packed.segment_ids,
+                'positions': packed.positions, 'targets': targets,
+                'weights': weights}
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'docs')
+        start = time.perf_counter()
+        write_doc_store(np, 'file://' + path, docs)
+        groups = check_doc_store(np, path, docs)
+        log('packed store %d documents (%d tokens, length median %d, mean '
+            '%.1f, %d..%d) in %d row groups, written and read back with '
+            'pyarrow == generator in %.2f s'
+            % (n_docs, lengths.sum(), np.median(lengths), lengths.mean(),
+               lengths.min(), lengths.max(), groups,
+               time.perf_counter() - start))
+        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                          device=device)
+        _, step = tlm.make_train_step(cfg, params)
+        n_params = sum(p.numel() for p in tlm.parameters(params))
+        sync()
+        kernels.reset_launch_counts()
+        steps, seen = [], set()
+        with make_reader('file://' + path, num_epochs=1, workers_count=4,
+                         seed=args.seed) as reader:
+            loader = make_torch_loader(
+                reader, batch_size=PACKED_BATCH,
+                pad_spec={'tokens': {'max_len': L}}, transform_fn=transform,
+                inmemory_cache_all=True, device=device)
+            goodput = loader.goodput
+            for pass_no in (1, 2):
+                first = goodput.state()['steps']
+                n_calls = len(calls)
+                batches = prefetch_to_device(iter(loader), device=device,
+                                             goodput=goodput)
+                with contextlib.closing(batches):
+                    t_end = time.perf_counter()
+                    for i, batch in enumerate(batches):
+                        t0 = time.perf_counter()
+                        stats = {}
+                        out = step(batch['tokens'], batch['targets'],
+                                   positions=batch['positions'],
+                                   segment_ids=batch['segment_ids'],
+                                   weights=batch['weights'], moe_stats=stats)
+                        t1 = time.perf_counter()
+                        goodput.fence(out)
+                        t2 = time.perf_counter()
+                        rows = batch['tokens'].shape[0]
+                        steps.append({
+                            'pass': pass_no, 'step': i, 'rows': rows,
+                            'loss': float(out), 'aux': float(stats['aux']),
+                            'dropped': int(stats['dropped']),
+                            'units': rows * L * cfg.moe_top_k
+                            * cfg.n_layers,
+                            'fill': float(batch['weights'].sum())
+                            / (rows * L), 'ms': (t2 - t_end) * 1e3,
+                            'split': (t0 - t_end, t1 - t0, t2 - t1)})
+                        if pass_no == 2:
+                            check_packed_batch(np, batch, docs, seen)
+                        t_end = time.perf_counter()
+                mine = [x for x in steps if x['pass'] == pass_no]
+                for x in mine:
+                    log('packed pass %d step %d: %d rows, fill %.3f, loss '
+                        '%.4f, aux %.4f, dropped %d of %d units, %.2f ms '
+                        '(batch wait %.2f, dispatch %.2f, fence %.2f)'
+                        % (pass_no, x['step'], x['rows'], x['fill'],
+                           x['loss'], x['aux'], x['dropped'], x['units'],
+                           x['ms'], *(t * 1e3 for t in x['split'])))
+                log_goodput(goodput, 'packed MoE pass %d' % pass_no, first)
+                steady = statistics.median(x['ms'] for x in mine[1:] or mine)
+                tokens = sum(x['fill'] * x['rows'] * L for x in mine)
+                log('packed pass %d: %d steps, %d transform calls, rows a '
+                    'batch %.2f, fill %.3f, units dropped %d of %d, steady '
+                    'step %.2f ms, %.0f weighted tokens/s, loss %.4f -> %.4f'
+                    % (pass_no, len(mine), len(calls) - n_calls,
+                       statistics.mean(x['rows'] for x in mine),
+                       statistics.mean(x['fill'] for x in mine),
+                       sum(x['dropped'] for x in mine),
+                       sum(x['units'] for x in mine), steady,
+                       tokens / sum(x['ms'] for x in mine) * 1e3,
+                       mine[0]['loss'], mine[-1]['loss']))
+                if pass_no == 1:
+                    check(len(calls) == len(mine) == n_docs // PACKED_BATCH,
+                          'packed: pass 1 took %d batches, %d transform calls'
+                          % (len(mine), len(calls)))
+                else:
+                    check(len(calls) == n_calls and len(mine) == len(
+                        [x for x in steps if x['pass'] == 1]),
+                          'packed: pass 2 read the reader (%d transform '
+                          'calls)' % (len(calls) - n_calls))
+            check(reader.last_row_consumed, 'packed: reader not drained')
+            try:
+                next(reader)
+                delivered_more = True
+            except StopIteration:
+                delivered_more = False
+            check(not delivered_more, 'packed: the reader had rows left')
+        launches = dict(kernels.LAUNCHES)
+    check(seen == set(range(n_docs)),
+          'packed: %d of %d documents came back' % (len(seen), n_docs))
+    check(all(math.isfinite(x['loss']) and math.isfinite(x['aux'])
+              for x in steps), 'packed: non-finite loss')
+    check(device != 'cuda'
+          or all(launches[k] == cfg.n_layers * len(steps) for k in FLASH),
+          'packed: K1-K3 not launched on every step: %r in %d steps'
+          % (launches, len(steps)))
+    log('packed line: %d float32 parameters, %d steps over 2 passes (pass 2 '
+        'from the loader cache, the reader drained), every document once, '
+        'in order, positions from 0; launches %s (GQA %d -> %d, segment '
+        'ids, L %d)' % (n_params, len(steps), json.dumps(launches),
+                        cfg.n_heads, cfg.kv_heads, L))
+
+    prompts = torch.from_numpy(np.stack(
+        [d[:prompt_len] for d in docs if len(d) >= prompt_len
+         ][:PACKED_PROMPTS])).to(device)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: ([{n: w.detach().clone() for n, w in layer.items()}
+                for layer in v] if k == 'layers' else v.detach().clone())
+           for k, v in params.items()}
+
+    def decode(p, c, **kw):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        sync()
+        t0 = time.perf_counter()
+        out, logits = tlm.generate(p, prompts, c, new, generator=gen,
+                                   return_logits=True, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        check(tuple(out.shape) == (len(prompts), new)
+              and int(out.min()) >= 0 and int(out.max()) < c.vocab_size
+              and bool(torch.isfinite(logits).all()),
+              'packed decode: tokens %s, finite logits %s'
+              % (tuple(out.shape), bool(torch.isfinite(logits).all())))
+        return out, logits, wall / (prompt_len + new - 1)
+
+    out, logits, ms = decode(p32, c32)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        full = torch.cat([prompts, out], 1)
+        forced = tlm.forward(p32, full[:, :-1], dataclasses.replace(
+            c32, moe_capacity_factor=float(cfg.n_experts)))[:, prompt_len - 1:]
+    forced_launches = dict(kernels.LAUNCHES)
+    err = (logits - forced).abs()
+    limit = DECODE_TOL * (1 + forced.abs())
+    check(not bool((err > limit).any()),
+          'packed decode: logits off teacher forcing by %.3g (%d beyond the '
+          'limit)' % (float(err.max()), int((err > limit).sum())))
+    top = forced.max(-1).values
+    chosen = torch.gather(forced, -1, out.long()[..., None])[..., 0]
+    exact = out.long() == forced.argmax(-1)
+    tied = (top - chosen) <= 2 * DECODE_TOL * (1 + top.abs())
+    check(bool((exact | tied).all()),
+          'packed decode: %d greedy tokens are not the forward argmax'
+          % int((~(exact | tied)).sum()))
+    log('packed decode float32 greedy (%d prompts of %d, %d new): %.3f ms a '
+        'step; logits == teacher-forced forward (capacity for every unit, '
+        'float32 K1, launches %s) within %.3g (limit 2^-10 (1 + |ref|)); '
+        'greedy token == forward argmax at %d of %d, the rest tied within '
+        'the limit' % (len(prompts), prompt_len, new, ms * 1e3,
+                       json.dumps(forced_launches), float(err.max()),
+                       int(exact.sum()), exact.numel()))
+    out, logits, ms = decode(params, cfg, temperature=0.8, top_p=0.9)
+    log('packed decode bf16 sampled (temperature 0.8, top-p 0.9): tokens in '
+        'range, logits finite; %.3f ms a step, %.0f tokens/s'
+        % (ms * 1e3, len(prompts) / ms))
+    return launches, forced_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -1374,6 +1771,13 @@ def main(argv=None):
         launches[name] += selected[name] + forced[name]
     log('phase selection line and decode %.1f s'
         % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    packed, packed_forced = packed_moe_line(torch, np, tlm, kernels, args)
+    check(packed_forced['flash_fwd'] > 0,
+          'float32 K1 was not launched by the MoE teacher-forced forward')
+    for name in FLASH:
+        launches[name] += packed[name] + packed_forced[name]
+    log('phase packed MoE line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -2,9 +2,11 @@
 
 The port runs the data plane (Parquet store → NGram, columnar, row or batch
 reader, with predicates, filters, sharding and row-group selectors → torch
-loader → device staging) and three models on an NVIDIA GPU: the
-flagship transformer LM, with the attention forward and backward on
-hand-written CUDA kernels; the image CNN, whose input normalisation is a
+loader, with ragged padding, epoch caches and per-step goodput → device
+staging) and three models on an NVIDIA GPU: the flagship transformer LM
+(dense or mixture-of-experts, grouped-query attention, packed documents
+through :mod:`petastorm_tpu_torch.packing`), with the attention forward and
+backward on hand-written CUDA kernels; the image CNN, whose input normalisation is a
 hand-written CUDA kernel; and the MNIST MLP. It imports ``torch`` and never
 ``jax`` or the JAX package. Entry points run on the CUDA device unless the
 caller passes ``device='cpu'``.
@@ -12,15 +14,15 @@ caller passes ``device='cpu'``.
 Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :func:`make_batch_reader`, :func:`materialize_dataset`,
 :class:`TransformSpec`, :class:`NoDataAvailableError`,
-:class:`TorchDataLoader`, :func:`prefetch_to_device`,
-:func:`flash_attention`, :func:`normalize_images`.
+:class:`TorchDataLoader`, :func:`make_torch_loader`,
+:func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`.
 """
 
 __version__ = '0.1.0'
 
 __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'materialize_dataset', 'TransformSpec', 'NoDataAvailableError',
-           'TorchDataLoader', 'prefetch_to_device',
+           'TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
            'flash_attention', 'normalize_images', '__version__']
 
 
@@ -42,7 +44,7 @@ def __getattr__(name):
         from petastorm_tpu_torch.etl.dataset_metadata import \
             materialize_dataset
         return materialize_dataset
-    if name in ('TorchDataLoader', 'prefetch_to_device'):
+    if name in ('TorchDataLoader', 'make_torch_loader', 'prefetch_to_device'):
         from petastorm_tpu_torch import torch_utils
         return getattr(torch_utils, name)
     if name == 'flash_attention':

@@ -1,0 +1,371 @@
+"""Per-step goodput accounting of the port: where each training step's wall
+time goes, measured at the loader.
+
+The port's copy of ``petastorm_tpu/goodput.py`` (``goodput_enabled`` :72,
+``classify_step`` :78, ``GoodputMonitor`` :96-436). Every step the consumer
+loop takes splits into
+
+    total_s = infeed_wait_s + train_wall_s
+    infeed_wait_s = stall_s + h2d_stage_s          (data-path cost)
+    train_wall_s  = device_step_s + host_overhead_s (with the step fence)
+
+from the loader's own timing sites (``TorchLoaderBase.__iter__`` times the
+blocking fetch and the suspended train wall; :func:`prefetch_to_device
+<petastorm_tpu_torch.torch_utils.prefetch_to_device>` reports each staging
+dispatch through :meth:`GoodputMonitor.note_stage`) and an opt-in fence,
+:meth:`GoodputMonitor.fence`: a CUDA event recorded after the step's outputs
+and waited on. Without the fence the whole train wall counts as device
+time and the step records ``fenced=False``.
+
+The monitor keeps a bounded per-step ring and summed seconds. The JAX
+monitor also exports into the reader's stats, tracer and latency planes;
+the port has none of them yet (the tracing and health slice), so those
+stay ``None``, and batches carry no lineage provenance.
+
+On by default; ``PETASTORM_TPU_GOODPUT=0`` (the JAX package's variable)
+leaves loaders with no monitor at all.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+__all__ = ['GOODPUT_ENV_VAR', 'GoodputMonitor', 'goodput_enabled',
+           'classify_step', 'DATA_STALL', 'COMPUTE_BOUND', 'HOST_OVERHEAD',
+           'BALANCED']
+
+#: Kill switch (default on): ``0`` / ``false`` / ``off`` gives loaders no
+#: monitor.
+GOODPUT_ENV_VAR = 'PETASTORM_TPU_GOODPUT'
+
+#: Verdicts: the dominant component of a step's wall time, when one
+#: dominates.
+DATA_STALL = 'data-stall'
+COMPUTE_BOUND = 'compute-bound'
+HOST_OVERHEAD = 'host-overhead'
+BALANCED = 'balanced'
+
+#: A component must carry at least this fraction of the step wall to be
+#: named the verdict.
+DOMINANCE_THRESHOLD = 0.4
+
+#: Per-step ring bound: explain_step() reaches this far back.
+DEFAULT_STEP_RING = 512
+
+#: Rolling goodput window (steps) for :meth:`GoodputMonitor.summary`.
+DEFAULT_WINDOW_STEPS = 32
+
+_UNPORTED_PLANES = ('the reader stats, tracing and latency planes are not '
+                    'ported to petastorm_tpu_torch yet; they come with the '
+                    'tracing and health slice')
+
+
+def goodput_enabled() -> bool:
+    """The goodput plane's kill switch (default on)."""
+    return os.environ.get(GOODPUT_ENV_VAR, '1').lower() not in (
+        '0', 'false', 'off')
+
+
+def classify_step(entry: dict) -> str:
+    """The verdict for one ring entry: the dominant wall-time component
+    (data stall / device compute / host overhead) when one carries at
+    least :data:`DOMINANCE_THRESHOLD` of the step, else ``balanced``."""
+    total = entry.get('total_s') or 0.0
+    if total <= 0.0:
+        return BALANCED
+    stall_f = (entry.get('stall_s', 0.0)
+               + entry.get('h2d_stage_s', 0.0)) / total
+    device_f = entry.get('device_step_s', 0.0) / total
+    host_f = entry.get('host_overhead_s', 0.0) / total
+    best, verdict = stall_f, DATA_STALL
+    if device_f > best:
+        best, verdict = device_f, COMPUTE_BOUND
+    if host_f > best:
+        best, verdict = host_f, HOST_OVERHEAD
+    return verdict if best >= DOMINANCE_THRESHOLD else BALANCED
+
+
+def _first_cuda_tensor(outputs):
+    if torch.is_tensor(outputs):
+        return outputs if outputs.is_cuda else None
+    if isinstance(outputs, dict):
+        outputs = list(outputs.values())
+    if isinstance(outputs, (list, tuple)):
+        for x in outputs:
+            found = _first_cuda_tensor(x)
+            if found is not None:
+                return found
+    return None
+
+
+class GoodputMonitor:
+    """Per-step goodput accounting for one consumer loop.
+
+    Built by ``TorchLoaderBase`` when :func:`goodput_enabled`; the loader
+    drives :meth:`note_fetch` / :meth:`finish_step` from its ``__iter__``
+    and the staging sites drive :meth:`note_stage` (from the prefetch
+    thread: the pending sums are lock-protected; the monitor starts no
+    thread)."""
+
+    def __init__(self, stats=None, tracer=None, latency=None,
+                 ring_size: int = DEFAULT_STEP_RING,
+                 window_steps: int = DEFAULT_WINDOW_STEPS,
+                 host: Optional[str] = None):
+        if stats is not None or tracer is not None or latency is not None:
+            raise NotImplementedError(_UNPORTED_PLANES)
+        self.stats = self.tracer = self.latency = None
+        self._host = host
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(maxlen=ring_size)
+        self._window_steps = max(1, int(window_steps))
+        self._steps = 0
+        self._fenced_steps = 0
+        # summed seconds
+        self._total_s = 0.0
+        self._stall_s = 0.0
+        self._h2d_s = 0.0
+        self._device_s = 0.0
+        self._host_s = 0.0
+        # the step in flight
+        self._pending_infeed_s = 0.0
+        self._pending_h2d_s = 0.0
+        self._pending_fence_s = 0.0
+        self._pending_fenced = False
+        self._step_open = False
+
+    # -- hooks of the loader and the staging sites ---------------------------
+
+    def note_fetch(self, infeed_wait_s: float, batch=None) -> None:
+        """The loader fetched a batch after blocking ``infeed_wait_s``
+        seconds; opens the step the consumer is about to run."""
+        with self._lock:
+            self._pending_infeed_s = max(0.0, float(infeed_wait_s))
+            self._pending_fence_s = 0.0
+            self._pending_fenced = False
+            self._step_open = True
+
+    def note_stage(self, elapsed_s: float) -> None:
+        """``elapsed_s`` seconds of host-to-device staging happened; they
+        are attributed to the next step to finish (staging may run ahead on
+        the prefetch thread: attribution, not measurement)."""
+        with self._lock:
+            self._pending_h2d_s += max(0.0, float(elapsed_s))
+
+    def fence(self, outputs):
+        """The step fence, the port's ``block_until_ready``: a CUDA event
+        recorded on the current stream after the step's ``outputs`` (a
+        tensor or a nest of dicts, lists and tuples), waited on, the wait
+        timed on the host. The train wall then splits into device time (the
+        wait) and host overhead (the rest). Outputs on the CPU have nothing
+        to wait for. Returns ``outputs``."""
+        start = time.perf_counter()
+        tensor = _first_cuda_tensor(outputs)
+        if tensor is not None:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(tensor.device))
+            event.synchronize()
+        elapsed = time.perf_counter() - start
+        with self._lock:
+            self._pending_fence_s += elapsed
+            self._pending_fenced = True
+        return outputs
+
+    def finish_step(self, train_wall_s: float) -> Optional[dict]:
+        """Close the step the consumer just ran (``train_wall_s`` is the
+        yield-to-next-fetch wall the loader measured). Returns the ring
+        entry, or ``None`` when no step was open."""
+        train_wall_s = max(0.0, float(train_wall_s))
+        with self._lock:
+            if not self._step_open:
+                return None
+            infeed = self._pending_infeed_s
+            h2d = self._pending_h2d_s
+            fence_s = self._pending_fence_s
+            fenced = self._pending_fenced
+            self._pending_infeed_s = 0.0
+            self._pending_h2d_s = 0.0
+            self._pending_fence_s = 0.0
+            self._pending_fenced = False
+            self._step_open = False
+            step = self._steps
+            self._steps += 1
+            # the staging seconds on the critical path are at most the time
+            # the consumer waited; the rest overlapped compute
+            h2d_attrib = min(h2d, infeed)
+            stall = infeed - h2d_attrib
+            if fenced:
+                device = min(fence_s, train_wall_s)
+                host = train_wall_s - device
+                self._fenced_steps += 1
+            else:
+                device = train_wall_s
+                host = 0.0
+            total = infeed + train_wall_s
+            entry = {
+                'step': step,
+                'total_s': total,
+                'infeed_wait_s': infeed,
+                'stall_s': stall,
+                'h2d_stage_s': h2d_attrib,
+                'device_step_s': device,
+                'host_overhead_s': host,
+                'fenced': fenced,
+                'provenance': None,
+            }
+            self._ring.append(entry)
+            self._total_s += total
+            self._stall_s += stall
+            self._h2d_s += h2d_attrib
+            self._device_s += device
+            self._host_s += host
+        return entry
+
+    # -- read side -----------------------------------------------------------
+
+    def steps(self) -> List[dict]:
+        """The bounded per-step ring, oldest first (copies)."""
+        with self._lock:
+            return [dict(e) for e in self._ring]
+
+    def step(self, n: int) -> Optional[dict]:
+        """Ring entry for step ``n`` (``None`` when evicted or unknown)."""
+        with self._lock:
+            for entry in reversed(self._ring):
+                if entry['step'] == n:
+                    return dict(entry)
+        return None
+
+    def state(self) -> dict:
+        """Summed seconds and step counts."""
+        with self._lock:
+            return {
+                'steps': self._steps,
+                'fenced_steps': self._fenced_steps,
+                'total_s': self._total_s,
+                'stall_s': self._stall_s,
+                'h2d_s': self._h2d_s,
+                'device_s': self._device_s,
+                'host_s': self._host_s,
+            }
+
+    def window(self, steps: Optional[int] = None) -> dict:
+        """Rolling goodput over the last ``steps`` ring entries."""
+        limit = steps or self._window_steps
+        with self._lock:
+            tail = list(self._ring)[-limit:]
+        total = sum(e['total_s'] for e in tail)
+        if not tail or total <= 0.0:
+            return {'steps': len(tail), 'goodput_fraction': None,
+                    'data_stall_fraction': None}
+        stall = sum(e['stall_s'] + e['h2d_stage_s'] for e in tail)
+        device = sum(e['device_step_s'] for e in tail)
+        return {
+            'steps': len(tail),
+            'goodput_fraction': round(device / total, 4),
+            'data_stall_fraction': round(stall / total, 4),
+        }
+
+    def summary(self) -> dict:
+        """Cumulative and rolling-window goodput."""
+        state = self.state()
+        total = state['total_s']
+        out = {
+            'enabled': True,
+            'steps': state['steps'],
+            'fenced_steps': state['fenced_steps'],
+            'goodput_fraction': (round(state['device_s'] / total, 4)
+                                 if total > 0 else None),
+            'data_stall_fraction': (
+                round((state['stall_s'] + state['h2d_s']) / total, 4)
+                if total > 0 else None),
+            'window': self.window(),
+            'state': state,
+        }
+        if self._host is not None:
+            out['host'] = self._host
+        return out
+
+    def flight_summary(self) -> dict:
+        """The summary and the last 8 ring entries, each with its
+        verdict."""
+        tail = self.steps()[-8:]
+        for entry in tail:
+            entry['verdict'] = classify_step(entry)
+        return dict(self.summary(), recent_steps=tail)
+
+    def explain_step(self, n: Optional[int] = None,
+                     snapshot: Optional[dict] = None,
+                     heartbeats=None) -> dict:
+        """The verdict of step ``n`` (the latest when ``None``) and the
+        component that dominated it. The JAX monitor walks a data stall's
+        culprit chain further through a reader stats ``snapshot``; the port
+        has no such snapshot yet, and a non-empty one raises."""
+        if snapshot:
+            raise NotImplementedError(
+                "explain_step(snapshot=...) walks the reader's stats and "
+                'health signals, which are not ported to petastorm_tpu_torch '
+                'yet; they come with the tracing and health slice')
+        if n is None:
+            entries = self.steps()
+            entry = entries[-1] if entries else None
+        else:
+            entry = self.step(n)
+        if entry is None:
+            return {'enabled': True, 'step': n, 'verdict': None,
+                    'explanation': 'no such step in the ring '
+                                   '(evicted or never recorded)'}
+        verdict = classify_step(entry)
+        total = entry['total_s'] or 0.0
+        stall_s = entry['stall_s'] + entry['h2d_stage_s']
+        chain: List[str] = []
+        if verdict == DATA_STALL:
+            chain.append('h2d_stage' if entry['h2d_stage_s'] > entry['stall_s']
+                         else 'infeed_wait')
+        elif verdict == HOST_OVERHEAD:
+            chain.append('host_overhead')
+        elif verdict == COMPUTE_BOUND:
+            chain.append('device_step')
+        if verdict == DATA_STALL:
+            explanation = 'step {} stalled {:.0f}ms on {}'.format(
+                entry['step'], stall_s * 1000.0, ' → '.join(chain))
+        elif verdict == COMPUTE_BOUND:
+            explanation = ('step {} spent {:.0f}ms of {:.0f}ms in device '
+                           'compute — the input pipeline kept up'.format(
+                               entry['step'],
+                               entry['device_step_s'] * 1000.0,
+                               total * 1000.0))
+        elif verdict == HOST_OVERHEAD:
+            explanation = ('step {} spent {:.0f}ms in host-side work '
+                           'between fetch and device completion'.format(
+                               entry['step'],
+                               entry['host_overhead_s'] * 1000.0))
+        else:
+            explanation = ('step {} is balanced: no component carries '
+                           '{:.0%} of the wall'.format(
+                               entry['step'], DOMINANCE_THRESHOLD))
+        out: Dict[str, Any] = {
+            'enabled': True,
+            'step': entry['step'],
+            'verdict': verdict,
+            'explanation': explanation,
+            'chain': chain,
+            'stall_ms': round(stall_s * 1000.0, 3),
+            'decomposition': {
+                'total_s': entry['total_s'],
+                'infeed_wait_s': entry['infeed_wait_s'],
+                'stall_s': entry['stall_s'],
+                'h2d_stage_s': entry['h2d_stage_s'],
+                'device_step_s': entry['device_step_s'],
+                'host_overhead_s': entry['host_overhead_s'],
+                'fenced': entry['fenced'],
+            },
+        }
+        if self._host is not None:
+            out['host'] = self._host
+        return out

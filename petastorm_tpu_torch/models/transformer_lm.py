@@ -1,11 +1,13 @@
 """Flagship decoder-only transformer LM of the port, single device.
 
 Counterpart of ``petastorm_tpu/models/transformer_lm.py``
-(``TransformerConfig`` :36-80, ``init`` :86-130, ``_rms_norm``/``_rope`` :181-200, ``_attention``
-:228-269, ``_dense_ffn`` :272-275, ``forward``/``loss_fn`` :393-452,
-``make_train_step`` :620-653) and its KV-cache decode (``init_kv_cache``,
-``_attend_cache``, ``_decode_layer``, ``_sample_logits`` and ``generate``
-:459-613). Parameters are a plain dict of float32
+(``TransformerConfig`` :36-80, ``init`` :86-130, ``_rms_norm``/``_rope``
+:181-200, ``_attention`` :228-269, ``_dense_ffn`` :272-275, the
+mixture-of-experts FFN ``_moe_ffn_dense``/``_moe_router``/``_moe_ffn``
+:278-377, ``forward``/``loss_fn`` :393-452, ``make_train_step`` :620-653)
+and its KV-cache decode (``init_kv_cache``, ``_attend_cache``,
+``_decode_layer``, ``_sample_logits`` and ``generate`` :459-613).
+Parameters are a plain dict of float32
 tensors with the JAX pytree's structure and layout (see
 :mod:`petastorm_tpu_torch.weights`): weights are ``(in, out)`` and applied
 as ``x @ w``. Compute runs in ``config.dtype`` (bfloat16 by default) with
@@ -19,8 +21,15 @@ writes in place; it attends the cache with plain einsums, as the JAX
 decode does (no kernel), and samples with an explicit
 ``torch.Generator``.
 
-Not in this slice: mixture-of-experts FFNs and ring attention (multi-GPU);
-they raise ``NotImplementedError``.
+With ``n_experts > 0`` each layer's FFN is a top-k mixture of experts
+with sort-based sparse dispatch into per-expert buffers of fixed capacity
+(``moe_capacity_factor``) and the Switch load-balancing aux loss, added to
+the loss with weight ``moe_aux_weight``. Packed batches pass
+``segment_ids``, ``positions`` and ``weights`` (see
+:mod:`petastorm_tpu_torch.packing`).
+
+Not in this slice: ring attention (the multi-GPU slice); it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +55,16 @@ class TransformerConfig:
     n_layers: int = 4
     d_ff: int = 2048
     max_seq_len: int = 2048
-    n_experts: int = 0                   # > 0 (MoE) is not ported yet
+    n_experts: int = 0                   # 0: dense FFN; > 0: top-k MoE
+    # experts a token consults: 1 = Switch (scaled by the raw top prob),
+    # > 1 = GShard (scales normalised over the chosen experts)
+    moe_top_k: int = 1
+    # per-expert buffer = ceil(tokens * top_k / n_experts * factor); units
+    # routed past it are dropped (that choice contributes zero)
+    moe_capacity_factor: float = 1.25
+    # weight of the load-balancing aux loss (0 disables it); its dispatch
+    # fractions count all k choices, as the JAX model's
+    moe_aux_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16
     attention: str = 'blockwise'         # 'flash' | 'blockwise'
     attention_window: Optional[int] = None
@@ -60,14 +78,7 @@ class TransformerConfig:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
 
-def _check_dense(config: TransformerConfig) -> None:
-    if config.n_experts > 0:
-        raise NotImplementedError('mixture-of-experts FFNs are not ported '
-                                  'yet (the MoE / GQA config slice)')
-
-
 def _check_supported(config: TransformerConfig) -> None:
-    _check_dense(config)
     if config.attention not in ('flash', 'blockwise'):
         raise NotImplementedError(
             "attention=%r is not ported yet (ring attention is the "
@@ -76,6 +87,9 @@ def _check_supported(config: TransformerConfig) -> None:
     if config.n_heads % config.kv_heads:
         raise ValueError('n_heads (%d) must be a multiple of n_kv_heads (%d)'
                          % (config.n_heads, config.kv_heads))
+    if config.n_experts > 0 and not 1 <= config.moe_top_k <= config.n_experts:
+        raise ValueError('moe_top_k (%d) must be in [1, n_experts=%d]'
+                         % (config.moe_top_k, config.n_experts))
 
 
 # ---------------------------------------------------------------------------
@@ -104,18 +118,22 @@ def init(config: TransformerConfig,
               'final_norm': ones(c.d_model),
               'unembed': dense(c.d_model, c.d_model, c.vocab_size),
               'layers': []}
+    experts = (c.n_experts,) if c.n_experts > 0 else ()
     for _ in range(c.n_layers):
-        params['layers'].append({
+        layer = {
             'ln1': ones(c.d_model),
             'wq': dense(c.d_model, c.d_model, c.d_model),
             'wk': dense(c.d_model, c.d_model, kv_dim),
             'wv': dense(c.d_model, c.d_model, kv_dim),
             'wo': dense(c.d_model, c.d_model, c.d_model),
             'ln2': ones(c.d_model),
-            'w_up': dense(c.d_model, c.d_model, c.d_ff),
-            'w_gate': dense(c.d_model, c.d_model, c.d_ff),
-            'w_down': dense(c.d_ff, c.d_ff, c.d_model),
-        })
+            'w_up': dense(c.d_model, *experts, c.d_model, c.d_ff),
+            'w_gate': dense(c.d_model, *experts, c.d_model, c.d_ff),
+            'w_down': dense(c.d_ff, *experts, c.d_ff, c.d_model),
+        }
+        if experts:
+            layer['gate'] = dense(c.d_model, c.d_model, c.n_experts)
+        params['layers'].append(layer)
     return params
 
 
@@ -185,6 +203,95 @@ def _dense_ffn(x, layer):
     return (gate * up) @ layer['w_down'].to(x.dtype)
 
 
+def _moe_router(probs, k: int):
+    """``(N, E)`` router probabilities → each token's ``k`` expert choices
+    and combine scales ``(N, k)``: the raw top probability for k = 1
+    (Switch), normalised over the chosen experts for k > 1 (GShard). Of
+    tied probabilities the lower expert index comes first, as in
+    ``jax.lax.top_k`` (``torch.topk`` promises no order for ties)."""
+    top_idx = torch.argsort(-probs, dim=-1, stable=True)[..., :k]
+    top_probs = torch.gather(probs, -1, top_idx)
+    if k > 1:
+        top_probs = top_probs / top_probs.sum(-1, keepdim=True)
+    return top_idx, top_probs
+
+
+def _moe_ffn_dense(x, layer, config: TransformerConfig):
+    """Dense one-hot top-k dispatch: every token through every expert,
+    weighted by zeros where not routed. O(E · tokens · d_ff) operations:
+    the test oracle of :func:`_moe_ffn`, which it equals whenever no unit
+    is dropped."""
+    e = config.n_experts
+    logits = x.float() @ layer['gate']                       # (B, L, E)
+    top_idx, top_probs = _moe_router(torch.softmax(logits, -1),
+                                     config.moe_top_k)
+    # combine weight per expert: the sum over the choices that picked it
+    combine = torch.einsum('blk,blke->ble', top_probs.float(),
+                           F.one_hot(top_idx, e).float()).to(x.dtype)
+    onehot = (combine != 0).to(x.dtype)
+    xe = torch.einsum('bld,ble->ebld', x, onehot)
+    gate = F.silu(torch.einsum('ebld,edf->eblf', xe,
+                               layer['w_gate'].to(x.dtype)))
+    up = torch.einsum('ebld,edf->eblf', xe, layer['w_up'].to(x.dtype))
+    down = torch.einsum('eblf,efd->ebld', gate * up,
+                        layer['w_down'].to(x.dtype))
+    return torch.einsum('ebld,ble->bld', down, combine)
+
+
+def _moe_ffn(x, layer, config: TransformerConfig,
+             capacity: Optional[int] = None, stats: Optional[Dict] = None):
+    """Top-k MoE with sort-based sparse dispatch (k = 1 Switch, k > 1
+    GShard), as the JAX ``_moe_ffn``: each (token, choice) pair is a unit;
+    units are stably sorted by expert, the first ``capacity`` of each
+    expert's group scattered into an ``(E · capacity + 1, d)`` buffer whose
+    last row is the overflow, run through three batched expert products,
+    un-sorted, and summed over each token's k choices weighted by their
+    scales, in the compute dtype. The stable sort keeps a group in token
+    order, so the earliest tokens win a contended expert. Dropped units all
+    write the overflow row, which no expert reads (whichever write lands),
+    and read back its zeros: their choices contribute nothing and get zero
+    gradient, as in the JAX model. Returns ``(y, aux)``: the Switch
+    load-balancing loss ``E · Σ_e frac_e · mean_prob_e`` over all k
+    choices. With ``stats`` (a dict), adds the units dropped to
+    ``stats['dropped']`` (a tensor, no host sync)."""
+    b, l, d = x.shape
+    e, k = config.n_experts, config.moe_top_k
+    n = b * l
+    n_units = n * k
+    xf = x.reshape(n, d)
+    probs = torch.softmax(xf.float() @ layer['gate'], -1)    # (N, E)
+    top_idx, top_probs = _moe_router(probs, k)
+    unit_expert = top_idx.reshape(n_units)                   # unit u: token u//k
+    scale = top_probs.to(x.dtype)
+    if capacity is None:
+        capacity = max(1, int(math.ceil(n_units / e
+                                        * config.moe_capacity_factor)))
+    order = torch.argsort(unit_expert, stable=True)
+    sorted_expert = unit_expert[order]
+    group_starts = torch.searchsorted(
+        sorted_expert, torch.arange(e, device=x.device), side='left')
+    pos = torch.arange(n_units, device=x.device) - group_starts[sorted_expert]
+    kept = pos < capacity
+    dest = torch.where(kept, sorted_expert * capacity + pos,
+                       torch.full_like(pos, e * capacity))
+    buf = x.new_zeros(e * capacity + 1, d).index_put((dest,), xf[order // k])
+    expert_in = buf[:-1].reshape(e, capacity, d)
+    gate = F.silu(torch.bmm(expert_in, layer['w_gate'].to(x.dtype)))
+    up = torch.bmm(expert_in, layer['w_up'].to(x.dtype))
+    out = torch.bmm(gate * up, layer['w_down'].to(x.dtype))
+    flat = torch.cat([out.reshape(e * capacity, d), x.new_zeros(1, d)])
+    unit_out = x.new_zeros(n_units, d).index_put((order,), flat[dest])
+    y = torch.einsum('nkd,nk->nd', unit_out.reshape(n, k, d), scale)
+    # units an expert got, from the group starts (``bincount`` would wait
+    # on the card for the largest index)
+    counts = torch.diff(group_starts, append=group_starts.new_full(
+        (1,), n_units))
+    aux = e * torch.sum(counts.float() / n_units * probs.mean(0))
+    if stats is not None:
+        stats['dropped'] = stats.get('dropped', 0) + (~kept).sum()
+    return y.reshape(b, l, d), aux
+
+
 def _segment_positions(segment_ids):
     """Per-document positions 0, 1, 2, ... restarting wherever the (B, L)
     segment id changes."""
@@ -198,11 +305,14 @@ def _segment_positions(segment_ids):
 
 
 def forward(params, tokens, config: TransformerConfig, positions=None,
-            segment_ids=None):
+            segment_ids=None, return_aux: bool = False,
+            moe_stats: Optional[Dict] = None):
     """tokens ``(B, L)`` integer → logits ``(B, L, vocab)`` float32.
     ``segment_ids`` ``(B, L)`` masks attention to same-segment pairs and
     restarts rotary positions per document (unless ``positions`` is
-    given)."""
+    given). With ``return_aux``, also the MoE load-balancing aux loss summed
+    over layers (0 for a dense model). With ``moe_stats`` (a dict), the MoE
+    layers add their dropped units to ``moe_stats['dropped']``."""
     c = config
     _check_supported(c)
     tokens = tokens.long()
@@ -212,26 +322,45 @@ def forward(params, tokens, config: TransformerConfig, positions=None,
                      else torch.arange(tokens.shape[1],
                                        device=tokens.device))
     x = params['embed'].to(c.dtype)[tokens]             # (B, L, D)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params['layers']:
         x = x + _attention(_rms_norm(x, layer['ln1']), layer, c, positions,
                            segment_ids)
-        x = x + _dense_ffn(_rms_norm(x, layer['ln2']), layer)
+        h = _rms_norm(x, layer['ln2'])
+        if c.n_experts > 0:
+            ffn_out, aux = _moe_ffn(h, layer, c, stats=moe_stats)
+            x = x + ffn_out
+            aux_total = aux_total + aux
+        else:
+            x = x + _dense_ffn(h, layer)
     x = _rms_norm(x, params['final_norm'])
-    return (x @ params['unembed'].to(c.dtype)).float()
+    logits = (x @ params['unembed'].to(c.dtype)).float()
+    return (logits, aux_total) if return_aux else logits
 
 
 def loss_fn(params, tokens, targets, config: TransformerConfig, *,
-            positions=None, segment_ids=None, weights=None):
+            positions=None, segment_ids=None, weights=None,
+            moe_stats: Optional[Dict] = None):
     """Next-token cross entropy; with ``weights`` the weighted mean over
-    weighted slots (packed batches), as the JAX ``loss_fn``."""
-    logits = forward(params, tokens, config, positions=positions,
-                     segment_ids=segment_ids)
+    weighted slots (packed batches), plus ``moe_aux_weight`` times the MoE
+    aux loss, as the JAX ``loss_fn``. With ``moe_stats`` (a dict), also
+    ``moe_stats['aux']`` (the aux loss, detached) and
+    ``moe_stats['dropped']`` (units dropped over the layers)."""
+    logits, aux = forward(params, tokens, config, positions=positions,
+                          segment_ids=segment_ids, return_aux=True,
+                          moe_stats=moe_stats)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1).long(), reduction='none')
     if weights is None:
-        return nll.mean()
-    w = weights.reshape(-1).float()
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        loss = nll.mean()
+    else:
+        w = weights.reshape(-1).float()
+        loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if moe_stats is not None:
+        moe_stats['aux'] = aux.detach()
+    if config.n_experts > 0 and config.moe_aux_weight:
+        loss = loss + config.moe_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +406,6 @@ def _decode_layer(x, layer, config: TransformerConfig, cache, index: int):
     ``index``: its key and value are written into ``cache`` in place, then
     the token attends the cache. Returns ``(x, cache)``."""
     c = config
-    _check_dense(c)
     b = x.shape[0]
     h, hkv, dh = c.n_heads, c.kv_heads, c.head_dim
     positions = torch.arange(index, index + 1, device=x.device)
@@ -294,7 +422,13 @@ def _decode_layer(x, layer, config: TransformerConfig, cache, index: int):
                         window=c.attention_window)
     x = x + att.transpose(1, 2).reshape(b, 1, h * dh) @ layer['wo'].to(
         x.dtype)
-    return x + _dense_ffn(_rms_norm(x, layer['ln2']), layer), cache
+    h2 = _rms_norm(x, layer['ln2'])
+    if c.n_experts > 0:
+        # capacity = every unit of the step: a step routes only B units (B·L
+        # in training), and the training capacity would drop choices that
+        # teacher forcing keeps
+        return x + _moe_ffn(h2, layer, c, capacity=b * c.moe_top_k)[0], cache
+    return x + _dense_ffn(h2, layer), cache
 
 
 def _sample_logits(logits, temperature: float, top_k, top_p,
@@ -384,8 +518,10 @@ def generate(params, tokens, config: TransformerConfig, max_new_tokens: int,
 # ---------------------------------------------------------------------------
 
 def make_train_step(config: TransformerConfig, params: Dict):
-    """``(optimizer, step)`` with ``step(tokens, targets) -> loss``: one
-    step of ``torch.optim.AdamW`` configured as the JAX default
+    """``(optimizer, step)`` with ``step(tokens, targets, **kw) -> loss``
+    (``kw``: :func:`loss_fn`'s ``positions``, ``segment_ids``, ``weights``
+    and ``moe_stats``): one step of ``torch.optim.AdamW`` over every leaf,
+    the MoE router and experts included, configured as the JAX default
     ``optax.adamw(3e-4, weight_decay=0.01)`` — betas (0.9, 0.999), eps 1e-8
     added outside the square root, decoupled decay ``p -= lr * wd * p`` on
     every parameter. Unlike the JAX step, which returns new params and
@@ -398,9 +534,9 @@ def make_train_step(config: TransformerConfig, params: Dict):
     optimizer = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=0.01)
 
-    def step(tokens, targets):
+    def step(tokens, targets, **loss_kwargs):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, targets, config)
+        loss = loss_fn(params, tokens, targets, config, **loss_kwargs)
         loss.backward()
         optimizer.step()
         return loss.detach()

@@ -373,6 +373,10 @@ class Reader:
             items.extend(WorkItem(piece, piece_predicate,
                                   (p, shuffle_row_drop_partitions))
                          for p in range(shuffle_row_drop_partitions))
+        self._num_epochs = num_epochs
+        #: True once the last item of the ventilated epochs was consumed:
+        #: only then may :meth:`reset` start another pass
+        self.last_row_consumed = False
         self._pool = ThreadPool(workers_count)
         self._pool.start(process, items, num_epochs=num_epochs,
                          shuffle=shuffle_row_groups, seed=seed)
@@ -451,6 +455,7 @@ class Reader:
             try:
                 item = self._pool.get_results()
             except EmptyResultError:
+                self.last_row_consumed = True
                 raise StopIteration from None
             if item is not None and len(item):
                 return item
@@ -487,6 +492,18 @@ class Reader:
         if self.ngram is not None:
             return self.ngram.make_namedtuples(item, self.schema)
         return self.schema.make_namedtuple(**item)
+
+    def reset(self):
+        """Restart iteration for another ``num_epochs`` pass, the row-group
+        shuffle continuing from the same generator; only legal after the
+        previous pass fully drained (JAX ``reader.py:1140-1151``)."""
+        if not self.last_row_consumed:
+            raise RuntimeError(
+                'Reader.reset() is only supported after the previous epoch '
+                'set was fully consumed (in-flight row groups cannot be '
+                'recalled)')
+        self._pool.reset(self._num_epochs)
+        self.last_row_consumed = False
 
     def stop(self):
         self._pool.stop()

@@ -13,7 +13,9 @@ is ``{'embed', 'final_norm', 'unembed', 'layers': [...]}``:
 - per layer: ``ln1``/``ln2`` ``(d_model,)``; ``wq`` ``(d_model, d_model)``,
   ``wk``/``wv`` ``(d_model, kv_heads * head_dim)``, ``wo``
   ``(d_model, d_model)``; ``w_gate``/``w_up`` ``(d_model, d_ff)``,
-  ``w_down`` ``(d_ff, d_model)``.
+  ``w_down`` ``(d_ff, d_model)``; with ``n_experts = E > 0`` (a
+  mixture-of-experts layer) ``gate`` ``(d_model, E)``, ``w_gate``/``w_up``
+  ``(E, d_model, d_ff)`` and ``w_down`` ``(E, d_ff, d_model)``.
 
 Weights are ``(in, out)`` and applied as ``x @ w`` (not ``nn.Linear``'s
 ``(out, in)``), so no transpose happens and a parity test compares
@@ -30,21 +32,21 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 
-_LAYER_KEYS = ('ln1', 'wq', 'wk', 'wv', 'wo', 'ln2', 'w_up', 'w_gate',
-               'w_down')
-
-
 def params_from_jax(numpy_pytree: Dict, config, device=None) -> Dict:
     """float32 torch parameters (same structure, same layout) from a numpy
     copy of the JAX ``init`` pytree, checked against ``config``'s shapes."""
     device = resolve_device(device)
     c = config
     kv_dim = c.kv_heads * c.head_dim
+    experts = (c.n_experts,) if c.n_experts > 0 else ()
     expect = {'ln1': (c.d_model,), 'ln2': (c.d_model,),
               'wq': (c.d_model, c.d_model), 'wk': (c.d_model, kv_dim),
               'wv': (c.d_model, kv_dim), 'wo': (c.d_model, c.d_model),
-              'w_up': (c.d_model, c.d_ff), 'w_gate': (c.d_model, c.d_ff),
-              'w_down': (c.d_ff, c.d_model)}
+              'w_up': experts + (c.d_model, c.d_ff),
+              'w_gate': experts + (c.d_model, c.d_ff),
+              'w_down': experts + (c.d_ff, c.d_model)}
+    if experts:
+        expect['gate'] = (c.d_model, c.n_experts)
 
     def leaf(x, shape, name):
         return _leaf(x, shape, name, device)
@@ -61,14 +63,12 @@ def params_from_jax(numpy_pytree: Dict, config, device=None) -> Dict:
                            (c.d_model, c.vocab_size), 'unembed'),
            'layers': []}
     for i, layer in enumerate(layers):
-        extra = set(layer) - set(_LAYER_KEYS)
-        if extra:
-            raise NotImplementedError(
-                'layer %d carries %s: mixture-of-experts weights are not '
-                'ported yet' % (i, sorted(extra)))
-        out['layers'].append({k: leaf(layer[k], expect[k],
+        if set(layer) != set(expect):
+            raise ValueError('layer %d has leaves %s, the config expects %s'
+                             % (i, sorted(layer), sorted(expect)))
+        out['layers'].append({k: leaf(layer[k], shape,
                                       'layers[%d].%s' % (i, k))
-                              for k in _LAYER_KEYS})
+                              for k, shape in expect.items()})
     return out
 
 

@@ -7,7 +7,11 @@ reader ventilates them, ``reader.py:646-663``) into the pool for ``num_epochs`` 
 item order each epoch from one ``np.random.default_rng(seed)``, with at most
 ``max_in_flight`` items outstanding. Workers run ``process(item)`` and
 publish results; a worker exception is re-raised in the consumer by
-:meth:`ThreadPool.get_results`. ``stop()`` then ``join()`` ends every thread.
+:meth:`ThreadPool.get_results`. Once every result is consumed,
+:meth:`ThreadPool.reset` ventilates the items for more epochs, the shuffle
+continuing from the same generator (the JAX ventilator's ``reset``,
+``workers/ventilator.py:252-263``). ``stop()`` then ``join()`` ends every
+thread.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class ThreadPool:
         self._slots: Optional[threading.Semaphore] = None
         self._ventilator: Optional[threading.Thread] = None
         self._workers_done = 0
+        self._job = None
 
     def start(self, process: Callable, items: List, num_epochs: Optional[int]
               = 1, shuffle: bool = True, seed=None,
@@ -56,6 +61,12 @@ class ThreadPool:
             raise RuntimeError('pool already started')
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
+        self._job = (process, list(items), shuffle,
+                     np.random.default_rng(seed))
+        self._launch(num_epochs)
+
+    def _launch(self, num_epochs):
+        process, items, shuffle, rng = self._job
         for i in range(self._workers_count):
             t = threading.Thread(target=self._work, args=(process,),
                                  name='petastorm-torch-worker-%d' % i,
@@ -63,13 +74,22 @@ class ThreadPool:
             t.start()
             self._threads.append(t)
         self._ventilator = threading.Thread(
-            target=self._ventilate, args=(list(items), num_epochs, shuffle,
-                                          seed),
+            target=self._ventilate, args=(items, num_epochs, shuffle, rng),
             name='petastorm-torch-ventilator', daemon=True)
         self._ventilator.start()
 
-    def _ventilate(self, items, num_epochs, shuffle, seed):
-        rng = np.random.default_rng(seed)
+    def reset(self, num_epochs: Optional[int] = 1) -> None:
+        """Ventilate the items for ``num_epochs`` more epochs; legal only
+        once every result of the previous ones was consumed."""
+        if self._workers_done != self._workers_count or self._stop.is_set():
+            raise RuntimeError('Cannot reset a pool that has not completed')
+        for t in self._threads + [self._ventilator]:
+            t.join()
+        self._threads = []
+        self._workers_done = 0
+        self._launch(num_epochs)
+
+    def _ventilate(self, items, num_epochs, shuffle, rng):
         epoch = 0
         try:
             while num_epochs is None or epoch < num_epochs:

@@ -164,13 +164,6 @@ def test_generate_validation_errors_match_jax(case):
     assert str(got.value) == str(ref.value)
 
 
-def test_moe_decode_raises():
-    cfg = ttlm.TransformerConfig(n_experts=2, d_model=32, n_heads=4)
-    with pytest.raises(NotImplementedError, match='mixture-of-experts'):
-        ttlm._decode_layer(torch.zeros(1, 1, 32), {}, cfg,
-                           ttlm.init_kv_cache(cfg, 1, 2, device='cpu')[0], 0)
-
-
 def test_example_twin_trains_and_samples(tmp_path):
     from examples.transformer_lm import main as jmain
     from petastorm_tpu_torch.examples.transformer_lm import main as tmain

@@ -121,9 +121,6 @@ def test_segment_positions_match():
 
 def test_unported_configs_raise():
     _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match='mixture-of-experts'):
-        ttlm.forward({}, torch.zeros(1, 4, dtype=torch.long),
-                     ttlm.TransformerConfig(n_experts=2))
     with pytest.raises(NotImplementedError, match='ring'):
         ttlm.make_train_step(ttlm.TransformerConfig(attention='ring'), {})
     gen = torch.Generator().manual_seed(0)
