@@ -104,7 +104,22 @@ printing one line or a few:
    teacher forcing (float32 K1; logits within 2^-10 (1 + |ref|), each
    greedy token the forward's argmax or tied with it within that); a bf16
    top-p decode, timed;
-13. times: each kernel's time at its path shape beside its bound, its plain
+13. columnar token line: 8,192 rows of ``tokens`` int32 (2049,) under
+   ``NdarrayCodec`` and ``idx`` int64, in row groups of about 2 MB, read by
+   ``make_columnar_reader`` (4 workers) -> ``TorchDataLoader`` (batch 8) ->
+   ``iter_prefetched`` under the thread and the process pool with
+   ``PETASTORM_TPU_DEVICE_DECODE`` on and off: each pass equals the
+   generator bit for bit (sorted by ``idx``); under "on" the reader plans
+   ``tokens`` alone (``idx`` declines), the staging hands the decode the
+   uint8 ``(8, stride)`` grid on the card once a batch, and ``tokens``
+   comes out int32 on the card; rows/s, bytes staged a batch and the
+   decode's time (CUDA events around a call, kernel time by the
+   profiler). Then 5 AdamW steps of the flagship LM from the process
+   pool's batches decoded on the card through a ``device=True``
+   ``TransformSpec`` that casts ``tokens`` to int64 (K1-K3 every step),
+   and the png image store's reader alone, 2 epochs on 8 worker processes
+   against 8 threads;
+14. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -186,6 +201,11 @@ PACKED_PROMPTS = 8
 PACKED_PROMPT_LEN = 64
 PACKED_NEW = 32
 PACKED_GATE_ROWS = 4              # rows of 512 in the flash-vs-plain gate
+TOKEN_ROWS = 8192                 # columnar token store: 16.8 M tokens
+TOKEN_GROUP_MB = 2                # row groups of about 2 MB
+TOKEN_WORKERS = 4
+TOKEN_BATCH = 8
+TOKEN_STEPS = 5
 
 KERNELS = {
     'flash_fwd': ('petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
@@ -1544,7 +1564,261 @@ def packed_moe_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 # ---------------------------------------------------------------------------
-# phase 13: times
+# phase 13: columnar token line (device decode, process pool)
+# ---------------------------------------------------------------------------
+
+def write_token_rows(np, url, rows, seq_len, vocab, seed):
+    """``idx`` int64 (ScalarCodec) and ``tokens`` int32 ``(seq_len,)``
+    (NdarrayCodec, non-nullable) in row groups of about 2 MB; returns the
+    tokens written."""
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('TokenRows', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+        UnischemaField('tokens', np.int32, (seq_len,), NdarrayCodec(),
+                       False)])
+    tokens = np.random.default_rng(seed).integers(0, vocab, (rows, seq_len),
+                                                  dtype=np.int32)
+    with materialize_dataset(url, schema, row_group_size_mb=TOKEN_GROUP_MB,
+                             rows_per_file=rows) as w:
+        w.write_rows({'idx': np.int64(i), 'tokens': tokens[i]}
+                     for i in range(rows))
+    return tokens
+
+
+def token_pass(torch, np, url, tokens, pool, switch, device, batch):
+    """One epoch of ``make_columnar_reader`` -> ``TorchDataLoader`` ->
+    ``iter_prefetched`` with ``pool`` and the device-decode switch: the
+    reader's plans, what was staged, the rows against the generator, and
+    the pass's rows/s. Returns ``(rows/s, a staged grid, the loader's
+    decode)``."""
+    from petastorm_tpu_torch import TorchDataLoader, make_columnar_reader
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    os.environ[DEVICE_DECODE_ENV_VAR] = switch
+    label = 'token %s pool, device decode %s' % (pool, switch)
+    # (dtype, shape, device type) of what the staging handed the decode,
+    # and the last grid: keeping every grid alive would make the caching
+    # allocator grow through the pass
+    staged, last = [], {}
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    start = time.perf_counter()
+    with make_columnar_reader(url, num_epochs=1, shuffle_row_groups=False,
+                              workers_count=TOKEN_WORKERS,
+                              reader_pool_type=pool) as reader:
+        opened = time.perf_counter()
+        plans = reader.device_decode_plans
+        declined = reader.device_decode_declined
+        if switch == 'on':
+            check(set(plans) == {'tokens'} and 'idx' in declined,
+                  '%s: plans %s, declined %s' % (label, set(plans), declined))
+        else:
+            check(not plans and '*' in declined,
+                  '%s: plans %s, declined %s' % (label, set(plans), declined))
+        loader = TorchDataLoader(reader, batch_size=batch, device=device)
+        fused = loader._fused
+        if fused is not None:
+            def spy(columns):            # what the staging handed the decode
+                grid = last['grid'] = columns['tokens']
+                staged.append((grid.dtype, tuple(grid.shape),
+                               grid.device.type, grid.nbytes))
+                return fused(columns)
+            loader._fused = spy
+        got_tokens, got_idx, nbytes = [], [], 0
+        for b in loader.iter_prefetched():
+            if not got_tokens:
+                first = time.perf_counter()
+                nbytes = (staged[0][3] if staged else b['tokens'].nbytes) \
+                    + b['idx'].nbytes
+            got_tokens.append(b['tokens'])
+            got_idx.append(b['idx'])
+        sync()
+        end = time.perf_counter()
+        wall = end - opened
+    rows = sum(len(t) for t in got_tokens)
+    check(rows == len(tokens), '%s: %d rows of %d' % (label, rows,
+                                                       len(tokens)))
+    check(all(t.device.type == device and t.dtype == torch.int32
+              for t in got_tokens),
+          '%s: tokens %s on %s' % (label, got_tokens[0].dtype,
+                                   got_tokens[0].device))
+    if switch == 'on':
+        stride = plans['tokens'].stride
+        check(len(staged) == len(got_tokens) and all(
+            g[:3] == (torch.uint8, (len(t), stride), device)
+            for g, t in zip(staged, got_tokens)),
+            '%s: the staging decoded %d of %d batches, first %s'
+            % (label, len(staged), len(got_tokens), staged[0][:3]))
+    idx = torch.cat(got_idx).cpu().numpy()
+    order = np.argsort(idx, kind='stable')
+    host = torch.cat(got_tokens).cpu().numpy()[order]
+    check(np.array_equal(idx[order], np.arange(len(tokens)))
+          and host.tobytes() == tokens.tobytes(),
+          '%s: rows differ from the generator' % label)
+    log('%s: %d rows in %.3f s, %.0f rows/s (first batch after %.3f s, '
+        'then %.0f rows/s; reader opened in %.2f s); staged %d bytes a batch '
+        '(%s); == generator bit for bit'
+        % (label, rows, wall, rows / wall, first - opened,
+           (rows - len(got_tokens[0])) / (end - first), opened - start,
+           nbytes,
+           'uint8 grid (%d, %d) decoded on %s' % (batch, stride, device)
+           if switch == 'on' else 'decoded int32 tokens'))
+    return rows / wall, last.get('grid'), fused
+
+
+def decode_kernel_us(torch, fused, grid, n):
+    """Device time of the decode's kernels a call, in us: ``n`` calls under
+    ``torch.profiler``, the CUDA kernels' self time summed over ``n``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fused({'tokens': grid})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fused({'tokens': grid})
+        torch.cuda.synchronize()
+    total = sum(getattr(e, 'self_device_time_total', None)
+                or getattr(e, 'self_cuda_time_total', 0)
+                for e in prof.key_averages()
+                if getattr(e, 'device_type', None) == DeviceType.CUDA)
+    check(total > 0, 'the profiler saw no device time of the decode')
+    return total / n
+
+
+def token_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+               rows=TOKEN_ROWS, image_rows=IMAGE_ROWS, steps=TOKEN_STEPS):
+    """The columnar token line: the store; the reader + loader alone under
+    the thread and process pools with device decode on and off; the decode's
+    device time; 5 LM steps from the process pool's device-decoded batches
+    through a device ``TransformSpec``; and the png image store's reader
+    alone under 8 processes against 8 threads. Returns the launch counts of
+    the LM steps."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader)
+    from petastorm_tpu_torch.examples.imagenet.generate_imagenet import (
+        generate, synthetic_rows)
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    seq = cfg.max_seq_len + 1
+    saved = os.environ.get(DEVICE_DECODE_ENV_VAR)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            url = 'file://' + os.path.join(d, 'token_rows')
+            start = time.perf_counter()
+            tokens = write_token_rows(np, url, rows, seq, cfg.vocab_size,
+                                      args.seed)
+            log('token store %d rows x %d int32 tokens (%.1f M tokens, %.1f '
+                'MB) written in %.2f s'
+                % (rows, seq, rows * seq / 1e6, tokens.nbytes / 1e6,
+                   time.perf_counter() - start))
+            # the process's first pass imports pandas (through pyarrow's
+            # to_numpy) and initialises torch's views: pay that once here,
+            # outside the passes that are compared
+            log('token warm-up pass (not compared):')
+            token_pass(torch, np, url, tokens, 'thread', 'on', device,
+                       TOKEN_BATCH)
+            rates, grid, fused = {}, None, None
+            for pool in ('thread', 'process'):
+                for switch in ('on', 'off'):
+                    rate, g, f = token_pass(torch, np, url, tokens, pool,
+                                            switch, device, TOKEN_BATCH)
+                    rates[pool, switch] = rate
+                    if g is not None:
+                        grid, fused = g, f
+            log('token reader + loader alone, rows/s: %s' % ', '.join(
+                '%s/%s %.0f' % (p, s, r) for (p, s), r in rates.items()))
+            if device == 'cuda':
+                ms = time_ms(torch, lambda: fused({'tokens': grid}), 200)
+                kernel_us = decode_kernel_us(torch, fused, grid, 200)
+                log('token decode on the card: %.4f ms a batch of %d rows '
+                    'between CUDA events around one call (median of 200, '
+                    'grid %s); its kernels %.2f us a call of device time '
+                    '(profiler, 200 calls)'
+                    % (ms, TOKEN_BATCH, tuple(grid.shape), kernel_us))
+
+            os.environ[DEVICE_DECODE_ENV_VAR] = 'on'
+            spec = TransformSpec(
+                lambda c: dict(c, tokens=c['tokens'].to(torch.int64)),
+                edit_fields=[('tokens', np.int64, (seq,), False)],
+                device=True)
+            params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                              device=device)
+            _, step = tlm.make_train_step(cfg, params)
+            losses = []
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with make_columnar_reader(url, num_epochs=None,
+                                      workers_count=TOKEN_WORKERS,
+                                      reader_pool_type='process',
+                                      transform_spec=spec,
+                                      seed=args.seed) as reader:
+                check(set(reader.device_decode_plans) == {'tokens'},
+                      'token LM: plans %s' % reader.device_decode_plans)
+                loader = TorchDataLoader(reader, batch_size=TOKEN_BATCH,
+                                         drop_last=True, device=device)
+                batches = loader.iter_prefetched()
+                with contextlib.closing(batches):
+                    for i in range(steps):
+                        t0 = time.perf_counter()
+                        b = next(batches)['tokens']
+                        check(b.device.type == device
+                              and b.dtype == torch.int64
+                              and tuple(b.shape) == (TOKEN_BATCH, seq),
+                              'token LM batch %s %s on %s'
+                              % (b.dtype, tuple(b.shape), b.device))
+                        loss = float(loader.goodput.fence(
+                            step(b[:, :-1], b[:, 1:])))
+                        losses.append(loss)
+                        log('token LM step %d loss %.6f time %.2f ms'
+                            % (i, loss, (time.perf_counter() - t0) * 1e3))
+                launches = dict(kernels.LAUNCHES)
+            check(all(math.isfinite(x) for x in losses),
+                  'token LM: non-finite loss')
+            log('token LM %d steps from the process pool, decoded on the '
+                'card, tokens cast to int64 by a device TransformSpec: loss '
+                '%.4f -> %.4f, launches %s'
+                % (len(losses), losses[0], losses[-1], json.dumps(launches)))
+
+            url = 'file://' + os.path.join(d, 'images_png')
+            start = time.perf_counter()
+            generate(url, synthetic_rows(image_rows, classes=IMAGE_CLASSES,
+                                         seed=args.seed),
+                     row_group_size_mb=8, image_codec='png')
+            log('png store %d images written in %.2f s'
+                % (image_rows, time.perf_counter() - start))
+            for pool in ('process', 'thread'):
+                start = time.perf_counter()
+                with make_columnar_reader(url, schema_fields=['image'],
+                                          workers_count=IMAGE_WORKERS,
+                                          reader_pool_type=pool, num_epochs=2,
+                                          seed=args.seed) as reader:
+                    opened = time.perf_counter()
+                    n, marks = 0, []
+                    for b in reader:
+                        n += len(b.image)
+                        if n >= image_rows * (len(marks) + 1):
+                            marks.append(time.perf_counter())
+                check(n == 2 * image_rows and len(marks) == 2,
+                      'png %s pool read %d of %d' % (pool, n, 2 * image_rows))
+                log('png reader alone, %d %s workers: epoch 1 %.0f images/s, '
+                    'epoch 2 %.0f images/s (%d images each; reader opened in '
+                    '%.2f s)' % (IMAGE_WORKERS, pool,
+                                 image_rows / (marks[0] - opened),
+                                 image_rows / (marks[1] - marks[0]),
+                                 image_rows, opened - start))
+    finally:
+        if saved is None:
+            os.environ.pop(DEVICE_DECODE_ENV_VAR, None)
+        else:
+            os.environ[DEVICE_DECODE_ENV_VAR] = saved
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -1778,6 +2052,13 @@ def main(argv=None):
     for name in FLASH:
         launches[name] += packed[name] + packed_forced[name]
     log('phase packed MoE line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    token = token_line(torch, np, tlm, kernels, args)
+    check(all(token[k] > 0 for k in FLASH),
+          'a kernel was not launched on the token line: %r' % token)
+    for name in FLASH:
+        launches[name] += token[name]
+    log('phase columnar token line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

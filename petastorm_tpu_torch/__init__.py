@@ -3,7 +3,9 @@
 The port runs the data plane (Parquet store → NGram, columnar, row or batch
 reader, with predicates, filters, sharding and row-group selectors → torch
 loader, with ragged padding, epoch caches and per-step goodput → device
-staging) and three models on an NVIDIA GPU: the flagship transformer LM
+staging, with fixed-shape ``NdarrayCodec`` columns decoded on the device
+and a thread, process or in-line worker pool) and three models on an
+NVIDIA GPU: the flagship transformer LM
 (dense or mixture-of-experts, grouped-query attention, packed documents
 through :mod:`petastorm_tpu_torch.packing`), with the attention forward and
 backward on hand-written CUDA kernels; the image CNN, whose input normalisation is a

@@ -5,7 +5,9 @@ A copy of the codecs of ``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247,
 ``ArrowListCodec`` :349-384, ``CompressedNdarrayCodec`` :387,
 ``CompressedImageCodec`` :421 with its scaled jpeg decode :522-615,
 ``ScalarCodec`` :633, ``build_decode_overrides`` :712, the strict
-``np.save`` header parser ``_parse_fast_npy_header`` :205) and of the
+``np.save`` header parser ``_parse_fast_npy_header`` :205, the
+device-decode verdicts ``device_decode_unsupported_reason`` :110, :320,
+:409) and of the
 list-column conversion of ``readers/columnar_worker.py``
 (``_list_column_to_numpy`` :218-241). Codecs are serialized to JSON by
 registered name, never pickled, under the same names as the JAX package,
@@ -20,6 +22,7 @@ import inspect
 import io
 import operator
 import re
+import sys
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -159,6 +162,14 @@ class _Codec:
     def __hash__(self):
         return hash(repr(sorted(self.to_json_dict().items())))
 
+    def device_decode_unsupported_reason(self, field):
+        """None when this codec's stored cells of ``field`` can decode on
+        the device (:mod:`petastorm_tpu_torch.ops.decode`), else why not.
+        Device decode is opt-in per codec: a decline leaves the column to
+        the host decode and never raises."""
+        return 'codec {} has no device-decode path'.format(
+            type(self).__name__)
+
 
 class NdarrayCodec(_Codec):
     """Lossless ndarray <-> bytes via ``np.save``."""
@@ -218,6 +229,28 @@ class NdarrayCodec(_Codec):
             return None
         payload = np.array(grid[:, header_end:])      # writable copy
         return payload.view(dtype).reshape((n,) + cell_shape)
+
+    def device_decode_unsupported_reason(self, field):
+        """Eligible when the stored layout is fixed: a fixed shape (every
+        cell shares one ``np.save`` header), non-nullable (the raw grid has
+        no slot for a missing cell), a little-endian numeric or bool dtype
+        (the device reinterprets native-order bytes)."""
+        shape = field.shape
+        if shape is None or any(s is None for s in shape):
+            return 'wildcard shape: cells do not share one np.save header'
+        if field.nullable:
+            return 'nullable field: the raw grid has no missing-cell slot'
+        try:
+            dtype = np.dtype(field.numpy_dtype)
+        except TypeError:
+            return 'field dtype is not a numpy dtype'
+        if dtype.kind not in 'biuf':
+            return 'dtype kind {!r} is not device-representable'.format(
+                dtype.kind)
+        if dtype.itemsize > 1 and (dtype.str[0] == '>'
+                                   or sys.byteorder != 'little'):
+            return 'big-endian payload: device bitcast is little-endian'
+        return None
 
     def arrow_type(self, field):
         return pa.binary()
@@ -376,6 +409,13 @@ class CompressedNdarrayCodec(_Codec):
 
     def decode_column(self, field, chunk: pa.Array) -> np.ndarray:
         return decode_cells(field, chunk, self.make_cell_decoder(field))
+
+    def device_decode_unsupported_reason(self, field):
+        """zlib streams stay a host decode; the device-eligible route is a
+        repack of the store to ``NdarrayCodec``
+        (:func:`petastorm_tpu_torch.etl.repack.repack_to_ndarray_codec`)."""
+        return ('zlib inflate has no device path — repack the store to '
+                'NdarrayCodec via etl.repack to make it device-eligible')
 
     def arrow_type(self, field):
         return pa.binary()

@@ -12,8 +12,15 @@ left), and ventilates one work item per piece and row-drop partition
 each row group column-wise. A row predicate (the user's that needs stored
 columns, and the residual of ``filters`` specialised to the piece) runs on
 the workers. ``decode_hints`` decode jpeg fields at a reduced resolution
-(``_relax_hinted_shapes`` :140-161, applied :617-626). A reader yields one
-of five kinds of item:
+(``_relax_hinted_shapes`` :140-161, applied :617-626). The pool is a
+thread pool, a pool of worker processes over ZeroMQ or a pool that runs
+items on the consumer's thread (``reader_pool_type``; ``_make_pool``
+:116-130). A columnar reader plans device decode (:750-783): its
+fixed-shape ``NdarrayCodec`` columns travel as raw uint8 grids that a
+loader claiming them decodes on its device
+(:meth:`Reader._defer_device_decode_to_loader`), or that the reader
+decodes on the host when none does (:meth:`Reader._host_decode_raw`). A
+reader yields one of five kinds of item:
 
 - ``make_reader(url, schema_fields=NGram(...))``: NGram window chunks,
   through :meth:`Reader.iter_ngram_chunks` (``ngram_chunked``: no row
@@ -30,15 +37,17 @@ of five kinds of item:
   arrays per row group of any Parquet store, as arrow stores them
   (``batched_output``), after an optional pandas transform.
 
-Not ported yet (each raises ``NotImplementedError``): caches; the process
-pool; readahead; lineage, health, tracing and autotune; resilience; remote
-object stores; JAX-process and elastic sharding.
+Not ported yet (each raises ``NotImplementedError``): caches; readahead;
+lineage, health, tracing and autotune; resilience; remote object stores;
+JAX-process and elastic sharding.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+
+import numpy as np
 
 from petastorm_tpu_torch.codecs import build_decode_overrides
 from petastorm_tpu_torch.errors import NoDataAvailableError
@@ -52,6 +61,7 @@ from petastorm_tpu_torch.filters import (FiltersPredicate,
                                          validate_filter_types)
 from petastorm_tpu_torch.fs import urls_to_path_or_paths
 from petastorm_tpu_torch.ngram import NGram
+from petastorm_tpu_torch.ops.decode import decode_raw_host, plan_device_decode
 from petastorm_tpu_torch.predicates import in_reduce
 from petastorm_tpu_torch.readers.batch_worker import (BatchResultsReader,
                                                       load_batch_item)
@@ -62,14 +72,15 @@ from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
                                            match_unischema_fields)
 from petastorm_tpu_torch.utils import cast_partition_value
+from petastorm_tpu_torch.workers.dummy_pool import DummyPool
+from petastorm_tpu_torch.workers.serializers import (ArrowTableSerializer,
+                                                     ZeroCopySerializer)
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      ThreadPool, WorkItem)
 
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('the process pool', ('reader_pool_type', 'results_queue_size',
-                          'zmq_copy_buffers', 'profiling_enabled')),
     ('caches', ('cache_type', 'cache_location', 'cache_size_limit',
                 'cache_row_size_estimate', 'cache_extra_settings')),
     ('readahead', ('io_readahead',)),
@@ -94,6 +105,32 @@ def _refuse_unported(factory, options):
         raise NotImplementedError(
             '{}({}=...) is not ported to petastorm_tpu_torch yet; it comes '
             'with the {} slice'.format(factory, name, _UNPORTED[name]))
+
+
+def _make_pool(reader_pool_type, workers_count, results_queue_size,
+               serializer, zmq_copy_buffers, profiling_enabled):
+    if reader_pool_type == 'thread':
+        return ThreadPool(workers_count, results_queue_size,
+                          profiling_enabled=profiling_enabled)
+    if reader_pool_type == 'process':
+        from petastorm_tpu_torch.workers.process_pool import ProcessPool
+        return ProcessPool(workers_count, serializer=serializer,
+                           zmq_copy_buffers=zmq_copy_buffers,
+                           results_queue_size=results_queue_size)
+    if reader_pool_type == 'dummy':
+        return DummyPool()
+    raise ValueError("reader_pool_type must be one of 'thread', 'process', "
+                     "'dummy'; got {!r}".format(reader_pool_type))
+
+
+def _refuse_device_spec(factory, transform_spec):
+    """A ``device=True`` spec takes a dict of tensors, which only the
+    columnar reader's batches are; its rows and pandas frames are not."""
+    if transform_spec is not None and transform_spec.device:
+        raise ValueError('{}: a device=True TransformSpec runs on the column '
+                         'tensors of make_columnar_reader batches; this '
+                         'reader hands its transform rows or pandas frames'
+                         .format(factory))
 
 
 def _validate_shard_range(cur_shard, shard_count):
@@ -147,7 +184,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 transform_spec=None, predicate=None, filters=None,
                 rowgroup_selector=None, cur_shard=None, shard_count=None,
                 shuffle_row_drop_partitions=1, decode_hints=None,
-                **unported):
+                reader_pool_type='thread', results_queue_size=50,
+                zmq_copy_buffers=True, profiling_enabled=False, **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -168,14 +206,26 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     receives one row dict and returns it transformed. ``decode_hints``:
     ``{field: kwargs of CompressedImageCodec.decode_scaled}``, e.g.
     ``{'image': {'scale': 2}}``; the hinted fields' spatial dims become
-    wildcards in ``schema``."""
+    wildcards in ``schema``.
+
+    The pool: ``reader_pool_type`` ``'thread'`` (``workers_count`` threads,
+    results queued up to ``results_queue_size``; ``profiling_enabled`` logs
+    the workers' aggregate ``cProfile`` at ``join``), ``'process'``
+    (``workers_count`` worker interpreters over ZeroMQ, which needs pyzmq
+    and dill; ``results_queue_size`` is the results socket's high-water
+    mark; arrays arrive as views of the received frames, read-only unless
+    ``zmq_copy_buffers=False``) or ``'dummy'`` (each item on the consumer's
+    thread)."""
     _refuse_unported('make_reader', unported)
+    _refuse_device_spec('make_reader', transform_spec)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
-    return Reader(path, copy.deepcopy(schema_fields), mode=mode,
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      ZeroCopySerializer(), zmq_copy_buffers,
+                      profiling_enabled)
+    return Reader(path, copy.deepcopy(schema_fields), mode=mode, pool=pool,
                   num_epochs=num_epochs,
-                  shuffle_row_groups=shuffle_row_groups,
-                  workers_count=workers_count, seed=seed,
+                  shuffle_row_groups=shuffle_row_groups, seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
@@ -188,20 +238,27 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          transform_spec=None, predicate=None, filters=None,
                          rowgroup_selector=None, cur_shard=None,
                          shard_count=None, shuffle_row_drop_partitions=1,
-                         decode_hints=None, **unported):
+                         decode_hints=None, reader_pool_type='thread',
+                         results_queue_size=50, zmq_copy_buffers=True,
+                         profiling_enabled=False, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
-    workers. Selection and ``decode_hints`` as in :func:`make_reader`;
-    NGram is not supported."""
+    workers; a ``device=True`` spec receives a dict of tensors instead and
+    runs after the device decode (see :class:`Reader`). Selection,
+    ``decode_hints`` and the pool as in :func:`make_reader`; NGram is not
+    supported."""
     _refuse_unported('make_columnar_reader', unported)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
     path = _single_path('make_columnar_reader', dataset_url)
-    return Reader(path, schema_fields, mode='columnar',
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      ZeroCopySerializer(), zmq_copy_buffers,
+                      profiling_enabled)
+    return Reader(path, schema_fields, mode='columnar', pool=pool,
                   num_epochs=num_epochs, shuffle_row_groups=shuffle_row_groups,
-                  workers_count=workers_count, seed=seed,
+                  seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
@@ -212,7 +269,10 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       shuffle_row_groups=True, predicate=None, num_epochs=1,
                       cur_shard=None, shard_count=None, transform_spec=None,
-                      filters=None, workers_count=10, **unported):
+                      filters=None, workers_count=10,
+                      reader_pool_type='thread', results_queue_size=50,
+                      zmq_copy_buffers=True, profiling_enabled=False,
+                      **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -222,18 +282,23 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     NaN, a fixed-shape list column is ``(n, *shape)``.
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame. Selection by ``predicate``, ``filters``
-    and ``cur_shard``/``shard_count`` as in :func:`make_reader`."""
+    and ``cur_shard``/``shard_count``, and the pool, as in
+    :func:`make_reader` (a process pool sends each row group's table as one
+    Arrow IPC stream)."""
     _refuse_unported('make_batch_reader', unported)
+    _refuse_device_spec('make_batch_reader', transform_spec)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
         raise ValueError('make_batch_reader schema_fields must be a list of '
                          'regex strings (UnischemaField selection and NGram '
                          'are row-reader features)')
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
+                      ArrowTableSerializer(), zmq_copy_buffers,
+                      profiling_enabled)
     return Reader(urls_to_path_or_paths(dataset_url_or_urls), schema_fields,
-                  mode='batch', num_epochs=num_epochs,
-                  shuffle_row_groups=shuffle_row_groups,
-                  workers_count=workers_count, seed=seed,
+                  mode='batch', pool=pool, num_epochs=num_epochs,
+                  shuffle_row_groups=shuffle_row_groups, seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, cur_shard=cur_shard,
                   shard_count=shard_count)
@@ -266,10 +331,20 @@ class Reader:
     ``stored_schema`` the store's full schema (stored or inferred),
     ``ngram`` the resolved NGram of a window reader (else None),
     ``ngram_chunked`` whether its items are window chunks, ``pieces`` the
-    row-group pieces this reader reads, after pruning and sharding."""
+    row-group pieces this reader reads, after pruning and sharding.
 
-    def __init__(self, dataset_path, schema_fields, *, mode, num_epochs,
-                 shuffle_row_groups, workers_count, seed,
+    Device decode: ``device_decode_plans`` maps each column the workers
+    ship raw (a ``(n, stride)`` uint8 grid) to its
+    :class:`~petastorm_tpu_torch.ops.decode.DeviceColumnPlan`, and
+    ``device_decode_declined`` maps each other column, or ``'*'`` for the
+    whole reader, to why it decodes on the host. A loader that claims the
+    plans decodes the grids on its device; otherwise :meth:`__next__`
+    decodes them on the host and the reader yields decoded numpy, as
+    without plans. A ``device=True`` ``TransformSpec`` runs after the
+    decode, wherever it ran, on tensors."""
+
+    def __init__(self, dataset_path, schema_fields, *, mode, pool,
+                 num_epochs, shuffle_row_groups, seed,
                  transform_spec=None, predicate=None, filters=None,
                  rowgroup_selector=None, cur_shard=None, shard_count=None,
                  shuffle_row_drop_partitions=1, decode_hints=None):
@@ -340,6 +415,25 @@ class Reader:
                               and predicate is None
                               and filters_predicate is None)
         names = list(view.fields)
+
+        self.device_decode_plans, self.device_decode_declined = \
+            plan_device_decode(
+                view, has_predicate=(predicate is not None
+                                     or filters_predicate is not None),
+                has_ngram=ngram is not None, decode_hints=decode_hints,
+                transform_spec=transform_spec,
+                transformed_schema=self.schema,
+                batched_output=self.batched_output,
+                worker_supported=mode == 'columnar')
+        # a device spec runs on tensors in the consumer, never on the
+        # workers (which import no torch): after the loader's decode when
+        # a loader claims the plans, else in __next__
+        self._device_transform_spec = (
+            transform_spec if transform_spec is not None
+            and transform_spec.device else None)
+        if self._device_transform_spec is not None:
+            transform_spec = None
+        self._device_decode_deferred = False
         if self.ngram_chunked:
             process = functools.partial(load_window_chunk, schema=stored,
                                         ngram=ngram, overrides=overrides)
@@ -353,7 +447,8 @@ class Reader:
             process = functools.partial(
                 load_columnar, schema=stored, names=names,
                 transform_spec=transform_spec,
-                transformed_schema=self.schema, overrides=overrides)
+                transformed_schema=self.schema, overrides=overrides,
+                plans=self.device_decode_plans)
         else:
             process = functools.partial(
                 load_row_item, schema=stored, names=names,
@@ -377,7 +472,7 @@ class Reader:
         #: True once the last item of the ventilated epochs was consumed:
         #: only then may :meth:`reset` start another pass
         self.last_row_consumed = False
-        self._pool = ThreadPool(workers_count)
+        self._pool = pool
         self._pool.start(process, items, num_epochs=num_epochs,
                          shuffle=shuffle_row_groups, seed=seed)
 
@@ -483,7 +578,12 @@ class Reader:
         if self._batches is not None:
             return self._batches.to_batch(self._next_item())
         if self.batched_output:
-            return self.schema.make_batch_namedtuple(**self._next_item())
+            columns = self._next_item()
+            if not self._device_decode_deferred and (
+                    self.device_decode_plans
+                    or self._device_transform_spec is not None):
+                columns = self._host_decode_raw(columns)
+            return self.schema.make_batch_namedtuple(**columns)
         # the last row (window) of an item first, as the JAX results reader
         # pops them
         if not self._rows:
@@ -492,6 +592,37 @@ class Reader:
         if self.ngram is not None:
             return self.ngram.make_namedtuples(item, self.schema)
         return self.schema.make_namedtuple(**item)
+
+    def _host_decode_raw(self, columns):
+        """Decode a bytes-through item's raw planned columns on the host and
+        run a device ``TransformSpec`` over the result: the consumer's path
+        when no loader claimed the plans. The spec gets CPU tensors (numpy
+        columns wrapped, not copied) and its tensors come back as numpy."""
+        columns = dict(columns)
+        for name, plan in self.device_decode_plans.items():
+            if name in columns:
+                columns[name] = decode_raw_host(plan, columns[name])
+        spec = self._device_transform_spec
+        if spec is None:
+            return columns
+        if spec.func is not None:
+            import torch
+            columns = spec.func({
+                k: torch.from_numpy(v if v.flags.writeable else v.copy())
+                if isinstance(v, np.ndarray) and v.dtype.kind in 'biuf'
+                else v for k, v in columns.items()})
+            columns = {k: v.numpy() if torch.is_tensor(v) else v
+                       for k, v in columns.items()}
+        return {name: columns[name] for name in self.schema.fields
+                if name in columns}
+
+    def _defer_device_decode_to_loader(self):
+        """Called by a loader that claims the plans: the raw grids then pass
+        through :meth:`__next__` undecoded, and the loader decodes them on
+        its device, then runs the device ``TransformSpec``. Returns
+        ``(plans, device_transform_spec)``."""
+        self._device_decode_deferred = True
+        return self.device_decode_plans, self._device_transform_spec
 
     def reset(self):
         """Restart iteration for another ``num_epochs`` pass, the row-group

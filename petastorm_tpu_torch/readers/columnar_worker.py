@@ -14,6 +14,12 @@ codec, or cell by cell through a decode hint's override
 (``readers/piece_worker.py`` ``_decode_table`` :541-545); hive partition
 columns are made from the piece's directory values.
 
+Columns with a device-decode plan (``ops/decode.py``) are not decoded: each
+travels as its raw ``(n, stride)`` uint8 grid, repacked from a host decode
+where a chunk does not match the plan (``readers/piece_worker.py``
+``_decode_table`` :515-535; ``supports_device_decode``,
+``columnar_worker.py:410``).
+
 A null-bearing numeric scalar column decodes as arrow gives it, a float
 array with NaN at the nulls (float64 for an integer column), as the JAX
 columnar and batch readers give it; the row reader asks for ``None`` cells
@@ -31,6 +37,7 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch.codecs import ScalarCodec, decode_cells
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
 from petastorm_tpu_torch.ngram import NGram, NGramWindowChunk
+from petastorm_tpu_torch.ops.decode import raw_column_view, repack_to_raw
 from petastorm_tpu_torch.transform import (TransformSpec,
                                            apply_columnar_transform)
 from petastorm_tpu_torch.unischema import Unischema
@@ -60,15 +67,29 @@ def decode_column(field, chunk: pa.Array, keep_none: bool = False,
 
 
 def decode_columns(table, schema: Unischema, keep_none: bool = False,
-                   overrides: Optional[Dict[str, Callable]] = None
-                   ) -> Dict[str, np.ndarray]:
+                   overrides: Optional[Dict[str, Callable]] = None,
+                   plans=None) -> Dict[str, np.ndarray]:
     """Codec-decode every column of ``table`` that ``schema`` declares,
-    through ``overrides[name]`` where a decode hint gives one."""
+    through ``overrides[name]`` where a decode hint gives one; a column
+    with a device-decode plan in ``plans`` comes out as its raw grid."""
     overrides = overrides or {}
-    return {name: decode_column(schema.fields[name],
-                                table.column(name).combine_chunks(),
-                                keep_none, overrides.get(name))
-            for name in table.column_names if name in schema.fields}
+    plans = plans or {}
+    out = {}
+    for name in table.column_names:
+        if name not in schema.fields:
+            continue
+        plan = plans.get(name)
+        if plan is not None:
+            raw = raw_column_view(table.column(name), plan)
+            if raw is None:
+                raw = repack_to_raw(plan, decode_column(
+                    schema.fields[name], table.column(name).combine_chunks()))
+            out[name] = raw
+            continue
+        out[name] = decode_column(schema.fields[name],
+                                  table.column(name).combine_chunks(),
+                                  keep_none, overrides.get(name))
+    return out
 
 
 def stored_columns(names: List[str], piece: RowGroupPiece) -> List[str]:
@@ -103,14 +124,14 @@ def make_partition_columns(schema: Unischema, piece: RowGroupPiece, n: int,
 
 
 def load_columns(piece: RowGroupPiece, schema: Unischema, names: List[str],
-                 keep_none: bool = False, overrides=None
+                 keep_none: bool = False, overrides=None, plans=None
                  ) -> Dict[str, np.ndarray]:
     """The row group's columns ``names`` (those ``schema`` declares),
-    decoded, with partition columns made for the partition keys among
-    them."""
+    decoded (raw where ``plans`` has a plan), with partition columns made
+    for the partition keys among them."""
     names = [n for n in names if n in schema.fields]
     table = read_row_group(piece, stored_columns(names, piece))
-    columns = decode_columns(table, schema, keep_none, overrides)
+    columns = decode_columns(table, schema, keep_none, overrides, plans)
     columns.update(make_partition_columns(schema, piece, table.num_rows,
                                           set(names)))
     return columns
@@ -197,18 +218,21 @@ def load_window_chunk(item, schema: Unischema, ngram: NGram,
 def load_columnar(item, schema: Unischema, names: List[str],
                   transform_spec: Optional[TransformSpec] = None,
                   transformed_schema: Optional[Unischema] = None,
-                  overrides=None) -> Optional[Dict[str, np.ndarray]]:
+                  overrides=None, plans=None
+                  ) -> Optional[Dict[str, np.ndarray]]:
     """One work item as a dict of decoded column arrays: the row group,
     its rows kept by the item's predicate, its row-drop partition, then
     ``transform_spec`` (its ``func`` sees the whole dict; the result keeps
-    the transformed schema's fields). None when no row is left."""
+    the transformed schema's fields). Columns planned in ``plans`` stay
+    raw grids (the reader plans none under a predicate or a host
+    transform). None when no row is left."""
     partition, num_partitions = item.drop_partition
     if item.predicate is not None:
         columns = load_with_predicate(item.piece, schema, names,
                                       item.predicate, overrides=overrides)
     else:
         columns = load_columns(item.piece, schema, names,
-                               overrides=overrides)
+                               overrides=overrides, plans=plans)
     n = len(next(iter(columns.values()))) if columns else 0
     if not n:
         return None

@@ -21,10 +21,18 @@
   consumer on a background thread: ``non_blocking`` copies from pinned
   memory on a side CUDA stream, handed to the consumer's stream with an
   event and ``record_stream``.
+- Device decode (``jax_utils.py:502-530, 569-573, 1217-1250``): a
+  ``TorchDataLoader`` over a columnar reader that planned device decode
+  claims the plans. Plain iteration then decodes the raw uint8 grids on
+  the loader's device, before ``pad_spec`` and ``transform_fn``;
+  :meth:`TorchLoaderBase.iter_prefetched` instead stages the raw grids
+  and decodes them on the side stream after the copy
+  (``prefetch_to_device(fused_fn=)``), so the raw bytes are what crosses
+  PCIe and the decode runs once a batch.
 
 Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
-(the multi-GPU slice), ``infeed_diagnosis`` (the tracing and health slice)
-and device-side decode.
+(the multi-GPU slice) and ``infeed_diagnosis`` (the tracing and health
+slice).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.goodput import GoodputMonitor, goodput_enabled
+from petastorm_tpu_torch.ops.decode import (build_fused_infeed,
+                                            split_device_columns)
 from petastorm_tpu_torch.readers.shuffling_buffer import (
     BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer,
     NoopShufflingBuffer, RandomShufflingBuffer)
@@ -149,8 +159,10 @@ def pad_ragged_batch(batch, pad_spec):
         col = out.get(name)
         if col is None:
             continue
-        if not (isinstance(col, np.ndarray) and col.dtype == object):
-            col = np.asarray(col)
+        if torch.is_tensor(col) or not (isinstance(col, np.ndarray)
+                                        and col.dtype == object):
+            if not torch.is_tensor(col):    # a device-decoded column stays
+                col = np.asarray(col)
             if col.ndim < 2:
                 raise ValueError('pad_spec field {!r} has scalar rows; '
                                  'padding needs at least one dimension'
@@ -162,8 +174,10 @@ def pad_ragged_batch(batch, pad_spec):
                     'pad_spec field {!r}: row length {} exceeds largest '
                     'bucket {}'.format(name, width, spec['buckets'][-1]))
             if bucket != width:
-                padded = np.full((len(col), bucket) + col.shape[2:],
-                                 spec['pad_value'], dtype=col.dtype)
+                shape = (len(col), bucket) + tuple(col.shape[2:])
+                padded = (col.new_full(shape, spec['pad_value'])
+                          if torch.is_tensor(col) else
+                          np.full(shape, spec['pad_value'], dtype=col.dtype))
                 padded[:, :width] = col
                 col = padded
             out[name] = col
@@ -261,15 +275,27 @@ class TorchLoaderBase:
         """Iterate with a background lookahead of ``self.prefetch_depth``
         batches: staged onto the loader's device by
         :func:`prefetch_to_device` (which reports to ``self.goodput``), or
-        with ``to_device=False`` kept on the host."""
+        with ``to_device=False`` kept on the host. Where the loader can
+        leave its device decode to the staging (:meth:`_staging_decode`),
+        the raw grids are staged and decoded after the copy."""
         if to_device:
-            return prefetch_to_device(iter(self), self.prefetch_depth,
+            fused = self._staging_decode()
+            return prefetch_to_device(self._iterate(decode=fused is None),
+                                      self.prefetch_depth,
                                       device=self.device,
-                                      goodput=self.goodput)
+                                      goodput=self.goodput, fused_fn=fused)
         return _pipeline(iter(self), self.prefetch_depth,
                          lambda batch: (batch, None), None)
 
+    def _staging_decode(self):
+        """The decode :func:`prefetch_to_device` runs after staging when the
+        loader yields raw grids, or None when the loader decodes itself."""
+        return None
+
     def __iter__(self):
+        return self._iterate(decode=True)
+
+    def _iterate(self, decode):
         if self._error is not None:
             raise RuntimeError('Cannot start a new iteration after a failed '
                                'one') from self._error
@@ -284,9 +310,9 @@ class TorchLoaderBase:
         goodput = self.goodput
         try:
             if goodput is None:
-                yield from self._iter_impl()
+                yield from self._iter_impl(decode)
             else:
-                it = self._iter_impl()
+                it = self._iter_impl(decode)
                 fetch_start = time.perf_counter()
                 for batch in it:
                     now = time.perf_counter()
@@ -303,7 +329,9 @@ class TorchLoaderBase:
         finally:
             self._in_iter = False
 
-    def _iter_impl(self):
+    def _iter_impl(self, decode):
+        """The batches of one pass; ``decode`` False leaves claimed raw
+        columns undecoded for the staging to decode."""
         raise NotImplementedError
 
     def _cache_hot(self):
@@ -362,12 +390,19 @@ class TorchDataLoader(TorchLoaderBase):
         which raises without CUDA; ``'cpu'`` explicitly). On a CUDA device
         the host tensors are pinned so :func:`prefetch_to_device` copies
         them asynchronously.
+    :param device_decode: claim the reader's device-decode plans (the
+        default). The raw uint8 grids of the planned columns then decode
+        on ``device``, followed by the reader's ``device=True``
+        ``TransformSpec``: in the loader before ``pad_spec`` and
+        ``transform_fn``, or under :meth:`iter_prefetched` after the copy.
+        Other columns stay on the host unless a device spec needs them.
+        False leaves the decode to the reader, on the host.
     """
 
     def __init__(self, reader, batch_size=1, shuffling_queue_capacity=0,
                  transform_fn=None, drop_last=False, seed=None,
                  inmemory_cache_all=False, pad_spec=None,
-                 prefetch_depth=None, device=None):
+                 prefetch_depth=None, device=None, device_decode=True):
         super().__init__(reader, device)
         self._ngram = getattr(reader, 'ngram', None)
         if self._ngram is not None and pad_spec:
@@ -392,17 +427,54 @@ class TorchDataLoader(TorchLoaderBase):
         self._cache_complete = False
         self.prefetch_depth = resolve_prefetch_depth(prefetch_depth)
         self._pin = self.device.type == 'cuda'
+        #: name -> DeviceColumnPlan claimed from the reader
+        self._device_plans = {}
+        self._device_transform_spec = None
+        self._fused = None
+        claim = getattr(reader, '_defer_device_decode_to_loader', None)
+        if (device_decode and claim is not None
+                and getattr(reader, 'device_decode_plans', None)):
+            self._device_plans, self._device_transform_spec = claim()
+            self._fused = build_fused_infeed(self._device_plans,
+                                             self._device_transform_spec)
 
     def _cache_hot(self):
         return self._cache_complete
 
-    def _iter_impl(self):
+    def _staging_decode(self):
+        # the staging may decode only what nothing before it must see
+        # decoded: no transform_fn, no padding of a planned column, and no
+        # cache (a cached raw batch would replay undecoded)
+        if (self._fused is None or self.transform_fn is not None
+                or self._cache is not None
+                or set(self.pad_spec or ()) & set(self._device_plans)):
+            return None
+        return self._fused
+
+    def _decode(self, batch):
+        """Decode the planned raw columns on the loader's device and run the
+        device ``TransformSpec``; host-only columns merge back as they
+        were."""
+        device_cols, host_cols = split_device_columns(
+            batch, self._device_plans,
+            include_unplanned=self._device_transform_spec is not None)
+        staged = {}
+        for name, col in device_cols.items():
+            col = _to_tensor(col, self._pin)
+            staged[name] = col.to(self.device, non_blocking=True)
+        out = dict(self._fused(staged))
+        out.update(host_cols)
+        return out
+
+    def _iter_impl(self, decode=True):
         if self._cache_complete:
             yield from self._cache
             return
         if self._cache is not None:
             self._cache = []        # an abandoned pass may have left some
         for batch in self._collated():
+            if self._fused is not None and decode:
+                batch = self._decode(batch)
             if self.pad_spec:
                 batch = pad_ragged_batch(batch, self.pad_spec)
             batch = self._tensors(batch)
@@ -539,10 +611,12 @@ def _collate_windows(windows):
 def make_torch_loader(reader, batch_size=1, mesh=None,
                       shuffling_queue_capacity=0, transform_fn=None,
                       drop_last=False, seed=None, inmemory_cache_all=False,
-                      pad_spec=None, prefetch_depth=None, device=None):
+                      pad_spec=None, prefetch_depth=None, device=None,
+                      device_decode=True):
     """A :class:`TorchDataLoader` over ``reader`` (JAX ``make_jax_loader``).
-    ``mesh`` (a sharded loader over several devices) raises
-    ``NotImplementedError``: it comes with the multi-GPU slice."""
+    ``device_decode=False`` leaves a bytes-through reader's decode to the
+    reader, on the host. ``mesh`` (a sharded loader over several devices)
+    raises ``NotImplementedError``: it comes with the multi-GPU slice."""
     if mesh is not None:
         raise NotImplementedError(
             'make_torch_loader(mesh=...) is not ported to petastorm_tpu_torch '
@@ -552,7 +626,7 @@ def make_torch_loader(reader, batch_size=1, mesh=None,
                            transform_fn=transform_fn, drop_last=drop_last,
                            seed=seed, inmemory_cache_all=inmemory_cache_all,
                            pad_spec=pad_spec, prefetch_depth=prefetch_depth,
-                           device=device)
+                           device=device, device_decode=device_decode)
 
 
 def epoch_cache_on_device(loader, device=None):
@@ -578,7 +652,8 @@ def epoch_cache_on_device(loader, device=None):
         yield from cache
 
 
-def prefetch_to_device(iterator, size=None, device=None, goodput=None):
+def prefetch_to_device(iterator, size=None, device=None, goodput=None,
+                       fused_fn=None):
     """Stage up to ``size`` batches (default :func:`resolve_prefetch_depth`)
     ahead of the consumer on a background thread. On a CUDA device each
     tensor leaf is copied from pinned host memory with
@@ -587,12 +662,26 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None):
     from reusing the memory early. ``device='cpu'`` converts numpy leaves
     to tensors and stages nothing. Non-tensor leaves pass through.
     ``goodput`` (a :class:`~petastorm_tpu_torch.goodput.GoodputMonitor`,
-    e.g. ``loader.goodput``) gets each staging dispatch's host time."""
+    e.g. ``loader.goodput``) gets each staging dispatch's host time.
+    ``fused_fn`` (:func:`~petastorm_tpu_torch.ops.decode.build_fused_infeed`)
+    runs over each staged batch's tensors on the side stream, after the
+    copy and before the event that hands the batch off: the device decode
+    of a bytes-through batch overlaps the consumer's step like the copy."""
     device = resolve_device(device)
     size = resolve_prefetch_depth(size)
+
+    def fuse(staged):
+        if fused_fn is None or not isinstance(staged, dict):
+            return staged
+        out = dict(fused_fn({k: v for k, v in staged.items()
+                             if torch.is_tensor(v)}))
+        out.update({k: v for k, v in staged.items()
+                    if not torch.is_tensor(v)})
+        return out
+
     if device.type == 'cpu':
         def put(batch):
-            return _map(batch, lambda x: _to_tensor(x, False)), None
+            return fuse(_map(batch, lambda x: _to_tensor(x, False))), None
     else:
         if device.index is None:     # 'cuda' names the current device
             device = torch.device('cuda', torch.cuda.current_device())
@@ -609,7 +698,7 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None):
 
         def put(batch):
             with torch.cuda.stream(side):
-                staged = _map(batch, stage)
+                staged = fuse(_map(batch, stage))
                 event = torch.cuda.Event()
                 event.record(side)
             return staged, event

@@ -1,10 +1,12 @@
 """User transforms run on the reader's workers, and the schema they imply.
 
-A copy of ``petastorm_tpu/transform.py`` (``TransformSpec`` :18-70,
-``transform_schema`` :73-90, ``apply_columnar_transform``) and of the row
-reader's per-row contract (``readers/row_worker.py`` ``_apply_transform``
-:405-409), without the ``device=`` flag, which fuses a transform into the
-JAX package's jitted device decode and has no counterpart here. The batch
+A copy of ``petastorm_tpu/transform.py`` (``TransformSpec`` :18-70 with
+its ``device=`` flag :31-48, ``transform_schema`` :73-90,
+``apply_columnar_transform``) and of the row reader's per-row contract
+(``readers/row_worker.py`` ``_apply_transform`` :405-409). A
+``device=True`` spec of a columnar reader runs after the device decode of
+the reader's bytes-through columns, on the loader's device
+(:func:`petastorm_tpu_torch.ops.decode.build_fused_infeed`). The batch
 reader's pandas contract lives in ``readers/batch_worker.py``.
 """
 
@@ -28,13 +30,22 @@ class TransformSpec:
     :param removed_fields: names the transform deletes.
     :param selected_fields: if set, the transformed schema keeps exactly
         these fields; exclusive with ``removed_fields``.
+    :param device: ``func`` takes and returns a dict of torch tensors (the
+        batch's columns). When a columnar reader plans device decode and a
+        loader claims it, ``func`` runs on the loader's device right after
+        the decode, once a batch, instead of on the workers. Otherwise the
+        reader runs it on the host over each row group's columns, as CPU
+        tensors, and keeps yielding numpy, so results do not depend on
+        where the decode ran.
     """
 
     def __init__(self, func: Optional[Callable] = None,
                  edit_fields: Optional[List] = None,
                  removed_fields: Optional[List[str]] = None,
-                 selected_fields: Optional[List[str]] = None):
+                 selected_fields: Optional[List[str]] = None,
+                 device: bool = False):
         self.func = func
+        self.device = bool(device)
         self.edit_fields = [self._as_field(f) for f in (edit_fields or [])]
         self.removed_fields = list(removed_fields or [])
         self.selected_fields = (list(selected_fields)

@@ -7,7 +7,10 @@ reader ventilates them, ``reader.py:646-663``) into the pool for ``num_epochs`` 
 item order each epoch from one ``np.random.default_rng(seed)``, with at most
 ``max_in_flight`` items outstanding. Workers run ``process(item)`` and
 publish results; a worker exception is re-raised in the consumer by
-:meth:`ThreadPool.get_results`. Once every result is consumed,
+:meth:`ThreadPool.get_results`. With ``profiling_enabled`` each worker
+thread runs under its own ``cProfile`` and :meth:`ThreadPool.join` logs
+the aggregate (JAX ``thread_pool.py:58-64, 613-620``). Once every result
+is consumed,
 :meth:`ThreadPool.reset` ventilates the items for more epochs, the shuffle
 continuing from the same generator (the JAX ventilator's ``reset``,
 ``workers/ventilator.py:252-263``). ``stop()`` then ``join()`` ends every
@@ -16,11 +19,17 @@ thread.
 
 from __future__ import annotations
 
+import cProfile
+import io
+import logging
+import pstats
 import queue
 import threading
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 _DONE = object()
 
@@ -39,11 +48,32 @@ class EmptyResultError(Exception):
     """The ventilator has finished and every result has been consumed."""
 
 
+def ventilation_order(items: List, num_epochs: Optional[int], shuffle: bool,
+                      rng):
+    """The items in the order the ventilator sends them: ``num_epochs``
+    epochs (None = forever), each reshuffled from ``rng`` when
+    ``shuffle``. Every pool ventilates through this, so the pools give one
+    order for one seed."""
+    epoch = 0
+    while num_epochs is None or epoch < num_epochs:
+        order = np.arange(len(items))
+        if shuffle:
+            rng.shuffle(order)
+        for i in order:
+            yield items[int(i)]
+        epoch += 1
+        if not items:
+            break
+
+
 class ThreadPool:
-    def __init__(self, workers_count: int, results_queue_size: int = 50):
+    def __init__(self, workers_count: int, results_queue_size: int = 50,
+                 profiling_enabled: bool = False):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1')
         self._workers_count = workers_count
+        self._profiling_enabled = profiling_enabled
+        self._profiles: List[cProfile.Profile] = []
         self._results = queue.Queue(maxsize=results_queue_size)
         self._items: queue.Queue = queue.Queue()
         self._stop = threading.Event()
@@ -90,22 +120,14 @@ class ThreadPool:
         self._launch(num_epochs)
 
     def _ventilate(self, items, num_epochs, shuffle, rng):
-        epoch = 0
         try:
-            while num_epochs is None or epoch < num_epochs:
-                order = np.arange(len(items))
-                if shuffle:
-                    rng.shuffle(order)
-                for i in order:
-                    while not self._slots.acquire(timeout=0.1):
-                        if self._stop.is_set():
-                            return
+            for item in ventilation_order(items, num_epochs, shuffle, rng):
+                while not self._slots.acquire(timeout=0.1):
                     if self._stop.is_set():
                         return
-                    self._items.put(items[int(i)])
-                epoch += 1
-                if not items:
-                    break
+                if self._stop.is_set():
+                    return
+                self._items.put(item)
         finally:
             for _ in range(self._workers_count):
                 self._items.put(_DONE)
@@ -120,6 +142,22 @@ class ThreadPool:
         return False
 
     def _work(self, process):
+        profiler = cProfile.Profile() if self._profiling_enabled else None
+        if profiler is not None:
+            try:
+                profiler.enable()
+            except ValueError:
+                # Python 3.12+ allows one profiler a process, and it sees
+                # every thread: this worker is profiled by another's
+                profiler = None
+        try:
+            self._serve(process)
+        finally:
+            if profiler is not None:
+                profiler.disable()
+                self._profiles.append(profiler)   # list.append is atomic
+
+    def _serve(self, process):
         while not self._stop.is_set():
             item = self._items.get()
             if item is _DONE:
@@ -172,3 +210,12 @@ class ThreadPool:
         alive = [t.name for t in threads if t.is_alive()]
         if alive:
             raise TimeoutError('pool threads still running: %s' % alive)
+        if self._profiles:
+            stats = pstats.Stats(self._profiles[0])
+            for p in self._profiles[1:]:
+                stats.add(p)
+            out = io.StringIO()
+            stats.stream = out
+            stats.sort_stats('cumulative').print_stats(30)
+            logger.info('Aggregated worker profile:\n%s', out.getvalue())
+            self._profiles = []

@@ -302,3 +302,39 @@ def test_source_scan_finds_no_jax_import():
     hits = [(str(f), m.group(0)) for f in files
             for m in pattern.finditer(f.read_text())]
     assert not hits, hits
+
+
+#: Modules of the device-decode and process-pool slice; the worker side
+#: (everything a worker interpreter imports) must not import torch either.
+SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
+                 'petastorm_tpu_torch.etl.repack',
+                 'petastorm_tpu_torch.workers.serializers',
+                 'petastorm_tpu_torch.workers.exec_in_new_process',
+                 'petastorm_tpu_torch.workers.process_pool',
+                 'petastorm_tpu_torch.workers.dummy_pool']
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_slice_module_imports_no_jax_and_no_torch(module):
+    code = (
+        'import importlib, sys\n'
+        'importlib.import_module(%r)\n'
+        'bad = [n for n in sys.modules if n.split(".")[0] in '
+        '("jax", "petastorm_tpu", "torch")]\n'
+        'assert not bad, bad\n'
+        'print("clean")\n' % module)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, '-c', code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert 'clean' in out.stdout
+
+
+@pytest.mark.parametrize('module', SLICE_MODULES)
+def test_source_scan_of_slice_module_finds_no_jax_import(module):
+    pattern = re.compile(
+        r'^\s*(from|import)\s+(jax|petastorm_tpu)(\.|\s|$)'
+        r'|import_module\([\'"](jax|petastorm_tpu)[\'".]', re.M)
+    path = REPO / (module.replace('.', '/') + '.py')
+    assert path.is_file()
+    assert not [m.group(0) for m in pattern.finditer(path.read_text())]
