@@ -1686,6 +1686,104 @@ def decode_kernel_us(torch, fused, grid, n):
     return total / n
 
 
+@contextlib.contextmanager
+def sample_threads(tally, interval=0.002):
+    """Sample every other thread's Python stack each ``interval`` s while
+    the block runs: ``tally[role][where]`` counts the samples, ``role``
+    being the thread's name (the pool's worker threads pooled as
+    ``workers``) and ``where`` the innermost frame of this repo, with the
+    innermost frame outside it when that differs (a wait, a torch call)."""
+    import threading
+    stop = threading.Event()
+    repo = os.path.join(ROOT, '')
+
+    def where(frame):
+        leaf, own = frame, None
+        while frame is not None and own is None:
+            if frame.f_code.co_filename.startswith(repo):
+                own = frame
+            frame = frame.f_back
+        name = '%s:%d %s' % (os.path.basename(own.f_code.co_filename),
+                             own.f_lineno, own.f_code.co_name) if own else '-'
+        if leaf is not own:
+            name += ' > %s %s' % (os.path.basename(leaf.f_code.co_filename),
+                                  leaf.f_code.co_name)
+        return name
+
+    def run():
+        me = threading.get_ident()
+        while not stop.wait(interval):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            for ident, frame in sys._current_frames().items():
+                if ident == me:
+                    continue
+                role = names.get(ident, '?')
+                if role.startswith('petastorm-torch-worker'):
+                    role = 'workers'
+                counts = tally.setdefault(role, {})
+                key = where(frame)
+                counts[key] = counts.get(key, 0) + 1
+
+    sampler = threading.Thread(target=run, name='smoke-sampler',
+                               daemon=True)
+    sampler.start()
+    try:
+        yield tally
+    finally:
+        stop.set()
+        sampler.join()
+
+
+def token_thread_profile(torch, np, url, tokens, device):
+    """Where the host time of the thread pool's token passes goes, decode
+    on against off: passes in the order on, off, off, on under the default
+    GIL switch interval, then on, off under 0.5 ms, each with the process's
+    CPU seconds a batch (``getrusage``) and the share of each thread's
+    samples by frame (``sample_threads``, top 8 a thread to standard
+    error, the top 3 of the staging thread to the log)."""
+    import resource
+    default = sys.getswitchinterval()
+    for switch, interval in (('on', default), ('off', default),
+                             ('off', default), ('on', default),
+                             ('on', 0.0005), ('off', 0.0005)):
+        sys.setswitchinterval(interval)
+        tally = {}
+        before = resource.getrusage(resource.RUSAGE_SELF)
+        t0 = time.perf_counter()
+        try:
+            with sample_threads(tally):
+                token_pass(torch, np, url, tokens, 'thread', switch, device,
+                           TOKEN_BATCH)
+        finally:
+            sys.setswitchinterval(default)
+        wall = time.perf_counter() - t0
+        after = resource.getrusage(resource.RUSAGE_SELF)
+        cpu = (after.ru_utime - before.ru_utime
+               + after.ru_stime - before.ru_stime)
+        batches = len(tokens) // TOKEN_BATCH
+        label = 'token profile, thread pool, decode %s, switch interval ' \
+            '%.4f s' % (switch, interval)
+        print('%s: wall %.3f s, process CPU %.3f s (%.4f ms a batch), '
+              'context switches %d voluntary, %d involuntary'
+              % (label, wall, cpu, cpu / batches * 1e3,
+                 after.ru_nvcsw - before.ru_nvcsw,
+                 after.ru_nivcsw - before.ru_nivcsw), file=sys.stderr)
+        tops = {}
+        for role in sorted(tally):
+            counts = tally[role]
+            n = sum(counts.values())
+            top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+            tops[role] = top
+            print('  %s, %d samples:' % (role, n), file=sys.stderr)
+            for key, c in top:
+                print('    %5.1f%%  %s' % (100 * c / n, key), file=sys.stderr)
+        stage = tops.get('petastorm-torch-prefetch', [])
+        n = sum(tally.get('petastorm-torch-prefetch', {}).values()) or 1
+        log('%s: wall %.3f s, process CPU %.4f ms a batch; staging thread '
+            '%s' % (label, wall, cpu / batches * 1e3, '; '.join(
+                '%.1f%% %s' % (100 * c / n, k) for k, c in stage[:3])))
+
+
 def token_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
                rows=TOKEN_ROWS, image_rows=IMAGE_ROWS, steps=TOKEN_STEPS):
     """The columnar token line: the store; the reader + loader alone under
@@ -1737,6 +1835,8 @@ def token_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
                     'grid %s); its kernels %.2f us a call of device time '
                     '(profiler, 200 calls)'
                     % (ms, TOKEN_BATCH, tuple(grid.shape), kernel_us))
+                if args.profile:
+                    token_thread_profile(torch, np, url, tokens, device)
 
             os.environ[DEVICE_DECODE_ENV_VAR] = 'on'
             spec = TransformSpec(
@@ -1948,7 +2048,8 @@ def main(argv=None):
                         help='seed of the weights, the store and the inputs')
     parser.add_argument('--profile', action='store_true',
                         help='profile two more main-path steps (device time '
-                        'by kernel to standard error)')
+                        'by kernel to standard error) and the token line\'s '
+                        'host threads, device decode on against off')
     parser.add_argument('--ptxas-log', action='store_true',
                         help="print nvcc's register/shared-memory report")
     args = parser.parse_args(argv)

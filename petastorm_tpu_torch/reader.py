@@ -47,8 +47,6 @@ from __future__ import annotations
 import copy
 import functools
 
-import numpy as np
-
 from petastorm_tpu_torch.codecs import build_decode_overrides
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
@@ -68,7 +66,8 @@ from petastorm_tpu_torch.readers.batch_worker import (BatchResultsReader,
 from petastorm_tpu_torch.readers.columnar_worker import (load_columnar,
                                                          load_window_chunk)
 from petastorm_tpu_torch.readers.row_worker import load_row_item
-from petastorm_tpu_torch.transform import transform_schema
+from petastorm_tpu_torch.transform import (apply_columnar_transform,
+                                           transform_schema)
 from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
                                            match_unischema_fields)
 from petastorm_tpu_torch.utils import cast_partition_value
@@ -121,16 +120,6 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size,
         return DummyPool()
     raise ValueError("reader_pool_type must be one of 'thread', 'process', "
                      "'dummy'; got {!r}".format(reader_pool_type))
-
-
-def _refuse_device_spec(factory, transform_spec):
-    """A ``device=True`` spec takes a dict of tensors, which only the
-    columnar reader's batches are; its rows and pandas frames are not."""
-    if transform_spec is not None and transform_spec.device:
-        raise ValueError('{}: a device=True TransformSpec runs on the column '
-                         'tensors of make_columnar_reader batches; this '
-                         'reader hands its transform rows or pandas frames'
-                         .format(factory))
 
 
 def _validate_shard_range(cur_shard, shard_count):
@@ -203,7 +192,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     ``shard_count``-th row group left, from ``cur_shard``), and
     ``shuffle_row_drop_partitions`` (each row group is ventilated that many
     times, each time with one slice of its rows). ``transform_spec.func``
-    receives one row dict and returns it transformed. ``decode_hints``:
+    receives one row dict and returns it transformed (a ``device=True``
+    spec's gets its numeric fields as CPU tensors). ``decode_hints``:
     ``{field: kwargs of CompressedImageCodec.decode_scaled}``, e.g.
     ``{'image': {'scale': 2}}``; the hinted fields' spatial dims become
     wildcards in ``schema``.
@@ -217,7 +207,6 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     ``zmq_copy_buffers=False``) or ``'dummy'`` (each item on the consumer's
     thread)."""
     _refuse_unported('make_reader', unported)
-    _refuse_device_spec('make_reader', transform_spec)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
@@ -244,8 +233,9 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
-    workers; a ``device=True`` spec receives a dict of tensors instead and
-    runs after the device decode (see :class:`Reader`). Selection,
+    workers; a ``device=True`` spec receives a dict of tensors instead: after
+    the device decode when the reader plans one (see :class:`Reader`), else
+    on the workers as CPU tensors. Selection,
     ``decode_hints`` and the pool as in :func:`make_reader`; NGram is not
     supported."""
     _refuse_unported('make_columnar_reader', unported)
@@ -281,12 +271,11 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     codecs are not decoded, a null-bearing integer column is float64 with
     NaN, a fixed-shape list column is ``(n, *shape)``.
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
-    receives a pandas DataFrame. Selection by ``predicate``, ``filters``
-    and ``cur_shard``/``shard_count``, and the pool, as in
-    :func:`make_reader` (a process pool sends each row group's table as one
-    Arrow IPC stream)."""
+    receives a pandas DataFrame, ``device=True`` or not. Selection by
+    ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, and the
+    pool, as in :func:`make_reader` (a process pool sends each row group's
+    table as one Arrow IPC stream)."""
     _refuse_unported('make_batch_reader', unported)
-    _refuse_device_spec('make_batch_reader', transform_spec)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -340,8 +329,9 @@ class Reader:
     whole reader, to why it decodes on the host. A loader that claims the
     plans decodes the grids on its device; otherwise :meth:`__next__`
     decodes them on the host and the reader yields decoded numpy, as
-    without plans. A ``device=True`` ``TransformSpec`` runs after the
-    decode, wherever it ran, on tensors."""
+    without plans. With plans, a ``device=True`` ``TransformSpec`` runs
+    after the decode, wherever it ran, on tensors; without, it runs on the
+    workers over CPU tensors."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, pool,
                  num_epochs, shuffle_row_groups, seed,
@@ -425,12 +415,13 @@ class Reader:
                 transformed_schema=self.schema,
                 batched_output=self.batched_output,
                 worker_supported=mode == 'columnar')
-        # a device spec runs on tensors in the consumer, never on the
-        # workers (which import no torch): after the loader's decode when
-        # a loader claims the plans, else in __next__
+        # a device spec runs once a batch after the decode of the planned
+        # columns: in the loader that claims the plans, else in __next__;
+        # without plans it stays on the workers, over CPU tensors
         self._device_transform_spec = (
-            transform_spec if transform_spec is not None
-            and transform_spec.device else None)
+            transform_spec if self.device_decode_plans
+            and transform_spec is not None and transform_spec.device
+            else None)
         if self._device_transform_spec is not None:
             transform_spec = None
         self._device_decode_deferred = False
@@ -579,9 +570,7 @@ class Reader:
             return self._batches.to_batch(self._next_item())
         if self.batched_output:
             columns = self._next_item()
-            if not self._device_decode_deferred and (
-                    self.device_decode_plans
-                    or self._device_transform_spec is not None):
+            if self.device_decode_plans and not self._device_decode_deferred:
                 columns = self._host_decode_raw(columns)
             return self.schema.make_batch_namedtuple(**columns)
         # the last row (window) of an item first, as the JAX results reader
@@ -596,25 +585,17 @@ class Reader:
     def _host_decode_raw(self, columns):
         """Decode a bytes-through item's raw planned columns on the host and
         run a device ``TransformSpec`` over the result: the consumer's path
-        when no loader claimed the plans. The spec gets CPU tensors (numpy
-        columns wrapped, not copied) and its tensors come back as numpy."""
+        when no loader claimed the plans. The spec gets CPU tensors and its
+        tensors come back as numpy
+        (:func:`~petastorm_tpu_torch.transform.run_on_cpu_tensors`)."""
         columns = dict(columns)
         for name, plan in self.device_decode_plans.items():
             if name in columns:
                 columns[name] = decode_raw_host(plan, columns[name])
-        spec = self._device_transform_spec
-        if spec is None:
+        if self._device_transform_spec is None:
             return columns
-        if spec.func is not None:
-            import torch
-            columns = spec.func({
-                k: torch.from_numpy(v if v.flags.writeable else v.copy())
-                if isinstance(v, np.ndarray) and v.dtype.kind in 'biuf'
-                else v for k, v in columns.items()})
-            columns = {k: v.numpy() if torch.is_tensor(v) else v
-                       for k, v in columns.items()}
-        return {name: columns[name] for name in self.schema.fields
-                if name in columns}
+        return apply_columnar_transform(self._device_transform_spec,
+                                        self.schema, columns)
 
     def _defer_device_decode_to_loader(self):
         """Called by a loader that claims the plans: the raw grids then pass

@@ -4,15 +4,19 @@ A copy of ``petastorm_tpu/transform.py`` (``TransformSpec`` :18-70 with
 its ``device=`` flag :31-48, ``transform_schema`` :73-90,
 ``apply_columnar_transform``) and of the row reader's per-row contract
 (``readers/row_worker.py`` ``_apply_transform`` :405-409). A
-``device=True`` spec of a columnar reader runs after the device decode of
-the reader's bytes-through columns, on the loader's device
-(:func:`petastorm_tpu_torch.ops.decode.build_fused_infeed`). The batch
-reader's pandas contract lives in ``readers/batch_worker.py``.
+``device=True`` spec of a columnar reader that plans device decode runs
+after the decode of the reader's bytes-through columns, on the loader's
+device (:func:`petastorm_tpu_torch.ops.decode.build_fused_infeed`);
+everywhere else it runs where any spec runs, over CPU tensors
+(:func:`run_on_cpu_tensors`). The batch reader's pandas contract lives in
+``readers/batch_worker.py``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, List, Optional
+
+import numpy as np
 
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
@@ -30,13 +34,14 @@ class TransformSpec:
     :param removed_fields: names the transform deletes.
     :param selected_fields: if set, the transformed schema keeps exactly
         these fields; exclusive with ``removed_fields``.
-    :param device: ``func`` takes and returns a dict of torch tensors (the
-        batch's columns). When a columnar reader plans device decode and a
-        loader claims it, ``func`` runs on the loader's device right after
-        the decode, once a batch, instead of on the workers. Otherwise the
-        reader runs it on the host over each row group's columns, as CPU
-        tensors, and keeps yielding numpy, so results do not depend on
-        where the decode ran.
+    :param device: ``func`` takes and returns a dict of torch tensors (a
+        batch's columns, or a row's fields). When a columnar reader plans
+        device decode, ``func`` runs after the decode, once a batch: on the
+        loader's device when a loader claims the plans, else in the reader
+        on the host. Otherwise it runs on the workers, as any spec does,
+        over CPU tensors. The reader yields numpy either way, so results do
+        not depend on where the decode ran. ``make_batch_reader`` hands it
+        a pandas DataFrame, as it hands any spec.
     """
 
     def __init__(self, func: Optional[Callable] = None,
@@ -89,7 +94,8 @@ def apply_columnar_transform(transform_spec: TransformSpec,
     """``func`` over a dict of column arrays, its result filtered to the
     transformed schema's fields."""
     if transform_spec.func is not None:
-        columns = transform_spec.func(columns)
+        columns = (run_on_cpu_tensors(transform_spec.func, columns)
+                   if transform_spec.device else transform_spec.func(columns))
     return {name: columns[name] for name in transformed_schema.fields
             if name in columns}
 
@@ -99,6 +105,26 @@ def apply_row_transform(transform_spec: TransformSpec,
     """``func`` over one row dict, its result filtered to the transformed
     schema's fields."""
     if transform_spec.func is not None:
-        row = transform_spec.func(row)
+        row = (run_on_cpu_tensors(transform_spec.func, row)
+               if transform_spec.device else transform_spec.func(row))
     return {name: row[name] for name in transformed_schema.fields
             if name in row}
+
+
+def run_on_cpu_tensors(func, values: dict) -> dict:
+    """A device spec's ``func`` off the device: its numeric numpy values
+    (arrays and scalars) go in as CPU tensors, wrapped, or copied when
+    read-only; its tensors come back as numpy. A value it returns as it
+    got it comes back as the value it was given."""
+    import torch
+    given = {}
+    for name, value in values.items():
+        if (isinstance(value, (np.ndarray, np.generic))
+                and value.dtype.kind in 'biuf'):
+            array = np.asarray(value)
+            given[name] = torch.from_numpy(
+                array if array.flags.writeable else array.copy())
+    out = func(dict(values, **given))
+    return {name: (values[name] if name in given and value is given[name]
+                   else value.numpy() if torch.is_tensor(value) else value)
+            for name, value in out.items()}

@@ -26,8 +26,7 @@ class DummyPool:
         self._order = iter(())
 
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
-              shuffle: bool = True, seed=None,
-              max_in_flight: Optional[int] = None) -> None:
+              shuffle: bool = True, seed=None) -> None:
         if self._job is not None:
             raise RuntimeError('pool already started')
         self._job = (process, list(items), shuffle,

@@ -115,8 +115,7 @@ class ProcessPool:
         self._terminated = 0
 
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
-              shuffle: bool = True, seed=None,
-              max_in_flight: Optional[int] = None) -> None:
+              shuffle: bool = True, seed=None) -> None:
         """Start the workers, each running ``process(item)``, wait until all
         reported in, then ventilate ``items``."""
         if self._processes:
@@ -156,8 +155,7 @@ class ProcessPool:
             if control == _STARTED:
                 started += 1
 
-        self._slots = threading.Semaphore(max_in_flight
-                                          or 2 * self._workers_count)
+        self._slots = threading.Semaphore(2 * self._workers_count)
         self._job = (list(items), shuffle, np.random.default_rng(seed))
         self._launch(num_epochs)
 

@@ -63,11 +63,10 @@ class ZeroCopySerializer:
 
     Fallbacks (all still correct, just not zero-copy): non-contiguous
     ndarrays and unicode/object columns pickle in-band, as do buffers under
-    ``inband_threshold`` bytes (per-frame overhead would exceed the memcpy).
+    ``_INBAND_THRESHOLD_BYTES`` (per-frame overhead would exceed the memcpy).
     """
 
-    def __init__(self, inband_threshold: int = _INBAND_THRESHOLD_BYTES):
-        self.inband_threshold = inband_threshold
+    def __init__(self):
         self.copies = 0
         self.bytes_moved = 0
 
@@ -80,7 +79,7 @@ class ZeroCopySerializer:
             except BufferError:      # non-contiguous exporter: in-band copy
                 self.copies += 1
                 return True
-            if raw.nbytes < self.inband_threshold:
+            if raw.nbytes < _INBAND_THRESHOLD_BYTES:
                 return True          # in-band (returns true => not out-of-band)
             frames.append(raw)
             self.bytes_moved += raw.nbytes

@@ -18,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -35,8 +36,9 @@ from petastorm_tpu.unischema import (Unischema as JUnischema,
                                      UnischemaField as JField)
 
 from petastorm_tpu_torch import codecs as tcodecs
-from petastorm_tpu_torch import (TorchDataLoader, make_columnar_reader,
-                                 make_reader, materialize_dataset)
+from petastorm_tpu_torch import (TorchDataLoader, make_batch_reader,
+                                 make_columnar_reader, make_reader,
+                                 materialize_dataset)
 from petastorm_tpu_torch.ops import decode as tdecode
 from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -515,12 +517,16 @@ def test_device_spec_and_pad_as_jax(token_store, claim, monkeypatch):
 
 def test_device_spec_off_the_device_path_as_jax(token_store, monkeypatch):
     """Device decode off: JAX runs the device spec on the workers over
-    numpy; the port runs it in the reader over CPU tensors and keeps
+    numpy; the port runs it on the workers too, over CPU tensors, and keeps
     yielding numpy. The same values."""
     url, tokens = token_store
     monkeypatch.setenv(tdecode.DEVICE_DECODE_ENV_VAR, 'off')
 
     def double(cols):
+        if isinstance(cols['tokens'], np.ndarray):    # JAX's: numpy
+            return dict(cols, tokens=cols['tokens'] * 2)
+        assert threading.current_thread().name.startswith('petastorm-')
+        assert torch.is_tensor(cols['tokens'])
         return dict(cols, tokens=cols['tokens'] * 2)
 
     jbatches, _ = _jax_epoch(url, loader=False,
@@ -547,12 +553,98 @@ def test_field_set_changing_device_spec_declines_the_reader(token_store,
 
 
 def test_row_readers_decline_and_refuse_device_specs(token_store):
-    url, _ = token_store
+    """The row reader plans nothing and runs a device spec on the workers,
+    as JAX's does: JAX's over a numpy row, the port's over CPU tensors,
+    the rows back as numpy, alike."""
+    url, tokens = token_store
     with make_reader(url, workers_count=1) as reader:
         assert reader.device_decode_plans == {}
         assert 'row-granular' in reader.device_decode_declined['*']
-    with pytest.raises(ValueError, match='device=True'):
-        make_reader(url, transform_spec=TransformSpec(device=True))
+    jrows = _row_epoch(petastorm_tpu.make_reader, url, JTransformSpec(
+        _row_spec_func(np.ndarray), device=True))
+    trows = _row_epoch(make_reader, url, TransformSpec(
+        _row_spec_func(torch.Tensor), device=True))
+    _assert_rows_alike(trows, jrows, tokens)
+
+
+def _row_spec_func(kind):
+    def func(row):
+        assert isinstance(row['tokens'], kind)
+        return dict(row, tokens=row['tokens'] * 3 + 1)
+    return func
+
+
+def _row_epoch(factory, url, spec, **kw):
+    with factory(url, workers_count=2, shuffle_row_groups=False,
+                 transform_spec=spec, **kw) as reader:
+        return sorted((r._asdict() for r in reader),
+                      key=lambda r: int(r['idx']))
+
+
+def _assert_rows_alike(trows, jrows, tokens):
+    assert [int(r['idx']) for r in trows] == \
+        [int(r['idx']) for r in jrows] == list(range(ROWS))
+    for t, j, want in zip(trows, jrows, tokens):
+        assert isinstance(t['tokens'], np.ndarray)
+        assert isinstance(t['idx'], type(j['idx']))
+        assert t['tokens'].dtype == j['tokens'].dtype == np.int32
+        assert t['tokens'].tolist() == j['tokens'].tolist() == \
+            (want * 3 + 1).tolist()
+
+
+@pytest.mark.parametrize('pool', ['thread', 'dummy'])
+def test_row_reader_device_spec_on_each_pool_as_jax(token_store, pool):
+    url, tokens = token_store
+    jrows = _row_epoch(petastorm_tpu.make_reader, url, JTransformSpec(
+        _row_spec_func(np.ndarray), device=True))
+    trows = _row_epoch(make_reader, url, TransformSpec(
+        _row_spec_func(torch.Tensor), device=True), reader_pool_type=pool)
+    _assert_rows_alike(trows, jrows, tokens)
+
+
+def test_batch_reader_hands_a_device_spec_a_frame_as_jax(token_store):
+    """``make_batch_reader`` hands any spec, ``device=True`` too, a pandas
+    DataFrame, as JAX's does."""
+    url, _ = token_store
+
+    def func(df):
+        assert type(df).__name__ == 'DataFrame'
+        return df.assign(idx=df['idx'] * 3)
+
+    def read(factory, spec_cls):
+        with factory(url, workers_count=1, shuffle_row_groups=False,
+                     transform_spec=spec_cls(func, device=True)) as reader:
+            return np.concatenate([np.asarray(b.idx) for b in reader])
+
+    assert read(make_batch_reader, TransformSpec).tolist() == \
+        read(petastorm_tpu.make_batch_reader, JTransformSpec).tolist() == \
+        [3 * i for i in range(ROWS)]
+
+
+def test_run_on_cpu_tensors_wraps_and_unwraps():
+    """Numeric arrays and scalars go in as CPU tensors (a read-only array
+    copied), tensors come back as numpy, and a value the function returns
+    as it got it comes back as given; other values pass through."""
+    from petastorm_tpu_torch.transform import run_on_cpu_tensors
+    frozen = np.arange(6, dtype=np.float32).reshape(2, 3)
+    frozen.flags.writeable = False
+    writable = np.arange(4, dtype=np.int16)
+    values = {'a': frozen, 'b': writable, 'c': np.int64(7), 'd': 'text',
+              'e': np.array(['x'], dtype=object)}
+    seen = {}
+
+    def func(v):
+        seen.update(v)
+        return dict(v, b=v['b'] * 2)
+
+    out = run_on_cpu_tensors(func, values)
+    assert all(torch.is_tensor(seen[k]) for k in 'abc')
+    assert seen['d'] is values['d'] and seen['e'] is values['e']
+    assert np.shares_memory(seen['b'].numpy(), writable)
+    assert not np.shares_memory(seen['a'].numpy(), frozen)
+    assert all(out[k] is values[k] for k in 'acde')
+    assert isinstance(out['b'], np.ndarray) and out['b'].dtype == np.int16
+    assert out['b'].tolist() == [0, 2, 4, 6]
 
 
 # ---------------------------------------------------------------------------

@@ -281,3 +281,45 @@ def test_arrow_table_serializer_round_trips_a_batch_item():
     s = ArrowTableSerializer()
     assert s.deserialize_multipart(s.serialize_multipart(table)).equals(table)
     assert s.deserialize(s.serialize(None)) is None
+
+
+_SPEC_MODULE = '''
+import torch
+
+
+def triple(values):
+    """A device spec's function, over CPU tensors."""
+    assert torch.is_tensor(values['tokens'])
+    return dict(values, tokens=values['tokens'] * 3 + 1)
+'''
+
+
+@pytest.mark.timeout(180)
+def test_device_spec_without_plans_runs_in_the_worker_interpreters(
+        store, tmp_path, monkeypatch):
+    """With nothing planned (decode off; a row reader), a device spec runs
+    on the process pool's workers over CPU tensors, as JAX runs it on its
+    workers, and gives the thread pool's rows."""
+    from petastorm_tpu_torch.transform import TransformSpec
+    (tmp_path / 'pool_spec_module.py').write_text(_SPEC_MODULE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    import pool_spec_module
+    url, tokens = store
+    monkeypatch.setenv(DEVICE_DECODE_ENV_VAR, 'off')
+    spec = TransformSpec(pool_spec_module.triple, device=True)
+    want = (tokens * 3 + 1).tobytes()
+    for pool in ('process', 'thread'):
+        with make_columnar_reader(url, reader_pool_type=pool,
+                                  workers_count=2,
+                                  transform_spec=spec) as reader:
+            assert reader.device_decode_plans == {}
+            assert reader._device_transform_spec is None   # on the workers
+            batches = [b._asdict() for b in reader]
+        steps = np.concatenate([b['step'] for b in batches])
+        got = np.concatenate([b['tokens'] for b in batches])
+        assert got[np.argsort(steps)].tobytes() == want, pool
+        with make_reader(url, reader_pool_type=pool, workers_count=2,
+                         transform_spec=spec) as reader:
+            rows = sorted(reader, key=lambda r: int(r.step))
+        assert all(isinstance(r.tokens, np.ndarray) for r in rows)
+        assert np.stack([r.tokens for r in rows]).tobytes() == want, pool
