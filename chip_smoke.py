@@ -119,7 +119,27 @@ printing one line or a few:
    ``TransformSpec`` that casts ``tokens`` to int64 (K1-K3 every step),
    and the png image store's reader alone, 2 epochs on 8 worker processes
    against 8 threads;
-14. times: each kernel's time at its path shape beside its bound, its plain
+14. cache and readahead line: ``df -B1 /dev/shm``; the png image store
+   (with an ``idx`` field) read by ``make_columnar_reader`` with the
+   example's resize, 8 thread workers, ``io_readahead='auto'`` and
+   ``cache_type='shared'`` on a fresh root, into 3 epochs of the CNN on K4
+   (a reader each): epoch 1 fills one segment a row group, epochs 2 and 3
+   only hit and give epoch 1's images bit for bit (by ``idx``), then a
+   process-pool reader on the root adds no fill and gives them again
+   (images/s, median step, the step alone, tier-0 and tier-1 bytes). The
+   columnar token store: ``io_readahead`` 0, 2 and ``'auto'`` on 1 and 4
+   thread workers and 2 on the process pool, device decode on, each pass
+   equal to the generator (sorted by ``idx``), one worker's order that of
+   readahead off, rows/s and the workers' readahead hits and misses; the
+   shared cache with device decode on, then off, on one root: 2 x 33
+   fills (raw grids and decoded arrays never serve each other), each
+   second pass all hits, the staged raw grid from a hit; a tier 0 below
+   the pass's raw grids: segments spill to disk and come back, the pass
+   exact; 5 LM steps from the cached grids decoded on the card (K1-K3).
+   The MNIST row line for 2 epochs and an NGram pass twice on a
+   local-disk cache, equal; a shared cache under
+   ``PETASTORM_TPU_SHARED_CACHE=0`` leaves no file;
+15. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -1587,16 +1607,19 @@ def write_token_rows(np, url, rows, seq_len, vocab, seed):
     return tokens
 
 
-def token_pass(torch, np, url, tokens, pool, switch, device, batch):
-    """One epoch of ``make_columnar_reader`` -> ``TorchDataLoader`` ->
-    ``iter_prefetched`` with ``pool`` and the device-decode switch: the
-    reader's plans, what was staged, the rows against the generator, and
-    the pass's rows/s. Returns ``(rows/s, a staged grid, the loader's
-    decode)``."""
+def token_pass(torch, np, url, tokens, pool, switch, device, batch,
+               label='token', workers=TOKEN_WORKERS, **reader_kw):
+    """One epoch of ``make_columnar_reader(**reader_kw)`` (unshuffled) ->
+    ``TorchDataLoader`` -> ``iter_prefetched`` with ``pool``, ``workers``
+    and the device-decode switch: the reader's plans, what was staged, the
+    rows against the generator, and the pass's rows/s. Returns ``{'rate':
+    rows/s, 'grid': a staged grid, 'fused': the loader's decode, 'order':
+    the delivered idx, 'staged': (dtype, shape, device, bytes) a batch,
+    'tallies': the thread workers' readahead (hits, misses) or None}``."""
     from petastorm_tpu_torch import TorchDataLoader, make_columnar_reader
     from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
     os.environ[DEVICE_DECODE_ENV_VAR] = switch
-    label = 'token %s pool, device decode %s' % (pool, switch)
+    label = '%s %s pool, device decode %s' % (label, pool, switch)
     # (dtype, shape, device type) of what the staging handed the decode,
     # and the last grid: keeping every grid alive would make the caching
     # allocator grow through the pass
@@ -1604,8 +1627,8 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch):
     sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
     start = time.perf_counter()
     with make_columnar_reader(url, num_epochs=1, shuffle_row_groups=False,
-                              workers_count=TOKEN_WORKERS,
-                              reader_pool_type=pool) as reader:
+                              workers_count=workers, reader_pool_type=pool,
+                              **reader_kw) as reader:
         opened = time.perf_counter()
         plans = reader.device_decode_plans
         declined = reader.device_decode_declined
@@ -1635,6 +1658,12 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch):
         sync()
         end = time.perf_counter()
         wall = end - opened
+        readaheads = [w.readahead.tallies()
+                      for w in getattr(reader._pool, 'workers', [])
+                      if w.readahead is not None]
+    tallies = (sum(t['readahead_hits'] for t in readaheads),
+               sum(t['readahead_misses'] for t in readaheads)) \
+        if readaheads else None
     rows = sum(len(t) for t in got_tokens)
     check(rows == len(tokens), '%s: %d rows of %d' % (label, rows,
                                                        len(tokens)))
@@ -1657,13 +1686,15 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch):
           '%s: rows differ from the generator' % label)
     log('%s: %d rows in %.3f s, %.0f rows/s (first batch after %.3f s, '
         'then %.0f rows/s; reader opened in %.2f s); staged %d bytes a batch '
-        '(%s); == generator bit for bit'
+        '(%s)%s; == generator bit for bit'
         % (label, rows, wall, rows / wall, first - opened,
            (rows - len(got_tokens[0])) / (end - first), opened - start,
            nbytes,
            'uint8 grid (%d, %d) decoded on %s' % (batch, stride, device)
-           if switch == 'on' else 'decoded int32 tokens'))
-    return rows / wall, last.get('grid'), fused
+           if switch == 'on' else 'decoded int32 tokens',
+           '; readahead hits %d, misses %d' % tallies if tallies else ''))
+    return {'rate': rows / wall, 'grid': last.get('grid'), 'fused': fused,
+            'order': idx, 'staged': staged, 'tallies': tallies}
 
 
 def decode_kernel_us(torch, fused, grid, n):
@@ -1820,11 +1851,11 @@ def token_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
             rates, grid, fused = {}, None, None
             for pool in ('thread', 'process'):
                 for switch in ('on', 'off'):
-                    rate, g, f = token_pass(torch, np, url, tokens, pool,
-                                            switch, device, TOKEN_BATCH)
-                    rates[pool, switch] = rate
-                    if g is not None:
-                        grid, fused = g, f
+                    got = token_pass(torch, np, url, tokens, pool, switch,
+                                     device, TOKEN_BATCH)
+                    rates[pool, switch] = got['rate']
+                    if got['grid'] is not None:
+                        grid, fused = got['grid'], got['fused']
             log('token reader + loader alone, rows/s: %s' % ', '.join(
                 '%s/%s %.0f' % (p, s, r) for (p, s), r in rates.items()))
             if device == 'cuda':
@@ -1918,7 +1949,443 @@ def token_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 # ---------------------------------------------------------------------------
-# phase 14: times
+# phase 14: the cache and readahead line
+# ---------------------------------------------------------------------------
+
+CACHE_EPOCHS = 3                  # image epochs: one fills, two hit
+CACHE_LIMIT = 4 << 30             # tier 1's budget (disk)
+IMAGE_TIER0 = 1 << 30             # tier 0 of the image line, at most
+SPILL_TIER0 = 24 << 20            # tier 0 of the spill passes, at most:
+                                  # a third of a token pass's raw grids
+CACHE_WORKERS = (1, 4)            # thread workers of the readahead passes
+
+
+def shm_free_bytes():
+    """Free bytes of ``/dev/shm``, where tier 0 lives; 0 without one."""
+    try:
+        st = os.statvfs('/dev/shm')
+    except OSError:
+        return 0
+    return st.f_bavail * st.f_frsize
+
+
+def row_groups(path):
+    import pyarrow.parquet as pq
+    return sum(pq.ParquetFile(os.path.join(path, n)).num_row_groups
+               for n in os.listdir(path)
+               if n.endswith('.parquet') and not n.startswith(('_', '.')))
+
+
+class SharedRoots:
+    """The shared-cache roots of the phase, each fresh; :meth:`remove`
+    deletes their tier-0 directories (a root's own directory goes with the
+    phase's temporary directory)."""
+
+    def __init__(self, d):
+        self.d, self.roots = d, []
+
+    def kw(self, name, tier0):
+        """Reader arguments of a fresh root whose tier 0 holds at most
+        ``tier0`` bytes and a quarter of the free ``/dev/shm`` (attached
+        segments stay pinned past the budget, up to 16 an instance)."""
+        root = os.path.join(self.d, name)
+        self.roots.append(root)
+        free = shm_free_bytes()
+        mem = min(tier0, free // 4) if free >= 4 else tier0
+        return root, dict(cache_type='shared', cache_location=root,
+                          cache_size_limit=CACHE_LIMIT,
+                          cache_extra_settings={'mem_size_limit_bytes': mem})
+
+    @staticmethod
+    def counters(root):
+        from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+        return SharedRowGroupCache.global_counters(root)
+
+    @staticmethod
+    def tier_bytes(root, kw):
+        """``(tier 0, tier 1)`` bytes held under ``root``."""
+        from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+        cache = SharedRowGroupCache(root, CACHE_LIMIT,
+                                    **kw['cache_extra_settings'])
+        try:
+            return cache.tier_bytes()
+        finally:
+            cache.close()
+
+    def remove(self):
+        """Delete the tier-0 directories of the roots made so far."""
+        import shutil
+        from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+        for root in self.roots:
+            shutil.rmtree(SharedRowGroupCache._default_mem_dir(
+                os.path.abspath(root)), ignore_errors=True)
+        self.roots = []
+
+
+def write_indexed_images(np, url, rows, seed):
+    """The image line's png rows (256 synthetic 375 x 500 images) under the
+    ImageNet schema with an ``idx`` field, in row groups of about 8 MB."""
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.examples.imagenet.generate_imagenet import \
+        synthetic_rows
+    from petastorm_tpu_torch.examples.imagenet.schema import \
+        make_imagenet_schema
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('ImagenetIdx', list(
+        make_imagenet_schema('png').fields.values()) + [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False)])
+    with materialize_dataset(url, schema, row_group_size_mb=8) as w:
+        w.write_rows(dict(row, idx=np.int64(i)) for i, row in enumerate(
+            synthetic_rows(rows, classes=IMAGE_CLASSES, seed=seed)))
+
+
+def cached_image_line(torch, np, kernels, args, d, roots, device, rows,
+                      batch, size, workers):
+    """The png image line on a shared cache: ``CACHE_EPOCHS`` epochs of the
+    CNN, a reader each on one fresh root, ``io_readahead='auto'``; epoch 1
+    fills a segment a row group, the later epochs only hit and give epoch
+    1's images bit for bit (by ``idx``); then a process-pool reader on the
+    root adds no fill and gives the same images. Returns the launch counts
+    of the CNN steps."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    path = os.path.join(d, 'images_idx')
+    url = 'file://' + path
+    start = time.perf_counter()
+    write_indexed_images(np, url, rows, args.seed)
+    groups = row_groups(path)
+    log('cache image store %d png rows (+ idx) in %d row groups, written '
+        'in %.2f s' % (rows, groups, time.perf_counter() - start))
+    resize = make_resize_transform(size)
+    spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                         selected_fields=['idx', 'image', 'label'])
+    root, kw = roots.kw('image_cache', IMAGE_TIER0)
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    ref = torch.zeros((rows, size, size, 3), dtype=torch.uint8,
+                      device=device)
+    steps = 0
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for epoch in range(1, CACHE_EPOCHS + 1):
+        times, seen = [], []
+        with make_columnar_reader(url, num_epochs=1, workers_count=workers,
+                                  seed=args.seed + epoch,
+                                  transform_spec=spec, io_readahead='auto',
+                                  **kw) as reader:
+            loader = TorchDataLoader(reader, batch_size=batch, device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for b in iter(lambda: next(batches, None), None):
+                    t1 = time.perf_counter()
+                    loss = float(step(b['image'], b['label']))
+                    t2 = time.perf_counter()
+                    times.append((t1, t2))
+                    idx = b['idx']
+                    if epoch == 1:
+                        ref[idx] = b['image']
+                    else:
+                        check(torch.equal(b['image'], ref[idx]),
+                              'cache image epoch %d: images differ from '
+                              "epoch 1's" % epoch)
+                    seen.append(idx.cpu())
+                    steps += 1
+        check(math.isfinite(loss), 'cache image: non-finite loss')
+        seen = torch.cat(seen).numpy()
+        check(np.array_equal(np.sort(seen), np.arange(rows)),
+              'cache image epoch %d: %d images, not each once'
+              % (epoch, len(seen)))
+        c = roots.counters(root)
+        want_hits = groups * (epoch - 1)
+        check(c.get('fills') == groups and c.get('hits') == want_hits,
+              'cache image epoch %d: fills %s, hits %s (want %d, %d)'
+              % (epoch, c.get('fills'), c.get('hits'), groups, want_hits))
+        # a step's time: from the end of the previous step (the batch wait
+        # included) to its loss on the host
+        step_s = [t2 - t1 for t1, t2 in times]
+        whole = [b - a for (_, a), (_, b) in zip(times, times[1:])]
+        log('cache image epoch %d: %d images, %d steps, median step %.2f ms '
+            '(with the batch wait %s ms), %.0f images/s over the steps '
+            'after the first; fills %d, hits %d'
+            % (epoch, len(seen), len(times), statistics.median(step_s) * 1e3,
+               '%.2f' % (statistics.median(whole) * 1e3) if whole else 'n/a',
+               batch * len(whole) / sum(whole) if whole else float('nan'),
+               c['fills'], c['hits']))
+    launches = dict(kernels.LAUNCHES)
+    if device == 'cuda':
+        check(launches['normalize'] == steps,
+              'K4 launched %d times in %d cached image steps'
+              % (launches['normalize'], steps))
+    # the step alone, on a batch on the card with the reader gone
+    images, labels = ref[:batch], torch.arange(batch, device=device) % \
+        IMAGE_CLASSES
+    alone = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        float(step(images, labels))
+        alone.append(time.perf_counter() - t0)
+    host_ref = ref.cpu().numpy()
+    start = time.perf_counter()
+    n = 0
+    with make_columnar_reader(url, num_epochs=1, workers_count=workers,
+                              reader_pool_type='process', transform_spec=spec,
+                              io_readahead='auto', **kw) as reader:
+        for b in reader:
+            check(np.array_equal(b.image, host_ref[b.idx]),
+                  'cache image process pool: images differ from epoch 1')
+            n += len(b.idx)
+    c = roots.counters(root)
+    check(n == rows and c['fills'] == groups
+          and c['hits'] == groups * CACHE_EPOCHS,
+          'cache image process pool: %d images, fills %d, hits %d'
+          % (n, c['fills'], c['hits']))
+    tier0, tier1 = roots.tier_bytes(root, kw)
+    log('cache image: step alone %.2f ms; process-pool reader (%d '
+        'workers) %d images == epoch 1, %.2f s, fills +0; tier 0 %d bytes, '
+        'tier 1 %d bytes (tier-0 budget %d)'
+        % (statistics.median(alone[1:]) * 1e3, workers, n,
+           time.perf_counter() - start, tier0, tier1,
+           kw['cache_extra_settings']['mem_size_limit_bytes']))
+    return launches
+
+
+def cached_token_line(torch, np, tlm, kernels, args, d, roots, device, cfg,
+                      rows, steps):
+    """The columnar token store read ahead and through the shared cache:
+    readahead passes; the two representations (raw grids, decoded arrays)
+    on one root; a tier 0 below the working set (spill and promotion); 5
+    LM steps from the cached raw grids decoded on the card. Returns the
+    launch counts of the LM steps and the store's url and tokens."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader)
+    seq = cfg.max_seq_len + 1
+    path = os.path.join(d, 'token_rows')
+    url = 'file://' + path
+    tokens = write_token_rows(np, url, rows, seq, cfg.vocab_size, args.seed)
+    groups = row_groups(path)
+    log('cache token store %d rows x %d int32 in %d row groups'
+        % (rows, seq, groups))
+    passes = {}
+    for workers in CACHE_WORKERS:
+        for depth in (0, 2, 'auto'):
+            passes[workers, depth] = token_pass(
+                torch, np, url, tokens, 'thread', 'on', device, TOKEN_BATCH,
+                'cache token %d workers, io_readahead=%r,' % (workers, depth),
+                workers, io_readahead=depth)
+    for depth in (2, 'auto'):
+        one = passes[1, depth]
+        check(np.array_equal(one['order'], passes[1, 0]['order'])
+              and one['tallies'] == (groups, 0),
+              'cache token 1 worker, io_readahead=%r: order or tallies %s'
+              % (depth, one['tallies']))
+    for workers in CACHE_WORKERS[1:]:
+        check(passes[workers, 2]['tallies'][0] > 0,
+              'cache token %d workers: no readahead hit' % workers)
+    passes['process', 2] = token_pass(
+        torch, np, url, tokens, 'process', 'on', device, TOKEN_BATCH,
+        'cache token io_readahead=2,', io_readahead=2)
+    log('cache token rows/s: %s' % ', '.join(
+        '%s/%r %.0f' % (w, r, p['rate']) for (w, r), p in passes.items()))
+
+    # raw grids (decode on) and decoded arrays (off) on one root
+    root, kw = roots.kw('token_cache', CACHE_LIMIT)
+    stride = None
+    for switch in ('on', 'off'):
+        for label in ('fill', 'hit'):
+            before = roots.counters(root)
+            got = token_pass(
+                torch, np, url, tokens, 'thread', switch, device, TOKEN_BATCH,
+                'cache token shared, %s pass,' % label, io_readahead=2, **kw)
+            after = roots.counters(root)
+            fills = after.get('fills', 0) - before.get('fills', 0)
+            hits = after.get('hits', 0) - before.get('hits', 0)
+            check((fills, hits) == ((groups, 0) if label == 'fill'
+                                    else (0, groups)),
+                  'cache token decode %s %s pass: fills %d, hits %d'
+                  % (switch, label, fills, hits))
+            if switch == 'on':      # token_pass checked each staged grid
+                stride = got['staged'][0][1][1]
+    c = roots.counters(root)
+    check(c['fills'] == 2 * groups,
+          'cache token: fills %d over both representations, not %d'
+          % (c['fills'], 2 * groups))
+    log('cache token shared: fills %d = 2 x %d row groups (raw grids and '
+        'decoded arrays never serve each other), hits %d; the staged grid '
+        '(%d, %s) uint8 came from a hit; tier 0 %d, tier 1 %d bytes'
+        % (c['fills'], groups, c['hits'], TOKEN_BATCH, stride,
+           *roots.tier_bytes(root, kw)))
+
+    # tier 0 below the working set: segments spill to disk, come back
+    # (one worker: two would race a promotion against a spill of the same
+    # segment, which may fill it again; the count gates below are exact)
+    spill_root, spill_kw = roots.kw('spill_cache', SPILL_TIER0)
+    for label in ('fill', 'hit'):
+        token_pass(torch, np, url, tokens, 'thread', 'on', device,
+                   TOKEN_BATCH, 'cache token spill, %s pass,' % label, 1,
+                   io_readahead=2, **spill_kw)
+    c = roots.counters(spill_root)
+    check(c['fills'] == groups and c['hits'] == groups and c['spills'] > 0,
+          'cache token spill: %r' % c)
+    log('cache token spill: tier 0 of %d bytes; fills %d, hits %d, spills '
+        '%d, evictions %d; tier 0 %d, tier 1 %d bytes'
+        % (spill_kw['cache_extra_settings']['mem_size_limit_bytes'],
+           c['fills'], c['hits'], c['spills'], c['evictions'],
+           *roots.tier_bytes(spill_root, spill_kw)))
+
+    # the LM from the cached raw grids, decoded on the card (the spill
+    # passes left device decode on)
+    spec = TransformSpec(
+        lambda cols: dict(cols, tokens=cols['tokens'].to(torch.int64)),
+        edit_fields=[('tokens', np.int64, (seq,), False)], device=True)
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device=device)
+    _, step = tlm.make_train_step(cfg, params)
+    losses = []
+    fills = roots.counters(root)['fills']
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with make_columnar_reader(url, num_epochs=None, workers_count=TOKEN_WORKERS,
+                              transform_spec=spec, io_readahead=2,
+                              seed=args.seed, **kw) as reader:
+        loader = TorchDataLoader(reader, batch_size=TOKEN_BATCH,
+                                 drop_last=True, device=device)
+        batches = loader.iter_prefetched()
+        with contextlib.closing(batches):
+            for i in range(steps):
+                t0 = time.perf_counter()
+                b = next(batches)['tokens']
+                check(b.device.type == device and b.dtype == torch.int64
+                      and tuple(b.shape) == (TOKEN_BATCH, seq),
+                      'cache token LM batch %s %s' % (b.dtype,
+                                                      tuple(b.shape)))
+                losses.append(float(loader.goodput.fence(
+                    step(b[:, :-1], b[:, 1:]))))
+                log('cache token LM step %d loss %.6f time %.2f ms'
+                    % (i, losses[-1], (time.perf_counter() - t0) * 1e3))
+        launches = dict(kernels.LAUNCHES)
+    check(all(math.isfinite(x) for x in losses), 'cache token LM: non-finite')
+    check(roots.counters(root)['fills'] == fills,
+          'cache token LM: its batches were not all hits')
+    log('cache token LM %d steps from cached raw grids decoded on %s: loss '
+        '%.4f -> %.4f, launches %s' % (len(losses), device, losses[0],
+                                       losses[-1], json.dumps(launches)))
+    return launches, url, tokens
+
+
+def local_cache_and_kill_switch(torch, np, args, d, roots, token_url, tokens,
+                                mnist_rows):
+    """The MNIST row line for 2 epochs on a local-disk cache (``'rowgroup'``
+    payloads), an NGram pass twice (``'ngram_cols'``), and a shared-cache
+    pass under the kill switch, which leaves no file."""
+    from petastorm_tpu_torch import make_columnar_reader, make_reader
+    from petastorm_tpu_torch.examples.mnist.main import \
+        generate_synthetic_mnist
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.sharedcache import (SHARED_CACHE_ENV_VAR,
+                                                 SharedRowGroupCache)
+    url = 'file://' + os.path.join(d, 'mnist')
+    generate_synthetic_mnist(url, n=mnist_rows, seed=args.seed)
+    local = dict(cache_type='local-disk', cache_size_limit=CACHE_LIMIT)
+    start = time.perf_counter()
+    epochs = []
+    with make_reader(url, workers_count=4, seed=args.seed,
+                     cache_location=os.path.join(d, 'mnist_cache'),
+                     **local) as reader:
+        for epoch in range(2):
+            if epoch:
+                reader.reset()
+            epochs.append({int(r.idx): (int(r.digit), r.image.tobytes())
+                           for r in reader})
+    check(len(epochs[0]) == mnist_rows and epochs[0] == epochs[1],
+          'cache MNIST: epoch 2 differs from epoch 1')
+    log('cache MNIST row line, local-disk: 2 epochs of %d rows, epoch 2 == '
+        'epoch 1, %.2f s' % (mnist_rows, time.perf_counter() - start))
+    start = time.perf_counter()
+    passes = []
+    with make_reader(token_url, schema_fields=NGram({0: ['idx', 'tokens'],
+                                                     1: ['idx']}, 1, 'idx'),
+                     workers_count=4, seed=args.seed,
+                     cache_location=os.path.join(d, 'ngram_cache'),
+                     **local) as reader:
+        for i in range(2):
+            if i:
+                reader.reset()
+            got = {}
+            for chunk in reader.iter_ngram_chunks():
+                cols = chunk.columns
+                for s in chunk.starts:
+                    got[int(cols['idx'][s])] = cols['tokens'][s].tobytes()
+            passes.append(got)
+    check(passes[0] == passes[1] and len(passes[0]) > 0 and all(
+        v == tokens[k].tobytes() for k, v in passes[0].items()),
+        'cache NGram: the second pass differs')
+    log('cache NGram, local-disk: %d windows twice, equal, %.2f s'
+        % (len(passes[0]), time.perf_counter() - start))
+    killed = os.path.join(d, 'killed_cache')
+    saved = os.environ.get(SHARED_CACHE_ENV_VAR)
+    os.environ[SHARED_CACHE_ENV_VAR] = '0'
+    try:
+        with make_columnar_reader(token_url, num_epochs=1, workers_count=4,
+                                  cache_type='shared', cache_location=killed,
+                                  cache_size_limit=CACHE_LIMIT) as reader:
+            n = sum(len(b.idx) for b in reader)
+    finally:
+        if saved is None:
+            os.environ.pop(SHARED_CACHE_ENV_VAR, None)
+        else:
+            os.environ[SHARED_CACHE_ENV_VAR] = saved
+    check(n == len(tokens) and not os.path.exists(killed)
+          and not os.path.exists(SharedRowGroupCache._default_mem_dir(
+              os.path.abspath(killed))),
+          'cache kill switch: %d rows, files left' % n)
+    log('cache kill switch %s=0: %d rows read uncached, no file under the '
+        'root or in /dev/shm' % (SHARED_CACHE_ENV_VAR, n))
+
+
+def cache_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+               image_rows=IMAGE_ROWS, image_batch=IMAGE_BATCH,
+               image_size=IMAGE_SIZE, rows=TOKEN_ROWS, steps=TOKEN_STEPS,
+               mnist_rows=MNIST_ROWS):
+    """Phase 14: readahead and the row-group caches. Returns the launch
+    counts of the cached image steps (K4) and of the LM steps (K1-K3)."""
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    df = subprocess.run(['df', '-B1', '/dev/shm'], capture_output=True,
+                        text=True, timeout=60)
+    log('cache /dev/shm: %s' % ' | '.join(
+        line.strip() for line in (df.stdout or df.stderr).splitlines()))
+    saved = os.environ.get(DEVICE_DECODE_ENV_VAR)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        roots = SharedRoots(d)
+        try:
+            image = cached_image_line(torch, np, kernels, args, d, roots,
+                                      device, image_rows, image_batch,
+                                      image_size, IMAGE_WORKERS)
+            roots.remove()
+            lm, token_url, tokens = cached_token_line(
+                torch, np, tlm, kernels, args, d, roots, device, cfg, rows,
+                steps)
+            roots.remove()
+            local_cache_and_kill_switch(torch, np, args, d, roots, token_url,
+                                        tokens, mnist_rows)
+        finally:
+            roots.remove()
+            if saved is None:
+                os.environ.pop(DEVICE_DECODE_ENV_VAR, None)
+            else:
+                os.environ[DEVICE_DECODE_ENV_VAR] = saved
+    return image, lm
+
+
+# ---------------------------------------------------------------------------
+# phase 15: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -2160,6 +2627,17 @@ def main(argv=None):
     for name in FLASH:
         launches[name] += token[name]
     log('phase columnar token line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    cached_image, cached_lm = cache_line(torch, np, tlm, kernels, args)
+    check(all(cached_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the cached token LM: %r' % cached_lm)
+    check(cached_image['normalize'] > 0,
+          'K4 was not launched on the cached image line')
+    for name in FLASH:
+        launches[name] += cached_lm[name]
+    launches['normalize'] += cached_image['normalize']
+    log('phase cache and readahead line %.1f s'
+        % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -37,16 +37,24 @@ reader yields one of five kinds of item:
   arrays per row group of any Parquet store, as arrow stores them
   (``batched_output``), after an optional pandas transform.
 
-Not ported yet (each raises ``NotImplementedError``): caches; readahead;
-lineage, health, tracing and autotune; resilience; remote object stores;
-JAX-process and elastic sharding.
+Each pool worker reads through its own
+:class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorker`: a cache of
+open Parquet files, ``io_readahead`` (a background thread that reads the
+worker's next row groups while it decodes the current one) and the
+row-group cache of ``cache_type`` (:func:`_make_cache` :81-113).
+
+Not ported yet (each raises ``NotImplementedError``): lineage, health,
+tracing and autotune; resilience; remote object stores; JAX-process and
+elastic sharding.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import logging
 
+from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
 from petastorm_tpu_torch.codecs import build_decode_overrides
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
@@ -62,10 +70,15 @@ from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops.decode import decode_raw_host, plan_device_decode
 from petastorm_tpu_torch.predicates import in_reduce
 from petastorm_tpu_torch.readers.batch_worker import (BatchResultsReader,
-                                                      load_batch_item)
-from petastorm_tpu_torch.readers.columnar_worker import (load_columnar,
-                                                         load_window_chunk)
-from petastorm_tpu_torch.readers.row_worker import load_row_item
+                                                      load_batch_item,
+                                                      plan_batch)
+from petastorm_tpu_torch.readers.columnar_worker import (
+    load_columnar, load_window_chunk, plan_columnar, plan_window_chunk,
+    transform_fingerprint)
+from petastorm_tpu_torch.readers.piece_worker import (PieceWorkerSpec,
+                                                      cache_key_format)
+from petastorm_tpu_torch.readers.readahead import AUTO_MAX_DEPTH
+from petastorm_tpu_torch.readers.row_worker import load_row_item, plan_rows
 from petastorm_tpu_torch.transform import (apply_columnar_transform,
                                            transform_schema)
 from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
@@ -77,12 +90,11 @@ from petastorm_tpu_torch.workers.serializers import (ArrowTableSerializer,
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      ThreadPool, WorkItem)
 
+logger = logging.getLogger(__name__)
+
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('caches', ('cache_type', 'cache_location', 'cache_size_limit',
-                'cache_row_size_estimate', 'cache_extra_settings')),
-    ('readahead', ('io_readahead',)),
     ('lineage and quarantine', ('on_decode_error',)),
     ('tracing and health', ('trace', 'metrics_interval', 'metrics_out',
                             'debug_port', 'stall_timeout',
@@ -104,6 +116,54 @@ def _refuse_unported(factory, options):
         raise NotImplementedError(
             '{}({}=...) is not ported to petastorm_tpu_torch yet; it comes '
             'with the {} slice'.format(factory, name, _UNPORTED[name]))
+
+
+def _validate_io_readahead(io_readahead):
+    """``io_readahead`` normalised: 0 (None or 0: off), a positive int (a
+    fixed depth a worker), or ``'auto'`` (sized from the worker's live
+    read-to-decode ratio)."""
+    if io_readahead in (None, 0):
+        return 0
+    if io_readahead == 'auto':
+        return 'auto'
+    if isinstance(io_readahead, int) and io_readahead > 0:
+        return io_readahead
+    raise ValueError("io_readahead must be a non-negative int or 'auto', got "
+                     '{!r}'.format(io_readahead))
+
+
+#: ``cache_type`` of every factory: no cache, a pickle-on-disk cache of one
+#: reader, or the host-wide tiered cache of decoded row groups.
+CACHE_TYPES = ('null', 'local-disk', 'shared')
+
+
+def _make_cache(cache_type, cache_location, cache_size_limit,
+                cache_row_size_estimate, cache_extra_settings):
+    if cache_type in (None, 'null'):
+        return NullCache()
+    if cache_type == 'local-disk':
+        if not cache_location or not cache_size_limit:
+            raise ValueError("cache_type='local-disk' needs cache_location and "
+                             'cache_size_limit')
+        return LocalDiskCache(cache_location, cache_size_limit,
+                              cache_row_size_estimate or 0,
+                              **(cache_extra_settings or {}))
+    if cache_type == 'shared':
+        if not cache_location or not cache_size_limit:
+            raise ValueError("cache_type='shared' needs cache_location and "
+                             'cache_size_limit')
+        from petastorm_tpu_torch.sharedcache import (SharedRowGroupCache,
+                                                     shared_cache_enabled)
+        if not shared_cache_enabled():
+            # the kill switch: no attachment, no files, no shared state
+            logger.warning(
+                "cache_type='shared' disabled via %s=0; reads are uncached",
+                'PETASTORM_TPU_SHARED_CACHE')
+            return NullCache()
+        return SharedRowGroupCache(cache_location, cache_size_limit,
+                                   **(cache_extra_settings or {}))
+    raise ValueError('cache_type must be one of {}; got {!r}'.format(
+        ', '.join(repr(t) for t in CACHE_TYPES), cache_type))
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size,
@@ -174,7 +234,10 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 rowgroup_selector=None, cur_shard=None, shard_count=None,
                 shuffle_row_drop_partitions=1, decode_hints=None,
                 reader_pool_type='thread', results_queue_size=50,
-                zmq_copy_buffers=True, profiling_enabled=False, **unported):
+                zmq_copy_buffers=True, profiling_enabled=False,
+                cache_type='null', cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None, cache_extra_settings=None,
+                io_readahead=0, **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -205,10 +268,28 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     and dill; ``results_queue_size`` is the results socket's high-water
     mark; arrays arrive as views of the received frames, read-only unless
     ``zmq_copy_buffers=False``) or ``'dummy'`` (each item on the consumer's
-    thread)."""
+    thread).
+
+    ``io_readahead=K`` gives each worker a background thread that reads the
+    row groups of its next K items while it decodes the current one;
+    ``'auto'`` sizes K from the worker's live read-to-decode ratio. The
+    dummy pool turns it off (it hints no upcoming items).
+
+    ``cache_type``: ``'null'`` (no cache), ``'local-disk'`` (decoded row
+    groups pickled under ``cache_location``, at most ``cache_size_limit``
+    bytes) or ``'shared'`` (the host-wide tiered cache of
+    :mod:`~petastorm_tpu_torch.sharedcache` rooted at ``cache_location``:
+    every reader and worker process on the host that names it reads and
+    decodes a row group once; its hits are **read-only** views over shared
+    memory). ``cache_extra_settings`` go to the cache's constructor (e.g.
+    ``{'mem_size_limit_bytes': ...}``, tier 0's budget). A cache with a
+    ``predicate`` raises ``RuntimeError``. ``PETASTORM_TPU_SHARED_CACHE=0``
+    turns ``'shared'`` off."""
     _refuse_unported('make_reader', unported)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        cache_row_size_estimate, cache_extra_settings)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
                       profiling_enabled)
@@ -219,7 +300,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  decode_hints=decode_hints)
+                  decode_hints=decode_hints, cache=cache,
+                  io_readahead=io_readahead)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -229,20 +311,28 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          shard_count=None, shuffle_row_drop_partitions=1,
                          decode_hints=None, reader_pool_type='thread',
                          results_queue_size=50, zmq_copy_buffers=True,
-                         profiling_enabled=False, **unported):
+                         profiling_enabled=False, cache_type='null',
+                         cache_location=None, cache_size_limit=None,
+                         cache_row_size_estimate=None,
+                         cache_extra_settings=None, io_readahead=0,
+                         **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
     workers; a ``device=True`` spec receives a dict of tensors instead: after
     the device decode when the reader plans one (see :class:`Reader`), else
     on the workers as CPU tensors. Selection,
-    ``decode_hints`` and the pool as in :func:`make_reader`; NGram is not
+    ``decode_hints``, the pool, readahead and the cache as in
+    :func:`make_reader`; a whole row group's columns are cached after the
+    transform, so a hit skips the decode and the transform. NGram is not
     supported."""
     _refuse_unported('make_columnar_reader', unported)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
     path = _single_path('make_columnar_reader', dataset_url)
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        cache_row_size_estimate, cache_extra_settings)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
                       profiling_enabled)
@@ -253,7 +343,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   filters=filters, rowgroup_selector=rowgroup_selector,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                  decode_hints=decode_hints)
+                  decode_hints=decode_hints, cache=cache,
+                  io_readahead=io_readahead)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -262,7 +353,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       filters=None, workers_count=10,
                       reader_pool_type='thread', results_queue_size=50,
                       zmq_copy_buffers=True, profiling_enabled=False,
-                      **unported):
+                      cache_type='null', cache_location=None,
+                      cache_size_limit=None, cache_row_size_estimate=None,
+                      cache_extra_settings=None, io_readahead=0, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -272,9 +365,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     NaN, a fixed-shape list column is ``(n, *shape)``.
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
-    ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, and the
-    pool, as in :func:`make_reader` (a process pool sends each row group's
-    table as one Arrow IPC stream)."""
+    ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
+    readahead and the cache as in :func:`make_reader` (a process pool sends
+    each row group's table as one Arrow IPC stream; the shared cache keeps
+    it as one)."""
     _refuse_unported('make_batch_reader', unported)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
@@ -282,6 +376,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
         raise ValueError('make_batch_reader schema_fields must be a list of '
                          'regex strings (UnischemaField selection and NGram '
                          'are row-reader features)')
+    cache = _make_cache(cache_type, cache_location, cache_size_limit,
+                        cache_row_size_estimate, cache_extra_settings)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ArrowTableSerializer(), zmq_copy_buffers,
                       profiling_enabled)
@@ -290,7 +386,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, cur_shard=cur_shard,
-                  shard_count=shard_count)
+                  shard_count=shard_count, cache=cache,
+                  io_readahead=io_readahead)
 
 
 def _view(stored, schema_fields):
@@ -337,7 +434,14 @@ class Reader:
                  num_epochs, shuffle_row_groups, seed,
                  transform_spec=None, predicate=None, filters=None,
                  rowgroup_selector=None, cur_shard=None, shard_count=None,
-                 shuffle_row_drop_partitions=1, decode_hints=None):
+                 shuffle_row_drop_partitions=1, decode_hints=None,
+                 cache=None, io_readahead=0):
+        cache = cache if cache is not None else NullCache()
+        if predicate is not None and not isinstance(cache, NullCache):
+            raise RuntimeError('Local cache is not supported together with '
+                               'predicates (cached row groups would bypass '
+                               'predicate evaluation)')
+        io_readahead = _validate_io_readahead(io_readahead)
         if num_epochs is not None and num_epochs < 1:
             raise ValueError('num_epochs must be >= 1 or None')
         if shuffle_row_drop_partitions < 1:
@@ -426,26 +530,51 @@ class Reader:
             transform_spec = None
         self._device_decode_deferred = False
         if self.ngram_chunked:
-            process = functools.partial(load_window_chunk, schema=stored,
-                                        ngram=ngram, overrides=overrides)
+            load = functools.partial(load_window_chunk, schema=stored,
+                                     ngram=ngram, overrides=overrides)
+            plan = functools.partial(plan_window_chunk, schema=stored,
+                                     ngram=ngram)
         elif mode == 'batch':
             self._batches = BatchResultsReader(self.schema)
-            process = functools.partial(
+            load = functools.partial(
                 load_batch_item, schema=view, full_schema=stored,
                 transform_spec=transform_spec,
                 transformed_schema=self.schema)
+            plan = functools.partial(plan_batch, schema=view)
         elif mode == 'columnar':
-            process = functools.partial(
+            transform_key = (transform_fingerprint(transform_spec)
+                             if transform_spec is not None else None)
+            load = functools.partial(
                 load_columnar, schema=stored, names=names,
                 transform_spec=transform_spec,
                 transformed_schema=self.schema, overrides=overrides,
-                plans=self.device_decode_plans)
+                plans=self.device_decode_plans, transform_key=transform_key)
+            plan = functools.partial(plan_columnar, schema=stored,
+                                     names=names, transform_key=transform_key)
         else:
-            process = functools.partial(
+            load = functools.partial(
                 load_row_item, schema=stored, names=names,
                 transform_spec=transform_spec,
                 transformed_schema=self.schema, ngram=ngram,
                 overrides=overrides)
+            plan = functools.partial(plan_rows, schema=stored, names=names)
+        if io_readahead and not getattr(pool, 'supports_prefetch_hints',
+                                        False):
+            # a pool that hints nothing would count every read a miss
+            logger.debug('io_readahead disabled: %s does not hint workers '
+                         'about upcoming items', type(pool).__name__)
+            io_readahead = 0
+        # each worker holds its current item and up to `lookahead` more:
+        # the in-flight bound widens by every worker's lookahead
+        bound = {}
+        if io_readahead:
+            lookahead = (AUTO_MAX_DEPTH if io_readahead == 'auto'
+                         else io_readahead)
+            bound['max_in_flight'] = pool.workers_count * (2 + lookahead)
+        process = PieceWorkerSpec(
+            load, plan, cache, io_readahead,
+            cache_key_format(dataset_path, view.fields, decode_hints,
+                             self.device_decode_plans))
 
         items = []
         for piece in pieces:
@@ -465,7 +594,7 @@ class Reader:
         self.last_row_consumed = False
         self._pool = pool
         self._pool.start(process, items, num_epochs=num_epochs,
-                         shuffle=shuffle_row_groups, seed=seed)
+                         shuffle=shuffle_row_groups, seed=seed, **bound)
 
     def _filter_row_groups(self, pieces, predicate, rowgroup_selector,
                            filters, cur_shard, shard_count):

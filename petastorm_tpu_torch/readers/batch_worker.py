@@ -15,20 +15,22 @@ fixes them at 1.
 ``TransformSpec.func`` receives a pandas DataFrame; a cell that is a numpy
 array of more than one dimension is checked against the transformed
 field's shape and raveled (arrow has no ndarray columns). pandas is
-imported by ``pa.Table.to_pandas`` only when a transform runs.
+imported by ``pa.Table.to_pandas`` only when a transform runs. A
+no-predicate item caches its table, before the transform, under the key
+``'batch'`` (:75).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
 
 from petastorm_tpu_torch.codecs import list_column_to_numpy
 from petastorm_tpu_torch.readers.columnar_worker import (
-    make_partition_columns, read_row_group,
-    stored_columns, validate_predicate_fields)
+    make_partition_columns, stored_columns, validate_predicate_fields)
+from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS
 from petastorm_tpu_torch.unischema import Unischema
 
 
@@ -64,19 +66,25 @@ def _append_partition_columns(table: pa.Table, piece, full_schema: Unischema,
     return table
 
 
-def _load_table(piece, schema: Unischema, full_schema: Unischema) -> pa.Table:
-    table = read_row_group(piece, stored_columns(list(schema.fields), piece))
+def plan_batch(item, schema: Unischema) -> Tuple[str, List[str]]:
+    """``(cache key prefix, columns read)`` of :func:`load_batch_item`."""
+    return 'batch', stored_columns(list(schema.fields), item.piece)
+
+
+def _load_table(piece, schema: Unischema, full_schema: Unischema,
+                io) -> pa.Table:
+    table = io.read(piece, stored_columns(list(schema.fields), piece))
     return _append_partition_columns(table, piece, full_schema, schema.fields)
 
 
 def _load_table_with_predicate(piece, schema: Unischema,
                                full_schema: Unischema,
-                               predicate) -> Optional[pa.Table]:
+                               predicate, io) -> Optional[pa.Table]:
     """Read the predicate's columns, keep the rows it includes (one
     ``do_include`` per row on Python values), then read only the other
     columns and take those rows of both."""
     fields = validate_predicate_fields(predicate, full_schema)
-    pred_stored = read_row_group(piece, stored_columns(fields, piece))
+    pred_stored = io.read(piece, stored_columns(fields, piece))
     pred_table = _append_partition_columns(pred_stored, piece, full_schema,
                                            set(fields))
     values = {name: pred_table.column(name).to_pylist() for name in fields}
@@ -88,7 +96,7 @@ def _load_table_with_predicate(piece, schema: Unischema,
     other = [n for n in schema.fields if n not in set(fields)]
     other_stored = stored_columns(other, piece)
     if other_stored:
-        rest = read_row_group(piece, other_stored)
+        rest = io.read(piece, other_stored)
         for name in rest.column_names:
             combined = combined.append_column(name, rest.column(name))
     combined = _append_partition_columns(combined, piece, full_schema,
@@ -99,16 +107,17 @@ def _load_table_with_predicate(piece, schema: Unischema,
 
 def load_batch_item(item, schema: Unischema, full_schema: Unischema,
                     transform_spec=None,
-                    transformed_schema: Optional[Unischema] = None
-                    ) -> Optional[pa.Table]:
+                    transformed_schema: Optional[Unischema] = None,
+                    io=PLAIN_READS) -> Optional[pa.Table]:
     """One work item as an arrow table: the row group's columns of
     ``schema`` (the reader's view), its rows kept by the item's predicate,
     then ``transform_spec``. None when no row is left."""
     if item.predicate is not None:
         table = _load_table_with_predicate(item.piece, schema, full_schema,
-                                           item.predicate)
+                                           item.predicate, io)
     else:
-        table = _load_table(item.piece, schema, full_schema)
+        table = io.cached('batch', item.piece, lambda: _load_table(
+            item.piece, schema, full_schema, io))
     if table is None or table.num_rows == 0:
         return None
     if transform_spec is not None:

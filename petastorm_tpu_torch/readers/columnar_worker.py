@@ -14,6 +14,17 @@ codec, or cell by cell through a decode hint's override
 (``readers/piece_worker.py`` ``_decode_table`` :541-545); hive partition
 columns are made from the piece's directory values.
 
+Each load reads through its ``io`` argument, the worker's read layer
+(:class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorker`: its file
+handles, readahead and cache; a fresh handle a read and no cache when none
+is given). A no-predicate columnar item caches its columns under the key
+``'columnar'``; a whole-group item with a transform caches them after the
+transform under ``'columnar_tx:<fingerprint>'`` (``columnar_worker.py``
+:402-510), so a hit skips the decode and the transform; an NGram window
+chunk caches its decoded columns under ``'ngram_cols'``
+(``row_worker.py:239``). :func:`transform_fingerprint` (:352) names a
+transform in its key.
+
 Columns with a device-decode plan (``ops/decode.py``) are not decoded: each
 travels as its raw ``(n, stride)`` uint8 grid, repacked from a host decode
 where a chunk does not match the plan (``readers/piece_worker.py``
@@ -28,16 +39,17 @@ instead (``keep_none``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import hashlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import pyarrow as pa
-import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.codecs import ScalarCodec, decode_cells
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
 from petastorm_tpu_torch.ngram import NGram, NGramWindowChunk
 from petastorm_tpu_torch.ops.decode import raw_column_view, repack_to_raw
+from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS
 from petastorm_tpu_torch.transform import (TransformSpec,
                                            apply_columnar_transform)
 from petastorm_tpu_torch.unischema import Unischema
@@ -99,11 +111,6 @@ def stored_columns(names: List[str], piece: RowGroupPiece) -> List[str]:
     return [n for n in names if n not in keys]
 
 
-def read_row_group(piece: RowGroupPiece, columns: List[str]) -> pa.Table:
-    return pq.ParquetFile(piece.path).read_row_group(piece.row_group,
-                                                     columns=columns)
-
-
 def make_partition_columns(schema: Unischema, piece: RowGroupPiece, n: int,
                            names) -> Dict[str, np.ndarray]:
     """Columns of the piece's constant hive partition values for the keys
@@ -123,14 +130,20 @@ def make_partition_columns(schema: Unischema, piece: RowGroupPiece, n: int,
     return out
 
 
+def read_columns(piece: RowGroupPiece, schema: Unischema,
+                 names: List[str]) -> List[str]:
+    """The columns :func:`load_columns` reads for ``names``."""
+    return stored_columns([n for n in names if n in schema.fields], piece)
+
+
 def load_columns(piece: RowGroupPiece, schema: Unischema, names: List[str],
-                 keep_none: bool = False, overrides=None, plans=None
-                 ) -> Dict[str, np.ndarray]:
+                 keep_none: bool = False, overrides=None, plans=None,
+                 io=PLAIN_READS) -> Dict[str, np.ndarray]:
     """The row group's columns ``names`` (those ``schema`` declares),
     decoded (raw where ``plans`` has a plan), with partition columns made
     for the partition keys among them."""
     names = [n for n in names if n in schema.fields]
-    table = read_row_group(piece, stored_columns(names, piece))
+    table = io.read(piece, stored_columns(names, piece))
     columns = decode_columns(table, schema, keep_none, overrides, plans)
     columns.update(make_partition_columns(schema, piece, table.num_rows,
                                           set(names)))
@@ -164,11 +177,12 @@ def predicate_row_mask(predicate, fields, cols, n: int) -> np.ndarray:
 
 def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
                         names: List[str], predicate, keep_none: bool = False,
-                        overrides=None) -> Optional[Dict[str, np.ndarray]]:
+                        overrides=None, io=PLAIN_READS
+                        ) -> Optional[Dict[str, np.ndarray]]:
     """Decode the predicate's columns first, then the other columns
     ``names`` only at the rows it keeps; None when it keeps none."""
     fields = validate_predicate_fields(predicate, schema)
-    pred_table = read_row_group(piece, stored_columns(fields, piece))
+    pred_table = io.read(piece, stored_columns(fields, piece))
     n = pred_table.num_rows
     pred_cols = decode_columns(pred_table, schema, keep_none, overrides)
     pred_cols.update(make_partition_columns(schema, piece, n, set(fields)))
@@ -180,7 +194,7 @@ def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
     other = [f for f in names if f not in set(fields)]
     other_stored = stored_columns(other, piece)
     if other_stored:
-        rest = read_row_group(piece, other_stored).take(pa.array(idx))
+        rest = io.read(piece, other_stored).take(pa.array(idx))
         out.update(decode_columns(rest, schema, keep_none, overrides))
     out.update(make_partition_columns(schema, piece, len(idx), set(other)))
     return out
@@ -196,14 +210,23 @@ def drop_partition_bounds(n: int, partition: int, num_partitions: int,
                                        n)
 
 
+def plan_window_chunk(item, schema: Unischema, ngram: NGram
+                      ) -> Tuple[str, List[str]]:
+    """``(cache key prefix, columns read)`` of :func:`load_window_chunk`."""
+    return 'ngram_cols', read_columns(item.piece, schema,
+                                      ngram.get_all_field_names())
+
+
 def load_window_chunk(item, schema: Unischema, ngram: NGram,
-                      overrides=None) -> Optional[NGramWindowChunk]:
+                      overrides=None, io=PLAIN_READS
+                      ) -> Optional[NGramWindowChunk]:
     """All valid windows of one work item's row group, or of its row-drop
     partition: a slice of the rows in file order, extended by ``length -
     1`` rows so that the windows across its end survive, taken before the
     timestamp sort. None when no window is valid."""
-    columns = load_columns(item.piece, schema, ngram.get_all_field_names(),
-                           overrides=overrides)
+    columns = io.cached('ngram_cols', item.piece, lambda: load_columns(
+        item.piece, schema, ngram.get_all_field_names(), overrides=overrides,
+        io=io))
     partition, num_partitions = item.drop_partition
     if num_partitions > 1:
         n = len(next(iter(columns.values()))) if columns else 0
@@ -215,25 +238,61 @@ def load_window_chunk(item, schema: Unischema, ngram: NGram,
     return ngram.form_windows_columnar(columns)
 
 
+def columnar_cache_prefix(item, transform_key: Optional[str]) -> str:
+    """The payload a no-predicate columnar item caches: its columns after
+    the transform when it has one and reads the whole group, else its
+    decoded columns."""
+    if transform_key is not None and item.drop_partition[1] == 1:
+        return 'columnar_tx:' + transform_key
+    return 'columnar'
+
+
+def plan_columnar(item, schema: Unischema, names: List[str],
+                  transform_key: Optional[str] = None
+                  ) -> Tuple[str, List[str]]:
+    """``(cache key prefix, columns read)`` of :func:`load_columnar`."""
+    return (columnar_cache_prefix(item, transform_key),
+            read_columns(item.piece, schema, names))
+
+
+def _row_count(columns) -> int:
+    return len(next(iter(columns.values()))) if columns else 0
+
+
 def load_columnar(item, schema: Unischema, names: List[str],
                   transform_spec: Optional[TransformSpec] = None,
                   transformed_schema: Optional[Unischema] = None,
-                  overrides=None, plans=None
-                  ) -> Optional[Dict[str, np.ndarray]]:
+                  overrides=None, plans=None, transform_key=None,
+                  io=PLAIN_READS) -> Optional[Dict[str, np.ndarray]]:
     """One work item as a dict of decoded column arrays: the row group,
     its rows kept by the item's predicate, its row-drop partition, then
     ``transform_spec`` (its ``func`` sees the whole dict; the result keeps
     the transformed schema's fields). Columns planned in ``plans`` stay
     raw grids (the reader plans none under a predicate or a host
-    transform). None when no row is left."""
+    transform). ``transform_key`` is the transform's
+    :func:`transform_fingerprint`. None when no row is left."""
     partition, num_partitions = item.drop_partition
+    if item.predicate is None and transform_spec is not None \
+            and num_partitions == 1:
+        def transformed():
+            columns = load_columns(item.piece, schema, names,
+                                   overrides=overrides, plans=plans, io=io)
+            if not _row_count(columns):
+                return columns
+            return apply_columnar_transform(transform_spec,
+                                            transformed_schema, columns)
+        columns = io.cached(columnar_cache_prefix(item, transform_key),
+                            item.piece, transformed)
+        return columns if _row_count(columns) else None
     if item.predicate is not None:
         columns = load_with_predicate(item.piece, schema, names,
-                                      item.predicate, overrides=overrides)
+                                      item.predicate, overrides=overrides,
+                                      io=io)
     else:
-        columns = load_columns(item.piece, schema, names,
-                               overrides=overrides, plans=plans)
-    n = len(next(iter(columns.values()))) if columns else 0
+        columns = io.cached('columnar', item.piece, lambda: load_columns(
+            item.piece, schema, names, overrides=overrides, plans=plans,
+            io=io))
+    n = _row_count(columns)
     if not n:
         return None
     if num_partitions > 1:
@@ -244,6 +303,66 @@ def load_columnar(item, schema: Unischema, names: List[str],
     if transform_spec is not None:
         columns = apply_columnar_transform(transform_spec,
                                            transformed_schema, columns)
-    if not columns or not len(next(iter(columns.values()))):
+    if not _row_count(columns):
         return None
     return columns
+
+
+def _code_digest(code) -> str:
+    """A code object's bytecode and constants (an edit of ``x*2`` to
+    ``x*3`` changes only the constants), nested code objects by their own
+    digest (their repr holds addresses)."""
+    parts = [code.co_code.hex()]
+    for const in code.co_consts:
+        if hasattr(const, 'co_code'):
+            parts.append(_code_digest(const))
+        else:
+            parts.append(repr(const))
+    return '|'.join(parts)
+
+
+def _stable_value_digest(value) -> str:
+    """A value's identity, never truncated: an ndarray by the md5 of its
+    bytes (``repr`` elides the middle of large arrays), through lists,
+    tuples and dicts; anything else by ``repr``."""
+    if isinstance(value, np.ndarray):
+        h = hashlib.md5(np.ascontiguousarray(value).tobytes())
+        return 'ndarray:{}:{}:{}'.format(value.dtype, value.shape,
+                                         h.hexdigest())
+    if isinstance(value, (list, tuple)):
+        return '{}[{}]'.format(type(value).__name__,
+                               ','.join(_stable_value_digest(v)
+                                        for v in value))
+    if isinstance(value, dict):
+        return 'dict{{{}}}'.format(','.join(
+            '{}:{}'.format(repr(k), _stable_value_digest(v))
+            for k, v in sorted(value.items(), key=lambda kv: repr(kv[0]))))
+    return repr(value)
+
+
+def transform_fingerprint(spec: TransformSpec) -> str:
+    """The identity of a transform in cache keys, as JAX's: the function's
+    module, qualified name, code (bytecode, constants, defaults, closure
+    values) and the spec's field edits. A closure over a mutable object
+    whose repr does not change is not seen: name a fresh
+    ``cache_location`` when such state changes."""
+    func = spec.func
+    parts = []
+    if func is not None:
+        code = getattr(func, '__code__', None)
+        kwdefaults = getattr(func, '__kwdefaults__', None) or {}
+        parts.extend([getattr(func, '__module__', ''),
+                      getattr(func, '__qualname__', repr(func)),
+                      _code_digest(code) if code is not None else '',
+                      '|'.join(_stable_value_digest(v) for v in
+                               (getattr(func, '__defaults__', None) or ())),
+                      '|'.join('{}={}'.format(k, _stable_value_digest(v))
+                               for k, v in sorted(kwdefaults.items()))])
+        closure = getattr(func, '__closure__', None) or ()
+        parts.extend(_stable_value_digest(getattr(cell, 'cell_contents', None))
+                     for cell in closure)
+    parts.append(repr([(f.name, str(f.numpy_dtype), f.shape)
+                       for f in (spec.edit_fields or [])]))
+    parts.append(repr(sorted(spec.removed_fields or [])))
+    parts.append(repr(sorted(spec.selected_fields or [])))
+    return hashlib.md5('|'.join(parts).encode()).hexdigest()[:16]

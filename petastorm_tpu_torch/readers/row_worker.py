@@ -17,12 +17,13 @@ override.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.readers.columnar_worker import (
-    drop_partition_bounds, load_columns, load_with_predicate)
+    drop_partition_bounds, load_columns, load_with_predicate, read_columns)
+from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS
 from petastorm_tpu_torch.transform import TransformSpec, apply_row_transform
 from petastorm_tpu_torch.unischema import Unischema
 
@@ -36,17 +37,23 @@ def _split_rows(columns: Optional[Dict], names: List[str]) -> List[Dict]:
 
 
 def load_rows(piece: RowGroupPiece, schema: Unischema, names: List[str],
-              overrides=None) -> List[Dict]:
+              overrides=None, io=PLAIN_READS) -> List[Dict]:
     """The row group as row dicts, decoded column-wise and then split."""
     return _split_rows(load_columns(piece, schema, names, keep_none=True,
-                                    overrides=overrides), names)
+                                    overrides=overrides, io=io), names)
+
+
+def plan_rows(item, schema: Unischema, names: List[str]
+              ) -> Tuple[str, List[str]]:
+    """``(cache key prefix, columns read)`` of :func:`load_row_item`."""
+    return 'rowgroup', read_columns(item.piece, schema, names)
 
 
 def load_row_item(item, schema: Unischema, names: List[str],
                   transform_spec: Optional[TransformSpec] = None,
                   transformed_schema: Optional[Unischema] = None,
-                  ngram: Optional[NGram] = None, overrides=None
-                  ) -> List[Dict]:
+                  ngram: Optional[NGram] = None, overrides=None,
+                  io=PLAIN_READS) -> List[Dict]:
     """One work item as row dicts: the row group, its rows kept by the
     item's predicate, its row-drop partition, then ``transform_spec`` row
     by row (the result keeps the transformed schema's fields). With
@@ -56,9 +63,11 @@ def load_row_item(item, schema: Unischema, names: List[str],
         rows = _split_rows(load_with_predicate(item.piece, schema, names,
                                                item.predicate,
                                                keep_none=True,
-                                               overrides=overrides), names)
+                                               overrides=overrides, io=io),
+                           names)
     else:
-        rows = load_rows(item.piece, schema, names, overrides)
+        rows = io.cached('rowgroup', item.piece, lambda: load_rows(
+            item.piece, schema, names, overrides, io))
     partition, num_partitions = item.drop_partition
     if num_partitions > 1:
         lo, hi = drop_partition_bounds(

@@ -224,19 +224,23 @@ def _map(batch, fn):
 
 def _to_tensor(value, pin: bool):
     """numpy numeric/bool column → torch tensor (pinned when ``pin``);
-    other columns (strings, ragged objects) stay numpy."""
-    if isinstance(value, np.ndarray) and value.dtype.kind in 'biuf':
+    other columns (strings, ragged objects) stay numpy, copied when
+    read-only. A read-only column is a view of memory the loader does not
+    own (an arrow buffer, a received frame, a shared-cache mapping): it is
+    copied, so no tensor over it can be written to and no cached batch
+    keeps a shared-cache mapping alive."""
+    if not isinstance(value, np.ndarray):
+        return value
+    if value.dtype.kind in 'biuf':
         if pin:             # one copy, straight into pinned memory
             t = torch.empty(value.shape, pin_memory=True,
                             dtype=torch.from_numpy(
                                 np.empty(0, value.dtype)).dtype)
             np.copyto(t.numpy(), value)
             return t
-        # a read-only column (a zero-copy arrow view) is copied: a tensor
-        # over it could be written to
         return torch.from_numpy(np.ascontiguousarray(value)
                                 if value.flags.writeable else np.array(value))
-    return value
+    return value if value.flags.writeable else np.array(value)
 
 
 def _take_rows(col, pos):

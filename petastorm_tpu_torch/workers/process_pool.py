@@ -25,6 +25,14 @@ items, ...)``, ``get_results()``, ``reset()``, ``stop()``, ``join()``.
   ``zmq_copy_buffers=True``; writable over memoryviews of the ZMQ frames,
   which keep their messages alive, under ``False``.
 
+Each worker interpreter makes its worker once (``process.make_worker()``
+for a reader's :class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorkerSpec`,
+else ``process`` itself) and shuts it down at the end. PUSH hands items out
+round robin when it sends them, so what a worker's socket holds is already
+its own: a worker with a ``prefetch_lookahead`` drains up to that many more
+items into its own FIFO without waiting and is hinted the whole FIFO, the
+current item first, before each item (JAX :965-1035).
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
 no GPU and import neither torch nor jax. Resize (autotune), recovery
 (resilience), heartbeats (health), the lineage envelope and the stats
@@ -39,10 +47,13 @@ import subprocess
 import threading
 import time
 import traceback
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
 
+from petastorm_tpu_torch.readers.piece_worker import (make_worker,
+                                                      shutdown_worker)
 from petastorm_tpu_torch.workers.exec_in_new_process import \
     exec_in_new_process
 from petastorm_tpu_torch.workers.serializers import (ZeroCopySerializer,
@@ -87,6 +98,10 @@ class ProcessPool:
     """Ventilates work items into ``workers_count`` worker interpreters and
     hands their results to one consumer thread."""
 
+    #: workers are hinted their upcoming items: a reader may turn on
+    #: ``io_readahead``
+    supports_prefetch_hints = True
+
     def __init__(self, workers_count: int, serializer=None,
                  zmq_copy_buffers: bool = True,
                  results_queue_size: int = 50):
@@ -114,10 +129,16 @@ class ProcessPool:
         self._stopped = False
         self._terminated = 0
 
+    @property
+    def workers_count(self) -> int:
+        return self._workers_count
+
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
-              shuffle: bool = True, seed=None) -> None:
+              shuffle: bool = True, seed=None,
+              max_in_flight: Optional[int] = None) -> None:
         """Start the workers, each running ``process(item)``, wait until all
-        reported in, then ventilate ``items``."""
+        reported in, then ventilate ``items``, at most ``max_in_flight``
+        (default twice the workers) not yet processed."""
         if self._processes:
             raise RuntimeError('pool already started')
         zmq = self._zmq
@@ -155,7 +176,8 @@ class ProcessPool:
             if control == _STARTED:
                 started += 1
 
-        self._slots = threading.Semaphore(2 * self._workers_count)
+        self._slots = threading.Semaphore(max_in_flight
+                                          or 2 * self._workers_count)
         self._job = (list(items), shuffle, np.random.default_rng(seed))
         self._launch(num_epochs)
 
@@ -318,6 +340,8 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
                      name='petastorm-torch-parent-monitor').start()
 
     serializer = as_multipart(serializer)
+    worker = make_worker(process)
+    hint = getattr(worker, 'prefetch_hint', None)
     context = zmq.Context()
     work_receiver = context.socket(zmq.PULL)
     work_receiver.connect(work_addr)
@@ -348,23 +372,36 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
     poller = zmq.Poller()
     poller.register(work_receiver, zmq.POLLIN)
     poller.register(control_receiver, zmq.POLLIN)
+    pending = deque()
     try:
         while True:
-            socks = dict(poller.poll())
+            # wait only when there is nothing to process
+            socks = dict(poller.poll(None if not pending else 0))
             if control_receiver in socks:
                 if control_receiver.recv_pyobj() == _FINISHED:
-                    break
+                    break       # pending items are dropped: the pool stops
             if work_receiver in socks:
-                item = work_receiver.recv_pyobj()
-                try:
-                    result = process(item)
-                except Exception as e:     # shipped to the consumer
-                    send_error(e)
-                else:
-                    if result is not None:
-                        send(serializer.serialize_multipart(result), _DATA)
-                send([b''], _ITEM_DONE)
+                while len(pending) - 1 < getattr(worker, 'prefetch_lookahead',
+                                                 0):
+                    try:
+                        pending.append(work_receiver.recv_pyobj(zmq.NOBLOCK))
+                    except zmq.Again:
+                        break
+            if not pending:
+                continue
+            if hint is not None:
+                hint(list(pending))
+            item = pending.popleft()
+            try:
+                result = worker(item)
+            except Exception as e:     # shipped to the consumer
+                send_error(e)
+            else:
+                if result is not None:
+                    send(serializer.serialize_multipart(result), _DATA)
+            send([b''], _ITEM_DONE)
     finally:
+        shutdown_worker(worker)
         send([b''], _TERMINATED)
         for sock in (work_receiver, control_receiver, results_sender):
             sock.close(linger=1000)

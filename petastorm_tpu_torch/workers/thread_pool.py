@@ -5,9 +5,17 @@ A small copy of ``petastorm_tpu/workers/thread_pool.py`` and
 :class:`WorkItem` per row-group piece and row-drop partition, as the JAX
 reader ventilates them, ``reader.py:646-663``) into the pool for ``num_epochs`` epochs (None = forever), reshuffling the
 item order each epoch from one ``np.random.default_rng(seed)``, with at most
-``max_in_flight`` items outstanding. Workers run ``process(item)`` and
-publish results; a worker exception is re-raised in the consumer by
-:meth:`ThreadPool.get_results`. With ``profiling_enabled`` each worker
+``max_in_flight`` items outstanding. Each thread makes its worker once,
+``process.make_worker()`` for a reader's
+:class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorkerSpec` (else
+``process`` itself), runs it on each item and publishes the results; a
+worker exception is re-raised in the consumer by
+:meth:`ThreadPool.get_results`. A worker with a ``prefetch_lookahead``
+takes up to that many more items off the queue without waiting and is
+hinted the whole pending FIFO, the current item first
+(``prefetch_hint``), before each item (JAX ``thread_pool.py:66-135``):
+its readahead reads the next row groups while it decodes this one, and
+with one worker the items keep their ventilation order. With ``profiling_enabled`` each worker
 thread runs under its own ``cProfile`` and :meth:`ThreadPool.join` logs
 the aggregate (JAX ``thread_pool.py:58-64, 613-620``). Once every result
 is consumed,
@@ -25,9 +33,13 @@ import logging
 import pstats
 import queue
 import threading
+from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from petastorm_tpu_torch.readers.piece_worker import (make_worker,
+                                                      shutdown_worker)
 
 logger = logging.getLogger(__name__)
 
@@ -67,6 +79,10 @@ def ventilation_order(items: List, num_epochs: Optional[int], shuffle: bool,
 
 
 class ThreadPool:
+    #: workers are hinted their upcoming items: a reader may turn on
+    #: ``io_readahead``
+    supports_prefetch_hints = True
+
     def __init__(self, workers_count: int, results_queue_size: int = 50,
                  profiling_enabled: bool = False):
         if workers_count < 1:
@@ -78,6 +94,8 @@ class ThreadPool:
         self._items: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+        #: each thread's worker, made at start and kept across resets
+        self.workers: List = []
         self._slots: Optional[threading.Semaphore] = None
         self._ventilator: Optional[threading.Thread] = None
         self._workers_done = 0
@@ -91,14 +109,19 @@ class ThreadPool:
             raise RuntimeError('pool already started')
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
-        self._job = (process, list(items), shuffle,
-                     np.random.default_rng(seed))
+        self._job = (list(items), shuffle, np.random.default_rng(seed))
+        self.workers = [make_worker(process)
+                        for _ in range(self._workers_count)]
         self._launch(num_epochs)
 
+    @property
+    def workers_count(self) -> int:
+        return self._workers_count
+
     def _launch(self, num_epochs):
-        process, items, shuffle, rng = self._job
-        for i in range(self._workers_count):
-            t = threading.Thread(target=self._work, args=(process,),
+        items, shuffle, rng = self._job
+        for i, worker in enumerate(self.workers):
+            t = threading.Thread(target=self._work, args=(worker,),
                                  name='petastorm-torch-worker-%d' % i,
                                  daemon=True)
             t.start()
@@ -141,7 +164,7 @@ class ThreadPool:
                 continue
         return False
 
-    def _work(self, process):
+    def _work(self, worker):
         profiler = cProfile.Profile() if self._profiling_enabled else None
         if profiler is not None:
             try:
@@ -151,20 +174,40 @@ class ThreadPool:
                 # every thread: this worker is profiled by another's
                 profiler = None
         try:
-            self._serve(process)
+            self._serve(worker)
         finally:
             if profiler is not None:
                 profiler.disable()
                 self._profiles.append(profiler)   # list.append is atomic
 
-    def _serve(self, process):
+    def _serve(self, worker):
+        hint = getattr(worker, 'prefetch_hint', None)
+        pending = deque()
+        ventilated = False        # this worker has seen the end marker
         while not self._stop.is_set():
-            item = self._items.get()
-            if item is _DONE:
-                self._publish(_DONE)
-                return
+            if not pending:
+                item = self._items.get()
+                if item is _DONE:
+                    self._publish(_DONE)
+                    return
+                pending.append(item)
+            while (not ventilated and len(pending) - 1
+                   < getattr(worker, 'prefetch_lookahead', 0)):
+                try:
+                    extra = self._items.get_nowait()
+                except queue.Empty:
+                    break
+                if extra is _DONE:
+                    # every item is out: leave the marker for the next get
+                    self._items.put(_DONE)
+                    ventilated = True
+                    break
+                pending.append(extra)
+            if hint is not None:
+                hint(list(pending))
+            item = pending.popleft()
             try:
-                result = process(item)
+                result = worker(item)
             except Exception as e:     # re-raised in the consumer
                 self._publish(('error', e))
                 return
@@ -210,6 +253,9 @@ class ThreadPool:
         alive = [t.name for t in threads if t.is_alive()]
         if alive:
             raise TimeoutError('pool threads still running: %s' % alive)
+        workers, self.workers = self.workers, []
+        for worker in workers:
+            shutdown_worker(worker)
         if self._profiles:
             stats = pstats.Stats(self._profiles[0])
             for p in self._profiles[1:]:

@@ -323,3 +323,47 @@ def test_device_spec_without_plans_runs_in_the_worker_interpreters(
             rows = sorted(reader, key=lambda r: int(r.step))
         assert all(isinstance(r.tokens, np.ndarray) for r in rows)
         assert np.stack([r.tokens for r in rows]).tobytes() == want, pool
+
+
+_PROBE_MODULE = '''
+import sys
+
+
+def probe(columns):
+    """Fails in an interpreter that holds torch, jax or the JAX package."""
+    bad = sorted(m for m in sys.modules
+                 if m.split('.')[0] in ('torch', 'jax', 'petastorm_tpu'))
+    if bad:
+        raise RuntimeError('worker imported %s' % bad)
+    return columns
+'''
+
+
+@pytest.mark.timeout(180)
+def test_worker_reading_through_a_shared_cache_with_readahead_imports_no_torch(
+        store, tmp_path, monkeypatch):
+    """A process-pool worker that reads ahead, fills the shared cache (pass
+    1) and attaches its segments (pass 2) still holds no torch, jax or JAX
+    package: a transform run after the cached load on every item checks."""
+    from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+    from petastorm_tpu_torch.transform import TransformSpec
+    (tmp_path / 'pool_probe_module.py').write_text(_PROBE_MODULE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    import pool_probe_module
+    url, tokens = store
+    root = str(tmp_path / 'cache')
+    for _ in range(2):
+        with make_columnar_reader(
+                url, reader_pool_type='process', workers_count=2,
+                io_readahead=2, shuffle_row_drop_partitions=2,
+                transform_spec=TransformSpec(pool_probe_module.probe),
+                cache_type='shared', cache_location=root,
+                cache_size_limit=1 << 26,
+                cache_extra_settings={'mem_dir': str(tmp_path / 'mem')}
+                ) as reader:
+            steps = sorted(int(s) for b in reader for s in b.step)
+        assert steps == list(range(ROWS))
+    totals = SharedRowGroupCache.global_counters(root)
+    assert totals['fills'] == ROWS // 8
+    assert totals['hits'] == 3 * ROWS // 8     # 2 items a group, 2 passes
+

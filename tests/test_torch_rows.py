@@ -159,8 +159,8 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    with pytest.raises(NotImplementedError, match='cache_type'):
-        make_batch_reader(url, cache_type='local-disk')
+    with pytest.raises(NotImplementedError, match='on_decode_error'):
+        make_batch_reader(url, on_decode_error='skip')
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
