@@ -6,7 +6,9 @@ read-only views, attachment from a second instance and from a pickled copy,
 arrow tables, ``contains`` and events, a truncated segment refilled, an
 idempotent ``close``; spill to disk and promotion, a pinned segment kept,
 the pins of a dead pid and of a killed process expired; single flight
-across threads and processes and a stale lock stolen; the kill switch;
+across threads and processes and a stale lock stolen; many more worker
+threads than cores on one root under a short switch interval; the kill
+switch;
 ``LocalDiskCache`` eviction as JAX's. Readers: every factory takes every
 ``cache_type`` and gives the uncached rows; ``_make_cache``'s and the
 predicate's errors are JAX's words; a root filled by one package serves
@@ -244,6 +246,7 @@ def test_pinned_segment_survives_pressure(tmp_path):
     assert held['a'][0] == 0
 
 
+@pytest.mark.timeout(120)
 def test_a_dead_pid_s_pin_expires(tmp_path):
     pins = _PinRegistry(str(tmp_path / 'pins'))
     marker = tmp_path / 'pins' / '{}.{}.deadbeef.pin'.format(_digest('k'),
@@ -331,6 +334,7 @@ def test_single_flight_across_processes(tmp_path):
     assert totals['fills'] == 1 and totals['hits'] == 1
 
 
+@pytest.mark.timeout(120)
 def test_a_stale_lock_of_a_dead_process_is_stolen(tmp_path):
     cache = _mk(tmp_path)
     lock = tmp_path / 'root' / 'locks' / (_digest('k') + '.lock')
@@ -575,3 +579,29 @@ def test_the_loader_copies_every_read_only_hit_column(tmp_path):
         out = out.numpy() if torch.is_tensor(out) else out
         assert out.flags.writeable and not np.shares_memory(out, hit[name])
         np.testing.assert_array_equal(out, value[name])
+
+
+@pytest.mark.timeout(120)
+def test_many_threads_fill_each_group_once_under_a_short_switch(store,
+                                                               tmp_path):
+    """More worker threads than cores, reading ahead, on one shared root
+    with a short GIL switch interval, two items a row group (row-drop
+    partitions: both want the same key at once): each row group is
+    filled once, every other load hits, and both passes give the uncached
+    values (a lost update of the counters, a second fill or a torn segment
+    would show)."""
+    want = _values(petastorm_tpu_torch, 'columnar', store)
+    kw = dict(_cache_kw(tmp_path, 'shared'), workers_count=2 * (
+        os.cpu_count() or 4) + 1, io_readahead=2,
+        shuffle_row_drop_partitions=2)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        passes = [_values(petastorm_tpu_torch, 'columnar', store, **kw)
+                  for _ in range(2)]
+    finally:
+        sys.setswitchinterval(interval)
+    assert passes[0] == passes[1] == want
+    totals = SharedRowGroupCache.global_counters(str(tmp_path / 'shared'))
+    assert totals['fills'] == ROWS // 8
+    assert totals['hits'] == 3 * ROWS // 8 and totals['misses'] == ROWS // 8
