@@ -37,6 +37,8 @@ printing one line or a few:
    ``attention='flash'``), with each kernel's launch count over those steps
    and each step's goodput split (the loader's monitor, the step fenced on
    a CUDA event) beside the consumer's own (batch wait, dispatch, fence);
+   the reader reads one epoch, its batches hold no ``'_provenance'`` (NGram
+   windows span rows), and its coverage audit is complete;
 6. image main path: a png ``CompressedImageCodec`` store of 256 synthetic
    variable-size images (375 x 500, each side +-20%), trained on by the
    example's ``train()`` on the card: ``make_columnar_reader`` with the
@@ -139,7 +141,25 @@ printing one line or a few:
    The MNIST row line for 2 epochs and an NGram pass twice on a
    local-disk cache, equal; a shared cache under
    ``PETASTORM_TPU_SHARED_CACHE=0`` leaves no file;
-15. times: each kernel's time at its path shape beside its bound, its plain
+15. lineage line: the indexed png store with 3 ``image`` cells overwritten
+   with garbage in 2 row groups. ``on_decode_error='raise'`` raises,
+   ``'skip'`` gives the 253 other rows and no record; under
+   ``'quarantine'`` on 8 threads and on 8 worker processes, the resize ->
+   ``TorchDataLoader`` (shuffling) -> ``prefetch_to_device`` -> CNN steps on
+   K4 (batch 64): the 253 clean rows once, quarantine records naming the 3
+   cells (stage ``decode``, field ``image``, path, row group, row
+   offsets), a complete coverage audit, each staged row resolved through
+   its ``'_provenance'`` to the (file, row group, offset) whose ``idx`` it
+   holds, and ``reader.replay`` of a shuffled batch bit-equal to it; the
+   step against the step alone. Then the columnar token store with
+   ``PETASTORM_TPU_LINEAGE`` on and off on the thread and the process pool,
+   2 passes each (device decode planned, each pass == the generator, each
+   audit complete; rows/s and their on / off ratio); under
+   ``'quarantine'`` device decode declines with the JAX package's reason
+   and a pass decodes on the host; 5 LM steps on K1-K3 from lineage-on
+   batches, and ``goodput.explain_step`` naming a source row group. The
+   card's name and power limit stand beside each number;
+16. times: each kernel's time at its path shape beside its bound, its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -431,7 +451,7 @@ def main_path(torch, np, tlm, kernels, args):
         losses, times, splits = [], [], []
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        with make_reader(url, schema_fields=ngram, num_epochs=None,
+        with make_reader(url, schema_fields=ngram, num_epochs=1,
                          workers_count=4, seed=args.seed) as reader:
             loader = TorchDataLoader(reader, batch_size=BATCH,
                                      drop_last=True, device='cuda')
@@ -446,6 +466,8 @@ def main_path(torch, np, tlm, kernels, args):
                     tokens = batch[0]['tokens']
                     nxt = batch[1]['tokens'][:, 0]
                     targets = torch.cat([tokens[:, 1:], nxt[:, None]], 1)
+                    check('_provenance' not in batch,
+                          'an NGram batch holds provenance')
                     check(tokens.is_cuda and tuple(tokens.shape)
                           == (BATCH, cfg.max_seq_len),
                           'batch tokens %s on %s'
@@ -471,6 +493,14 @@ def main_path(torch, np, tlm, kernels, args):
                         nxt = batch[1]['tokens'][:, :1]
                         step(tokens, torch.cat([tokens[:, 1:], nxt], 1))
                     profile_steps(torch, run_step, 2, 'flash', 'LM')
+            # the epoch's items the loader did not take, read and dropped:
+            # then every item was delivered once and the audit is complete
+            rest = sum(1 for _ in reader.iter_ngram_chunks())
+            report = reader.audit().assert_complete()
+    epoch = report['epochs'][0]
+    log('LM reader audit complete: %d items, %d windows delivered in epoch '
+        '0 (%d items read after the steps); no batch held _provenance'
+        % (epoch['items_delivered'], epoch['rows_delivered'], rest))
     log_goodput(goodput, 'LM')
     check(all(math.isfinite(x) for x in losses), 'non-finite loss')
     check(all(launches[k] > 0 for k in FLASH),
@@ -921,7 +951,8 @@ def legacy_line(torch, np, device='cuda'):
                     for j, i in enumerate(b['id'].tolist()):
                         check(i not in got, 'legacy %s: id %d twice'
                               % (name, i))
-                        got[i] = {k: v[j] for k, v in b.items()}
+                        got[i] = {k: v[j] for k, v in b.items()
+                                  if k != '_provenance'}
         check(sorted(got) == list(range(LEGACY_ROWS)),
               'legacy %s: ids %s' % (name, sorted(got)))
         for i, row in got.items():
@@ -1608,11 +1639,14 @@ def write_token_rows(np, url, rows, seq_len, vocab, seed):
 
 
 def token_pass(torch, np, url, tokens, pool, switch, device, batch,
-               label='token', workers=TOKEN_WORKERS, **reader_kw):
+               label='token', workers=TOKEN_WORKERS, audit=False,
+               **reader_kw):
     """One epoch of ``make_columnar_reader(**reader_kw)`` (unshuffled) ->
     ``TorchDataLoader`` -> ``iter_prefetched`` with ``pool``, ``workers``
     and the device-decode switch: the reader's plans, what was staged, the
-    rows against the generator, and the pass's rows/s. Returns ``{'rate':
+    rows against the generator, and the pass's rows/s. With ``audit``, each
+    batch holds ``'_provenance'`` exactly when the reader's lineage is on,
+    and then the pass's coverage audit is complete. Returns ``{'rate':
     rows/s, 'grid': a staged grid, 'fused': the loader's decode, 'order':
     the delivered idx, 'staged': (dtype, shape, device, bytes) a batch,
     'tallies': the thread workers' readahead (hits, misses) or None}``."""
@@ -1649,6 +1683,10 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
             loader._fused = spy
         got_tokens, got_idx, nbytes = [], [], 0
         for b in loader.iter_prefetched():
+            if audit:
+                check(('_provenance' in b) == reader.lineage.enabled,
+                      '%s: provenance %s with lineage %s'
+                      % (label, '_provenance' in b, reader.lineage.enabled))
             if not got_tokens:
                 first = time.perf_counter()
                 nbytes = (staged[0][3] if staged else b['tokens'].nbytes) \
@@ -1661,6 +1699,10 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
         readaheads = [w.readahead.tallies()
                       for w in getattr(reader._pool, 'workers', [])
                       if w.readahead is not None]
+        if audit and reader.lineage.enabled:
+            report = reader.audit().assert_complete()
+            check(report['epochs'][0]['rows_delivered'] == len(tokens),
+                  '%s: audit %s' % (label, report['epochs'][0]))
     tallies = (sum(t['readahead_hits'] for t in readaheads),
                sum(t['readahead_misses'] for t in readaheads)) \
         if readaheads else None
@@ -2385,7 +2427,363 @@ def cache_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 # ---------------------------------------------------------------------------
-# phase 15: times
+# phase 15: the lineage line (provenance, audit, replay, quarantine)
+# ---------------------------------------------------------------------------
+
+#: (row group, row) of the png store's cells overwritten with garbage
+LINEAGE_POISON = ((1, 2), (1, 5), (4, 0))
+LINEAGE_PASSES = 2                # token passes a pool and lineage setting
+#: JAX's device-decode decline under a quarantine policy, word for word
+LINEAGE_DECLINE = ('on_decode_error quarantines per-cell codec failures, '
+                   'which only the host decode can observe')
+#: the card's name and power limit, printed beside every number of the
+#: phase (set from ``nvidia-smi`` by main)
+CARD = 'no card'
+
+
+def corrupt_cells(path, field, targets):
+    """Garbage bytes in ``field`` at each ``(row group, row)`` of
+    ``targets`` of the one-file store at ``path``, its row groups kept as
+    they were. Returns ``{(file, row group, row): idx}`` of those rows."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    (name,) = [os.path.join(path, n) for n in os.listdir(path)
+               if n.endswith('.parquet')]
+    pf = pq.ParquetFile(name)
+    groups = [pf.read_row_group(rg) for rg in range(pf.num_row_groups)]
+    schema = pf.schema_arrow
+    pf.close()
+    poisoned = {}
+    with pq.ParquetWriter(name, schema) as writer:
+        for rg, table in enumerate(groups):
+            rows = [row for g, row in targets if g == rg]
+            if rows:
+                cells = table.column(field).to_pylist()
+                for row in rows:
+                    cells[row] = b'garbage-not-an-encoded-image'
+                    poisoned[name, rg, row] = table.column('idx')[row].as_py()
+                table = table.set_column(
+                    table.column_names.index(field), schema.field(field),
+                    pa.array(cells, type=schema.field(field).type))
+            writer.write_table(table)
+    return poisoned
+
+
+def source_idx(path):
+    """``{(file, row group): idx array in file order}`` of a store."""
+    import pyarrow.parquet as pq
+    out = {}
+    for n in sorted(os.listdir(path)):
+        if n.endswith('.parquet'):
+            name = os.path.join(path, n)
+            pf = pq.ParquetFile(name)
+            for rg in range(pf.num_row_groups):
+                out[name, rg] = pf.read_row_group(
+                    rg, columns=['idx']).column('idx').to_numpy()
+    return out
+
+
+def check_batch_sources(np, batch, sources, poisoned, label):
+    """Each row of ``batch`` resolves through its ``'_provenance'`` to the
+    (file, row group, offset) whose ``idx`` it holds. An opaque selection
+    (a transform ran on the whole row group) names payload offsets: the
+    offsets left after the quarantined rows were dropped."""
+    from petastorm_tpu_torch.lineage import BatchProvenance, selection_offsets
+    prov = batch['_provenance']
+    idx = batch['idx'].cpu().numpy()
+    check(isinstance(prov, BatchProvenance) and len(prov) == len(idx),
+          '%s: batch provenance %r' % (label, type(prov)))
+    offsets = prov.offsets()
+    for i in range(len(idx)):
+        record = prov.record_for_row(i)
+        key = (record.path, record.row_group)
+        kept = selection_offsets(record.selection)
+        if kept is None:
+            dropped = {row for (p, g, row) in poisoned if (p, g) == key}
+            kept = [o for o in range(len(sources[key])) if o not in dropped]
+        source = int(kept[int(offsets[i])])
+        check(int(sources[key][source]) == int(idx[i]),
+              '%s: row %d resolves to %s rg%d offset %d (idx %d), holds idx '
+              '%d' % (label, i, record.path, record.row_group, source,
+                      sources[key][source], idx[i]))
+
+
+def quarantined_image_line(torch, np, kernels, args, d, device, rows, batch,
+                           size, workers):
+    """The png store with 3 garbage ``image`` cells in 2 row groups: under
+    ``'raise'`` the reader raises, under ``'skip'`` it gives the other rows
+    and no record; under ``'quarantine'`` on the thread and the process
+    pool the CNN trains on K4 from staged batches whose ``'_provenance'``
+    names each row's source, the records name the 3 cells, the audit is
+    complete, and a replay of one shuffled batch equals it bit for bit.
+    Returns the launch counts of the CNN steps."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    path = os.path.join(d, 'images_poisoned')
+    url = 'file://' + path
+    start = time.perf_counter()
+    write_indexed_images(np, url, rows, args.seed)
+    poisoned = corrupt_cells(path, 'image', LINEAGE_POISON)
+    sources = source_idx(path)
+    want = sorted(set(range(rows)) - set(poisoned.values()))
+    log('lineage png store %d rows in %d row groups, %d image cells '
+        'overwritten with garbage (idx %s), in %.2f s'
+        % (rows, len(sources), len(poisoned), sorted(poisoned.values()),
+           time.perf_counter() - start))
+    resize = make_resize_transform(size)
+    spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                         selected_fields=['idx', 'image', 'label'])
+    kw = dict(num_epochs=1, workers_count=workers, seed=args.seed,
+              transform_spec=spec)
+    try:
+        with make_columnar_reader(url, **kw) as reader:
+            for _ in reader:
+                pass
+        raised = None
+    except ValueError as e:
+        raised = e
+    check(raised is not None and 'imdecode' in str(raised),
+          "lineage png 'raise': the corrupt store did not raise (%r)"
+          % raised)
+    start = time.perf_counter()
+    with make_columnar_reader(url, on_decode_error='skip', **kw) as reader:
+        got = sorted(int(i) for b in reader for i in b.idx)
+        records = reader.lineage.quarantines()
+    check(got == want and records == [],
+          "lineage png 'skip': %d rows, %d records" % (len(got), len(records)))
+    log("lineage png 'raise' raised %s: %s; 'skip' gave %d rows and no "
+        'record in %.2f s' % (type(raised).__name__, raised, len(got),
+                              time.perf_counter() - start))
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    steps, times, whole = 0, [], []
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for pool in ('thread', 'process'):
+        label = 'lineage png %s pool' % pool
+        seen, replayed, ended = [], None, None
+        start = time.perf_counter()
+        with make_columnar_reader(url, reader_pool_type=pool,
+                                  on_decode_error='quarantine',
+                                  **kw) as reader:
+            loader = TorchDataLoader(reader, batch_size=batch,
+                                     shuffling_queue_capacity=2 * batch,
+                                     seed=args.seed, device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for b in iter(lambda: next(batches, None), None):
+                    t1 = time.perf_counter()
+                    loss = float(step(b['image'], b['label']))
+                    t2 = time.perf_counter()
+                    times.append(t2 - t1)
+                    if ended is not None:
+                        whole.append(t2 - ended)
+                    steps += 1
+                    check(b['image'].device.type == device,
+                          '%s: images on %s' % (label, b['image'].device))
+                    check_batch_sources(np, b, sources, poisoned, label)
+                    seen.append(b['idx'].cpu())
+                    if replayed is None and len(b['_provenance'].records()) > 1:
+                        r0 = time.perf_counter()
+                        again = reader.replay(b)
+                        replayed = (time.perf_counter() - r0,
+                                    len(b['_provenance'].records()))
+                        for name in ('image', 'idx'):
+                            host = b[name].cpu().numpy()
+                            check(again[name].dtype == host.dtype
+                                  and again[name].tobytes() == host.tobytes(),
+                                  '%s: replay of %s differs' % (label, name))
+                    ended = time.perf_counter()
+            wall = time.perf_counter() - start
+            records = reader.lineage.quarantines()
+            report = reader.audit().assert_complete()
+        check(math.isfinite(loss), '%s: non-finite loss' % label)
+        seen = sorted(torch.cat(seen).numpy().tolist())
+        check(seen == want, '%s: %d rows, not the %d clean ones once'
+              % (label, len(seen), len(want)))
+        cells = {(r['path'], r['row_group'], o)
+                 for r in records for o in r.get('row_offsets', ())}
+        check(all(r['stage'] == 'decode' and r.get('field') == 'image'
+                  for r in records)
+              and cells == set(poisoned)
+              and sum(r['rows'] for r in records) == len(poisoned),
+              '%s: quarantine records %s' % (label, records))
+        check(replayed is not None, '%s: no batch was replayed' % label)
+        epoch = report['epochs'][0]
+        log('%s: %d rows (== store less the %d quarantined), %d quarantine '
+            'records (%s), audit complete (%d items, %d rows delivered, %d '
+            'quarantined), each row resolved to its source; replay of a '
+            'shuffled batch from %d row groups == the staged batch, %.3f s; '
+            'pass %.2f s [%s]'
+            % (label, len(seen), len(poisoned), len(records), '; '.join(
+                '%s rg%d rows %s' % (os.path.basename(r['path']),
+                                     r['row_group'], r['row_offsets'])
+                for r in records),
+               epoch['items_delivered'], epoch['rows_delivered'],
+               epoch['rows_quarantined'], replayed[1], replayed[0], wall,
+               CARD))
+    launches = dict(kernels.LAUNCHES)
+    if device == 'cuda':
+        check(launches['normalize'] == steps,
+              'K4 launched %d times in %d lineage png steps'
+              % (launches['normalize'], steps))
+    images = torch.zeros((batch, size, size, 3), dtype=torch.uint8,
+                         device=device)
+    labels = torch.arange(batch, device=device) % IMAGE_CLASSES
+    alone = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        float(step(images, labels))
+        alone.append(time.perf_counter() - t0)
+    log('lineage png: %d CNN steps on K4, median step %.2f ms (from the '
+        'batch on the card to the loss on the host), %s ms with the batch '
+        'wait (from the end of the previous step\'s checks), against the '
+        'step alone %.2f ms [%s]'
+        % (steps, statistics.median(times) * 1e3,
+           '%.2f' % (statistics.median(whole) * 1e3) if whole else 'n/a',
+           statistics.median(alone[1:]) * 1e3, CARD))
+    return launches
+
+
+def audited_token_line(torch, np, tlm, kernels, args, d, device, cfg, rows,
+                       steps):
+    """The columnar token store: passes with lineage on and with
+    ``PETASTORM_TPU_LINEAGE=0`` on the thread and the process pool (device
+    decode planned, each pass == the generator, each audit complete);
+    under ``'quarantine'`` device decode declines with JAX's reason and a
+    pass decodes on the host; then 5 LM steps from lineage-on batches, and
+    ``explain_step`` names a source row group. Returns the LM's launch
+    counts."""
+    from petastorm_tpu_torch import TorchDataLoader, make_columnar_reader
+    from petastorm_tpu_torch.lineage import LINEAGE_ENV_VAR
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    seq = cfg.max_seq_len + 1
+    url = 'file://' + os.path.join(d, 'token_rows')
+    start = time.perf_counter()
+    tokens = write_token_rows(np, url, rows, seq, cfg.vocab_size, args.seed)
+    log('lineage token store %d rows x %d int32 tokens in %.2f s'
+        % (rows, seq, time.perf_counter() - start))
+    rates = {}
+    for pool in ('thread', 'process'):
+        for lineage in ('on', 'off'):
+            os.environ[LINEAGE_ENV_VAR] = '1' if lineage == 'on' else '0'
+            for n in range(LINEAGE_PASSES):
+                got = token_pass(
+                    torch, np, url, tokens, pool, 'on', device, TOKEN_BATCH,
+                    label='lineage %s pass %d, token' % (lineage, n),
+                    audit=True)
+                rates.setdefault((pool, lineage), []).append(got['rate'])
+    os.environ.pop(LINEAGE_ENV_VAR, None)
+    for pool in ('thread', 'process'):
+        on, off = rates[pool, 'on'], rates[pool, 'off']
+        log('lineage token %s pool rows/s: on %s, off %s; on / off %.4f '
+            '(mean of %d passes each) [%s]'
+            % (pool, ' '.join('%.0f' % r for r in on),
+               ' '.join('%.0f' % r for r in off),
+               statistics.mean(on) / statistics.mean(off), len(on), CARD))
+    os.environ[DEVICE_DECODE_ENV_VAR] = 'on'
+    with make_columnar_reader(url, num_epochs=1, shuffle_row_groups=False,
+                              workers_count=TOKEN_WORKERS,
+                              on_decode_error='quarantine') as reader:
+        declined = reader.device_decode_declined
+        check(not reader.device_decode_plans
+              and declined == {'*': LINEAGE_DECLINE},
+              'lineage token quarantine: plans %s, declined %s'
+              % (reader.device_decode_plans, declined))
+        got, idx = [], []
+        for b in TorchDataLoader(reader, batch_size=TOKEN_BATCH,
+                                 device=device).iter_prefetched():
+            got.append(b['tokens'])
+            idx.append(b['idx'])
+        reader.audit().assert_complete()
+        records = reader.lineage.quarantines()
+    idx = torch.cat(idx).cpu().numpy()
+    order = np.argsort(idx, kind='stable')
+    host = torch.cat(got).cpu().numpy()[order]
+    check(np.array_equal(idx[order], np.arange(rows))
+          and host.tobytes() == tokens.tobytes() and not records,
+          'lineage token quarantine: rows differ from the generator')
+    log("lineage token on_decode_error='quarantine': device decode declined "
+        '(%s); a pass decoded on the host == generator, audit complete'
+        % declined['*'])
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device=device)
+    _, step = tlm.make_train_step(cfg, params)
+    losses = []
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with make_columnar_reader(url, num_epochs=1, workers_count=TOKEN_WORKERS,
+                              seed=args.seed) as reader:
+        check(reader.lineage.enabled
+              and set(reader.device_decode_plans) == {'tokens'},
+              'lineage token LM: lineage %s, plans %s'
+              % (reader.lineage.enabled, reader.device_decode_plans))
+        loader = TorchDataLoader(reader, batch_size=TOKEN_BATCH,
+                                 drop_last=True, device=device)
+        batches = loader.iter_prefetched()
+        with contextlib.closing(batches):
+            for i in range(steps):
+                b = next(batches)
+                check('_provenance' in b, 'lineage token LM: no provenance')
+                t = b['tokens'].to(torch.int64)
+                losses.append(float(loader.goodput.fence(
+                    step(t[:, :-1], t[:, 1:]))))
+        launches = dict(kernels.LAUNCHES)
+        explained = loader.goodput.explain_step()
+    check(all(math.isfinite(x) for x in losses), 'lineage token LM: loss')
+    source = (explained.get('provenance') or {}).get('sources', [{}])[0]
+    check(source.get('path') and isinstance(source.get('row_group'), int)
+          and (not explained['chain']
+               or explained['chain'][-1].endswith(
+                   'rg%d)' % source['row_group'])),
+          'lineage token LM: explain_step names no row group: %r'
+          % explained)
+    log('lineage token LM %d steps from lineage-on batches: loss %.4f -> '
+        '%.4f, launches %s; explain_step: %s (chain %s; first source %s '
+        'rg%d, %d rows)'
+        % (len(losses), losses[0], losses[-1], json.dumps(launches),
+           explained['explanation'], explained['chain'],
+           os.path.basename(source['path']), source['row_group'],
+           source['rows']))
+    return launches
+
+
+def lineage_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                 image_rows=IMAGE_ROWS, image_batch=IMAGE_BATCH,
+                 image_size=IMAGE_SIZE, rows=TOKEN_ROWS, steps=TOKEN_STEPS):
+    """Phase 15: sample lineage and quarantine. Returns the launch counts
+    of the quarantined png line's CNN steps (K4) and of the audited token
+    line's LM steps (K1-K3)."""
+    from petastorm_tpu_torch.lineage import LINEAGE_ENV_VAR
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    saved = {k: os.environ.get(k)
+             for k in (DEVICE_DECODE_ENV_VAR, LINEAGE_ENV_VAR)}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            image = quarantined_image_line(torch, np, kernels, args, d,
+                                           device, image_rows, image_batch,
+                                           image_size, IMAGE_WORKERS)
+            lm = audited_token_line(torch, np, tlm, kernels, args, d, device,
+                                    cfg, rows, steps)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return image, lm
+
+
+# ---------------------------------------------------------------------------
+# phase 16: times
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps):
@@ -2536,7 +2934,9 @@ def main(argv=None):
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
 
     wall = start = time.perf_counter()
     kernels.build()
@@ -2638,6 +3038,17 @@ def main(argv=None):
     launches['normalize'] += cached_image['normalize']
     log('phase cache and readahead line %.1f s'
         % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    lineage_image, lineage_lm = lineage_line(torch, np, tlm, kernels, args)
+    check(all(lineage_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the audited token LM: %r'
+          % lineage_lm)
+    check(lineage_image['normalize'] > 0,
+          'K4 was not launched on the quarantined png line')
+    for name in FLASH:
+        launches[name] += lineage_lm[name]
+    launches['normalize'] += lineage_image['normalize']
+    log('phase lineage line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -13,11 +13,16 @@ hand-written CUDA kernel; and the MNIST MLP. It imports ``torch`` and never
 ``jax`` or the JAX package. Entry points run on the CUDA device unless the
 caller passes ``device='cpu'``.
 
+Every item a reader yields carries sample lineage (provenance, the
+coverage audit, replay, and bad-sample quarantine under
+``on_decode_error``; :mod:`petastorm_tpu_torch.lineage`).
+
 Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :func:`make_batch_reader`, :func:`materialize_dataset`,
 :class:`TransformSpec`, :class:`NoDataAvailableError`,
 :class:`TorchDataLoader`, :func:`make_torch_loader`,
-:func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`.
+:func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`,
+:class:`CoverageAuditor`, :class:`Provenance`.
 """
 
 __version__ = '0.1.0'
@@ -25,7 +30,8 @@ __version__ = '0.1.0'
 __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'materialize_dataset', 'TransformSpec', 'NoDataAvailableError',
            'TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
-           'flash_attention', 'normalize_images', '__version__']
+           'flash_attention', 'normalize_images', 'CoverageAuditor',
+           'Provenance', '__version__']
 
 
 def __getattr__(name):
@@ -49,6 +55,9 @@ def __getattr__(name):
     if name in ('TorchDataLoader', 'make_torch_loader', 'prefetch_to_device'):
         from petastorm_tpu_torch import torch_utils
         return getattr(torch_utils, name)
+    if name in ('CoverageAuditor', 'Provenance'):
+        from petastorm_tpu_torch import lineage
+        return getattr(lineage, name)
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

@@ -17,10 +17,13 @@ dispatch through :meth:`GoodputMonitor.note_stage`) and an opt-in fence,
 and waited on. Without the fence the whole train wall counts as device
 time and the step records ``fenced=False``.
 
-The monitor keeps a bounded per-step ring and summed seconds. The JAX
+The monitor keeps a bounded per-step ring and summed seconds; each ring
+entry keeps its batch's lineage provenance (``batch['_provenance']``), and
+:meth:`GoodputMonitor.explain_step` names the step's first source row
+group (JAX ``goodput.py:140-153, 190-222, 380-389, 431-456``). The JAX
 monitor also exports into the reader's stats, tracer and latency planes;
 the port has none of them yet (the tracing and health slice), so those
-stay ``None``, and batches carry no lineage provenance.
+stay ``None``.
 
 On by default; ``PETASTORM_TPU_GOODPUT=0`` (the JAX package's variable)
 leaves loaders with no monitor at all.
@@ -137,6 +140,7 @@ class GoodputMonitor:
         self._pending_h2d_s = 0.0
         self._pending_fence_s = 0.0
         self._pending_fenced = False
+        self._pending_provenance = None
         self._step_open = False
 
     # -- hooks of the loader and the staging sites ---------------------------
@@ -144,8 +148,12 @@ class GoodputMonitor:
     def note_fetch(self, infeed_wait_s: float, batch=None) -> None:
         """The loader fetched a batch after blocking ``infeed_wait_s``
         seconds; opens the step the consumer is about to run."""
+        provenance = None
+        if isinstance(batch, dict):
+            provenance = batch.get('_provenance')
         with self._lock:
             self._pending_infeed_s = max(0.0, float(infeed_wait_s))
+            self._pending_provenance = provenance
             self._pending_fence_s = 0.0
             self._pending_fenced = False
             self._step_open = True
@@ -188,10 +196,12 @@ class GoodputMonitor:
             h2d = self._pending_h2d_s
             fence_s = self._pending_fence_s
             fenced = self._pending_fenced
+            provenance = self._pending_provenance
             self._pending_infeed_s = 0.0
             self._pending_h2d_s = 0.0
             self._pending_fence_s = 0.0
             self._pending_fenced = False
+            self._pending_provenance = None
             self._step_open = False
             step = self._steps
             self._steps += 1
@@ -216,7 +226,7 @@ class GoodputMonitor:
                 'device_step_s': device,
                 'host_overhead_s': host,
                 'fenced': fenced,
-                'provenance': None,
+                'provenance': provenance,
             }
             self._ring.append(entry)
             self._total_s += total
@@ -331,6 +341,15 @@ class GoodputMonitor:
             chain.append('host_overhead')
         elif verdict == COMPUTE_BOUND:
             chain.append('device_step')
+        provenance = entry.get('provenance')
+        provenance = provenance.summary() if provenance is not None else None
+        if chain and provenance and provenance.get('sources'):
+            source = provenance['sources'][0]
+            where = source.get('path')
+            if where:
+                suffix = where.rsplit('/', 1)[-1]
+                chain[-1] = '{} ({} rg{})'.format(
+                    chain[-1], suffix, source.get('row_group'))
         if verdict == DATA_STALL:
             explanation = 'step {} stalled {:.0f}ms on {}'.format(
                 entry['step'], stall_s * 1000.0, ' → '.join(chain))
@@ -366,6 +385,8 @@ class GoodputMonitor:
                 'fenced': entry['fenced'],
             },
         }
+        if provenance is not None:
+            out['provenance'] = provenance
         if self._host is not None:
             out['host'] = self._host
         return out

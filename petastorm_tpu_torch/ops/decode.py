@@ -146,12 +146,15 @@ def plan_device_decode(schema, enabled: Optional[bool] = None,
                        transform_spec=None,
                        transformed_schema=None,
                        batched_output: bool = True,
+                       tolerant_decode: bool = False,
                        worker_supported: bool = True):
     """``(plans, declined)`` for a reader's view ``schema``: ``plans``
     maps a column name to its :class:`DeviceColumnPlan`; ``declined`` maps
     a column name, or ``'*'`` for a reason that holds for the whole
     reader, to why it decodes on the host. The whole-reader reasons come
-    first, in the JAX package's order and words."""
+    first, in the JAX package's order and words. ``tolerant_decode``
+    (``on_decode_error`` other than ``'raise'``) declines every column:
+    only the host decode sees which cell failed."""
     declined: Dict[str, str] = {}
     if enabled is None:
         enabled = device_decode_enabled()
@@ -167,6 +170,9 @@ def plan_device_decode(schema, enabled: Optional[bool] = None,
         return {}, {'*': 'predicate evaluates on decoded host values'}
     if has_ngram:
         return {}, {'*': 'NGram windows regroup decoded rows on the host'}
+    if tolerant_decode:
+        return {}, {'*': 'on_decode_error quarantines per-cell codec '
+                         'failures, which only the host decode can observe'}
     if transform_spec is not None and not getattr(transform_spec, 'device',
                                                   False):
         return {}, {'*': 'host TransformSpec receives decoded columns '

@@ -43,15 +43,26 @@ open Parquet files, ``io_readahead`` (a background thread that reads the
 worker's next row groups while it decodes the current one) and the
 row-group cache of ``cache_type`` (:func:`_make_cache` :81-113).
 
-Not ported yet (each raises ``NotImplementedError``): lineage, health,
-tracing and autotune; resilience; remote object stores; JAX-process and
-elastic sharding.
+Sample lineage (:mod:`petastorm_tpu_torch.lineage`, JAX :501-518,
+681-725, 1140-1150, 1327-1384), on unless ``PETASTORM_TPU_LINEAGE=0``:
+every item the reader yields has a provenance record
+(:attr:`Reader.last_provenance`), ``reader.lineage`` keeps per-epoch
+ledgers of what was ventilated and delivered, :meth:`Reader.audit` checks
+exactly-once delivery, :meth:`Reader.replay` fetches recorded rows again,
+and ``on_decode_error='quarantine'`` (or ``'skip'``) drops the rows of a
+corrupt cell or a failing transform instead of raising, recording them in
+``reader.lineage.quarantines()``.
+
+Not ported yet (each raises ``NotImplementedError``): health, tracing and
+autotune; resilience; remote object stores; JAX-process and elastic
+sharding.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import hashlib
 import logging
 
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
@@ -66,6 +77,11 @@ from petastorm_tpu_torch.filters import (FiltersPredicate,
                                          normalize_filters,
                                          validate_filter_types)
 from petastorm_tpu_torch.fs import urls_to_path_or_paths
+from petastorm_tpu_torch.lineage import (BatchProvenance, CoverageAuditor,
+                                         LineageTracker, batch_provenance_of,
+                                         lineage_enabled, unwrap_envelope,
+                                         validate_decode_error_policy)
+from petastorm_tpu_torch.lineage import replay as _lineage_replay
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops.decode import decode_raw_host, plan_device_decode
 from petastorm_tpu_torch.predicates import in_reduce
@@ -95,7 +111,6 @@ logger = logging.getLogger(__name__)
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('lineage and quarantine', ('on_decode_error',)),
     ('tracing and health', ('trace', 'metrics_interval', 'metrics_out',
                             'debug_port', 'stall_timeout',
                             'flight_record_dir', 'slo')),
@@ -237,7 +252,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 zmq_copy_buffers=True, profiling_enabled=False,
                 cache_type='null', cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
-                io_readahead=0, **unported):
+                io_readahead=0, on_decode_error='raise', **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -284,7 +299,14 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     memory). ``cache_extra_settings`` go to the cache's constructor (e.g.
     ``{'mem_size_limit_bytes': ...}``, tier 0's budget). A cache with a
     ``predicate`` raises ``RuntimeError``. ``PETASTORM_TPU_SHARED_CACHE=0``
-    turns ``'shared'`` off."""
+    turns ``'shared'`` off.
+
+    Every yielded item carries sample lineage (``reader.lineage``,
+    :meth:`Reader.audit`, :meth:`Reader.replay`; off under
+    ``PETASTORM_TPU_LINEAGE=0``). ``on_decode_error`` is the bad-sample
+    policy: ``'raise'`` (the default), ``'skip'`` (drop the rows of a
+    corrupt cell or a failing transform) or ``'quarantine'`` (drop them
+    and record them in ``reader.lineage.quarantines()``)."""
     _refuse_unported('make_reader', unported)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
@@ -301,7 +323,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   decode_hints=decode_hints, cache=cache,
-                  io_readahead=io_readahead)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -315,17 +337,18 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          cache_location=None, cache_size_limit=None,
                          cache_row_size_estimate=None,
                          cache_extra_settings=None, io_readahead=0,
-                         **unported):
+                         on_decode_error='raise', **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
     workers; a ``device=True`` spec receives a dict of tensors instead: after
     the device decode when the reader plans one (see :class:`Reader`), else
     on the workers as CPU tensors. Selection,
-    ``decode_hints``, the pool, readahead and the cache as in
-    :func:`make_reader`; a whole row group's columns are cached after the
-    transform, so a hit skips the decode and the transform. NGram is not
-    supported."""
+    ``decode_hints``, the pool, readahead, the cache, lineage and
+    ``on_decode_error`` as in :func:`make_reader` (a policy other than
+    ``'raise'`` declines device decode); a whole row group's columns are
+    cached after the transform, so a hit skips the decode and the
+    transform. NGram is not supported."""
     _refuse_unported('make_columnar_reader', unported)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
@@ -344,7 +367,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   decode_hints=decode_hints, cache=cache,
-                  io_readahead=io_readahead)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -355,7 +378,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       zmq_copy_buffers=True, profiling_enabled=False,
                       cache_type='null', cache_location=None,
                       cache_size_limit=None, cache_row_size_estimate=None,
-                      cache_extra_settings=None, io_readahead=0, **unported):
+                      cache_extra_settings=None, io_readahead=0,
+                      on_decode_error='raise', **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -366,9 +390,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
     ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
-    readahead and the cache as in :func:`make_reader` (a process pool sends
-    each row group's table as one Arrow IPC stream; the shared cache keeps
-    it as one)."""
+    readahead, the cache, lineage and ``on_decode_error`` as in
+    :func:`make_reader` (a process pool sends each row group's table as one
+    Arrow IPC stream; the shared cache keeps it as one)."""
     _refuse_unported('make_batch_reader', unported)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
@@ -387,7 +411,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, cur_shard=cur_shard,
                   shard_count=shard_count, cache=cache,
-                  io_readahead=io_readahead)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error)
 
 
 def _view(stored, schema_fields):
@@ -428,14 +452,19 @@ class Reader:
     decodes them on the host and the reader yields decoded numpy, as
     without plans. With plans, a ``device=True`` ``TransformSpec`` runs
     after the decode, wherever it ran, on tensors; without, it runs on the
-    workers over CPU tensors."""
+    workers over CPU tensors.
+
+    ``lineage`` is the reader's
+    :class:`~petastorm_tpu_torch.lineage.LineageTracker` (disabled, but
+    there, under ``PETASTORM_TPU_LINEAGE=0``)."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, pool,
                  num_epochs, shuffle_row_groups, seed,
                  transform_spec=None, predicate=None, filters=None,
                  rowgroup_selector=None, cur_shard=None, shard_count=None,
                  shuffle_row_drop_partitions=1, decode_hints=None,
-                 cache=None, io_readahead=0):
+                 cache=None, io_readahead=0, on_decode_error='raise'):
+        validate_decode_error_policy(on_decode_error)
         cache = cache if cache is not None else NullCache()
         if predicate is not None and not isinstance(cache, NullCache):
             raise RuntimeError('Local cache is not supported together with '
@@ -464,6 +493,13 @@ class Reader:
         #: every item is a namedtuple of column arrays (one row group)
         self.batched_output = mode in ('columnar', 'batch')
         self._rows = []
+        self._rows_seq = None
+        #: tracker seq of the item last yielded from (None before the
+        #: first, or with lineage off)
+        self.last_seq = None
+        #: payload-row offset of the row last yielded within its item (row
+        #: readers; None for batched output)
+        self.last_row_offset = None
         self._batches = None
         # the workers decode with the stored schema: a scaled decode picks
         # its denominator from the stored shape
@@ -518,6 +554,7 @@ class Reader:
                 transform_spec=transform_spec,
                 transformed_schema=self.schema,
                 batched_output=self.batched_output,
+                tolerant_decode=on_decode_error != 'raise',
                 worker_supported=mode == 'columnar')
         # a device spec runs once a batch after the decode of the planned
         # columns: in the loader that claims the plans, else in __next__;
@@ -571,13 +608,8 @@ class Reader:
             lookahead = (AUTO_MAX_DEPTH if io_readahead == 'auto'
                          else io_readahead)
             bound['max_in_flight'] = pool.workers_count * (2 + lookahead)
-        process = PieceWorkerSpec(
-            load, plan, cache, io_readahead,
-            cache_key_format(dataset_path, view.fields, decode_hints,
-                             self.device_decode_plans))
-
         items = []
-        for piece in pieces:
+        for piece_index, piece in enumerate(pieces):
             piece_predicate = predicate
             if filters_predicate is not None:
                 specialized = filters_predicate.specialize(piece, stored)
@@ -586,15 +618,49 @@ class Reader:
                         specialized if piece_predicate is None
                         else in_reduce([piece_predicate, specialized], all))
             items.extend(WorkItem(piece, piece_predicate,
-                                  (p, shuffle_row_drop_partitions))
+                                  (p, shuffle_row_drop_partitions),
+                                  piece_index)
                          for p in range(shuffle_row_drop_partitions))
+
+        dataset = hashlib.md5(str(dataset_path).encode()).hexdigest()[:12]
+        self.lineage = LineageTracker(
+            enabled=lineage_enabled(), dataset_digest=dataset,
+            shard=cur_shard if cur_shard is not None else -1,
+            pieces=[(p.path, p.row_group, p.num_rows) for p in pieces],
+            items=[(it.piece_index, it.drop_partition) for it in items],
+            row_filtered=(predicate is not None
+                          or filters_predicate is not None))
+        #: ``(piece_index, partition) -> WorkItem``: what replay runs
+        self._replay_items = {(it.piece_index, it.drop_partition): it
+                              for it in items}
+        file_indexes = {}
+        for piece in pieces:
+            file_indexes.setdefault(piece.path, len(file_indexes))
+        self._spec = PieceWorkerSpec(
+            load, plan, cache, io_readahead,
+            cache_key_format(dataset_path, view.fields, decode_hints,
+                             self.device_decode_plans),
+            lineage=self.lineage.enabled, on_decode_error=on_decode_error,
+            shard=cur_shard if cur_shard is not None else -1,
+            dataset=dataset, file_indexes=file_indexes,
+            windows=ngram is not None)
+        on_ventilate = None
+        if self.lineage.enabled:
+            # the ventilation ledger is the audit's expected side: what
+            # went out and never came back is a drop
+            record = self.lineage.record_ventilated
+
+            def on_ventilate(item):
+                record(item.epoch, item.piece_index, item.drop_partition)
         self._num_epochs = num_epochs
         #: True once the last item of the ventilated epochs was consumed:
         #: only then may :meth:`reset` start another pass
         self.last_row_consumed = False
         self._pool = pool
-        self._pool.start(process, items, num_epochs=num_epochs,
-                         shuffle=shuffle_row_groups, seed=seed, **bound)
+        pool.lineage = self.lineage
+        self._pool.start(self._spec, items, num_epochs=num_epochs,
+                         shuffle=shuffle_row_groups, seed=seed,
+                         on_ventilate=on_ventilate, **bound)
 
     def _filter_row_groups(self, pieces, predicate, rowgroup_selector,
                            filters, cur_shard, shard_count):
@@ -665,14 +731,18 @@ class Reader:
         return pieces, worker_predicate, filters_predicate
 
     def _next_item(self):
-        """The next non-empty published item; StopIteration at the end."""
+        """The next non-empty published item, its provenance registered
+        (:attr:`last_seq`); StopIteration at the end."""
         while True:
             try:
                 item = self._pool.get_results()
             except EmptyResultError:
                 self.last_row_consumed = True
                 raise StopIteration from None
+            item, seq = unwrap_envelope(item, self.lineage)
             if item is not None and len(item):
+                if seq is not None:
+                    self.last_seq = seq
                 return item
 
     def iter_ngram_chunks(self):
@@ -706,7 +776,11 @@ class Reader:
         # pops them
         if not self._rows:
             self._rows = self._next_item()
+            self._rows_seq = self.last_seq
         item = self._rows.pop()
+        # after the pop, the length left is the popped row's offset
+        self.last_seq = self._rows_seq
+        self.last_row_offset = len(self._rows)
         if self.ngram is not None:
             return self.ngram.make_namedtuples(item, self.schema)
         return self.schema.make_namedtuple(**item)
@@ -743,8 +817,61 @@ class Reader:
                 'Reader.reset() is only supported after the previous epoch '
                 'set was fully consumed (in-flight row groups cannot be '
                 'recalled)')
+        # epochs count on across passes: the new pass audits against
+        # fresh per-epoch ledgers
+        self.lineage.start_pass()
         self._pool.reset(self._num_epochs)
         self.last_row_consumed = False
+
+    # -- lineage -------------------------------------------------------------
+
+    @property
+    def last_provenance(self):
+        """The :class:`~petastorm_tpu_torch.lineage.Provenance` of the item
+        last yielded from (None before the first, with lineage off, or
+        once evicted from the ring)."""
+        return self.lineage.resolve(self.last_seq)
+
+    def explain_batch(self, batch=None):
+        """Where a batch's rows came from. ``None``: the item last yielded
+        (for batched output, that is the batch: one row group); a loader
+        batch dict holding ``'_provenance'``, or a
+        :class:`~petastorm_tpu_torch.lineage.BatchProvenance`: each source
+        row group with its rows, selection and shuffle quality."""
+        if batch is None:
+            record = self.last_provenance
+            if record is None:
+                return {'enabled': self.lineage.enabled, 'sources': []}
+            return {'enabled': True, 'rows': record.rows,
+                    'sources': [dict(record._asdict(),
+                                     selection=list(record.selection))]}
+        if isinstance(batch, dict):
+            batch = batch_provenance_of(batch) or batch
+        if isinstance(batch, BatchProvenance):
+            return dict(batch.summary(), enabled=True)
+        raise TypeError('explain_batch needs None, a loader batch dict with '
+                        "a '_provenance' entry, or a BatchProvenance; got "
+                        '{!r}'.format(type(batch)))
+
+    def replay(self, provenance):
+        """The rows behind ``provenance`` (a
+        :class:`~petastorm_tpu_torch.lineage.Provenance`, a registered seq,
+        a ``BatchProvenance`` or a loader batch dict) fetched again through
+        this reader's worker: a dict of numpy columns, bit for bit what was
+        delivered where the decode and the transform are deterministic."""
+        return _lineage_replay(self, provenance)
+
+    def audit(self) -> CoverageAuditor:
+        """A :class:`~petastorm_tpu_torch.lineage.CoverageAuditor` over this
+        reader's ledgers (``audit().report()``, ``assert_complete()``)."""
+        return CoverageAuditor(self.lineage)
+
+    def _replay_worker(self):
+        """A worker of this reader's load with no readahead, no cache and
+        no lineage: what :func:`~petastorm_tpu_torch.lineage.replay` runs
+        items on."""
+        return self._spec.for_replay().make_worker()
+
 
     def stop(self):
         self._pool.stop()

@@ -18,6 +18,10 @@ field's shape and raveled (arrow has no ndarray columns). pandas is
 imported by ``pa.Table.to_pandas`` only when a transform runs. A
 no-predicate item caches its table, before the transform, under the key
 ``'batch'`` (:75).
+
+Lineage and quarantine (JAX ``batch_worker.py:70-100``): the loads report
+the source-row offsets of the table through ``io``, and under a quarantine
+policy a failing read or transform is quarantined with the whole item.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import pyarrow as pa
 from petastorm_tpu_torch.codecs import list_column_to_numpy
 from petastorm_tpu_torch.readers.columnar_worker import (
     make_partition_columns, stored_columns, validate_predicate_fields)
-from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS
+from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS, QUARANTINED
 from petastorm_tpu_torch.unischema import Unischema
 
 
@@ -74,6 +78,8 @@ def plan_batch(item, schema: Unischema) -> Tuple[str, List[str]]:
 def _load_table(piece, schema: Unischema, full_schema: Unischema,
                 io) -> pa.Table:
     table = io.read(piece, stored_columns(list(schema.fields), piece))
+    if io.tracks_offsets:
+        io.set_offsets(('range', 0, table.num_rows))
     return _append_partition_columns(table, piece, full_schema, schema.fields)
 
 
@@ -92,6 +98,9 @@ def _load_table_with_predicate(piece, schema: Unischema,
             for i in range(pred_table.num_rows)]
     if not any(mask):
         return None
+    indices = np.nonzero(mask)[0]
+    if io.tracks_offsets:
+        io.set_offsets(indices.astype(np.int64))
     combined = pred_stored
     other = [n for n in schema.fields if n not in set(fields)]
     other_stored = stored_columns(other, piece)
@@ -102,7 +111,7 @@ def _load_table_with_predicate(piece, schema: Unischema,
     combined = _append_partition_columns(combined, piece, full_schema,
                                          schema.fields)
     ordered = [n for n in schema.fields if n in combined.column_names]
-    return combined.select(ordered).take(pa.array(np.nonzero(mask)[0]))
+    return combined.select(ordered).take(pa.array(indices))
 
 
 def load_batch_item(item, schema: Unischema, full_schema: Unischema,
@@ -111,18 +120,29 @@ def load_batch_item(item, schema: Unischema, full_schema: Unischema,
                     io=PLAIN_READS) -> Optional[pa.Table]:
     """One work item as an arrow table: the row group's columns of
     ``schema`` (the reader's view), its rows kept by the item's predicate,
-    then ``transform_spec``. None when no row is left."""
+    then ``transform_spec``. None when no row is left; ``QUARANTINED``
+    when the transform failed under a quarantine policy."""
     if item.predicate is not None:
         table = _load_table_with_predicate(item.piece, schema, full_schema,
                                            item.predicate, io)
     else:
         table = io.cached('batch', item.piece, lambda: _load_table(
             item.piece, schema, full_schema, io))
+    offsets = io.offsets
     if table is None or table.num_rows == 0:
         return None
     if transform_spec is not None:
-        table = apply_pandas_transform(transform_spec, transformed_schema,
-                                       table)
+        n = table.num_rows
+        try:
+            table = apply_pandas_transform(transform_spec, transformed_schema,
+                                           table)
+        except Exception as e:
+            if not io.quarantine_item('transform', e, rows=n):
+                raise
+            return QUARANTINED
+        if table.num_rows != n:
+            offsets = None      # rows made or dropped: opaque
+    io.set_offsets(offsets)
     return table if table.num_rows else None
 
 

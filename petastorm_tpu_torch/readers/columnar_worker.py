@@ -35,6 +35,20 @@ A null-bearing numeric scalar column decodes as arrow gives it, a float
 array with NaN at the nulls (float64 for an integer column), as the JAX
 columnar and batch readers give it; the row reader asks for ``None`` cells
 instead (``keep_none``).
+
+Tolerant decode (``on_decode_error`` other than ``'raise'``; JAX
+``columnar_worker.py:80-200, 440-520``): each column decodes the dense way
+first; a codec column that raises decodes again cell by cell, each failing
+cell goes into the item's
+:class:`~petastorm_tpu_torch.readers.piece_worker.DecodeErrorSink`, and
+the worker drops those rows from every column, making the columns the
+retry left as object arrays dense again. Failures of the infrastructure
+(``NEVER_QUARANTINE``) stay loud. Each load reports the source-row offsets
+of what it returns through ``io.set_offsets`` (a symbolic ``('range', lo,
+hi)`` on a clean read, an index array after a predicate or a drop, None
+on a cache hit or after a transform that changed the row count), and a
+failing columnar transform is quarantined whole
+(:data:`~petastorm_tpu_torch.readers.piece_worker.QUARANTINED`).
 """
 
 from __future__ import annotations
@@ -45,11 +59,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import ScalarCodec, decode_cells
+from petastorm_tpu_torch.codecs import (ScalarCodec, _is_fixed,
+                                        decode_cells, split_binary_chunk)
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
+from petastorm_tpu_torch.lineage import NEVER_QUARANTINE
 from petastorm_tpu_torch.ngram import NGram, NGramWindowChunk
 from petastorm_tpu_torch.ops.decode import raw_column_view, repack_to_raw
-from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS
+from petastorm_tpu_torch.readers.piece_worker import PLAIN_READS, QUARANTINED
 from petastorm_tpu_torch.transform import (TransformSpec,
                                            apply_columnar_transform)
 from petastorm_tpu_torch.unischema import Unischema
@@ -78,29 +94,92 @@ def decode_column(field, chunk: pa.Array, keep_none: bool = False,
     return codec.decode_column(field, chunk)
 
 
+def _cell_decoder(field, override: Optional[Callable]) -> Callable:
+    """The one-cell decode of ``field`` (cells as uint8 views)."""
+    if override is not None:
+        return override
+    make = getattr(field.codec, 'make_cell_decoder', None)
+    if make is not None:
+        return make(field)
+    return lambda cell: field.codec.decode(field, cell.tobytes())
+
+
+def decode_column_tolerant(field, chunk: pa.Array, keep_none: bool,
+                           override: Optional[Callable],
+                           on_cell_error: Callable) -> np.ndarray:
+    """:func:`decode_column`, and where it raises on a codec column, the
+    column again cell by cell: each failing cell is reported as
+    ``on_cell_error(row, exc)`` and left ``None`` in an object array. A
+    retry in which no cell fails re-raises the first error (the failure
+    was not a cell's, e.g. a codec giving a wrong shape)."""
+    try:
+        return decode_column(field, chunk, keep_none, override)
+    except NEVER_QUARANTINE:
+        raise
+    except Exception:
+        binary = (pa.types.is_binary(chunk.type)
+                  or pa.types.is_large_binary(chunk.type))
+        if field.codec is None or not binary:
+            raise
+        decode = _cell_decoder(field, override)
+        offsets, data = split_binary_chunk(chunk)
+        valid = (chunk.is_valid().to_numpy(zero_copy_only=False)
+                 if chunk.null_count else None)
+        out = np.empty(len(chunk), dtype=object)
+        failed = False
+        for i in range(len(chunk)):
+            if valid is not None and not valid[i]:
+                continue
+            try:
+                out[i] = decode(data[int(offsets[i]):int(offsets[i + 1])])
+            except NEVER_QUARANTINE:
+                raise
+            except Exception as e:      # reported; the worker drops the row
+                failed = True
+                on_cell_error(i, e)
+        if not failed:
+            raise
+        return out
+
+
 def decode_columns(table, schema: Unischema, keep_none: bool = False,
                    overrides: Optional[Dict[str, Callable]] = None,
-                   plans=None) -> Dict[str, np.ndarray]:
+                   plans=None, sink=None) -> Dict[str, np.ndarray]:
     """Codec-decode every column of ``table`` that ``schema`` declares,
     through ``overrides[name]`` where a decode hint gives one; a column
-    with a device-decode plan in ``plans`` comes out as its raw grid."""
+    with a device-decode plan in ``plans`` comes out as its raw grid. With
+    a ``sink`` (a ``DecodeErrorSink``) codec columns decode tolerantly
+    (:func:`decode_column_tolerant`) and their failing cells go into it."""
     overrides = overrides or {}
     plans = plans or {}
     out = {}
     for name in table.column_names:
         if name not in schema.fields:
             continue
+        field = schema.fields[name]
         plan = plans.get(name)
         if plan is not None:
             raw = raw_column_view(table.column(name), plan)
             if raw is None:
                 raw = repack_to_raw(plan, decode_column(
-                    schema.fields[name], table.column(name).combine_chunks()))
+                    field, table.column(name).combine_chunks()))
             out[name] = raw
             continue
-        out[name] = decode_column(schema.fields[name],
-                                  table.column(name).combine_chunks(),
-                                  keep_none, overrides.get(name))
+        chunk = table.column(name).combine_chunks()
+        if sink is None:
+            out[name] = decode_column(field, chunk, keep_none,
+                                      overrides.get(name))
+            continue
+        errors_before = len(sink.errors)
+        out[name] = decode_column_tolerant(
+            field, chunk, keep_none, overrides.get(name),
+            lambda row, exc, _name=name: sink.errors.append(
+                (row, _name, exc)))
+        if (len(sink.errors) > errors_before and _is_fixed(field)
+                and chunk.null_count == 0):
+            # the dense decode would have given (n, *shape): make it so
+            # again once the failing rows are dropped
+            sink.dense_fields.add(name)
     return out
 
 
@@ -138,15 +217,25 @@ def read_columns(piece: RowGroupPiece, schema: Unischema,
 
 def load_columns(piece: RowGroupPiece, schema: Unischema, names: List[str],
                  keep_none: bool = False, overrides=None, plans=None,
-                 io=PLAIN_READS) -> Dict[str, np.ndarray]:
+                 io=PLAIN_READS, tolerant: bool = False
+                 ) -> Dict[str, np.ndarray]:
     """The row group's columns ``names`` (those ``schema`` declares),
     decoded (raw where ``plans`` has a plan), with partition columns made
-    for the partition keys among them."""
+    for the partition keys among them. ``tolerant``: under ``io``'s
+    quarantine policy, rows whose cells fail to decode are dropped (an
+    NGram load leaves it off: a hole would shift every window after it,
+    so its failures quarantine the whole item)."""
     names = [n for n in names if n in schema.fields]
     table = io.read(piece, stored_columns(names, piece))
-    columns = decode_columns(table, schema, keep_none, overrides, plans)
-    columns.update(make_partition_columns(schema, piece, table.num_rows,
-                                          set(names)))
+    sink = io.error_sink() if tolerant else None
+    columns = decode_columns(table, schema, keep_none, overrides, plans, sink)
+    n = table.num_rows
+    offsets = ('range', 0, n) if io.tracks_offsets else None
+    if sink is not None and sink.errors:
+        columns, offsets = io.apply_quarantine_drops(columns, sink, n)
+        n = len(offsets)
+    columns.update(make_partition_columns(schema, piece, n, set(names)))
+    io.set_offsets(offsets)
     return columns
 
 
@@ -190,6 +279,8 @@ def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
     if not mask.any():
         return None
     idx = np.nonzero(mask)[0]
+    if io.tracks_offsets:
+        io.set_offsets(idx.astype(np.int64))
     out = {f: pred_cols[f][idx] for f in fields if f in names}
     other = [f for f in names if f not in set(fields)]
     other_stored = stored_columns(other, piece)
@@ -198,6 +289,16 @@ def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
         out.update(decode_columns(rest, schema, keep_none, overrides))
     out.update(make_partition_columns(schema, piece, len(idx), set(other)))
     return out
+
+
+def slice_offsets(offsets, lo: int, hi: int):
+    """Source-row offsets after the payload slice ``[lo, hi)``."""
+    if offsets is None:
+        return None
+    if isinstance(offsets, tuple):
+        base = offsets[1]
+        return ('range', base + int(lo), base + int(hi))
+    return offsets[lo:hi]
 
 
 def drop_partition_bounds(n: int, partition: int, num_partitions: int,
@@ -270,19 +371,24 @@ def load_columnar(item, schema: Unischema, names: List[str],
     the transformed schema's fields). Columns planned in ``plans`` stay
     raw grids (the reader plans none under a predicate or a host
     transform). ``transform_key`` is the transform's
-    :func:`transform_fingerprint`. None when no row is left."""
+    :func:`transform_fingerprint`. None when no row is left;
+    ``QUARANTINED`` when the transform failed under a quarantine
+    policy."""
     partition, num_partitions = item.drop_partition
     if item.predicate is None and transform_spec is not None \
             and num_partitions == 1:
         def transformed():
             columns = load_columns(item.piece, schema, names,
-                                   overrides=overrides, plans=plans, io=io)
+                                   overrides=overrides, plans=plans, io=io,
+                                   tolerant=True)
             if not _row_count(columns):
                 return columns
             return apply_columnar_transform(transform_spec,
                                             transformed_schema, columns)
         columns = io.cached(columnar_cache_prefix(item, transform_key),
                             item.piece, transformed)
+        # the transform may change the row count: the rows are opaque
+        io.set_offsets(None)
         return columns if _row_count(columns) else None
     if item.predicate is not None:
         columns = load_with_predicate(item.piece, schema, names,
@@ -291,7 +397,8 @@ def load_columnar(item, schema: Unischema, names: List[str],
     else:
         columns = io.cached('columnar', item.piece, lambda: load_columns(
             item.piece, schema, names, overrides=overrides, plans=plans,
-            io=io))
+            io=io, tolerant=True))
+    offsets = io.offsets
     n = _row_count(columns)
     if not n:
         return None
@@ -300,9 +407,19 @@ def load_columnar(item, schema: Unischema, names: List[str],
         if hi <= lo:
             return None
         columns = {k: v[lo:hi] for k, v in columns.items()}
+        offsets = slice_offsets(offsets, lo, hi)
+        n = hi - lo
     if transform_spec is not None:
-        columns = apply_columnar_transform(transform_spec,
-                                           transformed_schema, columns)
+        try:
+            columns = apply_columnar_transform(transform_spec,
+                                               transformed_schema, columns)
+        except Exception as e:
+            if not io.quarantine_item('transform', e, rows=n):
+                raise
+            return QUARANTINED
+        if _row_count(columns) != n:
+            offsets = None      # rows made or dropped: opaque
+    io.set_offsets(offsets)
     if not _row_count(columns):
         return None
     return columns

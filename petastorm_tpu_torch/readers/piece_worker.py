@@ -13,8 +13,20 @@ through which it reads (:meth:`PieceWorker.read`) and caches
 thread or worker interpreter from a :class:`PieceWorkerSpec`, the picklable
 recipe the reader builds, and calls it on each item.
 
-Resilience, ranged reads, pod observability, lineage and quarantine are
-not ported yet.
+Lineage and quarantine (JAX ``piece_worker.py:33-56, 218-233, 565-705``
+and ``workers/worker_base.py:46-61, 151-168``): a worker calls its load
+with itself as ``io``, which then also carries the item's context. A load
+reports the source-row offsets of what it returns (:meth:`PieceWorker.
+set_offsets`), collects cell-level decode failures in a
+:class:`DecodeErrorSink` and drops their rows
+(:meth:`PieceWorker.apply_quarantine_drops`), and hands a failing
+transform to :meth:`PieceWorker.quarantine_item`. The worker wraps each
+payload in a :class:`~petastorm_tpu_torch.lineage.LineageEnvelope` with its
+:class:`~petastorm_tpu_torch.lineage.Provenance`, keeps the provenance of
+an item that left no row and the quarantine records, and the pools drain
+both after each item (:meth:`PieceWorker.drain_lineage`).
+
+Resilience, ranged reads and pod observability are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,16 +34,46 @@ from __future__ import annotations
 import hashlib
 import threading
 from collections import OrderedDict
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.lineage import (NEVER_QUARANTINE, LineageEnvelope,
+                                         Provenance, make_quarantine_record)
 from petastorm_tpu_torch.readers.readahead import RowGroupReadahead
 
 #: Open Parquet files a worker keeps (per reading thread): many-file stores
 #: would otherwise hold a handle and a footer per file ever read.
 FILE_HANDLE_CACHE_SIZE = 32
+
+#: Row offsets a quarantine record lists at most: a row group corrupt
+#: throughout must not ship thousands of offsets an item.
+_QUARANTINE_OFFSET_CAP = 64
+
+#: Offsets an ``('index', ...)`` selection names at most; a larger
+#: scattered match set is ``('opaque', n)`` (predicate readers are audited
+#: by item anyway).
+_SELECTION_INDEX_CAP = 4096
+
+#: What a load returns for an item whose failure was quarantined or skipped
+#: whole: no payload, and no empty delivery either.
+QUARANTINED = object()
+
+
+class DecodeErrorSink:
+    """The cell-level decode failures of one item (``on_decode_error`` other
+    than ``'raise'``): ``errors`` holds ``(row_offset, field, exception)``;
+    ``dense_fields`` names the columns that fell from the dense decode to
+    an object array and are made dense again once the failing rows are
+    dropped."""
+
+    __slots__ = ('errors', 'dense_fields')
+
+    def __init__(self):
+        self.errors: List[Tuple[int, str, BaseException]] = []
+        self.dense_fields = set()
 
 
 class FileHandleCache:
@@ -86,7 +128,11 @@ class FileHandleCache:
 
 class PlainReads:
     """The loads' ``io`` when none is given: a fresh handle a read, no
-    readahead and no cache."""
+    readahead, no cache, no lineage, and every failure raised."""
+
+    tolerant = False
+    tracks_offsets = False
+    offsets = None
 
     @staticmethod
     def read(piece, columns: List[str]):
@@ -96,6 +142,18 @@ class PlainReads:
     @staticmethod
     def cached(prefix: str, piece, fill: Callable):
         return fill()
+
+    @staticmethod
+    def error_sink():
+        return None
+
+    @staticmethod
+    def set_offsets(offsets) -> None:
+        pass
+
+    @staticmethod
+    def quarantine_item(stage, error, rows=None) -> bool:
+        return False
 
 
 PLAIN_READS = PlainReads()
@@ -140,17 +198,39 @@ class PieceWorkerSpec:
     :param cache: a :class:`~petastorm_tpu_torch.cache.CacheBase`.
     :param io_readahead: 0, a depth, or ``'auto'``.
     :param key_format: :func:`cache_key_format` of the reader.
+    :param lineage: wrap each payload with its provenance.
+    :param on_decode_error: ``'raise'``, ``'skip'`` or ``'quarantine'``.
+    :param shard: the reader's ``cur_shard``, -1 when unsharded.
+    :param dataset: the 12-character digest of the dataset path.
+    :param file_indexes: ``path -> ordinal`` by first appearance among the
+        reader's pieces.
+    :param windows: the payloads are NGram windows, not rows.
     """
 
-    def __init__(self, load, plan, cache, io_readahead, key_format):
+    def __init__(self, load, plan, cache, io_readahead, key_format,
+                 lineage=False, on_decode_error='raise', shard=-1,
+                 dataset='', file_indexes=None, windows=False):
         self.load = load
         self.plan = plan
         self.cache = cache
         self.io_readahead = io_readahead
         self.key_format = key_format
+        self.lineage = lineage
+        self.on_decode_error = on_decode_error
+        self.shard = shard
+        self.dataset = dataset
+        self.file_indexes = dict(file_indexes or {})
+        self.windows = windows
 
     def make_worker(self) -> 'PieceWorker':
         return PieceWorker(self)
+
+    def for_replay(self) -> 'PieceWorkerSpec':
+        """The recipe of a worker that fetches items again: no readahead,
+        no cache, no lineage; the same load and decode-error policy."""
+        return PieceWorkerSpec(self.load, self.plan, NullCache(), 0,
+                               self.key_format,
+                               on_decode_error=self.on_decode_error)
 
 
 class PieceWorker:
@@ -164,6 +244,24 @@ class PieceWorker:
         self._plan = spec.plan
         self.cache = spec.cache
         self._key_format = spec.key_format
+        self._lineage = spec.lineage
+        self._on_decode_error = spec.on_decode_error
+        #: decode and transform failures drop rows instead of raising
+        self.tolerant = spec.on_decode_error != 'raise'
+        #: the loads report source-row offsets (lineage or tolerance on)
+        self.tracks_offsets = self._lineage or self.tolerant
+        self._shard = spec.shard
+        self._dataset = spec.dataset
+        self._file_indexes = spec.file_indexes
+        self._windows = spec.windows
+        #: the pool's ordinal of this worker (its provenance's worker_id)
+        self.worker_id = 0
+        #: source-row offsets of what the current item's load returns: a
+        #: symbolic ``('range', lo, hi)``, an int array, or None (unknown)
+        self.offsets = None
+        self._item = None
+        self._quarantines: List[dict] = []
+        self._empty: List[Provenance] = []
         self._files = FileHandleCache(pq.ParquetFile)
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
@@ -174,7 +272,141 @@ class PieceWorker:
                                                spec.io_readahead)
 
     def __call__(self, item):
-        return self._load(item, io=self)
+        """The payload of ``item``: its load's result, wrapped with its
+        provenance when lineage is on; None when the item left no row or
+        was quarantined whole."""
+        if not self.tracks_offsets:
+            return self._load(item, io=self)
+        self._item = item
+        self.offsets = None
+        try:
+            payload = self._load(item, io=self)
+        except Exception as e:
+            if not self.quarantine_item('decode', e):
+                raise
+            return None
+        if payload is QUARANTINED:
+            return None
+        n = _payload_rows(payload)
+        if not n:
+            if self._lineage:
+                # an item processed fine that left no row: the audit must
+                # see a delivery of 0 rows, not a drop
+                self._empty.append(self._make_provenance(('index', ()), 0))
+            return None
+        if not self._lineage:
+            return payload
+        selection = (('windows', n) if self._windows
+                     else self._compact_selection(self.offsets, n))
+        return LineageEnvelope(payload, self._make_provenance(selection, n))
+
+    # -- lineage and quarantine ----------------------------------------------
+
+    def set_offsets(self, offsets) -> None:
+        """The source-row offsets of what the current load returns."""
+        self.offsets = offsets
+
+    def error_sink(self) -> Optional[DecodeErrorSink]:
+        """A sink for cell-level decode failures, None under ``'raise'``."""
+        return DecodeErrorSink() if self.tolerant else None
+
+    def drain_lineage(self) -> Tuple[List[dict], List[Provenance]]:
+        """The quarantine records and the provenance of empty items
+        collected since the last drain."""
+        out = (self._quarantines, self._empty)
+        self._quarantines, self._empty = [], []
+        return out
+
+    def _make_provenance(self, selection: tuple, rows: int) -> Provenance:
+        item = self._item
+        return Provenance(
+            dataset=self._dataset,
+            file_index=self._file_indexes.get(item.piece.path, -1),
+            path=item.piece.path, row_group=item.piece.row_group,
+            rows=int(rows), selection=selection, epoch=int(item.epoch),
+            shard=self._shard, piece_index=int(item.piece_index),
+            partition=tuple(item.drop_partition or (0, 1)),
+            worker_id=self.worker_id)
+
+    def _compact_selection(self, offsets, rows_n: int) -> tuple:
+        """The shortest selection naming the delivered source rows;
+        ``offsets`` as :attr:`offsets`."""
+        source_rows = self._item.piece.num_rows
+        if offsets is None:
+            return ('opaque', int(rows_n))
+        if isinstance(offsets, tuple):
+            lo, hi = int(offsets[1]), int(offsets[2])
+            if lo == 0 and hi == source_rows:
+                return ('all', hi)
+            return ('slice', lo, hi)
+        n = len(offsets)
+        if n == 0:
+            return ('index', ())
+        contiguous = (n == 1
+                      or (int(offsets[-1]) - int(offsets[0]) == n - 1
+                          and bool(np.all(np.diff(offsets) == 1))))
+        if contiguous:
+            lo, hi = int(offsets[0]), int(offsets[-1]) + 1
+            if lo == 0 and source_rows is not None and hi == source_rows:
+                return ('all', n)
+            return ('slice', lo, hi)
+        if n > _SELECTION_INDEX_CAP:
+            return ('opaque', int(rows_n))
+        return ('index', tuple(int(o) for o in offsets))
+
+    def quarantine_event(self, stage: str, error: BaseException, rows: int,
+                         field: Optional[str] = None,
+                         row_offsets=None) -> None:
+        """One quarantined failure; recorded under ``'quarantine'``,
+        dropped without a record under ``'skip'``."""
+        if self._on_decode_error != 'quarantine':
+            return
+        item = self._item
+        self._quarantines.append(make_quarantine_record(
+            item.piece, int(item.piece_index), int(item.epoch),
+            tuple(item.drop_partition or (0, 1)), self._shard, stage, error,
+            field=field, rows=rows,
+            row_offsets=(list(row_offsets)[:_QUARANTINE_OFFSET_CAP]
+                         if row_offsets is not None else None)))
+
+    def quarantine_item(self, stage: str, error: BaseException,
+                        rows: Optional[int] = None) -> bool:
+        """Quarantine or skip a whole failing item; False when the error
+        must propagate (policy ``'raise'``, or a failure of the
+        infrastructure that no policy swallows)."""
+        if not self.tolerant or isinstance(error, NEVER_QUARANTINE):
+            return False
+        if rows is None:
+            num_rows = self._item.piece.num_rows
+            rows = num_rows if (num_rows or 0) >= 0 else 1
+        self.quarantine_event(stage, error, rows)
+        return True
+
+    def apply_quarantine_drops(self, columns: Dict[str, np.ndarray],
+                               sink: DecodeErrorSink, num_rows: int
+                               ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+        """Drop the rows whose cells failed to decode from every column
+        (columns the tolerant decode made object arrays become dense
+        again), record one event a field, and return ``(columns, kept
+        source offsets)``."""
+        bad_rows = sorted({row for row, _field, _exc in sink.errors})
+        by_field: Dict[str, List] = {}
+        for row, field, exc in sink.errors:
+            by_field.setdefault(field, []).append((row, exc))
+        for field, fails in by_field.items():
+            self.quarantine_event('decode', fails[0][1], rows=len(fails),
+                                  field=field,
+                                  row_offsets=[r for r, _e in fails])
+        keep = np.ones(num_rows, dtype=bool)
+        keep[np.asarray(bad_rows, dtype=np.int64)] = False
+        kept = np.flatnonzero(keep)
+        out = {}
+        for name, arr in columns.items():
+            arr = arr[kept] if len(arr) == num_rows else arr
+            if name in sink.dense_fields and arr.dtype == object and len(arr):
+                arr = np.stack(list(arr))
+            out[name] = arr
+        return out, kept
 
     def cache_key(self, prefix: str, piece) -> str:
         return self._key_format.format(prefix, piece.path, piece.row_group)
@@ -242,12 +474,26 @@ class PieceWorker:
             close()
 
 
-def make_worker(process):
+def _payload_rows(payload) -> int:
+    """Rows (or windows) of a load's result: a dict of columns, an arrow
+    table, a list of rows or windows, a window chunk, or None."""
+    if payload is None:
+        return 0
+    if isinstance(payload, dict):
+        return len(next(iter(payload.values()))) if payload else 0
+    rows = getattr(payload, 'num_rows', None)       # an arrow table
+    return rows if rows is not None else len(payload)
+
+
+def make_worker(process, worker_id: int = 0):
     """The object a pool calls on each item: ``process.make_worker()`` for
-    a :class:`PieceWorkerSpec`, else ``process`` itself (a plain
-    ``process(item)`` callable)."""
+    a :class:`PieceWorkerSpec` (its provenance naming ``worker_id``), else
+    ``process`` itself (a plain ``process(item)`` callable)."""
     factory = getattr(process, 'make_worker', None)
-    return factory() if factory is not None else process
+    worker = factory() if factory is not None else process
+    if isinstance(worker, PieceWorker):
+        worker.worker_id = worker_id
+    return worker
 
 
 def shutdown_worker(worker) -> None:

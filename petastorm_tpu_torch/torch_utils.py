@@ -29,6 +29,14 @@
   and decodes them on the side stream after the copy
   (``prefetch_to_device(fused_fn=)``), so the raw bytes are what crosses
   PCIe and the decode runs once a batch.
+- Lineage (``jax_utils.py:471-480, 563-580, 620-655, 759-763``): with the
+  reader's lineage on, each row carries its packed source id
+  (:data:`~petastorm_tpu_torch.lineage.LINEAGE_COLUMN`, int64) through the
+  shuffling buffer; the loader pops it before the device decode,
+  ``pad_spec`` and ``transform_fn`` and puts it back as a
+  :class:`~petastorm_tpu_torch.lineage.BatchProvenance` under
+  ``batch['_provenance']``, which the staging passes through unstaged.
+  NGram batches carry none (a window spans rows).
 
 Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
 (the multi-GPU slice) and ``infeed_diagnosis`` (the tracing and health
@@ -48,6 +56,9 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.goodput import GoodputMonitor, goodput_enabled
+from petastorm_tpu_torch.lineage import (LINEAGE_COLUMN, PACK_SHIFT,
+                                         PROVENANCE_KEY, BatchProvenance,
+                                         pack_rows)
 from petastorm_tpu_torch.ops.decode import (build_fused_infeed,
                                             split_device_columns)
 from petastorm_tpu_torch.readers.shuffling_buffer import (
@@ -375,7 +386,10 @@ class TorchDataLoader(TorchLoaderBase):
       ``jax_utils.py:638-654, 712-783``).
 
     Numeric columns become tensors; strings, and ragged columns that no
-    ``pad_spec`` pads, stay numpy.
+    ``pad_spec`` pads, stay numpy. With the reader's lineage on, a batch
+    outside NGram also holds ``'_provenance'``, a
+    :class:`~petastorm_tpu_torch.lineage.BatchProvenance` naming each row's
+    source (``reader.replay(batch)`` fetches the rows again).
 
     :param shuffling_queue_capacity: 0 keeps reader order; otherwise items
         (windows, rows) shuffle in a buffer of that many, seeded by ``seed``.
@@ -431,6 +445,11 @@ class TorchDataLoader(TorchLoaderBase):
         self._cache_complete = False
         self.prefetch_depth = resolve_prefetch_depth(prefetch_depth)
         self._pin = self.device.type == 'cuda'
+        #: the reader's lineage tracker; rows carry their packed source ids
+        #: when it is on (not NGram windows: a window spans rows)
+        self._lineage = getattr(reader, 'lineage', None)
+        self._lineage_on = (self._ngram is None
+                            and getattr(self._lineage, 'enabled', False))
         #: name -> DeviceColumnPlan claimed from the reader
         self._device_plans = {}
         self._device_transform_spec = None
@@ -477,6 +496,10 @@ class TorchDataLoader(TorchLoaderBase):
         if self._cache is not None:
             self._cache = []        # an abandoned pass may have left some
         for batch in self._collated():
+            # the source column never reaches the decode, the padding, the
+            # user's transform or the card: it comes back as provenance
+            sources = (batch.pop(LINEAGE_COLUMN, None) if self._lineage_on
+                       else None)
             if self._fused is not None and decode:
                 batch = self._decode(batch)
             if self.pad_spec:
@@ -484,6 +507,8 @@ class TorchDataLoader(TorchLoaderBase):
             batch = self._tensors(batch)
             if self.transform_fn is not None:
                 batch = self.transform_fn(batch)
+            if sources is not None and isinstance(batch, dict):
+                batch[PROVENANCE_KEY] = BatchProvenance(sources, self._lineage)
             if self._cache is not None:
                 self._cache.append(batch)
             yield batch
@@ -499,6 +524,16 @@ class TorchDataLoader(TorchLoaderBase):
             return self._iter_rows(lambda window: window, _collate_windows)
         if getattr(self.reader, 'batched_output', False):
             return self._drive_batched_buffer(self._row_group_columns())
+        if self._lineage_on:
+            reader = self.reader
+
+            def prepare(row):
+                row = row._asdict()
+                if reader.last_seq is not None:
+                    row[LINEAGE_COLUMN] = ((reader.last_seq << PACK_SHIFT)
+                                           | reader.last_row_offset)
+                return row
+            return self._iter_rows(prepare, _collate)
         return self._iter_rows(lambda row: row._asdict(), _collate)
 
     def _make_buffer(self):
@@ -524,8 +559,14 @@ class TorchDataLoader(TorchLoaderBase):
             yield flat
 
     def _row_group_columns(self):
+        lineage_on = self._lineage_on
         for item in self.reader:
-            yield item._asdict()
+            columns = item._asdict()
+            n = len(next(iter(columns.values()))) if columns else 0
+            if lineage_on and n and self.reader.last_seq is not None:
+                # one int64 column a row group: the rows' packed source ids
+                columns[LINEAGE_COLUMN] = pack_rows(self.reader.last_seq, n)
+            yield columns
 
     def _tensors(self, batch):
         out = {}
@@ -592,6 +633,10 @@ def _collate(rows):
     shape and a numeric dtype, else an object array of the values."""
     out = {}
     for key in rows[0]:
+        if key == LINEAGE_COLUMN:
+            out[key] = np.fromiter((r[key] for r in rows), dtype=np.int64,
+                                   count=len(rows))
+            continue
         vals = [np.asarray(r[key]) for r in rows]
         if (len({v.shape for v in vals}) == 1
                 and not {v.dtype.kind for v in vals} & set('USO')):
@@ -666,7 +711,8 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
     from reusing the memory early. ``device='cpu'`` converts numpy leaves
     to tensors and stages nothing. Non-tensor leaves pass through.
     ``goodput`` (a :class:`~petastorm_tpu_torch.goodput.GoodputMonitor`,
-    e.g. ``loader.goodput``) gets each staging dispatch's host time.
+    e.g. ``loader.goodput``) gets each staging dispatch's host time. A
+    batch's ``'_provenance'`` passes through unstaged.
     ``fused_fn`` (:func:`~petastorm_tpu_torch.ops.decode.build_fused_infeed`)
     runs over each staged batch's tensors on the side stream, after the
     copy and before the event that hands the batch off: the device decode

@@ -9,34 +9,37 @@ order is exactly the ventilation order. Its one worker is made at start
 (``process.make_worker()`` for a reader's
 :class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorkerSpec`, else
 ``process``) and shut down at :meth:`DummyPool.join`. It hints no upcoming
-items, so a reader turns ``io_readahead`` off on it.
+items, so a reader turns ``io_readahead`` off on it. After each item the
+worker's quarantine records and empty deliveries go to ``pool.lineage``
+(JAX ``dummy_pool.py:27-29, 69-76``).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
-import numpy as np
-
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
                                                       shutdown_worker)
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
-                                                     ventilation_order)
+                                                     VentilationJob,
+                                                     drain_lineage)
 
 _END = object()
 
 
 class DummyPool:
     def __init__(self):
-        self._job = None
+        self._job: Optional[VentilationJob] = None
         self._worker = None
         self._order = iter(())
+        #: the reader's lineage tracker (set before :meth:`start`)
+        self.lineage = None
 
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
-              shuffle: bool = True, seed=None) -> None:
+              shuffle: bool = True, seed=None, on_ventilate=None) -> None:
         if self._job is not None:
             raise RuntimeError('pool already started')
-        self._job = (list(items), shuffle, np.random.default_rng(seed))
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
         self._worker = make_worker(process)
         self.reset(num_epochs)
 
@@ -47,13 +50,14 @@ class DummyPool:
         item = next(self._order, _END)
         if item is _END:
             raise EmptyResultError()
-        return self._worker(item)
+        result = self._worker(item)
+        drain_lineage(self._worker, self.lineage)
+        return result
 
     def reset(self, num_epochs: Optional[int] = 1) -> None:
         """Ventilate the items for ``num_epochs`` more epochs, the shuffle
-        continuing from the same generator."""
-        items, shuffle, rng = self._job
-        self._order = ventilation_order(items, num_epochs, shuffle, rng)
+        continuing from the same generator and the epochs counting on."""
+        self._order = self._job.order(num_epochs)
 
     def stop(self) -> None:
         self._order = iter(())

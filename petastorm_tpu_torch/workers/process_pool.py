@@ -33,10 +33,18 @@ its own: a worker with a ``prefetch_lookahead`` drains up to that many more
 items into its own FIFO without waiting and is hinted the whole FIFO, the
 current item first, before each item (JAX :965-1035).
 
+Lineage (JAX :152-157, 501-532, 569-573, 890-905, 1076-1079): a worker
+sends an envelope's provenance in the control frame, ``(DATA,
+provenance)``, and the payload alone through the serializer, so the
+payload frames stay out-of-band; the consumer wraps them again in a
+:class:`~petastorm_tpu_torch.lineage.LineageEnvelope`. The item's
+quarantine records and empty deliveries ride its ``ITEM_DONE`` message
+into ``pool.lineage``.
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
 no GPU and import neither torch nor jax. Resize (autotune), recovery
-(resilience), heartbeats (health), the lineage envelope and the stats
-plane of the JAX pool come with their own slices.
+(resilience), heartbeats (health) and the stats plane of the JAX pool come
+with their own slices.
 """
 
 from __future__ import annotations
@@ -50,8 +58,7 @@ import traceback
 from collections import deque
 from typing import List, Optional
 
-import numpy as np
-
+from petastorm_tpu_torch.lineage import LineageEnvelope
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
                                                       shutdown_worker)
 from petastorm_tpu_torch.workers.exec_in_new_process import \
@@ -59,7 +66,8 @@ from petastorm_tpu_torch.workers.exec_in_new_process import \
 from petastorm_tpu_torch.workers.serializers import (ZeroCopySerializer,
                                                      as_multipart)
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
-                                                     ventilation_order)
+                                                     VentilationJob,
+                                                     absorb_lineage)
 
 _STARTUP_TIMEOUT_S = 60
 _SHUTDOWN_TIMEOUT_S = 10
@@ -128,6 +136,8 @@ class ProcessPool:
         self._stop = threading.Event()
         self._stopped = False
         self._terminated = 0
+        #: the reader's lineage tracker (set before :meth:`start`)
+        self.lineage = None
 
     @property
     def workers_count(self) -> int:
@@ -135,10 +145,12 @@ class ProcessPool:
 
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
               shuffle: bool = True, seed=None,
-              max_in_flight: Optional[int] = None) -> None:
+              max_in_flight: Optional[int] = None,
+              on_ventilate=None) -> None:
         """Start the workers, each running ``process(item)``, wait until all
         reported in, then ventilate ``items``, at most ``max_in_flight``
-        (default twice the workers) not yet processed."""
+        (default twice the workers) not yet processed; ``on_ventilate(item)``
+        sees each work item as it is ventilated."""
         if self._processes:
             raise RuntimeError('pool already started')
         zmq = self._zmq
@@ -154,11 +166,11 @@ class ProcessPool:
         self._poller.register(self._results_receiver, zmq.POLLIN)
         addresses = ['{}:{}'.format(_LOCALHOST, port)
                      for port in (work_port, control_port, results_port)]
-        for _ in range(self._workers_count):
+        for worker_id in range(self._workers_count):
             self._processes.append(exec_in_new_process(
                 _worker_bootstrap,
                 args=(process, self._serializer, *addresses, os.getpid(),
-                      self._hwm)))
+                      self._hwm, worker_id)))
 
         started = 0
         deadline = time.monotonic() + _STARTUP_TIMEOUT_S
@@ -178,15 +190,13 @@ class ProcessPool:
 
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
-        self._job = (list(items), shuffle, np.random.default_rng(seed))
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
         self._launch(num_epochs)
 
     def _launch(self, num_epochs):
-        items, shuffle, rng = self._job
         self._ventilation_done = False
         self._ventilator = threading.Thread(
-            target=self._ventilate,
-            args=(ventilation_order(items, num_epochs, shuffle, rng),),
+            target=self._ventilate, args=(self._job.order(num_epochs),),
             name='petastorm-torch-ventilator', daemon=True)
         self._ventilator.start()
 
@@ -237,7 +247,12 @@ class ProcessPool:
                 self._check_workers_alive()
                 continue
             payload, control = self._recv()
+            extra = None
+            if isinstance(control, tuple):      # (marker, lineage)
+                control, extra = control
             if control == _ITEM_DONE:
+                if extra is not None:
+                    absorb_lineage(self.lineage, *extra)
                 with self._lock:
                     self._processed += 1
                 self._slots.release()
@@ -246,7 +261,10 @@ class ProcessPool:
                 self.stop()
                 raise _with_traceback(control)
             if control == _DATA:
-                return self._serializer.deserialize_multipart(payload)
+                result = self._serializer.deserialize_multipart(payload)
+                if extra is not None:
+                    result = LineageEnvelope(result, extra)
+                return result
             # a late _STARTED or _TERMINATED: nothing to do
 
     def _check_workers_alive(self):
@@ -324,7 +342,7 @@ def _nbytes(frame) -> int:
 
 
 def _worker_bootstrap(process, serializer, work_addr, control_addr,
-                      results_addr, parent_pid, hwm):
+                      results_addr, parent_pid, hwm, worker_id=0):
     """Entry point of a worker interpreter: serve items until FINISHED."""
     import zmq
 
@@ -340,8 +358,9 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
                      name='petastorm-torch-parent-monitor').start()
 
     serializer = as_multipart(serializer)
-    worker = make_worker(process)
+    worker = make_worker(process, worker_id)
     hint = getattr(worker, 'prefetch_hint', None)
+    drain = getattr(worker, 'drain_lineage', None)
     context = zmq.Context()
     work_receiver = context.socket(zmq.PULL)
     work_receiver.connect(work_addr)
@@ -397,9 +416,16 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             except Exception as e:     # shipped to the consumer
                 send_error(e)
             else:
-                if result is not None:
+                if isinstance(result, LineageEnvelope):
+                    # the record rides the control frame: the serializer
+                    # (and its out-of-band frames) sees the payload alone
+                    send(serializer.serialize_multipart(result.payload),
+                         (_DATA, result.provenance))
+                elif result is not None:
                     send(serializer.serialize_multipart(result), _DATA)
-            send([b''], _ITEM_DONE)
+            accounting = drain() if drain is not None else ([], [])
+            send([b''], (_ITEM_DONE, accounting)
+                 if accounting[0] or accounting[1] else _ITEM_DONE)
     finally:
         shutdown_worker(worker)
         send([b''], _TERMINATED)

@@ -20,9 +20,11 @@ thread runs under its own ``cProfile`` and :meth:`ThreadPool.join` logs
 the aggregate (JAX ``thread_pool.py:58-64, 613-620``). Once every result
 is consumed,
 :meth:`ThreadPool.reset` ventilates the items for more epochs, the shuffle
-continuing from the same generator (the JAX ventilator's ``reset``,
-``workers/ventilator.py:252-263``). ``stop()`` then ``join()`` ends every
-thread.
+continuing from the same generator and the epochs counting on (the JAX
+ventilator's ``reset``, ``workers/ventilator.py:252-263``). After each
+item a worker's quarantine records and empty deliveries go to
+``pool.lineage``, the reader's tracker (JAX ``thread_pool.py:183-190,
+233-236``). ``stop()`` then ``join()`` ends every thread.
 """
 
 from __future__ import annotations
@@ -49,11 +51,15 @@ _DONE = object()
 class WorkItem(NamedTuple):
     """One ventilated unit of work: a row-group piece, the row predicate of
     that piece (the user's, combined with the residual of ``filters``
-    specialised to the piece; None for none) and its row-drop partition
-    ``(partition, num_partitions)``."""
+    specialised to the piece; None for none), its row-drop partition
+    ``(partition, num_partitions)``, the piece's ordinal among the
+    reader's pieces and the epoch it is ventilated for (set by
+    :func:`ventilation_order`)."""
     piece: object
     predicate: object = None
     drop_partition: Tuple[int, int] = (0, 1)
+    piece_index: int = -1
+    epoch: int = 0
 
 
 class EmptyResultError(Exception):
@@ -61,21 +67,69 @@ class EmptyResultError(Exception):
 
 
 def ventilation_order(items: List, num_epochs: Optional[int], shuffle: bool,
-                      rng):
+                      rng, first_epoch: int = 0, on_ventilate=None):
     """The items in the order the ventilator sends them: ``num_epochs``
-    epochs (None = forever), each reshuffled from ``rng`` when
-    ``shuffle``. Every pool ventilates through this, so the pools give one
-    order for one seed."""
-    epoch = 0
-    while num_epochs is None or epoch < num_epochs:
+    epochs (None = forever) numbered from ``first_epoch``, each reshuffled
+    from ``rng`` when ``shuffle``. A :class:`WorkItem` goes out with its
+    epoch set, after ``on_ventilate(item)`` (the reader's lineage ledger).
+    Every pool ventilates through this, so the pools give one order for
+    one seed, and each counts epochs on across its resets (JAX
+    ``workers/ventilator.py:192-196``)."""
+    epoch = first_epoch
+    while num_epochs is None or epoch < first_epoch + num_epochs:
         order = np.arange(len(items))
         if shuffle:
             rng.shuffle(order)
         for i in order:
-            yield items[int(i)]
+            item = items[int(i)]
+            if isinstance(item, WorkItem):
+                item = item._replace(epoch=epoch)
+                if on_ventilate is not None:
+                    on_ventilate(item)
+            yield item
         epoch += 1
         if not items:
             break
+
+
+class VentilationJob:
+    """What a pool ventilates, and from which epoch its next pass counts:
+    the items, the shuffle, the seeded generator, and the reader's
+    ``on_ventilate`` hook."""
+
+    def __init__(self, items: List, shuffle: bool, seed, on_ventilate=None):
+        self.items = list(items)
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.on_ventilate = on_ventilate
+        self.next_epoch = 0
+
+    def order(self, num_epochs: Optional[int]):
+        """The next pass's :func:`ventilation_order`."""
+        first = self.next_epoch
+        if num_epochs is not None:
+            self.next_epoch += num_epochs
+        return ventilation_order(self.items, num_epochs, self.shuffle,
+                                 self.rng, first, self.on_ventilate)
+
+
+def absorb_lineage(lineage, quarantines, empty) -> None:
+    """Hand what a worker collected on an item to the reader's ``lineage``
+    tracker (None: nothing takes it): its quarantine records, and the
+    provenance of items it processed that left no row (JAX
+    ``thread_pool.py:183-190``)."""
+    if lineage is not None:
+        lineage.add_quarantines(quarantines)
+        for provenance in empty:
+            lineage.register(provenance)
+
+
+def drain_lineage(worker, lineage) -> None:
+    """:func:`absorb_lineage` of what ``worker`` collected on its last
+    item; a worker without lineage (a plain callable) has nothing."""
+    drain = getattr(worker, 'drain_lineage', None)
+    if drain is not None:
+        absorb_lineage(lineage, *drain())
 
 
 class ThreadPool:
@@ -99,19 +153,24 @@ class ThreadPool:
         self._slots: Optional[threading.Semaphore] = None
         self._ventilator: Optional[threading.Thread] = None
         self._workers_done = 0
-        self._job = None
+        self._job: Optional[VentilationJob] = None
+        #: the reader's lineage tracker (set before :meth:`start`): each
+        #: worker's quarantine records and empty deliveries drain into it
+        self.lineage = None
 
     def start(self, process: Callable, items: List, num_epochs: Optional[int]
               = 1, shuffle: bool = True, seed=None,
-              max_in_flight: Optional[int] = None) -> None:
-        """Start the workers and the ventilator over ``items``."""
+              max_in_flight: Optional[int] = None,
+              on_ventilate=None) -> None:
+        """Start the workers and the ventilator over ``items``;
+        ``on_ventilate(item)`` sees each work item as it is ventilated."""
         if self._threads:
             raise RuntimeError('pool already started')
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
-        self._job = (list(items), shuffle, np.random.default_rng(seed))
-        self.workers = [make_worker(process)
-                        for _ in range(self._workers_count)]
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
+        self.workers = [make_worker(process, worker_id=i)
+                        for i in range(self._workers_count)]
         self._launch(num_epochs)
 
     @property
@@ -119,7 +178,6 @@ class ThreadPool:
         return self._workers_count
 
     def _launch(self, num_epochs):
-        items, shuffle, rng = self._job
         for i, worker in enumerate(self.workers):
             t = threading.Thread(target=self._work, args=(worker,),
                                  name='petastorm-torch-worker-%d' % i,
@@ -127,7 +185,7 @@ class ThreadPool:
             t.start()
             self._threads.append(t)
         self._ventilator = threading.Thread(
-            target=self._ventilate, args=(items, num_epochs, shuffle, rng),
+            target=self._ventilate, args=(self._job.order(num_epochs),),
             name='petastorm-torch-ventilator', daemon=True)
         self._ventilator.start()
 
@@ -142,9 +200,9 @@ class ThreadPool:
         self._workers_done = 0
         self._launch(num_epochs)
 
-    def _ventilate(self, items, num_epochs, shuffle, rng):
+    def _ventilate(self, order):
         try:
-            for item in ventilation_order(items, num_epochs, shuffle, rng):
+            for item in order:
                 while not self._slots.acquire(timeout=0.1):
                     if self._stop.is_set():
                         return
@@ -208,6 +266,7 @@ class ThreadPool:
             item = pending.popleft()
             try:
                 result = worker(item)
+                drain_lineage(worker, self.lineage)
             except Exception as e:     # re-raised in the consumer
                 self._publish(('error', e))
                 return

@@ -554,7 +554,8 @@ def test_loader_over_a_shared_cache_gives_the_uncached_batches(
         for b, w in zip(p, want):
             assert b.keys() == w.keys()
             for k in w:
-                assert torch.equal(b[k], w[k])
+                if k != '_provenance':      # each pass's own seqs
+                    assert torch.equal(b[k], w[k])
     # the hits' tensors are the loader's own copies, writable without
     # touching the segments
     got[-1][0]['vec'] += 1

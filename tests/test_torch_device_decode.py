@@ -548,7 +548,7 @@ def test_field_set_changing_device_spec_declines_the_reader(token_store,
                          removed_fields=['idx'])
     batches, declined, plans = _port_epoch(url, transform_spec=spec)
     assert plans == set() and 'field set' in declined['*']
-    assert set(batches[0]) == {'tokens'}
+    assert set(batches[0]) == {'tokens', '_provenance'}
     assert _concat(batches, 'tokens').tobytes() == tokens.tobytes()
 
 

@@ -367,3 +367,27 @@ def test_worker_reading_through_a_shared_cache_with_readahead_imports_no_torch(
     assert totals['fills'] == ROWS // 8
     assert totals['hits'] == 3 * ROWS // 8     # 2 items a group, 2 passes
 
+
+
+@pytest.mark.timeout(180)
+def test_quarantining_worker_with_lineage_imports_no_torch(store, tmp_path,
+                                                            monkeypatch):
+    """A process-pool worker of a quarantining reader, lineage on, holds no
+    torch, jax or JAX package: the probe transform would fail on every
+    item in such an interpreter, and the quarantine would record it."""
+    from petastorm_tpu_torch.lineage import Provenance
+    from petastorm_tpu_torch.transform import TransformSpec
+    (tmp_path / 'pool_probe_module.py').write_text(_PROBE_MODULE)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    import pool_probe_module
+    url, _ = store
+    with make_columnar_reader(
+            url, reader_pool_type='process', workers_count=2,
+            on_decode_error='quarantine', shuffle_row_drop_partitions=2,
+            transform_spec=TransformSpec(pool_probe_module.probe)) as reader:
+        steps = sorted(int(s) for b in reader for s in b.step)
+        assert reader.lineage.enabled
+        assert reader.lineage.quarantines() == []
+        assert isinstance(reader.last_provenance, Provenance)
+        reader.audit().assert_complete()
+    assert steps == list(range(ROWS))

@@ -304,9 +304,9 @@ def test_source_scan_finds_no_jax_import():
     assert not hits, hits
 
 
-#: Modules of the device-decode, process-pool, readahead and cache slices;
-#: the worker side (everything a worker interpreter imports) must not
-#: import torch either.
+#: Modules of the device-decode, process-pool, readahead, cache and lineage
+#: slices; the worker side (everything a worker interpreter imports) must
+#: not import torch either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.etl.repack',
                  'petastorm_tpu_torch.workers.serializers',
@@ -316,7 +316,8 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.cache',
                  'petastorm_tpu_torch.sharedcache',
                  'petastorm_tpu_torch.readers.readahead',
-                 'petastorm_tpu_torch.readers.piece_worker']
+                 'petastorm_tpu_torch.readers.piece_worker',
+                 'petastorm_tpu_torch.lineage']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)
