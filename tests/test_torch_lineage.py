@@ -575,3 +575,30 @@ def test_lineage_batches_stage_to_the_card(store):
             rows += len(prov)
         assert rows == ROWS
         reader.audit().assert_complete()
+
+
+@pytest.mark.parametrize('policy', ['skip', 'quarantine'])
+def test_ngram_corruption_quarantines_the_item_as_jax(corrupt_store, policy):
+    """A window item is quarantined whole (a dropped row would shift every
+    window after it), with the row group's row count, as in JAX."""
+    got = {}
+    for package, gram in (('jax', JNGram), ('torch', NGram)):
+        with _open(package, 'row', corrupt_store, reader_pool_type='dummy',
+                   num_epochs=1, seed=0, on_decode_error=policy,
+                   schema_fields=gram({0: ['idx', 'image'], 1: ['idx']}, 1,
+                                      'idx')) as reader:
+            chunks = list(reader.iter_ngram_chunks())
+            got[package] = (sum(len(c) for c in chunks), _records(reader),
+                            _quarantines(reader), _report(reader))
+    assert got['torch'] == got['jax']
+    windows, records, quarantines, report = got['torch']
+    verdict = report['epochs'][0]
+    assert windows and len(records) == verdict['items_ventilated'] - 2
+    if policy == 'skip':
+        # no record: the audit reads the 2 items as dropped, as JAX's
+        assert quarantines == [] and len(verdict['dropped_items']) == 2
+        return
+    assert sorted((q['row_group'], q['rows'], q['stage'])
+                  for q in quarantines) == [(0, 7, 'decode'), (1, 7, 'decode')]
+    assert 'field' not in quarantines[0]
+    assert report['complete'] and len(verdict['quarantined_items']) == 2
