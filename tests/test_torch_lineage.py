@@ -602,3 +602,24 @@ def test_ngram_corruption_quarantines_the_item_as_jax(corrupt_store, policy):
                   for q in quarantines) == [(0, 7, 'decode'), (1, 7, 'decode')]
     assert 'field' not in quarantines[0]
     assert report['complete'] and len(verdict['quarantined_items']) == 2
+
+
+def test_epoch_caches_keep_batch_provenance(store):
+    from petastorm_tpu_torch.torch_utils import epoch_cache_on_device
+    with petastorm_tpu_torch.make_columnar_reader(
+            store, reader_pool_type='dummy', num_epochs=1) as reader:
+        loader = TorchDataLoader(reader, batch_size=8, device='cpu',
+                                 inmemory_cache_all=True)
+        first = list(loader)
+        again = list(loader)                  # from memory, no reader pass
+        assert [b['_provenance'] for b in again] == \
+            [b['_provenance'] for b in first]
+        assert all(isinstance(b['_provenance'], tlineage.BatchProvenance)
+                   for b in first)
+        staged = epoch_cache_on_device(loader, device='cpu')
+        for want in first:
+            got = next(staged)
+            assert got['_provenance'] is want['_provenance']
+            assert torch.equal(got['idx'], want['idx'])
+        assert reader.lineage.passes == 0
+        reader.audit().assert_complete()
