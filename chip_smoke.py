@@ -164,7 +164,35 @@ printing one line or a few:
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
    together, and none for K4 (no PyTorch call computes it; ``x.to(bf16)``,
-   which moves the same bytes, is printed as a yardstick of bytes).
+   which moves the same bytes, is printed as a yardstick of bytes);
+17. observability line (run before the times): the stats, latency and
+   tracing planes. The metered LM line: a token store of 8 files of 9
+   rows (64 NGram windows) read by ``make_reader`` (4 threads) ->
+   ``TorchDataLoader`` (batch 8) -> ``prefetch_to_device(stats=, tracer=,
+   goodput=)`` -> 8 AdamW steps of the full-width flagship LM on K1-K3,
+   each fenced through the goodput monitor, 2 runs under each of three
+   settings: ``PETASTORM_TPU_LATENCY=0`` with no trace, the default, and
+   ``trace=<file>`` + ``metrics_interval=0.5`` (Prometheus text, then JSON
+   lines) + an ``slo``. A traced run holds: the Chrome trace is JSON with
+   ``process_item``, ``queue_wait``, ``infeed_wait``, ``train_step``,
+   ``device_stage`` and goodput ``'step'`` spans, one ``train_step`` and
+   one ``'step'`` a step; ``items_out`` == the items ventilated; the
+   ``train_step`` histogram holds one count a step and its p99 lies
+   within ``QUANTILE_REL_ERROR_BOUND`` of the largest hold measured on the
+   host clock; the ``.prom`` file parses and names
+   ``petastorm_tpu_items_out``; ``reader.slo.evaluate()`` gives a verdict,
+   ``infeed_diagnosis`` names a bottleneck and ``explain_step(snapshot=)``
+   a chain. The metered png pass: the lineage store's 3 garbage cells
+   under ``'quarantine'`` on 8 threads into CNN steps on K4,
+   ``rows_quarantined`` == the audit's. The metered token line: the
+   columnar token store on the process pool, traced, device decode on:
+   ``payload_copies`` 0, ``bytes_moved`` > 0, ``rows_decoded_device`` ==
+   rows x 1 planned column, ``bytes_shipped_raw`` == the raw bytes
+   staged, worker spans with the workers' pids. The planes' cost: the LM
+   steady step (median of steps 2-8 a run) and token rows/s on the
+   thread pool (2 passes each, the traced passes writing JSON lines every
+   0.1 s) under the three settings, each ratio to latency off beside the
+   passes' spread.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -415,7 +443,7 @@ def reference_check(torch, tlm, seed):
                                                      rel))
 
 
-def write_store(np, url, seq_len, vocab, rows, seed):
+def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
     from petastorm_tpu_torch import materialize_dataset
     from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -425,7 +453,8 @@ def write_store(np, url, seq_len, vocab, rows, seed):
                        False)])
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, vocab, (rows, seq_len), dtype=np.int32)
-    with materialize_dataset(url, schema, rows_per_file=rows // 2,
+    with materialize_dataset(url, schema,
+                             rows_per_file=rows_per_file or rows // 2,
                              row_group_size_mb=64) as w:
         w.write_rows({'step': np.int64(i), 'tokens': tokens[i]}
                      for i in range(rows))
@@ -1649,7 +1678,9 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
     and then the pass's coverage audit is complete. Returns ``{'rate':
     rows/s, 'grid': a staged grid, 'fused': the loader's decode, 'order':
     the delivered idx, 'staged': (dtype, shape, device, bytes) a batch,
-    'tallies': the thread workers' readahead (hits, misses) or None}``."""
+    'tallies': the thread workers' readahead (hits, misses) or None,
+    'diagnostics': the reader's stats snapshot after the pass, 'tracer':
+    its tracer, 'pids': its worker processes' pids}``."""
     from petastorm_tpu_torch import TorchDataLoader, make_columnar_reader
     from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
     os.environ[DEVICE_DECODE_ENV_VAR] = switch
@@ -1699,6 +1730,9 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
         readaheads = [w.readahead.tallies()
                       for w in getattr(reader._pool, 'workers', [])
                       if w.readahead is not None]
+        diagnostics = reader.diagnostics
+        tracer = reader.tracer
+        pids = {p.pid for p in getattr(reader._pool, '_processes', [])}
         if audit and reader.lineage.enabled:
             report = reader.audit().assert_complete()
             check(report['epochs'][0]['rows_delivered'] == len(tokens),
@@ -1736,7 +1770,8 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
            if switch == 'on' else 'decoded int32 tokens',
            '; readahead hits %d, misses %d' % tallies if tallies else ''))
     return {'rate': rows / wall, 'grid': last.get('grid'), 'fused': fused,
-            'order': idx, 'staged': staged, 'tallies': tallies}
+            'order': idx, 'staged': staged, 'tallies': tallies,
+            'diagnostics': diagnostics, 'tracer': tracer, 'pids': pids}
 
 
 def decode_kernel_us(torch, fused, grid, n):
@@ -2783,6 +2818,368 @@ def lineage_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the observability line
+# ---------------------------------------------------------------------------
+
+OBS_FILES = 8                     # LM store: 8 files of 9 rows, 8 windows
+OBS_ROWS_PER_FILE = 9             # each: 64 windows, 8 batches of 8
+OBS_RUNS = 2                      # LM runs and token passes a setting
+OBS_INTERVAL = 0.5                # metrics_interval of the LM, seconds
+OBS_TOKEN_INTERVAL = 0.1          # of a token pass (0.4-2 s a pass)
+#: the planes' settings whose cost is measured: the latency kill switch
+#: with no trace, the default (latency on, no trace), trace plus metrics
+OBS_SETTINGS = ('off', 'default', 'traced')
+
+
+def _obs_env(setting):
+    """``PETASTORM_TPU_LATENCY`` of a setting (read when a reader is made)."""
+    from petastorm_tpu_torch.latency import LATENCY_ENV_VAR
+    if setting == 'off':
+        os.environ[LATENCY_ENV_VAR] = '0'
+    else:
+        os.environ.pop(LATENCY_ENV_VAR, None)
+
+
+def _held(iterator, out):
+    """``iterator``'s items, appending to ``out`` how long the consumer of
+    each (the staging thread) held it: the interval the loader's
+    ``train_step`` latency measures, on the host clock from outside."""
+    for item in iterator:
+        t = time.perf_counter()
+        yield item
+        out.append(time.perf_counter() - t)
+
+
+def metered_lm_run(torch, np, tlm, url, cfg, params, step, setting, d, n,
+                   device, args):
+    """One epoch of the LM store (8 batches) through ``make_reader``
+    (NGram, thread pool) -> ``TorchDataLoader`` -> ``prefetch_to_device``
+    with the reader's stats, tracer and the loader's goodput, the step
+    fenced through the goodput monitor. Under ``'traced'`` the reader
+    traces into a Chrome trace file, writes metrics every 0.5 s (the first
+    run Prometheus text, the second JSON lines) and evaluates an SLO, and
+    the run's gates are held. Returns ``(consumer step times, paths)``."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.latency import QUANTILE_REL_ERROR_BOUND
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.torch_utils import infeed_diagnosis
+    _obs_env(setting)
+    traced = setting == 'traced'
+    paths = {}
+    kw = {}
+    if traced:
+        paths = {'trace': os.path.join(d, 'trace%d.json' % n),
+                 'metrics': os.path.join(
+                     d, 'm%d.%s' % (n, 'prom' if n == 0 else 'jsonl'))}
+        kw = dict(trace=paths['trace'], metrics_interval=OBS_INTERVAL,
+                  metrics_out=paths['metrics'],
+                  slo={'p99_e2e_ms': 1000.0, 'min_samples_per_s': 1.0,
+                       'eval_interval_s': 0})
+    ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                  delta_threshold=1, timestamp_field='step')
+    label = 'observability LM %s run %d' % (setting, n)
+    times, held = [], []
+    with make_reader(url, schema_fields=ngram, num_epochs=1, workers_count=4,
+                     seed=args.seed, **kw) as reader:
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        goodput = loader.goodput
+        batches = prefetch_to_device(_held(iter(loader), held), size=2,
+                                     device=device, stats=reader.stats,
+                                     tracer=reader.tracer, goodput=goodput)
+        with contextlib.closing(batches):
+            for batch in batches:
+                t0 = time.perf_counter()
+                tokens = batch[0]['tokens']
+                targets = torch.cat([tokens[:, 1:],
+                                     batch[1]['tokens'][:, :1]], 1)
+                loss = float(goodput.fence(step(tokens, targets)))
+                times.append(time.perf_counter() - t0)
+                check(math.isfinite(loss), '%s: non-finite loss' % label)
+        check(len(times) == OBS_FILES,
+              '%s: %d steps, not %d' % (label, len(times), OBS_FILES))
+        snapshot = reader.diagnostics
+        latency = reader.latency
+        check((latency is None) == (setting == 'off'),
+              '%s: latency plane %s' % (label, latency))
+        if traced:
+            verdict = reader.slo.evaluate()
+            diagnosis = infeed_diagnosis(snapshot, latency=latency,
+                                         slo=verdict)
+            explained = goodput.explain_step(snapshot=snapshot)
+            ventilated = sum(reader.lineage.epoch_ledger(0)[
+                'ventilated'].values())
+            train = latency.histograms['train_step']
+            p99 = train.quantile(0.99)
+    if not traced:
+        return times, paths
+    check(snapshot['items_out'] == ventilated == OBS_FILES,
+          '%s: items_out %d, ventilated %d' % (label, snapshot['items_out'],
+                                               ventilated))
+    check(train.count == len(times) == len(held),
+          '%s: train_step holds %d observations for %d steps'
+          % (label, train.count, len(times)))
+    err = abs(p99 - max(held)) / max(held)
+    check(err <= QUANTILE_REL_ERROR_BOUND,
+          '%s: train_step p99 %.3f ms, host clock max %.3f ms (%.3f > %.3f)'
+          % (label, p99 * 1e3, max(held) * 1e3, err,
+             QUANTILE_REL_ERROR_BOUND))
+    with open(paths['trace']) as f:
+        doc = json.load(f)
+    spans = [e for e in doc['traceEvents'] if e['ph'] == 'X']
+    names = {}
+    for e in spans:
+        names[e['name']] = names.get(e['name'], 0) + 1
+    for name in ('process_item', 'queue_wait', 'infeed_wait', 'train_step',
+                 'device_stage', 'step'):
+        check(names.get(name, 0) > 0, '%s: no %s span in the trace: %s'
+              % (label, name, names))
+    check(names['train_step'] == names['step'] == len(times),
+          '%s: %d train_step and %d step spans for %d steps'
+          % (label, names['train_step'], names['step'], len(times)))
+    with open(paths['metrics']) as f:
+        text = f.read()
+    if n == 0:
+        samples = [line.split() for line in text.splitlines()
+                   if line and not line.startswith('#')]
+        try:        # each sample: a name (with labels) and a float value
+            parsed = all(len(x) == 2 and float(x[1]) is not None
+                         for x in samples)
+        except ValueError:
+            parsed = False
+        check(parsed, '%s: the .prom file does not parse' % label)
+        check(any(x[0] == 'petastorm_tpu_items_out' for x in samples),
+              '%s: the .prom file names no petastorm_tpu_items_out' % label)
+        metrics = '%d Prometheus samples' % len(samples)
+    else:
+        lines = [json.loads(line) for line in text.splitlines()]
+        check(lines and lines[-1]['items_out'] == OBS_FILES,
+              '%s: .jsonl lines %d' % (label, len(lines)))
+        metrics = '%d JSON lines' % len(lines)
+    check(verdict is not None and 'breached' in verdict,
+          '%s: no SLO verdict' % label)
+    check(diagnosis.get('bottleneck') not in (None, ''),
+          '%s: infeed_diagnosis named no bottleneck' % label)
+    check(explained.get('chain') is not None,
+          '%s: explain_step gave no chain: %r' % (label, explained))
+    log('%s: trace %d spans (%s), metrics %s, items_out %d == ventilated; '
+        'train_step p99 %.3f ms against the host clock max %.3f ms (within '
+        '%.3f); SLO %s (checks %s, skipped %s); infeed_diagnosis: %s; '
+        'explain_step: %s (chain %s) [%s]'
+        % (label, len(spans), json.dumps(names, sort_keys=True), metrics,
+           snapshot['items_out'], p99 * 1e3, max(held) * 1e3, err,
+           'breached' if verdict['breached'] else 'held',
+           sorted(verdict['checks']), verdict['skipped_checks'],
+           diagnosis['bottleneck'], explained['explanation'],
+           explained['chain'], CARD))
+    return times, paths
+
+
+def metered_png_pass(torch, np, kernels, args, d, device, rows, batch, size,
+                     workers):
+    """One pass over the lineage phase's png store (3 garbage ``image``
+    cells) on the thread pool under ``'quarantine'``, into CNN steps on K4:
+    ``rows_quarantined`` is the audit's. Returns the launch counts."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    path = os.path.join(d, 'images_poisoned')
+    url = 'file://' + path
+    write_indexed_images(np, url, rows, args.seed)
+    poisoned = corrupt_cells(path, 'image', LINEAGE_POISON)
+    resize = make_resize_transform(size)
+    spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                         selected_fields=['idx', 'image', 'label'])
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    steps = 0
+    with make_columnar_reader(url, num_epochs=1, workers_count=workers,
+                              seed=args.seed, transform_spec=spec,
+                              on_decode_error='quarantine') as reader:
+        loader = TorchDataLoader(reader, batch_size=batch, device=device)
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     stats=reader.stats,
+                                     goodput=loader.goodput)
+        with contextlib.closing(batches):
+            for b in batches:
+                loss = float(loader.goodput.fence(step(b['image'],
+                                                       b['label'])))
+                steps += 1
+        snapshot = reader.diagnostics
+        report = reader.audit().assert_complete()
+    launches = dict(kernels.LAUNCHES)
+    check(math.isfinite(loss), 'observability png: non-finite loss')
+    quarantined = report['rows_quarantined_total']
+    check(snapshot['rows_quarantined'] == quarantined == len(poisoned),
+          'observability png: rows_quarantined %d, audit %d, cells %d'
+          % (snapshot['rows_quarantined'], quarantined, len(poisoned)))
+    if device == 'cuda':
+        check(launches['normalize'] == steps,
+              'K4 launched %d times in %d observability png steps'
+              % (launches['normalize'], steps))
+    log('observability png thread pool: %d CNN steps on K4; rows_quarantined '
+        '%d == audit %d (items_quarantined %d); decoded %d rows batched, %d '
+        'cell by cell; e2e_batch p99 %.2f ms, queue_wait p99 %.3f ms [%s]'
+        % (steps, snapshot['rows_quarantined'], quarantined,
+           snapshot['items_quarantined'], snapshot['rows_decoded_batched'],
+           snapshot['rows_decoded_percell'],
+           snapshot['e2e_latency_p99_s'] * 1e3,
+           snapshot['queue_wait_p99_s'] * 1e3, CARD))
+    return launches
+
+
+def metered_token_line(torch, np, d, device, rows, seq, vocab, seed):
+    """The columnar token store: one traced pass on the process pool with
+    device decode on, its transport and decode counters and the workers'
+    spans held; then the cost of the planes on the thread pool, 2 passes
+    each under the three settings. Returns ``{setting: [rows/s]}``."""
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    url = 'file://' + os.path.join(d, 'token_rows')
+    start = time.perf_counter()
+    tokens = write_token_rows(np, url, rows, seq, vocab, seed)
+    log('observability token store %d rows x %d int32 tokens in %.2f s'
+        % (rows, seq, time.perf_counter() - start))
+    os.environ[DEVICE_DECODE_ENV_VAR] = 'on'
+    _obs_env('default')
+    got = token_pass(torch, np, url, tokens, 'process', 'on', device,
+                     TOKEN_BATCH, label='observability traced token',
+                     trace=True)
+    snap, tracer, pids = got['diagnostics'], got['tracer'], got['pids']
+    raw_staged = sum(g[3] for g in got['staged'])
+    label = 'observability token process pool'
+    check(snap['payload_copies'] == 0,
+          '%s: %d payload copies on the zero-copy path'
+          % (label, snap['payload_copies']))
+    check(snap['bytes_moved'] > 0, '%s: bytes_moved 0' % label)
+    check(snap['rows_decoded_device'] == rows * 1,
+          '%s: rows_decoded_device %d, not rows x 1 planned column (%d)'
+          % (label, snap['rows_decoded_device'], rows))
+    check(snap['bytes_shipped_raw'] == raw_staged,
+          '%s: bytes_shipped_raw %d, raw bytes staged %d'
+          % (label, snap['bytes_shipped_raw'], raw_staged))
+    worker_spans = [s for s in tracer.spans()
+                    if s[0] in ('process_item', 'serialize', 'parquet_read',
+                                'decode_columns')]
+    span_pids = {s[4] for s in worker_spans}
+    check(worker_spans and span_pids <= pids and len(span_pids) > 1,
+          '%s: worker span pids %s, workers %s' % (label, span_pids, pids))
+    log('%s: payload_copies %d, bytes_moved %d in %d frames, '
+        'rows_decoded_device %d == rows x 1 planned column, '
+        'bytes_shipped_raw %d == raw bytes staged; %d worker spans from '
+        'pids %s (the workers\') [%s]'
+        % (label, snap['payload_copies'], snap['bytes_moved'],
+           snap['payload_frames'], snap['rows_decoded_device'],
+           snap['bytes_shipped_raw'], len(worker_spans), sorted(span_pids),
+           CARD))
+    rates = {}
+    for n in range(OBS_RUNS):
+        for setting in OBS_SETTINGS:
+            _obs_env(setting)
+            kw = {}
+            if setting == 'traced':
+                jsonl = os.path.join(d, 'token%d.jsonl' % n)
+                kw = dict(trace=True, metrics_interval=OBS_TOKEN_INTERVAL,
+                          metrics_out=jsonl)
+            got = token_pass(torch, np, url, tokens, 'thread', 'on', device,
+                             TOKEN_BATCH,
+                             label='observability %s pass %d, token'
+                             % (setting, n), **kw)
+            rates.setdefault(setting, []).append(got['rate'])
+            if setting == 'traced':
+                with open(jsonl) as f:
+                    lines = [json.loads(line) for line in f]
+                check(len(lines) >= 2 and lines[-1]['items_out'] > 0,
+                      'observability token: %d JSON lines, not one and the '
+                      'final one' % len(lines))
+                log('observability token traced pass %d: %d JSON lines of '
+                    'metrics (every %g s and the final one)'
+                    % (n, len(lines), OBS_TOKEN_INTERVAL))
+    return rates
+
+
+def observability_line(torch, np, tlm, kernels, args, device='cuda',
+                       cfg=None, image_rows=IMAGE_ROWS,
+                       image_batch=IMAGE_BATCH, image_size=IMAGE_SIZE,
+                       rows=TOKEN_ROWS):
+    """Phase 17: the stats, latency and tracing planes on the card. The
+    metered LM line (full width, 8 steps a run on K1-K3, runs under the
+    three settings), the metered token line and the metered png pass (K4),
+    and the cost of the planes. Returns the launch counts of the LM runs
+    and of the png pass."""
+    from petastorm_tpu_torch.latency import LATENCY_ENV_VAR
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    saved = {k: os.environ.get(k)
+             for k in (DEVICE_DECODE_ENV_VAR, LATENCY_ENV_VAR)}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            url = 'file://' + os.path.join(d, 'tokens')
+            write_store(np, url, cfg.max_seq_len, cfg.vocab_size,
+                        OBS_FILES * OBS_ROWS_PER_FILE, args.seed,
+                        rows_per_file=OBS_ROWS_PER_FILE)
+            params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                              device=device)
+            _, step = tlm.make_train_step(cfg, params)
+            steps = {}
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            for n in range(OBS_RUNS):
+                for setting in OBS_SETTINGS:
+                    times, _ = metered_lm_run(torch, np, tlm, url, cfg,
+                                              params, step, setting, d, n,
+                                              device, args)
+                    steps.setdefault(setting, []).append(
+                        statistics.median(times[1:]))
+            lm = dict(kernels.LAUNCHES)
+            runs = OBS_RUNS * len(OBS_SETTINGS) * OBS_FILES
+            if device == 'cuda':
+                check(all(lm[k] == runs * cfg.n_layers for k in FLASH),
+                      'observability LM launches %r for %d steps of %d '
+                      'layers' % (lm, runs, cfg.n_layers))
+            png = metered_png_pass(torch, np, kernels, args, d, device,
+                                   image_rows, image_batch, image_size,
+                                   IMAGE_WORKERS)
+            rates = metered_token_line(torch, np, d, device, rows,
+                                       cfg.max_seq_len + 1, cfg.vocab_size,
+                                       args.seed)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    base = statistics.mean(steps['off'])
+    for setting in OBS_SETTINGS:
+        log('observability cost LM steady step (median of steps 2-%d) %s: '
+            '%s ms; / latency off %.4f (runs of off: %s ms) [%s]'
+            % (OBS_FILES, setting,
+               ' '.join('%.3f' % (t * 1e3) for t in steps[setting]),
+               statistics.mean(steps[setting]) / base,
+               ' '.join('%.3f' % (t * 1e3) for t in steps['off']), CARD))
+    base = statistics.mean(rates['off'])
+    for setting in OBS_SETTINGS:
+        spread = max(rates[setting]) / min(rates[setting])
+        log('observability cost token rows/s, thread pool, %s: %s; / latency '
+            'off %.4f (spread of its passes %.4f, of off\'s %.4f) [%s]'
+            % (setting, ' '.join('%.0f' % r for r in rates[setting]),
+               statistics.mean(rates[setting]) / base, spread,
+               max(rates['off']) / min(rates['off']), CARD))
+    log('observability LM launches %s (%d steps); png %s'
+        % (json.dumps(lm), OBS_RUNS * len(OBS_SETTINGS) * OBS_FILES,
+           json.dumps(png)))
+    return lm, png
+
+
+# ---------------------------------------------------------------------------
 # phase 16: times
 # ---------------------------------------------------------------------------
 
@@ -3049,6 +3446,18 @@ def main(argv=None):
         launches[name] += lineage_lm[name]
     launches['normalize'] += lineage_image['normalize']
     log('phase lineage line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    observed_lm, observed_png = observability_line(torch, np, tlm, kernels,
+                                                   args)
+    check(all(observed_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the metered LM line: %r'
+          % observed_lm)
+    check(observed_png['normalize'] > 0,
+          'K4 was not launched on the metered png pass')
+    for name in FLASH:
+        launches[name] += observed_lm[name]
+    launches['normalize'] += observed_png['normalize']
+    log('phase observability line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -22,7 +22,13 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :class:`TransformSpec`, :class:`NoDataAvailableError`,
 :class:`TorchDataLoader`, :func:`make_torch_loader`,
 :func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`,
-:class:`CoverageAuditor`, :class:`Provenance`.
+:class:`CoverageAuditor`, :class:`Provenance`, :class:`SharedRowGroupCache`,
+:class:`LatencyHistogram`, :class:`SLOMonitor`.
+
+The stats, latency and tracing planes: ``reader.stats``,
+``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
+``reader.slo`` (:mod:`petastorm_tpu_torch.workers.stats`,
+:mod:`petastorm_tpu_torch.latency`, :mod:`petastorm_tpu_torch.tracing`).
 """
 
 __version__ = '0.1.0'
@@ -31,7 +37,8 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'materialize_dataset', 'TransformSpec', 'NoDataAvailableError',
            'TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
            'flash_attention', 'normalize_images', 'CoverageAuditor',
-           'Provenance', '__version__']
+           'Provenance', 'SharedRowGroupCache', 'LatencyHistogram',
+           'SLOMonitor', '__version__']
 
 
 def __getattr__(name):
@@ -58,6 +65,12 @@ def __getattr__(name):
     if name in ('CoverageAuditor', 'Provenance'):
         from petastorm_tpu_torch import lineage
         return getattr(lineage, name)
+    if name == 'SharedRowGroupCache':
+        from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+        return SharedRowGroupCache
+    if name in ('LatencyHistogram', 'SLOMonitor'):
+        from petastorm_tpu_torch import latency
+        return getattr(latency, name)
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

@@ -205,6 +205,14 @@ class NdarrayCodec(_Codec):
         out[:] = cells
         return out
 
+    def make_column_decoder(self, field):
+        """``decode_chunk(chunk)``, the whole-column path of a fixed-shape
+        field (:meth:`_decode_uniform`: None when the chunk cannot take
+        it), or None for a wildcard shape."""
+        if field.shape is None or any(s is None for s in field.shape):
+            return None
+        return lambda chunk: self._decode_uniform(field, chunk)
+
     @staticmethod
     def _decode_uniform(field, chunk):
         shape = field.shape
@@ -222,11 +230,13 @@ class NdarrayCodec(_Codec):
             return None
         dtype, cell_shape, header_end = parsed
         expected = int(np.prod(cell_shape, dtype=np.int64)) * dtype.itemsize
-        if stride - header_end != expected or expected == 0:
+        if stride - header_end != expected:
             return None
         grid = block.reshape(n, stride)
         if not bool((grid[:, :header_end] == grid[0, :header_end]).all()):
             return None
+        if not expected:          # zero-size cells: nothing to reinterpret
+            return np.empty((n,) + cell_shape, dtype=dtype)
         payload = np.array(grid[:, header_end:])      # writable copy
         return payload.view(dtype).reshape((n,) + cell_shape)
 
@@ -287,6 +297,25 @@ class ScalarCodec(_Codec):
     def decode(self, field, value):
         dtype = np.dtype(field.numpy_dtype)
         return value if dtype.kind in ('U', 'S', 'O') else dtype.type(value)
+
+    def make_column_decoder(self, field):
+        """``decode_chunk(chunk)`` for a pass-through field (string, bytes or
+        object dtype): one ``to_pylist`` a chunk; None for numeric fields,
+        whose cells decode one by one."""
+        try:
+            kind = np.dtype(field.numpy_dtype).kind
+        except TypeError:
+            return None
+        if kind not in ('U', 'S', 'O'):
+            return None
+
+        def decode_chunk(chunk):
+            if chunk.null_count:
+                return None
+            out = np.empty(len(chunk), dtype=object)
+            out[:] = chunk.to_pylist()
+            return out
+        return decode_chunk
 
     def decode_column(self, field, chunk: pa.Array) -> np.ndarray:
         dtype = np.dtype(field.numpy_dtype)

@@ -20,10 +20,13 @@ time and the step records ``fenced=False``.
 The monitor keeps a bounded per-step ring and summed seconds; each ring
 entry keeps its batch's lineage provenance (``batch['_provenance']``), and
 :meth:`GoodputMonitor.explain_step` names the step's first source row
-group (JAX ``goodput.py:140-153, 190-222, 380-389, 431-456``). The JAX
-monitor also exports into the reader's stats, tracer and latency planes;
-the port has none of them yet (the tracing and health slice), so those
-stay ``None``.
+group (JAX ``goodput.py:140-153, 190-222, 380-389, 431-456``). Each closed
+step is exported into the reader's planes (JAX :233-260): the summed
+``goodput_*_s`` stages of ``stats``, the ``device_step`` and
+``host_overhead`` latencies, and one ``'step'`` span of the ``tracer``
+with the verdict in its args; a data stall's culprit chain walks
+:func:`~petastorm_tpu_torch.health.bottleneck_signals` of a stats
+snapshot (JAX :360-375).
 
 On by default; ``PETASTORM_TPU_GOODPUT=0`` (the JAX package's variable)
 leaves loaders with no monitor at all.
@@ -38,6 +41,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from petastorm_tpu_torch.health import bottleneck_signals
 
 __all__ = ['GOODPUT_ENV_VAR', 'GoodputMonitor', 'goodput_enabled',
            'classify_step', 'DATA_STALL', 'COMPUTE_BOUND', 'HOST_OVERHEAD',
@@ -63,10 +68,6 @@ DEFAULT_STEP_RING = 512
 
 #: Rolling goodput window (steps) for :meth:`GoodputMonitor.summary`.
 DEFAULT_WINDOW_STEPS = 32
-
-_UNPORTED_PLANES = ('the reader stats, tracing and latency planes are not '
-                    'ported to petastorm_tpu_torch yet; they come with the '
-                    'tracing and health slice')
 
 
 def goodput_enabled() -> bool:
@@ -114,15 +115,23 @@ class GoodputMonitor:
     drives :meth:`note_fetch` / :meth:`finish_step` from its ``__iter__``
     and the staging sites drive :meth:`note_stage` (from the prefetch
     thread: the pending sums are lock-protected; the monitor starts no
-    thread)."""
+    thread).
+
+    ``stats`` and ``tracer`` are the reader's planes (either may be None):
+    each closed step adds its seconds to the ``goodput_*_s`` stages and its
+    ``device_step`` (and, fenced, ``host_overhead``) to the latency
+    histograms of ``stats``, and one ``'step'`` span (category
+    ``'goodput'``, the verdict and stall in its args) to ``tracer``. A
+    monitor without ``stats`` records its latencies into ``latency`` (a
+    :class:`~petastorm_tpu_torch.latency.PipelineLatency`) when given."""
 
     def __init__(self, stats=None, tracer=None, latency=None,
                  ring_size: int = DEFAULT_STEP_RING,
                  window_steps: int = DEFAULT_WINDOW_STEPS,
                  host: Optional[str] = None):
-        if stats is not None or tracer is not None or latency is not None:
-            raise NotImplementedError(_UNPORTED_PLANES)
-        self.stats = self.tracer = self.latency = None
+        self.stats = stats
+        self.tracer = tracer
+        self.latency = latency
         self._host = host
         self._lock = threading.Lock()
         self._ring: collections.deque = collections.deque(maxlen=ring_size)
@@ -234,7 +243,38 @@ class GoodputMonitor:
             self._h2d_s += h2d_attrib
             self._device_s += device
             self._host_s += host
+        self._record(entry)
         return entry
+
+    def _record(self, entry: dict) -> None:
+        """Export one closed step to the planes (outside the lock: they
+        take their own)."""
+        stats = self.stats
+        if stats is not None:
+            stats.add_time('goodput_total_s', entry['total_s'])
+            stats.add_time('goodput_stall_s', entry['stall_s'])
+            stats.add_time('goodput_h2d_s', entry['h2d_stage_s'])
+            stats.add_time('goodput_device_s', entry['device_step_s'])
+            stats.add_time('goodput_host_s', entry['host_overhead_s'])
+            stats.record_latency('device_step', entry['device_step_s'])
+            if entry['fenced']:
+                stats.record_latency('host_overhead',
+                                     entry['host_overhead_s'])
+        elif self.latency is not None:
+            self.latency.record('device_step', entry['device_step_s'])
+            if entry['fenced']:
+                self.latency.record('host_overhead',
+                                    entry['host_overhead_s'])
+        tracer = self.tracer
+        if tracer is not None:
+            now = time.perf_counter()
+            stall_ms = (entry['stall_s'] + entry['h2d_stage_s']) * 1000.0
+            tracer.add_span('step', 'goodput', now - entry['total_s'],
+                            entry['total_s'],
+                            args={'step': entry['step'],
+                                  'verdict': classify_step(entry),
+                                  'stall_ms': round(stall_ms, 3),
+                                  'fenced': entry['fenced']})
 
     # -- read side -----------------------------------------------------------
 
@@ -313,14 +353,11 @@ class GoodputMonitor:
                      snapshot: Optional[dict] = None,
                      heartbeats=None) -> dict:
         """The verdict of step ``n`` (the latest when ``None``) and the
-        component that dominated it. The JAX monitor walks a data stall's
-        culprit chain further through a reader stats ``snapshot``; the port
-        has no such snapshot yet, and a non-empty one raises."""
-        if snapshot:
-            raise NotImplementedError(
-                "explain_step(snapshot=...) walks the reader's stats and "
-                'health signals, which are not ported to petastorm_tpu_torch '
-                'yet; they come with the tracing and health slice')
+        component that dominated it; for a data stall, the culprit chain
+        walked through :func:`~petastorm_tpu_torch.health.
+        bottleneck_signals` of a stats ``snapshot`` (``reader.diagnostics``)
+        and the prefetch ring's occupancy there. ``heartbeats`` is taken
+        for the health slice's surfaces and not read."""
         if n is None:
             entries = self.steps()
             entry = entries[-1] if entries else None
@@ -337,6 +374,18 @@ class GoodputMonitor:
         if verdict == DATA_STALL:
             chain.append('h2d_stage' if entry['h2d_stage_s'] > entry['stall_s']
                          else 'infeed_wait')
+            if snapshot:
+                signals = bottleneck_signals(snapshot)
+                if signals.get('tail_stall'):
+                    chain.append('queue_wait p99 tail')
+                if signals.get('slow_object_store'):
+                    chain.append('io_range')
+                elif signals.get('slow_peer_cache'):
+                    chain.append('peer_fetch')
+                elif not signals.get('tail_stall'):
+                    bottleneck = signals.get('bottleneck')
+                    if bottleneck and bottleneck != 'none':
+                        chain.append(bottleneck)
         elif verdict == HOST_OVERHEAD:
             chain.append('host_overhead')
         elif verdict == COMPUTE_BOUND:
@@ -350,6 +399,7 @@ class GoodputMonitor:
                 suffix = where.rsplit('/', 1)[-1]
                 chain[-1] = '{} ({} rg{})'.format(
                     chain[-1], suffix, source.get('row_group'))
+        occupancy = snapshot.get('prefetch_occupancy') if snapshot else None
         if verdict == DATA_STALL:
             explanation = 'step {} stalled {:.0f}ms on {}'.format(
                 entry['step'], stall_s * 1000.0, ' → '.join(chain))
@@ -385,6 +435,8 @@ class GoodputMonitor:
                 'fenced': entry['fenced'],
             },
         }
+        if occupancy is not None:
+            out['prefetch_occupancy'] = occupancy
         if provenance is not None:
             out['provenance'] = provenance
         if self._host is not None:

@@ -204,7 +204,8 @@ class LineageTracker:
                  row_filtered: bool = False,
                  record_capacity: int = DEFAULT_RECORD_CAPACITY,
                  epoch_capacity: int = DEFAULT_EPOCH_CAPACITY,
-                 quarantine_capacity: int = DEFAULT_QUARANTINE_CAPACITY):
+                 quarantine_capacity: int = DEFAULT_QUARANTINE_CAPACITY,
+                 record_vent_ts: bool = False):
         self.enabled = enabled
         self.dataset_digest = dataset_digest
         self.shard = shard
@@ -218,8 +219,15 @@ class LineageTracker:
         self.items = [(int(i), tuple(p)) for i, p in (items or [])]
         self._record_capacity = record_capacity
         self._epoch_capacity = epoch_capacity
+        #: stamp each ventilation with a ``time.perf_counter()`` reading
+        #: that :meth:`register` ties to the delivered item's seq: the start
+        #: of the ``e2e_batch`` latency (JAX ``lineage.py:241-246``). The
+        #: reader sets it only when its stats carry a latency plane.
+        self._record_vent_ts = bool(enabled and record_vent_ts)
         self._lock = threading.Lock()
         self._records: 'collections.OrderedDict[int, Provenance]' = \
+            collections.OrderedDict()
+        self._vent_ts: 'collections.OrderedDict[int, float]' = \
             collections.OrderedDict()
         self._next_seq = 0
         # epoch -> {'ventilated': Counter, 'vent_order': [key],
@@ -241,7 +249,7 @@ class LineageTracker:
         if entry is None:
             entry = {'ventilated': collections.Counter(), 'vent_order': [],
                      'delivered': {}, 'order': [], 'rows': 0,
-                     'quarantined': collections.Counter()}
+                     'quarantined': collections.Counter(), 'vent_ts': {}}
             self._epochs[epoch] = entry
             while len(self._epochs) > self._epoch_capacity:
                 self._epochs.popitem(last=False)
@@ -257,6 +265,11 @@ class LineageTracker:
             entry = self._epoch_entry(epoch)
             entry['ventilated'][key] += 1
             entry['vent_order'].append(key)
+            if self._record_vent_ts:
+                # a FIFO of dispatch times a key: deliveries of the key take
+                # them in dispatch order
+                entry['vent_ts'].setdefault(key, []).append(
+                    time.perf_counter())
 
     def register(self, record: Provenance) -> int:
         """Register one delivered item's provenance; returns its ``seq``,
@@ -269,6 +282,12 @@ class LineageTracker:
             while len(self._records) > self._record_capacity:
                 self._records.popitem(last=False)
             entry = self._epoch_entry(record.epoch)
+            if self._record_vent_ts:
+                ts_fifo = entry['vent_ts'].get(key)
+                if ts_fifo:
+                    self._vent_ts[seq] = ts_fifo.pop(0)
+                    while len(self._vent_ts) > self._record_capacity:
+                        self._vent_ts.popitem(last=False)
             entry['delivered'].setdefault(key, []).append(record)
             entry['order'].append(key)
             entry['rows'] += record.rows
@@ -281,6 +300,14 @@ class LineageTracker:
             return None
         with self._lock:
             return self._records.get(int(seq))
+
+    def ventilated_ts(self, seq) -> Optional[float]:
+        """The ``time.perf_counter()`` reading at which the item registered
+        as ``seq`` was ventilated (None when not stamped, or evicted)."""
+        if seq is None:
+            return None
+        with self._lock:
+            return self._vent_ts.get(int(seq))
 
     def add_quarantines(self, records) -> None:
         """Take in the quarantine records a pool drained from a worker."""

@@ -53,9 +53,20 @@ and ``on_decode_error='quarantine'`` (or ``'skip'``) drops the rows of a
 corrupt cell or a failing transform instead of raising, recording them in
 ``reader.lineage.quarantines()``.
 
-Not ported yet (each raises ``NotImplementedError``): health, tracing and
-autotune; resilience; remote object stores; JAX-process and elastic
-sharding.
+The stats, latency and tracing planes (JAX :133-137, 501-534, 699-785,
+812-824, 1040-1048, 1390-1504): ``reader.stats`` is the pool's
+:class:`~petastorm_tpu_torch.workers.stats.ReaderStats` (its latency
+histograms ``reader.latency``, None under ``PETASTORM_TPU_LATENCY=0``),
+``reader.diagnostics`` a snapshot of it, ``reader.tracer`` the span ring
+of ``trace=`` (or ``PETASTORM_TPU_TRACE``), exported as a Chrome trace at
+:meth:`Reader.join` when ``trace`` names a file; ``metrics_interval`` and
+``metrics_out`` start a :class:`~petastorm_tpu_torch.tracing.MetricsEmitter`
+and ``slo`` a :class:`~petastorm_tpu_torch.latency.SLOMonitor`
+(``reader.slo``).
+
+Not ported yet (each raises ``NotImplementedError``): health (``debug_port``,
+``stall_timeout``, ``flight_record_dir``) and autotune; resilience; remote
+object stores; JAX-process and elastic sharding.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ import copy
 import functools
 import hashlib
 import logging
+import time
 
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
 from petastorm_tpu_torch.codecs import build_decode_overrides
@@ -77,6 +89,7 @@ from petastorm_tpu_torch.filters import (FiltersPredicate,
                                          normalize_filters,
                                          validate_filter_types)
 from petastorm_tpu_torch.fs import urls_to_path_or_paths
+from petastorm_tpu_torch.latency import SLOMonitor, validate_slo_targets
 from petastorm_tpu_torch.lineage import (BatchProvenance, CoverageAuditor,
                                          LineageTracker, batch_provenance_of,
                                          lineage_enabled, unwrap_envelope,
@@ -95,6 +108,7 @@ from petastorm_tpu_torch.readers.piece_worker import (PieceWorkerSpec,
                                                       cache_key_format)
 from petastorm_tpu_torch.readers.readahead import AUTO_MAX_DEPTH
 from petastorm_tpu_torch.readers.row_worker import load_row_item, plan_rows
+from petastorm_tpu_torch.tracing import MetricsEmitter, Tracer, resolve_trace
 from petastorm_tpu_torch.transform import (apply_columnar_transform,
                                            transform_schema)
 from petastorm_tpu_torch.unischema import (Unischema, UnischemaField,
@@ -103,6 +117,7 @@ from petastorm_tpu_torch.utils import cast_partition_value
 from petastorm_tpu_torch.workers.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers.serializers import (ArrowTableSerializer,
                                                      ZeroCopySerializer)
+from petastorm_tpu_torch.workers.stats import device_decode_fraction
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      ThreadPool, WorkItem)
 
@@ -111,9 +126,7 @@ logger = logging.getLogger(__name__)
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('tracing and health', ('trace', 'metrics_interval', 'metrics_out',
-                            'debug_port', 'stall_timeout',
-                            'flight_record_dir', 'slo')),
+    ('health', ('debug_port', 'stall_timeout', 'flight_record_dir')),
     ('autotune', ('autotune',)),
     ('resilience', ('retry', 'hedge', 'worker_recovery')),
     ('remote object stores', ('remote_read', 'storage_options')),
@@ -182,19 +195,27 @@ def _make_cache(cache_type, cache_location, cache_size_limit,
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size,
-               serializer, zmq_copy_buffers, profiling_enabled):
+               serializer, zmq_copy_buffers, profiling_enabled, tracer=None):
     if reader_pool_type == 'thread':
         return ThreadPool(workers_count, results_queue_size,
-                          profiling_enabled=profiling_enabled)
+                          profiling_enabled=profiling_enabled, tracer=tracer)
     if reader_pool_type == 'process':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
         return ProcessPool(workers_count, serializer=serializer,
                            zmq_copy_buffers=zmq_copy_buffers,
-                           results_queue_size=results_queue_size)
+                           results_queue_size=results_queue_size,
+                           tracer=tracer)
     if reader_pool_type == 'dummy':
-        return DummyPool()
+        return DummyPool(tracer=tracer)
     raise ValueError("reader_pool_type must be one of 'thread', 'process', "
                      "'dummy'; got {!r}".format(reader_pool_type))
+
+
+def _make_tracer(trace):
+    """``trace=`` (and ``PETASTORM_TPU_TRACE``) resolved into ``(Tracer or
+    None, Chrome trace path or None)``."""
+    enabled, export_path = resolve_trace(trace)
+    return (Tracer() if enabled else None), export_path
 
 
 def _validate_shard_range(cur_shard, shard_count):
@@ -252,7 +273,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 zmq_copy_buffers=True, profiling_enabled=False,
                 cache_type='null', cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
-                io_readahead=0, on_decode_error='raise', **unported):
+                io_readahead=0, on_decode_error='raise', trace=None,
+                metrics_interval=0, metrics_out=None, slo=None, **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -306,15 +328,26 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     ``PETASTORM_TPU_LINEAGE=0``). ``on_decode_error`` is the bad-sample
     policy: ``'raise'`` (the default), ``'skip'`` (drop the rows of a
     corrupt cell or a failing transform) or ``'quarantine'`` (drop them
-    and record them in ``reader.lineage.quarantines()``)."""
+    and record them in ``reader.lineage.quarantines()``).
+
+    Observability: ``trace=True`` (or ``PETASTORM_TPU_TRACE``) records a
+    span of every pipeline stage into ``reader.tracer``; a string names
+    the Chrome trace file written at :meth:`Reader.join` (open it in
+    https://ui.perfetto.dev). ``metrics_interval=N`` writes
+    ``reader.diagnostics`` every N seconds into ``metrics_out`` (JSON lines,
+    or Prometheus text for a ``.prom`` path), and once more at ``join``.
+    ``slo`` (a dict of targets, see
+    :func:`~petastorm_tpu_torch.latency.validate_slo_targets`) gives
+    ``reader.slo``, whose ``evaluate()`` returns a verdict."""
     _refuse_unported('make_reader', unported)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
+    tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
-                      profiling_enabled)
+                      profiling_enabled, tracer)
     return Reader(path, copy.deepcopy(schema_fields), mode=mode, pool=pool,
                   num_epochs=num_epochs,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
@@ -323,7 +356,10 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   decode_hints=decode_hints, cache=cache,
-                  io_readahead=io_readahead, on_decode_error=on_decode_error)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error,
+                  trace_export=trace_export,
+                  metrics_interval=metrics_interval, metrics_out=metrics_out,
+                  slo=slo)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -337,18 +373,21 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          cache_location=None, cache_size_limit=None,
                          cache_row_size_estimate=None,
                          cache_extra_settings=None, io_readahead=0,
-                         on_decode_error='raise', **unported):
+                         on_decode_error='raise', trace=None,
+                         metrics_interval=0, metrics_out=None, slo=None,
+                         **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
     workers; a ``device=True`` spec receives a dict of tensors instead: after
     the device decode when the reader plans one (see :class:`Reader`), else
     on the workers as CPU tensors. Selection,
-    ``decode_hints``, the pool, readahead, the cache, lineage and
-    ``on_decode_error`` as in :func:`make_reader` (a policy other than
-    ``'raise'`` declines device decode); a whole row group's columns are
-    cached after the transform, so a hit skips the decode and the
-    transform. NGram is not supported."""
+    ``decode_hints``, the pool, readahead, the cache, lineage,
+    ``on_decode_error`` and the observability options as in
+    :func:`make_reader` (a policy other than ``'raise'`` declines device
+    decode); a whole row group's columns are cached after the transform,
+    so a hit skips the decode and the transform. NGram is not
+    supported."""
     _refuse_unported('make_columnar_reader', unported)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
@@ -356,9 +395,10 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     path = _single_path('make_columnar_reader', dataset_url)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
+    tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
-                      profiling_enabled)
+                      profiling_enabled, tracer)
     return Reader(path, schema_fields, mode='columnar', pool=pool,
                   num_epochs=num_epochs, shuffle_row_groups=shuffle_row_groups,
                   seed=seed,
@@ -367,7 +407,10 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   cur_shard=cur_shard, shard_count=shard_count,
                   shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                   decode_hints=decode_hints, cache=cache,
-                  io_readahead=io_readahead, on_decode_error=on_decode_error)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error,
+                  trace_export=trace_export,
+                  metrics_interval=metrics_interval, metrics_out=metrics_out,
+                  slo=slo)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -379,7 +422,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       cache_type='null', cache_location=None,
                       cache_size_limit=None, cache_row_size_estimate=None,
                       cache_extra_settings=None, io_readahead=0,
-                      on_decode_error='raise', **unported):
+                      on_decode_error='raise', trace=None,
+                      metrics_interval=0, metrics_out=None, slo=None,
+                      **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -390,9 +435,10 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
     ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
-    readahead, the cache, lineage and ``on_decode_error`` as in
-    :func:`make_reader` (a process pool sends each row group's table as one
-    Arrow IPC stream; the shared cache keeps it as one)."""
+    readahead, the cache, lineage, ``on_decode_error`` and the
+    observability options as in :func:`make_reader` (a process pool sends
+    each row group's table as one Arrow IPC stream; the shared cache keeps
+    it as one)."""
     _refuse_unported('make_batch_reader', unported)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
@@ -402,16 +448,20 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                          'are row-reader features)')
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
+    tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ArrowTableSerializer(), zmq_copy_buffers,
-                      profiling_enabled)
+                      profiling_enabled, tracer)
     return Reader(urls_to_path_or_paths(dataset_url_or_urls), schema_fields,
                   mode='batch', pool=pool, num_epochs=num_epochs,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, cur_shard=cur_shard,
                   shard_count=shard_count, cache=cache,
-                  io_readahead=io_readahead, on_decode_error=on_decode_error)
+                  io_readahead=io_readahead, on_decode_error=on_decode_error,
+                  trace_export=trace_export,
+                  metrics_interval=metrics_interval, metrics_out=metrics_out,
+                  slo=slo)
 
 
 def _view(stored, schema_fields):
@@ -456,14 +506,24 @@ class Reader:
 
     ``lineage`` is the reader's
     :class:`~petastorm_tpu_torch.lineage.LineageTracker` (disabled, but
-    there, under ``PETASTORM_TPU_LINEAGE=0``)."""
+    there, under ``PETASTORM_TPU_LINEAGE=0``). ``stats``, ``diagnostics``,
+    ``latency``, ``tracer`` and ``slo`` are the stats, latency and tracing
+    planes."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, pool,
                  num_epochs, shuffle_row_groups, seed,
                  transform_spec=None, predicate=None, filters=None,
                  rowgroup_selector=None, cur_shard=None, shard_count=None,
                  shuffle_row_drop_partitions=1, decode_hints=None,
-                 cache=None, io_readahead=0, on_decode_error='raise'):
+                 cache=None, io_readahead=0, on_decode_error='raise',
+                 trace_export=None, metrics_interval=0, metrics_out=None,
+                 slo=None):
+        if metrics_interval and not metrics_out:
+            raise ValueError('metrics_interval needs a metrics_out path to '
+                             'emit snapshots into')
+        if slo:
+            # a misspelt target fails here, not silently never breaching
+            slo = validate_slo_targets(slo)
         validate_decode_error_policy(on_decode_error)
         cache = cache if cache is not None else NullCache()
         if predicate is not None and not isinstance(cache, NullCache):
@@ -623,13 +683,22 @@ class Reader:
                          for p in range(shuffle_row_drop_partitions))
 
         dataset = hashlib.md5(str(dataset_path).encode()).hexdigest()[:12]
+        latency_on = getattr(pool.stats, 'latency', None) is not None
+        tracer = getattr(pool, 'tracer', None)
         self.lineage = LineageTracker(
             enabled=lineage_enabled(), dataset_digest=dataset,
             shard=cur_shard if cur_shard is not None else -1,
             pieces=[(p.path, p.row_group, p.num_rows) for p in pieces],
             items=[(it.piece_index, it.drop_partition) for it in items],
             row_filtered=(predicate is not None
-                          or filters_predicate is not None))
+                          or filters_predicate is not None),
+            # ventilation times start the e2e_batch latency: stamped only
+            # when the latency plane reads them
+            record_vent_ts=latency_on)
+        #: ``e2e_batch`` is recorded at item delivery, once an item, unless
+        #: a loader takes it over for its batches
+        self._e2e_live = self.lineage.enabled and latency_on
+        self._last_e2e_seq = None
         #: ``(piece_index, partition) -> WorkItem``: what replay runs
         self._replay_items = {(it.piece_index, it.drop_partition): it
                               for it in items}
@@ -643,7 +712,8 @@ class Reader:
             lineage=self.lineage.enabled, on_decode_error=on_decode_error,
             shard=cur_shard if cur_shard is not None else -1,
             dataset=dataset, file_indexes=file_indexes,
-            windows=ngram is not None)
+            windows=ngram is not None, trace=tracer is not None,
+            latency=latency_on)
         on_ventilate = None
         if self.lineage.enabled:
             # the ventilation ledger is the audit's expected side: what
@@ -652,15 +722,32 @@ class Reader:
 
             def on_ventilate(item):
                 record(item.epoch, item.piece_index, item.drop_partition)
+        if tracer is not None:
+            untraced = on_ventilate
+
+            def on_ventilate(item):
+                with tracer.span('ventilate', 'ventilator'):
+                    if untraced is not None:
+                        untraced(item)
         self._num_epochs = num_epochs
         #: True once the last item of the ventilated epochs was consumed:
         #: only then may :meth:`reset` start another pass
         self.last_row_consumed = False
         self._pool = pool
+        self._trace_export = trace_export
+        self._metrics_emitter = None
+        self._slo = None
         pool.lineage = self.lineage
         self._pool.start(self._spec, items, num_epochs=num_epochs,
                          shuffle=shuffle_row_groups, seed=seed,
                          on_ventilate=on_ventilate, **bound)
+        if metrics_interval:
+            self._metrics_emitter = MetricsEmitter(
+                self._stats_snapshot, metrics_interval, metrics_out)
+            self._metrics_emitter.start()
+        if slo:
+            self._slo = SLOMonitor(slo, snapshot_fn=self._stats_snapshot,
+                                   latency=pool.stats.latency)
 
     def _filter_row_groups(self, pieces, predicate, rowgroup_selector,
                            filters, cur_shard, shard_count):
@@ -745,6 +832,24 @@ class Reader:
                     self.last_seq = seq
                 return item
 
+    def _note_e2e(self):
+        """One ``e2e_batch`` observation for the item last yielded from, on
+        its first row (JAX ``reader.py:1040-1048``): ventilation to
+        delivery."""
+        seq = self.last_seq
+        if seq is not None and seq != self._last_e2e_seq:
+            self._last_e2e_seq = seq
+            ts = self.lineage.ventilated_ts(seq)
+            if ts is not None:
+                self._pool.stats.record_latency('e2e_batch',
+                                                time.perf_counter() - ts)
+
+    def _defer_e2e_to_loader(self):
+        """Called by a loader that records ``e2e_batch`` at its own batch
+        delivery: the reader then records none, so each delivered unit is
+        observed once."""
+        self._e2e_live = False
+
     def iter_ngram_chunks(self):
         """Window chunks, one per work item that has a valid window."""
         if not self.ngram_chunked:
@@ -766,10 +871,19 @@ class Reader:
                             'iter_ngram_chunks() or batch it with '
                             'TorchDataLoader')
         if self._batches is not None:
-            return self._batches.to_batch(self._next_item())
+            batch = self._batches.to_batch(self._next_item())
+            if self._e2e_live:
+                self._note_e2e()
+            return batch
         if self.batched_output:
             columns = self._next_item()
+            if self._e2e_live:
+                self._note_e2e()
             if self.device_decode_plans and not self._device_decode_deferred:
+                # the planned cells decode whole-column on the host
+                self._pool.stats.add('rows_decoded_batched', sum(
+                    len(columns[n]) for n in self.device_decode_plans
+                    if n in columns))
                 columns = self._host_decode_raw(columns)
             return self.schema.make_batch_namedtuple(**columns)
         # the last row (window) of an item first, as the JAX results reader
@@ -777,6 +891,8 @@ class Reader:
         if not self._rows:
             self._rows = self._next_item()
             self._rows_seq = self.last_seq
+            if self._e2e_live:
+                self._note_e2e()
         item = self._rows.pop()
         # after the pop, the length left is the popped row's offset
         self.last_seq = self._rows_seq
@@ -872,12 +988,83 @@ class Reader:
         items on."""
         return self._spec.for_replay().make_worker()
 
+    # -- the stats, latency and tracing planes -------------------------------
+
+    @property
+    def stats(self):
+        """The pool's :class:`~petastorm_tpu_torch.workers.stats.ReaderStats`:
+        the live per-stage telemetry (the loader and the staging record
+        into it too)."""
+        return self._pool.stats
+
+    @property
+    def diagnostics(self) -> dict:
+        """The pool's accounting and a snapshot of :attr:`stats`."""
+        return dict(self._pool.diagnostics)
+
+    @property
+    def latency(self):
+        """The per-stage latency histograms
+        (:class:`~petastorm_tpu_torch.latency.PipelineLatency`), None under
+        ``PETASTORM_TPU_LATENCY=0``."""
+        return self._pool.stats.latency
+
+    @property
+    def tracer(self):
+        """The pool's :class:`~petastorm_tpu_torch.tracing.Tracer` (None
+        unless built with ``trace=`` or ``PETASTORM_TPU_TRACE``):
+        ``reader.tracer.export_chrome_trace(path)`` writes a timeline
+        Perfetto opens; the loader and the staging record into it too."""
+        return self._pool.tracer
+
+    @property
+    def slo(self):
+        """The :class:`~petastorm_tpu_torch.latency.SLOMonitor` of ``slo=``
+        (None without): ``reader.slo.evaluate()`` is a verdict now."""
+        return self._slo
+
+    def _stats_snapshot(self) -> dict:
+        """What the metrics emitter and the SLO monitor read: the stats
+        snapshot and the device-decode fraction (JAX :1244-1262, without
+        the profiler's and autotune's gauges)."""
+        snapshot = self._pool.stats.snapshot()
+        fraction = device_decode_fraction(snapshot)
+        if fraction is not None:
+            snapshot['device_decode_fraction'] = fraction
+        return snapshot
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def next(self):
+        """``next(reader)``, the name of original petastorm's reader API."""
+        return self.__next__()
 
     def stop(self):
+        """Stop the pool; the metrics emitter is told to stop first, so a
+        pool that dies uncleanly leaves no emitter running."""
+        if self._metrics_emitter is not None:
+            self._metrics_emitter.stop(join=False)
         self._pool.stop()
 
     def join(self, timeout=None):
-        self._pool.join(timeout)
+        """Join the pool, then the metrics emitter (which writes its final
+        snapshot), then export the Chrome trace when ``trace`` named a
+        file."""
+        try:
+            self._pool.join(timeout)
+        finally:
+            if self._metrics_emitter is not None:
+                self._metrics_emitter.stop()
+        if self._trace_export and self.tracer is not None:
+            try:
+                self.tracer.export_chrome_trace(self._trace_export)
+            except OSError:
+                logger.exception('Failed to export chrome trace to %s',
+                                 self._trace_export)
+
+    def cleanup(self):
+        """Nothing to release beyond :meth:`stop` and :meth:`join` (original
+        petastorm's reader API)."""
 
     def __enter__(self):
         return self

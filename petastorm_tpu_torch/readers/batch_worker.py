@@ -22,10 +22,14 @@ no-predicate item caches its table, before the transform, under the key
 Lineage and quarantine (JAX ``batch_worker.py:70-100``): the loads report
 the source-row offsets of the table through ``io``, and under a quarantine
 policy a failing read or transform is quarantined with the whole item.
+Stats: the transform gives a ``decode`` latency observation and a
+``transform`` span; no codec cell is decoded, so no decode path is
+counted, as in JAX.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -133,6 +137,7 @@ def load_batch_item(item, schema: Unischema, full_schema: Unischema,
         return None
     if transform_spec is not None:
         n = table.num_rows
+        start = time.perf_counter()
         try:
             table = apply_pandas_transform(transform_spec, transformed_schema,
                                            table)
@@ -140,6 +145,12 @@ def load_batch_item(item, schema: Unischema, full_schema: Unischema,
             if not io.quarantine_item('transform', e, rows=n):
                 raise
             return QUARANTINED
+        finally:
+            # JAX's batch worker reports every transform, failed or not
+            # (``batch_worker.py:172-182``)
+            elapsed = time.perf_counter() - start
+            io.record_latency('decode', elapsed)
+            io.record_span('transform', 'decode', start, elapsed)
         if table.num_rows != n:
             offsets = None      # rows made or dropped: opaque
     io.set_offsets(offsets)

@@ -54,6 +54,7 @@ failing columnar transform is quarantined whole
 from __future__ import annotations
 
 import hashlib
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -79,12 +80,52 @@ def _is_numeric(field) -> bool:
             and field.numpy_dtype.kind in 'iuf')
 
 
+def _codec_cells(field, chunk: pa.Array) -> bool:
+    """A codec's binary cells: what the decode path counts cover."""
+    return (field.codec is not None and len(chunk) > 0
+            and (pa.types.is_binary(chunk.type)
+                 or pa.types.is_large_binary(chunk.type)))
+
+
+def decode_column_batched(field, chunk: pa.Array) -> Optional[np.ndarray]:
+    """The whole-column path (JAX ``_decode_column_batched``): the codec's
+    ``make_column_decoder`` on the chunk, or None to punt to the cell by
+    cell path, which then owns the errors (a chunk that raises punts)."""
+    make = getattr(field.codec, 'make_column_decoder', None)
+    decode_chunk = make(field) if make is not None else None
+    if decode_chunk is None:
+        return None
+    try:
+        out = decode_chunk(chunk)
+    except NEVER_QUARANTINE:
+        raise
+    except Exception:        # noqa: BLE001 - the cell path owns the error
+        return None
+    return out if out is not None and len(out) == len(chunk) else None
+
+
 def decode_column(field, chunk: pa.Array, keep_none: bool = False,
-                  override: Optional[Callable] = None) -> np.ndarray:
+                  override: Optional[Callable] = None,
+                  counts: Optional[Dict[str, int]] = None) -> np.ndarray:
     """One column chunk decoded with the field's codec, or cell by cell
     with ``override`` (a decode hint's scaled decode). Without
     ``keep_none`` a numeric scalar column with nulls is arrow's NaN-holed
-    float array; with it, an object array with ``None`` at the nulls."""
+    float array; with it, an object array with ``None`` at the nulls.
+
+    ``counts`` (``{'batched': n, 'percell': n}``) counts a codec's binary
+    cells by the path that decodes them, where JAX draws the line
+    (``columnar_worker.py:150-162``): a fixed-shape null-free column with
+    no override takes the whole-column path
+    (:func:`decode_column_batched`) when its codec has one and the chunk
+    decodes through it; every other such column goes cell by cell."""
+    if counts is not None and _codec_cells(field, chunk):
+        if (override is None and _is_fixed(field)
+                and chunk.null_count == 0):
+            out = decode_column_batched(field, chunk)
+            if out is not None:
+                counts['batched'] += len(chunk)
+                return out
+        counts['percell'] += len(chunk)
     if override is not None:
         return decode_cells(field, chunk, override)
     codec = field.codec or _SCALAR
@@ -106,14 +147,16 @@ def _cell_decoder(field, override: Optional[Callable]) -> Callable:
 
 def decode_column_tolerant(field, chunk: pa.Array, keep_none: bool,
                            override: Optional[Callable],
-                           on_cell_error: Callable) -> np.ndarray:
+                           on_cell_error: Callable,
+                           counts: Optional[Dict[str, int]] = None
+                           ) -> np.ndarray:
     """:func:`decode_column`, and where it raises on a codec column, the
     column again cell by cell: each failing cell is reported as
     ``on_cell_error(row, exc)`` and left ``None`` in an object array. A
     retry in which no cell fails re-raises the first error (the failure
     was not a cell's, e.g. a codec giving a wrong shape)."""
     try:
-        return decode_column(field, chunk, keep_none, override)
+        return decode_column(field, chunk, keep_none, override, counts)
     except NEVER_QUARANTINE:
         raise
     except Exception:
@@ -144,14 +187,27 @@ def decode_column_tolerant(field, chunk: pa.Array, keep_none: bool,
 
 def decode_columns(table, schema: Unischema, keep_none: bool = False,
                    overrides: Optional[Dict[str, Callable]] = None,
-                   plans=None, sink=None) -> Dict[str, np.ndarray]:
+                   plans=None, sink=None, io=PLAIN_READS,
+                   rows_path: bool = False) -> Dict[str, np.ndarray]:
     """Codec-decode every column of ``table`` that ``schema`` declares,
     through ``overrides[name]`` where a decode hint gives one; a column
     with a device-decode plan in ``plans`` comes out as its raw grid. With
     a ``sink`` (a ``DecodeErrorSink``) codec columns decode tolerantly
-    (:func:`decode_column_tolerant`) and their failing cells go into it."""
+    (:func:`decode_column_tolerant`) and their failing cells go into it.
+
+    The decode reports to ``io`` as JAX's ``_decode_table``
+    (``piece_worker.py:554-562``): the cells by path
+    (``rows_decoded_batched``, ``rows_decoded_percell``), the raw bytes of
+    planned columns (``bytes_shipped_raw``), one ``decode`` latency
+    observation and a ``decode_columns`` span. ``rows_path``: what JAX
+    decodes row by row (``_decode_with_partitions``: the row reader's
+    predicate and NGram loads), which counts no path and spans
+    ``decode_rows``."""
     overrides = overrides or {}
     plans = plans or {}
+    start = time.perf_counter()
+    counts = None if rows_path else {'batched': 0, 'percell': 0}
+    raw_bytes = 0
     out = {}
     for name in table.column_names:
         if name not in schema.fields:
@@ -162,24 +218,37 @@ def decode_columns(table, schema: Unischema, keep_none: bool = False,
             raw = raw_column_view(table.column(name), plan)
             if raw is None:
                 raw = repack_to_raw(plan, decode_column(
-                    field, table.column(name).combine_chunks()))
+                    field, table.column(name).combine_chunks(),
+                    counts=counts))
             out[name] = raw
+            raw_bytes += raw.nbytes
             continue
         chunk = table.column(name).combine_chunks()
         if sink is None:
             out[name] = decode_column(field, chunk, keep_none,
-                                      overrides.get(name))
+                                      overrides.get(name), counts)
             continue
         errors_before = len(sink.errors)
         out[name] = decode_column_tolerant(
             field, chunk, keep_none, overrides.get(name),
             lambda row, exc, _name=name: sink.errors.append(
-                (row, _name, exc)))
+                (row, _name, exc)), counts)
         if (len(sink.errors) > errors_before and _is_fixed(field)
                 and chunk.null_count == 0):
             # the dense decode would have given (n, *shape): make it so
             # again once the failing rows are dropped
             sink.dense_fields.add(name)
+    if counts is not None:
+        if counts['batched']:
+            io.record_count('rows_decoded_batched', counts['batched'])
+        if counts['percell']:
+            io.record_count('rows_decoded_percell', counts['percell'])
+    if raw_bytes:
+        io.record_count('bytes_shipped_raw', raw_bytes)
+    elapsed = time.perf_counter() - start
+    io.record_latency('decode', elapsed)
+    io.record_span('decode_rows' if rows_path else 'decode_columns',
+                   'decode', start, elapsed)
     return out
 
 
@@ -217,18 +286,20 @@ def read_columns(piece: RowGroupPiece, schema: Unischema,
 
 def load_columns(piece: RowGroupPiece, schema: Unischema, names: List[str],
                  keep_none: bool = False, overrides=None, plans=None,
-                 io=PLAIN_READS, tolerant: bool = False
-                 ) -> Dict[str, np.ndarray]:
+                 io=PLAIN_READS, tolerant: bool = False,
+                 rows_path: bool = False) -> Dict[str, np.ndarray]:
     """The row group's columns ``names`` (those ``schema`` declares),
     decoded (raw where ``plans`` has a plan), with partition columns made
     for the partition keys among them. ``tolerant``: under ``io``'s
     quarantine policy, rows whose cells fail to decode are dropped (an
     NGram load leaves it off: a hole would shift every window after it,
-    so its failures quarantine the whole item)."""
+    so its failures quarantine the whole item). ``rows_path`` as
+    :func:`decode_columns`'s."""
     names = [n for n in names if n in schema.fields]
     table = io.read(piece, stored_columns(names, piece))
     sink = io.error_sink() if tolerant else None
-    columns = decode_columns(table, schema, keep_none, overrides, plans, sink)
+    columns = decode_columns(table, schema, keep_none, overrides, plans, sink,
+                             io, rows_path)
     n = table.num_rows
     offsets = ('range', 0, n) if io.tracks_offsets else None
     if sink is not None and sink.errors:
@@ -266,14 +337,17 @@ def predicate_row_mask(predicate, fields, cols, n: int) -> np.ndarray:
 
 def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
                         names: List[str], predicate, keep_none: bool = False,
-                        overrides=None, io=PLAIN_READS
+                        overrides=None, io=PLAIN_READS,
+                        rows_path: bool = False
                         ) -> Optional[Dict[str, np.ndarray]]:
     """Decode the predicate's columns first, then the other columns
-    ``names`` only at the rows it keeps; None when it keeps none."""
+    ``names`` only at the rows it keeps; None when it keeps none.
+    ``rows_path`` as :func:`decode_columns`'s (the row reader's)."""
     fields = validate_predicate_fields(predicate, schema)
     pred_table = io.read(piece, stored_columns(fields, piece))
     n = pred_table.num_rows
-    pred_cols = decode_columns(pred_table, schema, keep_none, overrides)
+    pred_cols = decode_columns(pred_table, schema, keep_none, overrides,
+                               io=io, rows_path=rows_path)
     pred_cols.update(make_partition_columns(schema, piece, n, set(fields)))
     mask = predicate_row_mask(predicate, fields, pred_cols, n)
     if not mask.any():
@@ -286,7 +360,8 @@ def load_with_predicate(piece: RowGroupPiece, schema: Unischema,
     other_stored = stored_columns(other, piece)
     if other_stored:
         rest = io.read(piece, other_stored).take(pa.array(idx))
-        out.update(decode_columns(rest, schema, keep_none, overrides))
+        out.update(decode_columns(rest, schema, keep_none, overrides, io=io,
+                                  rows_path=rows_path))
     out.update(make_partition_columns(schema, piece, len(idx), set(other)))
     return out
 
@@ -360,6 +435,19 @@ def _row_count(columns) -> int:
     return len(next(iter(columns.values()))) if columns else 0
 
 
+def _timed_transform(transform_spec, transformed_schema, columns, io):
+    """The columnar transform, reported to ``io`` as JAX's
+    ``_apply_transform`` (``columnar_worker.py:555-565``): a ``decode``
+    latency observation and a ``transform`` span."""
+    start = time.perf_counter()
+    out = apply_columnar_transform(transform_spec, transformed_schema,
+                                   columns)
+    elapsed = time.perf_counter() - start
+    io.record_latency('decode', elapsed)
+    io.record_span('transform', 'decode', start, elapsed)
+    return out
+
+
 def load_columnar(item, schema: Unischema, names: List[str],
                   transform_spec: Optional[TransformSpec] = None,
                   transformed_schema: Optional[Unischema] = None,
@@ -383,8 +471,8 @@ def load_columnar(item, schema: Unischema, names: List[str],
                                    tolerant=True)
             if not _row_count(columns):
                 return columns
-            return apply_columnar_transform(transform_spec,
-                                            transformed_schema, columns)
+            return _timed_transform(transform_spec, transformed_schema,
+                                    columns, io)
         columns = io.cached(columnar_cache_prefix(item, transform_key),
                             item.piece, transformed)
         # the transform may change the row count: the rows are opaque
@@ -411,8 +499,8 @@ def load_columnar(item, schema: Unischema, names: List[str],
         n = hi - lo
     if transform_spec is not None:
         try:
-            columns = apply_columnar_transform(transform_spec,
-                                               transformed_schema, columns)
+            columns = _timed_transform(transform_spec, transformed_schema,
+                                       columns, io)
         except Exception as e:
             if not io.quarantine_item('transform', e, rows=n):
                 raise

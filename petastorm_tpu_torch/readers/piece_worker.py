@@ -26,13 +26,27 @@ payload in a :class:`~petastorm_tpu_torch.lineage.LineageEnvelope` with its
 an item that left no row and the quarantine records, and the pools drain
 both after each item (:meth:`PieceWorker.drain_lineage`).
 
+The stats plane (JAX ``workers/worker_base.py:73-149`` and
+``piece_worker.py:405-425, 554-562, 660-666, 715-740``): a worker
+accumulates per-stage seconds (:meth:`PieceWorker.record_time`), counters,
+gauges, latency observations (a
+:class:`~petastorm_tpu_torch.latency.LatencyDeltas`, unless the latency
+plane is off) and, when the reader traces, spans; its pool drains them
+after each item (:meth:`PieceWorker.drain_stage_times`,
+:meth:`~PieceWorker.drain_stat_counts`, :meth:`~PieceWorker.drain_latency`,
+:meth:`~PieceWorker.drain_spans`). The loads report through ``io`` as
+well: the read is timed here, the decode path counts and the decode's
+latency and span come from the loads.
+
 Resilience, ranged reads and pod observability are not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -40,6 +54,7 @@ import numpy as np
 import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.latency import LatencyDeltas
 from petastorm_tpu_torch.lineage import (NEVER_QUARANTINE, LineageEnvelope,
                                          Provenance, make_quarantine_record)
 from petastorm_tpu_torch.readers.readahead import RowGroupReadahead
@@ -155,6 +170,18 @@ class PlainReads:
     def quarantine_item(stage, error, rows=None) -> bool:
         return False
 
+    @staticmethod
+    def record_count(name: str, n: int = 1) -> None:
+        pass
+
+    @staticmethod
+    def record_latency(stage: str, seconds: float) -> None:
+        pass
+
+    @staticmethod
+    def record_span(name, cat, start_s, dur_s, args=None) -> None:
+        pass
+
 
 PLAIN_READS = PlainReads()
 
@@ -205,11 +232,15 @@ class PieceWorkerSpec:
     :param file_indexes: ``path -> ordinal`` by first appearance among the
         reader's pieces.
     :param windows: the payloads are NGram windows, not rows.
+    :param trace: record spans (the reader has a tracer).
+    :param latency: record latency observations (the reader's stats carry
+        a latency plane).
     """
 
     def __init__(self, load, plan, cache, io_readahead, key_format,
                  lineage=False, on_decode_error='raise', shard=-1,
-                 dataset='', file_indexes=None, windows=False):
+                 dataset='', file_indexes=None, windows=False, trace=False,
+                 latency=False):
         self.load = load
         self.plan = plan
         self.cache = cache
@@ -221,6 +252,8 @@ class PieceWorkerSpec:
         self.dataset = dataset
         self.file_indexes = dict(file_indexes or {})
         self.windows = windows
+        self.trace = trace
+        self.latency = latency
 
     def make_worker(self) -> 'PieceWorker':
         return PieceWorker(self)
@@ -262,6 +295,17 @@ class PieceWorker:
         self._item = None
         self._quarantines: List[dict] = []
         self._empty: List[Provenance] = []
+        #: per-stage seconds, counters, last-value gauges and spans since
+        #: the pool's last drain
+        self.stage_times: Dict[str, float] = {}
+        self.stat_counts: Dict[str, int] = {}
+        self.stat_gauges: Dict[str, float] = {}
+        self.trace_spans: List[tuple] = []
+        self.tracing_enabled = bool(spec.trace)
+        self._trace_pid = os.getpid()
+        #: latency observations since the last drain (None: the plane is
+        #: off)
+        self.latency = LatencyDeltas() if spec.latency else None
         self._files = FileHandleCache(pq.ParquetFile)
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
@@ -269,14 +313,17 @@ class PieceWorker:
         if spec.io_readahead:
             self._prefetch_files = FileHandleCache(pq.ParquetFile)
             self.readahead = RowGroupReadahead(self._readahead_read,
-                                               spec.io_readahead)
+                                               spec.io_readahead,
+                                               trace=self.tracing_enabled)
 
     def __call__(self, item):
         """The payload of ``item``: its load's result, wrapped with its
         provenance when lineage is on; None when the item left no row or
         was quarantined whole."""
         if not self.tracks_offsets:
-            return self._load(item, io=self)
+            # an item that left no row publishes nothing, as with lineage
+            payload = self._load(item, io=self)
+            return payload if _payload_rows(payload) else None
         self._item = item
         self.offsets = None
         try:
@@ -299,6 +346,57 @@ class PieceWorker:
         selection = (('windows', n) if self._windows
                      else self._compact_selection(self.offsets, n))
         return LineageEnvelope(payload, self._make_provenance(selection, n))
+
+    # -- the stats plane -----------------------------------------------------
+
+    def record_time(self, stage: str, seconds: float) -> None:
+        """``seconds`` of wall time against a ``ReaderStats`` stage; a
+        latency stage fed by it (``worker_io_s``: ``io``) gets one
+        observation."""
+        self.stage_times[stage] = self.stage_times.get(stage, 0.0) + seconds
+        if self.latency is not None:
+            self.latency.record_time_stage(stage, seconds)
+
+    def record_count(self, name: str, n: int = 1) -> None:
+        self.stat_counts[name] = self.stat_counts.get(name, 0) + n
+
+    def record_gauge(self, name: str, value) -> None:
+        """A gauge sample (the last one of an item wins)."""
+        self.stat_gauges[name] = value
+
+    def record_latency(self, stage: str, seconds: float) -> None:
+        """One observation of a latency stage; nothing when the plane is
+        off."""
+        if self.latency is not None:
+            self.latency.record(stage, seconds)
+
+    def record_span(self, name: str, cat: str, start_s: float, dur_s: float,
+                    args=None) -> None:
+        """One span on this process's and thread's track; nothing unless
+        the reader traces."""
+        if self.tracing_enabled:
+            self.trace_spans.append((name, cat, start_s, dur_s,
+                                     self._trace_pid, threading.get_ident(),
+                                     args))
+
+    def drain_stage_times(self) -> Dict[str, float]:
+        times, self.stage_times = self.stage_times, {}
+        return times
+
+    def drain_stat_counts(self):
+        """``(counters, gauges)`` since the last drain."""
+        counts, self.stat_counts = self.stat_counts, {}
+        gauges, self.stat_gauges = self.stat_gauges, {}
+        return counts, gauges
+
+    def drain_latency(self):
+        """The latency deltas since the last drain (None when the plane is
+        off or nothing was observed)."""
+        return self.latency.drain() if self.latency is not None else None
+
+    def drain_spans(self) -> List[tuple]:
+        spans, self.trace_spans = self.trace_spans, []
+        return spans
 
     # -- lineage and quarantine ----------------------------------------------
 
@@ -357,8 +455,10 @@ class PieceWorker:
     def quarantine_event(self, stage: str, error: BaseException, rows: int,
                          field: Optional[str] = None,
                          row_offsets=None) -> None:
-        """One quarantined failure; recorded under ``'quarantine'``,
-        dropped without a record under ``'skip'``."""
+        """One quarantined failure: counted, and recorded under
+        ``'quarantine'`` (``'skip'`` drops it without a record)."""
+        self.record_count('rows_quarantined', int(rows))
+        self.record_count('items_quarantined', 1)
         if self._on_decode_error != 'quarantine':
             return
         item = self._item
@@ -413,18 +513,34 @@ class PieceWorker:
 
     def cached(self, prefix: str, piece, fill: Callable):
         """The cache's value for the payload ``prefix`` of ``piece``,
-        ``fill()`` on a miss."""
-        return self.cache.get(self.cache_key(prefix, piece), fill)
+        ``fill()`` on a miss; a shared cache's hit, miss and eviction
+        counts and its resident bytes go to the stats."""
+        cache = self.cache
+        value = cache.get(self.cache_key(prefix, piece), fill)
+        take_events = getattr(cache, 'take_events', None)
+        if take_events is not None:
+            for name, n in take_events().items():
+                if n:
+                    self.record_count(name, n)
+            self.record_gauge('shared_cache_bytes', cache.occupancy_bytes())
+        return value
 
     def read(self, piece, columns: List[str]):
         """The row group's ``columns``: the readahead's read when it
-        prefetched it, else read here."""
+        prefetched it, else read here, timed as ``worker_io_s``."""
         if self.readahead is not None:
             table = self.readahead.take(read_key(piece, columns))
+            self.readahead.drain_stats_into(self)
             if table is not None:
                 return table
-        return self._files.get(piece.path).read_row_group(piece.row_group,
-                                                          columns=columns)
+        start = time.perf_counter()
+        table = self._files.get(piece.path).read_row_group(piece.row_group,
+                                                           columns=columns)
+        elapsed = time.perf_counter() - start
+        self.record_time('worker_io_s', elapsed)
+        self.record_span('parquet_read', 'io', start, elapsed,
+                         args={'row_group': piece.row_group})
+        return table
 
     def _readahead_read(self, piece, columns: List[str]):
         # the background thread's handles, never the worker's

@@ -17,10 +17,13 @@ current one:
   average read time over the average gap between two :meth:`take` calls
   (the worker's decode of one item), up to :data:`AUTO_MAX_DEPTH`.
 
-The hit, miss, read and wait tallies stay on the object
-(:meth:`RowGroupReadahead.tallies`). Not ported yet: ``drain_stats_into``,
-``trace`` and ``beat`` come with tracing and health, ``set_depth`` and
-``controlled`` with autotune.
+The hit, miss, read and wait tallies since the start stay on the object
+(:meth:`RowGroupReadahead.tallies`); the background thread never touches
+the worker's stats. What accumulated since the last call, and with
+``trace`` a ``readahead_read`` span per background read, moves into the
+worker on the worker's own thread (:meth:`RowGroupReadahead.drain_stats_into`,
+JAX :226-253). Not ported yet: ``beat`` comes with health, ``set_depth``
+and ``controlled`` with autotune.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+from petastorm_tpu_torch.tracing import make_span
 
 #: Upper bound of ``depth='auto'``, and the lookahead the reader sizes its
 #: in-flight bound by under ``'auto'``.
@@ -64,9 +69,11 @@ class RowGroupReadahead:
         the background thread, so it must use its own file handles.
     :param depth: the most reads outstanding, or ``'auto'``. ``0`` keeps
         the machinery idle: nothing is prefetched.
+    :param trace: keep a ``readahead_read`` span of each background read
+        (on the background thread's track) for :meth:`drain_stats_into`.
     """
 
-    def __init__(self, read_fn, depth):
+    def __init__(self, read_fn, depth, trace: bool = False):
         if depth != 'auto' and (not isinstance(depth, int) or depth < 0):
             raise ValueError(
                 "readahead depth must be a non-negative int or 'auto', got "
@@ -81,6 +88,10 @@ class RowGroupReadahead:
         self._stopped = False
         self._tallies = {'readahead_hits': 0, 'readahead_misses': 0,
                          'readahead_io_s': 0.0, 'readahead_wait_s': 0.0}
+        # what accumulated since the last drain_stats_into, and its spans
+        self._pending = dict.fromkeys(self._tallies, 0)
+        self._trace = trace
+        self._trace_spans: list = []
         # 'auto' measurements, under self._lock
         self._read_s_sum = 0.0
         self._read_samples = 0
@@ -147,6 +158,7 @@ class RowGroupReadahead:
             if entry is None:
                 if self._depth > 0:
                     self._tallies['readahead_misses'] += 1
+                    self._pending['readahead_misses'] += 1
                 # an inline read follows: skip the next gap sample
                 self._last_serve_end = None
                 return None
@@ -157,13 +169,38 @@ class RowGroupReadahead:
         entry.done.wait()
         waited = time.perf_counter() - wait_start
         with self._lock:
-            self._tallies['readahead_hits'] += 1
-            self._tallies['readahead_wait_s'] += waited
+            for tally in (self._tallies, self._pending):
+                tally['readahead_hits'] += 1
+                tally['readahead_wait_s'] += waited
             self._last_serve_end = time.perf_counter()
             self._retune_locked()
         if entry.error is not None:
             raise entry.error
         return entry.table
+
+    def drain_stats_into(self, worker) -> None:
+        """Move what accumulated since the last call into ``worker`` (a
+        :class:`~petastorm_tpu_torch.readers.piece_worker.PieceWorker`),
+        from the worker's thread: read and wait seconds, hits and misses,
+        the spans, and the ``readahead_depth`` gauge. The wait counts as
+        ``worker_io_s`` too: it is the storage stall the readahead did not
+        hide."""
+        with self._lock:
+            pending = self._pending
+            self._pending = dict.fromkeys(pending, 0)
+            spans, self._trace_spans = self._trace_spans, []
+            occupancy = len(self._scheduled)
+        for stage in ('readahead_io_s', 'readahead_wait_s'):
+            if pending[stage]:
+                worker.record_time(stage, pending[stage])
+        if pending['readahead_wait_s']:
+            worker.record_time('worker_io_s', pending['readahead_wait_s'])
+        for name in ('readahead_hits', 'readahead_misses'):
+            if pending[name]:
+                worker.record_count(name, pending[name])
+        if spans and getattr(worker, 'tracing_enabled', False):
+            worker.trace_spans.extend(spans)
+        worker.record_gauge('readahead_depth', occupancy)
 
     def _cancel_all_locked(self) -> None:
         for entry in self._scheduled:
@@ -200,6 +237,10 @@ class RowGroupReadahead:
             with self._lock:
                 if not entry.cancelled:
                     self._tallies['readahead_io_s'] += entry.read_s
+                    self._pending['readahead_io_s'] += entry.read_s
+                    if self._trace:
+                        self._trace_spans.append(make_span(
+                            'readahead_read', 'io', start, entry.read_s))
                 self._read_s_sum += entry.read_s
                 self._read_samples += 1
                 self._retune_locked()

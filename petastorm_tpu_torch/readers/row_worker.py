@@ -14,6 +14,13 @@ transforms each row and publishes ``form_ngram_dicts`` windows. A null cell
 is ``None``, never a NaN-holed float. A hinted field decodes through its
 override.
 
+The stats: where JAX decodes rows one by one (the predicate load and the
+NGram row path, ``_decode_with_partitions``), the port decodes column-wise
+all the same but reports as JAX does: no decode path counts and a
+``decode_rows`` span
+(:func:`~petastorm_tpu_torch.readers.columnar_worker.decode_columns`'s
+``rows_path``).
+
 Lineage and quarantine (JAX ``row_worker.py:130-225, 315-400``): the row
 load decodes tolerantly under ``on_decode_error`` (rows with a failing
 cell are dropped); the NGram loads do not, so a corrupt NGram item is
@@ -48,13 +55,14 @@ def _split_rows(columns: Optional[Dict], names: List[str]) -> List[Dict]:
 
 
 def load_rows(piece: RowGroupPiece, schema: Unischema, names: List[str],
-              overrides=None, io=PLAIN_READS, tolerant: bool = True
-              ) -> List[Dict]:
+              overrides=None, io=PLAIN_READS, tolerant: bool = True,
+              rows_path: bool = False) -> List[Dict]:
     """The row group as row dicts, decoded column-wise and then split;
-    ``tolerant`` as :func:`load_columns`'s."""
+    ``tolerant`` and ``rows_path`` as :func:`load_columns`'s."""
     return _split_rows(load_columns(piece, schema, names, keep_none=True,
                                     overrides=overrides, io=io,
-                                    tolerant=tolerant), names)
+                                    tolerant=tolerant, rows_path=rows_path),
+                       names)
 
 
 def transform_rows(rows: List[Dict], offsets, transform_spec: TransformSpec,
@@ -111,12 +119,13 @@ def load_row_item(item, schema: Unischema, names: List[str],
         rows = _split_rows(load_with_predicate(item.piece, schema, names,
                                                item.predicate,
                                                keep_none=True,
-                                               overrides=overrides, io=io),
+                                               overrides=overrides, io=io,
+                                               rows_path=True),
                            names)
     else:
         rows = io.cached('rowgroup', item.piece, lambda: load_rows(
             item.piece, schema, names, overrides, io,
-            tolerant=ngram is None))
+            tolerant=ngram is None, rows_path=ngram is not None))
     offsets = io.offsets
     partition, num_partitions = item.drop_partition
     if num_partitions > 1:

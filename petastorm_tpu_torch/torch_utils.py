@@ -38,9 +38,20 @@
   ``batch['_provenance']``, which the staging passes through unstaged.
   NGram batches carry none (a window spans rows).
 
+- The stats, latency and tracing planes (``jax_utils.py:297-393, 528-530,
+  587-610, 746, 1001-1100, 1193-1259``): a loader records into its
+  reader's ``stats`` and ``tracer`` the ``infeed_wait`` and ``train_step``
+  latencies and spans of each step, the ``shuffle_buffer_depth`` gauge,
+  ``rows_decoded_device`` of planned columns and, with lineage on,
+  ``e2e_batch`` at batch delivery; :func:`prefetch_to_device` records
+  ``device_stage_s``, the ``device_stage`` latency and span (the host's
+  dispatch of the copies: nothing here waits on the card) and the
+  ``prefetch_occupancy`` gauge. :func:`infeed_diagnosis` classifies a
+  stats snapshot.
+
 Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
-(the multi-GPU slice) and ``infeed_diagnosis`` (the tracing and health
-slice).
+(the multi-GPU slice), and ``infeed_diagnosis``'s ``heartbeats`` (the
+health slice) and ``roofline`` (the profiler slice).
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.goodput import GoodputMonitor, goodput_enabled
+from petastorm_tpu_torch.health import bottleneck_signals
 from petastorm_tpu_torch.lineage import (LINEAGE_COLUMN, PACK_SHIFT,
                                          PROVENANCE_KEY, BatchProvenance,
                                          pack_rows)
@@ -64,6 +76,10 @@ from petastorm_tpu_torch.ops.decode import (build_fused_infeed,
 from petastorm_tpu_torch.readers.shuffling_buffer import (
     BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer,
     NoopShufflingBuffer, RandomShufflingBuffer)
+from petastorm_tpu_torch.workers.stats import (batched_decode_fraction,
+                                               device_decode_fraction,
+                                               readahead_hit_rate,
+                                               recommend_io_readahead)
 
 logger = logging.getLogger(__name__)
 
@@ -274,17 +290,25 @@ class TorchLoaderBase:
     under ``PETASTORM_TPU_GOODPUT=0``): ``__iter__`` feeds it each step's
     fetch wait and train wall; call ``loader.goodput.fence(outputs)`` in
     the step for the device / host split, and pass ``goodput=
-    loader.goodput`` to :func:`prefetch_to_device` for the staging time."""
+    loader.goodput`` to :func:`prefetch_to_device` for the staging time.
+
+    ``stats`` and ``tracer`` are the reader's (None for a reader without):
+    each step's ``infeed_wait`` (the fetch) and ``train_step`` (the
+    consumer's hold of the batch) go into them as latencies and spans, and
+    the goodput monitor exports its steps into them."""
 
     def __init__(self, reader, device=None):
         self.device = resolve_device(device)
         self.reader = reader
         self._in_iter = None
         self._error = None
+        self.stats = getattr(reader, 'stats', None)
+        self.tracer = getattr(reader, 'tracer', None)
         #: Lookahead of :meth:`iter_prefetched`; subclasses set it from
         #: their ``prefetch_depth`` knob.
         self.prefetch_depth = resolve_prefetch_depth(None)
-        self.goodput = GoodputMonitor() if goodput_enabled() else None
+        self.goodput = (GoodputMonitor(stats=self.stats, tracer=self.tracer)
+                        if goodput_enabled() else None)
 
     def iter_prefetched(self, to_device=True):
         """Iterate with a background lookahead of ``self.prefetch_depth``
@@ -298,9 +322,10 @@ class TorchLoaderBase:
             return prefetch_to_device(self._iterate(decode=fused is None),
                                       self.prefetch_depth,
                                       device=self.device,
-                                      goodput=self.goodput, fused_fn=fused)
+                                      goodput=self.goodput, fused_fn=fused,
+                                      stats=self.stats, tracer=self.tracer)
         return _pipeline(iter(self), self.prefetch_depth,
-                         lambda batch: (batch, None), None)
+                         lambda batch: (batch, None), None, self.stats)
 
     def _staging_decode(self):
         """The decode :func:`prefetch_to_device` runs after staging when the
@@ -323,21 +348,36 @@ class TorchLoaderBase:
                            '(inmemory_cache_all=True).')
         self._in_iter = True
         goodput = self.goodput
+        tracer = self.tracer
+        latency = getattr(self.stats, 'latency', None)
         try:
-            if goodput is None:
+            if goodput is None and tracer is None and latency is None:
                 yield from self._iter_impl(decode)
             else:
                 it = self._iter_impl(decode)
                 fetch_start = time.perf_counter()
                 for batch in it:
                     now = time.perf_counter()
-                    goodput.note_fetch(now - fetch_start, batch)
+                    if latency is not None:
+                        latency.record('infeed_wait', now - fetch_start)
+                    if tracer is not None:
+                        tracer.add_span('infeed_wait', 'consumer',
+                                        fetch_start, now - fetch_start)
+                    if goodput is not None:
+                        goodput.note_fetch(now - fetch_start, batch)
                     step_start = now
                     yield batch
                     # the consumer held the generator suspended for its
                     # train step; the step's end starts the next fetch
                     fetch_start = time.perf_counter()
-                    goodput.finish_step(fetch_start - step_start)
+                    step_s = fetch_start - step_start
+                    if latency is not None:
+                        latency.record('train_step', step_s)
+                    if tracer is not None:
+                        tracer.add_span('train_step', 'consumer',
+                                        step_start, step_s)
+                    if goodput is not None:
+                        goodput.finish_step(step_s)
         except Exception as e:
             self._error = e
             raise
@@ -450,6 +490,15 @@ class TorchDataLoader(TorchLoaderBase):
         self._lineage = getattr(reader, 'lineage', None)
         self._lineage_on = (self._ngram is None
                             and getattr(self._lineage, 'enabled', False))
+        #: ``e2e_batch`` (ventilation of a batch's oldest source item to the
+        #: batch) is recorded here, the last delivery point, so the reader
+        #: records none (JAX ``jax_utils.py:485-493``)
+        self._e2e_on = (self._lineage_on
+                        and getattr(self.stats, 'latency', None) is not None)
+        if self._e2e_on:
+            defer = getattr(reader, '_defer_e2e_to_loader', None)
+            if defer is not None:
+                defer()
         #: name -> DeviceColumnPlan claimed from the reader
         self._device_plans = {}
         self._device_transform_spec = None
@@ -472,7 +521,16 @@ class TorchDataLoader(TorchLoaderBase):
                 or self._cache is not None
                 or set(self.pad_spec or ()) & set(self._device_plans)):
             return None
-        return self._fused
+        return self._fused_counted
+
+    def _fused_counted(self, columns):
+        """The fused decode, its planned cells counted as
+        ``rows_decoded_device`` (JAX ``jax_utils.py:526-530``)."""
+        planned = [n for n in self._device_plans if n in columns]
+        if planned and self.stats is not None:
+            rows = int(columns[planned[0]].shape[0])
+            self.stats.add('rows_decoded_device', rows * len(planned))
+        return self._fused(columns)
 
     def _decode(self, batch):
         """Decode the planned raw columns on the loader's device and run the
@@ -485,7 +543,7 @@ class TorchDataLoader(TorchLoaderBase):
         for name, col in device_cols.items():
             col = _to_tensor(col, self._pin)
             staged[name] = col.to(self.device, non_blocking=True)
-        out = dict(self._fused(staged))
+        out = dict(self._fused_counted(staged))
         out.update(host_cols)
         return out
 
@@ -509,6 +567,13 @@ class TorchDataLoader(TorchLoaderBase):
                 batch = self.transform_fn(batch)
             if sources is not None and isinstance(batch, dict):
                 batch[PROVENANCE_KEY] = BatchProvenance(sources, self._lineage)
+                if self._e2e_on and len(sources):
+                    # the smallest seq is the earliest registered item
+                    ts = self._lineage.ventilated_ts(
+                        int(np.asarray(sources).min()) >> PACK_SHIFT)
+                    if ts is not None:
+                        self.stats.record_latency(
+                            'e2e_batch', time.perf_counter() - ts)
             if self._cache is not None:
                 self._cache.append(batch)
             yield batch
@@ -582,10 +647,13 @@ class TorchDataLoader(TorchLoaderBase):
         """Feed column dicts, drain fixed-size batches, honour
         ``drop_last`` on the tail."""
         buffer = self._make_buffer()
+        stats = self.stats
         for columns in column_stream:
             while not buffer.can_add():
                 yield buffer.retrieve()
             buffer.add_many(columns)
+            if stats is not None:
+                stats.gauge('shuffle_buffer_depth', buffer.size)
             while buffer.can_retrieve() and buffer.size >= self.batch_size:
                 yield buffer.retrieve()
         buffer.finish()
@@ -617,12 +685,16 @@ class TorchDataLoader(TorchLoaderBase):
             if final and pending and not self.drop_last:
                 yield collate(pending)
 
-        for row in self.reader:
+        stats = self.stats
+        for count, row in enumerate(self.reader):
             while not buffer.can_add():
                 yield from drain(False)
                 if not buffer.can_retrieve():
                     break
             buffer.add_many([prepare(row)])
+            # one gauge sample in 64 rows: a lock a row would tax the path
+            if stats is not None and count % 64 == 0:
+                stats.gauge('shuffle_buffer_depth', buffer.size)
             yield from drain(False)
         buffer.finish()
         yield from drain(True)
@@ -701,8 +773,70 @@ def epoch_cache_on_device(loader, device=None):
         yield from cache
 
 
+def infeed_diagnosis(snapshot: dict, heartbeats=None, stall_after_s=None,
+                     roofline=None, latency=None, slo=None) -> dict:
+    """Classify an infeed from a ``ReaderStats`` snapshot
+    (``reader.diagnostics``) and name the knob that attacks its bottleneck
+    (JAX ``jax_utils.py:1001-1100``): ``io`` (raise ``io_readahead``),
+    ``decode`` (raise ``workers_count``), ``consumer`` (the step is the
+    ceiling), ``balanced`` or ``tail-stall``, through
+    :func:`~petastorm_tpu_torch.health.bottleneck_signals`.
+
+    ``latency`` (``reader.latency``) adds per-stage percentiles; ``slo`` (a
+    :meth:`~petastorm_tpu_torch.latency.SLOMonitor.evaluate` verdict) is
+    embedded. ``heartbeats`` and ``stall_after_s`` come with the health
+    slice and ``roofline`` with the profiler slice: both raise
+    ``NotImplementedError``."""
+    if heartbeats is not None or stall_after_s is not None:
+        raise NotImplementedError(
+            'infeed_diagnosis(heartbeats=...) is not ported to '
+            'petastorm_tpu_torch yet; it comes with the health slice')
+    if roofline is not None:
+        raise NotImplementedError(
+            'infeed_diagnosis(roofline=...) is not ported to '
+            'petastorm_tpu_torch yet; it comes with the profiler slice')
+    signals = bottleneck_signals(snapshot)
+    io_s, decode_s = signals['io_s'], signals['decode_s']
+    out = {
+        'bottleneck': signals['bottleneck'],
+        'io_s': round(io_s, 4),
+        'decode_s': round(decode_s, 4),
+        'io_decode_ratio': round(io_s / decode_s, 3) if decode_s else None,
+        'io_overlap_fraction': snapshot.get('io_overlap_fraction', 0.0),
+        'readahead_hit_rate': readahead_hit_rate(snapshot),
+        'recommended_io_readahead': recommend_io_readahead(snapshot),
+        'rows_quarantined': snapshot.get('rows_quarantined', 0),
+        'rows_decoded_batched': snapshot.get('rows_decoded_batched', 0),
+        'rows_decoded_percell': snapshot.get('rows_decoded_percell', 0),
+        'batched_decode_fraction': batched_decode_fraction(snapshot),
+        # one block on the device side: decode placement, goodput and the
+        # prefetch ring answer "is the card fed?"
+        'device': {
+            'rows_decoded_device': snapshot.get('rows_decoded_device', 0),
+            'bytes_shipped_raw': snapshot.get('bytes_shipped_raw', 0),
+            'device_decode_fraction': device_decode_fraction(snapshot),
+            'goodput_fraction': snapshot.get('goodput_fraction'),
+            'data_stall_fraction': snapshot.get('data_stall_fraction'),
+            'prefetch_occupancy': snapshot.get('prefetch_occupancy', 0),
+            'prefetch_occupancy_max': snapshot.get('prefetch_occupancy_max',
+                                                   0),
+        },
+        'queue_wait_p50_s': round(snapshot.get('queue_wait_p50_s', 0.0), 6),
+        'queue_wait_p99_s': round(snapshot.get('queue_wait_p99_s', 0.0), 6),
+        'e2e_latency_p99_s': round(snapshot.get('e2e_latency_p99_s', 0.0), 6),
+        'hint': signals['hint'],
+    }
+    if signals.get('tail_stall'):
+        out['tail_stall'] = True
+    if latency is not None:
+        out['latency'] = latency.summary()
+    if slo is not None:
+        out['slo'] = slo
+    return out
+
+
 def prefetch_to_device(iterator, size=None, device=None, goodput=None,
-                       fused_fn=None):
+                       fused_fn=None, stats=None, tracer=None):
     """Stage up to ``size`` batches (default :func:`resolve_prefetch_depth`)
     ahead of the consumer on a background thread. On a CUDA device each
     tensor leaf is copied from pinned host memory with
@@ -716,7 +850,13 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
     ``fused_fn`` (:func:`~petastorm_tpu_torch.ops.decode.build_fused_infeed`)
     runs over each staged batch's tensors on the side stream, after the
     copy and before the event that hands the batch off: the device decode
-    of a bytes-through batch overlaps the consumer's step like the copy."""
+    of a bytes-through batch overlaps the consumer's step like the copy.
+    ``stats`` (a ``ReaderStats``, e.g. ``reader.stats``) gets each
+    staging dispatch's host time as ``device_stage_s`` and a
+    ``device_stage`` latency, and the ring's depth as the
+    ``prefetch_occupancy`` gauge; ``tracer`` a ``device_stage`` span on the
+    staging thread's track. The time is the host's dispatch of the
+    ``non_blocking`` copies: nothing here waits on the card."""
     device = resolve_device(device)
     size = resolve_prefetch_depth(size)
 
@@ -754,15 +894,22 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
             return staged, event
 
     hand_off = None if device.type == 'cpu' else _hand_off(device)
-    if goodput is not None:
+    if goodput is not None or stats is not None or tracer is not None:
         untimed = put
 
         def put(batch):
             start = time.perf_counter()
             out = untimed(batch)
-            goodput.note_stage(time.perf_counter() - start)
+            elapsed = time.perf_counter() - start
+            if stats is not None:
+                stats.add_time('device_stage_s', elapsed)
+                stats.record_latency('device_stage', elapsed)
+            if tracer is not None:
+                tracer.add_span('device_stage', 'device', start, elapsed)
+            if goodput is not None:
+                goodput.note_stage(elapsed)
             return out
-    return _pipeline(iterator, size, put, hand_off)
+    return _pipeline(iterator, size, put, hand_off, stats)
 
 
 def _hand_off(device):
@@ -774,15 +921,19 @@ def _hand_off(device):
     return hand_off
 
 
-def _pipeline(iterator, size, put, hand_off):
+def _pipeline(iterator, size, put, hand_off, stats=None):
     """Producer thread filling a ring of ``size`` staged batches; it waits
     for a free slot before staging the next batch, so at most ``size`` sit
     staged beside the one the consumer holds. Producer exceptions re-raise in
-    the consumer; closing the generator stops the producer and joins it."""
+    the consumer; closing the generator stops the producer and joins it.
+    ``stats`` gets the ring's depth at every put and take as the
+    ``prefetch_occupancy`` gauge (read under the ring's lock, recorded
+    outside it)."""
     ring = collections.deque()
     done = object()
     cv = threading.Condition()
     state = {'error': None, 'finished': False}
+    gauge = stats.gauge if stats is not None else None
 
     def producer():
         try:
@@ -798,7 +949,10 @@ def _pipeline(iterator, size, put, hand_off):
                     if state['finished']:
                         return
                     ring.append(staged)
+                    depth = len(ring)
                     cv.notify_all()
+                if gauge is not None:
+                    gauge('prefetch_occupancy', depth)
         except Exception as e:     # re-raised in the consumer
             state['error'] = e
         finally:
@@ -817,11 +971,17 @@ def _pipeline(iterator, size, put, hand_off):
                     while not ring:
                         cv.wait()
                     item = ring.popleft()
+                    # the end marker is no staged batch: a drained ring
+                    # reads 0
+                    depth = len(ring) - (1 if ring and ring[-1] is done
+                                         else 0)
                     cv.notify_all()
                 if item is done:
                     if state['error'] is not None:
                         raise state['error']
                     return
+                if gauge is not None:
+                    gauge('prefetch_occupancy', depth)
                 staged, event = item
                 if hand_off is not None:
                     hand_off(staged, event)

@@ -1,14 +1,34 @@
-"""Value casts shared by the reader, its workers and the filters.
+"""Value casts shared by the reader, its workers and the filters, and the
+atomic write of the trace and metrics files.
 
-A copy of ``petastorm_tpu/utils.py`` ``parse_bool_string``,
-``cast_partition_value`` and ``cast_string_to_type`` (:34-60).
+A copy of ``petastorm_tpu/utils.py`` ``atomic_write`` (:16-31),
+``parse_bool_string``, ``cast_partition_value`` and
+``cast_string_to_type`` (:34-60).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 _FALSY_STRINGS = frozenset(('false', '0', '', 'no'))
+
+
+def atomic_write(path: str, write_fn) -> str:
+    """Write a text file atomically: ``write_fn(file)`` writes a sibling
+    temporary file that replaces ``path`` only when it succeeded, so a
+    crash never leaves a truncated trace or metrics file, nor clobbers the
+    previous good one."""
+    tmp = '{}.tmp.{}'.format(path, os.getpid())
+    try:
+        with open(tmp, 'w') as f:
+            write_fn(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def parse_bool_string(value: str) -> bool:

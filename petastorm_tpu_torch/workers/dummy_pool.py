@@ -11,24 +11,33 @@ order is exactly the ventilation order. Its one worker is made at start
 ``process``) and shut down at :meth:`DummyPool.join`. It hints no upcoming
 items, so a reader turns ``io_readahead`` off on it. After each item the
 worker's quarantine records and empty deliveries go to ``pool.lineage``
-(JAX ``dummy_pool.py:27-29, 69-76``).
+(JAX ``dummy_pool.py:27-29, 69-76``), and what it accumulated goes to
+``pool.stats`` and ``pool.tracer``, with a ``process_item`` span; each
+item delivered counts in ``items_out`` (JAX :41-78). An item that left no
+row delivers nothing: the next one runs.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
                                                       shutdown_worker)
+from petastorm_tpu_torch.workers.stats import ReaderStats
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      VentilationJob,
-                                                     drain_lineage)
+                                                     drain_lineage,
+                                                     merge_worker_stats)
 
 _END = object()
 
 
 class DummyPool:
-    def __init__(self):
+    def __init__(self, tracer=None):
+        self.stats = ReaderStats()
+        #: the reader's tracer (None: no tracing)
+        self.tracer = tracer
         self._job: Optional[VentilationJob] = None
         self._worker = None
         self._order = iter(())
@@ -47,12 +56,30 @@ class DummyPool:
         """The result of the next item; raises its exception, or
         :class:`EmptyResultError` when every epoch is consumed or the pool
         was stopped."""
-        item = next(self._order, _END)
-        if item is _END:
-            raise EmptyResultError()
-        result = self._worker(item)
-        drain_lineage(self._worker, self.lineage)
-        return result
+        while True:
+            item = next(self._order, _END)
+            if item is _END:
+                raise EmptyResultError()
+            start = time.perf_counter()
+            result = self._worker(item)
+            merge_worker_stats(self.stats, self.tracer, self._worker, start,
+                               time.perf_counter() - start)
+            drain_lineage(self._worker, self.lineage)
+            if result is not None:
+                self.stats.add('items_out')
+                return result
+
+    @property
+    def workers_count(self) -> int:
+        return 1
+
+    @property
+    def diagnostics(self) -> dict:
+        """A snapshot of :attr:`stats` (items run on the caller's thread
+        leave no queue)."""
+        out = {'output_queue_size': 0}
+        out.update(self.stats.snapshot())
+        return out
 
     def reset(self, num_epochs: Optional[int] = 1) -> None:
         """Ventilate the items for ``num_epochs`` more epochs, the shuffle

@@ -41,10 +41,24 @@ payload frames stay out-of-band; the consumer wraps them again in a
 quarantine records and empty deliveries ride its ``ITEM_DONE`` message
 into ``pool.lineage``.
 
+The stats plane (JAX :440-535, 561-579, 856-905, 1040-1096): a worker
+times each item (``process_item``), the serializing of its payload
+(``serialize_s`` and a ``serialize`` span) and the send
+(``worker_publish_wait_s``), and ships what its worker accumulated (stage
+times with the derived decode time, counts, gauges, latency deltas,
+spans, the serializer's ``copies`` as ``payload_copies``) in the item's
+``ITEM_DONE`` frame; :meth:`ProcessPool._merge_item_stats` merges it into
+``pool.stats`` and ``pool.tracer``. The consumer records its wait
+(``queue_wait_s``, the ``queue_wait`` latency and span), the deserialize
+(``deserialize_s``, latency and span, and its own ``copies``), the
+frames' bytes (``bytes_moved``) and count (``payload_frames``),
+``items_out`` and the ``queue_depth`` gauge (items in flight). Spans keep
+the worker's pid and thread id: ``time.perf_counter()`` is
+CLOCK_MONOTONIC, one timeline for every process.
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
 no GPU and import neither torch nor jax. Resize (autotune), recovery
-(resilience), heartbeats (health) and the stats plane of the JAX pool come
-with their own slices.
+(resilience) and heartbeats (health) come with their own slices.
 """
 
 from __future__ import annotations
@@ -65,6 +79,8 @@ from petastorm_tpu_torch.workers.exec_in_new_process import \
     exec_in_new_process
 from petastorm_tpu_torch.workers.serializers import (ZeroCopySerializer,
                                                      as_multipart)
+from petastorm_tpu_torch.workers.stats import (ReaderStats,
+                                               finalize_item_times)
 from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      VentilationJob,
                                                      absorb_lineage)
@@ -112,9 +128,12 @@ class ProcessPool:
 
     def __init__(self, workers_count: int, serializer=None,
                  zmq_copy_buffers: bool = True,
-                 results_queue_size: int = 50):
+                 results_queue_size: int = 50, tracer=None):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1')
+        self.stats = ReaderStats()
+        #: the reader's tracer (None: no tracing)
+        self.tracer = tracer
         self._zmq = _import_zmq()
         self._workers_count = workers_count
         self._serializer = as_multipart(serializer or ZeroCopySerializer())
@@ -132,6 +151,7 @@ class ProcessPool:
         self._lock = threading.Lock()
         self._ventilated = 0
         self._processed = 0
+        self._produced = 0
         self._ventilation_done = True
         self._stop = threading.Event()
         self._stopped = False
@@ -240,32 +260,90 @@ class ProcessPool:
         """The next result; raises a worker's exception, or
         :class:`EmptyResultError` when every epoch is consumed or the pool
         was stopped."""
+        stats = self.stats
+        entered = time.perf_counter()
         while True:
             if self._stopped or self._all_consumed():
                 raise EmptyResultError()
-            if not dict(self._poller.poll(100)):
+            wait_start = time.perf_counter()
+            ready = dict(self._poller.poll(100))
+            stats.add_time('queue_wait_s', time.perf_counter() - wait_start)
+            if not ready:
                 self._check_workers_alive()
                 continue
             payload, control = self._recv()
             extra = None
-            if isinstance(control, tuple):      # (marker, lineage)
+            if isinstance(control, tuple):   # (marker, provenance or stats)
                 control, extra = control
             if control == _ITEM_DONE:
-                if extra is not None:
-                    absorb_lineage(self.lineage, *extra)
+                self._merge_item_stats(extra)
                 with self._lock:
                     self._processed += 1
+                    in_flight = self._ventilated - self._processed
                 self._slots.release()
+                stats.gauge('queue_depth', in_flight)
                 continue
             if isinstance(control, _WorkerError):
                 self.stop()
                 raise _with_traceback(control)
             if control == _DATA:
+                with self._lock:
+                    self._produced += 1
+                copies_before = getattr(self._serializer, 'copies', 0)
+                deser_start = time.perf_counter()
                 result = self._serializer.deserialize_multipart(payload)
+                now = time.perf_counter()
+                stats.add_time('deserialize_s', now - deser_start)
+                stats.record_latency('queue_wait', deser_start - entered)
+                stats.record_latency('deserialize', now - deser_start)
+                if self.tracer is not None:
+                    self.tracer.add_span('queue_wait', 'consumer', entered,
+                                         deser_start - entered)
+                    self.tracer.add_span('deserialize', 'transport',
+                                         deser_start, now - deser_start)
+                # the consumer's copies count too: the worker's arrive in
+                # the ITEM_DONE frame
+                copies = (getattr(self._serializer, 'copies', 0)
+                          - copies_before)
+                if copies:
+                    stats.add('payload_copies', copies)
+                stats.add('bytes_moved', sum(_nbytes(f) for f in payload))
+                stats.add('payload_frames', len(payload))
+                stats.add('items_out')
                 if extra is not None:
                     result = LineageEnvelope(result, extra)
                 return result
             # a late _STARTED or _TERMINATED: nothing to do
+
+    def _merge_item_stats(self, item_stats) -> None:
+        """Merge what a worker shipped in an ``ITEM_DONE`` frame (JAX
+        :561-579): its stats, spans, copies, quarantine records and empty
+        deliveries."""
+        if not item_stats:
+            return
+        stats = self.stats
+        stats.merge_times(item_stats.get('times'))
+        stats.merge_counts(item_stats.get('counts'))
+        stats.merge_gauges(item_stats.get('gauges'))
+        stats.merge_latency(item_stats.get('latency'))
+        if item_stats.get('payload_copies'):
+            stats.add('payload_copies', item_stats['payload_copies'])
+        if self.tracer is not None:
+            self.tracer.merge(item_stats.get('spans'))
+        absorb_lineage(self.lineage, item_stats.get('quarantines', ()),
+                       item_stats.get('empty_publishes', ()))
+
+    @property
+    def diagnostics(self) -> dict:
+        """The pool's accounting (JAX :802-812) and a snapshot of
+        :attr:`stats`."""
+        with self._lock:
+            out = {'items_consumed': self._processed,
+                   'items_produced': self._produced,
+                   'items_inprocess': self._ventilated - self._processed,
+                   'zmq_copy_buffers': self._zmq_copy_buffers}
+        out.update(self.stats.snapshot())
+        return out
 
     def _check_workers_alive(self):
         dead = [p.returncode for p in self._processes
@@ -361,6 +439,12 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
     worker = make_worker(process, worker_id)
     hint = getattr(worker, 'prefetch_hint', None)
     drain = getattr(worker, 'drain_lineage', None)
+    drain_times = getattr(worker, 'drain_stage_times', None)
+    tracing = getattr(worker, 'tracing_enabled', False)
+    pid = os.getpid()
+    # one item's transport seconds, and the bootstrap's own spans
+    item = {'serialize_s': 0.0, 'publish_wait_s': 0.0}
+    item_spans = []
     context = zmq.Context()
     work_receiver = context.socket(zmq.PULL)
     work_receiver.connect(work_addr)
@@ -387,6 +471,45 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             e = RuntimeError('{}: {}'.format(type(e).__name__, e))
         send([b''], _WorkerError(e, formatted))
 
+    def publish(payload, control):
+        start = time.perf_counter()
+        frames = serializer.serialize_multipart(payload)
+        serialized = time.perf_counter()
+        item['serialize_s'] += serialized - start
+        if tracing:
+            item_spans.append(('serialize', 'transport', start,
+                               serialized - start, pid,
+                               threading.get_ident(), None))
+        send(frames, control)
+        item['publish_wait_s'] += time.perf_counter() - serialized
+
+    def item_stats(start, elapsed, copies_before):
+        """What the pool merges of this item (JAX :1050-1090)."""
+        times = drain_times() if drain_times is not None else {}
+        transport = item['serialize_s'] + item['publish_wait_s']
+        times['serialize_s'] = (times.get('serialize_s', 0.0)
+                                + item['serialize_s'])
+        times['worker_publish_wait_s'] = (
+            times.get('worker_publish_wait_s', 0.0) + item['publish_wait_s'])
+        out = {'times': finalize_item_times(times, elapsed, transport),
+               'payload_copies': (getattr(serializer, 'copies', 0)
+                                  - copies_before)}
+        if drain_times is not None:
+            counts, gauges = worker.drain_stat_counts()
+            out.update(counts=counts, gauges=gauges,
+                       latency=worker.drain_latency())
+        if tracing:
+            item_spans.append(('process_item', 'worker', start, elapsed,
+                               pid, threading.get_ident(), None))
+            out['spans'] = item_spans + worker.drain_spans()
+            item_spans.clear()
+        quarantines, empty = drain() if drain is not None else ((), ())
+        if quarantines:
+            out['quarantines'] = quarantines
+        if empty:
+            out['empty_publishes'] = empty
+        return out
+
     send([b''], _STARTED)
     poller = zmq.Poller()
     poller.register(work_receiver, zmq.POLLIN)
@@ -410,22 +533,23 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
                 continue
             if hint is not None:
                 hint(list(pending))
-            item = pending.popleft()
+            work = pending.popleft()
+            item['serialize_s'] = item['publish_wait_s'] = 0.0
+            copies_before = getattr(serializer, 'copies', 0)
+            start = time.perf_counter()
             try:
-                result = worker(item)
+                result = worker(work)
             except Exception as e:     # shipped to the consumer
                 send_error(e)
             else:
                 if isinstance(result, LineageEnvelope):
                     # the record rides the control frame: the serializer
                     # (and its out-of-band frames) sees the payload alone
-                    send(serializer.serialize_multipart(result.payload),
-                         (_DATA, result.provenance))
+                    publish(result.payload, (_DATA, result.provenance))
                 elif result is not None:
-                    send(serializer.serialize_multipart(result), _DATA)
-            accounting = drain() if drain is not None else ([], [])
-            send([b''], (_ITEM_DONE, accounting)
-                 if accounting[0] or accounting[1] else _ITEM_DONE)
+                    publish(result, _DATA)
+            send([b''], (_ITEM_DONE, item_stats(
+                start, time.perf_counter() - start, copies_before)))
     finally:
         shutdown_worker(worker)
         send([b''], _TERMINATED)

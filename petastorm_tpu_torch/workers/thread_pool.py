@@ -25,6 +25,19 @@ ventilator's ``reset``, ``workers/ventilator.py:252-263``). After each
 item a worker's quarantine records and empty deliveries go to
 ``pool.lineage``, the reader's tracker (JAX ``thread_pool.py:183-190,
 233-236``). ``stop()`` then ``join()`` ends every thread.
+
+The stats plane (JAX ``thread_pool.py:160-200, 550-592``): ``pool.stats``
+is the pool's :class:`~petastorm_tpu_torch.workers.stats.ReaderStats`,
+``pool.tracer`` its :class:`~petastorm_tpu_torch.tracing.Tracer` (None
+unless the reader traces) and ``pool.diagnostics`` a snapshot of both.
+After each item a worker thread merges what its worker accumulated
+(:func:`merge_worker_stats`: stage times with the derived decode time,
+counts, gauges, latency deltas, spans and a ``process_item`` span) and
+the time it then blocked on the full results queue
+(``worker_publish_wait_s``); the consumer records its wait
+(``queue_wait_s``, the ``queue_wait`` latency and span), ``items_out`` and
+the ``queue_depth`` gauge. An item that left no row publishes nothing the
+consumer sees, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import logging
 import pstats
 import queue
 import threading
+import time
 from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
@@ -42,6 +56,8 @@ import numpy as np
 
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
                                                       shutdown_worker)
+from petastorm_tpu_torch.workers.stats import (ReaderStats,
+                                               finalize_item_times)
 
 logger = logging.getLogger(__name__)
 
@@ -124,6 +140,27 @@ def absorb_lineage(lineage, quarantines, empty) -> None:
             lineage.register(provenance)
 
 
+def merge_worker_stats(stats, tracer, worker, start: float,
+                       elapsed: float) -> None:
+    """Merge what ``worker`` accumulated on the item it just ran, from
+    ``start`` for ``elapsed`` seconds, into the pool's ``stats`` and
+    ``tracer`` (None: no tracing): its stage times with the derived
+    ``worker_decode_s``, counts, gauges and latency deltas, its spans and
+    a ``process_item`` span. A plain callable has only the time."""
+    drain = getattr(worker, 'drain_stage_times', None)
+    times = drain() if drain is not None else {}
+    stats.merge_times(finalize_item_times(times, elapsed))
+    if drain is not None:
+        counts, gauges = worker.drain_stat_counts()
+        stats.merge_counts(counts)
+        stats.merge_gauges(gauges)
+        stats.merge_latency(worker.drain_latency())
+    if tracer is not None:
+        tracer.add_span('process_item', 'worker', start, elapsed)
+        if drain is not None:
+            tracer.merge(worker.drain_spans())
+
+
 def drain_lineage(worker, lineage) -> None:
     """:func:`absorb_lineage` of what ``worker`` collected on its last
     item; a worker without lineage (a plain callable) has nothing."""
@@ -138,9 +175,12 @@ class ThreadPool:
     supports_prefetch_hints = True
 
     def __init__(self, workers_count: int, results_queue_size: int = 50,
-                 profiling_enabled: bool = False):
+                 profiling_enabled: bool = False, tracer=None):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1')
+        self.stats = ReaderStats()
+        #: the reader's tracer (None: no tracing)
+        self.tracer = tracer
         self._workers_count = workers_count
         self._profiling_enabled = profiling_enabled
         self._profiles: List[cProfile.Profile] = []
@@ -264,6 +304,7 @@ class ThreadPool:
             if hint is not None:
                 hint(list(pending))
             item = pending.popleft()
+            start = time.perf_counter()
             try:
                 result = worker(item)
                 drain_lineage(worker, self.lineage)
@@ -272,22 +313,34 @@ class ThreadPool:
                 return
             finally:
                 self._slots.release()
-            if not self._publish(('ok', result)):
+            merge_worker_stats(self.stats, self.tracer, worker, start,
+                               time.perf_counter() - start)
+            publish_start = time.perf_counter()
+            published = self._publish(('ok', result))
+            self.stats.add_time('worker_publish_wait_s',
+                                time.perf_counter() - publish_start)
+            if not published:
                 return
 
     def get_results(self):
         """The next result; raises a worker's exception, or
         :class:`EmptyResultError` when every epoch is consumed or the pool
         was stopped."""
+        stats = self.stats
+        entered = time.perf_counter()
         while True:
             if self._workers_done == self._workers_count:
                 raise EmptyResultError()
+            wait_start = time.perf_counter()
             try:
                 value = self._results.get(timeout=0.1)
             except queue.Empty:
+                stats.add_time('queue_wait_s',
+                               time.perf_counter() - wait_start)
                 if self._stop.is_set():     # stopped: nothing more comes
                     raise EmptyResultError()
                 continue
+            stats.add_time('queue_wait_s', time.perf_counter() - wait_start)
             if value is _DONE:
                 self._workers_done += 1
                 continue
@@ -295,7 +348,23 @@ class ThreadPool:
             if kind == 'error':
                 self.stop()
                 raise payload
+            if payload is None:     # an item that left no row
+                continue
+            stats.gauge('queue_depth', self._results.qsize())
+            stats.add('items_out')
+            now = time.perf_counter()
+            stats.record_latency('queue_wait', now - entered)
+            if self.tracer is not None:
+                self.tracer.add_span('queue_wait', 'consumer', entered,
+                                     now - entered)
             return payload
+
+    @property
+    def diagnostics(self) -> dict:
+        """The results queue's size and a snapshot of :attr:`stats`."""
+        out = {'output_queue_size': self._results.qsize()}
+        out.update(self.stats.snapshot())
+        return out
 
     def stop(self) -> None:
         self._stop.set()

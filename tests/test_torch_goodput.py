@@ -5,8 +5,9 @@ injected through a ticking clock, never measured) goes into both monitors:
 their ring entries, ``state``, ``window``, ``summary``, ``flight_summary``,
 verdicts and ``explain_step`` must be equal. The kill switch is the same
 variable; a loader records one entry a batch, with the staging time
-``prefetch_to_device`` reports. What the port has no plane for yet
-(stats, tracer, latency, a stats snapshot) raises. On the card, the fence
+``prefetch_to_device`` reports. A monitor given the reader's planes
+(stats, tracer, latency) exports into them as JAX's does, and
+``explain_step`` walks a stats snapshot as JAX's. On the card, the fence
 waits for the step's kernels.
 """
 
@@ -105,17 +106,43 @@ def test_kill_switch_matches_jax(monkeypatch, tmp_path, value):
 
 
 def test_unported_planes_raise():
-    for kw in ({'stats': object()}, {'tracer': object()},
-               {'latency': object()}):
-        with pytest.raises(NotImplementedError, match='tracing and health'):
-            tgoodput.GoodputMonitor(**kw)
-    monitor, ref = tgoodput.GoodputMonitor(), jgoodput.GoodputMonitor()
-    assert monitor.stats is monitor.tracer is monitor.latency is None
-    for m in (monitor, ref):
+    """The planes the first port refused are taken now: the same steps give
+    the same exported seconds, latency counts and step spans as JAX's, and
+    explain_step walks the same snapshot to the same chain (exact)."""
+    from petastorm_tpu.latency import PipelineLatency as JLatency
+    from petastorm_tpu.tracing import Tracer as JTracer
+    from petastorm_tpu.workers.stats import ReaderStats as JStats
+    from petastorm_tpu_torch.latency import PipelineLatency
+    from petastorm_tpu_torch.tracing import Tracer
+    from petastorm_tpu_torch.workers.stats import ReaderStats
+    monitor = tgoodput.GoodputMonitor(stats=ReaderStats(), tracer=Tracer())
+    ref = jgoodput.GoodputMonitor(stats=JStats(), tracer=JTracer())
+    alone = tgoodput.GoodputMonitor(latency=PipelineLatency())
+    alone_ref = jgoodput.GoodputMonitor(latency=JLatency())
+    for m in (monitor, ref, alone, alone_ref):
         m.note_fetch(0.5)
         m.finish_step(0.1)
-    with pytest.raises(NotImplementedError, match='health slice'):
-        monitor.explain_step(snapshot={'io_s': 1.0})
+        m.note_fetch(0.001)
+        m._pending_fenced, m._pending_fence_s = True, 0.2
+        m.finish_step(0.3)
+    keys = [k for k in ref._stats.snapshot() if k.startswith('goodput_')]
+    got, want = monitor.stats.snapshot(), ref._stats.snapshot()
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    for stage in ('device_step', 'host_overhead'):
+        assert (monitor.stats.latency.histograms[stage].counts().tolist()
+                == ref._stats.latency.histograms[stage].counts().tolist())
+        assert (alone.latency.histograms[stage].counts().tolist()
+                == alone_ref._latency.histograms[stage].counts().tolist())
+    spans = [(s[0], s[1], s[6]) for s in monitor.tracer.spans()]
+    assert spans == [(s[0], s[1], s[6]) for s in ref._tracer.spans()]
+    assert [a['verdict'] for _n, _c, a in spans] == ['data-stall',
+                                                     'compute-bound']
+    snapshot = {'worker_io_s': 3.0, 'worker_decode_s': 1.0,
+                'prefetch_occupancy': 0}
+    assert monitor.explain_step(0, snapshot=snapshot) == ref.explain_step(
+        0, snapshot=snapshot)
+    assert monitor.explain_step(0, snapshot=snapshot)['chain'] == [
+        'infeed_wait', 'io']
     assert monitor.explain_step(snapshot={}) == ref.explain_step(snapshot={})
 
 

@@ -354,6 +354,57 @@ def test_corrupt_store_quarantines_as_jax(corrupt_store, kind, policy, pool):
     assert ('index', (0, 1, 3, 4, 6)) in {r[5] for r in records}
 
 
+@pytest.mark.parametrize('cache', [False, True])
+def test_row_drop_quarantine_and_cache_as_jax(corrupt_store, cache,
+                                              tmp_path):
+    """Row-drop partitions under 'quarantine' on the dummy pool, with no
+    cache and with a local-disk cache: JAX decodes and quarantines the
+    whole row group before slicing a partition, so each partition item of
+    a poisoned group records its cells (4 records, 6 rows), and a cache
+    hit records nothing (2 records, 3 rows). The port gives the same rows,
+    records, audit and ``rows_quarantined``."""
+    got = {}
+    for package in ('jax', 'torch'):
+        kw = dict(reader_pool_type='dummy', num_epochs=1, seed=0,
+                  shuffle_row_drop_partitions=2,
+                  on_decode_error='quarantine')
+        if cache:
+            kw.update(cache_type='local-disk', cache_size_limit=1 << 30,
+                      cache_location=str(tmp_path / package))
+        with _open(package, 'columnar', corrupt_store, **kw) as reader:
+            delivered = sorted(i for item in reader
+                               for i in _idx('columnar', item))
+            got[package] = (delivered, _records(reader),
+                            _quarantines(reader), _report(reader),
+                            reader.stats.snapshot()['rows_quarantined'])
+    assert got['torch'] == got['jax']
+    delivered, _, quarantines, report, rows_quarantined = got['torch']
+    assert len(delivered) == 45 and report['complete']
+    assert len(quarantines) == (2 if cache else 4)
+    assert rows_quarantined == (3 if cache else 6)
+
+
+def test_next_and_cleanup_as_jax(store):
+    """Original petastorm's reader API: ``next()`` is ``next(reader)`` and
+    ``cleanup()`` returns None, in both packages."""
+    rows = []
+    for package in ('jax', 'torch'):
+        with _open(package, 'row', store, reader_pool_type='dummy',
+                   num_epochs=1, shuffle_row_groups=False) as reader:
+            row = reader.next()
+            rows.append((int(row.idx), row.image.tobytes(),
+                         row.matrix.tobytes()))
+            assert reader.cleanup() is None
+    assert rows[1] == rows[0]
+
+
+def test_shared_row_group_cache_is_a_public_name():
+    from petastorm_tpu_torch import SharedRowGroupCache
+    from petastorm_tpu_torch.sharedcache import SharedRowGroupCache as cls
+    assert SharedRowGroupCache is cls
+    assert 'SharedRowGroupCache' in petastorm_tpu_torch.__all__
+
+
 def test_columnar_quarantine_keeps_dense_columns(corrupt_store):
     with petastorm_tpu_torch.make_columnar_reader(
             corrupt_store, reader_pool_type='dummy',
@@ -521,8 +572,13 @@ def test_goodput_explain_step_names_the_source_row_group(store):
     source = provenance['sources'][0]
     assert chain[-1] == 'infeed_wait ({} rg{})'.format(
         source['path'].rsplit('/', 1)[-1], source['row_group'])
-    with pytest.raises(NotImplementedError, match='tracing and health'):
-        GoodputMonitor().explain_step(snapshot={'x': 1})
+    # a stats snapshot now extends the chain, as JAX's
+    monitors = (GoodputMonitor(), JGoodputMonitor())
+    for monitor in monitors:
+        monitor.note_fetch(0.5)
+        monitor.finish_step(0.01)
+    got, want = (m.explain_step(snapshot={'x': 1}) for m in monitors)
+    assert got == want and got['chain'] == ['infeed_wait', 'balanced']
 
 
 # -- the kill switch ----------------------------------------------------------

@@ -317,7 +317,11 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.sharedcache',
                  'petastorm_tpu_torch.readers.readahead',
                  'petastorm_tpu_torch.readers.piece_worker',
-                 'petastorm_tpu_torch.lineage']
+                 'petastorm_tpu_torch.lineage',
+                 'petastorm_tpu_torch.latency',
+                 'petastorm_tpu_torch.workers.stats',
+                 'petastorm_tpu_torch.tracing',
+                 'petastorm_tpu_torch.health']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

@@ -160,8 +160,8 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    with pytest.raises(NotImplementedError, match='trace'):
-        make_batch_reader(url, trace=True)
+    with pytest.raises(NotImplementedError, match='debug_port'):
+        make_batch_reader(url, debug_port=0)
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
