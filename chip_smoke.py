@@ -192,7 +192,37 @@ printing one line or a few:
    steady step (median of steps 2-8 a run) and token rows/s on the
    thread pool (2 passes each, the traced passes writing JSON lines every
    0.1 s) under the three settings, each ratio to latency off beside the
-   passes' spread.
+   passes' spread;
+18. health line (run before the times): the live health plane. The
+   watched LM: the store of phase 17 read by ``make_reader`` (4 threads,
+   ``stall_timeout=2.0``, ``debug_port=0``, a flight-record directory, an
+   ``slo`` it meets with ``fail_healthz``) -> ``TorchDataLoader`` ->
+   ``prefetch_to_device(health=reader.health, goodput=)`` -> 16 epochs,
+   128 AdamW steps on K1-K3 (several stall timeouts), a client thread
+   GETting ``/healthz`` every 0.1 s: replies covering the steps at half
+   the poller's rate or more, every one 200 and none stalled, at least two
+   watchdog ticks seen during the steps; ``/diagnostics`` names the
+   ``ventilator``, ``worker-*`` and ``loader-prefetch`` entities,
+   ``/metrics`` ``items_out`` equals ``reader.stats``, ``/coverage`` 16
+   complete epochs, ``/goodput`` 128 steps, ``/stacks`` the staging
+   thread, and
+   ``/profile``, ``/autotune``, ``/observe/snapshot`` and ``/podmetrics``
+   404; the largest age a ``staging`` beat reached. The wedged LM: the
+   same with ``stall_timeout=1.0`` and a row ``TransformSpec`` that blocks
+   the store's third row group on a gate file: ``/healthz`` 503 naming one
+   ``worker-*`` in ``decode``, exactly one flight record (heartbeats,
+   stats, a stack in the gate, latency, goodput, SLO and lineage),
+   ``infeed_diagnosis(heartbeats=)`` ``stalled``, one SLO stall episode;
+   the gate opened, 200 within 2 s, the 8 steps finish with a finite loss
+   and the audit is complete. The wedged process pool: the store on 4
+   worker interpreters with the gate, ``stall_timeout=5.0``, staged to
+   the card: the verdict names a ``worker-*`` whose pid is a worker's
+   (seen only through the workers' liveness frames); the gate opened,
+   every window arrives and the verdict is ``healthy``. The plane's cost:
+   the LM steady step under ``PETASTORM_TPU_HEALTH=0``, the default and
+   the watchdog + server + poller, 10 runs each in turns (off, default,
+   watched, then the reverse), each ratio to
+   heartbeats off beside the off runs' spread.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -210,6 +240,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3180,6 +3211,545 @@ def observability_line(torch, np, tlm, kernels, args, device='cuda',
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the health line
+# ---------------------------------------------------------------------------
+
+HEALTH_POLL_S = 0.1               # the /healthz poller's period
+HEALTH_STALL = 2.0                # stall_timeout of the watched LM
+HEALTH_WEDGE_STALL = 1.0          # of the wedged LM (thread pool)
+HEALTH_PROCESS_STALL = 5.0        # of the wedged pass (process pool)
+HEALTH_RECOVER_S = 2.0            # /healthz is 200 again this soon
+#: epochs of the watched healthy LM: 128 steps of about 35 ms, several
+#: stall timeouts, so a false stall of a healthy entity would show
+HEALTH_EPOCHS = 16
+#: the poller's replies must cover the steps at this share of its rate
+HEALTH_POLL_SHARE = 0.5
+#: runs a setting in the cost measurement, in turns (off, default,
+#: watched, then the reverse); 2 runs cannot tell a few % from noise
+HEALTH_ROUNDS = 10
+#: heartbeats off, the default (heartbeats on, no watchdog thread), and a
+#: watchdog + debug server + the 0.1 s poller
+HEALTH_SETTINGS = ('off', 'default', 'watched')
+#: the rows of the LM store's third row group (files of 9 rows)
+HEALTH_GATED = (2 * OBS_ROWS_PER_FILE, 3 * OBS_ROWS_PER_FILE)
+HEALTH_ABSENT = ('/profile', '/autotune', '/observe/snapshot', '/podmetrics')
+
+#: a row transform that blocks on the rows whose ``step`` lies in [lo, hi)
+#: until a gate file exists; written into the store's directory and
+#: imported from there, so worker interpreters import it too (they inherit
+#: ``sys.path``); ``tests/test_torch_health.py`` holds the same gate for
+#: the JAX package's readers
+HEALTH_GATE_MODULE = '''
+import os
+import time
+
+
+class FileGate:
+    """A row transform that blocks on the rows whose ``step`` lies in
+    ``[lo, hi)`` until the file ``path`` exists."""
+
+    def __init__(self, path, lo, hi):
+        self.path, self.lo, self.hi = path, lo, hi
+
+    def __call__(self, row):
+        if self.lo <= int(row['step']) < self.hi:
+            deadline = time.monotonic() + 120
+            while (not os.path.exists(self.path)
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+        return row
+'''
+
+
+def http_get(port, route):
+    """``(status, body)`` of ``GET route`` on the debug endpoint."""
+    from http.client import HTTPConnection
+    conn = HTTPConnection('127.0.0.1', port, timeout=10)
+    try:
+        conn.request('GET', route)
+        response = conn.getresponse()
+        return response.status, response.read().decode('utf-8')
+    finally:
+        conn.close()
+
+
+class HealthzPoller:
+    """A thread that GETs ``/healthz`` every :data:`HEALTH_POLL_S` and keeps
+    ``(time, status, verdict)``; with ``monitor`` (``reader.health``) it
+    also keeps the largest age a ``loader-prefetch`` ``staging`` beat
+    reached. Never touches the card."""
+
+    def __init__(self, port, monitor=None):
+        self.replies = []
+        self.staging_max_age_s = 0.0
+        self._port = port
+        self._monitor = monitor
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name='smoke-healthz-poller')
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            status, body = http_get(self._port, '/healthz')
+            self.replies.append((time.perf_counter(), status,
+                                 json.loads(body)))
+            if self._monitor is not None:
+                beat = self._monitor.heartbeats().get('loader-prefetch')
+                if beat is not None and beat['stage'] == 'staging':
+                    self.staging_max_age_s = max(self.staging_max_age_s,
+                                                 beat['age_s'])
+            self._stop.wait(HEALTH_POLL_S)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(30)
+        check(not self._thread.is_alive(), 'the /healthz poller hung')
+
+
+def watched_lm_run(torch, url, cfg, step, setting, d, device, args,
+                   gate=None, label='health LM', epochs=1):
+    """``epochs`` of the LM store (8 batches of 8 NGram windows each) through
+    ``make_reader`` (4 threads) -> ``TorchDataLoader`` ->
+    ``prefetch_to_device(health=reader.health, goodput=)`` -> 8 AdamW steps
+    fenced through the goodput monitor. ``setting`` as
+    :data:`HEALTH_SETTINGS`; ``'watched'`` adds ``stall_timeout`` (1.0 s
+    with a ``gate``, else 2.0 s), ``debug_port=0``, a flight-record
+    directory, an ``slo`` and the poller. With ``gate`` (the gate file's
+    path) the transform blocks the third row group: a keeper thread waits
+    for ``/healthz`` to turn 503, reads the flight record and
+    ``infeed_diagnosis``, then opens the gate. Returns
+    ``(steady step times, facts)``; ``facts['span']`` is the steps' first
+    start and last end."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.health import HEALTH_ENV_VAR
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.torch_utils import infeed_diagnosis
+    from petastorm_tpu_torch.transform import TransformSpec
+    if setting == 'off':
+        os.environ[HEALTH_ENV_VAR] = '0'
+    else:
+        os.environ.pop(HEALTH_ENV_VAR, None)
+    watched = setting == 'watched'
+    stall = HEALTH_WEDGE_STALL if gate else HEALTH_STALL
+    flights = tempfile.mkdtemp(dir=d, prefix='flight-') if watched else None
+    kw = {}
+    if watched:
+        kw = dict(stall_timeout=stall, debug_port=0,
+                  flight_record_dir=flights)
+        # a target the run meets; fail_healthz arms the SLO's 503 in the
+        # healthy run (a stall episode would spend it, so not when wedged)
+        kw['slo'] = ({'p99_queue_wait_ms': 60000.0, 'eval_interval_s': 0}
+                     if gate else
+                     {'p99_queue_wait_ms': 60000.0, 'max_stall_episodes': 0,
+                      'fail_healthz': True, 'eval_interval_s': 0.25,
+                      'min_evaluations': 1})
+    if gate:
+        import health_gate
+        kw['transform_spec'] = TransformSpec(
+            health_gate.FileGate(gate, *HEALTH_GATED))
+    ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                  delta_threshold=1, timestamp_field='step')
+    times, facts = [], {}
+    with make_reader(url, schema_fields=ngram, num_epochs=epochs,
+                     workers_count=4, seed=args.seed, **kw) as reader:
+        port = reader.debug_port
+        if watched:
+            check(isinstance(port, int),
+                  '%s: the debug server did not bind (%r)' % (label, port))
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        goodput = loader.goodput
+        poller = (HealthzPoller(port, reader.health if not gate else None)
+                  if watched else None)
+        keeper = None
+        if gate:
+            keeper = threading.Thread(
+                target=_keep_gate, args=(reader, poller, gate, flights,
+                                         stall, facts, label),
+                daemon=True, name='smoke-gate-keeper')
+            keeper.start()
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     goodput=goodput, health=reader.health)
+        try:
+            with contextlib.closing(batches):
+                for i, batch in enumerate(batches):
+                    t0 = time.perf_counter()
+                    tokens = batch[0]['tokens']
+                    targets = torch.cat([tokens[:, 1:],
+                                         batch[1]['tokens'][:, :1]], 1)
+                    loss = float(goodput.fence(step(tokens, targets)))
+                    t1 = time.perf_counter()
+                    times.append(t1 - t0)
+                    facts['span'] = (facts.get('span', (t0,))[0], t1)
+                    check(math.isfinite(loss), '%s: non-finite loss' % label)
+                    if watched and i == 3 and not gate:
+                        facts['stacks'] = http_get(port, '/stacks')
+        finally:
+            if keeper is not None:
+                keeper.join(60)
+                check(not keeper.is_alive(), '%s: the keeper hung' % label)
+                # the last steps may end before the next poll: keep
+                # polling until a reply after the gate opened
+                deadline = time.monotonic() + HEALTH_RECOVER_S + 1.0
+                while (time.monotonic() < deadline and not any(
+                        t > facts['opened'] and s == 200
+                        for t, s, _ in list(poller.replies))):
+                    time.sleep(0.02)
+            if poller is not None:
+                poller.stop()
+        check(len(times) == epochs * OBS_FILES,
+              '%s: %d steps, not %d' % (label, len(times),
+                                        epochs * OBS_FILES))
+        report = reader.audit().assert_complete()
+        if watched:
+            facts['replies'] = poller.replies
+            facts['staging_max_age_s'] = poller.staging_max_age_s
+            facts['routes'] = {r: http_get(port, r) for r in (
+                '/diagnostics', '/metrics', '/coverage', '/goodput', '/slo')
+                + HEALTH_ABSENT}
+            facts['items_out'] = reader.stats.snapshot()['items_out']
+            facts['final'] = reader.watchdog.evaluate()
+            facts['slo'] = reader.slo.evaluate()
+        if gate:
+            facts['flights'] = sorted(os.listdir(flights))
+        facts['rows'] = [e['rows_delivered']
+                         for _, e in sorted(report['epochs'].items())]
+        facts['diagnosis'] = infeed_diagnosis(
+            reader.diagnostics, heartbeats=reader.health.heartbeats(),
+            stall_after_s=stall)
+    os.environ.pop(HEALTH_ENV_VAR, None)
+    return times[1:], facts
+
+
+def _keep_gate(reader, poller, gate, flights, stall, facts, label):
+    """The wedged run's keeper: wait for a 503, read what the stall left
+    (the verdict, the flight record, ``infeed_diagnosis``, the SLO), open
+    the gate and time the return to 200. Runs beside the blocked steps;
+    touches no tensor."""
+    from petastorm_tpu_torch.torch_utils import infeed_diagnosis
+    try:
+        deadline = time.monotonic() + 60
+        stalled = None
+        while stalled is None and time.monotonic() < deadline:
+            for t, status, verdict in list(poller.replies):
+                if status == 503:
+                    stalled = (t, verdict)
+                    break
+            time.sleep(0.02)
+        check(stalled is not None, '%s: /healthz never turned 503' % label)
+        facts['stalled_verdict'] = stalled[1]
+        while not os.listdir(flights) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        facts['stall_diagnosis'] = infeed_diagnosis(
+            reader.diagnostics, heartbeats=reader.health.heartbeats(),
+            stall_after_s=stall)
+        # a few more watchdog ticks: the episode must not dump again
+        time.sleep(stall)
+        names = sorted(os.listdir(flights))
+        check(names, '%s: no flight record was written' % label)
+        with open(os.path.join(flights, names[0])) as f:
+            facts['flight'] = json.load(f)
+        facts['slo_during'] = reader.slo.evaluate()
+    finally:
+        opened = time.perf_counter()
+        with open(gate, 'w') as f:
+            f.write('open')
+        facts['opened'] = opened
+
+
+def wedged_process_pass(torch, url, d, device, args, gate):
+    """The LM store on the process pool (4 worker interpreters) with the
+    file gate, staged to the card: the wedged item never completes, so its
+    beat reaches the consumer only in the workers' liveness frames (every
+    2 s). Returns the stalled verdict, the pass's rows and its staging."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.ngram import NGram
+    from petastorm_tpu_torch.transform import TransformSpec
+    import health_gate
+    label = 'health wedged process pool'
+    ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                  delta_threshold=1, timestamp_field='step')
+    facts = {}
+    start = time.perf_counter()
+    with make_reader(url, schema_fields=ngram, num_epochs=1, workers_count=4,
+                     seed=args.seed, reader_pool_type='process',
+                     stall_timeout=HEALTH_PROCESS_STALL,
+                     flight_record_dir=tempfile.mkdtemp(dir=d),
+                     transform_spec=TransformSpec(
+                         health_gate.FileGate(gate, *HEALTH_GATED))
+                     ) as reader:
+        watchdog = reader.watchdog
+
+        def keeper():
+            try:
+                deadline = time.monotonic() + 90
+                while time.monotonic() < deadline:
+                    verdict = watchdog.last_verdict
+                    if verdict is not None and verdict['state'] == 'stalled':
+                        facts['verdict'] = verdict
+                        facts['beats'] = reader.health.heartbeats()
+                        facts['stalled_at'] = time.perf_counter() - start
+                        break
+                    time.sleep(0.05)
+            finally:
+                with open(gate, 'w') as f:
+                    f.write('open')
+
+        thread = threading.Thread(target=keeper, daemon=True,
+                                  name='smoke-process-keeper')
+        thread.start()
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        steps = set()
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     health=reader.health)
+        with contextlib.closing(batches):
+            for batch in batches:
+                tokens = batch[0]['tokens']
+                check(tokens.device.type == device and len(tokens) == BATCH,
+                      '%s: a batch of %d on %s' % (label, len(tokens),
+                                                   tokens.device))
+                steps.update(int(s) for s in batch[0]['step'].tolist())
+        thread.join(60)
+        check(not thread.is_alive(), '%s: the keeper hung' % label)
+        report = reader.audit().assert_complete()
+        facts['final'] = reader.watchdog.evaluate()
+        facts['rows'] = report['epochs'][0]['rows_delivered']
+        facts['steps'] = steps
+    facts['seconds'] = time.perf_counter() - start
+    return facts
+
+
+def health_line(torch, np, tlm, kernels, args, device='cuda', cfg=None):
+    """Phase 18: the live health plane on the card. The watched LM (full
+    width, 128 steps on K1-K3 under a watchdog, the debug server and a
+    0.1 s ``/healthz`` poller), the same LM with a worker wedged by a file
+    gate on the thread pool, the wedged process pool staged to the card,
+    and the plane's cost. Returns the launch counts of the LM runs."""
+    from petastorm_tpu_torch.health import HEALTH_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    saved = os.environ.get(HEALTH_ENV_VAR)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            url = 'file://' + os.path.join(d, 'tokens')
+            write_store(np, url, cfg.max_seq_len, cfg.vocab_size,
+                        OBS_FILES * OBS_ROWS_PER_FILE, args.seed,
+                        rows_per_file=OBS_ROWS_PER_FILE)
+            with open(os.path.join(d, 'health_gate.py'), 'w') as f:
+                f.write(HEALTH_GATE_MODULE)
+            sys.path.insert(0, d)
+            params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                              device=device)
+            _, step = tlm.make_train_step(cfg, params)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            phase = time.perf_counter()
+            _, healthy = watched_lm_run(torch, url, cfg, step, 'watched', d,
+                                        device, args, label='health LM',
+                                        epochs=HEALTH_EPOCHS)
+            check_healthy(healthy)
+            log('health healthy run %.1f s' % (time.perf_counter() - phase))
+            phase = time.perf_counter()
+            _, wedged = watched_lm_run(
+                torch, url, cfg, step, 'watched', d, device, args,
+                gate=os.path.join(d, 'gate-thread'),
+                label='health wedged LM')
+            check_wedged(wedged)
+            log('health wedged run %.1f s' % (time.perf_counter() - phase))
+            steady = {}
+            for n in range(HEALTH_ROUNDS):
+                # ABC then CBA: a drift over the runs cancels in the ratios
+                order = HEALTH_SETTINGS[::1 if n % 2 == 0 else -1]
+                for setting in order:
+                    times, _ = watched_lm_run(
+                        torch, url, cfg, step, setting, d, device, args,
+                        label='health cost %s run %d' % (setting, n))
+                    steady.setdefault(setting, []).append(
+                        statistics.median(times))
+            lm = dict(kernels.LAUNCHES)
+            runs = HEALTH_EPOCHS + 1 + HEALTH_ROUNDS * len(HEALTH_SETTINGS)
+            if device == 'cuda':
+                check(all(lm[k] == runs * OBS_FILES * cfg.n_layers
+                          for k in FLASH),
+                      'health LM launches %r for %d epochs of %d steps of '
+                      '%d layers' % (lm, runs, OBS_FILES, cfg.n_layers))
+            phase = time.perf_counter()
+            process = wedged_process_pass(torch, url, d, device, args,
+                                          os.path.join(d, 'gate-process'))
+            check_process(process)
+            log('health process pass %.1f s' % (time.perf_counter() - phase))
+            sys.path.remove(d)
+    finally:
+        if saved is None:
+            os.environ.pop(HEALTH_ENV_VAR, None)
+        else:
+            os.environ[HEALTH_ENV_VAR] = saved
+    base = statistics.mean(steady['off'])
+    spread = max(steady['off']) / min(steady['off'])
+    for setting in HEALTH_SETTINGS:
+        slower = sum(t > o for t, o in zip(steady[setting], steady['off']))
+        log('health cost LM steady step (median of steps 2-%d) %s: %s ms; '
+            '/ heartbeats off %.4f (medians %.4f; slower than the round\'s '
+            'off run in %d of %d) (the off runs\' spread %.4f: %s ms) [%s]'
+            % (OBS_FILES, setting,
+               ' '.join('%.3f' % (t * 1e3) for t in steady[setting]),
+               statistics.mean(steady[setting]) / base,
+               statistics.median(steady[setting])
+               / statistics.median(steady['off']), slower,
+               len(steady['off']), spread,
+               ' '.join('%.3f' % (t * 1e3) for t in steady['off']), CARD))
+    log('health LM launches %s (%d epochs of %d steps)'
+        % (json.dumps(lm), runs, OBS_FILES))
+    return lm
+
+
+def check_healthy(facts):
+    label = 'health LM'
+    replies = facts['replies']
+    first, last = facts['span']
+    run_s = last - first
+    check(run_s >= 1.5 * HEALTH_STALL,
+          '%s: the steps took %.3f s, under 1.5 stall timeouts'
+          % (label, run_s))
+    during = [v for t, _, v in replies if first <= t <= last]
+    floor = int(HEALTH_POLL_SHARE * run_s / HEALTH_POLL_S)
+    check(len(during) >= floor,
+          '%s: %d /healthz replies during %.3f s of steps, under %d'
+          % (label, len(during), run_s, floor))
+    # each watchdog tick moves the progress baseline (items_out less its
+    # delta); a probe leaves it alone, so the baselines the replies show
+    # count the ticks that followed progress
+    ticks = {v['items_out'] - v['items_out_delta'] for v in during} - {0}
+    check(len(ticks) >= 2, '%s: %d watchdog ticks seen during the steps'
+          % (label, len(ticks)))
+    bad = [(s, v.get('state')) for _, s, v in replies
+           if s != 200 or v.get('state') == 'stalled']
+    check(not bad, '%s: /healthz replies %s' % (label, bad[:5]))
+    armed = [v['slo']['fail_healthz'] and not v['slo']['hard_breach']
+             for _, _, v in replies]
+    check(all(armed), '%s: the SLO was not armed and met on every reply'
+          % label)
+    routes = facts['routes']
+    blob = json.loads(routes['/diagnostics'][1])
+    entities = set(blob['heartbeats'])
+    workers = sorted(e for e in entities if e.startswith('worker-'))
+    check({'ventilator', 'loader-prefetch'} <= entities and workers,
+          '%s: /diagnostics entities %s' % (label, sorted(entities)))
+    lines = [line.split() for line in routes['/metrics'][1].splitlines()
+             if line.startswith('petastorm_tpu_items_out ')]
+    check(lines and float(lines[0][1]) == facts['items_out']
+          == HEALTH_EPOCHS * OBS_FILES,
+          '%s: /metrics items_out %s, reader.stats %d' % (
+              label, lines, facts['items_out']))
+    coverage = json.loads(routes['/coverage'][1])
+    check(routes['/coverage'][0] == 200 and coverage['complete']
+          and len(coverage['epochs']) == HEALTH_EPOCHS,
+          '%s: /coverage %s' % (label, routes['/coverage'][0]))
+    goodput = json.loads(routes['/goodput'][1])
+    check(goodput.get('attached', True)
+          and goodput['steps'] == HEALTH_EPOCHS * OBS_FILES,
+          '%s: /goodput %s' % (label, goodput))
+    stacks = facts['stacks']
+    check(stacks[0] == 200 and 'petastorm-torch-prefetch' in stacks[1],
+          '%s: /stacks names no staging thread' % label)
+    absent = {r: routes[r][0] for r in HEALTH_ABSENT}
+    check(set(absent.values()) == {404}, '%s: %s' % (label, absent))
+    check(facts['final']['state'] != 'stalled'
+          and facts['rows'] == [64] * HEALTH_EPOCHS,
+          '%s: final %s, windows %s' % (label, facts['final']['state'],
+                                        facts['rows']))
+    log('%s: %d steps in %.3f s; %d /healthz replies (%d during the steps, '
+        'floor %d), all 200, none stalled; %d watchdog ticks seen during '
+        'the steps; the SLO armed '
+        '(fail_healthz) and met; /diagnostics entities %s; /metrics '
+        'items_out %d == reader.stats; /coverage complete; /goodput %d '
+        'steps, goodput %.4f; /stacks names the staging thread; %s 404; '
+        'loader-prefetch staging reached %.4f s at most; infeed_diagnosis '
+        '%s, pipeline %s [%s]'
+        % (label, goodput['steps'], run_s, len(replies), len(during), floor,
+           len(ticks), ' '.join(sorted(entities)),
+           facts['items_out'], goodput['steps'],
+           goodput['goodput_fraction'] or 0.0, ' '.join(HEALTH_ABSENT),
+           facts['staging_max_age_s'], facts['diagnosis']['bottleneck'],
+           facts['diagnosis']['pipeline_state'], CARD))
+
+
+def check_wedged(facts):
+    label = 'health wedged LM'
+    verdict = facts['stalled_verdict']
+    stalled = verdict['stalled_entities']
+    check(verdict['state'] == 'stalled' and len(stalled) == 1
+          and stalled[0]['entity'].startswith('worker-')
+          and stalled[0]['stage'] == 'decode',
+          '%s: the stalled verdict %s' % (label, stalled))
+    check(len(facts['flights']) == 1,
+          '%s: %d flight records' % (label, len(facts['flights'])))
+    flight = facts['flight']
+    for key in ('heartbeats', 'stats', 'stacks', 'latency', 'goodput', 'slo',
+                'lineage'):
+        check(flight.get(key), '%s: the flight record has no %s'
+              % (label, key))
+    check(any('health_gate.py' in s for s in flight['stacks'].values()),
+          '%s: no stack shows the gate' % label)
+    entity = stalled[0]['entity']
+    check(flight['heartbeats'][entity]['stage'] == 'decode',
+          '%s: the record\'s %s' % (label, flight['heartbeats'][entity]))
+    check(facts['stall_diagnosis']['bottleneck'] == 'stalled',
+          '%s: infeed_diagnosis %s' % (label,
+                                       facts['stall_diagnosis']['bottleneck']))
+    check(facts['slo_during']['stall_episodes'] == 1
+          and facts['slo']['stall_episodes'] == 1,
+          '%s: %d stall episodes' % (label,
+                                     facts['slo']['stall_episodes']))
+    after = [(t - facts['opened'], s) for t, s, _ in facts['replies']
+             if t > facts['opened']]
+    back = [t for t, s in after if s == 200]
+    check(back and back[0] <= HEALTH_RECOVER_S,
+          '%s: /healthz after the gate opened %s' % (label, after[:8]))
+    check(facts['final']['state'] == 'healthy' and facts['rows'] == [64],
+          '%s: final %s, windows %s' % (label, facts['final']['state'],
+                                        facts['rows']))
+    codes = [s for _, s, _ in facts['replies']]
+    log('%s: /healthz 503 (stalled: %s in %s, %.3f s) -> one flight record '
+        '%s (heartbeats, stats, %d stacks with the gate, latency, goodput, '
+        'SLO, lineage); infeed_diagnosis %s; SLO stall episodes %d; 200 '
+        'again %.3f s after the gate opened; %d replies (%d 503); 8 steps, '
+        '64 windows, audit complete [%s]'
+        % (label, entity, stalled[0]['stage'], stalled[0]['age_s'],
+           facts['flights'][0], len(flight['stacks']),
+           facts['stall_diagnosis']['bottleneck'],
+           facts['slo']['stall_episodes'], back[0], len(codes),
+           codes.count(503), CARD))
+
+
+def check_process(facts):
+    label = 'health wedged process pool'
+    verdict = facts.get('verdict')
+    check(verdict is not None, '%s: never stalled' % label)
+    stalled = verdict['stalled_entities']
+    check(len(stalled) == 1 and stalled[0]['entity'].startswith('worker-')
+          and stalled[0]['stage'] == 'decode',
+          '%s: the stalled verdict %s' % (label, stalled))
+    pid = facts['beats'][stalled[0]['entity']]['pid']
+    check(pid != os.getpid(), '%s: the stalled pid is the consumer\'s'
+          % label)
+    check(facts['rows'] == 64 and len(facts['steps']) == 64
+          and facts['final']['state'] == 'healthy',
+          '%s: %d windows, final %s' % (label, facts['rows'],
+                                        facts['final']['state']))
+    log('%s: %s stalled in %s (pid %d, the consumer %d) %.3f s into the '
+        'pass, seen through the liveness frames; after the gate opened 64 '
+        'windows staged, audit complete, healthy; pass %.1f s [%s]'
+        % (label, stalled[0]['entity'], stalled[0]['stage'], pid,
+           os.getpid(), facts['stalled_at'], facts['seconds'], CARD))
+
+
+# ---------------------------------------------------------------------------
 # phase 16: times
 # ---------------------------------------------------------------------------
 
@@ -3458,6 +4028,14 @@ def main(argv=None):
         launches[name] += observed_lm[name]
     launches['normalize'] += observed_png['normalize']
     log('phase observability line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    watched_lm = health_line(torch, np, tlm, kernels, args)
+    check(all(watched_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the watched LM line: %r'
+          % watched_lm)
+    for name in FLASH:
+        launches[name] += watched_lm[name]
+    log('phase health line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

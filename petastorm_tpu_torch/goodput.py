@@ -356,8 +356,9 @@ class GoodputMonitor:
         component that dominated it; for a data stall, the culprit chain
         walked through :func:`~petastorm_tpu_torch.health.
         bottleneck_signals` of a stats ``snapshot`` (``reader.diagnostics``)
-        and the prefetch ring's occupancy there. ``heartbeats`` is taken
-        for the health slice's surfaces and not read."""
+        and the prefetch ring's occupancy there. ``heartbeats`` is accepted
+        for parity with the JAX package, which reserves it and does not
+        read it either."""
         if n is None:
             entries = self.steps()
             entry = entries[-1] if entries else None

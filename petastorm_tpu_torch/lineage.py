@@ -32,11 +32,11 @@ item on the consumer side, and one int64 column through the loader's
 shuffling buffer. ``PETASTORM_TPU_LINEAGE=0`` (the JAX package's variable)
 turns all of it off.
 
-Not ported yet: ``crash_quarantine_record`` and
-``LineageTracker.delivery_deficit`` (worker recovery, the resilience
-slice), the ventilation timestamps (``ventilated_ts``, ``record_vent_ts``;
-the latency plane) and ``flight_summary`` (flight records, the tracing
-slice).
+The ventilation timestamps (``record_vent_ts``, ``ventilated_ts``) feed
+the latency plane's ``e2e_batch``, and :meth:`LineageTracker.
+flight_summary` the health plane's flight records. Not ported yet:
+``crash_quarantine_record`` and ``LineageTracker.delivery_deficit`` (worker
+recovery, the resilience slice).
 """
 
 from __future__ import annotations
@@ -361,6 +361,13 @@ class LineageTracker:
     def coverage_report(self) -> dict:
         """The full :class:`CoverageAuditor` report."""
         return CoverageAuditor(self).report()
+
+    def flight_summary(self, quarantine_limit: int = 20) -> dict:
+        """The lineage section of a flight record: the coverage report and
+        the latest ``quarantine_limit`` quarantine records."""
+        report = self.coverage_report()
+        report['recent_quarantines'] = self.quarantines(quarantine_limit)
+        return report
 
 
 class CoverageAuditor:

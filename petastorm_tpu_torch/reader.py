@@ -64,9 +64,21 @@ of ``trace=`` (or ``PETASTORM_TPU_TRACE``), exported as a Chrome trace at
 and ``slo`` a :class:`~petastorm_tpu_torch.latency.SLOMonitor`
 (``reader.slo``).
 
-Not ported yet (each raises ``NotImplementedError``): health (``debug_port``,
-``stall_timeout``, ``flight_record_dir``) and autotune; resilience; remote
-object stores; JAX-process and elastic sharding.
+The live health plane (:mod:`petastorm_tpu_torch.health`, JAX :515-517,
+578-583, 738, 862-933, 1154-1240, 1389-1490): ``reader.health`` merges the
+heartbeats of the ventilator, the pool's workers and their readahead
+threads, and of a staging thread given ``health=reader.health``.
+``stall_timeout=S`` starts a :class:`~petastorm_tpu_torch.health.
+PipelineWatchdog` (``reader.watchdog``) that writes a flight record into
+``flight_record_dir`` once per stall episode (:meth:`Reader.
+dump_flight_record`); ``debug_port=N`` (or ``PETASTORM_TPU_DEBUG_PORT``)
+serves a :class:`~petastorm_tpu_torch.health.DebugServer` on
+``127.0.0.1:N`` (``reader.debug_port``; 0 binds a free port).
+
+Not ported yet (each raises ``NotImplementedError``): autotune and the
+profiler (``/profile``, ``/autotune`` and the flight record's ``roofline``
+and ``autotune``); resilience; remote object stores; JAX-process and
+elastic sharding.
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ import copy
 import functools
 import hashlib
 import logging
+import os
+import tempfile
 import time
 
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
@@ -89,6 +103,11 @@ from petastorm_tpu_torch.filters import (FiltersPredicate,
                                          normalize_filters,
                                          validate_filter_types)
 from petastorm_tpu_torch.fs import urls_to_path_or_paths
+from petastorm_tpu_torch.health import (DEFAULT_STALL_AFTER_S, DebugServer,
+                                        HealthMonitor, PipelineWatchdog,
+                                        build_flight_record,
+                                        classify_pipeline, resolve_debug_port,
+                                        write_flight_record)
 from petastorm_tpu_torch.latency import SLOMonitor, validate_slo_targets
 from petastorm_tpu_torch.lineage import (BatchProvenance, CoverageAuditor,
                                          LineageTracker, batch_provenance_of,
@@ -126,7 +145,6 @@ logger = logging.getLogger(__name__)
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('health', ('debug_port', 'stall_timeout', 'flight_record_dir')),
     ('autotune', ('autotune',)),
     ('resilience', ('retry', 'hedge', 'worker_recovery')),
     ('remote object stores', ('remote_read', 'storage_options')),
@@ -274,7 +292,9 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 cache_type='null', cache_location=None, cache_size_limit=None,
                 cache_row_size_estimate=None, cache_extra_settings=None,
                 io_readahead=0, on_decode_error='raise', trace=None,
-                metrics_interval=0, metrics_out=None, slo=None, **unported):
+                metrics_interval=0, metrics_out=None, slo=None,
+                debug_port=None, stall_timeout=0, flight_record_dir=None,
+                **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -338,7 +358,17 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     or Prometheus text for a ``.prom`` path), and once more at ``join``.
     ``slo`` (a dict of targets, see
     :func:`~petastorm_tpu_torch.latency.validate_slo_targets`) gives
-    ``reader.slo``, whose ``evaluate()`` returns a verdict."""
+    ``reader.slo``, whose ``evaluate()`` returns a verdict.
+
+    Health: ``debug_port=N`` (or ``PETASTORM_TPU_DEBUG_PORT``) serves the
+    live endpoints on ``127.0.0.1:N`` (``/healthz`` ``/slo`` ``/metrics``
+    ``/diagnostics`` ``/coverage`` ``/goodput`` ``/stacks``; 0 binds a
+    free port, read back from ``reader.debug_port``); ``stall_timeout=S``
+    starts a watchdog that classifies the pipeline from its heartbeats
+    every S/4 seconds and writes a flight record (JSON) into
+    ``flight_record_dir`` (else the temp directory) when an entity made no
+    progress for S seconds. ``PETASTORM_TPU_HEALTH=0`` turns the
+    heartbeats off."""
     _refuse_unported('make_reader', unported)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
@@ -359,7 +389,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   io_readahead=io_readahead, on_decode_error=on_decode_error,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
-                  slo=slo)
+                  slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
+                  flight_record_dir=flight_record_dir)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -375,7 +406,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          cache_extra_settings=None, io_readahead=0,
                          on_decode_error='raise', trace=None,
                          metrics_interval=0, metrics_out=None, slo=None,
-                         **unported):
+                         debug_port=None, stall_timeout=0,
+                         flight_record_dir=None, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
@@ -383,7 +415,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     the device decode when the reader plans one (see :class:`Reader`), else
     on the workers as CPU tensors. Selection,
     ``decode_hints``, the pool, readahead, the cache, lineage,
-    ``on_decode_error`` and the observability options as in
+    ``on_decode_error``, the observability and the health options as in
     :func:`make_reader` (a policy other than ``'raise'`` declines device
     decode); a whole row group's columns are cached after the transform,
     so a hit skips the decode and the transform. NGram is not
@@ -410,7 +442,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   io_readahead=io_readahead, on_decode_error=on_decode_error,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
-                  slo=slo)
+                  slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
+                  flight_record_dir=flight_record_dir)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -424,7 +457,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       cache_extra_settings=None, io_readahead=0,
                       on_decode_error='raise', trace=None,
                       metrics_interval=0, metrics_out=None, slo=None,
-                      **unported):
+                      debug_port=None, stall_timeout=0,
+                      flight_record_dir=None, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -435,8 +469,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
     ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
-    readahead, the cache, lineage, ``on_decode_error`` and the
-    observability options as in :func:`make_reader` (a process pool sends
+    readahead, the cache, lineage, ``on_decode_error``, the observability
+    and the health options as in :func:`make_reader` (a process pool sends
     each row group's table as one Arrow IPC stream; the shared cache keeps
     it as one)."""
     _refuse_unported('make_batch_reader', unported)
@@ -461,7 +495,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   io_readahead=io_readahead, on_decode_error=on_decode_error,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
-                  slo=slo)
+                  slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
+                  flight_record_dir=flight_record_dir)
 
 
 def _view(stored, schema_fields):
@@ -508,7 +543,8 @@ class Reader:
     :class:`~petastorm_tpu_torch.lineage.LineageTracker` (disabled, but
     there, under ``PETASTORM_TPU_LINEAGE=0``). ``stats``, ``diagnostics``,
     ``latency``, ``tracer`` and ``slo`` are the stats, latency and tracing
-    planes."""
+    planes; ``health``, ``watchdog`` and ``debug_port`` the health
+    plane."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, pool,
                  num_epochs, shuffle_row_groups, seed,
@@ -517,7 +553,11 @@ class Reader:
                  shuffle_row_drop_partitions=1, decode_hints=None,
                  cache=None, io_readahead=0, on_decode_error='raise',
                  trace_export=None, metrics_interval=0, metrics_out=None,
-                 slo=None):
+                 slo=None, debug_port=None, stall_timeout=0,
+                 flight_record_dir=None):
+        if stall_timeout and stall_timeout < 0:
+            raise ValueError('stall_timeout must be >= 0, got '
+                             '{!r}'.format(stall_timeout))
         if metrics_interval and not metrics_out:
             raise ValueError('metrics_interval needs a metrics_out path to '
                              'emit snapshots into')
@@ -536,6 +576,11 @@ class Reader:
         if shuffle_row_drop_partitions < 1:
             raise ValueError('shuffle_row_drop_partitions must be >= 1')
         _validate_shard_range(cur_shard, shard_count)
+        #: the pipeline's :class:`~petastorm_tpu_torch.health.HealthMonitor`:
+        #: the heartbeats of the ventilator, the pool's workers and their
+        #: readahead threads, and of a staging thread given
+        #: ``prefetch_to_device(..., health=reader.health)``
+        self.health = HealthMonitor()
         self.dataset_path = dataset_path
         self.stored_schema, was_stored = infer_or_load_unischema(dataset_path)
         if mode != 'batch' and not was_stored:
@@ -713,7 +758,7 @@ class Reader:
             shard=cur_shard if cur_shard is not None else -1,
             dataset=dataset, file_indexes=file_indexes,
             windows=ngram is not None, trace=tracer is not None,
-            latency=latency_on)
+            latency=latency_on, health=self.health.enabled)
         on_ventilate = None
         if self.lineage.enabled:
             # the ventilation ledger is the audit's expected side: what
@@ -737,10 +782,19 @@ class Reader:
         self._trace_export = trace_export
         self._metrics_emitter = None
         self._slo = None
+        self._watchdog = None
+        self._debug_server = None
+        #: the loader's :class:`~petastorm_tpu_torch.goodput.GoodputMonitor`
+        #: (None until a loader registers one): ``/goodput`` and the flight
+        #: record's goodput section
+        self._goodput = None
+        self._flight_record_dir = flight_record_dir
         pool.lineage = self.lineage
         self._pool.start(self._spec, items, num_epochs=num_epochs,
                          shuffle=shuffle_row_groups, seed=seed,
-                         on_ventilate=on_ventilate, **bound)
+                         on_ventilate=on_ventilate,
+                         heartbeat=(self.health.beat if self.health.enabled
+                                    else None), **bound)
         if metrics_interval:
             self._metrics_emitter = MetricsEmitter(
                 self._stats_snapshot, metrics_interval, metrics_out)
@@ -748,6 +802,44 @@ class Reader:
         if slo:
             self._slo = SLOMonitor(slo, snapshot_fn=self._stats_snapshot,
                                    latency=pool.stats.latency)
+        self._start_health(pool, debug_port, stall_timeout)
+
+    def _start_health(self, pool, debug_port, stall_timeout):
+        """The watchdog and the debug server (JAX :862-933). On-demand
+        verdicts (``/healthz``) use :data:`~petastorm_tpu_torch.health.
+        DEFAULT_STALL_AFTER_S` without a ``stall_timeout``; the watchdog's
+        thread runs only with one (it fires the flight recorder and paces
+        the SLO's burn accounting). A port already taken disables the
+        endpoint with a warning: a job-wide ``PETASTORM_TPU_DEBUG_PORT``
+        must not crash the job's second reader."""
+        self.health.add_source(pool.heartbeats)
+        port = resolve_debug_port(debug_port)
+        if not stall_timeout and port is None:
+            return
+        self._watchdog = PipelineWatchdog(
+            self.health.heartbeats, pool.stats.snapshot,
+            stall_after_s=stall_timeout or DEFAULT_STALL_AFTER_S,
+            on_stall=self._on_stall, slo_monitor=self._slo)
+        if stall_timeout:
+            self._watchdog.start()
+        if port is None:
+            return
+        from petastorm_tpu_torch.goodput import goodput_enabled
+        self._debug_server = DebugServer(
+            self._watchdog.evaluate, self._stats_snapshot,
+            self.health.heartbeats, port=port,
+            coverage_fn=(self.lineage.coverage_report
+                         if self.lineage.enabled else None),
+            slo_fn=self._slo.evaluate if self._slo is not None else None,
+            goodput_fn=self._goodput_route if goodput_enabled() else None)
+        try:
+            self._debug_server.start()
+        except (OSError, OverflowError) as e:   # a taken or bad port
+            logger.warning(
+                'debug endpoint disabled: could not bind 127.0.0.1:%d '
+                '(%s); pass debug_port=0 for an ephemeral port per '
+                'reader', port, e)
+            self._debug_server = None
 
     def _filter_row_groups(self, pieces, predicate, rowgroup_selector,
                            filters, cur_shard, shard_count):
@@ -939,6 +1031,89 @@ class Reader:
         self._pool.reset(self._num_epochs)
         self.last_row_consumed = False
 
+    # -- the health plane ----------------------------------------------------
+
+    def _on_stall(self, verdict):
+        if self._slo is not None:
+            # edge-triggered upstream: one episode a stall, however long
+            self._slo.record_stall_episode()
+        try:
+            path = self.dump_flight_record(verdict=verdict)
+            logger.error('pipeline stalled; flight record written to %s', path)
+        except Exception:
+            logger.exception('failed to write flight record')
+
+    def dump_flight_record(self, path=None, verdict=None):
+        """Write a flight record (the verdict, heartbeats, stats snapshot,
+        queue occupancy, every thread's stack, the span tail when tracing,
+        and the lineage, latency, SLO and goodput summaries) and return
+        its path. The watchdog calls this on a stall; call it for a dump
+        on demand. ``path=None`` names a file in ``flight_record_dir`` (or
+        the temp directory). The profiler's ``roofline`` and autotune's
+        sections stay out until those slices (JAX leaves them out when
+        they are unwired)."""
+        if verdict is None:
+            if self._watchdog is not None:
+                verdict = self._watchdog.evaluate()
+            else:
+                verdict = classify_pipeline(self.health.heartbeats(),
+                                            self._pool.stats.snapshot())
+        snapshot = self._pool.stats.snapshot()
+        queues = {name: snapshot.get(name, 0) for name in (
+            'queue_depth', 'queue_depth_max', 'shuffle_buffer_depth',
+            'readahead_depth', 'prefetch_occupancy',
+            'prefetch_occupancy_max')}
+        latency = self._pool.stats.latency
+        slo_verdict = None
+        if self._slo is not None:
+            try:
+                slo_verdict = self._slo.evaluate()
+            except Exception:
+                logger.exception('SLO evaluation failed for flight record')
+        record = build_flight_record(
+            verdict, self.health.heartbeats(), snapshot, queues,
+            tracer=self.tracer,
+            lineage=(self.lineage.flight_summary() if self.lineage.enabled
+                     else None),
+            latency=latency.flight_summary() if latency is not None else None,
+            slo=slo_verdict,
+            goodput=(self._goodput.flight_summary()
+                     if self._goodput is not None else None))
+        if path is None:
+            out_dir = self._flight_record_dir or tempfile.gettempdir()
+            path = os.path.join(out_dir, 'petastorm_tpu_flight_{}_{}.json'
+                                .format(os.getpid(), int(time.time())))
+        return write_flight_record(path, record)
+
+    def register_goodput(self, monitor):
+        """Attach a loader's :class:`~petastorm_tpu_torch.goodput.
+        GoodputMonitor`: ``/goodput``, ``/diagnostics`` and flight records
+        serve its per-step accounting. The port's loaders call this when
+        made; the latest wins (one consumer loop a reader)."""
+        self._goodput = monitor
+
+    def _goodput_route(self):
+        """``GET /goodput``: the monitor's summary once a loader registered
+        one, else a not-yet-attached marker (the plane is on: a 404 would
+        read as switched off)."""
+        if self._goodput is None:
+            return {'enabled': True, 'attached': False}
+        return self._goodput.summary()
+
+    @property
+    def watchdog(self):
+        """The :class:`~petastorm_tpu_torch.health.PipelineWatchdog` (None
+        unless built with ``stall_timeout=`` or a debug port):
+        ``reader.watchdog.evaluate()`` classifies the pipeline now."""
+        return self._watchdog
+
+    @property
+    def debug_port(self):
+        """The debug endpoint's bound port (None when no server runs; not
+        the requested one when that was 0)."""
+        return (self._debug_server.port if self._debug_server is not None
+                else None)
+
     # -- lineage -------------------------------------------------------------
 
     @property
@@ -1040,21 +1215,33 @@ class Reader:
         return self.__next__()
 
     def stop(self):
-        """Stop the pool; the metrics emitter is told to stop first, so a
-        pool that dies uncleanly leaves no emitter running."""
+        """Stop the pool; the metrics emitter and the watchdog are told to
+        stop first and the debug server is stopped after, even when the
+        pool dies uncleanly: no monitoring thread outlives the pipeline.
+        Idempotent."""
         if self._metrics_emitter is not None:
             self._metrics_emitter.stop(join=False)
-        self._pool.stop()
+        if self._watchdog is not None:
+            self._watchdog.stop(join=False)
+        try:
+            self._pool.stop()
+        finally:
+            if self._debug_server is not None:
+                self._debug_server.stop()
 
     def join(self, timeout=None):
         """Join the pool, then the metrics emitter (which writes its final
-        snapshot), then export the Chrome trace when ``trace`` named a
-        file."""
+        snapshot), the watchdog and the debug server (each join bounded),
+        then export the Chrome trace when ``trace`` named a file."""
         try:
             self._pool.join(timeout)
         finally:
             if self._metrics_emitter is not None:
                 self._metrics_emitter.stop()
+            if self._watchdog is not None:
+                self._watchdog.stop()
+            if self._debug_server is not None:
+                self._debug_server.stop()
         if self._trace_export and self.tracer is not None:
             try:
                 self.tracer.export_chrome_trace(self._trace_export)

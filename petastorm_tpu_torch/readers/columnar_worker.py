@@ -202,7 +202,9 @@ def decode_columns(table, schema: Unischema, keep_none: bool = False,
     observation and a ``decode_columns`` span. ``rows_path``: what JAX
     decodes row by row (``_decode_with_partitions``: the row reader's
     predicate and NGram loads), which counts no path and spans
-    ``decode_rows``."""
+    ``decode_rows``. The entry beat ``decode`` (JAX :509) names a wedged
+    codec, and a transform run after the decode."""
+    io.beat('decode')
     overrides = overrides or {}
     plans = plans or {}
     start = time.perf_counter()

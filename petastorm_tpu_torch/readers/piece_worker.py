@@ -38,6 +38,17 @@ after each item (:meth:`PieceWorker.drain_stage_times`,
 well: the read is timed here, the decode path counts and the decode's
 latency and span come from the loads.
 
+Heartbeats (JAX ``workers/worker_base.py:35-112`` and
+``piece_worker.py:261-268, 413, 509, 724``): a worker publishes the record
+of its own entity, ``worker-<id>`` (:meth:`PieceWorker.beat`), and of its
+readahead thread, ``readahead-<id>`` (:meth:`PieceWorker.beat_entity`):
+``'starting'`` when made, ``'io'`` on entering a read (and a wait on
+another process's cache fill), ``'decode'`` on entering a decode, the stage
+of a timed section when it ends (``worker_io`` after a read), and
+``'idle'`` when its pool marks an item done (:meth:`PieceWorker.item_done`).
+Its pool reads them (:meth:`PieceWorker.heartbeat_snapshot`). A spec with
+``health=False`` (replay, ``PETASTORM_TPU_HEALTH=0``) beats nothing.
+
 Resilience, ranged reads and pod observability are not ported yet.
 """
 
@@ -175,6 +186,10 @@ class PlainReads:
         pass
 
     @staticmethod
+    def beat(stage: str) -> None:
+        pass
+
+    @staticmethod
     def record_latency(stage: str, seconds: float) -> None:
         pass
 
@@ -235,12 +250,13 @@ class PieceWorkerSpec:
     :param trace: record spans (the reader has a tracer).
     :param latency: record latency observations (the reader's stats carry
         a latency plane).
+    :param health: publish heartbeats (JAX's worker arg ``'health'``).
     """
 
     def __init__(self, load, plan, cache, io_readahead, key_format,
                  lineage=False, on_decode_error='raise', shard=-1,
                  dataset='', file_indexes=None, windows=False, trace=False,
-                 latency=False):
+                 latency=False, health=True):
         self.load = load
         self.plan = plan
         self.cache = cache
@@ -254,16 +270,19 @@ class PieceWorkerSpec:
         self.windows = windows
         self.trace = trace
         self.latency = latency
+        self.health = health
 
-    def make_worker(self) -> 'PieceWorker':
-        return PieceWorker(self)
+    def make_worker(self, worker_id: int = 0) -> 'PieceWorker':
+        return PieceWorker(self, worker_id)
 
     def for_replay(self) -> 'PieceWorkerSpec':
         """The recipe of a worker that fetches items again: no readahead,
-        no cache, no lineage; the same load and decode-error policy."""
+        no cache, no lineage, no heartbeats; the same load and decode-error
+        policy."""
         return PieceWorkerSpec(self.load, self.plan, NullCache(), 0,
                                self.key_format,
-                               on_decode_error=self.on_decode_error)
+                               on_decode_error=self.on_decode_error,
+                               health=False)
 
 
 class PieceWorker:
@@ -272,7 +291,7 @@ class PieceWorker:
     loads one work item; a pool hints it with the items it holds next
     (:meth:`prefetch_hint`), in the order it will call it on them."""
 
-    def __init__(self, spec: PieceWorkerSpec):
+    def __init__(self, spec: PieceWorkerSpec, worker_id: int = 0):
         self._load = spec.load
         self._plan = spec.plan
         self.cache = spec.cache
@@ -287,8 +306,9 @@ class PieceWorker:
         self._dataset = spec.dataset
         self._file_indexes = spec.file_indexes
         self._windows = spec.windows
-        #: the pool's ordinal of this worker (its provenance's worker_id)
-        self.worker_id = 0
+        #: the pool's ordinal of this worker (its provenance's worker_id and
+        #: its heartbeat entity's)
+        self.worker_id = worker_id
         #: source-row offsets of what the current item's load returns: a
         #: symbolic ``('range', lo, hi)``, an int array, or None (unknown)
         self.offsets = None
@@ -306,15 +326,28 @@ class PieceWorker:
         #: latency observations since the last drain (None: the plane is
         #: off)
         self.latency = LatencyDeltas() if spec.latency else None
+        #: heartbeat records, ``entity -> (stage, ts, items)``: each beat
+        #: replaces a whole tuple, so another thread may read them
+        self.heartbeats: Dict[str, tuple] = {}
+        self.health_enabled = spec.health is not False
+        self._entity = 'worker-{}'.format(worker_id)
+        self._items_done = 0
         self._files = FileHandleCache(pq.ParquetFile)
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
         self.readahead: Optional[RowGroupReadahead] = None
         if spec.io_readahead:
             self._prefetch_files = FileHandleCache(pq.ParquetFile)
-            self.readahead = RowGroupReadahead(self._readahead_read,
-                                               spec.io_readahead,
-                                               trace=self.tracing_enabled)
+            # the background thread beats its own entity: a wedged
+            # prefetch read is the readahead's, not the worker's
+            entity = 'readahead-{}'.format(worker_id)
+            self.readahead = RowGroupReadahead(
+                self._readahead_read, spec.io_readahead,
+                trace=self.tracing_enabled,
+                beat=((lambda stage: self.beat_entity(entity, stage))
+                      if self.health_enabled else None))
+        if self.health_enabled:
+            self.beat('starting')
 
     def __call__(self, item):
         """The payload of ``item``: its load's result, wrapped with its
@@ -352,10 +385,13 @@ class PieceWorker:
     def record_time(self, stage: str, seconds: float) -> None:
         """``seconds`` of wall time against a ``ReaderStats`` stage; a
         latency stage fed by it (``worker_io_s``: ``io``) gets one
-        observation."""
+        observation. The end of a timed stage is progress: a beat of the
+        stage's name without ``_s``."""
         self.stage_times[stage] = self.stage_times.get(stage, 0.0) + seconds
         if self.latency is not None:
             self.latency.record_time_stage(stage, seconds)
+        if self.health_enabled:
+            self.beat(stage[:-2] if stage.endswith('_s') else stage)
 
     def record_count(self, name: str, n: int = 1) -> None:
         self.stat_counts[name] = self.stat_counts.get(name, 0) + n
@@ -378,6 +414,35 @@ class PieceWorker:
             self.trace_spans.append((name, cat, start_s, dur_s,
                                      self._trace_pid, threading.get_ident(),
                                      args))
+
+    # -- heartbeats ----------------------------------------------------------
+
+    def beat(self, stage: str) -> None:
+        """This worker is now in ``stage`` and still making progress."""
+        if self.health_enabled:
+            self.heartbeats[self._entity] = (stage, time.perf_counter(),
+                                             self._items_done)
+
+    def beat_entity(self, entity: str, stage: str, items: int = 0) -> None:
+        """A heartbeat of an entity this worker owns (its readahead
+        thread); safe from that entity's thread."""
+        if self.health_enabled:
+            self.heartbeats[entity] = (stage, time.perf_counter(), items)
+
+    def item_done(self) -> None:
+        """One item fully processed (its pool calls this after publishing
+        it): the items count rises and the worker beats ``idle``."""
+        self._items_done += 1
+        self.beat('idle')
+
+    def heartbeat_snapshot(self) -> Dict[str, dict]:
+        """``{entity: {'stage', 'ts', 'items', 'pid'}}`` of every entity
+        this worker publishes; safe from any thread."""
+        pid = self._trace_pid
+        return {entity: {'stage': stage, 'ts': ts, 'items': items,
+                         'pid': pid}
+                for entity, (stage, ts, items)
+                in list(self.heartbeats.items())}
 
     def drain_stage_times(self) -> Dict[str, float]:
         times, self.stage_times = self.stage_times, {}
@@ -514,10 +579,14 @@ class PieceWorker:
     def cached(self, prefix: str, piece, fill: Callable):
         """The cache's value for the payload ``prefix`` of ``piece``,
         ``fill()`` on a miss; a shared cache's hit, miss and eviction
-        counts and its resident bytes go to the stats."""
+        counts and its resident bytes go to the stats. A shared cache's
+        lookup beats ``io``: a wait on another process's fill is a storage
+        stall."""
         cache = self.cache
-        value = cache.get(self.cache_key(prefix, piece), fill)
         take_events = getattr(cache, 'take_events', None)
+        if take_events is not None:
+            self.beat('io')
+        value = cache.get(self.cache_key(prefix, piece), fill)
         if take_events is not None:
             for name, n in take_events().items():
                 if n:
@@ -527,7 +596,9 @@ class PieceWorker:
 
     def read(self, piece, columns: List[str]):
         """The row group's ``columns``: the readahead's read when it
-        prefetched it, else read here, timed as ``worker_io_s``."""
+        prefetched it, else read here, timed as ``worker_io_s``. The entry
+        beat ``io`` names a read that never returns."""
+        self.beat('io')
         if self.readahead is not None:
             table = self.readahead.take(read_key(piece, columns))
             self.readahead.drain_stats_into(self)
@@ -605,11 +676,10 @@ def make_worker(process, worker_id: int = 0):
     """The object a pool calls on each item: ``process.make_worker()`` for
     a :class:`PieceWorkerSpec` (its provenance naming ``worker_id``), else
     ``process`` itself (a plain ``process(item)`` callable)."""
+    if isinstance(process, PieceWorkerSpec):
+        return process.make_worker(worker_id)
     factory = getattr(process, 'make_worker', None)
-    worker = factory() if factory is not None else process
-    if isinstance(worker, PieceWorker):
-        worker.worker_id = worker_id
-    return worker
+    return factory() if factory is not None else process
 
 
 def shutdown_worker(worker) -> None:

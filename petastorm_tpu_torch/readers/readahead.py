@@ -22,8 +22,11 @@ The hit, miss, read and wait tallies since the start stay on the object
 the worker's stats. What accumulated since the last call, and with
 ``trace`` a ``readahead_read`` span per background read, moves into the
 worker on the worker's own thread (:meth:`RowGroupReadahead.drain_stats_into`,
-JAX :226-253). Not ported yet: ``beat`` comes with health, ``set_depth``
-and ``controlled`` with autotune.
+JAX :226-253). With ``beat``, the background thread publishes its
+liveness (``idle`` waiting for a request, ``io`` reading, ``stopped`` at
+its end; JAX :84-87, :281-291), which the owning worker records as its
+``readahead-<id>`` entity. Not ported yet: ``set_depth`` and
+``controlled`` (the autotune slice).
 """
 
 from __future__ import annotations
@@ -71,9 +74,11 @@ class RowGroupReadahead:
         the machinery idle: nothing is prefetched.
     :param trace: keep a ``readahead_read`` span of each background read
         (on the background thread's track) for :meth:`drain_stats_into`.
+    :param beat: ``beat(stage)``, called from the background thread (so
+        safe across threads), or None.
     """
 
-    def __init__(self, read_fn, depth, trace: bool = False):
+    def __init__(self, read_fn, depth, trace: bool = False, beat=None):
         if depth != 'auto' and (not isinstance(depth, int) or depth < 0):
             raise ValueError(
                 "readahead depth must be a non-negative int or 'auto', got "
@@ -91,6 +96,7 @@ class RowGroupReadahead:
         # what accumulated since the last drain_stats_into, and its spans
         self._pending = dict.fromkeys(self._tallies, 0)
         self._trace = trace
+        self._beat = beat
         self._trace_spans: list = []
         # 'auto' measurements, under self._lock
         self._read_s_sum = 0.0
@@ -221,13 +227,20 @@ class RowGroupReadahead:
             thread.join(timeout=10)
 
     def _reader_loop(self) -> None:
+        beat = self._beat
         while True:
+            if beat is not None:
+                beat('idle')
             entry = self._requests.get()
             if entry is None:
+                if beat is not None:
+                    beat('stopped')
                 return
             if entry.cancelled:
                 entry.done.set()
                 continue
+            if beat is not None:
+                beat('io')
             start = time.perf_counter()
             try:
                 entry.table = self._read_fn(entry.piece, entry.columns)

@@ -48,10 +48,19 @@
   dispatch of the copies: nothing here waits on the card) and the
   ``prefetch_occupancy`` gauge. :func:`infeed_diagnosis` classifies a
   stats snapshot.
+- The health plane (``jax_utils.py:303-307, 1086-1097, 1277-1308``): a
+  loader's ``health`` is its reader's
+  :class:`~petastorm_tpu_torch.health.HealthMonitor`, and the staging
+  thread of :func:`prefetch_to_device` (``health=``) beats as the
+  ``loader-prefetch`` entity: ``staging`` while it stages a batch,
+  ``backpressured`` while the ring is full, ``idle`` while it waits on
+  the loader (so a wedged worker is the one entity named) and ``done``
+  at its end. :func:`infeed_diagnosis` (``heartbeats=``) folds the
+  pipeline's verdict in.
 
 Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
-(the multi-GPU slice), and ``infeed_diagnosis``'s ``heartbeats`` (the
-health slice) and ``roofline`` (the profiler slice).
+(the multi-GPU slice), and ``infeed_diagnosis``'s ``roofline`` (the
+profiler slice).
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ import torch
 
 from petastorm_tpu_torch.device import resolve_device
 from petastorm_tpu_torch.goodput import GoodputMonitor, goodput_enabled
-from petastorm_tpu_torch.health import bottleneck_signals
+from petastorm_tpu_torch.health import (DEFAULT_STALL_AFTER_S,
+                                        bottleneck_signals, classify_pipeline)
 from petastorm_tpu_torch.lineage import (LINEAGE_COLUMN, PACK_SHIFT,
                                          PROVENANCE_KEY, BatchProvenance,
                                          pack_rows)
@@ -291,6 +301,11 @@ class TorchLoaderBase:
     fetch wait and train wall; call ``loader.goodput.fence(outputs)`` in
     the step for the device / host split, and pass ``goodput=
     loader.goodput`` to :func:`prefetch_to_device` for the staging time.
+    The monitor is registered with the reader (``register_goodput``), whose
+    ``/goodput`` and flight records read it. ``health`` is the reader's
+    :class:`~petastorm_tpu_torch.health.HealthMonitor` (None for a reader
+    without one): :meth:`iter_prefetched` beats its staging thread into
+    it; pass ``health=loader.health`` to :func:`prefetch_to_device`.
 
     ``stats`` and ``tracer`` are the reader's (None for a reader without):
     each step's ``infeed_wait`` (the fetch) and ``train_step`` (the
@@ -307,8 +322,12 @@ class TorchLoaderBase:
         #: Lookahead of :meth:`iter_prefetched`; subclasses set it from
         #: their ``prefetch_depth`` knob.
         self.prefetch_depth = resolve_prefetch_depth(None)
+        self.health = getattr(reader, 'health', None)
         self.goodput = (GoodputMonitor(stats=self.stats, tracer=self.tracer)
                         if goodput_enabled() else None)
+        register = getattr(reader, 'register_goodput', None)
+        if register is not None and self.goodput is not None:
+            register(self.goodput)
 
     def iter_prefetched(self, to_device=True):
         """Iterate with a background lookahead of ``self.prefetch_depth``
@@ -323,9 +342,11 @@ class TorchLoaderBase:
                                       self.prefetch_depth,
                                       device=self.device,
                                       goodput=self.goodput, fused_fn=fused,
-                                      stats=self.stats, tracer=self.tracer)
+                                      stats=self.stats, tracer=self.tracer,
+                                      health=self.health)
         return _pipeline(iter(self), self.prefetch_depth,
-                         lambda batch: (batch, None), None, self.stats)
+                         lambda batch: (batch, None), None, self.stats,
+                         self.health)
 
     def _staging_decode(self):
         """The decode :func:`prefetch_to_device` runs after staging when the
@@ -784,13 +805,14 @@ def infeed_diagnosis(snapshot: dict, heartbeats=None, stall_after_s=None,
 
     ``latency`` (``reader.latency``) adds per-stage percentiles; ``slo`` (a
     :meth:`~petastorm_tpu_torch.latency.SLOMonitor.evaluate` verdict) is
-    embedded. ``heartbeats`` and ``stall_after_s`` come with the health
-    slice and ``roofline`` with the profiler slice: both raise
+    embedded. ``heartbeats`` (``reader.health.heartbeats()``) folds the
+    live health plane in: ``pipeline_state`` and ``stalled_entities`` from
+    :func:`~petastorm_tpu_torch.health.classify_pipeline` (the watchdog's
+    and ``/healthz``'s classification) over ``stall_after_s`` (default
+    :data:`~petastorm_tpu_torch.health.DEFAULT_STALL_AFTER_S`), and a
+    stalled entity overrides ``bottleneck`` with ``'stalled'``.
+    ``roofline`` comes with the profiler slice and raises
     ``NotImplementedError``."""
-    if heartbeats is not None or stall_after_s is not None:
-        raise NotImplementedError(
-            'infeed_diagnosis(heartbeats=...) is not ported to '
-            'petastorm_tpu_torch yet; it comes with the health slice')
     if roofline is not None:
         raise NotImplementedError(
             'infeed_diagnosis(roofline=...) is not ported to '
@@ -832,11 +854,22 @@ def infeed_diagnosis(snapshot: dict, heartbeats=None, stall_after_s=None,
         out['latency'] = latency.summary()
     if slo is not None:
         out['slo'] = slo
+    if heartbeats is not None:
+        verdict = classify_pipeline(
+            heartbeats, snapshot,
+            DEFAULT_STALL_AFTER_S if stall_after_s is None else stall_after_s)
+        out['pipeline_state'] = verdict['state']
+        out['stalled_entities'] = verdict['stalled_entities']
+        if verdict['state'] == 'stalled':
+            # a wedged entity trumps the aggregate signals: the time sums
+            # stop moving when the stall starts
+            out['bottleneck'] = 'stalled'
+            out['hint'] = verdict['hint']
     return out
 
 
 def prefetch_to_device(iterator, size=None, device=None, goodput=None,
-                       fused_fn=None, stats=None, tracer=None):
+                       fused_fn=None, stats=None, tracer=None, health=None):
     """Stage up to ``size`` batches (default :func:`resolve_prefetch_depth`)
     ahead of the consumer on a background thread. On a CUDA device each
     tensor leaf is copied from pinned host memory with
@@ -856,7 +889,10 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
     ``device_stage`` latency, and the ring's depth as the
     ``prefetch_occupancy`` gauge; ``tracer`` a ``device_stage`` span on the
     staging thread's track. The time is the host's dispatch of the
-    ``non_blocking`` copies: nothing here waits on the card."""
+    ``non_blocking`` copies: nothing here waits on the card. ``health`` (a
+    :class:`~petastorm_tpu_torch.health.HealthMonitor`, e.g.
+    ``reader.health``) gets the staging thread's heartbeats as the
+    ``loader-prefetch`` entity."""
     device = resolve_device(device)
     size = resolve_prefetch_depth(size)
 
@@ -909,7 +945,7 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
             if goodput is not None:
                 goodput.note_stage(elapsed)
             return out
-    return _pipeline(iterator, size, put, hand_off, stats)
+    return _pipeline(iterator, size, put, hand_off, stats, health)
 
 
 def _hand_off(device):
@@ -921,28 +957,38 @@ def _hand_off(device):
     return hand_off
 
 
-def _pipeline(iterator, size, put, hand_off, stats=None):
+def _pipeline(iterator, size, put, hand_off, stats=None, health=None):
     """Producer thread filling a ring of ``size`` staged batches; it waits
     for a free slot before staging the next batch, so at most ``size`` sit
     staged beside the one the consumer holds. Producer exceptions re-raise in
     the consumer; closing the generator stops the producer and joins it.
     ``stats`` gets the ring's depth at every put and take as the
     ``prefetch_occupancy`` gauge (read under the ring's lock, recorded
-    outside it)."""
+    outside it). ``health`` gets the producer's beats as the
+    ``loader-prefetch`` entity (JAX ``jax_utils.py:1277-1308``; the port
+    waits for the slot before it stages, so a full ring beats
+    ``backpressured`` before ``staging``, not after)."""
     ring = collections.deque()
     done = object()
     cv = threading.Condition()
     state = {'error': None, 'finished': False}
     gauge = stats.gauge if stats is not None else None
+    beat = health.beat if health is not None else None
 
     def producer():
         try:
             for batch in iterator:
                 with cv:
+                    if beat is not None and len(ring) >= size:
+                        # a full ring: the consumer is the slow side, an
+                        # idle-class stage, never a staging stall
+                        beat('loader-prefetch', 'backpressured')
                     while len(ring) >= size and not state['finished']:
                         cv.wait()
                     if state['finished']:
                         return
+                if beat is not None:
+                    beat('loader-prefetch', 'staging')
                 # only this thread appends, so the slot stays free
                 staged = put(batch)
                 with cv:
@@ -953,9 +999,15 @@ def _pipeline(iterator, size, put, hand_off, stats=None):
                     cv.notify_all()
                 if gauge is not None:
                     gauge('prefetch_occupancy', depth)
+                if beat is not None:
+                    # what follows is the wait on the loader: idle, so a
+                    # wedged worker is the entity a stall names
+                    beat('loader-prefetch', 'idle')
         except Exception as e:     # re-raised in the consumer
             state['error'] = e
         finally:
+            if beat is not None:
+                beat('loader-prefetch', 'done')
             with cv:
                 ring.append(done)
                 cv.notify_all()

@@ -14,7 +14,10 @@ worker's quarantine records and empty deliveries go to ``pool.lineage``
 (JAX ``dummy_pool.py:27-29, 69-76``), and what it accumulated goes to
 ``pool.stats`` and ``pool.tracer``, with a ``process_item`` span; each
 item delivered counts in ``items_out`` (JAX :41-78). An item that left no
-row delivers nothing: the next one runs.
+row delivers nothing: the next one runs. The worker beats ``processing``
+before each item and ``idle`` after it, and :meth:`DummyPool.heartbeats`
+reads its records (JAX :53, :98); the ventilator entity beats
+``ventilate`` when a pass starts and ``done`` when its order runs out.
 """
 
 from __future__ import annotations
@@ -45,10 +48,12 @@ class DummyPool:
         self.lineage = None
 
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
-              shuffle: bool = True, seed=None, on_ventilate=None) -> None:
+              shuffle: bool = True, seed=None, on_ventilate=None,
+              heartbeat=None) -> None:
         if self._job is not None:
             raise RuntimeError('pool already started')
-        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate,
+                                   heartbeat)
         self._worker = make_worker(process)
         self.reset(num_epochs)
 
@@ -56,15 +61,24 @@ class DummyPool:
         """The result of the next item; raises its exception, or
         :class:`EmptyResultError` when every epoch is consumed or the pool
         was stopped."""
+        worker = self._worker
+        beat = getattr(worker, 'beat', None)
+        item_done = getattr(worker, 'item_done', None)
         while True:
             item = next(self._order, _END)
             if item is _END:
+                self._job.beat('done')
                 raise EmptyResultError()
+            if beat is not None:
+                beat('processing')
             start = time.perf_counter()
-            result = self._worker(item)
-            merge_worker_stats(self.stats, self.tracer, self._worker, start,
-                               time.perf_counter() - start)
-            drain_lineage(self._worker, self.lineage)
+            result = worker(item)
+            elapsed = time.perf_counter() - start
+            if item_done is not None:
+                item_done()
+            merge_worker_stats(self.stats, self.tracer, worker, start,
+                               elapsed)
+            drain_lineage(worker, self.lineage)
             if result is not None:
                 self.stats.add('items_out')
                 return result
@@ -72,6 +86,11 @@ class DummyPool:
     @property
     def workers_count(self) -> int:
         return 1
+
+    def heartbeats(self) -> dict:
+        """The heartbeat records of the one worker."""
+        snapshot = getattr(self._worker, 'heartbeat_snapshot', None)
+        return snapshot() if snapshot is not None else {}
 
     @property
     def diagnostics(self) -> dict:
@@ -85,6 +104,7 @@ class DummyPool:
         """Ventilate the items for ``num_epochs`` more epochs, the shuffle
         continuing from the same generator and the epochs counting on."""
         self._order = self._job.order(num_epochs)
+        self._job.beat('ventilate')
 
     def stop(self) -> None:
         self._order = iter(())

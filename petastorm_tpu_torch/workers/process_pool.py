@@ -56,9 +56,22 @@ frames' bytes (``bytes_moved``) and count (``payload_frames``),
 the worker's pid and thread id: ``time.perf_counter()`` is
 CLOCK_MONOTONIC, one timeline for every process.
 
+Heartbeats (JAX :49-51, :101-112, :183-193, :450-490, :536-568,
+:618-622, :864-963, :1033, :1086-1104): a worker beats ``processing``
+before each item, ``backpressured`` while a send waits on the results
+socket's high-water mark (``processing`` once it goes), ``idle`` after the
+item's ``ITEM_DONE`` and ``stopped`` at its end; its records ride each
+``ITEM_DONE`` frame and a :class:`_WorkerHeartbeat` frame that a thread of
+its own sends every :data:`HEARTBEAT_INTERVAL_S` (2 s), so a
+wedged item still beats. That thread owns its own PUSH socket (ZMQ sockets
+are not thread-safe), sends with ``NOBLOCK`` and closes it with
+``linger=0``, so the worker's ``context.term()`` never hangs on it. The
+consumer merges the records as it drains (:meth:`ProcessPool.heartbeats`),
+ages clamped to its last drain, and forgets those of a dead worker.
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
-no GPU and import neither torch nor jax. Resize (autotune), recovery
-(resilience) and heartbeats (health) come with their own slices.
+no GPU and import neither torch nor jax. Resize (autotune) and recovery
+(resilience) come with their own slices.
 """
 
 from __future__ import annotations
@@ -97,6 +110,10 @@ _TERMINATED = 'TERMINATED'
 # the control channel's one message
 _FINISHED = 'FINISHED'
 
+#: The period of a worker's liveness frame (JAX :49-51): low by design,
+#: it exists for items that take minutes, not as a telemetry channel.
+HEARTBEAT_INTERVAL_S = 2.0
+
 #: Below this payload size the worker lets ZMQ copy at send time.
 _ZMQ_NOCOPY_SEND_THRESHOLD = 64 * 1024
 
@@ -105,6 +122,19 @@ class _WorkerError:
     def __init__(self, exc, formatted):
         self.exc = exc
         self.formatted = formatted
+
+
+class _WorkerHeartbeat:
+    """The liveness frame: a worker's current heartbeat records, sent every
+    :data:`HEARTBEAT_INTERVAL_S` from a socket of its own, so an item that
+    takes minutes (or never ends) still beats; the ``ITEM_DONE`` frame
+    carries them only when an item completes."""
+
+    __slots__ = ('worker_id', 'records')
+
+    def __init__(self, worker_id, records):
+        self.worker_id = worker_id
+        self.records = records
 
 
 def _import_zmq():
@@ -158,6 +188,13 @@ class ProcessPool:
         self._terminated = 0
         #: the reader's lineage tracker (set before :meth:`start`)
         self.lineage = None
+        # the workers' heartbeat records, from ITEM_DONE and liveness
+        # frames drained on the consumer's thread; _last_drain is the
+        # newest time they are trusted up to: a consumer that stops
+        # polling stops observing, and records must not age meanwhile
+        self._hb_lock = threading.Lock()
+        self._heartbeats = {}
+        self._last_drain = time.perf_counter()
 
     @property
     def workers_count(self) -> int:
@@ -166,11 +203,12 @@ class ProcessPool:
     def start(self, process, items: List, num_epochs: Optional[int] = 1,
               shuffle: bool = True, seed=None,
               max_in_flight: Optional[int] = None,
-              on_ventilate=None) -> None:
+              on_ventilate=None, heartbeat=None) -> None:
         """Start the workers, each running ``process(item)``, wait until all
         reported in, then ventilate ``items``, at most ``max_in_flight``
         (default twice the workers) not yet processed; ``on_ventilate(item)``
-        sees each work item as it is ventilated."""
+        sees each work item as it is ventilated, and the ventilator beats
+        through ``heartbeat``."""
         if self._processes:
             raise RuntimeError('pool already started')
         zmq = self._zmq
@@ -210,7 +248,8 @@ class ProcessPool:
 
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
-        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate,
+                                   heartbeat)
         self._launch(num_epochs)
 
     def _launch(self, num_epochs):
@@ -222,18 +261,18 @@ class ProcessPool:
 
     def _ventilate(self, order):
         """The ventilator thread: the only user of the work socket."""
+        job = self._job
+        job.beat('ventilate')
         try:
             for item in order:
-                while not self._slots.acquire(timeout=0.1):
-                    if self._stop.is_set():
-                        return
-                if self._stop.is_set():
+                if not job.acquire_slot(self._slots, self._stop):
                     return
                 with self._lock:
                     self._ventilated += 1
                 self._work_sender.send_pyobj(item)
         finally:
             self._ventilation_done = True
+            job.beat('done')
 
     def _recv(self):
         """One ``[meta, control, buf0..bufN]`` message as ``(payload frames,
@@ -267,11 +306,17 @@ class ProcessPool:
                 raise EmptyResultError()
             wait_start = time.perf_counter()
             ready = dict(self._poller.poll(100))
-            stats.add_time('queue_wait_s', time.perf_counter() - wait_start)
+            now = time.perf_counter()
+            stats.add_time('queue_wait_s', now - wait_start)
+            with self._hb_lock:
+                self._last_drain = now
             if not ready:
                 self._check_workers_alive()
                 continue
             payload, control = self._recv()
+            if isinstance(control, _WorkerHeartbeat):
+                self._merge_heartbeats(control.records)
+                continue
             extra = None
             if isinstance(control, tuple):   # (marker, provenance or stats)
                 control, extra = control
@@ -315,12 +360,44 @@ class ProcessPool:
                 return result
             # a late _STARTED or _TERMINATED: nothing to do
 
+    def _merge_heartbeats(self, records) -> None:
+        """Keep each entity's newest record. Liveness and ``ITEM_DONE``
+        frames come on two PUSH sockets that the PULL side fair-queues, so
+        a liveness frame taken mid-item can arrive after that item's
+        ``idle`` record; replacing wholesale (as JAX's pool does) would
+        put the older, active stage back and age it into a false stall."""
+        if not records:
+            return
+        with self._hb_lock:
+            for entity, record in records.items():
+                held = self._heartbeats.get(entity)
+                if held is None or record.get('ts', 0.0) >= held.get('ts',
+                                                                     0.0):
+                    self._heartbeats[entity] = record
+
+    def heartbeats(self) -> dict:
+        """The latest heartbeat records the workers shipped, as of the last
+        drained frame (the consumer's poll keeps draining while it waits,
+        so they stay live while no item completes). Ages are clamped to
+        the last drain: while the consumer does not poll (a long step, a
+        kernel build) the records stop refreshing through no fault of the
+        workers, so each reads at the age it had when last observed; a
+        wedged worker ages on once the consumer polls again."""
+        with self._hb_lock:
+            records = dict(self._heartbeats)
+            gap = max(0.0, time.perf_counter() - self._last_drain)
+        if not gap:
+            return records
+        return {entity: dict(record, ts=record.get('ts', 0.0) + gap)
+                for entity, record in records.items()}
+
     def _merge_item_stats(self, item_stats) -> None:
         """Merge what a worker shipped in an ``ITEM_DONE`` frame (JAX
-        :561-579): its stats, spans, copies, quarantine records and empty
-        deliveries."""
+        :561-579): its stats, spans, copies, heartbeats, quarantine records
+        and empty deliveries."""
         if not item_stats:
             return
+        self._merge_heartbeats(item_stats.get('heartbeats'))
         stats = self.stats
         stats.merge_times(item_stats.get('times'))
         stats.merge_counts(item_stats.get('counts'))
@@ -346,8 +423,16 @@ class ProcessPool:
         return out
 
     def _check_workers_alive(self):
-        dead = [p.returncode for p in self._processes
-                if p.poll() not in (None, 0)]
+        dead_procs = [p for p in self._processes if p.poll() not in (None, 0)]
+        dead = [p.returncode for p in dead_procs]
+        if dead_procs:
+            # a dead worker's last beat must not age into a false stall
+            dead_pids = {p.pid for p in dead_procs}
+            with self._hb_lock:
+                self._heartbeats = {
+                    entity: record
+                    for entity, record in self._heartbeats.items()
+                    if record.get('pid') not in dead_pids}
         if dead and not self._stopped:
             self.stop()
             self.join()
@@ -437,6 +522,11 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
 
     serializer = as_multipart(serializer)
     worker = make_worker(process, worker_id)
+    health_on = getattr(process, 'health', True) is not False
+    beat = getattr(worker, 'beat', None) if health_on else None
+    hb_snapshot = (getattr(worker, 'heartbeat_snapshot', None)
+                   if health_on else None)
+    item_done = getattr(worker, 'item_done', None)
     hint = getattr(worker, 'prefetch_hint', None)
     drain = getattr(worker, 'drain_lineage', None)
     drain_times = getattr(worker, 'drain_stage_times', None)
@@ -461,7 +551,15 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
         # large payloads go zero-copy: the worker drops them after sending
         nocopy = (sum(_nbytes(f) for f in payload_frames)
                   >= _ZMQ_NOCOPY_SEND_THRESHOLD)
-        results_sender.send_multipart(message, copy=not nocopy)
+        try:
+            results_sender.send_multipart(message, copy=not nocopy,
+                                          flags=zmq.NOBLOCK)
+        except zmq.Again:   # the high-water mark: the consumer is slower
+            if beat is not None:
+                beat('backpressured')
+            results_sender.send_multipart(message, copy=not nocopy)
+            if beat is not None:
+                beat('processing')
 
     def send_error(e):
         formatted = traceback.format_exc()
@@ -511,6 +609,33 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
         return out
 
     send([b''], _STARTED)
+
+    hb_stop = threading.Event()
+    hb_thread = None
+    if hb_snapshot is not None:
+        def hb_loop():
+            sock = context.socket(zmq.PUSH)
+            sock.connect(results_addr)
+            try:
+                while not hb_stop.wait(HEARTBEAT_INTERVAL_S):
+                    try:
+                        # a blocking send with the consumer gone would not
+                        # see hb_stop and would hang context.term(); a
+                        # dropped frame costs nothing, the next is fresher
+                        sock.send_multipart(
+                            [b'', pickle.dumps(_WorkerHeartbeat(
+                                worker_id, hb_snapshot()))],
+                            flags=zmq.NOBLOCK)
+                    except zmq.Again:
+                        continue
+            except zmq.ZMQError:
+                pass            # the pool is tearing down
+            finally:
+                sock.close(linger=0)
+
+        hb_thread = threading.Thread(target=hb_loop, daemon=True,
+                                     name='petastorm-torch-worker-heartbeat')
+        hb_thread.start()
     poller = zmq.Poller()
     poller.register(work_receiver, zmq.POLLIN)
     poller.register(control_receiver, zmq.POLLIN)
@@ -534,6 +659,8 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             if hint is not None:
                 hint(list(pending))
             work = pending.popleft()
+            if beat is not None:
+                beat('processing')
             item['serialize_s'] = item['publish_wait_s'] = 0.0
             copies_before = getattr(serializer, 'copies', 0)
             start = time.perf_counter()
@@ -548,9 +675,23 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
                     publish(result.payload, (_DATA, result.provenance))
                 elif result is not None:
                     publish(result, _DATA)
-            send([b''], (_ITEM_DONE, item_stats(
-                start, time.perf_counter() - start, copies_before)))
+            elapsed = time.perf_counter() - start
+            if item_done is not None:
+                item_done()
+            done = item_stats(start, elapsed, copies_before)
+            if hb_snapshot is not None:
+                done['heartbeats'] = hb_snapshot()
+            send([b''], (_ITEM_DONE, done))
+            if beat is not None:
+                # a blocked send resumed at 'processing'; between items
+                # the stage is idle
+                beat('idle')
     finally:
+        if beat is not None:
+            beat('stopped')
+        hb_stop.set()
+        if hb_thread is not None:
+            hb_thread.join(timeout=5)
         shutdown_worker(worker)
         send([b''], _TERMINATED)
         for sock in (work_receiver, control_receiver, results_sender):

@@ -328,8 +328,8 @@ def effective_io_s(snapshot: dict) -> float:
 
 def progress_marker(snapshot: dict) -> tuple:
     """``(items_out, bytes_moved)`` of a snapshot — the monotone pair the
-    watchdog of the health slice compares across ticks to
-    report whether the pipeline made any global progress between
+    :class:`~petastorm_tpu_torch.health.PipelineWatchdog` compares across
+    ticks to report whether the pipeline made any global progress between
     evaluations (``items_out_delta`` in its verdict)."""
     return (snapshot.get('items_out', 0), snapshot.get('bytes_moved', 0))
 

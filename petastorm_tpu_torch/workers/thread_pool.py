@@ -38,6 +38,15 @@ the time it then blocked on the full results queue
 (``queue_wait_s``, the ``queue_wait`` latency and span), ``items_out`` and
 the ``queue_depth`` gauge. An item that left no row publishes nothing the
 consumer sees, as in JAX.
+
+Heartbeats (JAX ``thread_pool.py:125, 201, 522-536, 629-640`` and
+``workers/ventilator.py:85-109``): the ventilator publishes the
+``ventilator`` entity through its :class:`VentilationJob` (``ventilate``,
+``backpressured`` while it waits on the in-flight bound, ``done``); a
+worker beats ``processing`` before each item, ``backpressured`` while its
+result waits on a full queue and ``processing`` again when it goes in,
+``idle`` once the item is published (``item_done``) and ``stopped`` at its
+end. :meth:`ThreadPool.heartbeats` reads the workers' records live.
 """
 
 from __future__ import annotations
@@ -110,15 +119,38 @@ def ventilation_order(items: List, num_epochs: Optional[int], shuffle: bool,
 
 class VentilationJob:
     """What a pool ventilates, and from which epoch its next pass counts:
-    the items, the shuffle, the seeded generator, and the reader's
-    ``on_ventilate`` hook."""
+    the items, the shuffle, the seeded generator, the reader's
+    ``on_ventilate`` hook, and ``heartbeat(entity, stage)`` (the reader's
+    ``HealthMonitor.beat``, or None), through which the ventilator beats
+    as the ``ventilator`` entity."""
 
-    def __init__(self, items: List, shuffle: bool, seed, on_ventilate=None):
+    def __init__(self, items: List, shuffle: bool, seed, on_ventilate=None,
+                 heartbeat=None):
         self.items = list(items)
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.on_ventilate = on_ventilate
+        self.heartbeat = heartbeat
         self.next_epoch = 0
+
+    def beat(self, stage: str) -> None:
+        if self.heartbeat is not None:
+            self.heartbeat('ventilator', stage)
+
+    def acquire_slot(self, slots: threading.Semaphore,
+                     stop: threading.Event) -> bool:
+        """Wait for a free in-flight slot; False once ``stop`` is set. A
+        wait beats ``backpressured`` once (an idle-class stage: a stall is
+        downstream), a slot ``ventilate``."""
+        if not slots.acquire(blocking=False):
+            self.beat('backpressured')
+            while not slots.acquire(timeout=0.1):
+                if stop.is_set():
+                    return False
+        if stop.is_set():
+            return False
+        self.beat('ventilate')
+        return True
 
     def order(self, num_epochs: Optional[int]):
         """The next pass's :func:`ventilation_order`."""
@@ -201,14 +233,16 @@ class ThreadPool:
     def start(self, process: Callable, items: List, num_epochs: Optional[int]
               = 1, shuffle: bool = True, seed=None,
               max_in_flight: Optional[int] = None,
-              on_ventilate=None) -> None:
+              on_ventilate=None, heartbeat=None) -> None:
         """Start the workers and the ventilator over ``items``;
-        ``on_ventilate(item)`` sees each work item as it is ventilated."""
+        ``on_ventilate(item)`` sees each work item as it is ventilated, and
+        the ventilator beats through ``heartbeat``."""
         if self._threads:
             raise RuntimeError('pool already started')
         self._slots = threading.Semaphore(max_in_flight
                                           or 2 * self._workers_count)
-        self._job = VentilationJob(items, shuffle, seed, on_ventilate)
+        self._job = VentilationJob(items, shuffle, seed, on_ventilate,
+                                   heartbeat)
         self.workers = [make_worker(process, worker_id=i)
                         for i in range(self._workers_count)]
         self._launch(num_epochs)
@@ -241,25 +275,34 @@ class ThreadPool:
         self._launch(num_epochs)
 
     def _ventilate(self, order):
+        job = self._job
+        job.beat('ventilate')
         try:
             for item in order:
-                while not self._slots.acquire(timeout=0.1):
-                    if self._stop.is_set():
-                        return
-                if self._stop.is_set():
+                if not job.acquire_slot(self._slots, self._stop):
                     return
                 self._items.put(item)
         finally:
             for _ in range(self._workers_count):
                 self._items.put(_DONE)
+            job.beat('done')
 
-    def _publish(self, value) -> bool:
+    def _publish(self, value, beat=None) -> bool:
+        """Put ``value`` on the results queue, giving up once stopped.
+        ``beat`` (the publishing worker's) marks the time blocked on a full
+        queue ``backpressured``: a paused consumer is not a stalled
+        worker."""
+        blocked = False
         while not self._stop.is_set():
             try:
                 self._results.put(value, timeout=0.1)
+                if blocked and beat is not None:
+                    beat('processing')
                 return True
             except queue.Full:
-                continue
+                if not blocked and beat is not None:
+                    blocked = True
+                    beat('backpressured')
         return False
 
     def _work(self, worker):
@@ -271,15 +314,19 @@ class ThreadPool:
                 # Python 3.12+ allows one profiler a process, and it sees
                 # every thread: this worker is profiled by another's
                 profiler = None
+        beat = getattr(worker, 'beat', None)
         try:
-            self._serve(worker)
+            self._serve(worker, beat)
         finally:
+            if beat is not None:
+                beat('stopped')
             if profiler is not None:
                 profiler.disable()
                 self._profiles.append(profiler)   # list.append is atomic
 
-    def _serve(self, worker):
+    def _serve(self, worker, beat):
         hint = getattr(worker, 'prefetch_hint', None)
+        item_done = getattr(worker, 'item_done', None)
         pending = deque()
         ventilated = False        # this worker has seen the end marker
         while not self._stop.is_set():
@@ -304,6 +351,8 @@ class ThreadPool:
             if hint is not None:
                 hint(list(pending))
             item = pending.popleft()
+            if beat is not None:
+                beat('processing')
             start = time.perf_counter()
             try:
                 result = worker(item)
@@ -316,11 +365,13 @@ class ThreadPool:
             merge_worker_stats(self.stats, self.tracer, worker, start,
                                time.perf_counter() - start)
             publish_start = time.perf_counter()
-            published = self._publish(('ok', result))
+            published = self._publish(('ok', result), beat)
             self.stats.add_time('worker_publish_wait_s',
                                 time.perf_counter() - publish_start)
             if not published:
                 return
+            if item_done is not None:
+                item_done()
 
     def get_results(self):
         """The next result; raises a worker's exception, or
@@ -358,6 +409,16 @@ class ThreadPool:
                 self.tracer.add_span('queue_wait', 'consumer', entered,
                                      now - entered)
             return payload
+
+    def heartbeats(self) -> dict:
+        """The workers' heartbeat records, read live (they run in this
+        process)."""
+        records = {}
+        for worker in list(self.workers):
+            snapshot = getattr(worker, 'heartbeat_snapshot', None)
+            if snapshot is not None:
+                records.update(snapshot())
+        return records
 
     @property
     def diagnostics(self) -> dict:
