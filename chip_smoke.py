@@ -206,7 +206,8 @@ printing one line or a few:
    ``/metrics`` ``items_out`` equals ``reader.stats``, ``/coverage`` 16
    complete epochs, ``/goodput`` 128 steps, ``/stacks`` the staging
    thread, and
-   ``/profile``, ``/autotune``, ``/observe/snapshot`` and ``/podmetrics``
+   ``/profile`` 200 (a profile over a cached calibration, never probing),
+   ``/autotune`` (no controller), ``/observe/snapshot`` and ``/podmetrics``
    404; the largest age a ``staging`` beat reached. The wedged LM: the
    same with ``stall_timeout=1.0`` and a row ``TransformSpec`` that blocks
    the store's third row group on a gate file: ``/healthz`` 503 naming one
@@ -222,7 +223,43 @@ printing one line or a few:
    the LM steady step under ``PETASTORM_TPU_HEALTH=0``, the default and
    the watchdog + server + poller, 10 runs each in turns (off, default,
    watched, then the reverse), each ratio to
-   heartbeats off beside the off runs' spread.
+   heartbeats off beside the off runs' spread;
+19. autotune and roofline line (after phase 18; calibration and
+   autotune scratch directories temporary; an ERROR record of
+   ``petastorm_tpu_torch.autotune``, a failed tick or calibration, fails
+   it). (a) The png store (256 images, ``idx``) through
+   ``make_columnar_reader`` with the resize on ONE worker thread and
+   ``autotune`` (0.5 s ticks, cooldown 1, at most 8 workers, lineage on)
+   into CNN steps on K4, epoch after epoch until about 20 ticks (15 s at
+   most); the results queue's bound set to 8 live before the last epoch:
+   it reads back 8, the controller took a ``workers_count`` move up that
+   its report graded, the pool ends on more than one worker, every epoch
+   delivers each image once and audits complete, K4 runs every batch;
+   images/s of each epoch, every action record and the model's error
+   printed. (b) The LM store of phase 17 as NGram windows on 2 worker
+   interpreters, ``autotune`` (0.5 s ticks; its first model tick
+   calibrates, staging to the card from the controller's thread),
+   ``debug_port=0``, ``trace=True`` and a flight-record directory, 6
+   epochs into AdamW steps from ``prefetch_to_device(stats=, tracer=)``;
+   from step 4 a thread calls ``resize(4)``, ``resize(1)``,
+   ``set_readahead_depth(2)`` and widens the ventilation window: each
+   reads back (and readahead hits rise), losses are finite, K1-K3 launch
+   every step, the audit is complete; ``reader.profile(device='cuda',
+   samples_per_sec=<measured windows/s>)`` is calibrated, its staging
+   probe names the card ``nvidia-smi`` names at a positive rate, its
+   binding stage is a ``CEILING_STAGES`` one and its fraction at most
+   ``SANE_FRACTION_LIMIT`` (or it carries the drained-window warning);
+   ``explain_throughput()`` gives the sentence; ``/profile`` and
+   ``/autotune`` answer 200, ``/metrics`` holds the ceilings, the
+   fraction, the binding stage and the controller's gauges; the flight
+   record has ``roofline`` and ``autotune``; ``infeed_diagnosis(
+   roofline=)`` a ``roofline`` section. (c) ``PETASTORM_TPU_AUTOTUNE=0``
+   with ``autotune=True``: no controller, thread or scratch file;
+   ``PETASTORM_TPU_PROFILER=0``: ``/profile`` 404 and ``profile()``
+   raises JAX's ``RuntimeError``. (d) The LM steady step (2 epochs on 4
+   threads) with autotune off and on (``calibrate='force'``: each run's
+   first model tick probes the card while steps are in flight), 6 pairs
+   in turns, both ratios beside the off runs' spread.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -234,6 +271,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import statistics
@@ -2130,9 +2168,10 @@ class SharedRoots:
         self.roots = []
 
 
-def write_indexed_images(np, url, rows, seed):
+def write_indexed_images(np, url, rows, seed, group_mb=8):
     """The image line's png rows (256 synthetic 375 x 500 images) under the
-    ImageNet schema with an ``idx`` field, in row groups of about 8 MB."""
+    ImageNet schema with an ``idx`` field, in row groups of about
+    ``group_mb`` MB."""
     from petastorm_tpu_torch import materialize_dataset
     from petastorm_tpu_torch.codecs import ScalarCodec
     from petastorm_tpu_torch.examples.imagenet.generate_imagenet import \
@@ -2143,7 +2182,7 @@ def write_indexed_images(np, url, rows, seed):
     schema = Unischema('ImagenetIdx', list(
         make_imagenet_schema('png').fields.values()) + [
         UnischemaField('idx', np.int64, (), ScalarCodec(), False)])
-    with materialize_dataset(url, schema, row_group_size_mb=8) as w:
+    with materialize_dataset(url, schema, row_group_size_mb=group_mb) as w:
         w.write_rows(dict(row, idx=np.int64(i)) for i, row in enumerate(
             synthetic_rows(rows, classes=IMAGE_CLASSES, seed=seed)))
 
@@ -3232,7 +3271,7 @@ HEALTH_ROUNDS = 10
 HEALTH_SETTINGS = ('off', 'default', 'watched')
 #: the rows of the LM store's third row group (files of 9 rows)
 HEALTH_GATED = (2 * OBS_ROWS_PER_FILE, 3 * OBS_ROWS_PER_FILE)
-HEALTH_ABSENT = ('/profile', '/autotune', '/observe/snapshot', '/podmetrics')
+HEALTH_ABSENT = ('/autotune', '/observe/snapshot', '/podmetrics')
 
 #: a row transform that blocks on the rows whose ``step`` lies in [lo, hi)
 #: until a gate file exists; written into the store's directory and
@@ -3409,6 +3448,9 @@ def watched_lm_run(torch, url, cfg, step, setting, d, device, args,
             facts['routes'] = {r: http_get(port, r) for r in (
                 '/diagnostics', '/metrics', '/coverage', '/goodput', '/slo')
                 + HEALTH_ABSENT}
+            if device == 'cuda':
+                # the profiler stages to the card unless told otherwise
+                facts['routes']['/profile'] = http_get(port, '/profile')
             facts['items_out'] = reader.stats.snapshot()['items_out']
             facts['final'] = reader.watchdog.evaluate()
             facts['slo'] = reader.slo.evaluate()
@@ -3659,6 +3701,12 @@ def check_healthy(facts):
           '%s: /stacks names no staging thread' % label)
     absent = {r: routes[r][0] for r in HEALTH_ABSENT}
     check(set(absent.values()) == {404}, '%s: %s' % (label, absent))
+    # the profiler is on: /profile answers with a profile over a cached
+    # calibration (never probing), uncalibrated where none is cached
+    if '/profile' in routes:
+        check(routes['/profile'][0] == 200
+              and 'calibrated' in json.loads(routes['/profile'][1]),
+              '%s: /profile %s' % (label, routes['/profile'][0]))
     check(facts['final']['state'] != 'stalled'
           and facts['rows'] == [64] * HEALTH_EPOCHS,
           '%s: final %s, windows %s' % (label, facts['final']['state'],
@@ -3668,7 +3716,8 @@ def check_healthy(facts):
         'the steps; the SLO armed '
         '(fail_healthz) and met; /diagnostics entities %s; /metrics '
         'items_out %d == reader.stats; /coverage complete; /goodput %d '
-        'steps, goodput %.4f; /stacks names the staging thread; %s 404; '
+        'steps, goodput %.4f; /stacks names the staging thread; /profile '
+        '200; %s 404; '
         'loader-prefetch staging reached %.4f s at most; infeed_diagnosis '
         '%s, pipeline %s [%s]'
         % (label, goodput['steps'], run_s, len(replies), len(during), floor,
@@ -3752,6 +3801,480 @@ def check_process(facts):
 # ---------------------------------------------------------------------------
 # phase 16: times
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 19: the autotune and roofline line
+# ---------------------------------------------------------------------------
+
+TUNE_TICK_S = 0.5                 # the controllers' tick interval
+TUNE_TICKS = 20                   # the png line reads epochs until this many
+TUNE_MAX_S = 15.0                 # ... or this long
+TUNE_MAX_EPOCHS = 12
+TUNE_MAX_WORKERS = 8
+TUNE_PNG_GROUP_MB = 1             # the png line's row groups: 128 of 2 images
+TUNE_QUEUE_BOUND = 8              # set live before the png line's last epoch
+TUNE_LM_EPOCHS = 6                # the profiled LM's pass: 48 steps
+TUNE_ACTUATE_AT = 4               # its step at which the actuations start
+TUNE_COST_PAIRS = 6               # (d): autotune off/on runs
+TUNE_COST_EPOCHS = 2              # a cost run: 16 steps
+
+
+class TuneLog(logging.Handler):
+    """The ``petastorm_tpu_torch.autotune`` records at ERROR (a failed tick,
+    a failed calibration): the controller logs them and carries on, which
+    keeps a training job alive but must not hide a broken actuator here."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.failures = []
+
+    def emit(self, record):
+        self.failures.append(record.getMessage())
+
+    def check(self, label):
+        check(not self.failures, '%s: autotune logged %s'
+              % (label, self.failures))
+
+
+def _ngram():
+    from petastorm_tpu_torch.ngram import NGram
+    return NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                 delta_threshold=1, timestamp_field='step')
+
+
+def _lm_targets(torch, batch):
+    tokens = batch[0]['tokens']
+    return tokens, torch.cat([tokens[:, 1:], batch[1]['tokens'][:, :1]], 1)
+
+
+def tuned_png_line(torch, np, kernels, args, d, device, scratch, rows, batch,
+                   size, group_mb=TUNE_PNG_GROUP_MB):
+    """(a) The png store (256 images, ``idx``, row groups of ``group_mb``
+    MB) through the columnar reader
+    with the resize on ONE worker thread, ``autotune`` (0.5 s ticks, a
+    cooldown of one tick, at most 8 workers), lineage on, epochs into CNN
+    steps on K4 until about 20 ticks; the results queue's bound set to 8
+    live before the last epoch. Returns the launch counts."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    label = 'autotune png'
+    path = os.path.join(d, 'images_idx')
+    url = 'file://' + path
+    write_indexed_images(np, url, rows, args.seed, group_mb=group_mb)
+    groups = row_groups(path)
+    resize = make_resize_transform(size)
+    spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                         selected_fields=['idx', 'image', 'label'])
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    options = dict(tick_interval_s=TUNE_TICK_S, cooldown_ticks=1,
+                   max_workers=TUNE_MAX_WORKERS, scratch_dir=scratch,
+                   device=device)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    steps, epochs, bound = 0, [], None
+    start = time.perf_counter()
+    with make_columnar_reader(url, num_epochs=1, workers_count=1,
+                              reader_pool_type='thread', seed=args.seed,
+                              transform_spec=spec,
+                              autotune=options) as reader:
+        controller = reader.autotune
+        check(controller is not None, '%s: no controller' % label)
+        pool = reader._pool
+        loader = TorchDataLoader(reader, batch_size=batch, device=device)
+        while True:
+            last = (controller.report()['ticks'] >= TUNE_TICKS
+                    or time.perf_counter() - start >= TUNE_MAX_S
+                    or len(epochs) == TUNE_MAX_EPOCHS - 1)
+            if last:
+                pool.set_results_queue_bound(TUNE_QUEUE_BOUND)
+                bound = pool.results_queue_bound
+            seen = []
+            t0 = time.perf_counter()
+            batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                         stats=reader.stats,
+                                         goodput=loader.goodput)
+            with contextlib.closing(batches):
+                for b in batches:
+                    loss = float(step(b['image'], b['label']))
+                    seen.append(b['idx'].cpu())
+                    steps += 1
+            elapsed = time.perf_counter() - t0
+            check(math.isfinite(loss), '%s: non-finite loss' % label)
+            seen = torch.cat(seen).numpy()
+            check(np.array_equal(np.sort(seen), np.arange(rows)),
+                  '%s epoch %d: %d images, not each once'
+                  % (label, len(epochs) + 1, len(seen)))
+            # each epoch's ledger: every row delivered exactly once across
+            # the resizes
+            reader.audit().assert_complete()
+            epochs.append((len(seen) / elapsed, pool.workers_count,
+                           controller.report()['ticks']))
+            if last:
+                break
+        report = controller.report()
+        workers = pool.workers_count
+    launches = dict(kernels.LAUNCHES)
+    ups = [a for a in report['actions']
+           if a['knob'] == 'workers_count' and a['direction'] == 'up']
+    graded = [a for a in ups if a.get('graded') == 'measured']
+    for a in report['actions']:
+        log('%s action %s' % (label, json.dumps(a, sort_keys=True,
+                                                 default=str)))
+    # the sensor values first: a gate below that fails has them above it
+    log('%s: %d row groups, %d epochs, %d CNN steps on K4, every epoch '
+        'audited complete; images/s by epoch %s (workers %s, ticks %s); '
+        'workers 1 -> %d (os.cpu_count() %s, worker cap %s); %d actions, %d '
+        'workers_count up, %d graded; model error %s; queue bound %s live '
+        '[%s]'
+        % (label, groups, len(epochs), steps,
+           ' '.join('%.1f' % e[0] for e in epochs),
+           ' '.join(str(e[1]) for e in epochs),
+           ' '.join(str(e[2]) for e in epochs), workers, os.cpu_count(),
+           report['config']['worker_cap'], report['actions_total'],
+           len(ups), len(graded), json.dumps(report['prediction']), bound,
+           CARD))
+    log('%s: images/s first epoch %.1f, last epoch %.1f [%s]'
+        % (label, epochs[0][0], epochs[-1][0], CARD))
+    check(bound == TUNE_QUEUE_BOUND, '%s: the queue bound reads %r, not %d'
+          % (label, bound, TUNE_QUEUE_BOUND))
+    check(graded, '%s: no graded workers_count move up: %s'
+          % (label, json.dumps(report['actions'], default=str)))
+    check(workers > 1, '%s: %d workers at the end' % (label, workers))
+    if device == 'cuda':
+        check(launches['normalize'] == steps,
+              'K4 launched %d times in %d autotuned png steps'
+              % (launches['normalize'], steps))
+    return launches
+
+
+def profiled_lm_line(torch, np, kernels, args, d, device, scratch, url, cfg,
+                     step):
+    """(b) The LM store's NGram windows on TWO worker interpreters,
+    ``autotune=True`` (0.5 s ticks, calibrating on its first model tick,
+    staging to ``device``), ``debug_port=0``, ``trace=True``, a
+    flight-record directory, into AdamW steps from ``prefetch_to_device(
+    stats=, tracer=)``; from step 4 a thread resizes to 4 then 1, sets the
+    readahead depth to 2 and widens the ventilation window by 2. Then the
+    profile, its sentence, the routes, the flight record and
+    ``infeed_diagnosis``. Returns the launch counts."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    from petastorm_tpu_torch.profiler import (CEILING_STAGES,
+                                              SANE_FRACTION_LIMIT)
+    from petastorm_tpu_torch.torch_utils import infeed_diagnosis
+    label = 'autotune LM'
+    flights = tempfile.mkdtemp(dir=d, prefix='flight-')
+    options = dict(tick_interval_s=TUNE_TICK_S, scratch_dir=scratch,
+                   device=device)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times, acts = [], {}
+    with make_reader(url, schema_fields=_ngram(), num_epochs=TUNE_LM_EPOCHS,
+                     reader_pool_type='process', workers_count=2,
+                     seed=args.seed, autotune=options, debug_port=0,
+                     trace=True, flight_record_dir=flights) as reader:
+        pool, job = reader._pool, reader._pool.ventilation
+        port = reader.debug_port
+
+        def actuate():
+            acts['up'] = pool.resize(4, timeout_s=30)
+            acts['down'] = pool.resize(1, timeout_s=30)
+            acts['hits_before'] = reader.stats.snapshot().get(
+                'readahead_hits', 0)
+            pool.set_readahead_depth(2)
+            acts['depth'] = pool.readahead_depth
+            window = job.max_in_flight + 2
+            job.set_max_in_flight(window)
+            acts['window'] = (window, job.max_in_flight)
+
+        actuator = threading.Thread(target=actuate, daemon=True,
+                                    name='smoke-actuator')
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     stats=reader.stats,
+                                     tracer=reader.tracer,
+                                     goodput=loader.goodput)
+        first = None
+        with contextlib.closing(batches):
+            for i, batch in enumerate(batches):
+                if i == TUNE_ACTUATE_AT:
+                    actuator.start()
+                t0 = time.perf_counter()
+                first = first or t0
+                loss = float(loader.goodput.fence(step(*_lm_targets(
+                    torch, batch))))
+                times.append(time.perf_counter() - t0)
+                check(math.isfinite(loss), '%s: non-finite loss' % label)
+        wall = time.perf_counter() - first
+        actuator.join(60)
+        check(not actuator.is_alive(), '%s: the actuations hung' % label)
+        windows = len(times) * BATCH
+        check(len(times) == TUNE_LM_EPOCHS * OBS_FILES,
+              '%s: %d steps, not %d' % (label, len(times),
+                                        TUNE_LM_EPOCHS * OBS_FILES))
+        audit = reader.audit().assert_complete()
+        hits = reader.stats.snapshot().get('readahead_hits', 0)
+        rate = windows / wall
+        profile = reader.profile(device=device, samples_per_sec=rate)
+        calibration = reader.calibration
+        sentence = reader.explain_throughput(calibrate='cached')
+        routes = {r: http_get(port, r)
+                  for r in ('/profile', '/autotune', '/metrics')}
+        record_path = reader.dump_flight_record()
+        diagnosis = infeed_diagnosis(reader.diagnostics, roofline=profile)
+        report = reader.autotune.report()
+    launches = dict(kernels.LAUNCHES)
+    lingering = [t.name for t in threading.enumerate()
+                 if t.name.endswith('-autotune')]
+    check(not lingering, '%s: %s outlived the reader' % (label, lingering))
+    check(acts.get('up') == 4 and acts.get('down') == 1,
+          '%s: resize(4) gave %s, resize(1) gave %s'
+          % (label, acts.get('up'), acts.get('down')))
+    check(acts['depth'] == 2 and hits > acts['hits_before'],
+          '%s: readahead depth %s, hits %d before the set, %d after'
+          % (label, acts['depth'], acts['hits_before'], hits))
+    check(acts['window'][0] == acts['window'][1],
+          '%s: set_max_in_flight(%d) reads back %d'
+          % ((label,) + acts['window']))
+    if device == 'cuda':
+        check(all(launches[k] == len(times) * cfg.n_layers for k in FLASH),
+              '%s: launches %r for %d steps' % (label, launches, len(times)))
+    check(profile['calibrated'] is True, '%s: profile not calibrated'
+          % label)
+    probe = calibration['probes']['device_stage']
+    card = CARD.split(',')[0].strip()
+    check(probe['device'] == (card if device == 'cuda' else 'cpu')
+          and probe['rows_per_s'] > 0,
+          '%s: the staging probe names %r at %s rows/s, the card is %r'
+          % (label, probe['device'], probe['rows_per_s'], card))
+    check(profile['binding_stage'] in CEILING_STAGES,
+          '%s: binding stage %r' % (label, profile['binding_stage']))
+    fraction = profile['roofline_fraction']
+    check(fraction is not None and (fraction <= SANE_FRACTION_LIMIT
+                                    or 'drained' in profile.get('warning',
+                                                                 '')),
+          '%s: roofline fraction %s, warning %r'
+          % (label, fraction, profile.get('warning')))
+    check(sentence.startswith('measured '), '%s: explain_throughput %r'
+          % (label, sentence))
+    for route in ('/profile', '/autotune'):
+        status, body = routes[route]
+        check(status == 200 and isinstance(json.loads(body), dict),
+              '%s: %s %d' % (label, route, status))
+    metrics = routes['/metrics'][1]
+    for name in ('petastorm_tpu_stage_ceiling_', 'petastorm_tpu_roofline_'
+                 'fraction', 'binding_stage', 'petastorm_tpu_autotune_ticks',
+                 'petastorm_tpu_autotune_workers'):
+        check(name in metrics, '%s: /metrics names no %s' % (label, name))
+    with open(record_path) as f:
+        record = json.load(f)
+    check(record.get('roofline') and record.get('autotune'),
+          '%s: flight record roofline %r, autotune %r'
+          % (label, record.get('roofline'), record.get('autotune')))
+    check('roofline' in diagnosis, '%s: infeed_diagnosis has no roofline'
+          % label)
+    ceilings = calibration['ceilings']
+    log('%s: %d steps on K1-K3 (%d windows in %.3f s, %.1f windows/s), '
+        'audit complete (%d epochs); resize(4) -> %d, resize(1) -> %d, '
+        'readahead depth %d (hits %d -> %d), window %d; %d controller '
+        'actions, %d ticks [%s]'
+        % (label, len(times), windows, wall, rate, len(audit['epochs']),
+           acts['up'], acts['down'], acts['depth'], acts['hits_before'], hits,
+           acts['window'][1], report['actions_total'], report['ticks'],
+           CARD))
+    for a in report['actions']:
+        log('%s action %s' % (label, json.dumps(a, sort_keys=True,
+                                                 default=str)))
+    log('%s calibration: ceilings (rows/s) %s; staging probe %s rows/s, '
+        '%s MB/s, %d bytes, %s s (device %r); decode %s rows/s; storage '
+        '%s MB/s sequential [%s]'
+        % (label, json.dumps(ceilings, sort_keys=True), probe['rows_per_s'],
+           probe['mb_per_s'], probe['payload_bytes'], probe['seconds'],
+           probe['device'], calibration['probes']['decode']['rows_per_s'],
+           calibration['probes']['storage']['seq_read_mb_per_s'], CARD))
+    log('%s profile: measured %.1f windows/s, binding %s at %s, fraction '
+        '%s, effective ceilings %s%s; %s [%s]'
+        % (label, rate, profile['binding_stage'],
+           profile['binding_ceiling_samples_per_s'], fraction,
+           json.dumps(profile['effective_ceilings'], sort_keys=True),
+           '; warning: ' + profile['warning'] if 'warning' in profile
+           else '', sentence, CARD))
+    return launches
+
+
+def tune_kill_switches(torch, url, d, args):
+    """(c) ``PETASTORM_TPU_AUTOTUNE=0`` with ``autotune=True``: no controller
+    thread, no file in the scratch directory; ``PETASTORM_TPU_PROFILER=0``:
+    ``/profile`` 404 and ``profile()`` raises JAX's ``RuntimeError``."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.autotune import AUTOTUNE_ENV_VAR
+    from petastorm_tpu_torch.profiler import PROFILER_ENV_VAR
+    label = 'autotune kill switches'
+    scratch = tempfile.mkdtemp(dir=d, prefix='scratch-off-')
+    before = set(threading.enumerate())
+    os.environ[AUTOTUNE_ENV_VAR] = '0'
+    try:
+        with make_reader(url, schema_fields=_ngram(), num_epochs=1,
+                         workers_count=2, seed=args.seed,
+                         autotune=dict(scratch_dir=scratch)) as reader:
+            threads = [t.name for t in set(threading.enumerate()) - before
+                       if t.name.endswith('-autotune')]
+            chunks = sum(1 for _ in reader.iter_ngram_chunks())
+            controller = reader.autotune
+    finally:
+        os.environ.pop(AUTOTUNE_ENV_VAR, None)
+    check(controller is None and not threads and not os.listdir(scratch)
+          and chunks == OBS_FILES,
+          '%s: controller %r, threads %s, scratch %s, %d chunks'
+          % (label, controller, threads, os.listdir(scratch), chunks))
+    os.environ[PROFILER_ENV_VAR] = '0'
+    try:
+        with make_reader(url, schema_fields=_ngram(), num_epochs=1,
+                         workers_count=2, seed=args.seed,
+                         debug_port=0) as reader:
+            status = http_get(reader.debug_port, '/profile')
+            try:
+                reader.profile()
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            sum(1 for _ in reader.iter_ngram_chunks())
+    finally:
+        os.environ.pop(PROFILER_ENV_VAR, None)
+    want = 'the roofline profiler is disabled via PETASTORM_TPU_PROFILER=0'
+    check(status[0] == 404 and raised == want,
+          '%s: /profile %d, profile() raised %r' % (label, status[0], raised))
+    log('%s: PETASTORM_TPU_AUTOTUNE=0 with autotune=True: no controller, no '
+        'thread, no scratch file; PETASTORM_TPU_PROFILER=0: /profile 404, '
+        'profile() raises %r' % (label, raised))
+
+
+def tune_cost_run(torch, url, step, device, args, tuned, scratch):
+    """(d) One run: ``TUNE_COST_EPOCHS`` epochs of the LM store on 4 worker
+    threads into AdamW steps, with ``autotune`` (0.5 s ticks,
+    ``calibrate='force'``: its first model tick probes, staging to the card
+    while steps are in flight) or without. Returns the steady step (the
+    median of the steps after the first)."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    kw = {}
+    if tuned:
+        kw['autotune'] = dict(tick_interval_s=TUNE_TICK_S, calibrate='force',
+                              scratch_dir=scratch, device=device)
+    times = []
+    with make_reader(url, schema_fields=_ngram(),
+                     num_epochs=TUNE_COST_EPOCHS, workers_count=4,
+                     seed=args.seed, **kw) as reader:
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     goodput=loader.goodput)
+        with contextlib.closing(batches):
+            for batch in batches:
+                t0 = time.perf_counter()
+                loss = float(loader.goodput.fence(step(*_lm_targets(
+                    torch, batch))))
+                times.append(time.perf_counter() - t0)
+        check(math.isfinite(loss), 'autotune cost: non-finite loss')
+        check((reader.autotune is not None) == tuned,
+              'autotune cost: controller %r' % reader.autotune)
+    check(len(times) == TUNE_COST_EPOCHS * OBS_FILES,
+          'autotune cost: %d steps' % len(times))
+    return statistics.median(times[1:])
+
+
+def tune_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+              image_rows=IMAGE_ROWS, image_batch=IMAGE_BATCH,
+              image_size=IMAGE_SIZE):
+    """Phase 19: the roofline profiler and the autotune controller. (a)
+    the autotuned png line on K4, (b) the profiled, autotuned LM on the
+    process pool on K1-K3, (c) the kill switches, (d) the LM steady step
+    with autotune off against on. The calibration and scratch directories
+    are temporary; an ERROR record of the controller fails the phase.
+    Returns the launch counts of (a) and of the LM steps of (b) and (d)."""
+    from petastorm_tpu_torch.autotune import AUTOTUNE_DIR_ENV_VAR
+    from petastorm_tpu_torch.profiler import CALIBRATION_DIR_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    tune_log = TuneLog()
+    logger = logging.getLogger('petastorm_tpu_torch.autotune')
+    logger.addHandler(tune_log)
+    saved = {k: os.environ.get(k)
+             for k in (CALIBRATION_DIR_ENV_VAR, AUTOTUNE_DIR_ENV_VAR)}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            os.environ[CALIBRATION_DIR_ENV_VAR] = os.path.join(d, 'cal')
+            scratch = os.path.join(d, 'scratch')
+            os.environ[AUTOTUNE_DIR_ENV_VAR] = scratch
+            phase = time.perf_counter()
+            png = tuned_png_line(torch, np, kernels, args, d, device,
+                                 scratch, image_rows, image_batch,
+                                 image_size)
+            tune_log.check('autotune png')
+            log('autotune png line %.1f s' % (time.perf_counter() - phase))
+            url = 'file://' + os.path.join(d, 'tokens')
+            write_store(np, url, cfg.max_seq_len, cfg.vocab_size,
+                        OBS_FILES * OBS_ROWS_PER_FILE, args.seed,
+                        rows_per_file=OBS_ROWS_PER_FILE)
+            params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                              device=device)
+            _, step = tlm.make_train_step(cfg, params)
+            phase = time.perf_counter()
+            lm = profiled_lm_line(torch, np, kernels, args, d, device,
+                                  scratch, url, cfg, step)
+            tune_log.check('autotune LM')
+            log('autotune LM line %.1f s' % (time.perf_counter() - phase))
+            phase = time.perf_counter()
+            tune_kill_switches(torch, url, d, args)
+            log('autotune kill switches %.1f s'
+                % (time.perf_counter() - phase))
+            phase = time.perf_counter()
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            steady = {False: [], True: []}
+            for n in range(TUNE_COST_PAIRS):
+                for tuned in ((False, True) if n % 2 == 0 else (True, False)):
+                    steady[tuned].append(tune_cost_run(
+                        torch, url, step, device, args, tuned, scratch))
+            cost = dict(kernels.LAUNCHES)
+            tune_log.check('autotune cost')
+            log('autotune cost runs %.1f s' % (time.perf_counter() - phase))
+    finally:
+        logger.removeHandler(tune_log)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    off, on = steady[False], steady[True]
+    log('autotune cost LM steady step (median of steps 2-%d), %d pairs: off '
+        '%s ms; on %s ms; on / off by means %.4f, by medians %.4f; the off '
+        "runs' spread %.4f (max / min) [%s]"
+        % (TUNE_COST_EPOCHS * OBS_FILES, TUNE_COST_PAIRS,
+           ' '.join('%.3f' % (t * 1e3) for t in off),
+           ' '.join('%.3f' % (t * 1e3) for t in on),
+           statistics.mean(on) / statistics.mean(off),
+           statistics.median(on) / statistics.median(off),
+           max(off) / min(off), CARD))
+    runs = 2 * TUNE_COST_PAIRS * TUNE_COST_EPOCHS * OBS_FILES
+    if device == 'cuda':
+        check(all(cost[k] == runs * cfg.n_layers for k in FLASH),
+              'autotune cost launches %r for %d steps' % (cost, runs))
+    for k in FLASH:
+        lm[k] += cost[k]
+    log('autotune launches: png %s; LM %s' % (json.dumps(png),
+                                              json.dumps(lm)))
+    return png, lm
+
 
 def time_ms(torch, fn, reps):
     for _ in range(2):
@@ -4036,6 +4559,18 @@ def main(argv=None):
     for name in FLASH:
         launches[name] += watched_lm[name]
     log('phase health line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    tuned_png, tuned_lm = tune_line(torch, np, tlm, kernels, args)
+    check(tuned_png['normalize'] > 0,
+          'K4 was not launched on the autotuned png line')
+    check(all(tuned_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the autotuned LM line: %r'
+          % tuned_lm)
+    for name in FLASH:
+        launches[name] += tuned_lm[name]
+    launches['normalize'] += tuned_png['normalize']
+    log('phase autotune and roofline line %.1f s'
+        % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -30,12 +30,13 @@ entity and stage names, verdict wording and JSON keys:
   and fires ``on_stall`` once per stall episode; a reader wires that to a
   flight record (:func:`build_flight_record`, :func:`write_flight_record`):
   the heartbeats, the stats, the queues, every thread's stack and the
-  lineage, latency, SLO and goodput summaries.
+  lineage, roofline, latency, SLO, autotune and goodput summaries.
 - **Debug endpoint.** :class:`DebugServer` serves ``/healthz``, ``/slo``,
-  ``/metrics``, ``/diagnostics``, ``/coverage``, ``/goodput`` and
-  ``/stacks`` on ``127.0.0.1``; ``/profile``, ``/autotune``,
-  ``/observe/snapshot`` and ``/podmetrics`` answer 404 until a source is
-  wired, as in JAX.
+  ``/metrics``, ``/diagnostics``, ``/coverage``, ``/profile``,
+  ``/autotune``, ``/goodput`` and ``/stacks`` on ``127.0.0.1``; a route
+  whose source is not wired answers 404 with JAX's text, and so do
+  ``/observe/snapshot`` and ``/podmetrics`` (the pod plane is not
+  ported).
 
 Heartbeats are on by default (a few assignments an item);
 ``PETASTORM_TPU_HEALTH=0`` turns every beat off. The watchdog thread and
@@ -93,15 +94,17 @@ SLOW_RANGE_FETCH_P99_S = 1.0
 #: Peer-cache fetch p99 at or above which a peer cache host is named slow.
 SLOW_PEER_FETCH_P99_S = 0.25
 
-#: JAX's routes whose sources come with later slices (the roofline
-#: profiler, the autotune controller, the pod plane): each answers 404
-#: with the text JAX gives when it is unwired.
+#: JAX's 404 text of ``/profile`` and ``/autotune`` when no source is wired
+#: (``PETASTORM_TPU_PROFILER=0``, a reader without a controller).
+PROFILE_UNWIRED = ('the roofline profiler is disabled for this reader '
+                   '(PETASTORM_TPU_PROFILER=0 or no profile source wired)\n')
+AUTOTUNE_UNWIRED = ('no autotune controller runs for this reader (pass '
+                    'autotune=True to the factory, or set '
+                    'PETASTORM_TPU_AUTOTUNE=1)\n')
+
+#: JAX's routes of the pod plane, which the port does not have: each
+#: answers 404 with the text JAX gives when it is unwired.
 UNWIRED_ROUTES = {
-    '/profile': 'the roofline profiler is disabled for this reader '
-                '(PETASTORM_TPU_PROFILER=0 or no profile source wired)\n',
-    '/autotune': 'no autotune controller runs for this reader (pass '
-                 'autotune=True to the factory, or set '
-                 'PETASTORM_TPU_AUTOTUNE=1)\n',
     '/observe/snapshot': 'the pod observability plane is off or unwired '
                          'for this reader (PETASTORM_TPU_PODOBS=0)\n',
     '/podmetrics': 'this host is not a pod aggregator (set '
@@ -432,22 +435,26 @@ def build_flight_record(verdict: dict, heartbeats: Dict[str, dict],
                         queues: Optional[dict] = None,
                         tracer=None, span_tail: int = 500,
                         lineage: Optional[dict] = None,
+                        roofline: Optional[dict] = None,
                         latency: Optional[dict] = None,
                         slo: Optional[dict] = None,
+                        autotune: Optional[dict] = None,
                         goodput: Optional[dict] = None) -> dict:
     """The flight-recorder artifact: what diagnoses a stall after the
     process is gone, JSON-able by construction. ``lineage`` (a tracker's
     ``flight_summary()``) adds the coverage audit and recent quarantine
     records: what data the model had seen and what was dropped.
-    ``latency`` (``PipelineLatency.flight_summary()``) adds per-stage
-    percentiles and the recent p99 trend (a cliff or a creep); ``slo`` (an
+    ``roofline`` (the profiler's ``roofline_summary()``) records how far
+    below its calibrated ceiling the pipeline ran. ``latency``
+    (``PipelineLatency.flight_summary()``) adds per-stage percentiles and
+    the recent p99 trend (a cliff or a creep); ``slo`` (an
     ``SLOMonitor.evaluate()`` verdict) the burn state at the stall;
-    ``goodput`` (``GoodputMonitor.flight_summary()``) the per-step goodput
-    and the last step rings: whether the card was fed when the pipeline
-    stalled. JAX's ``roofline`` (the profiler's), ``autotune`` (the
-    controller's) and ``elastic`` (pod membership) sections come with
-    later slices; a record leaves them out, as JAX's does when they are
-    unwired."""
+    ``autotune`` (``PipelineController.flight_summary()``) the controller's
+    recent knob moves and their grades, so a stall that follows a move is
+    attributable to it; ``goodput`` (``GoodputMonitor.flight_summary()``)
+    the per-step goodput and the last step rings: whether the card was fed
+    when the pipeline stalled. JAX's ``elastic`` section (pod membership)
+    is not ported; a record leaves it out, as JAX's does when unwired."""
     record = {
         'kind': 'petastorm_tpu_flight_record',
         # deliberate wall clock: a human-facing artifact timestamp, never
@@ -465,10 +472,14 @@ def build_flight_record(verdict: dict, heartbeats: Dict[str, dict],
         record['spans_dropped'] = tracer.dropped
     if lineage is not None:
         record['lineage'] = lineage
+    if roofline is not None:
+        record['roofline'] = roofline
     if latency is not None:
         record['latency'] = latency
     if slo is not None:
         record['slo'] = slo
+    if autotune is not None:
+        record['autotune'] = autotune
     if goodput is not None:
         record['goodput'] = goodput
     return record
@@ -624,10 +635,14 @@ class DebugServer:
       with the plane off (``PETASTORM_TPU_GOODPUT=0``),
       ``{'attached': False}`` until a loader registers its monitor.
     - ``GET /stacks``: a plain-text stack dump of every thread.
-    - ``GET /profile`` (the roofline profiler), ``/autotune`` (the autotune
-      controller), ``/observe/snapshot`` and ``/podmetrics`` (the pod
-      plane): 404 with the text JAX gives when they are unwired; their
-      sources come with later slices.
+    - ``GET /profile``: the roofline profile (the reader's last
+      ``profile()``, else one from a cached calibration); 404 with the
+      profiler off (``PETASTORM_TPU_PROFILER=0``).
+    - ``GET /autotune``: the autotune controller's report
+      (:meth:`~petastorm_tpu_torch.autotune.PipelineController.report`);
+      404 without a controller.
+    - ``GET /observe/snapshot`` and ``/podmetrics`` (the pod plane): 404
+      with the text JAX gives when they are unwired.
 
     Requests are served on daemon threads (``ThreadingHTTPServer``);
     :meth:`stop` shuts the accept loop down, closes the socket and joins the
@@ -640,9 +655,13 @@ class DebugServer:
                  heartbeats_fn: Optional[Callable[[], Dict[str, dict]]] = None,
                  port: int = 0, prefix: str = 'petastorm_tpu',
                  coverage_fn: Optional[Callable[[], dict]] = None,
+                 profile_fn: Optional[Callable[[], dict]] = None,
                  slo_fn: Optional[Callable[[], dict]] = None,
+                 autotune_fn: Optional[Callable[[], dict]] = None,
                  goodput_fn: Optional[Callable[[], dict]] = None):
         self._evaluate_fn = evaluate_fn
+        self._profile_fn = profile_fn
+        self._autotune_fn = autotune_fn
         self._snapshot_fn = snapshot_fn or (lambda: {})
         self._heartbeats_fn = heartbeats_fn or (lambda: {})
         self._coverage_fn = coverage_fn
@@ -727,6 +746,16 @@ class DebugServer:
                             self._reply(200, 'application/json',
                                         json.dumps(outer._coverage_fn(),
                                                    default=str))
+                    elif route in ('/profile', '/autotune'):
+                        source = (outer._profile_fn if route == '/profile'
+                                  else outer._autotune_fn)
+                        if source is None:
+                            self._reply(404, 'text/plain',
+                                        PROFILE_UNWIRED if route == '/profile'
+                                        else AUTOTUNE_UNWIRED)
+                        else:
+                            self._reply(200, 'application/json',
+                                        json.dumps(source(), default=str))
                     elif route in UNWIRED_ROUTES:
                         self._reply(404, 'text/plain', UNWIRED_ROUTES[route])
                     elif route == '/goodput':

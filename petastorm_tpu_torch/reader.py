@@ -75,10 +75,21 @@ dump_flight_record`); ``debug_port=N`` (or ``PETASTORM_TPU_DEBUG_PORT``)
 serves a :class:`~petastorm_tpu_torch.health.DebugServer` on
 ``127.0.0.1:N`` (``reader.debug_port``; 0 binds a free port).
 
-Not ported yet (each raises ``NotImplementedError``): autotune and the
-profiler (``/profile``, ``/autotune`` and the flight record's ``roofline``
-and ``autotune``); resilience; remote object stores; JAX-process and
-elastic sharding.
+The roofline profiler and the autotune controller
+(:mod:`petastorm_tpu_torch.profiler`, :mod:`petastorm_tpu_torch.autotune`;
+JAX :535-543, 741-749, 786, 825-862, 905-916, 1186-1212, 1244-1326,
+1394-1397, 1460): :meth:`Reader.profile` judges the measured rate against
+per-stage ceilings calibrated on this host, dataset and device,
+:meth:`Reader.explain_throughput` says it in a sentence, and
+``autotune=True`` (or an options dict) starts a
+:class:`~petastorm_tpu_torch.autotune.PipelineController` (``reader.
+autotune``) that resizes the pool, sets the readahead depth, the
+ventilation window and the results queue's bound live. Their gauges join
+``/metrics``, ``/profile`` and ``/autotune`` serve them, and flight
+records carry their ``roofline`` and ``autotune`` sections.
+
+Not ported yet (each raises ``NotImplementedError``): resilience; remote
+object stores; JAX-process and elastic sharding.
 """
 
 from __future__ import annotations
@@ -92,6 +103,10 @@ import tempfile
 import time
 
 from petastorm_tpu_torch.cache import LocalDiskCache, NullCache
+from petastorm_tpu_torch import profiler
+from petastorm_tpu_torch.autotune import (HostArbiter, PipelineController,
+                                          ReaderActuators, resolve_autotune,
+                                          scratch_dir)
 from petastorm_tpu_torch.codecs import build_decode_overrides
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
@@ -125,7 +140,8 @@ from petastorm_tpu_torch.readers.columnar_worker import (
     transform_fingerprint)
 from petastorm_tpu_torch.readers.piece_worker import (PieceWorkerSpec,
                                                       cache_key_format)
-from petastorm_tpu_torch.readers.readahead import AUTO_MAX_DEPTH
+from petastorm_tpu_torch.readers.readahead import (AUTO_INITIAL_DEPTH,
+                                                   AUTO_MAX_DEPTH)
 from petastorm_tpu_torch.readers.row_worker import load_row_item, plan_rows
 from petastorm_tpu_torch.tracing import MetricsEmitter, Tracer, resolve_trace
 from petastorm_tpu_torch.transform import (apply_columnar_transform,
@@ -145,7 +161,6 @@ logger = logging.getLogger(__name__)
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('autotune', ('autotune',)),
     ('resilience', ('retry', 'hedge', 'worker_recovery')),
     ('remote object stores', ('remote_read', 'storage_options')),
     ('multi-GPU sharding', ('shard_by_jax_process', 'elastic')))
@@ -294,7 +309,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 io_readahead=0, on_decode_error='raise', trace=None,
                 metrics_interval=0, metrics_out=None, slo=None,
                 debug_port=None, stall_timeout=0, flight_record_dir=None,
-                **unported):
+                autotune=None, **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -368,8 +383,21 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     every S/4 seconds and writes a flight record (JSON) into
     ``flight_record_dir`` (else the temp directory) when an entity made no
     progress for S seconds. ``PETASTORM_TPU_HEALTH=0`` turns the
-    heartbeats off."""
+    heartbeats off.
+
+    Autotune: ``autotune=True`` (or a dict of
+    :data:`~petastorm_tpu_torch.autotune.AUTOTUNE_OPTION_KEYS`, e.g.
+    ``dict(tick_interval_s=1.0, max_workers=8, device='cuda')``; or
+    ``PETASTORM_TPU_AUTOTUNE=1``) starts a controller (``reader.autotune``)
+    that moves ``workers_count``, the readahead depth, the ventilation
+    window and the results queue's bound live on the thread and process
+    pools, judging each move by the roofline model calibrated on this host
+    and ``device`` (CUDA by default). ``PETASTORM_TPU_AUTOTUNE=0`` turns it
+    off whatever the kwarg says. :meth:`Reader.profile` and
+    :meth:`Reader.explain_throughput` give the roofline verdict
+    (``PETASTORM_TPU_PROFILER=0`` turns them off)."""
     _refuse_unported('make_reader', unported)
+    autotune = resolve_autotune(autotune)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
@@ -390,7 +418,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
-                  flight_record_dir=flight_record_dir)
+                  flight_record_dir=flight_record_dir,
+                  autotune_options=autotune)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -407,7 +436,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          on_decode_error='raise', trace=None,
                          metrics_interval=0, metrics_out=None, slo=None,
                          debug_port=None, stall_timeout=0,
-                         flight_record_dir=None, **unported):
+                         flight_record_dir=None, autotune=None, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
@@ -415,12 +444,13 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     the device decode when the reader plans one (see :class:`Reader`), else
     on the workers as CPU tensors. Selection,
     ``decode_hints``, the pool, readahead, the cache, lineage,
-    ``on_decode_error``, the observability and the health options as in
-    :func:`make_reader` (a policy other than ``'raise'`` declines device
+    ``on_decode_error``, the observability, health and autotune options as
+    in :func:`make_reader` (a policy other than ``'raise'`` declines device
     decode); a whole row group's columns are cached after the transform,
     so a hit skips the decode and the transform. NGram is not
     supported."""
     _refuse_unported('make_columnar_reader', unported)
+    autotune = resolve_autotune(autotune)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
@@ -443,7 +473,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
-                  flight_record_dir=flight_record_dir)
+                  flight_record_dir=flight_record_dir,
+                  autotune_options=autotune)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -458,7 +489,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       on_decode_error='raise', trace=None,
                       metrics_interval=0, metrics_out=None, slo=None,
                       debug_port=None, stall_timeout=0,
-                      flight_record_dir=None, **unported):
+                      flight_record_dir=None, autotune=None, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -469,11 +500,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
     ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
-    readahead, the cache, lineage, ``on_decode_error``, the observability
-    and the health options as in :func:`make_reader` (a process pool sends
-    each row group's table as one Arrow IPC stream; the shared cache keeps
-    it as one)."""
+    readahead, the cache, lineage, ``on_decode_error``, the observability,
+    health and autotune options as in :func:`make_reader` (a process pool
+    sends each row group's table as one Arrow IPC stream; the shared cache
+    keeps it as one)."""
     _refuse_unported('make_batch_reader', unported)
+    autotune = resolve_autotune(autotune)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -496,7 +528,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   trace_export=trace_export,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
-                  flight_record_dir=flight_record_dir)
+                  flight_record_dir=flight_record_dir,
+                  autotune_options=autotune)
 
 
 def _view(stored, schema_fields):
@@ -544,7 +577,9 @@ class Reader:
     there, under ``PETASTORM_TPU_LINEAGE=0``). ``stats``, ``diagnostics``,
     ``latency``, ``tracer`` and ``slo`` are the stats, latency and tracing
     planes; ``health``, ``watchdog`` and ``debug_port`` the health
-    plane."""
+    plane; ``autotune`` the controller (None without one) and
+    ``calibration`` the roofline calibration of the last :meth:`profile`
+    (None before)."""
 
     def __init__(self, dataset_path, schema_fields, *, mode, pool,
                  num_epochs, shuffle_row_groups, seed,
@@ -554,7 +589,7 @@ class Reader:
                  cache=None, io_readahead=0, on_decode_error='raise',
                  trace_export=None, metrics_interval=0, metrics_out=None,
                  slo=None, debug_port=None, stall_timeout=0,
-                 flight_record_dir=None):
+                 flight_record_dir=None, autotune_options=None):
         if stall_timeout and stall_timeout < 0:
             raise ValueError('stall_timeout must be >= 0, got '
                              '{!r}'.format(stall_timeout))
@@ -571,6 +606,33 @@ class Reader:
                                'predicates (cached row groups would bypass '
                                'predicate evaluation)')
         io_readahead = _validate_io_readahead(io_readahead)
+        #: the pool and cache kinds, as the profiler names them
+        self._pool_type = {'ProcessPool': 'process', 'ThreadPool': 'thread',
+                           'DummyPool': 'dummy'}.get(type(pool).__name__,
+                                                     type(pool).__name__)
+        self._cache_type = {'NullCache': 'null',
+                            'LocalDiskCache': 'local-disk',
+                            'SharedRowGroupCache': 'shared'}.get(
+                                type(cache).__name__, type(cache).__name__)
+        self._io_readahead = io_readahead
+        # the controller owns the readahead where it has live actuators: a
+        # readahead exists (dormant at depth 0) on every worker, and 'auto'
+        # stops retuning itself (two tuners on one knob would oscillate)
+        autotune_active = (autotune_options is not None
+                           and self._pool_type in ('thread', 'process'))
+        if autotune_options is not None and not autotune_active:
+            logger.warning('autotune disabled: the %s pool has no live '
+                           'actuators', self._pool_type)
+        #: the :class:`~petastorm_tpu_torch.autotune.PipelineController`
+        #: (None unless autotune is on over a thread or process pool)
+        self._controller = None
+        self._last_profile = None
+        self._roofline_gauges = {}
+        #: the roofline calibration the last :meth:`profile` judged by
+        self.calibration = None
+        # the device the profiler stages to: the controller's, else the
+        # last profile()'s (None: CUDA)
+        self._profile_device = (autotune_options or {}).get('device')
         if num_epochs is not None and num_epochs < 1:
             raise ValueError('num_epochs must be >= 1 or None')
         if shuffle_row_drop_partitions < 1:
@@ -639,6 +701,7 @@ class Reader:
                 [stored.fields[n] for n in ngram.get_all_field_names()])
         else:
             view = _view(stored, schema_fields)
+        self._view = view
         self.schema = (transform_schema(view, transform_spec)
                        if transform_spec is not None else view)
         if decode_hints:
@@ -706,6 +769,7 @@ class Reader:
             logger.debug('io_readahead disabled: %s does not hint workers '
                          'about upcoming items', type(pool).__name__)
             io_readahead = 0
+            self._io_readahead = 0
         # each worker holds its current item and up to `lookahead` more:
         # the in-flight bound widens by every worker's lookahead
         bound = {}
@@ -758,7 +822,8 @@ class Reader:
             shard=cur_shard if cur_shard is not None else -1,
             dataset=dataset, file_indexes=file_indexes,
             windows=ngram is not None, trace=tracer is not None,
-            latency=latency_on, health=self.health.enabled)
+            latency=latency_on, health=self.health.enabled,
+            readahead_controlled=autotune_active)
         on_ventilate = None
         if self.lineage.enabled:
             # the ventilation ledger is the audit's expected side: what
@@ -802,7 +867,40 @@ class Reader:
         if slo:
             self._slo = SLOMonitor(slo, snapshot_fn=self._stats_snapshot,
                                    latency=pool.stats.latency)
+        if autotune_active:
+            self._start_controller(pool, autotune_options, slo)
         self._start_health(pool, debug_port, stall_timeout)
+
+    def _start_controller(self, pool, options, slo):
+        """The autotune controller over the pool's live actuators (JAX
+        :825-862). Its calibration (probes included, under
+        ``calibrate='auto'`` or ``'force'``) runs on the controller's
+        thread, staging to ``options['device']``."""
+        io_readahead = self._io_readahead
+        initial_depth = (AUTO_INITIAL_DEPTH if io_readahead == 'auto'
+                         else int(io_readahead or 0))
+        mode = options['calibrate']
+
+        def calibration_fn():
+            if not profiler.profiler_enabled():
+                return None
+            return profiler.get_calibration(
+                self.dataset_path, self.pieces, self._view, mode=mode,
+                device=options['device'])
+
+        self._controller = PipelineController(
+            ReaderActuators(pool, ventilator=pool.ventilation,
+                            pool_type=self._pool_type,
+                            resize_timeout_s=float(
+                                options['resize_timeout_s']),
+                            initial_readahead=initial_depth),
+            self._stats_snapshot, calibration_fn=calibration_fn,
+            latency=pool.stats.latency, slo_targets=slo or {},
+            options=options,
+            arbiter=HostArbiter(scratch_dir(options),
+                                cpu_count=os.cpu_count() or 1,
+                                tick_interval_s=options['tick_interval_s']))
+        self._controller.start()
 
     def _start_health(self, pool, debug_port, stall_timeout):
         """The watchdog and the debug server (JAX :862-933). On-demand
@@ -830,7 +928,11 @@ class Reader:
             self.health.heartbeats, port=port,
             coverage_fn=(self.lineage.coverage_report
                          if self.lineage.enabled else None),
+            profile_fn=(self._profile_route if profiler.profiler_enabled()
+                        else None),
             slo_fn=self._slo.evaluate if self._slo is not None else None,
+            autotune_fn=(self._controller.report
+                         if self._controller is not None else None),
             goodput_fn=self._goodput_route if goodput_enabled() else None)
         try:
             self._debug_server.start()
@@ -1030,6 +1132,9 @@ class Reader:
         self.lineage.start_pass()
         self._pool.reset(self._num_epochs)
         self.last_row_consumed = False
+        # a profile judged the pass that ended
+        self._last_profile = None
+        self._roofline_gauges = {}
 
     # -- the health plane ----------------------------------------------------
 
@@ -1049,9 +1154,9 @@ class Reader:
         and the lineage, latency, SLO and goodput summaries) and return
         its path. The watchdog calls this on a stall; call it for a dump
         on demand. ``path=None`` names a file in ``flight_record_dir`` (or
-        the temp directory). The profiler's ``roofline`` and autotune's
-        sections stay out until those slices (JAX leaves them out when
-        they are unwired)."""
+        the temp directory). The last :meth:`profile`'s ``roofline``
+        summary and the controller's ``autotune`` section join when there
+        are any."""
         if verdict is None:
             if self._watchdog is not None:
                 verdict = self._watchdog.evaluate()
@@ -1075,8 +1180,12 @@ class Reader:
             tracer=self.tracer,
             lineage=(self.lineage.flight_summary() if self.lineage.enabled
                      else None),
+            roofline=(profiler.roofline_summary(self._last_profile)
+                      if self._last_profile is not None else None),
             latency=latency.flight_summary() if latency is not None else None,
             slo=slo_verdict,
+            autotune=(self._controller.flight_summary()
+                      if self._controller is not None else None),
             goodput=(self._goodput.flight_summary()
                      if self._goodput is not None else None))
         if path is None:
@@ -1199,14 +1308,86 @@ class Reader:
         return self._slo
 
     def _stats_snapshot(self) -> dict:
-        """What the metrics emitter and the SLO monitor read: the stats
-        snapshot and the device-decode fraction (JAX :1244-1262, without
-        the profiler's and autotune's gauges)."""
+        """What the metrics emitter, the SLO monitor, ``/metrics`` and the
+        controller read (JAX :1244-1262): the stats snapshot, the
+        device-decode fraction, the roofline gauges of the last
+        :meth:`profile` (``stage_ceiling_*``, ``roofline_fraction``,
+        ``binding_stage``) and the controller's gauges."""
         snapshot = self._pool.stats.snapshot()
         fraction = device_decode_fraction(snapshot)
         if fraction is not None:
             snapshot['device_decode_fraction'] = fraction
+        if self._roofline_gauges:
+            snapshot.update(self._roofline_gauges)
+        if self._controller is not None:
+            snapshot.update(self._controller.gauges())
         return snapshot
+
+    # -- the roofline profiler and autotune ----------------------------------
+
+    def profile(self, calibrate='auto', sample_row_groups: int = 3,
+                samples_per_sec=None, device=None) -> dict:
+        """The roofline profile of this reader now (JAX :1264-1303): the
+        measured rate against the per-stage ceilings calibrated on this
+        host, this dataset's view and ``device``, the binding stage,
+        overlap-aware span attribution and the advisor's ranked knob
+        moves.
+
+        ``calibrate``: ``'cached'`` only loads a saved calibration (never
+        probes), ``'auto'`` probes on a miss, ``'force'`` always probes;
+        the probes run on the calling thread, against sampled row groups.
+        ``device`` is where the staging probe stages (None: the
+        controller's ``device`` option, else the last ``profile()``'s,
+        else CUDA; ``'cpu'`` only when asked). ``samples_per_sec``
+        overrides the measured rate when the caller measured it; otherwise
+        it is the stats window's items/s times the calibrated rows per row
+        group. Raises ``RuntimeError`` under ``PETASTORM_TPU_PROFILER=0``."""
+        if not profiler.profiler_enabled():
+            raise RuntimeError('the roofline profiler is disabled via {}=0'
+                               .format(profiler.PROFILER_ENV_VAR))
+        if device is not None:
+            self._profile_device = device
+        calibration = profiler.get_calibration(
+            self.dataset_path, self.pieces, self._view, mode=calibrate,
+            sample_row_groups=sample_row_groups,
+            device=self._profile_device)
+        self.calibration = calibration
+        spans = self.tracer.spans() if self.tracer is not None else None
+        result = profiler.build_profile(
+            self._pool.stats.snapshot(), calibration, spans=spans,
+            samples_per_sec=samples_per_sec,
+            workers_count=self._pool.workers_count,
+            io_readahead=self._io_readahead, pool_type=self._pool_type,
+            cache_type=self._cache_type)
+        self._last_profile = result
+        self._roofline_gauges = profiler.roofline_gauges(result)
+        return result
+
+    def explain_throughput(self, calibrate='auto', device=None) -> str:
+        """One sentence: "measured X samples/s = Y% of the binding stage's
+        ceiling Z", and the advisor's top moves; runs :meth:`profile`."""
+        return profiler.explain(self.profile(calibrate=calibrate,
+                                             device=device))
+
+    def _profile_route(self):
+        """``GET /profile``: the last :meth:`profile` while there is one
+        (a scrape must stay cheap), else a profile over a cached
+        calibration (never probing), not kept while uncalibrated."""
+        if self._last_profile is not None:
+            return dict(self._last_profile, from_cache=True)
+        fresh = self.profile(calibrate='cached')
+        if not fresh.get('calibrated'):
+            self._last_profile = None
+            self._roofline_gauges = {}
+        return fresh
+
+    @property
+    def autotune(self):
+        """The :class:`~petastorm_tpu_torch.autotune.PipelineController`
+        (None unless autotune resolved on, minus the kill switch, over a
+        thread or process pool): ``reader.autotune.report()`` is what
+        ``/autotune`` serves."""
+        return self._controller
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -1215,10 +1396,13 @@ class Reader:
         return self.__next__()
 
     def stop(self):
-        """Stop the pool; the metrics emitter and the watchdog are told to
-        stop first and the debug server is stopped after, even when the
-        pool dies uncleanly: no monitoring thread outlives the pipeline.
-        Idempotent."""
+        """Stop the pool; the controller, the metrics emitter and the
+        watchdog are told to stop first and the debug server is stopped
+        after, even when the pool dies uncleanly: no monitoring thread
+        outlives the pipeline. Idempotent."""
+        if self._controller is not None:
+            # a tick that lands mid-teardown must find the stop event
+            self._controller.stop(join=False)
         if self._metrics_emitter is not None:
             self._metrics_emitter.stop(join=False)
         if self._watchdog is not None:
@@ -1230,9 +1414,12 @@ class Reader:
                 self._debug_server.stop()
 
     def join(self, timeout=None):
-        """Join the pool, then the metrics emitter (which writes its final
+        """Join the controller (a tick must not actuate a pool being torn
+        down), the pool, then the metrics emitter (which writes its final
         snapshot), the watchdog and the debug server (each join bounded),
         then export the Chrome trace when ``trace`` named a file."""
+        if self._controller is not None:
+            self._controller.stop()
         try:
             self._pool.join(timeout)
         finally:

@@ -49,11 +49,17 @@ of a timed section when it ends (``worker_io`` after a read), and
 Its pool reads them (:meth:`PieceWorker.heartbeat_snapshot`). A spec with
 ``health=False`` (replay, ``PETASTORM_TPU_HEALTH=0``) beats nothing.
 
+Under the autotune controller (the spec's ``readahead_controlled``, JAX
+``piece_worker.py:246-280``) every worker has a readahead, dormant at
+depth 0 when the reader started without one, whose depth only
+:meth:`PieceWorker.set_readahead_depth` moves.
+
 Resilience, ranged reads and pod observability are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import os
 import threading
@@ -251,12 +257,15 @@ class PieceWorkerSpec:
     :param latency: record latency observations (the reader's stats carry
         a latency plane).
     :param health: publish heartbeats (JAX's worker arg ``'health'``).
+    :param readahead_controlled: the autotune controller owns the readahead
+        depth (JAX's worker arg): each worker has a readahead, dormant at
+        ``io_readahead`` 0, and ``'auto'`` does not retune itself.
     """
 
     def __init__(self, load, plan, cache, io_readahead, key_format,
                  lineage=False, on_decode_error='raise', shard=-1,
                  dataset='', file_indexes=None, windows=False, trace=False,
-                 latency=False, health=True):
+                 latency=False, health=True, readahead_controlled=False):
         self.load = load
         self.plan = plan
         self.cache = cache
@@ -271,6 +280,7 @@ class PieceWorkerSpec:
         self.trace = trace
         self.latency = latency
         self.health = health
+        self.readahead_controlled = readahead_controlled
 
     def make_worker(self, worker_id: int = 0) -> 'PieceWorker':
         return PieceWorker(self, worker_id)
@@ -336,16 +346,18 @@ class PieceWorker:
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
         self.readahead: Optional[RowGroupReadahead] = None
-        if spec.io_readahead:
+        controlled = getattr(spec, 'readahead_controlled', False)
+        if spec.io_readahead or controlled:
             self._prefetch_files = FileHandleCache(pq.ParquetFile)
             # the background thread beats its own entity: a wedged
             # prefetch read is the readahead's, not the worker's
             entity = 'readahead-{}'.format(worker_id)
             self.readahead = RowGroupReadahead(
-                self._readahead_read, spec.io_readahead,
+                self._readahead_read, spec.io_readahead or 0,
                 trace=self.tracing_enabled,
                 beat=((lambda stage: self.beat_entity(entity, stage))
-                      if self.health_enabled else None))
+                      if self.health_enabled else None),
+                controlled=controlled)
         if self.health_enabled:
             self.beat('starting')
 
@@ -648,16 +660,24 @@ class PieceWorker:
                 return None
         return read_key(item.piece, columns), item.piece, columns
 
-    def shutdown(self) -> None:
+    def set_readahead_depth(self, depth: int) -> None:
+        """Set the readahead's depth live (the autotune controller's
+        actuator); nothing for a worker built without a readahead."""
+        if self.readahead is not None:
+            self.readahead.set_depth(depth)
+
+    def shutdown(self, close_cache: bool = True) -> None:
         """End the readahead, close the handles, and close the shared
-        cache (flushing its counters; idempotent across threads)."""
+        cache (flushing its counters; idempotent across threads).
+        ``close_cache=False`` leaves the cache open: a thread worker retired
+        by a shrink shares it with the pool's other threads."""
         if self.readahead is not None:
             self.readahead.stop()
         if self._prefetch_files is not None:
             self._prefetch_files.close_all()
         self._files.close_all()
         close = getattr(self.cache, 'close', None)
-        if close is not None:
+        if close is not None and close_cache:
             close()
 
 
@@ -682,7 +702,25 @@ def make_worker(process, worker_id: int = 0):
     return factory() if factory is not None else process
 
 
-def shutdown_worker(worker) -> None:
+def with_readahead_depth(process, depth: int):
+    """``process`` whose workers start at readahead ``depth``: a copy of a
+    :class:`PieceWorkerSpec`, anything else as it is. A pool grown after a
+    live :meth:`PieceWorker.set_readahead_depth` makes its new workers from
+    this, so they do not come up at the reader's first depth."""
+    if not isinstance(process, PieceWorkerSpec):
+        return process
+    spec = copy.copy(process)
+    spec.io_readahead = depth
+    return spec
+
+
+def shutdown_worker(worker, close_cache: bool = True) -> None:
+    """``worker.shutdown()`` where it has one; ``close_cache=False`` keeps a
+    :class:`PieceWorker`'s cache open for the workers that share it."""
     shutdown = getattr(worker, 'shutdown', None)
-    if shutdown is not None:
+    if shutdown is None:
+        return
+    if isinstance(worker, PieceWorker):
+        shutdown(close_cache=close_cache)
+    else:
         shutdown()

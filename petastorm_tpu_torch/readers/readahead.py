@@ -25,8 +25,12 @@ worker on the worker's own thread (:meth:`RowGroupReadahead.drain_stats_into`,
 JAX :226-253). With ``beat``, the background thread publishes its
 liveness (``idle`` waiting for a request, ``io`` reading, ``stopped`` at
 its end; JAX :84-87, :281-291), which the owning worker records as its
-``readahead-<id>`` entity. Not ported yet: ``set_depth`` and
-``controlled`` (the autotune slice).
+``readahead-<id>`` entity.
+
+Under the autotune controller (``controlled=True``, JAX :89-144) the depth
+is the controller's: the local ``'auto'`` retune never runs, and only
+:meth:`RowGroupReadahead.set_depth` moves it. Depth 0 is dormant: the
+hints flow, nothing is prefetched, and a later :meth:`set_depth` wakes it.
 """
 
 from __future__ import annotations
@@ -70,21 +74,25 @@ class RowGroupReadahead:
 
     :param read_fn: ``read_fn(piece, columns) -> pa.Table``; runs only on
         the background thread, so it must use its own file handles.
-    :param depth: the most reads outstanding, or ``'auto'``. ``0`` keeps
-        the machinery idle: nothing is prefetched.
+    :param depth: the most reads outstanding, or ``'auto'``. ``0`` is
+        dormant: nothing is prefetched until :meth:`set_depth` raises it.
     :param trace: keep a ``readahead_read`` span of each background read
         (on the background thread's track) for :meth:`drain_stats_into`.
     :param beat: ``beat(stage)``, called from the background thread (so
         safe across threads), or None.
+    :param controlled: the autotune controller owns the depth: the local
+        ``'auto'`` retune never runs (two tuners on one knob would
+        oscillate), and only :meth:`set_depth` moves it.
     """
 
-    def __init__(self, read_fn, depth, trace: bool = False, beat=None):
+    def __init__(self, read_fn, depth, trace: bool = False, beat=None,
+                 controlled: bool = False):
         if depth != 'auto' and (not isinstance(depth, int) or depth < 0):
             raise ValueError(
                 "readahead depth must be a non-negative int or 'auto', got "
                 '{!r}'.format(depth))
         self._read_fn = read_fn
-        self._auto = depth == 'auto'
+        self._auto = depth == 'auto' and not controlled
         self._depth = AUTO_INITIAL_DEPTH if depth == 'auto' else depth
         self._lock = threading.Lock()
         self._scheduled: deque = deque()      # FIFO of un-consumed _Prefetch
@@ -110,6 +118,19 @@ class RowGroupReadahead:
         """The current target depth (fixed, or 'auto''s live value)."""
         with self._lock:
             return self._depth
+
+    def set_depth(self, depth: int) -> None:
+        """Pin the target depth live (the autotune controller's actuator):
+        the local ``'auto'`` retune stops for good. ``0`` makes the
+        readahead dormant (outstanding reads drain normally, no new one is
+        scheduled); a later positive depth wakes it. Capped at
+        :data:`AUTO_MAX_DEPTH`."""
+        if not isinstance(depth, int) or depth < 0:
+            raise ValueError('readahead depth must be a non-negative int, '
+                             'got {!r}'.format(depth))
+        with self._lock:
+            self._auto = False
+            self._depth = min(depth, AUTO_MAX_DEPTH)
 
     def tallies(self) -> Dict[str, float]:
         """Hits and misses of :meth:`take`, seconds of background reads

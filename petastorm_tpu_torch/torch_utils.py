@@ -20,7 +20,9 @@
 - :func:`prefetch_to_device` (:1193-1300) stages batches ahead of the
   consumer on a background thread: ``non_blocking`` copies from pinned
   memory on a side CUDA stream, handed to the consumer's stream with an
-  event and ``record_stream``.
+  event and ``record_stream``. Its staging of one batch is
+  :func:`stage_to_device` (JAX's ``stage_to_global``), which the
+  profiler's staging probe times too.
 - Device decode (``jax_utils.py:502-530, 569-573, 1217-1250``): a
   ``TorchDataLoader`` over a columnar reader that planned device decode
   claims the plans. Plain iteration then decodes the raw uint8 grids on
@@ -56,11 +58,11 @@
   ``backpressured`` while the ring is full, ``idle`` while it waits on
   the loader (so a wedged worker is the one entity named) and ``done``
   at its end. :func:`infeed_diagnosis` (``heartbeats=``) folds the
-  pipeline's verdict in.
+  pipeline's verdict in, and ``roofline=`` (a ``reader.profile()``) the
+  roofline summary.
 
 Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
-(the multi-GPU slice), and ``infeed_diagnosis``'s ``roofline`` (the
-profiler slice).
+(the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -811,12 +813,10 @@ def infeed_diagnosis(snapshot: dict, heartbeats=None, stall_after_s=None,
     and ``/healthz``'s classification) over ``stall_after_s`` (default
     :data:`~petastorm_tpu_torch.health.DEFAULT_STALL_AFTER_S`), and a
     stalled entity overrides ``bottleneck`` with ``'stalled'``.
-    ``roofline`` comes with the profiler slice and raises
-    ``NotImplementedError``."""
-    if roofline is not None:
-        raise NotImplementedError(
-            'infeed_diagnosis(roofline=...) is not ported to '
-            'petastorm_tpu_torch yet; it comes with the profiler slice')
+    ``roofline`` (a :meth:`~petastorm_tpu_torch.reader.Reader.profile`
+    result or its :func:`~petastorm_tpu_torch.profiler.roofline_summary`)
+    adds a ``roofline`` section: the measured rate as a fraction of the
+    binding stage's calibrated ceiling."""
     signals = bottleneck_signals(snapshot)
     io_s, decode_s = signals['io_s'], signals['decode_s']
     out = {
@@ -865,7 +865,57 @@ def infeed_diagnosis(snapshot: dict, heartbeats=None, stall_after_s=None,
             # stop moving when the stall starts
             out['bottleneck'] = 'stalled'
             out['hint'] = verdict['hint']
+    if roofline is not None:
+        from petastorm_tpu_torch.profiler import roofline_summary
+        out['roofline'] = (roofline_summary(roofline)
+                           if roofline.get('kind') ==
+                           'petastorm_tpu_roofline_profile' else roofline)
     return out
+
+
+def _stage_leaf(x, device):
+    """One leaf staged to CUDA ``device``: a numpy numeric column copied
+    into a pinned tensor, a CPU tensor pinned, either copied to the device
+    with ``non_blocking=True``; anything else as it is."""
+    if isinstance(x, np.ndarray):
+        x = _to_tensor(x, True)
+    if not torch.is_tensor(x) or x.device == device:
+        return x
+    if x.device.type == 'cpu' and not x.is_pinned():
+        x = x.pin_memory()
+    return x.to(device, non_blocking=True)
+
+
+def _fuse(fused_fn, staged):
+    """``fused_fn`` over a staged batch's tensors, its other leaves kept."""
+    if fused_fn is None or not isinstance(staged, dict):
+        return staged
+    out = dict(fused_fn({k: v for k, v in staged.items()
+                         if torch.is_tensor(v)}))
+    out.update({k: v for k, v in staged.items() if not torch.is_tensor(v)})
+    return out
+
+
+def stage_to_device(batch, device, stream=None, fused_fn=None):
+    """Stage one batch to ``device``: ``(staged batch, event)``, the port's
+    counterpart of JAX's ``stage_to_global``, run by
+    :func:`prefetch_to_device` and timed by the profiler's staging probe.
+
+    On a CUDA ``device`` (with an index) each leaf is staged on ``stream``
+    (:func:`_stage_leaf`: pinned allocation and copy, then a
+    ``non_blocking`` copy), ``fused_fn`` runs over the staged tensors on
+    that stream, and ``event`` is recorded on it after them: waiting on
+    it (``event.synchronize()``, or a stream's ``wait_event``) waits for
+    this batch alone. On the CPU the numpy leaves become tensors and
+    ``event`` is None."""
+    if device.type == 'cpu':
+        return _fuse(fused_fn, _map(batch, lambda x: _to_tensor(x, False))), \
+            None
+    with torch.cuda.stream(stream):
+        staged = _fuse(fused_fn, _map(batch, lambda x: _stage_leaf(x, device)))
+        event = torch.cuda.Event()
+        event.record(stream)
+    return staged, event
 
 
 def prefetch_to_device(iterator, size=None, device=None, goodput=None,
@@ -895,39 +945,14 @@ def prefetch_to_device(iterator, size=None, device=None, goodput=None,
     ``loader-prefetch`` entity."""
     device = resolve_device(device)
     size = resolve_prefetch_depth(size)
-
-    def fuse(staged):
-        if fused_fn is None or not isinstance(staged, dict):
-            return staged
-        out = dict(fused_fn({k: v for k, v in staged.items()
-                             if torch.is_tensor(v)}))
-        out.update({k: v for k, v in staged.items()
-                    if not torch.is_tensor(v)})
-        return out
-
-    if device.type == 'cpu':
-        def put(batch):
-            return fuse(_map(batch, lambda x: _to_tensor(x, False))), None
-    else:
+    side = None
+    if device.type == 'cuda':
         if device.index is None:     # 'cuda' names the current device
             device = torch.device('cuda', torch.cuda.current_device())
         side = torch.cuda.Stream(device=device)
 
-        def stage(x):
-            if isinstance(x, np.ndarray):
-                x = _to_tensor(x, True)
-            if not torch.is_tensor(x) or x.device == device:
-                return x
-            if x.device.type == 'cpu' and not x.is_pinned():
-                x = x.pin_memory()
-            return x.to(device, non_blocking=True)
-
-        def put(batch):
-            with torch.cuda.stream(side):
-                staged = fuse(_map(batch, stage))
-                event = torch.cuda.Event()
-                event.record(side)
-            return staged, event
+    def put(batch):
+        return stage_to_device(batch, device, side, fused_fn)
 
     hand_off = None if device.type == 'cpu' else _hand_off(device)
     if goodput is not None or stats is not None or tracer is not None:

@@ -69,13 +69,29 @@ are not thread-safe), sends with ``NOBLOCK`` and closes it with
 consumer merges the records as it drains (:meth:`ProcessPool.heartbeats`),
 ages clamped to its last drain, and forgets those of a dead worker.
 
+Live actuators (the autotune controller's knobs, JAX :277-403 and the
+worker side :985-1022): :meth:`ProcessPool.resize` grows the pool through
+the same bootstrap, each newcomer under a fresh worker id and at the live
+readahead depth, and shrinks it by drain-then-retire: the ventilation
+pauses, both in-flight counts (the pool's and the
+:class:`~petastorm_tpu_torch.workers.thread_pool.VentilationJob`'s) fall
+to zero while the consumer drains, then one ``RETIRE`` marker a worker
+to go goes out on the work socket; the worker that takes it acks with
+:class:`_WorkerRetired` (collected on the consumer's thread) and exits 0,
+and the resizing thread reaps it and resumes the ventilation. No item is
+in flight toward a retiring interpreter, so each is delivered exactly
+once; a quiesce that times out aborts the shrink with the count
+unchanged. :meth:`ProcessPool.set_readahead_depth` broadcasts
+``(SET_READAHEAD, depth)`` on the control socket.
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
-no GPU and import neither torch nor jax. Resize (autotune) and recovery
-(resilience) come with their own slices.
+no GPU and import neither torch nor jax. Recovery (resilience) comes with
+its own slice.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import subprocess
@@ -87,7 +103,8 @@ from typing import List, Optional
 
 from petastorm_tpu_torch.lineage import LineageEnvelope
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
-                                                      shutdown_worker)
+                                                      shutdown_worker,
+                                                      with_readahead_depth)
 from petastorm_tpu_torch.workers.exec_in_new_process import \
     exec_in_new_process
 from petastorm_tpu_torch.workers.serializers import (ZeroCopySerializer,
@@ -98,6 +115,8 @@ from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
                                                      VentilationJob,
                                                      absorb_lineage)
 
+logger = logging.getLogger(__name__)
+
 _STARTUP_TIMEOUT_S = 60
 _SHUTDOWN_TIMEOUT_S = 10
 _LOCALHOST = 'tcp://127.0.0.1'
@@ -107,8 +126,14 @@ _DATA = 'DATA'
 _STARTED = 'STARTED'
 _ITEM_DONE = 'ITEM_DONE'        # after an item's result, if it had one
 _TERMINATED = 'TERMINATED'
-# the control channel's one message
+# the control channel's messages: the stop, and a live readahead depth
+# as (SET_READAHEAD, depth)
 _FINISHED = 'FINISHED'
+_SET_READAHEAD = 'SET_READAHEAD'
+#: The work-socket marker of a shrink: the worker that takes it processes
+#: what it holds, acks with :class:`_WorkerRetired` and exits 0. Sent only
+#: once the pool quiesced, so it never strands a ventilated item.
+_RETIRE = 'RETIRE'
 
 #: The period of a worker's liveness frame (JAX :49-51): low by design,
 #: it exists for items that take minutes, not as a telemetry channel.
@@ -122,6 +147,16 @@ class _WorkerError:
     def __init__(self, exc, formatted):
         self.exc = exc
         self.formatted = formatted
+
+
+class _WorkerRetired:
+    """The ack of a ``RETIRE`` marker: the worker finished what it held and
+    exits 0 (a retirement, never a death)."""
+
+    __slots__ = ('worker_id',)
+
+    def __init__(self, worker_id):
+        self.worker_id = worker_id
 
 
 class _WorkerHeartbeat:
@@ -177,8 +212,19 @@ class ProcessPool:
         self._poller = None
         self._job = None
         self._ventilator: Optional[threading.Thread] = None
-        self._slots: Optional[threading.Semaphore] = None
         self._lock = threading.Lock()
+        # the spawn recipe (the process and the socket addresses), each
+        # interpreter by worker id, the acked retirements not yet reaped,
+        # the live readahead depth; resizes are serialized, and the control
+        # socket's sends too (the stop's broadcast and the depth's)
+        self._spawn_args = None
+        self._procs_by_id = {}
+        self._next_worker_id = workers_count
+        self._retired_ids: List[int] = []
+        self._started_ids = set()
+        self._readahead_override: Optional[int] = None
+        self._resize_lock = threading.Lock()
+        self._control_lock = threading.Lock()
         self._ventilated = 0
         self._processed = 0
         self._produced = 0
@@ -224,11 +270,9 @@ class ProcessPool:
         self._poller.register(self._results_receiver, zmq.POLLIN)
         addresses = ['{}:{}'.format(_LOCALHOST, port)
                      for port in (work_port, control_port, results_port)]
+        self._spawn_args = (process, addresses)
         for worker_id in range(self._workers_count):
-            self._processes.append(exec_in_new_process(
-                _worker_bootstrap,
-                args=(process, self._serializer, *addresses, os.getpid(),
-                      self._hwm, worker_id)))
+            self._spawn(worker_id)
 
         started = 0
         deadline = time.monotonic() + _STARTUP_TIMEOUT_S
@@ -243,14 +287,160 @@ class ProcessPool:
                                    .format(started, self._workers_count,
                                            _STARTUP_TIMEOUT_S))
             _, control = self._recv()
-            if control == _STARTED:
+            if isinstance(control, tuple) and control[0] == _STARTED:
                 started += 1
+                self._started_ids.add(control[1])
 
-        self._slots = threading.Semaphore(max_in_flight
-                                          or 2 * self._workers_count)
         self._job = VentilationJob(items, shuffle, seed, on_ventilate,
-                                   heartbeat)
+                                   heartbeat, max_in_flight
+                                   or 2 * self._workers_count)
         self._launch(num_epochs)
+
+    def _spawn(self, worker_id: int) -> None:
+        """Start one worker interpreter through the bootstrap; after a live
+        :meth:`set_readahead_depth` it starts at that depth."""
+        process, addresses = self._spawn_args
+        if self._readahead_override is not None:
+            process = with_readahead_depth(process, self._readahead_override)
+        proc = exec_in_new_process(
+            _worker_bootstrap,
+            args=(process, self._serializer, *addresses, os.getpid(),
+                  self._hwm, worker_id))
+        with self._lock:
+            # copy on write: _check_workers_alive iterates the list it took
+            self._processes = self._processes + [proc]
+            self._procs_by_id[worker_id] = proc
+
+    @property
+    def ventilation(self) -> Optional[VentilationJob]:
+        """The :class:`VentilationJob` (its live in-flight window)."""
+        return self._job
+
+    # -- live actuators (the autotune controller's knobs) --------------------
+
+    def resize(self, workers_count: int, timeout_s: float = 30.0) -> int:
+        """Resize the pool live to ``workers_count`` interpreters; returns
+        the live count (JAX :277-392).
+
+        A grow starts interpreters through the bootstrap at once; ZMQ hands
+        them items as soon as they connect. A shrink is drain-then-retire:
+        the ventilation pauses, the in-flight items drain to zero (the
+        consumer must keep calling :meth:`get_results` meanwhile, from
+        another thread than this one), one ``RETIRE`` marker a worker to go
+        goes out, the acks arrive through :meth:`get_results`, the exited
+        interpreters are reaped and the ventilation resumes. A quiesce or
+        ack that does not complete within ``timeout_s`` aborts safely: the
+        ventilation resumes and the count stays (a late ack still lowers
+        it when it lands)."""
+        if not isinstance(workers_count, int) or workers_count < 1:
+            raise ValueError('workers_count must be a positive int, got '
+                             '{!r}'.format(workers_count))
+        with self._resize_lock:
+            if self._stopped or self._spawn_args is None:
+                return self._workers_count
+            current = self._workers_count
+            if workers_count > current:
+                for _ in range(workers_count - current):
+                    with self._lock:
+                        worker_id = self._next_worker_id
+                        self._next_worker_id += 1
+                    self._spawn(worker_id)
+                with self._lock:
+                    self._workers_count += workers_count - current
+            elif workers_count < current:
+                self._retire_workers(current - workers_count, timeout_s)
+            return self._workers_count
+
+    def _retire_workers(self, k: int, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        job = self._job
+        job.pause()
+        acked = False
+        try:
+            # both counts must settle: the job's rises before the send,
+            # covering the window the pool's count misses, and proves no
+            # send is under way on the work socket when the markers go out;
+            # and every worker a grow started must have reported in, or
+            # PUSH, which hands messages to connected workers only, could
+            # give two markers to one worker and none to a newcomer
+            while True:
+                with self._lock:
+                    in_flight = self._ventilated - self._processed
+                    starting = set(self._procs_by_id) - self._started_ids
+                if in_flight == 0 and job.in_flight == 0 and not starting:
+                    break
+                if self._stopped:
+                    return
+                if time.monotonic() >= deadline:
+                    logger.warning('pool shrink aborted: %d items still in '
+                                   'flight, %d workers starting after %.1fs',
+                                   in_flight, len(starting), timeout_s)
+                    return
+                time.sleep(0.02)
+            target = self._workers_count - k
+            for _ in range(k):
+                self._work_sender.send_pyobj(_RETIRE)
+            # the acks arrive while the consumer drains; a stopping pool
+            # counts them in stop()
+            while time.monotonic() < deadline and not self._stopped:
+                with self._lock:
+                    if self._workers_count <= target:
+                        acked = True
+                        break
+                time.sleep(0.02)
+            self.reap_retired(max(0.0, deadline - time.monotonic()))
+        finally:
+            if not acked:
+                # a marker may be unconsumed yet: let a retiring
+                # interpreter's disconnect reach the PUSH side before items
+                # flow again (its final drain covers the rest)
+                time.sleep(0.25)
+            job.resume()
+
+    def _on_worker_retired(self, worker_id) -> None:
+        """A ``_WorkerRetired`` ack, on the consumer's thread: the live
+        count drops; the interpreter is reaped by :meth:`reap_retired`."""
+        with self._lock:
+            self._workers_count = max(0, self._workers_count - 1)
+            self._retired_ids.append(worker_id)
+
+    def reap_retired(self, timeout_s: float = 10.0) -> int:
+        """Wait for (and drop) the interpreters of acked retirements;
+        returns how many were reaped. An acked worker has already exited,
+        so the waits settle at once."""
+        with self._lock:
+            acked, self._retired_ids = self._retired_ids, []
+        deadline = time.monotonic() + timeout_s
+        for worker_id in acked:
+            with self._lock:
+                proc = self._procs_by_id.pop(worker_id, None)
+            if proc is None:
+                continue
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            with self._lock:
+                self._processes = [p for p in self._processes
+                                   if p is not proc]
+        return len(acked)
+
+    def set_readahead_depth(self, depth: int) -> None:
+        """Broadcast a live readahead depth to every worker interpreter on
+        the control socket; interpreters a later grow starts get it in
+        their spawn arguments."""
+        self._readahead_override = int(depth)
+        with self._control_lock:
+            if self._control_sender is not None and not self._stopped:
+                self._control_sender.send_pyobj((_SET_READAHEAD, int(depth)))
+
+    @property
+    def readahead_depth(self) -> Optional[int]:
+        """The depth of the last :meth:`set_readahead_depth` (None before
+        one). The results sockets' high-water mark is no live knob: the
+        controller's queue bound is the thread pool's, as in JAX."""
+        return self._readahead_override
 
     def _launch(self, num_epochs):
         self._ventilation_done = False
@@ -265,7 +455,7 @@ class ProcessPool:
         job.beat('ventilate')
         try:
             for item in order:
-                if not job.acquire_slot(self._slots, self._stop):
+                if not job.acquire_slot(self._stop):
                     return
                 with self._lock:
                     self._ventilated += 1
@@ -325,8 +515,11 @@ class ProcessPool:
                 with self._lock:
                     self._processed += 1
                     in_flight = self._ventilated - self._processed
-                self._slots.release()
+                self._job.processed_item()
                 stats.gauge('queue_depth', in_flight)
+                continue
+            if isinstance(control, _WorkerRetired):
+                self._on_worker_retired(control.worker_id)
                 continue
             if isinstance(control, _WorkerError):
                 self.stop()
@@ -358,7 +551,11 @@ class ProcessPool:
                 if extra is not None:
                     result = LineageEnvelope(result, extra)
                 return result
-            # a late _STARTED or _TERMINATED: nothing to do
+            if control == _STARTED:
+                # a grown worker reported in (its id rides the frame)
+                with self._lock:
+                    self._started_ids.add(extra)
+            # a late _TERMINATED: nothing to do
 
     def _merge_heartbeats(self, records) -> None:
         """Keep each entity's newest record. Liveness and ``ITEM_DONE``
@@ -458,13 +655,20 @@ class ProcessPool:
         self._stop.set()
         if self._control_sender is None:
             return
+        # acked retirees have exited: count them out of the wait below
+        self.reap_retired(timeout_s=2.0)
         deadline = time.monotonic() + _SHUTDOWN_TIMEOUT_S
         while (self._terminated < len(self._processes)
                and time.monotonic() < deadline):
-            self._control_sender.send_pyobj(_FINISHED)
+            with self._control_lock:
+                self._control_sender.send_pyobj(_FINISHED)
             if dict(self._poller.poll(50)):
                 _, control = self._recv()
                 if control == _TERMINATED:
+                    self._terminated += 1
+                elif isinstance(control, _WorkerRetired):
+                    # a late shrink ack: that worker exits too
+                    self._on_worker_retired(control.worker_id)
                     self._terminated += 1
 
     def join(self, timeout: Optional[float] = None) -> None:
@@ -608,7 +812,7 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             out['empty_publishes'] = empty
         return out
 
-    send([b''], _STARTED)
+    send([b''], (_STARTED, worker_id))
 
     hb_stop = threading.Event()
     hb_thread = None
@@ -640,20 +844,51 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
     poller.register(work_receiver, zmq.POLLIN)
     poller.register(control_receiver, zmq.POLLIN)
     pending = deque()
+    retiring = False
+
+    def is_retire(entry):
+        return isinstance(entry, str) and entry == _RETIRE
+
     try:
         while True:
             # wait only when there is nothing to process
             socks = dict(poller.poll(None if not pending else 0))
             if control_receiver in socks:
-                if control_receiver.recv_pyobj() == _FINISHED:
+                message = control_receiver.recv_pyobj()
+                if message == _FINISHED:
                     break       # pending items are dropped: the pool stops
-            if work_receiver in socks:
+                if (isinstance(message, tuple) and len(message) == 2
+                        and message[0] == _SET_READAHEAD):
+                    # a live depth, applied between items on this thread
+                    setter = getattr(worker, 'set_readahead_depth', None)
+                    if setter is not None:
+                        setter(message[1])
+            if work_receiver in socks and not retiring:
                 while len(pending) - 1 < getattr(worker, 'prefetch_lookahead',
                                                  0):
                     try:
-                        pending.append(work_receiver.recv_pyobj(zmq.NOBLOCK))
+                        entry = work_receiver.recv_pyobj(zmq.NOBLOCK)
                     except zmq.Again:
                         break
+                    if is_retire(entry):
+                        # take nothing new: finish what is held, then go
+                        retiring = True
+                        break
+                    pending.append(entry)
+            if retiring and not pending:
+                # an item that slipped in behind the marker (a shrink that
+                # timed out and resumed early) is processed, not stranded
+                while True:
+                    try:
+                        entry = work_receiver.recv_pyobj(zmq.NOBLOCK)
+                    except zmq.Again:
+                        break
+                    if not is_retire(entry):
+                        pending.append(entry)
+                if pending:
+                    continue
+                send([b''], _WorkerRetired(worker_id))
+                break
             if not pending:
                 continue
             if hint is not None:
@@ -693,7 +928,10 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
         if hb_thread is not None:
             hb_thread.join(timeout=5)
         shutdown_worker(worker)
-        send([b''], _TERMINATED)
+        if not retiring:
+            # a retiree acked already: a second frame would let stop()
+            # count it twice
+            send([b''], _TERMINATED)
         for sock in (work_receiver, control_receiver, results_sender):
             sock.close(linger=1000)
         context.term()

@@ -439,10 +439,11 @@ ROUTES = ('/healthz', '/slo', '/metrics', '/diagnostics', '/coverage',
 
 
 def _wired(flag):
-    # the port's sources; /profile, /autotune and the pod routes stay
-    # unwired in both packages until their slices land
+    # every source the port has; the pod routes stay unwired in both
+    # packages (the port has no pod plane)
     fn = (lambda: {'ok': True}) if flag else None
-    return dict(coverage_fn=fn, slo_fn=fn, goodput_fn=fn)
+    return dict(coverage_fn=fn, slo_fn=fn, goodput_fn=fn, profile_fn=fn,
+                autotune_fn=fn)
 
 
 @pytest.mark.timeout(60)

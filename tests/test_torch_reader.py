@@ -298,15 +298,17 @@ def test_source_scan_finds_no_jax_import():
         r'^\s*(from|import)\s+(jax|petastorm_tpu)(\.|\s|$)'
         r'|import_module\([\'"](jax|petastorm_tpu)[\'".]', re.M)
     root = Path(petastorm_tpu_torch.__file__).parent
-    files = sorted(root.rglob('*.py')) + [REPO / 'chip_smoke.py']
+    files = sorted(root.rglob('*.py')) + [REPO / 'chip_smoke.py',
+                                          REPO / 'chip_tune_probe.py']
     hits = [(str(f), m.group(0)) for f in files
             for m in pattern.finditer(f.read_text())]
     assert not hits, hits
 
 
-#: Modules of the device-decode, process-pool, readahead, cache and lineage
-#: slices; the worker side (everything a worker interpreter imports) must
-#: not import torch either.
+#: Modules of the device-decode, process-pool, readahead, cache, lineage,
+#: observability, profiler and autotune slices; the worker side
+#: (everything a worker interpreter imports) must not import torch
+#: either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.etl.repack',
                  'petastorm_tpu_torch.workers.serializers',
@@ -321,7 +323,9 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.latency',
                  'petastorm_tpu_torch.workers.stats',
                  'petastorm_tpu_torch.tracing',
-                 'petastorm_tpu_torch.health']
+                 'petastorm_tpu_torch.health',
+                 'petastorm_tpu_torch.profiler',
+                 'petastorm_tpu_torch.autotune']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

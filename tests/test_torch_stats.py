@@ -220,11 +220,13 @@ def test_infeed_diagnosis_matches_jax(index):
 
 def test_infeed_diagnosis_refuses_later_slices():
     # heartbeats came with the health slice: an empty pipeline is healthy,
-    # as in JAX; the roofline still waits for the profiler slice
+    # as in JAX; the roofline came with the profiler slice: a section that
+    # is no profile passes through as it is, as in JAX
     assert (torch_utils.infeed_diagnosis({}, heartbeats={})
             == jdiagnosis({}, heartbeats={}))
-    with pytest.raises(NotImplementedError, match='profiler slice'):
-        torch_utils.infeed_diagnosis({}, roofline={'kind': 'x'})
+    got = torch_utils.infeed_diagnosis({}, roofline={'kind': 'x'})
+    assert got == jdiagnosis({}, roofline={'kind': 'x'})
+    assert got['roofline'] == {'kind': 'x'}
 
 
 @pytest.mark.parametrize('index', range(8))
