@@ -259,7 +259,40 @@ printing one line or a few:
    raises JAX's ``RuntimeError``. (d) The LM steady step (2 epochs on 4
    threads) with autotune off and on (``calibrate='force'``: each run's
    first model tick probes the card while steps are in flight), 6 pairs
-   in turns, both ratios beside the off runs' spread.
+   in turns, both ratios beside the off runs' spread;
+20. resilience line (after phase 19; every scenario armed through
+   ``PETASTORM_TPU_CHAOS`` with a seed derived from ``--seed`` and
+   printed). (a) The LM store of phase 17 on 4 threads with
+   ``io_readahead=2`` -> ``TorchDataLoader`` -> ``prefetch_to_device`` ->
+   16 AdamW steps on K1-K3, under ``transient-errors``, under
+   ``truncated-reads`` and clean: every window equals the clean run's bit
+   for bit on the host (keyed by its ``step``: a 4-thread pool's batch
+   order varies run to run), the injector fired, ``io_retries`` > 0,
+   ``io_permanent_failures`` 0, the audits complete, losses finite. (b)
+   The token store of phase 13 on 4 threads under ``read-hangs``
+   (``hang_rate=0.1,hang_s=0.3``) with ``hedge=0.05`` and without: rows
+   == the generator in both, ``io_hedges`` and ``io_hedge_wins`` > 0 with
+   the hedge; each pass's wall time. (c) The LM on 4 worker interpreters,
+   staged to the card, lineage on, 2 epochs: one frozen (SIGSTOP) when
+   the first batch arrives and SIGKILLed at the second, so it dies
+   holding the items sent to it meanwhile; then ``worker-kill``
+   (``kill_after_reads=6,max_kills=2``): ``worker_respawns`` and
+   ``items_redispatched`` >= 1, every
+   window once an epoch, ``classify_pipeline`` ``degraded`` naming
+   ``worker-respawns``; the seconds from the kill (or the detected death)
+   to the first redispatched delivery. (d) The png store on 2 threads
+   through ``make_reader`` with a row transform that raises
+   ``SimulatedWorkerCrash`` on one row group's rows, ``worker_recovery=
+   dict(poison_threshold=2, max_respawns=5)``, into CNN steps on K4:
+   ``poison_items_quarantined`` 1, ``worker_respawns`` 2, one
+   ``worker-crash`` record of that row group, every other image once, K4
+   every step. (e) A removed data file raises ``FileNotFoundError`` on its
+   first attempt (``io_permanent_failures`` 1, ``io_retries`` and
+   ``worker_respawns`` 0); a SIGKILL under ``worker_recovery=False``
+   raises ``RuntimeError`` naming the exit codes; a spent budget of 2
+   respawns raises within 60 s. (f) The LM steady step (2 epochs, 4
+   threads) with ``retry=False`` and the default, 6 pairs in turns, the
+   ratio beside the off runs' spread. K1-K3 launch on every LM step.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4276,6 +4309,513 @@ def tune_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
     return png, lm
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the resilience line
+# ---------------------------------------------------------------------------
+
+RES_EPOCHS = 2                    # (a): 16 steps a run
+RES_WORKERS = 4
+RES_READAHEAD = 2
+RES_HEDGE_S = 0.05                # (b)'s fixed hedge threshold
+RES_KILL_EPOCHS = 2               # (c) under worker-kill: 16 steps, enough
+                                  # reads that interpreters die
+RES_POISON_GROUP = 3              # (d): the row group whose rows crash
+RES_POISON = dict(poison_threshold=2, max_respawns=5)
+RES_BUDGET = dict(max_respawns=2, poison_threshold=99)
+RES_LOUD_S = 60.0                 # a spent budget raises within this
+RES_LOUD_EPOCHS = 4               # (e)'s kill: items still to ventilate
+RES_COST_PAIRS = 6                # (f): retry off/on runs
+
+
+def chaos_specs(seed):
+    """The phase's scenarios, armed by ``PETASTORM_TPU_CHAOS``, each from a
+    seed derived from ``--seed``."""
+    return {'transient': 'transient-errors:%d' % (101 + seed),
+            'truncated': 'truncated-reads:%d' % (202 + seed),
+            'hangs': 'read-hangs:%d:hang_rate=0.1,hang_s=0.3' % (404 + seed),
+            'kill': 'worker-kill:%d:kill_after_reads=6,max_kills=2'
+                    % (505 + seed)}
+
+
+def freeze(proc):
+    """SIGSTOP a worker interpreter and return it. Workers finish an item
+    in milliseconds while the consumer takes a step a batch, so a bare
+    SIGKILL mostly finds the victim idle with its results already sent;
+    frozen first, it holds the items ventilated to it meanwhile, which the
+    SIGKILL then loses."""
+    import signal
+    os.kill(proc.pid, signal.SIGSTOP)
+    return proc
+
+
+@contextlib.contextmanager
+def chaos(spec):
+    """``PETASTORM_TPU_CHAOS=spec`` (None: unset) with a fresh injector
+    cache, so a run replays its scenario from occurrence 0; yields the
+    injector of this process (None when unarmed)."""
+    from petastorm_tpu_torch import faultfs
+    saved = os.environ.get(faultfs.CHAOS_ENV_VAR)
+    faultfs.reset_chaos_cache()
+    if spec is None:
+        os.environ.pop(faultfs.CHAOS_ENV_VAR, None)
+    else:
+        os.environ[faultfs.CHAOS_ENV_VAR] = spec
+    try:
+        yield faultfs.chaos_from_env()
+    finally:
+        faultfs.reset_chaos_cache()
+        if saved is None:
+            os.environ.pop(faultfs.CHAOS_ENV_VAR, None)
+        else:
+            os.environ[faultfs.CHAOS_ENV_VAR] = saved
+
+
+def resilient_lm_run(torch, url, step, device, args, label, epochs=RES_EPOCHS,
+                     pool='thread', kill=False, **reader_kw):
+    """``epochs`` of the LM store (NGram windows) on ``RES_WORKERS`` workers
+    of ``pool`` -> ``TorchDataLoader`` -> ``prefetch_to_device`` -> AdamW
+    steps on K1-K3. ``kill``: one worker interpreter is frozen when the
+    first batch arrives and SIGKILLed at the second (:func:`freeze`).
+    Returns the run's facts: each window as ``(step, host bytes of both
+    timesteps)``, the losses, the step times, the stats snapshot, the
+    audit, the pool's recovery records and the kill's time."""
+    from petastorm_tpu_torch import (TorchDataLoader, make_reader,
+                                     prefetch_to_device)
+    facts = {'windows': [], 'losses': [], 'times': [], 'killed_at': None}
+    start = time.perf_counter()
+    with make_reader(url, schema_fields=_ngram(), num_epochs=epochs,
+                     workers_count=RES_WORKERS, seed=args.seed,
+                     reader_pool_type=pool, **reader_kw) as reader:
+        check(reader.lineage.enabled, '%s: lineage is off' % label)
+        loader = TorchDataLoader(reader, batch_size=BATCH, drop_last=True,
+                                 device=device)
+        batches = prefetch_to_device(iter(loader), size=2, device=device,
+                                     goodput=loader.goodput)
+        with contextlib.closing(batches):
+            victim = None
+            for batch in batches:
+                if kill and victim is None:
+                    victim = freeze(reader._pool._processes[0])
+                elif kill and facts['killed_at'] is None:
+                    facts['killed_at'] = time.monotonic()
+                    victim.kill()
+                t0 = time.perf_counter()
+                tokens, targets = _lm_targets(torch, batch)
+                loss = float(loader.goodput.fence(step(tokens, targets)))
+                facts['times'].append(time.perf_counter() - t0)
+                facts['losses'].append(loss)
+                steps = batch[0]['step'].cpu().numpy()
+                now = tokens.cpu().numpy()
+                nxt = batch[1]['tokens'].cpu().numpy()
+                facts['windows'].extend(
+                    (int(s), now[i].tobytes() + nxt[i].tobytes())
+                    for i, s in enumerate(steps))
+        facts['report'] = reader.audit().assert_complete()
+        facts['snapshot'] = reader.stats.snapshot()
+        facts['recoveries'] = list(getattr(reader._pool, 'recoveries', ()))
+    facts['seconds'] = time.perf_counter() - start
+    check(len(facts['losses']) == epochs * OBS_FILES
+          and all(math.isfinite(x) for x in facts['losses']),
+          '%s: %d steps, losses %s' % (label, len(facts['losses']),
+                                       facts['losses']))
+    for epoch in facts['report']['epochs'].values():
+        check(epoch['complete'] and not epoch['dup_items']
+              and not epoch['dropped_items'],
+              '%s: audit %s' % (label, epoch))
+    return facts
+
+
+def retry_runs(torch, url, step, device, args, specs):
+    """(a) The LM under ``transient-errors`` and ``truncated-reads``, then
+    clean: every window equals the clean run's bit for bit, the injector
+    fired, reads were retried and none failed for good."""
+    runs = {}
+    for name, spec in (('transient', specs['transient']),
+                       ('truncated', specs['truncated']), ('clean', None)):
+        label = 'resilience retry %s' % (spec or 'clean')
+        with chaos(spec) as injector:
+            facts = resilient_lm_run(torch, url, step, device, args, label,
+                                     io_readahead=RES_READAHEAD)
+            facts['injected'] = dict(injector.injected) if injector else {}
+        runs[name] = facts
+    clean = sorted(runs['clean']['windows'])
+    for name in ('transient', 'truncated'):
+        facts, spec = runs[name], specs[name]
+        snap = facts['snapshot']
+        check(sorted(facts['windows']) == clean,
+              'resilience retry %s: the windows differ from the clean run'
+              % spec)
+        check(sum(facts['injected'].values()) > 0 and snap['io_retries'] > 0
+              and snap['io_permanent_failures'] == 0,
+              'resilience retry %s: injected %s, io_retries %d, '
+              'io_permanent_failures %d' % (spec, facts['injected'],
+                                            snap['io_retries'],
+                                            snap['io_permanent_failures']))
+    for name in ('transient', 'truncated', 'clean'):
+        facts = runs[name]
+        snap = facts['snapshot']
+        log('resilience retry %s: %d steps, loss %.4f -> %.4f, %d windows '
+            '(== the clean run\'s bit for bit, keyed by step), injected %s, '
+            'io_retries %d, io_permanent_failures %d, audit complete (%d '
+            'epochs), steady step %.2f ms, run %.2f s [%s]'
+            % (specs.get(name, 'clean'), len(facts['losses']),
+               facts['losses'][0], facts['losses'][-1],
+               len(facts['windows']), json.dumps(facts['injected']),
+               snap['io_retries'], snap['io_permanent_failures'],
+               len(facts['report']['epochs']),
+               statistics.median(facts['times'][1:]) * 1e3,
+               facts['seconds'], CARD))
+    return runs
+
+
+def hedge_runs(torch, np, d, device, args, spec, rows):
+    """(b) The token store on 4 threads under ``read-hangs``, hedged and
+    not: rows equal the generator in both; hedges fired and won."""
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    url = 'file://' + os.path.join(d, 'token_rows')
+    tokens = write_token_rows(np, url, rows, 2049, 32000, args.seed)
+    saved = os.environ.get(DEVICE_DECODE_ENV_VAR)
+    out = {}
+    try:
+        for hedge in (RES_HEDGE_S, False):
+            label = 'resilience hedge=%s' % hedge
+            with chaos(spec) as injector:
+                start = time.perf_counter()
+                got = token_pass(torch, np, url, tokens, 'thread', 'on',
+                                 device, TOKEN_BATCH, label=label,
+                                 workers=RES_WORKERS, hedge=hedge)
+                wall = time.perf_counter() - start
+                out[hedge] = (got['diagnostics'], dict(injector.injected),
+                              wall, len(tokens) / got['rate'])
+    finally:
+        if saved is None:
+            os.environ.pop(DEVICE_DECODE_ENV_VAR, None)
+        else:
+            os.environ[DEVICE_DECODE_ENV_VAR] = saved
+    snap = out[RES_HEDGE_S][0]
+    check(snap['io_hedges'] > 0 and snap['io_hedge_wins'] > 0,
+          'resilience hedge: io_hedges %d, io_hedge_wins %d'
+          % (snap['io_hedges'], snap['io_hedge_wins']))
+    for hedge in (RES_HEDGE_S, False):
+        snap, injected, wall, pass_s = out[hedge]
+        log('resilience hedge=%s under %s: %d rows == generator, injected '
+            '%s, io_hedges %d, io_hedge_wins %d, io_hedge_losses %d; pass '
+            '%.3f s (reader open to last batch), wall %.3f s [%s]'
+            % (hedge, spec, len(tokens), json.dumps(injected),
+               snap['io_hedges'], snap['io_hedge_wins'],
+               snap['io_hedge_losses'], pass_s, wall, CARD))
+    return out
+
+
+def recovery_runs(torch, url, step, device, args, spec, clean):
+    """(c) The LM on 4 worker interpreters, one SIGKILLed after the first
+    batch, then under ``worker-kill``: respawned, the lost items sent
+    again, every window once, ``degraded`` naming ``worker-respawns``."""
+    from petastorm_tpu_torch.health import classify_pipeline
+    runs = {}
+    for name, spec_or_none, kill, epochs in (
+            ('sigkill', None, True, RES_KILL_EPOCHS),
+            ('worker-kill', spec, False, RES_KILL_EPOCHS)):
+        label = 'resilience recovery %s' % (spec_or_none or 'SIGKILL')
+        with chaos(spec_or_none):
+            facts = resilient_lm_run(torch, url, step, device, args, label,
+                                     epochs=epochs, pool='process',
+                                     kill=kill)
+        # each window of the store, once an epoch
+        once = sorted(clean)[::RES_EPOCHS] * epochs
+        snap = facts['snapshot']
+        verdict = classify_pipeline({}, snap)
+        check(snap['worker_respawns'] >= 1 and snap['items_redispatched'] >= 1,
+              '%s: worker_respawns %d, items_redispatched %d'
+              % (label, snap['worker_respawns'], snap['items_redispatched']))
+        check(sorted(facts['windows']) == sorted(once),
+              '%s: the windows are not the store\'s, each once an epoch'
+              % label)
+        check(verdict['state'] == 'degraded'
+              and any('worker-respawns' in c
+                      for c in verdict['degraded_causes']),
+              '%s: verdict %s' % (label, verdict))
+        episodes = facts['recoveries']
+        # an item sent again can die again with a later victim: it then
+        # counts for the later episode
+        redelivered = [e for e in episodes
+                       if e['first_redelivery'] is not None]
+        check(redelivered, '%s: recovery episodes %s' % (label, episodes))
+        first = redelivered[0]
+        origin = facts['killed_at'] if kill else first['began']
+        log('%s: %d steps, loss %.4f -> %.4f, %d windows (each once, == the '
+            'clean run\'s), audit complete; worker_respawns %d, '
+            'items_redispatched %d, exit codes %s; %.3f s from the %s to the '
+            'first redispatched delivery (detected after %.3f s, finalized '
+            'after %.3f s); verdict %s: %s; run %.2f s [%s]'
+            % (label, len(facts['losses']), facts['losses'][0],
+               facts['losses'][-1], len(facts['windows']),
+               snap['worker_respawns'], snap['items_redispatched'],
+               '%s in %d episode(s)' % (
+                   [c for e in episodes for c in e['codes']],
+                   len(episodes)),
+               first['first_redelivery'] - origin,
+               'kill' if kill else 'detected death',
+               first['began'] - origin, first['finalized'] - origin,
+               verdict['state'], '; '.join(verdict['degraded_causes']),
+               facts['seconds'], CARD))
+        runs[name] = facts
+    return runs
+
+
+def poisoned_png_run(torch, np, kernels, args, d, device, rows, batch, size):
+    """(d) The png store on 2 threads with a row transform that raises
+    ``SimulatedWorkerCrash`` on one row group's rows, under
+    ``worker_recovery=dict(poison_threshold=2, max_respawns=5)``, into
+    CNN steps on K4: the item is quarantined after 2 deaths, the others
+    arrive once."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_reader, prefetch_to_device)
+    from petastorm_tpu_torch.faultfs import SimulatedWorkerCrash
+    from petastorm_tpu_torch.health import classify_pipeline
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    label = 'resilience poison png'
+    path = os.path.join(d, 'images')
+    url = 'file://' + path
+    write_indexed_images(np, url, rows, args.seed)
+    sources = source_idx(path)
+    poisoned_group = sorted(sources)[RES_POISON_GROUP % len(sources)]
+    poisoned = {int(i) for i in sources[poisoned_group]}
+    want = sorted(set(range(rows)) - poisoned)
+
+    def crash_or_resize(row):
+        import cv2
+        if int(row['idx']) in poisoned:
+            raise SimulatedWorkerCrash('poison row %d' % row['idx'])
+        row['image'] = cv2.resize(row['image'], (size, size),
+                                  interpolation=cv2.INTER_AREA)
+        return row
+
+    spec = TransformSpec(crash_or_resize,
+                         edit_fields=[('image', np.uint8, (size, size, 3),
+                                       False)])
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    seen, losses = [], []
+    start = time.perf_counter()
+    with make_reader(url, schema_fields=['idx', 'image', 'label'],
+                     num_epochs=1, workers_count=2, seed=args.seed,
+                     transform_spec=spec,
+                     worker_recovery=RES_POISON) as reader:
+        loader = TorchDataLoader(reader, batch_size=batch, device=device)
+        batches = prefetch_to_device(iter(loader), size=2, device=device)
+        with contextlib.closing(batches):
+            for b in batches:
+                losses.append(float(step(b['image'], b['label'])))
+                seen.append(b['idx'].cpu())
+        report = reader.audit().assert_complete()
+        snap = reader.stats.snapshot()
+        records = reader.lineage.quarantines()
+    wall = time.perf_counter() - start
+    launches = dict(kernels.LAUNCHES)
+    seen = sorted(torch.cat(seen).numpy().tolist())
+    epoch = report['epochs'][0]
+    check(snap['poison_items_quarantined'] == 1
+          and snap['worker_respawns'] == 2,
+          '%s: poison_items_quarantined %d, worker_respawns %d'
+          % (label, snap['poison_items_quarantined'],
+             snap['worker_respawns']))
+    check(len(records) == 1 and records[0]['stage'] == 'worker-crash'
+          and (os.path.basename(records[0]['path']), records[0]['row_group'])
+          == (os.path.basename(poisoned_group[0]), poisoned_group[1])
+          and records[0]['rows'] == len(poisoned)
+          and len(epoch['quarantined_items']) == 1
+          and epoch['rows_quarantined'] == len(poisoned),
+          '%s: records %s, audit %s' % (label, records, epoch))
+    check(seen == want, '%s: %d images, not the %d clean ones once'
+          % (label, len(seen), len(want)))
+    check(all(math.isfinite(x) for x in losses), '%s: losses %s'
+          % (label, losses))
+    if device == 'cuda':
+        check(launches['normalize'] == len(losses),
+              '%s: K4 launched %d times in %d steps'
+              % (label, launches['normalize'], len(losses)))
+    verdict = classify_pipeline({}, snap)
+    log('%s: row group %s:%d (%d rows) killed its worker twice and was '
+        'quarantined (stage %s, %d rows), worker_respawns %d, '
+        'items_redispatched %d; %d other images each once into %d CNN steps '
+        'on K4 (loss %.4f -> %.4f); verdict %s: %s; run %.2f s [%s]'
+        % (label, os.path.basename(poisoned_group[0]), poisoned_group[1],
+           len(poisoned), records[0]['stage'], records[0]['rows'],
+           snap['worker_respawns'], snap['items_redispatched'], len(seen),
+           len(losses), losses[0], losses[-1], verdict['state'],
+           '; '.join(verdict['degraded_causes']), wall, CARD))
+    return launches
+
+
+def loud_failures(torch, np, url, d, args):
+    """(e) What recovery must not swallow: a removed data file raises
+    ``FileNotFoundError`` on its first attempt with no respawn; a kill
+    with ``worker_recovery=False`` raises JAX's ``RuntimeError``; a spent
+    budget raises within ``RES_LOUD_S``."""
+    import shutil
+    from petastorm_tpu_torch import TransformSpec, make_reader
+    from petastorm_tpu_torch.faultfs import SimulatedWorkerCrash
+    label = 'resilience loud'
+    gone = os.path.join(d, 'gone')
+    shutil.copytree(url[len('file://'):], gone)
+    reader = make_reader('file://' + gone, schema_fields=['step'],
+                         workers_count=1, shuffle_row_groups=False)
+    victim = reader.pieces[-1].path
+    os.remove(victim)
+    raised = None
+    start = time.perf_counter()
+    try:
+        with reader:
+            for _ in reader:
+                pass
+    except FileNotFoundError as e:
+        raised = e
+    snap = reader.stats.snapshot()
+    check(raised is not None and snap['io_permanent_failures'] == 1
+          and snap['io_retries'] == 0 and snap['worker_respawns'] == 0,
+          '%s: removed file raised %r, io_permanent_failures %d, io_retries '
+          '%d, worker_respawns %d' % (label, raised,
+                                      snap['io_permanent_failures'],
+                                      snap['io_retries'],
+                                      snap['worker_respawns']))
+    log('%s: removed %s raised %s in %.3f s on its first attempt '
+        '(io_permanent_failures 1, io_retries 0, worker_respawns 0)'
+        % (label, os.path.basename(victim), type(raised).__name__,
+           time.perf_counter() - start))
+    raised = None
+    start = time.perf_counter()
+    try:
+        with make_reader(url, schema_fields=['step'], workers_count=2,
+                         num_epochs=RES_LOUD_EPOCHS,
+                         reader_pool_type='process',
+                         worker_recovery=False) as reader:
+            iterator = iter(reader)
+            next(iterator)
+            victim = freeze(reader._pool._processes[0])
+            for _ in range(3 * OBS_ROWS_PER_FILE):
+                next(iterator)
+            victim.kill()
+            for _ in iterator:
+                pass
+    except RuntimeError as e:
+        raised = e
+    check(raised is not None and 'died with exit codes' in str(raised),
+          '%s: a kill without recovery raised %r' % (label, raised))
+    log('%s: SIGKILL with worker_recovery=False raised RuntimeError(%r) in '
+        '%.3f s' % (label, str(raised), time.perf_counter() - start))
+
+    def always_crash(row):
+        raise SimulatedWorkerCrash('every item crashes')
+
+    raised = None
+    start = time.perf_counter()
+    try:
+        with make_reader(url, schema_fields=['step'], workers_count=1,
+                         transform_spec=TransformSpec(always_crash),
+                         worker_recovery=RES_BUDGET) as reader:
+            for _ in reader:
+                check(time.perf_counter() - start < RES_LOUD_S,
+                      '%s: a spent budget ran on' % label)
+            snap = reader.stats.snapshot()
+    except SimulatedWorkerCrash as e:
+        raised = e
+        snap = reader.stats.snapshot()
+    took = time.perf_counter() - start
+    check(raised is not None and took < RES_LOUD_S
+          and snap['worker_respawns'] == RES_BUDGET['max_respawns'],
+          '%s: spent budget raised %r after %.3f s, worker_respawns %d'
+          % (label, raised, took, snap['worker_respawns']))
+    log('%s: a budget of %d respawns spent, the crash raised %s in %.3f s '
+        '(limit %.0f s)' % (label, RES_BUDGET['max_respawns'],
+                            type(raised).__name__, took, RES_LOUD_S))
+
+
+def retry_cost(torch, url, step, device, args):
+    """(f) The clean path's cost: the LM steady step (2 epochs, 4 threads)
+    with ``retry=False`` and with the default, in ``RES_COST_PAIRS`` pairs
+    in turns."""
+    steady = {False: [], True: []}
+    for n in range(RES_COST_PAIRS):
+        for retry in ((False, True) if n % 2 == 0 else (True, False)):
+            facts = resilient_lm_run(torch, url, step, device, args,
+                                     'resilience cost retry=%s' % retry,
+                                     retry=None if retry else False)
+            steady[retry].append(statistics.median(facts['times'][1:]))
+    off, on = steady[False], steady[True]
+    log('resilience cost LM steady step (median of steps 2-%d), %d pairs: '
+        'retry=False %s ms; default %s ms; default / off by means %.4f, by '
+        "medians %.4f; the off runs' spread %.4f (max / min) [%s]"
+        % (RES_EPOCHS * OBS_FILES, RES_COST_PAIRS,
+           ' '.join('%.3f' % (t * 1e3) for t in off),
+           ' '.join('%.3f' % (t * 1e3) for t in on),
+           statistics.mean(on) / statistics.mean(off),
+           statistics.median(on) / statistics.median(off),
+           max(off) / min(off), CARD))
+    return steady
+
+
+def resilience_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                    image_rows=IMAGE_ROWS, image_batch=IMAGE_BATCH,
+                    image_size=IMAGE_SIZE, token_rows=TOKEN_ROWS):
+    """Phase 20: resilience and the seeded fault injector on the card. (a)
+    retry under injected faults on the LM (K1-K3), (b) hedged reads of the
+    token store, (c) worker recovery on the process pool (K1-K3), (d) a
+    poison item on the png line (K4), (e) the loud failures, (f) the
+    clean path's cost. Returns the launch counts of the LM steps and of
+    the png steps."""
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    specs = chaos_specs(args.seed)
+    log('resilience scenarios (seeded from --seed %d): %s'
+        % (args.seed, json.dumps(specs)))
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'tokens')
+        write_store(np, url, cfg.max_seq_len, cfg.vocab_size,
+                    OBS_FILES * OBS_ROWS_PER_FILE, args.seed,
+                    rows_per_file=OBS_ROWS_PER_FILE)
+        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                          device=device)
+        _, step = tlm.make_train_step(cfg, params)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        phase = time.perf_counter()
+        retried = retry_runs(torch, url, step, device, args, specs)
+        log('resilience (a) retry %.1f s' % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        recovery_runs(torch, url, step, device, args, specs['kill'],
+                      retried['clean']['windows'])
+        log('resilience (c) recovery %.1f s' % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        retry_cost(torch, url, step, device, args)
+        log('resilience (f) cost %.1f s' % (time.perf_counter() - phase))
+        lm = dict(kernels.LAUNCHES)
+        runs = (3 * RES_EPOCHS + 2 * RES_KILL_EPOCHS
+                + 2 * RES_COST_PAIRS * RES_EPOCHS) * OBS_FILES
+        if device == 'cuda':
+            check(all(lm[k] == runs * cfg.n_layers for k in FLASH),
+                  'resilience LM launches %r for %d steps of %d layers'
+                  % (lm, runs, cfg.n_layers))
+        phase = time.perf_counter()
+        hedge_runs(torch, np, d, device, args, specs['hangs'], token_rows)
+        log('resilience (b) hedge %.1f s' % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        png = poisoned_png_run(torch, np, kernels, args, d, device,
+                               image_rows, image_batch, image_size)
+        log('resilience (d) poison png %.1f s' % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        loud_failures(torch, np, url, d, args)
+        log('resilience (e) loud failures %.1f s'
+            % (time.perf_counter() - phase))
+    log('resilience launches: LM %s (%d steps); png %s'
+        % (json.dumps(lm), runs, json.dumps(png)))
+    return lm, png
+
+
 def time_ms(torch, fn, reps):
     for _ in range(2):
         fn()
@@ -4571,6 +5111,18 @@ def main(argv=None):
     launches['normalize'] += tuned_png['normalize']
     log('phase autotune and roofline line %.1f s'
         % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    resilient_lm, resilient_png = resilience_line(torch, np, tlm, kernels,
+                                                  args)
+    check(all(resilient_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the resilience LM line: %r'
+          % resilient_lm)
+    check(resilient_png['normalize'] > 0,
+          'K4 was not launched on the poisoned png line')
+    for name in FLASH:
+        launches[name] += resilient_lm[name]
+    launches['normalize'] += resilient_png['normalize']
+    log('phase resilience line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -23,12 +23,18 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :class:`TorchDataLoader`, :func:`make_torch_loader`,
 :func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`,
 :class:`CoverageAuditor`, :class:`Provenance`, :class:`SharedRowGroupCache`,
-:class:`LatencyHistogram`, :class:`SLOMonitor`.
+:class:`LatencyHistogram`, :class:`SLOMonitor`, :class:`RetryPolicy`,
+:class:`HedgedRead`, :class:`FaultInjector`.
 
 The stats, latency and tracing planes: ``reader.stats``,
 ``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
 ``reader.slo`` (:mod:`petastorm_tpu_torch.workers.stats`,
 :mod:`petastorm_tpu_torch.latency`, :mod:`petastorm_tpu_torch.tracing`).
+
+Fault tolerance: the factories' ``retry`` (on), ``hedge`` (off) and
+``worker_recovery`` (on), and the seeded fault injector armed by
+``PETASTORM_TPU_CHAOS`` (:mod:`petastorm_tpu_torch.resilience`,
+:mod:`petastorm_tpu_torch.faultfs`).
 """
 
 __version__ = '0.1.0'
@@ -38,7 +44,8 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
            'flash_attention', 'normalize_images', 'CoverageAuditor',
            'Provenance', 'SharedRowGroupCache', 'LatencyHistogram',
-           'SLOMonitor', '__version__']
+           'SLOMonitor', 'RetryPolicy', 'HedgedRead', 'FaultInjector',
+           '__version__']
 
 
 def __getattr__(name):
@@ -71,6 +78,12 @@ def __getattr__(name):
     if name in ('LatencyHistogram', 'SLOMonitor'):
         from petastorm_tpu_torch import latency
         return getattr(latency, name)
+    if name in ('RetryPolicy', 'HedgedRead'):
+        from petastorm_tpu_torch import resilience
+        return getattr(resilience, name)
+    if name == 'FaultInjector':
+        from petastorm_tpu_torch.faultfs import FaultInjector
+        return FaultInjector
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

@@ -191,10 +191,16 @@ class NdarrayCodec(_Codec):
         """One binary chunk → ``(n, *shape)``. Fixed-shape columns whose
         cells share one ``np.save`` header (what :meth:`encode` writes)
         decode with one compare and one copy; anything else goes cell by
-        cell. Both give the same bytes."""
+        cell. Both give the same bytes. A chunk with null cells gives an
+        object array with ``None`` at the nulls."""
         fast = self._decode_uniform(field, chunk)
         if fast is not None:
             return fast
+        if chunk.null_count:
+            # an object array with None at the null cells, as JAX's
+            # ``_decode_cells``
+            return decode_cells(field, chunk,
+                                lambda cell: self.decode(field, cell))
         cells = [self.decode(field, v) for v in chunk.to_pylist()]
         shapes = {c.shape for c in cells}
         if len(shapes) == 1:

@@ -301,10 +301,12 @@ def bottleneck_signals(snapshot: dict) -> dict:
 def degradation_causes(snapshot: dict) -> List[str]:
     """Named fault-plane degradations evident in a stats snapshot: the
     pipeline delivers correct data, but something it relies on failed and
-    was routed around. Plain retries and hedges are not causes. The port
-    raises none of these counters before its resilience, object-store and
-    pod slices; the classification is whole, so a snapshot's verdict is
-    JAX's."""
+    was routed around. Plain retries and hedges are not causes. The
+    port's resilience raises ``worker_respawns``,
+    ``poison_items_quarantined`` and ``io_permanent_failures``, its shared
+    cache ``shared_put_failures``; the host and lease counters wait for
+    the pod slices. The classification is whole, so a snapshot's verdict
+    is JAX's."""
     causes = []
     n = snapshot.get('shared_put_failures', 0)
     if n:

@@ -4,8 +4,8 @@ coverage audit, replay, and bad-sample quarantine.
 The port's copy of ``petastorm_tpu/lineage.py`` (the constants :58-97,
 ``lineage_enabled`` … ``selection_offsets`` :99-201, ``LineageTracker``
 :204-416, ``CoverageAuditor`` :419-627, ``BatchProvenance`` :630-711,
-``make_quarantine_record`` :715-740, ``replay_records`` and ``replay``
-:773-918). It imports numpy and the standard library only: the process
+``make_quarantine_record`` :715-740, ``crash_quarantine_record``
+:743-768, ``replay_records`` and ``replay`` :773-918). It imports numpy and the standard library only: the process
 pool's worker interpreters import it.
 
 - **Provenance.** Every published item carries a :class:`Provenance`
@@ -34,9 +34,10 @@ turns all of it off.
 
 The ventilation timestamps (``record_vent_ts``, ``ventilated_ts``) feed
 the latency plane's ``e2e_batch``, and :meth:`LineageTracker.
-flight_summary` the health plane's flight records. Not ported yet:
-``crash_quarantine_record`` and ``LineageTracker.delivery_deficit`` (worker
-recovery, the resilience slice).
+flight_summary` the health plane's flight records. Worker recovery
+reads :meth:`LineageTracker.delivery_deficit` (was an item that died with
+its worker delivered?) and quarantines a poison item through
+:func:`crash_quarantine_record`.
 """
 
 from __future__ import annotations
@@ -330,6 +331,26 @@ class LineageTracker:
         with self._lock:
             records = list(self._quarantines)
         return records[-limit:] if limit else records
+
+    def delivery_deficit(self, epoch: int, piece_index: int,
+                         partition: tuple) -> Optional[int]:
+        """Ventilated minus accounted (delivered, or quarantined) for one
+        item key in one epoch: the pools' exactly-once guard after a worker
+        died. An outstanding item whose deficit is already ``<= 0`` was
+        delivered before its ``ITEM_DONE`` died with the worker, and must
+        not go out again. None when lineage is off or the epoch unknown:
+        the caller then redispatches (at least once)."""
+        if not self.enabled or piece_index is None:
+            return None
+        key = (int(piece_index), tuple(partition or (0, 1)))
+        with self._lock:
+            entry = self._epochs.get(int(epoch))
+            if entry is None:
+                return None
+            accounted = len(entry['delivered'].get(key, ()))
+            if entry['quarantined'].get(key):
+                accounted += 1
+            return entry['ventilated'].get(key, 0) - accounted
 
     def start_pass(self) -> None:
         """Mark a ``Reader.reset()``. Epoch numbers count on across passes
@@ -681,6 +702,31 @@ def make_quarantine_record(piece, piece_index: int, epoch: int,
     if row_offsets is not None:
         record['row_offsets'] = [int(o) for o in row_offsets]
     return record
+
+
+def crash_quarantine_record(tracker: LineageTracker, piece_index: int,
+                            epoch: int, partition: tuple,
+                            crash_count: int) -> dict:
+    """The quarantine record of a poison item, one that killed its worker
+    ``crash_count`` times: stage ``'worker-crash'``, so the audit reads the
+    item as quarantined, never as a silent drop. Its rows are the
+    partition's share of the row group by the ``np.array_split`` rule (the
+    first ``num_rows % n`` partitions carry one extra row)."""
+    import types
+    info = (tracker.pieces.get(int(piece_index)) if piece_index is not None
+            else None)
+    path, row_group, num_rows = info if info else ('<unknown>', -1, -1)
+    partition = tuple(partition or (0, 1))
+    k, n = int(partition[0]), max(1, int(partition[1]))
+    rows = num_rows if num_rows and num_rows > 0 else 1
+    if n > 1 and num_rows and num_rows > 0:
+        rows = num_rows // n + (1 if k < num_rows % n else 0)
+    piece = types.SimpleNamespace(path=path, row_group=row_group)
+    return make_quarantine_record(
+        piece, int(piece_index if piece_index is not None else -1),
+        int(epoch or 0), partition, tracker.shard, 'worker-crash',
+        RuntimeError('item killed {} worker(s); quarantined instead of '
+                     'crash-looping'.format(crash_count)), rows=rows)
 
 
 # -- replay -------------------------------------------------------------------

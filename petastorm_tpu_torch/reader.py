@@ -88,8 +88,14 @@ ventilation window and the results queue's bound live. Their gauges join
 ``/metrics``, ``/profile`` and ``/autotune`` serve them, and flight
 records carry their ``roofline`` and ``autotune`` sections.
 
-Not ported yet (each raises ``NotImplementedError``): resilience; remote
-object stores; JAX-process and elastic sharding.
+Fault tolerance (:mod:`petastorm_tpu_torch.resilience`, JAX :118-126,
+285-330, 405-408, 465-468, 519-523): ``retry`` (on by default), ``hedge``
+(off) and ``worker_recovery`` (on) are resolved in each factory, so a typo
+fails it; retry and hedge ride the worker spec as plain dicts, and
+recovery reaches the thread and process pools.
+
+Not ported yet (each raises ``NotImplementedError``): remote object
+stores; JAX-process and elastic sharding.
 """
 
 from __future__ import annotations
@@ -143,6 +149,8 @@ from petastorm_tpu_torch.readers.piece_worker import (PieceWorkerSpec,
 from petastorm_tpu_torch.readers.readahead import (AUTO_INITIAL_DEPTH,
                                                    AUTO_MAX_DEPTH)
 from petastorm_tpu_torch.readers.row_worker import load_row_item, plan_rows
+from petastorm_tpu_torch.resilience import (resolve_hedge, resolve_recovery,
+                                            resolve_retry)
 from petastorm_tpu_torch.tracing import MetricsEmitter, Tracer, resolve_trace
 from petastorm_tpu_torch.transform import (apply_columnar_transform,
                                            transform_schema)
@@ -161,7 +169,6 @@ logger = logging.getLogger(__name__)
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
 _UNPORTED = {name: later for later, names in (
-    ('resilience', ('retry', 'hedge', 'worker_recovery')),
     ('remote object stores', ('remote_read', 'storage_options')),
     ('multi-GPU sharding', ('shard_by_jax_process', 'elastic')))
     for name in names}
@@ -177,6 +184,14 @@ def _refuse_unported(factory, options):
         raise NotImplementedError(
             '{}({}=...) is not ported to petastorm_tpu_torch yet; it comes '
             'with the {} slice'.format(factory, name, _UNPORTED[name]))
+
+
+def _resolve_resilience(retry, hedge, worker_recovery):
+    """The three fault-tolerance knobs resolved where the factory is called
+    (a typo fails it, with JAX's error text): ``(retry, hedge, recovery)``
+    options as plain dicts, None for off."""
+    return (resolve_retry(retry), resolve_hedge(hedge),
+            resolve_recovery(worker_recovery))
 
 
 def _validate_io_readahead(io_readahead):
@@ -228,16 +243,22 @@ def _make_cache(cache_type, cache_location, cache_size_limit,
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size,
-               serializer, zmq_copy_buffers, profiling_enabled, tracer=None):
+               serializer, zmq_copy_buffers, profiling_enabled, tracer=None,
+               recovery=None):
+    """The reader's pool; ``recovery`` (resolved worker-recovery options,
+    None: off) reaches the thread and process pools, as in JAX (the dummy
+    pool runs items on the consumer's thread: a death there is the
+    caller's)."""
     if reader_pool_type == 'thread':
         return ThreadPool(workers_count, results_queue_size,
-                          profiling_enabled=profiling_enabled, tracer=tracer)
+                          profiling_enabled=profiling_enabled, tracer=tracer,
+                          recovery=recovery)
     if reader_pool_type == 'process':
         from petastorm_tpu_torch.workers.process_pool import ProcessPool
         return ProcessPool(workers_count, serializer=serializer,
                            zmq_copy_buffers=zmq_copy_buffers,
                            results_queue_size=results_queue_size,
-                           tracer=tracer)
+                           tracer=tracer, recovery=recovery)
     if reader_pool_type == 'dummy':
         return DummyPool(tracer=tracer)
     raise ValueError("reader_pool_type must be one of 'thread', 'process', "
@@ -309,7 +330,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 io_readahead=0, on_decode_error='raise', trace=None,
                 metrics_interval=0, metrics_out=None, slo=None,
                 debug_port=None, stall_timeout=0, flight_record_dir=None,
-                autotune=None, **unported):
+                autotune=None, retry=None, hedge=None, worker_recovery=None,
+                **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
@@ -395,9 +417,30 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     and ``device`` (CUDA by default). ``PETASTORM_TPU_AUTOTUNE=0`` turns it
     off whatever the kwarg says. :meth:`Reader.profile` and
     :meth:`Reader.explain_throughput` give the roofline verdict
-    (``PETASTORM_TPU_PROFILER=0`` turns them off)."""
+    (``PETASTORM_TPU_PROFILER=0`` turns them off).
+
+    Fault tolerance, JAX's knobs and defaults
+    (:mod:`~petastorm_tpu_torch.resilience`): ``retry`` (default on;
+    ``False`` off, or a dict of ``attempts``, ``initial_backoff_s``,
+    ``max_backoff_s``, ``total_budget_s``) retries transient storage errors
+    and truncated reads with full-jitter backoff under a total wall budget,
+    a permanent error failing on its first attempt; ``hedge`` (default off;
+    ``True`` for an adaptive threshold, a threshold in seconds, or a dict)
+    fires a second read of a row group when the first exceeds the threshold,
+    the first result winning; ``worker_recovery`` (default on; ``False``
+    off, or a dict of ``max_respawns``, ``poison_threshold``, ``settle_s``)
+    replaces a worker thread or interpreter that died and sends the items it
+    held out again, quarantining an item that killed ``poison_threshold``
+    workers. With lineage on an item goes out again only if it was not
+    delivered (exactly once); under ``PETASTORM_TPU_LINEAGE=0`` a process
+    worker that died between an item's payload and its accounting frame
+    gets that item sent again (at least once). ``PETASTORM_TPU_CHAOS``
+    (:mod:`~petastorm_tpu_torch.faultfs`) arms the seeded fault injector
+    under the workers' reads."""
     _refuse_unported('make_reader', unported)
     autotune = resolve_autotune(autotune)
+    retry, hedge, recovery = _resolve_resilience(retry, hedge,
+                                                 worker_recovery)
     path = _single_path('make_reader', dataset_url)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
@@ -405,7 +448,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
-                      profiling_enabled, tracer)
+                      profiling_enabled, tracer, recovery)
     return Reader(path, copy.deepcopy(schema_fields), mode=mode, pool=pool,
                   num_epochs=num_epochs,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
@@ -419,7 +462,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune)
+                  autotune_options=autotune, retry=retry, hedge=hedge)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -436,7 +479,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          on_decode_error='raise', trace=None,
                          metrics_interval=0, metrics_out=None, slo=None,
                          debug_port=None, stall_timeout=0,
-                         flight_record_dir=None, autotune=None, **unported):
+                         flight_record_dir=None, autotune=None, retry=None,
+                         hedge=None, worker_recovery=None, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
@@ -448,9 +492,12 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     in :func:`make_reader` (a policy other than ``'raise'`` declines device
     decode); a whole row group's columns are cached after the transform,
     so a hit skips the decode and the transform. NGram is not
-    supported."""
+    supported. ``retry``, ``hedge`` and ``worker_recovery`` as in
+    :func:`make_reader`."""
     _refuse_unported('make_columnar_reader', unported)
     autotune = resolve_autotune(autotune)
+    retry, hedge, recovery = _resolve_resilience(retry, hedge,
+                                                 worker_recovery)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
@@ -460,7 +507,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ZeroCopySerializer(), zmq_copy_buffers,
-                      profiling_enabled, tracer)
+                      profiling_enabled, tracer, recovery)
     return Reader(path, schema_fields, mode='columnar', pool=pool,
                   num_epochs=num_epochs, shuffle_row_groups=shuffle_row_groups,
                   seed=seed,
@@ -474,7 +521,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune)
+                  autotune_options=autotune, retry=retry, hedge=hedge)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -489,7 +536,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       on_decode_error='raise', trace=None,
                       metrics_interval=0, metrics_out=None, slo=None,
                       debug_port=None, stall_timeout=0,
-                      flight_record_dir=None, autotune=None, **unported):
+                      flight_record_dir=None, autotune=None, retry=None,
+                      hedge=None, worker_recovery=None, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -503,9 +551,12 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     readahead, the cache, lineage, ``on_decode_error``, the observability,
     health and autotune options as in :func:`make_reader` (a process pool
     sends each row group's table as one Arrow IPC stream; the shared cache
-    keeps it as one)."""
+    keeps it as one). ``retry``, ``hedge`` and ``worker_recovery`` as in
+    :func:`make_reader`."""
     _refuse_unported('make_batch_reader', unported)
     autotune = resolve_autotune(autotune)
+    retry, hedge, recovery = _resolve_resilience(retry, hedge,
+                                                 worker_recovery)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -517,7 +568,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     tracer, trace_export = _make_tracer(trace)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ArrowTableSerializer(), zmq_copy_buffers,
-                      profiling_enabled, tracer)
+                      profiling_enabled, tracer, recovery)
     return Reader(urls_to_path_or_paths(dataset_url_or_urls), schema_fields,
                   mode='batch', pool=pool, num_epochs=num_epochs,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
@@ -529,7 +580,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune)
+                  autotune_options=autotune, retry=retry, hedge=hedge)
 
 
 def _view(stored, schema_fields):
@@ -589,7 +640,8 @@ class Reader:
                  cache=None, io_readahead=0, on_decode_error='raise',
                  trace_export=None, metrics_interval=0, metrics_out=None,
                  slo=None, debug_port=None, stall_timeout=0,
-                 flight_record_dir=None, autotune_options=None):
+                 flight_record_dir=None, autotune_options=None, retry=None,
+                 hedge=None):
         if stall_timeout and stall_timeout < 0:
             raise ValueError('stall_timeout must be >= 0, got '
                              '{!r}'.format(stall_timeout))
@@ -823,7 +875,9 @@ class Reader:
             dataset=dataset, file_indexes=file_indexes,
             windows=ngram is not None, trace=tracer is not None,
             latency=latency_on, health=self.health.enabled,
-            readahead_controlled=autotune_active)
+            readahead_controlled=autotune_active,
+            # the factory's resolved options (None: off)
+            retry=retry, hedge=hedge)
         on_ventilate = None
         if self.lineage.enabled:
             # the ventilation ledger is the audit's expected side: what

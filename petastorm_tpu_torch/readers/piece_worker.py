@@ -54,7 +54,18 @@ Under the autotune controller (the spec's ``readahead_controlled``, JAX
 depth 0 when the reader started without one, whose depth only
 :meth:`PieceWorker.set_readahead_depth` moves.
 
-Resilience, ranged reads and pod observability are not ported yet.
+Resilience (JAX ``piece_worker.py:138-160, 278-279, 377-399, 405-495``):
+a worker reads through its filesystem, the host's own unless the chaos
+harness (``PETASTORM_TPU_CHAOS``, :func:`petastorm_tpu_torch.faultfs.
+maybe_wrap`) wraps it, and every row-group read, the readahead's included,
+runs under the spec's ``retry`` and ``hedge`` options
+(:class:`~petastorm_tpu_torch.resilience.ResilientIO`): under hedge each
+attempt opens a fresh handle, under retry alone the cached handle is
+dropped before each retry. The retry and hedge counters drain into the
+worker's counts at every read and at the readahead's take. With chaos
+unarmed a worker lets pyarrow open each file by path, as before.
+
+Ranged reads and pod observability (per-attempt spans) are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,11 +81,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import pyarrow.parquet as pq
 
+from petastorm_tpu_torch import faultfs
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.fs import LOCAL_FILESYSTEM
 from petastorm_tpu_torch.latency import LatencyDeltas
 from petastorm_tpu_torch.lineage import (NEVER_QUARANTINE, LineageEnvelope,
                                          Provenance, make_quarantine_record)
 from petastorm_tpu_torch.readers.readahead import RowGroupReadahead
+from petastorm_tpu_torch.resilience import ResilientIO
 
 #: Open Parquet files a worker keeps (per reading thread): many-file stores
 #: would otherwise hold a handle and a footer per file ever read.
@@ -143,6 +157,14 @@ class FileHandleCache:
             old.close()
         return handle
 
+    def invalidate(self, path: str) -> None:
+        """Close and drop the handle of ``path``: a handle that just failed
+        mid-read may be stuck mid-stream, so a retry reopens it."""
+        with self._lock:
+            handle = self._entries.pop(path, None)
+        if handle is not None:
+            handle.close()
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
@@ -156,6 +178,14 @@ class FileHandleCache:
             entries, self._entries = self._entries, OrderedDict()
         for handle in entries.values():
             handle.close()
+
+
+class _SourceParquetFile(pq.ParquetFile):
+    """A parquet handle over a file object it owns: closing the handle
+    closes the file (pyarrow leaves a file object it was given open)."""
+
+    def close(self, force: bool = False):
+        super().close(force=True)
 
 
 class PlainReads:
@@ -260,12 +290,18 @@ class PieceWorkerSpec:
     :param readahead_controlled: the autotune controller owns the readahead
         depth (JAX's worker arg): each worker has a readahead, dormant at
         ``io_readahead`` 0, and ``'auto'`` does not retune itself.
+    :param retry: the resolved retry options
+        (:func:`~petastorm_tpu_torch.resilience.resolve_retry`), a plain
+        dict, or None for no retry.
+    :param hedge: the resolved hedge options
+        (:func:`~petastorm_tpu_torch.resilience.resolve_hedge`), or None.
     """
 
     def __init__(self, load, plan, cache, io_readahead, key_format,
                  lineage=False, on_decode_error='raise', shard=-1,
                  dataset='', file_indexes=None, windows=False, trace=False,
-                 latency=False, health=True, readahead_controlled=False):
+                 latency=False, health=True, readahead_controlled=False,
+                 retry=None, hedge=None):
         self.load = load
         self.plan = plan
         self.cache = cache
@@ -281,6 +317,8 @@ class PieceWorkerSpec:
         self.latency = latency
         self.health = health
         self.readahead_controlled = readahead_controlled
+        self.retry = retry
+        self.hedge = hedge
 
     def make_worker(self, worker_id: int = 0) -> 'PieceWorker':
         return PieceWorker(self, worker_id)
@@ -292,7 +330,8 @@ class PieceWorkerSpec:
         return PieceWorkerSpec(self.load, self.plan, NullCache(), 0,
                                self.key_format,
                                on_decode_error=self.on_decode_error,
-                               health=False)
+                               health=False, retry=self.retry,
+                               hedge=self.hedge)
 
 
 class PieceWorker:
@@ -342,13 +381,21 @@ class PieceWorker:
         self.health_enabled = spec.health is not False
         self._entity = 'worker-{}'.format(worker_id)
         self._items_done = 0
-        self._files = FileHandleCache(pq.ParquetFile)
+        # chaos wraps the workers' filesystem only: reader construction
+        # (metadata, footers) stays clean
+        self._filesystem = faultfs.maybe_wrap(LOCAL_FILESYSTEM)
+        retry, hedge = getattr(spec, 'retry', None), getattr(spec, 'hedge',
+                                                             None)
+        #: retry and hedge under every read (None: both off)
+        self.resilience = (ResilientIO(retry, hedge) if retry or hedge
+                           else None)
+        self._files = FileHandleCache(self._open_parquet)
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
         self.readahead: Optional[RowGroupReadahead] = None
         controlled = getattr(spec, 'readahead_controlled', False)
         if spec.io_readahead or controlled:
-            self._prefetch_files = FileHandleCache(pq.ParquetFile)
+            self._prefetch_files = FileHandleCache(self._open_parquet)
             # the background thread beats its own entity: a wedged
             # prefetch read is the readahead's, not the worker's
             entity = 'readahead-{}'.format(worker_id)
@@ -611,24 +658,94 @@ class PieceWorker:
         prefetched it, else read here, timed as ``worker_io_s``. The entry
         beat ``io`` names a read that never returns."""
         self.beat('io')
-        if self.readahead is not None:
-            table = self.readahead.take(read_key(piece, columns))
-            self.readahead.drain_stats_into(self)
-            if table is not None:
-                return table
-        start = time.perf_counter()
-        table = self._files.get(piece.path).read_row_group(piece.row_group,
-                                                           columns=columns)
-        elapsed = time.perf_counter() - start
-        self.record_time('worker_io_s', elapsed)
-        self.record_span('parquet_read', 'io', start, elapsed,
-                         args={'row_group': piece.row_group})
-        return table
+        try:
+            if self.readahead is not None:
+                table = self.readahead.take(read_key(piece, columns))
+                self.readahead.drain_stats_into(self)
+                if table is not None:
+                    return table
+            start = time.perf_counter()
+            table = self._resilient_read(piece, columns)
+            elapsed = time.perf_counter() - start
+            self.record_time('worker_io_s', elapsed)
+            self.record_span('parquet_read', 'io', start, elapsed,
+                             args={'row_group': piece.row_group})
+            return table
+        finally:
+            self._drain_resilience_events()
+
+    def _open_parquet(self, path: str) -> pq.ParquetFile:
+        """A parquet handle of ``path``: pyarrow opens a local file by
+        path; a chaos-wrapped filesystem hands it a file object whose
+        reads the injector sees."""
+        if self._filesystem is LOCAL_FILESYSTEM:
+            return pq.ParquetFile(path)
+        source = self._filesystem.open(path, 'rb')
+        try:
+            return _SourceParquetFile(source)
+        except BaseException:
+            source.close()
+            raise
+
+    def _resilient_read(self, piece, columns: List[str]):
+        """One row-group read under the hedge (inner) and retry (outer)
+        layers. Under hedge every attempt opens a fresh handle on its own
+        thread, closed when it ends: an abandoned loser keeps reading until
+        its blocking call returns, and a handle must never serve two reads.
+        Under retry alone the cached handle serves, and is dropped before
+        each retry."""
+        resilience = self.resilience
+        if resilience is None:
+            return self._files.get(piece.path).read_row_group(
+                piece.row_group, columns=columns)
+        description = 'read_row_group({}:{})'.format(piece.path,
+                                                     piece.row_group)
+        if resilience.hedge is not None:
+            def fresh_read():
+                handle = self._open_parquet(piece.path)
+                try:
+                    return handle.read_row_group(piece.row_group,
+                                                 columns=columns)
+                finally:
+                    handle.close()
+            return resilience.read(fresh_read, description=description)
+
+        def cached_read():
+            return self._files.get(piece.path).read_row_group(
+                piece.row_group, columns=columns)
+
+        def reopen(_exc, _attempt):
+            self._files.invalidate(piece.path)
+        return resilience.read(cached_read, on_retry=reopen,
+                               description=description)
 
     def _readahead_read(self, piece, columns: List[str]):
-        # the background thread's handles, never the worker's
-        return self._prefetch_files.get(piece.path).read_row_group(
-            piece.row_group, columns=columns)
+        """The background thread's read, through its own handles, never the
+        worker's; retried under the worker's policy (a transient error must
+        not surface as a failed prefetch). Hedging stays on the worker's
+        own reads: the background read is already off its path."""
+        def read():
+            return self._prefetch_files.get(piece.path).read_row_group(
+                piece.row_group, columns=columns)
+        resilience = self.resilience
+        if resilience is None or resilience.retry is None:
+            return read()
+
+        def reopen(_exc, _attempt):
+            self._prefetch_files.invalidate(piece.path)
+        return resilience.retry.call(
+            read, on_retry=reopen, on_event=resilience._count,
+            description='readahead_read({}:{})'.format(piece.path,
+                                                       piece.row_group))
+
+    def _drain_resilience_events(self) -> None:
+        """The retry and hedge counters into this worker's counts (worker
+        thread only: the hedge and readahead threads count into the
+        resilience object's own locked dict)."""
+        if self.resilience is not None:
+            for name, n in self.resilience.take_events().items():
+                if n:
+                    self.record_count(name, n)
 
     @property
     def prefetch_lookahead(self) -> int:
@@ -670,7 +787,10 @@ class PieceWorker:
         """End the readahead, close the handles, and close the shared
         cache (flushing its counters; idempotent across threads).
         ``close_cache=False`` leaves the cache open: a thread worker retired
-        by a shrink shares it with the pool's other threads."""
+        by a shrink shares it with the pool's other threads. Hedge losers
+        still reading are waited for (bounded) before the handles close."""
+        if self.resilience is not None:
+            self.resilience.drain()
         if self.readahead is not None:
             self.readahead.stop()
         if self._prefetch_files is not None:

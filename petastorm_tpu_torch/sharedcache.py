@@ -25,11 +25,16 @@ refilled, never served. The byte format, the directory names and the kill
 switch are the JAX package's, so a root filled by either package serves
 the other.
 
+A publish that fails (``OSError``, a payload that does not serialize)
+serves the filled value as it is and counts ``shared_put_failures``; the
+``cache-enospc`` chaos scenario raises ``ENOSPC`` there (JAX
+``sharedcache.py:1156-1180``).
+
 Kill switch: ``PETASTORM_TPU_SHARED_CACHE=0`` makes ``cache_type='shared'``
 a :class:`~petastorm_tpu_torch.cache.NullCache`: no attachment, no files.
 
 Not ported yet: the pod tier (``peers``, the peer fetch and server) comes
-with remote object stores and resilience, ``take_spans`` and
+with remote object stores, ``take_spans`` and
 ``take_latency`` with tracing.
 """
 
@@ -51,6 +56,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.cache import CacheBase
+from petastorm_tpu_torch.faultfs import maybe_inject_cache_fault
 
 logger = logging.getLogger(__name__)
 
@@ -813,6 +819,9 @@ class SharedRowGroupCache(CacheBase):
         value = fill_cache_func()
         self._record(hit=False)
         try:
+            # the cache-enospc chaos scenario raises here, taking the route
+            # a full /dev/shm or spill disk takes
+            maybe_inject_cache_fault(digest)
             kind, frames = _serialize_payload(value)
             self._mem.put(digest, kind, frames)
             with self._lock:

@@ -84,9 +84,38 @@ once; a quiesce that times out aborts the shrink with the count
 unchanged. :meth:`ProcessPool.set_readahead_depth` broadcasts
 ``(SET_READAHEAD, depth)`` on the control socket.
 
+Worker auto-recovery (JAX :121-140, :579-760), with ``recovery`` the
+options of :func:`~petastorm_tpu_torch.resilience.resolve_recovery`: each
+item goes out as ``(seq, item)`` and stays in an outstanding map until its
+``ITEM_DONE`` (which carries the seq) comes back. A dead interpreter (a
+non-zero exit: SIGKILL, or a worker that raised an injected
+:class:`~petastorm_tpu_torch.faultfs.SimulatedWorkerCrash`, which exits
+non-zero and sends no ``TERMINATED``) begins a recovery episode on the
+consumer's thread: the ventilation pauses, the dead worker's heartbeats are
+dropped and a replacement starts under a fresh worker id (a shrink waits
+for its start frame, as for a grow's). The episode ends once every
+replacement reported in, no item completed for the settle window
+(``settle_s``, at least 1.25 heartbeat intervals with heartbeats on) and
+every surviving worker beats an idle stage: what is still outstanding then
+died with the worker. Each such item counts one crash; repeat offenders go
+out last; one whose lineage ledger shows it delivered
+(:meth:`~petastorm_tpu_torch.lineage.LineageTracker.delivery_deficit`: its
+payload arrived, its ``ITEM_DONE`` died) is only accounted, one at
+``poison_threshold`` crashes is quarantined, the rest go out again
+(``items_redispatched``); then the ventilation resumes. Payload and
+``ITEM_DONE`` frames are not taken as ordered: delivery is read from the
+lineage ledger alone, so with lineage off an item goes out again even if
+its payload arrived (at least once). Respawns are bounded by
+``max_respawns`` (``max(3, workers_count)`` when None); beyond it, or with
+recovery off, a death stops the pool with ``RuntimeError`` naming the exit
+codes. The liveness check runs at least every
+:data:`_LIVENESS_CHECK_S` while the consumer drains, and
+:attr:`ProcessPool.recoveries` records each episode (the dead, their exit
+codes, when it began and ended, and when the first item sent again came
+back).
+
 Workers are interpreters started by :func:`exec_in_new_process`: they see
-no GPU and import neither torch nor jax. Recovery (resilience) comes with
-its own slice.
+no GPU and import neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -142,6 +171,10 @@ HEARTBEAT_INTERVAL_S = 2.0
 #: Below this payload size the worker lets ZMQ copy at send time.
 _ZMQ_NOCOPY_SEND_THRESHOLD = 64 * 1024
 
+#: The longest the consumer goes between liveness checks (and recovery
+#: steps) while results keep arriving.
+_LIVENESS_CHECK_S = 0.25
+
 
 class _WorkerError:
     def __init__(self, exc, formatted):
@@ -193,10 +226,31 @@ class ProcessPool:
 
     def __init__(self, workers_count: int, serializer=None,
                  zmq_copy_buffers: bool = True,
-                 results_queue_size: int = 50, tracer=None):
+                 results_queue_size: int = 50, tracer=None,
+                 recovery: Optional[dict] = None):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1')
         self.stats = ReaderStats()
+        # worker auto-recovery: the options (None: off); seq -> item of
+        # every item sent and not yet accounted; the respawns used; each
+        # item key's crash count; the live episode (None: none)
+        self._recovery = recovery
+        self._outstanding = {}
+        self._next_seq = 0
+        self._respawns_used = 0
+        self._crash_counts = {}
+        self._recovering = None
+        #: one record a recovery episode, on ``time.monotonic()``: the dead
+        #: worker ids and exit codes, when it began and finalized, the
+        #: items sent again and when the first of them came back
+        self.recoveries: List[dict] = []
+        self._awaiting_redelivery = {}      # seq -> its episode's record
+        self._hb_enabled = True
+        self._last_alive_check = time.monotonic()
+        # the work socket's sends: the ventilator's, a redispatch's (the
+        # consumer's thread) and a shrink's markers (ZMQ sockets are not
+        # thread-safe)
+        self._send_lock = threading.Lock()
         #: the reader's tracer (None: no tracing)
         self.tracer = tracer
         self._zmq = _import_zmq()
@@ -271,6 +325,7 @@ class ProcessPool:
         addresses = ['{}:{}'.format(_LOCALHOST, port)
                      for port in (work_port, control_port, results_port)]
         self._spawn_args = (process, addresses)
+        self._hb_enabled = getattr(process, 'health', True) is not False
         for worker_id in range(self._workers_count):
             self._spawn(worker_id)
 
@@ -296,16 +351,18 @@ class ProcessPool:
                                    or 2 * self._workers_count)
         self._launch(num_epochs)
 
-    def _spawn(self, worker_id: int) -> None:
+    def _spawn(self, worker_id: int, replacement: bool = False) -> None:
         """Start one worker interpreter through the bootstrap; after a live
-        :meth:`set_readahead_depth` it starts at that depth."""
+        :meth:`set_readahead_depth` it starts at that depth. A
+        ``replacement`` of a dead worker has its ``worker-kill`` chaos
+        kills spent (:func:`~petastorm_tpu_torch.faultfs.mark_replacement`)."""
         process, addresses = self._spawn_args
         if self._readahead_override is not None:
             process = with_readahead_depth(process, self._readahead_override)
         proc = exec_in_new_process(
             _worker_bootstrap,
             args=(process, self._serializer, *addresses, os.getpid(),
-                  self._hwm, worker_id))
+                  self._hwm, worker_id, replacement))
         with self._lock:
             # copy on write: _check_workers_alive iterates the list it took
             self._processes = self._processes + [proc]
@@ -379,7 +436,7 @@ class ProcessPool:
                 time.sleep(0.02)
             target = self._workers_count - k
             for _ in range(k):
-                self._work_sender.send_pyobj(_RETIRE)
+                self._send_work(_RETIRE)
             # the acks arrive while the consumer drains; a stopping pool
             # counts them in stop()
             while time.monotonic() < deadline and not self._stopped:
@@ -459,10 +516,29 @@ class ProcessPool:
                     return
                 with self._lock:
                     self._ventilated += 1
-                self._work_sender.send_pyobj(item)
+                    seq = self._next_seq
+                    self._next_seq += 1
+                    self._outstanding[seq] = item
+                if not self._send_work((seq, item)):
+                    return
         finally:
             self._ventilation_done = True
             job.beat('done')
+
+    def _send_work(self, message) -> bool:
+        """Send ``message`` on the work socket; False once the pool stops.
+        PUSH blocks while no worker is connected (every one dead, or gone
+        at a stop), so the send polls the stop flag instead of blocking."""
+        zmq = self._zmq
+        while not self._stop.is_set():
+            with self._send_lock:
+                try:
+                    self._work_sender.send_pyobj(message, flags=zmq.NOBLOCK)
+                    return True
+                except zmq.Again:
+                    pass
+            time.sleep(0.005)
+        return False
 
     def _recv(self):
         """One ``[meta, control, buf0..bufN]`` message as ``(payload frames,
@@ -500,8 +576,12 @@ class ProcessPool:
             stats.add_time('queue_wait_s', now - wait_start)
             with self._hb_lock:
                 self._last_drain = now
-            if not ready:
+            if (not ready or time.monotonic() - self._last_alive_check
+                    >= _LIVENESS_CHECK_S):
+                self._last_alive_check = time.monotonic()
                 self._check_workers_alive()
+                self._maybe_finalize_recovery()
+            if not ready:
                 continue
             payload, control = self._recv()
             if isinstance(control, _WorkerHeartbeat):
@@ -515,6 +595,12 @@ class ProcessPool:
                 with self._lock:
                     self._processed += 1
                     in_flight = self._ventilated - self._processed
+                    seq = (extra or {}).get('seq')
+                    self._outstanding.pop(seq, None)
+                    episode = self._awaiting_redelivery.pop(seq, None)
+                if episode is not None and episode['first_redelivery'] is None:
+                    episode['first_redelivery'] = time.monotonic()
+                self._note_recovery_progress()
                 self._job.processed_item()
                 stats.gauge('queue_depth', in_flight)
                 continue
@@ -525,6 +611,7 @@ class ProcessPool:
                 self.stop()
                 raise _with_traceback(control)
             if control == _DATA:
+                self._note_recovery_progress()
                 with self._lock:
                     self._produced += 1
                 copies_before = getattr(self._serializer, 'copies', 0)
@@ -552,9 +639,12 @@ class ProcessPool:
                     result = LineageEnvelope(result, extra)
                 return result
             if control == _STARTED:
-                # a grown worker reported in (its id rides the frame)
+                # a grown or replacement worker reported in (its id rides
+                # the frame)
                 with self._lock:
                     self._started_ids.add(extra)
+                if self._recovering is not None:
+                    self._recovering['awaiting_start'].discard(extra)
             # a late _TERMINATED: nothing to do
 
     def _merge_heartbeats(self, records) -> None:
@@ -620,6 +710,10 @@ class ProcessPool:
         return out
 
     def _check_workers_alive(self):
+        """A dead interpreter (non-zero exit) begins a recovery episode
+        while recovery is on and its budget lasts; otherwise the pool stops
+        and ``RuntimeError`` names the exit codes. A death during start-up
+        is always loud."""
         dead_procs = [p for p in self._processes if p.poll() not in (None, 0)]
         dead = [p.returncode for p in dead_procs]
         if dead_procs:
@@ -630,11 +724,176 @@ class ProcessPool:
                     entity: record
                     for entity, record in self._heartbeats.items()
                     if record.get('pid') not in dead_pids}
-        if dead and not self._stopped:
-            self.stop()
-            self.join()
-            raise RuntimeError('Worker process(es) died with exit codes {}'
-                               .format(dead))
+        if not dead or self._stopped:
+            return
+        recovery = self._recovery
+        if recovery is not None and self._job is not None:
+            budget = recovery.get('max_respawns')
+            if budget is None:
+                budget = max(3, self._workers_count)
+            if self._respawns_used + len(dead) <= budget:
+                self._begin_recovery(dead_procs, dead)
+                return
+            logger.error('worker respawn budget exhausted (%d used, %d '
+                         'dead, budget %d): stopping the pool',
+                         self._respawns_used, len(dead), budget)
+        with self._lock:
+            # the dead send no TERMINATED: the stop waits for the living
+            self._processes = [p for p in self._processes
+                               if p not in dead_procs]
+        self.stop()
+        self.join()
+        raise RuntimeError('Worker process(es) died with exit codes {}'
+                           .format(dead))
+
+    # -- worker auto-recovery ------------------------------------------------
+
+    def _begin_recovery(self, dead_procs, codes) -> None:
+        """One recovery episode's start, on the consumer's thread: the dead
+        interpreters leave the pool, the ventilation pauses, and a
+        replacement starts for each under a fresh worker id. Results keep
+        flowing meanwhile; :meth:`_maybe_finalize_recovery` ends it."""
+        with self._lock:
+            dead_ids = [wid for wid, proc in self._procs_by_id.items()
+                        if proc in dead_procs]
+            self._processes = [p for p in self._processes
+                               if p not in dead_procs]
+            for wid in dead_ids:
+                self._procs_by_id.pop(wid, None)
+        logger.warning('worker process(es) %s died with exit codes %s; '
+                       'respawning and re-ventilating their in-flight items',
+                       dead_ids, codes)
+        if self._recovering is None:
+            self._job.pause()
+        replacements = set()
+        for _ in dead_procs:
+            with self._lock:
+                worker_id = self._next_worker_id
+                self._next_worker_id += 1
+            self._spawn(worker_id, replacement=True)
+            replacements.add(worker_id)
+        self._respawns_used += len(dead_procs)
+        self.stats.add('worker_respawns', len(dead_procs))
+        now = time.monotonic()
+        if self._recovering is not None:
+            # a replacement died while the episode settled: fold it in
+            self._recovering['awaiting_start'] |= replacements
+            self._recovering['last_progress'] = now
+            self.recoveries[-1]['dead'] += dead_ids
+            self.recoveries[-1]['codes'] += list(codes)
+        else:
+            self._recovering = {'awaiting_start': replacements,
+                                'last_progress': now}
+            self.recoveries.append({'dead': dead_ids, 'codes': list(codes),
+                                    'began': now, 'finalized': None,
+                                    'redispatched': 0,
+                                    'first_redelivery': None})
+
+    def _note_recovery_progress(self) -> None:
+        if self._recovering is not None:
+            self._recovering['last_progress'] = time.monotonic()
+
+    def _maybe_finalize_recovery(self) -> None:
+        """End the episode once every replacement reported in, no item
+        completed for the settle window and every surviving worker beats an
+        idle stage: the items still outstanding died with the dead
+        workers. A survivor that starts an item beats a busy stage, seen at
+        most one heartbeat interval late, so with the window at least 1.25
+        intervals an item a survivor holds always blocks the end."""
+        recovering = self._recovering
+        if recovering is None or self._stopped:
+            return
+        if recovering['awaiting_start']:
+            return
+        settle_s = (self._recovery or {}).get('settle_s', 1.0)
+        if self._hb_enabled:
+            settle_s = max(settle_s, 1.25 * HEARTBEAT_INTERVAL_S)
+        if time.monotonic() - recovering['last_progress'] < settle_s:
+            return
+        if self._hb_enabled:
+            from petastorm_tpu_torch.health import IDLE_STAGES
+            with self._hb_lock:
+                records = dict(self._heartbeats)
+            for entity, record in records.items():
+                if (entity.startswith('worker-')
+                        and record.get('stage') not in IDLE_STAGES):
+                    return          # a survivor is mid-item: wait on
+        self._recovering = None
+        self._finalize_recovery()
+
+    @staticmethod
+    def _item_key(seq, item):
+        """An item's identity across epochs (the poison count's key):
+        ``(piece_index, drop_partition)`` of a work item, its seq
+        otherwise (a count then spans one dispatch)."""
+        piece_index = getattr(item, 'piece_index', -1)
+        if piece_index is None or piece_index < 0:
+            return ('seq', seq)
+        return (piece_index, tuple(item.drop_partition or (0, 1)))
+
+    def _synthesize_processed(self, seq) -> None:
+        """Account an outstanding item without sending it again (it was
+        delivered, or is quarantined): the ``ITEM_DONE`` the dead worker
+        never sent."""
+        with self._lock:
+            self._processed += 1
+            self._outstanding.pop(seq, None)
+        self._job.processed_item()
+
+    def _finalize_recovery(self) -> None:
+        from petastorm_tpu_torch.lineage import crash_quarantine_record
+        with self._lock:
+            lost = sorted(self._outstanding.items(), key=lambda kv: kv[0])
+        poison_threshold = (self._recovery or {}).get('poison_threshold', 3)
+        tracker = (self.lineage if self.lineage is not None
+                   and self.lineage.enabled else None)
+        plan = []
+        for seq, item in lost:
+            key = self._item_key(seq, item)
+            count = self._crash_counts.get(key, 0) + 1
+            self._crash_counts[key] = count
+            plan.append((count, seq, item, key))
+        redispatched = 0
+        episode = self.recoveries[-1]
+        episode['finalized'] = time.monotonic()
+        # repeat offenders go last: the innocents lost with a poison item
+        # complete before it can kill again
+        for count, seq, item, key in sorted(plan, key=lambda e: (e[0],
+                                                                  e[1])):
+            piece_index = getattr(item, 'piece_index', None)
+            epoch = getattr(item, 'epoch', 0)
+            partition = getattr(item, 'drop_partition', (0, 1))
+            deficit = (tracker.delivery_deficit(epoch, piece_index,
+                                                partition)
+                       if tracker is not None and piece_index is not None
+                       and piece_index >= 0 else None)
+            if deficit is not None and deficit <= 0:
+                # its payload arrived before its ITEM_DONE died: sending it
+                # again would be the duplicate the audit catches
+                self._synthesize_processed(seq)
+                continue
+            if count >= poison_threshold:
+                logger.error('poison item %s killed %d worker(s); '
+                             'quarantining it instead of crash-looping', key,
+                             count)
+                if tracker is not None and piece_index is not None \
+                        and piece_index >= 0:
+                    tracker.add_quarantines([crash_quarantine_record(
+                        tracker, piece_index, epoch, partition, count)])
+                self.stats.add('poison_items_quarantined')
+                self._synthesize_processed(seq)
+                continue
+            with self._lock:
+                self._awaiting_redelivery[seq] = episode
+            if not self._send_work((seq, item)):
+                return
+            redispatched += 1
+        episode['redispatched'] = redispatched
+        if redispatched:
+            self.stats.add('items_redispatched', redispatched)
+            logger.warning('re-ventilated %d in-flight item(s) lost with '
+                           'crashed worker(s)', redispatched)
+        self._job.resume()
 
     def reset(self, num_epochs: Optional[int] = 1) -> None:
         """Ventilate the items for ``num_epochs`` more epochs, the shuffle
@@ -709,9 +968,14 @@ def _nbytes(frame) -> int:
 
 
 def _worker_bootstrap(process, serializer, work_addr, control_addr,
-                      results_addr, parent_pid, hwm, worker_id=0):
+                      results_addr, parent_pid, hwm, worker_id=0,
+                      replacement=False):
     """Entry point of a worker interpreter: serve items until FINISHED."""
     import zmq
+
+    if replacement:
+        from petastorm_tpu_torch import faultfs
+        faultfs.mark_replacement()
 
     def monitor_parent():
         while True:
@@ -845,6 +1109,7 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
     poller.register(control_receiver, zmq.POLLIN)
     pending = deque()
     retiring = False
+    crashed = False
 
     def is_retire(entry):
         return isinstance(entry, str) and entry == _RETIRE
@@ -892,8 +1157,8 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             if not pending:
                 continue
             if hint is not None:
-                hint(list(pending))
-            work = pending.popleft()
+                hint([entry[1] for entry in pending])
+            seq, work = pending.popleft()
             if beat is not None:
                 beat('processing')
             item['serialize_s'] = item['publish_wait_s'] = 0.0
@@ -903,6 +1168,15 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
                 result = worker(work)
             except Exception as e:     # shipped to the consumer
                 send_error(e)
+            except BaseException as e:
+                # a death (an injected SimulatedWorkerCrash): the
+                # interpreter exits non-zero, without a TERMINATED frame,
+                # and the parent's liveness check sees it
+                crashed = True
+                if isinstance(e, SystemExit) and not e.code:
+                    raise SystemExit('worker {} died of {}'.format(
+                        worker_id, type(e).__name__)) from e
+                raise
             else:
                 if isinstance(result, LineageEnvelope):
                     # the record rides the control frame: the serializer
@@ -914,6 +1188,7 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
             if item_done is not None:
                 item_done()
             done = item_stats(start, elapsed, copies_before)
+            done['seq'] = seq
             if hb_snapshot is not None:
                 done['heartbeats'] = hb_snapshot()
             send([b''], (_ITEM_DONE, done))
@@ -928,9 +1203,9 @@ def _worker_bootstrap(process, serializer, work_addr, control_addr,
         if hb_thread is not None:
             hb_thread.join(timeout=5)
         shutdown_worker(worker)
-        if not retiring:
+        if not retiring and not crashed:
             # a retiree acked already: a second frame would let stop()
-            # count it twice
+            # count it twice; a dead worker is out of the pool already
             send([b''], _TERMINATED)
         for sock in (work_receiver, control_receiver, results_sender):
             sock.close(linger=1000)

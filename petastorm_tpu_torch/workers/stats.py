@@ -3,9 +3,12 @@
 The port's copy of ``petastorm_tpu/workers/stats.py``: the same stage,
 counter and gauge names (:data:`TIME_STAGES`, :data:`COUNTERS`,
 :data:`GAUGES`, :data:`DERIVED`), so :func:`stage_keys` is the same tuple
-and one scrape configuration reads both packages. Counters whose producers
-come with later slices of the port (``io_*``, ``worker_respawns``,
-``hosts_*`` and the like) stay in the tuples at 0.
+and one scrape configuration reads both packages. The resilience counters
+(``io_retries``, ``io_hedges``, ``io_hedge_wins``, ``io_hedge_losses``,
+``io_permanent_failures``, ``worker_respawns``, ``items_redispatched``,
+``poison_items_quarantined``) come from the workers' reads and the pools'
+recovery; those whose producers come with later slices of the port
+(``hosts_*``, ranged reads and the like) stay in the tuples at 0.
 
 One :class:`ReaderStats` lives on each pool (``pool.stats``) and is read
 through ``Reader.stats`` and ``Reader.diagnostics``. Worker times, counts,

@@ -59,6 +59,24 @@ worker beats ``processing`` before each item, ``backpressured`` while its
 result waits on a full queue and ``processing`` again when it goes in,
 ``idle`` once the item is published (``item_done``) and ``stopped`` at its
 end. :meth:`ThreadPool.heartbeats` reads the workers' records live.
+
+Worker auto-recovery (JAX ``thread_pool.py:128-170, 218-225, 386-480``),
+with ``recovery`` the options of
+:func:`~petastorm_tpu_torch.resilience.resolve_recovery`: a worker thread
+killed by a ``BaseException`` (an injected
+:class:`~petastorm_tpu_torch.faultfs.SimulatedWorkerCrash`) or by a
+transient ``OSError`` that escaped the retry budget is replaced by a new
+worker under a fresh worker id, counted as serving the pass in its place
+(it takes the end marker the dead thread never took), and the items it
+held go back on the item queue ahead of the end markers, the pending FIFO
+first and the item it was running last. Only that item counts a crash:
+at ``poison_threshold`` crashes it is quarantined through the lineage
+channel (stage ``'worker-crash'``) instead of going out again. Respawns
+are bounded by ``max_respawns`` (``max(3, workers_count)`` when None);
+with recovery off, the budget spent or the pool stopping, the death ships
+to the consumer, which raises it. A permanent ``OSError`` and
+``MemoryError`` always ship: recovery must not turn a deleted file into a
+quarantine.
 """
 
 from __future__ import annotations
@@ -78,6 +96,7 @@ import numpy as np
 from petastorm_tpu_torch.readers.piece_worker import (make_worker,
                                                       shutdown_worker,
                                                       with_readahead_depth)
+from petastorm_tpu_torch.resilience import TRANSIENT, classify_error
 from petastorm_tpu_torch.workers.stats import (ReaderStats,
                                                finalize_item_times)
 
@@ -141,8 +160,9 @@ class VentilationJob:
     at most ``max_in_flight`` items ventilated and not yet processed
     (None: no bound), counted by a condition and a counter rather than a
     semaphore, so the autotune controller can move the bound both ways
-    live (:meth:`set_max_in_flight`) and a process pool's shrink can
-    quiesce ventilation (:meth:`pause`, :meth:`resume`)."""
+    live (:meth:`set_max_in_flight`) and a process pool's shrink or
+    recovery can quiesce ventilation (:meth:`pause`, :meth:`resume`, which
+    nest: the ventilation stays paused until every pause is resumed)."""
 
     def __init__(self, items: List, shuffle: bool, seed, on_ventilate=None,
                  heartbeat=None, max_in_flight: Optional[int] = None):
@@ -154,7 +174,7 @@ class VentilationJob:
         self.next_epoch = 0
         self._max_in_flight = max_in_flight
         self._in_flight = 0
-        self._paused = False
+        self._paused = 0
         self._slot_cv = threading.Condition()
 
     def beat(self, stage: str) -> None:
@@ -207,14 +227,15 @@ class VentilationJob:
 
     def pause(self) -> None:
         """Admit no new item (those in flight complete): the quiesce of a
-        process pool's shrink. Idempotent."""
+        process pool's shrink, and of a recovery episode. Each pause needs
+        its own :meth:`resume`."""
         with self._slot_cv:
-            self._paused = True
+            self._paused += 1
 
     def resume(self) -> None:
-        """Undo :meth:`pause`, waking the ventilator at once."""
+        """Undo one :meth:`pause`; the last wakes the ventilator at once."""
         with self._slot_cv:
-            self._paused = False
+            self._paused = max(0, self._paused - 1)
             self._slot_cv.notify_all()
 
     @property
@@ -289,10 +310,16 @@ class ThreadPool:
     supports_prefetch_hints = True
 
     def __init__(self, workers_count: int, results_queue_size: int = 50,
-                 profiling_enabled: bool = False, tracer=None):
+                 profiling_enabled: bool = False, tracer=None,
+                 recovery: Optional[dict] = None):
         if workers_count < 1:
             raise ValueError('workers_count must be >= 1')
         self.stats = ReaderStats()
+        # worker auto-recovery: the options (None: off), the respawns used
+        # and each item key's crash count
+        self._recovery = recovery
+        self._respawns_used = 0
+        self._crash_counts = {}
         #: the reader's tracer (None: no tracing)
         self.tracer = tracer
         self._workers_count = workers_count
@@ -502,11 +529,24 @@ class ThreadPool:
             try:
                 result = worker(item)
                 drain_lineage(worker, self.lineage)
-            except Exception as e:     # re-raised in the consumer
+            except BaseException as e:
+                # a death (a BaseException, or a transient OSError that
+                # escaped the retry budget) goes to recovery; anything else,
+                # or a death recovery declines, is re-raised in the consumer
+                crash = (not isinstance(e, Exception)
+                         or (isinstance(e, OSError)
+                             and classify_error(e) == TRANSIENT))
+                # what the failed attempt counted (retries, a permanent
+                # read failure) is merged all the same
+                merge_worker_stats(self.stats, self.tracer, worker, start,
+                                   time.perf_counter() - start)
+                if crash and self._handle_worker_crash(worker, item, pending,
+                                                       retire, e):
+                    return None
+                self._job.processed_item()
                 self._publish(('error', e))
                 return None
-            finally:
-                self._job.processed_item()
+            self._job.processed_item()
             merge_worker_stats(self.stats, self.tracer, worker, start,
                                time.perf_counter() - start)
             publish_start = time.perf_counter()
@@ -536,6 +576,105 @@ class ThreadPool:
                 self._retiring.remove(request)
         request.done.set()
         self._publish(_DONE)
+
+    # -- worker auto-recovery ------------------------------------------------
+
+    @staticmethod
+    def _item_key(item):
+        """An item's identity across epochs and redispatches (the poison
+        count's key): ``(piece_index, drop_partition)`` of a work item, its
+        repr otherwise."""
+        piece_index = getattr(item, 'piece_index', -1)
+        if not isinstance(item, WorkItem) or piece_index < 0:
+            return ('raw', repr(item)[:200])
+        return (piece_index, tuple(item.drop_partition or (0, 1)))
+
+    def _quarantine_poison(self, item, crash_count: int) -> None:
+        from petastorm_tpu_torch.lineage import crash_quarantine_record
+        logger.error('poison item %s killed %d worker(s); quarantining it '
+                     'instead of crash-looping', self._item_key(item),
+                     crash_count)
+        tracker = self.lineage
+        piece_index = getattr(item, 'piece_index', -1)
+        if tracker is not None and tracker.enabled and piece_index >= 0:
+            tracker.add_quarantines([crash_quarantine_record(
+                tracker, piece_index, item.epoch, item.drop_partition,
+                crash_count)])
+
+    def _requeue(self, entries: List) -> None:
+        """Put ``entries`` back on the item queue, in order, behind every
+        item already there and ahead of the end markers: an item queued
+        behind a marker would be stranded once every thread took one.
+        Under the queue's own mutex, waking as many waiting threads."""
+        q = self._items
+        with q.mutex:
+            at = next((i for i, entry in enumerate(q.queue)
+                       if entry is _DONE), len(q.queue))
+            for offset, entry in enumerate(entries):
+                q.queue.insert(at + offset, entry)
+            q.unfinished_tasks += len(entries)
+            q.not_empty.notify(len(entries))
+
+    def _handle_worker_crash(self, worker, item, pending, retire,
+                             exc: BaseException) -> bool:
+        """A worker thread is dying on ``item``, holding ``pending`` (and
+        the shrink request ``retire``, or None). With recovery on and budget
+        left: start a replacement in its place, hand the held items back
+        (the suspect last, or quarantined at the poison threshold), shut
+        the dead worker down and return True; the thread then exits without
+        an end marker, which its replacement takes. False when recovery is
+        off, spent, or the pool is stopping."""
+        recovery = self._recovery
+        if recovery is None or self._stop.is_set():
+            return False
+        budget = recovery.get('max_respawns')
+        if budget is None:
+            budget = max(3, self._workers_count)
+        me = threading.current_thread()
+        key = self._item_key(item)
+        with self._lock:
+            if self._stop.is_set():
+                return False
+            if self._respawns_used >= budget:
+                logger.error('worker respawn budget exhausted (%d); letting '
+                             'the crash surface', budget)
+                return False
+            self._respawns_used += 1
+            count = self._crash_counts.get(key, 0) + 1
+            self._crash_counts[key] = count
+            poison = count >= recovery.get('poison_threshold', 3)
+            worker_id = self._next_worker_id
+            self._next_worker_id += 1
+            process = self._process
+            if self._readahead_override is not None:
+                process = with_readahead_depth(process,
+                                               self._readahead_override)
+            replacement = make_worker(process, worker_id=worker_id)
+            self._members = [(worker_id, replacement) if w is worker
+                             else (wid, w) for wid, w in self._members]
+            if me in self._threads:
+                self._threads.remove(me)
+            self._retired.append(me)     # joined by reap_retired and join
+            entries = list(pending) + ([] if poison else [item])
+            if retire is not None:
+                entries.append(retire)
+            self._requeue(entries)
+            # the replacement serves the pass in the dead thread's place
+            self._pass_threads -= 1
+            self._start_thread(worker_id, replacement)
+        redispatched = len(entries) - (retire is not None)
+        logger.warning('worker thread %s died (%s: %s); respawned as worker '
+                       '%d and re-dispatching %d item(s)', me.name,
+                       type(exc).__name__, exc, worker_id, redispatched)
+        self.stats.add('worker_respawns')
+        if poison:
+            self._quarantine_poison(item, count)
+            self.stats.add('poison_items_quarantined')
+            self._job.processed_item()
+        if redispatched:
+            self.stats.add('items_redispatched', redispatched)
+        shutdown_worker(worker, close_cache=False)
+        return True
 
     # -- live actuators (the autotune controller's knobs) --------------------
 

@@ -306,7 +306,7 @@ def test_source_scan_finds_no_jax_import():
 
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
-#: observability, profiler and autotune slices; the worker side
+#: observability, profiler, autotune and resilience slices; the worker side
 #: (everything a worker interpreter imports) must not import torch
 #: either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
@@ -325,7 +325,9 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.tracing',
                  'petastorm_tpu_torch.health',
                  'petastorm_tpu_torch.profiler',
-                 'petastorm_tpu_torch.autotune']
+                 'petastorm_tpu_torch.autotune',
+                 'petastorm_tpu_torch.resilience',
+                 'petastorm_tpu_torch.faultfs']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

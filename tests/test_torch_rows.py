@@ -20,6 +20,7 @@ from petastorm_tpu.jax_utils import JaxDataLoader
 from petastorm_tpu.models import mnist_mlp as jmlp
 from petastorm_tpu.readers import shuffling_buffer as jbuffers
 
+import petastorm_tpu_torch
 from petastorm_tpu_torch import TorchDataLoader, make_reader
 from petastorm_tpu_torch.examples.mnist.main import (
     MnistSchema, generate_synthetic_mnist as tgenerate, train as ttrain)
@@ -160,8 +161,8 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    with pytest.raises(NotImplementedError, match='retry'):
-        make_batch_reader(url, retry=True)
+    with pytest.raises(NotImplementedError, match='remote_read'):
+        make_batch_reader(url, remote_read='ranged')
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
@@ -197,6 +198,45 @@ def test_read_only_columns_are_copied():
     t = _to_tensor(col, False)
     t[0] = 7
     assert int(col[0]) == 0
+
+
+def _cells_equal(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_nullable_codec_cells_decode_as_jax(tmp_path):
+    """JAX's ``create_test_dataset`` store: its nullable ``NdarrayCodec``
+    fields hold ``None`` cells (11 of 32 in ``matrix_nullable``), which the
+    port's row and columnar readers decode cell by cell, ``None`` where JAX
+    has ``None``."""
+    from petastorm_tpu.test_util.dataset_gen import create_test_dataset
+    url = 'file://' + str(tmp_path / 'nullable')
+    create_test_dataset(url, range(32), num_files=2)
+    fields = ['id', 'matrix_nullable', 'string_array_nullable']
+    rows, cols = {}, {}
+    for name, pkg in (('jax', petastorm_tpu),
+                      ('torch', petastorm_tpu_torch)):
+        with pkg.make_reader(url, schema_fields=fields, workers_count=1,
+                             shuffle_row_groups=False) as reader:
+            rows[name] = {int(r.id): (r.matrix_nullable,
+                                      r.string_array_nullable)
+                          for r in reader}
+        with pkg.make_columnar_reader(url, schema_fields=fields,
+                                      workers_count=1,
+                                      shuffle_row_groups=False) as reader:
+            cols[name] = {int(i): (m, s) for batch in reader
+                          for i, m, s in zip(batch.id, batch.matrix_nullable,
+                                             batch.string_array_nullable)}
+    for out in (rows, cols):
+        assert sorted(out['torch']) == sorted(out['jax']) == list(range(32))
+        for i, cells in out['jax'].items():
+            assert all(_cells_equal(a, b)
+                       for a, b in zip(cells, out['torch'][i])), i
+    assert sum(c[0] is None for c in rows['torch'].values()) == 11
+    assert sum(c[0] is None for c in cols['torch'].values()) == 11
+    assert any(c[1] is None for c in cols['torch'].values())
 
 
 # ---------------------------------------------------------------------------
