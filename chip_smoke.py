@@ -292,7 +292,36 @@ printing one line or a few:
    raises ``RuntimeError`` naming the exit codes; a spent budget of 2
    respawns raises within 60 s. (f) The LM steady step (2 epochs, 4
    threads) with ``retry=False`` and the default, 6 pairs in turns, the
-   ratio beside the off runs' spread. K1-K3 launch on every LM step.
+   ratio beside the off runs' spread. K1-K3 launch on every LM step;
+21. remote line (after phase 20; local stores read as an object store under
+   the recorded ``s3-us-east-1`` trace, ``trace-replay`` armed through
+   ``PETASTORM_TPU_CHAOS`` from a seed derived from ``--seed``). (a) The
+   token store of phase 13 (8,192 rows, 33 row groups of about 2 MB)
+   through ``make_columnar_reader`` on 4 threads under ``remote_read``
+   ``'serial'``, ``'prebuffer'``, ``'ranged'`` and ``'ranged'`` with
+   ``io_readahead=2``: each pass == the generator bit for bit (by
+   ``idx``), ``io_range_requests`` > 0 exactly under ``'ranged'``; each
+   pass's rows/s, store reads and bytes (the workers' chaos wrappers), the
+   replayed reads and seconds, the ``io_range_*`` counters and the
+   ``io_range`` p99; then ``'ranged'`` on 4 worker processes, and 16 AdamW
+   steps of the flagship LM (full width, bf16, flash) on K1-K3 from a
+   ranged process-pool reader's batches. (b) A second same-seed ranged
+   pass: its replayed reads, replayed seconds (to the us) and
+   ``io_range_requests`` equal the first's. (c) One thread under
+   ``read-hangs`` with ``remote_read='ranged'``, ``hedge=0.05`` and
+   without: rows == the generator in both, ``io_hedges`` >= 1 hedged; both
+   wall times. (d) The pod tier: the png store (256 images, with ``idx``)
+   over 3 shared-cache roots ("hosts"), each serving ``serve_peers()`` on
+   127.0.0.1 and listing the other two as ``peers``; the cold host's
+   reader (2 threads) first, then the other two hosts' at once: over the
+   three roots ``fills`` == the row groups and ``peer_hits`` == 2 x the row
+   groups; 4 CNN steps on K4 from host 3's batches, whose images equal
+   the cold host's byte for byte; a reader whose first peer is
+   ``127.0.0.1:9`` counts ``peer_errors`` 1, then ``peer_skipped_dead``,
+   and reads every image. (e) ``reader.profile(calibrate='force')`` over a
+   ranged reader gives a numeric ``parquet_ranged_rows_per_s``; a typo in
+   ``remote_read``, a ``file://tmp/x`` URL and an ``ftp://`` URL raise
+   ``ValueError`` with JAX's words.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1782,7 +1811,8 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
     the delivered idx, 'staged': (dtype, shape, device, bytes) a batch,
     'tallies': the thread workers' readahead (hits, misses) or None,
     'diagnostics': the reader's stats snapshot after the pass, 'tracer':
-    its tracer, 'pids': its worker processes' pids}``."""
+    its tracer, 'pids': its worker processes' pids, 'store': (reads,
+    bytes) of the thread workers' chaos-wrapped filesystems, or None}``."""
     from petastorm_tpu_torch import TorchDataLoader, make_columnar_reader
     from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
     os.environ[DEVICE_DECODE_ENV_VAR] = switch
@@ -1839,6 +1869,14 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
             report = reader.audit().assert_complete()
             check(report['epochs'][0]['rows_delivered'] == len(tokens),
                   '%s: audit %s' % (label, report['epochs'][0]))
+        # the store reads the workers' filesystems counted (a chaos
+        # wrapper counts; a thread worker's only: a process's is its own)
+        filesystems = [w.filesystem for w in getattr(reader._pool, 'workers',
+                                                     [])]
+        store = ((sum(f.read_calls for f in filesystems),
+                  sum(f.bytes_read for f in filesystems))
+                 if filesystems and all(hasattr(f, 'read_calls')
+                                        for f in filesystems) else None)
     tallies = (sum(t['readahead_hits'] for t in readaheads),
                sum(t['readahead_misses'] for t in readaheads)) \
         if readaheads else None
@@ -1873,7 +1911,8 @@ def token_pass(torch, np, url, tokens, pool, switch, device, batch,
            '; readahead hits %d, misses %d' % tallies if tallies else ''))
     return {'rate': rows / wall, 'grid': last.get('grid'), 'fused': fused,
             'order': idx, 'staged': staged, 'tallies': tallies,
-            'diagnostics': diagnostics, 'tracer': tracer, 'pids': pids}
+            'diagnostics': diagnostics, 'tracer': tracer, 'pids': pids,
+            'store': store}
 
 
 def decode_kernel_us(torch, fused, grid, n):
@@ -4936,6 +4975,388 @@ def k4_times(torch, kernels, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the remote line (read planes, per-range hedging, the pod tier)
+# ---------------------------------------------------------------------------
+
+REMOTE_WORKERS = 4
+REMOTE_STEPS = 16                 # (a): LM steps from the ranged process pool
+REMOTE_HEDGE_S = 0.05             # (c)'s fixed hedge threshold
+POD_HOSTS = 3
+POD_THREADS = 2                   # reader threads of each host
+POD_STEPS = 4                     # CNN steps from host 3's batches
+DEAD_PEER = '127.0.0.1:9'         # nothing listens there
+
+
+def remote_specs(seed):
+    """The phase's scenarios, each from a seed derived from ``--seed``."""
+    return {'trace': 'trace-replay:%d:trace=s3-us-east-1' % (606 + seed),
+            'hangs': 'read-hangs:%d:hang_rate=0.1,hang_s=0.3' % (707 + seed)}
+
+
+def remote_pass(torch, np, url, tokens, device, spec, label, pool='thread',
+                workers=REMOTE_WORKERS, **reader_kw):
+    """One token pass under ``spec`` (:func:`token_pass`, 4 workers,
+    device decode on); returns its facts with the injector's tallies and
+    the wall time."""
+    with chaos(spec) as injector:
+        start = time.perf_counter()
+        got = token_pass(torch, np, url, tokens, pool, 'on', device,
+                         TOKEN_BATCH, label=label, workers=workers,
+                         **reader_kw)
+        got['wall'] = time.perf_counter() - start
+        got['injected'] = dict(injector.injected) if injector else {}
+        got['injected_s'] = dict(injector.injected_s) if injector else {}
+    snap = got['diagnostics']
+    ranged = reader_kw.get('remote_read') == 'ranged'
+    check(bool(snap.get('io_range_requests')) == ranged,
+          '%s: io_range_requests %s under %s' % (
+              label, snap.get('io_range_requests'),
+              reader_kw.get('remote_read')))
+    store = got['store']
+    log('%s: %.0f rows/s, store reads %s, bytes %s; replayed %d reads, '
+        '%.3f s; io_range_requests %d, io_range_bytes %d, '
+        'io_range_wasted_bytes %d, io_range_fallbacks %d, io_range p99 '
+        '%.4f s; wall %.3f s [%s]'
+        % (label, got['rate'], store[0] if store else 'n/a (processes)',
+           store[1] if store else 'n/a', got['injected'].get('trace_reads', 0),
+           got['injected_s'].get('trace_latency_s', 0.0),
+           snap.get('io_range_requests', 0), snap.get('io_range_bytes', 0),
+           snap.get('io_range_wasted_bytes', 0),
+           snap.get('io_range_fallbacks', 0), snap.get('io_range_p99_s', 0),
+           got['wall'], CARD))
+    return got
+
+
+def remote_lm(torch, np, tlm, kernels, url, cfg, device, args, spec, steps):
+    """``steps`` AdamW steps of the LM on K1-K3 from a ranged reader on
+    ``REMOTE_WORKERS`` worker processes under ``spec`` (tokens decoded on
+    the card and cast to int64 by a device ``TransformSpec``). Returns the
+    launch counts and the steady step in ms."""
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader)
+    seq = cfg.max_seq_len + 1
+    spec_cast = TransformSpec(
+        lambda c: dict(c, tokens=c['tokens'].to(torch.int64)),
+        edit_fields=[('tokens', np.int64, (seq,), False)], device=True)
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device=device)
+    _, step = tlm.make_train_step(cfg, params)
+    losses, times = [], []
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with chaos(spec):
+        with make_columnar_reader(url, num_epochs=None,
+                                  workers_count=REMOTE_WORKERS,
+                                  reader_pool_type='process',
+                                  remote_read='ranged',
+                                  transform_spec=spec_cast,
+                                  seed=args.seed) as reader:
+            loader = TorchDataLoader(reader, batch_size=TOKEN_BATCH,
+                                     drop_last=True, device=device)
+            batches = loader.iter_prefetched()
+            with contextlib.closing(batches):
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    b = next(batches)['tokens']
+                    check(b.device.type == device and b.dtype == torch.int64
+                          and tuple(b.shape) == (TOKEN_BATCH, seq),
+                          'remote LM batch %s %s on %s'
+                          % (b.dtype, tuple(b.shape), b.device))
+                    losses.append(float(loader.goodput.fence(
+                        step(b[:, :-1], b[:, 1:]))))
+                    times.append(time.perf_counter() - t0)
+            snap = reader.stats.snapshot()
+    launches = dict(kernels.LAUNCHES)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          'remote LM: losses %s' % losses)
+    if device == 'cuda':
+        check(all(launches[k] == steps * cfg.n_layers for k in FLASH),
+              'remote LM launches %r for %d steps of %d layers'
+              % (launches, steps, cfg.n_layers))
+    steady = statistics.median(times[1:]) * 1e3
+    log('remote LM: %d AdamW steps (full width, bf16, flash) from a ranged '
+        'reader on %d worker processes under the trace: loss %.4f -> %.4f, '
+        'steady step %.2f ms (batch wait included), io_range_requests %d '
+        'merged by the last step, launches %s [%s]'
+        % (steps, REMOTE_WORKERS, losses[0], losses[-1], steady,
+           snap.get('io_range_requests', 0), json.dumps(launches), CARD))
+    return launches, steady
+
+
+def pod_line(torch, np, kernels, args, d, device, rows, batch, size):
+    """(d) The pod tier over ``POD_HOSTS`` shared-cache roots. Returns the
+    launch counts of the CNN steps."""
+    import threading as _threading
+    from petastorm_tpu_torch import (TorchDataLoader, TransformSpec,
+                                     make_columnar_reader, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+    path = os.path.join(d, 'pod_images')
+    url = 'file://' + path
+    write_indexed_images(np, url, rows, args.seed)
+    groups = row_groups(path)
+    resize = make_resize_transform(size)
+    spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                         selected_fields=['idx', 'image', 'label'])
+    roots = SharedRoots(d)
+    hosts, servers, thread = [], [], None
+    try:
+        for i in range(POD_HOSTS):
+            root, kw = roots.kw('pod_host%d' % i, IMAGE_TIER0)
+            server = SharedRowGroupCache(root, CACHE_LIMIT,
+                                         **kw['cache_extra_settings'])
+            servers.append(server)
+            hosts.append((root, kw, '127.0.0.1:%d' % server.serve_peers()))
+
+        def reader_kw(i, peers=None):
+            root, kw, _ = hosts[i]
+            extra = dict(kw['cache_extra_settings'], peers=peers or [
+                h[2] for j, h in enumerate(hosts) if j != i])
+            return dict(kw, cache_extra_settings=extra)
+
+        def read_host(i, out, workers=POD_THREADS, **kw):
+            with make_columnar_reader(url, num_epochs=1, workers_count=workers,
+                                      seed=args.seed + i, transform_spec=spec,
+                                      **(kw or reader_kw(i))) as reader:
+                for b in reader:
+                    for k, x in zip(b.idx, b.image):
+                        out[int(k)] = np.ascontiguousarray(x).tobytes()
+
+        start = time.perf_counter()
+        cold = {}
+        read_host(0, cold)
+        cold_s = time.perf_counter() - start
+        check(sorted(cold) == list(range(rows)),
+              'pod cold host: %d images' % len(cold))
+        # hosts 2 and 3 at once: host 2 on a thread, host 3 into the CNN
+        second, errors = {}, []
+
+        def host2():
+            try:
+                read_host(1, second)
+            except BaseException as e:   # re-raised on the main thread
+                errors.append(e)
+        params = cnn.init(torch.Generator().manual_seed(args.seed),
+                          num_classes=IMAGE_CLASSES, device=device)
+        step = cnn.make_train_step(params, lr=1e-3)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        thread = _threading.Thread(target=host2, name='pod-host2')
+        thread.start()
+        third, losses = {}, []
+        with make_columnar_reader(url, num_epochs=1, workers_count=POD_THREADS,
+                                  seed=args.seed + 2, transform_spec=spec,
+                                  **reader_kw(2)) as reader:
+            loader = TorchDataLoader(reader, batch_size=batch, device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for b in batches:
+                    if len(losses) < POD_STEPS:
+                        losses.append(float(step(b['image'], b['label'])))
+                    images = b['image'].cpu().numpy()
+                    for k, x in zip(b['idx'].cpu().numpy(), images):
+                        third[int(k)] = x.tobytes()
+        thread.join(120)
+        warm_s = time.perf_counter() - start
+        check(not thread.is_alive() and not errors,
+              'pod host 2: %s' % (errors or 'did not finish'))
+        launches = dict(kernels.LAUNCHES)
+        check(len(losses) == POD_STEPS and all(math.isfinite(x)
+                                               for x in losses),
+              'pod CNN: losses %s' % losses)
+        if device == 'cuda':
+            check(launches['normalize'] == POD_STEPS,
+                  'pod CNN: K4 launched %d times in %d steps'
+                  % (launches['normalize'], POD_STEPS))
+        check(third == cold and second == cold,
+              "pod hosts 2 and 3: images differ from the cold host's")
+        totals = {}
+        for root, _, _ in hosts:
+            for k, n in SharedRowGroupCache.global_counters(root).items():
+                totals[k] = totals.get(k, 0) + n
+        check(totals.get('fills') == groups
+              and totals.get('peer_hits') == 2 * groups,
+              'pod certificate: fills %s, peer_hits %s over %d row groups'
+              % (totals.get('fills'), totals.get('peer_hits'), groups))
+        log('pod tier: %d hosts x %d threads over %d png row groups: cold '
+            'host %.2f s, hosts 2 and 3 at once %.2f s; fills %d (== row '
+            'groups), peer_hits %d (== 2 x row groups), peer_misses %d, '
+            'peer_errors %d, peer_bytes %d; %d CNN steps on K4 from host '
+            "3's batches, loss %.4f -> %.4f, images == the cold host's byte "
+            'for byte [%s]'
+            % (POD_HOSTS, POD_THREADS, groups, cold_s, warm_s,
+               totals['fills'], totals['peer_hits'],
+               totals.get('peer_misses', 0), totals.get('peer_errors', 0),
+               totals.get('peer_bytes', 0), POD_STEPS, losses[0], losses[-1],
+               CARD))
+        # a reader whose first peer is dead: one error, then skipped
+        root, kw = roots.kw('pod_dead_peer', IMAGE_TIER0)
+        extra = dict(kw['cache_extra_settings'],
+                     peers=[DEAD_PEER, hosts[0][2]], peer_timeout_s=1.0)
+        dead = {}
+        start = time.perf_counter()
+        read_host(3, dead, workers=1,
+                  **dict(kw, cache_extra_settings=extra))
+        c = SharedRowGroupCache.global_counters(root)
+        check(dead == cold and c.get('peer_errors') == 1
+              and c.get('peer_skipped_dead', 0) >= 1
+              and c.get('peer_hits') == groups and not c.get('fills'),
+              'pod dead peer: %d images, counters %s' % (len(dead), c))
+        log('pod dead first peer %s: %d images == the cold host\'s in %.2f '
+            's, peer_errors %d, peer_skipped_dead %d, peer_hits %d, fills %d'
+            % (DEAD_PEER, len(dead), time.perf_counter() - start,
+               c['peer_errors'], c['peer_skipped_dead'], c['peer_hits'],
+               c.get('fills', 0)))
+    finally:
+        if thread is not None:
+            thread.join(120)
+        for server in servers:
+            server.close()
+        roots.remove()
+    return launches
+
+
+def remote_failures(np, url, d, device):
+    """(e) The ranged ceiling of the profiler, and the loud failures."""
+    from petastorm_tpu_torch import make_columnar_reader
+    from petastorm_tpu_torch.profiler import CALIBRATION_DIR_ENV_VAR
+    saved = os.environ.get(CALIBRATION_DIR_ENV_VAR)
+    os.environ[CALIBRATION_DIR_ENV_VAR] = os.path.join(d, 'calibration')
+    try:
+        with make_columnar_reader(url, num_epochs=1, remote_read='ranged',
+                                  workers_count=REMOTE_WORKERS) as reader:
+            rows = sum(len(b.idx) for b in reader)
+            reader.profile(calibrate='force', device=device)
+            storage = reader.calibration['probes']['storage']
+    finally:
+        if saved is None:
+            os.environ.pop(CALIBRATION_DIR_ENV_VAR, None)
+        else:
+            os.environ[CALIBRATION_DIR_ENV_VAR] = saved
+    ranged = storage['parquet_ranged_rows_per_s']
+    check(isinstance(ranged, (int, float)) and ranged > 0,
+          'profile: parquet_ranged_rows_per_s %r' % ranged)
+    log('remote profile (%d rows read ranged, clean store): storage ceilings '
+        'plain %.0f, pre_buffer %.0f, ranged %.0f rows/s [%s]'
+        % (rows, storage['parquet_rows_per_s'],
+           storage['parquet_pre_buffer_rows_per_s'], ranged, CARD))
+    loud = [('remote_read typo', dict(remote_read='rangedd'),
+             "remote_read must be one of ['ranged', 'prebuffer', 'serial']"),
+            ('file://tmp/x', dict(dataset_url='file://tmp/x'),
+             'file:// URLs must use three slashes'),
+            ('ftp://', dict(dataset_url='ftp://host/x'),
+             "Unsupported url scheme 'ftp'")]
+    for label, kw, words in loud:
+        try:
+            make_columnar_reader(kw.pop('dataset_url', url), **kw)
+        except ValueError as e:
+            check(words in str(e), '%s: %s' % (label, e))
+            log('remote loud failure %s: ValueError: %s' % (label, e))
+        else:
+            check(False, '%s: no ValueError' % label)
+
+
+def remote_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                rows=TOKEN_ROWS, image_rows=IMAGE_ROWS,
+                image_batch=IMAGE_BATCH, image_size=IMAGE_SIZE,
+                steps=REMOTE_STEPS):
+    """Phase 21: the read planes under the recorded S3 trace, per-range
+    hedging and the pod tier. Returns the launch counts of the LM steps
+    (K1-K3) and of the pod's CNN steps (K4)."""
+    from petastorm_tpu_torch.ops.decode import DEVICE_DECODE_ENV_VAR
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    specs = remote_specs(args.seed)
+    log('remote scenarios (seeded from --seed %d): %s'
+        % (args.seed, json.dumps(specs)))
+    saved = os.environ.get(DEVICE_DECODE_ENV_VAR)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT,
+                                         prefix='.smoke-store-') as d:
+            url = 'file://' + os.path.join(d, 'token_rows')
+            tokens = write_token_rows(np, url, rows, cfg.max_seq_len + 1,
+                                      cfg.vocab_size, args.seed)
+            # a process's first pass imports pandas (through pyarrow's
+            # to_numpy): pay that outside the planes that are compared
+            log('remote warm-up pass (clean, not compared):')
+            token_pass(torch, np, url, tokens, 'thread', 'on', device,
+                       TOKEN_BATCH, workers=REMOTE_WORKERS)
+            phase = time.perf_counter()
+            passes = {}
+            for mode, readahead in (('serial', 0), ('prebuffer', 0),
+                                    ('ranged', 0), ('ranged', 2)):
+                passes[mode, readahead] = remote_pass(
+                    torch, np, url, tokens, device, specs['trace'],
+                    'remote %s readahead %d' % (mode, readahead),
+                    remote_read=mode, io_readahead=readahead)
+            log('remote ranged / serial rows/s %.3f, ranged / prebuffer '
+                '%.3f, ranged readahead 2 / 0 %.3f'
+                % (passes['ranged', 0]['rate'] / passes['serial', 0]['rate'],
+                   passes['ranged', 0]['rate']
+                   / passes['prebuffer', 0]['rate'],
+                   passes['ranged', 2]['rate'] / passes['ranged', 0]['rate']))
+            remote_pass(torch, np, url, tokens, device, specs['trace'],
+                        'remote ranged on %d processes' % REMOTE_WORKERS,
+                        pool='process', remote_read='ranged')
+            lm, steady = remote_lm(torch, np, tlm, kernels, url, cfg, device,
+                                   args, specs['trace'], steps)
+            log('remote (a) planes and LM %.1f s'
+                % (time.perf_counter() - phase))
+            phase = time.perf_counter()
+            again = remote_pass(torch, np, url, tokens, device,
+                                specs['trace'], 'remote ranged again (same '
+                                'seed)', remote_read='ranged')
+            first = passes['ranged', 0]
+            tally = [(p['injected'].get('trace_reads'),
+                      round(p['injected_s'].get('trace_latency_s', 0), 6),
+                      p['diagnostics']['io_range_requests'])
+                     for p in (first, again)]
+            check(tally[0] == tally[1],
+                  'remote determinism: (replayed reads, seconds, '
+                  'io_range_requests) %s then %s' % tuple(tally))
+            log('remote (b) determinism: two same-seed ranged passes replay '
+                '%d reads, %.6f s, io_range_requests %d, identical (%.1f s)'
+                % (tally[0] + (time.perf_counter() - phase,)))
+            phase = time.perf_counter()
+            hedged = {}
+            for hedge in (REMOTE_HEDGE_S, False):
+                hedged[hedge] = remote_pass(
+                    torch, np, url, tokens, device, specs['hangs'],
+                    'remote ranged on 1 thread, hedge=%s' % hedge,
+                    workers=1, remote_read='ranged', hedge=hedge)
+            snap = hedged[REMOTE_HEDGE_S]['diagnostics']
+            check(snap['io_hedges'] >= 1,
+                  'remote hedge: io_hedges %d' % snap['io_hedges'])
+            log('remote (c) per-range hedging under %s on 1 thread: rows == '
+                'generator both ways; hedged: io_hedges %d, io_hedge_wins '
+                '%d, wall %.3f s; unhedged: wall %.3f s (%.1f s) [%s]'
+                % (specs['hangs'], snap['io_hedges'],
+                   snap.get('io_hedge_wins', 0),
+                   hedged[REMOTE_HEDGE_S]['wall'], hedged[False]['wall'],
+                   time.perf_counter() - phase, CARD))
+            phase = time.perf_counter()
+            png = pod_line(torch, np, kernels, args, d, device, image_rows,
+                           image_batch, image_size)
+            log('remote (d) pod tier %.1f s' % (time.perf_counter() - phase))
+            phase = time.perf_counter()
+            remote_failures(np, url, d, device)
+            log('remote (e) profile and loud failures %.1f s'
+                % (time.perf_counter() - phase))
+    finally:
+        if saved is None:
+            os.environ.pop(DEVICE_DECODE_ENV_VAR, None)
+        else:
+            os.environ[DEVICE_DECODE_ENV_VAR] = saved
+    log('remote launches: LM %s (%d steps, steady %.2f ms); png %s'
+        % (json.dumps(lm), steps, steady, json.dumps(png)))
+    return lm, png
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -5123,6 +5544,17 @@ def main(argv=None):
         launches[name] += resilient_lm[name]
     launches['normalize'] += resilient_png['normalize']
     log('phase resilience line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    remote_lm_launches, pod_png = remote_line(torch, np, tlm, kernels, args)
+    check(all(remote_lm_launches[k] > 0 for k in FLASH),
+          'a kernel was not launched on the remote LM line: %r'
+          % remote_lm_launches)
+    check(pod_png['normalize'] > 0,
+          'K4 was not launched on the pod-served png line')
+    for name in FLASH:
+        launches[name] += remote_lm_launches[name]
+    launches['normalize'] += pod_png['normalize']
+    log('phase remote line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

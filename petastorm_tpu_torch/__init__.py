@@ -31,6 +31,13 @@ The stats, latency and tracing planes: ``reader.stats``,
 ``reader.slo`` (:mod:`petastorm_tpu_torch.workers.stats`,
 :mod:`petastorm_tpu_torch.latency`, :mod:`petastorm_tpu_torch.tracing`).
 
+Remote stores: the factories take ``s3://``, ``gs://``, ``hdfs://`` and
+``memory://`` URLs with ``storage_options``, and ``remote_read`` picks
+the workers' read plane (``'serial'``, ``'prebuffer'`` or ``'ranged'``;
+:mod:`petastorm_tpu_torch.fs`, :mod:`petastorm_tpu_torch.objectstore`);
+the shared cache's ``peers`` form a pod of cache roots
+(:mod:`petastorm_tpu_torch.sharedcache`).
+
 Fault tolerance: the factories' ``retry`` (on), ``hedge`` (off) and
 ``worker_recovery`` (on), and the seeded fault injector armed by
 ``PETASTORM_TPU_CHAOS`` (:mod:`petastorm_tpu_torch.resilience`,

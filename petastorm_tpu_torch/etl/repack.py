@@ -89,10 +89,13 @@ def repack_to_ndarray_codec(source_url: str, output_url: str,
     reader's plans)."""
     from petastorm_tpu_torch.etl.dataset_metadata import (get_schema,
                                                           materialize_dataset)
-    from petastorm_tpu_torch.fs import url_to_path
+    from petastorm_tpu_torch.fs import (get_filesystem_and_path_or_paths,
+                                        normalize_dir_url)
     from petastorm_tpu_torch.reader import make_columnar_reader
 
-    schema = get_schema(url_to_path(source_url))
+    fs, path, _ = get_filesystem_and_path_or_paths(
+        normalize_dir_url(source_url))
+    schema = get_schema(path, filesystem=fs)
     out_schema, repacked = repack_schema(schema, fields)
     rows = 0
     with materialize_dataset(output_url, out_schema,

@@ -1,8 +1,8 @@
 """pyarrow-style DNF ``filters`` for the reader: partition-value pruning,
 row-group statistics pruning, and exact residual row filtering.
 
-A copy of ``petastorm_tpu/filters.py`` for local stores (footers are read
-with ``pq.ParquetFile(path)``):
+A copy of ``petastorm_tpu/filters.py`` (footers are read through the
+store's filesystem, by path on a local one):
 
 1. **Planning time**: every conjunction is tested against each piece. Terms
    on hive partition columns evaluate *exactly* (a partition value is
@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.predicates import PredicateBase
 from petastorm_tpu_torch.utils import cast_partition_value, cast_string_to_type
@@ -221,8 +220,9 @@ class RowGroupStatsEvaluator:
     min/max statistics. Footer metadata is read lazily, once per file, and
     only when a filter actually names a non-partition column."""
 
-    def __init__(self, schema, preloaded_footers=None):
+    def __init__(self, schema, preloaded_footers=None, filesystem=None):
         self._schema = schema
+        self._filesystem = filesystem
         # path -> (FileMetaData | None, {column path_in_schema: index})
         self._footers: Dict[str, Tuple[object, Dict[str, int]]] = {}
         # footers already parsed during row-group discovery (metadata-less
@@ -247,8 +247,9 @@ class RowGroupStatsEvaluator:
                 self._footers[path] = entry
 
     def _read_footer(self, path: str):
+        from petastorm_tpu_torch.etl.dataset_metadata import read_footer
         try:
-            md = pq.ParquetFile(path).metadata
+            md = read_footer(path, self._filesystem)
             columns = {md.schema.column(j).path: j
                        for j in range(md.num_columns)}
             return md, columns

@@ -7,8 +7,9 @@ report keys, gauge names and warning wording:
 - **Calibration micro-probes** (:func:`calibrate`) measure this host's
   per-stage ceilings on the dataset itself: the storage's sequential read
   and the Parquet row-group read rate under the plain and ``pre_buffer``
-  opens (JAX :219; the coalesced ranged mode needs a range reader, which
-  comes with the remote object stores, and reports ``None``), the decode
+  opens and the coalesced ranged plan of the
+  :class:`~petastorm_tpu_torch.objectstore.ParallelRangeReader` (JAX
+  :219-290), through the store's filesystem, the decode
   rate of each codec through the port's own decode path
   (:func:`~petastorm_tpu_torch.readers.columnar_worker.decode_column`,
   with the batched/per-cell routing its workers use), the
@@ -235,20 +236,29 @@ def _sample_pieces(pieces, sample_row_groups: int):
 PROBE_REPS = 5
 
 
-def _read_table(piece):
+def _filesystem(filesystem):
+    from petastorm_tpu_torch.fs import LOCAL_FILESYSTEM
+    return filesystem if filesystem is not None else LOCAL_FILESYSTEM
+
+
+def _read_table(piece, filesystem=None):
     import pyarrow.parquet as pq
-    with open(piece.path, 'rb') as handle:
+    with _filesystem(filesystem).open(piece.path, 'rb') as handle:
         return pq.ParquetFile(handle).read_row_group(piece.row_group)
 
 
-def _probe_storage(sampled) -> dict:
+def _probe_storage(sampled, filesystem=None) -> dict:
     """Sequential-read bandwidth of the dataset's own files, plus the
-    Parquet row-group read rate under the plain and ``pre_buffer=True``
-    opens (JAX :219). ``parquet_ranged_rows_per_s`` is ``None``: the
-    ranged mode needs a range reader, which the port does not have yet.
+    Parquet row-group read rate under the three read modes the workers
+    choose between (JAX :219-290): the plain open, ``pre_buffer=True``, and
+    the coalesced parallel-range plan of
+    :class:`~petastorm_tpu_torch.objectstore.ParallelRangeReader` (the
+    ranged-ingest ceiling), all through ``filesystem`` (None: the host's).
     Page-cache state is whatever the host has (``page_cache: 'ambient'``):
     these are sustained re-read ceilings, the regime epochs 2+ run in."""
     import pyarrow.parquet as pq
+    from petastorm_tpu_torch.objectstore import ParallelRangeReader
+    filesystem = _filesystem(filesystem)
     total_bytes = 0
     seq_s = 0.0
     paths = []
@@ -257,7 +267,7 @@ def _probe_storage(sampled) -> dict:
             paths.append(piece.path)
     for path in paths:
         start = time.perf_counter()
-        with open(path, 'rb') as f:
+        with filesystem.open(path, 'rb') as f:
             while True:
                 chunk = f.read(4 * 1024 * 1024)
                 if not chunk:
@@ -268,7 +278,7 @@ def _probe_storage(sampled) -> dict:
     def timed_read(pre_buffer: bool) -> Tuple[float, int]:
         read_s, rows = 0.0, 0
         for piece in sampled:
-            with open(piece.path, 'rb') as handle:
+            with filesystem.open(piece.path, 'rb') as handle:
                 pf = (pq.ParquetFile(handle, pre_buffer=True) if pre_buffer
                       else pq.ParquetFile(handle))
                 start = time.perf_counter()
@@ -277,9 +287,20 @@ def _probe_storage(sampled) -> dict:
                 rows += table.num_rows
         return read_s, rows
 
+    def timed_ranged_read() -> Tuple[float, int]:
+        reader = ParallelRangeReader(filesystem)
+        read_s, rows = 0.0, 0
+        for piece in sampled:
+            start = time.perf_counter()
+            table = reader.read_row_group(piece.path, piece.row_group)
+            read_s += time.perf_counter() - start
+            rows += table.num_rows
+        return read_s, rows
+
     plain_s, rows = min(timed_read(pre_buffer=False)
                         for _ in range(PROBE_REPS))
     pre_s, _ = min(timed_read(pre_buffer=True) for _ in range(PROBE_REPS))
+    ranged_s, _ = min(timed_ranged_read() for _ in range(PROBE_REPS))
     return {
         'page_cache': 'ambient',
         'bytes': total_bytes,
@@ -288,13 +309,14 @@ def _probe_storage(sampled) -> dict:
         'parquet_rows_per_s': round(rows / plain_s, 1) if plain_s else None,
         'parquet_pre_buffer_rows_per_s': round(rows / pre_s, 1)
         if pre_s else None,
-        'parquet_ranged_rows_per_s': None,
+        'parquet_ranged_rows_per_s': round(rows / ranged_s, 1)
+        if ranged_s else None,
         'parquet_read_s': round(plain_s, 4),
         'rows': rows,
     }
 
 
-def _probe_decode(sampled, schema) -> dict:
+def _probe_decode(sampled, schema, filesystem=None) -> dict:
     """Per-codec decode throughput through the port's decode path
     (:func:`~petastorm_tpu_torch.readers.columnar_worker.decode_column`,
     honoring each field's codec and the batched/per-cell routing the
@@ -309,7 +331,7 @@ def _probe_decode(sampled, schema) -> dict:
     total_s = 0.0
     decoded_bytes = 0
     for piece in sampled:
-        table = _read_table(piece)
+        table = _read_table(piece, filesystem)
         present = [n for n in names if n in table.column_names]
         # warm pass: codec imports, lazy cv2 init, chunk materialization
         for name in present:
@@ -372,11 +394,12 @@ def _probe_decode(sampled, schema) -> dict:
     }
 
 
-def _decode_sample_columns(sampled, schema) -> Tuple[dict, int]:
+def _decode_sample_columns(sampled, schema, filesystem=None
+                           ) -> Tuple[dict, int]:
     """One decoded row group's columns (numpy dict) for the transport and
     staging probes — the actual payload shape the pipeline ships."""
     from petastorm_tpu_torch.readers.columnar_worker import decode_column
-    table = _read_table(sampled[0])
+    table = _read_table(sampled[0], filesystem)
     columns = {}
     for name, field in schema.fields.items():
         if name in table.column_names:
@@ -455,18 +478,19 @@ def _probe_device_stage(columns: dict, rows: int, device) -> dict:
 
 def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
               cache_dir: Optional[str] = None, save: bool = True,
-              device=None) -> dict:
+              device=None, filesystem=None) -> dict:
     """Run every micro-probe against ``sample_row_groups`` row groups of the
     actual dataset and return (and, with ``save``, cache) the calibration
     artifact (JAX :570). All ceilings are rows/sec for THIS dataset's rows
     on THIS host, per stage and single-stream (the advisor's model scales
-    them); the staging ceiling is to ``device`` (CUDA unless ``'cpu'``)."""
+    them); the staging ceiling is to ``device`` (CUDA unless ``'cpu'``).
+    The store's files are read through ``filesystem`` (None: the host's)."""
     device, name = _resolve(device)
     digest = dataset_digest(pieces, schema)
     sampled = _sample_pieces(pieces, sample_row_groups)
-    storage = _probe_storage(sampled)
-    decode = _probe_decode(sampled, schema)
-    columns, sample_rows = _decode_sample_columns(sampled, schema)
+    storage = _probe_storage(sampled, filesystem)
+    decode = _probe_decode(sampled, schema, filesystem)
+    columns, sample_rows = _decode_sample_columns(sampled, schema, filesystem)
     serialize = _probe_serialize(columns, sample_rows)
     stage = _probe_device_stage(columns, sample_rows, device)
     total_rows = sum(max(0, p.num_rows) for p in pieces)
@@ -521,7 +545,7 @@ def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
 def get_calibration(dataset_path, pieces, schema, mode: str = 'auto',
                     sample_row_groups: int = 3,
                     cache_dir: Optional[str] = None,
-                    device=None) -> Optional[dict]:
+                    device=None, filesystem=None) -> Optional[dict]:
     """Resolve a calibration per ``mode`` (JAX :643): ``'cached'`` loads the
     artifact of ``device`` or returns ``None`` (never probes — safe for hot
     paths and HTTP handlers that must stay cheap); ``'auto'`` loads it and
@@ -537,7 +561,8 @@ def get_calibration(dataset_path, pieces, schema, mode: str = 'auto',
             return cal
     return calibrate(dataset_path, pieces, schema,
                      sample_row_groups=sample_row_groups,
-                     cache_dir=cache_dir, device=device)
+                     cache_dir=cache_dir, device=device,
+                     filesystem=filesystem)
 
 
 # ---------------------------------------------------------------------------

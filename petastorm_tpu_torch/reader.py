@@ -1,4 +1,4 @@
-"""Readers of the port over local stores.
+"""Readers of the port over local and remote stores.
 
 Counterparts of ``petastorm_tpu/reader.py`` ``make_reader`` (:210),
 ``make_columnar_reader`` (:352-427), ``make_batch_reader`` (:430-486) and
@@ -94,8 +94,17 @@ Fault tolerance (:mod:`petastorm_tpu_torch.resilience`, JAX :118-126,
 fails it; retry and hedge ride the worker spec as plain dicts, and
 recovery reaches the thread and process pools.
 
-Not ported yet (each raises ``NotImplementedError``): remote object
-stores; JAX-process and elastic sharding.
+Remote stores (:mod:`petastorm_tpu_torch.fs`, JAX :311, 388, 454, 548,
+585): a dataset URL resolves to a filesystem and a path
+(``storage_options`` go to the filesystem), the reader reads the store's
+metadata and footers through it, and the workers make theirs from its
+picklable factory. ``remote_read`` picks the workers' read plane
+(:mod:`petastorm_tpu_torch.objectstore`): ``'serial'``, ``'prebuffer'``
+or ``'ranged'``; None or ``'auto'`` is ``prebuffer`` on a remote store and
+``serial`` on a local one.
+
+Not ported yet (each raises ``NotImplementedError``): JAX-process and
+elastic sharding.
 """
 
 from __future__ import annotations
@@ -123,7 +132,9 @@ from petastorm_tpu_torch.filters import (FiltersPredicate,
                                          filter_column_names,
                                          normalize_filters,
                                          validate_filter_types)
-from petastorm_tpu_torch.fs import urls_to_path_or_paths
+from petastorm_tpu_torch.fs import (FilesystemFactory,
+                                    get_filesystem_and_path_or_paths,
+                                    normalize_dataset_url_or_urls)
 from petastorm_tpu_torch.health import (DEFAULT_STALL_AFTER_S, DebugServer,
                                         HealthMonitor, PipelineWatchdog,
                                         build_flight_record,
@@ -136,6 +147,7 @@ from petastorm_tpu_torch.lineage import (BatchProvenance, CoverageAuditor,
                                          validate_decode_error_policy)
 from petastorm_tpu_torch.lineage import replay as _lineage_replay
 from petastorm_tpu_torch.ngram import NGram
+from petastorm_tpu_torch.objectstore import resolve_remote_read
 from petastorm_tpu_torch.ops.decode import decode_raw_host, plan_device_decode
 from petastorm_tpu_torch.predicates import in_reduce
 from petastorm_tpu_torch.readers.batch_worker import (BatchResultsReader,
@@ -168,10 +180,8 @@ logger = logging.getLogger(__name__)
 
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
-_UNPORTED = {name: later for later, names in (
-    ('remote object stores', ('remote_read', 'storage_options')),
-    ('multi-GPU sharding', ('shard_by_jax_process', 'elastic')))
-    for name in names}
+_UNPORTED = {'shard_by_jax_process': 'multi-GPU sharding',
+             'elastic': 'multi-GPU sharding'}
 
 
 def _refuse_unported(factory, options):
@@ -307,15 +317,16 @@ def _relax_hinted_shapes(schema, decode_hints, stored_schema):
     return Unischema(schema._name, fields)
 
 
-def _single_path(factory, dataset_url):
-    """The path of one store; a URL list is refused with a pointer to
-    ``make_batch_reader``."""
-    path = urls_to_path_or_paths(dataset_url)
-    if isinstance(path, list):
+def _resolve_store(factory, dataset_url, storage_options, single=True):
+    """``(path or paths, filesystem factory)`` of the store's URL (a list of
+    file URLs only where ``single`` is False: ``make_batch_reader``)."""
+    _, path, filesystem_factory = get_filesystem_and_path_or_paths(
+        normalize_dataset_url_or_urls(dataset_url), storage_options)
+    if single and isinstance(path, list):
         raise ValueError('{} supports a single dataset url; a list of file '
                          'urls is only supported by make_batch_reader'
                          .format(factory))
-    return path
+    return path, filesystem_factory
 
 
 def make_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -331,9 +342,11 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 metrics_interval=0, metrics_out=None, slo=None,
                 debug_port=None, stall_timeout=0, flight_record_dir=None,
                 autotune=None, retry=None, hedge=None, worker_recovery=None,
-                **unported):
+                storage_options=None, remote_read=None, **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
-    (``file://`` or a path). ``schema_fields``: an :class:`NGram` (window
+    (a path, ``file://``, ``s3://``, ``gs://``, ``hdfs://`` or
+    ``memory://``; ``storage_options`` go to its filesystem).
+    ``schema_fields``: an :class:`NGram` (window
     chunks, or ``{offset: namedtuple}`` windows under a row predicate,
     residual filters or a transform), a list of field names, regexes or
     fields, or None for every field (one namedtuple per row).
@@ -436,12 +449,20 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     worker that died between an item's payload and its accounting frame
     gets that item sent again (at least once). ``PETASTORM_TPU_CHAOS``
     (:mod:`~petastorm_tpu_torch.faultfs`) arms the seeded fault injector
-    under the workers' reads."""
+    under the workers' reads.
+
+    ``remote_read``: the workers' read plane, ``'serial'`` (plain reads),
+    ``'prebuffer'`` (pyarrow coalesces a row group's column chunks) or
+    ``'ranged'`` (the footer's plan of byte ranges fetched in parallel, with
+    retry and hedge per range); None or ``'auto'``: ``prebuffer`` on a
+    remote store, ``serial`` on a local one."""
     _refuse_unported('make_reader', unported)
     autotune = resolve_autotune(autotune)
     retry, hedge, recovery = _resolve_resilience(retry, hedge,
                                                  worker_recovery)
-    path = _single_path('make_reader', dataset_url)
+    remote_read = resolve_remote_read(remote_read)
+    path, filesystem_factory = _resolve_store('make_reader', dataset_url,
+                                              storage_options)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
@@ -462,7 +483,9 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune, retry=retry, hedge=hedge)
+                  autotune_options=autotune, retry=retry, hedge=hedge,
+                  filesystem_factory=filesystem_factory,
+                  remote_read=remote_read)
 
 
 def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
@@ -480,7 +503,9 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          metrics_interval=0, metrics_out=None, slo=None,
                          debug_port=None, stall_timeout=0,
                          flight_record_dir=None, autotune=None, retry=None,
-                         hedge=None, worker_recovery=None, **unported):
+                         hedge=None, worker_recovery=None,
+                         storage_options=None, remote_read=None,
+                         **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
@@ -492,16 +517,18 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
     in :func:`make_reader` (a policy other than ``'raise'`` declines device
     decode); a whole row group's columns are cached after the transform,
     so a hit skips the decode and the transform. NGram is not
-    supported. ``retry``, ``hedge`` and ``worker_recovery`` as in
-    :func:`make_reader`."""
+    supported. ``retry``, ``hedge``, ``worker_recovery``,
+    ``storage_options`` and ``remote_read`` as in :func:`make_reader`."""
     _refuse_unported('make_columnar_reader', unported)
     autotune = resolve_autotune(autotune)
     retry, hedge, recovery = _resolve_resilience(retry, hedge,
                                                  worker_recovery)
+    remote_read = resolve_remote_read(remote_read)
     if isinstance(schema_fields, NGram):
         raise ValueError('NGram is not supported by make_columnar_reader; use '
                          'make_reader for windowed sequence assembly')
-    path = _single_path('make_columnar_reader', dataset_url)
+    path, filesystem_factory = _resolve_store('make_columnar_reader',
+                                              dataset_url, storage_options)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
     tracer, trace_export = _make_tracer(trace)
@@ -521,7 +548,9 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune, retry=retry, hedge=hedge)
+                  autotune_options=autotune, retry=retry, hedge=hedge,
+                  filesystem_factory=filesystem_factory,
+                  remote_read=remote_read)
 
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
@@ -537,26 +566,32 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       metrics_interval=0, metrics_out=None, slo=None,
                       debug_port=None, stall_timeout=0,
                       flight_record_dir=None, autotune=None, retry=None,
-                      hedge=None, worker_recovery=None, **unported):
+                      hedge=None, worker_recovery=None, storage_options=None,
+                      remote_read=None, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
-    (read in the caller's order). Yields one namedtuple of numpy column
-    arrays per row group (``batched_output``), as arrow stores the columns:
-    codecs are not decoded, a null-bearing integer column is float64 with
-    NaN, a fixed-shape list column is ``(n, *shape)``.
+    (read in the caller's order; all on one filesystem). Yields one
+    namedtuple of numpy column arrays per row group (``batched_output``),
+    as arrow stores the columns: codecs are not decoded, a null-bearing
+    integer column is float64 with NaN, a fixed-shape list column is
+    ``(n, *shape)``.
     ``schema_fields``: a list of regexes or None. ``transform_spec.func``
     receives a pandas DataFrame, ``device=True`` or not. Selection by
     ``predicate``, ``filters`` and ``cur_shard``/``shard_count``, the pool,
     readahead, the cache, lineage, ``on_decode_error``, the observability,
     health and autotune options as in :func:`make_reader` (a process pool
     sends each row group's table as one Arrow IPC stream; the shared cache
-    keeps it as one). ``retry``, ``hedge`` and ``worker_recovery`` as in
-    :func:`make_reader`."""
+    keeps it as one). ``retry``, ``hedge``, ``worker_recovery``,
+    ``storage_options`` and ``remote_read`` as in :func:`make_reader`."""
     _refuse_unported('make_batch_reader', unported)
     autotune = resolve_autotune(autotune)
     retry, hedge, recovery = _resolve_resilience(retry, hedge,
                                                  worker_recovery)
+    remote_read = resolve_remote_read(remote_read)
+    path, filesystem_factory = _resolve_store(
+        'make_batch_reader', dataset_url_or_urls, storage_options,
+        single=False)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -569,8 +604,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size,
                       ArrowTableSerializer(), zmq_copy_buffers,
                       profiling_enabled, tracer, recovery)
-    return Reader(urls_to_path_or_paths(dataset_url_or_urls), schema_fields,
-                  mode='batch', pool=pool, num_epochs=num_epochs,
+    return Reader(path, schema_fields, mode='batch', pool=pool,
+                  num_epochs=num_epochs,
                   shuffle_row_groups=shuffle_row_groups, seed=seed,
                   transform_spec=transform_spec, predicate=predicate,
                   filters=filters, cur_shard=cur_shard,
@@ -580,7 +615,9 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                   metrics_interval=metrics_interval, metrics_out=metrics_out,
                   slo=slo, debug_port=debug_port, stall_timeout=stall_timeout,
                   flight_record_dir=flight_record_dir,
-                  autotune_options=autotune, retry=retry, hedge=hedge)
+                  autotune_options=autotune, retry=retry, hedge=hedge,
+                  filesystem_factory=filesystem_factory,
+                  remote_read=remote_read)
 
 
 def _view(stored, schema_fields):
@@ -641,7 +678,7 @@ class Reader:
                  trace_export=None, metrics_interval=0, metrics_out=None,
                  slo=None, debug_port=None, stall_timeout=0,
                  flight_record_dir=None, autotune_options=None, retry=None,
-                 hedge=None):
+                 hedge=None, filesystem_factory=None, remote_read=None):
         if stall_timeout and stall_timeout < 0:
             raise ValueError('stall_timeout must be >= 0, got '
                              '{!r}'.format(stall_timeout))
@@ -695,8 +732,17 @@ class Reader:
         #: readahead threads, and of a staging thread given
         #: ``prefetch_to_device(..., health=reader.health)``
         self.health = HealthMonitor()
+        #: the path of the store (or the list of its files) on its
+        #: filesystem, as the URL gave it
         self.dataset_path = dataset_path
-        self.stored_schema, was_stored = infer_or_load_unischema(dataset_path)
+        if filesystem_factory is None:
+            filesystem_factory = FilesystemFactory('file')
+        #: the picklable maker of the store's filesystem (each worker calls
+        #: it for its own)
+        self._filesystem_factory = filesystem_factory
+        filesystem = self._filesystem = filesystem_factory()
+        self.stored_schema, was_stored = infer_or_load_unischema(
+            dataset_path, filesystem)
         if mode != 'batch' and not was_stored:
             raise RuntimeError(
                 'Dataset at {} is missing petastorm_tpu metadata. If this is '
@@ -727,7 +773,8 @@ class Reader:
         # footers read while listing a metadata-less store, kept for the
         # statistics pass of ``filters``
         self._footers = {}
-        pieces = load_row_groups(dataset_path, footer_cache=self._footers)
+        pieces = load_row_groups(dataset_path, footer_cache=self._footers,
+                                 filesystem=filesystem)
         if not pieces:
             raise NoDataAvailableError('No row groups found at {}'.format(
                 dataset_path))
@@ -877,7 +924,8 @@ class Reader:
             latency=latency_on, health=self.health.enabled,
             readahead_controlled=autotune_active,
             # the factory's resolved options (None: off)
-            retry=retry, hedge=hedge)
+            retry=retry, hedge=hedge, filesystem_factory=filesystem_factory,
+            remote_read=remote_read, cwd=os.getcwd())
         on_ventilate = None
         if self.lineage.enabled:
             # the ventilation ledger is the audit's expected side: what
@@ -940,7 +988,7 @@ class Reader:
                 return None
             return profiler.get_calibration(
                 self.dataset_path, self.pieces, self._view, mode=mode,
-                device=options['device'])
+                device=options['device'], filesystem=self._filesystem)
 
         self._controller = PipelineController(
             ReaderActuators(pool, ventilator=pool.ventilation,
@@ -1034,7 +1082,8 @@ class Reader:
             # for the pieces that pass; then conservative on statistics,
             # with the row-exact residual run on the workers
             stats = RowGroupStatsEvaluator(stored,
-                                           preloaded_footers=self._footers)
+                                           preloaded_footers=self._footers,
+                                           filesystem=self._filesystem)
             indexed = [(i, p) for i, p in indexed
                        if stats.piece_maybe_matches(p, conjunctions,
                                                     partition_only=True)]
@@ -1045,7 +1094,8 @@ class Reader:
                 filters_predicate = FiltersPredicate(conjunctions)
 
         if rowgroup_selector is not None:
-            indexes = get_row_group_indexes(self.dataset_path)
+            indexes = get_row_group_indexes(self.dataset_path,
+                                            self._filesystem)
             missing = (set(rowgroup_selector.get_index_names())
                        - set(indexes))
             if missing:
@@ -1404,7 +1454,7 @@ class Reader:
         calibration = profiler.get_calibration(
             self.dataset_path, self.pieces, self._view, mode=calibrate,
             sample_row_groups=sample_row_groups,
-            device=self._profile_device)
+            device=self._profile_device, filesystem=self._filesystem)
         self.calibration = calibration
         spans = self.tracer.spans() if self.tracer is not None else None
         result = profiler.build_profile(

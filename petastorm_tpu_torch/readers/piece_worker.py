@@ -65,7 +65,18 @@ dropped before each retry. The retry and hedge counters drain into the
 worker's counts at every read and at the readahead's take. With chaos
 unarmed a worker lets pyarrow open each file by path, as before.
 
-Ranged reads and pod observability (per-attempt spans) are not ported yet.
+The read planes (JAX ``piece_worker.py:183-204, 376-387, 442-448,
+474-487``): a worker's filesystem comes from the spec's
+:class:`~petastorm_tpu_torch.fs.FilesystemFactory` (resolved afresh in a
+worker interpreter), and its ``remote_read`` mode is the spec's, else
+``serial`` on a local protocol and ``prebuffer`` on a remote one.
+``prebuffer`` opens each file with pyarrow's ``pre_buffer=True``;
+``ranged`` reads every row group, the readahead's too, through one
+:class:`~petastorm_tpu_torch.objectstore.ParallelRangeReader` per worker,
+whose per-range retry and hedge take the place of the whole-row-group
+ones, and whose ``io_range_*`` counters, ``range_fetch`` spans and
+``io_range`` latency drain into the worker's at every read. A shared
+cache's ``peer_fetch`` spans and latency drain at every cached load.
 """
 
 from __future__ import annotations
@@ -84,15 +95,22 @@ import pyarrow.parquet as pq
 from petastorm_tpu_torch import faultfs
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.fs import LOCAL_FILESYSTEM
-from petastorm_tpu_torch.latency import LatencyDeltas
+from petastorm_tpu_torch.latency import (LatencyDeltas,
+                                         pod_observations_enabled)
 from petastorm_tpu_torch.lineage import (NEVER_QUARANTINE, LineageEnvelope,
                                          Provenance, make_quarantine_record)
+from petastorm_tpu_torch.objectstore import (ParallelRangeReader,
+                                             resolve_remote_read)
 from petastorm_tpu_torch.readers.readahead import RowGroupReadahead
 from petastorm_tpu_torch.resilience import ResilientIO
 
 #: Open Parquet files a worker keeps (per reading thread): many-file stores
 #: would otherwise hold a handle and a footer per file ever read.
 FILE_HANDLE_CACHE_SIZE = 32
+
+#: Protocols that read from local disk or memory: their automatic read
+#: mode is ``serial``; every other protocol's is ``prebuffer``.
+_LOCAL_PROTOCOLS = frozenset({'file', 'local', 'memory'})
 
 #: Row offsets a quarantine record lists at most: a row group corrupt
 #: throughout must not ship thousands of offsets an item.
@@ -125,32 +143,40 @@ class DecodeErrorSink:
 class FileHandleCache:
     """A small LRU of open :class:`pq.ParquetFile` handles that closes what
     it evicts. One reading thread owns an instance (a handle must not serve
-    two reads at once); the lock guards only the bookkeeping."""
+    two reads at once); the lock guards only the bookkeeping.
 
-    def __init__(self, open_fn, max_size: int = FILE_HANDLE_CACHE_SIZE):
+    Entries key on ``(filesystem identity, path)`` (JAX :59-111):
+    ``fs_key()`` names the filesystem ``open_fn`` resolves to now, so a
+    handle opened through a chaos wrapper and one opened clean never serve
+    each other."""
+
+    def __init__(self, open_fn, max_size: int = FILE_HANDLE_CACHE_SIZE,
+                 fs_key: Optional[Callable[[], object]] = None):
         if max_size < 1:
             raise ValueError('max_size must be >= 1, got {}'.format(max_size))
         self._open_fn = open_fn
+        self._fs_key = fs_key if fs_key is not None else lambda: None
         self._max_size = max_size
-        self._entries: 'OrderedDict[str, pq.ParquetFile]' = OrderedDict()
+        self._entries: 'OrderedDict[tuple, pq.ParquetFile]' = OrderedDict()
         self._lock = threading.Lock()
 
     def get(self, path: str) -> pq.ParquetFile:
+        key = (self._fs_key(), path)
         with self._lock:
-            handle = self._entries.get(path)
+            handle = self._entries.get(key)
             if handle is not None:
-                self._entries.move_to_end(path)
+                self._entries.move_to_end(key)
                 return handle
         handle = self._open_fn(path)
         evicted = []
         with self._lock:
-            raced = self._entries.get(path)
+            raced = self._entries.get(key)
             if raced is not None:
-                self._entries.move_to_end(path)
+                self._entries.move_to_end(key)
                 evicted.append(handle)   # lost a race: keep the cached one
                 handle = raced
             else:
-                self._entries[path] = handle
+                self._entries[key] = handle
                 while len(self._entries) > self._max_size:
                     evicted.append(self._entries.popitem(last=False)[1])
         for old in evicted:
@@ -158,11 +184,13 @@ class FileHandleCache:
         return handle
 
     def invalidate(self, path: str) -> None:
-        """Close and drop the handle of ``path``: a handle that just failed
-        mid-read may be stuck mid-stream, so a retry reopens it."""
+        """Close and drop every handle of ``path``, whatever filesystem
+        opened it: a handle that just failed mid-read may be stuck
+        mid-stream, so a retry reopens it."""
         with self._lock:
-            handle = self._entries.pop(path, None)
-        if handle is not None:
+            handles = [self._entries.pop(k) for k in list(self._entries)
+                       if k[1] == path]
+        for handle in handles:
             handle.close()
 
     def __len__(self) -> int:
@@ -171,7 +199,7 @@ class FileHandleCache:
 
     def __contains__(self, path: str) -> bool:
         with self._lock:
-            return path in self._entries
+            return any(k[1] == path for k in self._entries)
 
     def close_all(self) -> None:
         with self._lock:
@@ -189,16 +217,24 @@ class _SourceParquetFile(pq.ParquetFile):
 
 
 class PlainReads:
-    """The loads' ``io`` when none is given: a fresh handle a read, no
-    readahead, no cache, no lineage, and every failure raised."""
+    """The loads' ``io`` when none is given: a fresh handle a read through
+    ``filesystem`` (None: by path on the host's), no readahead, no cache,
+    no lineage, and every failure raised."""
 
     tolerant = False
     tracks_offsets = False
     offsets = None
 
-    @staticmethod
-    def read(piece, columns: List[str]):
-        return pq.ParquetFile(piece.path).read_row_group(piece.row_group,
+    def __init__(self, filesystem=None):
+        self._filesystem = filesystem
+
+    def read(self, piece, columns: List[str]):
+        fs = self._filesystem
+        if fs is None or fs is LOCAL_FILESYSTEM:
+            return pq.ParquetFile(piece.path).read_row_group(
+                piece.row_group, columns=columns)
+        with fs.open(piece.path, 'rb') as source:
+            return pq.ParquetFile(source).read_row_group(piece.row_group,
                                                          columns=columns)
 
     @staticmethod
@@ -295,13 +331,21 @@ class PieceWorkerSpec:
         dict, or None for no retry.
     :param hedge: the resolved hedge options
         (:func:`~petastorm_tpu_torch.resilience.resolve_hedge`), or None.
+    :param filesystem_factory: the store's
+        :class:`~petastorm_tpu_torch.fs.FilesystemFactory` (None: the
+        host's filesystem), called once a worker.
+    :param remote_read: ``'serial'``, ``'prebuffer'``, ``'ranged'``, or None
+        for the protocol's default.
+    :param cwd: the reader's working directory, against which a worker
+        opens a relative local path.
     """
 
     def __init__(self, load, plan, cache, io_readahead, key_format,
                  lineage=False, on_decode_error='raise', shard=-1,
                  dataset='', file_indexes=None, windows=False, trace=False,
                  latency=False, health=True, readahead_controlled=False,
-                 retry=None, hedge=None):
+                 retry=None, hedge=None, filesystem_factory=None,
+                 remote_read=None, cwd=None):
         self.load = load
         self.plan = plan
         self.cache = cache
@@ -319,6 +363,9 @@ class PieceWorkerSpec:
         self.readahead_controlled = readahead_controlled
         self.retry = retry
         self.hedge = hedge
+        self.filesystem_factory = filesystem_factory
+        self.remote_read = remote_read
+        self.cwd = cwd
 
     def make_worker(self, worker_id: int = 0) -> 'PieceWorker':
         return PieceWorker(self, worker_id)
@@ -331,7 +378,9 @@ class PieceWorkerSpec:
                                self.key_format,
                                on_decode_error=self.on_decode_error,
                                health=False, retry=self.retry,
-                               hedge=self.hedge)
+                               hedge=self.hedge,
+                               filesystem_factory=self.filesystem_factory,
+                               remote_read=self.remote_read, cwd=self.cwd)
 
 
 class PieceWorker:
@@ -383,19 +432,45 @@ class PieceWorker:
         self._items_done = 0
         # chaos wraps the workers' filesystem only: reader construction
         # (metadata, footers) stays clean
-        self._filesystem = faultfs.maybe_wrap(LOCAL_FILESYSTEM)
+        factory = getattr(spec, 'filesystem_factory', None)
+        self._filesystem = faultfs.maybe_wrap(
+            factory() if factory is not None else LOCAL_FILESYSTEM)
+        self._cwd = getattr(spec, 'cwd', None)
         retry, hedge = getattr(spec, 'retry', None), getattr(spec, 'hedge',
                                                              None)
         #: retry and hedge under every read (None: both off)
         self.resilience = (ResilientIO(retry, hedge) if retry or hedge
                            else None)
-        self._files = FileHandleCache(self._open_parquet)
+        # the read plane: the spec's mode, else serial on a local protocol
+        # (a chaos wrapper forwards its inner filesystem's) and prebuffer
+        # on a remote one
+        protocol = getattr(self._filesystem, 'protocol', '')
+        if isinstance(protocol, (tuple, list)):
+            protocol = protocol[0] if protocol else ''
+        mode = resolve_remote_read(getattr(spec, 'remote_read', None))
+        if mode is None:
+            mode = 'serial' if protocol in _LOCAL_PROTOCOLS else 'prebuffer'
+        #: ``'serial'``, ``'prebuffer'`` or ``'ranged'``
+        self.remote_read = mode
+        self._pre_buffer = mode == 'prebuffer'
+        observe = pod_observations_enabled()
+        #: the worker's range reader, shared with its readahead thread
+        #: (every read builds its own buffer and opens its own handles);
+        #: None unless ``ranged``
+        self.range_reader = (ParallelRangeReader(
+            self._filesystem, resilience=self.resilience,
+            observe_spans=observe and self.tracing_enabled,
+            observe_latency=observe and self.latency is not None)
+            if mode == 'ranged' else None)
+        self._files = FileHandleCache(self._open_parquet,
+                                      fs_key=lambda: id(self._filesystem))
         self._prefetch_files: Optional[FileHandleCache] = None
         #: the :class:`RowGroupReadahead`, or None without readahead
         self.readahead: Optional[RowGroupReadahead] = None
         controlled = getattr(spec, 'readahead_controlled', False)
         if spec.io_readahead or controlled:
-            self._prefetch_files = FileHandleCache(self._open_parquet)
+            self._prefetch_files = FileHandleCache(
+                self._open_parquet, fs_key=lambda: id(self._filesystem))
             # the background thread beats its own entity: a wedged
             # prefetch read is the readahead's, not the worker's
             entity = 'readahead-{}'.format(worker_id)
@@ -650,6 +725,14 @@ class PieceWorker:
             for name, n in take_events().items():
                 if n:
                     self.record_count(name, n)
+            # the pod tier's peer fetches: spans and latency
+            take_spans = getattr(cache, 'take_spans', None)
+            for span in take_spans() if take_spans is not None else ():
+                self.record_span(*span)
+            take_latency = getattr(cache, 'take_latency', None)
+            deltas = take_latency() if take_latency is not None else None
+            if deltas and self.latency is not None:
+                self.latency.absorb(deltas)
             self.record_gauge('shared_cache_bytes', cache.occupancy_bytes())
         return value
 
@@ -674,18 +757,38 @@ class PieceWorker:
         finally:
             self._drain_resilience_events()
 
+    @property
+    def filesystem(self):
+        """The filesystem this worker reads through (chaos-wrapped when a
+        scenario is armed)."""
+        return self._filesystem
+
+    def _open_path(self, path: str) -> str:
+        """What the filesystem opens for ``path``: a relative local path
+        made absolute against the reader's working directory (the path
+        itself stays the reader's, in keys and records)."""
+        if getattr(self._filesystem, 'protocol', '') == 'file':
+            return LOCAL_FILESYSTEM.absolute(path, self._cwd)
+        return path
+
     def _open_parquet(self, path: str) -> pq.ParquetFile:
-        """A parquet handle of ``path``: pyarrow opens a local file by
-        path; a chaos-wrapped filesystem hands it a file object whose
-        reads the injector sees."""
+        """A parquet handle of ``path`` (``pre_buffer`` under
+        ``prebuffer``): pyarrow opens a local file by path; any other
+        filesystem, a chaos wrapper included, hands it a file object whose
+        reads the filesystem (and the injector) sees."""
+        path = self._open_path(path)
         if self._filesystem is LOCAL_FILESYSTEM:
-            return pq.ParquetFile(path)
+            return pq.ParquetFile(path, pre_buffer=self._pre_buffer)
         source = self._filesystem.open(path, 'rb')
         try:
-            return _SourceParquetFile(source)
+            return _SourceParquetFile(source, pre_buffer=self._pre_buffer)
         except BaseException:
             source.close()
             raise
+
+    def _ranged_read(self, piece, columns: List[str]):
+        return self.range_reader.read_row_group(
+            self._open_path(piece.path), piece.row_group, columns=columns)
 
     def _resilient_read(self, piece, columns: List[str]):
         """One row-group read under the hedge (inner) and retry (outer)
@@ -693,7 +796,10 @@ class PieceWorker:
         thread, closed when it ends: an abandoned loser keeps reading until
         its blocking call returns, and a handle must never serve two reads.
         Under retry alone the cached handle serves, and is dropped before
-        each retry."""
+        each retry. Under ``ranged`` the range reader retries and hedges
+        each range instead: a straggling range is hedged alone."""
+        if self.range_reader is not None:
+            return self._ranged_read(piece, columns)
         resilience = self.resilience
         if resilience is None:
             return self._files.get(piece.path).read_row_group(
@@ -723,7 +829,12 @@ class PieceWorker:
         """The background thread's read, through its own handles, never the
         worker's; retried under the worker's policy (a transient error must
         not surface as a failed prefetch). Hedging stays on the worker's
-        own reads: the background read is already off its path."""
+        own reads: the background read is already off its path. Under
+        ``ranged`` the shared range reader reads, with its own per-range
+        retry and hedge."""
+        if self.range_reader is not None:
+            return self._ranged_read(piece, columns)
+
         def read():
             return self._prefetch_files.get(piece.path).read_row_group(
                 piece.row_group, columns=columns)
@@ -741,7 +852,18 @@ class PieceWorker:
     def _drain_resilience_events(self) -> None:
         """The retry and hedge counters into this worker's counts (worker
         thread only: the hedge and readahead threads count into the
-        resilience object's own locked dict)."""
+        resilience object's own locked dict), and the range reader's
+        ``io_range_*`` counters, spans and latency."""
+        reader = self.range_reader
+        if reader is not None:
+            for name, n in reader.take_events().items():
+                if n:
+                    self.record_count(name, n)
+            for span in reader.take_spans():
+                self.record_span(*span)
+            deltas = reader.take_latency()
+            if deltas and self.latency is not None:
+                self.latency.absorb(deltas)
         if self.resilience is not None:
             for name, n in self.resilience.take_events().items():
                 if n:

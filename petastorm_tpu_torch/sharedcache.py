@@ -33,9 +33,23 @@ serves the filled value as it is and counts ``shared_put_failures``; the
 Kill switch: ``PETASTORM_TPU_SHARED_CACHE=0`` makes ``cache_type='shared'``
 a :class:`~petastorm_tpu_torch.cache.NullCache`: no attachment, no files.
 
-Not ported yet: the pod tier (``peers``, the peer fetch and server) comes
-with remote object stores, ``take_spans`` and
-``take_latency`` with tracing.
+The pod tier (JAX ``sharedcache.py:539-600, 952-1222, 1353-1460``): a
+root that calls :meth:`SharedRowGroupCache.serve_peers` answers ``GET
+/peercache/<digest>`` on ``127.0.0.1`` with the raw bytes of a resident
+segment (:class:`PeerCacheServer`; 404 on a miss). A root made with
+``peers=['host:port', ...]`` asks its peers on a local miss before it
+fills: a fetched segment is validated (header, trailer, frame table),
+republished in the local tiers and counted as ``peer_hits``, never
+``fills``, so the sum of ``fills`` over a pod's roots counts each row group
+decoded once per pod. A peer that errs or times out is skipped for
+``peer_dead_cooldown_s`` (``peer_skipped_dead``); a pod that cannot serve
+degrades to a local fill, never a failed read. ``peer_hedge_s`` races the
+peer fetch against the local fill (a :class:`~petastorm_tpu_torch.
+resilience.HedgedRead`; a once-gate keeps the fill single). Each peer
+attempt is a ``peer_fetch`` span and latency observation, drained by
+:meth:`~SharedRowGroupCache.take_spans` and :meth:`~SharedRowGroupCache.
+take_latency` (off under ``PETASTORM_TPU_PODOBS=0``). JAX's trace and
+clock headers on the peer protocol come with the pod observability plane.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from typing import Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.cache import CacheBase
 from petastorm_tpu_torch.faultfs import maybe_inject_cache_fault
+from petastorm_tpu_torch.latency import bucket_index, pod_observations_enabled
 
 logger = logging.getLogger(__name__)
 
@@ -475,17 +490,32 @@ class SharedRowGroupCache(CacheBase):
     :param lock_timeout_s: how long a miss waits for another process's
         fill before filling itself.
     :param cleanup: :meth:`cleanup` removes both tiers.
+    :param peers: the pod tier: ``['host:port', ...]``, the
+        :meth:`serve_peers` endpoints of other hosts' roots, asked on a
+        local miss before filling.
+    :param peer_timeout_s: the HTTP timeout of one peer fetch.
+    :param peer_hedge_s: None: peers, then the fill, in turn; a number: the
+        peer fetch races the local fill, which starts after this many
+        seconds.
+    :param peer_dead_cooldown_s: how long a peer that erred is skipped.
 
     Instances pickle to worker interpreters: the copy re-attaches to the
     same tiers with fresh local state.
     """
+
+    #: Bound on undrained ``peer_fetch`` spans.
+    MAX_PENDING_SPANS = 2048
 
     def __init__(self, path: str, size_limit_bytes: int,
                  mem_size_limit_bytes: Optional[int] = None,
                  mem_dir: Optional[str] = None,
                  attach_limit: int = _DEFAULT_ATTACH_LIMIT,
                  lock_timeout_s: float = 30.0,
-                 cleanup: bool = False):
+                 cleanup: bool = False,
+                 peers: Optional[List[str]] = None,
+                 peer_timeout_s: float = 2.0,
+                 peer_hedge_s: Optional[float] = None,
+                 peer_dead_cooldown_s: float = 30.0):
         if not path:
             raise ValueError("cache_type='shared' needs a cache_location "
                              'directory shared by every attaching reader')
@@ -501,6 +531,10 @@ class SharedRowGroupCache(CacheBase):
         self._attach_limit = max(1, attach_limit)
         self._lock_timeout_s = lock_timeout_s
         self._cleanup_on_exit = cleanup
+        self._peers = list(peers or [])
+        self._peer_timeout_s = peer_timeout_s
+        self._peer_hedge_s = peer_hedge_s
+        self._peer_dead_cooldown_s = float(peer_dead_cooldown_s)
         self._init_runtime()
 
     def _init_runtime(self) -> None:
@@ -520,10 +554,28 @@ class SharedRowGroupCache(CacheBase):
         os.makedirs(self._counters_dir, exist_ok=True)
         self._attached: 'OrderedDict[str, _Attachment]' = OrderedDict()
         self._events = {'shared_hits': 0, 'shared_misses': 0,
-                        'shared_evictions': 0, 'shared_put_failures': 0}
+                        'shared_evictions': 0, 'shared_put_failures': 0,
+                        'shared_peer_hits': 0, 'shared_peer_misses': 0,
+                        'shared_peer_errors': 0,
+                        'shared_peer_skipped_dead': 0}
         self._totals = {'hits': 0, 'misses': 0, 'fills': 0, 'evictions': 0,
                         'spills': 0, 'corrupt_dropped': 0, 'lock_waits': 0,
-                        'lock_steals': 0, 'put_failures': 0}
+                        'lock_steals': 0, 'put_failures': 0,
+                        'peer_hits': 0, 'peer_misses': 0, 'peer_errors': 0,
+                        'peer_bytes': 0, 'peer_skipped_dead': 0}
+        # a peer that erred or timed out is skipped until its deadline
+        self._peer_dead_until: Dict[str, float] = {}
+        self._observe_pod = pod_observations_enabled()
+        self._pod_spans: list = []
+        self._pod_latency: Dict[str, dict] = {}
+        # the pod tier's hedge: "fetch from a peer" against "fill here"
+        self._peer_hedge = None
+        if self._peers and self._peer_hedge_s is not None:
+            from petastorm_tpu_torch.resilience import HedgedRead
+            self._peer_hedge = HedgedRead(
+                dict(threshold_s=float(self._peer_hedge_s)),
+                on_event=self._peer_hedge_event)
+        self._peer_server: Optional['PeerCacheServer'] = None
         self._events_since_flush = 0
         self._counter_path = os.path.join(
             self._counters_dir,
@@ -572,7 +624,11 @@ class SharedRowGroupCache(CacheBase):
                 'mem_dir': self._mem_dir_override,
                 'attach_limit': self._attach_limit,
                 'lock_timeout_s': self._lock_timeout_s,
-                'cleanup': self._cleanup_on_exit}
+                'cleanup': self._cleanup_on_exit,
+                'peers': self._peers,
+                'peer_timeout_s': self._peer_timeout_s,
+                'peer_hedge_s': self._peer_hedge_s,
+                'peer_dead_cooldown_s': self._peer_dead_cooldown_s}
 
     def __setstate__(self, state):
         self._path = state['path']
@@ -582,6 +638,10 @@ class SharedRowGroupCache(CacheBase):
         self._attach_limit = state['attach_limit']
         self._lock_timeout_s = state['lock_timeout_s']
         self._cleanup_on_exit = state['cleanup']
+        self._peers = state.get('peers', [])
+        self._peer_timeout_s = state.get('peer_timeout_s', 2.0)
+        self._peer_hedge_s = state.get('peer_hedge_s')
+        self._peer_dead_cooldown_s = state.get('peer_dead_cooldown_s', 30.0)
         self._init_runtime()
 
     # -- lookup ----------------------------------------------------------------
@@ -785,6 +845,201 @@ class SharedRowGroupCache(CacheBase):
                 return None
         return None
 
+    # -- pod tier (peer caches) ----------------------------------------------
+
+    def _bump(self, total_key: str, event_key: str, n: int = 1) -> None:
+        with self._lock:
+            self._totals[total_key] = self._totals.get(total_key, 0) + n
+            self._events[event_key] = self._events.get(event_key, 0) + n
+
+    def _peer_hedge_event(self, name: str, n: int = 1) -> None:
+        # the pod hedge's io_hedges / io_hedge_wins / io_hedge_losses, in
+        # the cache's own counter families
+        short = name.replace('io_', 'peer_')
+        self._bump(short, 'shared_' + short, n)
+
+    def _observe_peer_fetch(self, peer: str, start_s: float, outcome: str,
+                            nbytes: int) -> None:
+        """One peer attempt as a ``peer_fetch`` span and latency
+        observation; nothing under ``PETASTORM_TPU_PODOBS=0``."""
+        if not self._observe_pod:
+            return
+        dur_s = time.perf_counter() - start_s
+        span = ('peer_fetch', 'io', start_s, dur_s,
+                {'peer': peer, 'outcome': outcome, 'bytes': nbytes})
+        index = bucket_index(dur_s)
+        with self._lock:
+            if len(self._pod_spans) < self.MAX_PENDING_SPANS:
+                self._pod_spans.append(span)
+            entry = self._pod_latency.setdefault(
+                'peer_fetch', {'buckets': {}, 'sum': 0.0, 'count': 0})
+            entry['buckets'][index] = entry['buckets'].get(index, 0) + 1
+            entry['sum'] += dur_s
+            entry['count'] += 1
+
+    def take_spans(self) -> list:
+        """The ``peer_fetch`` spans (``(name, cat, start_s, dur_s, args)``)
+        since the last call."""
+        with self._lock:
+            spans, self._pod_spans = self._pod_spans, []
+        return spans
+
+    def take_latency(self) -> Optional[Dict[str, dict]]:
+        """The ``peer_fetch`` latency deltas since the last call, in the
+        ``LatencyDeltas.drain()`` shape; None when there are none."""
+        with self._lock:
+            latency, self._pod_latency = self._pod_latency, {}
+        return latency or None
+
+    def segment_bytes(self, digest: str) -> Optional[bytes]:
+        """The raw bytes of a resident segment, tier 0 first (the peer
+        server's read; None on a miss). A publisher replaces whole files,
+        so the bytes are a whole segment; the fetching peer validates them
+        all the same."""
+        for store in (self._mem, self._disk):
+            try:
+                with open(store.path_for(digest), 'rb') as f:
+                    return f.read()
+            except OSError:
+                continue
+        return None
+
+    def _mark_peer_dead(self, peer: str) -> None:
+        """Skip ``peer`` (counted ``peer_skipped_dead``) until
+        ``peer_dead_cooldown_s`` from now."""
+        if self._peer_dead_cooldown_s <= 0:
+            return
+        with self._lock:
+            self._peer_dead_until[peer] = (time.perf_counter()
+                                           + self._peer_dead_cooldown_s)
+
+    def _peer_fetch(self, digest: str):
+        """Ask each peer for ``digest`` in turn: download the segment,
+        validate it, republish it in the local tiers and attach it. Returns
+        the attached ``(payload,)`` or None. A 404 is an honest miss; any
+        other failure counts ``peer_errors``, opens the peer's cooldown and
+        moves on."""
+        import urllib.error
+        import urllib.request
+        for peer in self._peers:
+            with self._lock:
+                dead_until = self._peer_dead_until.get(peer)
+            if dead_until is not None:
+                if time.perf_counter() < dead_until:
+                    self._bump('peer_skipped_dead',
+                               'shared_peer_skipped_dead')
+                    continue
+                with self._lock:
+                    self._peer_dead_until.pop(peer, None)
+            url = 'http://{}/peercache/{}'.format(peer, digest)
+            tmp = None
+            nbytes = 0
+            attempt_start = time.perf_counter()
+            try:
+                with urllib.request.urlopen(
+                        url, timeout=self._peer_timeout_s) as resp:
+                    fd, tmp = tempfile.mkstemp(dir=self._path,
+                                               suffix='.peer')
+                    with os.fdopen(fd, 'wb') as out:
+                        while True:
+                            chunk = resp.read(1 << 20)
+                            if not chunk:
+                                break
+                            out.write(chunk)
+                            nbytes += len(chunk)
+                # validate before publishing: a torn transfer is dropped,
+                # never served
+                _kind, frames, mapping = read_segment(tmp)
+                for frame in frames:
+                    frame.release()
+                mapping.close()
+                self._mem.put_file(digest, tmp)
+            except urllib.error.HTTPError as e:
+                if e.code != 404:
+                    self._bump('peer_errors', 'shared_peer_errors')
+                    self._mark_peer_dead(peer)
+                    self._observe_peer_fetch(peer, attempt_start, 'error',
+                                             nbytes)
+                else:
+                    self._observe_peer_fetch(peer, attempt_start, 'miss',
+                                             nbytes)
+                continue
+            except (OSError, CorruptSegmentError, ValueError) as e:
+                logger.warning('peer-cache fetch %s failed (degrading to '
+                               'next peer / local fill): %s', url, e)
+                self._bump('peer_errors', 'shared_peer_errors')
+                self._mark_peer_dead(peer)
+                self._observe_peer_fetch(peer, attempt_start, 'error',
+                                         nbytes)
+                continue
+            finally:
+                if tmp is not None:
+                    try:
+                        os.remove(tmp)
+                    except OSError:
+                        pass
+            attached = self._try_attach(digest)
+            if attached is not None:
+                self._bump('peer_hits', 'shared_peer_hits')
+                with self._lock:
+                    self._totals['peer_bytes'] += nbytes
+                    self._peer_dead_until.pop(peer, None)
+                self._observe_peer_fetch(peer, attempt_start, 'hit', nbytes)
+                return attached
+            self._observe_peer_fetch(peer, attempt_start, 'miss', nbytes)
+        self._bump('peer_misses', 'shared_peer_misses')
+        return None
+
+    def serve_peers(self, port: int = 0) -> int:
+        """Start this root's pod endpoint (``GET /peercache/<digest>`` on
+        ``127.0.0.1``) and return its port, what other hosts list in their
+        ``peers``. Idempotent; :meth:`close` stops it."""
+        with self._lock:
+            server = self._peer_server
+        if server is not None:
+            return server.port
+        server = PeerCacheServer(self, port=port).start()
+        with self._lock:
+            if self._peer_server is None:
+                self._peer_server = server
+                server = None
+        if server is not None:    # lost a start race: keep the first
+            server.stop()
+        return self._peer_server.port
+
+    def _pod_fill(self, digest: str, fill_cache_func):
+        """A local miss with peers: the pod before the store. In turn, the
+        peers and then the fill; hedged, the peer fetch (primary) races the
+        fill (the hedge, started after ``peer_hedge_s``) and a once-gate
+        lets one fill through."""
+        if self._peer_hedge is None:
+            attached = self._peer_fetch(digest)
+            if attached is not None:
+                self._record(hit=False)   # a local miss the pod served
+                return attached[0]
+            return self._publish_fill(digest, fill_cache_func)
+        gate = {'mutex': threading.Lock(), 'done': False, 'value': None}
+
+        def gated_fill():
+            # the second arrival waits for the first fill under the mutex,
+            # and never fills (and counts) the row group again
+            with gate['mutex']:
+                if not gate['done']:
+                    gate['value'] = self._publish_fill(digest,
+                                                       fill_cache_func)
+                    gate['done'] = True
+                return gate['value']
+
+        def peers_then_fill():
+            attached = self._peer_fetch(digest)
+            if attached is not None:
+                self._record(hit=False)
+                return attached[0]
+            return gated_fill()
+        return self._peer_hedge.call(
+            peers_then_fill, hedge_fn=gated_fill,
+            description='peer_fill({})'.format(digest[:8]))
+
     # -- CacheBase -------------------------------------------------------------
 
     def get(self, key: str, fill_cache_func):
@@ -809,13 +1064,16 @@ class SharedRowGroupCache(CacheBase):
             if attached is not None:
                 self._record(hit=True)
                 return attached[0]
+            if self._peers:
+                return self._pod_fill(digest, fill_cache_func)
             return self._publish_fill(digest, fill_cache_func)
         finally:
             if got_lock:
                 self._unlock(digest)
 
     def _publish_fill(self, digest: str, fill_cache_func):
-        """Fill and publish: every ``fills`` count comes from here."""
+        """Fill and publish: every ``fills`` count comes from here, which
+        makes the sum of ``fills`` over a pod's roots its decode count."""
         value = fill_cache_func()
         self._record(hit=False)
         try:
@@ -929,7 +1187,8 @@ class SharedRowGroupCache(CacheBase):
     # -- lifecycle -------------------------------------------------------------
 
     def close(self) -> None:
-        """Flush the counters and release this instance's pins; idempotent.
+        """Flush the counters, stop the pod endpoint, wait (bounded) for a
+        pod hedge's loser, and release this instance's pins; idempotent.
         Mappings are not closed: payload views own them."""
         self._flush_counters()
         with self._lock:
@@ -937,6 +1196,11 @@ class SharedRowGroupCache(CacheBase):
                 return
             self._closed = True
             attached, self._attached = self._attached, OrderedDict()
+            server, self._peer_server = self._peer_server, None
+        if self._peer_hedge is not None:
+            self._peer_hedge.drain()
+        if server is not None:
+            server.stop()
         for att in attached.values():
             self._pins.unpin(att.pin_path)
 
@@ -947,3 +1211,90 @@ class SharedRowGroupCache(CacheBase):
         import shutil
         shutil.rmtree(self._mem.root, ignore_errors=True)
         shutil.rmtree(self._path, ignore_errors=True)
+
+
+# -- the pod's peer protocol -------------------------------------------------
+
+_HEX_DIGITS = frozenset('0123456789abcdef')
+
+
+class PeerCacheServer:
+    """One root's side of the pod protocol: ``GET /peercache/<digest>``
+    answers the raw bytes of a resident segment (tier 0 first), 404 on a
+    miss, 400 for a digest that is not hex (it becomes a file name), 500 on
+    a failed read (the fetching peer counts it and moves on). A threading
+    HTTP server on ``127.0.0.1`` with daemon request threads, stopped and
+    joined by :meth:`stop`. The fetching side validates every segment
+    before it republishes it."""
+
+    def __init__(self, cache: SharedRowGroupCache, port: int = 0):
+        self._cache = cache
+        self._requested_port = port
+        self._server = None
+        self._thread: Optional[threading.Thread] = None
+        #: the bound port (not the requested one when that was 0)
+        self.port: Optional[int] = None
+
+    def start(self) -> 'PeerCacheServer':
+        if self._server is not None:
+            return self
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                logger.debug('peer-cache endpoint: ' + fmt, *args)
+
+            def _reply(self, status: int, body: bytes,
+                       content_type: str = 'text/plain'):
+                self.send_response(status)
+                self.send_header('Content-Type', content_type)
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 - http.server API
+                try:
+                    route = self.path.split('?', 1)[0]
+                    if not route.startswith('/peercache/'):
+                        self._reply(404, b'unknown route; try '
+                                         b'/peercache/<digest>\n')
+                        return
+                    digest = route[len('/peercache/'):]
+                    if not digest or not set(digest) <= _HEX_DIGITS:
+                        self._reply(400, b'bad digest\n')
+                        return
+                    data = outer._cache.segment_bytes(digest)
+                    if data is None:
+                        self._reply(404, b'miss\n')
+                        return
+                    self._reply(200, data, 'application/octet-stream')
+                except Exception as e:   # a 500, never a dead serve loop
+                    logger.exception('peer-cache request failed')
+                    try:
+                        self._reply(500, 'error: {}\n'.format(e).encode())
+                    except OSError:
+                        pass
+
+        self._server = ThreadingHTTPServer(
+            ('127.0.0.1', self._requested_port), Handler)
+        self._server.daemon_threads = True
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            kwargs={'poll_interval': 0.1}, daemon=True,
+            name='petastorm-torch-peercache-http')
+        self._thread.start()
+        logger.info('peer-cache endpoint on http://127.0.0.1:%d/peercache/',
+                    self.port)
+        return self
+
+    def stop(self) -> None:
+        server, self._server = self._server, None
+        if server is None:
+            return
+        server.shutdown()
+        server.server_close()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=10)

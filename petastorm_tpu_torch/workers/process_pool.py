@@ -31,7 +31,11 @@ else ``process`` itself) and shuts it down at the end. PUSH hands items out
 round robin when it sends them, so what a worker's socket holds is already
 its own: a worker with a ``prefetch_lookahead`` drains up to that many more
 items into its own FIFO without waiting and is hinted the whole FIFO, the
-current item first, before each item (JAX :965-1035).
+current item first, before each item (JAX :965-1035). The spec carries
+the store's :class:`~petastorm_tpu_torch.fs.FilesystemFactory`, with its
+``storage_options``: each worker interpreter resolves its filesystem
+afresh from it (fsspec imported there only for a remote scheme) and
+wraps it in the chaos scenario the environment arms.
 
 Lineage (JAX :152-157, 501-532, 569-573, 890-905, 1076-1079): a worker
 sends an envelope's provenance in the control frame, ``(DATA,

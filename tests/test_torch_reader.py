@@ -306,9 +306,9 @@ def test_source_scan_finds_no_jax_import():
 
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
-#: observability, profiler, autotune and resilience slices; the worker side
-#: (everything a worker interpreter imports) must not import torch
-#: either.
+#: observability, profiler, autotune, resilience and remote-store slices;
+#: the worker side (everything a worker interpreter imports) must not
+#: import torch either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.etl.repack',
                  'petastorm_tpu_torch.workers.serializers',
@@ -327,7 +327,11 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.profiler',
                  'petastorm_tpu_torch.autotune',
                  'petastorm_tpu_torch.resilience',
-                 'petastorm_tpu_torch.faultfs']
+                 'petastorm_tpu_torch.faultfs',
+                 'petastorm_tpu_torch.fs',
+                 'petastorm_tpu_torch.objectstore',
+                 'petastorm_tpu_torch.hdfs.namenode',
+                 'petastorm_tpu_torch.etl.dataset_metadata']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

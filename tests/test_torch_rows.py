@@ -161,8 +161,8 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    with pytest.raises(NotImplementedError, match='remote_read'):
-        make_batch_reader(url, remote_read='ranged')
+    with pytest.raises(NotImplementedError, match='shard_by_jax_process'):
+        make_batch_reader(url, shard_by_jax_process=True)
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
