@@ -321,7 +321,27 @@ printing one line or a few:
    and reads every image. (e) ``reader.profile(calibrate='force')`` over a
    ranged reader gives a numeric ``parquet_ranged_rows_per_s``; a typo in
    ``remote_read``, a ``file://tmp/x`` URL and an ``ftp://`` URL raise
-   ``ValueError`` with JAX's words.
+   ``ValueError`` with JAX's words;
+22. resume line (after phase 21; the flagship LM at full width, bf16,
+   flash, fed 8 NGram windows a step from the LM store of phase 5 and a
+   second one written from ``--seed`` + 1, every batch staged by
+   ``prefetch_to_device``). Each part runs A uninterrupted, and B stopped,
+   checkpointed (params, ``optimizer.state_dict()`` and the data state
+   through JSON, with ``torch.save``), dropped, rebuilt from the file and
+   resumed; B's token batches equal A's bit for bit (``torch.equal`` on
+   the card) and its losses A's within 1e-3 relative and, on the card,
+   bit for bit (the step is a function of its inputs there, so a restore
+   that lost the optimizer's moments shows even within 1e-3). (a) ``make_indexed_ngram_loader`` (2 epochs of
+   39 batches, 4 workers): A 44 steps, B 20 + 24 across the epoch
+   boundary, restored on 1 worker, whose loader assembles no batch before
+   its cursor. (b) ``WeightedIndexedMixture`` (0.75, 0.25) over the two
+   stores' indexed loaders: A 24 steps, B 10 + 14; each step's source,
+   told by its tokens, is ``draw_index(normalize_cumulative(p),
+   default_rng((seed, k)).random())``. (c) ``CheckpointableLoader`` over
+   ``make_reader`` (dummy pool, seeded) + ``TorchDataLoader``: A 12 steps,
+   B 5 + 7 (the restore replays 5 batches). Each part prints the steady
+   step, the restore's seconds to its first staged batch and the
+   bit-equality; K1-K3 launch once a layer on each of the 160 steps.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -575,6 +595,8 @@ def reference_check(torch, tlm, seed):
 
 
 def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
+    """Write ``rows`` rows of ``step`` and random ``tokens`` (from
+    ``seed``) to ``url``; returns the tokens, (rows, seq_len) int32."""
     from petastorm_tpu_torch import materialize_dataset
     from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -589,6 +611,7 @@ def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
                              row_group_size_mb=64) as w:
         w.write_rows({'step': np.int64(i), 'tokens': tokens[i]}
                      for i in range(rows))
+    return tokens
 
 
 def main_path(torch, np, tlm, kernels, args):
@@ -4363,6 +4386,7 @@ RES_POISON = dict(poison_threshold=2, max_respawns=5)
 RES_BUDGET = dict(max_respawns=2, poison_threshold=99)
 RES_LOUD_S = 60.0                 # a spent budget raises within this
 RES_LOUD_EPOCHS = 4               # (e)'s kill: items still to ventilate
+RES_LOUD_KILL_S = 0.5             # (e): from the freeze to the SIGKILL
 RES_COST_PAIRS = 6                # (f): retry off/on runs
 
 
@@ -4726,7 +4750,7 @@ def loud_failures(torch, np, url, d, args):
         '(io_permanent_failures 1, io_retries 0, worker_respawns 0)'
         % (label, os.path.basename(victim), type(raised).__name__,
            time.perf_counter() - start))
-    raised = None
+    raised = killer = None
     start = time.perf_counter()
     try:
         with make_reader(url, schema_fields=['step'], workers_count=2,
@@ -4735,14 +4759,19 @@ def loud_failures(torch, np, url, d, args):
                          worker_recovery=False) as reader:
             iterator = iter(reader)
             next(iterator)
+            # frozen, the victim holds the items sent to it, which may fill
+            # the in-flight window and stall the pass: the kill comes from a
+            # timer, so it lands whether or not the pass goes on meanwhile
             victim = freeze(reader._pool._processes[0])
-            for _ in range(3 * OBS_ROWS_PER_FILE):
-                next(iterator)
-            victim.kill()
+            killer = threading.Timer(RES_LOUD_KILL_S, victim.kill)
+            killer.start()
             for _ in iterator:
                 pass
     except RuntimeError as e:
         raised = e
+    finally:
+        if killer is not None:
+            killer.join()
     check(raised is not None and 'died with exit codes' in str(raised),
           '%s: a kill without recovery raised %r' % (label, raised))
     log('%s: SIGKILL with worker_recovery=False raised RuntimeError(%r) in '
@@ -5358,6 +5387,270 @@ def remote_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 22: the resume line (cursor, mixture, replay)
+# ---------------------------------------------------------------------------
+
+RESUME_WORKERS = 4                # run A's loader; the restored one has 1
+RESUME_EPOCHS = 2
+RESUME_PAST_EPOCH = 5             # (a) run A: one epoch, then 5 steps
+RESUME_STOP = 20                  # (a) run B's steps before its checkpoint
+MIX_P = (0.75, 0.25)
+MIX_STEPS = 24                    # (b) run A
+MIX_STOP = 10                     # (b) run B's steps before its restore
+REPLAY_STEPS = 12                 # (c) run A
+REPLAY_STOP = 5
+RESUME_LOSS_RTOL = 1e-3
+
+
+def resume_ngram():
+    from petastorm_tpu_torch.ngram import NGram
+    return NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
+                 delta_threshold=1, timestamp_field='step')
+
+
+def resumed_lm(torch, tlm, cfg, device, seed, d, label, make, total, stop,
+               on_batch=None):
+    """Run A: ``total`` AdamW steps of the LM from ``make(None)``. Run B:
+    ``stop`` steps, a checkpoint of ``{params, optimizer, data state}``
+    through ``torch.save`` (the data state through JSON), everything
+    dropped and rebuilt from it (the data source by ``make(state)``), then
+    the other ``total - stop`` steps. ``make(state)`` returns ``(source,
+    batches)``: ``source.state_dict()`` is the data state and ``batches``
+    the host batch iterator; every batch goes through
+    :func:`prefetch_to_device`. ``on_batch(k, batch)`` sees each staged
+    batch of step ``k``. Returns a dict of what both runs measured."""
+    import itertools
+
+    from petastorm_tpu_torch import prefetch_to_device
+
+    def steps(step, batches, n, first, tokens, losses, times):
+        staged = prefetch_to_device(itertools.islice(batches, n), size=2,
+                                    device=device)
+        with contextlib.closing(staged):
+            for k in range(first, first + n):
+                t0 = time.perf_counter()
+                batch = next(staged)
+                if k == first:
+                    first_at = time.perf_counter()
+                inputs = batch[0]['tokens']
+                targets = torch.cat([inputs[:, 1:],
+                                     batch[1]['tokens'][:, :1]], 1)
+                if on_batch is not None:
+                    on_batch(k, batch)
+                tokens.append(inputs)
+                losses.append(float(step(inputs, targets)))
+                times.append(time.perf_counter() - t0)
+        return first_at
+
+    def fresh():
+        params = tlm.init(cfg, torch.Generator().manual_seed(seed),
+                          device=device)
+        return (params,) + tlm.make_train_step(cfg, params)
+
+    out = {}
+    # run A: uninterrupted
+    params, _, step = fresh()
+    source, batches = make(None)
+    tokens_a, losses_a, times_a = [], [], []
+    steps(step, batches, total, 0, tokens_a, losses_a, times_a)
+    batches.close()
+    del params, step, source, batches
+    # run B: stop, checkpoint, drop, rebuild, restore, go on
+    params, optimizer, step = fresh()
+    source, batches = make(None)
+    tokens_b, losses_b, times_b = [], [], []
+    steps(step, batches, stop, 0, tokens_b, losses_b, times_b)
+    state = source.state_dict()
+    batches.close()
+    path = os.path.join(d, 'ckpt-%s.pt' % label.split()[0])
+    torch.save({'params': params, 'optimizer': optimizer.state_dict(),
+                'data': json.dumps(state)}, path)
+    del params, optimizer, step, source, batches
+    t0 = time.perf_counter()
+    ckpt = torch.load(path, map_location=device)
+    params = ckpt['params']
+    optimizer, step = tlm.make_train_step(cfg, params)
+    optimizer.load_state_dict(ckpt['optimizer'])
+    t1 = time.perf_counter()
+    source, batches = make(json.loads(ckpt['data']))
+    first_at = steps(step, batches, total - stop, stop, tokens_b, losses_b,
+                     times_b)
+    out['restore_s'] = first_at - t0
+    out['data_restore_s'] = first_at - t1
+    batches.close()
+    out['state'] = state
+    out['tokens_equal'] = (len(tokens_a) == len(tokens_b) == total and all(
+        torch.equal(a, b) for a, b in zip(tokens_a, tokens_b)))
+    out['losses_bit_equal'] = losses_a == losses_b
+    out['loss_rel_err'] = max(abs(a - b) / max(abs(a), 1e-12)
+                              for a, b in zip(losses_a, losses_b))
+    out['losses'] = (losses_a[0], losses_a[-1])
+    out['steady_ms'] = statistics.median(times_a[1:] + times_b[1:stop]
+                                         + times_b[stop + 1:]) * 1e3
+    check(all(math.isfinite(x) for x in losses_a + losses_b),
+          '%s: non-finite loss' % label)
+    check(out['tokens_equal'], '%s: the resumed run\'s token batches differ '
+          'from the uninterrupted run\'s' % label)
+    check(out['loss_rel_err'] <= RESUME_LOSS_RTOL,
+          '%s: losses differ by %.3g relative (limit %g)'
+          % (label, out['loss_rel_err'], RESUME_LOSS_RTOL))
+    # the step is a function of its inputs on the card (no atomics on the
+    # path), so a restore that lost the optimizer's moments or step count
+    # shows here even where it stays within the relative limit
+    check(device != 'cuda' or out['losses_bit_equal'],
+          '%s: losses within %g relative but not bit-equal'
+          % (label, RESUME_LOSS_RTOL))
+    return out
+
+
+def log_resumed(label, total, stop, out, extra=''):
+    log('%s: run A %d steps; run B %d + %d steps around a restore; steady '
+        'step %.2f ms; restore %.3f s to its first staged batch (data '
+        'source alone %.3f s); token batches bit-equal %s; losses bit-equal '
+        '%s (max relative difference %.3g, limit %g), loss %.4f -> %.4f%s '
+        '[%s]' % (label, total, stop, total - stop, out['steady_ms'],
+                  out['restore_s'], out['data_restore_s'],
+                  out['tokens_equal'], out['losses_bit_equal'],
+                  out['loss_rel_err'], RESUME_LOSS_RTOL, out['losses'][0],
+                  out['losses'][1], extra, CARD))
+
+
+def resume_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                rows=ROWS, batch=BATCH):
+    """Phase 22: the flagship LM stopped mid-epoch and resumed: (a) from the
+    indexed NGram loader's cursor across an epoch boundary, (b) from a
+    weighted mixture of two indexed NGram loaders, (c) from the replay
+    checkpoint over ``make_reader`` + ``TorchDataLoader``. Returns the
+    phase's launch counts (K1-K3)."""
+    from petastorm_tpu_torch import (TorchDataLoader, WeightedIndexedMixture,
+                                     make_indexed_ngram_loader, make_reader)
+    from petastorm_tpu_torch.checkpoint import CheckpointableLoader
+    from petastorm_tpu_torch.weighted_sampling_reader import (
+        draw_index, normalize_cumulative)
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    seq = cfg.max_seq_len
+    ngram = resume_ngram()
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    total_steps = 0
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        urls, stores = [], []
+        for k in range(2):
+            urls.append('file://' + os.path.join(d, 'tokens%d' % k))
+            stores.append(write_store(np, urls[-1], seq, cfg.vocab_size,
+                                      rows, args.seed + k))
+
+        # (a) the cursor, across an epoch boundary
+        assembled = []
+
+        def make_cursor(state):
+            loader = make_indexed_ngram_loader(
+                urls[0], ngram, batch_size=batch, num_epochs=RESUME_EPOCHS,
+                seed=args.seed,
+                workers_count=RESUME_WORKERS if state is None else 1)
+            if state is not None:
+                loader.load_state_dict(state)
+                assemble = loader._assemble
+
+                def counted(epoch, b):
+                    assembled.append((epoch, b))
+                    return assemble(epoch, b)
+                loader._assemble = counted
+            return loader, iter(loader)
+
+        probe = make_cursor(None)[0]
+        per_epoch = probe.batches_per_epoch
+        probe.close()
+        total = per_epoch + RESUME_PAST_EPOCH
+        out = resumed_lm(torch, tlm, cfg, device, args.seed, d,
+                         '(a) cursor', make_cursor, total, RESUME_STOP)
+        cursor = (out['state']['epoch'], out['state']['batch'])
+        check(cursor == (0, RESUME_STOP),
+              '(a) the checkpoint cursor is %r' % (cursor,))
+        check(assembled and min(assembled) >= cursor,
+              '(a) the restored loader assembled %r, before its cursor %r'
+              % (sorted(assembled)[:3], cursor))
+        check(len(assembled) >= total - RESUME_STOP,
+              '(a) the restored loader assembled %d batches for %d steps'
+              % (len(assembled), total - RESUME_STOP))
+        total_steps += 2 * total
+        log_resumed('resume (a) cursor, %d batches an epoch, %d epochs'
+                    % (per_epoch, RESUME_EPOCHS), total, RESUME_STOP, out,
+                    '; the restored loader (1 worker) assembled %d batches '
+                    '(its steps and its lookahead), none before its cursor %r'
+                    % (len(assembled), cursor))
+
+        # (b) a weighted mixture, resumed mid-stream
+        cumulative = normalize_cumulative(MIX_P)
+        sources = []
+
+        def make_mixture(state):
+            loaders = [make_indexed_ngram_loader(
+                u, ngram, batch_size=batch, num_epochs=RESUME_EPOCHS,
+                seed=args.seed, workers_count=RESUME_WORKERS) for u in urls]
+            mixture = WeightedIndexedMixture(loaders, MIX_P, seed=args.seed)
+            if state is not None:
+                mixture.load_state_dict(state)
+            return mixture, iter(mixture)
+
+        def source_of(k, staged):
+            steps_ = staged[0]['step'].cpu().numpy()
+            toks = staged[0]['tokens'].cpu().numpy()
+            told = [i for i in range(2)
+                    if np.array_equal(toks, stores[i][steps_])]
+            want = draw_index(cumulative,
+                              np.random.default_rng((args.seed, k)).random())
+            check(told == [want], '(b) step %d came from store %r, drawn %d'
+                  % (k, told, want))
+            sources.append(want)
+
+        out = resumed_lm(torch, tlm, cfg, device, args.seed, d, '(b) mixture',
+                         make_mixture, MIX_STEPS, MIX_STOP,
+                         on_batch=source_of)
+        check(out['state']['step'] == MIX_STOP,
+              '(b) the mixture checkpointed at step %r' % out['state']['step'])
+        total_steps += 2 * MIX_STEPS
+        log_resumed('resume (b) mixture p=%s over 2 stores' % (MIX_P,),
+                    MIX_STEPS, MIX_STOP, out,
+                    '; sources of run A %s, each as drawn from (seed, step)'
+                    % ''.join(str(s) for s in sources[:MIX_STEPS]))
+
+        # (c) the replay checkpoint over a streaming reader
+        def make_replay(state):
+            def factory():
+                reader = make_reader(urls[0], schema_fields=ngram,
+                                     reader_pool_type='dummy',
+                                     seed=args.seed)
+                return TorchDataLoader(reader, batch_size=batch,
+                                       drop_last=True, device=device)
+            ckpt = CheckpointableLoader(factory)
+            if state is not None:
+                ckpt.load_state_dict(state)
+            return ckpt, ckpt.epochs(1)
+
+        out = resumed_lm(torch, tlm, cfg, device, args.seed, d, '(c) replay',
+                         make_replay, REPLAY_STEPS, REPLAY_STOP)
+        check(out['state'] == {'epoch': 0, 'step': REPLAY_STOP,
+                               'version': 1},
+              '(c) the replay state is %r' % out['state'])
+        total_steps += 2 * REPLAY_STEPS
+        log_resumed('resume (c) replay over make_reader (dummy pool) + '
+                    'TorchDataLoader', REPLAY_STEPS, REPLAY_STOP, out,
+                    '; the restore re-read %d batches' % REPLAY_STOP)
+    launches = dict(kernels.LAUNCHES)
+    if device == 'cuda':
+        check(all(launches[k] == total_steps * cfg.n_layers for k in FLASH),
+              'resume line launches %r for %d steps of %d layers'
+              % (launches, total_steps, cfg.n_layers))
+    log('resume line: %d LM steps (d_model %d, %d layers, %s, %s), '
+        'launches %s' % (total_steps, cfg.d_model, cfg.n_layers,
+                         str(cfg.dtype).replace('torch.', ''),
+                         cfg.attention, json.dumps(launches)))
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -5555,6 +5848,13 @@ def main(argv=None):
         launches[name] += remote_lm_launches[name]
     launches['normalize'] += pod_png['normalize']
     log('phase remote line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    resumed = resume_line(torch, np, tlm, kernels, args)
+    check(all(resumed[k] > 0 for k in FLASH),
+          'a kernel was not launched on the resume line: %r' % resumed)
+    for name in FLASH:
+        launches[name] += resumed[name]
+    log('phase resume line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

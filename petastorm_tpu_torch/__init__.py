@@ -24,7 +24,9 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`,
 :class:`CoverageAuditor`, :class:`Provenance`, :class:`SharedRowGroupCache`,
 :class:`LatencyHistogram`, :class:`SLOMonitor`, :class:`RetryPolicy`,
-:class:`HedgedRead`, :class:`FaultInjector`.
+:class:`HedgedRead`, :class:`FaultInjector`, :class:`PipelineController`,
+:func:`make_indexed_loader`, :func:`make_indexed_ngram_loader`,
+:class:`WeightedIndexedMixture`.
 
 The stats, latency and tracing planes: ``reader.stats``,
 ``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
@@ -42,6 +44,15 @@ Fault tolerance: the factories' ``retry`` (on), ``hedge`` (off) and
 ``worker_recovery`` (on), and the seeded fault injector armed by
 ``PETASTORM_TPU_CHAOS`` (:mod:`petastorm_tpu_torch.resilience`,
 :mod:`petastorm_tpu_torch.faultfs`).
+
+Deterministic resume and mixing: the indexed row and NGram loaders, whose
+batch ``b`` of epoch ``e`` is a pure function of ``(dataset, seed, e, b)``
+(``state_dict()`` / ``load_state_dict()`` restore in O(1), byte for byte,
+with any worker count; :mod:`petastorm_tpu_torch.indexed`,
+:mod:`petastorm_tpu_torch.indexed_ngram`); their weighted mixture
+(:mod:`petastorm_tpu_torch.indexed_mixture`); the streaming mixture
+(:mod:`petastorm_tpu_torch.weighted_sampling_reader`); and the replay
+fallback for streaming pipelines (:mod:`petastorm_tpu_torch.checkpoint`).
 """
 
 __version__ = '0.1.0'
@@ -52,6 +63,8 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'flash_attention', 'normalize_images', 'CoverageAuditor',
            'Provenance', 'SharedRowGroupCache', 'LatencyHistogram',
            'SLOMonitor', 'RetryPolicy', 'HedgedRead', 'FaultInjector',
+           'PipelineController', 'make_indexed_loader',
+           'make_indexed_ngram_loader', 'WeightedIndexedMixture',
            '__version__']
 
 
@@ -91,6 +104,20 @@ def __getattr__(name):
     if name == 'FaultInjector':
         from petastorm_tpu_torch.faultfs import FaultInjector
         return FaultInjector
+    if name == 'PipelineController':
+        from petastorm_tpu_torch.autotune import PipelineController
+        return PipelineController
+    if name == 'make_indexed_loader':
+        from petastorm_tpu_torch.indexed import make_indexed_loader
+        return make_indexed_loader
+    if name == 'make_indexed_ngram_loader':
+        from petastorm_tpu_torch.indexed_ngram import \
+            make_indexed_ngram_loader
+        return make_indexed_ngram_loader
+    if name == 'WeightedIndexedMixture':
+        from petastorm_tpu_torch.indexed_mixture import \
+            WeightedIndexedMixture
+        return WeightedIndexedMixture
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

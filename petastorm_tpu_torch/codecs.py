@@ -6,6 +6,7 @@ A copy of the codecs of ``petastorm_tpu/codecs.py`` (``NdarrayCodec`` :247,
 ``CompressedImageCodec`` :421 with its scaled jpeg decode :522-615,
 ``ScalarCodec`` :633, ``build_decode_overrides`` :712, the strict
 ``np.save`` header parser ``_parse_fast_npy_header`` :205, the
+batched-decode switch ``batched_decode_enabled`` :34-41, the
 device-decode verdicts ``device_decode_unsupported_reason`` :110, :320,
 :409) and of the
 list-column conversion of ``readers/columnar_worker.py``
@@ -21,12 +22,25 @@ import functools
 import inspect
 import io
 import operator
+import os
 import re
 import sys
 from typing import Any, Callable, Dict
 
 import numpy as np
 import pyarrow as pa
+
+#: The JAX package's switch of the whole-column (batched) codec decode
+#: (default on); ``0``, ``false`` or ``off`` sends every codec column cell
+#: by cell. Both paths give the same bytes.
+BATCHED_DECODE_ENV_VAR = 'PETASTORM_TPU_BATCHED_DECODE'
+
+
+def batched_decode_enabled() -> bool:
+    """The :data:`BATCHED_DECODE_ENV_VAR` switch (default on). A worker
+    reads it once, when it is made."""
+    value = os.environ.get(BATCHED_DECODE_ENV_VAR, '').strip().lower()
+    return value not in ('0', 'false', 'off')
 
 
 def split_binary_chunk(chunk: pa.Array):

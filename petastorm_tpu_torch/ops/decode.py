@@ -24,8 +24,8 @@ little-endian ``NdarrayCodec`` column) need not be decoded on the host:
 
 Unlike JAX without x64, torch keeps 8-byte dtypes, so int64, uint64 and
 float64 columns plan as the JAX package plans them under
-``JAX_ENABLE_X64``. The JAX package's decliners for its batched-decode
-switch and for a missing jax backend have no counterpart here.
+``JAX_ENABLE_X64``. The JAX package's decliner for a missing jax backend
+has no counterpart here.
 
 This module imports no torch at import time: the workers import it.
 """
@@ -40,7 +40,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import (_parse_fast_npy_header,
+from petastorm_tpu_torch.codecs import (BATCHED_DECODE_ENV_VAR,
+                                        _parse_fast_npy_header,
+                                        batched_decode_enabled,
                                         split_binary_chunk)
 
 #: The JAX package's switch (default on where eligible); ``0``, ``false``
@@ -160,6 +162,11 @@ def plan_device_decode(schema, enabled: Optional[bool] = None,
         enabled = device_decode_enabled()
     if not enabled:
         return {}, {'*': '{}=off'.format(DEVICE_DECODE_ENV_VAR)}
+    if not batched_decode_enabled():
+        # the per-cell switch sends every codec cell through the host loop;
+        # a raw grid would go round it
+        return {}, {'*': '{}=off forces the host per-cell loop'.format(
+            BATCHED_DECODE_ENV_VAR)}
     if not batched_output:
         return {}, {'*': 'row-granular reader (rows split out of columns '
                          'before any loader could decode them)'}

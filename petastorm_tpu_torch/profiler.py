@@ -324,7 +324,9 @@ def _probe_decode(sampled, schema, filesystem=None) -> dict:
     warms codec imports and the column buffers; the timed pass is the
     single-core decode ceiling. Each per-codec entry records the cells the
     whole-column path decoded (``batched_rows``)."""
+    from petastorm_tpu_torch.codecs import batched_decode_enabled
     from petastorm_tpu_torch.readers.columnar_worker import decode_column
+    batched = batched_decode_enabled()
     names = [name for name, field in schema.fields.items()]
     per_codec: Dict[str, dict] = {}
     rows = 0
@@ -337,7 +339,8 @@ def _probe_decode(sampled, schema, filesystem=None) -> dict:
         for name in present:
             decode_column(schema.fields[name],
                           table.column(name).combine_chunks(),
-                          counts={'batched': 0, 'percell': 0})
+                          counts={'batched': 0, 'percell': 0},
+                          batched=batched)
         n = table.num_rows
         rows += n
         for name in present:
@@ -349,7 +352,7 @@ def _probe_decode(sampled, schema, filesystem=None) -> dict:
                 start = time.perf_counter()
                 out = decode_column(field,
                                     table.column(name).combine_chunks(),
-                                    counts=path_counts)
+                                    counts=path_counts, batched=batched)
                 took = time.perf_counter() - start
                 elapsed = took if elapsed is None else min(elapsed, took)
             total_s += elapsed

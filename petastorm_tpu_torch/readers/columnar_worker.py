@@ -60,7 +60,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import (ScalarCodec, _is_fixed,
+from petastorm_tpu_torch.codecs import (NdarrayCodec, ScalarCodec,
+                                        _is_fixed, batched_decode_enabled,
                                         decode_cells, split_binary_chunk)
 from petastorm_tpu_torch.etl.dataset_metadata import RowGroupPiece
 from petastorm_tpu_torch.lineage import NEVER_QUARANTINE
@@ -106,7 +107,8 @@ def decode_column_batched(field, chunk: pa.Array) -> Optional[np.ndarray]:
 
 def decode_column(field, chunk: pa.Array, keep_none: bool = False,
                   override: Optional[Callable] = None,
-                  counts: Optional[Dict[str, int]] = None) -> np.ndarray:
+                  counts: Optional[Dict[str, int]] = None,
+                  batched: Optional[bool] = None) -> np.ndarray:
     """One column chunk decoded with the field's codec, or cell by cell
     with ``override`` (a decode hint's scaled decode). Without
     ``keep_none`` a numeric scalar column with nulls is arrow's NaN-holed
@@ -117,15 +119,24 @@ def decode_column(field, chunk: pa.Array, keep_none: bool = False,
     (``columnar_worker.py:150-162``): a fixed-shape null-free column with
     no override takes the whole-column path
     (:func:`decode_column_batched`) when its codec has one and the chunk
-    decodes through it; every other such column goes cell by cell."""
+    decodes through it; every other such column goes cell by cell.
+    ``batched`` False sends every codec column cell by cell (the
+    ``PETASTORM_TPU_BATCHED_DECODE`` switch, read at each call when None,
+    as JAX's ``_column_to_numpy`` reads it, :256-257)."""
+    if batched is None:
+        batched = batched_decode_enabled()
+    fixed_cells = (override is None and _codec_cells(field, chunk)
+                   and _is_fixed(field) and chunk.null_count == 0)
     if counts is not None and _codec_cells(field, chunk):
-        if (override is None and _is_fixed(field)
-                and chunk.null_count == 0):
+        if batched and fixed_cells:
             out = decode_column_batched(field, chunk)
             if out is not None:
                 counts['batched'] += len(chunk)
                 return out
         counts['percell'] += len(chunk)
+    if not batched and fixed_cells and isinstance(field.codec, NdarrayCodec):
+        # the one codec whose column decode takes a whole-column shortcut
+        return decode_cells(field, chunk, _cell_decoder(field, None))
     if override is not None:
         return decode_cells(field, chunk, override)
     codec = field.codec or _SCALAR
@@ -148,15 +159,16 @@ def _cell_decoder(field, override: Optional[Callable]) -> Callable:
 def decode_column_tolerant(field, chunk: pa.Array, keep_none: bool,
                            override: Optional[Callable],
                            on_cell_error: Callable,
-                           counts: Optional[Dict[str, int]] = None
-                           ) -> np.ndarray:
+                           counts: Optional[Dict[str, int]] = None,
+                           batched: Optional[bool] = None) -> np.ndarray:
     """:func:`decode_column`, and where it raises on a codec column, the
     column again cell by cell: each failing cell is reported as
     ``on_cell_error(row, exc)`` and left ``None`` in an object array. A
     retry in which no cell fails re-raises the first error (the failure
     was not a cell's, e.g. a codec giving a wrong shape)."""
     try:
-        return decode_column(field, chunk, keep_none, override, counts)
+        return decode_column(field, chunk, keep_none, override, counts,
+                             batched)
     except NEVER_QUARANTINE:
         raise
     except Exception:
@@ -203,8 +215,13 @@ def decode_columns(table, schema: Unischema, keep_none: bool = False,
     decodes row by row (``_decode_with_partitions``: the row reader's
     predicate and NGram loads), which counts no path and spans
     ``decode_rows``. The entry beat ``decode`` (JAX :509) names a wedged
-    codec, and a transform run after the decode."""
+    codec, and a transform run after the decode. The batched-decode
+    switch is ``io.batched_decode``: a worker's reading of it, or None to
+    read it here."""
     io.beat('decode')
+    batched = io.batched_decode
+    if batched is None:
+        batched = batched_decode_enabled()
     overrides = overrides or {}
     plans = plans or {}
     start = time.perf_counter()
@@ -221,20 +238,20 @@ def decode_columns(table, schema: Unischema, keep_none: bool = False,
             if raw is None:
                 raw = repack_to_raw(plan, decode_column(
                     field, table.column(name).combine_chunks(),
-                    counts=counts))
+                    counts=counts, batched=batched))
             out[name] = raw
             raw_bytes += raw.nbytes
             continue
         chunk = table.column(name).combine_chunks()
         if sink is None:
             out[name] = decode_column(field, chunk, keep_none,
-                                      overrides.get(name), counts)
+                                      overrides.get(name), counts, batched)
             continue
         errors_before = len(sink.errors)
         out[name] = decode_column_tolerant(
             field, chunk, keep_none, overrides.get(name),
             lambda row, exc, _name=name: sink.errors.append(
-                (row, _name, exc)), counts)
+                (row, _name, exc)), counts, batched)
         if (len(sink.errors) > errors_before and _is_fixed(field)
                 and chunk.null_count == 0):
             # the dense decode would have given (n, *shape): make it so

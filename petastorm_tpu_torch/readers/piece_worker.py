@@ -94,6 +94,7 @@ import pyarrow.parquet as pq
 
 from petastorm_tpu_torch import faultfs
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.codecs import batched_decode_enabled
 from petastorm_tpu_torch.fs import LOCAL_FILESYSTEM
 from petastorm_tpu_torch.latency import (LatencyDeltas,
                                          pod_observations_enabled)
@@ -224,6 +225,8 @@ class PlainReads:
     tolerant = False
     tracks_offsets = False
     offsets = None
+    #: the batched-decode switch: None reads it at each decode
+    batched_decode = None
 
     def __init__(self, filesystem=None):
         self._filesystem = filesystem
@@ -400,6 +403,9 @@ class PieceWorker:
         self.tolerant = spec.on_decode_error != 'raise'
         #: the loads report source-row offsets (lineage or tolerance on)
         self.tracks_offsets = self._lineage or self.tolerant
+        #: the batched-decode switch, read once a worker (JAX
+        #: ``piece_worker.py:175-177``), never a cell
+        self.batched_decode = batched_decode_enabled()
         self._shard = spec.shard
         self._dataset = spec.dataset
         self._file_indexes = spec.file_indexes

@@ -162,11 +162,19 @@ class VentilationJob:
     semaphore, so the autotune controller can move the bound both ways
     live (:meth:`set_max_in_flight`) and a process pool's shrink or
     recovery can quiesce ventilation (:meth:`pause`, :meth:`resume`, which
-    nest: the ventilation stays paused until every pause is resumed)."""
+    nest: the ventilation stays paused until every pause is resumed).
+
+    A ``schedule`` (any iterable, read lazily) is ventilated once, as it
+    comes, in place of the items' epochs: the indexed loaders' ``(epoch,
+    batch)`` grid, walked from a cursor in O(1) memory (the role of JAX's
+    ``_ScheduleVentilator``, ``indexed.py:314-337``). It takes no items,
+    epochs, shuffle or seed, and its pool cannot be reset."""
 
     def __init__(self, items: List, shuffle: bool, seed, on_ventilate=None,
-                 heartbeat=None, max_in_flight: Optional[int] = None):
+                 heartbeat=None, max_in_flight: Optional[int] = None,
+                 schedule=None):
         self.items = list(items)
+        self.schedule = schedule
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.on_ventilate = on_ventilate
@@ -245,7 +253,9 @@ class VentilationJob:
             return self._in_flight
 
     def order(self, num_epochs: Optional[int]):
-        """The next pass's :func:`ventilation_order`."""
+        """The next pass's :func:`ventilation_order`, or the schedule."""
+        if self.schedule is not None:
+            return iter(self.schedule)
         first = self.next_epoch
         if num_epochs is not None:
             self.next_epoch += num_epochs
@@ -355,15 +365,20 @@ class ThreadPool:
     def start(self, process: Callable, items: List, num_epochs: Optional[int]
               = 1, shuffle: bool = True, seed=None,
               max_in_flight: Optional[int] = None,
-              on_ventilate=None, heartbeat=None) -> None:
-        """Start the workers and the ventilator over ``items``;
-        ``on_ventilate(item)`` sees each work item as it is ventilated, and
-        the ventilator beats through ``heartbeat``."""
+              on_ventilate=None, heartbeat=None, schedule=None) -> None:
+        """Start the workers and the ventilator over ``items`` (or over
+        ``schedule``, see :class:`VentilationJob`); ``on_ventilate(item)``
+        sees each work item as it is ventilated, and the ventilator beats
+        through ``heartbeat``."""
         if self._job is not None:
             raise RuntimeError('pool already started')
+        if schedule is not None and (items or num_epochs != 1
+                                     or not shuffle or seed is not None):
+            raise ValueError('a schedule is ventilated in place of items, '
+                             'epochs, shuffle and seed: pass none of them')
         self._job = VentilationJob(items, shuffle, seed, on_ventilate,
                                    heartbeat, max_in_flight
-                                   or 2 * self._workers_count)
+                                   or 2 * self._workers_count, schedule)
         self._process = process
         self._members = [(i, make_worker(process, worker_id=i))
                          for i in range(self._workers_count)]
@@ -379,6 +394,15 @@ class ThreadPool:
         """Each worker thread's worker, made once and kept across resets."""
         with self._lock:
             return [worker for _, worker in self._members]
+
+    @property
+    def threads(self) -> List[threading.Thread]:
+        """Every thread the pool started and has not joined: the workers'
+        of this pass, the retired ones and the ventilator (a loader that
+        closes files under them checks that none is alive)."""
+        with self._lock:
+            threads = self._threads + self._retired
+        return threads + ([self._ventilator] if self._ventilator else [])
 
     @property
     def ventilation(self) -> Optional[VentilationJob]:
@@ -418,7 +442,11 @@ class ThreadPool:
 
     def reset(self, num_epochs: Optional[int] = 1) -> None:
         """Ventilate the items for ``num_epochs`` more epochs; legal only
-        once every result of the previous ones was consumed."""
+        once every result of the previous ones was consumed, and never on a
+        pool started with a ``schedule``."""
+        if self._job is not None and self._job.schedule is not None:
+            raise RuntimeError('a scheduled pool ventilates its schedule '
+                               'once: start a new pool')
         if not self._pass_complete() or self._stop.is_set():
             raise RuntimeError('Cannot reset a pool that has not completed')
         with self._lock:

@@ -704,3 +704,9 @@ def test_infeed_diagnosis_roofline_as_jax(store, scratch):
     # a summary passes through as it is
     summary = jprof.roofline_summary(profile)
     assert tinfeed(snapshot, roofline=summary)['roofline'] == summary
+
+
+def test_public_names():
+    assert petastorm_tpu_torch.PipelineController is tat.PipelineController
+    assert petastorm_tpu.PipelineController is jat.PipelineController
+    assert 'PipelineController' in petastorm_tpu_torch.__all__

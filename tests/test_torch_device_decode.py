@@ -692,3 +692,63 @@ def test_repacked_store_reads_as_jax(tmp_path, monkeypatch, caplog):
         assert _concat(batches, 'emb')[order].tobytes() == emb.tobytes()
         assert [int(m[0]) for m in _concat(batches, 'mask')[order]] == \
             list(range(12))
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize('switch', ['off', 'on'])
+def test_batched_decode_switch_as_jax(tmp_path, switch, monkeypatch):
+    """``PETASTORM_TPU_BATCHED_DECODE``: JAX's ``create_test_dataset`` (32
+    rows, 2 files) read as ``id`` and ``matrix`` on one worker. Off: no
+    plan, JAX's decline words, every ``matrix`` cell decoded cell by cell
+    (32 per-cell, 0 batched); on: the plans and counts JAX gives. The
+    decoded values are equal either way (exact)."""
+    from petastorm_tpu.test_util.dataset_gen import create_test_dataset
+    url = 'file://' + str(tmp_path / 'ds')
+    create_test_dataset(url, range(32), num_files=2)
+    monkeypatch.setenv(tcodecs.BATCHED_DECODE_ENV_VAR, switch)
+    got, matrices = {}, {}
+    for package, factory in (('jax', petastorm_tpu.make_columnar_reader),
+                             ('torch', make_columnar_reader)):
+        with factory(url, schema_fields=['id', 'matrix'],
+                     workers_count=1) as reader:
+            rows = {}
+            for batch in reader:
+                rows.update(zip(np.asarray(batch.id).tolist(),
+                                np.asarray(batch.matrix)))
+            snapshot = reader.stats.snapshot()
+            got[package] = (
+                {name: tuple(plan) for name, plan in
+                 reader.device_decode_plans.items()},
+                dict(reader.device_decode_declined),
+                snapshot.get('rows_decoded_percell', 0),
+                snapshot.get('rows_decoded_batched', 0))
+        matrices[package] = rows
+    assert got['torch'] == got['jax']
+    assert sorted(matrices['torch']) == list(range(32))
+    for i, value in matrices['jax'].items():
+        np.testing.assert_array_equal(matrices['torch'][i], value)
+    plans, declined, percell, batched = got['torch']
+    if switch == 'off':
+        assert plans == {}
+        assert declined == {'*': 'PETASTORM_TPU_BATCHED_DECODE=off forces '
+                                 'the host per-cell loop'}
+        assert (percell, batched) == (32, 0)
+    else:
+        assert 'matrix' in plans
+
+
+@pytest.mark.parametrize('switch', ['off', 'on'])
+def test_decode_column_honors_the_batched_switch(switch, monkeypatch):
+    """The column decode with the switch off counts every codec cell
+    per-cell and gives the whole-column path's bytes."""
+    monkeypatch.setenv(tcodecs.BATCHED_DECODE_ENV_VAR, switch)
+    from petastorm_tpu_torch.readers.columnar_worker import decode_column
+    _, tfield = _pair(shape=(4, 3))
+    values = _values(np.random.default_rng(0), np.float32, (4, 3), 9)
+    chunk = _column(tfield, values).combine_chunks()
+    counts = {'batched': 0, 'percell': 0}
+    out = decode_column(tfield, chunk, counts=counts)
+    np.testing.assert_array_equal(out, values)
+    assert out.dtype == np.float32 and out.shape == (9, 4, 3)
+    assert counts == ({'batched': 0, 'percell': 9} if switch == 'off'
+                      else {'batched': 9, 'percell': 0})

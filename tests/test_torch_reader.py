@@ -306,9 +306,10 @@ def test_source_scan_finds_no_jax_import():
 
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
-#: observability, profiler, autotune, resilience and remote-store slices;
-#: the worker side (everything a worker interpreter imports) must not
-#: import torch either.
+#: observability, profiler, autotune, resilience, remote-store and
+#: resume-and-mixing slices; the worker side (everything a worker
+#: interpreter imports) and the indexed loaders must not import torch
+#: either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.etl.repack',
                  'petastorm_tpu_torch.workers.serializers',
@@ -331,7 +332,13 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.fs',
                  'petastorm_tpu_torch.objectstore',
                  'petastorm_tpu_torch.hdfs.namenode',
-                 'petastorm_tpu_torch.etl.dataset_metadata']
+                 'petastorm_tpu_torch.etl.dataset_metadata',
+                 'petastorm_tpu_torch.padding',
+                 'petastorm_tpu_torch.weighted_sampling_reader',
+                 'petastorm_tpu_torch.indexed',
+                 'petastorm_tpu_torch.indexed_ngram',
+                 'petastorm_tpu_torch.indexed_mixture',
+                 'petastorm_tpu_torch.checkpoint']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)
