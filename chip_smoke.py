@@ -207,8 +207,9 @@ printing one line or a few:
    complete epochs, ``/goodput`` 128 steps, ``/stacks`` the staging
    thread, and
    ``/profile`` 200 (a profile over a cached calibration, never probing),
-   ``/autotune`` (no controller), ``/observe/snapshot`` and ``/podmetrics``
-   404; the largest age a ``staging`` beat reached. The wedged LM: the
+   ``/observe/snapshot`` 200 (the pod plane is on by default),
+   ``/autotune`` (no controller) and ``/podmetrics`` (no peer list) 404;
+   the largest age a ``staging`` beat reached. The wedged LM: the
    same with ``stall_timeout=1.0`` and a row ``TransformSpec`` that blocks
    the store's third row group on a gate file: ``/healthz`` 503 naming one
    ``worker-*`` in ``decode``, exactly one flight record (heartbeats,
@@ -341,7 +342,45 @@ printing one line or a few:
    ``make_reader`` (dummy pool, seeded) + ``TorchDataLoader``: A 12 steps,
    B 5 + 7 (the restore replays 5 batches). Each part prints the steady
    step, the restore's seconds to its first staged batch and the
-   bit-equality; K1-K3 launch once a layer on each of the 160 steps.
+   bit-equality; K1-K3 launch once a layer on each of the 160 steps;
+23. pod line (after phase 22). (a) An elastic pod feeds the flagship LM
+   (full width, bf16, flash): a token store of 1,024 rows x 2,049 int32
+   (about 8.4 MB in 9 row groups of about 1 MB) read by the port's
+   ``IndexedDatasetReader``, one ``ElasticPodSim`` a run (batch 8, JAX's
+   default ``min(row groups, 2 k)`` leases) over a coordination directory
+   beside the store. Clean runs of 3 and 2 hosts keep their batches on the
+   host: each equals ``plan.batch_rows(lease, 0, batch)`` of the store
+   read with pyarrow alone. ``host-death`` on 3 hosts and ``host-join``
+   from 2: each delivered batch staged to the card (``stage_to_device``:
+   pinned, ``non_blocking``) equals the clean run's and pyarrow's rows
+   bit for bit and drives one AdamW step on K1-K3 (126 a run); the
+   certificate holds in every run, one death (hosts died, leases
+   rebalanced) and one join (the joiner delivers); a host-only rerun under
+   the same chaos seed gives the same deaths, joins and counters. Each run
+   prints its epoch's wall time, the LM's steady step and the lease
+   plane's time a batch (``ElasticHost.step`` less its gather and its
+   consumer); the death run the seconds from the death to the first batch
+   on a moved lease. ``make_reader(elastic=)``: two registered hosts read
+   disjoint shards 0 and 1 of 2 whose union is the store; under
+   ``PETASTORM_TPU_ELASTIC=0`` no member file; beside ``cur_shard``,
+   ``ElasticConfigError`` with JAX's words. (b) Pod observability: the png
+   store (256 images) over 3 shared-cache roots serving ``serve_peers()``,
+   each host's reader (2 threads, traced) with ``debug_port=0``, the third
+   on a port reserved before it starts and with
+   ``PETASTORM_TPU_PODOBS_PEERS`` naming the three: each
+   ``/observe/snapshot`` one JSON with ``X-Petastorm-Clock-S`` and the sent
+   ``X-Petastorm-Trace`` echoed; ``/podmetrics`` and
+   ``PodObserver(peers).report()``: fills == the row groups, peer hits ==
+   2 x the row groups, the certificate ok, the pod ``peer_fetch`` p99 ==
+   ``state_percentiles(merge_histogram_states(...))`` of the hosts'
+   states, each clock offset within its poll's round trip; with
+   ``127.0.0.1:9`` added, ``partial_pod`` naming it and
+   ``assert_certificate`` raising; ``export_pod_chrome_trace`` one track a
+   host, host 3's peer fetches all recorded by the serving roots under
+   its cache's trace id; under ``PETASTORM_TPU_PODOBS=0`` both routes 404
+   with JAX's text, no trace header and no ``io_attempt`` span of a
+   hedged traced reader (which records them with the plane on); 4 CNN
+   steps on K4 from host 3's batches, images == the cold host's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1801,10 +1840,11 @@ def packed_moe_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 # phase 13: columnar token line (device decode, process pool)
 # ---------------------------------------------------------------------------
 
-def write_token_rows(np, url, rows, seq_len, vocab, seed):
+def write_token_rows(np, url, rows, seq_len, vocab, seed, group_mb=None):
     """``idx`` int64 (ScalarCodec) and ``tokens`` int32 ``(seq_len,)``
-    (NdarrayCodec, non-nullable) in row groups of about 2 MB; returns the
-    tokens written."""
+    (NdarrayCodec, non-nullable) in one file of row groups of about
+    ``group_mb`` MB (default :data:`TOKEN_GROUP_MB`); returns the tokens
+    written."""
     from petastorm_tpu_torch import materialize_dataset
     from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -1814,7 +1854,8 @@ def write_token_rows(np, url, rows, seq_len, vocab, seed):
                        False)])
     tokens = np.random.default_rng(seed).integers(0, vocab, (rows, seq_len),
                                                   dtype=np.int32)
-    with materialize_dataset(url, schema, row_group_size_mb=TOKEN_GROUP_MB,
+    with materialize_dataset(url, schema,
+                             row_group_size_mb=group_mb or TOKEN_GROUP_MB,
                              rows_per_file=rows) as w:
         w.write_rows({'idx': np.int64(i), 'tokens': tokens[i]}
                      for i in range(rows))
@@ -3366,7 +3407,7 @@ HEALTH_ROUNDS = 10
 HEALTH_SETTINGS = ('off', 'default', 'watched')
 #: the rows of the LM store's third row group (files of 9 rows)
 HEALTH_GATED = (2 * OBS_ROWS_PER_FILE, 3 * OBS_ROWS_PER_FILE)
-HEALTH_ABSENT = ('/autotune', '/observe/snapshot', '/podmetrics')
+HEALTH_ABSENT = ('/autotune', '/podmetrics')
 
 #: a row transform that blocks on the rows whose ``step`` lies in [lo, hi)
 #: until a gate file exists; written into the store's directory and
@@ -3397,12 +3438,18 @@ class FileGate:
 
 def http_get(port, route):
     """``(status, body)`` of ``GET route`` on the debug endpoint."""
+    return http_exchange(port, route)[:2]
+
+
+def http_exchange(port, route, headers=None):
+    """``(status, body, reply headers)`` of ``GET route`` with ``headers``."""
     from http.client import HTTPConnection
     conn = HTTPConnection('127.0.0.1', port, timeout=10)
     try:
-        conn.request('GET', route)
+        conn.request('GET', route, headers=headers or {})
         response = conn.getresponse()
-        return response.status, response.read().decode('utf-8')
+        return (response.status, response.read().decode('utf-8'),
+                dict(response.getheaders()))
     finally:
         conn.close()
 
@@ -3541,8 +3588,8 @@ def watched_lm_run(torch, url, cfg, step, setting, d, device, args,
             facts['replies'] = poller.replies
             facts['staging_max_age_s'] = poller.staging_max_age_s
             facts['routes'] = {r: http_get(port, r) for r in (
-                '/diagnostics', '/metrics', '/coverage', '/goodput', '/slo')
-                + HEALTH_ABSENT}
+                '/diagnostics', '/metrics', '/coverage', '/goodput', '/slo',
+                '/observe/snapshot') + HEALTH_ABSENT}
             if device == 'cuda':
                 # the profiler stages to the card unless told otherwise
                 facts['routes']['/profile'] = http_get(port, '/profile')
@@ -3796,6 +3843,11 @@ def check_healthy(facts):
           '%s: /stacks names no staging thread' % label)
     absent = {r: routes[r][0] for r in HEALTH_ABSENT}
     check(set(absent.values()) == {404}, '%s: %s' % (label, absent))
+    snapshot = json.loads(routes['/observe/snapshot'][1])
+    check(routes['/observe/snapshot'][0] == 200
+          and snapshot['kind'] == 'petastorm_tpu.observe_snapshot'
+          and 0 < snapshot['stats']['items_out'] <= facts['items_out'],
+          '%s: /observe/snapshot %s' % (label, routes['/observe/snapshot'][0]))
     # the profiler is on: /profile answers with a profile over a cached
     # calibration (never probing), uncalibrated where none is cached
     if '/profile' in routes:
@@ -3812,7 +3864,7 @@ def check_healthy(facts):
         '(fail_healthz) and met; /diagnostics entities %s; /metrics '
         'items_out %d == reader.stats; /coverage complete; /goodput %d '
         'steps, goodput %.4f; /stacks names the staging thread; /profile '
-        '200; %s 404; '
+        '200; /observe/snapshot 200; %s 404; '
         'loader-prefetch staging reached %.4f s at most; infeed_diagnosis '
         '%s, pipeline %s [%s]'
         % (label, goodput['steps'], run_s, len(replies), len(during), floor,
@@ -5651,6 +5703,612 @@ def resume_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the pod line (elastic membership, pod observability)
+# ---------------------------------------------------------------------------
+
+ELASTIC_ROWS = 1024               # token rows of 2,049 int32: about 8.4 MB
+ELASTIC_GROUP_MB = 1              # in row groups of about 1 MB
+ELASTIC_BATCH = 8
+ELASTIC_HOSTS = 3                 # the clean and death runs
+ELASTIC_JOIN_FROM = 2             # the join run starts from this many
+
+
+def elastic_specs(seed, hosts=ELASTIC_HOSTS):
+    """The phase's two membership scenarios from ``--seed``. ``host-death``
+    names its victim: a seed-drawn victim index can lie past a 3-host pod
+    (JAX draws it in [0, 4)), and then no host dies."""
+    return {'death': 'host-death:%d:die_host=%d' % (606 + seed, seed % hosts),
+            'join': 'host-join:%d' % (707 + seed)}
+
+
+def arrow_token_rows(np, path):
+    """The token store read with pyarrow alone (``np.load`` of each cell),
+    rows in file order, which is the indexed reader's global row order of a
+    one-file store; checks ``idx`` is that order."""
+    import io
+    import pyarrow.parquet as pq
+    files = sorted(n for n in os.listdir(path)
+                   if n.endswith('.parquet') and not n.startswith(('_', '.')))
+    check(len(files) == 1, 'elastic store: %d parquet files' % len(files))
+    table = pq.read_table(os.path.join(path, files[0]),
+                          columns=['idx', 'tokens']).to_pydict()
+    check(table['idx'] == list(range(len(table['idx']))),
+          'elastic store: idx is not the row order')
+    return np.stack([np.load(io.BytesIO(c)) for c in table['tokens']])
+
+
+def elastic_run(np, url, coord, spec, hosts, batch, seed, consume=None):
+    """One epoch of an ``ElasticPodSim`` of ``hosts`` simulated hosts over
+    the token store under ``PETASTORM_TPU_CHAOS=spec`` (None: clean). Each
+    delivered batch's ``tokens`` goes to ``consume(tokens, lease, batch)``,
+    or is kept (None). Returns ``(sim report, facts)``: the kept batches,
+    the injector's tallies, the epoch's wall time, the seconds from an
+    injected death to the first batch delivered on a lease the dead host
+    held, and each delivering ``ElasticHost.step``'s time beside its
+    ``gather`` and its consumer."""
+    from petastorm_tpu_torch.indexed import IndexedDatasetReader
+    from petastorm_tpu_torch.podelastic import (ElasticPodSim,
+                                                SimulatedHostDeath)
+    facts = {'batches': {}, 'step_s': [], 'gather_s': [], 'consume_s': [],
+             'death_at': None, 'moved': (), 'first_moved_s': None}
+    dataset = IndexedDatasetReader(url)
+    gather = dataset.gather
+
+    def timed_gather(rows, fields=None):
+        t0 = time.perf_counter()
+        out = gather(rows, fields)
+        facts['gather_s'].append(time.perf_counter() - t0)
+        return out
+    dataset.gather = timed_gather
+
+    def on_batch(columns, lease, b):
+        t0 = time.perf_counter()
+        if (facts['death_at'] is not None and facts['first_moved_s'] is None
+                and lease in facts['moved']):
+            facts['first_moved_s'] = t0 - facts['death_at']
+        if consume is None:
+            facts['batches'][(lease, b)] = np.array(columns['tokens'])
+        else:
+            consume(columns['tokens'], lease, b)
+        facts['consume_s'].append(time.perf_counter() - t0)
+
+    def timed(host):
+        step = host.step
+
+        def timed_step(epoch, on_batch=None):
+            held = host._held
+            t0 = time.perf_counter()
+            try:
+                out = step(epoch, on_batch=on_batch)
+            except SimulatedHostDeath:
+                facts['death_at'] = time.perf_counter()
+                facts['moved'] = held
+                raise
+            if out is not None:
+                facts['step_s'].append(time.perf_counter() - t0)
+            return out
+        host.step = timed_step
+        return host
+
+    try:
+        with chaos(spec) as injector:
+            sim = ElasticPodSim(dataset, coord, k_hosts=hosts,
+                                batch_size=batch, seed=seed)
+            for host in sim.hosts:
+                timed(host)
+            spawn = sim._spawn_host
+            sim._spawn_host = lambda index: timed(spawn(index))
+            start = time.perf_counter()
+            report = sim.run_epoch(0, on_batch=on_batch)
+            facts['epoch_s'] = time.perf_counter() - start
+            facts['certificate'] = sim.certificate(0)
+            facts['tallies'] = dict(injector.injected) if injector else {}
+            facts['plan'] = sim.plan
+            sim.close()
+    finally:
+        dataset.close()
+    # the lease plane's own time: the steps less their gathers and their
+    # consumers
+    facts['plane_s'] = ((sum(facts['step_s']) - sum(facts['gather_s'])
+                         - sum(facts['consume_s']))
+                        / max(1, len(facts['step_s'])))
+    return report, facts
+
+
+def elastic_readers(np, url, d, rows):
+    """``make_reader(..., elastic=)``: two registered hosts read shards 0
+    and 1 of 2, disjoint, their union the store; under
+    ``PETASTORM_TPU_ELASTIC=0`` a reader makes no member file and reads the
+    whole store; ``elastic=`` beside ``cur_shard`` raises with JAX's
+    words."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.podelastic import (ELASTIC_ENV_VAR,
+                                                ElasticConfigError,
+                                                PodMembership)
+    coord = os.path.join(d, 'coord-readers')
+    for host in ('a', 'b'):
+        PodMembership(coord, host_id=host)
+    shards = {}
+    for host in ('a', 'b'):
+        with make_reader(url, schema_fields=['idx'], workers_count=2,
+                         elastic={'coord_root': coord,
+                                  'host_id': host}) as reader:
+            shards[host] = sorted(int(r.idx) for r in reader)
+    check(shards['a'] and shards['b']
+          and not set(shards['a']) & set(shards['b'])
+          and sorted(shards['a'] + shards['b']) == list(range(rows)),
+          'elastic readers: shards of %d and %d rows, union %d of %d'
+          % (len(shards['a']), len(shards['b']),
+             len(set(shards['a']) | set(shards['b'])), rows))
+    off = os.path.join(d, 'coord-off')
+    os.environ[ELASTIC_ENV_VAR] = '0'
+    try:
+        with make_reader(url, schema_fields=['idx'], workers_count=2,
+                         elastic={'coord_root': off}) as reader:
+            whole = sorted(int(r.idx) for r in reader)
+    finally:
+        os.environ.pop(ELASTIC_ENV_VAR, None)
+    check(not os.path.exists(off) and whole == list(range(rows)),
+          'PETASTORM_TPU_ELASTIC=0: %s, %d rows'
+          % (os.listdir(off) if os.path.exists(off) else 'no directory',
+             len(whole)))
+    try:
+        make_reader(url, elastic={'coord_root': coord}, cur_shard=0,
+                    shard_count=2)
+        raised = None
+    except ElasticConfigError as e:
+        raised = str(e)
+    check(raised is not None and 'mutually exclusive with explicit '
+          'cur_shard/shard_count' in raised,
+          'elastic= beside cur_shard: %r' % raised)
+    return {h: len(v) for h, v in shards.items()}
+
+
+def elastic_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                 rows=ELASTIC_ROWS, batch=ELASTIC_BATCH,
+                 group_mb=ELASTIC_GROUP_MB):
+    """Phase 23 (a): the flagship LM fed by an elastic pod that loses a host
+    and, in another run, gains one. Returns the launch counts (K1-K3)."""
+    from petastorm_tpu_torch.torch_utils import stage_to_device
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    seq = cfg.max_seq_len
+    specs = elastic_specs(args.seed)
+    dev = torch.device(device if device != 'cuda'
+                       else 'cuda:%d' % torch.cuda.current_device())
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'elastic_tokens')
+        url = 'file://' + path
+        tokens = write_token_rows(np, url, rows, seq + 1, cfg.vocab_size,
+                                  args.seed, group_mb=group_mb)
+        arrow = arrow_token_rows(np, path)
+        check(np.array_equal(arrow, tokens),
+              'elastic store: the pyarrow read differs from the generator')
+        groups = row_groups(path)
+
+        def run(tag, spec, hosts, consume=None):
+            return elastic_run(np, url, os.path.join(d, 'coord-' + tag), spec,
+                               hosts, batch, args.seed, consume)
+
+        # (1) the clean references, one a grid (3 hosts: 6 leases; the
+        # join run's 2 hosts: 4 leases), batches kept on the host
+        clean = {}
+        for hosts in (ELASTIC_HOSTS, ELASTIC_JOIN_FROM):
+            report, facts = run('clean%d' % hosts, None, hosts)
+            plan = facts['plan']
+            check(facts['certificate']['ok'] and not report['deaths']
+                  and not report['joins'],
+                  'elastic clean %d hosts: %s' % (hosts, report['audit']))
+            for (lease, b), got in facts['batches'].items():
+                check(np.array_equal(got, arrow[plan.batch_rows(lease, 0, b)]),
+                      'elastic clean: lease %d batch %d differs from the '
+                      'pyarrow rows' % (lease, b))
+            clean[hosts] = (report, facts)
+        report, facts = clean[ELASTIC_HOSTS]
+        log('elastic clean: %d hosts, %d row groups, %d leases, %d batches '
+            'of %d rows, certificate ok, each batch == pyarrow\'s rows of '
+            'plan.batch_rows; epoch %.3f s host-only, lease plane %.3f ms a '
+            'batch (ElasticHost.step less its gather and consumer), gather '
+            '%.3f ms a batch'
+            % (ELASTIC_HOSTS, groups, facts['plan'].num_leases,
+               len(facts['batches']), batch, facts['epoch_s'],
+               facts['plane_s'] * 1e3,
+               statistics.median(facts['gather_s']) * 1e3))
+
+        # (2) death and (3) join: every delivered batch staged to the card
+        # and one AdamW step of the LM
+        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                          device=device)
+        _, step = tlm.make_train_step(cfg, params)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        lm = {}
+        for tag, hosts in (('death', ELASTIC_HOSTS),
+                           ('join', ELASTIC_JOIN_FROM)):
+            plan = clean[hosts][1]['plan']
+            refs = {key: (torch.from_numpy(got).to(dev),
+                          torch.from_numpy(
+                              arrow[plan.batch_rows(key[0], 0, key[1])])
+                          .to(dev))
+                    for key, got in clean[hosts][1]['batches'].items()}
+            out = {'losses': [], 'step_s': [], 'unequal': []}
+
+            def consume(host_tokens, lease, b):
+                staged, _ = stage_to_device({'tokens': host_tokens}, dev)
+                t = staged['tokens']
+                ref, want = refs[(lease, b)]
+                if not (torch.equal(t, ref) and torch.equal(t, want)):
+                    out['unequal'].append((lease, b))
+                t0 = time.perf_counter()
+                t = t.long()
+                out['losses'].append(float(step(t[:, :-1], t[:, 1:])))
+                out['step_s'].append(time.perf_counter() - t0)
+
+            report, facts = run(tag, specs[tag], hosts, consume)
+            check(facts['certificate']['ok'],
+                  'elastic %s: certificate %s' % (tag, report['audit']))
+            check(not out['unequal'],
+                  'elastic %s: staged batches %s differ from the clean run '
+                  "or pyarrow's rows" % (tag, out['unequal'][:4]))
+            check(len(out['losses']) == facts['plan'].total_batches()
+                  and all(math.isfinite(x) for x in out['losses']),
+                  'elastic %s: %d steps, losses %s'
+                  % (tag, len(out['losses']), out['losses'][:4]))
+            counters = report['counters']
+            if tag == 'death':
+                check(len(report['deaths']) == 1
+                      and counters['hosts_died'] >= 1
+                      and counters['leases_rebalanced'] > 0
+                      and facts['first_moved_s'] is not None,
+                      'elastic death: deaths %s, counters %s'
+                      % (report['deaths'], counters))
+            else:
+                check(len(report['joins']) == 1
+                      and counters['hosts_joined'] >= 1
+                      and report['audit']['by_host'].get(
+                          report['joins'][0], 0) > 0,
+                      'elastic join: joins %s, counters %s, by host %s'
+                      % (report['joins'], counters,
+                         report['audit']['by_host']))
+            # the same chaos seed, host only: the same membership story
+            replay, _ = run(tag + '-replay', specs[tag], hosts)
+            check((replay['deaths'], replay['joins'], replay['counters'])
+                  == (report['deaths'], report['joins'], counters),
+                  'elastic %s replay: %s %s %s against %s %s %s'
+                  % (tag, replay['deaths'], replay['joins'],
+                     replay['counters'], report['deaths'], report['joins'],
+                     counters))
+            lm[tag] = (report, facts, out)
+            log('elastic %s (%s, %d hosts%s): %d batches, %d LM steps, '
+                'certificate ok; deaths %s, joins %s; counters %s; staged '
+                'tokens == the clean run\'s and pyarrow\'s, bit for bit; '
+                'same-seed replay: the same deaths, joins and counters; '
+                'epoch %.3f s; LM steady step %.2f ms; loss %.4f -> %.4f; '
+                'lease plane %.3f ms a batch%s [%s]'
+                % (tag, specs[tag], hosts,
+                   ', one joins' if tag == 'join' else ', one dies',
+                   facts['plan'].total_batches(), len(out['losses']),
+                   report['deaths'], report['joins'],
+                   json.dumps(counters, sort_keys=True), facts['epoch_s'],
+                   statistics.median(out['step_s'][1:]) * 1e3,
+                   out['losses'][0], out['losses'][-1],
+                   facts['plane_s'] * 1e3,
+                   '; %.3f s from the death to the first batch on a moved '
+                   'lease' % facts['first_moved_s']
+                   if tag == 'death' else '', CARD))
+        steps = sum(len(v[2]['losses']) for v in lm.values())
+        launches = dict(kernels.LAUNCHES)
+        if device == 'cuda':
+            check(all(launches[k] == steps * cfg.n_layers for k in FLASH),
+                  'elastic LM launches %r for %d steps of %d layers'
+                  % (launches, steps, cfg.n_layers))
+        shards = elastic_readers(np, url, d, rows)
+        log('elastic readers: make_reader(elastic=) hosts a and b read '
+            'shards of %d and %d rows, disjoint, union the store; '
+            'PETASTORM_TPU_ELASTIC=0 made no member file; elastic= beside '
+            "cur_shard raised JAX's words; LM launches %s over %d steps"
+            % (shards['a'], shards['b'], json.dumps(launches), steps))
+    return launches
+
+
+def reserve_port():
+    """A free port of 127.0.0.1, known before the server that binds it
+    starts."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def podobs_off_checks(url, roots, servers, hosts, routes_text):
+    """``PETASTORM_TPU_PODOBS=0``: both routes 404 with JAX's text, no trace
+    id on a cache, no header on a peer reply, no ``io_attempt`` span of a
+    hedged, traced reader (which records them with the plane on)."""
+    from petastorm_tpu_torch import make_columnar_reader, podobs
+    from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+
+    def hedged_pass():
+        with make_columnar_reader(url, schema_fields=['idx'], num_epochs=1,
+                                  workers_count=2, trace=True, hedge=10.0,
+                                  debug_port=0) as reader:
+            n = sum(len(b.idx) for b in reader)
+            spans = sum(1 for s in reader.tracer.spans()
+                        if s[0] == 'io_attempt')
+            routes = {r: http_exchange(reader.debug_port, r)[:2]
+                      for r in routes_text}
+        return n, spans, routes
+
+    on = hedged_pass()
+    os.environ[podobs.PODOBS_ENV_VAR] = '0'
+    try:
+        off = hedged_pass()
+        root, kw = roots.kw('podobs_off', 1 << 20)
+        cache = SharedRowGroupCache(root, CACHE_LIMIT, peers=[hosts[0]],
+                                    **kw['cache_extra_settings'])
+        trace_id = cache.trace_id
+        cache.close()
+        before = dict(servers[0]._peer_server.traces)
+        _, _, headers = http_exchange(servers[0]._peer_server.port,
+                                      '/peercache/' + 'f' * 32,
+                                      {podobs.TRACE_HEADER: 'off'})
+        after = dict(servers[0]._peer_server.traces)
+    finally:
+        os.environ.pop(podobs.PODOBS_ENV_VAR, None)
+    check(on[1] > 0 and on[0] == off[0] and off[1] == 0,
+          'io_attempt spans: %d with the pod plane on, %d off' % (on[1],
+                                                                  off[1]))
+    check(all(status == 404 and body == routes_text[r]
+              for r, (status, body) in off[2].items()),
+          'PETASTORM_TPU_PODOBS=0 routes: %s' % off[2])
+    check(on[2]['/observe/snapshot'][0] == 200,
+          'the pod plane on: /observe/snapshot %s'
+          % on[2]['/observe/snapshot'][0])
+    check(trace_id == '' and before == after
+          and podobs.TRACE_HEADER not in headers
+          and podobs.CLOCK_HEADER not in headers,
+          'PETASTORM_TPU_PODOBS=0: trace id %r, headers %s' % (trace_id,
+                                                              headers))
+    return on[1]
+
+
+def pod_obs_line(torch, np, kernels, args, device='cuda', rows=IMAGE_ROWS,
+                 batch=IMAGE_BATCH, size=IMAGE_SIZE):
+    """Phase 23 (b): pod observability over the png store's pod of three
+    shared-cache roots, each host's reader serving ``/observe/snapshot``,
+    the third aggregating ``/podmetrics``, the CNN on K4 from its
+    batches. Returns the launch counts (K4)."""
+    from petastorm_tpu_torch import (PodObserver, TorchDataLoader,
+                                     TransformSpec, make_columnar_reader,
+                                     podobs, prefetch_to_device)
+    from petastorm_tpu_torch.examples.imagenet.main import \
+        make_resize_transform
+    from petastorm_tpu_torch.health import UNWIRED_ROUTES
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        path = os.path.join(d, 'podobs_images')
+        url = 'file://' + path
+        write_indexed_images(np, url, rows, args.seed)
+        groups = row_groups(path)
+        resize = make_resize_transform(size)
+        spec = TransformSpec(resize.func, edit_fields=resize.edit_fields,
+                             selected_fields=['idx', 'image', 'label'])
+        roots = SharedRoots(d)
+        servers, hosts, readers, thread = [], [], [], None
+        try:
+            for i in range(POD_HOSTS):
+                root, kw = roots.kw('podobs_host%d' % i, IMAGE_TIER0)
+                server = SharedRowGroupCache(root, CACHE_LIMIT,
+                                             **kw['cache_extra_settings'])
+                servers.append(server)
+                hosts.append((kw, '127.0.0.1:%d' % server.serve_peers()))
+
+            def open_host(i, debug_port=0):
+                kw, _ = hosts[i]
+                extra = dict(kw['cache_extra_settings'], peers=[
+                    h[1] for j, h in enumerate(hosts) if j != i])
+                readers.append(make_columnar_reader(
+                    url, num_epochs=1, workers_count=POD_THREADS,
+                    seed=args.seed + i, transform_spec=spec, trace=True,
+                    debug_port=debug_port,
+                    **dict(kw, cache_extra_settings=extra)))
+                return readers[-1]
+
+            def drain(reader, out):
+                for b in reader:
+                    for k, x in zip(b.idx, b.image):
+                        out[int(k)] = np.ascontiguousarray(x).tobytes()
+
+            cold = {}
+            drain(open_host(0), cold)
+            check(sorted(cold) == list(range(rows)),
+                  'podobs cold host: %d images' % len(cold))
+            second, errors = {}, []
+            reader2 = open_host(1)
+            port3 = reserve_port()
+            peers = ['127.0.0.1:%d' % r.debug_port for r in readers] + [
+                '127.0.0.1:%d' % port3]
+            os.environ[podobs.PODOBS_PEERS_ENV_VAR] = ','.join(peers)
+            try:
+                reader3 = open_host(2, debug_port=port3)
+            finally:
+                os.environ.pop(podobs.PODOBS_PEERS_ENV_VAR, None)
+            check(reader3.debug_port == port3,
+                  'podobs host 3 bound %s, not the reserved %d'
+                  % (reader3.debug_port, port3))
+
+            def host2():
+                try:
+                    drain(reader2, second)
+                except BaseException as e:   # re-raised on the main thread
+                    errors.append(e)
+            params = cnn.init(torch.Generator().manual_seed(args.seed),
+                              num_classes=IMAGE_CLASSES, device=device)
+            step = cnn.make_train_step(params, lr=1e-3)
+            if device == 'cuda':
+                torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            thread = threading.Thread(target=host2, name='podobs-host2')
+            thread.start()
+            third, losses = {}, []
+            loader = TorchDataLoader(reader3, batch_size=batch,
+                                     device=device)
+            batches = prefetch_to_device(iter(loader), size=2, device=device)
+            with contextlib.closing(batches):
+                for b in batches:
+                    if len(losses) < POD_STEPS:
+                        losses.append(float(step(b['image'], b['label'])))
+                    images = b['image'].cpu().numpy()
+                    for k, x in zip(b['idx'].cpu().numpy(), images):
+                        third[int(k)] = x.tobytes()
+            thread.join(120)
+            check(not thread.is_alive() and not errors,
+                  'podobs host 2: %s' % (errors or 'did not finish'))
+            launches = dict(kernels.LAUNCHES)
+            check(len(losses) == POD_STEPS
+                  and all(math.isfinite(x) for x in losses),
+                  'podobs CNN: losses %s' % losses)
+            if device == 'cuda':
+                check(launches['normalize'] == POD_STEPS,
+                      'podobs CNN: K4 launched %d times in %d steps'
+                      % (launches['normalize'], POD_STEPS))
+            check(third == cold and second == cold,
+                  "podobs hosts 2 and 3: images differ from the cold host's")
+
+            # each host's snapshot: one JSON, the clock, the trace echoed
+            trace_id = podobs.new_trace_id()
+            snaps = []
+            for peer in peers:
+                status, body, headers = http_exchange(
+                    int(peer.rsplit(':', 1)[1]), podobs.SNAPSHOT_ROUTE,
+                    {podobs.TRACE_HEADER: trace_id})
+                snap = json.loads(body)
+                check(status == 200
+                      and snap['kind'] == 'petastorm_tpu.observe_snapshot'
+                      and isinstance(float(headers[podobs.CLOCK_HEADER]),
+                                     float)
+                      and headers.get(podobs.TRACE_HEADER) == trace_id,
+                      'podobs %s snapshot: %s, headers %s'
+                      % (peer, status, headers))
+                snaps.append(snap)
+            status, body, headers = http_exchange(
+                port3, podobs.PODMETRICS_ROUTE,
+                {podobs.TRACE_HEADER: trace_id})
+            served = json.loads(body)
+            check(status == 200 and served['kind'] == 'petastorm_tpu.'
+                  'podmetrics' and served['hosts_reporting'] == POD_HOSTS
+                  and headers.get(podobs.TRACE_HEADER) == trace_id,
+                  'podobs /podmetrics: %s' % status)
+            observer = PodObserver(peers, expected_row_groups=groups)
+            start = time.perf_counter()
+            report = observer.report()
+            poll_s = time.perf_counter() - start
+            observer.assert_certificate(report)
+            for label, rep in (('/podmetrics', served), ('report()', report)):
+                cert = rep['certificate']
+                check(cert['fills'] == groups
+                      and cert['peer_hits'] == 2 * groups
+                      and rep['verdict'] != podobs.PARTIAL_POD,
+                      'podobs %s: fills %s, peer_hits %s over %d row groups, '
+                      'verdict %s' % (label, cert['fills'], cert['peer_hits'],
+                                      groups, rep['verdict']))
+            merged = podobs.merge_histogram_states(
+                [s['latency_histograms'] for s in snaps])
+            want = round(podobs.state_percentiles(
+                merged['peer_fetch'])['p99'], 9)
+            got = (report['latency']['peer_fetch']['p99_s'],
+                   served['latency']['peer_fetch']['p99_s'])
+            check(got == (want, want),
+                  'podobs peer_fetch p99 %s, bucket-merged %s' % (got, want))
+            offsets = [(h['clock_offset_s'], h['rtt_s'])
+                       for h in report['hosts']]
+            check(all(abs(o) <= rtt for o, rtt in offsets),
+                  'podobs clock offsets %s' % offsets)
+            # a dead peer: named, and the certificate refuses
+            partial_observer = PodObserver(peers + [DEAD_PEER], timeout_s=0.5,
+                                           expected_row_groups=groups)
+            partial = partial_observer.report()
+            try:
+                partial_observer.assert_certificate(partial)
+                refused = None
+            except podobs.PodCertificateError as e:
+                refused = str(e)
+            check(partial['verdict'] == podobs.PARTIAL_POD
+                  and [u['peer'] for u in partial['unreachable']]
+                  == [DEAD_PEER] and refused is not None
+                  and DEAD_PEER in refused,
+                  'podobs partial pod: verdict %s, unreachable %s, refused %r'
+                  % (partial['verdict'], partial['unreachable'], refused))
+            # the stitched trace: a track a host; host 3's peer fetches
+            # against the serving side's record of its trace id
+            trace_path = os.path.join(d, 'pod_trace.json')
+            observer.export_pod_chrome_trace(trace_path, report)
+            with open(trace_path) as f:
+                events = json.load(f)['traceEvents']
+            tracks = {e['pid']: e['args']['name'] for e in events
+                      if e['ph'] == 'M'}
+            check(len(tracks) == POD_HOSTS
+                  and all(sum(p in n for n in tracks.values()) == 1
+                          for p in peers),
+                  'podobs stitched trace tracks %s' % tracks)
+            track3 = next(pid for pid, n in tracks.items() if peers[2] in n)
+            hits3 = [e for e in events if e.get('name') == 'peer_fetch'
+                     and e['pid'] == track3
+                     and (e.get('args') or {}).get('outcome') == 'hit']
+            trace3 = reader3._spec.cache.trace_id
+            fetches3 = sum(1 for s in reader3.tracer.spans()
+                           if s[0] == 'peer_fetch')
+            echoed3 = sum(s._peer_server.traces.get(trace3, 0)
+                          for s in servers)
+            check(hits3 and trace3 and fetches3 == echoed3,
+                  'podobs trace id %r: %d peer_fetch hits on host 3\'s '
+                  'track, %d fetches, %d served under its id'
+                  % (trace3, len(hits3), fetches3, echoed3))
+            io_attempts = podobs_off_checks(
+                url, roots, servers, [h[1] for h in hosts], UNWIRED_ROUTES)
+        finally:
+            if thread is not None:
+                thread.join(120)
+            for reader in readers:
+                reader.stop()
+                reader.join()
+            for server in servers:
+                server.close()
+            roots.remove()
+    log('podobs: %d hosts x %d threads over %d png row groups, each '
+        'serving /observe/snapshot (one JSON, X-Petastorm-Clock-S, the '
+        'trace id echoed); host 3 aggregates /podmetrics; report() %.3f s: '
+        'fills %d (== row groups), peer_hits %d (== 2 x row groups), '
+        'certificate ok; pod peer_fetch p99 %.6f s == the bucket-merged '
+        'p99 of the three hosts\' states; clock offsets %s within their '
+        'round trips; %s named partial_pod and refused; stitched trace of '
+        '%d tracks, host 3\'s %d peer fetches all served under its trace '
+        'id; %d io_attempt spans of a hedged traced reader, none and both '
+        'routes 404 under PETASTORM_TPU_PODOBS=0; %d CNN steps on K4 from '
+        "host 3's batches, loss %.4f -> %.4f, images == the cold host's "
+        'byte for byte [%s]'
+        % (POD_HOSTS, POD_THREADS, groups, poll_s,
+           report['certificate']['fills'], report['certificate']['peer_hits'],
+           want, ' '.join('%+.6f/%.6f' % o for o in offsets), DEAD_PEER,
+           len(tracks), fetches3, io_attempts, POD_STEPS, losses[0],
+           losses[-1], CARD))
+    return launches
+
+
+def pod_planes_line(torch, np, tlm, kernels, args):
+    """Phase 23: (a) :func:`elastic_line`, (b) :func:`pod_obs_line`; returns
+    their launch counts."""
+    phase = time.perf_counter()
+    elastic = elastic_line(torch, np, tlm, kernels, args)
+    log('phase 23 (a) elastic pod %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    observed = pod_obs_line(torch, np, kernels, args)
+    log('phase 23 (b) pod observability %.1f s'
+        % (time.perf_counter() - phase))
+    return elastic, observed
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -5855,6 +6513,16 @@ def main(argv=None):
     for name in FLASH:
         launches[name] += resumed[name]
     log('phase resume line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    elastic_lm, observed_pod = pod_planes_line(torch, np, tlm, kernels, args)
+    check(all(elastic_lm[k] > 0 for k in FLASH),
+          'a kernel was not launched on the elastic LM line: %r' % elastic_lm)
+    check(observed_pod['normalize'] > 0,
+          'K4 was not launched on the observed pod png line')
+    for name in FLASH:
+        launches[name] += elastic_lm[name]
+    launches['normalize'] += observed_pod['normalize']
+    log('phase pod line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -26,7 +26,8 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :class:`LatencyHistogram`, :class:`SLOMonitor`, :class:`RetryPolicy`,
 :class:`HedgedRead`, :class:`FaultInjector`, :class:`PipelineController`,
 :func:`make_indexed_loader`, :func:`make_indexed_ngram_loader`,
-:class:`WeightedIndexedMixture`.
+:class:`WeightedIndexedMixture`, :class:`PodObserver`,
+:class:`ElasticPodSim`, :class:`PodMembership`, :class:`LeasePlan`.
 
 The stats, latency and tracing planes: ``reader.stats``,
 ``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
@@ -53,6 +54,13 @@ with any worker count; :mod:`petastorm_tpu_torch.indexed`,
 (:mod:`petastorm_tpu_torch.indexed_mixture`); the streaming mixture
 (:mod:`petastorm_tpu_torch.weighted_sampling_reader`); and the replay
 fallback for streaming pipelines (:mod:`petastorm_tpu_torch.checkpoint`).
+
+The pod planes: each reader's debug endpoint serves its host's
+``/observe/snapshot``, and a :class:`PodObserver` merges a pod's
+snapshots into one report (``/podmetrics``, ``petastorm-tpu-torch-podstat``;
+:mod:`petastorm_tpu_torch.podobs`); shard leases that move when a host
+dies or joins, with an exactly-once certificate, and the factories'
+``elastic=`` (:mod:`petastorm_tpu_torch.podelastic`).
 """
 
 __version__ = '0.1.0'
@@ -65,6 +73,7 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'SLOMonitor', 'RetryPolicy', 'HedgedRead', 'FaultInjector',
            'PipelineController', 'make_indexed_loader',
            'make_indexed_ngram_loader', 'WeightedIndexedMixture',
+           'PodObserver', 'ElasticPodSim', 'PodMembership', 'LeasePlan',
            '__version__']
 
 
@@ -118,6 +127,12 @@ def __getattr__(name):
         from petastorm_tpu_torch.indexed_mixture import \
             WeightedIndexedMixture
         return WeightedIndexedMixture
+    if name == 'PodObserver':
+        from petastorm_tpu_torch.podobs import PodObserver
+        return PodObserver
+    if name in ('ElasticPodSim', 'PodMembership', 'LeasePlan'):
+        from petastorm_tpu_torch import podelastic
+        return getattr(podelastic, name)
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

@@ -35,8 +35,14 @@ scenario                  injected faults
                           object-store trace (``trace=<file-or-name>``; the
                           builtin ``s3-us-east-1`` is this package's own copy
                           under ``traces/``)
-``host-death``            parsed for the pod-elasticity plane (not ported
-``host-join``             yet): nothing in the port consults them
+``host-death``            the pod-elasticity plane: a simulated host dies
+                          mid-epoch (:class:`~petastorm_tpu_torch.podelastic.
+                          ElasticHost` asks :meth:`FaultInjector.
+                          should_kill_host` before each delivery step)
+``host-join``             a simulated host joins mid-epoch (:class:`~petastorm_
+                          tpu_torch.podelastic.ElasticPodSim` asks
+                          :meth:`FaultInjector.should_join_host` between
+                          rounds); neither touches the filesystem
 ========================  ====================================================
 
 Harness: ``PETASTORM_TPU_CHAOS='<scenario>:<seed>[:k=v,...]'`` (the JAX
@@ -325,10 +331,9 @@ class FaultInjector:
     # -- pod-elasticity hooks --------------------------------------------------
 
     def should_kill_host(self, host_index: int, batches_delivered: int) -> bool:
-        """For the pod-elasticity plane (JAX's ``podelastic.ElasticHost``
-        asks before each delivery step; the port's comes later):
-        True when this simulated host must die *now* (raise
-        ``SimulatedHostDeath``). ``die_host`` picks the victim by index;
+        """For the pod-elasticity plane (``podelastic.ElasticHost`` asks
+        before each delivery step): True when this simulated host must die
+        *now* (raise ``SimulatedHostDeath``). ``die_host`` picks the victim by index;
         ``die_host=-1`` derives it from the seed (deterministically, without
         needing to know the pod size: the draw selects a small index, and the
         first host at-or-above it to cross ``die_after_batches`` dies —
@@ -354,11 +359,10 @@ class FaultInjector:
         return True
 
     def should_join_host(self, batches_delivered: int) -> bool:
-        """For the pod-elasticity plane (JAX's ``podelastic.ElasticPodSim``
-        asks between delivery steps):
-        True when a new simulated host must join the pod *now* (at most
-        ``max_joins`` per process, after ``join_after_batches`` pod-wide
-        delivered batches)."""
+        """For the pod-elasticity plane (``podelastic.ElasticPodSim``
+        asks between delivery rounds): True when a new simulated host must
+        join the pod *now* (at most ``max_joins`` per process, after
+        ``join_after_batches`` pod-wide delivered batches)."""
         if self.scenario != 'host-join':
             return False
         p = self.params

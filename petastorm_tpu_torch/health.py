@@ -33,10 +33,11 @@ entity and stage names, verdict wording and JSON keys:
   lineage, roofline, latency, SLO, autotune and goodput summaries.
 - **Debug endpoint.** :class:`DebugServer` serves ``/healthz``, ``/slo``,
   ``/metrics``, ``/diagnostics``, ``/coverage``, ``/profile``,
-  ``/autotune``, ``/goodput`` and ``/stacks`` on ``127.0.0.1``; a route
-  whose source is not wired answers 404 with JAX's text, and so do
-  ``/observe/snapshot`` and ``/podmetrics`` (the pod plane is not
-  ported).
+  ``/autotune``, ``/observe/snapshot``, ``/podmetrics``, ``/goodput`` and
+  ``/stacks`` on ``127.0.0.1``; a route whose source is not wired answers
+  404 with JAX's text. The two pod routes
+  (:mod:`petastorm_tpu_torch.podobs`) echo the request's trace id and stamp
+  this host's monotonic clock.
 
 Heartbeats are on by default (a few assignments an item);
 ``PETASTORM_TPU_HEALTH=0`` turns every beat off. The watchdog thread and
@@ -102,8 +103,8 @@ AUTOTUNE_UNWIRED = ('no autotune controller runs for this reader (pass '
                     'autotune=True to the factory, or set '
                     'PETASTORM_TPU_AUTOTUNE=1)\n')
 
-#: JAX's routes of the pod plane, which the port does not have: each
-#: answers 404 with the text JAX gives when it is unwired.
+#: JAX's 404 text of the pod plane's routes when their source is not wired
+#: (``PETASTORM_TPU_PODOBS=0``, or a host that is not an aggregator).
 UNWIRED_ROUTES = {
     '/observe/snapshot': 'the pod observability plane is off or unwired '
                          'for this reader (PETASTORM_TPU_PODOBS=0)\n',
@@ -441,6 +442,7 @@ def build_flight_record(verdict: dict, heartbeats: Dict[str, dict],
                         latency: Optional[dict] = None,
                         slo: Optional[dict] = None,
                         autotune: Optional[dict] = None,
+                        elastic: Optional[dict] = None,
                         goodput: Optional[dict] = None) -> dict:
     """The flight-recorder artifact: what diagnoses a stall after the
     process is gone, JSON-able by construction. ``lineage`` (a tracker's
@@ -453,10 +455,12 @@ def build_flight_record(verdict: dict, heartbeats: Dict[str, dict],
     ``SLOMonitor.evaluate()`` verdict) the burn state at the stall;
     ``autotune`` (``PipelineController.flight_summary()``) the controller's
     recent knob moves and their grades, so a stall that follows a move is
-    attributable to it; ``goodput`` (``GoodputMonitor.flight_summary()``)
-    the per-step goodput and the last step rings: whether the card was fed
-    when the pipeline stalled. JAX's ``elastic`` section (pod membership)
-    is not ported; a record leaves it out, as JAX's does when unwired."""
+    attributable to it; ``elastic`` (an ``ElasticHost.elastic_snapshot()``)
+    this host's view of the pod: held leases, hosts joined and died, leases
+    rebalanced, so a stall after a membership change is attributable to
+    the rebalance; ``goodput`` (``GoodputMonitor.flight_summary()``) the
+    per-step goodput and the last step rings: whether the card was fed
+    when the pipeline stalled."""
     record = {
         'kind': 'petastorm_tpu_flight_record',
         # deliberate wall clock: a human-facing artifact timestamp, never
@@ -482,6 +486,8 @@ def build_flight_record(verdict: dict, heartbeats: Dict[str, dict],
         record['slo'] = slo
     if autotune is not None:
         record['autotune'] = autotune
+    if elastic is not None:
+        record['elastic'] = elastic
     if goodput is not None:
         record['goodput'] = goodput
     return record
@@ -643,8 +649,13 @@ class DebugServer:
     - ``GET /autotune``: the autotune controller's report
       (:meth:`~petastorm_tpu_torch.autotune.PipelineController.report`);
       404 without a controller.
-    - ``GET /observe/snapshot`` and ``/podmetrics`` (the pod plane): 404
-      with the text JAX gives when they are unwired.
+    - ``GET /observe/snapshot``: this host's pod snapshot
+      (:func:`~petastorm_tpu_torch.podobs.make_observe_fn`); ``GET
+      /podmetrics``: the merged pod report
+      (:meth:`~petastorm_tpu_torch.podobs.PodObserver.report`) on an
+      aggregating host. Both echo the request's ``X-Petastorm-Trace`` and
+      stamp ``X-Petastorm-Clock-S`` (the aggregator's clock-offset
+      anchor); 404 with JAX's text when unwired.
 
     Requests are served on daemon threads (``ThreadingHTTPServer``);
     :meth:`stop` shuts the accept loop down, closes the socket and joins the
@@ -660,8 +671,13 @@ class DebugServer:
                  profile_fn: Optional[Callable[[], dict]] = None,
                  slo_fn: Optional[Callable[[], dict]] = None,
                  autotune_fn: Optional[Callable[[], dict]] = None,
+                 observe_fn: Optional[Callable[[], dict]] = None,
+                 podmetrics_fn: Optional[Callable[[], dict]] = None,
                  goodput_fn: Optional[Callable[[], dict]] = None):
         self._evaluate_fn = evaluate_fn
+        #: the pod routes' sources, by route (None: 404)
+        self._pod_fns = {'/observe/snapshot': observe_fn,
+                         '/podmetrics': podmetrics_fn}
         self._profile_fn = profile_fn
         self._autotune_fn = autotune_fn
         self._snapshot_fn = snapshot_fn or (lambda: {})
@@ -686,13 +702,27 @@ class DebugServer:
             def log_message(self, fmt, *args):  # quiet by default
                 logger.debug('debug endpoint: ' + fmt, *args)
 
-            def _reply(self, status: int, content_type: str, body: str):
+            def _reply(self, status: int, content_type: str, body: str,
+                       extra_headers: Optional[Dict[str, str]] = None):
                 payload = body.encode('utf-8')
                 self.send_response(status)
                 self.send_header('Content-Type', content_type)
                 self.send_header('Content-Length', str(len(payload)))
+                for name, value in (extra_headers or {}).items():
+                    self.send_header(name, value)
                 self.end_headers()
                 self.wfile.write(payload)
+
+            def _pod_headers(self) -> Dict[str, str]:
+                """The caller's trace id echoed, and this host's
+                monotonic clock at reply time."""
+                from petastorm_tpu_torch.podobs import (CLOCK_HEADER,
+                                                        TRACE_HEADER)
+                headers = {CLOCK_HEADER: repr(time.perf_counter())}
+                trace_id = self.headers.get(TRACE_HEADER)
+                if trace_id:
+                    headers[TRACE_HEADER] = trace_id
+                return headers
 
             def do_GET(self):  # noqa: N802 - http.server API
                 try:
@@ -759,7 +789,14 @@ class DebugServer:
                             self._reply(200, 'application/json',
                                         json.dumps(source(), default=str))
                     elif route in UNWIRED_ROUTES:
-                        self._reply(404, 'text/plain', UNWIRED_ROUTES[route])
+                        source = outer._pod_fns[route]
+                        if source is None:
+                            self._reply(404, 'text/plain',
+                                        UNWIRED_ROUTES[route])
+                        else:
+                            self._reply(200, 'application/json',
+                                        json.dumps(source(), default=str),
+                                        extra_headers=self._pod_headers())
                     elif route == '/goodput':
                         if outer._goodput_fn is None:
                             self._reply(404, 'text/plain',

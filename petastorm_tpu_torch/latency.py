@@ -96,18 +96,6 @@ def latency_enabled() -> bool:
     return value not in ('0', 'false', 'off')
 
 
-#: ``0``/``false``/``off`` turns off the ``io_range`` and ``peer_fetch``
-#: observations (and their ``range_fetch`` and ``peer_fetch`` spans): the
-#: JAX package's pod-observability switch, which gates them there.
-PODOBS_ENV_VAR = 'PETASTORM_TPU_PODOBS'
-
-
-def pod_observations_enabled() -> bool:
-    """The :data:`PODOBS_ENV_VAR` gate (default on)."""
-    value = os.environ.get(PODOBS_ENV_VAR, '').strip().lower()
-    return value not in ('0', 'false', 'off')
-
-
 def bucket_index(seconds: float) -> int:
     """Index of the bucket counting ``seconds``: the smallest ``i`` with
     ``seconds <= BUCKET_BOUNDS_S[i]``, or :data:`NUM_BUCKETS` (overflow).

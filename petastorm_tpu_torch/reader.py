@@ -180,8 +180,7 @@ logger = logging.getLogger(__name__)
 
 #: Parameters of the JAX package's factories that the port does not take
 #: yet, with the later slice that brings them.
-_UNPORTED = {'shard_by_jax_process': 'multi-GPU sharding',
-             'elastic': 'multi-GPU sharding'}
+_UNPORTED = {'shard_by_jax_process': 'multi-GPU sharding'}
 
 
 def _refuse_unported(factory, options):
@@ -194,6 +193,20 @@ def _refuse_unported(factory, options):
         raise NotImplementedError(
             '{}({}=...) is not ported to petastorm_tpu_torch yet; it comes '
             'with the {} slice'.format(factory, name, _UNPORTED[name]))
+
+
+def _resolve_elastic(elastic, cur_shard, shard_count):
+    """``(cur_shard, shard_count)`` with ``elastic=`` resolved: this host's
+    place in the pod's live membership
+    (:func:`~petastorm_tpu_torch.podelastic.resolve_elastic_shard`, JAX's
+    ``_resolve_jax_shard``), or the arguments as given without a config or
+    under ``PETASTORM_TPU_ELASTIC=0``."""
+    if elastic is None:
+        return cur_shard, shard_count
+    from petastorm_tpu_torch.podelastic import resolve_elastic_shard
+    cur_shard, shard_count, _ = resolve_elastic_shard(elastic, cur_shard,
+                                                      shard_count)
+    return cur_shard, shard_count
 
 
 def _resolve_resilience(retry, hedge, worker_recovery):
@@ -342,7 +355,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 metrics_interval=0, metrics_out=None, slo=None,
                 debug_port=None, stall_timeout=0, flight_record_dir=None,
                 autotune=None, retry=None, hedge=None, worker_recovery=None,
-                storage_options=None, remote_read=None, **unported):
+                storage_options=None, remote_read=None, elastic=None,
+                **unported):
     """Row-granular reader over the petastorm store at ``dataset_url``
     (a path, ``file://``, ``s3://``, ``gs://``, ``hdfs://`` or
     ``memory://``; ``storage_options`` go to its filesystem).
@@ -359,7 +373,11 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     :mod:`~petastorm_tpu_torch.filters`), ``rowgroup_selector`` (a
     :mod:`~petastorm_tpu_torch.selectors` object over the store's
     row-group indexes), ``cur_shard``/``shard_count`` (every
-    ``shard_count``-th row group left, from ``cur_shard``), and
+    ``shard_count``-th row group left, from ``cur_shard``; or ``elastic=
+    {'coord_root': d[, 'host_id', 'ttl_beats']}``, which derives them from
+    this host's place in the pod's live membership when the reader is
+    made, :mod:`~petastorm_tpu_torch.podelastic`; off under
+    ``PETASTORM_TPU_ELASTIC=0``), and
     ``shuffle_row_drop_partitions`` (each row group is ventilated that many
     times, each time with one slice of its rows). ``transform_spec.func``
     receives one row dict and returns it transformed (a ``device=True``
@@ -463,6 +481,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     remote_read = resolve_remote_read(remote_read)
     path, filesystem_factory = _resolve_store('make_reader', dataset_url,
                                               storage_options)
+    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
+                                              shard_count)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
@@ -505,7 +525,7 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          flight_record_dir=None, autotune=None, retry=None,
                          hedge=None, worker_recovery=None,
                          storage_options=None, remote_read=None,
-                         **unported):
+                         elastic=None, **unported):
     """Vectorized reader: one namedtuple of decoded numpy column arrays per
     row group (``batched_output``), over the transformed schema.
     ``transform_spec.func`` receives a dict of column arrays and runs on the
@@ -529,6 +549,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          'make_reader for windowed sequence assembly')
     path, filesystem_factory = _resolve_store('make_columnar_reader',
                                               dataset_url, storage_options)
+    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
+                                              shard_count)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
     tracer, trace_export = _make_tracer(trace)
@@ -567,7 +589,7 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       debug_port=None, stall_timeout=0,
                       flight_record_dir=None, autotune=None, retry=None,
                       hedge=None, worker_recovery=None, storage_options=None,
-                      remote_read=None, **unported):
+                      remote_read=None, elastic=None, **unported):
     """Vectorized reader of any Parquet store, with or without petastorm
     metadata (a schema is inferred from the files and their hive partition
     directories), or of an explicit list of ``file://`` parquet file URLs
@@ -592,6 +614,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     path, filesystem_factory = _resolve_store(
         'make_batch_reader', dataset_url_or_urls, storage_options,
         single=False)
+    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
+                                              shard_count)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -971,7 +995,7 @@ class Reader:
                                    latency=pool.stats.latency)
         if autotune_active:
             self._start_controller(pool, autotune_options, slo)
-        self._start_health(pool, debug_port, stall_timeout)
+        self._start_health(pool, debug_port, stall_timeout, cache)
 
     def _start_controller(self, pool, options, slo):
         """The autotune controller over the pool's live actuators (JAX
@@ -1004,8 +1028,13 @@ class Reader:
                                 tick_interval_s=options['tick_interval_s']))
         self._controller.start()
 
-    def _start_health(self, pool, debug_port, stall_timeout):
-        """The watchdog and the debug server (JAX :862-933). On-demand
+    def _start_health(self, pool, debug_port, stall_timeout, cache):
+        """The watchdog and the debug server (JAX :862-933). With the pod
+        plane on (``PETASTORM_TPU_PODOBS``), the server's
+        ``/observe/snapshot`` serves this host's snapshot, and when
+        ``PETASTORM_TPU_PODOBS_PEERS`` names the pod its ``/podmetrics``
+        serves a :class:`~petastorm_tpu_torch.podobs.PodObserver`'s
+        report. On-demand
         verdicts (``/healthz``) use :data:`~petastorm_tpu_torch.health.
         DEFAULT_STALL_AFTER_S` without a ``stall_timeout``; the watchdog's
         thread runs only with one (it fires the flight recorder and paces
@@ -1025,17 +1054,37 @@ class Reader:
         if port is None:
             return
         from petastorm_tpu_torch.goodput import goodput_enabled
+        from petastorm_tpu_torch.podobs import podobs_enabled
+        coverage_fn = (self.lineage.coverage_report if self.lineage.enabled
+                       else None)
+        slo_fn = self._slo.evaluate if self._slo is not None else None
+        goodput_fn = self._goodput_route if goodput_enabled() else None
+        observe_fn = podmetrics_fn = None
+        if podobs_enabled():
+            from petastorm_tpu_torch.podobs import (PodObserver,
+                                                    make_observe_fn,
+                                                    pod_peers_from_env)
+            tracer = self.tracer
+            observe_fn = make_observe_fn(
+                snapshot_fn=self._stats_snapshot,
+                health_fn=self._watchdog.evaluate, slo_fn=slo_fn,
+                coverage_fn=coverage_fn,
+                cache_counters_fn=getattr(cache, 'host_counters', None),
+                span_tail_fn=tracer.tail if tracer is not None else None,
+                goodput_fn=goodput_fn)
+            peers = pod_peers_from_env()
+            if peers:
+                podmetrics_fn = PodObserver(peers).report
         self._debug_server = DebugServer(
             self._watchdog.evaluate, self._stats_snapshot,
-            self.health.heartbeats, port=port,
-            coverage_fn=(self.lineage.coverage_report
-                         if self.lineage.enabled else None),
+            self.health.heartbeats, port=port, coverage_fn=coverage_fn,
             profile_fn=(self._profile_route if profiler.profiler_enabled()
                         else None),
-            slo_fn=self._slo.evaluate if self._slo is not None else None,
+            slo_fn=slo_fn,
             autotune_fn=(self._controller.report
                          if self._controller is not None else None),
-            goodput_fn=self._goodput_route if goodput_enabled() else None)
+            observe_fn=observe_fn, podmetrics_fn=podmetrics_fn,
+            goodput_fn=goodput_fn)
         try:
             self._debug_server.start()
         except (OSError, OverflowError) as e:   # a taken or bad port

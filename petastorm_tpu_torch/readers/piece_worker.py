@@ -96,12 +96,12 @@ from petastorm_tpu_torch import faultfs
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.codecs import batched_decode_enabled
 from petastorm_tpu_torch.fs import LOCAL_FILESYSTEM
-from petastorm_tpu_torch.latency import (LatencyDeltas,
-                                         pod_observations_enabled)
+from petastorm_tpu_torch.latency import LatencyDeltas
 from petastorm_tpu_torch.lineage import (NEVER_QUARANTINE, LineageEnvelope,
                                          Provenance, make_quarantine_record)
 from petastorm_tpu_torch.objectstore import (ParallelRangeReader,
                                              resolve_remote_read)
+from petastorm_tpu_torch.podobs import podobs_enabled
 from petastorm_tpu_torch.readers.readahead import RowGroupReadahead
 from petastorm_tpu_torch.resilience import ResilientIO
 
@@ -444,9 +444,14 @@ class PieceWorker:
         self._cwd = getattr(spec, 'cwd', None)
         retry, hedge = getattr(spec, 'retry', None), getattr(spec, 'hedge',
                                                              None)
-        #: retry and hedge under every read (None: both off)
-        self.resilience = (ResilientIO(retry, hedge) if retry or hedge
-                           else None)
+        # read-plane spans ride the tracing plane and latency the latency
+        # plane, each only with the pod plane on too
+        observe = podobs_enabled()
+        #: retry and hedge under every read (None: both off); with tracing
+        #: and the pod plane on, each attempt is an ``io_attempt`` span
+        self.resilience = (ResilientIO(
+            retry, hedge, observe_spans=observe and self.tracing_enabled)
+            if retry or hedge else None)
         # the read plane: the spec's mode, else serial on a local protocol
         # (a chaos wrapper forwards its inner filesystem's) and prebuffer
         # on a remote one
@@ -459,7 +464,6 @@ class PieceWorker:
         #: ``'serial'``, ``'prebuffer'`` or ``'ranged'``
         self.remote_read = mode
         self._pre_buffer = mode == 'prebuffer'
-        observe = pod_observations_enabled()
         #: the worker's range reader, shared with its readahead thread
         #: (every read builds its own buffer and opens its own handles);
         #: None unless ``ranged``
@@ -778,16 +782,19 @@ class PieceWorker:
         return path
 
     def _open_parquet(self, path: str) -> pq.ParquetFile:
-        """A parquet handle of ``path`` (``pre_buffer`` under
-        ``prebuffer``): pyarrow opens a local file by path; any other
-        filesystem, a chaos wrapper included, hands it a file object whose
-        reads the filesystem (and the injector) sees."""
+        """A parquet handle of ``path`` (``pre_buffer=True`` under
+        ``prebuffer``, else pyarrow's defaults, as JAX opens it: the reads a
+        row group issues, which a seeded fault injector counts, are JAX's):
+        pyarrow opens a local file by path; any other filesystem, a chaos
+        wrapper included, hands it a file object whose reads the filesystem
+        (and the injector) sees."""
         path = self._open_path(path)
+        options = {'pre_buffer': True} if self._pre_buffer else {}
         if self._filesystem is LOCAL_FILESYSTEM:
-            return pq.ParquetFile(path, pre_buffer=self._pre_buffer)
+            return pq.ParquetFile(path, **options)
         source = self._filesystem.open(path, 'rb')
         try:
-            return _SourceParquetFile(source, pre_buffer=self._pre_buffer)
+            return _SourceParquetFile(source, **options)
         except BaseException:
             source.close()
             raise
@@ -874,6 +881,8 @@ class PieceWorker:
             for name, n in self.resilience.take_events().items():
                 if n:
                     self.record_count(name, n)
+            for span in self.resilience.take_spans():
+                self.record_span(*span)
 
     @property
     def prefetch_lookahead(self) -> int:

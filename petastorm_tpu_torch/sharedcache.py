@@ -48,8 +48,10 @@ peer fetch against the local fill (a :class:`~petastorm_tpu_torch.
 resilience.HedgedRead`; a once-gate keeps the fill single). Each peer
 attempt is a ``peer_fetch`` span and latency observation, drained by
 :meth:`~SharedRowGroupCache.take_spans` and :meth:`~SharedRowGroupCache.
-take_latency` (off under ``PETASTORM_TPU_PODOBS=0``). JAX's trace and
-clock headers on the peer protocol come with the pod observability plane.
+take_latency` (off under ``PETASTORM_TPU_PODOBS=0``). A peer request
+carries the cache's :attr:`~SharedRowGroupCache.trace_id` in
+``X-Petastorm-Trace``; the serving side echoes it and stamps
+``X-Petastorm-Clock-S`` (:mod:`petastorm_tpu_torch.podobs`).
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ from typing import Dict, List, Optional, Tuple
 
 from petastorm_tpu_torch.cache import CacheBase
 from petastorm_tpu_torch.faultfs import maybe_inject_cache_fault
-from petastorm_tpu_torch.latency import bucket_index, pod_observations_enabled
+from petastorm_tpu_torch.latency import bucket_index
+from petastorm_tpu_torch.podobs import (CLOCK_HEADER, TRACE_HEADER,
+                                        new_trace_id, podobs_enabled)
 
 logger = logging.getLogger(__name__)
 
@@ -565,7 +569,10 @@ class SharedRowGroupCache(CacheBase):
                         'peer_bytes': 0, 'peer_skipped_dead': 0}
         # a peer that erred or timed out is skipped until its deadline
         self._peer_dead_until: Dict[str, float] = {}
-        self._observe_pod = pod_observations_enabled()
+        self._observe_pod = podobs_enabled()
+        #: the id every peer request of this cache carries in
+        #: ``X-Petastorm-Trace`` ('' with the pod plane off: no header)
+        self.trace_id = new_trace_id() if self._observe_pod else ''
         self._pod_spans: list = []
         self._pod_latency: Dict[str, dict] = {}
         # the pod tier's hedge: "fetch from a peer" against "fill here"
@@ -935,9 +942,14 @@ class SharedRowGroupCache(CacheBase):
             tmp = None
             nbytes = 0
             attempt_start = time.perf_counter()
+            request = urllib.request.Request(url)
+            if self._observe_pod:
+                # the serving peer echoes the id: both hosts' records of
+                # this fetch join on it
+                request.add_header(TRACE_HEADER, self.trace_id)
             try:
                 with urllib.request.urlopen(
-                        url, timeout=self._peer_timeout_s) as resp:
+                        request, timeout=self._peer_timeout_s) as resp:
                     fd, tmp = tempfile.mkstemp(dir=self._path,
                                                suffix='.peer')
                     with os.fdopen(fd, 'wb') as out:
@@ -1225,7 +1237,10 @@ class PeerCacheServer:
     a failed read (the fetching peer counts it and moves on). A threading
     HTTP server on ``127.0.0.1`` with daemon request threads, stopped and
     joined by :meth:`stop`. The fetching side validates every segment
-    before it republishes it."""
+    before it republishes it. With the pod plane on, every reply echoes
+    the request's ``X-Petastorm-Trace`` and stamps ``X-Petastorm-Clock-S``
+    (:meth:`_pod_headers`), and :attr:`traces` counts the requests served
+    under each trace id."""
 
     def __init__(self, cache: SharedRowGroupCache, port: int = 0):
         self._cache = cache
@@ -1234,6 +1249,24 @@ class PeerCacheServer:
         self._thread: Optional[threading.Thread] = None
         #: the bound port (not the requested one when that was 0)
         self.port: Optional[int] = None
+        #: trace id -> requests answered under it: this side's record of
+        #: the fetches a peer's ``peer_fetch`` spans time
+        self.traces: Dict[str, int] = {}
+        self._traces_lock = threading.Lock()
+
+    def _pod_headers(self, handler) -> Dict[str, str]:
+        """The pod plane's reply headers: the caller's trace id echoed and
+        this host's monotonic clock at reply time; none with
+        ``PETASTORM_TPU_PODOBS=0``."""
+        if not podobs_enabled():
+            return {}
+        headers = {CLOCK_HEADER: repr(time.perf_counter())}
+        trace = handler.headers.get(TRACE_HEADER)
+        if trace:
+            headers[TRACE_HEADER] = trace
+            with self._traces_lock:
+                self.traces[trace] = self.traces.get(trace, 0) + 1
+        return headers
 
     def start(self) -> 'PeerCacheServer':
         if self._server is not None:
@@ -1250,6 +1283,8 @@ class PeerCacheServer:
                 self.send_response(status)
                 self.send_header('Content-Type', content_type)
                 self.send_header('Content-Length', str(len(body)))
+                for name, value in outer._pod_headers(self).items():
+                    self.send_header(name, value)
                 self.end_headers()
                 self.wfile.write(body)
 

@@ -1,10 +1,10 @@
 """Per-item pipeline tracing and continuous metrics emission.
 
 The port's copy of ``petastorm_tpu/tracing.py`` (``resolve_trace`` :93,
-``Tracer`` :123, ``step_stall_marker`` :74, ``prometheus_text`` :313,
-``MetricsEmitter`` :377), with its environment variable, span names and
-metric names (prefix ``petastorm_tpu``), so one scrape configuration and one
-trace viewer read both packages.
+``Tracer`` :123, ``step_stall_marker`` :74, ``stitch_pod_trace`` :251,
+``prometheus_text`` :313, ``MetricsEmitter`` :377), with its environment
+variable, span names and metric names (prefix ``petastorm_tpu``), so one
+scrape configuration and one trace viewer read both packages.
 
 - :class:`Tracer`: a bounded ring of spans ``(name, cat, start_s, dur_s,
   pid, tid, args)`` that every component on the sample path records into
@@ -16,6 +16,8 @@ trace viewer read both packages.
   interpreters land on the consumer's timeline; each keeps its worker's
   pid and thread id. :meth:`Tracer.export_chrome_trace` writes Chrome
   trace-event JSON, which https://ui.perfetto.dev opens.
+- :func:`stitch_pod_trace`: the span tails of a pod's hosts as one Chrome
+  trace on the aggregator's clock, a process track a host.
 - :class:`MetricsEmitter`: a daemon thread writing a stats snapshot every
   N seconds as JSON lines, or as Prometheus text for a ``.prom`` path, and
   one final snapshot at :meth:`MetricsEmitter.stop`.
@@ -32,7 +34,7 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 #: Environment variable controlling tracing when the ``trace=`` kwarg is left
 #: at its default. ``''``/``'0'``/``'false'``/``'off'`` disable;
@@ -228,6 +230,52 @@ class Tracer:
                  'ts': start_s * 1e6, 'dur': max(0.0, dur_s) * 1e6,
                  'pid': pid, 'tid': tid, 'args': args}
                 for name, cat, start_s, dur_s, pid, tid, args in spans]
+
+
+def stitch_pod_trace(tracks: List[dict], path: str) -> str:
+    """The span tails of a pod's hosts as ONE clock-aligned Chrome trace.
+
+    ``tracks`` is a :class:`~petastorm_tpu_torch.podobs.PodObserver`
+    report's ``trace_tracks``: a dict a host with ``host``, ``pid``,
+    ``clock_offset_s`` (that host's monotonic clock less the aggregator's,
+    estimated from the poll's round trip) and ``spans`` (tail dicts,
+    ``ts``/``dur`` in µs on the HOST's clock). Each span's ``ts`` moves by
+    ``-clock_offset_s`` onto the aggregator's timeline, and each distinct
+    ``(host, pid)`` gets its own synthetic pid with a ``process_name`` row
+    naming the host: two hosts' equal OS pids must not share a Perfetto
+    track. Data-stalled goodput steps get :func:`step_stall_marker` flags.
+    Written atomically; returns ``path``."""
+    from petastorm_tpu_torch.utils import atomic_write
+    events: List[dict] = []
+    pid_map: Dict[Tuple[str, object], int] = {}
+    for track in tracks:
+        host = str(track.get('host'))
+        offset_s = track.get('clock_offset_s') or 0.0
+        offset_us = float(offset_s) * 1e6
+        for span in track.get('spans') or []:
+            key = (host, span.get('pid'))
+            pid = pid_map.get(key)
+            if pid is None:
+                pid = pid_map[key] = len(pid_map) + 1
+                events.append({
+                    'name': 'process_name', 'ph': 'M', 'pid': pid, 'tid': 0,
+                    'args': {'name': 'petastorm_tpu {} (pid {})'.format(
+                        host, span.get('pid'))}})
+            event = {'name': span.get('name'),
+                     'cat': span.get('cat') or 'pipeline', 'ph': 'X',
+                     'ts': float(span.get('ts', 0.0)) - offset_us,
+                     'dur': max(0.0, float(span.get('dur', 0.0))),
+                     'pid': pid, 'tid': span.get('tid', 0)}
+            if span.get('args'):
+                event['args'] = span['args']
+            events.append(event)
+            marker = step_stall_marker(event)
+            if marker is not None:
+                events.append(marker)
+    events.sort(key=lambda e: (e['ph'] != 'M', e.get('ts', 0.0)))
+    atomic_write(path, lambda f: json.dump(
+        {'traceEvents': events, 'displayTimeUnit': 'ms'}, f))
+    return path
 
 
 def _prometheus_value(value: float) -> str:

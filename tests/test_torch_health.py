@@ -439,8 +439,8 @@ ROUTES = ('/healthz', '/slo', '/metrics', '/diagnostics', '/coverage',
 
 
 def _wired(flag):
-    # every source the port has; the pod routes stay unwired in both
-    # packages (the port has no pod plane)
+    # every source but the pod routes', which stay unwired in both
+    # packages (tests/test_torch_podobs.py wires them)
     fn = (lambda: {'ok': True}) if flag else None
     return dict(coverage_fn=fn, slo_fn=fn, goodput_fn=fn, profile_fn=fn,
                 autotune_fn=fn)
@@ -676,9 +676,9 @@ def test_negative_stall_timeout_raises_as_jax(store):
 
 @pytest.mark.timeout(120)
 def test_reader_routes_as_jax(store, monkeypatch):
-    """Under the same wiring (the profiler and the pod plane off in JAX, as
-    the port has neither) a reader's routes answer alike; ``/metrics``
-    holds ``items_out`` and ``/coverage`` a complete epoch."""
+    """Under the same wiring (the profiler and the pod plane off in both
+    packages) a reader's routes answer alike; ``/metrics`` holds
+    ``items_out`` and ``/coverage`` a complete epoch."""
     monkeypatch.setenv('PETASTORM_TPU_PROFILER', '0')
     monkeypatch.setenv('PETASTORM_TPU_PODOBS', '0')
     got = {}

@@ -306,8 +306,8 @@ def test_source_scan_finds_no_jax_import():
 
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
-#: observability, profiler, autotune, resilience, remote-store and
-#: resume-and-mixing slices; the worker side (everything a worker
+#: observability, profiler, autotune, resilience, remote-store,
+#: resume-and-mixing and pod-plane slices; the worker side (everything a worker
 #: interpreter imports) and the indexed loaders must not import torch
 #: either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
@@ -338,7 +338,9 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.indexed',
                  'petastorm_tpu_torch.indexed_ngram',
                  'petastorm_tpu_torch.indexed_mixture',
-                 'petastorm_tpu_torch.checkpoint']
+                 'petastorm_tpu_torch.checkpoint',
+                 'petastorm_tpu_torch.podobs',
+                 'petastorm_tpu_torch.podelastic']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

@@ -292,3 +292,23 @@ def test_trace_replay_tally_as_jax(store, chaos_env, readahead):
                         snap['io_range_requests']))
     assert tallies[0] == tallies[1]
     assert tallies[0][1]['trace_reads'] > 0
+
+
+@pytest.mark.parametrize('mode', ['serial', 'prebuffer'])
+@pytest.mark.parametrize('factory', ['make_reader', 'make_columnar_reader',
+                                     'make_batch_reader'])
+def test_whole_row_group_reads_as_jax(store, chaos_env, mode, factory):
+    """A ``serial`` or ``prebuffer`` row-group read issues JAX's ``read()``
+    calls (pyarrow's defaults under ``serial``, as JAX opens the file), so a
+    seeded ``transient-errors`` run fails the same reads and retries as
+    often in both packages."""
+    got = {}
+    for pkg, faults in (('jax', jfaultfs), ('torch', tfaultfs)):
+        chaos_env('transient-errors:101')
+        rows, stats, _ = _pass(pkg, store, factory, remote_read=mode,
+                               reader_pool_type='dummy')
+        got[pkg] = (sorted(rows), stats.get('io_retries'),
+                    dict(faults.chaos_from_env().injected),
+                    sorted(faults.chaos_from_env()._occurrences.items()))
+    assert got['torch'] == got['jax']
+    assert got['torch'][1] >= 1

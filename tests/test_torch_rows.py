@@ -27,6 +27,7 @@ from petastorm_tpu_torch.examples.mnist.main import (
 from petastorm_tpu_torch.models import mnist_mlp as tmlp
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.predicates import in_lambda
+from petastorm_tpu_torch import reader as treader
 from petastorm_tpu_torch.reader import make_batch_reader
 from petastorm_tpu_torch.readers import shuffling_buffer as tbuffers
 from petastorm_tpu_torch.transform import TransformSpec
@@ -161,8 +162,14 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    with pytest.raises(NotImplementedError, match='shard_by_jax_process'):
-        make_batch_reader(url, shard_by_jax_process=True)
+    # shard_by_jax_process is the one option left for a later slice
+    # (elastic= came with the pod planes)
+    assert set(treader._UNPORTED) == {'shard_by_jax_process'}
+    for factory in (make_reader, make_batch_reader,
+                    petastorm_tpu_torch.make_columnar_reader):
+        with pytest.raises(NotImplementedError,
+                           match='shard_by_jax_process'):
+            factory(url, shard_by_jax_process=True)
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
