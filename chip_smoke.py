@@ -381,6 +381,40 @@ printing one line or a few:
    with JAX's text, no trace header and no ``io_attempt`` span of a
    hedged traced reader (which records them with the plane on); 4 CNN
    steps on K4 from host 3's batches, images == the cold host's.
+24. parallel line (after phase 23; data and sequence parallelism, every
+   rank a process on the one card: several ranks cannot form a NCCL group
+   on one GPU, so they form a gloo group and CUDA tensors cross through
+   pinned host memory; the kernels are built before the ranks start).
+   (a) + (b) on 4 ranks. (a) Ring attention alone on q, k, v, do (8, 8,
+   2048, 64) bf16 from ``--seed``, over ``{'seq': 4}`` and over the seq
+   groups of ``{'data': 2, 'seq': 2}``, causal and not, MHA and GQA 8 ->
+   2: o, lse, dq, dk, dv gathered equal one process's K1 over the whole
+   sequence and K2 + K3 on the ring's (o, lse), within ``2
+   flash_gate_limit + 2^-9 B + n 1e-5`` (lse ``2 TOL_F32 (1 + |lse|)``:
+   the ring rounds each chunk pair's output to bf16 before its float32
+   merge), and the twins' ring in float32 within ``flash_gate_limit +
+   2^-9 B + n 1e-5`` (``ring_gates``); K1-K3 launch n(n+1)/2 times a seq
+   group causal and n^2 not; each rank's ring ms forward and backward and
+   the bytes rotated. (b) The flagship LM (``TransformerConfig``'s
+   defaults, ``attention='ring'``) on ``{'data': 2, 'seq': 2}`` fed by
+   ``make_indexed_ngram_loader(mesh=)`` (global batch 8, the 320-row
+   token store), 8 AdamW steps: the seq ranks of a data group stage equal
+   batches and the data groups' union is the unsharded loader's global
+   batch bit for bit; each step's loss within 2e-3 of a one-process flash
+   step on the gathered batch from the same parameters; step 1's summed
+   gradient within 5e-2 (relative norm a leaf) of that step's, and its
+   ``gather_params`` within 2 lr of its parameters, every one more than
+   lr/2 apart where the two gradients differ in sign or one is within 100
+   eps of zero (AdamW's first step moves a parameter by about lr
+   sign(g)); the step ms a rank and the gloo transport's share. (c) 2
+   ranks: a token store of 288 rows x 2,049 in 9 row groups,
+   ``make_reader(shard_by_jax_process=True)`` -> ``make_torch_loader(
+   mesh={'data': 2})`` -> the LM (flash) for 4 steps, then the loader to
+   its lockstep stop: both ranks the same steps, the surplus drained, a
+   second pass after the reset the same, each rank's rows == shard r of 2
+   read with pyarrow, each loss within 2e-3 of a one-process step on the
+   concatenated batch. (d) 2 ring steps on a one-rank NCCL mesh
+   ``{'data': 1, 'seq': 1}`` == the flash steps bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -6309,6 +6343,675 @@ def pod_planes_line(torch, np, tlm, kernels, args):
     return elastic, observed
 
 
+# ---------------------------------------------------------------------------
+# phase 24: data and sequence parallelism (ranks on one card)
+# ---------------------------------------------------------------------------
+
+PAR_RING_SHAPE = (8, 8, 2048, 64)  # (a): B, H, L, head_dim of the ring
+PAR_RING_SEQS = (2, 4)             # (a): seq ranks of the ring
+PAR_RING_REPS = 3                  # (a): ring calls a case, the first warms up
+PAR_MESH = {'data': 2, 'seq': 2}   # (b)
+PAR_BATCH = 8                      # (b), (c): the global batch
+PAR_STEPS = 8                      # (b): AdamW steps on the mesh
+PAR_DP_ROWS = 288                  # (c): rows of 2,049 tokens ...
+PAR_DP_GROUP_MB = 0.26             # ... in 9 row groups of 32 rows
+PAR_DP_STEPS = 4                   # (c): LM steps of the first pass
+PAR_LOSS_RTOL = 2e-3               # a sharded step's loss vs one process's
+PAR_GRAD_RTOL = 5e-2               # step 1's gradient, relative norm a leaf
+PAR_LR = 3e-4                      # the train step's AdamW rate
+PAR_TIMEOUT_S = 600
+
+
+def _par_leaves(tlm, params):
+    return [p.detach() for p in tlm.parameters(params)]
+
+
+def _par_seq_cat(torch, x, group, dim):
+    """``x`` all-gathered over the seq ``group`` and concatenated on
+    ``dim``."""
+    from petastorm_tpu_torch.parallel.mesh import all_gather
+    return torch.cat(all_gather(x.contiguous(), group), dim=dim)
+
+
+def ring_gates(torch, kernels, label, n, full, got, plain, causal, h, hkv):
+    """(a)'s gates on the gathered ring outputs ``got`` (the kernels) and
+    ``plain`` (the twins' ring in float32; its backward on the kernel
+    ring's residuals). The ring holds against one process's K1 over the
+    whole sequence and K2 + K3 on the ring's own (o, lse), and against the
+    twins' ring, within limits derived from the rounding each side does:
+    both sides are within ``flash_gate_limit`` of the float32 value, and the
+    ring rounds each chunk pair's o (or dq, dk, dv) to bf16 before its float32
+    merge, at most half an ulp of a term whose magnitudes sum to at most
+    the bound ``B`` (``flash_rounding_bounds``): ``2^-9 B``; its n float32
+    partial sums add ``n 1e-5``. So ring vs whole: ``2 flash_gate_limit +
+    2^-9 B + n 1e-5``, ring vs twins: ``flash_gate_limit + 2^-9 B + n
+    1e-5``; lse (float32 throughout): ``2 TOL_F32 (1 + |lse|)`` and
+    ``TOL_F32 (1 + |lse|)``. Float32 operands: ``TOL_F32`` (twice for the
+    whole). Returns the max abs error of each output against the whole."""
+    from petastorm_tpu_torch.ops.attention import (flash_attention_with_lse,
+                                                   flash_backward)
+    q, k, v, do = full
+    o, lse, dq, dk, dv = got
+    bf16 = q.dtype == torch.bfloat16
+    o_w, lse_w = flash_attention_with_lse(q, k, v, causal=causal)
+    dq_w, dk_w, dv_w = flash_backward(q, k, v, o, lse, do, causal=causal)
+    b, _, l, d = q.shape
+    flat = lambda x, hh: x.float().reshape(b * hh, l, d)
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, l)
+    bound = kernels.flash_rounding_bounds(
+        flat(q, h), flat(k, hkv), flat(v, hkv), flat(do, h),
+        lse.reshape(b * h, l), delta, n_heads=h, n_kv_heads=hkv,
+        causal=causal)
+    g = h // hkv
+    bounds = {'o': bound['o'].reshape(b, h, l, d),
+              'dq': bound['dq'].reshape(b, h, l, d),
+              'dk': bound['dk'].reshape(b, hkv, g, l, d).sum(2),
+              'dv': bound['dv'].reshape(b, hkv, g, l, d).sum(2)}
+    errs = {}
+    for name, x, whole, twin in (('o', o, o_w, plain[0]),
+                                 ('dq', dq, dq_w, plain[2]),
+                                 ('dk', dk, dk_w, plain[3]),
+                                 ('dv', dv, dv_w, plain[4])):
+        check(bool(torch.isfinite(x).all()), '%s %s: non-finite' % (label,
+                                                                    name))
+        for ref, twice in ((whole, 2), (twin, 1)):
+            ref = ref.float()
+            if bf16:
+                limit = (twice * kernels.flash_gate_limit(ref, bounds[name],
+                                                          x.dtype)
+                         + 2.0 ** -9 * bounds[name] + n * 1e-5)
+            else:
+                limit = twice * TOL_F32 * (1 + ref.abs())
+            err = (x.float() - ref).abs()
+            bad = err > limit
+            check(not bool(bad.any()),
+                  '%s %s: %d elements beyond the limit against the %s (max '
+                  'abs err %.3g)' % (label, name, int(bad.sum()),
+                                     'whole sequence' if twice == 2
+                                     else "twins' ring", float(err.max())))
+        errs[name] = float((x.float() - whole.float()).abs().max())
+    for ref, twice in ((lse_w, 2), (plain[1], 1)):
+        err = (lse - ref).abs()
+        check(not bool((err > twice * TOL_F32 * (1 + ref.abs())).any()),
+              '%s lse: max abs err %.3g' % (label, float(err.max())))
+    errs['lse'] = float((lse - lse_w).abs().max())
+    return errs
+
+
+def ring_case(torch, kernels, mesh, shape, hkv, causal, seed, dtype, reps):
+    """(a) on one rank: the ring over ``mesh``'s seq group on this rank's
+    chunk of seeded (B, H, L, D) q, k, v, do (``reps`` calls, fwd and bwd
+    timed, the launches of the last counted), then its outputs gathered;
+    the rank of global rank 0 runs :func:`ring_gates`."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.ops.attention import (
+        _FlashDims, _prepare_flash_bwd_q_side)
+    from petastorm_tpu_torch.parallel import ring as pring
+    from petastorm_tpu_torch.parallel.mesh import (TRANSPORT_STATS,
+                                                   axis_index, axis_size,
+                                                   reset_transport_stats)
+    b, h, l, d = shape
+    n, me = axis_size(mesh, 'seq'), axis_index(mesh, 'seq')
+    group = mesh.get_group('seq')
+    device = mesh.device_type
+    cuda = device == 'cuda'
+    gen = torch.Generator().manual_seed(seed)
+    full = [torch.randn(b, hh, l, d, generator=gen).to(dtype).to(device)
+            for hh in (h, hkv, hkv, h)]
+    c = l // n
+    q, k, v, do = (x[:, :, me * c:(me + 1) * c].contiguous() for x in full)
+    times = []
+    for rep in range(reps):
+        ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+        if rep == reps - 1:
+            kernels.reset_launch_counts()
+            reset_transport_stats()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = pring.ring_attention(ql, kl, vl, group, causal=causal,
+                                 impl='kernel')
+        if cuda:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o.backward(do)
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    launches = dict(kernels.LAUNCHES)
+    moved = sum(s['bytes'] for s in TRANSPORT_STATS.values())
+    routes = sorted(TRANSPORT_STATS)
+    steady = times[1:] or times
+    # the gates' inputs, not counted: lse, the twins' ring, the gathers
+    _, lse = pring.ring_lse(q, k, v, group, causal=causal, impl='kernel')
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o_p, lse_p = pring.ring_lse(q32, k32, v32, group, causal=causal,
+                                impl='plain')
+    dims = _FlashDims(q.shape, k.shape)
+    prep = _prepare_flash_bwd_q_side(dims, q32, o.detach().float(), lse,
+                                     do32)
+    grads_p = pring._ring_backward(dims, prep, dims.flat_kv(k32),
+                                   dims.flat_kv(v32), group, causal, True)
+    dq_p, dk_p, dv_p = (dims.unflat_q(grads_p[0]),
+                        dims.unflat_kv(grads_p[1]),
+                        dims.unflat_kv(grads_p[2]))
+    got = [_par_seq_cat(torch, x, group, 2)
+           for x in (o.detach(), lse, ql.grad, kl.grad, vl.grad)]
+    plain = [_par_seq_cat(torch, x, group, 2)
+             for x in (o_p, lse_p, dq_p, dk_p, dv_p)]
+    label = 'ring seq=%d %s %s' % (n, 'causal' if causal else 'non-causal',
+                                   'MHA' if hkv == h else 'GQA %d->%d'
+                                   % (h, hkv))
+    errs = (ring_gates(torch, kernels, label, n, full, got, plain, causal, h,
+                       hkv) if dist.get_rank() == 0 else None)
+    return {'label': label, 'n': n, 'causal': causal, 'launches': launches,
+            'fwd_ms': 1e3 * statistics.median(t[0] for t in steady),
+            'bwd_ms': 1e3 * statistics.median(t[1] for t in steady),
+            'bytes': moved, 'routes': routes, 'errs': errs}
+
+
+def ring_lm(torch, np, tlm, kernels, mesh, cfg, url, seed, batch, steps):
+    """(b) on one rank: the flagship LM with ring attention on ``mesh``
+    (data x seq), fed by the sharded indexed NGram loader; global rank 0
+    then replays the steps in one process with flash attention on the
+    gathered global batches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import make_indexed_ngram_loader
+    from petastorm_tpu_torch.parallel.mesh import (TRANSPORT_STATS,
+                                                   all_gather, axis_index,
+                                                   axis_size,
+                                                   reset_transport_stats)
+    from petastorm_tpu_torch.weights import gather_params, shard_params
+    device = mesh.device_type
+    cuda = device == 'cuda'
+    init = tlm.init(cfg, torch.Generator().manual_seed(seed), device=device)
+    start = [p.clone() for p in tlm.parameters(init)]
+    params = shard_params(init, cfg, mesh)
+    _, step = tlm.make_train_step(cfg, params, mesh)
+    leaves = tlm.parameters(params)
+    loader = make_indexed_ngram_loader(url, resume_ngram(), batch_size=batch,
+                                       num_epochs=1, seed=seed, mesh=mesh,
+                                       workers_count=2)
+    seq_n, seq_i = axis_size(mesh, 'seq'), axis_index(mesh, 'seq')
+    local, losses, times, transport = [], [], [], []
+    grads1 = params1 = None
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    it = iter(loader)
+    for s in range(steps):
+        batch_s = next(it)
+        tokens = batch_s[0]['tokens']
+        targets = torch.cat([tokens[:, 1:], batch_s[1]['tokens'][:, :1]], 1)
+        local.append((tokens, targets))
+        c = tokens.shape[1] // seq_n
+        sl = slice(seq_i * c, (seq_i + 1) * c)
+        reset_transport_stats()
+        t0 = time.perf_counter()
+        loss = float(step(tokens[:, sl].contiguous(),
+                          targets[:, sl].contiguous()))
+        times.append(time.perf_counter() - t0)
+        transport.append(sum(v['seconds'] for v in TRANSPORT_STATS.values()))
+        losses.append(loss)
+        if s == 0:
+            grads1 = [p.grad.detach().clone() for p in leaves]
+            params1 = _par_leaves(tlm, gather_params(params, cfg, mesh))
+    launches = dict(kernels.LAUNCHES)
+    it.close()
+    loader.close()
+    # the seq ranks of a data group staged equal batches
+    seq_group, data_group = mesh.get_group('seq'), mesh.get_group('data')
+    for tokens, targets in local:
+        for x in (tokens, targets):
+            parts = all_gather(x, seq_group)
+            check(all(torch.equal(p, parts[0]) for p in parts),
+                  '(b) the seq ranks of a data group staged different '
+                  'batches')
+    global_batches = [tuple(torch.cat(all_gather(x, data_group), 0)
+                            for x in pair) for pair in local]
+    out = {'losses': losses, 'times': times, 'transport': transport,
+           'launches': launches, 'finite': all(math.isfinite(x)
+                                               for x in losses)}
+    if cuda:
+        # every rank's cached blocks go back to the card before rank 0
+        # runs the whole global batch in one process
+        torch.cuda.empty_cache()
+        dist.barrier()
+    if dist.get_rank() != 0:
+        return out
+    # the unsharded loader's global batches, bit for bit
+    ref_loader = make_indexed_ngram_loader(url, resume_ngram(),
+                                           batch_size=batch, num_epochs=1,
+                                           seed=seed, workers_count=2)
+    ref_it = iter(ref_loader)
+    for s, (tokens, targets) in enumerate(global_batches):
+        want = next(ref_it)
+        check(np.array_equal(tokens.cpu().numpy(), want[0]['tokens'])
+              and np.array_equal(targets[:, -1].cpu().numpy(),
+                                 want[1]['tokens'][:, 0]),
+              '(b) step %d: the data groups\' batches are not the unsharded '
+              'loader\'s global batch' % s)
+    ref_it.close()
+    ref_loader.close()
+    # one process, flash attention, the same parameters and batches
+    flash = dataclasses.replace(cfg, attention='flash')
+    ref = tlm.init(flash, torch.Generator().manual_seed(seed), device=device)
+    for p, p0 in zip(tlm.parameters(ref), start):
+        p.data.copy_(p0)
+    _, ref_step = tlm.make_train_step(flash, ref)
+    ref_leaves = tlm.parameters(ref)
+    diffs = []
+    for s, (tokens, targets) in enumerate(global_batches):
+        want = float(ref_step(tokens, targets))
+        diffs.append(abs(losses[s] - want) / abs(want))
+        check(diffs[-1] <= PAR_LOSS_RTOL,
+              '(b) step %d: loss %.6f on the mesh, %.6f in one process'
+              % (s, losses[s], want))
+        if s == 0:
+            grad_rel = max(float((g - p.grad).norm()
+                                 / (p.grad.norm() + 1e-12))
+                           for g, p in zip(grads1, ref_leaves))
+            check(grad_rel <= PAR_GRAD_RTOL,
+                  '(b) step 1 gradient relative error %.3g' % grad_rel)
+            # AdamW's first step moves a parameter by lr g / (|g| + eps),
+            # about lr sign(g): the two steps' parameters part by more
+            # than lr/2 only where the gradients differ in sign or one is
+            # within 100 eps of zero
+            moved = unexplained = total = 0
+            top = 0.0
+            worst = []
+            for a, p, g in zip(params1, ref_leaves, grads1):
+                diff = (a - p.detach()).abs()
+                far = diff > PAR_LR / 2
+                top = max(top, float(diff.max()))
+                g, g_ref = g.float(), p.grad.float()
+                explained = ((g * g_ref <= 0)
+                             | (torch.minimum(g.abs(), g_ref.abs())
+                                < 100 * 1e-8))
+                bad = far & ~explained
+                moved += int(far.sum())
+                unexplained += int(bad.sum())
+                total += p.numel()
+                if bad.any():
+                    i = int(bad.flatten().nonzero()[0])
+                    worst.append((float(g.flatten()[i]),
+                                  float(g_ref.flatten()[i]),
+                                  float(diff.flatten()[i])))
+            share = moved / total
+            check(top <= 2 * PAR_LR * 1.01 and unexplained == 0,
+                  '(b) step 1 params: max |diff| %.3g, %d more than lr/2 '
+                  'apart where the gradients agree in sign and are not '
+                  'near 0; (g, g_ref, diff) e.g. %r' % (top, unexplained,
+                                                        worst[:4]))
+    out.update(loss_rtol=max(diffs), grad_rel=grad_rel, param_max=top,
+               param_share=share)
+    return out
+
+
+def gloo_cuda_ops(torch):
+    """Which gloo collectives take CUDA tensors on this build: each is
+    called with a CUDA tensor on every rank (a refusal raises on every rank
+    alike, so no rank waits alone). Send and receive are not tried: gloo's
+    point-to-point takes host tensors only, and a rank stuck in one would
+    hang the others."""
+    import torch.distributed as dist
+    out = {}
+    x = torch.ones(4, device='cuda')
+    tries = {'all_reduce': lambda: dist.all_reduce(x),
+             'broadcast': lambda: dist.broadcast(x, src=0),
+             'all_gather': lambda: dist.all_gather(
+                 [torch.empty_like(x) for _ in range(dist.get_world_size())],
+                 x)}
+    for name, call in tries.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = 'yes'
+        except Exception as e:        # the build refuses CUDA tensors
+            out[name] = 'no: %s' % str(e).splitlines()[0][:80]
+    return out
+
+
+def parallel_ranks(spec):
+    """The body of phase 24 (a) and (b) on each of 4 ranks."""
+    import torch
+
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.ops import kernels
+    from petastorm_tpu_torch.parallel import make_mesh
+    import numpy as np
+    device = spec['device']
+    gloo_ops = None
+    if device == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gloo_ops = gloo_cuda_ops(torch)
+    cases = []
+    for n in spec['seqs']:
+        world = torch.distributed.get_world_size()
+        axes = {'seq': n} if n == world else {'data': world // n, 'seq': n}
+        mesh = make_mesh(axes, device)
+        for causal in (True, False):
+            for hkv in (spec['shape'][1], 2):
+                cases.append(ring_case(torch, kernels, mesh, spec['shape'],
+                                       hkv, causal, spec['seed'],
+                                       spec['dtype'], spec['reps']))
+    if device == 'cuda':
+        torch.cuda.empty_cache()        # (a)'s blocks, for the other ranks
+    mesh = make_mesh(spec['mesh'], device)
+    lm = ring_lm(torch, np, tlm, kernels, mesh, spec['cfg'], spec['url'],
+                 spec['seed'], spec['batch'], spec['steps'])
+    return {'cases': cases, 'lm': lm, 'gloo_cuda_ops': gloo_ops}
+
+
+def pyarrow_shard(np, path, shard, shards):
+    """``(idx, tokens, row groups)`` of row groups ``shard::shards`` of the
+    one-file token store, read with pyarrow alone, in the row reader's
+    order: the groups in order, each group's rows last first (the results
+    reader pops an item's rows from its end, as JAX's does)."""
+    import io
+
+    import pyarrow.parquet as pq
+    files = sorted(n for n in os.listdir(path)
+                   if n.endswith('.parquet') and not n.startswith(('_', '.')))
+    pf = pq.ParquetFile(os.path.join(path, files[0]))
+    idx, tokens = [], []
+    for g in range(shard, pf.num_row_groups, shards):
+        table = pf.read_row_group(g, columns=['idx', 'tokens']).to_pydict()
+        idx.extend(table['idx'][::-1])
+        tokens.extend(np.load(io.BytesIO(c)) for c in table['tokens'][::-1])
+    return np.asarray(idx), np.stack(tokens), pf.num_row_groups
+
+
+def dp_stream_rank(spec):
+    """Phase 24 (c) on each of 2 ranks: ``make_reader(shard_by_jax_process=
+    True)`` -> ``make_torch_loader(mesh=)`` -> the LM (flash) for the first
+    steps, the loader alone to the lockstep stop; a second pass after the
+    reset; global rank 0 replays the steps in one process."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import make_reader, make_torch_loader
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.ops import kernels
+    from petastorm_tpu_torch.parallel import make_mesh
+    from petastorm_tpu_torch.parallel.mesh import all_gather
+    from petastorm_tpu_torch.weights import shard_params
+    device, cfg, seed = spec['device'], spec['cfg'], spec['seed']
+    if device == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh({'data': 2}, device)
+    rank = dist.get_rank()
+    init = tlm.init(cfg, torch.Generator().manual_seed(seed), device=device)
+    start = [p.clone() for p in tlm.parameters(init)]
+    params = shard_params(init, cfg, mesh)
+    _, step = tlm.make_train_step(cfg, params, mesh)
+    reader = make_reader(spec['url'], schema_fields=['idx', 'tokens'],
+                         shard_by_jax_process=True, shuffle_row_groups=False,
+                         workers_count=1, num_epochs=1)
+    drains = []
+    drain = reader.drain
+    reader.drain = lambda: (drains.append(1), drain())[1]
+    loader = make_torch_loader(reader, batch_size=spec['batch'] // 2,
+                               mesh=mesh)
+    idx, tokens_seen, losses, local = [], [], [], []
+    kernels.reset_launch_counts()
+    for i, batch in enumerate(loader):
+        idx.append(batch['idx'].cpu().numpy())
+        tokens = batch['tokens']
+        tokens_seen.append(tokens.cpu().numpy())
+        if i < spec['steps']:
+            local.append(tokens)
+            losses.append(float(step(tokens[:, :-1].contiguous(),
+                                     tokens[:, 1:].contiguous())))
+    launches = dict(kernels.LAUNCHES)
+    first = len(idx)
+    first_drains = len(drains)
+    second = sum(1 for _ in loader)
+    reader.stop()
+    reader.join()
+    counts = all_gather(torch.tensor([first, second, first_drains]))
+    counts = [c.tolist() for c in counts]
+    want_idx, want_tokens, groups = pyarrow_shard(np, spec['path'], rank, 2)
+    got_idx = np.concatenate(idx)
+    n = len(got_idx)
+    check(np.array_equal(got_idx, want_idx[:n])
+          and np.array_equal(np.concatenate(tokens_seen), want_tokens[:n]),
+          '(c) rank %d: rows differ from shard %d of 2 read with pyarrow'
+          % (rank, rank))
+    global_batches = [torch.cat(all_gather(t, None), 0) for t in local]
+    out = {'counts': counts, 'rows': n, 'shard_rows': len(want_idx),
+           'groups': groups, 'losses': losses, 'launches': launches}
+    if rank != 0:
+        return out
+    flash = dataclasses.replace(cfg, attention='flash')
+    ref = tlm.init(flash, torch.Generator().manual_seed(seed), device=device)
+    for p, p0 in zip(tlm.parameters(ref), start):
+        p.data.copy_(p0)
+    _, ref_step = tlm.make_train_step(flash, ref)
+    diffs = []
+    for s, tokens in enumerate(global_batches):
+        want = float(ref_step(tokens[:, :-1].contiguous(),
+                              tokens[:, 1:].contiguous()))
+        diffs.append(abs(losses[s] - want) / abs(want))
+        check(diffs[-1] <= PAR_LOSS_RTOL,
+              '(c) step %d: loss %.6f over 2 ranks, %.6f in one process'
+              % (s, losses[s], want))
+    out['loss_rtol'] = max(diffs)
+    return out
+
+
+def nccl_line(torch, tlm, kernels, cfg, tokens, targets, seed, d):
+    """Phase 24 (d): the ring step on a one-rank NCCL mesh {'data': 1,
+    'seq': 1} against the flash step, bit for bit (a one-chunk ring is K1-K3
+    on the whole sequence). Returns the ring step's launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import make_mesh
+    from petastorm_tpu_torch.parallel.launch import init_rank
+    init_rank(d, 0, 1, backend='nccl')
+    try:
+        mesh = make_mesh({'data': 1, 'seq': 1})
+        losses = {}
+        launches = None
+        for mode in ('ring', 'flash'):
+            c = dataclasses.replace(cfg, attention=mode)
+            params = tlm.init(c, torch.Generator().manual_seed(seed),
+                              device='cuda')
+            _, step = tlm.make_train_step(c, params,
+                                          mesh if mode == 'ring' else None)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            losses[mode] = [float(step(tokens, targets)) for _ in range(2)]
+            if mode == 'ring':
+                launches = dict(kernels.LAUNCHES)
+        check(losses['ring'] == losses['flash'],
+              '(d) ring on one NCCL rank %r vs flash %r'
+              % (losses['ring'], losses['flash']))
+        check(dist.get_backend() == 'nccl', '(d) backend %s'
+              % dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+    log('parallel (d) NCCL mesh {data: 1, seq: 1}: 2 ring steps, losses %s '
+        '== flash bit for bit; launches %s'
+        % (losses['ring'], json.dumps(launches)))
+    return launches
+
+
+def free_card(torch, label):
+    """Give this process's cached device memory back to the card before
+    ranks start on it (each rank is a process of its own on the one card)
+    and log what the card has free."""
+    import gc
+    allocated = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log('%s: this process held %.2f GiB allocated, %.2f GiB reserved; '
+        'after its cache was emptied the card has %.2f of %.2f GiB free'
+        % (label, allocated / 2**30, reserved / 2**30, free / 2**30,
+           total / 2**30))
+
+
+def parallel_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                  shape=PAR_RING_SHAPE, seqs=PAR_RING_SEQS,
+                  reps=PAR_RING_REPS, rows=ROWS, steps=PAR_STEPS,
+                  dp_rows=PAR_DP_ROWS, dp_group_mb=PAR_DP_GROUP_MB,
+                  dp_steps=PAR_DP_STEPS, dtype=None):
+    """Phase 24: data and sequence parallelism, every rank a process on the
+    one card over gloo (several ranks on one card cannot form a NCCL
+    group); CUDA tensors cross through pinned host memory (the
+    ``gloo-host`` transport). (a) + (b) on 4 ranks, (c) on 2, (d) in this
+    process on NCCL. Returns the phase's launch counts (K1-K3), summed
+    over the ranks."""
+    import dataclasses
+
+    from petastorm_tpu_torch.parallel import launch_ranks
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    dtype = dtype or torch.bfloat16
+    total = {name: 0 for name in FLASH}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'tokens')
+        write_store(np, url, cfg.max_seq_len, cfg.vocab_size, rows,
+                    args.seed)
+        spec = dict(device=device, seed=args.seed, shape=shape, seqs=seqs,
+                    dtype=dtype, reps=reps, mesh=PAR_MESH,
+                    cfg=dataclasses.replace(cfg, attention='ring'), url=url,
+                    batch=PAR_BATCH, steps=steps)
+        if device == 'cuda':
+            free_card(torch, 'parallel (a) + (b) before the spawn')
+        start = time.perf_counter()
+        ranks = launch_ranks('chip_smoke:parallel_ranks', 4,
+                             os.path.join(d, 'ab'), args=(spec,),
+                             timeout_s=PAR_TIMEOUT_S)
+        log('parallel (a) + (b) on 4 ranks %.1f s (spawn, CUDA init and the '
+            'runs); gloo collectives on CUDA tensors: %s'
+            % (time.perf_counter() - start,
+               json.dumps(ranks[0]['gloo_cuda_ops'])))
+        # (a)
+        for i, case in enumerate(ranks[0]['cases']):
+            n = case['n']
+            per = [r['cases'][i] for r in ranks]
+            groups = 4 // n
+            pairs = n * (n + 1) // 2 if case['causal'] else n * n
+            for name in FLASH:
+                got = sum(p['launches'][name] for p in per)
+                # the CPU rehearsal runs the twins: no launches
+                check(got == groups * pairs or device != 'cuda',
+                      '%s: %s launched %d times over %d seq group(s) of %d, '
+                      'not %d a group' % (case['label'], name, got, groups,
+                                          n, pairs))
+                total[name] += got
+            errs = case['errs']
+            log('parallel (a) %-28s fwd ms %s bwd ms %s, %d bytes rotated a '
+                'rank (%s), launches a group K1 %d K2 %d K3 %d; max abs err '
+                'vs whole sequence o %.3g lse %.3g dq %.3g dk %.3g dv %.3g '
+                '(limits 2 gate + 2^-9 B + n 1e-5 against the whole, gate + '
+                "2^-9 B + n 1e-5 against the twins' ring; lse 2 and 1 x "
+                '1e-4(1+|lse|))'
+                % (case['label'],
+                   '/'.join('%.3f' % p['fwd_ms'] for p in per),
+                   '/'.join('%.3f' % p['bwd_ms'] for p in per),
+                   per[0]['bytes'], ','.join(per[0]['routes']) or 'none',
+                   pairs, pairs, pairs, errs['o'], errs['lse'], errs['dq'],
+                   errs['dk'], errs['dv']))
+        # (b)
+        lm = [r['lm'] for r in ranks]
+        check(all(r['finite'] for r in lm), '(b) a non-finite loss')
+        for name in FLASH:
+            total[name] += sum(r['launches'][name] for r in lm)
+            check(all(r['launches'][name] > 0 for r in lm)
+                  or device != 'cuda',
+                  '(b) %s not launched on every rank' % name)
+        check(all(r['losses'] == lm[0]['losses'] for r in lm),
+              '(b) the ranks report different losses')
+        share = [sum(r['transport'][1:]) / sum(r['times'][1:]) for r in lm]
+        log('parallel (b) LM on %s (ring, %s, %d steps, global batch %d): '
+            'losses %s; loss vs one process (flash) max rel %.3g (limit %g), '
+            'step-1 gradient max rel %.3g (limit %g), step-1 params max '
+            '|diff| %.3g (limit 2 lr), %.3g of them > lr/2 apart, each where '
+            'the gradients can flip its sign; batches: seq ranks '
+            'equal, data groups == the unsharded loader\'s; steady step ms '
+            'per rank %s, gloo-host transport share %s'
+            % (json.dumps(PAR_MESH), str(cfg.dtype).split('.')[-1], steps,
+               PAR_BATCH,
+               ['%.4f' % x for x in lm[0]['losses']], lm[0]['loss_rtol'],
+               PAR_LOSS_RTOL, lm[0]['grad_rel'], PAR_GRAD_RTOL,
+               lm[0]['param_max'], lm[0]['param_share'],
+               '/'.join('%.1f' % (1e3 * statistics.median(r['times'][1:]
+                                                          or r['times']))
+                        for r in lm),
+               '/'.join('%.2f' % x for x in share)))
+
+        # (c)
+        path = os.path.join(d, 'dp_tokens')
+        write_token_rows(np, 'file://' + path, dp_rows, cfg.max_seq_len + 1,
+                         cfg.vocab_size, args.seed, group_mb=dp_group_mb)
+        spec = dict(device=device, seed=args.seed, cfg=cfg, path=path,
+                    url='file://' + path, batch=PAR_BATCH, steps=dp_steps)
+        if device == 'cuda':
+            free_card(torch, 'parallel (c) before the spawn')
+        start = time.perf_counter()
+        dp = launch_ranks('chip_smoke:dp_stream_rank', 2,
+                          os.path.join(d, 'c'), args=(spec,),
+                          timeout_s=PAR_TIMEOUT_S)
+        counts = dp[0]['counts']
+        check(dp[0]['groups'] == 9, '(c) %d row groups' % dp[0]['groups'])
+        check(counts[0][0] == counts[1][0] and counts[0][1] == counts[1][1]
+              and counts[0][0] == counts[0][1] > 0,
+              '(c) steps a rank (first pass, second pass, drains): %r'
+              % counts)
+        # at the lockstep stop every rank drains (the one whose stream
+        # ended drains nothing); the surplus rank leaves rows unread
+        check(all(c[2] == 1 for c in counts)
+              and any(r['rows'] < r['shard_rows'] for r in dp),
+              '(c) drains a rank %r, rows %r of %r: a surplus must be drained'
+              % ([c[2] for c in counts], [r['rows'] for r in dp],
+                 [r['shard_rows'] for r in dp]))
+        check(all(r['losses'] == dp[0]['losses'] for r in dp),
+              '(c) the ranks report different losses')
+        for name in FLASH:
+            total[name] += sum(r['launches'][name] for r in dp)
+        log('parallel (c) 2 ranks, %d row groups, shard_by_jax_process: %d '
+            'lockstep steps a pass, both passes (the second after reset), '
+            'drains a rank %s; rows a rank %s of shards of %s == pyarrow; '
+            'losses %s, vs one process max rel %.3g (limit %g); %.1f s'
+            % (dp[0]['groups'], counts[0][0], [c[2] for c in counts],
+               [r['rows'] for r in dp], [r['shard_rows'] for r in dp],
+               ['%.4f' % x for x in dp[0]['losses']], dp[0]['loss_rtol'],
+               PAR_LOSS_RTOL, time.perf_counter() - start))
+
+        # (d)
+        if device == 'cuda':
+            from petastorm_tpu_torch import make_indexed_ngram_loader
+            loader = make_indexed_ngram_loader(url, resume_ngram(),
+                                               batch_size=PAR_BATCH,
+                                               num_epochs=1, seed=args.seed,
+                                               workers_count=1)
+            it = iter(loader)
+            first = next(it)
+            it.close()
+            loader.close()
+            tokens = torch.from_numpy(first[0]['tokens']).cuda()
+            targets = torch.cat([tokens[:, 1:], torch.from_numpy(
+                first[1]['tokens'][:, :1]).cuda()], 1)
+            launched = nccl_line(torch, tlm, kernels, cfg, tokens, targets,
+                                 args.seed, os.path.join(d, 'd'))
+            for name in FLASH:
+                total[name] += launched[name]
+    log('parallel phase launches %s' % json.dumps(total))
+    return total
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -6523,6 +7226,13 @@ def main(argv=None):
         launches[name] += elastic_lm[name]
     launches['normalize'] += observed_pod['normalize']
     log('phase pod line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    parallel = parallel_line(torch, np, tlm, kernels, args)
+    check(all(parallel[k] > 0 for k in FLASH),
+          'a kernel was not launched on the parallel line: %r' % parallel)
+    for name in FLASH:
+        launches[name] += parallel[name]
+    log('phase parallel line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     bound = bounds(PATH_SHAPE)

@@ -27,7 +27,10 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :class:`HedgedRead`, :class:`FaultInjector`, :class:`PipelineController`,
 :func:`make_indexed_loader`, :func:`make_indexed_ngram_loader`,
 :class:`WeightedIndexedMixture`, :class:`PodObserver`,
-:class:`ElasticPodSim`, :class:`PodMembership`, :class:`LeasePlan`.
+:class:`ElasticPodSim`, :class:`PodMembership`, :class:`LeasePlan`,
+:func:`make_mesh`, :func:`host_shard`, :func:`batch_sharding`,
+:func:`replicated_sharding`, :func:`ring_attention`, :func:`launch_ranks`,
+:class:`ShardedTorchLoader`.
 
 The stats, latency and tracing planes: ``reader.stats``,
 ``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
@@ -61,6 +64,15 @@ snapshots into one report (``/podmetrics``, ``petastorm-tpu-torch-podstat``;
 :mod:`petastorm_tpu_torch.podobs`); shard leases that move when a host
 dies or joins, with an exactly-once certificate, and the factories'
 ``elastic=`` (:mod:`petastorm_tpu_torch.podelastic`).
+
+Data and sequence parallelism, one process a device
+(:mod:`petastorm_tpu_torch.parallel`): the mesh and its sharding records,
+ring attention running the attention kernels per chunk pair, the rank
+launcher, ``shard_by_jax_process`` on the factories, the sharded streaming
+loader (``make_torch_loader(mesh=)``, :class:`ShardedTorchLoader`, with
+its lockstep stop and ``Reader.drain``), the sharded indexed loaders
+(``mesh=`` on both factories) and the LM's train step on a ``{'data',
+'seq'}`` mesh.
 """
 
 __version__ = '0.1.0'
@@ -74,7 +86,9 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'PipelineController', 'make_indexed_loader',
            'make_indexed_ngram_loader', 'WeightedIndexedMixture',
            'PodObserver', 'ElasticPodSim', 'PodMembership', 'LeasePlan',
-           '__version__']
+           'make_mesh', 'host_shard', 'batch_sharding',
+           'replicated_sharding', 'ring_attention', 'launch_ranks',
+           'ShardedTorchLoader', '__version__']
 
 
 def __getattr__(name):
@@ -95,7 +109,12 @@ def __getattr__(name):
         from petastorm_tpu_torch.etl.dataset_metadata import \
             materialize_dataset
         return materialize_dataset
-    if name in ('TorchDataLoader', 'make_torch_loader', 'prefetch_to_device'):
+    if name in ('make_mesh', 'host_shard', 'batch_sharding',
+                'replicated_sharding', 'ring_attention', 'launch_ranks'):
+        from petastorm_tpu_torch import parallel
+        return getattr(parallel, name)
+    if name in ('TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
+                'ShardedTorchLoader'):
         from petastorm_tpu_torch import torch_utils
         return getattr(torch_utils, name)
     if name in ('CoverageAuditor', 'Provenance'):

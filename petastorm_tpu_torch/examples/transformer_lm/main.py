@@ -5,8 +5,10 @@ NGram of two consecutive 64-token chunks assembles (input window,
 continuation window) pairs, ``TorchDataLoader`` collates them per
 timestep, ``prefetch_to_device`` stages them to the card, and the LM takes
 AdamW steps; ``sample`` continues a prompt with the KV-cache decode. The
-config is the JAX example's. There is no mesh: the port trains on one
-device.
+config is the JAX example's. With a ``mesh``
+(:func:`petastorm_tpu_torch.parallel.make_mesh`, one rank a device) every
+rank reads the same windows and steps on its ``(data, seq)`` shard of each
+batch, with ring attention over the ``seq`` axis when the mesh has one.
 
 Usage::
 
@@ -41,20 +43,26 @@ def generate_token_stream(output_url, n_steps=512, vocab=128, seed=0):
                      for i in range(n_steps))
 
 
-def make_config():
+def make_config(mesh=None):
     """The JAX example's LM: vocab 128, d_model 128, 4 heads, 2 layers,
-    d_ff 256, L 64, bf16, blockwise attention."""
+    d_ff 256, L 64, bf16; ring attention when ``mesh`` has a ``seq`` axis,
+    else blockwise."""
     from petastorm_tpu_torch.models import transformer_lm as tlm
+    ring = mesh is not None and 'seq' in (mesh.mesh_dim_names or ())
     return tlm.TransformerConfig(vocab_size=128, d_model=128, n_heads=4,
                                  n_layers=2, d_ff=256, max_seq_len=64,
-                                 attention='blockwise')
+                                 attention='ring' if ring else 'blockwise')
 
 
-def train(dataset_url, steps=20, params=None, device=None, log=print):
+def train(dataset_url, steps=20, params=None, device=None, mesh=None,
+          log=print):
     """``steps`` AdamW steps over the store's windows. ``params``: the
     starting parameters (e.g. the JAX example's through
     :func:`petastorm_tpu_torch.weights.params_from_jax`); a seeded init by
-    default. Returns ``(losses, params, config)``."""
+    default. With ``mesh`` the parameters are replicated from rank 0
+    (:func:`~petastorm_tpu_torch.weights.shard_params`), each rank steps on
+    its shard of every batch (``transformer_lm.batch_spec``), and the
+    device is the mesh's. Returns ``(losses, params, config)``."""
     import torch
 
     from petastorm_tpu_torch.device import resolve_device
@@ -64,15 +72,21 @@ def train(dataset_url, steps=20, params=None, device=None, log=print):
     from petastorm_tpu_torch.torch_utils import (TorchDataLoader,
                                                  prefetch_to_device)
 
+    if mesh is not None:
+        device = mesh.device_type
     device = resolve_device(device)
     # a window of 2 consecutive chunks: (input window, continuation window)
     ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
                   delta_threshold=1, timestamp_field='step')
-    config = make_config()
+    config = make_config(mesh)
     if params is None:
         params = tlm.init(config, torch.Generator().manual_seed(0),
                           device=device)
-    _, step = tlm.make_train_step(config, params)
+    local = _shard_of(mesh, tlm)
+    if mesh is not None:
+        from petastorm_tpu_torch.weights import shard_params
+        params = shard_params(params, config, mesh)
+    _, step = tlm.make_train_step(config, params, mesh)
     losses = []
     with make_reader(dataset_url, schema_fields=ngram, num_epochs=None,
                      shuffle_row_groups=False) as reader:
@@ -86,12 +100,22 @@ def train(dataset_url, steps=20, params=None, device=None, log=print):
                 # chunk's first token closes the gap
                 nxt = batch[1]['tokens'][:, 0]
                 targets = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
-                losses.append(float(step(tokens, targets)))
+                losses.append(float(step(local(tokens), local(targets))))
                 if len(losses) >= steps:
                     break
     log('first loss {:.3f} -> last loss {:.3f}'.format(losses[0],
                                                        losses[-1]))
     return losses, params, config
+
+
+def _shard_of(mesh, tlm):
+    """``fn(x)``: this rank's ``batch_spec`` block of a global ``(B, L)``
+    batch (the batch itself without a mesh)."""
+    if mesh is None:
+        return lambda x: x
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding
+    sharding = NamedSharding(mesh, tlm.batch_spec(mesh))
+    return lambda x: x[sharding.shard_slices(x.shape)].contiguous()
 
 
 def sample(params, config, prompt_len=8, max_new_tokens=32, temperature=0.8,

@@ -1,8 +1,7 @@
 """Deterministic random-access loader with O(1) exact resume.
 
-The port's copy of ``petastorm_tpu/indexed.py`` without its mesh half (the
-sharded loader, :601-675, comes with the multi-GPU slice). **Batch b of
-epoch e is a pure function of (dataset, seed, e, b).**
+The port's copy of ``petastorm_tpu/indexed.py``. **Batch b of epoch e is
+a pure function of (dataset, seed, e, b).**
 
 - :class:`IndexedDatasetReader` (:50) reads decoded row groups by index
   (an LRU row-group cache, one Parquet handle per thread, the columns
@@ -17,6 +16,14 @@ epoch e is a pure function of (dataset, seed, e, b).**
   scheduling cannot change the stream. ``state_dict()`` /
   ``load_state_dict()`` restore it byte for byte with any worker count,
   without replay.
+
+- :class:`ShardedIndexedLoader` (:630) gives each rank of a mesh its slice
+  of every global batch (:func:`sharded_batch_setup`: the contiguous block
+  of positions at its ``batch_axis`` coordinate, so the ``seq`` ranks of
+  one data group get equal batches by construction), staged to its device.
+  The schedule being a pure function of the cursor, the ranks stay in
+  lockstep with no collective, and a cursor saved at one world size
+  resumes the same global stream at another.
 
 The schedule: the port's :class:`~petastorm_tpu_torch.workers.thread_pool.
 ThreadPool` ventilates the ``(epoch, batch)`` grid lazily from the cursor
@@ -47,7 +54,9 @@ from petastorm_tpu_torch.etl.dataset_metadata import (infer_or_load_unischema,
 from petastorm_tpu_torch.fs import (get_filesystem_and_path_or_paths,
                                     normalize_dataset_url_or_urls)
 from petastorm_tpu_torch.padding import (check_pad_spec_fields,
-                                         pad_ragged_batch, validate_pad_spec)
+                                         pad_ragged_batch,
+                                         require_single_bucket_pad_spec,
+                                         validate_pad_spec)
 from petastorm_tpu_torch.readers.columnar_worker import (
     decode_column, make_partition_columns, predicate_row_mask,
     validate_predicate_fields)
@@ -554,34 +563,89 @@ class IndexedBatchLoader:
                 self._dataset.close()
 
 
+def sharded_batch_setup(mesh, batch_axis: str, batch_size: int):
+    """Check a global batch against a mesh axis and derive this rank's
+    ``(NamedSharding, local_positions)`` (JAX ``indexed.py:601-627``): the
+    positions are the contiguous block of the global batch at this rank's
+    ``batch_axis`` coordinate, so every rank sharing that coordinate (the
+    ``seq`` ranks of one data group) derives the same positions. Shared by
+    the sharded row and NGram loaders."""
+    from petastorm_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                                   batch_sharding)
+    n_shards = axis_size(mesh, batch_axis)
+    if batch_size % n_shards:
+        raise ValueError(
+            'global batch_size {} must divide evenly over the {} devices '
+            "of mesh axis '{}'".format(batch_size, n_shards, batch_axis))
+    per = batch_size // n_shards
+    start = axis_index(mesh, batch_axis) * per
+    return (batch_sharding(mesh, batch_axis),
+            np.arange(start, start + per, dtype=np.int64))
+
+
+class ShardedIndexedLoader(IndexedBatchLoader):
+    """Deterministic batches over a mesh: O(1) exact resume, and this
+    rank's slice of every global batch staged to its device (JAX
+    ``ShardedIndexedLoader``, ``indexed.py:630-665``).
+
+    ``batch_size`` is the GLOBAL batch. Every rank derives the same
+    ``(seed, epoch, batch)``-addressed permutation slice and gathers only
+    the rows at its positions (:func:`sharded_batch_setup`); the cursor
+    being global, the ranks stay in lockstep by construction, and a
+    restored ``state_dict()`` resumes the identical global stream with any
+    world size (which rows land on which rank changes, the global batches
+    do not). The transform runs on the rank's sub-batch, so it must be
+    row-wise. Strings and objects ride under ``batch['_host']``;
+    ``loader.sharding`` says which slice a batch holds."""
+
+    def __init__(self, dataset: IndexedDatasetReader, batch_size: int,
+                 mesh, batch_axis: str = 'data', **kwargs):
+        sharding, local_positions = sharded_batch_setup(mesh, batch_axis,
+                                                        batch_size)
+        super().__init__(dataset, batch_size, **kwargs)
+        require_single_bucket_pad_spec(self.pad_spec, 'ShardedIndexedLoader')
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.sharding = sharding
+        self._local_positions = local_positions
+
+    def _assemble(self, epoch: int, batch: int) -> Dict[str, np.ndarray]:
+        rows = self._batch_rows(epoch, batch)
+        return self._apply_transform(
+            self._dataset.gather(rows[self._local_positions]))
+
+    def __iter__(self):
+        from petastorm_tpu_torch.torch_utils import stage_to_global
+        for local_batch in super().__iter__():
+            yield stage_to_global(local_batch, self.sharding)
+
+
 def make_indexed_loader(dataset_url, batch_size, num_epochs=1, seed=0,
                         shuffle=True, shuffle_window_groups=4,
                         workers_count=4, prefetch_batches=8,
                         schema_fields=None, storage_options=None,
-                        cache_groups=None, mesh=None,
+                        cache_groups=None, mesh=None, batch_axis='data',
                         predicate=None, transform_spec=None, pad_spec=None):
-    """:class:`IndexedDatasetReader` + :class:`IndexedBatchLoader`: host
-    numpy batches (JAX ``indexed.py:676``).
+    """:class:`IndexedDatasetReader` + :class:`IndexedBatchLoader` (host
+    numpy batches), or with ``mesh`` a :class:`ShardedIndexedLoader` (this
+    rank's slice of each global ``batch_size`` batch on its device; JAX
+    ``indexed.py:668-704``).
 
     Works on plain parquet stores too (schema inferred, row counts from the
     footers). ``predicate`` fixes the surviving row set once, when the
     loader is made; ``transform_spec`` runs the columnar transform on each
-    batch; both keep the stream a pure function of the cursor. ``mesh``
-    (a sharded loader) raises ``NotImplementedError``: it comes with the
-    multi-GPU slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'make_indexed_loader(mesh=...) is not ported to '
-            'petastorm_tpu_torch yet; sharded loaders come with the '
-            'multi-GPU slice')
+    batch; both keep the stream a pure function of the cursor."""
     dataset = IndexedDatasetReader(
         dataset_url, schema_fields=schema_fields,
         storage_options=storage_options,
         cache_groups=(cache_groups if cache_groups is not None
                       else max(8, shuffle_window_groups + workers_count)))
-    return IndexedBatchLoader(
-        dataset, batch_size, num_epochs=num_epochs, seed=seed,
-        shuffle=shuffle, shuffle_window_groups=shuffle_window_groups,
-        workers_count=workers_count, prefetch_batches=prefetch_batches,
-        predicate=predicate, transform_spec=transform_spec,
-        pad_spec=pad_spec)
+    kwargs = dict(num_epochs=num_epochs, seed=seed, shuffle=shuffle,
+                  shuffle_window_groups=shuffle_window_groups,
+                  workers_count=workers_count,
+                  prefetch_batches=prefetch_batches, predicate=predicate,
+                  transform_spec=transform_spec, pad_spec=pad_spec)
+    if mesh is None:
+        return IndexedBatchLoader(dataset, batch_size, **kwargs)
+    return ShardedIndexedLoader(dataset, batch_size, mesh=mesh,
+                                batch_axis=batch_axis, **kwargs)

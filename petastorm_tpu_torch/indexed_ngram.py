@@ -1,9 +1,10 @@
 """O(1) exact checkpoint and resume for NGram window pipelines.
 
-The port's copy of ``petastorm_tpu/indexed_ngram.py`` without its mesh
-half (``ShardedIndexedNGramLoader``, :218-251, comes with the multi-GPU
-slice). The unit of addressing is a *window*: batch b of epoch e is a pure
-function of ``(dataset, ngram, seed, e, b)``.
+The port's copy of ``petastorm_tpu/indexed_ngram.py``. The unit of
+addressing is a *window*: batch b of epoch e is a pure function of
+``(dataset, ngram, seed, e, b)``. :class:`ShardedIndexedNGramLoader` gives
+each rank of a mesh its slice of every global window batch, staged to its
+device.
 
 The window universe: within each row group, rows sort by the timestamp
 field (stably) and a window starts at every position whose consecutive
@@ -25,7 +26,9 @@ from typing import Dict, List
 import numpy as np
 
 from petastorm_tpu_torch.errors import NoDataAvailableError
-from petastorm_tpu_torch.indexed import IndexedBatchLoader, IndexedDatasetReader
+from petastorm_tpu_torch.indexed import (IndexedBatchLoader,
+                                         IndexedDatasetReader,
+                                         sharded_batch_setup)
 from petastorm_tpu_torch.ngram import NGram, valid_window_starts
 from petastorm_tpu_torch.readers.columnar_worker import (
     predicate_row_mask, validate_predicate_fields)
@@ -184,6 +187,36 @@ class IndexedNGramLoader(IndexedBatchLoader):
         return out
 
 
+class ShardedIndexedNGramLoader(IndexedNGramLoader):
+    """Deterministic NGram window batches over a mesh (JAX
+    ``ShardedIndexedNGramLoader``, ``indexed_ngram.py:218-250``):
+    ``batch_size`` is the GLOBAL window batch; every rank derives the same
+    window permutation and assembles only the windows at its positions
+    (:func:`~petastorm_tpu_torch.indexed.sharded_batch_setup`), each
+    timestep's columns staged to its device in the nested ``{offset:
+    {field: tensor}}`` layout. The schedule is a pure function of the
+    cursor, so the ranks stay in lockstep with no collective."""
+
+    def __init__(self, dataset: IndexedDatasetReader, ngram: NGram,
+                 batch_size: int, mesh, batch_axis: str = 'data', **kwargs):
+        sharding, local_positions = sharded_batch_setup(mesh, batch_axis,
+                                                        batch_size)
+        super().__init__(dataset, ngram, batch_size, **kwargs)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.sharding = sharding
+        self._local_positions = local_positions
+
+    def _batch_rows(self, epoch: int, batch: int) -> np.ndarray:
+        return super()._batch_rows(epoch, batch)[self._local_positions]
+
+    def __iter__(self):
+        from petastorm_tpu_torch.torch_utils import stage_to_global
+        for batch in super().__iter__():
+            yield {off: stage_to_global(cols, self.sharding)
+                   for off, cols in batch.items()}
+
+
 def make_indexed_ngram_loader(dataset_url, ngram: NGram, batch_size: int,
                               num_epochs: int = 1, seed: int = 0,
                               shuffle: bool = True,
@@ -192,16 +225,18 @@ def make_indexed_ngram_loader(dataset_url, ngram: NGram, batch_size: int,
                               prefetch_batches: int = 8,
                               storage_options=None,
                               cache_groups=None, mesh=None,
+                              batch_axis: str = 'data',
                               predicate=None,
                               transform_spec=None) -> IndexedNGramLoader:
-    """Deterministic, O(1)-resumable NGram window batches on the host (JAX
-    ``indexed_ngram.py:253``).
+    """Deterministic, O(1)-resumable NGram window batches on the host, or
+    with ``mesh`` a :class:`ShardedIndexedNGramLoader` (this rank's slice
+    of each global window batch on its device; JAX
+    ``indexed_ngram.py:253-295``).
 
     ``predicate`` drops rows before windows form, during the index scan;
     ``transform_spec`` runs the columnar transform on each assembled batch
     (it must not change the timestamp field). Both keep the stream a pure
-    function of the cursor. ``mesh`` raises ``NotImplementedError``: the
-    sharded loader comes with the multi-GPU slice.
+    function of the cursor.
 
     ::
 
@@ -211,17 +246,16 @@ def make_indexed_ngram_loader(dataset_url, ngram: NGram, batch_size: int,
         for batch in loader:                 # {offset: {field: (B, ...)}}
             ...
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            'make_indexed_ngram_loader(mesh=...) is not ported to '
-            'petastorm_tpu_torch yet; sharded loaders come with the '
-            'multi-GPU slice')
     dataset = IndexedDatasetReader(
         dataset_url, storage_options=storage_options,
         cache_groups=(cache_groups if cache_groups is not None
                       else max(8, shuffle_window_groups + workers_count)))
-    return IndexedNGramLoader(
-        dataset, ngram, batch_size, num_epochs=num_epochs, seed=seed,
-        shuffle=shuffle, shuffle_window_groups=shuffle_window_groups,
-        workers_count=workers_count, prefetch_batches=prefetch_batches,
-        predicate=predicate, transform_spec=transform_spec)
+    kwargs = dict(num_epochs=num_epochs, seed=seed, shuffle=shuffle,
+                  shuffle_window_groups=shuffle_window_groups,
+                  workers_count=workers_count,
+                  prefetch_batches=prefetch_batches, predicate=predicate,
+                  transform_spec=transform_spec)
+    if mesh is None:
+        return IndexedNGramLoader(dataset, ngram, batch_size, **kwargs)
+    return ShardedIndexedNGramLoader(dataset, ngram, batch_size, mesh=mesh,
+                                     batch_axis=batch_axis, **kwargs)

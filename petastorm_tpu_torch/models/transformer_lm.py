@@ -28,8 +28,18 @@ the loss with weight ``moe_aux_weight``. Packed batches pass
 ``segment_ids``, ``positions`` and ``weights`` (see
 :mod:`petastorm_tpu_torch.packing`).
 
-Not in this slice: ring attention (the multi-GPU slice); it raises
-``NotImplementedError``.
+On a mesh (:mod:`petastorm_tpu_torch.parallel`; JAX ``param_specs`` /
+``batch_spec`` :137-177, ``_ring_attention_sharded`` :203-225,
+``make_train_step(mesh=)`` :620-653): data and sequence parallelism, one
+process a device. Each rank holds the replicated parameters and its
+``(B / data, L / seq)`` tokens; ``attention='ring'`` runs ring attention
+over the ``seq`` group (K1-K3 per chunk pair on the card), the default
+positions are the global offsets of the rank's chunk, and the train step
+sums the ranks' shares of the global mean loss and of its gradients
+before AdamW, so one step equals the unsharded step. A ``model``,
+``expert`` or ``pipe`` axis larger than 1, and a mixture of experts under
+a mesh with ``data`` x ``seq`` > 1, raise ``NotImplementedError``: tensor,
+expert and pipeline parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,7 +76,8 @@ class TransformerConfig:
     # fractions count all k choices, as the JAX model's
     moe_aux_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16
-    attention: str = 'blockwise'         # 'flash' | 'blockwise'
+    # 'flash' | 'blockwise' | 'ring' (over a mesh's 'seq' axis)
+    attention: str = 'blockwise'
     attention_window: Optional[int] = None
 
     @property
@@ -79,11 +90,9 @@ class TransformerConfig:
 
 
 def _check_supported(config: TransformerConfig) -> None:
-    if config.attention not in ('flash', 'blockwise'):
-        raise NotImplementedError(
-            "attention=%r is not ported yet (ring attention is the "
-            "multi-GPU slice); use 'flash' or 'blockwise'"
-            % (config.attention,))
+    if config.attention not in ('flash', 'blockwise', 'ring'):
+        raise ValueError("attention must be 'flash', 'blockwise' or 'ring', "
+                         'got %r' % (config.attention,))
     if config.n_heads % config.kv_heads:
         raise ValueError('n_heads (%d) must be a multiple of n_kv_heads (%d)'
                          % (config.n_heads, config.kv_heads))
@@ -146,6 +155,71 @@ def parameters(params: Dict) -> List[torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+#: Axes whose parallelism the port does not run yet (slice 3b).
+_UNPORTED_AXES = ('model', 'expert', 'pipe')
+
+
+def param_specs(config: TransformerConfig, mesh) -> Dict:
+    """The JAX ``param_specs`` tree: a spec per leaf of :func:`init`'s
+    structure, written as a tuple of axis names or ``None`` per dim, using
+    only the axes the mesh has (absent axes replicate)."""
+    from petastorm_tpu_torch.parallel.mesh import axis_names
+    names = set(axis_names(mesh))
+    tp = 'model' if 'model' in names else None
+    ep = 'expert' if 'expert' in names else None
+    layer = {'ln1': (), 'ln2': (), 'wq': (None, tp), 'wk': (None, tp),
+             'wv': (None, tp), 'wo': (tp, None)}
+    if config.n_experts > 0:
+        layer.update({'gate': (), 'w_up': (ep, None, tp),
+                      'w_gate': (ep, None, tp), 'w_down': (ep, tp, None)})
+    else:
+        layer.update({'w_up': (None, tp), 'w_gate': (None, tp),
+                      'w_down': (tp, None)})
+    return {'embed': (None, tp), 'final_norm': (),
+            'unembed': (None, tp),
+            'layers': [dict(layer) for _ in range(config.n_layers)]}
+
+
+def batch_spec(mesh):
+    """The spec of a ``(batch, seq)`` token array: ``data`` and ``seq``
+    where the mesh has them."""
+    from petastorm_tpu_torch.parallel.mesh import axis_names
+    names = set(axis_names(mesh))
+    return ('data' if 'data' in names else None,
+            'seq' if 'seq' in names else None)
+
+
+def _check_mesh(config: TransformerConfig, mesh) -> None:
+    """Raise for what the port cannot run on ``mesh`` yet: tensor, expert
+    or pipeline parallelism, and a mixture of experts over a split batch
+    (JAX routes its capacity over the global batch; routing each rank's
+    tokens alone would drop other tokens)."""
+    from petastorm_tpu_torch.parallel.mesh import axis_size
+    for axis in _UNPORTED_AXES:
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(
+                "a mesh '%s' axis of %d: tensor, expert and pipeline "
+                'parallelism come with slice 3b of the port'
+                % (axis, axis_size(mesh, axis)))
+    if (config.n_experts > 0
+            and axis_size(mesh, 'data') * axis_size(mesh, 'seq') > 1):
+        raise NotImplementedError(
+            'a mixture of experts under a mesh with data x seq = %d: MoE '
+            'routing over the global batch comes with slice 3b of the port'
+            % (axis_size(mesh, 'data') * axis_size(mesh, 'seq')))
+
+
+def _sharded(mesh) -> bool:
+    """Whether more than one rank shares the step on ``mesh``."""
+    import torch.distributed as dist
+    return (mesh is not None and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
@@ -170,8 +244,18 @@ def _rope(x, positions):
     return out.to(x.dtype)
 
 
+def _ring_attention_sharded(q, k, v, mesh):
+    """Ring attention over the mesh's ``seq`` group on this rank's chunks
+    (JAX ``_ring_attention_sharded``): K1-K3 per chunk pair on a CUDA mesh,
+    the float32 twins on a CPU mesh."""
+    from petastorm_tpu_torch.parallel.ring import (ring_attention,
+                                                   resolve_ring_impl)
+    return ring_attention(q, k, v, (mesh, 'seq'), causal=True,
+                          impl=resolve_ring_impl(None, mesh))
+
+
 def _attention(x, layer, config: TransformerConfig, positions,
-               segment_ids=None):
+               segment_ids=None, mesh=None):
     c = config
     b, l, _ = x.shape
     h, hkv, dh = c.n_heads, c.kv_heads, c.head_dim
@@ -183,7 +267,18 @@ def _attention(x, layer, config: TransformerConfig, positions,
     q = _rope(heads(layer['wq'], h), positions)
     k = _rope(heads(layer['wk'], hkv), positions)
     v = heads(layer['wv'], hkv)
-    if c.attention == 'flash':
+    if c.attention == 'ring':
+        if segment_ids is not None:
+            raise ValueError('packed segment_ids are not supported with '
+                             "attention='ring' (use 'flash'/'blockwise', or "
+                             'shard unpacked sequences)')
+        if c.attention_window is not None:
+            raise ValueError('attention_window is not supported with '
+                             "attention='ring'")
+        if mesh is None or 'seq' not in (mesh.mesh_dim_names or ()):
+            raise ValueError("attention='ring' needs a mesh with a 'seq' axis")
+        o = _ring_attention_sharded(q, k, v, mesh)
+    elif c.attention == 'flash':
         o = flash_attention(q, k, v, causal=True, segment_ids=segment_ids,
                             window=c.attention_window)
     else:
@@ -306,26 +401,34 @@ def _segment_positions(segment_ids):
 
 def forward(params, tokens, config: TransformerConfig, positions=None,
             segment_ids=None, return_aux: bool = False,
-            moe_stats: Optional[Dict] = None):
+            moe_stats: Optional[Dict] = None, mesh=None):
     """tokens ``(B, L)`` integer → logits ``(B, L, vocab)`` float32.
     ``segment_ids`` ``(B, L)`` masks attention to same-segment pairs and
     restarts rotary positions per document (unless ``positions`` is
     given). With ``return_aux``, also the MoE load-balancing aux loss summed
     over layers (0 for a dense model). With ``moe_stats`` (a dict), the MoE
-    layers add their dropped units to ``moe_stats['dropped']``."""
+    layers add their dropped units to ``moe_stats['dropped']``. With
+    ``mesh``, ``tokens`` are this rank's ``(B / data, L / seq)`` shard:
+    the default positions start at the chunk's global offset, and
+    ``attention='ring'`` attends over the ``seq`` group."""
     c = config
     _check_supported(c)
     tokens = tokens.long()
     if positions is None:
-        positions = (_segment_positions(segment_ids)
-                     if segment_ids is not None
-                     else torch.arange(tokens.shape[1],
-                                       device=tokens.device))
+        if segment_ids is not None:
+            positions = _segment_positions(segment_ids)
+        else:
+            offset = 0
+            if mesh is not None:
+                from petastorm_tpu_torch.parallel.mesh import axis_index
+                offset = axis_index(mesh, 'seq') * tokens.shape[1]
+            positions = torch.arange(offset, offset + tokens.shape[1],
+                                     device=tokens.device)
     x = params['embed'].to(c.dtype)[tokens]             # (B, L, D)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params['layers']:
         x = x + _attention(_rms_norm(x, layer['ln1']), layer, c, positions,
-                           segment_ids)
+                           segment_ids, mesh)
         h = _rms_norm(x, layer['ln2'])
         if c.n_experts > 0:
             ffn_out, aux = _moe_ffn(h, layer, c, stats=moe_stats)
@@ -340,18 +443,32 @@ def forward(params, tokens, config: TransformerConfig, positions=None,
 
 def loss_fn(params, tokens, targets, config: TransformerConfig, *,
             positions=None, segment_ids=None, weights=None,
-            moe_stats: Optional[Dict] = None):
+            moe_stats: Optional[Dict] = None, mesh=None):
     """Next-token cross entropy; with ``weights`` the weighted mean over
     weighted slots (packed batches), plus ``moe_aux_weight`` times the MoE
     aux loss, as the JAX ``loss_fn``. With ``moe_stats`` (a dict), also
     ``moe_stats['aux']`` (the aux loss, detached) and
-    ``moe_stats['dropped']`` (units dropped over the layers)."""
+    ``moe_stats['dropped']`` (units dropped over the layers). With a
+    ``mesh`` of more than one rank, the loss is this rank's share of the
+    global mean over every rank's tokens: the shares sum to it (the weights'
+    global sum is all-reduced first)."""
     logits, aux = forward(params, tokens, config, positions=positions,
                           segment_ids=segment_ids, return_aux=True,
-                          moe_stats=moe_stats)
+                          moe_stats=moe_stats, mesh=mesh)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1).long(), reduction='none')
-    if weights is None:
+    if _sharded(mesh):
+        import torch.distributed as dist
+
+        from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_
+        if weights is None:
+            loss = nll.sum() / (nll.numel() * dist.get_world_size())
+        else:
+            w = weights.reshape(-1).float()
+            total = w.sum().detach().clone()
+            all_reduce_sum_([total])
+            loss = (nll * w).sum() / torch.clamp(total, min=1.0)
+    elif weights is None:
         loss = nll.mean()
     else:
         w = weights.reshape(-1).float()
@@ -517,7 +634,7 @@ def generate(params, tokens, config: TransformerConfig, max_new_tokens: int,
 # training
 # ---------------------------------------------------------------------------
 
-def make_train_step(config: TransformerConfig, params: Dict):
+def make_train_step(config: TransformerConfig, params: Dict, mesh=None):
     """``(optimizer, step)`` with ``step(tokens, targets, **kw) -> loss``
     (``kw``: :func:`loss_fn`'s ``positions``, ``segment_ids``, ``weights``
     and ``moe_stats``): one step of ``torch.optim.AdamW`` over every leaf,
@@ -526,19 +643,51 @@ def make_train_step(config: TransformerConfig, params: Dict):
     added outside the square root, decoupled decay ``p -= lr * wd * p`` on
     every parameter. Unlike the JAX step, which returns new params and
     optimizer state, this one updates ``params`` and the optimizer state in
-    place."""
+    place.
+
+    With ``mesh`` (data and sequence axes; :func:`_check_mesh` raises for
+    the others), ``tokens`` and ``targets`` are this rank's ``(B / data, L /
+    seq)`` shard and ``params`` its replica (:func:`~petastorm_tpu_torch.
+    weights.shard_params`). The ring's backward already carries each
+    rank's share of the loss to the k/v chunks it attended, so the ranks'
+    gradients of their loss shares sum, over the whole mesh, to the
+    gradient of the global mean loss: they are summed (with the loss)
+    before AdamW, and every replica takes the unsharded step."""
     _check_supported(config)
+    if mesh is not None:
+        _check_mesh(config, mesh)
     leaves = parameters(params)
     for p in leaves:
         p.requires_grad_(True)
     optimizer = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=0.01)
+    sharded = _sharded(mesh)
 
     def step(tokens, targets, **loss_kwargs):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, targets, config, **loss_kwargs)
+        loss = loss_fn(params, tokens, targets, config, mesh=mesh,
+                       **loss_kwargs)
         loss.backward()
+        loss = loss.detach()
+        if sharded:
+            from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_sum_([p.grad for p in leaves] + [loss])
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return optimizer, step
+
+
+def make_forward(config: TransformerConfig):
+    """``fn(params, tokens) -> logits``: one device's inference with no
+    autograd (JAX ``make_forward``)."""
+    _check_supported(config)
+
+    def fn(params, tokens):
+        with torch.no_grad():
+            return forward(params, tokens, config)
+
+    return fn

@@ -12,6 +12,13 @@ Dispatch rule: tensors on a CUDA device go to the hand-written kernels of
 PyTorch twins. The model hands attention ``(B, H, L, dh)`` tensors made by
 ``transpose``; :class:`_FlashDims` flattens them with ``reshape``, which
 copies them into the contiguous ``(B*H, L, dh)`` layout the kernels take.
+
+Ring attention (:mod:`petastorm_tpu_torch.parallel.ring`) is built from the
+chunk primitives here: :func:`merge_attention_chunks` and
+:func:`finalize_attention` fold the per-chunk ``(o, lse)`` of K1, and the
+chunk-pair gradients run K2 and K3 from q-side operands prepared once
+(:func:`flash_attention_chunk_grads`); :func:`attention_block_step` is the
+reference's blockwise update over absolute positions.
 """
 
 from __future__ import annotations
@@ -154,6 +161,139 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
         n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads, causal=causal,
         window=window, seg_q=seg_q, seg_kv=seg_kv)
     return dims.unflat_q(o), lse.reshape(dims.batch + (dims.q_len,))
+
+
+# ---------------------------------------------------------------------------
+# chunk primitives: the building blocks of ring attention
+# ---------------------------------------------------------------------------
+
+def attention_accumulators(q_len: int, head_dim: int, batch_shape=(),
+                           device=None):
+    """Fresh float32 ``(o, m, l)`` accumulators for online softmax."""
+    o = torch.zeros(tuple(batch_shape) + (q_len, head_dim),
+                    dtype=torch.float32, device=device)
+    m = torch.full(tuple(batch_shape) + (q_len,), kernels.NEG_INF,
+                   dtype=torch.float32, device=device)
+    l = torch.zeros(tuple(batch_shape) + (q_len,), dtype=torch.float32,
+                    device=device)
+    return o, m, l
+
+
+def finalize_attention(o, l):
+    """Normalise accumulated output; fully masked rows (``l == 0``) give
+    zeros."""
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return o / safe_l[..., None]
+
+
+def attention_block_step(q, k, v, o, m, l, *, scale=None, q_positions=None,
+                         k_positions=None, causal=True):
+    """Fold one kv chunk into the online-softmax accumulators ``(o, m, l)``
+    (JAX ``attention_block_step``), masking by absolute token positions
+    when ``causal``. Shapes: q ``(..., Lq, D)``, k/v ``(..., Lk, D)``, o
+    ``(..., Lq, D)``, m/l ``(..., Lq)``; returns the new ``(o, m, l)``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum('...qd,...kd->...qk', q, k) * scale
+    mask = None
+    if causal:
+        if q_positions is None or k_positions is None:
+            raise ValueError('causal masking needs q_positions/k_positions')
+        mask = q_positions[..., :, None] >= k_positions[..., None, :]
+        s = torch.where(mask, s, torch.full_like(s, kernels.NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    # a fully masked row has exp(NEG_INF - NEG_INF) = 1: the mask zeroes it
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    correction = torch.exp(m - m_new)
+    l_new = l * correction + p.sum(-1)
+    o_new = (o * correction[..., None]
+             + torch.einsum('...qk,...kd->...qd', p, v))
+    return o_new, m_new, l_new
+
+
+def merge_attention_chunks(o_acc, m, l, o_i, lse_i):
+    """Fold one finished chunk, its normalised output ``o_i`` and per-row
+    logsumexp ``lse_i``, into the running ``(o_acc, m, l)`` (JAX
+    ``merge_attention_chunks``): ``o_acc = sum_j o_j exp(lse_j - m)`` and
+    ``l = sum_j exp(lse_j - m)`` with ``m = max_j lse_j``, so
+    :func:`finalize_attention` gives the softmax-weighted merge and ``m +
+    log(l)`` the merged logsumexp. A fully masked chunk (``lse_i`` at
+    ``NEG_INF``) weighs ``exp(NEG_INF - m) = 0`` against any real ``m``;
+    no exponent is positive, so nothing overflows or turns NaN."""
+    m_new = torch.maximum(m, lse_i)
+    corr = torch.exp(m - m_new)
+    w = torch.exp(lse_i - m_new)
+    o_acc = o_acc * corr[..., None] + o_i.float() * w[..., None]
+    return o_acc, m_new, l * corr + w
+
+
+def merged_lse(m, l):
+    """The logsumexp of merged accumulators: ``m + log(l)``, ``NEG_INF``
+    where nothing was attended (``l == 0``)."""
+    live = l > 0.0
+    return torch.where(live, m + torch.log(torch.where(live, l,
+                                                       torch.ones_like(l))),
+                       torch.full_like(l, kernels.NEG_INF))
+
+
+def _chunk_forward(dims, qf, kf, vf, *, causal: bool, plain: bool = False):
+    """K1 (or, with ``plain``, its twin) on flattened operands: ``(o,
+    lse)`` flat, o in q's dtype and lse float32 ``(flat, Lq)``."""
+    fwd = kernels.flash_fwd_plain if plain else kernels.flash_fwd
+    return fwd(qf, kf, vf, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
+               causal=causal)
+
+
+def _prepare_flash_bwd_q_side(dims, q, o, lse, do):
+    """The q-side backward operands, flattened once: ``(q, do, lse,
+    delta)`` with delta = rowsum(do * o) in float32. Invariant over the kv
+    chunks of ring attention, so the ring prepares them once (JAX
+    ``_prepare_flash_bwd_q_side``)."""
+    qf = dims.flat_q(q)
+    of = dims.flat_q(o)
+    dof = dims.flat_q(do.to(q.dtype))
+    delta = (dof.float() * of.float()).sum(-1)
+    return (qf, dof, lse.reshape(dims.flat, dims.q_len).float().contiguous(),
+            delta)
+
+
+def _flash_backward_from_prepared(dims, prep, kf, vf, *, causal: bool,
+                                  plain: bool = False,
+                                  kv_grad_dtype=None):
+    """K2 and K3 (or, with ``plain``, their twins) of one chunk pair from
+    :func:`_prepare_flash_bwd_q_side`'s operands and flattened k/v: flat
+    ``(dq, dk, dv)``, dq in q's dtype and dk/dv per kv head, summed over
+    each head group in float32 and cast to ``kv_grad_dtype`` (k's dtype by
+    default)."""
+    qf, dof, lsef, delta = prep
+    kw = dict(n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
+              causal=causal)
+    if plain:
+        dq = kernels.flash_bwd_dq_plain(qf, kf, vf, dof, lsef, delta, **kw)
+        dk, dv = kernels.flash_bwd_dkdv_plain(qf, kf, vf, dof, lsef, delta,
+                                              **kw)
+    else:
+        dq = kernels.flash_bwd_dq(qf, kf, vf, dof, lsef, delta, **kw)
+        dk, dv = kernels.flash_bwd_dkdv(qf, kf, vf, dof, lsef, delta, **kw)
+    out = kv_grad_dtype or kf.dtype
+    return dq, dims.sum_head_groups(dk, out), dims.sum_head_groups(dv, out)
+
+
+def flash_attention_chunk_grads(q, k, v, o, lse, do, *, causal: bool):
+    """The gradients of one chunk pair (JAX
+    ``flash_attention_chunk_grads``): local queries, with their GLOBAL
+    output ``o`` and logsumexp ``lse``, against one kv chunk give ``(dq,
+    dk, dv)`` of exactly that pair in the input dtypes. ``p = exp(s -
+    lse)`` is already the global softmax probability, so the pairs'
+    gradients just sum. Kernels K2 and K3 on CUDA tensors, their twins on
+    CPU tensors."""
+    dims = _FlashDims(q.shape, k.shape)
+    prep = _prepare_flash_bwd_q_side(dims, q, o, lse, do)
+    dq, dk, dv = _flash_backward_from_prepared(
+        dims, prep, dims.flat_kv(k), dims.flat_kv(v), causal=causal)
+    return dims.unflat_q(dq), dims.unflat_kv(dk), dims.unflat_kv(dv)
 
 
 def _backward_flat(dims, q, k, v, o, lse, do, seg_q, seg_kv, causal, window):

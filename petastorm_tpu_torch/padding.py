@@ -148,3 +148,17 @@ def pad_ragged_batch(batch, pad_spec):
         out[name] = dense
         out[spec['length_field']] = lengths
     return out
+
+
+def require_single_bucket_pad_spec(pad_spec, loader_name: str) -> None:
+    """Sharded loaders pad each rank's LOCAL batch: with several buckets
+    the ranks could disagree on the padded width of one global step. Shared
+    by the streaming and indexed sharded loaders (JAX
+    ``jax_utils.py:199-210``)."""
+    if not pad_spec:
+        return
+    multi = {n for n, s in pad_spec.items() if len(s['buckets']) > 1}
+    if multi:
+        raise ValueError(
+            "{} needs a single-bucket pad_spec (use 'max_len'); fields "
+            'with multiple buckets: {}'.format(loader_name, sorted(multi)))

@@ -179,8 +179,8 @@ from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
 logger = logging.getLogger(__name__)
 
 #: Parameters of the JAX package's factories that the port does not take
-#: yet, with the later slice that brings them.
-_UNPORTED = {'shard_by_jax_process': 'multi-GPU sharding'}
+#: yet, with the later slice that brings them (none are left).
+_UNPORTED = {}
 
 
 def _refuse_unported(factory, options):
@@ -195,18 +195,28 @@ def _refuse_unported(factory, options):
             'with the {} slice'.format(factory, name, _UNPORTED[name]))
 
 
-def _resolve_elastic(elastic, cur_shard, shard_count):
-    """``(cur_shard, shard_count)`` with ``elastic=`` resolved: this host's
-    place in the pod's live membership
-    (:func:`~petastorm_tpu_torch.podelastic.resolve_elastic_shard`, JAX's
-    ``_resolve_jax_shard``), or the arguments as given without a config or
-    under ``PETASTORM_TPU_ELASTIC=0``."""
-    if elastic is None:
+def _resolve_shard(cur_shard, shard_count, shard_by_jax_process=False,
+                   elastic=None):
+    """``(cur_shard, shard_count)`` as JAX's ``_resolve_jax_shard``
+    resolves them: with ``elastic=``, this host's place in the pod's live
+    membership (:func:`~petastorm_tpu_torch.podelastic.resolve_elastic_shard`;
+    the arguments as given under ``PETASTORM_TPU_ELASTIC=0``); with
+    ``shard_by_jax_process``, this rank and the world size of the
+    ``torch.distributed`` process group, ``(0, 1)`` without one
+    (:func:`~petastorm_tpu_torch.parallel.mesh.host_shard`); else the
+    arguments as given."""
+    if elastic is not None:
+        from petastorm_tpu_torch.podelastic import resolve_elastic_shard
+        cur_shard, shard_count, _ = resolve_elastic_shard(
+            elastic, cur_shard, shard_count, shard_by_jax_process)
         return cur_shard, shard_count
-    from petastorm_tpu_torch.podelastic import resolve_elastic_shard
-    cur_shard, shard_count, _ = resolve_elastic_shard(elastic, cur_shard,
-                                                      shard_count)
-    return cur_shard, shard_count
+    if not shard_by_jax_process:
+        return cur_shard, shard_count
+    if cur_shard is not None or shard_count is not None:
+        raise ValueError('shard_by_jax_process is mutually exclusive with '
+                         'explicit cur_shard/shard_count')
+    from petastorm_tpu_torch.parallel.mesh import host_shard
+    return host_shard()
 
 
 def _resolve_resilience(retry, hedge, worker_recovery):
@@ -346,6 +356,7 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
                 shuffle_row_groups=True, workers_count=10, seed=None,
                 transform_spec=None, predicate=None, filters=None,
                 rowgroup_selector=None, cur_shard=None, shard_count=None,
+                shard_by_jax_process=False,
                 shuffle_row_drop_partitions=1, decode_hints=None,
                 reader_pool_type='thread', results_queue_size=50,
                 zmq_copy_buffers=True, profiling_enabled=False,
@@ -373,7 +384,10 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     :mod:`~petastorm_tpu_torch.filters`), ``rowgroup_selector`` (a
     :mod:`~petastorm_tpu_torch.selectors` object over the store's
     row-group indexes), ``cur_shard``/``shard_count`` (every
-    ``shard_count``-th row group left, from ``cur_shard``; or ``elastic=
+    ``shard_count``-th row group left, from ``cur_shard``; or
+    ``shard_by_jax_process=True``, which takes this rank and the world size
+    of the ``torch.distributed`` process group, ``(0, 1)`` without one; or
+    ``elastic=
     {'coord_root': d[, 'host_id', 'ttl_beats']}``, which derives them from
     this host's place in the pod's live membership when the reader is
     made, :mod:`~petastorm_tpu_torch.podelastic`; off under
@@ -481,8 +495,8 @@ def make_reader(dataset_url, schema_fields=None, num_epochs=1,
     remote_read = resolve_remote_read(remote_read)
     path, filesystem_factory = _resolve_store('make_reader', dataset_url,
                                               storage_options)
-    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
-                                              shard_count)
+    cur_shard, shard_count = _resolve_shard(cur_shard, shard_count,
+                                            shard_by_jax_process, elastic)
     mode = 'ngram' if isinstance(schema_fields, NGram) else 'rows'
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
@@ -512,7 +526,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          shuffle_row_groups=True, workers_count=10, seed=None,
                          transform_spec=None, predicate=None, filters=None,
                          rowgroup_selector=None, cur_shard=None,
-                         shard_count=None, shuffle_row_drop_partitions=1,
+                         shard_count=None, shard_by_jax_process=False,
+                         shuffle_row_drop_partitions=1,
                          decode_hints=None, reader_pool_type='thread',
                          results_queue_size=50, zmq_copy_buffers=True,
                          profiling_enabled=False, cache_type='null',
@@ -549,8 +564,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
                          'make_reader for windowed sequence assembly')
     path, filesystem_factory = _resolve_store('make_columnar_reader',
                                               dataset_url, storage_options)
-    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
-                                              shard_count)
+    cur_shard, shard_count = _resolve_shard(cur_shard, shard_count,
+                                            shard_by_jax_process, elastic)
     cache = _make_cache(cache_type, cache_location, cache_size_limit,
                         cache_row_size_estimate, cache_extra_settings)
     tracer, trace_export = _make_tracer(trace)
@@ -577,7 +592,8 @@ def make_columnar_reader(dataset_url, schema_fields=None, num_epochs=1,
 
 def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
                       shuffle_row_groups=True, predicate=None, num_epochs=1,
-                      cur_shard=None, shard_count=None, transform_spec=None,
+                      cur_shard=None, shard_count=None,
+                      shard_by_jax_process=False, transform_spec=None,
                       filters=None, workers_count=10,
                       reader_pool_type='thread', results_queue_size=50,
                       zmq_copy_buffers=True, profiling_enabled=False,
@@ -614,8 +630,8 @@ def make_batch_reader(dataset_url_or_urls, schema_fields=None, seed=None,
     path, filesystem_factory = _resolve_store(
         'make_batch_reader', dataset_url_or_urls, storage_options,
         single=False)
-    cur_shard, shard_count = _resolve_elastic(elastic, cur_shard,
-                                              shard_count)
+    cur_shard, shard_count = _resolve_shard(cur_shard, shard_count,
+                                            shard_by_jax_process, elastic)
     if schema_fields is not None and not (
             isinstance(schema_fields, list)
             and all(isinstance(f, str) for f in schema_fields)):
@@ -1270,6 +1286,28 @@ class Reader:
         ``(plans, device_transform_spec)``."""
         self._device_decode_deferred = True
         return self.device_decode_plans, self._device_transform_spec
+
+    def discard_buffered(self):
+        """Drop the rows (windows) buffered from a partly consumed item,
+        the row results reader's part of :meth:`drain` (JAX
+        ``readers/row_worker.py:92``): nothing stale reaches the next
+        pass."""
+        self._rows = []
+
+    def drain(self):
+        """Consume the rest of the stream without decoding or collating
+        on the consumer's side (published items are dropped as they come),
+        leaving the reader resettable (JAX ``reader.py:1122-1138``). The
+        sharded loader's lockstep stop calls it on a rank with surplus
+        batches. The dropped items still register their provenance, so the
+        coverage audit counts them delivered (dropped on purpose is not
+        lost)."""
+        self.discard_buffered()
+        try:
+            while True:
+                unwrap_envelope(self._pool.get_results(), self.lineage)
+        except EmptyResultError:
+            self.last_row_consumed = True
 
     def reset(self):
         """Restart iteration for another ``num_epochs`` pass, the row-group

@@ -62,8 +62,18 @@
   pipeline's verdict in, and ``roofline=`` (a ``reader.profile()``) the
   roofline summary.
 
-Not here yet: the sharded loaders and ``require_single_bucket_pad_spec``
-(the multi-GPU slice).
+- Data parallelism (``jax_utils.py:199-210, 786-998``):
+  :class:`ShardedTorchLoader` drives a :class:`TorchDataLoader` of this
+  rank's local batch (``drop_last``) and stages each batch to the rank's
+  device (:func:`stage_to_global`); before every step, once the process
+  group has more than one rank, the ranks agree that each has a batch
+  (:func:`_all_processes_ready`), so all stop together at the shortest
+  rank's stream and a rank with a surplus batch drains its reader
+  (``Reader.drain``). The port's global array is the rank's shard and its
+  :class:`~petastorm_tpu_torch.parallel.mesh.NamedSharding`
+  (``loader.sharding``; :func:`~petastorm_tpu_torch.parallel.mesh.
+  gather_global` assembles it). :func:`require_single_bucket_pad_spec`
+  keeps the ranks' padded widths equal.
 """
 
 from __future__ import annotations
@@ -87,7 +97,9 @@ from petastorm_tpu_torch.lineage import (LINEAGE_COLUMN, PACK_SHIFT,
 from petastorm_tpu_torch.ops.decode import (build_fused_infeed,
                                             split_device_columns)
 from petastorm_tpu_torch.padding import (check_pad_spec_fields,
-                                         pad_ragged_batch, validate_pad_spec)
+                                         pad_ragged_batch,
+                                         require_single_bucket_pad_spec,
+                                         validate_pad_spec)
 from petastorm_tpu_torch.readers.shuffling_buffer import (
     BatchedNoopShufflingBuffer, BatchedRandomShufflingBuffer,
     NoopShufflingBuffer, RandomShufflingBuffer)
@@ -627,19 +639,225 @@ def _collate_windows(windows):
                                        for w in windows]).items()}
 
 
-def make_torch_loader(reader, batch_size=1, mesh=None,
+def _device_column(value) -> bool:
+    """Whether a batch column can live on the device: a tensor, or a
+    numpy array that is not strings, bytes or objects."""
+    if torch.is_tensor(value):
+        return True
+    return getattr(value, 'dtype', np.dtype(object)).kind not in 'USO'
+
+
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device):
+    """One staging stream a CUDA device, made on first use."""
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def stage_to_global(batch, sharding, stats=None, tracer=None, fused_fn=None,
+                    goodput=None):
+    """Stage this rank's local batch, its shard of the global batch under
+    ``sharding`` (a :class:`~petastorm_tpu_torch.parallel.mesh.
+    NamedSharding`), to the rank's device: the port's counterpart of JAX's
+    ``stage_to_global`` (``jax_utils.py:956-998``). Numeric columns go
+    through the pinned side-stream path (:func:`stage_to_device`) and the
+    consumer's stream waits on the copy's event; strings, objects and the
+    ``'_provenance'`` record ride under ``batch['_host']`` untouched.
+    ``fused_fn`` (a device decode, :func:`~petastorm_tpu_torch.ops.decode.
+    build_fused_infeed`) runs over the staged columns on the side stream.
+    The device is the mesh's (``'cuda'``: the current card). ``stats`` gets the host time as ``device_stage_s`` and a
+    ``device_stage`` latency, ``tracer`` a ``device_stage`` span and
+    ``goodput`` the step's ``h2d_stage`` leg, as JAX feeds them."""
+    timed = stats is not None or tracer is not None or goodput is not None
+    start = time.perf_counter() if timed else 0.0
+    device = torch.device(sharding.mesh.device_type)
+    if device.type == 'cuda':
+        device = torch.device('cuda', torch.cuda.current_device())
+    columns, host = {}, {}
+    for name, value in batch.items():
+        if name != PROVENANCE_KEY and _device_column(value):
+            columns[name] = value
+        else:
+            host[name] = value
+    stream = _side_stream(device) if device.type == 'cuda' else None
+    staged, event = stage_to_device(columns, device, stream, fused_fn)
+    if event is not None:
+        _hand_off(device)(staged, event)
+    staged = dict(staged)
+    if host:
+        staged['_host'] = host
+    if timed:
+        elapsed = time.perf_counter() - start
+        if stats is not None:
+            stats.add_time('device_stage_s', elapsed)
+            stats.record_latency('device_stage', elapsed)
+        if tracer is not None:
+            tracer.add_span('device_stage', 'device', start, elapsed)
+        if goodput is not None:
+            goodput.note_stage(elapsed)
+    return staged
+
+
+def _all_processes_ready(local_ready: bool) -> bool:
+    """True iff EVERY rank of the default process group has a next batch:
+    one ``all_reduce(MIN)`` of one int a step (JAX ``jax_utils.py:945-953``
+    allgathers a flag). The flag lives on the card under NCCL, on the host
+    under gloo."""
+    import torch.distributed as dist
+    on = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    flag = torch.tensor([1 if local_ready else 0], dtype=torch.int32,
+                        device=on)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+class ShardedTorchLoader(TorchLoaderBase):
+    """This rank's share of a global batch, staged to its device, over a
+    mesh (JAX ``ShardedJaxLoader``, ``jax_utils.py:786-942``).
+
+    One process a device: each rank reads its own reader (e.g. its shard,
+    ``shard_by_jax_process=True``) and batches ``local_batch_size`` items;
+    the global batch is ``local_batch_size`` times the ``batch_axis`` size
+    (``loader.sharding`` says which slice this rank holds). ``drop_last`` is
+    forced True, and once the process group has more than one rank every
+    step is preceded by a readiness ``all_reduce``, so all ranks yield the
+    same number of steps even when row-group sharding is unbalanced (9 row
+    groups over 2 ranks): a rank with a surplus batch drains its reader
+    (``Reader.drain``; under ``inmemory_cache_all`` it runs its stream out
+    instead, as the cache replays it) and stops, where entering the next
+    step's collectives alone would hang the others.
+
+    String and object columns cannot live on the device; they come under
+    ``batch['_host']``. NGram readers keep the nested ``{offset: {field:
+    tensor}}`` layout, each timestep staged.
+
+    Device decode: this loader claims a bytes-through reader's plans and
+    decodes after the staging, on the rank's device, unless a host stage
+    needs the decoded values first: with a ``transform_fn``, or a
+    ``pad_spec`` naming a planned column, it declines (JAX's log words) and
+    the reader decodes on the host.
+    """
+
+    def __init__(self, reader, mesh, local_batch_size, batch_axis='data',
+                 shuffling_queue_capacity=0, transform_fn=None, seed=None,
+                 inmemory_cache_all=False, pad_spec=None,
+                 prefetch_depth=None):
+        from petastorm_tpu_torch.parallel.mesh import batch_sharding
+        super().__init__(reader, mesh.device_type)
+        self._ngram = getattr(reader, 'ngram', None)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        normalized_pad_spec = validate_pad_spec(pad_spec)
+        require_single_bucket_pad_spec(normalized_pad_spec,
+                                       'ShardedTorchLoader')
+        # device_decode=False: this loader claims the raw columns and
+        # decodes them after the staging, on the rank's device
+        self._loader = TorchDataLoader(
+            reader, batch_size=local_batch_size,
+            shuffling_queue_capacity=shuffling_queue_capacity,
+            transform_fn=transform_fn, drop_last=True, seed=seed,
+            inmemory_cache_all=inmemory_cache_all, pad_spec=pad_spec,
+            prefetch_depth=prefetch_depth, device=self.device,
+            device_decode=False)
+        self.sharding = batch_sharding(mesh, batch_axis)
+        self.stats = self._loader.stats
+        self.prefetch_depth = self._loader.prefetch_depth
+        if self.goodput is not None:
+            # the inner loader is driven through _iter_impl, past its own
+            # monitor: the outer one is live, shared with the staging
+            self._loader.goodput = self.goodput
+            register = getattr(reader, 'register_goodput', None)
+            if register is not None:
+                register(self.goodput)
+        self._device_plans = {}
+        self._device_fused_fn = None
+        claim = getattr(reader, '_defer_device_decode_to_loader', None)
+        available_plans = getattr(reader, 'device_decode_plans', None)
+        if claim is not None and available_plans:
+            padded_planned = sorted(set(normalized_pad_spec or {})
+                                    & set(available_plans))
+            if transform_fn is not None:
+                logger.info(
+                    'ShardedTorchLoader: transform_fn needs decoded host '
+                    'columns; declining the bytes-through claim (the reader '
+                    'host-decodes). Use a TransformSpec(device=True) on the '
+                    'reader to keep decode on the accelerator.')
+            elif padded_planned:
+                logger.info(
+                    'ShardedTorchLoader: pad_spec names device-planned '
+                    'columns %s which pad before staging; declining the '
+                    'bytes-through claim (the reader host-decodes).',
+                    padded_planned)
+            else:
+                plans, device_spec = claim()
+                if plans:
+                    self._device_plans = plans
+                    self._device_fused_fn = build_fused_infeed(plans,
+                                                               device_spec)
+
+    def _cache_hot(self):
+        return self._loader._cache_hot()
+
+    def _iter_impl(self, decode=True):
+        import torch.distributed as dist
+        lockstep = dist.is_initialized() and dist.get_world_size() > 1
+        it = self._loader._iter_impl(decode=False)
+        while True:
+            batch = next(it, None)
+            if lockstep:
+                if not _all_processes_ready(batch is not None):
+                    # drain the surplus before stopping: a stream abandoned
+                    # mid-epoch would leave the reader unresettable. The
+                    # epoch cache needs the whole stream (it replays it);
+                    # otherwise the items are dropped undecoded.
+                    drain = getattr(self.reader, 'drain', None)
+                    if self._loader.inmemory_cache_all or drain is None:
+                        for _ in it:
+                            pass
+                    else:
+                        drain()
+                    return
+            elif batch is None:
+                return
+            kw = dict(stats=self.stats, tracer=self.tracer,
+                      goodput=self.goodput)
+            if self._ngram is not None:
+                yield {off: stage_to_global(cols, self.sharding, **kw)
+                       for off, cols in batch.items()}
+                continue
+            if self._device_plans and self.stats is not None:
+                planned = [n for n in self._device_plans if n in batch]
+                if planned:
+                    self.stats.add('rows_decoded_device',
+                                   int(batch[planned[0]].shape[0])
+                                   * len(planned))
+            yield stage_to_global(batch, self.sharding,
+                                  fused_fn=self._device_fused_fn, **kw)
+
+
+def make_torch_loader(reader, batch_size=1, mesh=None, batch_axis='data',
                       shuffling_queue_capacity=0, transform_fn=None,
                       drop_last=False, seed=None, inmemory_cache_all=False,
                       pad_spec=None, prefetch_depth=None, device=None,
                       device_decode=True):
-    """A :class:`TorchDataLoader` over ``reader`` (JAX ``make_jax_loader``).
-    ``device_decode=False`` leaves a bytes-through reader's decode to the
-    reader, on the host. ``mesh`` (a sharded loader over several devices)
-    raises ``NotImplementedError``: it comes with the multi-GPU slice."""
+    """A :class:`TorchDataLoader` over ``reader`` (JAX ``make_jax_loader``,
+    ``jax_utils.py:1106-1132``), or with ``mesh`` a
+    :class:`ShardedTorchLoader` whose ``batch_size`` is this rank's share
+    (the global batch is ``batch_size`` times the ``batch_axis`` size; its
+    ``drop_last`` is always on, it claims a device decode itself, and its
+    device is the mesh's). ``device_decode=False`` leaves a bytes-through
+    reader's decode to the reader, on the host."""
     if mesh is not None:
-        raise NotImplementedError(
-            'make_torch_loader(mesh=...) is not ported to petastorm_tpu_torch '
-            'yet; sharded loaders come with the multi-GPU slice')
+        return ShardedTorchLoader(
+            reader, mesh, batch_size, batch_axis=batch_axis,
+            shuffling_queue_capacity=shuffling_queue_capacity,
+            transform_fn=transform_fn, seed=seed,
+            inmemory_cache_all=inmemory_cache_all, pad_spec=pad_spec,
+            prefetch_depth=prefetch_depth)
     return TorchDataLoader(reader, batch_size=batch_size,
                            shuffling_queue_capacity=shuffling_queue_capacity,
                            transform_fn=transform_fn, drop_last=drop_last,

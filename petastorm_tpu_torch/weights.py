@@ -5,6 +5,10 @@ and :func:`mnist_params_from_jax` take a numpy copy of the JAX ``init``
 pytree and return float32 torch tensors of the same structure and layout,
 with shape checks.
 
+:func:`shard_params` and :func:`gather_params` move the LM's parameters
+onto a mesh (each rank's shard of each leaf under
+``transformer_lm.param_specs``) and back.
+
 The transformer LM's pytree (``petastorm_tpu/models/transformer_lm.py:86-130``)
 is ``{'embed', 'final_norm', 'unembed', 'layers': [...]}``:
 
@@ -135,3 +139,56 @@ def mnist_params_from_jax(numpy_pytree: Dict, device=None) -> Dict:
         raise ValueError('MLP pytree has leaves %s, expected %s'
                          % (sorted(tree), sorted(shapes)))
     return {k: _leaf(tree[k], shape, k, device) for k, shape in shapes.items()}
+
+
+def _lm_leaves(params: Dict, specs: Dict):
+    """``(path, leaf, spec)`` of the LM tree in a fixed order."""
+    for name in ('embed', 'final_norm', 'unembed'):
+        yield (name,), params[name], specs[name]
+    for i, layer in enumerate(params['layers']):
+        for name in sorted(layer):
+            yield ('layers', i, name), layer[name], specs['layers'][i][name]
+
+
+def _set(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree[key]
+    tree[path[-1]] = value
+
+
+def _copy_tree(params: Dict) -> Dict:
+    return {'embed': None, 'final_norm': None, 'unembed': None,
+            'layers': [dict(layer) for layer in params['layers']]}
+
+
+def shard_params(params: Dict, config, mesh, src: int = 0) -> Dict:
+    """This rank's shard of the LM's parameters on ``mesh``'s device: every
+    leaf is first made equal to global rank ``src``'s (one broadcast), then
+    cut to the block ``transformer_lm.param_specs`` gives this rank (the
+    whole leaf where the spec replicates). Float32 leaves, new tensors."""
+    from petastorm_tpu_torch.models.transformer_lm import param_specs
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding, broadcast_
+    device = resolve_device(mesh.device_type)
+    full = [leaf.detach().to(device, torch.float32).clone()
+            for _, leaf, _ in _lm_leaves(params, param_specs(config, mesh))]
+    broadcast_(full, src=src)
+    out = _copy_tree(params)
+    for (path, _, spec), leaf in zip(
+            _lm_leaves(params, param_specs(config, mesh)), full):
+        blocks = NamedSharding(mesh, spec).shard_slices(leaf.shape)
+        _set(out, path, leaf[blocks].contiguous())
+    return out
+
+
+def gather_params(params: Dict, config, mesh) -> Dict:
+    """The whole LM parameters from every rank's shard
+    (:func:`shard_params`' inverse): each split dim all-gathered over its
+    axis's group; detached float32 copies on the shards' device."""
+    from petastorm_tpu_torch.models.transformer_lm import param_specs
+    from petastorm_tpu_torch.parallel.mesh import (NamedSharding,
+                                                   gather_global)
+    out = _copy_tree(params)
+    for path, leaf, spec in _lm_leaves(params, param_specs(config, mesh)):
+        _set(out, path, gather_global(leaf.detach().float(),
+                                      NamedSharding(mesh, spec)).clone())
+    return out

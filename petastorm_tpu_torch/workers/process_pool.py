@@ -100,8 +100,9 @@ dropped and a replacement starts under a fresh worker id (a shrink waits
 for its start frame, as for a grow's). The episode ends once every
 replacement reported in, no item completed for the settle window
 (``settle_s``, at least 1.25 heartbeat intervals with heartbeats on) and
-every surviving worker beats an idle stage: what is still outstanding then
-died with the worker. Each such item counts one crash; repeat offenders go
+every surviving worker beats an idle stage, judged only on a poll that
+found the results socket empty: what is still outstanding then died with
+the worker. An ``ITEM_DONE`` for a seq already accounted counts once. Each such item counts one crash; repeat offenders go
 out last; one whose lineage ledger shows it delivered
 (:meth:`~petastorm_tpu_torch.lineage.LineageTracker.delivery_deficit`: its
 payload arrived, its ``ITEM_DONE`` died) is only accounted, one at
@@ -167,6 +168,8 @@ _SET_READAHEAD = 'SET_READAHEAD'
 #: what it holds, acks with :class:`_WorkerRetired` and exits 0. Sent only
 #: once the pool quiesced, so it never strands a ventilated item.
 _RETIRE = 'RETIRE'
+# what an outstanding map's pop gives for a seq it no longer holds
+_GONE = object()
 
 #: The period of a worker's liveness frame (JAX :49-51): low by design,
 #: it exists for items that take minutes, not as a telemetry channel.
@@ -584,7 +587,13 @@ class ProcessPool:
                     >= _LIVENESS_CHECK_S):
                 self._last_alive_check = time.monotonic()
                 self._check_workers_alive()
-                self._maybe_finalize_recovery()
+                if not ready:
+                    # an episode ends only on an empty poll (as JAX's): a
+                    # consumer back from a long step finds the survivors'
+                    # payloads, ITEM_DONEs and beats still queued, and its
+                    # view of them (a survivor blocked on the high-water
+                    # mark beats 'backpressured', an idle stage) is stale
+                    self._maybe_finalize_recovery()
             if not ready:
                 continue
             payload, control = self._recv()
@@ -597,15 +606,19 @@ class ProcessPool:
             if control == _ITEM_DONE:
                 self._merge_item_stats(extra)
                 with self._lock:
-                    self._processed += 1
-                    in_flight = self._ventilated - self._processed
                     seq = (extra or {}).get('seq')
-                    self._outstanding.pop(seq, None)
+                    # a seq already accounted (a second ITEM_DONE) must not
+                    # count again: the epoch would end one item early
+                    already = self._outstanding.pop(seq, _GONE) is _GONE
+                    if not already:
+                        self._processed += 1
+                    in_flight = self._ventilated - self._processed
                     episode = self._awaiting_redelivery.pop(seq, None)
                 if episode is not None and episode['first_redelivery'] is None:
                     episode['first_redelivery'] = time.monotonic()
                 self._note_recovery_progress()
-                self._job.processed_item()
+                if not already:
+                    self._job.processed_item()
                 stats.gauge('queue_depth', in_flight)
                 continue
             if isinstance(control, _WorkerRetired):

@@ -375,3 +375,86 @@ def test_thread_worker_base_exception_reaches_consumer(chaos_dataset,
         finally:
             reader.stop()
             reader.join()
+
+
+def _result_frames(pool, control, payload=None):
+    """One worker message as the pool's results socket takes it."""
+    import pickle
+    frames = (pool._serializer.serialize_multipart(payload)
+              if payload is not None else [b''])
+    return [frames[0], pickle.dumps(control)] + list(frames[1:])
+
+
+@pytest.mark.timeout(60)
+def test_recovery_reads_queued_frames_before_it_ends():
+    """A consumer back from a long step (the settle window long past) finds
+    a survivor's payload and ITEM_DONE queued, its last beat an idle stage
+    (``backpressured`` on the high-water mark): the episode must not end
+    before the queue is read, or the survivor's item goes out again (a
+    duplicate) and its second ITEM_DONE ends the epoch an item early (a
+    drop). A duplicated ITEM_DONE counts once."""
+    import zmq
+    from petastorm_tpu_torch.resilience import DEFAULT_RECOVERY
+    from petastorm_tpu_torch.workers import process_pool as pp
+    from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
+                                                         VentilationJob)
+    pool = pp.ProcessPool(2, recovery=dict(DEFAULT_RECOVERY))
+    context = zmq.Context()
+    pool._results_receiver = context.socket(zmq.PULL)
+    pool._results_receiver.bind('inproc://results')
+    pool._poller = zmq.Poller()
+    pool._poller.register(pool._results_receiver, zmq.POLLIN)
+    sender = context.socket(zmq.PUSH)
+    sender.connect('inproc://results')
+    try:
+        pool._job = VentilationJob([], False, 0, max_in_flight=2)
+        pool._job.pause()
+        long_ago = time.monotonic() - 60.0
+        # worker 0 died holding seq 0; survivor worker 1 holds seq 1
+        pool._ventilated, pool._ventilation_done = 2, True
+        pool._outstanding = {0: 'lost-item', 1: 'survivor-item'}
+        pool._recovering = {'awaiting_start': set(),
+                            'last_progress': long_ago}
+        pool.recoveries = [{'dead': [0], 'codes': [-9], 'began': long_ago,
+                            'finalized': None, 'redispatched': 0,
+                            'first_redelivery': None}]
+        pool._heartbeats = {'worker-1': {'stage': 'backpressured',
+                                         'ts': time.perf_counter(),
+                                         'pid': -1}}
+        pool._last_alive_check = long_ago
+        sent = []
+
+        def send_work(message):
+            # the replacement takes the item and delivers it
+            sent.append(message)
+            seq, item = message
+            sender.send_multipart(_result_frames(pool, pp._DATA,
+                                                 {'item': item}))
+            sender.send_multipart(_result_frames(
+                pool, (pp._ITEM_DONE, {'seq': seq})))
+            return True
+
+        pool._send_work = send_work
+        sender.send_multipart(_result_frames(pool, pp._DATA,
+                                             {'item': 'survivor-item'}))
+        for _ in range(2):
+            sender.send_multipart(_result_frames(
+                pool, (pp._ITEM_DONE, {'seq': 1})))
+        time.sleep(0.05)
+
+        assert pool.get_results() == {'item': 'survivor-item'}
+        assert sent == []
+        assert pool.recoveries[-1]['finalized'] is None
+        # the queue read, the settle window passes on an empty poll
+        assert pool.get_results() == {'item': 'lost-item'}
+        assert sent == [(0, 'lost-item')]
+        with pytest.raises(EmptyResultError):
+            pool.get_results()
+        assert pool._processed == 2 and not pool._outstanding
+        episode = pool.recoveries[-1]
+        assert episode['redispatched'] == 1
+        assert episode['first_redelivery'] is not None
+    finally:
+        sender.close(linger=0)
+        pool._results_receiver.close(linger=0)
+        context.term()

@@ -807,9 +807,23 @@ def test_close_leaves_no_handle_open(indexed_dataset, monkeypatch):
 
 
 def test_mesh_raises_not_implemented(indexed_dataset):
+    """``mesh=`` is ported (the sharded loader): what still raises is a
+    global batch that the mesh's ``data`` axis does not divide, in JAX's
+    words (``tests/test_torch_sharded_indexed.py`` holds the sharded
+    batches against JAX's)."""
+    import types
     url, _ = indexed_dataset
-    with pytest.raises(NotImplementedError, match='multi-GPU slice'):
-        make_indexed_loader(url, batch_size=8, mesh=object())
+    mesh = types.SimpleNamespace(mesh_dim_names=('data',), shape=(3,),
+                                 device_type='cpu',
+                                 get_local_rank=lambda axis: 0)
+    with pytest.raises(ValueError) as terr:
+        make_indexed_loader(url, batch_size=8, mesh=mesh)
+    assert str(terr.value) == ("global batch_size 8 must divide evenly over "
+                               "the 3 devices of mesh axis 'data'")
+    mesh.shape = (1,)
+    loader = make_indexed_loader(url, batch_size=8, mesh=mesh)
+    assert isinstance(loader, tindexed.ShardedIndexedLoader)
+    loader.close()
 
 
 def test_finite_epochs_required(indexed_dataset):

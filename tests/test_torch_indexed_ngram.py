@@ -425,10 +425,26 @@ def test_pad_spec_refused_with_jax_words(tmp_path):
 
 
 def test_mesh_raises_not_implemented(tmp_path):
+    """``mesh=`` is ported (the sharded loader): what still raises is a
+    global batch that the mesh's ``data`` axis does not divide, in JAX's
+    words (``tests/test_torch_sharded_indexed.py`` holds the sharded
+    batches against JAX's)."""
+    import types
+
+    from petastorm_tpu_torch.indexed_ngram import ShardedIndexedNGramLoader
     url = _write(tmp_path / 'mesh', list(range(20)))
-    with pytest.raises(NotImplementedError, match='multi-GPU slice'):
+    mesh = types.SimpleNamespace(mesh_dim_names=('data',), shape=(3,),
+                                 device_type='cpu',
+                                 get_local_rank=lambda axis: 0)
+    with pytest.raises(ValueError, match="over the 3 devices of mesh axis "
+                                         "'data'"):
         make_indexed_ngram_loader(url, _ngrams(2)[1], batch_size=4,
-                                  mesh=object())
+                                  mesh=mesh)
+    mesh.shape = (1,)
+    loader = make_indexed_ngram_loader(url, _ngrams(2)[1], batch_size=4,
+                                       mesh=mesh)
+    assert isinstance(loader, ShardedIndexedNGramLoader)
+    loader.close()
 
 
 # ---------------------------------------------------------------------------

@@ -365,9 +365,14 @@ def test_make_torch_loader(mnist_url):
     assert petastorm_tpu_torch.make_torch_loader is \
         torch_utils.make_torch_loader
     with petastorm_tpu_torch.make_reader(mnist_url, workers_count=1) as r:
-        with pytest.raises(NotImplementedError, match='multi-GPU'):
-            torch_utils.make_torch_loader(r, batch_size=4, mesh=object(),
-                                          device='cpu')
+        # with a mesh: the sharded loader (tests/test_torch_sharded_loader.py)
+        import types
+        mesh = types.SimpleNamespace(mesh_dim_names=('data',), shape=(1,),
+                                     device_type='cpu',
+                                     get_local_rank=lambda axis: 0)
+        sharded = torch_utils.make_torch_loader(r, batch_size=4, mesh=mesh)
+        assert isinstance(sharded, torch_utils.ShardedTorchLoader)
+        assert sharded.sharding.spec == ('data',)
         loader = torch_utils.make_torch_loader(r, batch_size=64,
                                                drop_last=True,
                                                prefetch_depth=3, device='cpu')

@@ -307,9 +307,10 @@ def test_source_scan_finds_no_jax_import():
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
 #: observability, profiler, autotune, resilience, remote-store,
-#: resume-and-mixing and pod-plane slices; the worker side (everything a worker
-#: interpreter imports) and the indexed loaders must not import torch
-#: either.
+#: resume-and-mixing, pod-plane and parallel slices; the worker side
+#: (everything a worker interpreter imports), the indexed loaders and the
+#: parallel package (torch only inside its functions: the reader
+#: factories call ``host_shard``) must not import torch either.
 SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.etl.repack',
                  'petastorm_tpu_torch.workers.serializers',
@@ -340,7 +341,10 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.indexed_mixture',
                  'petastorm_tpu_torch.checkpoint',
                  'petastorm_tpu_torch.podobs',
-                 'petastorm_tpu_torch.podelastic']
+                 'petastorm_tpu_torch.podelastic',
+                 'petastorm_tpu_torch.parallel.mesh',
+                 'petastorm_tpu_torch.parallel.ring',
+                 'petastorm_tpu_torch.parallel.launch']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

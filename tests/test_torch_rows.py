@@ -153,8 +153,8 @@ def test_row_shuffling_buffer_draws_jax_order():
 
 
 def test_unported_row_options_raise(tmp_path):
-    """What stays unported raises; decode hints and NGram under a row
-    predicate or a transform now read, as in JAX."""
+    """An unknown option raises; decode hints and NGram under a row
+    predicate or a transform read, as in JAX."""
     url = _store(tmp_path, 'torch')
     # a hint on a codec without a scaled decode fails when the reader is
     # made; make_batch_reader takes no decode_hints (as JAX's)
@@ -162,14 +162,10 @@ def test_unported_row_options_raise(tmp_path):
         make_reader(url, decode_hints={'image': {'scale': 2}})
     with pytest.raises(TypeError, match='decode_hints'):
         make_batch_reader(url, decode_hints={'image': {'scale': 2}})
-    # shard_by_jax_process is the one option left for a later slice
-    # (elastic= came with the pod planes)
-    assert set(treader._UNPORTED) == {'shard_by_jax_process'}
-    for factory in (make_reader, make_batch_reader,
-                    petastorm_tpu_torch.make_columnar_reader):
-        with pytest.raises(NotImplementedError,
-                           match='shard_by_jax_process'):
-            factory(url, shard_by_jax_process=True)
+    # every option of the JAX factories is ported (shard_by_jax_process
+    # came with data and sequence parallelism): an unknown one is a
+    # TypeError
+    assert treader._UNPORTED == {}
     with pytest.raises(TypeError, match='no_such_option'):
         make_reader(url, no_such_option=1)
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),

@@ -9,6 +9,8 @@ logits 1e-4, loss 1e-5, gradients 1e-4, parameters after one AdamW step
 1e-5 (float32 sums in different orders).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,9 +122,17 @@ def test_segment_positions_match():
 
 
 def test_unported_configs_raise():
+    """Ring attention is ported (tests/test_torch_lm_mesh.py): without a
+    mesh with a 'seq' axis it raises JAX's words; an unknown attention
+    raises."""
     _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match='ring'):
-        ttlm.make_train_step(ttlm.TransformerConfig(attention='ring'), {})
+    ring = dataclasses.replace(tcfg, attention='ring')
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="needs a mesh with a 'seq' axis"):
+        ttlm.forward(ttlm.init(ring, gen, device='cpu'),
+                     torch.zeros(1, 4, dtype=torch.long), ring)
+    with pytest.raises(ValueError, match="'flash', 'blockwise' or 'ring'"):
+        ttlm.make_train_step(ttlm.TransformerConfig(attention='dense'), {})
     gen = torch.Generator().manual_seed(0)
     params = ttlm.init(tcfg, gen, device='cpu')
     assert params['embed'].shape == (64, 32)
