@@ -14,7 +14,10 @@ printing one line or a few:
    in float32 on the same values, at the training shape (8, 8, 2048, 64)
    bf16 causal and at edge shapes in bf16 and in float32 (ragged L=300,
    non-causal 300 x 170, GQA 8->2, segment ids with a fully masked row,
-   window 128). Float32 outputs: atol = rtol = 1e-4. bf16 o, dq, dk and dv
+   window 128), at a tensor-parallel rank's 4 heads of 8 (4, 4, 2048, 64)
+   bf16, and the float32 head-dim-16 build at the dry run's chunk pair
+   (2, 2, 32, 16), causal, non-causal and GQA 2->1. Float32 outputs:
+   atol = rtol = 1e-4. bf16 o, dq, dk and dv
    come from the tensor-core kernels, which round p (K1), ds (K2), or p and
    ds (K3) to bf16 before the second product: within half a bf16 ulp of
    the twin + 2^-8 B + 1e-5 (1 + |ref|) (``kernels.flash_gate_limit``, B
@@ -415,6 +418,31 @@ printing one line or a few:
    read with pyarrow, each loss within 2e-3 of a one-process step on the
    concatenated batch. (d) 2 ring steps on a one-rank NCCL mesh
    ``{'data': 1, 'seq': 1}`` == the flash steps bit for bit.
+25. tensor, expert and pipeline parallel line (after phase 24; ranks on
+   the one card over gloo as there). (a) + (b) + (c) on 4 ranks. (a) The
+   flagship LM (flash, bf16) on ``{'data': 2, 'model': 2}`` fed by
+   ``make_indexed_ngram_loader(mesh=)`` (global batch 8), 4 AdamW steps:
+   each rank's logits block (4, 2048, 16000); the model ranks of a data
+   group stage equal batches and the data groups' union is the unsharded
+   loader's; each loss within 2e-3 of a one-process step on the gathered
+   batch from the same parameters; step 1's gathered gradient within 5e-2
+   and its ``gather_params`` through phase 24 (b)'s AdamW gate
+   (``adamw_gate``); K1 on the rank's (4, 4) heads; the step ms a rank,
+   the transport's share and the bytes a step (activation collectives,
+   gradient sums). (b) Phase 12's MoE (GQA 8 -> 2, 8 experts top-2) on
+   ``{'data': 2, 'expert': 2}``, fed and gated as (a); on a float32 copy
+   of layer 0 every unit's expert, slot and drop == one process's on the
+   gathered batch; in bf16 step 1 every unit routed otherwise lies within
+   2^-6 of a tie and units of untouched experts drop alike, while no
+   earlier layer differed (``route_gates``); units dropped and the bytes
+   gathered for routing. (c) ``make_pipeline_fn`` on ``{'pipe': 2,
+   'data': 2}`` with stages of 2 flagship layers (flash), 8 microbatches
+   of 2 rows a data rank, 2 steps: 9 sends forward and 8 back a step;
+   outputs within 2^-8 max |ref| and each stage's gradients within 1e-3 of
+   one process running the stages in order; the ms and bytes a step and
+   the bubble share. (d) ``parallel.dryrun.dryrun_multichip(8)`` on the
+   card prints JAX's three lines; each loss within 1e-4 of one process's
+   unsharded step; the ring runs the float32 head-dim-16 K1-K3.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -5047,6 +5075,45 @@ def timings(torch, kernels, gen, reps):
     return out
 
 
+SMALL_HEAD_SHAPE = (2, 2, 32, 16)  # the dry run's float32 chunk pair
+
+
+def small_head_times(torch, kernels, gen):
+    """The float32 D = 16 kernels at the dry run's chunk pair, causal:
+    each launch's device time (``loop_ms``, 200 back to back) beside its
+    twin's and its bound (float32 FP32-core peak against compulsory
+    bytes); logged, not in the kernel table (whose rows are the bf16
+    path's)."""
+    b, h, l, d = SMALL_HEAD_SHAPE
+    q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.float32)
+    kw = dict(n_heads=h, n_kv_heads=h, causal=True)
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    pairs = b * h * l * (l + 1) // 2
+    elem, row = b * h * l * d * 4, b * h * l * 4
+    runs = {
+        'flash_fwd': (lambda: kernels.flash_fwd(q, k, v, **kw),
+                      lambda: kernels.flash_fwd_plain(q, k, v, **kw),
+                      4 * d * pairs, 4 * elem + row),
+        'flash_bwd_dq': (
+            lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: kernels.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            6 * d * pairs, 5 * elem + 2 * row),
+        'flash_bwd_dkdv': (
+            lambda: kernels.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw),
+            lambda: kernels.flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                 **kw),
+            8 * d * pairs, 6 * elem + 2 * row)}
+    for name, (kern, plain, flops, nbytes) in runs.items():
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        bound = max(t_ops, t_bytes) * 1e3
+        ms, plain_ms = loop_ms(torch, kern, 200), loop_ms(torch, plain, 50)
+        log('time D=16 f32 %-14s %.4f ms at %s causal, %.1f%% of its bound '
+            '(bound %.5f ms by %s, plain %.4f ms)'
+            % (name, ms, SMALL_HEAD_SHAPE, 100 * bound / ms, bound,
+               'operations' if t_ops >= t_bytes else 'bytes', plain_ms))
+
+
 def loop_ms(torch, fn, n):
     """Device time of one ``fn()`` from ``n`` calls between two events. A
     sleep kernel queued first keeps the card busy while the host enqueues
@@ -6511,6 +6578,38 @@ def ring_case(torch, kernels, mesh, shape, hkv, causal, seed, dtype, reps):
             'bytes': moved, 'routes': routes, 'errs': errs}
 
 
+def adamw_gate(torch, tag, params1, ref_leaves, grads1):
+    """Step 1's parameters on the mesh (``params1``, gathered) against the
+    one-process step's (``ref_leaves``, with their ``.grad``): AdamW's
+    first step moves a parameter by lr g / (|g| + eps), about lr sign(g),
+    so the two steps' parameters part by more than lr/2 only where the
+    gradients (``grads1``: the mesh's, gathered) differ in sign or one is
+    within 100 eps of zero. Returns ``(max |diff|, share > lr/2)``."""
+    moved = unexplained = total = 0
+    top = 0.0
+    worst = []
+    for a, p, g in zip(params1, ref_leaves, grads1):
+        diff = (a - p.detach()).abs()
+        far = diff > PAR_LR / 2
+        top = max(top, float(diff.max()))
+        g, g_ref = g.float(), p.grad.float()
+        explained = ((g * g_ref <= 0)
+                     | (torch.minimum(g.abs(), g_ref.abs()) < 100 * 1e-8))
+        bad = far & ~explained
+        moved += int(far.sum())
+        unexplained += int(bad.sum())
+        total += p.numel()
+        if bad.any():
+            i = int(bad.flatten().nonzero()[0])
+            worst.append((float(g.flatten()[i]), float(g_ref.flatten()[i]),
+                          float(diff.flatten()[i])))
+    check(top <= 2 * PAR_LR * 1.01 and unexplained == 0,
+          '%s step 1 params: max |diff| %.3g, %d more than lr/2 apart where '
+          'the gradients agree in sign and are not near 0; (g, g_ref, '
+          'diff) e.g. %r' % (tag, top, unexplained, worst[:4]))
+    return top, moved / total
+
+
 def ring_lm(torch, np, tlm, kernels, mesh, cfg, url, seed, batch, steps):
     """(b) on one rank: the flagship LM with ring attention on ``mesh``
     (data x seq), fed by the sharded indexed NGram loader; global rank 0
@@ -6617,36 +6716,8 @@ def ring_lm(torch, np, tlm, kernels, mesh, cfg, url, seed, batch, steps):
                            for g, p in zip(grads1, ref_leaves))
             check(grad_rel <= PAR_GRAD_RTOL,
                   '(b) step 1 gradient relative error %.3g' % grad_rel)
-            # AdamW's first step moves a parameter by lr g / (|g| + eps),
-            # about lr sign(g): the two steps' parameters part by more
-            # than lr/2 only where the gradients differ in sign or one is
-            # within 100 eps of zero
-            moved = unexplained = total = 0
-            top = 0.0
-            worst = []
-            for a, p, g in zip(params1, ref_leaves, grads1):
-                diff = (a - p.detach()).abs()
-                far = diff > PAR_LR / 2
-                top = max(top, float(diff.max()))
-                g, g_ref = g.float(), p.grad.float()
-                explained = ((g * g_ref <= 0)
-                             | (torch.minimum(g.abs(), g_ref.abs())
-                                < 100 * 1e-8))
-                bad = far & ~explained
-                moved += int(far.sum())
-                unexplained += int(bad.sum())
-                total += p.numel()
-                if bad.any():
-                    i = int(bad.flatten().nonzero()[0])
-                    worst.append((float(g.flatten()[i]),
-                                  float(g_ref.flatten()[i]),
-                                  float(diff.flatten()[i])))
-            share = moved / total
-            check(top <= 2 * PAR_LR * 1.01 and unexplained == 0,
-                  '(b) step 1 params: max |diff| %.3g, %d more than lr/2 '
-                  'apart where the gradients agree in sign and are not '
-                  'near 0; (g, g_ref, diff) e.g. %r' % (top, unexplained,
-                                                        worst[:4]))
+            top, share = adamw_gate(torch, '(b)', params1, ref_leaves,
+                                    grads1)
     out.update(loss_rtol=max(diffs), grad_rel=grad_rel, param_max=top,
                param_share=share)
     return out
@@ -7011,6 +7082,576 @@ def parallel_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
     log('parallel phase launches %s' % json.dumps(total))
     return total
 
+# ---------------------------------------------------------------------------
+# phase 25: tensor, expert and pipeline parallelism (ranks on one card)
+# ---------------------------------------------------------------------------
+
+TP_MESH = {'data': 2, 'model': 2}  # (a)
+EP_MESH = {'data': 2, 'expert': 2}  # (b)
+PP_MESH = {'pipe': 2, 'data': 2}   # (c)
+TP_STEPS = 4                       # (a), (b): AdamW steps on the mesh
+PP_MICRO = 8                       # (c): microbatches ...
+PP_ROWS = 2                        # ... of 2 rows a data rank
+PP_LAYERS = 2                      # (c): flagship layers a stage
+PP_ITERS = 2                       # (c): pipelined steps, the first warms up
+PP_OUT_TOL = 2.0 ** -8             # (c): outputs, relative to max |ref|
+PP_GRAD_RTOL = 1e-3                # (c): a stage leaf's gradient, rel. norm
+# (b): two router probabilities this close count as a bf16 tie. The mesh
+# and one process feed the router bf16 activations that may differ by one
+# bf16 rounding (2^-8 relative) of the partial sums the mesh adds; through
+# the float32 router and its softmax that moves a probability by well
+# under 2^-6 (router logits are O(1), |d p / d logit| <= 1/4).
+MOE_TIE = 2.0 ** -6
+DRY_TOL = 1e-4                     # (d): a dry-run loss vs one process
+TP_TIMEOUT_S = 900
+
+
+def _grad_tree(params):
+    """The LM tree of ``params``' gradients (zeros where none)."""
+    import torch
+
+    def g(p):
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+    return {'embed': g(params['embed']),
+            'final_norm': g(params['final_norm']),
+            'unembed': g(params['unembed']),
+            'layers': [{k: g(v) for k, v in layer.items()}
+                       for layer in params['layers']]}
+
+
+def route_gates(torch, got, ref, k, tag):
+    """(b)'s bf16 routing gate, rank 0: each layer's units on the mesh
+    (``got``) against one process's (``ref``). A unit's top-k margin is
+    the smaller gap between its choice's probability and its neighbours'
+    in the token's sorted probabilities. Until a layer routes some unit
+    differently, the two sides' inputs differ by rounding alone: there
+    every unit routed differently must be within ``MOE_TIE`` of a tie, and
+    a unit of an expert no differing unit touched must be dropped alike
+    (a differing unit moves the slots of both its experts' later units).
+    From the first differing layer on, the counts are printed only.
+    Returns one line of counts a layer."""
+    lines, clean = [], True
+    for layer, (g, r) in enumerate(zip(got, ref)):
+        top = r['top'].float()
+        gaps = top[:, :-1] - top[:, 1:]                 # (N, k) at least
+        margin = gaps[:, :k].clone()
+        margin[:, 1:] = torch.minimum(margin[:, 1:], gaps[:, :k - 1])
+        margin = margin.reshape(-1)
+        differ = g['expert'] != r['expert']
+        near = differ & (margin < MOE_TIE)
+        touched = torch.cat([g['expert'][differ], r['expert'][differ]])
+        alike = ~(torch.isin(g['expert'], touched)
+                  | torch.isin(r['expert'], touched))
+        drop_diff = (g['kept'] != r['kept']) & alike
+        n_diff, n_near = int(differ.sum()), int(near.sum())
+        if clean:
+            check(n_diff == n_near and int(drop_diff.sum()) == 0,
+                  '%s layer %d: %d units routed differently, %d of them '
+                  'near a tie (< %g); %d drops differ among untouched '
+                  'experts' % (tag, layer, n_diff, n_near, MOE_TIE,
+                               int(drop_diff.sum())))
+        lines.append('layer %d: dropped %d mesh / %d one process, %d units '
+                     'routed differently (%d within %g of a tie)%s'
+                     % (layer, int((~g['kept']).sum()),
+                        int((~r['kept']).sum()), n_diff, n_near, MOE_TIE,
+                        '' if clean else ' [after a differing layer]'))
+        clean = clean and n_diff == 0
+    return lines
+
+
+def moe_route_f32(torch, tlm, cfg, mesh, params, tokens):
+    """(b)'s exact gate on a float32 copy of layer 0: the rank's tokens'
+    embeddings, normed by ``ln2``, through the mesh's ``_moe_ffn`` (which
+    gathers them over data and routes the global stream) against one
+    process's ``_moe_ffn`` on the gathered batch (global rank 0): every
+    unit's expert, slot and drop equal."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel.mesh import all_gather
+    from petastorm_tpu_torch.weights import gather_params
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    full = gather_params(params, cfg, mesh)
+    block = {k: v.detach().float() for k, v in params['layers'][0].items()}
+    with torch.no_grad():
+        h = tlm._rms_norm(full['embed'][tokens.long()], block['ln2'])
+        mine = {'routes': []}
+        tlm._moe_ffn(h, block, c32, stats=mine, mesh=mesh)
+        whole = torch.cat(all_gather(h, mesh.get_group('data')), 0)
+    if dist.get_rank() != 0:
+        return None
+    with torch.no_grad():
+        one = {'routes': []}
+        tlm._moe_ffn(whole, full['layers'][0], c32, stats=one)
+    got, ref = mine['routes'][0], one['routes'][0]
+    same = all(torch.equal(got[key], ref[key])
+               for key in ('expert', 'slot', 'kept'))
+    check(same, '(b) float32 layer 0: the mesh routes %d units to other '
+          'experts, %d to other slots, %d dropped otherwise than one '
+          'process on the global batch'
+          % tuple(int((got[key] != ref[key]).sum())
+                  for key in ('expert', 'slot', 'kept')))
+    return {'units': int(ref['expert'].numel()),
+            'dropped': int((~ref['kept']).sum())}
+
+
+def sharded_lm(torch, np, tlm, kernels, mesh, cfg, spec, tag):
+    """(a) or (b) on one rank: the LM on ``mesh``, fed by the sharded
+    indexed NGram loader, ``spec['steps']`` AdamW steps; global rank 0
+    then replays them in one process on the gathered global batches."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch import make_indexed_ngram_loader
+    from petastorm_tpu_torch.parallel.mesh import (TRANSPORT_STATS,
+                                                   all_gather, axes_group,
+                                                   axis_size,
+                                                   reset_transport_stats)
+    from petastorm_tpu_torch.weights import gather_params, shard_params
+    device, seed = mesh.device_type, spec['seed']
+    cuda = device == 'cuda'
+    init = tlm.init(cfg, torch.Generator().manual_seed(seed), device=device)
+    start = [p.clone() for p in tlm.parameters(init)]
+    params = shard_params(init, cfg, mesh)
+    del init
+    _, step = tlm.make_train_step(cfg, params, mesh)
+    leaves = tlm.parameters(params)
+    # the data group's float32 sum of every gradient block and the loss
+    grad_bytes = 4 * (sum(p.numel() for p in leaves) + 1)
+    loader = make_indexed_ngram_loader(spec['url'], resume_ngram(),
+                                       batch_size=spec['batch'],
+                                       num_epochs=1, seed=seed, mesh=mesh,
+                                       workers_count=2)
+    seen = set()             # (q rows, heads, kv heads) K1 was launched on
+    launch = kernels.flash_fwd
+
+    def watched(q, k, v, **kw):
+        seen.add((q.shape[0], kw['n_heads'], kw['n_kv_heads']))
+        return launch(q, k, v, **kw)
+
+    local, losses, times, transport, moved, dropped = [], [], [], [], [], []
+    grads1 = params1 = routes1 = None
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.flash_fwd = watched
+    kernels.reset_launch_counts()
+    it = iter(loader)
+    try:
+        for s in range(spec['steps']):
+            batch_s = next(it)
+            tokens = batch_s[0]['tokens']
+            targets = torch.cat([tokens[:, 1:], batch_s[1]['tokens'][:, :1]],
+                                1)
+            local.append((tokens, targets))
+            stats = None
+            if cfg.n_experts:
+                stats = {'routes': []} if s == 0 else {}
+            reset_transport_stats()
+            t0 = time.perf_counter()
+            loss = float(step(tokens, targets, moe_stats=stats))
+            times.append(time.perf_counter() - t0)
+            transport.append(sum(v['seconds']
+                                 for v in TRANSPORT_STATS.values()))
+            moved.append(sum(v['bytes'] for v in TRANSPORT_STATS.values()))
+            losses.append(loss)
+            if stats is not None:
+                dropped.append(int(stats['dropped']))
+            if s == 0:
+                grads1 = tlm.parameters(gather_params(_grad_tree(params), cfg,
+                                                      mesh))
+                params1 = _par_leaves(tlm, gather_params(params, cfg, mesh))
+                if stats is not None:
+                    routes1 = stats['routes']
+    finally:
+        kernels.flash_fwd = launch
+    launches = dict(kernels.LAUNCHES)
+    it.close()
+    loader.close()
+    with torch.no_grad():
+        block = tuple(tlm.forward(params, local[0][0], cfg,
+                                  mesh=mesh).shape)
+    exact = (moe_route_f32(torch, tlm, cfg, mesh, params, local[0][0])
+             if cfg.n_experts else None)
+    # the ranks of a data group (model or expert) staged equal batches
+    same = axes_group(mesh, ('model', 'expert'))
+    if same is not None:
+        for tokens, _ in local:
+            parts = all_gather(tokens, same)
+            check(all(torch.equal(p, parts[0]) for p in parts),
+                  '%s the ranks of a data group staged different batches'
+                  % tag)
+    data_group = mesh.get_group('data')
+    global_batches = [tuple(torch.cat(all_gather(x, data_group), 0)
+                            for x in pair) for pair in local]
+    out = {'losses': losses, 'times': times, 'transport': transport,
+           'moved': moved, 'grad_bytes': grad_bytes, 'launches': launches,
+           'heads': sorted(seen), 'block': block, 'dropped': dropped,
+           'exact': exact, 'finite': all(math.isfinite(x) for x in losses),
+           'route_bytes': (cfg.n_layers * local[0][0].numel() * cfg.d_model
+                           * torch.finfo(cfg.dtype).bits // 8
+                           if cfg.n_experts else 0)}
+    del params, step, leaves
+    if cuda:
+        torch.cuda.empty_cache()
+        dist.barrier()
+    if dist.get_rank() != 0:
+        return out
+    ref_loader = make_indexed_ngram_loader(spec['url'], resume_ngram(),
+                                           batch_size=spec['batch'],
+                                           num_epochs=1, seed=seed,
+                                           workers_count=2)
+    ref_it = iter(ref_loader)
+    for s, (tokens, targets) in enumerate(global_batches):
+        want = next(ref_it)
+        check(np.array_equal(tokens.cpu().numpy(), want[0]['tokens']),
+              "%s step %d: the data groups' batches are not the unsharded "
+              "loader's global batch" % (tag, s))
+    ref_it.close()
+    ref_loader.close()
+    ref = tlm.init(cfg, torch.Generator().manual_seed(seed), device=device)
+    for p, p0 in zip(tlm.parameters(ref), start):
+        p.data.copy_(p0)
+    _, ref_step = tlm.make_train_step(cfg, ref)
+    ref_leaves = tlm.parameters(ref)
+    diffs, routes = [], []
+    for s, (tokens, targets) in enumerate(global_batches):
+        stats = {'routes': []} if cfg.n_experts and s == 0 else None
+        want = float(ref_step(tokens, targets, moe_stats=stats))
+        diffs.append(abs(losses[s] - want) / abs(want))
+        check(diffs[-1] <= PAR_LOSS_RTOL,
+              '%s step %d: loss %.6f on the mesh, %.6f in one process'
+              % (tag, s, losses[s], want))
+        if s == 0:
+            names = ['embed', 'final_norm', 'unembed'] + [
+                'layers.%d.%s' % (i, n) for i, layer in enumerate(ref['layers'])
+                for n in sorted(layer)]
+            rels = sorted(((float((g - p.grad).norm()
+                                  / (p.grad.norm() + 1e-12)), n)
+                           for g, p, n in zip(grads1, ref_leaves, names)),
+                          reverse=True)
+            grad_rel, worst = rels[0][0], rels[:3]
+            check(grad_rel <= PAR_GRAD_RTOL,
+                  '%s step 1 gradient relative error %.3g' % (tag, grad_rel))
+            top, share = adamw_gate(torch, tag, params1, ref_leaves, grads1)
+            if stats is not None:
+                routes = route_gates(torch, routes1, stats['routes'],
+                                     cfg.moe_top_k, tag)
+    out.update(loss_rtol=max(diffs), grad_rel=grad_rel, param_max=top,
+               param_share=share, route_lines=routes, worst_leaves=worst,
+               tp=axis_size(mesh, 'model'))
+    return out
+
+
+def pipeline_lm(torch, tlm, kernels, mesh, cfg, seed):
+    """(c) on one rank: ``make_pipeline_fn`` over ``mesh``'s pipe axis with
+    a stage of ``PP_LAYERS`` flagship layers (attention on ``cfg``'s
+    kernel path, then the FFN), ``PP_MICRO`` microbatches of ``PP_ROWS``
+    rows a data rank; the ranks of data coordinate 0 hold their stage's
+    gradients and their outputs against one process running the stages in
+    order on every microbatch."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import mesh as pmesh
+    from petastorm_tpu_torch.parallel.pipeline import make_pipeline_fn
+    device = mesh.device_type
+    cuda = device == 'cuda'
+    n_stages = pmesh.axis_size(mesh, 'pipe')
+    stage, data_i = (pmesh.axis_index(mesh, a) for a in ('pipe', 'data'))
+    deep = dataclasses.replace(cfg, n_layers=n_stages * PP_LAYERS)
+    full = tlm.init(deep, torch.Generator().manual_seed(seed), device=device)
+    names = sorted(full['layers'][0])
+    stacked = {'layers': [
+        {n: torch.stack([full['layers'][s * PP_LAYERS + i][n]
+                         for s in range(n_stages)]) for n in names}
+        for i in range(PP_LAYERS)]}
+    mine = {'layers': [{n: v[stage:stage + 1].clone().requires_grad_(True)
+                        for n, v in layer.items()}
+                       for layer in stacked['layers']]}
+    positions = torch.arange(cfg.max_seq_len, device=device)
+
+    def stage_fn(p, x):
+        for layer in p['layers']:
+            x = x + tlm._attention(tlm._rms_norm(x, layer['ln1']), layer,
+                                   cfg, positions)
+            x = x + tlm._dense_ffn(tlm._rms_norm(x, layer['ln2']), layer)
+        return x
+
+    gen = torch.Generator(device=device).manual_seed(seed + 25)
+    n_data = pmesh.axis_size(mesh, 'data')
+    xg = torch.randn(PP_MICRO, n_data * PP_ROWS, cfg.max_seq_len,
+                     cfg.d_model, generator=gen, device=device).to(cfg.dtype)
+    x = xg[:, data_i * PP_ROWS:(data_i + 1) * PP_ROWS].contiguous()
+    fn = make_pipeline_fn(stage_fn, mesh, batch_axis='data')
+    leaves = [v for layer in mine['layers'] for _, v in sorted(layer.items())]
+    data_group = pmesh.axes_group(mesh, 'data')
+    shifts = []
+    original = pmesh.ring_shift
+
+    def counted(tensors, group=None, shift=1):
+        shifts.append(shift)
+        return original(tensors, group, shift)
+
+    pmesh.ring_shift = counted
+    times, moved = [], []
+    kernels.reset_launch_counts()
+    try:
+        for _ in range(PP_ITERS):
+            for p in leaves:
+                p.grad = None
+            shifts.clear()
+            pmesh.reset_transport_stats()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(mine, x)
+            loss = (out.float() ** 2).sum() / xg.numel()
+            loss.backward()
+            grads = [p.grad for p in leaves]
+            if data_group is not None:
+                pmesh.all_reduce_sum_(grads, data_group)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            moved.append(sum(v['bytes']
+                             for v in pmesh.TRANSPORT_STATS.values()))
+    finally:
+        pmesh.ring_shift = original
+    launches = dict(kernels.LAUNCHES)
+    result = {'times': times, 'moved': moved, 'launches': launches,
+              'forward_shifts': shifts.count(1),
+              'backward_shifts': shifts.count(-1), 'stage': stage,
+              'data': data_i, 'steps': PP_MICRO + n_stages - 1}
+    if data_i != 0:
+        return result
+    # one process: the stages in order on each data rank's microbatches
+    ref = [{n: v.detach().clone().requires_grad_(True)
+            for n, v in full['layers'][i].items()}
+           for i in range(n_stages * PP_LAYERS)]
+    outs = []
+    for m in range(PP_MICRO):
+        for j in range(n_data):
+            y = xg[m, j * PP_ROWS:(j + 1) * PP_ROWS]
+            for s in range(n_stages):
+                y = stage_fn({'layers': ref[s * PP_LAYERS:
+                                            (s + 1) * PP_LAYERS]}, y)
+            ((y.float() ** 2).sum() / xg.numel()).backward()
+            if j == 0:
+                outs.append(y.detach())
+    want = torch.stack(outs)
+    out_err = float((out.detach().float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(out_err <= PP_OUT_TOL * scale,
+          '(c) stage %d: outputs differ from the stages in order by %.3g '
+          '(limit %g x max |ref| %.3g)' % (stage, out_err, PP_OUT_TOL,
+                                           scale))
+    mine_ref = [v.grad for layer in ref[stage * PP_LAYERS:
+                                        (stage + 1) * PP_LAYERS]
+                for _, v in sorted(layer.items())]
+    grad_rel = max(float((g[0] - r).norm() / (r.norm() + 1e-12))
+                   for g, r in zip(grads, mine_ref))
+    check(grad_rel <= PP_GRAD_RTOL,
+          '(c) stage %d: gradient relative error %.3g (limit %g)'
+          % (stage, grad_rel, PP_GRAD_RTOL))
+    result.update(out_err=out_err, out_scale=scale, grad_rel=grad_rel)
+    return result
+
+
+def tp_ep_pp_ranks(spec):
+    """The body of phase 25 (a), (b) and (c) on each of 4 ranks."""
+    import numpy as np
+    import torch
+
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.ops import kernels
+    from petastorm_tpu_torch.parallel import make_mesh
+    device = spec['device']
+    if device == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, axes, cfg, tag in (('tp', TP_MESH, spec['cfg'], '(a)'),
+                                ('ep', EP_MESH, spec['moe_cfg'], '(b)')):
+        started = time.perf_counter()
+        out[key] = sharded_lm(torch, np, tlm, kernels,
+                              make_mesh(axes, device), cfg, spec, tag)
+        out[key]['seconds'] = time.perf_counter() - started
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    started = time.perf_counter()
+    out['pp'] = pipeline_lm(torch, tlm, kernels, make_mesh(PP_MESH, device),
+                            spec['cfg'], spec['seed'])
+    out['pp']['seconds'] = time.perf_counter() - started
+    return out
+
+
+def dryrun_line(torch, tlm, kernels, device):
+    """(d): ``dryrun_multichip(8)`` on ``device``, its three lines, each
+    loss against one process's unsharded step of the same config from the
+    same parameters (the LM's attention blockwise there; the pipeline's
+    two stages in order). Returns the ranks' launches."""
+    from petastorm_tpu_torch.parallel import dryrun
+    started = time.perf_counter()
+    result = dryrun.dryrun_multichip(8, device_type=device,
+                                     log=lambda s: log('parallel (d) ' + s),
+                                     timeout_s=TP_TIMEOUT_S)
+    seconds = time.perf_counter() - started
+    errs = []
+    for label, axes, loss in result['runs']:
+        if label == 'dryrun_pipeline':
+            stacked, x, target = dryrun.pipeline_arrays(8)
+            w, b = (torch.from_numpy(stacked[k]).to(device) for k in 'wb')
+            y = torch.from_numpy(x).to(device)
+            for s in range(2):
+                y = torch.tanh(y @ w[s] + b[s])
+            want = float(((y - torch.from_numpy(target).to(device)) ** 2)
+                         .mean())
+        else:
+            kw = dryrun.lm_config(axes)
+            kw['attention'] = 'blockwise'
+            cfg = tlm.TransformerConfig(dtype=torch.float32, **kw)
+            params = tlm.init(cfg, torch.Generator().manual_seed(0),
+                              device=device)
+            _, step = tlm.make_train_step(cfg, params)
+            tokens, targets = (torch.from_numpy(a).to(device)
+                               for a in dryrun.lm_batch(axes))
+            want = float(step(tokens, targets))
+        err = abs(loss - want) / max(1.0, abs(want))
+        errs.append(err)
+        check(err <= DRY_TOL, '(d) %s: loss %.6f on %s, %.6f in one process'
+              % (label, loss, axes, want))
+    log('parallel (d) dryrun_multichip(8) on %s: %d lines, losses vs one '
+        'process max rel %.3g (limit %g); launches %s (float32 K1-K3 at head '
+        'dim 16 in the ring); %.1f s'
+        % (device, len(result['runs']), max(errs), DRY_TOL,
+           json.dumps(result['launches']), seconds))
+    return result['launches']
+
+
+def tp_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+            moe_cfg=None, rows=ROWS, steps=TP_STEPS, batch=PAR_BATCH,
+            dry=True):
+    """Phase 25: tensor, expert and pipeline parallelism, every rank a
+    process on the one card over gloo (``gloo-host`` for CUDA tensors).
+    (a) + (b) + (c) on 4 ranks, (d) on 8. Returns the phase's launch
+    counts (K1-K3), summed over the ranks."""
+    import dataclasses
+
+    from petastorm_tpu_torch.parallel import launch_ranks
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    moe_cfg = moe_cfg or dataclasses.replace(cfg, n_kv_heads=2, n_experts=8,
+                                             moe_top_k=2)
+    total = {name: 0 for name in FLASH}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'tokens')
+        write_store(np, url, cfg.max_seq_len, cfg.vocab_size, rows,
+                    args.seed)
+        spec = dict(device=device, seed=args.seed, cfg=cfg, moe_cfg=moe_cfg,
+                    url=url, batch=batch, steps=steps)
+        if device == 'cuda':
+            free_card(torch, 'parallel 3b (a) + (b) + (c) before the spawn')
+        start = time.perf_counter()
+        ranks = launch_ranks('chip_smoke:tp_ep_pp_ranks', 4,
+                             os.path.join(d, 'abc'), args=(spec,),
+                             timeout_s=TP_TIMEOUT_S)
+        log('parallel 3b (a) + (b) + (c) on 4 ranks %.1f s (spawn, CUDA init '
+            'and the runs)' % (time.perf_counter() - start))
+        for key, axes, tag, c in (('tp', TP_MESH, '(a)', cfg),
+                                  ('ep', EP_MESH, '(b)', moe_cfg)):
+            lm = [r[key] for r in ranks]
+            check(all(r['finite'] for r in lm), '%s a non-finite loss' % tag)
+            check(all(r['losses'] == lm[0]['losses'] for r in lm),
+                  '%s the ranks report different losses' % tag)
+            for name in FLASH:
+                total[name] += sum(r['launches'][name] for r in lm)
+                check(all(r['launches'][name] > 0 for r in lm)
+                      or device != 'cuda',
+                      '%s %s not launched on every rank' % (tag, name))
+            tp = axes.get('model', 1)
+            heads = {(h, hkv) for r in lm for _, h, hkv in r['heads']}
+            check(device != 'cuda'
+                  or heads == {(c.n_heads // tp, c.kv_heads // tp)},
+                  '%s K1 saw (heads, kv heads) %r, not the rank\'s %d of %d'
+                  % (tag, sorted(heads), c.n_heads // tp, c.n_heads))
+            want_block = (batch // axes['data'], c.max_seq_len,
+                          c.vocab_size // tp)
+            check(all(r['block'] == want_block for r in lm),
+                  '%s logits blocks %r, not %r' % (tag, lm[0]['block'],
+                                                   want_block))
+            head = lm[0]
+            steady = [sum(r['times'][1:] or r['times']) for r in lm]
+            share = [sum(r['transport'][1:] or r['transport']) / t
+                     for r, t in zip(lm, steady)]
+            act = statistics.median(head['moved']) - head['grad_bytes']
+            log('parallel 3b %s LM on %s (%s, %d steps, global batch %d): '
+                'losses %s; vs one process max rel %.3g (limit %g), step-1 '
+                'gradient max rel %.3g (limit %g), step-1 params max |diff| '
+                '%.3g (limit 2 lr), %.3g of them > lr/2 apart, each where '
+                'the gradients can flip its sign; logits block %s a rank; K1 '
+                'on %s (heads, kv heads) a rank; steady step ms per rank %s, '
+                'gloo-host transport share %s; bytes a step a rank %d: '
+                'activation collectives %d, gradient sums %d; %.1f s'
+                % (tag, json.dumps(axes), str(c.dtype).split('.')[-1], steps,
+                   batch, ['%.4f' % x for x in head['losses']],
+                   head['loss_rtol'], PAR_LOSS_RTOL, head['grad_rel'],
+                   PAR_GRAD_RTOL, head['param_max'], head['param_share'],
+                   head['block'], sorted({(h, k) for _, h, k in
+                                          head['heads']}),
+                   '/'.join('%.1f' % (1e3 * statistics.median(
+                       r['times'][1:] or r['times'])) for r in lm),
+                   '/'.join('%.2f' % x for x in share),
+                   statistics.median(head['moved']), act, head['grad_bytes'],
+                   head['seconds']))
+            log('parallel 3b %s step-1 gradient, leaves furthest from one '
+                "process's (relative norm): %s"
+                % (tag, ', '.join('%s %.3g' % (n, r)
+                                  for r, n in head['worst_leaves'])))
+            if c.n_experts:
+                log('parallel 3b (b) float32 layer 0 routing == one process '
+                    'on the global batch: %d units, %d dropped, every '
+                    "unit's expert, slot and drop equal; units dropped a "
+                    'step %s; bytes gathered for routing a step a rank %d'
+                    % (head['exact']['units'], head['exact']['dropped'],
+                       head['dropped'], head['route_bytes']))
+                for line in head['route_lines']:
+                    log('parallel 3b (b) bf16 step 1 routing ' + line)
+        pp = [r['pp'] for r in ranks]
+        for r in pp:
+            check(r['forward_shifts'] == r['steps']
+                  and r['backward_shifts'] == r['steps'] - 1,
+                  '(c) %d sends forward and %d back, not %d and %d'
+                  % (r['forward_shifts'], r['backward_shifts'], r['steps'],
+                     r['steps'] - 1))
+            for name in FLASH:
+                total[name] += r['launches'][name]
+                check(r['launches'][name] > 0 or device != 'cuda',
+                      '(c) %s not launched on stage %d' % (name, r['stage']))
+        checked = [r for r in pp if r['data'] == 0]
+        n_stages = PP_MESH['pipe']
+        log('parallel 3b (c) pipeline on %s: %d microbatches of %d rows a '
+            'data rank through %d stages of %d flagship layers, %d steps '
+            '(bubble share %.3f); step ms per rank %s; bytes sent a step a '
+            'rank %d; outputs max |diff| vs the stages in order %s (limit '
+            '%g x max |ref|), stage gradients max rel %s (limit %g); %.1f s'
+            % (json.dumps(PP_MESH), PP_MICRO, PP_ROWS, n_stages, PP_LAYERS,
+               pp[0]['steps'], (n_stages - 1) / pp[0]['steps'],
+               '/'.join('%.1f' % (1e3 * r['times'][-1]) for r in pp),
+               pp[0]['moved'][-1],
+               '/'.join('%.3g' % r['out_err'] for r in checked), PP_OUT_TOL,
+               '/'.join('%.3g' % r['grad_rel'] for r in checked),
+               PP_GRAD_RTOL, pp[0]['seconds']))
+    if dry:
+        if device == 'cuda':
+            free_card(torch, 'parallel 3b (d) before the spawn')
+        launched = dryrun_line(torch, tlm, kernels, device)
+        for name in FLASH:
+            check(launched[name] > 0 or device != 'cuda',
+                  '(d) float32 %s at head dim 16 not launched' % name)
+            total[name] += launched[name]
+    log('parallel 3b phase launches %s' % json.dumps(total))
+    return total
+
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -7072,6 +7713,19 @@ def main(argv=None):
             if dtype == torch.bfloat16:
                 for name, err in case.items():
                     errs[name] = max(errs[name], err)
+    # phase 25's shapes: a tensor-parallel rank's 4 heads of 8, and the
+    # dry run's float32 chunk pairs at head dim 16 (the D = 16 build)
+    case = compare_case(torch, kernels, 'bf16 tp rank 4 of 8 heads', gen,
+                        b=4, h=4, hkv=4, lq=2048, lk=2048, d=64,
+                        dtype=torch.bfloat16)
+    for name, err in case.items():
+        errs[name] = max(errs[name], err)
+    for causal in (True, False):
+        compare_case(torch, kernels, 'f32 D=16 chunk %s' % (
+            'causal' if causal else 'non-causal'), gen, b=2, h=2, hkv=2,
+            lq=32, lk=32, d=16, dtype=torch.float32, causal=causal)
+    compare_case(torch, kernels, 'f32 D=16 GQA 2->1', gen, b=2, h=2, hkv=1,
+                 lq=32, lk=32, d=16, dtype=torch.float32)
     case = compare_case(torch, kernels, 'bf16 non-negative q,k,v,do', gen,
                         b=2, h=4, hkv=4, lq=1024, lk=1024, d=64,
                         dtype=torch.bfloat16, nonneg=True)
@@ -7233,8 +7887,17 @@ def main(argv=None):
     for name in FLASH:
         launches[name] += parallel[name]
     log('phase parallel line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    parallel3b = tp_line(torch, np, tlm, kernels, args)
+    check(all(parallel3b[k] > 0 for k in FLASH),
+          'a kernel was not launched on the tp/ep/pp line: %r' % parallel3b)
+    for name in FLASH:
+        launches[name] += parallel3b[name]
+    log('phase tensor, expert and pipeline parallel line %.1f s'
+        % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
+    small_head_times(torch, kernels, gen)
     bound = bounds(PATH_SHAPE)
     phase = time.perf_counter()
     k4 = k4_times(torch, kernels, args.seed)

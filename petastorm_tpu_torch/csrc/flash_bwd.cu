@@ -357,6 +357,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float scale, int dtype, void* stream) {
   constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == flash::kHeadDimSmall)
+    return flash::launch_dq<float, flash::kHeadDimSmall>(
+        q, k, v, dout, lse, delta, segq, segk, dq, BH, H, Hkv, Lq, Lk,
+        causal, window, scale, s);
   if (D != HD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return flash::launch_dq<float, HD>(q, k, v, dout, lse, delta, segq, segk,
@@ -380,6 +384,10 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               int out_f32, void* stream) {
   constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == flash::kHeadDimSmall)
+    return flash::launch_dkdv<float, float, flash::kHeadDimSmall>(
+        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk,
+        causal, window, scale, s);
   if (D != HD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return flash::launch_dkdv<float, float, HD>(q, k, v, dout, lse, delta,

@@ -24,9 +24,12 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kSub = 4;            // rows (and score columns) per thread
 
-// The one head dim the kernels are instantiated for (the flagship LM's);
-// the C entry points return cudaErrorInvalidValue for any other.
+// The head dims the kernels are instantiated for: 64 (the flagship LM's)
+// for both dtypes, and 16 for float32 only (the multi-rank dry run's
+// d_model 64 over 4 heads); the C entry points return
+// cudaErrorInvalidValue for any other.
 constexpr int kHeadDim = 64;
+constexpr int kHeadDimSmall = 16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

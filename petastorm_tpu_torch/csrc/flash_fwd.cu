@@ -199,6 +199,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* stream) {
   constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && D == flash::kHeadDimSmall)
+    return flash::launch_fwd<float, flash::kHeadDimSmall>(
+        q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk, causal, window,
+        scale, s);
   if (D != HD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return flash::launch_fwd<float, HD>(q, k, v, segq, segk, o, lse, BH, H,

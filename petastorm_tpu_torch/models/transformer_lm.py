@@ -1,4 +1,5 @@
-"""Flagship decoder-only transformer LM of the port, single device.
+"""Flagship decoder-only transformer LM of the port, on one device or a
+mesh.
 
 Counterpart of ``petastorm_tpu/models/transformer_lm.py``
 (``TransformerConfig`` :36-80, ``init`` :86-130, ``_rms_norm``/``_rope``
@@ -30,16 +31,39 @@ the loss with weight ``moe_aux_weight``. Packed batches pass
 
 On a mesh (:mod:`petastorm_tpu_torch.parallel`; JAX ``param_specs`` /
 ``batch_spec`` :137-177, ``_ring_attention_sharded`` :203-225,
-``make_train_step(mesh=)`` :620-653): data and sequence parallelism, one
-process a device. Each rank holds the replicated parameters and its
-``(B / data, L / seq)`` tokens; ``attention='ring'`` runs ring attention
-over the ``seq`` group (K1-K3 per chunk pair on the card), the default
-positions are the global offsets of the rank's chunk, and the train step
-sums the ranks' shares of the global mean loss and of its gradients
-before AdamW, so one step equals the unsharded step. A ``model``,
-``expert`` or ``pipe`` axis larger than 1, and a mixture of experts under
-a mesh with ``data`` x ``seq`` > 1, raise ``NotImplementedError``: tensor,
-expert and pipeline parallelism are not ported yet.
+``_moe_ffn(mesh=)`` :313-377, ``make_train_step(mesh=)`` :620-653), one
+process a device, each rank holding its ``param_specs`` block of every
+leaf (:func:`~petastorm_tpu_torch.weights.shard_params`) and its
+``(B / data, L / seq)`` tokens:
+
+- ``data`` and ``seq``: the ranks hold different tokens. The default
+  positions are the global offsets of the rank's chunk, ``attention='ring'``
+  runs ring attention over the ``seq`` group (K1-K3 per chunk pair on the
+  card), and the loss is each rank's share of the global mean: the shares
+  and the gradients are summed over the data x seq group before AdamW.
+- ``model`` (Megatron tensor parallelism): ``wq``/``wk``/``wv`` and
+  ``w_gate``/``w_up`` are column-parallel behind :func:`~petastorm_tpu_torch.
+  parallel.mesh.pvary`, ``wo`` and ``w_down`` row-parallel closed by a
+  :func:`~petastorm_tpu_torch.parallel.mesh.psum`; attention (K1-K3, or the
+  ring) runs on the rank's heads. Where the kv heads do not split evenly
+  (GQA 4 -> 2 on 4 ranks puts half a head on a rank), k and v are gathered
+  over the group and the rank takes the kv heads its q heads read. The
+  embedding's ``(B, L, d / model)`` lookup is gathered over the group; the
+  unembedding gives the rank's ``(B, L, V / model)`` float32 logits, and
+  the cross entropy takes the global max, sum of exponentials and target
+  logit over the group: no rank forms the whole vocabulary.
+- ``expert``: the mixture of experts routes the global token stream (the
+  normed activations gathered over data x seq, token ``b * L + l``), so
+  every unit's expert, slot and drop are one process's; a rank runs the
+  experts of its block on their capacity rows, with ``d_ff`` split over
+  ``model``, and the outputs are summed over expert x model back to each
+  rank's tokens. The aux loss is the global one, counted once.
+- ``pipe``: the LM's specs name no pipe axis, so its ranks replicate the
+  step (:mod:`petastorm_tpu_torch.parallel.pipeline` stages a model).
+
+Ranks that hold the same tokens (model, expert and pipe) compute the same
+loss and hold whole gradients of their replicated activations, so no
+gradient is ever summed over an axis that splits its leaf.
 """
 
 from __future__ import annotations
@@ -158,10 +182,6 @@ def parameters(params: Dict) -> List[torch.Tensor]:
 # sharding rules
 # ---------------------------------------------------------------------------
 
-#: Axes whose parallelism the port does not run yet (slice 3b).
-_UNPORTED_AXES = ('model', 'expert', 'pipe')
-
-
 def param_specs(config: TransformerConfig, mesh) -> Dict:
     """The JAX ``param_specs`` tree: a spec per leaf of :func:`init`'s
     structure, written as a tuple of axis names or ``None`` per dim, using
@@ -192,31 +212,26 @@ def batch_spec(mesh):
             'seq' if 'seq' in names else None)
 
 
-def _check_mesh(config: TransformerConfig, mesh) -> None:
-    """Raise for what the port cannot run on ``mesh`` yet: tensor, expert
-    or pipeline parallelism, and a mixture of experts over a split batch
-    (JAX routes its capacity over the global batch; routing each rank's
-    tokens alone would drop other tokens)."""
+#: Axes whose ranks hold different tokens: losses and gradients sum over
+#: them. Ranks differing only on the others hold the same tokens.
+_TOKEN_AXES = ('data', 'seq')
+#: Axes that split the MoE's experts (their block) and d_ff.
+_EXPERT_AXES = ('expert', 'model')
+
+
+def _axis(mesh, axis: str) -> int:
     from petastorm_tpu_torch.parallel.mesh import axis_size
-    for axis in _UNPORTED_AXES:
-        if axis_size(mesh, axis) > 1:
-            raise NotImplementedError(
-                "a mesh '%s' axis of %d: tensor, expert and pipeline "
-                'parallelism come with slice 3b of the port'
-                % (axis, axis_size(mesh, axis)))
-    if (config.n_experts > 0
-            and axis_size(mesh, 'data') * axis_size(mesh, 'seq') > 1):
-        raise NotImplementedError(
-            'a mixture of experts under a mesh with data x seq = %d: MoE '
-            'routing over the global batch comes with slice 3b of the port'
-            % (axis_size(mesh, 'data') * axis_size(mesh, 'seq')))
+    return 1 if mesh is None else axis_size(mesh, axis)
 
 
-def _sharded(mesh) -> bool:
-    """Whether more than one rank shares the step on ``mesh``."""
-    import torch.distributed as dist
-    return (mesh is not None and dist.is_initialized()
-            and dist.get_world_size() > 1)
+def _check_mesh(config: TransformerConfig, mesh) -> None:
+    """What ``mesh`` must divide that the specs' shapes do not say: whole
+    experts an ``expert`` rank (heads may split anywhere: see
+    :func:`_head_plan`)."""
+    ep = _axis(mesh, 'expert')
+    if config.n_experts > 0 and config.n_experts % ep:
+        raise ValueError('n_experts (%d) must be a multiple of the mesh '
+                         "'expert' axis (%d)" % (config.n_experts, ep))
 
 
 # ---------------------------------------------------------------------------
@@ -254,19 +269,74 @@ def _ring_attention_sharded(q, k, v, mesh):
                           impl=resolve_ring_impl(None, mesh))
 
 
+def _head_plan(config: TransformerConfig, mesh):
+    """Which heads a rank computes under tensor parallelism. Its ``wo``
+    rows are o's columns ``[c0, c0 + cols)``, ``cols = d / model``; they
+    touch q heads ``[h0, h1)``. Returns ``(h0, h1, gather_q, gather_kv,
+    kv_pick, offset, cols)``: where the columns cut a q head the rank's q
+    columns are gathered whole over the group (``gather_q``), and where
+    its kv columns are not the kv heads its q heads read (a kv head split
+    mid-head, or q gathered) k and v are gathered and ``kv_pick`` (a slice
+    where the q heads form whole GQA groups, else one kv head a q head)
+    takes them; ``offset`` is the rank's first o column within its
+    heads'. On one rank: every head, nothing gathered."""
+    from petastorm_tpu_torch.parallel.mesh import axis_index
+    h, hkv, dh = config.n_heads, config.kv_heads, config.head_dim
+    tp = _axis(mesh, 'model')
+    cols = h * dh // tp
+    c0 = (axis_index(mesh, 'model') if tp > 1 else 0) * cols
+    h0, h1 = c0 // dh, -(-(c0 + cols) // dh)
+    gather_q = cols % dh != 0
+    gather_kv = gather_q or hkv % tp != 0
+    need = [j // (h // hkv) for j in range(h0, h1)]
+    nq, n = h1 - h0, need[-1] - need[0] + 1
+    if nq % n == 0 and all(kv - need[0] == jl // (nq // n)
+                           for jl, kv in enumerate(need)):
+        pick = slice(need[0], need[-1] + 1)
+    else:
+        pick = need
+    return h0, h1, gather_q, gather_kv, pick, c0 - h0 * dh, cols
+
+
 def _attention(x, layer, config: TransformerConfig, positions,
                segment_ids=None, mesh=None):
+    """Attention on the rank's tokens and heads. Under a ``seq`` split,
+    ``segment_ids`` are the whole sequence's (:func:`forward` gathers
+    them)."""
+    from petastorm_tpu_torch.parallel.mesh import (all_gather_tiled,
+                                                   axis_index, psum, pvary)
     c = config
     b, l, _ = x.shape
-    h, hkv, dh = c.n_heads, c.kv_heads, c.head_dim
+    tp = _axis(mesh, 'model')
+    h0, h1, gather_q, gather_kv, pick, offset, cols = _head_plan(c, mesh)
+    h, hkv, dh = h1 - h0, c.kv_heads, c.head_dim
+    x = pvary(x, mesh, 'model')
 
-    def heads(w, n):
-        y = (x @ w.to(x.dtype)).reshape(b, l, n, dh)
-        return y.transpose(1, 2)                        # (B, n, L, dh)
+    def heads(y, n):
+        return y.reshape(b, l, n, dh).transpose(1, 2)  # (B, n, L, dh)
 
-    q = _rope(heads(layer['wq'], h), positions)
-    k = _rope(heads(layer['wk'], hkv), positions)
-    v = heads(layer['wv'], hkv)
+    q = x @ layer['wq'].to(x.dtype)
+    if gather_q:        # the rank's o columns cut a head: q whole
+        q = heads(all_gather_tiled(q, mesh, 'model', dim=-1),
+                  c.n_heads)[:, h0:h1]
+    else:
+        q = heads(q, h)
+    q = _rope(q, positions)
+    k, v = (x @ layer[w].to(x.dtype) for w in ('wk', 'wv'))
+    if gather_kv:       # the rank's kv columns are not its q heads' kv
+        k, v = (heads(all_gather_tiled(y, mesh, 'model', dim=-1), hkv)[:, pick]
+                for y in (k, v))
+        hkv = k.shape[1]
+    else:
+        hkv //= tp
+        k, v = heads(k, hkv), heads(v, hkv)
+    k = _rope(k, positions)
+    # 'flash'/'blockwise' on a seq-split batch attend the whole sequence,
+    # as JAX's do (XLA gathers over seq): gather q, k and v, keep this
+    # rank's rows of o
+    whole = c.attention != 'ring' and _axis(mesh, 'seq') > 1
+    if whole:
+        q, k, v = (all_gather_tiled(t, mesh, 'seq', dim=2) for t in (q, k, v))
     if c.attention == 'ring':
         if segment_ids is not None:
             raise ValueError('packed segment_ids are not supported with '
@@ -288,14 +358,22 @@ def _attention(x, layer, config: TransformerConfig, positions,
         o = blockwise_attention(q, k, v, causal=True,
                                 segment_ids=segment_ids,
                                 window=c.attention_window)
+    if whole:
+        o = o.narrow(2, axis_index(mesh, 'seq') * l, l)
     o = o.transpose(1, 2).reshape(b, l, h * dh)
-    return o @ layer['wo'].to(x.dtype)
+    if gather_q:
+        o = o[..., offset:offset + cols]
+    return psum(o @ layer['wo'].to(x.dtype), mesh, 'model')
 
 
-def _dense_ffn(x, layer):
+def _dense_ffn(x, layer, mesh=None):
+    """The SwiGLU FFN; under tensor parallelism ``w_gate``/``w_up`` are
+    the rank's columns and ``w_down`` its rows, summed over the group."""
+    from petastorm_tpu_torch.parallel.mesh import psum, pvary
+    x = pvary(x, mesh, 'model')
     gate = F.silu(x @ layer['w_gate'].to(x.dtype))
     up = x @ layer['w_up'].to(x.dtype)
-    return (gate * up) @ layer['w_down'].to(x.dtype)
+    return psum((gate * up) @ layer['w_down'].to(x.dtype), mesh, 'model')
 
 
 def _moe_router(probs, k: int):
@@ -333,8 +411,39 @@ def _moe_ffn_dense(x, layer, config: TransformerConfig):
     return torch.einsum('ebld,ble->bld', down, combine)
 
 
+def _gather_tokens(x, mesh):
+    """The global ``(B, L, d)`` batch from every data x seq rank's ``(B /
+    data, L / seq, d)`` block, in the global order (token ``b * L + l``);
+    ``x`` itself without such ranks. The backward sums the gradient over
+    the group and keeps this rank's block."""
+    from petastorm_tpu_torch.parallel.mesh import (all_gather_tiled,
+                                                   axes_group, axis_names)
+    if axes_group(mesh, _TOKEN_AXES) is None:
+        return x
+    b, l, d = x.shape
+    # the parts come in mesh axis order, the first axis slowest
+    axes = [a for a in axis_names(mesh) if a in _TOKEN_AXES
+            and _axis(mesh, a) > 1]
+    parts = all_gather_tiled(x[None], mesh, _TOKEN_AXES, dim=0)
+    parts = parts.reshape(*(_axis(mesh, a) for a in axes), b, l, d)
+    if axes == ['seq', 'data']:
+        parts = parts.transpose(0, 1)
+    nd, ns = _axis(mesh, 'data'), _axis(mesh, 'seq')
+    return parts.reshape(nd, ns, b, l, d).transpose(1, 2).reshape(
+        nd * b, ns * l, d)
+
+
+def _local_tokens(y, mesh):
+    """This rank's ``batch_spec`` block of a global ``(B, L, d)``."""
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding, axes_group
+    if axes_group(mesh, _TOKEN_AXES) is None:
+        return y
+    return y[NamedSharding(mesh, batch_spec(mesh)).shard_slices(y.shape)]
+
+
 def _moe_ffn(x, layer, config: TransformerConfig,
-             capacity: Optional[int] = None, stats: Optional[Dict] = None):
+             capacity: Optional[int] = None, stats: Optional[Dict] = None,
+             mesh=None):
     """Top-k MoE with sort-based sparse dispatch (k = 1 Switch, k > 1
     GShard), as the JAX ``_moe_ffn``: each (token, choice) pair is a unit;
     units are stably sorted by expert, the first ``capacity`` of each
@@ -348,16 +457,30 @@ def _moe_ffn(x, layer, config: TransformerConfig,
     gradient, as in the JAX model. Returns ``(y, aux)``: the Switch
     load-balancing loss ``E · Σ_e frac_e · mean_prob_e`` over all k
     choices. With ``stats`` (a dict), adds the units dropped to
-    ``stats['dropped']`` (a tensor, no host sync)."""
-    b, l, d = x.shape
+    ``stats['dropped']`` (a tensor, no host sync); where ``stats`` holds a
+    list under ``'routes'``, appends each unit's ``expert``, ``slot`` and
+    ``kept`` (in unit order) and each token's ``top`` k + 1 probabilities.
+
+    With ``mesh``, ``x`` is this rank's block of tokens: they are gathered
+    over data x seq and the whole global stream is routed on every rank,
+    the capacity counting its units, so routing equals one process's on
+    the global batch. A rank runs only the experts of its ``expert`` block
+    (on its ``model`` block of d_ff); the experts' input and the scales
+    pass through :func:`~petastorm_tpu_torch.parallel.mesh.pvary` and the
+    combined outputs of the rank's tokens are summed over expert x model.
+    The aux loss is the global batch's."""
+    from petastorm_tpu_torch.parallel.mesh import (axes_group, axis_index,
+                                                   psum, pvary)
+    xg = _gather_tokens(x, mesh)
+    b, l, d = xg.shape
     e, k = config.n_experts, config.moe_top_k
     n = b * l
     n_units = n * k
-    xf = x.reshape(n, d)
+    xf = xg.reshape(n, d)
     probs = torch.softmax(xf.float() @ layer['gate'], -1)    # (N, E)
     top_idx, top_probs = _moe_router(probs, k)
     unit_expert = top_idx.reshape(n_units)                   # unit u: token u//k
-    scale = top_probs.to(x.dtype)
+    scale = pvary(top_probs.to(x.dtype), mesh, _EXPERT_AXES)
     if capacity is None:
         capacity = max(1, int(math.ceil(n_units / e
                                         * config.moe_capacity_factor)))
@@ -367,16 +490,31 @@ def _moe_ffn(x, layer, config: TransformerConfig,
         sorted_expert, torch.arange(e, device=x.device), side='left')
     pos = torch.arange(n_units, device=x.device) - group_starts[sorted_expert]
     kept = pos < capacity
-    dest = torch.where(kept, sorted_expert * capacity + pos,
-                       torch.full_like(pos, e * capacity))
-    buf = x.new_zeros(e * capacity + 1, d).index_put((dest,), xf[order // k])
-    expert_in = buf[:-1].reshape(e, capacity, d)
+    # this rank's experts: [e0, e0 + e_l); the others' units, like the
+    # dropped ones, write and read the overflow row
+    e_l = e // _axis(mesh, 'expert')
+    e0 = axis_index(mesh, 'expert') * e_l if mesh is not None else 0
+    mine = kept & (sorted_expert >= e0) & (sorted_expert < e0 + e_l)
+    dest = torch.where(mine, (sorted_expert - e0) * capacity + pos,
+                       torch.full_like(pos, e_l * capacity))
+    xin = pvary(xf, mesh, _EXPERT_AXES)
+    buf = x.new_zeros(e_l * capacity + 1, d).index_put((dest,),
+                                                       xin[order // k])
+    expert_in = buf[:-1].reshape(e_l, capacity, d)
     gate = F.silu(torch.bmm(expert_in, layer['w_gate'].to(x.dtype)))
     up = torch.bmm(expert_in, layer['w_up'].to(x.dtype))
     out = torch.bmm(gate * up, layer['w_down'].to(x.dtype))
-    flat = torch.cat([out.reshape(e * capacity, d), x.new_zeros(1, d)])
+    flat = torch.cat([out.reshape(e_l * capacity, d), x.new_zeros(1, d)])
     unit_out = x.new_zeros(n_units, d).index_put((order,), flat[dest])
-    y = torch.einsum('nkd,nk->nd', unit_out.reshape(n, k, d), scale)
+    if axes_group(mesh, _EXPERT_AXES) is None:
+        y = torch.einsum('nkd,nk->nd', unit_out.reshape(n, k, d), scale)
+    else:
+        # the ranks' shares of a token's k choices add in float32 and are
+        # rounded once, as one process's einsum rounds its accumulation
+        y = torch.einsum('nkd,nk->nd', unit_out.reshape(n, k, d).float(),
+                         scale.float())
+    y = psum(_local_tokens(y.reshape(b, l, d), mesh), mesh,
+             _EXPERT_AXES).to(x.dtype)
     # units an expert got, from the group starts (``bincount`` would wait
     # on the card for the largest index)
     counts = torch.diff(group_starts, append=group_starts.new_full(
@@ -384,7 +522,14 @@ def _moe_ffn(x, layer, config: TransformerConfig,
     aux = e * torch.sum(counts.float() / n_units * probs.mean(0))
     if stats is not None:
         stats['dropped'] = stats.get('dropped', 0) + (~kept).sum()
-    return y.reshape(b, l, d), aux
+        if isinstance(stats.get('routes'), list):
+            slot = torch.empty_like(pos).index_put((order,), pos)
+            stats['routes'].append({
+                'expert': unit_expert.detach(), 'slot': slot,
+                'kept': slot < capacity,
+                'top': probs.detach().sort(-1, descending=True).values[
+                    :, :min(k + 1, e)]})
+    return y, aux
 
 
 def _segment_positions(segment_ids):
@@ -408,15 +553,31 @@ def forward(params, tokens, config: TransformerConfig, positions=None,
     given). With ``return_aux``, also the MoE load-balancing aux loss summed
     over layers (0 for a dense model). With ``moe_stats`` (a dict), the MoE
     layers add their dropped units to ``moe_stats['dropped']``. With
-    ``mesh``, ``tokens`` are this rank's ``(B / data, L / seq)`` shard:
-    the default positions start at the chunk's global offset, and
-    ``attention='ring'`` attends over the ``seq`` group."""
+    ``mesh``, ``tokens`` are this rank's ``(B / data, L / seq)`` shard
+    and ``params`` its blocks: the default positions start at the chunk's
+    global offset, ``attention='ring'`` attends over the ``seq`` group,
+    and the logits are the rank's ``(B / data, L / seq, V / model)`` block
+    (:func:`~petastorm_tpu_torch.parallel.mesh.gather_global` with
+    ``NamedSharding(mesh, batch_spec(mesh) + ('model',))`` assembles
+    them)."""
     c = config
     _check_supported(c)
     tokens = tokens.long()
+    chunk = None
+    if segment_ids is not None and _axis(mesh, 'seq') > 1:
+        # the whole sequence's ids: a document may begin on an earlier
+        # rank's chunk, and attention over a split reads them whole
+        from petastorm_tpu_torch.parallel.mesh import all_gather, axis_index
+        n = segment_ids.shape[-1]
+        chunk = slice(axis_index(mesh, 'seq') * n,
+                      (axis_index(mesh, 'seq') + 1) * n)
+        segment_ids = torch.cat(all_gather(segment_ids.contiguous(),
+                                           mesh.get_group('seq')), -1)
     if positions is None:
         if segment_ids is not None:
             positions = _segment_positions(segment_ids)
+            if chunk is not None:
+                positions = positions[..., chunk]
         else:
             offset = 0
             if mesh is not None:
@@ -424,21 +585,48 @@ def forward(params, tokens, config: TransformerConfig, positions=None,
                 offset = axis_index(mesh, 'seq') * tokens.shape[1]
             positions = torch.arange(offset, offset + tokens.shape[1],
                                      device=tokens.device)
-    x = params['embed'].to(c.dtype)[tokens]             # (B, L, D)
+    if mesh is not None:
+        _check_mesh(c, mesh)
+    from petastorm_tpu_torch.parallel.mesh import all_gather_invariant, pvary
+    # (B, L, D), the embedding's d_model split over 'model' gathered whole
+    x = all_gather_invariant(params['embed'].to(c.dtype)[tokens], mesh,
+                             'model', dim=-1)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params['layers']:
         x = x + _attention(_rms_norm(x, layer['ln1']), layer, c, positions,
                            segment_ids, mesh)
         h = _rms_norm(x, layer['ln2'])
         if c.n_experts > 0:
-            ffn_out, aux = _moe_ffn(h, layer, c, stats=moe_stats)
+            ffn_out, aux = _moe_ffn(h, layer, c, stats=moe_stats, mesh=mesh)
             x = x + ffn_out
             aux_total = aux_total + aux
         else:
-            x = x + _dense_ffn(h, layer)
-    x = _rms_norm(x, params['final_norm'])
+            x = x + _dense_ffn(h, layer, mesh)
+    x = pvary(_rms_norm(x, params['final_norm']), mesh, 'model')
     logits = (x @ params['unembed'].to(c.dtype)).float()
     return (logits, aux_total) if return_aux else logits
+
+
+def _cross_entropy(logits, targets, mesh):
+    """Each token's ``-log softmax(logits)[target]`` in float32, flat. With
+    a ``model`` axis the logits are this rank's vocabulary block: the max,
+    the sum of exponentials and the target's logit are taken over the
+    group (:func:`~petastorm_tpu_torch.parallel.mesh.pmax`, ``psum``), so
+    no rank holds the whole vocabulary."""
+    from petastorm_tpu_torch.parallel.mesh import axis_index, pmax, psum
+    logits = logits.reshape(-1, logits.shape[-1])
+    targets = targets.reshape(-1).long()
+    if _axis(mesh, 'model') == 1:
+        return F.cross_entropy(logits, targets, reduction='none')
+    v = logits.shape[-1]
+    local = targets - axis_index(mesh, 'model') * v
+    inside = (local >= 0) & (local < v)
+    m = pmax(logits.amax(-1), mesh, 'model')
+    sumexp = psum(torch.exp(logits - m[:, None]).sum(-1), mesh, 'model')
+    picked = torch.gather(logits, 1, local.clamp(0, v - 1)[:, None])[:, 0]
+    target = psum(torch.where(inside, picked, torch.zeros_like(picked)),
+                  mesh, 'model')
+    return torch.log(sumexp) + m - target
 
 
 def loss_fn(params, tokens, targets, config: TransformerConfig, *,
@@ -449,34 +637,33 @@ def loss_fn(params, tokens, targets, config: TransformerConfig, *,
     aux loss, as the JAX ``loss_fn``. With ``moe_stats`` (a dict), also
     ``moe_stats['aux']`` (the aux loss, detached) and
     ``moe_stats['dropped']`` (units dropped over the layers). With a
-    ``mesh`` of more than one rank, the loss is this rank's share of the
-    global mean over every rank's tokens: the shares sum to it (the weights'
-    global sum is all-reduced first)."""
+    ``mesh``, the loss is this rank's share of the global mean over every
+    data x seq rank's tokens: those ranks' shares sum to it (the weights'
+    global sum is all-reduced first), the MoE aux counted once among them;
+    ranks holding the same tokens (model, expert, pipe) hold the same
+    share."""
     logits, aux = forward(params, tokens, config, positions=positions,
                           segment_ids=segment_ids, return_aux=True,
                           moe_stats=moe_stats, mesh=mesh)
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          targets.reshape(-1).long(), reduction='none')
-    if _sharded(mesh):
-        import torch.distributed as dist
-
-        from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_
-        if weights is None:
-            loss = nll.sum() / (nll.numel() * dist.get_world_size())
-        else:
-            w = weights.reshape(-1).float()
-            total = w.sum().detach().clone()
-            all_reduce_sum_([total])
-            loss = (nll * w).sum() / torch.clamp(total, min=1.0)
-    elif weights is None:
-        loss = nll.mean()
+    nll = _cross_entropy(logits, targets, mesh)
+    from petastorm_tpu_torch.parallel.mesh import (all_reduce_sum_,
+                                                   axes_group, group_size)
+    group = axes_group(mesh, _TOKEN_AXES)
+    ranks = group_size(group)
+    if weights is None:
+        loss = nll.mean() if group is None else nll.sum() / (nll.numel()
+                                                             * ranks)
     else:
         w = weights.reshape(-1).float()
-        loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        total = w.sum().detach().clone()
+        if group is not None:
+            all_reduce_sum_([total], group)
+        loss = (nll * w).sum() / torch.clamp(total, min=1.0)
     if moe_stats is not None:
         moe_stats['aux'] = aux.detach()
     if config.n_experts > 0 and config.moe_aux_weight:
-        loss = loss + config.moe_aux_weight * aux
+        # the global batch's aux, once over the ranks' shares
+        loss = loss + config.moe_aux_weight * aux / ranks
     return loss
 
 
@@ -645,14 +832,17 @@ def make_train_step(config: TransformerConfig, params: Dict, mesh=None):
     optimizer state, this one updates ``params`` and the optimizer state in
     place.
 
-    With ``mesh`` (data and sequence axes; :func:`_check_mesh` raises for
-    the others), ``tokens`` and ``targets`` are this rank's ``(B / data, L /
-    seq)`` shard and ``params`` its replica (:func:`~petastorm_tpu_torch.
-    weights.shard_params`). The ring's backward already carries each
-    rank's share of the loss to the k/v chunks it attended, so the ranks'
-    gradients of their loss shares sum, over the whole mesh, to the
-    gradient of the global mean loss: they are summed (with the loss)
-    before AdamW, and every replica takes the unsharded step."""
+    With ``mesh``, ``tokens`` and ``targets`` are this rank's ``(B / data,
+    L / seq)`` shard and ``params`` its blocks (:func:`~petastorm_tpu_torch.
+    weights.shard_params`). Every rank's gradient of a leaf is then the
+    gradient of its loss share for its block: the ring's backward carries
+    each seq rank's share to the k/v chunks it attended, the gathers over
+    data x seq scatter their gradients back, and the ``model`` and
+    ``expert`` collectives leave every rank's gradient of a replicated
+    activation whole. So the shares and gradients are summed over the data
+    x seq group alone before AdamW, never over an axis that splits a leaf,
+    and each rank's AdamW (elementwise, no global norm) takes its block of
+    the unsharded step."""
     _check_supported(config)
     if mesh is not None:
         _check_mesh(config, mesh)
@@ -661,7 +851,8 @@ def make_train_step(config: TransformerConfig, params: Dict, mesh=None):
         p.requires_grad_(True)
     optimizer = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.999),
                                   eps=1e-8, weight_decay=0.01)
-    sharded = _sharded(mesh)
+    from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_, axes_group
+    group = axes_group(mesh, _TOKEN_AXES)
 
     def step(tokens, targets, **loss_kwargs):
         optimizer.zero_grad(set_to_none=True)
@@ -669,12 +860,11 @@ def make_train_step(config: TransformerConfig, params: Dict, mesh=None):
                        **loss_kwargs)
         loss.backward()
         loss = loss.detach()
-        if sharded:
-            from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_
+        if group is not None:
             for p in leaves:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            all_reduce_sum_([p.grad for p in leaves] + [loss])
+            all_reduce_sum_([p.grad for p in leaves] + [loss], group)
         optimizer.step()
         return loss
 

@@ -26,8 +26,10 @@ launches its kernel or raises — there is no fallback.
 The kernels are compiled on first use with one ``nvcc`` call into
 ``petastorm_tpu_torch/_build/<hash of the sources>`` and loaded with
 ``ctypes``; nothing is built or imported from CUDA when this module is
-imported. The attention kernels are instantiated for head dim 64 only (the
-flagship LM's); another head dim raises until a configuration needs it.
+imported. The attention kernels are instantiated for head dim 64 (the
+flagship LM's) in both dtypes, and for head dim 16 in float32 only (the
+multi-rank dry run's; the FP32-core kernels are templated on it); another
+head dim raises until a configuration needs it.
 
 The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
 bf16 before their second products, where the twins keep float32: their
@@ -61,6 +63,7 @@ _SOURCES = ('flash_common.cuh', 'sm90.cuh', 'flash_fwd.cu',
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _HEAD_DIM = 64                 # csrc/flash_common.cuh kHeadDim
+_HEAD_DIM_F32 = (16, 64)       # ... and kHeadDimSmall, float32 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
@@ -421,7 +424,10 @@ def _check_tma(name, *tensors):
 
 def _launch_args(q, n_heads, n_kv_heads, causal, window):
     bh, lq, d = q.shape
-    if d != _HEAD_DIM:
+    if q.dtype == torch.float32 and d not in _HEAD_DIM_F32:
+        raise ValueError('head dim %d not supported by the float32 CUDA '
+                         'kernels (built for %s)' % (d, _HEAD_DIM_F32))
+    if q.dtype != torch.float32 and d != _HEAD_DIM:
         raise ValueError('head dim %d not supported by the CUDA kernels '
                          '(built for %d only)' % (d, _HEAD_DIM))
     if bh > 65535:

@@ -7,8 +7,9 @@ every sharded array. The axis vocabulary is JAX's:
 
 - ``data``  data parallelism (batch dim)
 - ``seq``   sequence parallelism (ring attention)
-- ``model`` tensor parallelism; ``pipe`` pipeline stages; ``expert``
-  expert parallelism (not ported yet: the port's model raises on them)
+- ``model`` tensor parallelism (heads, d_ff and vocabulary blocks)
+- ``pipe``  pipeline stages (:mod:`petastorm_tpu_torch.parallel.pipeline`)
+- ``expert`` expert parallelism (MoE expert blocks)
 
 - :func:`make_mesh` builds a ``torch.distributed.device_mesh.DeviceMesh``
   with the axes in dict order over the initialised process group; a
@@ -25,6 +26,16 @@ every sharded array. The axis vocabulary is JAX's:
   gloo, and CUDA tensors over gloo through pinned host memory (several
   ranks on one card cannot form a NCCL group). :data:`TRANSPORT_STATS`
   counts the bytes and host seconds of each route.
+- The collectives with a backward (JAX's words where JAX has them) run
+  over the group of one or more mesh axes (:func:`axes_group`):
+  :func:`pvary` and :func:`psum` are the pair Megatron calls f and g
+  (identity forward with a sum backward; a sum forward with an identity
+  backward), :func:`all_gather_tiled` gathers along a dim with a
+  reduce-scatter backward and :func:`all_gather_invariant` with a slice
+  backward, :func:`pmax` takes a maximum (no gradient), and
+  :func:`ppermute` shifts to the next rank of the group with a backward
+  that shifts the gradient to the previous one. Each is the identity
+  when the axes' group has one rank.
 
 Nothing here imports torch when the module is imported: the reader
 factories resolve ``shard_by_jax_process`` through :func:`host_shard`.
@@ -213,18 +224,19 @@ def _unpack(buf, layout):
     return out
 
 
-def ring_shift(tensors, group=None):
+def ring_shift(tensors, group=None, shift: int = 1):
     """Send ``tensors`` to the next rank of ``group`` (the default group
     when None) and return those received from the previous one, in one
-    message: rank ``i`` of the group sends to ``i + 1`` and receives from
-    ``i - 1`` (mod the group size). A group of one returns ``tensors``."""
+    message: rank ``i`` of the group sends to ``i + shift`` and receives
+    from ``i - shift`` (mod the group size). A group of one returns
+    ``tensors``."""
     dist = _dist()
     n = dist.get_world_size(group)
     if n == 1:
         return list(tensors)
     me = dist.get_rank(group)
     nxt, prv = ((dist.get_global_rank(group, r) if group is not None else r)
-                for r in ((me + 1) % n, (me - 1) % n))
+                for r in ((me + shift) % n, (me - shift) % n))
     start = time.perf_counter()
     buf, layout = _pack(tensors)
     route = _route(group, buf)
@@ -247,9 +259,10 @@ def ring_shift(tensors, group=None):
     return _unpack(recv, layout)
 
 
-def all_reduce_sum_(tensors, group=None):
+def all_reduce_sum_(tensors, group=None, op: str = 'sum'):
     """Sum ``tensors`` in place over the ranks of ``group`` (float32, one
-    packed buffer), so every rank holds the same values."""
+    packed buffer), so every rank holds the same values; ``op='max'``
+    takes the maximum instead."""
     import torch
     dist = _dist()
     if dist.get_world_size(group) == 1 or not tensors:
@@ -258,7 +271,8 @@ def all_reduce_sum_(tensors, group=None):
     flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
     route = _route(group, flat)
     work = _to_host(flat) if route == 'gloo-host' else flat
-    dist.all_reduce(work, group=group)
+    dist.all_reduce(work, group=group, op={'sum': dist.ReduceOp.SUM,
+                                           'max': dist.ReduceOp.MAX}[op])
     if route == 'gloo-host':
         flat.copy_(work, non_blocking=True)
     at = 0
@@ -301,3 +315,186 @@ def broadcast_(tensors, src: int = 0, group=None):
         t.copy_(got)
     _account(route, buf.numel(), time.perf_counter() - start)
     return tensors
+
+
+# ---------------------------------------------------------------------------
+# groups of several axes, and the collectives with a backward
+# ---------------------------------------------------------------------------
+
+def _axes(axis) -> Tuple[str, ...]:
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axes_group(mesh, axis):
+    """The process group of the ranks that differ from this one only on
+    ``axis`` (a name or a tuple of names), ordered by their coordinates on
+    those axes in the mesh's axis order, the first slowest (group rank
+    order is global rank order); None when that group is this rank alone
+    (no mesh, or every axis of size 1 or absent). A group of one axis is
+    the mesh's own; a group of several is made on first use, by every rank
+    in the same order (``new_group`` is collective), and kept on the
+    mesh."""
+    if mesh is None:
+        return None
+    names = axis_names(mesh)
+    wanted = _axes(axis)
+    axes = tuple(a for a in names if a in wanted and axis_size(mesh, a) > 1)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault('_petastorm_axes_groups', {})
+    if axes not in cache:
+        dist = _dist()
+        rest = [i for i, n in enumerate(names) if n not in axes]
+        order = rest + [names.index(a) for a in axes]
+        size = int(math.prod(axis_size(mesh, a) for a in axes))
+        rows = mesh.mesh.permute(*order).reshape(-1, size).tolist()
+        me = dist.get_rank()
+        for ranks in rows:
+            group = dist.new_group(ranks=ranks)
+            if me in ranks:
+                cache[axes] = group
+    return cache[axes]
+
+
+def group_size(group) -> int:
+    """The ranks of ``group`` (1 for None: this rank alone)."""
+    return 1 if group is None else _dist().get_world_size(group)
+
+
+_FUNCTIONS: Dict[str, object] = {}
+
+
+def _functions():
+    """The collectives' ``torch.autograd.Function`` classes, made on first
+    use (torch is imported then, not when this module is)."""
+    if _FUNCTIONS:
+        return _FUNCTIONS
+    import torch
+
+    def summed(x, group):
+        out = x.detach().clone()
+        all_reduce_sum_([out], group)
+        return out
+
+    class _Psum(torch.autograd.Function):      # Megatron's g
+        @staticmethod
+        def forward(ctx, x, group):
+            return summed(x, group)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    class _Pvary(torch.autograd.Function):     # Megatron's f
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return summed(g.contiguous(), ctx.group), None
+
+    def gathered(x, group, dim):
+        return torch.cat(all_gather(x.detach(), group), dim=dim)
+
+    def my_slice(g, group, dim):
+        n, me = group_size(group), _dist().get_rank(group)
+        step = g.shape[dim] // n
+        return g.narrow(dim, me * step, step).contiguous()
+
+    class _AllGatherTiled(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            ctx.group, ctx.dim = group, dim
+            return gathered(x, group, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return my_slice(summed(g, ctx.group), ctx.group, ctx.dim), \
+                None, None
+
+    class _AllGatherInvariant(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, dim):
+            ctx.group, ctx.dim = group, dim
+            return gathered(x, group, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return my_slice(g, ctx.group, ctx.dim), None, None
+
+    class _Ppermute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            ctx.group = group
+            return ring_shift([x.detach()], group)[0]
+
+        @staticmethod
+        def backward(ctx, g):
+            return ring_shift([g], ctx.group, shift=-1)[0], None
+
+    _FUNCTIONS.update(psum=_Psum, pvary=_Pvary, tiled=_AllGatherTiled,
+                      invariant=_AllGatherInvariant, ppermute=_Ppermute)
+    return _FUNCTIONS
+
+
+def psum(x, mesh, axis):
+    """The sum of ``x`` over the ranks of ``axis`` (JAX's ``psum``; Megatron's
+    g): every rank gets the sum, and the gradient of the sum, which every
+    rank holds whole, passes to each rank's ``x`` unchanged. Its float32
+    sum is cast back to ``x``'s dtype."""
+    group = axes_group(mesh, axis)
+    return x if group is None else _functions()['psum'].apply(x, group)
+
+
+def pvary(x, mesh, axis):
+    """``x`` unchanged, its gradient summed over the ranks of ``axis``
+    (Megatron's f): where each rank of the group uses a replicated ``x``
+    for its own block of a computation, the sum makes every rank's
+    gradient of ``x`` whole."""
+    group = axes_group(mesh, axis)
+    return x if group is None else _functions()['pvary'].apply(x, group)
+
+
+def all_gather_tiled(x, mesh, axis, dim: int = 0):
+    """The ranks' ``x`` of ``axis`` concatenated along ``dim`` in coordinate
+    order (JAX's ``all_gather(tiled=True)``). Its backward is a
+    reduce-scatter: the gradient is summed over the group and each rank
+    keeps its own slice, for a gathered value whose ranks each use it for
+    their own part of the result."""
+    group = axes_group(mesh, axis)
+    return (x if group is None
+            else _functions()['tiled'].apply(x, group, dim % x.dim()))
+
+
+def all_gather_invariant(x, mesh, axis, dim: int = 0):
+    """As :func:`all_gather_tiled`, for a gathered value whose gradient
+    every rank holds whole (JAX's ``all_gather_invariant``): the backward
+    keeps this rank's slice, unsummed."""
+    group = axes_group(mesh, axis)
+    return (x if group is None
+            else _functions()['invariant'].apply(x, group, dim % x.dim()))
+
+
+def pmax(x, mesh, axis):
+    """The elementwise maximum of ``x`` over the ranks of ``axis``
+    (JAX's ``pmax``), detached: no gradient passes through it."""
+    group = axes_group(mesh, axis)
+    out = x.detach().clone()
+    if group is not None:
+        all_reduce_sum_([out], group, op='max')
+    return out
+
+
+def ppermute(x, mesh, axis):
+    """``x`` sent to the next rank of ``axis`` (coordinate ``i`` to ``i +
+    1``, the last to the first) and the previous rank's received: JAX's
+    ``ppermute`` with the ring permutation. The backward sends the
+    gradient the other way."""
+    group = axes_group(mesh, axis)
+    return x if group is None else _functions()['ppermute'].apply(x, group)

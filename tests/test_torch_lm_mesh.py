@@ -9,9 +9,11 @@ each rank on its ``batch_spec`` block of the global batch, against JAX's
 ``make_train_step(config, mesh)`` on the same axes of virtual CPU
 devices, from the same parameters: the loss within 1e-5 and every leaf
 after the AdamW step within 1e-4. ``param_specs`` and ``batch_spec``
-equal JAX's trees; ``model``, ``expert`` and ``pipe`` axes and a mixture
-of experts over a split batch raise ``NotImplementedError``; the ring's
-argument errors are JAX's words. The ``examples/transformer_lm`` twin on
+equal JAX's trees; the meshes the port once refused (``{'data': 2,
+'model': 2}``, ``{'expert': 2}``, ``{'pipe': 2, 'seq': 2}`` with
+blockwise attention over the split sequence, and a mixture of experts over
+``{'data': 2}``) step like JAX's; the ring's argument errors are JAX's
+words. The ``examples/transformer_lm`` twin on
 ``{'seq': 2}`` against JAX's example on the same mesh.
 """
 
@@ -126,25 +128,42 @@ def _spec_leaves(tree):
     return out
 
 
-@pytest.mark.parametrize('axes', [{'data': 2, 'model': 2},
-                                  {'expert': 2}, {'pipe': 2, 'seq': 2}])
-def test_unported_axes_raise(axes):
-    cfg = ttlm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
-                                 n_layers=1, d_ff=64, dtype=torch.float32)
-    params = ttlm.init(cfg, torch.Generator().manual_seed(0), device='cpu')
-    with pytest.raises(NotImplementedError, match='slice 3b'):
-        ttlm.make_train_step(cfg, params, _fake_mesh(**axes))
+# the meshes the port refused before tensor, expert and pipeline
+# parallelism came: each now steps like JAX's (blockwise attention on the
+# seq split gathers the whole sequence, as XLA does)
+FORMERLY_REFUSED = [({'data': 2, 'model': 2}, 0), ({'expert': 2}, 0),
+                    ({'pipe': 2, 'seq': 2}, 0), ({'data': 2, 'seq': 1}, 4)]
 
 
-def test_moe_over_a_split_batch_raises():
-    cfg = ttlm.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
-                                 n_layers=1, d_ff=64, n_experts=4,
-                                 moe_top_k=2, dtype=torch.float32)
-    params = ttlm.init(cfg, torch.Generator().manual_seed(0), device='cpu')
-    with pytest.raises(NotImplementedError, match='mixture of experts'):
-        ttlm.make_train_step(cfg, params, _fake_mesh(data=2, seq=1))
-    # one rank routes the whole batch: nothing to refuse
-    ttlm.make_train_step(cfg, params, _fake_mesh(data=1, seq=1))
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize('case', range(len(FORMERLY_REFUSED)),
+                         ids=['data2_model2', 'expert2', 'pipe2_seq2',
+                              'moe_data2'])
+def test_formerly_refused_meshes_step_like_jax(case, tmp_path):
+    axes, experts = FORMERLY_REFUSED[case]
+    common = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=1, d_ff=64,
+                  max_seq_len=16 * axes.get('seq', 1), n_experts=experts,
+                  moe_top_k=2 if experts else 1)
+    jcfg = jtlm.TransformerConfig(dtype=jnp.float32, **common)
+    params = jtlm.init(jax.random.PRNGKey(case), jcfg)
+    rng = np.random.default_rng(case)
+    toks = rng.integers(0, 64, (4, common['max_seq_len'] + 1)).astype(
+        np.int32)
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+    n = int(np.prod(list(axes.values())))
+    optimizer, step = jtlm.make_train_step(
+        jcfg, jmake_mesh(axes, devices=jax.devices()[:n]))
+    new, _, loss = step(params, optimizer.init(params), jnp.asarray(tokens),
+                        jnp.asarray(targets))
+    ranks = launch_ranks('torch_mesh_ranks:lm_step', n, str(tmp_path),
+                         args=(axes, dict(dtype=torch.float32, **common),
+                               jax.device_get(params), tokens, targets),
+                         timeout_s=240)
+    for r in ranks:
+        assert abs(r['losses'][0] - float(loss)) <= 1e-5 * max(
+            1.0, abs(float(loss)))
+    for g, w in zip(ranks[0]['leaves'], _leaves(jax.device_get(new))):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4)
 
 
 def test_ring_argument_errors_are_jax():

@@ -344,7 +344,9 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.podelastic',
                  'petastorm_tpu_torch.parallel.mesh',
                  'petastorm_tpu_torch.parallel.ring',
-                 'petastorm_tpu_torch.parallel.launch']
+                 'petastorm_tpu_torch.parallel.launch',
+                 'petastorm_tpu_torch.parallel.pipeline',
+                 'petastorm_tpu_torch.parallel.dryrun']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

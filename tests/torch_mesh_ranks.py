@@ -191,3 +191,127 @@ def indexed_jobs(jobs):
     """:func:`indexed` once for each job (a dict of its arguments), in
     order, in one launch."""
     return [indexed(**job) for job in jobs]
+
+
+def lm_jobs(jobs):
+    """:func:`lm_step` once for each job (a dict of its arguments, ``axes``
+    naming a mesh of the whole world), in order, in one launch."""
+    return [lm_step(**job) for job in jobs]
+
+
+def collective_grads(inputs):
+    """Each collective with a backward over a ``{'model': world}`` mesh:
+    ``inputs`` holds the whole world's ``x`` ``(world, n, m)`` and the
+    cotangent weights ``g`` ``(world, ...)``; every rank uses its own row.
+    Returns this rank's forward values and input gradients by name."""
+    from petastorm_tpu_torch.parallel import mesh as pmesh
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh({'model': n}, 'cpu')
+    xs, gs = (torch.from_numpy(inputs[k]) for k in ('x', 'g'))
+    out = {}
+    for name in ('psum', 'pvary', 'all_gather_tiled', 'all_gather_invariant',
+                 'ppermute', 'pmax'):
+        x = xs[rank].clone().requires_grad_(True)
+        fn = getattr(pmesh, name)
+        y = (fn(x, mesh, 'model', dim=1) if name.startswith('all_gather')
+             else fn(x, mesh, 'model'))
+        # a replicated result's cotangent is one, equal on every rank
+        g = gs[0 if name in ('psum', 'all_gather_invariant')
+               else rank][..., :y.shape[-1]]
+        if name == 'pmax':
+            out[name] = (y.numpy(), y.requires_grad)
+            continue
+        (y * g).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def vocab_parallel(axes, cfg_kwargs, params_np, tokens, targets,
+                   segment_ids=None, weights=None):
+    """The LM's forward and loss on a CPU mesh of ``axes`` (no step), with
+    packed ``segment_ids`` and ``weights`` when given: this rank's logits
+    block shape, the gathered logits and the loss."""
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_, axes_group
+    from petastorm_tpu_torch.weights import params_from_jax, shard_params
+    mesh = make_mesh(axes, 'cpu')
+    cfg = tlm.TransformerConfig(**cfg_kwargs)
+    params = shard_params(params_from_jax(params_np, cfg, device='cpu'), cfg,
+                          mesh)
+    spec = tlm.batch_spec(mesh)
+    sl = NamedSharding(mesh, spec).shard_slices(tokens.shape)
+    tok, tgt = (torch.from_numpy(a[sl]).contiguous() for a in (tokens,
+                                                               targets))
+    kw = {k: torch.from_numpy(a[sl]).contiguous()
+          for k, a in (('segment_ids', segment_ids), ('weights', weights))
+          if a is not None}
+    with torch.no_grad():
+        logits = tlm.forward(params, tok, cfg, mesh=mesh,
+                             segment_ids=kw.get('segment_ids'))
+        loss = tlm.loss_fn(params, tok, tgt, cfg, mesh=mesh, **kw)
+    group = axes_group(mesh, ('data', 'seq'))
+    if group is not None:
+        all_reduce_sum_([loss], group)
+    whole = gather_global(logits, NamedSharding(mesh, spec + ('model',)))
+    return {'block': tuple(logits.shape), 'logits': whole.numpy(),
+            'loss': float(loss)}
+
+
+def moe_step(axes, cfg_kwargs, params_np, tokens, targets):
+    """One train step of the MoE LM on a CPU mesh of ``axes``: the loss,
+    the forward's global aux and each layer's routing (rank 0's record,
+    which every rank routes alike), and on rank 0 the gathered leaves."""
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    from petastorm_tpu_torch.weights import params_from_jax, shard_params
+    mesh = make_mesh(axes, 'cpu')
+    cfg = tlm.TransformerConfig(**cfg_kwargs)
+    params = shard_params(params_from_jax(params_np, cfg, device='cpu'), cfg,
+                          mesh)
+    sl = NamedSharding(mesh, tlm.batch_spec(mesh)).shard_slices(tokens.shape)
+    tok, tgt = (torch.from_numpy(a[sl]).contiguous() for a in (tokens,
+                                                               targets))
+    stats = {'routes': []}
+    with torch.no_grad():
+        tlm.forward(params, tok, cfg, mesh=mesh, moe_stats=stats)
+    routes = [{k: v.numpy() for k, v in r.items()} for r in stats['routes']]
+    out = lm_step(axes, cfg_kwargs, params_np, tokens, targets)
+    with torch.no_grad():
+        aux = tlm.forward(params, tok, cfg, mesh=mesh, return_aux=True)[1]
+    out.update(routes=routes, aux=float(aux))
+    return out
+
+
+def pipeline_cases(cases):
+    """``make_pipeline_fn`` over a ``{'pipe': S}`` mesh (``{'pipe': S,
+    'data': world / S}`` with ``batch_axis``) for each case ``(stacked,
+    x, batch_axis, grads)`` of numpy arrays: the outputs (this rank's
+    block) and, with ``grads``, this stage's gradients of ``sum(out **
+    2)`` summed over the data ranks."""
+    from petastorm_tpu_torch.parallel.mesh import all_reduce_sum_, axes_group
+    from petastorm_tpu_torch.parallel.pipeline import make_pipeline_fn
+    out = []
+    for stacked, x, batch_axis, grads in cases:
+        s = stacked['w'].shape[0]
+        axes = ({'pipe': s} if batch_axis is None
+                else {'pipe': s, batch_axis: dist.get_world_size() // s})
+        mesh = make_mesh(axes, 'cpu')
+        pipe = NamedSharding(mesh, ('pipe',))
+        mine = {k: torch.from_numpy(v[pipe.shard_slices(v.shape)])
+                .requires_grad_(True) for k, v in stacked.items()}
+        xs = torch.from_numpy(
+            x[NamedSharding(mesh, (None, batch_axis)).shard_slices(x.shape)]
+            .copy())
+
+        def stage(p, h):
+            return torch.tanh(h @ p['w'] + p['b'])
+
+        y = make_pipeline_fn(stage, mesh, batch_axis=batch_axis)(mine, xs)
+        got = {'out': y.detach().numpy()}
+        if grads:
+            (y ** 2).sum().backward()
+            g = [mine[k].grad for k in sorted(mine)]
+            if axes_group(mesh, batch_axis) is not None:
+                all_reduce_sum_(g, axes_group(mesh, batch_axis))
+            got['grads'] = {k: mine[k].grad.numpy() for k in sorted(mine)}
+        out.append(got)
+    return out
