@@ -443,6 +443,38 @@ printing one line or a few:
    the bubble share. (d) ``parallel.dryrun.dryrun_multichip(8)`` on the
    card prints JAX's three lines; each loss within 1e-4 of one process's
    unsharded step; the ring runs the float32 head-dim-16 K1-K3.
+26. adapter line (after phase 25; one process). (a) A 256-row token store
+   (``idx``, 2,049 int32 tokens under ``NdarrayCodec``, row groups of about
+   0.25 MB) -> ``make_reader(workers_count=4)`` -> ``pytorch.DataLoader(
+   batch_size=8, shuffling_queue_capacity=64, seed=--seed)`` -> 8 AdamW
+   steps of the flagship LM (flash, bf16): every batch's ``tokens`` a CUDA
+   int32 (8, 2049) tensor whose rows are the tokens written for their
+   ``idx``, all 256 ``idx`` once in the pass (32 batches), step 1's loss
+   within 1e-2 relative of the plain blockwise attention's on the same
+   batch and parameters, K1-K3 launched 8 x 4 times each; two same-seed
+   ``DataLoader``s on the dummy pool give one order; the median steady
+   step and batch wait. (b) 256 png images of 224 x 224 with ``idx`` ->
+   ``make_reader(workers_count=8)`` -> ``DataLoader(batch_size=64)`` -> 3
+   SGD steps of the image CNN: images CUDA uint8 (64, 224, 224, 3) equal
+   to ``cv2.imdecode`` of the cells pyarrow reads for their ``idx``; K4
+   launched 3 times. (c) The batch line's 60,000-row store ->
+   ``make_batch_reader`` -> ``BatchedDataLoader(batch_size=512,
+   shuffling_queue_capacity=4096, inmemory_cache_all=True)`` -> 2 epochs
+   of MLP SGD steps: epoch 1's ``idx`` multiset is the store's; epoch 2's
+   batches are epoch 1's bit for bit, with no reader pass. (d)
+   ``make_dataset_converter`` over a 10,000-row pandas frame (``idx``,
+   ``digit``, 16 float64 features from ``--seed``, ``precision=
+   'float32'``): ``make_torch_dataloader(batch_size=512)``'s CUDA float32
+   rows == the frame's, cast; a second call returns the cached handle and
+   writes no directory; ``make_torch_loader``'s rows the same;
+   ``delete()`` removes the directory. (e) On the host: ``copy_dataset``
+   of (a)'s store (``field_regex``, ``rows_per_file``) read back through
+   (a)'s ``DataLoader`` on the card == the source; ``metadata_util
+   --schema --row-groups`` prints pyarrow's row-group count;
+   ``generate_metadata`` on a plain pyarrow store, then
+   ``get_schema_from_dataset_url`` and ``make_reader``; a
+   ``DataframeColumnCodec`` subclass passed to ``register_codec``
+   round-trips a store to the card.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -4519,7 +4551,10 @@ def freeze(proc):
     in milliseconds while the consumer takes a step a batch, so a bare
     SIGKILL mostly finds the victim idle with its results already sent;
     frozen first, it holds the items ventilated to it meanwhile, which the
-    SIGKILL then loses."""
+    SIGKILL then loses. The work socket deals items round robin, so of
+    any ``RES_WORKERS`` sent after the freeze one is the victim's: the
+    kill waits for them (a kill one batch after the freeze can find the
+    victim holding none)."""
     import signal
     os.kill(proc.pid, signal.SIGSTOP)
     return proc
@@ -4551,8 +4586,9 @@ def resilient_lm_run(torch, url, step, device, args, label, epochs=RES_EPOCHS,
                      pool='thread', kill=False, **reader_kw):
     """``epochs`` of the LM store (NGram windows) on ``RES_WORKERS`` workers
     of ``pool`` -> ``TorchDataLoader`` -> ``prefetch_to_device`` -> AdamW
-    steps on K1-K3. ``kill``: one worker interpreter is frozen when the
-    first batch arrives and SIGKILLed at the second (:func:`freeze`).
+    steps on K1-K3. ``kill``: one worker interpreter is frozen as the
+    reader starts and SIGKILLed at the first batch after more than
+    ``RES_WORKERS`` items went out (:func:`freeze`).
     Returns the run's facts: each window as ``(step, host bytes of both
     timesteps)``, the losses, the step times, the stats snapshot, the
     audit, the pool's recovery records and the kill's time."""
@@ -4569,11 +4605,14 @@ def resilient_lm_run(torch, url, step, device, args, label, epochs=RES_EPOCHS,
         batches = prefetch_to_device(iter(loader), size=2, device=device,
                                      goodput=loader.goodput)
         with contextlib.closing(batches):
-            victim = None
+            if kill:
+                victim = freeze(reader._pool._processes[0])
+                frozen_at = reader._pool._ventilated
             for batch in batches:
-                if kill and victim is None:
-                    victim = freeze(reader._pool._processes[0])
-                elif kill and facts['killed_at'] is None:
+                # one item counted may still be on its way out
+                if (kill and facts['killed_at'] is None
+                        and reader._pool._ventilated - frozen_at
+                        > RES_WORKERS):
                     facts['killed_at'] = time.monotonic()
                     victim.kill()
                 t0 = time.perf_counter()
@@ -4587,6 +4626,9 @@ def resilient_lm_run(torch, url, step, device, args, label, epochs=RES_EPOCHS,
                 facts['windows'].extend(
                     (int(s), now[i].tobytes() + nxt[i].tobytes())
                     for i, s in enumerate(steps))
+        check(not kill or facts['killed_at'] is not None,
+              '%s: fewer than %d items went out after the freeze'
+              % (label, RES_WORKERS))
         facts['report'] = reader.audit().assert_complete()
         facts['snapshot'] = reader.stats.snapshot()
         facts['recoveries'] = list(getattr(reader._pool, 'recoveries', ()))
@@ -7653,6 +7695,535 @@ def tp_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the adapter line (pytorch.DataLoader / BatchedDataLoader, the
+# converter, the console tools, a user codec)
+# ---------------------------------------------------------------------------
+
+ADAPTER_ROWS = 256                # token rows x 2,049 int32 (NdarrayCodec)
+ADAPTER_GROUP_MB = 0.25           # ~30 rows a row group: 4 workers share it
+ADAPTER_WORKERS = 4
+ADAPTER_BATCH = 8
+ADAPTER_SHUFFLE = 64
+ADAPTER_STEPS = 8                 # LM AdamW steps (the first warms up)
+ADAPTER_IMAGE_GROUP_MB = 1        # ~7 png images of 224 x 224 a row group
+ADAPTER_IMAGE_STEPS = 3
+ADAPTER_MNIST_SHUFFLE = 4096
+ADAPTER_MNIST_EPOCHS = 2
+ADAPTER_TABLE_ROWS = 10000        # the converter's DataFrame
+ADAPTER_FEATURES = 16
+ADAPTER_COPY_ROWS_PER_FILE = 64
+ADAPTER_LOSS_RTOL = 1e-2          # flash vs blockwise, bf16, step 1
+
+
+def reversed_bytes_codec():
+    """A codec neither package ships: a cell is the array's C-order bytes,
+    reversed (what a user's :class:`DataframeColumnCodec` subclass looks
+    like)."""
+    import numpy as np
+    import pyarrow as pa
+
+    from petastorm_tpu_torch.codecs import DataframeColumnCodec
+
+    class ReversedBytesCodec(DataframeColumnCodec):
+        codec_name = 'chip_smoke_reversed_bytes'
+
+        def encode(self, unischema_field, value):
+            return np.ascontiguousarray(value).tobytes()[::-1]
+
+        def decode(self, unischema_field, value):
+            return np.frombuffer(bytes(value)[::-1],
+                                 dtype=unischema_field.numpy_dtype).reshape(
+                                     unischema_field.shape).copy()
+
+        def arrow_type(self, unischema_field):
+            return pa.binary()
+
+    return ReversedBytesCodec
+
+
+def adapter_token_pass(torch, np, url, tokens, device, seed, label,
+                       step=None, steps=0, gate=None):
+    """One epoch of ``make_reader(workers_count=4)`` ->
+    ``pytorch.DataLoader(batch 8, shuffling 64, seed)`` on ``device``:
+    every batch's ``tokens`` an int32 ``(8, seq + 1)`` tensor on the
+    device, each row the tokens written for its ``idx``, every ``idx``
+    once. ``step(inputs, targets)`` trains on the first ``steps`` batches;
+    ``gate(inputs, targets, loss)`` runs on the first. Returns the losses,
+    the step times and the batch waits (s)."""
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.pytorch import DataLoader
+    rows, width = tokens.shape
+    seen, losses, times, waits, held = [], [], [], [], []
+    with make_reader(url, num_epochs=1, workers_count=ADAPTER_WORKERS,
+                     seed=seed) as reader:
+        loader = DataLoader(reader, batch_size=ADAPTER_BATCH,
+                            shuffling_queue_capacity=ADAPTER_SHUFFLE,
+                            seed=seed, device=device)
+        it = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            tok = batch['tokens']
+            check(tok.device.type == device and tok.dtype == torch.int32
+                  and tuple(tok.shape) == (ADAPTER_BATCH, width),
+                  '%s: tokens %s %s on %s' % (label, tok.dtype,
+                                              tuple(tok.shape), tok.device))
+            if len(losses) < steps:
+                inputs, targets = tok[:, :-1], tok[:, 1:]
+                loss = float(step(inputs, targets))
+                times.append(time.perf_counter() - t1)
+                waits.append(t1 - t0)
+                if gate is not None and len(losses) == 0:
+                    gate(inputs, targets, loss)
+                losses.append(loss)
+            held.append((batch['idx'].cpu().numpy(), tok.cpu().numpy()))
+    for idx, tok in held:
+        seen.extend(idx.tolist())
+        check(np.array_equal(tok, tokens[idx]),
+              '%s: a batch is not the tokens written for its idx' % label)
+    check(sorted(seen) == list(range(rows)),
+          '%s: the pass delivered %d idx (%d unique) of %d'
+          % (label, len(seen), len(set(seen)), rows))
+    check(all(math.isfinite(x) for x in losses), '%s: non-finite loss'
+          % label)
+    log('%s: %d batches, all %d idx once, each == the tokens written; '
+        '%d steps%s' % (label, len(held), rows, len(losses),
+                        (', losses ' + ' '.join('%.4f' % x for x in losses))
+                        if losses else ''))
+    return losses, times, waits
+
+
+def adapter_lm(torch, np, tlm, kernels, args, d, device, cfg, rows):
+    """(a) The flagship LM trained on ``pytorch.DataLoader`` batches; the
+    same-seed order on the dummy pool; returns the launches, the store's
+    url and its tokens."""
+    import dataclasses
+
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.pytorch import DataLoader
+    url = 'file://' + os.path.join(d, 'tokens')
+    start = time.perf_counter()
+    tokens = write_token_rows(np, url, rows, cfg.max_seq_len + 1,
+                              cfg.vocab_size, args.seed,
+                              group_mb=ADAPTER_GROUP_MB)
+    log('adapter (a) store %d rows x %d int32 tokens (NdarrayCodec) in %d '
+        'row groups, written in %.2f s'
+        % (rows, cfg.max_seq_len + 1, row_groups(os.path.join(d, 'tokens')),
+           time.perf_counter() - start))
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device=device)
+    _, step = tlm.make_train_step(cfg, params)
+    plain = dataclasses.replace(cfg, attention='blockwise')
+
+    def gate(inputs, targets, flash_loss):
+        # both losses are of the parameters before step 1's update
+        ref = float(saved['plain'])
+        rel = abs(flash_loss - ref) / abs(ref)
+        check(rel < ADAPTER_LOSS_RTOL,
+              'adapter (a): step 1 loss with K1-K3 %.6f, blockwise %.6f '
+              '(rel %.3g)' % (flash_loss, ref, rel))
+        log('adapter (a) step 1 loss with K1-K3 %.6f, plain blockwise %.6f '
+            'on the same batch and parameters: rel %.3g (limit %g)'
+            % (flash_loss, ref, rel, ADAPTER_LOSS_RTOL))
+
+    saved = {}
+
+    def first_step(inputs, targets):
+        if not saved:
+            with torch.no_grad():
+                saved['plain'] = tlm.loss_fn(params, inputs, targets, plain)
+        return step(inputs, targets)
+
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times, waits = adapter_token_pass(
+        torch, np, url, tokens, device, args.seed, 'adapter (a) LM',
+        step=first_step, steps=ADAPTER_STEPS, gate=gate)
+    launches = {k: kernels.LAUNCHES[k] for k in FLASH}
+    want = ADAPTER_STEPS * cfg.n_layers if device == 'cuda' else 0
+    check(all(launches[k] == want for k in FLASH),
+          'adapter (a): launches %r, reckoned %d each (%d steps x %d '
+          'layers; the blockwise gate launches none)'
+          % (launches, want, ADAPTER_STEPS, cfg.n_layers))
+    steady = times[1:] or times
+    log('adapter (a) LM %d steps from pytorch.DataLoader, loss %.4f -> %.4f,'
+        ' median steady step %.2f ms, median batch wait %.2f ms, launches %s'
+        % (len(losses), losses[0], losses[-1],
+           statistics.median(steady) * 1e3,
+           statistics.median(waits[1:] or waits) * 1e3,
+           json.dumps(launches)))
+    orders = []
+    for _ in range(2):
+        with make_reader(url, reader_pool_type='dummy', num_epochs=1,
+                         seed=args.seed) as reader:
+            orders.append([int(i) for b in DataLoader(
+                reader, batch_size=ADAPTER_BATCH,
+                shuffling_queue_capacity=ADAPTER_SHUFFLE, seed=args.seed,
+                device=device) for i in b['idx'].tolist()])
+    check(orders[0] == orders[1] and sorted(orders[0]) == list(range(rows))
+          and orders[0] != sorted(orders[0]),
+          'adapter (a): two same-seed DataLoaders on the dummy pool differ')
+    log('adapter (a) two DataLoaders on the dummy pool, seed %d: the same '
+        'shuffled order of all %d idx' % (args.seed, rows))
+    return launches, url, tokens
+
+
+def write_square_images(np, url, rows, seed, size):
+    """The image line's png rows resized to ``size`` x ``size``, with an
+    ``idx`` field."""
+    import cv2
+
+    from petastorm_tpu_torch import materialize_dataset
+    from petastorm_tpu_torch.codecs import ScalarCodec
+    from petastorm_tpu_torch.examples.imagenet.generate_imagenet import \
+        synthetic_rows
+    from petastorm_tpu_torch.examples.imagenet.schema import \
+        make_imagenet_schema
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('ImagenetIdx', list(
+        make_imagenet_schema('png').fields.values()) + [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False)])
+    with materialize_dataset(url, schema,
+                             row_group_size_mb=ADAPTER_IMAGE_GROUP_MB) as w:
+        w.write_rows(dict(row, idx=np.int64(i), image=cv2.resize(
+            row['image'], (size, size), interpolation=cv2.INTER_AREA))
+            for i, row in enumerate(synthetic_rows(
+                rows, classes=IMAGE_CLASSES, seed=seed,
+                base_hw=(size, size))))
+
+
+def adapter_images(torch, np, kernels, args, d, device, rows, batch, size):
+    """(b) The image CNN (K4 first) on ``pytorch.DataLoader`` batches of a
+    png store read on 8 worker threads; each image == cv2's decode of the
+    cell pyarrow reads for its ``idx``. Returns the launches."""
+    import cv2
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_reader
+    from petastorm_tpu_torch.models import image_cnn as cnn
+    from petastorm_tpu_torch.pytorch import DataLoader
+    path = os.path.join(d, 'images')
+    start = time.perf_counter()
+    write_square_images(np, 'file://' + path, rows, args.seed, size)
+    log('adapter (b) store %d png images %d x %d in %d row groups, written '
+        'in %.2f s' % (rows, size, size, row_groups(path),
+                       time.perf_counter() - start))
+    params = cnn.init(torch.Generator().manual_seed(args.seed),
+                      num_classes=IMAGE_CLASSES, device=device)
+    step = cnn.make_train_step(params, lr=1e-3)
+    losses, held, times = [], [], []
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with make_reader('file://' + path, num_epochs=1,
+                     workers_count=IMAGE_WORKERS, seed=args.seed,
+                     schema_fields=['idx', 'image', 'label']) as reader:
+        with DataLoader(reader, batch_size=batch, device=device) as loader:
+            it = iter(loader)
+            for _ in range(ADAPTER_IMAGE_STEPS):
+                t0 = time.perf_counter()
+                b = next(it)
+                images = b['image']
+                check(images.device.type == device
+                      and images.dtype == torch.uint8
+                      and tuple(images.shape) == (batch, size, size, 3),
+                      'adapter (b): images %s %s on %s' % (
+                          images.dtype, tuple(images.shape), images.device))
+                losses.append(float(step(images, b['label'])))
+                times.append(time.perf_counter() - t0)
+                held.append((b['idx'].cpu().numpy(), images.cpu().numpy()))
+            it.close()
+    launches = dict(kernels.LAUNCHES)
+    want = ADAPTER_IMAGE_STEPS if device == 'cuda' else 0
+    check(launches['normalize'] == want,
+          'adapter (b): K4 launched %d times in %d steps'
+          % (launches['normalize'], ADAPTER_IMAGE_STEPS))
+    table = pq.read_table(path, columns=['idx', 'image'])
+    cells = dict(zip(table.column('idx').to_pylist(),
+                     table.column('image').to_pylist()))
+    for idx, images in held:
+        for i, img in zip(idx.tolist(), images):
+            ref = cv2.cvtColor(cv2.imdecode(np.frombuffer(cells[i], np.uint8),
+                                            cv2.IMREAD_UNCHANGED),
+                               cv2.COLOR_BGR2RGB)
+            check(np.array_equal(img, ref),
+                  'adapter (b): image %d != cv2 decode of its cell' % i)
+    check(all(math.isfinite(x) for x in losses), 'adapter (b): non-finite '
+          'loss')
+    log('adapter (b) CNN %d steps from pytorch.DataLoader (png, %d worker '
+        'threads, batch %d): images == cv2.imdecode of the pyarrow cells '
+        '(%d images), losses %s, step with batch wait %s ms, K4 launches %d'
+        % (len(losses), IMAGE_WORKERS, batch, sum(len(i) for i, _ in held),
+           ' '.join('%.4f' % x for x in losses),
+           ' '.join('%.1f' % (t * 1e3) for t in times),
+           launches['normalize']))
+    return launches
+
+
+def adapter_batched(torch, np, args, d, device, rows, batch):
+    """(c) ``BatchedDataLoader`` with ``inmemory_cache_all`` over the batch
+    line's store: epoch 1's idx multiset == the store's, epoch 2 bit-equal
+    to epoch 1 and no second reader pass; MLP SGD steps on both."""
+    from petastorm_tpu_torch import make_batch_reader
+    from petastorm_tpu_torch.models import mnist_mlp
+    from petastorm_tpu_torch.pytorch import BatchedDataLoader
+    url = 'file://' + os.path.join(d, 'mnist')
+    start = time.perf_counter()
+    write_mnist_list_store(np, url, rows, args.seed)
+    log('adapter (c) store %d rows (idx, digit, image 28 x 28 uint8 under '
+        'ArrowListCodec) written in %.2f s'
+        % (rows, time.perf_counter() - start))
+    params = mnist_mlp.init(torch.Generator().manual_seed(args.seed),
+                            device=device)
+    epochs, losses, walls = [], [], []
+    with make_batch_reader(url, num_epochs=1, seed=args.seed,
+                           workers_count=ADAPTER_WORKERS) as reader:
+        resets = []
+        real_reset = reader.reset
+        reader.reset = lambda: (resets.append(1), real_reset())
+        loader = BatchedDataLoader(
+            reader, batch_size=batch,
+            shuffling_queue_capacity=ADAPTER_MNIST_SHUFFLE, seed=args.seed,
+            inmemory_cache_all=True, device=device)
+        for _ in range(ADAPTER_MNIST_EPOCHS):
+            start = time.perf_counter()
+            held = []
+            for b in loader:
+                images = b['image']
+                check(images.device.type == device
+                      and images.dtype == torch.uint8
+                      and tuple(images.shape[1:]) == (28, 28),
+                      'adapter (c): images %s %s on %s' % (
+                          images.dtype, tuple(images.shape), images.device))
+                x = images.reshape(len(images), -1).float() / 255.0
+                losses.append(mnist_mlp.train_step(params, x, b['digit'],
+                                                   BATCH_LINE_LR))
+                held.append(b)
+            losses = [float(x) for x in losses]
+            walls.append(time.perf_counter() - start)
+            epochs.append(held)
+    first, second = epochs
+    idx = torch.cat([b['idx'] for b in first]).cpu().numpy()
+    check(np.array_equal(np.sort(idx), np.arange(rows)),
+          'adapter (c): epoch 1 delivered %d idx (%d unique) of %d'
+          % (len(idx), len(np.unique(idx)), rows))
+    check(not resets and len(second) == len(first) and all(
+        set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(first, second)),
+        'adapter (c): epoch 2 is not epoch 1 from memory (%d resets)'
+        % len(resets))
+    check(all(math.isfinite(x) for x in losses), 'adapter (c): non-finite '
+          'loss')
+    per = len(first)
+    log('adapter (c) BatchedDataLoader (batch %d, shuffling %d, '
+        'inmemory_cache_all): epoch 1 %d batches, idx multiset == the '
+        'store\'s %d rows, %.2f s; epoch 2 bit-equal from memory, no reader '
+        'pass, %.2f s; %d MLP steps, loss %.4f -> %.4f'
+        % (batch, ADAPTER_MNIST_SHUFFLE, per, rows, walls[0], walls[1],
+           len(losses), statistics.mean(losses[:4]),
+           statistics.mean(losses[-4:])))
+
+
+def adapter_converter(torch, np, args, d, device, rows, batch):
+    """(d) ``make_dataset_converter`` over a pandas DataFrame with
+    ``precision='float32'``: the torch dataloader's CUDA rows == the
+    frame's, the cached handle on a second call, ``make_torch_loader``'s
+    rows, ``delete()``."""
+    import pandas as pd
+
+    from petastorm_tpu_torch.converter import make_dataset_converter
+    rng = np.random.default_rng(args.seed)
+    names = ['f%02d' % k for k in range(ADAPTER_FEATURES)]
+    features = rng.standard_normal((rows, ADAPTER_FEATURES))
+    frame = pd.DataFrame(features, columns=names)
+    frame.insert(0, 'digit', rng.integers(0, 10, rows))
+    frame.insert(0, 'idx', np.arange(rows, dtype=np.int64))
+    want = features.astype(np.float32)
+    parent = os.path.join(d, 'converter')
+    start = time.perf_counter()
+    saved = make_dataset_converter(frame, parent_cache_dir_url=parent,
+                                   precision='float32', delete_at_exit=False)
+    made = time.perf_counter() - start
+    dirs = sorted(os.listdir(parent))
+    check(len(dirs) == 1 and len(saved) == rows,
+          'adapter (d): %d directories under the parent, %d rows'
+          % (len(dirs), len(saved)))
+
+    def rows_of(loader, on):
+        seen = []
+        with loader:
+            for b in loader:
+                x = torch.stack([b[n] for n in names], 1)
+                check(x.device.type == on and x.dtype == torch.float32,
+                      'adapter (d): features %s on %s' % (x.dtype, x.device))
+                i = b['idx'].cpu().numpy()
+                check(np.array_equal(x.cpu().numpy(), want[i])
+                      and np.array_equal(b['digit'].cpu().numpy(),
+                                         frame['digit'].to_numpy()[i]),
+                      'adapter (d): a batch is not the frame\'s rows')
+                seen.extend(i.tolist())
+        check(sorted(seen) == list(range(rows)),
+              'adapter (d): %d idx of %d' % (len(seen), rows))
+        return seen
+
+    rows_of(saved.make_torch_dataloader(batch_size=batch, num_epochs=1,
+                                        device=device), device)
+    start = time.perf_counter()
+    again = make_dataset_converter(frame, parent_cache_dir_url=parent,
+                                   precision='float32', delete_at_exit=False)
+    hit = time.perf_counter() - start
+    check(again is saved and sorted(os.listdir(parent)) == dirs,
+          'adapter (d): a second call wrote %s' % sorted(os.listdir(parent)))
+    rows_of(saved.make_torch_loader(batch_size=batch, num_epochs=1,
+                                    device=device), 'cpu')
+    saved.delete()
+    check(os.listdir(parent) == [], 'adapter (d): delete() left %s'
+          % os.listdir(parent))
+    log('adapter (d) converter: %d rows x %d float64 -> float32 '
+        'materialised in %.3f s, the cached handle in %.3f s (no new '
+        'directory); make_torch_dataloader (%s) and make_torch_loader rows '
+        '== the frame\'s; delete() removed it'
+        % (rows, ADAPTER_FEATURES, made, hit, device))
+
+
+def adapter_tools(torch, np, args, d, device, url, tokens):
+    """(e) On the host: ``copy_dataset`` of (a)'s store read back through
+    (a)'s DataLoader on the device, ``metadata_util``'s row-group count,
+    ``generate_metadata`` on a plain Parquet store, and a user codec's
+    store on the device."""
+    import io
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from petastorm_tpu_torch import make_reader, materialize_dataset
+    from petastorm_tpu_torch.codecs import ScalarCodec, register_codec
+    from petastorm_tpu_torch.etl.dataset_metadata import \
+        get_schema_from_dataset_url
+    from petastorm_tpu_torch.etl.generate_metadata import generate_metadata
+    from petastorm_tpu_torch.etl.metadata_util import main as metadata_main
+    from petastorm_tpu_torch.pytorch import DataLoader
+    from petastorm_tpu_torch.tools.copy_dataset import copy_dataset
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    copy_path = os.path.join(d, 'copy')
+    start = time.perf_counter()
+    copied = copy_dataset(url, 'file://' + copy_path,
+                          field_regex=['idx', 'tokens'],
+                          rows_per_file=ADAPTER_COPY_ROWS_PER_FILE)
+    files = [n for n in os.listdir(copy_path) if n.endswith('.parquet')]
+    check(copied == len(tokens) and len(files) == -(
+        -copied // ADAPTER_COPY_ROWS_PER_FILE),
+        'adapter (e): copied %d rows into %d files' % (copied, len(files)))
+    log('adapter (e) copy_dataset: %d rows into %d files in %.2f s'
+        % (copied, len(files), time.perf_counter() - start))
+    adapter_token_pass(torch, np, 'file://' + copy_path, tokens, device,
+                       args.seed, 'adapter (e) copy read back')
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = metadata_main(['file://' + copy_path, '--schema',
+                            '--row-groups'])
+    groups = row_groups(copy_path)
+    check(rc == 0 and '%d row groups:' % groups in out.getvalue()
+          and 'Schema (stored)' in out.getvalue(),
+          'adapter (e): metadata_util exit %d, printed %r' % (
+              rc, out.getvalue()[:200]))
+    log('adapter (e) metadata_util --schema --row-groups: exit 0, %d row '
+        'groups == pyarrow\'s' % groups)
+
+    plain = os.path.join(d, 'plain')
+    os.makedirs(plain)
+    n = 100
+    table = pa.table({'id': np.arange(n, dtype=np.int64),
+                      'x': np.arange(n, dtype=np.float32) / 4,
+                      'name': ['row %d' % i for i in range(n)]})
+    pq.write_table(table, os.path.join(plain, 'part_0.parquet'),
+                   row_group_size=32)
+    generate_metadata('file://' + plain)
+    schema = get_schema_from_dataset_url('file://' + plain)
+    check(sorted(schema.fields) == ['id', 'name', 'x'],
+          'adapter (e): generated schema %r' % schema)
+    with make_reader('file://' + plain, reader_pool_type='dummy',
+                     num_epochs=1) as reader:
+        got = sorted((int(r.id), float(r.x), r.name) for r in reader)
+    check(got == sorted(zip(table.column('id').to_pylist(),
+                            table.column('x').to_pylist(),
+                            table.column('name').to_pylist())),
+          'adapter (e): rows after generate_metadata differ')
+    log('adapter (e) generate_metadata on a plain pyarrow store: schema %s '
+        'from get_schema_from_dataset_url, make_reader reads its %d rows'
+        % (sorted(schema.fields), n))
+
+    codec_cls = register_codec(reversed_bytes_codec())
+    user = Unischema('UserCodec', [
+        UnischemaField('idx', np.int64, (), ScalarCodec(), False),
+        UnischemaField('v', np.float32, (4, 3), codec_cls(), False)])
+    rng = np.random.default_rng(args.seed)
+    values = rng.standard_normal((48, 4, 3)).astype(np.float32)
+    user_url = 'file://' + os.path.join(d, 'user_codec')
+    with materialize_dataset(user_url, user, rows_per_file=16) as w:
+        w.write_rows({'idx': np.int64(i), 'v': values[i]} for i in range(48))
+    check(type(get_schema_from_dataset_url(user_url).v.codec) is codec_cls,
+          'adapter (e): the stored schema does not name the user codec')
+    seen = 0
+    with make_reader(user_url, num_epochs=1, workers_count=2,
+                     seed=args.seed) as reader:
+        for b in DataLoader(reader, batch_size=16, device=device):
+            check(b['v'].device.type == device
+                  and b['v'].dtype == torch.float32,
+                  'adapter (e): user codec column %s on %s'
+                  % (b['v'].dtype, b['v'].device))
+            check(np.array_equal(b['v'].cpu().numpy(),
+                                 values[b['idx'].cpu().numpy()]),
+                  'adapter (e): user codec values differ')
+            seen += len(b['idx'])
+    check(seen == 48, 'adapter (e): user codec store gave %d rows' % seen)
+    log('adapter (e) user codec %r registered with register_codec: a store '
+        'of %d rows round-trips to %s exactly'
+        % (codec_cls.codec_name, seen, device))
+
+
+def adapter_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
+                 rows=ADAPTER_ROWS, image_rows=IMAGE_ROWS,
+                 image_batch=IMAGE_BATCH, image_size=IMAGE_SIZE,
+                 mnist_rows=BATCH_LINE_ROWS, mnist_batch=BATCH_LINE_BATCH,
+                 table_rows=ADAPTER_TABLE_ROWS):
+    """Phase 26: the PyTorch adapters and the tools. Returns the launches
+    of (a) (K1-K3) and (b) (K4)."""
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        phase = time.perf_counter()
+        launches, url, tokens = adapter_lm(torch, np, tlm, kernels, args, d,
+                                           device, cfg, rows)
+        log('phase 26 (a) LM through pytorch.DataLoader %.1f s'
+            % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        launches['normalize'] = adapter_images(
+            torch, np, kernels, args, d, device, image_rows, image_batch,
+            image_size)['normalize']
+        log('phase 26 (b) CNN through pytorch.DataLoader %.1f s'
+            % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        adapter_batched(torch, np, args, d, device, mnist_rows, mnist_batch)
+        log('phase 26 (c) BatchedDataLoader %.1f s'
+            % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        adapter_converter(torch, np, args, d, device, table_rows,
+                          mnist_batch)
+        log('phase 26 (d) converter %.1f s' % (time.perf_counter() - phase))
+        phase = time.perf_counter()
+        adapter_tools(torch, np, args, d, device, url, tokens)
+        log('phase 26 (e) tools and a user codec %.1f s'
+            % (time.perf_counter() - phase))
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -7895,6 +8466,11 @@ def main(argv=None):
         launches[name] += parallel3b[name]
     log('phase tensor, expert and pipeline parallel line %.1f s'
         % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    adapted = adapter_line(torch, np, tlm, kernels, args)
+    for name in FLASH + ('normalize',):
+        launches[name] += adapted[name]
+    log('phase adapter line %.1f s' % (time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     small_head_times(torch, kernels, gen)

@@ -30,7 +30,7 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :class:`ElasticPodSim`, :class:`PodMembership`, :class:`LeasePlan`,
 :func:`make_mesh`, :func:`host_shard`, :func:`batch_sharding`,
 :func:`replicated_sharding`, :func:`ring_attention`, :func:`launch_ranks`,
-:class:`ShardedTorchLoader`.
+:class:`ShardedTorchLoader`, :func:`make_dataset_converter`.
 
 The stats, latency and tracing planes: ``reader.stats``,
 ``reader.diagnostics``, ``reader.latency``, ``reader.tracer`` and
@@ -73,6 +73,16 @@ loader (``make_torch_loader(mesh=)``, :class:`ShardedTorchLoader`, with
 its lockstep stop and ``Reader.drain``), the sharded indexed loaders
 (``mesh=`` on both factories) and the LM's train step on a ``{'data',
 'seq'}`` mesh.
+
+Adapters and tools: the PyTorch ``DataLoader`` and ``BatchedDataLoader``
+(:mod:`petastorm_tpu_torch.pytorch`), the dataset converter
+(:func:`make_dataset_converter`, :mod:`petastorm_tpu_torch.converter`),
+the TensorFlow dataset (:mod:`petastorm_tpu_torch.tf_utils`), the console
+tools ``petastorm-tpu-torch-copy-dataset``,
+``petastorm-tpu-torch-generate-metadata`` and
+``petastorm-tpu-torch-metadata``, and the codec extension surface
+(:class:`~petastorm_tpu_torch.codecs.DataframeColumnCodec`,
+:func:`~petastorm_tpu_torch.codecs.register_codec`).
 """
 
 __version__ = '0.1.0'
@@ -88,7 +98,7 @@ __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'PodObserver', 'ElasticPodSim', 'PodMembership', 'LeasePlan',
            'make_mesh', 'host_shard', 'batch_sharding',
            'replicated_sharding', 'ring_attention', 'launch_ranks',
-           'ShardedTorchLoader', '__version__']
+           'ShardedTorchLoader', 'make_dataset_converter', '__version__']
 
 
 def __getattr__(name):
@@ -152,6 +162,9 @@ def __getattr__(name):
     if name in ('ElasticPodSim', 'PodMembership', 'LeasePlan'):
         from petastorm_tpu_torch import podelastic
         return getattr(podelastic, name)
+    if name == 'make_dataset_converter':
+        from petastorm_tpu_torch.converter import make_dataset_converter
+        return make_dataset_converter
     if name == 'flash_attention':
         from petastorm_tpu_torch.ops.attention import flash_attention
         return flash_attention

@@ -12,8 +12,15 @@ device-decode verdicts ``device_decode_unsupported_reason`` :110, :320,
 list-column conversion of ``readers/columnar_worker.py``
 (``_list_column_to_numpy`` :218-241). Codecs are serialized to JSON by
 registered name, never pickled, under the same names as the JAX package,
-so stores written by either package read in the other. A schema naming any other codec raises
-``ValueError``.
+so stores written by either package read in the other.
+
+The extension surface is JAX's (``DataframeColumnCodec`` :61,
+``register_codec`` :144, ``codec_from_json_dict`` :151): a user codec
+subclasses :class:`DataframeColumnCodec`, sets a unique ``codec_name``
+and joins the registry through :func:`register_codec`; the readers decode
+its cells one by one through ``make_cell_decoder`` unless it gives a
+whole-column ``make_column_decoder``. A schema naming an unregistered
+codec raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import operator
 import os
 import re
 import sys
-from typing import Any, Callable, Dict
+from abc import ABC, abstractmethod
+from typing import Any, Callable, Dict, Type
 
 import numpy as np
 import pyarrow as pa
@@ -78,7 +86,9 @@ def decode_cells(field, chunk: pa.Array,
              if valid is None or valid[i] else None for i in range(n)]
     if _is_fixed(field) and valid is None:
         first = decode_cell(cells[0])
-        out = np.empty((n,) + first.shape, dtype=first.dtype)
+        # a codec whose cells are not arrays (bytes, say): an object column
+        out = (np.empty((n,) + first.shape, dtype=first.dtype)
+               if isinstance(first, np.ndarray) else np.empty(n, object))
         out[0] = first
         for i in range(1, n):
             out[i] = decode_cell(cells[i])
@@ -157,17 +167,78 @@ def _fast_npy_decode(value):
                          offset=header_end).reshape(shape).copy()
 
 
-class _Codec:
-    """JSON identity shared by the codecs: registered name plus options."""
+class DataframeColumnCodec(ABC):
+    """A field's codec: ``encode`` turns its numpy value into a cell arrow
+    stores in a column of ``arrow_type``, ``decode`` turns the cell back.
+
+    Subclasses set a unique ``codec_name``: it is written into the store's
+    metadata and names the class in :func:`codec_from_json_dict` (add the
+    class with :func:`register_codec`)."""
 
     codec_name: str = None
+
+    @abstractmethod
+    def encode(self, unischema_field, value):
+        """``value`` (numpy) as an arrow-storable Python value."""
+
+    @abstractmethod
+    def decode(self, unischema_field, value):
+        """A stored cell back as the field's numpy value."""
+
+    @abstractmethod
+    def arrow_type(self, unischema_field) -> pa.DataType:
+        """The arrow type of the field's column."""
+
+    def make_cell_decoder(self, unischema_field):
+        """``decode(cell)`` of one cell of the field's column. Cells come as
+        zero-copy uint8 views of the arrow buffer; this default hands
+        :meth:`decode` their bytes."""
+        def decode_cell(cell):
+            return self.decode(
+                unischema_field,
+                cell.tobytes() if isinstance(cell, np.ndarray) else cell)
+        return decode_cell
+
+    def make_column_decoder(self, unischema_field):
+        """``decode_chunk(chunk)`` decoding a whole null-free binary chunk of
+        a fixed-shape field into ``(len(chunk), *shape)``, bit-equal to the
+        cell by cell decode (None from it punts the chunk to that path), or
+        None when the codec has no whole-column path (the default)."""
+        return None
+
+    def decode_column(self, unischema_field, chunk: pa.Array) -> np.ndarray:
+        """One binary chunk, cell by cell (:func:`decode_cells`)."""
+        return decode_cells(unischema_field, chunk,
+                            self.make_cell_decoder(unischema_field))
+
+    def device_decode_unsupported_reason(self, unischema_field):
+        """None when this codec's stored cells of ``field`` can decode on
+        the device (:mod:`petastorm_tpu_torch.ops.decode`), else why not.
+        Device decode is opt-in per codec: a decline leaves the column to
+        the host decode and never raises."""
+        return 'codec {} has no device-decode path'.format(
+            type(self).__name__)
 
     def to_json_dict(self) -> Dict[str, Any]:
         return {'codec': self.codec_name}
 
     @classmethod
-    def from_json_dict(cls, d):
+    def from_json_dict(cls, d: Dict[str, Any]) -> 'DataframeColumnCodec':
         return cls()
+
+    def __eq__(self, other):
+        return (isinstance(other, type(self))
+                and self.to_json_dict() == other.to_json_dict())
+
+    def __hash__(self):
+        return hash(repr(sorted(self.to_json_dict().items())))
+
+    def __repr__(self):
+        return '{}()'.format(type(self).__name__)
+
+
+class _Codec(DataframeColumnCodec):
+    """The built-in codecs' base: equal only to a codec of the same class."""
 
     def __eq__(self, other):
         return (type(self) is type(other)
@@ -175,14 +246,6 @@ class _Codec:
 
     def __hash__(self):
         return hash(repr(sorted(self.to_json_dict().items())))
-
-    def device_decode_unsupported_reason(self, field):
-        """None when this codec's stored cells of ``field`` can decode on
-        the device (:mod:`petastorm_tpu_torch.ops.decode`), else why not.
-        Device decode is opt-in per codec: a decline leaves the column to
-        the host decode and never raises."""
-        return 'codec {} has no device-decode path'.format(
-            type(self).__name__)
 
 
 class NdarrayCodec(_Codec):
@@ -652,10 +715,18 @@ class CompressedImageCodec(_Codec):
             self.image_codec, self._quality)
 
 
-_CODEC_REGISTRY = {c.codec_name: c for c in (NdarrayCodec, ScalarCodec,
-                                             ArrowListCodec,
-                                             CompressedNdarrayCodec,
-                                             CompressedImageCodec)}
+_CODEC_REGISTRY: Dict[str, Type[DataframeColumnCodec]] = {
+    c.codec_name: c for c in (NdarrayCodec, ScalarCodec, ArrowListCodec,
+                              CompressedNdarrayCodec, CompressedImageCodec)}
+
+
+def register_codec(cls: Type[DataframeColumnCodec]
+                   ) -> Type[DataframeColumnCodec]:
+    """Class decorator adding a codec to the registry of
+    :func:`codec_from_json_dict` under its ``codec_name``."""
+    assert cls.codec_name, 'codec_name must be set'
+    _CODEC_REGISTRY[cls.codec_name] = cls
+    return cls
 
 
 def build_decode_overrides(schema, decode_hints) -> Dict[str, Callable]:
@@ -686,7 +757,7 @@ def build_decode_overrides(schema, decode_hints) -> Dict[str, Callable]:
     return overrides
 
 
-def codec_from_json_dict(d: Dict[str, Any]):
+def codec_from_json_dict(d: Dict[str, Any]) -> DataframeColumnCodec:
     name = d['codec']
     if name not in _CODEC_REGISTRY:
         raise ValueError('Unknown codec name {!r}; known: {}'.format(

@@ -5,7 +5,8 @@ Counterpart of ``petastorm_tpu/etl/dataset_metadata.py``:
 ``materialize_dataset`` (:82-258), ``read_common_metadata`` /
 ``add_to_common_metadata`` (:176-204), ``load_row_groups`` with explicit
 file lists and its footer cache (:260-328), ``get_schema`` (:331-352),
-``read_dataset_arrow_schema`` and ``infer_or_load_unischema`` (:363-393).
+``get_schema_from_dataset_url`` (:355), ``read_dataset_arrow_schema`` and
+``infer_or_load_unischema`` (:363-393).
 The metadata format is the JAX package's: the Unischema as JSON under
 ``petastorm_tpu.unischema.v1``, per-file row-group counts under
 ``petastorm_tpu.num_row_groups_per_file.v1`` and row-group indexes under
@@ -180,10 +181,13 @@ class DatasetWriter:
 
 def _write_common_metadata(dataset_path: str, schema: Unischema,
                            row_groups_per_file: Dict[str, List[int]],
-                           filesystem=None) -> None:
-    metadata = {UNISCHEMA_KEY: schema.to_json().encode('utf-8'),
-                ROW_GROUPS_PER_FILE_KEY:
-                    json.dumps(row_groups_per_file).encode('utf-8')}
+                           filesystem=None,
+                           extra_metadata: Optional[Dict[bytes, bytes]] = None
+                           ) -> None:
+    metadata = dict(extra_metadata or {})
+    metadata.update({UNISCHEMA_KEY: schema.to_json().encode('utf-8'),
+                     ROW_GROUPS_PER_FILE_KEY:
+                         json.dumps(row_groups_per_file).encode('utf-8')})
     _write_metadata(schema.as_arrow_schema().with_metadata(metadata),
                     posixpath.join(dataset_path, _COMMON_METADATA),
                     filesystem)
@@ -333,6 +337,16 @@ def get_schema(dataset_path, filesystem=None) -> Unischema:
             '_common_metadata at {} does not carry a unischema (key {})'
             .format(dataset_path, UNISCHEMA_KEY))
     return Unischema.from_json(metadata[UNISCHEMA_KEY].decode('utf-8'))
+
+
+def get_schema_from_dataset_url(dataset_url: str,
+                                storage_options: Optional[Dict] = None
+                                ) -> Unischema:
+    """:func:`get_schema` of the store at ``dataset_url`` (any URL the
+    readers take; ``storage_options`` go to its filesystem)."""
+    fs, path, _ = get_filesystem_and_path_or_paths(
+        normalize_dir_url(dataset_url), storage_options)
+    return get_schema(path, fs)
 
 
 def read_dataset_arrow_schema(dataset_path, filesystem=None) -> pa.Schema:

@@ -12,10 +12,10 @@ for the open only, :meth:`LocalFilesystem.absolute`).
 
 The local filesystem needs no filesystem package: :data:`LOCAL_FILESYSTEM`
 is the host's ``os`` and ``open`` behind the handful of fsspec methods the
-readers call (``open``, ``size``, ``exists``, ``find``, ``makedirs``,
-``rm``), with ``protocol = 'file'`` so that a worker's
-automatic read mode is ``serial``, as JAX's is for fsspec's local
-filesystem. Every other scheme (``s3``, ``gcs``, ``hdfs``, ``memory``)
+readers and the converter call (``open``, ``size``, ``exists``,
+``find``, ``makedirs``, ``rm``, ``info``), with ``protocol = 'file'`` so
+that a worker's automatic read mode is ``serial``, as JAX's is for
+fsspec's local filesystem. Every other scheme (``s3``, ``gcs``, ``hdfs``, ``memory``)
 resolves through fsspec, imported only then; without fsspec such a URL
 raises an ``ImportError`` naming the scheme.
 """
@@ -71,8 +71,16 @@ class LocalFilesystem:
     def makedirs(self, path, exist_ok=False) -> None:
         os.makedirs(path, exist_ok=exist_ok)
 
-    def rm(self, path) -> None:
-        os.remove(path)
+    def rm(self, path, recursive=False) -> None:
+        if recursive and os.path.isdir(path):
+            import shutil
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+
+    def info(self, path) -> Dict:
+        return {'name': path, 'size': os.path.getsize(path),
+                'type': 'directory' if os.path.isdir(path) else 'file'}
 
     @staticmethod
     def absolute(path: str, cwd: Optional[str] = None) -> str:

@@ -24,7 +24,8 @@ reader yields one of five kinds of item:
 
 - ``make_reader(url, schema_fields=NGram(...))``: NGram window chunks,
   through :meth:`Reader.iter_ngram_chunks` (``ngram_chunked``: no row
-  predicate, residual filter or transform, as :941-944);
+  predicate, residual filter or transform, as :941-944), or their windows
+  one per ``next(reader)``, each chunk's last first, as JAX's;
 - the same with a row predicate, residual filters or a transform: one
   ``{offset: namedtuple}`` window per ``next(reader)``;
 - ``make_reader(url, schema_fields=[...] or None)``: one schema namedtuple
@@ -1229,10 +1230,6 @@ class Reader:
         return self
 
     def __next__(self):
-        if self.ngram_chunked:
-            raise TypeError('an NGram reader yields window chunks: iterate '
-                            'iter_ngram_chunks() or batch it with '
-                            'TorchDataLoader')
         if self._batches is not None:
             batch = self._batches.to_batch(self._next_item())
             if self._e2e_live:
@@ -1252,7 +1249,9 @@ class Reader:
         # the last row (window) of an item first, as the JAX results reader
         # pops them
         if not self._rows:
-            self._rows = self._next_item()
+            item = self._next_item()
+            self._rows = (self._chunk_windows(item) if self.ngram_chunked
+                          else item)
             self._rows_seq = self.last_seq
             if self._e2e_live:
                 self._note_e2e()
@@ -1263,6 +1262,17 @@ class Reader:
         if self.ngram is not None:
             return self.ngram.make_namedtuples(item, self.schema)
         return self.schema.make_namedtuple(**item)
+
+    def _chunk_windows(self, chunk):
+        """The windows of an NGram window chunk as ``{offset: {field:
+        value}}`` dicts, in the chunk's order (JAX's results reader,
+        ``readers/row_worker.py:59-80``)."""
+        offsets, base, fields_at = self.ngram.timestep_layout(
+            self.schema.fields)
+        cols = chunk.columns
+        return [{off: {name: cols[name][start + off - base]
+                       for name in fields_at[off] if name in cols}
+                 for off in offsets} for start in chunk.starts]
 
     def _host_decode_raw(self, columns):
         """Decode a bytes-through item's raw planned columns on the host and

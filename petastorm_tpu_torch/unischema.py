@@ -6,7 +6,7 @@ A copy of what the token, image and row paths need from
 ``_NamedtupleCache`` :102-122, ``Unischema`` :125-204,
 ``Unischema.from_arrow_schema`` and ``_numpy_and_codec_from_arrow_type``
 :208-266, ``match_unischema_fields`` :269, ``insert_explicit_nulls`` :279,
-``encode_row`` :291). The JSON form is the JAX package's, so a schema written
+``encode_row`` :291, ``decode_row`` :318). The JSON form is the JAX package's, so a schema written
 by either package loads in the other.
 """
 
@@ -260,3 +260,29 @@ def encode_row(schema: Unischema, row_dict: Dict[str, Any]
             codec = field.codec or _DEFAULT_SCALAR_CODEC
             encoded[name] = codec.encode(field, value)
     return encoded
+
+
+def decode_row(row: Dict[str, Any], schema: Unischema,
+               decode_overrides: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Any]:
+    """Decode one stored row dict with the schema's codecs; fields the
+    schema lacks are left out. ``decode_overrides`` maps a field name to a
+    ``decode(cell)`` used instead of its codec's (a scaled image decode,
+    say); a codec-less numeric field is cast to its dtype."""
+    decoded = {}
+    for name, value in row.items():
+        field = schema.fields.get(name)
+        if field is None:
+            continue
+        if value is None:
+            decoded[name] = None
+        elif decode_overrides and name in decode_overrides:
+            decoded[name] = decode_overrides[name](value)
+        elif field.codec is not None:
+            decoded[name] = field.codec.decode(field, value)
+        elif (isinstance(field.numpy_dtype, np.dtype)
+              and field.numpy_dtype.kind in 'biufc'):
+            decoded[name] = field.numpy_dtype.type(value)
+        else:
+            decoded[name] = value
+    return decoded

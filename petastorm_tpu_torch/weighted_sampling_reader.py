@@ -8,12 +8,11 @@ cumulative-probability draw of each ``next()`` from a seedable generator
 (:mod:`petastorm_tpu_torch.indexed_mixture`) draws through the same two
 functions.
 
-The port's NGram reader yields window chunks where it can
-(``ngram_chunked``); the mixture takes such a reader's windows out of its
-chunks one by one, last first, as the JAX reader pops them, so it mixes
-windows as JAX's does. The mixture itself is a window stream
-(``ngram_chunked`` False), which :class:`~petastorm_tpu_torch.torch_utils.
-TorchDataLoader` batches window by window.
+An NGram reader's ``next()`` gives its windows one by one, as JAX's
+does, so the mixture mixes windows as JAX's does. The mixture itself is a
+window stream (``ngram_chunked`` False), which
+:class:`~petastorm_tpu_torch.torch_utils.TorchDataLoader` batches window
+by window.
 """
 
 from __future__ import annotations
@@ -41,19 +40,6 @@ def draw_index(cumulative: np.ndarray, unit_sample: float) -> int:
     """Map one uniform [0, 1) draw onto the cumulative edges."""
     idx = int(np.searchsorted(cumulative, unit_sample, side='right'))
     return min(idx, len(cumulative) - 1)
-
-
-def _chunk_windows(reader):
-    """The windows of a chunked NGram reader as ``{offset: namedtuple}``,
-    each chunk's last first."""
-    ngram, schema = reader.ngram, reader.schema
-    offsets, base, fields_at = ngram.timestep_layout(schema.fields)
-    for chunk in reader.iter_ngram_chunks():
-        for start in chunk.starts[::-1]:
-            yield ngram.make_namedtuples(
-                {off: {name: chunk.columns[name][start + off - base]
-                       for name in fields_at[off]} for off in offsets},
-                schema)
 
 
 class WeightedSamplingReader:
@@ -93,9 +79,6 @@ class WeightedSamplingReader:
         #: the mixture yields windows one by one, never chunks
         self.ngram_chunked = False
         self.last_row_consumed = False
-        self._streams = [_chunk_windows(r)
-                         if getattr(r, 'ngram_chunked', False) else r
-                         for r in readers]
 
     def __iter__(self):
         return self
@@ -103,7 +86,7 @@ class WeightedSamplingReader:
     def __next__(self):
         choice = draw_index(self._cumulative, self._rng.random())
         try:
-            return next(self._streams[choice])
+            return next(self._readers[choice])
         except StopIteration:
             self.last_row_consumed = True
             raise

@@ -102,9 +102,14 @@ replacement reported in, no item completed for the settle window
 (``settle_s``, at least 1.25 heartbeat intervals with heartbeats on) and
 every surviving worker beats an idle stage, judged only on a poll that
 found the results socket empty: what is still outstanding then died with
-the worker. An ``ITEM_DONE`` for a seq already accounted counts once. Each such item counts one crash; repeat offenders go
-out last; one whose lineage ledger shows it delivered
-(:meth:`~petastorm_tpu_torch.lineage.LineageTracker.delivery_deficit`: its
+the worker. A replacement's start frame and the ventilator's hand-off of
+an item to the work socket restart the window (a replacement beats first
+one interval after it starts, and may be processing an item the
+ventilator held while no worker was connected), and the episode does not
+end while the ventilator holds an item it counted outstanding and has not
+handed off. An ``ITEM_DONE`` for a seq already accounted counts once.
+Each such item counts one crash; repeat offenders go out last; one whose
+lineage ledger shows it delivered (:meth:`~petastorm_tpu_torch.lineage.LineageTracker.delivery_deficit`: its
 payload arrived, its ``ITEM_DONE`` died) is only accounted, one at
 ``poison_threshold`` crashes is quarantined, the rest go out again
 (``items_redispatched``); then the ventilation resumes. Payload and
@@ -252,6 +257,9 @@ class ProcessPool:
         #: items sent again and when the first of them came back
         self.recoveries: List[dict] = []
         self._awaiting_redelivery = {}      # seq -> its episode's record
+        # the seq the ventilator counted outstanding and has not yet
+        # handed to the work socket (None: none)
+        self._handing_off = None
         self._hb_enabled = True
         self._last_alive_check = time.monotonic()
         # the work socket's sends: the ventilator's, a redispatch's (the
@@ -526,7 +534,13 @@ class ProcessPool:
                     seq = self._next_seq
                     self._next_seq += 1
                     self._outstanding[seq] = item
-                if not self._send_work((seq, item)):
+                    self._handing_off = seq
+                sent = self._send_work((seq, item))
+                with self._lock:
+                    self._handing_off = None
+                # a replacement may have taken it: the episode settles anew
+                self._note_recovery_progress()
+                if not sent:
                     return
         finally:
             self._ventilation_done = True
@@ -660,8 +674,12 @@ class ProcessPool:
                 # the frame)
                 with self._lock:
                     self._started_ids.add(extra)
-                if self._recovering is not None:
-                    self._recovering['awaiting_start'].discard(extra)
+                recovering = self._recovering
+                if (recovering is not None
+                        and extra in recovering['awaiting_start']):
+                    # it beats first one interval from now: settle anew
+                    recovering['awaiting_start'].discard(extra)
+                    recovering['last_progress'] = time.monotonic()
             # a late _TERMINATED: nothing to do
 
     def _merge_heartbeats(self, records) -> None:
@@ -807,8 +825,10 @@ class ProcessPool:
                                     'first_redelivery': None})
 
     def _note_recovery_progress(self) -> None:
-        if self._recovering is not None:
-            self._recovering['last_progress'] = time.monotonic()
+        # also the ventilator's: read the episode once
+        recovering = self._recovering
+        if recovering is not None:
+            recovering['last_progress'] = time.monotonic()
 
     def _maybe_finalize_recovery(self) -> None:
         """End the episode once every replacement reported in, no item
@@ -816,7 +836,11 @@ class ProcessPool:
         idle stage: the items still outstanding died with the dead
         workers. A survivor that starts an item beats a busy stage, seen at
         most one heartbeat interval late, so with the window at least 1.25
-        intervals an item a survivor holds always blocks the end."""
+        intervals an item a survivor holds always blocks the end. A
+        replacement beats first one interval after its start frame, and
+        may be processing the item the ventilator handed off while no
+        worker was connected: both restart the window, and the end waits
+        for a hand-off in progress."""
         recovering = self._recovering
         if recovering is None or self._stopped:
             return
@@ -835,8 +859,12 @@ class ProcessPool:
                 if (entity.startswith('worker-')
                         and record.get('stage') not in IDLE_STAGES):
                     return          # a survivor is mid-item: wait on
+        with self._lock:
+            if self._handing_off is not None:
+                return              # the ventilator's item is not out yet
+            lost = sorted(self._outstanding.items(), key=lambda kv: kv[0])
         self._recovering = None
-        self._finalize_recovery()
+        self._finalize_recovery(lost)
 
     @staticmethod
     def _item_key(seq, item):
@@ -857,10 +885,10 @@ class ProcessPool:
             self._outstanding.pop(seq, None)
         self._job.processed_item()
 
-    def _finalize_recovery(self) -> None:
+    def _finalize_recovery(self, lost) -> None:
+        """Send ``lost`` (seq, item) again, in crash-count order, or
+        account or quarantine them; then resume the ventilation."""
         from petastorm_tpu_torch.lineage import crash_quarantine_record
-        with self._lock:
-            lost = sorted(self._outstanding.items(), key=lambda kv: kv[0])
         poison_threshold = (self._recovery or {}).get('poison_threshold', 3)
         tracker = (self.lineage if self.lineage is not None
                    and self.lineage.enabled else None)

@@ -458,3 +458,143 @@ def test_recovery_reads_queued_frames_before_it_ends():
         sender.close(linger=0)
         pool._results_receiver.close(linger=0)
         context.term()
+
+
+def _settled_episode(pool, outstanding, awaiting_start=()):
+    """``pool`` mid-episode: every worker it had died long ago holding
+    ``outstanding`` (seq -> item), the job paused, no heartbeat record
+    left, the replacements ``awaiting_start`` not yet reported in."""
+    long_ago = time.monotonic() - 60.0
+    pool._outstanding = dict(outstanding)
+    pool._ventilated = pool._next_seq = len(outstanding)
+    pool._recovering = {'awaiting_start': set(awaiting_start),
+                        'last_progress': long_ago}
+    pool.recoveries = [{'dead': [0], 'codes': [1], 'began': long_ago,
+                        'finalized': None, 'redispatched': 0,
+                        'first_redelivery': None}]
+    pool._heartbeats = {}
+    pool._last_alive_check = long_ago
+
+
+def _scripted_pool():
+    """A process pool with no interpreters whose results socket the test
+    feeds through the returned PUSH socket."""
+    import zmq
+    from petastorm_tpu_torch.resilience import DEFAULT_RECOVERY
+    from petastorm_tpu_torch.workers import process_pool as pp
+    pool = pp.ProcessPool(2, recovery=dict(DEFAULT_RECOVERY))
+    context = zmq.Context()
+    pool._results_receiver = context.socket(zmq.PULL)
+    pool._results_receiver.bind('inproc://results')
+    pool._poller = zmq.Poller()
+    pool._poller.register(pool._results_receiver, zmq.POLLIN)
+    sender = context.socket(zmq.PUSH)
+    sender.connect('inproc://results')
+    return pool, context, sender
+
+
+def _deliver(pool, sender, seq, item):
+    """What a worker sends for one item: its payload, then ITEM_DONE."""
+    from petastorm_tpu_torch.workers import process_pool as pp
+    sender.send_multipart(_result_frames(pool, pp._DATA, {'item': item}))
+    sender.send_multipart(_result_frames(pool, (pp._ITEM_DONE,
+                                                {'seq': seq})))
+
+
+@pytest.mark.timeout(60)
+def test_recovery_settles_after_the_last_replacement_starts():
+    """Every worker died; the ventilator's item went to a replacement as
+    it connected, which reports in after the settle window already passed
+    (a slow interpreter start) and has sent no heartbeat yet. The episode
+    must settle anew from its start frame, or the item it is processing
+    goes out a second time (the duplicate the audit catches)."""
+    from petastorm_tpu_torch.workers import process_pool as pp
+    from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
+                                                         VentilationJob)
+    pool, context, sender = _scripted_pool()
+    timer = None
+    try:
+        pool._job = VentilationJob([], False, 0, max_in_flight=2)
+        pool._job.pause()
+        pool._ventilation_done = True
+        _settled_episode(pool, {0: 'lost-item', 1: 'handed-item'},
+                         awaiting_start={2})
+        sent = []
+
+        def send_work(message):
+            sent.append(message)
+            _deliver(pool, sender, *message)
+            return True
+
+        pool._send_work = send_work
+        sender.send_multipart(_result_frames(pool, (pp._STARTED, 2)))
+        # the replacement delivers the item it took 0.5 s later
+        timer = threading.Timer(0.5, _deliver,
+                                (pool, sender, 1, 'handed-item'))
+        timer.start()
+        assert pool.get_results() == {'item': 'handed-item'}
+        assert sent == []
+        assert pool.get_results() == {'item': 'lost-item'}
+        assert sent == [(0, 'lost-item')]
+        with pytest.raises(EmptyResultError):
+            pool.get_results()
+        assert pool._processed == 2 and not pool._outstanding
+        assert pool.recoveries[-1]['redispatched'] == 1
+    finally:
+        if timer is not None:
+            timer.join()
+        sender.close(linger=0)
+        pool._results_receiver.close(linger=0)
+        context.term()
+
+
+@pytest.mark.timeout(60)
+def test_recovery_waits_for_the_ventilators_hand_off():
+    """Every worker died while the ventilator held an item it had counted
+    outstanding and not yet handed to the work socket (no peer to take
+    it). The episode must not end before that hand-off, and must settle
+    anew after it: the replacement that takes the item delivers it, so it
+    never goes out again."""
+    from petastorm_tpu_torch.workers.thread_pool import (EmptyResultError,
+                                                         VentilationJob)
+    pool, context, sender = _scripted_pool()
+    entered, release = threading.Event(), threading.Event()
+    ventilator = None
+    try:
+        pool._job = VentilationJob(['handed-item'], False, 0,
+                                   max_in_flight=4)
+        _settled_episode(pool, {0: 'lost-item'})
+        pool._ventilation_done = False
+        sent = []
+
+        def send_work(message):
+            if threading.current_thread() is ventilator:
+                # no worker is connected until the replacement is
+                entered.set()
+                release.wait(10)
+            else:
+                sent.append(message)
+            _deliver(pool, sender, *message)
+            return True
+
+        pool._send_work = send_work
+        ventilator = threading.Thread(target=pool._ventilate,
+                                      args=(pool._job.order(1),))
+        ventilator.start()
+        assert entered.wait(10)
+        pool._job.pause()       # the episode's pause, after the slot
+        threading.Timer(0.5, release.set).start()
+        assert pool.get_results() == {'item': 'handed-item'}
+        assert sent == []
+        assert pool.get_results() == {'item': 'lost-item'}
+        assert sent == [(0, 'lost-item')]
+        with pytest.raises(EmptyResultError):
+            pool.get_results()
+        assert pool._processed == 2 and not pool._outstanding
+    finally:
+        release.set()
+        if ventilator is not None:
+            ventilator.join(10)
+        sender.close(linger=0)
+        pool._results_receiver.close(linger=0)
+        context.term()

@@ -307,7 +307,7 @@ def test_source_scan_finds_no_jax_import():
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
 #: observability, profiler, autotune, resilience, remote-store,
-#: resume-and-mixing, pod-plane and parallel slices; the worker side
+#: resume-and-mixing, pod-plane, parallel and adapter slices; the worker side
 #: (everything a worker interpreter imports), the indexed loaders and the
 #: parallel package (torch only inside its functions: the reader
 #: factories call ``host_shard``) must not import torch either.
@@ -346,7 +346,13 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.parallel.ring',
                  'petastorm_tpu_torch.parallel.launch',
                  'petastorm_tpu_torch.parallel.pipeline',
-                 'petastorm_tpu_torch.parallel.dryrun']
+                 'petastorm_tpu_torch.parallel.dryrun',
+                 'petastorm_tpu_torch.pyarrow_helpers.batching_table_queue',
+                 'petastorm_tpu_torch.converter',
+                 'petastorm_tpu_torch.tf_utils',
+                 'petastorm_tpu_torch.tools.copy_dataset',
+                 'petastorm_tpu_torch.etl.generate_metadata',
+                 'petastorm_tpu_torch.etl.metadata_util']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)

@@ -153,8 +153,9 @@ def test_row_shuffling_buffer_draws_jax_order():
 
 
 def test_unported_row_options_raise(tmp_path):
-    """An unknown option raises; decode hints and NGram under a row
-    predicate or a transform read, as in JAX."""
+    """An unknown option raises; decode hints, NGram under a row
+    predicate or a transform, and a chunked NGram reader's windows read,
+    as in JAX."""
     url = _store(tmp_path, 'torch')
     # a hint on a codec without a scaled decode fails when the reader is
     # made; make_batch_reader takes no decode_hints (as JAX's)
@@ -182,10 +183,18 @@ def test_unported_row_options_raise(tmp_path):
         assert len(list(reader)) == ROWS
     with pytest.raises(ValueError, match='make_batch_reader'):
         make_reader([url + '/part_00000.parquet'])
+    # a chunked NGram reader's next() gives its windows one by one, in the
+    # order JAX's reader gives them
     with make_reader(url, schema_fields=NGram({0: ['idx']}, 1, 'idx'),
-                     workers_count=1) as reader:
-        with pytest.raises(TypeError, match='iter_ngram_chunks'):
-            next(reader)
+                     workers_count=1, shuffle_row_groups=False) as reader:
+        assert reader.ngram_chunked
+        windows = [int(w[0].idx) for w in reader]
+    from petastorm_tpu.ngram import NGram as JNGram
+    with petastorm_tpu.make_reader(
+            url, schema_fields=JNGram({0: ['idx']}, 1, 'idx'),
+            workers_count=1, shuffle_row_groups=False) as reader:
+        assert windows == [int(w[0].idx) for w in reader]
+    assert sorted(windows) == list(range(ROWS))
     with make_reader(url, workers_count=1) as reader:
         with pytest.raises(TypeError, match='NGram'):
             next(reader.iter_ngram_chunks())

@@ -315,3 +315,24 @@ def pipeline_cases(cases):
             got['grads'] = {k: mine[k].grad.numpy() for k in sorted(mine)}
         out.append(got)
     return out
+
+
+def converter_rank(saved, env=None):
+    """The converter's ``(rank, size)`` inside the process group, with the
+    Horovod variables of ``env`` set (the group answers first), and whether
+    reading shard ``rank`` of ``size`` of the handle warned."""
+    import os
+    import warnings
+
+    from petastorm_tpu_torch import converter
+    os.environ.update(env or {})
+    rank, size = converter._get_rank_and_size()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        with saved.make_torch_loader(batch_size=10, num_epochs=1,
+                                     reader_pool_type='dummy', device='cpu',
+                                     cur_shard=rank,
+                                     shard_count=size) as loader:
+            ids = sorted(int(i) for b in loader for i in b['id'])
+    return rank, size, [str(w.message) for w in caught
+                        if 'cur_shard' in str(w.message)], ids
