@@ -475,6 +475,30 @@ printing one line or a few:
    ``get_schema_from_dataset_url`` and ``make_reader``; a
    ``DataframeColumnCodec`` subclass passed to ``register_codec``
    round-trips a store to the card.
+27. instruments line (after phase 26; one process, stores written
+   again). (a) ``profiler.calibrate`` on phase 13's token store (8,192
+   rows x 2,049 int32 under ``NdarrayCodec`` and ``idx``, ``tokens``
+   device-planned) on the card: the ``device_decode`` probe (the fused
+   decode of one row group's raw grids already on the card) and the
+   ``ingest`` probe (their pinned, side-stream copy), each rep ended by a
+   CUDA event: rows/s, MB/s and seconds beside the ``device_stage``
+   ceiling; both non-``None``, positive, ``path == 'device'``. (b)
+   ``northstar.run_transformer_train_bench`` on that store at
+   ``TransformerConfig``'s widths (blockwise attention, JAX's bench's),
+   batch 8, fed by ``prefetch_batches``, ``dispatch_ahead=2``: 16 measured
+   steps after 3, then the 26-step sync probe; tokens/s, the stall share
+   and the sync overlap; K1-K3 not launched. Then the mnist (16,384 png
+   rows) and imagenet (256 synthetic images) train benches at JAX's
+   defaults for 8 and 6 steps; K4 once an imagenet step. (c)
+   ``python -m petastorm_tpu_torch.benchmark.cli`` on the token store
+   (``--read-method torch --profile -d``, 4 workers, batch 8): samples/s >
+   0 and ``diagnosis['roofline']`` naming a binding stage. (d)
+   ``run_device_decode_bench(quick=True)`` and
+   ``run_goodput_bench(quick=True)`` on the card with their own checks:
+   both decode modes bit-equal over the epoch, ``device_decode_fraction``
+   1.0 on and 0 off; the goodput verdicts, the pod merge and the kill
+   switch (its overhead printed: 2 pairs of millisecond passes cannot
+   resolve its 15% gate, see ``instruments_line``).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -8224,6 +8248,231 @@ def adapter_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
     return launches
 
 
+INST_LM_STEPS = 16                # (b): measured LM steps (+3 warm, +26 sync)
+INST_LM_BATCH = 8
+INST_LM_PREFETCH = 8
+INST_DISPATCH_AHEAD = 2
+INST_MNIST_STEPS = 8              # (b): mnist and imagenet benches, JAX's
+INST_IMAGENET_STEPS = 6           # defaults but for the step counts
+INST_CLI_WARMUP = 200             # (c): the command's -m and -n
+INST_CLI_MEASURE = 1000
+INST_CLI_TIMEOUT_S = 300
+
+
+def json_after(out, label):
+    """The JSON object on the line of ``out`` that starts with ``label``."""
+    for line in out.splitlines():
+        if line.startswith(label + ': {'):
+            return json.loads(line[len(label) + 2:])
+    raise RuntimeError('no %r line in the command\'s output:\n%s'
+                       % (label, out[-4000:]))
+
+
+def instruments_line(torch, np, tlm, kernels, args, device='cuda',
+                     cfg=None, rows=TOKEN_ROWS, group_mb=None,
+                     lm_batch=INST_LM_BATCH, lm_steps=INST_LM_STEPS,
+                     mnist=None, imagenet=None,
+                     cli_cycles=(INST_CLI_WARMUP, INST_CLI_MEASURE)):
+    """Phase 27: the instruments on the token store of phase 13. (a) the
+    profiler's device-decode and ingest probes; (b) the north-star LM fed
+    by ``prefetch_batches``, then the mnist and imagenet train benches;
+    (c) the throughput command as a subprocess; (d) the device-decode and
+    goodput benches with their own checks. ``mnist`` and ``imagenet`` are
+    keyword overrides of those benches (the CPU rehearsal shrinks them).
+    The goodput bench's verdicts are gated; its overhead is printed, not
+    gated: its quick protocol compares 2 pairs of passes of a few
+    milliseconds, whose rates spread 2x from pass to pass on the card, so
+    its 15% gate reads noise (``PERF.md``, the instruments findings).
+    Returns the launches of (b) (K4 from the imagenet bench; the LM bench
+    keeps JAX's blockwise attention, so no K1-K3)."""
+    from petastorm_tpu_torch import make_columnar_reader
+    from petastorm_tpu_torch import profiler as tprof
+    from petastorm_tpu_torch.benchmark import northstar
+    from petastorm_tpu_torch.benchmark.device_decode import \
+        run_device_decode_bench
+    from petastorm_tpu_torch.benchmark import goodput
+    cfg = cfg or tlm.TransformerConfig()
+    check(cfg.attention == 'blockwise',
+          'the north-star LM keeps TransformerConfig\'s default attention')
+    seq = cfg.max_seq_len + 1
+    launches = {name: 0 for name in kernels.LAUNCHES}
+    saved = os.environ.get(tprof.CALIBRATION_DIR_ENV_VAR)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        os.environ[tprof.CALIBRATION_DIR_ENV_VAR] = os.path.join(d, 'cal')
+        try:
+            url = 'file://' + os.path.join(d, 'token_rows')
+            start = time.perf_counter()
+            write_token_rows(np, url, rows, seq, cfg.vocab_size, args.seed,
+                             group_mb=group_mb)
+            log('phase 27 %s token store %d rows x %d int32 (NdarrayCodec), '
+                '%d row groups, written in %.2f s'
+                % (CARD, rows, seq,
+                   row_groups(os.path.join(d, 'token_rows')),
+                   time.perf_counter() - start))
+
+            # (a) the profiler's bytes-through probes
+            phase = time.perf_counter()
+            with make_columnar_reader(url, workers_count=1,
+                                      num_epochs=1) as reader:
+                check(set(reader.device_decode_plans) == {'tokens'},
+                      'phase 27 (a): the store plans %r'
+                      % sorted(reader.device_decode_plans))
+                cal = tprof.calibrate(reader.dataset_path, reader.pieces,
+                                      reader._view, save=False,
+                                      device=device)
+            probes, ceilings = cal['probes'], cal['ceilings']
+            for name in ('device_decode', 'ingest'):
+                probe = probes[name]
+                check(probe is not None and probe['rows_per_s'] > 0
+                      and ceilings[name] == probe['rows_per_s'],
+                      'phase 27 (a): the %s probe is %r' % (name, probe))
+                log('phase 27 (a) %s probe %s: %.1f rows/s, %.1f MB/s, '
+                    '%.6f s for %d rows (%s)'
+                    % (CARD, name, probe['rows_per_s'], probe['mb_per_s'],
+                       probe['seconds'], probe['rows'], cal['device']))
+            check(probes['device_decode']['path'] == 'device'
+                  and probes['device_decode']['columns'] == ['tokens'],
+                  'phase 27 (a): device_decode probe %r'
+                  % probes['device_decode'])
+            stage = probes['device_stage']
+            log('phase 27 (a) %s device_stage ceiling %.1f rows/s (%.1f '
+                'MB/s); device_decode %.2fx and ingest %.2fx of it'
+                % (CARD, ceilings['device_stage'], stage['mb_per_s'],
+                   ceilings['device_decode'] / ceilings['device_stage'],
+                   ceilings['ingest'] / ceilings['device_stage']))
+            log('phase 27 (a) %s %.1f s' % (CARD, time.perf_counter() - phase))
+
+            # (b) the north-star LM through prefetch_batches, then the
+            # mnist and imagenet benches
+            phase = time.perf_counter()
+            kernels.reset_launch_counts()
+            report = northstar.run_transformer_train_bench(
+                url, batch_size=lm_batch, num_steps=lm_steps,
+                warmup_steps=3, workers_count=TOKEN_WORKERS,
+                prefetch=INST_LM_PREFETCH, d_model=cfg.d_model,
+                n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+                seq_len=cfg.max_seq_len, vocab=cfg.vocab_size,
+                dispatch_ahead=INST_DISPATCH_AHEAD, device=device)
+            lm_launches = dict(kernels.LAUNCHES)
+            out = report.as_dict()
+            check(report.steps == lm_steps
+                  and report.samples == lm_steps * lm_batch,
+                  'phase 27 (b): LM bench %r' % out)
+            check(all(lm_launches[k] == 0 for k in FLASH),
+                  'phase 27 (b): the blockwise LM launched %r' % lm_launches)
+            log('phase 27 (b) %s north-star LM (prefetch_batches, '
+                'dispatch_ahead=%d): %d steps of %d x %d, %.1f tokens/s, '
+                '%.2f samples/s, infeed stall %.2f%%, overlap %.2f%%, sync '
+                'probe overlap %.2f%%'
+                % (CARD, INST_DISPATCH_AHEAD, report.steps, lm_batch,
+                   cfg.max_seq_len, report.samples_per_sec * cfg.max_seq_len,
+                   report.samples_per_sec, out['infeed_stall_pct'],
+                   out['overlap_pct'], out['overlap_pct_sync']))
+            mnist_url = 'file://' + os.path.join(d, 'mnist')
+            start = time.perf_counter()
+            northstar.generate_mnist_images_dataset(
+                mnist_url, **(mnist or {}).get('store', {}))
+            log('phase 27 (b) %s mnist png store written in %.2f s'
+                % (CARD, time.perf_counter() - start))
+            report = northstar.run_mnist_train_bench(
+                mnist_url, num_steps=INST_MNIST_STEPS, device=device,
+                **(mnist or {}).get('bench', {}))
+            log('phase 27 (b) %s mnist bench: %r' % (CARD, report.as_dict()))
+            check(report.steps == INST_MNIST_STEPS,
+                  'phase 27 (b): mnist bench %r' % report.as_dict())
+            image_url = 'file://' + os.path.join(d, 'imagenet')
+            start = time.perf_counter()
+            northstar.generate_imagenet_dataset(
+                image_url, **(imagenet or {}).get('store', {}))
+            log('phase 27 (b) %s imagenet png store written in %.2f s'
+                % (CARD, time.perf_counter() - start))
+            kernels.reset_launch_counts()
+            image_args = (imagenet or {}).get('bench', {})
+            report = northstar.run_imagenet_train_bench(
+                image_url, num_steps=INST_IMAGENET_STEPS, device=device,
+                **image_args)
+            launches['normalize'] = kernels.LAUNCHES['normalize']
+            log('phase 27 (b) %s imagenet bench: %r; K4 launched %d times'
+                % (CARD, report.as_dict(), launches['normalize']))
+            check(report.steps == INST_IMAGENET_STEPS,
+                  'phase 27 (b): imagenet bench %r' % report.as_dict())
+            warm = image_args.get('warmup_steps', 3)
+            check(device != 'cuda'
+                  or launches['normalize'] == INST_IMAGENET_STEPS + warm,
+                  'phase 27 (b): K4 launched %d times in %d imagenet steps'
+                  % (launches['normalize'], INST_IMAGENET_STEPS + warm))
+            log('phase 27 (b) %s %.1f s' % (CARD, time.perf_counter() - phase))
+
+            # (c) the throughput command, a fresh interpreter
+            phase = time.perf_counter()
+            repo = os.path.dirname(os.path.abspath(__file__))
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [repo] + [p for p in os.environ.get('PYTHONPATH', '').split(
+                    os.pathsep) if p]))
+            cmd = [sys.executable, '-m', 'petastorm_tpu_torch.benchmark.cli',
+                   url, '--read-method', 'torch', '--profile', '-d',
+                   '--device', device, '-w', str(TOKEN_WORKERS),
+                   '--torch-batch-size', str(lm_batch),
+                   '-m', str(cli_cycles[0]), '-n', str(cli_cycles[1])]
+            done = subprocess.run(cmd, capture_output=True, text=True,
+                                  env=env, cwd=repo,
+                                  timeout=INST_CLI_TIMEOUT_S)
+            check(done.returncode == 0,
+                  'phase 27 (c): the command exited %d:\n%s'
+                  % (done.returncode, done.stderr[-4000:]))
+            profile = json_after(done.stdout, 'Roofline profile')
+            diagnosis = json_after(done.stdout,
+                                   'Infeed diagnosis (median run)')
+            rate = profile['measured_samples_per_s']
+            roof = diagnosis.get('roofline') or {}
+            check(rate and rate > 0 and roof.get('binding_stage'),
+                  'phase 27 (c): samples/s %r, roofline %r' % (rate, roof))
+            log('phase 27 (c) %s petastorm-tpu-torch-throughput --read-method '
+                'torch: %.2f samples/s, binding stage %s (ceiling %.1f '
+                'samples/s, %.1f%% of it), bottleneck %s'
+                % (CARD, rate, roof['binding_stage'],
+                   roof['binding_ceiling_samples_per_s'],
+                   100 * (roof['roofline_fraction'] or 0),
+                   diagnosis.get('bottleneck')))
+            log('phase 27 (c) %s %.1f s' % (CARD, time.perf_counter() - phase))
+        finally:
+            if saved is None:
+                os.environ.pop(tprof.CALIBRATION_DIR_ENV_VAR, None)
+            else:
+                os.environ[tprof.CALIBRATION_DIR_ENV_VAR] = saved
+
+    # (d) the device-decode and goodput benches, their own checks
+    phase = time.perf_counter()
+    result = run_device_decode_bench(quick=True, device=device)
+    lines = result['lines']
+    check(result['identical']
+          and lines['tokens_device']['device_decode_fraction'] == 1.0
+          and lines['tokens_host']['device_decode_fraction'] == 0.0,
+          'phase 27 (d): device-decode bench %r' % lines)
+    log('phase 27 (d) %s device-decode bench (%s): on %.1f samples/s, off '
+        '%.1f samples/s, bit-equal epochs, fraction 1.0 / 0.0; ceilings '
+        'device_decode %.1f, ingest %.1f rows/s'
+        % (CARD, result['jax_backend'], lines['tokens_device'][
+            'samples_per_sec'], lines['tokens_host']['samples_per_sec'],
+           result['roofline']['device_decode_ceiling_samples_per_s'],
+           result['roofline']['ingest_ceiling_samples_per_s']))
+    result = goodput.run_goodput_bench(quick=True, check=False,
+                                       device=device)
+    goodput._check_verdicts(result)
+    log('phase 27 (d) %s goodput bench: overhead %.2f%% (pairs %r; '
+        'off %.1f, on %.1f items/s; not gated), slow data %s, slow '
+        'compute %s, straggler %s'
+        % (CARD, result['overhead']['overhead_pct'],
+           result['overhead']['per_pair_deltas_pct'],
+           result['overhead']['baseline_items_per_s'],
+           result['overhead']['goodput_on_items_per_s'],
+           result['classification']['slow_data']['verdict'],
+           result['classification']['slow_compute']['verdict'],
+           result['pod']['straggler']['host']))
+    log('phase 27 (d) %s %.1f s' % (CARD, time.perf_counter() - phase))
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -8471,6 +8720,12 @@ def main(argv=None):
     for name in FLASH + ('normalize',):
         launches[name] += adapted[name]
     log('phase adapter line %.1f s' % (time.perf_counter() - phase))
+    phase = time.perf_counter()
+    instrumented = instruments_line(torch, np, tlm, kernels, args)
+    for name in FLASH + ('normalize',):
+        launches[name] += instrumented[name]
+    log('phase instruments line %s %.1f s'
+        % (CARD, time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     small_head_times(torch, kernels, gen)

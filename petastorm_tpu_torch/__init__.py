@@ -21,7 +21,8 @@ Public API: :func:`make_reader`, :func:`make_columnar_reader`,
 :func:`make_batch_reader`, :func:`materialize_dataset`,
 :class:`TransformSpec`, :class:`NoDataAvailableError`,
 :class:`TorchDataLoader`, :func:`make_torch_loader`,
-:func:`prefetch_to_device`, :func:`flash_attention`, :func:`normalize_images`,
+:func:`prefetch_to_device`, :func:`prefetch_batches`,
+:func:`flash_attention`, :func:`normalize_images`,
 :class:`CoverageAuditor`, :class:`Provenance`, :class:`SharedRowGroupCache`,
 :class:`LatencyHistogram`, :class:`SLOMonitor`, :class:`RetryPolicy`,
 :class:`HedgedRead`, :class:`FaultInjector`, :class:`PipelineController`,
@@ -83,6 +84,12 @@ tools ``petastorm-tpu-torch-copy-dataset``,
 ``petastorm-tpu-torch-metadata``, and the codec extension surface
 (:class:`~petastorm_tpu_torch.codecs.DataframeColumnCodec`,
 :func:`~petastorm_tpu_torch.codecs.register_codec`).
+
+Instruments (:mod:`petastorm_tpu_torch.benchmark`): the throughput command
+``petastorm-tpu-torch-throughput``, the north-star train benches (samples/s
+and the infeed-stall share of real steps, the LM fed by
+:func:`prefetch_batches`), the goodput and device-decode benches, and the
+profiler's device-decode and ingest ceilings.
 """
 
 __version__ = '0.1.0'
@@ -90,10 +97,10 @@ __version__ = '0.1.0'
 __all__ = ['make_reader', 'make_columnar_reader', 'make_batch_reader',
            'materialize_dataset', 'TransformSpec', 'NoDataAvailableError',
            'TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
-           'flash_attention', 'normalize_images', 'CoverageAuditor',
-           'Provenance', 'SharedRowGroupCache', 'LatencyHistogram',
-           'SLOMonitor', 'RetryPolicy', 'HedgedRead', 'FaultInjector',
-           'PipelineController', 'make_indexed_loader',
+           'prefetch_batches', 'flash_attention', 'normalize_images',
+           'CoverageAuditor', 'Provenance', 'SharedRowGroupCache',
+           'LatencyHistogram', 'SLOMonitor', 'RetryPolicy', 'HedgedRead',
+           'FaultInjector', 'PipelineController', 'make_indexed_loader',
            'make_indexed_ngram_loader', 'WeightedIndexedMixture',
            'PodObserver', 'ElasticPodSim', 'PodMembership', 'LeasePlan',
            'make_mesh', 'host_shard', 'batch_sharding',
@@ -124,7 +131,7 @@ def __getattr__(name):
         from petastorm_tpu_torch import parallel
         return getattr(parallel, name)
     if name in ('TorchDataLoader', 'make_torch_loader', 'prefetch_to_device',
-                'ShardedTorchLoader'):
+                'prefetch_batches', 'ShardedTorchLoader'):
         from petastorm_tpu_torch import torch_utils
         return getattr(torch_utils, name)
     if name in ('CoverageAuditor', 'Provenance'):

@@ -17,7 +17,12 @@ report keys, gauge names and warning wording:
   :func:`~petastorm_tpu_torch.torch_utils.stage_to_device`, the per-leaf
   staging :func:`~petastorm_tpu_torch.torch_utils.prefetch_to_device`
   runs (pinned allocation, copy, ``non_blocking`` copy on a side stream),
-  timed up to an event on that stream. The artifact is cached as JSON per
+  timed up to an event on that stream. Where the view plans device
+  decode, two more probes take one sampled row group's raw ``(n, stride)``
+  uint8 grids: the fused device decode over grids already on the device
+  (:func:`~petastorm_tpu_torch.ops.decode.build_fused_infeed`) and the
+  grids' host-to-device copy by the same staging, each rep ended by an
+  event on the probe's own stream. The artifact is cached as JSON per
   ``(host, dataset digest, device)``.
 - **Overlap-aware attribution** (:func:`attribute`): per-stage busy time as
   the interval union of each stage's spans, so overlapped readahead,
@@ -32,12 +37,13 @@ report keys, gauge names and warning wording:
 
 The device is explicit: :func:`calibrate` and :func:`get_calibration`
 stage to ``device`` (CUDA unless the caller passes ``'cpu'``; without
-CUDA they raise), and the staging probe raises on a failing card where
-JAX's returns ``None``. It waits only on its own stream's event, never on
-the whole device: it may run on the autotune controller's thread while a
-training step is in flight. An artifact carries its own ``kind`` and the
-name of the device it staged to, under a file name JAX's
-``roofline_{host}_{digest}.json`` cannot collide with, and
+CUDA they raise), and the staging, device-decode and ingest probes raise
+on a failing card where JAX's return ``None``. Each waits only on its own
+stream's event, never on the whole device: a probe may run on the
+autotune controller's thread while a training step is in flight. An
+artifact carries its own ``kind`` and the name of the device it staged
+to, under a file name JAX's ``roofline_{host}_{digest}.json`` cannot
+collide with, and
 :func:`load_calibration` treats another kind or another device as a miss:
 a JAX or CPU ceiling never judges a card's measurements.
 
@@ -78,9 +84,11 @@ PROBE_SCHEMA_VERSION = 4
 CALIBRATION_KIND = 'petastorm_tpu_torch_roofline_calibration'
 
 #: Pipeline stages a ceiling is calibrated for, in pipeline order.
-#: ``device_decode`` and ``ingest`` are JAX's probe-only ceilings of the
-#: device-decode benchmark gate; the port reports them ``None`` until that
-#: gate is ported.
+#: ``device_decode`` (the fused bytes-through decode on the device) and
+#: ``ingest`` (the raw payload's host-to-device copy) are probe-only
+#: ceilings read by the device-decode benchmark
+#: (:mod:`petastorm_tpu_torch.benchmark.device_decode`); they never bind
+#: the host span attribution.
 CEILING_STAGES = ('io', 'decode', 'serialize', 'device_stage')
 
 #: Span name -> attribution stage. Spans whose name is not listed keep their
@@ -437,37 +445,53 @@ def _probe_serialize(columns: dict, rows: int) -> dict:
     }
 
 
-def _probe_device_stage(columns: dict, rows: int, device) -> dict:
-    """Host→device staging bandwidth through
+def _fenced_min(run, stream) -> float:
+    """The fastest of :data:`PROBE_REPS` timed calls of ``run`` after one
+    untimed warm-up. On CUDA (``stream`` not None) each call is issued on
+    ``stream`` and its rep ends when an event recorded there after the call
+    has completed, so the time is the card's, not the dispatch's; the
+    probe waits on that stream alone, never on the whole device (a
+    training step may be in flight). On the CPU the call is synchronous."""
+    import torch
+
+    def once():
+        if stream is None:
+            run()
+            return
+        with torch.cuda.stream(stream):
+            run()
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+
+    once()                                              # warm
+    elapsed = None
+    for _ in range(PROBE_REPS):
+        start = time.perf_counter()
+        once()
+        took = time.perf_counter() - start
+        elapsed = took if elapsed is None else min(elapsed, took)
+    return elapsed
+
+
+def _probe_staging(columns: dict, rows: int, device) -> dict:
+    """Host→device staging bandwidth of ``columns`` through
     :func:`~petastorm_tpu_torch.torch_utils.stage_to_device`, the per-leaf
-    staging of ``prefetch_to_device`` (JAX :429): a pinned allocation and a
-    copy into it, then a ``non_blocking`` copy to ``device`` on a side
-    stream of this probe's own; each rep is timed up to the
-    ``synchronize()`` of that stream's event. It waits on nothing else: it
-    may run while a training step is in flight. A failure on the card
-    raises (JAX returns ``None`` on a host without an accelerator runtime;
-    the port names its device instead). On the CPU the staging converts
-    the leaves to tensors and waits on nothing."""
+    staging of ``prefetch_to_device``: a pinned allocation and a copy into
+    it, then a ``non_blocking`` copy to ``device`` on a side stream of this
+    probe's own, each rep timed up to an event on that stream
+    (:func:`_fenced_min`). A failure on the card raises (JAX returns
+    ``None`` on a host without an accelerator runtime; the port names its
+    device instead). On the CPU the staging converts the leaves to tensors
+    and waits on nothing."""
     import torch
 
     from petastorm_tpu_torch.torch_utils import stage_to_device
     stream = (torch.cuda.Stream(device=device) if device.type == 'cuda'
               else None)
-
-    def stage_once():
-        staged, event = stage_to_device(columns, device, stream)
-        if event is not None:
-            event.synchronize()
-        return staged
-
-    stage_once()                                        # warm
     payload_bytes = sum(getattr(v, 'nbytes', 0) for v in columns.values())
-    elapsed = None
-    for _ in range(PROBE_REPS):
-        start = time.perf_counter()
-        stage_once()
-        took = time.perf_counter() - start
-        elapsed = took if elapsed is None else min(elapsed, took)
+    elapsed = _fenced_min(lambda: stage_to_device(columns, device, stream),
+                          stream)
     return {
         'rows': rows,
         'payload_bytes': int(payload_bytes),
@@ -475,8 +499,84 @@ def _probe_device_stage(columns: dict, rows: int, device) -> dict:
         'rows_per_s': round(rows / elapsed, 1) if elapsed else None,
         'mb_per_s': round(payload_bytes / _MB / elapsed, 1)
         if elapsed else None,
-        'device': device_name(device),
     }
+
+
+def _probe_device_stage(columns: dict, rows: int, device) -> dict:
+    """The staging ceiling of one decoded sample row group (JAX :429),
+    stamped with the device it staged to."""
+    return dict(_probe_staging(columns, rows, device),
+                device=device_name(device))
+
+
+def _raw_sample_columns(sampled, schema, filesystem=None) -> Optional[Tuple]:
+    """``(plans, raw_columns, rows)`` for the bytes-through probes (JAX
+    :468): the device-decode plans of this view plus one sampled row
+    group's raw ``(n, stride)`` uint8 grids, or ``None`` when nothing plans
+    (a host-matrix store such as png, or the kill switch off)."""
+    from petastorm_tpu_torch.ops.decode import (plan_device_decode,
+                                                raw_column_view,
+                                                repack_to_raw)
+    from petastorm_tpu_torch.readers.columnar_worker import decode_column
+    plans, _ = plan_device_decode(schema)
+    if not plans:
+        return None
+    table = _read_table(sampled[0], filesystem)
+    raw_columns = {}
+    for name, plan in plans.items():
+        if name not in table.column_names:
+            continue
+        raw = raw_column_view(table.column(name), plan)
+        if raw is None:
+            decoded = decode_column(schema.fields[name],
+                                    table.column(name).combine_chunks())
+            raw = repack_to_raw(plan, decoded)
+        raw_columns[name] = raw
+    if not raw_columns:
+        return None
+    return plans, raw_columns, table.num_rows
+
+
+def _probe_device_decode(plans, raw_columns, rows, device) -> dict:
+    """The fused bytes-through decode ceiling (JAX :502): header strip,
+    bit reinterpretation and reshape by
+    :func:`~petastorm_tpu_torch.ops.decode.build_fused_infeed` over raw
+    grids already resident on ``device``: compute only, no transfer (the
+    :func:`_probe_ingest` twin measures that). A failure raises (JAX
+    returns ``None`` when no backend initialises; the port names its
+    device instead, so a broken card is never read as a missing ceiling)."""
+    import torch
+
+    from petastorm_tpu_torch.ops.decode import build_fused_infeed
+    from petastorm_tpu_torch.torch_utils import _to_tensor
+    fused = build_fused_infeed(plans)
+    staged = {name: _to_tensor(col, False).to(device)
+              for name, col in raw_columns.items()}
+    stream = (torch.cuda.Stream(device=device) if device.type == 'cuda'
+              else None)
+    if stream is not None:
+        # the copies above ran on the current stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+    elapsed = _fenced_min(lambda: fused(staged), stream)
+    decoded_bytes = sum(rows * plans[name].cell_nbytes
+                        for name in raw_columns)
+    return {
+        'rows': rows,
+        'columns': sorted(raw_columns),
+        'path': 'device',
+        'decoded_bytes': int(decoded_bytes),
+        'seconds': round(elapsed, 6),
+        'rows_per_s': round(rows / elapsed, 1) if elapsed else None,
+        'mb_per_s': round(decoded_bytes / _MB / elapsed, 1)
+        if elapsed else None,
+    }
+
+
+def _probe_ingest(raw_columns, rows, device) -> dict:
+    """Raw-payload host-to-device copy ceiling (JAX :540): the exact
+    ``(n, stride)`` uint8 grids a bytes-through reader ships, staged as the
+    port's staging stages a raw grid (:func:`_probe_staging`)."""
+    return _probe_staging(raw_columns, rows, device)
 
 
 def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
@@ -496,6 +596,15 @@ def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
     columns, sample_rows = _decode_sample_columns(sampled, schema, filesystem)
     serialize = _probe_serialize(columns, sample_rows)
     stage = _probe_device_stage(columns, sample_rows, device)
+    # the bytes-through probe family: measured only when this view plans
+    # device columns
+    raw_sample = _raw_sample_columns(sampled, schema, filesystem)
+    device_decode = ingest = None
+    if raw_sample is not None:
+        plans, raw_columns, raw_rows = raw_sample
+        device_decode = _probe_device_decode(plans, raw_columns, raw_rows,
+                                             device)
+        ingest = _probe_ingest(raw_columns, raw_rows, device)
     total_rows = sum(max(0, p.num_rows) for p in pieces)
     # the fastest of the open modes is the storage ceiling: the roofline
     # must not punish a dataset for the mode it does not use
@@ -508,8 +617,9 @@ def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
         'decode': decode.get('rows_per_s'),
         'serialize': serialize.get('rows_per_s'),
         'device_stage': stage.get('rows_per_s'),
-        'device_decode': None,
-        'ingest': None,
+        'device_decode': (device_decode.get('rows_per_s')
+                          if device_decode else None),
+        'ingest': ingest.get('rows_per_s') if ingest else None,
     }
     calibration = {
         'kind': CALIBRATION_KIND,
@@ -531,8 +641,8 @@ def calibrate(dataset_path, pieces, schema, sample_row_groups: int = 3,
             'decode': decode,
             'serialize': serialize,
             'device_stage': stage,
-            'device_decode': None,
-            'ingest': None,
+            'device_decode': device_decode,
+            'ingest': ingest,
         },
         'ceilings': ceilings,
     }

@@ -1011,6 +1011,23 @@ def stage_to_device(batch, device, stream=None, fused_fn=None):
     return staged, event
 
 
+def prefetch_batches(iterator, size=None, health=None, stats=None):
+    """Host lookahead without device staging (JAX ``jax_utils.py:1171``): a
+    background thread keeps up to ``size`` batches (default
+    :func:`resolve_prefetch_depth`) ready as they come, and the consumer's
+    step moves each batch to the device itself. No side stream, no pinning
+    and no event: the batches are the iterator's own. ``health`` (a
+    :class:`~petastorm_tpu_torch.health.HealthMonitor`, e.g.
+    ``reader.health``) gets the thread's beats as the ``loader-prefetch``
+    entity; ``stats`` (a ``ReaderStats``) the ring's depth as the
+    ``prefetch_occupancy`` gauge, whose empty reading at step boundaries is
+    the starving signal. :func:`prefetch_to_device` is the staging
+    counterpart, for batches large enough that the copy is worth
+    overlapping on a side stream."""
+    return _pipeline(iterator, resolve_prefetch_depth(size),
+                     lambda batch: (batch, None), None, stats, health)
+
+
 def prefetch_to_device(iterator, size=None, device=None, goodput=None,
                        fused_fn=None, stats=None, tracer=None, health=None):
     """Stage up to ``size`` batches (default :func:`resolve_prefetch_depth`)

@@ -307,7 +307,8 @@ def test_source_scan_finds_no_jax_import():
 
 #: Modules of the device-decode, process-pool, readahead, cache, lineage,
 #: observability, profiler, autotune, resilience, remote-store,
-#: resume-and-mixing, pod-plane, parallel and adapter slices; the worker side
+#: resume-and-mixing, pod-plane, parallel, adapter and instrument slices
+#: (a benchmark imports torch only when it runs); the worker side
 #: (everything a worker interpreter imports), the indexed loaders and the
 #: parallel package (torch only inside its functions: the reader
 #: factories call ``host_shard``) must not import torch either.
@@ -352,7 +353,15 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.tf_utils',
                  'petastorm_tpu_torch.tools.copy_dataset',
                  'petastorm_tpu_torch.etl.generate_metadata',
-                 'petastorm_tpu_torch.etl.metadata_util']
+                 'petastorm_tpu_torch.etl.metadata_util',
+                 'petastorm_tpu_torch.benchmark.cli',
+                 'petastorm_tpu_torch.benchmark.throughput',
+                 'petastorm_tpu_torch.benchmark.dummy_reader',
+                 'petastorm_tpu_torch.benchmark.infeed',
+                 'petastorm_tpu_torch.benchmark.northstar',
+                 'petastorm_tpu_torch.benchmark.goodput',
+                 'petastorm_tpu_torch.benchmark.device_decode',
+                 'petastorm_tpu_torch.benchmark.hello_world']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)
