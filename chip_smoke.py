@@ -499,6 +499,33 @@ printing one line or a few:
    1.0 on and 0 off; the goodput verdicts, the pod merge and the kill
    switch (its overhead printed: 2 pairs of millisecond passes cannot
    resolve its 15% gate, see ``instruments_line``).
+28. benchmark twins line (after phase 27; ``benchmark_twins_line``, one
+   table a twin in ``twin_table``): the fifteen twins of JAX's
+   ``benchmark/`` modules with ``check=False``, in four groups, each
+   group's seconds logged: decode and read (``decode_batch`` and
+   ``roofline`` at JAX's full 16,384 png rows, staging to the card;
+   ``transport``, ``readahead``, ``shared_cache`` quick), control and
+   fault (``autotune`` quick, calibrating on the card; ``chaos``,
+   ``object_store`` quick), the overheads (``lineage_`` and
+   ``latency_overhead`` quick with their loaders on the card, ``trace_``
+   and ``health_overhead`` quick), pod and scaling (``podobs``,
+   ``podelastic`` quick; ``scaling`` at JAX's accelerator sizes, 16,384
+   rows, batch 512, hidden 2048, on 1, 2, 4 and 8 workers, 20 steps
+   instead of 60). Gates: each module's ``_check_exact`` (each column
+   decoded bit-identically and every cell batched; zero-copy strictly
+   fewer pool copies than pickle, no in-process copy, pickle 2.0 a item;
+   readahead hits; fills == row groups, hits >= (K-1) x groups, a warm
+   pass with no miss; a calibration, the binding stage and a monotone
+   advisor; a controller action and every model check; hedges fired and
+   won; bit-identical planes, no clean-path hedge, exact pod fills and
+   peer hits, three determinism flags; provenance and a complete audit,
+   spans and a valid Chrome trace, populated histograms and an SLO
+   verdict, ``healthy`` over the ventilator and workers; the pod
+   certificate, bit-identical merged percentiles, ``partial_pod``
+   refused; a death, exactly-once, a lease moved; samples/s > 0 at every
+   worker count) and no flash-kernel launch. Each timing bar a twin
+   states (its ``_bars``: JAX's bar for the run's size) is printed with
+   its value, held or missed, not gated.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -8473,6 +8500,108 @@ def instruments_line(torch, np, tlm, kernels, args, device='cuda',
     return launches
 
 
+TWIN_SCALING_STEPS = 20           # JAX's 60 accelerator steps, cut
+TWIN_WORKERS = (1, 2, 4, 8)
+
+
+def twin_table(device, full=True):
+    """Phase 28, a row a benchmark twin: (module, group, keyword
+    arguments). The exact conditions are each module's ``_check_exact``,
+    its timing bars its ``_bars``. ``full=False`` (the CPU rehearsal) runs
+    the three full-size twins small."""
+    quick = dict(quick=True, check=False)
+    big = dict(quick=not full, check=False, device=device)
+    on_device = dict(quick, device=device)
+    return (
+        ('decode_batch', 'decode and read', big),
+        ('transport', 'decode and read', quick),
+        ('readahead', 'decode and read', quick),
+        ('shared_cache', 'decode and read', quick),
+        ('roofline', 'decode and read', big),
+        ('autotune', 'control and fault', on_device),
+        ('chaos', 'control and fault', quick),
+        ('object_store', 'control and fault', quick),
+        ('lineage_overhead', 'overheads', on_device),
+        ('trace_overhead', 'overheads', quick),
+        ('latency_overhead', 'overheads', on_device),
+        ('health_overhead', 'overheads', quick),
+        ('podobs', 'pod and scaling', quick),
+        ('podelastic', 'pod and scaling', quick),
+        ('scaling', 'pod and scaling', dict(
+            worker_counts=TWIN_WORKERS if full else (1, 2),
+            num_steps=TWIN_SCALING_STEPS, device=device)),
+    )
+
+
+def benchmark_twins_line(torch, kernels, device='cuda', full=True):
+    """Phase 28: the port's benchmark twins, each with ``check=False``;
+    then each twin's exact conditions (its ``_check_exact``), which fail
+    the run, and each timing ratio beside JAX's bar, printed and not
+    gated (quick pairs of sub-second passes cannot resolve such bars on
+    the card). Returns the kernels' launches in the phase."""
+    import importlib
+    from petastorm_tpu_torch.benchmark import bar_held
+    groups = {}
+    held = []
+    kernels.reset_launch_counts()
+    for name, group, kwargs in twin_table(device, full):
+        module = importlib.import_module(
+            'petastorm_tpu_torch.benchmark.' + name)
+        run = (module.run if name == 'scaling'
+               else getattr(module, 'run_%s_bench' % name))
+        start = time.perf_counter()
+        result = run(**kwargs)
+        seconds = time.perf_counter() - start
+        groups[group] = groups.get(group, 0.0) + seconds
+        try:
+            module._check_exact(result)
+        except AssertionError as e:
+            raise RuntimeError('phase 28 %s: an exact condition failed: %s'
+                               % (name, e)) from e
+        log('phase 28 %s %s (%s, %.1f s): exact conditions held'
+            % (CARD, name, ', '.join('%s=%s' % kv for kv in sorted(
+                kwargs.items()) if kv[0] != 'check'), seconds))
+        for label, value, op, bar in getattr(module, '_bars',
+                                             lambda r: ())(result):
+            ok = bar_held(value, op, bar)
+            held.append(ok)
+            log('phase 28 %s %s %s %r (JAX bar %s %s: %s; not gated)'
+                % (CARD, name, label, value, op, bar,
+                   'held' if ok else 'missed'))
+        if name == 'decode_batch':
+            log('phase 28 %s decode_batch column speedups: %s; lines %s; '
+                'binding stage %s (ceiling %s samples/s)' % (CARD, ', '.join(
+                    '%s %sx (%s batched, %s per-cell rows/s)'
+                    % (k, v['speedup_x'], v['batched_rows_per_s'],
+                       v['percell_rows_per_s'])
+                    for k, v in sorted(result['column_decode'].items())),
+                    ', '.join('%s %s samples/s' % (k, v['samples_per_sec'])
+                              for k, v in sorted(result['lines'].items())),
+                    result['roofline']['binding_stage'],
+                    result['roofline']['binding_ceiling_samples_per_s']))
+        elif name == 'roofline':
+            roof = result['roofline']
+            log('phase 28 %s roofline: %s samples/s measured, binding stage '
+                '%s (ceiling %s samples/s), %s%% of it, %d workers, %d cores'
+                % (CARD, result['measured_samples_per_sec'],
+                   roof['binding_stage'], roof['binding_ceiling_samples_per_s'],
+                   roof['roofline_pct'], result['workers'],
+                   result['cpu_count']))
+        elif name == 'scaling':
+            log('phase 28 %s scaling (%s, %d steps of %d, os.cpu_count() %d): '
+                '%s' % (CARD, result['platform'], result['num_steps'],
+                        result['batch_size'], os.cpu_count(), '; '.join(
+                            '%d workers %.1f samples/s, overlap %.2f%%'
+                            % (e['workers'], e['samples_per_sec'],
+                               e['overlap_pct'])
+                            for e in result['curve'])))
+    for group, seconds in groups.items():
+        log('phase 28 %s group %s %.1f s' % (CARD, group, seconds))
+    log('phase 28 %s timing bars held %d of %d (not gated)'
+        % (CARD, sum(held), len(held)))
+    return dict(kernels.LAUNCHES)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -8726,6 +8855,14 @@ def main(argv=None):
         launches[name] += instrumented[name]
     log('phase instruments line %s %.1f s'
         % (CARD, time.perf_counter() - phase))
+    phase = time.perf_counter()
+    twins = benchmark_twins_line(torch, kernels)
+    check(all(twins[k] == 0 for k in FLASH),
+          'phase 28 launched a flash kernel: %r' % twins)
+    for name in FLASH + ('normalize',):
+        launches[name] += twins[name]
+    log('phase benchmark twins line %s %.1f s (launches %r)'
+        % (CARD, time.perf_counter() - phase, twins))
 
     times = timings(torch, kernels, gen, REPS)
     small_head_times(torch, kernels, gen)

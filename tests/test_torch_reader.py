@@ -361,7 +361,22 @@ SLICE_MODULES = ['petastorm_tpu_torch.ops.decode',
                  'petastorm_tpu_torch.benchmark.northstar',
                  'petastorm_tpu_torch.benchmark.goodput',
                  'petastorm_tpu_torch.benchmark.device_decode',
-                 'petastorm_tpu_torch.benchmark.hello_world']
+                 'petastorm_tpu_torch.benchmark.hello_world',
+                 'petastorm_tpu_torch.benchmark.decode_batch',
+                 'petastorm_tpu_torch.benchmark.transport',
+                 'petastorm_tpu_torch.benchmark.readahead',
+                 'petastorm_tpu_torch.benchmark.shared_cache',
+                 'petastorm_tpu_torch.benchmark.roofline',
+                 'petastorm_tpu_torch.benchmark.autotune',
+                 'petastorm_tpu_torch.benchmark.chaos',
+                 'petastorm_tpu_torch.benchmark.object_store',
+                 'petastorm_tpu_torch.benchmark.lineage_overhead',
+                 'petastorm_tpu_torch.benchmark.trace_overhead',
+                 'petastorm_tpu_torch.benchmark.latency_overhead',
+                 'petastorm_tpu_torch.benchmark.health_overhead',
+                 'petastorm_tpu_torch.benchmark.podobs',
+                 'petastorm_tpu_torch.benchmark.podelastic',
+                 'petastorm_tpu_torch.benchmark.scaling']
 
 
 @pytest.mark.parametrize('module', SLICE_MODULES)
