@@ -5,10 +5,12 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, each
 printing one line or a few:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compile the four CUDA kernels from ``csrc/`` in one ``nvcc`` call
-   (bf16 K1, K2, K3 on Hopper's tensor cores: ``flash_fwd_sm90.cu``,
-   ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``; float32 K1-K3 on the
-   FP32 cores: ``flash_fwd.cu``, ``flash_bwd.cu``; K4 ``normalize.cu``);
+2. build: compile the four CUDA kernels from ``csrc/``, one ``nvcc`` call a
+   source, all started together, then one link (bf16 K1, K2, K3 on
+   Hopper's tensor cores at head dims 32, 64 and 128:
+   ``flash_fwd_sm90.cu``, ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``;
+   float32 K1-K3 on the FP32 cores at 16, 32, 64 and 128: ``flash_fwd.cu``,
+   ``flash_bwd.cu``; K4 ``normalize.cu``);
 3. kernels: the registers and spills of each kernel (``ptxas -v``); K1
    (forward), K2 (dq) and K3 (dk/dv) against their plain PyTorch twins run
    in float32 on the same values, at the training shape (8, 8, 2048, 64)
@@ -526,6 +528,31 @@ printing one line or a few:
    worker count) and no flash-kernel launch. Each timing bar a twin
    states (its ``_bars``: JAX's bar for the run's size) is printed with
    its value, held or missed, not gated.
+29. head-dim line (after phase 28; ``head_dim_line``). (a) K1-K3 at head
+   dims 32 and 128, bf16 and float32, against their float32 twins over
+   phase 3's edge shapes, and in bf16 at the causal path shapes
+   (8, 16, 2048, 32) and (8, 4, 2048, 128) (H x D = 512, the flagship's
+   d_model), under phase 3's gates; (b) the padded head dims 80 and 96,
+   bf16 and float32, through the wrappers against the twins at the true
+   head dim, each kernel launched; (c) the flagship LM with 128-wide heads
+   (``TransformerConfig(attention='flash', n_heads=4)``): ``reference_check``
+   at that config, then phase 5's main path (NGram ``make_reader`` ->
+   ``TorchDataLoader`` -> ``prefetch_to_device``, 5 AdamW steps of 8
+   windows), its losses finite and K1-K3 launched 5 x 4 times each; (d)
+   the north-star LM at JAX's bench widths (vocab 8192, d_model 256 over 8
+   heads: head dim 32, 4 layers, d_ff 1024, L 256) on flash and on
+   blockwise attention, fed as phase 27's run (``make_columnar_reader`` ->
+   ``TorchDataLoader`` -> ``prefetch_batches``, batch 8, 3 + 16 steps
+   through ``measure_infeed_overlap``, ``dispatch_ahead`` 2): the first
+   batch's flash loss and gradients against blockwise on the same params
+   at ``reference_check``'s tolerances, K1-K3 launched 19 x 4 times each
+   on flash and never on blockwise, each steady step beside phase 27's;
+   (e) K4 at 8 channels, a distinct mean and std a channel, bit for bit
+   against its twin. The timing phase then also times K1-K3 at the two
+   path shapes, each beside SDPA and aten's flash backward on the same
+   operands, and K4 at (64, 224, 224, 8); the kernel table has a row for
+   each kernel at each bf16 head dim (32, 64, 128), each with the
+   registers and spills of that kernel's instantiations.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -748,15 +775,20 @@ def ptxas_summary(log_text):
 # phase 4 / 5: LM reference and main path
 # ---------------------------------------------------------------------------
 
-def reference_check(torch, tlm, seed):
-    """Full-width model on a (1, 256) input: the flash path's loss and
-    gradients against the plain blockwise attention's."""
+def reference_check(torch, tlm, seed, cfg=None, params=None, tokens=None,
+                    targets=None, label='reference'):
+    """Full-width model (``cfg``, the flagship's by default) on a (1, 256)
+    input, or on ``tokens`` and ``targets``: the flash path's loss and
+    gradients against the plain blockwise attention's on the same
+    ``params`` (made from ``seed`` when not given)."""
     import dataclasses
-    cfg = tlm.TransformerConfig(attention='flash')
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
     gen = torch.Generator().manual_seed(seed)
-    params = tlm.init(cfg, gen, device='cuda')
-    toks = torch.randint(0, cfg.vocab_size, (2, 1, 256), generator=gen)
-    tokens, targets = toks[0].cuda(), toks[1].cuda()
+    if params is None:
+        params = tlm.init(cfg, gen, device='cuda')
+    if tokens is None:
+        toks = torch.randint(0, cfg.vocab_size, (2, 1, 256), generator=gen)
+        tokens, targets = toks[0].cuda(), toks[1].cuda()
     results = []
     for mode in ('flash', 'blockwise'):
         leaves = tlm.parameters(params)
@@ -767,15 +799,17 @@ def reference_check(torch, tlm, seed):
         loss = tlm.loss_fn(params, tokens, targets, c)
         loss.backward()
         results.append((loss.item(), [p.grad.clone() for p in leaves]))
+    for p in tlm.parameters(params):
+        p.grad = None
     (lf, gf), (lb, gb) = results
     check(math.isfinite(lf) and abs(lf - lb) < 1e-2,
-          'reference: flash loss %r vs blockwise %r' % (lf, lb))
+          '%s: flash loss %r vs blockwise %r' % (label, lf, lb))
     rel = max(float((a - b).norm() / (b.norm() + 1e-12))
               for a, b in zip(gf, gb))
-    check(rel < 5e-2, 'reference: gradient relative error %.3g' % rel)
-    log('reference loss flash %.6f blockwise %.6f |dL| %.3g, max grad '
-        'rel err %.3g (tol loss 1e-2, grad 5e-2)' % (lf, lb, abs(lf - lb),
-                                                     rel))
+    check(rel < 5e-2, '%s: gradient relative error %.3g' % (label, rel))
+    log('%s loss flash %.6f blockwise %.6f |dL| %.3g, max grad '
+        'rel err %.3g (tol loss 1e-2, grad 5e-2)' % (label, lf, lb,
+                                                     abs(lf - lb), rel))
 
 
 def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
@@ -798,11 +832,15 @@ def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
     return tokens
 
 
-def main_path(torch, np, tlm, kernels, args):
+def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
+              stats=None):
+    """Phase 5 (and phase 29 (c) at ``cfg``): the LM's main path; returns
+    the launches of its steps and puts the steady step's seconds in
+    ``stats['steady_s']``."""
     from petastorm_tpu_torch import (TorchDataLoader, make_reader,
                                      prefetch_to_device)
     from petastorm_tpu_torch.ngram import NGram
-    cfg = tlm.TransformerConfig(attention='flash')
+    cfg = cfg or tlm.TransformerConfig(attention='flash')
     with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
         url = 'file://' + os.path.join(d, 'tokens')
         start = time.perf_counter()
@@ -846,10 +884,11 @@ def main_path(torch, np, tlm, kernels, args):
                     losses.append(loss)
                     times.append(dt)
                     splits.append((t1 - t0, t2 - t1, dt - (t2 - t0)))
-                    log('step %d loss %.6f time %.2f ms tokens/s %.0f; '
+                    log('%sstep %d loss %.6f time %.2f ms tokens/s %.0f; '
                         'consumer: batch wait %.2f ms, dispatch %.2f ms, '
                         'fence %.2f ms'
-                        % (i, loss, dt * 1e3,
+                        % ('' if label == 'LM' else label + ' ', i, loss,
+                           dt * 1e3,
                            BATCH * cfg.max_seq_len / dt,
                            *(x * 1e3 for x in splits[-1])))
                 launches = dict(kernels.LAUNCHES)
@@ -859,23 +898,26 @@ def main_path(torch, np, tlm, kernels, args):
                         tokens = batch[0]['tokens']
                         nxt = batch[1]['tokens'][:, :1]
                         step(tokens, torch.cat([tokens[:, 1:], nxt], 1))
-                    profile_steps(torch, run_step, 2, 'flash', 'LM')
+                    profile_steps(torch, run_step, 2, 'flash', label)
             # the epoch's items the loader did not take, read and dropped:
             # then every item was delivered once and the audit is complete
             rest = sum(1 for _ in reader.iter_ngram_chunks())
             report = reader.audit().assert_complete()
     epoch = report['epochs'][0]
-    log('LM reader audit complete: %d items, %d windows delivered in epoch '
+    log('%s reader audit complete: %d items, %d windows delivered in epoch '
         '0 (%d items read after the steps); no batch held _provenance'
-        % (epoch['items_delivered'], epoch['rows_delivered'], rest))
-    log_goodput(goodput, 'LM')
+        % (label, epoch['items_delivered'], epoch['rows_delivered'], rest))
+    log_goodput(goodput, label)
     check(all(math.isfinite(x) for x in losses), 'non-finite loss')
     check(all(launches[k] > 0 for k in FLASH),
           'a kernel was not launched on the main path: %r' % launches)
     steady = times[1:] or times
-    log('main path %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
+    if stats is not None:
+        stats['steady_s'] = statistics.median(steady)
+    log('%s %d steps, loss %.4f -> %.4f, steady step %.2f ms, '
         '%.0f tokens/s, launches %s'
-        % (len(losses), losses[0], losses[-1],
+        % ('main path' if label == 'LM' else label + ' main path',
+           len(losses), losses[0], losses[-1],
            statistics.median(steady) * 1e3,
            BATCH * cfg.max_seq_len / statistics.median(steady),
            json.dumps(launches)))
@@ -5125,8 +5167,8 @@ def bounds(shape):
     return out
 
 
-def timings(torch, kernels, gen, reps):
-    b, h, l, d = PATH_SHAPE
+def timings(torch, kernels, gen, reps, shape=PATH_SHAPE):
+    b, h, l, d = shape
     q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.bfloat16)
     kw = dict(n_heads=h, n_kv_heads=h, causal=True)
     o, lse = kernels.flash_fwd(q, k, v, **kw)
@@ -5229,11 +5271,11 @@ def loop_ms(torch, fn, n):
     return statistics.median(samples)
 
 
-def k4_times(torch, kernels, seed):
+def k4_times(torch, kernels, seed, shape=K4_SHAPE):
     gen = torch.Generator(device='cuda').manual_seed(seed)
-    x = torch.randint(0, 256, K4_SHAPE, generator=gen, device='cuda',
+    x = torch.randint(0, 256, shape, generator=gen, device='cuda',
                       dtype=torch.uint8)
-    zero, one = torch.zeros(3), torch.ones(3)
+    zero, one = torch.zeros(shape[-1]), torch.ones(shape[-1])
     bf16 = torch.bfloat16
     nbytes = x.numel() * (1 + 2)        # read uint8 once, write bf16 once
     t_bytes = nbytes / PEAK_BYTES
@@ -8387,6 +8429,10 @@ def instruments_line(torch, np, tlm, kernels, args, device='cuda',
                   'phase 27 (b): LM bench %r' % out)
             check(all(lm_launches[k] == 0 for k in FLASH),
                   'phase 27 (b): the blockwise LM launched %r' % lm_launches)
+            PHASE27_LM.update(
+                seq_len=cfg.max_seq_len,
+                tokens_per_s=report.samples_per_sec * cfg.max_seq_len,
+                step_ms=report.total_time_s / report.steps * 1e3)
             log('phase 27 (b) %s north-star LM (prefetch_batches, '
                 'dispatch_ahead=%d): %d steps of %d x %d, %.1f tokens/s, '
                 '%.2f samples/s, infeed stall %.2f%%, overlap %.2f%%, sync '
@@ -8602,6 +8648,243 @@ def benchmark_twins_line(torch, kernels, device='cuda', full=True):
     return dict(kernels.LAUNCHES)
 
 
+# ---------------------------------------------------------------------------
+# phase 29: head dims (K1-K3 at 32 and 128 and padded; the LM with 128-wide
+# heads; the north-star LM on flash; K4 at 8 channels)
+# ---------------------------------------------------------------------------
+
+# phase 3's edge shapes, run at every head dim the kernels are built for
+EDGE_CASES = [('ragged L=300', dict(b=2, h=2, hkv=2, lq=300, lk=300)),
+              ('non-causal 300x170', dict(b=1, h=2, hkv=2, lq=300, lk=170,
+                                          causal=False)),
+              ('gqa 8->2', dict(b=1, h=8, hkv=2, lq=256, lk=256)),
+              ('segments masked row', dict(b=2, h=2, hkv=2, lq=300, lk=300,
+                                           segmented=True)),
+              ('window=128', dict(b=1, h=2, hkv=2, lq=512, lk=512,
+                                  window=128))]
+# the causal bf16 path shape at each new head dim: H x D = 512, the
+# flagship's d_model, so each kernel's bound is the same at every head dim
+HEAD_DIM_PATHS = {32: (8, 16, 2048, 32), 128: (8, 4, 2048, 128)}
+PADDED_HEAD_DIMS = (80, 96)       # launched at 128 with zero columns
+WIDE_HEADS = 4                    # (c): d_model 512 over 4 heads: D = 128
+# (d): JAX's north-star bench widths (petastorm_tpu/benchmark/
+# northstar.py:372-373): d_model 256 over 8 heads, head dim 32
+NS_WIDTHS = dict(vocab_size=8192, d_model=256, n_heads=8, n_layers=4,
+                 d_ff=1024, max_seq_len=256)
+NS_ROWS = 1024
+NS_BATCH = 8                      # phase 27's batch and step counts
+NS_WARMUP = 3
+NS_STEPS = 16
+K4_CHANNELS = 8
+#: phase 27 (b)'s north-star LM report (blockwise), printed beside (d)
+PHASE27_LM = {}
+
+
+def head_dim_gates(torch, kernels, gen, errs):
+    """Phase 29 (a), (b): each new instantiation, and the padded head dims,
+    against the twins; ``errs[(kernel, D)]`` gets the bf16 max abs errors
+    at D 32 and 128."""
+    for d, shape in HEAD_DIM_PATHS.items():
+        b, h, l, _ = shape
+        case = compare_case(torch, kernels, 'D=%d path bf16 causal' % d, gen,
+                            b=b, h=h, hkv=h, lq=l, lk=l, d=d,
+                            dtype=torch.bfloat16)
+        for name, err in case.items():
+            errs[name, d] = max(errs.get((name, d), 0.0), err)
+        for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+            for label, edge in EDGE_CASES:
+                case = compare_case(torch, kernels, 'D=%d %s %s'
+                                    % (d, tag, label), gen, d=d,
+                                    dtype=dtype, **edge)
+                if dtype == torch.bfloat16:
+                    for name, err in case.items():
+                        errs[name, d] = max(errs[name, d], err)
+    for d in PADDED_HEAD_DIMS:
+        for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+            for label, edge in (EDGE_CASES[0], EDGE_CASES[2]):
+                kernels.reset_launch_counts()
+                compare_case(torch, kernels, 'D=%d padded %s %s'
+                             % (d, tag, label), gen, d=d, dtype=dtype,
+                             **edge)
+                launched = dict(kernels.LAUNCHES)
+                check(all(launched[k] == 1 for k in FLASH),
+                      'D=%d %s %s: launches %r' % (d, tag, label, launched))
+
+
+def wide_head_lm(torch, np, tlm, kernels, args):
+    """Phase 29 (c): the flagship LM with 128-wide heads on its main path;
+    returns (launches, steady step seconds)."""
+    cfg = tlm.TransformerConfig(attention='flash', n_heads=WIDE_HEADS)
+    check(cfg.head_dim == 128, 'head dim %d' % cfg.head_dim)
+    reference_check(torch, tlm, args.seed, cfg, label='D=128 reference')
+    stats = {}
+    launches = main_path(torch, np, tlm, kernels, args, cfg=cfg,
+                         label='D=128 LM', stats=stats)
+    want = STEPS * cfg.n_layers
+    check(all(launches[k] == want for k in FLASH),
+          'D=128 LM: launches %r, expected %d of each of K1-K3'
+          % (launches, want))
+    return launches, stats['steady_s']
+
+
+def northstar_lm(torch, np, tlm, kernels, args, url, mode, device='cuda',
+                 widths=None):
+    """Phase 29 (d): the north-star LM at JAX's bench widths (or
+    ``widths``) with ``attention=mode``, fed as phase 27's run; returns
+    (report, launches, first loss)."""
+    from petastorm_tpu_torch import make_columnar_reader
+    from petastorm_tpu_torch.benchmark.infeed import measure_infeed_overlap
+    from petastorm_tpu_torch.torch_utils import (TorchDataLoader,
+                                                 prefetch_batches)
+    cfg = tlm.TransformerConfig(attention=mode, **(widths or NS_WIDTHS))
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device=device)
+    _, step = tlm.make_train_step(cfg, params)
+
+    def step_fn(batch):
+        tokens = batch['tokens'].to(device, non_blocking=True).long()
+        return step(tokens[:, :-1], tokens[:, 1:])
+
+    def sync():
+        if device == 'cuda':
+            torch.cuda.synchronize()
+
+    with make_columnar_reader(url, reader_pool_type='thread',
+                              workers_count=TOKEN_WORKERS,
+                              num_epochs=None) as reader:
+        loader = TorchDataLoader(reader, batch_size=NS_BATCH, drop_last=True,
+                                 device=device)
+        batches = prefetch_batches(iter(loader), size=INST_LM_PREFETCH)
+        first = next(batches)
+        tokens = first['tokens'].to(device).long()
+        if mode == 'flash':    # the first step's loss and gradients
+            reference_check(torch, tlm, args.seed, cfg, params,
+                            tokens[:, :-1], tokens[:, 1:],
+                            label='north-star first step')
+        sync()
+        kernels.reset_launch_counts()
+        loss = float(step_fn(first))
+        report = measure_infeed_overlap(
+            batches, step_fn, num_steps=NS_STEPS, warmup_steps=NS_WARMUP - 1,
+            count_fn=lambda b: int(b['tokens'].shape[0]),
+            dispatch_ahead=INST_DISPATCH_AHEAD)
+        sync()
+        launches = dict(kernels.LAUNCHES)
+    check(math.isfinite(loss) and report.steps == NS_STEPS,
+          'north-star %s: loss %r, %d steps' % (mode, loss, report.steps))
+    want = ((NS_WARMUP + NS_STEPS) * cfg.n_layers
+            if mode == 'flash' and device == 'cuda' else 0)
+    check(all(launches[k] == want for k in FLASH),
+          'north-star %s: launches %r, expected %d of each of K1-K3'
+          % (mode, launches, want))
+    return report, launches, loss
+
+
+def head_dim_line(torch, np, tlm, kernels, args, gen, errs):
+    """Phase 29. Returns ({D: launches of that head dim's main path},
+    {D: steady step ms})."""
+    phase = time.perf_counter()
+    head_dim_gates(torch, kernels, gen, errs)
+    log('phase 29 (a, b) %s kernel gates at D 32, 128 and padded %s %.1f s'
+        % (CARD, PADDED_HEAD_DIMS, time.perf_counter() - phase))
+    phase = time.perf_counter()
+    wide, wide_s = wide_head_lm(torch, np, tlm, kernels, args)
+    cfg = tlm.TransformerConfig(n_heads=WIDE_HEADS)
+    log('phase 29 (c) %s D=128 LM (d_model %d over %d heads): steady step '
+        '%.2f ms, %.0f tokens/s, launches %s; %.1f s'
+        % (CARD, cfg.d_model, WIDE_HEADS, wide_s * 1e3,
+           BATCH * cfg.max_seq_len / wide_s, json.dumps(wide),
+           time.perf_counter() - phase))
+    phase = time.perf_counter()
+    seq = NS_WIDTHS['max_seq_len'] + 1
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix='.smoke-store-') as d:
+        url = 'file://' + os.path.join(d, 'northstar_tokens')
+        write_token_rows(np, url, NS_ROWS, seq, NS_WIDTHS['vocab_size'],
+                         args.seed)
+        runs = {mode: northstar_lm(torch, np, tlm, kernels, args, url, mode)
+                for mode in ('flash', 'blockwise')}
+    steady = {}
+    for mode, (report, launches, loss) in runs.items():
+        steady[mode] = report.total_time_s / report.steps
+        log('phase 29 (d) %s north-star LM (D=32) %s: first loss %.6f, %d '
+            'steps of %d x %d, steady step %.3f ms, %.1f tokens/s, infeed '
+            'stall %.2f%%, launches %s'
+            % (CARD, mode, loss, report.steps, NS_BATCH,
+               NS_WIDTHS['max_seq_len'], steady[mode] * 1e3,
+               report.samples * NS_WIDTHS['max_seq_len']
+               / report.total_time_s,
+               report.as_dict()['infeed_stall_pct'], json.dumps(launches)))
+    if PHASE27_LM:
+        log('phase 29 (d) %s beside phase 27 (b) (blockwise, TransformerConfig'
+            "'s widths, L %d): %.1f tokens/s, %.3f ms a step"
+            % (CARD, PHASE27_LM['seq_len'], PHASE27_LM['tokens_per_s'],
+               PHASE27_LM['step_ms']))
+    log('phase 29 (d) %s %.1f s' % (CARD, time.perf_counter() - phase))
+    phase = time.perf_counter()
+    errs['normalize', K4_CHANNELS] = k4_channels_check(torch, kernels)
+    log('phase 29 (e) %s K4 at C=%d %.1f s'
+        % (CARD, K4_CHANNELS, time.perf_counter() - phase))
+    return ({128: wide, 32: runs['flash'][1]},
+            {128: wide_s * 1e3, 32: steady['flash'] * 1e3,
+             'blockwise 32': steady['blockwise'] * 1e3})
+
+
+def k4_channels_check(torch, kernels):
+    """K4 at 8 channels, a distinct mean and std a channel, bit for bit
+    against its twin over every uint8 value in every channel, bf16 and
+    float32; returns the max abs error (0)."""
+    v = torch.arange(256, dtype=torch.uint8).reshape(2, 16, 8)
+    x = torch.stack([torch.roll(v.flatten(), i).reshape(2, 16, 8)
+                     for i in range(K4_CHANNELS)], -1).cuda()
+    mean = torch.linspace(0.1, 0.8, K4_CHANNELS)
+    inv = 1.0 / torch.linspace(0.2, 0.5, K4_CHANNELS)
+    for dtype in (torch.bfloat16, torch.float32):
+        kernels.reset_launch_counts()
+        got = kernels.normalize(x, mean, inv, dtype)
+        ref = kernels.normalize_plain(x, mean, inv, dtype)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES['normalize'] == 1 and torch.equal(got, ref),
+              'K4 at C=%d %s: %d elements differ from the twin'
+              % (K4_CHANNELS, dtype, int((got != ref).sum())))
+    log('K4 C=%d %s, bf16 and float32: bit-equal to the twin over %d values'
+        % (K4_CHANNELS, tuple(x.shape), x.numel()))
+    return 0.0
+
+
+def ptxas_instances(log_text):
+    """{kernel name: [{dtype, head_dim, out, registers, spill_stores,
+    spill_loads}, ...]} of every flash instantiation (and K4's) in nvcc's
+    ``-Xptxas -v`` report, from the mangled names."""
+    import re
+    instance = re.compile(
+        r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_kernel|fwd_kernel|'
+        r'dq_kernel|dkdv_kernel|normalize_kernel)I(.*?)EEv')
+    kernel_of = {'fwd': 'flash_fwd', 'dq': 'flash_bwd_dq',
+                 'dkdv': 'flash_bwd_dkdv', 'normalize': 'normalize'}
+    out = {}
+    for line in ptxas_summary(log_text):
+        name, rest = line.split(': ', 1)
+        m = instance.search(name)
+        if m is None:
+            continue
+        regs, spill = rest.split(' registers, spill ')
+        stores, loads = spill[:-2].split('/')
+        kind, args = m.group(1), m.group(2)
+        dims = re.findall(r'Li(\d+)', args)
+        sm90 = 'sm90' in kind
+        entry = {'dtype': 'bfloat16' if sm90 else 'float32',
+                 'head_dim': int(dims[0]) if dims else None,
+                 'registers': int(regs), 'spill_stores': int(stores),
+                 'spill_loads': int(loads)}
+        if kind == 'dkdv_sm90_kernel':
+            entry['out'] = 'float32' if args.endswith('f') else 'bfloat16'
+        if kind == 'normalize_kernel':
+            entry['dtype'] = 'uint8'
+            entry['out'] = 'bfloat16' if 'bfloat16' in args else 'float32'
+        out.setdefault(kernel_of[kind.split('_')[0]], []).append(entry)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -8635,7 +8918,8 @@ def main(argv=None):
 
     wall = start = time.perf_counter()
     kernels.build()
-    log('build %.1f s (nvcc, one call, 4 kernels, %s)'
+    log('build %.1f s (nvcc, a call a source started together, 4 kernels, '
+        '%s)'
         % (time.perf_counter() - start,
            'cached' if kernels.BUILD_INFO['cached'] else 'fresh'))
     for line in ptxas_summary(kernels.BUILD_INFO['log']):
@@ -8647,16 +8931,8 @@ def main(argv=None):
     b, h, l, d = PATH_SHAPE
     errs = compare_case(torch, kernels, 'path bf16 causal', gen, b=b, h=h,
                         hkv=h, lq=l, lk=l, d=d, dtype=torch.bfloat16)
-    edges = [('ragged L=300', dict(b=2, h=2, hkv=2, lq=300, lk=300)),
-             ('non-causal 300x170', dict(b=1, h=2, hkv=2, lq=300, lk=170,
-                                         causal=False)),
-             ('gqa 8->2', dict(b=1, h=8, hkv=2, lq=256, lk=256)),
-             ('segments masked row', dict(b=2, h=2, hkv=2, lq=300, lk=300,
-                                          segmented=True)),
-             ('window=128', dict(b=1, h=2, hkv=2, lq=512, lk=512,
-                                 window=128))]
     for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
-        for label, shape in edges:
+        for label, shape in EDGE_CASES:
             case = compare_case(torch, kernels, '%s %s' % (tag, label), gen,
                                 d=64, dtype=dtype, **shape)
             if dtype == torch.bfloat16:
@@ -8863,12 +9139,28 @@ def main(argv=None):
         launches[name] += twins[name]
     log('phase benchmark twins line %s %.1f s (launches %r)'
         % (CARD, time.perf_counter() - phase, twins))
+    phase = time.perf_counter()
+    head_launches, head_steps = head_dim_line(torch, np, tlm, kernels, args,
+                                              gen, errs)
+    log('phase head-dim line %s %.1f s (D=128 LM step %.2f ms, north-star '
+        'D=32 step %.3f ms on flash, %.3f ms on blockwise)'
+        % (CARD, time.perf_counter() - phase, head_steps[128],
+           head_steps[32], head_steps['blockwise 32']))
 
     times = timings(torch, kernels, gen, REPS)
+    head_times = {d: timings(torch, kernels, gen, REPS, shape)
+                  for d, shape in HEAD_DIM_PATHS.items()}
     small_head_times(torch, kernels, gen)
     bound = bounds(PATH_SHAPE)
     phase = time.perf_counter()
     k4 = k4_times(torch, kernels, args.seed)
+    k4_c8 = k4_times(torch, kernels, args.seed,
+                     K4_SHAPE[:3] + (K4_CHANNELS,))
+    log('time normalize at C=%d %.4f ms, %.1f%% of its bound (bound %.4f '
+        'ms by %s, plain %.4f ms; yardstick %.4f ms)'
+        % (K4_CHANNELS, k4_c8['ms'], 100 * k4_c8['bound'][0] / k4_c8['ms'],
+           k4_c8['bound'][0], k4_c8['bound'][1], k4_c8['plain_ms'],
+           k4_c8['yardstick_ms']))
     log('phase K4 times %.1f s' % (time.perf_counter() - phase))
     times['normalize'] = {
         'ms': k4['ms'], 'plain_ms': k4['plain_ms'], 'library_ms': None,
@@ -8876,35 +9168,55 @@ def main(argv=None):
         'yardstick_ms': k4['yardstick_ms'],
         'yardstick': 'x.to(torch.bfloat16): the same bytes, not the function'}
     bound['normalize'] = k4['bound']
+    instances = ptxas_instances(kernels.BUILD_INFO['log'])
+    # a row a kernel at each bf16 head dim: D = 64 (the flagship's, every
+    # earlier phase), then 32 and 128 (phase 29's paths and shapes)
+    rows = [(name, name, 64, times[name], bound[name], launches[name],
+             errs[name]) for name in KERNELS]
+    for d, shape in HEAD_DIM_PATHS.items():
+        head_bound = bounds(shape)
+        rows += [('%s_d%d' % (name, d), name, d, head_times[d][name],
+                  head_bound[name], head_launches[d][name], errs[name, d])
+                 for name in FLASH]
     table = []
-    for name, (source, replaces) in KERNELS.items():
-        t = times[name]
-        row = {'name': name, 'route': 'cuda', 'source': source,
+    for label, name, d, t, bnd, count, err in rows:
+        source, replaces = KERNELS[name]
+        row = {'name': label, 'route': 'cuda', 'source': source,
                'replaces': replaces, 'status': 'ported',
-               'launches': launches[name],
-               'max_abs_err': errs[name], 'ms': t['ms'],
-               'plain_ms': t['plain_ms'], 'bound_ms': bound[name][0],
-               'bound_by': bound[name][1],
+               'launches': count, 'max_abs_err': err, 'ms': t['ms'],
+               'plain_ms': t['plain_ms'], 'bound_ms': bnd[0],
+               'bound_by': bnd[1],
                'library_ms': t['library_ms'], 'library': t['library']}
         if 'yardstick_ms' in t:
             row.update(yardstick_ms=t['yardstick_ms'],
                        yardstick=t['yardstick'])
+        if name in FLASH:
+            # the float32-only head dim 16 is listed with the D = 64 rows
+            row['head_dim'] = d
+            dims = (d, 16) if d == 64 else (d,)
+            row['ptxas'] = [e for e in instances[name]
+                            if e['head_dim'] in dims]
+        else:
+            row['ptxas'] = instances[name]
         table.append(row)
-        rate = ('%.1f TFLOP/s, ' % (bound[name][2] / t['ms'] / 1e9)
+        rate = ('%.1f TFLOP/s, ' % (bnd[2] / t['ms'] / 1e9)
                 if name in FLASH else '')
-        log('time %-15s %.4f ms, %s%.1f%% of its bound (bound %.4f ms by %s, '
+        log('time %-20s %.4f ms, %s%.1f%% of its bound (bound %.4f ms by %s, '
             'plain %.4f ms, library %s: %s%s)'
-            % (name, t['ms'], rate, 100 * bound[name][0] / t['ms'],
-               bound[name][0], bound[name][1], t['plain_ms'],
+            % (label, t['ms'], rate, 100 * bnd[0] / t['ms'],
+               bnd[0], bnd[1], t['plain_ms'],
                'n/a' if t['library_ms'] is None
                else '%.4f ms' % t['library_ms'], t['library'],
                '; yardstick %.4f ms, %s' % (t['yardstick_ms'],
                                             t['yardstick'])
                if 'yardstick_ms' in t else ''))
-    bwd = times['flash_bwd_dq']['ms'] + times['flash_bwd_dkdv']['ms']
-    aten = times['flash_bwd_dq']['library_ms']
-    log('time backward K2 + K3 %.4f ms, aten flash backward (dq, dk, dv) '
-        '%.4f ms: %.2fx' % (bwd, aten, bwd / aten))
+    for d, t in ((64, times), *head_times.items()):
+        bwd = t['flash_bwd_dq']['ms'] + t['flash_bwd_dkdv']['ms']
+        aten = t['flash_bwd_dq']['library_ms']
+        log('time D=%d backward K2 + K3 %.4f ms, aten flash backward (dq, dk, '
+            'dv) %.4f ms: %.2fx; K1 %.2fx SDPA'
+            % (d, bwd, aten, bwd / aten, t['flash_fwd']['ms']
+               / t['flash_fwd']['library_ms']))
     log('wall %.1f s' % (time.perf_counter() - wall))
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

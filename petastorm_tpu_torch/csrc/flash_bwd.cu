@@ -347,29 +347,30 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// dtype: 0 = float32, 1 = bfloat16 (of q, k, v, do and dq; on wgmma,
-// flash_bwd_dq_sm90.cu). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (D 16, 32, 64 or 128), 1 = bfloat16 (of q, k, v, do
+// and dq; on wgmma, flash_bwd_dq_sm90.cu; D 32, 64 or 128). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const int* segq,
                             const int* segk, void* dq, int BH, int H, int Hkv,
                             int Lq, int Lk, int D, int causal, int window,
                             float scale, int dtype, void* stream) {
-  constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == flash::kHeadDimSmall)
-    return flash::launch_dq<float, flash::kHeadDimSmall>(
-        q, k, v, dout, lse, delta, segq, segk, dq, BH, H, Hkv, Lq, Lk,
-        causal, window, scale, s);
-  if (D != HD) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return flash::launch_dq<float, HD>(q, k, v, dout, lse, delta, segq, segk,
-                                       dq, BH, H, Hkv, Lq, Lk, causal, window,
-                                       scale, s);
   if (dtype == 1)
     return flash::launch_dq_sm90(q, k, v, dout, lse, delta, segq, segk, dq,
-                                 BH, H, Hkv, Lq, Lk, causal, window, scale,
+                                 BH, H, Hkv, Lq, Lk, D, causal, window, scale,
                                  s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define FLASH_DQ_CASE(HD)                                                   \
+  case HD:                                                                  \
+    return flash::launch_dq<float, HD>(q, k, v, dout, lse, delta, segq,     \
+                                       segk, dq, BH, H, Hkv, Lq, Lk, causal, \
+                                       window, scale, s);
+    FLASH_FOR_HEAD_DIMS_F32(FLASH_DQ_CASE)
+#undef FLASH_DQ_CASE
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -382,21 +383,20 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               int H, int Hkv, int Lq, int Lk, int D,
                               int causal, int window, float scale, int dtype,
                               int out_f32, void* stream) {
-  constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == flash::kHeadDimSmall)
-    return flash::launch_dkdv<float, float, flash::kHeadDimSmall>(
-        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk,
-        causal, window, scale, s);
-  if (D != HD) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return flash::launch_dkdv<float, float, HD>(q, k, v, dout, lse, delta,
-                                                segq, segk, dk, dv, BH, H, Hkv,
-                                                Lq, Lk, causal, window, scale,
-                                                s);
   if (dtype == 1)
     return flash::launch_dkdv_sm90(q, k, v, dout, lse, delta, segq, segk, dk,
-                                   dv, out_f32, BH, H, Hkv, Lq, Lk, causal,
+                                   dv, out_f32, BH, H, Hkv, Lq, Lk, D, causal,
                                    window, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define FLASH_DKDV_CASE(HD)                                                 \
+  case HD:                                                                  \
+    return flash::launch_dkdv<float, float, HD>(                            \
+        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk,  \
+        causal, window, scale, s);
+    FLASH_FOR_HEAD_DIMS_F32(FLASH_DKDV_CASE)
+#undef FLASH_DKDV_CASE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,26 +13,31 @@
 // read once), ~610 FLOP/byte, above the bf16 ridge (~295): bound by
 // operations. So all three products run on wgmma, fed by TMA.
 //
+// Head dims: instantiated at D = 32, 64 and 128, like K1 (sm90.cuh's
+// Tile<D>); the wrapper pads any other D <= 128 to the next of them.
+//
 // Block: 288 threads, one 128-row q tile of one q-head row (GQA: the kv row
 // through the head map; dq is per q head, so there are no partials). Warps
 // 0-7 are two consumer warpgroups of 64 q rows each, warp 8 the producer.
-// TMA loads Q and dO (128 x 64 each) once; they stay resident. 64 x 64 K and
-// V tiles stream through a 4-stage ring, and the producer's lanes write the
-// tile's kv segment ids beside them (shared memory: Q, dO 32 KB + 4 x (K 8
-// KB + V 8 KB) + 4 x 256 B ~ 98 KB, tiles 128-byte swizzled). Each consumer
-// thread reads, once, the lse (times log2(e); +inf where lse <= -5e29, a
-// fully masked forward row, so p = 0 there), delta and q segment id of its
-// two fragment rows into registers. Per kv tile a consumer warpgroup runs
-// S = Q K^T and dP = dO V^T (4 + 4 x m64n64k16, A and B K-major from shared
-// memory: K3's pair with the roles swapped), p = exp2(S scale log2e - lse
-// log2e) and dS = p (dP - delta) scale on the accumulator fragments, then
-// dQ += dS K (4 x m64n64k16, A = dS from registers, B = K MN-major: the
-// transpose bit). dQ stays in float32 registers for the whole kv loop.
+// TMA loads Q and dO (128 x D each) once; they stay resident. 64 x D K and V
+// tiles stream through a 4-stage ring, and the producer's lanes write the
+// tile's kv segment ids beside them (shared memory at D = 64: Q, dO 32 KB +
+// 4 x (K 8 KB + V 8 KB) + 4 x 256 B ~ 98 KB; half the tile bytes at D = 32,
+// twice at D = 128, ~195 KB). Each consumer thread reads, once, the lse
+// (times log2(e); +inf where lse <= -5e29, a fully masked forward row, so p
+// = 0 there), delta and q segment id of its two fragment rows into
+// registers. Per kv tile a consumer warpgroup runs S = Q K^T and dP = dO V^T
+// (2 x D/16 x m64n64k16, A and B K-major from shared memory: K3's pair with
+// the roles swapped), p = exp2(S scale log2e - lse log2e) and dS = p (dP -
+// delta) scale on the accumulator fragments, then dQ += dS K (4 x m64nDk16,
+// at D = 128 two m64n64k16 a step; A = dS from registers, B = K MN-major:
+// the transpose bit). dQ stays in float32 registers for the whole kv loop.
 //
 // Why 64-row kv tiles: registers. With 128-row tiles S and dP would take 64
 // floats each a thread, beside dQ's 32 and the dS fragments' 32: well over
-// the 168 registers ptxas gives K1 and K3 under this launch bound. At 64
-// rows the count is 32 + 32 + 32 + 16.
+// the 168 registers ptxas gives a thread under a 288-thread launch bound.
+// At 64 rows the count is 32 + 32 + 32 + 16 at D = 64, and dQ's 64 at D =
+// 128.
 //
 // Precision: dS is rounded to nearest bf16 before dS K (the A operand of a
 // bf16 wgmma is bf16), as aten's flash backward does; dq is rounded once to
@@ -61,17 +66,22 @@ constexpr int kRowsK = 64;                  // kv rows per tile
 constexpr int kStages = 4;
 constexpr int kConsumers = 256;             // two warpgroups
 constexpr int kThreadsDq = kConsumers + 32;   // + one producer warp
-constexpr int kTileQ = kRowsQ * kRowBytes;  // 16 KB
-constexpr int kTileK = kRowsK * kRowBytes;  // 8 KB
-constexpr int kOffQ = 0;
-constexpr int kOffDO = kOffQ + kTileQ;
-constexpr int kOffK = kOffDO + kTileQ;
-constexpr int kOffV = kOffK + kStages * kTileK;
-constexpr int kOffSeg = kOffV + kStages * kTileK;
-constexpr int kOffBar = kOffSeg + kStages * kRowsK * 4;
-constexpr int kSmemDq =                     // barriers: q, full, empty
-    kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + slack to align to 1024
 
+template <int D>
+struct Dq {
+  static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
+  static constexpr int kTileK = Tile<D>::bytes(kRowsK);
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffDO = kOffQ + kTileQ;
+  static constexpr int kOffK = kOffDO + kTileQ;
+  static constexpr int kOffV = kOffK + kStages * kTileK;
+  static constexpr int kOffSeg = kOffV + kStages * kTileK;
+  static constexpr int kOffBar = kOffSeg + kStages * kRowsK * 4;
+  static constexpr int kSmem =                // barriers: q, full, empty
+      kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + slack to align to 1024
+};
+
+template <int D>
 __global__ void __launch_bounds__(kThreadsDq, 1)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                    const __grid_constant__ CUtensorMap tmK,
@@ -83,12 +93,13 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
                    const int* __restrict__ segk,
                    __nv_bfloat16* __restrict__ dq, int H, int Hkv, int Lq,
                    int Lk, int causal, int window, float scale) {
+  using C = Dq<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   const uint32_t base = raw + pad;
-  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + kOffSeg);
-  const uint32_t qbar = base + kOffBar;
+  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + C::kOffSeg);
+  const uint32_t qbar = base + C::kOffBar;
   const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * kStages;
 
   const int bh = blockIdx.x;
@@ -119,20 +130,20 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
   if (threadIdx.x >= kConsumers) {            // producer warp
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      mbar_arrive_tx(qbar, 2 * kTileQ);
-      tma_load_3d(base + kOffQ, &tmQ, qbar, 0, q0, bh);
-      tma_load_3d(base + kOffDO, &tmDO, qbar, 0, q0, bh);
+      mbar_arrive_tx(qbar, 2 * C::kTileQ);
+      Tile<D>::load(base + C::kOffQ, &tmQ, qbar, q0, bh, kRowsQ);
+      Tile<D>::load(base + C::kOffDO, &tmDO, qbar, q0, bh, kRowsQ);
     }
     for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
       const int s = i % kStages;
       const uint32_t full = full0 + 8 * s;
       mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
       if (lane == 0) {
-        mbar_arrive_tx(full, 2 * kTileK);
-        tma_load_3d(base + kOffK + s * kTileK, &tmK, full, 0, kb * kRowsK,
-                    kvh);
-        tma_load_3d(base + kOffV + s * kTileK, &tmV, full, 0, kb * kRowsK,
-                    kvh);
+        mbar_arrive_tx(full, 2 * C::kTileK);
+        Tile<D>::load(base + C::kOffK + s * C::kTileK, &tmK, full,
+                      kb * kRowsK, kvh, kRowsK);
+        Tile<D>::load(base + C::kOffV + s * C::kTileK, &tmV, full,
+                      kb * kRowsK, kvh, kRowsK);
       }
       if (segk != nullptr)
         for (int j = lane; j < kRowsK; j += 32) {
@@ -163,29 +174,22 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
     dlt[h] = in ? delta_g[r] : 0.f;
     sq[h] = (segq != nullptr && in) ? segq[r] : 0;
   }
-  float dq_acc[32];
+  float dq_acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < 32; ++r) dq_acc[r] = 0.f;
-  const uint64_t dqd = desc_kmajor(base + kOffQ + wg * 64 * kRowBytes);
-  const uint64_t dod = desc_kmajor(base + kOffDO + wg * 64 * kRowBytes);
+  for (int r = 0; r < D / 2; ++r) dq_acc[r] = 0.f;
   mbar_wait(qbar, 0);
 
   for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
     const int s = i % kStages;
     const int k0 = kb * kRowsK;
-    const uint32_t kaddr = base + kOffK + s * kTileK;
-    const uint32_t vaddr = base + kOffV + s * kTileK;
+    const uint32_t kaddr = base + C::kOffK + s * C::kTileK;
+    const uint32_t vaddr = base + C::kOffV + s * C::kTileK;
     mbar_wait(full0 + 8 * s, (i / kStages) & 1);
 
-    float sc[32], dp[32];
-    const uint64_t dkd = desc_kmajor(kaddr), dvd = desc_kmajor(vaddr);
+    float sc[kRowsK / 2], dp[kRowsK / 2];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)        // +32 bytes = 16 columns of D
-      wgmma_ss_n64(sc, dqd + 2 * kk, dkd + 2 * kk, kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(dp, dod + 2 * kk, dvd + 2 * kk, kk > 0);
+    wgmma_ss_tile<D>(sc, base + C::kOffQ, kRowsQ, 64 * wg, kaddr);
+    wgmma_ss_tile<D>(dp, base + C::kOffDO, kRowsQ, 64 * wg, vaddr);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -196,7 +200,7 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
         diag || segk != nullptr || k0 + kRowsK > Lk || r0 + 64 > Lq ||
         (causal && window > 0 && r0 + 63 - k0 >= window);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {
+    for (int r = 0; r < kRowsK / 2; ++r) {
       const int h = (r >> 1) & 1, c = frag_col(r);
       float p = exp2f(sc[r] * scale2 - lse2[h]);
       if (need_mask &&
@@ -206,34 +210,49 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
       dp[r] = p * (dp[r] - dlt[h]) * scale;   // dp now holds ds
     }
 
-    uint32_t dsa[4][4];
+    uint32_t dsa[kRowsK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) to_a_frag(dp, kk, dsa[kk]);
+    for (int kk = 0; kk < kRowsK / 16; ++kk) to_a_frag(dp, kk, dsa[kk]);
     fence_regs(dq_acc);
     fence_regs(dsa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)        // 16 kv rows of K = 2048 bytes
-      wgmma_rs_n64<1>(dq_acc, dsa[kk],
-                      desc_mnmajor(kaddr + kk * 16 * kRowBytes));
+    for (int kk = 0; kk < kRowsK / 16; ++kk)   // 16 kv rows of K a step
+      wgmma_rs_tile<D, 1>(dq_acc, dsa[kk], kaddr, kRowsK, 16 * kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dq_acc);
     mbar_arrive(empty0 + 8 * s);
   }
 
-  const int cq = threadIdx.x & 3;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (qpos[h] >= Lq) continue;
-    __nv_bfloat16* row = dq + ((size_t)bh * Lq + qpos[h]) * 64;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = 4 * j + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * cq) =
-          __floats2bfloat162_rn(dq_acc[r], dq_acc[r + 1]);
-    }
-  }
+  for (int h = 0; h < 2; ++h)
+    if (qpos[h] < Lq)
+      store_row<D>(dq + ((size_t)bh * Lq + qpos[h]) * D, dq_acc, h, 1.f);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, const int* segq,
+           const int* segk, void* dq, int BH, int H, int Hkv, int Lq, int Lk,
+           int causal, int window, float scale, cudaStream_t stream) {
+  using C = Dq<D>;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!Tile<D>::make_map(&mq, q, BH, Lq, kRowsQ) ||
+      !Tile<D>::make_map(&mdo, dout, BH, Lq, kRowsQ) ||
+      !Tile<D>::make_map(&mk, k, BHkv, Lk, kRowsK) ||
+      !Tile<D>::make_map(&mv, v, BHkv, Lk, kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
+  dq_sm90_kernel<D><<<grid, kThreadsDq, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
+      Lq, Lk, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -241,23 +260,20 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
 int launch_dq_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const int* segq, const int* segk, void* dq, int BH, int H,
-                   int Hkv, int Lq, int Lk, int causal, int window,
+                   int Hkv, int Lq, int Lk, int D, int causal, int window,
                    float scale, cudaStream_t stream) {
-  const int BHkv = BH / H * Hkv;
-  CUtensorMap mq, mk, mv, mdo;
-  if (!sm90::make_map(&mq, q, BH, Lq, kRowsQ) ||
-      !sm90::make_map(&mdo, dout, BH, Lq, kRowsQ) ||
-      !sm90::make_map(&mk, k, BHkv, Lk, kRowsK) ||
-      !sm90::make_map(&mv, v, BHkv, Lk, kRowsK))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
-  dq_sm90_kernel<<<grid, kThreadsDq, kSmemDq, stream>>>(
-      mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
-      Lq, Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
+                        Hkv, Lq, Lk, causal, window, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
+                        Hkv, Lq, Lk, causal, window, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
+                         Hkv, Lq, Lk, causal, window, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash

@@ -24,12 +24,11 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kSub = 4;            // rows (and score columns) per thread
 
-// The head dims the kernels are instantiated for: 64 (the flagship LM's)
-// for both dtypes, and 16 for float32 only (the multi-rank dry run's
-// d_model 64 over 4 heads); the C entry points return
-// cudaErrorInvalidValue for any other.
-constexpr int kHeadDim = 64;
-constexpr int kHeadDimSmall = 16;
+// The head dims the kernels are instantiated for (float32: the FP32-core
+// kernels' template; bf16: the wgmma kernels' Tile<D>); the C entry points
+// return cudaErrorInvalidValue for any other, and the wrapper pads a head dim
+// up to the next of these (ops/kernels.py).
+#define FLASH_FOR_HEAD_DIMS_F32(X) X(16) X(32) X(64) X(128)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

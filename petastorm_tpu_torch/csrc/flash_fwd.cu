@@ -190,25 +190,27 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* segq,
 
 }  // namespace flash
 
-// dtype: 0 = float32 (FP32 cores, above), 1 = bfloat16 (wgmma,
-// flash_fwd_sm90.cu). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (FP32 cores, above; D 16, 32, 64 or 128), 1 =
+// bfloat16 (wgmma, flash_fwd_sm90.cu; D 32, 64 or 128). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* segq, const int* segk, void* o, float* lse,
                          int BH, int H, int Hkv, int Lq, int Lk, int D,
                          int causal, int window, float scale, int dtype,
                          void* stream) {
-  constexpr int HD = flash::kHeadDim;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && D == flash::kHeadDimSmall)
-    return flash::launch_fwd<float, flash::kHeadDimSmall>(
-        q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk, causal, window,
-        scale, s);
-  if (D != HD) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return flash::launch_fwd<float, HD>(q, k, v, segq, segk, o, lse, BH, H,
-                                        Hkv, Lq, Lk, causal, window, scale, s);
   if (dtype == 1)
     return flash::launch_fwd_sm90(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq,
-                                  Lk, causal, window, scale, s);
+                                  Lk, D, causal, window, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (D) {
+#define FLASH_FWD_CASE(HD)                                                  \
+  case HD:                                                                  \
+    return flash::launch_fwd<float, HD>(q, k, v, segq, segk, o, lse, BH, H, \
+                                        Hkv, Lq, Lk, causal, window, scale, \
+                                        s);
+    FLASH_FOR_HEAD_DIMS_F32(FLASH_FWD_CASE)
+#undef FLASH_FWD_CASE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,20 +10,31 @@
 // bf16 ridge (~295): bound by operations. So both products run on wgmma
 // (989 TFLOP/s bf16), fed by TMA.
 //
+// Head dims: instantiated at D = 32, 64 and 128 (sm90.cuh's Tile<D>: 64-byte
+// swizzled rows at 32, one 128-byte block at 64, two at 128); the wrapper
+// pads any other D <= 128 with zero columns to the next of them.
+//
 // Block: 288 threads. Warps 0-7 are two consumer warpgroups, each owning 64
 // of the block's 128 q rows of one (batch, head) row; warp 8 is the
-// producer. TMA loads the 128 x 64 Q tile once; 128 x 64 K and V tiles
-// stream through a 2-stage ring (shared memory: Q 16 KB + 2 x (V 16 KB + K
-// 16 KB) + segment ids 2 x 512 B ~ 82 KB, all tiles 128-byte swizzled).
+// producer. TMA loads the 128 x D Q tile once; kRowsK x D K and V tiles
+// (128 rows; 64 at D = 128, below) stream through a 2-stage ring (shared
+// memory at D = 64: Q 16 KB + 2 x (V 16 KB + K 16 KB) + segment ids 2 x
+// 512 B ~ 82 KB; half the tile bytes at D = 32; ~98 KB at D = 128).
 // Each stage has a `full` mbarrier (the TMA bytes plus one arrival per
 // producer lane, after the lanes wrote the tile's kv segment ids) and an
 // `empty` one (one arrival per consumer thread once its wgmmas are done).
-// Per kv tile a consumer warpgroup runs S = Q K^T (4 x m64n128k16, A and B
-// K-major from shared memory), the online softmax on the accumulator
-// fragment (row max and sum over the 4 lanes of a quad, scale and log2(e)
-// folded so the kernel uses exp2f), then O += P V (8 x m64n64k16, A = P from
-// registers, B = V MN-major: the transpose bit). ptxas gives it 168
+// Per kv tile a consumer warpgroup runs S = Q K^T (D/16 x m64n{kRowsK}k16,
+// A and B K-major from shared memory), the online softmax on the
+// accumulator fragment (row max and sum over the 4 lanes of a quad, scale
+// and log2(e) folded so the kernel uses exp2f), then O += P V (kRowsK/16 x
+// m64nDk16, at D = 128 two m64n64k16 a step, one a column block; A = P from
+// registers, B = V MN-major: the transpose bit). ptxas gives it 165-168
 // registers and no spills.
+//
+// Why 64-row kv tiles at D = 128: registers. Under this launch bound ptxas
+// allots 168 a thread; O over 64 q rows at D = 128 takes 64 floats, and S
+// over a 128-row kv tile 64 more, beside P's 32 bf16 pairs. At 64 rows S
+// takes 32 and P 16.
 //
 // Precision: P is rounded to nearest bf16 before P V (the A operand of a
 // bf16 wgmma is bf16), as scaled_dot_product_attention does and as the
@@ -47,19 +58,24 @@ namespace {
 using namespace sm90;
 
 constexpr int kRowsQ = 128;                 // q rows per block
-constexpr int kRowsK = 128;                 // kv rows per tile
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;             // two warpgroups
 constexpr int kThreadsFwd = kConsumers + 32;  // + one producer warp
-constexpr int kTileQ = kRowsQ * kRowBytes;  // 16 KB
-constexpr int kTileK = kRowsK * kRowBytes;  // 16 KB
-constexpr int kOffQ = 0;
-constexpr int kOffV = kOffQ + kTileQ;
-constexpr int kOffK = kOffV + kStages * kTileK;
-constexpr int kOffSeg = kOffK + kStages * kTileK;
-constexpr int kOffBar = kOffSeg + kStages * kRowsK * 4;
-constexpr int kSmemFwd = kOffBar + 64 + 1024;  // + slack to align to 1024
 
+template <int D>
+struct Fwd {
+  static constexpr int kRowsK = D == 128 ? 64 : 128;  // kv rows per tile
+  static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
+  static constexpr int kTileK = Tile<D>::bytes(kRowsK);
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffV = kOffQ + kTileQ;
+  static constexpr int kOffK = kOffV + kStages * kTileK;
+  static constexpr int kOffSeg = kOffK + kStages * kTileK;
+  static constexpr int kOffBar = kOffSeg + kStages * kRowsK * 4;
+  static constexpr int kSmem = kOffBar + 64 + 1024;  // + slack to align
+};
+
+template <int D>
 __global__ void __launch_bounds__(kThreadsFwd, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                     const __grid_constant__ CUtensorMap tmK,
@@ -69,12 +85,14 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int H, int Hkv, int Lq, int Lk, int causal, int window,
                     float scale) {
+  using C = Fwd<D>;
+  constexpr int kRowsK = C::kRowsK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
   const uint32_t base = raw + pad;
-  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + kOffSeg);
-  const uint32_t qbar = base + kOffBar;
+  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + C::kOffSeg);
+  const uint32_t qbar = base + C::kOffBar;
   const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * kStages;
 
   const int bh = blockIdx.x;
@@ -105,19 +123,19 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
   if (threadIdx.x >= kConsumers) {            // producer warp
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      mbar_arrive_tx(qbar, kTileQ);
-      tma_load_3d(base + kOffQ, &tmQ, qbar, 0, q0, bh);
+      mbar_arrive_tx(qbar, C::kTileQ);
+      Tile<D>::load(base + C::kOffQ, &tmQ, qbar, q0, bh, kRowsQ);
     }
     for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
       const int s = i % kStages;
       const uint32_t full = full0 + 8 * s;
       mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
       if (lane == 0) {
-        mbar_arrive_tx(full, 2 * kTileK);
-        tma_load_3d(base + kOffK + s * kTileK, &tmK, full, 0, kb * kRowsK,
-                    kvh);
-        tma_load_3d(base + kOffV + s * kTileK, &tmV, full, 0, kb * kRowsK,
-                    kvh);
+        mbar_arrive_tx(full, 2 * C::kTileK);
+        Tile<D>::load(base + C::kOffK + s * C::kTileK, &tmK, full,
+                      kb * kRowsK, kvh, kRowsK);
+        Tile<D>::load(base + C::kOffV + s * C::kTileK, &tmV, full,
+                      kb * kRowsK, kvh, kRowsK);
       }
       if (segk != nullptr)
         for (int j = lane; j < kRowsK; j += 32) {
@@ -146,25 +164,21 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
     m[h] = kNegInf;
     l[h] = 0.f;
   }
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < 32; ++r) acc[r] = 0.f;
-  const uint64_t dq = desc_kmajor(base + kOffQ + wg * 64 * kRowBytes);
+  for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
   mbar_wait(qbar, 0);
 
   for (int kb = kb_lo, i = 0; kb < kb_hi; ++kb, ++i) {
     const int s = i % kStages;
     const int k0 = kb * kRowsK;
-    const uint32_t kaddr = base + kOffK + s * kTileK;
-    const uint32_t vaddr = base + kOffV + s * kTileK;
+    const uint32_t kaddr = base + C::kOffK + s * C::kTileK;
+    const uint32_t vaddr = base + C::kOffV + s * C::kTileK;
     mbar_wait(full0 + 8 * s, (i / kStages) & 1);
 
-    float sc[64];
-    const uint64_t dk = desc_kmajor(kaddr);
+    float sc[kRowsK / 2];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)        // +32 bytes = 16 columns of D
-      wgmma_ss_n128(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    wgmma_ss_tile<D>(sc, base + C::kOffQ, kRowsQ, 64 * wg, kaddr);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -176,7 +190,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
     float mx[2] = {kNegInf, kNegInf};
     if (need_mask) {
 #pragma unroll
-      for (int r = 0; r < 64; ++r) {
+      for (int r = 0; r < kRowsK / 2; ++r) {
         const int h = (r >> 1) & 1, c = frag_col(r);
         const int sk = segk != nullptr ? seg_tile[s * kRowsK + c] : 0;
         sc[r] = mask(qpos[h], k0 + c, sq[h], sk) ? sc[r] * scale2 : kNegInf;
@@ -184,7 +198,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
       }
     } else {
 #pragma unroll
-      for (int r = 0; r < 64; ++r) {
+      for (int r = 0; r < kRowsK / 2; ++r) {
         sc[r] *= scale2;
         mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
       }
@@ -201,71 +215,84 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
       m[h] = m_new;
     }
 #pragma unroll
-    for (int r = 0; r < 64; ++r) {
+    for (int r = 0; r < kRowsK / 2; ++r) {
       sc[r] = exp2f(sc[r] - m_use[(r >> 1) & 1]);
       psum[(r >> 1) & 1] += sc[r];
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) acc[r] *= corr[(r >> 1) & 1];
+    for (int r = 0; r < D / 2; ++r) acc[r] *= corr[(r >> 1) & 1];
 
-    uint32_t a[8][4];
+    uint32_t a[kRowsK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) to_a_frag(sc, kk, a[kk]);
+    for (int kk = 0; kk < kRowsK / 16; ++kk) to_a_frag(sc, kk, a[kk]);
     fence_regs(acc);
     fence_regs(a);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)        // 16 kv rows of V = 2048 bytes
-      wgmma_rs_n64<1>(acc, a[kk], desc_mnmajor(vaddr + kk * 16 * kRowBytes));
+    for (int kk = 0; kk < kRowsK / 16; ++kk)   // 16 kv rows of V a step
+      wgmma_rs_tile<D, 1>(acc, a[kk], vaddr, kRowsK, 16 * kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(empty0 + 8 * s);
   }
 
-  const int cq = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (qpos[h] >= Lq) continue;
     const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
-    __nv_bfloat16* orow = o + ((size_t)bh * Lq + qpos[h]) * 64;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = 4 * j + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * cq) =
-          __floats2bfloat162_rn(acc[r] * inv, acc[r + 1] * inv);
-    }
-    if (cq == 0)
+    store_row<D>(o + ((size_t)bh * Lq + qpos[h]) * D, acc, h, inv);
+    if ((threadIdx.x & 3) == 0)
       lse[(size_t)bh * Lq + qpos[h]] =
           l[h] == 0.f ? kNegInf : m[h] / kLog2e + logf(l[h]);
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const int* segq,
+           const int* segk, void* o, float* lse, int BH, int H, int Hkv,
+           int Lq, int Lk, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using C = Fwd<D>;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv;
+  if (!Tile<D>::make_map(&mq, q, BH, Lq, kRowsQ) ||
+      !Tile<D>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
+      !Tile<D>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
+  fwd_sm90_kernel<D><<<grid, kThreadsFwd, C::kSmem, stream>>>(
+      mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, causal,
+      window, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
                     const int* segq, const int* segk, void* o, float* lse,
-                    int BH, int H, int Hkv, int Lq, int Lk, int causal,
+                    int BH, int H, int Hkv, int Lq, int Lk, int D, int causal,
                     int window, float scale, cudaStream_t stream) {
-  const int BHkv = BH / H * Hkv;
-  CUtensorMap mq, mk, mv;
-  if (!sm90::make_map(&mq, q, BH, Lq, kRowsQ) ||
-      !sm90::make_map(&mk, k, BHkv, Lk, kRowsK) ||
-      !sm90::make_map(&mv, v, BHkv, Lk, kRowsK))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemFwd);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
-  fwd_sm90_kernel<<<grid, kThreadsFwd, kSmemFwd, stream>>>(
-      mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, causal,
-      window, scale);
-  return (int)cudaGetLastError();
+  switch (D) {
+    case 32:
+      return launch<32>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
+                        causal, window, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
+                        causal, window, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
+                         causal, window, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash

@@ -5,10 +5,13 @@
 //
 // What it computes: out = ((x * (1/255)) - mean[c]) * inv_std[c], cast to
 // bfloat16 (round to nearest even) or float32, over a uint8 (N, H, W, C)
-// image batch, c = i % C of the flat element index i. mean and inv_std are C
-// <= 4 float32 values passed by value. The TPU kernel tiled mean and inv_std
-// to full (H*W*C,) rows to match its block layout (:45-46); here the channel
-// is the flat index modulo C, and nothing but the image is read.
+// image batch, c = i % C of the flat element index i, for any C. mean and
+// inv_std come as one float32 (2, C) table in device memory; each block
+// stages it in shared memory (up to kStagedChannels channels; a wider table
+// is read where it lies, through the read-only cache). The TPU kernel tiled
+// mean and inv_std to full (H*W*C,) rows to match its block layout
+// (:45-46); here the channel is the flat index modulo C, and nothing but the
+// image and the 2 C table is read.
 //
 // Rounding: each of the three operations rounds on its own (__fmul_rn,
 // __fsub_rn, __fmul_rn), as the plain PyTorch twin and the JAX reference's
@@ -33,20 +36,13 @@ namespace normalize {
 constexpr int kGroup = 16;     // elements per thread: one 16-byte load
 constexpr int kThreads = 256;
 
-struct Channels {
-  float mean[4];
-  float inv_std[4];
-};
+constexpr int kStagedChannels = 1024;   // 8 KB of shared memory a block
 
-__device__ __forceinline__ float pick(const float (&v)[4], int c) {
-  // selects, not an indexed load: keeps the parameters out of local memory
-  return c == 0 ? v[0] : c == 1 ? v[1] : c == 2 ? v[2] : v[3];
-}
-
-__device__ __forceinline__ float apply(uint32_t x, int c, const Channels& p) {
+__device__ __forceinline__ float apply(uint32_t x, int c, const float* mean,
+                                       const float* inv_std) {
   const float kScale = (float)(1.0 / 255.0);
   float s = __fmul_rn((float)x, kScale);
-  return __fmul_rn(__fsub_rn(s, pick(p.mean, c)), pick(p.inv_std, c));
+  return __fmul_rn(__fsub_rn(s, mean[c]), inv_std[c]);
 }
 
 __device__ __forceinline__ void store_one(float* out, float v) { *out = v; }
@@ -76,7 +72,17 @@ __device__ __forceinline__ void store_group(__nv_bfloat16* out,
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     normalize_kernel(const uint8_t* __restrict__ x, OutT* __restrict__ out,
-                     long long n, int C, Channels p, int vector) {
+                     long long n, int C, const float* __restrict__ table,
+                     int vector) {
+  __shared__ float staged[2 * kStagedChannels];
+  const float* ch = table;                   // mean[C], then inv_std[C]
+  if (C <= kStagedChannels) {
+    for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) staged[i] = table[i];
+    __syncthreads();
+    ch = staged;
+  }
+  const float* mean = ch;
+  const float* inv_std = ch + C;
   long long base =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kGroup;
   if (base >= n) return;
@@ -87,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
     float r[kGroup];
 #pragma unroll
     for (int j = 0; j < kGroup; ++j) {
-      r[j] = apply((w[j / 4] >> (8 * (j % 4))) & 0xffu, c, p);
+      r[j] = apply((w[j / 4] >> (8 * (j % 4))) & 0xffu, c, mean, inv_std);
       c = (c + 1 == C) ? 0 : c + 1;
     }
     store_group(out + base, r);
@@ -95,38 +101,36 @@ __global__ void __launch_bounds__(kThreads)
   }
   long long end = base + kGroup < n ? base + kGroup : n;
   for (long long i = base; i < end; ++i) {
-    store_one(out + i, apply(x[i], c, p));
+    store_one(out + i, apply(x[i], c, mean, inv_std));
     c = (c + 1 == C) ? 0 : c + 1;
   }
 }
 
 template <typename OutT>
-int launch(const uint8_t* x, void* out, long long n, int C, const Channels& p,
-           cudaStream_t stream) {
+int launch(const uint8_t* x, void* out, long long n, int C,
+           const float* table, cudaStream_t stream) {
   OutT* o = static_cast<OutT*>(out);
   int vector = ((uintptr_t)x % 16 == 0) && ((uintptr_t)o % 16 == 0);
   long long groups = (n + kGroup - 1) / kGroup;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   normalize_kernel<OutT><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, o, n, C, p, vector);
+      x, o, n, C, table, vector);
   return (int)cudaGetLastError();
 }
 
 }  // namespace normalize
 
-// out_dtype: 0 float32, 1 bfloat16 (as ops/kernels.py _DTYPES).
+// table: float32 (2, C) on the device, mean then inv_std. out_dtype: 0
+// float32, 1 bfloat16 (as ops/kernels.py _DTYPES).
 extern "C" int normalize_u8(const void* x, void* out, long long n, int C,
-                            float m0, float m1, float m2, float m3, float s0,
-                            float s1, float s2, float s3, int out_dtype,
-                            void* stream) {
-  if (C < 1 || C > 4 || n < 0) return (int)cudaErrorInvalidValue;
+                            const float* table, int out_dtype, void* stream) {
+  if (C < 1 || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  normalize::Channels p = {{m0, m1, m2, m3}, {s0, s1, s2, s3}};
   const uint8_t* in = static_cast<const uint8_t*>(x);
   cudaStream_t s = (cudaStream_t)stream;
-  if (out_dtype == 0) return normalize::launch<float>(in, out, n, C, p, s);
+  if (out_dtype == 0) return normalize::launch<float>(in, out, n, C, table, s);
   if (out_dtype == 1)
-    return normalize::launch<__nv_bfloat16>(in, out, n, C, p, s);
+    return normalize::launch<__nv_bfloat16>(in, out, n, C, table, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,8 +12,8 @@ Four kernels, each behind one wrapper with the same contract as its twin:
 - ``flash_bwd_dkdv`` (K3): ``(dk, dv)`` per q head; bf16 on the tensor cores
   (``csrc/flash_bwd_sm90.cu``), float32 on the FP32 cores
   (``csrc/flash_bwd.cu``);
-- ``normalize`` (K4, ``csrc/normalize.cu``): a uint8 image batch
-  normalised per channel to bfloat16 or float32.
+- ``normalize`` (K4, ``csrc/normalize.cu``): a uint8 image batch of any
+  channel count normalised per channel to bfloat16 or float32.
 
 The attention kernels' contract is over flattened, contiguous tensors: q/do/o
 ``(BH, Lq, D)``, k/v ``(BHkv, Lk, D)`` with ``BH = B * H`` and ``BHkv = B *
@@ -23,13 +23,18 @@ segment ids int32 ``(BH, Lq)`` / ``(BHkv, Lk)`` or None, ``window`` 0 for
 none. A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises — there is no fallback.
 
-The kernels are compiled on first use with one ``nvcc`` call into
-``petastorm_tpu_torch/_build/<hash of the sources>`` and loaded with
+The kernels are compiled on first use, one ``nvcc`` call a source, all
+started together and linked into
+``petastorm_tpu_torch/_build/<hash of the sources>``, and loaded with
 ``ctypes``; nothing is built or imported from CUDA when this module is
-imported. The attention kernels are instantiated for head dim 64 (the
-flagship LM's) in both dtypes, and for head dim 16 in float32 only (the
-multi-rank dry run's; the FP32-core kernels are templated on it); another
-head dim raises until a configuration needs it.
+imported. The attention kernels are instantiated at the head dims of
+:data:`HEAD_DIMS`: 32, 64 and 128 in bf16 (the tensor-core kernels), and
+16, 32, 64 and 128 in float32 (the FP32-core kernels). A launch at any
+other head dim up to :data:`MAX_HEAD_DIM` runs at the next instantiated
+one (:func:`launch_head_dim`): q, k, v and do get zero columns up to it
+(:func:`pad_heads`), the scale stays that of the true head dim, and o, dq,
+dk and dv are cut back (:func:`unpad`). That is exact: zero columns add
+nothing to q k^T and give zero output columns. A head dim past 128 raises.
 
 The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
 bf16 before their second products, where the twins keep float32: their
@@ -42,6 +47,7 @@ keeps atol = rtol = 1e-4.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -53,6 +59,7 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -62,9 +69,14 @@ _SOURCES = ('flash_common.cuh', 'sm90.cuh', 'flash_fwd.cu',
             'flash_bwd_sm90.cu', 'normalize.cu')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-_HEAD_DIM = 64                 # csrc/flash_common.cuh kHeadDim
-_HEAD_DIM_F32 = (16, 64)       # ... and kHeadDimSmall, float32 only
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Head dims the attention kernels are instantiated for, by dtype
+#: (``csrc/flash_common.cuh`` for float32, ``csrc/sm90.cuh``'s ``Tile<D>``
+#: for bf16).
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+             torch.bfloat16: (32, 64, 128)}
+MAX_HEAD_DIM = 128
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -97,12 +109,12 @@ def _nvcc() -> str:
 #: Argument types of the C entry points, as declared in ``csrc/*.cu``: p a
 #: pointer (or the stream), i an int, l a long long, f a float. Flash: the
 #: pointers; BH, H, Hkv, Lq, Lk, D, causal, window; scale; dtype (and
-#: out_f32); stream. normalize_u8: x, out; n; C; mean[4], inv_std[4]; out
-#: dtype; stream.
+#: out_f32); stream. normalize_u8: x, out; n; C; the (2, C) mean / inv_std
+#: table; out dtype; stream.
 _SIGNATURES = {'flash_fwd': 'p' * 7 + 'i' * 8 + 'fip',
                'flash_bwd_dq': 'p' * 9 + 'i' * 8 + 'fip',
                'flash_bwd_dkdv': 'p' * 10 + 'i' * 8 + 'fiip',
-               'normalize_u8': 'ppli' + 'f' * 8 + 'ip'}
+               'normalize_u8': 'pplipip'}
 _CTYPES = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'l': ctypes.c_longlong,
            'f': ctypes.c_float}
 
@@ -118,7 +130,8 @@ def bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library: one
+    ``nvcc -c`` a source, all started together, then one link."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -132,21 +145,51 @@ def build() -> ctypes.CDLL:
         log, cached = '', lib_path.exists()
         if not cached:
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / ('.tmp-%d.so' % os.getpid())
-            cmd = [_nvcc(), *_NVCC_FLAGS, '-o', str(tmp),
-                   *(str(_CSRC / n) for n in _SOURCES if n.endswith('.cu'))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError('nvcc failed (%d):\n%s'
-                                   % (proc.returncode, log))
-            os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+            log = _compile(out_dir, lib_path)
             (out_dir / 'build.log').write_text(log)
         lib = bind(ctypes.CDLL(str(lib_path)), _SIGNATURES)
         BUILD_INFO.update(seconds=time.perf_counter() - start,
                           path=str(lib_path), log=log, cached=cached)
         _lib = lib
         return lib
+
+
+def _compile(out_dir: Path, lib_path: Path) -> str:
+    """Build ``lib_path`` from every ``.cu`` of :data:`_SOURCES`; returns
+    the compilers' report (``-Xptxas -v``: registers and spills)."""
+    nvcc, tag = _nvcc(), '%d' % os.getpid()
+    compile_flags = [f for f in _NVCC_FLAGS if f != '-shared'] + ['-c']
+    objects, procs = [], []
+    for name in _SOURCES:
+        if not name.endswith('.cu'):
+            continue
+        obj = out_dir / ('%s.%s.o' % (name[:-3], tag))
+        objects.append(obj)
+        procs.append((name, subprocess.Popen(
+            [nvcc, *compile_flags, '-o', str(obj), str(_CSRC / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        logs.append('== %s\n%s' % (name, out))
+        if proc.returncode != 0:
+            failed.append(name)
+    if not failed:
+        tmp = out_dir / ('.tmp-%s.so' % tag)
+        link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], '-shared', '-o',
+                               str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        logs.append('== link\n%s%s' % (link.stdout, link.stderr))
+        if link.returncode != 0:
+            failed.append('link')
+        else:
+            os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    log = ''.join(logs)
+    if failed:
+        raise RuntimeError('nvcc failed (%s):\n%s' % (', '.join(failed), log))
+    return log
 
 
 # ---------------------------------------------------------------------------
@@ -422,18 +465,39 @@ def _check_tma(name, *tensors):
                              % (name, t.data_ptr() % 16))
 
 
+def launch_head_dim(d: int, dtype) -> int:
+    """The head dim a CUDA launch at head dim ``d`` runs at: the least one
+    of :data:`HEAD_DIMS` for ``dtype`` that is at least ``d``. Raises
+    ``ValueError`` past :data:`MAX_HEAD_DIM`."""
+    for width in HEAD_DIMS.get(dtype, ()):
+        if width >= d:
+            return width
+    raise ValueError('head dim %d not supported by the CUDA kernels: at most '
+                     '%d (built for %s)' % (d, MAX_HEAD_DIM,
+                                            HEAD_DIMS.get(dtype)))
+
+
+def pad_heads(width: int, *tensors) -> Tuple[torch.Tensor, ...]:
+    """Each tensor with zero columns appended to its last (head) dim up to
+    ``width`` (a new contiguous tensor; as it is when already that wide)."""
+    return tuple(t if t.shape[-1] == width
+                 else F.pad(t, (0, width - t.shape[-1])) for t in tensors)
+
+
+def unpad(d: int, *tensors) -> Tuple[torch.Tensor, ...]:
+    """Each tensor cut back to its first ``d`` head-dim columns
+    (contiguous)."""
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous()
+                 for t in tensors)
+
+
 def _launch_args(q, n_heads, n_kv_heads, causal, window):
     bh, lq, d = q.shape
-    if q.dtype == torch.float32 and d not in _HEAD_DIM_F32:
-        raise ValueError('head dim %d not supported by the float32 CUDA '
-                         'kernels (built for %s)' % (d, _HEAD_DIM_F32))
-    if q.dtype != torch.float32 and d != _HEAD_DIM:
-        raise ValueError('head dim %d not supported by the CUDA kernels '
-                         '(built for %d only)' % (d, _HEAD_DIM))
+    width = launch_head_dim(d, q.dtype)
     if bh > 65535:
         raise ValueError('batch x heads = %d exceeds the grid limit 65535'
                          % bh)
-    return (n_heads, n_kv_heads, int(bool(causal)),
+    return (width, n_heads, n_kv_heads, int(bool(causal)),
             int(window) if causal and window is not None else 0)
 
 
@@ -450,10 +514,12 @@ def flash_fwd(q, k, v, *, n_heads, n_kv_heads, causal=True, window=None,
     shapes.update(_seg_shapes(seg_q, seg_kv, bh, bhkv, lq, lk))
     _check_cuda('flash_fwd', {'q': q, 'k': k, 'v': v, 'seg_q': seg_q,
                               'seg_kv': seg_kv}, q.dtype, shapes)
-    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    width, h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal,
+                                       window)
     if lq == 0 or bh == 0 or lk == 0:   # nothing to attend to: no launch
         return (torch.zeros_like(q),
                 torch.full((bh, lq), NEG_INF, device=q.device))
+    q, k, v = pad_heads(width, q, k, v)
     if q.dtype == torch.bfloat16:
         _check_tma('flash_fwd', q, k, v)
     o = torch.empty_like(q)
@@ -461,11 +527,11 @@ def flash_fwd(q, k, v, *, n_heads, n_kv_heads, causal=True, window=None,
     lib = build()
     err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         _ptr(seg_q), _ptr(seg_kv), o.data_ptr(),
-                        lse.data_ptr(), bh, h, hkv, lq, lk, d, c, w,
+                        lse.data_ptr(), bh, h, hkv, lq, lk, width, c, w,
                         1.0 / math.sqrt(d), _DTYPES[q.dtype], _stream())
     LAUNCHES['flash_fwd'] += 1
     _raise_on('flash_fwd', err)
-    return o, lse
+    return unpad(d, o)[0], lse
 
 
 def _check_bwd(name, q, k, v, do, lse, delta, seg_q, seg_kv, n_heads,
@@ -492,9 +558,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
                                   window=window, seg_q=seg_q, seg_kv=seg_kv)
     bh, _, lq, lk, d = _check_bwd('flash_bwd_dq', q, k, v, do, lse, delta,
                                   seg_q, seg_kv, n_heads, n_kv_heads, window)
-    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    width, h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal,
+                                       window)
     if lq == 0 or bh == 0 or lk == 0:   # no (q, k) pair: no launch
         return torch.zeros_like(q)
+    q, k, v, do = pad_heads(width, q, k, v, do)
     if q.dtype == torch.bfloat16:
         _check_tma('flash_bwd_dq', q, k, v, do)
     dq = torch.empty_like(q)
@@ -502,11 +570,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            _ptr(seg_q), _ptr(seg_kv), dq.data_ptr(), bh, h,
-                           hkv, lq, lk, d, c, w, 1.0 / math.sqrt(d),
+                           hkv, lq, lk, width, c, w, 1.0 / math.sqrt(d),
                            _DTYPES[q.dtype], _stream())
     LAUNCHES['flash_bwd_dq'] += 1
     _raise_on('flash_bwd_dq', err)
-    return dq
+    return unpad(d, dq)[0]
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
@@ -521,26 +589,28 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
                                     seg_kv=seg_kv)
     bh, _, lq, lk, d = _check_bwd('flash_bwd_dkdv', q, k, v, do, lse, delta,
                                   seg_q, seg_kv, n_heads, n_kv_heads, window)
-    h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal, window)
+    width, h, hkv, c, w = _launch_args(q, n_heads, n_kv_heads, causal,
+                                       window)
     out_f32 = n_heads != n_kv_heads
     out = torch.float32 if out_f32 else k.dtype
     if lk == 0 or bh == 0 or lq == 0:   # no (q, k) pair: no launch
         dk = torch.zeros(bh, lk, d, dtype=out, device=q.device)
         return dk, dk.clone()
+    q, k, v, do = pad_heads(width, q, k, v, do)
     if q.dtype == torch.bfloat16:
         _check_tma('flash_bwd_dkdv', q, k, v, do)
-    dk = torch.empty(bh, lk, d, dtype=out, device=q.device)
-    dv = torch.empty(bh, lk, d, dtype=out, device=q.device)
+    dk = torch.empty(bh, lk, width, dtype=out, device=q.device)
+    dv = torch.empty(bh, lk, width, dtype=out, device=q.device)
     lib = build()
     err = lib.flash_bwd_dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                              _ptr(seg_q), _ptr(seg_kv), dk.data_ptr(),
-                             dv.data_ptr(), bh, h, hkv, lq, lk, d, c, w,
+                             dv.data_ptr(), bh, h, hkv, lq, lk, width, c, w,
                              1.0 / math.sqrt(d), _DTYPES[q.dtype],
                              int(out_f32), _stream())
     LAUNCHES['flash_bwd_dkdv'] += 1
     _raise_on('flash_bwd_dkdv', err)
-    return dk, dv
+    return unpad(d, dk, dv)
 
 
 # ---------------------------------------------------------------------------
@@ -571,28 +641,35 @@ def normalize_plain(images, mean, inv_std, dtype=torch.bfloat16):
     return ((x - mean.to(dev)) * inv_std.to(dev)).to(dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _channel_table(device: str, values: Tuple[float, ...]) -> torch.Tensor:
+    """The mean then inv_std ``values`` as one float32 (2, C) table on
+    ``device``, made once for each set of values (the copy is waited for,
+    so a launch on any stream sees it; the kernels only read it)."""
+    table = torch.tensor(values, dtype=torch.float32).view(2, -1).to(device)
+    torch.cuda.synchronize(device)
+    return table
+
+
 def normalize(images, mean, inv_std, dtype=torch.bfloat16) -> torch.Tensor:
     """K4: the uint8 ``(N, H, W, C)`` batch normalised per channel to
-    ``dtype`` (float32 or bfloat16), ``C <= 4``. ``mean`` and ``inv_std``
-    are float32 ``(C,)`` tensors on any device; their values travel to the
-    kernel as launch arguments."""
+    ``dtype`` (float32 or bfloat16), any ``C``. ``mean`` and ``inv_std`` are
+    float32 ``(C,)`` tensors on any device; the kernel reads them as one
+    table on the card (:func:`_channel_table`)."""
     if not images.is_cuda:
         return normalize_plain(images, mean, inv_std, dtype)
     _check_channels(images, mean, inv_std, dtype)
     if not images.is_contiguous():
         raise ValueError('normalize: images must be contiguous')
-    c = images.shape[-1]
-    if c > 4:
-        raise ValueError('normalize: at most 4 channels, got %d' % c)
     out = torch.empty(images.shape, dtype=dtype, device=images.device)
     if images.numel() == 0:
         return out
-    pad = [0.0] * (4 - c)
-    m = [float(v) for v in mean.cpu()] + pad
-    s = [float(v) for v in inv_std.cpu()] + pad
+    table = _channel_table(str(images.device),
+                           tuple(mean.tolist() + inv_std.tolist()))
     lib = build()
     err = lib.normalize_u8(images.data_ptr(), out.data_ptr(), images.numel(),
-                           c, *m, *s, _DTYPES[dtype], _stream())
+                           images.shape[-1], table.data_ptr(),
+                           _DTYPES[dtype], _stream())
     LAUNCHES['normalize'] += 1
     _raise_on('normalize', err)
     return out

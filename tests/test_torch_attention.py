@@ -5,8 +5,10 @@ The same numpy inputs go through ``_pallas_flash`` / ``_pallas_flash_backward``
 (``interpret=True``) and through the port's CPU path, which is the plain
 PyTorch twin of each CUDA kernel (K1 forward, K2 dq, K3 dk/dv). All float32;
 tolerance ``atol = rtol = 2e-5`` (the two sum in different block orders:
-Pallas blocks of 16, the twins blocks of 512). A CUDA-marked test holds the
-kernels themselves against the twins on the card.
+Pallas blocks of 16, the twins blocks of 512). The cases run at head dim 16,
+and again at ``HEAD_DIMS`` (32 and 128, which the kernels are built for, and
+80, which a CUDA launch pads to 128). A CUDA-marked test holds the kernels
+themselves against the twins on the card.
 """
 
 import jax
@@ -23,6 +25,7 @@ from petastorm_tpu_torch.ops import kernels
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 BLOCK = 16
+HEAD_DIMS = [32, 80, 128]
 
 # (name, q heads, kv heads, Lq, Lk, causal, window, segmented)
 CASES = [
@@ -66,8 +69,18 @@ def _t(*arrays):
 
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_forward_matches_pallas_interpret(case):
+    _check_forward(case, 16)
+
+
+@pytest.mark.parametrize('d', HEAD_DIMS)
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_forward_matches_pallas_interpret_head_dims(case, d):
+    _check_forward(case, d)
+
+
+def _check_forward(case, d):
     _, h, hkv, lq, lk, causal, window, segmented = case
-    q, k, v, _, segs = _inputs(1, h, hkv, lq, lk, segmented=segmented)
+    q, k, v, _, segs = _inputs(1, h, hkv, lq, lk, d, segmented=segmented)
     o_ref, lse_ref = _pallas_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, BLOCK, BLOCK,
         interpret=True, with_lse=True, window=window, **_jax_segs(segs))
@@ -82,8 +95,18 @@ def test_forward_matches_pallas_interpret(case):
 
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_backward_matches_pallas_interpret(case):
+    _check_backward(case, 16)
+
+
+@pytest.mark.parametrize('d', HEAD_DIMS)
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_backward_matches_pallas_interpret_head_dims(case, d):
+    _check_backward(case, d)
+
+
+def _check_backward(case, d):
     _, h, hkv, lq, lk, causal, window, segmented = case
-    q, k, v, do, segs = _inputs(2, h, hkv, lq, lk, segmented=segmented)
+    q, k, v, do, segs = _inputs(2, h, hkv, lq, lk, d, segmented=segmented)
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
     o, lse = _pallas_flash(jq, jk, jv, causal, BLOCK, BLOCK, interpret=True,
                            with_lse=True, window=window, **_jax_segs(segs))
@@ -99,11 +122,24 @@ def test_backward_matches_pallas_interpret(case):
                                    **TOL)
 
 
-@pytest.mark.parametrize('case', [CASES[0], CASES[3], CASES[4]],
-                         ids=['causal', 'gqa', 'segments_masked_row'])
+AUTOGRAD_CASES = [CASES[0], CASES[3], CASES[4]]
+AUTOGRAD_IDS = ['causal', 'gqa', 'segments_masked_row']
+
+
+@pytest.mark.parametrize('case', AUTOGRAD_CASES, ids=AUTOGRAD_IDS)
 def test_autograd_matches_jax_grad(case):
+    _check_autograd(case, 16)
+
+
+@pytest.mark.parametrize('d', HEAD_DIMS)
+@pytest.mark.parametrize('case', AUTOGRAD_CASES, ids=AUTOGRAD_IDS)
+def test_autograd_matches_jax_grad_head_dims(case, d):
+    _check_autograd(case, d)
+
+
+def _check_autograd(case, d):
     _, h, hkv, lq, lk, causal, window, segmented = case
-    q, k, v, w, segs = _inputs(3, h, hkv, lq, lk, segmented=segmented)
+    q, k, v, w, segs = _inputs(3, h, hkv, lq, lk, d, segmented=segmented)
 
     def jax_loss(q, k, v):
         o = jax_flash(q, k, v, causal=causal, block_q=BLOCK, block_k=BLOCK,

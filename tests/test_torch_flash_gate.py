@@ -302,8 +302,8 @@ MUTANTS = {
         'const bool diag = causal && k0 + kRowsK - 1 > r0;',
         'const bool diag = false;'),
     'fwd_pv_transpose_flipped': ('flash_fwd', 'flash_fwd_sm90.cu',
-                                 'wgmma_rs_n64<1>(acc, a[kk]',
-                                 'wgmma_rs_n64<0>(acc, a[kk]'),
+                                 'wgmma_rs_tile<D, 1>(acc, a[kk]',
+                                 'wgmma_rs_tile<D, 0>(acc, a[kk]'),
     'dkdv_p_ds_truncated': ('flash_bwd_dkdv', 'sm90.cuh') + _TRUNCATE,
     'dkdv_ds_truncated': (
         'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
@@ -316,16 +316,16 @@ MUTANTS = {
         'const bool diag = causal && kr0 + 63 > q0;',
         'const bool diag = false;'),
     'dkdv_dsq_transpose_flipped': ('flash_bwd_dkdv', 'flash_bwd_sm90.cu',
-                                   'wgmma_rs_n64<1>(dk_acc, dsa[kk]',
-                                   'wgmma_rs_n64<0>(dk_acc, dsa[kk]'),
+                                   'wgmma_rs_tile<D, 1>(dk_acc, dsa[kk]',
+                                   'wgmma_rs_tile<D, 0>(dk_acc, dsa[kk]'),
     'dq_ds_truncated': ('flash_bwd_dq', 'sm90.cuh') + _TRUNCATE,
     'dq_causal_diagonal_unmasked': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
         'const bool diag = causal && k0 + kRowsK - 1 > r0;',
         'const bool diag = false;'),
     'dq_dsk_transpose_flipped': ('flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
-                                 'wgmma_rs_n64<1>(dq_acc, dsa[kk]',
-                                 'wgmma_rs_n64<0>(dq_acc, dsa[kk]'),
+                                 'wgmma_rs_tile<D, 1>(dq_acc, dsa[kk]',
+                                 'wgmma_rs_tile<D, 0>(dq_acc, dsa[kk]'),
     'dq_window_edge_unmasked': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
         '(causal && window > 0 && r0 + 63 - k0 >= window)', 'false'),

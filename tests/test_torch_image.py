@@ -125,6 +125,67 @@ def test_normalize_twin_matches_jax(backend, stats, dtype):
                                     maxulp=F32_MAX_ULP[stats, backend])
 
 
+# channel counts beyond RGB, under three kinds of stats: mean 0 / std 1;
+# ImageNet's cycled over the channels (channel i takes RGB channel i % 3's);
+# and a distinct mean and std a channel (std >= 0.225 keeps 1/std within
+# F32_ATOL's 4.45)
+CHANNEL_COUNTS = [1, 3, 8]
+
+
+def _channel_stats(c, kind):
+    if kind == 'zero_one':
+        return (0.0,) * c, (1.0,) * c
+    if kind == 'imagenet':
+        return (tuple(IMAGENET_MEAN[i % 3] for i in range(c)),
+                tuple(IMAGENET_STD[i % 3] for i in range(c)))
+    return (tuple(float(x) for x in np.linspace(0.1, 0.8, c)),
+            tuple(float(x) for x in np.linspace(0.225, 0.5, c)))
+
+
+def _as_bf16_bits(x):
+    return _bits(np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                            .astype(jnp.float32)))
+
+
+@pytest.mark.parametrize('dtype', sorted(DTYPES))
+@pytest.mark.parametrize('kind', ['zero_one', 'imagenet', 'distinct'])
+@pytest.mark.parametrize('channels', CHANNEL_COUNTS)
+def test_normalize_any_channel_count_matches_jax_interpret(channels, kind,
+                                                           dtype):
+    """K4's twin at 1, 3 and 8 channels against JAX's Pallas kernel in
+    interpret mode, every uint8 value in every channel. Mean 0 / std 1:
+    bit-equal in both dtypes. Otherwise JAX's interpret mode rounds the
+    multiply and subtract once (an FMA, see
+    ``test_normalize_twin_matches_jax``) where the twin rounds each: the
+    twin is the twice-rounded formula bit for bit and JAX the fused one,
+    each then cast to ``dtype``; bf16 outputs are bit-equal wherever the
+    two float32 values are (every element under ImageNet's stats), float32
+    outputs within F32_ATOL."""
+    v = np.arange(256, dtype=np.uint8).reshape(2, 16, 8)
+    images = np.stack([np.roll(v, i) for i in range(channels)], axis=-1)
+    stats = _channel_stats(channels, kind)
+    jdt, tdt = DTYPES[dtype]
+    got = _twin(images, stats, tdt)
+    assert got.dtype == tdt and tuple(got.shape) == images.shape
+    ref = np.asarray(jnormalize(jnp.asarray(images), *stats, dtype=jdt,
+                                backend='interpret').astype(jnp.float32))
+    got32 = got.float().numpy()
+    if kind == 'zero_one' or (dtype == 'bfloat16' and kind == 'imagenet'):
+        np.testing.assert_array_equal(_bits(got32), _bits(ref))
+        return
+    twice = _reference_formula(images, stats, False)
+    fused = _reference_formula(images, stats, True)
+    if dtype == 'bfloat16':
+        np.testing.assert_array_equal(_bits(got32), _as_bf16_bits(twice))
+        np.testing.assert_array_equal(_bits(ref), _as_bf16_bits(fused))
+        same = _bits(twice) == _bits(fused)
+        np.testing.assert_array_equal(_bits(got32)[same], _bits(ref)[same])
+        return
+    np.testing.assert_array_equal(_bits(got32), _bits(twice))
+    np.testing.assert_array_equal(_bits(ref), _bits(fused))
+    np.testing.assert_allclose(got32, ref, atol=F32_ATOL, rtol=0)
+
+
 def test_path_normalisation_equals_jax_step_input():
     """The CNN step's first op (mean 0, std 1, bf16) equals the JAX step's
     ``(x.astype(f32) / 255).astype(bf16)`` bit for bit."""
@@ -173,10 +234,9 @@ def test_normalize_kernel_matches_twin_on_card(case):
 K4_MUTANTS = {
     'fma_contracted': (
         '  float s = __fmul_rn((float)x, kScale);\n'
-        '  return __fmul_rn(__fsub_rn(s, pick(p.mean, c)), '
-        'pick(p.inv_std, c));',
+        '  return __fmul_rn(__fsub_rn(s, mean[c]), inv_std[c]);',
         '  float s = (float)x * kScale;\n'
-        '  return (s - pick(p.mean, c)) * pick(p.inv_std, c);'),
+        '  return (s - mean[c]) * inv_std[c];'),
     'bf16_truncated': (
         'h[j] = __floats2bfloat162_rn(r[2 * j], r[2 * j + 1]);',
         'h[j] = __halves2bfloat162(__float2bfloat16_rz(r[2 * j]), '
@@ -205,9 +265,8 @@ def test_normalize_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
     subprocess.run([kernels._nvcc(), *flags, '-o', str(so), str(cu)],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.normalize_u8.argtypes = [p, p, ctypes.c_longlong, i] + [f] * 8 + [i,
-                                                                          p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.normalize_u8.argtypes = [p, p, ctypes.c_longlong, i, p, i, p]
     lib.normalize_u8.restype = i
     monkeypatch.setattr(kernels, '_lib', lib)
     x = torch.from_numpy(_exhaustive()).cuda()

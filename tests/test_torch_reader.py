@@ -299,7 +299,8 @@ def test_source_scan_finds_no_jax_import():
         r'|import_module\([\'"](jax|petastorm_tpu)[\'".]', re.M)
     root = Path(petastorm_tpu_torch.__file__).parent
     files = sorted(root.rglob('*.py')) + [REPO / 'chip_smoke.py',
-                                          REPO / 'chip_tune_probe.py']
+                                          REPO / 'chip_tune_probe.py',
+                                          REPO / 'chip_tile_probe.py']
     hits = [(str(f), m.group(0)) for f in files
             for m in pattern.finditer(f.read_text())]
     assert not hits, hits

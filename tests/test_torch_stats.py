@@ -15,6 +15,9 @@ start worker processes carry a ``timeout`` mark.
 """
 
 import collections
+import functools
+import shutil
+import uuid
 
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from petastorm_tpu.jax_utils import JaxDataLoader
 from petastorm_tpu.jax_utils import infeed_diagnosis as jdiagnosis
 from petastorm_tpu.ngram import NGram as JNGram
 from petastorm_tpu.predicates import in_lambda as jin_lambda
+from petastorm_tpu.sharedcache import SharedRowGroupCache as JSharedCache
 from petastorm_tpu.transform import TransformSpec as JTransformSpec
 from petastorm_tpu.workers import stats as jstats
 
@@ -41,6 +45,7 @@ from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.ops import decode as tdecode
 from petastorm_tpu_torch.predicates import in_lambda
+from petastorm_tpu_torch.sharedcache import SharedRowGroupCache
 from petastorm_tpu_torch.transform import TransformSpec
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 from petastorm_tpu_torch.workers import stats as tstats
@@ -353,11 +358,21 @@ def test_reader_paths_match_jax(png_store, case, monkeypatch):
         assert counters['bytes_shipped_raw'] > 0
 
 
-def test_shared_cache_hits_and_misses_match_jax(png_store, tmp_path):
+def test_shared_cache_hits_and_misses_match_jax(png_store, tmp_path,
+                                                request):
+    """Each cache's tier 0 lives under ``/dev/shm`` at a name hashed from
+    its root, and outlives the root: a root under a ``uuid4`` segment
+    cannot meet one an earlier run filled, and a finalizer removes the
+    tier-0 directories this test made."""
+    run = uuid.uuid4().hex
     got = {}
     for package in ('jax', 'torch'):
+        root = str(tmp_path / run / package)
+        cache = JSharedCache if package == 'jax' else SharedRowGroupCache
+        request.addfinalizer(functools.partial(
+            shutil.rmtree, cache._default_mem_dir(root), ignore_errors=True))
         kw = dict(cache_type='shared', cache_size_limit=1 << 30,
-                  cache_location=str(tmp_path / package))
+                  cache_location=root)
         got[package] = [_pass(package, 'columnar', png_store, **kw)[1][0]
                         for _ in range(2)]
     assert got['torch'] == got['jax']

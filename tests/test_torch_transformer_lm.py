@@ -6,10 +6,13 @@ made with numpy. Tiny float32 config (vocab 64, d_model 32, 4 heads, 2
 layers, L 16). The JAX side runs ``attention='flash'``, which is its jnp path
 on the CPU; the port's side runs the plain twins of its kernels. Tolerances:
 logits 1e-4, loss 1e-5, gradients 1e-4, parameters after one AdamW step
-1e-5 (float32 sums in different orders).
+1e-5 (float32 sums in different orders). The head-dim cases run d_model 256
+over 2 heads (head dim 128) and over 8 (head dim 32), L 64, with the JAX
+side's flash attention on its Pallas kernels in interpret mode.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -119,6 +122,46 @@ def test_segment_positions_match():
     ref = np.asarray(jtlm._segment_positions(jnp.asarray(seg)))
     got = ttlm._segment_positions(torch.from_numpy(seg))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+HEAD_DIM_CONFIGS = {'head_dim_128': 2, 'head_dim_32': 8}
+
+
+@pytest.mark.parametrize('name', sorted(HEAD_DIM_CONFIGS))
+def test_head_dims_match_pallas_interpret(name, monkeypatch):
+    """Logits, loss and every leaf's gradient at head dims 128 and 32, the
+    JAX LM's flash attention run on its Pallas kernels (interpret mode)."""
+    monkeypatch.setattr(jtlm, 'flash_attention', functools.partial(
+        jtlm.flash_attention, backend='interpret', block_q=32, block_k=32))
+    base = dict(vocab_size=128, d_model=256, n_heads=HEAD_DIM_CONFIGS[name],
+                n_layers=2, d_ff=512, max_seq_len=64, attention='flash')
+    jcfg = jtlm.TransformerConfig(dtype=jnp.float32, **base)
+    tcfg = ttlm.TransformerConfig(dtype=torch.float32, **base)
+    assert tcfg.head_dim == 256 // HEAD_DIM_CONFIGS[name]
+    jp = jtlm.init(jax.random.PRNGKey(4), jcfg)
+    tp = params_from_jax(jax.device_get(jp), tcfg, device='cpu')
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 128, (2, 64)).astype(np.int32)
+    targets = rng.integers(0, 128, (2, 64)).astype(np.int32)
+    ref = np.asarray(jtlm.forward(jp, jnp.asarray(tokens), jcfg))
+    got = ttlm.forward(tp, torch.from_numpy(tokens), tcfg)
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=1e-4,
+                               rtol=1e-4)
+    ref_loss, jgrads = jax.value_and_grad(jtlm.loss_fn)(
+        jp, jnp.asarray(tokens), jnp.asarray(targets), jcfg)
+    leaves = ttlm.parameters(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = ttlm.loss_fn(tp, torch.from_numpy(tokens),
+                        torch.from_numpy(targets), tcfg)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-5,
+                               rtol=1e-5)
+    ref_grads = _leaves_jax(jgrads)
+    assert len(ref_grads) == len(leaves)
+    for i, (a, b) in enumerate(zip(leaves, ref_grads)):
+        np.testing.assert_allclose(a.grad.numpy(), b, atol=1e-4, rtol=1e-4,
+                                   err_msg='leaf %d' % i)
 
 
 def test_unported_configs_raise():
