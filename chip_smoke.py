@@ -7,10 +7,10 @@ printing one line or a few:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the four CUDA kernels from ``csrc/``, one ``nvcc`` call a
    source, all started together, then one link (bf16 K1, K2, K3 on
-   Hopper's tensor cores at head dims 32, 64 and 128:
+   Hopper's tensor cores at head dims 32, 64, 128 and 256:
    ``flash_fwd_sm90.cu``, ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``;
-   float32 K1-K3 on the FP32 cores at 16, 32, 64 and 128: ``flash_fwd.cu``,
-   ``flash_bwd.cu``; K4 ``normalize.cu``);
+   float32 K1-K3 on the FP32 cores at 16, 32, 64, 128 and 256:
+   ``flash_fwd.cu``, ``flash_bwd.cu``; K4 ``normalize.cu``);
 3. kernels: the registers and spills of each kernel (``ptxas -v``); K1
    (forward), K2 (dq) and K3 (dk/dv) against their plain PyTorch twins run
    in float32 on the same values, at the training shape (8, 8, 2048, 64)
@@ -551,8 +551,25 @@ printing one line or a few:
    against its twin. The timing phase then also times K1-K3 at the two
    path shapes, each beside SDPA and aten's flash backward on the same
    operands, and K4 at (64, 224, 224, 8); the kernel table has a row for
-   each kernel at each bf16 head dim (32, 64, 128), each with the
+   each kernel at each bf16 head dim (32, 64, 128, 256), each with the
    registers and spills of that kernel's instantiations.
+30. head-dim 256 line (after phase 29; ``wide_head_line``). (a) K1-K3 at
+   head dim 256, bf16 and float32, against their float32 twins over phase
+   29 (a)'s edge shapes plus MQA 8->1 and Lk = 0 (which launches nothing),
+   and in bf16 at the causal path shape (8, 2, 2048, 256) and at the
+   Gemma-width LM's own (2, 8 over 1 kv head, 2048, 256), under phase 3's
+   gates, each other case launching each kernel once; (b) the padded head
+   dims 160 and 192, bf16 and float32 (ragged, GQA, MQA), launched at 256;
+   (c) the flagship LM at Gemma 2B's widths (``GEMMA_WIDTHS``: vocab
+   256,000, d_model 2048, 8 heads of 256 over 1 kv head, d_ff 16,384,
+   windows of 2,048; depth cut from 18 layers to 8, the batch to 2
+   windows; ~1.93 B parameters): ``reference_check`` on the parameters it
+   then trains (flash against blockwise), then phase 5's main path (NGram
+   ``make_reader`` -> ``TorchDataLoader`` -> ``prefetch_to_device``, 5
+   AdamW steps of 2 windows), its losses finite, K1-K3 launched 5 x 8
+   times each at head dim 256, and ``torch.cuda.max_memory_allocated()``
+   printed. The timing phase times K1-K3 at (8, 2, 2048, 256) beside SDPA
+   and aten's flash backward (H x D = 512: the other rows' bounds).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -687,10 +704,11 @@ def _max_err(torch, got, ref, label, kernels=None, bound=None):
     else:
         limit = TOL_F32 * (1 + ref.abs())
     bad = err > limit
+    worst = float(err.max()) if err.numel() else 0.0   # Lk = 0: dk, dv empty
     check(not bool(bad.any()),
           '%s: %d elements beyond the limit (max abs err %.3g)'
-          % (label, int(bad.sum()), float(err.max())))
-    return float(err.max()) if err.numel() else 0.0
+          % (label, int(bad.sum()), worst))
+    return worst
 
 
 def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
@@ -833,8 +851,9 @@ def write_store(np, url, seq_len, vocab, rows, seed, rows_per_file=None):
 
 
 def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
-              stats=None):
-    """Phase 5 (and phase 29 (c) at ``cfg``): the LM's main path; returns
+              stats=None, batch_size=BATCH, params=None):
+    """Phase 5 (and phases 29 (c) and 30 (c) at ``cfg``, ``batch_size``
+    windows a step, on ``params`` when given): the LM's main path; returns
     the launches of its steps and puts the steady step's seconds in
     ``stats['steady_s']``."""
     from petastorm_tpu_torch import (TorchDataLoader, make_reader,
@@ -848,8 +867,9 @@ def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
                     args.seed)
         log('store %d rows x %d tokens written in %.2f s'
             % (ROWS, cfg.max_seq_len, time.perf_counter() - start))
-        params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
-                          device='cuda')
+        if params is None:
+            params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                              device='cuda')
         _, step = tlm.make_train_step(cfg, params)
         ngram = NGram(fields={0: ['step', 'tokens'], 1: ['tokens']},
                       delta_threshold=1, timestamp_field='step')
@@ -858,7 +878,7 @@ def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
         kernels.reset_launch_counts()
         with make_reader(url, schema_fields=ngram, num_epochs=1,
                          workers_count=4, seed=args.seed) as reader:
-            loader = TorchDataLoader(reader, batch_size=BATCH,
+            loader = TorchDataLoader(reader, batch_size=batch_size,
                                      drop_last=True, device='cuda')
             goodput = loader.goodput
             batches = prefetch_to_device(iter(loader), size=2,
@@ -874,7 +894,7 @@ def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
                     check('_provenance' not in batch,
                           'an NGram batch holds provenance')
                     check(tokens.is_cuda and tuple(tokens.shape)
-                          == (BATCH, cfg.max_seq_len),
+                          == (batch_size, cfg.max_seq_len),
                           'batch tokens %s on %s'
                           % (tuple(tokens.shape), tokens.device))
                     out = step(tokens, targets)
@@ -889,7 +909,7 @@ def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
                         'fence %.2f ms'
                         % ('' if label == 'LM' else label + ' ', i, loss,
                            dt * 1e3,
-                           BATCH * cfg.max_seq_len / dt,
+                           batch_size * cfg.max_seq_len / dt,
                            *(x * 1e3 for x in splits[-1])))
                 launches = dict(kernels.LAUNCHES)
                 if args.profile:
@@ -919,7 +939,7 @@ def main_path(torch, np, tlm, kernels, args, cfg=None, label='LM',
         % ('main path' if label == 'LM' else label + ' main path',
            len(losses), losses[0], losses[-1],
            statistics.median(steady) * 1e3,
-           BATCH * cfg.max_seq_len / statistics.median(steady),
+           batch_size * cfg.max_seq_len / statistics.median(steady),
            json.dumps(launches)))
     return launches
 
@@ -8680,28 +8700,39 @@ K4_CHANNELS = 8
 PHASE27_LM = {}
 
 
-def head_dim_gates(torch, kernels, gen, errs):
-    """Phase 29 (a), (b): each new instantiation, and the padded head dims,
-    against the twins; ``errs[(kernel, D)]`` gets the bf16 max abs errors
-    at D 32 and 128."""
-    for d, shape in HEAD_DIM_PATHS.items():
-        b, h, l, _ = shape
-        case = compare_case(torch, kernels, 'D=%d path bf16 causal' % d, gen,
-                            b=b, h=h, hkv=h, lq=l, lk=l, d=d,
-                            dtype=torch.bfloat16)
-        for name, err in case.items():
-            errs[name, d] = max(errs.get((name, d), 0.0), err)
+def head_dim_gates(torch, kernels, gen, errs, paths, edges, padded,
+                   padded_edges):
+    """Phases 29 (a), (b) and 30 (a), (b): K1-K3 at each head dim D of
+    ``paths`` ({D: [(label, shape), ...]}) in bf16 at each shape, and in
+    bf16 and float32 over ``edges``, each edge launching each kernel once
+    (none where Lk = 0); then each head dim of ``padded`` over
+    ``padded_edges``, each launching each kernel once; against the twins.
+    ``errs[(kernel, D)]`` gets the bf16 max abs errors at each D of
+    ``paths``."""
+    for d, shapes in paths.items():
+        for label, shape in shapes:
+            case = compare_case(torch, kernels, 'D=%d %s bf16 causal'
+                                % (d, label), gen, d=d,
+                                dtype=torch.bfloat16, **shape)
+            for name, err in case.items():
+                errs[name, d] = max(errs.get((name, d), 0.0), err)
         for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
-            for label, edge in EDGE_CASES:
+            for label, edge in edges:
+                kernels.reset_launch_counts()
                 case = compare_case(torch, kernels, 'D=%d %s %s'
                                     % (d, tag, label), gen, d=d,
                                     dtype=dtype, **edge)
+                launched = dict(kernels.LAUNCHES)
+                want = 0 if edge['lk'] == 0 else 1
+                check(all(launched[k] == want for k in FLASH),
+                      'D=%d %s %s: launches %r, expected %d of each'
+                      % (d, tag, label, launched, want))
                 if dtype == torch.bfloat16:
                     for name, err in case.items():
                         errs[name, d] = max(errs[name, d], err)
-    for d in PADDED_HEAD_DIMS:
+    for d in padded:
         for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
-            for label, edge in (EDGE_CASES[0], EDGE_CASES[2]):
+            for label, edge in padded_edges:
                 kernels.reset_launch_counts()
                 compare_case(torch, kernels, 'D=%d padded %s %s'
                              % (d, tag, label), gen, d=d, dtype=dtype,
@@ -8784,7 +8815,10 @@ def head_dim_line(torch, np, tlm, kernels, args, gen, errs):
     """Phase 29. Returns ({D: launches of that head dim's main path},
     {D: steady step ms})."""
     phase = time.perf_counter()
-    head_dim_gates(torch, kernels, gen, errs)
+    paths = {d: [('path', dict(b=b, h=h, hkv=h, lq=l, lk=l))]
+             for d, (b, h, l, _) in HEAD_DIM_PATHS.items()}
+    head_dim_gates(torch, kernels, gen, errs, paths, EDGE_CASES,
+                   PADDED_HEAD_DIMS, (EDGE_CASES[0], EDGE_CASES[2]))
     log('phase 29 (a, b) %s kernel gates at D 32, 128 and padded %s %.1f s'
         % (CARD, PADDED_HEAD_DIMS, time.perf_counter() - phase))
     phase = time.perf_counter()
@@ -8851,14 +8885,108 @@ def k4_channels_check(torch, kernels):
     return 0.0
 
 
+# ---------------------------------------------------------------------------
+# phase 30: head dim 256 (K1-K3 at 256 and padded to it; the flagship LM at
+# Gemma 2B's widths)
+# ---------------------------------------------------------------------------
+
+WIDE_EDGE_CASES = EDGE_CASES + [
+    ('mqa 8->1', dict(b=1, h=8, hkv=1, lq=256, lk=256)),
+    ('Lk=0', dict(b=1, h=2, hkv=2, lq=64, lk=0))]
+WIDE_PADDED = (160, 192)          # launched at 256 with zero columns
+# the causal bf16 path shape at head dim 256: H x D = 512, as phase 29's
+WIDE_PATH = (8, 2, 2048, 256)
+# (c): google/gemma-2b's published config.json widths (vocab_size 256000,
+# hidden_size 2048, num_attention_heads 8, num_key_value_heads 1, head_dim
+# 256, intermediate_size 16384, max_position_embeddings 8192), on the JAX
+# model's own FFN, norms and untied unembedding. Cut: 8 of its 18 layers,
+# windows of 2,048 tokens, 2 a step: ~1.93 B parameters x 16 B (float32
+# weights, gradients, AdamW m and v) ~ 31 GB, logits ~10 GB, activations a
+# few GB, inside the card's 80 GB with room (18 layers: ~70 GB).
+GEMMA_WIDTHS = dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1,
+                    d_ff=16384, max_seq_len=2048)
+GEMMA_LAYERS = 8                  # of gemma-2b's 18
+GEMMA_BATCH = 2                   # windows of 2,048 tokens a step
+
+
+def gemma_config(tlm):
+    """Phase 30 (c)'s model: Gemma 2B's widths, cut to GEMMA_LAYERS."""
+    return tlm.TransformerConfig(attention='flash', n_layers=GEMMA_LAYERS,
+                                 **GEMMA_WIDTHS)
+
+
+def gemma_lm(torch, np, tlm, kernels, args):
+    """Phase 30 (c): the flagship LM at Gemma 2B's widths, first step held
+    against blockwise attention on the same parameters, then phase 5's
+    main path; returns (launches, steady step seconds, peak bytes)."""
+    cfg = gemma_config(tlm)
+    check(cfg.head_dim == 256 and cfg.kv_heads == 1,
+          'head dim %d, kv heads %d' % (cfg.head_dim, cfg.kv_heads))
+    start = time.perf_counter()
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device='cuda')
+    count = sum(p.numel() for p in tlm.parameters(params))
+    log('Gemma-width LM: %d parameters (vocab %d, d_model %d, %d heads of %d '
+        'over %d kv head, d_ff %d, %d layers of gemma-2b\'s 18, windows of '
+        '%d, %d a step; cut: depth 18 -> %d, batch to %d windows) made in '
+        '%.1f s' % (count, cfg.vocab_size, cfg.d_model, cfg.n_heads,
+                    cfg.head_dim, cfg.kv_heads, cfg.d_ff, cfg.n_layers,
+                    cfg.max_seq_len, GEMMA_BATCH, cfg.n_layers, GEMMA_BATCH,
+                    time.perf_counter() - start))
+    reference_check(torch, tlm, args.seed, cfg, params,
+                    label='D=256 Gemma-width reference')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    launches = main_path(torch, np, tlm, kernels, args, cfg=cfg,
+                         label='D=256 Gemma-width LM', stats=stats,
+                         batch_size=GEMMA_BATCH, params=params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    want = STEPS * cfg.n_layers
+    check(all(launches[k] == want for k in FLASH),
+          'Gemma-width LM: launches %r, expected %d of each of K1-K3'
+          % (launches, want))
+    return launches, stats['steady_s'], peak
+
+
+def wide_head_line(torch, np, tlm, kernels, args, gen, errs):
+    """Phase 30. Returns (launches of the Gemma-width LM's main path, its
+    steady step ms)."""
+    phase = time.perf_counter()
+    b, h, l, d = WIDE_PATH
+    gemma = dict(b=GEMMA_BATCH, h=GEMMA_WIDTHS['n_heads'],
+                 hkv=GEMMA_WIDTHS['n_kv_heads'],
+                 lq=GEMMA_WIDTHS['max_seq_len'],
+                 lk=GEMMA_WIDTHS['max_seq_len'])
+    paths = {d: [('path', dict(b=b, h=h, hkv=h, lq=l, lk=l)),
+                 ('Gemma LM shape MQA', gemma)]}
+    head_dim_gates(torch, kernels, gen, errs, paths, WIDE_EDGE_CASES,
+                   WIDE_PADDED, (EDGE_CASES[0], EDGE_CASES[2],
+                                 WIDE_EDGE_CASES[-2]))
+    log('phase 30 (a, b) %s kernel gates at D 256 and padded %s %.1f s'
+        % (CARD, WIDE_PADDED, time.perf_counter() - phase))
+    phase = time.perf_counter()
+    launches, steady, peak = gemma_lm(torch, np, tlm, kernels, args)
+    cfg = gemma_config(tlm)
+    log('phase 30 (c) %s Gemma-width LM (D=256, MQA 8 -> 1, %d layers, %d x '
+        '%d tokens a step): steady step %.2f ms, %.0f tokens/s, K1-K3 '
+        'launches at D 256 %s, max_memory_allocated %.2f GB; %.1f s'
+        % (CARD, cfg.n_layers, GEMMA_BATCH, cfg.max_seq_len, steady * 1e3,
+           GEMMA_BATCH * cfg.max_seq_len / steady, json.dumps(launches),
+           peak / 1e9, time.perf_counter() - phase))
+    return launches, steady * 1e3
+
+
 def ptxas_instances(log_text):
     """{kernel name: [{dtype, head_dim, out, registers, spill_stores,
     spill_loads}, ...]} of every flash instantiation (and K4's) in nvcc's
     ``-Xptxas -v`` report, from the mangled names."""
     import re
     instance = re.compile(
-        r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_kernel|fwd_kernel|'
-        r'dq_kernel|dkdv_kernel|normalize_kernel)I(.*?)EEv')
+        r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_split_kernel|'
+        r'dkdv_sm90_kernel|fwd_kernel|dq_kernel|dkdv_kernel|'
+        r'normalize_kernel)I(.*?)EEv')
     kernel_of = {'fwd': 'flash_fwd', 'dq': 'flash_bwd_dq',
                  'dkdv': 'flash_bwd_dkdv', 'normalize': 'normalize'}
     out = {}
@@ -8876,7 +9004,7 @@ def ptxas_instances(log_text):
                  'head_dim': int(dims[0]) if dims else None,
                  'registers': int(regs), 'spill_stores': int(stores),
                  'spill_loads': int(loads)}
-        if kind == 'dkdv_sm90_kernel':
+        if kind.startswith('dkdv_sm90'):
             entry['out'] = 'float32' if args.endswith('f') else 'bfloat16'
         if kind == 'normalize_kernel':
             entry['dtype'] = 'uint8'
@@ -9146,10 +9274,16 @@ def main(argv=None):
         'D=32 step %.3f ms on flash, %.3f ms on blockwise)'
         % (CARD, time.perf_counter() - phase, head_steps[128],
            head_steps[32], head_steps['blockwise 32']))
+    phase = time.perf_counter()
+    head_launches[256], head_steps[256] = wide_head_line(
+        torch, np, tlm, kernels, args, gen, errs)
+    log('phase head-dim 256 line %s %.1f s (Gemma-width LM step %.2f ms)'
+        % (CARD, time.perf_counter() - phase, head_steps[256]))
 
     times = timings(torch, kernels, gen, REPS)
+    timed_paths = {**HEAD_DIM_PATHS, 256: WIDE_PATH}
     head_times = {d: timings(torch, kernels, gen, REPS, shape)
-                  for d, shape in HEAD_DIM_PATHS.items()}
+                  for d, shape in timed_paths.items()}
     small_head_times(torch, kernels, gen)
     bound = bounds(PATH_SHAPE)
     phase = time.perf_counter()
@@ -9170,10 +9304,11 @@ def main(argv=None):
     bound['normalize'] = k4['bound']
     instances = ptxas_instances(kernels.BUILD_INFO['log'])
     # a row a kernel at each bf16 head dim: D = 64 (the flagship's, every
-    # earlier phase), then 32 and 128 (phase 29's paths and shapes)
+    # earlier phase), then 32 and 128 (phase 29's paths and shapes) and 256
+    # (phase 30's)
     rows = [(name, name, 64, times[name], bound[name], launches[name],
              errs[name]) for name in KERNELS]
-    for d, shape in HEAD_DIM_PATHS.items():
+    for d, shape in timed_paths.items():
         head_bound = bounds(shape)
         rows += [('%s_d%d' % (name, d), name, d, head_times[d][name],
                   head_bound[name], head_launches[d][name], errs[name, d])

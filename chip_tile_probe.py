@@ -1,7 +1,8 @@
 """K1-K3 (bf16) builds timed against each other on one card, in one call.
 
     python3 chip_tile_probe.py [--head-dim 128] [--variants ...]
-                               [--checkouts DIR ...] [--rounds 2] [--reps 30]
+                               [--checkouts DIR ...] [--parent [DIR]]
+                               [--rounds 2] [--reps 30]
 
 Builds: ``sources`` (the package's library), each of ``--variants`` (a copy
 of ``petastorm_tpu_torch/csrc`` with a few lines replaced, below), and the
@@ -9,7 +10,9 @@ of ``petastorm_tpu_torch/csrc`` with a few lines replaced, below), and the
 commit unpacked with ``git archive``), named by its directory. Each build
 is compiled alone (one ``nvcc`` call) and bound in place of the package's
 library; a checkout's C entry points must take the flash arguments the
-sources' wrappers pass.
+sources' wrappers pass. ``--parent`` adds the checkout at ``DIR``
+(``_archive/parent`` by default: the parent commit unpacked there with
+``git archive``), timed as ``parent``.
 
 Variants of K3 (flash dk/dv): ``k3_d128_168regs`` is what setmaxnreg buys
 it at head dim 128: the sources' block (384 threads, the producer
@@ -19,12 +22,15 @@ allows, where ptxas spills. ``k3_d64_realloc`` gives head dim 64 the
 384-thread block too, where the sources' 288 threads spill 16 bytes.
 
 First every build's ``ptxas`` registers and spills of the bf16 kernels;
+with ``--sass``, each other build's machine code (``cuobjdump -sass``)
+against the sources', kernel by kernel, for every kernel both builds
+have (one line each: identical, or the first instruction that differs);
 then, in the first round, each build's K1-K3 against the float32 twins
 (``chip_smoke.compare_case``: the edge shapes and the causal path shape at
 ``--head-dim``, under its gates); then each round times every build in
 turn, the order reversed from one round to the next, at the path shape of
-``--head-dim`` (``chip_smoke``'s (8, 16, 2048, 32), (8, 8, 2048, 64) or
-(8, 4, 2048, 128), bf16 causal; ``chip_smoke.timings``: median of
+``--head-dim`` (``chip_smoke``'s (8, 16, 2048, 32), (8, 8, 2048, 64),
+(8, 4, 2048, 128) or (8, 2, 2048, 256), bf16 causal; ``chip_smoke.timings``: median of
 ``--reps`` CUDA-event-timed launches, beside SDPA and aten's flash
 backward). The last line is one JSON object of every timing. Needs a CUDA
 device and ``nvcc``.
@@ -33,6 +39,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -54,7 +61,7 @@ VARIANTS = {
 
 def build_variant(kernels, csrc_from, edits, tmpdir):
     """The library of the sources in ``csrc_from`` with ``edits``; returns
-    (lib, nvcc report)."""
+    (lib, nvcc report, path of the library)."""
     csrc = os.path.join(tmpdir, 'csrc')
     shutil.copytree(csrc_from, csrc)
     for name, old, new in edits:
@@ -72,18 +79,72 @@ def build_variant(kernels, csrc_from, edits, tmpdir):
     if proc.returncode:
         raise RuntimeError('nvcc failed:\n' + proc.stdout + proc.stderr)
     lib = kernels.bind(ctypes.CDLL(so), kernels._SIGNATURES)
-    return lib, proc.stdout + proc.stderr
+    return lib, proc.stdout + proc.stderr, so
+
+
+def sass(kernels, so):
+    """{kernel: [instructions]} of a library's machine code. A kernel is
+    named by its mangled name with the source's anonymous namespace (a
+    hash of the file) cut out, and the float32 backward's block rows
+    (a template argument of 64 since head dim 256 took 32) dropped, so two
+    builds of the same kernel get the same name."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), 'cuobjdump')
+    text = subprocess.run([tool, '-sass', so], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r'\s*Function : (\S+)', line)
+        if head:
+            name = re.sub(r'\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}', '',
+                          head.group(1))
+            name = re.sub(r'((?:dq|dkdv)_kernelI\w*?Li\d+E)Li64E', r'\1',
+                          name)
+            out[name] = []
+        elif name is not None:
+            ins = re.match(r'\s*/\*[0-9a-f]{4}\*/\s+(.*?)\s*;', line)
+            if ins:
+                out[name].append(ins.group(1))
+    return out
+
+
+def compare_sass(kernels, libs):
+    """One line a kernel of each build that the sources' build also has:
+    its machine code identical to the sources', or where it first
+    differs."""
+    ref = sass(kernels, libs['sources'][2])
+    for name, (_, _, so) in libs.items():
+        if name == 'sources':
+            continue
+        other = sass(kernels, so)
+        for kernel in sorted(set(ref) & set(other)):
+            a, b = ref[kernel], other[kernel]
+            diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        None if len(a) == len(b) else min(len(a), len(b)))
+            print('sass %s %s: %s' % (
+                name, kernel, 'identical (%d instructions)' % len(a)
+                if diff is None else 'differs at instruction %d of %d/%d: '
+                '%r vs %r' % (diff, len(a), len(b),
+                              a[diff] if diff < len(a) else None,
+                              b[diff] if diff < len(b) else None)),
+                  flush=True)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--head-dim', type=int, default=128,
-                        choices=(32, 64, 128))
+                        choices=(32, 64, 128, 256))
     parser.add_argument('--variants', nargs='*', default=list(VARIANTS),
                         choices=list(VARIANTS))
     parser.add_argument('--checkouts', nargs='*', default=[],
                         help='checkouts whose kernels are built and timed, '
                              'each named by its directory')
+    parser.add_argument('--parent', nargs='?', default=None,
+                        const=os.path.join(ROOT, '_archive', 'parent'),
+                        help='add the parent commit unpacked at this '
+                             'directory (default _archive/parent)')
+    parser.add_argument('--sass', action='store_true',
+                        help="compare each build's machine code with the "
+                             "sources', kernel by kernel")
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--reps', type=int, default=30)
     args = parser.parse_args(argv)
@@ -102,14 +163,16 @@ def main(argv=None):
                           timeout=60).stdout.strip().splitlines()[0]
     chip_smoke.CARD = card
     print(card, flush=True)
-    shape = {**chip_smoke.HEAD_DIM_PATHS,
-             64: chip_smoke.PATH_SHAPE}[args.head_dim]
-    libs = {'sources': (kernels.build(), kernels.BUILD_INFO['log'])}
+    shape = {**chip_smoke.HEAD_DIM_PATHS, 64: chip_smoke.PATH_SHAPE,
+             256: chip_smoke.WIDE_PATH}[args.head_dim]
+    libs = {'sources': (kernels.build(), kernels.BUILD_INFO['log'],
+                        kernels.BUILD_INFO['path'])}
     builds = [(name, str(kernels._CSRC), VARIANTS[name])
               for name in args.variants]
+    checkouts = args.checkouts + ([args.parent] if args.parent else [])
     builds += [(os.path.basename(os.path.normpath(path)),
                 os.path.join(path, 'petastorm_tpu_torch', 'csrc'), [])
-               for path in args.checkouts]
+               for path in checkouts]
     tmpdirs = []
     try:
         for name, csrc, edits in builds:
@@ -118,10 +181,12 @@ def main(argv=None):
             libs[name] = build_variant(kernels, csrc, edits, tmpdirs[-1])
             print('%s built in %.1f s' % (name, time.perf_counter() - start),
                   flush=True)
-        for name, (_, report) in libs.items():
+        for name, (_, report, _) in libs.items():
             for line in chip_smoke.ptxas_summary(report):
                 if 'sm90' in line:
                     print('ptxas %s %s' % (name, line), flush=True)
+        if args.sass:
+            compare_sass(kernels, libs)
         gen = torch.Generator(device='cuda').manual_seed(0)
         out = {'card': card, 'shape': shape, 'timings': []}
         b, h, l, d = shape

@@ -28,40 +28,53 @@
 // float32 only (the tensor cores would multiply float32 as TF32); their bf16
 // launches go to the wgmma / TMA kernels of flash_bwd_dq_sm90.cu (K2) and
 // flash_bwd_sm90.cu (K3).
+//
+// Blocks: kB q rows and kB kv rows, 64 (flash_common.cuh's kBlockQ) below
+// head dim 256, 32 at 256 (bwd_block): four kB x (D + 1) float32 tiles of
+// 64 rows take 263 KB there, past the 227 KB a block may have; at 32 rows
+// K2 takes ~133 KB and K3 ~137 KB. The 16 x 16 thread grid then owns kB /
+// 16 rows and score columns a thread (kS) instead of 4.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
 namespace flash {
 
-// s = q k^T and dp = do v^T for one 64 x 64 tile, the thread's 4 x 4 part.
+// Rows of the backward kernels' q and kv blocks at head dim D (above).
 template <int D>
+constexpr int bwd_block() {
+  return D > 128 ? 32 : kBlockQ;
+}
+
+// s = q k^T and dp = do v^T for one kB x kB tile, the thread's kS x kS part
+// (kS = kB / 16).
+template <int D, int kS>
 __device__ __forceinline__ void score_tiles(const float* sQ, const float* sDO,
                                             const float* sK, const float* sV,
                                             const Lane& ln,
-                                            float (&s)[kSub][kSub],
-                                            float (&dp)[kSub][kSub]) {
+                                            float (&s)[kS][kS],
+                                            float (&dp)[kS][kS]) {
   constexpr int SD = D + 1;
 #pragma unroll
-  for (int i = 0; i < kSub; ++i)
+  for (int i = 0; i < kS; ++i)
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < kS; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[kSub], g[kSub], b[kSub], w[kSub];
+    float a[kS], g[kS], b[kS], w[kS];
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
+    for (int i = 0; i < kS; ++i) {
       a[i] = sQ[(ln.ty + 16 * i) * SD + d];
       g[i] = sDO[(ln.ty + 16 * i) * SD + d];
     }
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
+    for (int j = 0; j < kS; ++j) {
       b[j] = sK[(ln.tx + 16 * j) * SD + d];
       w[j] = sV[(ln.tx + 16 * j) * SD + d];
     }
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+    for (int i = 0; i < kS; ++i)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
+      for (int j = 0; j < kS; ++j) {
         s[i][j] = fmaf(a[i], b[j], s[i][j]);
         dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
       }
@@ -69,15 +82,16 @@ __device__ __forceinline__ void score_tiles(const float* sQ, const float* sDO,
 }
 
 // p and ds of the reference's `_bwd_recompute_p_ds` for the thread's part.
+template <int kS>
 __device__ __forceinline__ void recompute_p_ds(
-    const Mask& mask, const int (&qpos)[kSub], const int (&sq)[kSub],
-    const float (&lse)[kSub], const float (&delta)[kSub],
-    const int (&kpos)[kSub], const int (&sk)[kSub], float scale,
-    float (&s)[kSub][kSub], float (&dp)[kSub][kSub]) {
+    const Mask& mask, const int (&qpos)[kS], const int (&sq)[kS],
+    const float (&lse)[kS], const float (&delta)[kS], const int (&kpos)[kS],
+    const int (&sk)[kS], float scale, float (&s)[kS][kS],
+    float (&dp)[kS][kS]) {
 #pragma unroll
-  for (int i = 0; i < kSub; ++i)
+  for (int i = 0; i < kS; ++i)
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
+    for (int j = 0; j < kS; ++j) {
       const bool live =
           mask(qpos[i], kpos[j], sq[i], sk[j]) && lse[i] > kNegInf * 0.5f;
       const float p = live ? expf(s[i][j] * scale - lse[i]) : 0.f;
@@ -86,7 +100,7 @@ __device__ __forceinline__ void recompute_p_ds(
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, int kB>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
@@ -94,30 +108,30 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ delta_g, const int* __restrict__ segq,
               const int* __restrict__ segk, T* __restrict__ dq, int H, int Hkv,
               int Lq, int Lk, int causal, int window, float scale) {
-  constexpr int SD = D + 1, SP = kBlockK + 1, NJ = D / 16;
+  constexpr int SD = D + 1, SP = kB + 1, NJ = D / 16, kS = kB / 16;
   extern __shared__ float smem[];
-  float* sQ = smem;                  // kBlockQ x SD
-  float* sDO = sQ + kBlockQ * SD;    // kBlockQ x SD
-  float* sK = sDO + kBlockQ * SD;    // kBlockK x SD
-  float* sV = sK + kBlockK * SD;     // kBlockK x SD
-  float* sDS = sV + kBlockK * SD;    // kBlockQ x SP
+  float* sQ = smem;                  // kB x SD
+  float* sDO = sQ + kB * SD;         // kB x SD
+  float* sK = sDO + kB * SD;         // kB x SD
+  float* sV = sK + kB * SD;          // kB x SD
+  float* sDS = sV + kB * SD;         // kB x SP
 
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int kvh = kv_row(bh, H, Hkv);
-  const int q0 = qb * kBlockQ;
+  const int q0 = qb * kB;
   const Lane ln = lane_layout();
   const Mask mask{Lq, Lk, causal, window};
 
   const T* kp = k + (size_t)kvh * Lk * D;
   const T* vp = v + (size_t)kvh * Lk * D;
-  load_tile<D, kBlockQ>(sQ, SD, q + (size_t)bh * Lq * D, q0, Lq);
-  load_tile<D, kBlockQ>(sDO, SD, dout + (size_t)bh * Lq * D, q0, Lq);
+  load_tile<D, kB>(sQ, SD, q + (size_t)bh * Lq * D, q0, Lq);
+  load_tile<D, kB>(sDO, SD, dout + (size_t)bh * Lq * D, q0, Lq);
 
-  int qpos[kSub], sq[kSub];
-  float lse[kSub], delta[kSub], acc[kSub][NJ];
+  int qpos[kS], sq[kS];
+  float lse[kS], delta[kS], acc[kS][NJ];
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
+  for (int i = 0; i < kS; ++i) {
     qpos[i] = q0 + ln.ty + 16 * i;
     const bool in = qpos[i] < Lq;
     const size_t r = (size_t)bh * Lq + qpos[i];
@@ -128,28 +142,28 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int nkb = (Lk + kBlockK - 1) / kBlockK;
+  const int nkb = (Lk + kB - 1) / kB;
   int kb_lo = 0, kb_hi = nkb;
   if (causal) {
-    kb_hi = min(nkb, (q0 + kBlockQ - 1) / kBlockK + 1);
+    kb_hi = min(nkb, (q0 + kB - 1) / kB + 1);
     if (window > 0) {
       const int lo = q0 - window + 1;
-      kb_lo = lo >= kBlockK ? lo / kBlockK : 0;
+      kb_lo = lo >= kB ? lo / kB : 0;
     }
   }
 
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    const int k0 = kb * kBlockK;
+    const int k0 = kb * kB;
     __syncthreads();
-    load_tile<D, kBlockK>(sK, SD, kp, k0, Lk);
-    load_tile<D, kBlockK>(sV, SD, vp, k0, Lk);
+    load_tile<D, kB>(sK, SD, kp, k0, Lk);
+    load_tile<D, kB>(sV, SD, vp, k0, Lk);
     __syncthreads();
 
-    float s[kSub][kSub], dp[kSub][kSub];
+    float s[kS][kS], dp[kS][kS];
     score_tiles<D>(sQ, sDO, sK, sV, ln, s, dp);
-    int kpos[kSub], sk[kSub];
+    int kpos[kS], sk[kS];
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
+    for (int j = 0; j < kS; ++j) {
       kpos[j] = k0 + ln.tx + 16 * j;
       sk[j] = (segk != nullptr && kpos[j] < Lk)
                   ? segk[(size_t)kvh * Lk + kpos[j]]
@@ -157,28 +171,28 @@ __global__ void __launch_bounds__(kThreads)
     }
     recompute_p_ds(mask, qpos, sq, lse, delta, kpos, sk, scale, s, dp);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+    for (int i = 0; i < kS; ++i)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j)
+      for (int j = 0; j < kS; ++j)
         sDS[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = dp[i][j];
     __syncthreads();
 
 #pragma unroll 8
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float a[kSub], b[NJ];
+    for (int kk = 0; kk < kB; ++kk) {
+      float a[kS], b[NJ];
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) a[i] = sDS[(ln.ty + 16 * i) * SP + kk];
+      for (int i = 0; i < kS; ++i) a[i] = sDS[(ln.ty + 16 * i) * SP + kk];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) b[j] = sK[kk * SD + ln.tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < kSub; ++i)
+      for (int i = 0; i < kS; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
+  for (int i = 0; i < kS; ++i) {
     if (qpos[i] >= Lq) continue;
     T* row = dq + ((size_t)bh * Lq + qpos[i]) * D;
 #pragma unroll
@@ -186,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename TO, int D>
+template <typename T, typename TO, int D, int kB>
 __global__ void __launch_bounds__(kThreads)
     dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -195,60 +209,60 @@ __global__ void __launch_bounds__(kThreads)
                 const int* __restrict__ segq, const int* __restrict__ segk,
                 TO* __restrict__ dk, TO* __restrict__ dv, int H, int Hkv,
                 int Lq, int Lk, int causal, int window, float scale) {
-  constexpr int SD = D + 1, SP = kBlockK + 1, NJ = D / 16;
+  constexpr int SD = D + 1, SP = kB + 1, NJ = D / 16, kS = kB / 16;
   extern __shared__ float smem[];
-  float* sK = smem;                  // kBlockK x SD
-  float* sV = sK + kBlockK * SD;     // kBlockK x SD
-  float* sQ = sV + kBlockK * SD;     // kBlockQ x SD
-  float* sDO = sQ + kBlockQ * SD;    // kBlockQ x SD
-  float* sP = sDO + kBlockQ * SD;    // kBlockQ x SP
-  float* sDS = sP + kBlockQ * SP;    // kBlockQ x SP
+  float* sK = smem;                  // kB x SD
+  float* sV = sK + kB * SD;          // kB x SD
+  float* sQ = sV + kB * SD;          // kB x SD
+  float* sDO = sQ + kB * SD;         // kB x SD
+  float* sP = sDO + kB * SD;         // kB x SP
+  float* sDS = sP + kB * SP;         // kB x SP
 
   const int kb = blockIdx.x;
   const int bh = blockIdx.y;         // q-head row; writes its own partial
   const int kvh = kv_row(bh, H, Hkv);
-  const int k0 = kb * kBlockK;
+  const int k0 = kb * kB;
   const Lane ln = lane_layout();
   const Mask mask{Lq, Lk, causal, window};
 
-  load_tile<D, kBlockK>(sK, SD, k + (size_t)kvh * Lk * D, k0, Lk);
-  load_tile<D, kBlockK>(sV, SD, v + (size_t)kvh * Lk * D, k0, Lk);
+  load_tile<D, kB>(sK, SD, k + (size_t)kvh * Lk * D, k0, Lk);
+  load_tile<D, kB>(sV, SD, v + (size_t)kvh * Lk * D, k0, Lk);
   const T* qp = q + (size_t)bh * Lq * D;
   const T* dop = dout + (size_t)bh * Lq * D;
 
-  int kpos[kSub], sk[kSub];
-  float dk_acc[kSub][NJ], dv_acc[kSub][NJ];
+  int kpos[kS], sk[kS];
+  float dk_acc[kS][NJ], dv_acc[kS][NJ];
 #pragma unroll
-  for (int j = 0; j < kSub; ++j) {
+  for (int j = 0; j < kS; ++j) {
     kpos[j] = k0 + ln.tx + 16 * j;
     sk[j] = (segk != nullptr && kpos[j] < Lk)
                 ? segk[(size_t)kvh * Lk + kpos[j]]
                 : 0;
   }
 #pragma unroll
-  for (int i = 0; i < kSub; ++i)
+  for (int i = 0; i < kS; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int nqb = (Lq + kBlockQ - 1) / kBlockQ;
+  const int nqb = (Lq + kB - 1) / kB;
   int qb_lo = 0, qb_hi = nqb;
   if (causal) {
-    qb_lo = k0 / kBlockQ;             // first q block reaching this kv block
+    qb_lo = k0 / kB;             // first q block reaching this kv block
     if (window > 0)                   // last q block the window lets see it
-      qb_hi = min(nqb, (k0 + kBlockK - 2 + window) / kBlockQ + 1);
+      qb_hi = min(nqb, (k0 + kB - 2 + window) / kB + 1);
   }
 
   for (int qb = qb_lo; qb < qb_hi; ++qb) {
-    const int q0 = qb * kBlockQ;
+    const int q0 = qb * kB;
     __syncthreads();
-    load_tile<D, kBlockQ>(sQ, SD, qp, q0, Lq);
-    load_tile<D, kBlockQ>(sDO, SD, dop, q0, Lq);
+    load_tile<D, kB>(sQ, SD, qp, q0, Lq);
+    load_tile<D, kB>(sDO, SD, dop, q0, Lq);
     __syncthreads();
 
-    int qpos[kSub], sq[kSub];
-    float lse[kSub], delta[kSub];
+    int qpos[kS], sq[kS];
+    float lse[kS], delta[kS];
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
+    for (int i = 0; i < kS; ++i) {
       qpos[i] = q0 + ln.ty + 16 * i;
       const bool in = qpos[i] < Lq;
       const size_t r = (size_t)bh * Lq + qpos[i];
@@ -256,13 +270,13 @@ __global__ void __launch_bounds__(kThreads)
       lse[i] = in ? lse_g[r] : kNegInf;
       delta[i] = in ? delta_g[r] : 0.f;
     }
-    float s[kSub][kSub], dp[kSub][kSub];
+    float s[kS][kS], dp[kS][kS];
     score_tiles<D>(sQ, sDO, sK, sV, ln, s, dp);
     recompute_p_ds(mask, qpos, sq, lse, delta, kpos, sk, scale, s, dp);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i)
+    for (int i = 0; i < kS; ++i)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
+      for (int j = 0; j < kS; ++j) {
         sP[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = s[i][j];
         sDS[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = dp[i][j];
       }
@@ -270,10 +284,10 @@ __global__ void __launch_bounds__(kThreads)
 
     // this thread now owns kv rows ty + 16 i and columns tx + 16 j
 #pragma unroll 4
-    for (int qq = 0; qq < kBlockQ; ++qq) {
-      float p[kSub], ds[kSub], g[NJ], a[NJ];
+    for (int qq = 0; qq < kB; ++qq) {
+      float p[kS], ds[kS], g[NJ], a[NJ];
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) {
+      for (int i = 0; i < kS; ++i) {
         p[i] = sP[qq * SP + ln.ty + 16 * i];
         ds[i] = sDS[qq * SP + ln.ty + 16 * i];
       }
@@ -283,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
         a[j] = sQ[qq * SD + ln.tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < kSub; ++i)
+      for (int i = 0; i < kS; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           dv_acc[i][j] = fmaf(p[i], g[j], dv_acc[i][j]);
@@ -293,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
+  for (int i = 0; i < kS; ++i) {
     const int kr = k0 + ln.ty + 16 * i;
     if (kr >= Lk) continue;
     const size_t off = ((size_t)bh * Lk + kr) * D;
@@ -311,15 +325,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const int* segk, void* dq, int BH, int H, int Hkv, int Lq,
               int Lk, int causal, int window, float scale,
               cudaStream_t stream) {
-  constexpr int SD = D + 1;
-  const size_t smem = sizeof(float) * (2 * kBlockQ * SD + 2 * kBlockK * SD +
-                                       kBlockQ * (kBlockK + 1));
+  constexpr int SD = D + 1, kB = bwd_block<D>();
+  const size_t smem = sizeof(float) * (4 * kB * SD + kB * (kB + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_kernel<T, D, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, BH);
-  dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((Lq + kB - 1) / kB, BH);
+  dq_kernel<T, D, kB><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
       segk, (T*)dq, H, Hkv, Lq, Lk, causal, window, scale);
   return (int)cudaGetLastError();
@@ -331,15 +344,14 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const int* segk, void* dk, void* dv, int BH, int H, int Hkv,
                 int Lq, int Lk, int causal, int window, float scale,
                 cudaStream_t stream) {
-  constexpr int SD = D + 1;
-  const size_t smem = sizeof(float) * (2 * kBlockK * SD + 2 * kBlockQ * SD +
-                                       2 * kBlockQ * (kBlockK + 1));
+  constexpr int SD = D + 1, kB = bwd_block<D>();
+  const size_t smem = sizeof(float) * (4 * kB * SD + 2 * kB * (kB + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, TO, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<T, TO, D, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lk + kBlockK - 1) / kBlockK, BH);
-  dkdv_kernel<T, TO, D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((Lk + kB - 1) / kB, BH);
+  dkdv_kernel<T, TO, D, kB><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
       segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, causal, window, scale);
   return (int)cudaGetLastError();
@@ -347,9 +359,9 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// dtype: 0 = float32 (D 16, 32, 64 or 128), 1 = bfloat16 (of q, k, v, do
-// and dq; on wgmma, flash_bwd_dq_sm90.cu; D 32, 64 or 128). Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32 (D 16, 32, 64, 128 or 256), 1 = bfloat16 (of q, k, v,
+// do and dq; on wgmma, flash_bwd_dq_sm90.cu; D 32, 64, 128 or 256). Returns
+// a cudaError_t (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const int* segq,

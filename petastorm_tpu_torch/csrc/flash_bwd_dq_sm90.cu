@@ -13,8 +13,8 @@
 // read once), ~610 FLOP/byte, above the bf16 ridge (~295): bound by
 // operations. So all three products run on wgmma, fed by TMA.
 //
-// Head dims: instantiated at D = 32, 64 and 128, like K1 (sm90.cuh's
-// Tile<D>); the wrapper pads any other D <= 128 to the next of them.
+// Head dims: instantiated at D = 32, 64, 128 and 256, like K1 (sm90.cuh's
+// Tile<D>); the wrapper pads any other D <= 256 to the next of them.
 //
 // Block: 288 threads, one 128-row q tile of one q-head row (GQA: the kv row
 // through the head map; dq is per q head, so there are no partials). Warps
@@ -39,6 +39,13 @@
 // At 64 rows the count is 32 + 32 + 32 + 16 at D = 64, and dQ's 64 at D =
 // 128.
 //
+// D = 256: Q and dO take 64 KB each, and four stages of 64-row K and V
+// tiles would take 256 KB more, past the 227 KB a block may have. So kv
+// tiles are 32 rows (S and dP on m64n32k16) through 2 stages: 128 + 2 x (16
+// + 16) KB ~ 193 KB. dQ over 64 q rows is 128 floats a thread, so the block
+// has 384 threads, the producer warp in a warpgroup of its own whose
+// setmaxnreg.dec hands its registers to the consumers (to 232; sm90.cuh).
+//
 // Precision: dS is rounded to nearest bf16 before dS K (the A operand of a
 // bf16 wgmma is bf16), as aten's flash backward does; dq is rounded once to
 // bf16 at the end.
@@ -62,13 +69,16 @@ namespace {
 using namespace sm90;
 
 constexpr int kRowsQ = 128;                 // q rows per block
-constexpr int kRowsK = 64;                  // kv rows per tile
-constexpr int kStages = 4;
 constexpr int kConsumers = 256;             // two warpgroups
-constexpr int kThreadsDq = kConsumers + 32;   // + one producer warp
 
 template <int D>
 struct Dq {
+  // At D = 256 the producer is a whole warpgroup (one warp of it loads),
+  // so that setmaxnreg can move its registers to the consumers.
+  static constexpr bool kRealloc = D == 256;
+  static constexpr int kThreads = kConsumers + (kRealloc ? 128 : 32);
+  static constexpr int kRowsK = D == 256 ? 32 : 64;  // kv rows per tile
+  static constexpr int kStages = D == 256 ? 2 : 4;
   static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
   static constexpr int kTileK = Tile<D>::bytes(kRowsK);
   static constexpr int kOffQ = 0;
@@ -82,7 +92,7 @@ struct Dq {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsDq, 1)
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                    const __grid_constant__ CUtensorMap tmK,
                    const __grid_constant__ CUtensorMap tmV,
@@ -94,6 +104,7 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
                    __nv_bfloat16* __restrict__ dq, int H, int Hkv, int Lq,
                    int Lk, int causal, int window, float scale) {
   using C = Dq<D>;
+  constexpr int kRowsK = C::kRowsK, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
@@ -128,6 +139,10 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {            // producer warp
+    if constexpr (C::kRealloc) {
+      producer_regs();
+      if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    }
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_tx(qbar, 2 * C::kTileQ);
@@ -157,6 +172,7 @@ __global__ void __launch_bounds__(kThreadsDq, 1)
   }
 
   // consumer warpgroup wg owns q rows r0 .. r0 + 63
+  if constexpr (C::kRealloc) consumer_regs();
   const int wg = threadIdx.x >> 7;
   const int r0 = q0 + 64 * wg;
   const float scale2 = scale * kLog2e;
@@ -241,15 +257,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap mq, mk, mv, mdo;
   if (!Tile<D>::make_map(&mq, q, BH, Lq, kRowsQ) ||
       !Tile<D>::make_map(&mdo, dout, BH, Lq, kRowsQ) ||
-      !Tile<D>::make_map(&mk, k, BHkv, Lk, kRowsK) ||
-      !Tile<D>::make_map(&mv, v, BHkv, Lk, kRowsK))
+      !Tile<D>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
+      !Tile<D>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dq_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
-  dq_sm90_kernel<D><<<grid, kThreadsDq, C::kSmem, stream>>>(
+  dq_sm90_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
       Lq, Lk, causal, window, scale);
   return (int)cudaGetLastError();
@@ -271,6 +287,9 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
                         Hkv, Lq, Lk, causal, window, scale, stream);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
+                         Hkv, Lq, Lk, causal, window, scale, stream);
+    case 256:
+      return launch<256>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
                          Hkv, Lq, Lk, causal, window, scale, stream);
   }
   return (int)cudaErrorInvalidValue;

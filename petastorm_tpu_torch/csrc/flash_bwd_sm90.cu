@@ -12,8 +12,9 @@
 // FLOP/byte (the forward's ~510 and more): bound by operations, so all
 // four products run on wgmma, fed by TMA.
 //
-// Head dims: instantiated at D = 32, 64 and 128, like K1 (sm90.cuh's
-// Tile<D>); the wrapper pads any other D <= 128 to the next of them.
+// Head dims: instantiated at D = 32, 64, 128 and 256, like K1 (sm90.cuh's
+// Tile<D>); the wrapper pads any other D <= 256 to the next of them. D = 256
+// runs the split kernel below (dkdv_sm90_split_kernel).
 //
 // Block: 288 threads (384 at D = 128, below), one 128-row kv tile of one
 // q-head row (GQA: the kv row through the head map; each q head writes its
@@ -41,6 +42,19 @@
 // setmaxnreg.dec hands its registers to the two consumer warpgroups
 // (setmaxnreg.inc to 232; sm90.cuh).
 //
+// D = 256: at 64 kv rows, dK and dV in one warpgroup would take 128 floats
+// each a thread. So the split kernel's block holds 64 kv rows and its two
+// consumer warpgroups split D: warpgroup w accumulates columns 128 w .. 128
+// w + 127 of dK and dV (64 + 64 floats a thread, as at D = 128). S^T and
+// dP^T contract over all of D and are computed once: warpgroup w takes q
+// columns 32 w .. 32 w + 31 of the 64-row q tile (2 x 16 x m64n32k16),
+// turns them into P^T and dS^T, rounds them to bf16 as the A fragments of
+// its two k16 steps, and the two warpgroups swap those fragments through
+// shared memory (16 KB, a named barrier on each side), so each then runs
+// its dV and dK products over the whole q tile (2 x 4 x 2 m64n64k16).
+// Shared memory: K, V 32 KB each; Q and dO 32 KB a stage each, 2 stages;
+// the swap 16 KB; ~211 KB. 384 threads, setmaxnreg as at D = 128.
+//
 // Precision: P^T and dS^T are rounded to nearest bf16 before the second
 // products (the A operand of a bf16 wgmma is bf16), as aten's flash
 // backward does; dk and dv are rounded once to bf16 at the end (float32
@@ -53,7 +67,6 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kRowsK = 128;                 // kv rows per block
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;
 
@@ -63,6 +76,7 @@ struct Bwd {
   // so that setmaxnreg can move its registers to the consumers.
   static constexpr bool kRealloc = D == 128;
   static constexpr int kThreads = kConsumers + (kRealloc ? 128 : 32);
+  static constexpr int kRowsK = 128;                 // kv rows per block
   static constexpr int kRowsQ = 64;                  // q rows per tile
   static constexpr int kTileK = Tile<D>::bytes(kRowsK);
   static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
@@ -75,6 +89,54 @@ struct Bwd {
   static constexpr int kOffBar = kOffSide + kStages * kSide * 4;
   static constexpr int kSmem = kOffBar + 64 + 1024;
 };
+
+// The producer warp of both kernels (C: the block's layout, Bwd or Split):
+// K and V of the block's kv rows once, on `kvbar`; then the Q and dO tiles
+// of q tiles qb_lo .. qb_hi - 1 through the ring, and beside each the
+// tile's lse (times log2(e); +inf where lse <= -5e29, a fully masked
+// forward row, so p = 0 there), delta and q segment ids.
+template <int D, class C>
+__device__ __forceinline__ void produce(
+    uint32_t base, float* side, const CUtensorMap* tmQ,
+    const CUtensorMap* tmK, const CUtensorMap* tmV, const CUtensorMap* tmDO,
+    uint32_t kvbar, uint32_t full0, uint32_t empty0,
+    const float* __restrict__ lse_g, const float* __restrict__ delta_g,
+    const int* __restrict__ segq, int bh, int kvh, int k0, int qb_lo,
+    int qb_hi, int Lq) {
+  constexpr int kRowsQ = C::kRowsQ;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    mbar_arrive_tx(kvbar, 2 * C::kTileK);
+    Tile<D>::load(base + C::kOffK, tmK, kvbar, k0, kvh, C::kRowsK);
+    Tile<D>::load(base + C::kOffV, tmV, kvbar, k0, kvh, C::kRowsK);
+  }
+  for (int qb = qb_lo, i = 0; qb < qb_hi; ++qb, ++i) {
+    const int s = i % kStages;
+    const int q0 = qb * kRowsQ;
+    const uint32_t full = full0 + 8 * s;
+    mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_arrive_tx(full, 2 * C::kTileQ);
+      Tile<D>::load(base + C::kOffQ + s * C::kTileQ, tmQ, full, q0, bh,
+                    kRowsQ);
+      Tile<D>::load(base + C::kOffDO + s * C::kTileQ, tmDO, full, q0, bh,
+                    kRowsQ);
+    }
+    float* st = side + s * C::kSide;
+    for (int j = lane; j < kRowsQ; j += 32) {
+      const int qp = q0 + j;
+      const bool in = qp < Lq;
+      const size_t r = (size_t)bh * Lq + qp;
+      const float ls = in ? lse_g[r] : kNegInf;
+      st[j] = ls > kNegInf * 0.5f ? ls * kLog2e
+                                  : __int_as_float(0x7f800000);  // +inf
+      st[kRowsQ + j] = in ? delta_g[r] : 0.f;
+      reinterpret_cast<int*>(st)[2 * kRowsQ + j] =
+          (segq != nullptr && in) ? segq[r] : 0;
+    }
+    mbar_arrive(full);
+  }
+}
 
 template <int D, typename TO>
 __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
@@ -89,7 +151,7 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
                      TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
                      int causal, int window, float scale) {
   using C = Bwd<D>;
-  constexpr int kRowsQ = C::kRowsQ;
+  constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t pad = (1024 - (raw & 1023)) & 1023;
@@ -126,38 +188,9 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
       producer_regs();
       if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
     }
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_arrive_tx(kvbar, 2 * C::kTileK);
-      Tile<D>::load(base + C::kOffK, &tmK, kvbar, k0, kvh, kRowsK);
-      Tile<D>::load(base + C::kOffV, &tmV, kvbar, k0, kvh, kRowsK);
-    }
-    for (int qb = qb_lo, i = 0; qb < qb_hi; ++qb, ++i) {
-      const int s = i % kStages;
-      const int q0 = qb * kRowsQ;
-      const uint32_t full = full0 + 8 * s;
-      mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_arrive_tx(full, 2 * C::kTileQ);
-        Tile<D>::load(base + C::kOffQ + s * C::kTileQ, &tmQ, full, q0, bh,
-                      kRowsQ);
-        Tile<D>::load(base + C::kOffDO + s * C::kTileQ, &tmDO, full, q0, bh,
-                      kRowsQ);
-      }
-      float* st = side + s * C::kSide;
-      for (int j = lane; j < kRowsQ; j += 32) {
-        const int qp = q0 + j;
-        const bool in = qp < Lq;
-        const size_t r = (size_t)bh * Lq + qp;
-        const float ls = in ? lse_g[r] : kNegInf;
-        st[j] = ls > kNegInf * 0.5f ? ls * kLog2e
-                                    : __int_as_float(0x7f800000);  // +inf
-        st[kRowsQ + j] = in ? delta_g[r] : 0.f;
-        reinterpret_cast<int*>(st)[2 * kRowsQ + j] =
-            (segq != nullptr && in) ? segq[r] : 0;
-      }
-      mbar_arrive(full);
-    }
+    produce<D, C>(base, side, &tmQ, &tmK, &tmV, &tmDO, kvbar, full0,
+                  empty0, lse_g, delta_g, segq, bh, kvh, k0, qb_lo, qb_hi,
+                  Lq);
     return;
   }
 
@@ -247,6 +280,200 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   }
 }
 
+// Head dim 256 (see the top of this file): 64 kv rows a block, D split
+// between the two consumer warpgroups, P^T and dS^T swapped through shared
+// memory.
+template <int D>
+struct Split {
+  static_assert(D == 256, "the split kernel is the head dim 256 one");
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kRowsK = 64;                  // kv rows per block
+  static constexpr int kRowsQ = 64;                  // q rows per tile
+  static constexpr int kTileK = Tile<D>::bytes(kRowsK);
+  static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
+  static constexpr int kOffK = 0;
+  static constexpr int kOffV = kOffK + kTileK;
+  static constexpr int kOffQ = kOffV + kTileK;
+  static constexpr int kOffDO = kOffQ + kStages * kTileQ;
+  // 16 words a consumer thread: its P^T then dS^T fragments (2 k16 steps)
+  static constexpr int kOffSwap = kOffDO + kStages * kTileQ;
+  static constexpr int kOffSide = kOffSwap + kConsumers * 16 * 4;
+  static constexpr int kSide = 3 * kRowsQ;  // lse2, delta, seg per stage
+  static constexpr int kOffBar = kOffSide + kStages * kSide * 4;
+  static constexpr int kSmem = kOffBar + 64 + 1024;
+};
+
+template <int D, typename TO>
+__global__ void __launch_bounds__(Split<D>::kThreads, 1)
+    dkdv_sm90_split_kernel(const __grid_constant__ CUtensorMap tmQ,
+                           const __grid_constant__ CUtensorMap tmK,
+                           const __grid_constant__ CUtensorMap tmV,
+                           const __grid_constant__ CUtensorMap tmDO,
+                           const float* __restrict__ lse_g,
+                           const float* __restrict__ delta_g,
+                           const int* __restrict__ segq,
+                           const int* __restrict__ segk,
+                           TO* __restrict__ dk, TO* __restrict__ dv, int H,
+                           int Hkv, int Lq, int Lk, int causal, int window,
+                           float scale) {
+  using C = Split<D>;
+  constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
+  constexpr int kHalf = D / 2;               // dK, dV columns a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  float* side = reinterpret_cast<float*>(smem_raw + pad + C::kOffSide);
+  uint32_t* swap = reinterpret_cast<uint32_t*>(smem_raw + pad + C::kOffSwap);
+  const uint32_t kvbar = base + C::kOffBar;
+  const uint32_t full0 = kvbar + 8, empty0 = full0 + 8 * kStages;
+
+  const int bh = blockIdx.x;                 // q-head row
+  const int kb = blockIdx.y;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int k0 = kb * kRowsK;
+
+  const int nqb = (Lq + kRowsQ - 1) / kRowsQ;
+  int qb_lo = 0, qb_hi = nqb;
+  if (causal) {
+    qb_lo = k0 / kRowsQ;                     // first q tile reaching k0
+    if (window > 0)                          // last q tile the window allows
+      qb_hi = min(nqb, (k0 + kRowsK - 2 + window) / kRowsQ + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1 + 32);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {           // producer warpgroup
+    producer_regs();
+    if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    produce<D, C>(base, side, &tmQ, &tmK, &tmV, &tmDO, kvbar, full0,
+                  empty0, lse_g, delta_g, segq, bh, kvh, k0, qb_lo, qb_hi,
+                  Lq);
+    return;
+  }
+
+  // consumer warpgroup wg: dK, dV columns kHalf wg .., S^T's q columns
+  // 32 wg .. 32 wg + 31; both over all 64 kv rows of the block
+  consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const float scale2 = scale * kLog2e;
+  const Mask mask{Lq, Lk, causal, window};
+  int kpos[2], sk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kpos[h] = k0 + frag_row(2 * h);
+    sk[h] = (segk != nullptr && kpos[h] < Lk)
+                ? segk[(size_t)kvh * Lk + kpos[h]]
+                : 0;
+  }
+  // this warpgroup's half of each tile: blocks 2 wg, 2 wg + 1 of the four,
+  // laid out as a (rows, kHalf) tile (sm90.cuh)
+  const uint32_t half_k = 2 * wg * kRowsQ * Tile<D>::kRowBytes;
+  uint32_t* mine = swap + wg * 16 * 128 + t;
+  const uint32_t* theirs = swap + (1 - wg) * 16 * 128 + t;
+  float dk_acc[kHalf / 2], dv_acc[kHalf / 2];
+#pragma unroll
+  for (int r = 0; r < kHalf / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int qb = qb_lo, i = 0; qb < qb_hi; ++qb, ++i) {
+    const int s = i % kStages;
+    const int q0 = qb * kRowsQ;
+    const uint32_t qaddr = base + C::kOffQ + s * C::kTileQ;
+    const uint32_t doaddr = base + C::kOffDO + s * C::kTileQ;
+    const float* st = side + s * C::kSide;
+    mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+
+    float sc[16], dp[16];                    // 64 kv rows x 32 q columns
+    wgmma_fence();
+    wgmma_ss_tile<D>(sc, base + C::kOffK, kRowsK, 0, qaddr, kRowsQ, 32 * wg);
+    wgmma_ss_tile<D>(dp, base + C::kOffV, kRowsK, 0, doaddr, kRowsQ,
+                     32 * wg);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool diag = causal && k0 + kRowsK - 1 > q0;  // reaches above it
+    const bool need_mask =
+        diag || segq != nullptr || q0 + kRowsQ > Lq || k0 + kRowsK > Lk ||
+        (causal && window > 0 && q0 + kRowsQ - 1 - k0 >= window);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int c = 32 * wg + frag_col(r);   // q row within the tile
+      float p = exp2f(sc[r] * scale2 - st[c]);
+      if (need_mask &&
+          !mask(q0 + c, kpos[(r >> 1) & 1],
+                reinterpret_cast<const int*>(st)[2 * kRowsQ + c],
+                sk[(r >> 1) & 1]))
+        p = 0.f;
+      sc[r] = p;
+      dp[r] = p * (dp[r] - st[kRowsQ + c]) * scale;
+    }
+
+    // [0], [1]: this warpgroup's k16 steps (q rows 32 wg ..); [2], [3]: the
+    // other's, through shared memory
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      to_a_frag(sc, kk, pa[kk]);
+      to_a_frag(dp, kk, dsa[kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mine[(4 * kk + j) * 128] = pa[kk][j];
+        mine[(8 + 4 * kk + j) * 128] = dsa[kk][j];
+      }
+    }
+    consumer_sync();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[2 + kk][j] = theirs[(4 * kk + j) * 128];
+        dsa[2 + kk][j] = theirs[(8 + 4 * kk + j) * 128];
+      }
+    consumer_sync();                         // the swap may be written again
+
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(pa);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {         // 16 q rows of dO a step
+      const int qr = 16 * (kk < 2 ? 2 * wg + kk : 2 * (1 - wg) + kk - 2);
+      wgmma_rs_tile<kHalf, 1>(dv_acc, pa[kk], doaddr + half_k, kRowsQ, qr);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int qr = 16 * (kk < 2 ? 2 * wg + kk : 2 * (1 - wg) + kk - 2);
+      wgmma_rs_tile<kHalf, 1>(dk_acc, dsa[kk], qaddr + half_k, kRowsQ, qr);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    mbar_arrive(empty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= Lk) continue;
+    const size_t off = ((size_t)bh * Lk + kpos[h]) * D + kHalf * wg;
+    store_row<kHalf>(dk + off, dk_acc, h, 1.f);
+    store_row<kHalf>(dv + off, dv_acc, h, 1.f);
+  }
+}
+
 template <int D, typename TO>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int* segq,
@@ -258,15 +485,40 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap mq, mk, mv, mdo;
   if (!Tile<D>::make_map(&mq, q, BH, Lq, C::kRowsQ) ||
       !Tile<D>::make_map(&mdo, dout, BH, Lq, C::kRowsQ) ||
-      !Tile<D>::make_map(&mk, k, BHkv, Lk, kRowsK) ||
-      !Tile<D>::make_map(&mv, v, BHkv, Lk, kRowsK))
+      !Tile<D>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
+      !Tile<D>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dkdv_sm90_kernel<D, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lk + kRowsK - 1) / kRowsK);
+  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK);
   dkdv_sm90_kernel<D, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+      Lk, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int launch_split(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const int* segq, const int* segk, void* dk, void* dv, int BH,
+                 int H, int Hkv, int Lq, int Lk, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  using C = Split<256>;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!Tile<256>::make_map(&mq, q, BH, Lq, C::kRowsQ) ||
+      !Tile<256>::make_map(&mdo, dout, BH, Lq, C::kRowsQ) ||
+      !Tile<256>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
+      !Tile<256>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_sm90_split_kernel<256, TO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK);
+  dkdv_sm90_split_kernel<256, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
       mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
       Lk, causal, window, scale);
   return (int)cudaGetLastError();
@@ -308,6 +560,14 @@ int launch_dkdv_sm90(const void* q, const void* k, const void* v,
       return launch_d<128>(q, k, v, dout, lse, delta, segq, segk, dk, dv,
                            out_f32, BH, H, Hkv, Lq, Lk, causal, window, scale,
                            stream);
+    case 256:
+      if (out_f32)
+        return launch_split<float>(q, k, v, dout, lse, delta, segq, segk, dk,
+                                   dv, BH, H, Hkv, Lq, Lk, causal, window,
+                                   scale, stream);
+      return launch_split<__nv_bfloat16>(q, k, v, dout, lse, delta, segq,
+                                         segk, dk, dv, BH, H, Hkv, Lq, Lk,
+                                         causal, window, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

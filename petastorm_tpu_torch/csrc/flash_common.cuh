@@ -18,7 +18,8 @@ constexpr float kNegInf = -1e30f;
 // Tile sizes and block shape shared by the three kernels. 256 threads form a
 // 16 x 16 grid: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
 // (i, j < 4) of every 64 x 64 score tile, so a row's 16 owners are one
-// half-warp and row reductions are four xor-shuffles.
+// half-warp and row reductions are four xor-shuffles. The backward kernels
+// take 32 x 32 tiles (i, j < 2) at head dim 256 (flash_bwd.cu).
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
@@ -28,7 +29,7 @@ constexpr int kSub = 4;            // rows (and score columns) per thread
 // kernels' template; bf16: the wgmma kernels' Tile<D>); the C entry points
 // return cudaErrorInvalidValue for any other, and the wrapper pads a head dim
 // up to the next of these (ops/kernels.py).
-#define FLASH_FOR_HEAD_DIMS_F32(X) X(16) X(32) X(64) X(128)
+#define FLASH_FOR_HEAD_DIMS_F32(X) X(16) X(32) X(64) X(128) X(256)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

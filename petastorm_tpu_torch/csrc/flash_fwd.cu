@@ -190,8 +190,8 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* segq,
 
 }  // namespace flash
 
-// dtype: 0 = float32 (FP32 cores, above; D 16, 32, 64 or 128), 1 =
-// bfloat16 (wgmma, flash_fwd_sm90.cu; D 32, 64 or 128). Returns a
+// dtype: 0 = float32 (FP32 cores, above; D 16, 32, 64, 128 or 256), 1 =
+// bfloat16 (wgmma, flash_fwd_sm90.cu; D 32, 64, 128 or 256). Returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* segq, const int* segk, void* o, float* lse,

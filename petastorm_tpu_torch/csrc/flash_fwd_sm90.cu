@@ -10,16 +10,18 @@
 // bf16 ridge (~295): bound by operations. So both products run on wgmma
 // (989 TFLOP/s bf16), fed by TMA.
 //
-// Head dims: instantiated at D = 32, 64 and 128 (sm90.cuh's Tile<D>: 64-byte
-// swizzled rows at 32, one 128-byte block at 64, two at 128); the wrapper
-// pads any other D <= 128 with zero columns to the next of them.
+// Head dims: instantiated at D = 32, 64, 128 and 256 (sm90.cuh's Tile<D>:
+// 64-byte swizzled rows at 32, one 128-byte block at 64, two at 128, four at
+// 256); the wrapper pads any other D <= 256 with zero columns to the next of
+// them.
 //
-// Block: 288 threads. Warps 0-7 are two consumer warpgroups, each owning 64
-// of the block's 128 q rows of one (batch, head) row; warp 8 is the
-// producer. TMA loads the 128 x D Q tile once; kRowsK x D K and V tiles
-// (128 rows; 64 at D = 128, below) stream through a 2-stage ring (shared
-// memory at D = 64: Q 16 KB + 2 x (V 16 KB + K 16 KB) + segment ids 2 x
-// 512 B ~ 82 KB; half the tile bytes at D = 32; ~98 KB at D = 128).
+// Block: 288 threads (384 at D = 256, below). Warps 0-7 are two consumer
+// warpgroups, each owning 64 of the block's 128 q rows of one (batch, head)
+// row; warp 8 is the producer. TMA loads the 128 x D Q tile once; kRowsK x D
+// K and V tiles (128 rows; 64 at D >= 128, below) stream through a 2-stage
+// ring (shared memory at D = 64: Q 16 KB + 2 x (V 16 KB + K 16 KB) +
+// segment ids 2 x 512 B ~ 82 KB; half the tile bytes at D = 32; ~98 KB at
+// D = 128; at D = 256 Q 64 KB + 2 x (V 32 KB + K 32 KB) ~ 194 KB).
 // Each stage has a `full` mbarrier (the TMA bytes plus one arrival per
 // producer lane, after the lanes wrote the tile's kv segment ids) and an
 // `empty` one (one arrival per consumer thread once its wgmmas are done).
@@ -35,6 +37,12 @@
 // allots 168 a thread; O over 64 q rows at D = 128 takes 64 floats, and S
 // over a 128-row kv tile 64 more, beside P's 32 bf16 pairs. At 64 rows S
 // takes 32 and P 16.
+//
+// D = 256: O over 64 q rows is 128 floats a thread, beside S's 32 and P's
+// 16 at 64-row kv tiles: more than 168. So the block has 384 threads, the
+// producer warp in a warpgroup of its own whose setmaxnreg.dec hands its
+// registers to the two consumer warpgroups (setmaxnreg.inc to 232;
+// sm90.cuh), as K3 does at D = 128.
 //
 // Precision: P is rounded to nearest bf16 before P V (the A operand of a
 // bf16 wgmma is bf16), as scaled_dot_product_attention does and as the
@@ -60,11 +68,14 @@ using namespace sm90;
 constexpr int kRowsQ = 128;                 // q rows per block
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;             // two warpgroups
-constexpr int kThreadsFwd = kConsumers + 32;  // + one producer warp
 
 template <int D>
 struct Fwd {
-  static constexpr int kRowsK = D == 128 ? 64 : 128;  // kv rows per tile
+  // At D = 256 the producer is a whole warpgroup (one warp of it loads),
+  // so that setmaxnreg can move its registers to the consumers.
+  static constexpr bool kRealloc = D == 256;
+  static constexpr int kThreads = kConsumers + (kRealloc ? 128 : 32);
+  static constexpr int kRowsK = D >= 128 ? 64 : 128;  // kv rows per tile
   static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
   static constexpr int kTileK = Tile<D>::bytes(kRowsK);
   static constexpr int kOffQ = 0;
@@ -76,7 +87,7 @@ struct Fwd {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsFwd, 1)
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
                     const __grid_constant__ CUtensorMap tmK,
                     const __grid_constant__ CUtensorMap tmV,
@@ -121,6 +132,10 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {            // producer warp
+    if constexpr (C::kRealloc) {
+      producer_regs();
+      if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    }
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_tx(qbar, C::kTileQ);
@@ -149,6 +164,7 @@ __global__ void __launch_bounds__(kThreadsFwd, 1)
   }
 
   // consumer warpgroup wg owns q rows r0 .. r0 + 63
+  if constexpr (C::kRealloc) consumer_regs();
   const int wg = threadIdx.x >> 7;
   const int r0 = q0 + 64 * wg;
   const float scale2 = scale * kLog2e;
@@ -269,7 +285,7 @@ int launch(const void* q, const void* k, const void* v, const int* segq,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
-  fwd_sm90_kernel<D><<<grid, kThreadsFwd, C::kSmem, stream>>>(
+  fwd_sm90_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, causal,
       window, scale);
   return (int)cudaGetLastError();
@@ -290,6 +306,9 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v,
                         causal, window, scale, stream);
     case 128:
       return launch<128>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
+                         causal, window, scale, stream);
+    case 256:
+      return launch<256>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
                          causal, window, scale, stream);
   }
   return (int)cudaErrorInvalidValue;

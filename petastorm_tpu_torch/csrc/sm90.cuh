@@ -4,16 +4,18 @@
 // wgmma shapes the kernels issue. No CUTLASS: the nvcc calls stay in
 // seconds.
 //
-// Tiles of a head dim D (Tile<D>, D = 32, 64 or 128) are stored by TMA as
-// column blocks of kCols = min(D, 64) bf16 columns, each kRowBytes = 2 kCols
-// wide and swizzled at that width: the 128-byte swizzle for 64 columns (row
-// r's 16-byte chunk c at chunk c ^ (r % 8)), the 64-byte swizzle for 32
-// (chunk c ^ ((r / 2) % 4)). D = 128 is two 64-column blocks, the second
-// after the first's rows (a TMA box's inner dim is at most the swizzle
-// width, so it takes two boxes); D = 32 is one block of 64-byte rows, not
-// padded to 64 columns. A block of R rows takes R kRowBytes, so with R a
-// multiple of 8 every block starts on a swizzle atom of 8 rows, and a wgmma
-// descriptor can address any 8-row group and any 16-column k step of it.
+// Tiles of a head dim D (Tile<D>, D = 32, 64, 128 or 256) are stored by TMA
+// as column blocks of kCols = min(D, 64) bf16 columns, each kRowBytes = 2
+// kCols wide and swizzled at that width: the 128-byte swizzle for 64 columns
+// (row r's 16-byte chunk c at chunk c ^ (r % 8)), the 64-byte swizzle for 32
+// (chunk c ^ ((r / 2) % 4)). D = 128 is two 64-column blocks and D = 256
+// four, each after the previous one's rows (a TMA box's inner dim is at most
+// the swizzle width, so it takes a box a block); D = 32 is one block of
+// 64-byte rows, not padded to 64 columns. A block of R rows takes R
+// kRowBytes, so with R a multiple of 8 every block starts on a swizzle atom
+// of 8 rows, and a wgmma descriptor can address any 8-row group and any
+// 16-column k step of it. Blocks 2 and 3 of a D = 256 tile of R rows are laid
+// out as a D = 128 tile of R rows 2 R kRowBytes past its start.
 #pragma once
 
 #include <cuda.h>              // CUtensorMap and its enums (header only)
@@ -138,10 +140,11 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
 // file), its TMA map and its wgmma descriptors.
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "head dim 32, 64, 128 or 256");
   static constexpr int kCols = D < 64 ? D : 64;     // columns of one block
   static constexpr int kRowBytes = 2 * kCols;       // 64 or 128
-  static constexpr int kBlocks = D / kCols;         // 1 or 2
+  static constexpr int kBlocks = D / kCols;         // 1, 2 or 4
   static constexpr int kAtomBytes = 8 * kRowBytes;  // one 8-row swizzle atom
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
 
@@ -222,6 +225,13 @@ __device__ __forceinline__ void consumer_regs() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
+// A barrier of the two consumer warpgroups alone (named barrier 1; the
+// producer warp never waits on it). Orders their shared-memory writes
+// before it against their reads after it.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -285,12 +295,25 @@ __device__ __forceinline__ void to_a_frag(const float (&acc)[kRegs], int kk,
   a[3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
 }
 
-// D (64 x N, f32, N = 2 R = 64 or 128) (+)= A (64 x 16, smem)
+// D (64 x N, f32, N = 2 R = 32, 64 or 128) (+)= A (64 x 16, smem)
 // B (N x 16, smem)^T, both K-major.
 template <int R>
 __device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(R == 32 || R == 64, "m64n64 or m64n128");
+  static_assert(R == 16 || R == 32 || R == 64, "m64n32, m64n64 or m64n128");
+  if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+          "%15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
   if constexpr (R == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -385,31 +408,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[R],
 
 // O (64 x D, f32 fragment of D/2 registers) += A (64 x 16, registers)
 // B (16 x D), B rows k0 .. k0 + 15 of the (rows, D) tile at `base`: one
-// m64nD wgmma per 64-column block (its own half of the fragment).
+// m64n{kCols} wgmma per column block (its own part of the fragment).
 template <int D, int kTransB>
 __device__ __forceinline__ void wgmma_rs_tile(float (&o)[D / 2],
                                               const uint32_t (&a)[4],
                                               uint32_t base, int rows,
                                               int k0) {
   using T = Tile<D>;
+  constexpr int kPart = T::kCols / 2;   // fragment registers of one block
   wgmma_rs<T::kCols, 0, kTransB>(o, a, T::mnmajor(base, rows, k0, 0));
-  if constexpr (T::kBlocks == 2)
-    wgmma_rs<T::kCols, T::kCols / 2, kTransB>(o, a,
-                                              T::mnmajor(base, rows, k0, 1));
+  if constexpr (T::kBlocks > 1)
+    wgmma_rs<T::kCols, kPart, kTransB>(o, a, T::mnmajor(base, rows, k0, 1));
+  if constexpr (T::kBlocks > 2) {
+    wgmma_rs<T::kCols, 2 * kPart, kTransB>(o, a,
+                                           T::mnmajor(base, rows, k0, 2));
+    wgmma_rs<T::kCols, 3 * kPart, kTransB>(o, a,
+                                           T::mnmajor(base, rows, k0, 3));
+  }
 }
 
 // S (64 x N) = A B^T over the D columns of two tiles, both K-major: rows
-// a_r0 .. a_r0 + 63 of the (a_rows, D) tile at `a` and the N rows of the
-// (N, D) tile at `b`; D / 16 k steps.
+// a_r0 .. a_r0 + 63 of the (a_rows, D) tile at `a` and rows b_r0 .. b_r0 +
+// N - 1 of the (b_rows, D) tile at `b`; D / 16 k steps.
+template <int D, int R>
+__device__ __forceinline__ void wgmma_ss_tile(float (&s)[R], uint32_t a,
+                                              int a_rows, int a_r0,
+                                              uint32_t b, int b_rows,
+                                              int b_r0) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(s, T::kmajor(a, a_rows, a_r0, kk),
+             T::kmajor(b, b_rows, b_r0, kk), kk > 0);
+}
+
+// The same with B the whole (N, D) tile at `b`.
 template <int D, int R>
 __device__ __forceinline__ void wgmma_ss_tile(float (&s)[R], uint32_t a,
                                               int a_rows, int a_r0,
                                               uint32_t b) {
-  using T = Tile<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(s, T::kmajor(a, a_rows, a_r0, kk), T::kmajor(b, 2 * R, 0, kk),
-             kk > 0);
+  wgmma_ss_tile<D>(s, a, a_rows, a_r0, b, 2 * R, 0);
 }
 
 // Two values stored side by side, rounded to nearest when TO is bf16.
@@ -442,8 +480,8 @@ __device__ __forceinline__ void store_row(TO* out, const float (&acc)[D / 2],
 }  // namespace sm90
 
 // Launchers of the bf16 kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
-// flash_bwd_sm90.cu) at head dim D (32, 64 or 128), called by the C entry
-// points for dtype 1. Return a cudaError_t.
+// flash_bwd_sm90.cu) at head dim D (32, 64, 128 or 256), called by the C
+// entry points for dtype 1. Return a cudaError_t.
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
                     const int* segq, const int* segk, void* o, float* lse,
                     int BH, int H, int Hkv, int Lq, int Lk, int D, int causal,

@@ -28,13 +28,14 @@ started together and linked into
 ``petastorm_tpu_torch/_build/<hash of the sources>``, and loaded with
 ``ctypes``; nothing is built or imported from CUDA when this module is
 imported. The attention kernels are instantiated at the head dims of
-:data:`HEAD_DIMS`: 32, 64 and 128 in bf16 (the tensor-core kernels), and
-16, 32, 64 and 128 in float32 (the FP32-core kernels). A launch at any
-other head dim up to :data:`MAX_HEAD_DIM` runs at the next instantiated
+:data:`HEAD_DIMS`: 32, 64, 128 and 256 in bf16 (the tensor-core kernels),
+and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels). A launch at
+any other head dim up to :data:`MAX_HEAD_DIM` runs at the next instantiated
 one (:func:`launch_head_dim`): q, k, v and do get zero columns up to it
 (:func:`pad_heads`), the scale stays that of the true head dim, and o, dq,
 dk and dv are cut back (:func:`unpad`). That is exact: zero columns add
-nothing to q k^T and give zero output columns. A head dim past 128 raises.
+nothing to q k^T and give zero output columns. A head dim past 256 raises
+before anything launches.
 
 The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
 bf16 before their second products, where the twins keep float32: their
@@ -74,9 +75,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Head dims the attention kernels are instantiated for, by dtype
 #: (``csrc/flash_common.cuh`` for float32, ``csrc/sm90.cuh``'s ``Tile<D>``
 #: for bf16).
-HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
-             torch.bfloat16: (32, 64, 128)}
-MAX_HEAD_DIM = 128
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
+             torch.bfloat16: (32, 64, 128, 256)}
+MAX_HEAD_DIM = 256
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel, and nowhere else.

@@ -5,7 +5,12 @@ joining one ``torch.distributed`` process group through a ``FileStore``
 under a given directory (no TCP port) and running an importable function;
 it returns their results by rank. A rank that raises, dies or outlives the
 time limit fails the whole launch in the parent with a ``RuntimeError``
-naming the rank, and every rank still running is stopped. The CPU tests
+naming the rank, and every rank still running is stopped. A rank that
+fails inside the rendezvous itself (``init_process_group``: no rank has
+run the function yet) is different: the ranks are stopped and started
+again over a fresh store, up to :data:`RENDEZVOUS_ATTEMPTS` launches
+within the one time limit, since gloo's TCP handshake over the loopback
+can fail now and then on a host that many processes share. The CPU tests
 run their gloo ranks through it, and ``chip_smoke.py`` its ranks on the
 card.
 
@@ -22,6 +27,14 @@ import time
 import traceback
 
 _POLL_S = 0.05
+
+#: Launches tried, each over a fresh store, while a rank fails inside the
+#: rendezvous (``retry-1``, ``retry-2`` under the store directory).
+RENDEZVOUS_ATTEMPTS = 3
+
+
+class _RendezvousFailed(RuntimeError):
+    """A rank failed inside ``init_process_group``."""
 
 
 def init_rank(store_dir: str, rank: int, world_size: int,
@@ -53,7 +66,11 @@ def _rank_main(fn, rank, world_size, store_dir, backend, args, kwargs):
     import torch.distributed as dist
     out = os.path.join(store_dir, 'rank-%d' % rank)
     try:
-        init_rank(store_dir, rank, world_size, backend)
+        try:
+            init_rank(store_dir, rank, world_size, backend)
+        except BaseException:
+            open(out + '.rendezvous', 'w').close()
+            raise
         try:
             result = _resolve(fn)(*args, **kwargs)
         finally:
@@ -80,16 +97,30 @@ def launch_ranks(fn, world_size: int, store_dir: str, *, args=(),
         ranks' results.
     :param backend: the process group's backend (``'gloo'``; ``'nccl'``
         needs a card a rank).
-    :param timeout_s: the wall limit of the whole launch; a rank still
-        running then fails it.
+    :param timeout_s: the wall limit of the whole launch, retries
+        included; a rank still running then fails it.
     """
+    deadline = time.monotonic() + timeout_s
+    for attempt in range(RENDEZVOUS_ATTEMPTS):
+        run_dir = (store_dir if attempt == 0
+                   else os.path.join(store_dir, 'retry-%d' % attempt))
+        try:
+            return _launch(fn, world_size, run_dir, args, kwargs, backend,
+                           timeout_s, deadline)
+        except _RendezvousFailed as exc:
+            if attempt == RENDEZVOUS_ATTEMPTS - 1:
+                raise RuntimeError(str(exc)) from None
+
+
+def _launch(fn, world_size, store_dir, args, kwargs, backend, timeout_s,
+            deadline):
+    """One launch of the ranks over the store at ``store_dir``."""
     os.makedirs(store_dir, exist_ok=True)
     ctx = multiprocessing.get_context('spawn')
     procs = [ctx.Process(target=_rank_main, name='rank-%d' % rank,
                          args=(fn, rank, world_size, store_dir, backend,
                                tuple(args), dict(kwargs or {})))
              for rank in range(world_size)]
-    deadline = time.monotonic() + timeout_s
     try:
         for p in procs:
             p.start()
@@ -98,9 +129,12 @@ def launch_ranks(fn, world_size: int, store_dir: str, *, args=(),
                       if p.exitcode not in (None, 0)]
             if failed:
                 rank = failed[0]
-                raise RuntimeError('rank %d of %d failed (exit code %s):\n%s'
-                                   % (rank, world_size, procs[rank].exitcode,
-                                      _error_text(store_dir, rank)))
+                in_rendezvous = os.path.exists(os.path.join(
+                    store_dir, 'rank-%d.rendezvous' % rank))
+                raise (_RendezvousFailed if in_rendezvous else RuntimeError)(
+                    'rank %d of %d failed (exit code %s):\n%s'
+                    % (rank, world_size, procs[rank].exitcode,
+                       _error_text(store_dir, rank)))
             if all(p.exitcode == 0 for p in procs):
                 break
             if time.monotonic() > deadline:

@@ -6,9 +6,10 @@ The same numpy inputs go through ``_pallas_flash`` / ``_pallas_flash_backward``
 PyTorch twin of each CUDA kernel (K1 forward, K2 dq, K3 dk/dv). All float32;
 tolerance ``atol = rtol = 2e-5`` (the two sum in different block orders:
 Pallas blocks of 16, the twins blocks of 512). The cases run at head dim 16,
-and again at ``HEAD_DIMS`` (32 and 128, which the kernels are built for, and
-80, which a CUDA launch pads to 128). A CUDA-marked test holds the kernels
-themselves against the twins on the card.
+and again at ``HEAD_DIMS`` (32, 128 and 256, which the kernels are built
+for, and 80 and 192, which a CUDA launch pads to 128 and 256). A
+CUDA-marked test holds the kernels themselves against the twins on the
+card.
 """
 
 import jax
@@ -25,7 +26,7 @@ from petastorm_tpu_torch.ops import kernels
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 BLOCK = 16
-HEAD_DIMS = [32, 80, 128]
+HEAD_DIMS = [32, 80, 128, 192, 256]
 
 # (name, q heads, kv heads, Lq, Lk, causal, window, segmented)
 CASES = [

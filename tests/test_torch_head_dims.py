@@ -1,17 +1,18 @@
 """Head dims of the port's flash kernels (K1 forward, K2 dq, K3 dk/dv).
 
-The kernels are instantiated at ``kernels.HEAD_DIMS`` (bf16 32, 64, 128;
-float32 16, 32, 64, 128). A launch at another head dim up to 128 pads q, k,
-v and do with zero columns to the next instantiated one, keeps the scale of
-the true head dim and cuts the outputs back. On the CPU the padding is held
-against the plain twins at the true head dim (float32, within 1e-6: zero
-columns add exact zeros, but the sums may be blocked differently), and the
-head-dim table and its raise past 128 are checked. On the card (``-m
-cuda``) every new instantiation and the padded head dims 80 and 96 are held
-against the twins run in float32 on the same values: atol = rtol = 1e-4 for
-float32 outputs, ``kernels.flash_gate_limit`` for the bf16 tensor-core
-outputs; K4 at 8 channels is bit-equal to its twin. This file imports no
-JAX, so its card tests run where JAX is not installed.
+The kernels are instantiated at ``kernels.HEAD_DIMS`` (bf16 32, 64, 128,
+256; float32 16, 32, 64, 128, 256). A launch at another head dim up to 256
+pads q, k, v and do with zero columns to the next instantiated one, keeps
+the scale of the true head dim and cuts the outputs back. On the CPU the
+padding is held against the plain twins at the true head dim (float32,
+within 1e-6: zero columns add exact zeros, but the sums may be blocked
+differently), and the head-dim table and its raise past 256 are checked. On
+the card (``-m cuda``) every new instantiation (32, 128 and 256) and the
+padded head dims 80, 96, 160 and 192 are held against the twins run in
+float32 on the same values: atol = rtol = 1e-4 for float32 outputs,
+``kernels.flash_gate_limit`` for the bf16 tensor-core outputs; K4 at 8
+channels is bit-equal to its twin. This file imports no JAX, so its card
+tests run where JAX is not installed.
 """
 
 import math
@@ -31,6 +32,7 @@ CASES = [
     ('gqa', 8, 2, 256, 256, True, None, False),
     ('segments_masked_row', 2, 2, 300, 300, True, None, True),
     ('window', 2, 2, 512, 512, True, 128, False),
+    ('mqa', 8, 1, 256, 256, True, None, False),
 ]
 SMALL_CASES = [('causal', 2, 2, 40, 40, True, None, False),
                ('gqa_segments', 4, 2, 37, 37, True, None, True),
@@ -57,18 +59,23 @@ def _operands(seed, case, d):
 
 
 def test_head_dim_table():
-    """Each instantiated head dim launches as itself; any other up to 128
-    as the next one; past 128 raises naming 128."""
+    """Each instantiated head dim launches as itself, 256 among them; any
+    other up to 256 as the next one (192 at 256); past 256 raises naming
+    256."""
     for dtype, widths in kernels.HEAD_DIMS.items():
+        assert 256 in widths and kernels.MAX_HEAD_DIM == 256
         for width in widths:
             assert kernels.launch_head_dim(width, dtype) == width
+        assert kernels.launch_head_dim(192, dtype) == 256
+        assert kernels.launch_head_dim(129, dtype) == 256
     assert kernels.launch_head_dim(80, torch.bfloat16) == 128
     assert kernels.launch_head_dim(48, torch.float32) == 64
     assert kernels.launch_head_dim(8, torch.bfloat16) == 32
     assert kernels.launch_head_dim(8, torch.float32) == 16
     for dtype in kernels.HEAD_DIMS:
-        with pytest.raises(ValueError, match='at most 128'):
-            kernels.launch_head_dim(192, dtype)
+        for d in (257, 320):
+            with pytest.raises(ValueError, match='at most 256'):
+                kernels.launch_head_dim(d, dtype)
 
 
 def test_pad_and_unpad_shapes():
@@ -81,7 +88,10 @@ def test_pad_and_unpad_shapes():
     assert torch.equal(u, x) and u.is_contiguous()
 
 
-@pytest.mark.parametrize('d', [48, 80, 96])
+PADDED = [48, 80, 96, 160, 192, 224]
+
+
+@pytest.mark.parametrize('d', PADDED)
 @pytest.mark.parametrize('case', SMALL_CASES, ids=[c[0] for c in SMALL_CASES])
 def test_padded_forward_equals_twin_at_true_head_dim(case, d):
     """Pad to the launch width, run the twin with the true head dim's
@@ -96,7 +106,7 @@ def test_padded_forward_equals_twin_at_true_head_dim(case, d):
     torch.testing.assert_close(lse, lse_ref, **PAD_TOL)
 
 
-@pytest.mark.parametrize('d', [48, 80, 96])
+@pytest.mark.parametrize('d', PADDED)
 @pytest.mark.parametrize('case', SMALL_CASES, ids=[c[0] for c in SMALL_CASES])
 def test_padded_backward_equals_twin_at_true_head_dim(case, d):
     """The same for dq (K2) and dk, dv (K3), given the true head dim's o,
@@ -173,7 +183,9 @@ def _card_case(case, d, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize('d,dtype', [(32, 'bfloat16'), (128, 'bfloat16'),
                                      (32, 'float32'), (128, 'float32'),
-                                     (80, 'bfloat16'), (96, 'float32')])
+                                     (80, 'bfloat16'), (96, 'float32'),
+                                     (256, 'bfloat16'), (256, 'float32'),
+                                     (192, 'bfloat16'), (160, 'float32')])
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_cuda_head_dims_match_plain_twins(case, d, dtype):
     """Each new instantiation (and a padded head dim) of K1-K3 against the
@@ -186,14 +198,21 @@ def test_cuda_head_dims_match_plain_twins(case, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
 def test_cuda_head_dim_past_128_raises(dtype):
-    """A CUDA launch at head dim 192 raises naming 128, and launches
-    nothing (run on a GPU host)."""
+    """A CUDA launch past the widest instantiation, at head dim 320, raises
+    naming 256, and launches none of K1-K3 (run on a GPU host). (The name
+    is from when 128 was the widest.)"""
     _needs_card()
-    x = torch.zeros(2, 64, 192, device='cuda', dtype=getattr(torch, dtype))
+    x = torch.zeros(2, 64, 320, device='cuda', dtype=getattr(torch, dtype))
+    lse = torch.zeros(2, 64, device='cuda')
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match='at most 128'):
+    with pytest.raises(ValueError, match='at most 256'):
         kernels.flash_fwd(x, x, x, n_heads=2, n_kv_heads=2)
-    assert kernels.LAUNCHES['flash_fwd'] == 0
+    with pytest.raises(ValueError, match='at most 256'):
+        kernels.flash_bwd_dq(x, x, x, x, lse, lse, n_heads=2, n_kv_heads=2)
+    with pytest.raises(ValueError, match='at most 256'):
+        kernels.flash_bwd_dkdv(x, x, x, x, lse, lse, n_heads=2,
+                               n_kv_heads=2)
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -215,6 +234,35 @@ def test_cuda_normalize_eight_channels_bit_equal(dtype):
     assert kernels.LAUNCHES['normalize'] == 1
     ref = kernels.normalize_plain(torch.from_numpy(images), mean, inv, dt)
     assert torch.equal(got.cpu(), ref)
+
+
+def test_phase_30_gemma_widths():
+    """``chip_smoke.py``'s phase 30 (c) model: gemma-2b's published widths
+    (8 heads of 256 over one kv head, vocab 256,000, d_ff 16,384), cut to
+    8 of its 18 layers: 1,929,414,656 parameters, counted from the shapes
+    ``init`` gives (the count held against ``init`` itself at narrow
+    widths), whose float32 weights, gradients and AdamW moments (16 bytes
+    a parameter) leave room on an 80 GB card; launched at head dim 256."""
+    import chip_smoke
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+
+    def count(c):
+        kv = c.kv_heads * c.head_dim
+        layer = (2 * c.d_model + 2 * c.d_model ** 2 + 2 * c.d_model * kv
+                 + 3 * c.d_model * c.d_ff)
+        return 2 * c.vocab_size * c.d_model + c.d_model + c.n_layers * layer
+
+    small = tlm.TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                                  n_kv_heads=1, n_layers=2, d_ff=48)
+    params = tlm.init(small, torch.Generator().manual_seed(0), device='cpu')
+    assert count(small) == sum(p.numel() for p in tlm.parameters(params))
+    cfg = chip_smoke.gemma_config(tlm)
+    assert (cfg.head_dim, cfg.kv_heads, cfg.attention) == (256, 1, 'flash')
+    assert (cfg.vocab_size, cfg.d_model, cfg.d_ff, cfg.n_layers) == (
+        256000, 2048, 16384, 8)
+    assert count(cfg) == 1_929_414_656
+    assert 16 * count(cfg) < 32e9
+    assert kernels.launch_head_dim(cfg.head_dim, cfg.dtype) == 256
 
 
 @pytest.mark.timeout(300)

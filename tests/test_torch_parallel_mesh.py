@@ -121,6 +121,23 @@ def test_launcher_results_failures_and_time_limit(tmp_path):
                      kwargs={'sleep_rank': 0, 'seconds': 60}, timeout_s=8)
 
 
+@pytest.mark.timeout(120)
+def test_launcher_retries_a_failed_rendezvous(tmp_path):
+    """A rank failing inside ``init_process_group`` starts the launch again
+    over a fresh store, ``RENDEZVOUS_ATTEMPTS`` times in all, then fails
+    naming the rank and its error."""
+    from petastorm_tpu_torch.parallel import launch
+    store = tmp_path / 'rdv'
+    with pytest.raises(RuntimeError, match='(?s)rank [01] of 2 failed.*'
+                       'Unknown backend type no-such-backend'):
+        launch_ranks('torch_mesh_ranks:fail_or_sleep', 2, str(store),
+                     backend='no-such-backend', timeout_s=100)
+    runs = [store] + [store / ('retry-%d' % i)
+                      for i in range(1, launch.RENDEZVOUS_ATTEMPTS)]
+    assert all(any(run.glob('rank-*.rendezvous')) for run in runs)
+    assert not (store / ('retry-%d' % launch.RENDEZVOUS_ATTEMPTS)).exists()
+
+
 def test_public_names():
     for name in ('make_mesh', 'host_shard', 'batch_sharding',
                  'replicated_sharding', 'ring_attention', 'launch_ranks'):

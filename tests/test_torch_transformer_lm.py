@@ -7,8 +7,10 @@ layers, L 16). The JAX side runs ``attention='flash'``, which is its jnp path
 on the CPU; the port's side runs the plain twins of its kernels. Tolerances:
 logits 1e-4, loss 1e-5, gradients 1e-4, parameters after one AdamW step
 1e-5 (float32 sums in different orders). The head-dim cases run d_model 256
-over 2 heads (head dim 128) and over 8 (head dim 32), L 64, with the JAX
-side's flash attention on its Pallas kernels in interpret mode.
+over 2 heads (head dim 128) and over 8 (head dim 32), and d_model 512 over
+2 heads of 256 sharing one kv head (Gemma 2B's head width and MQA), L 64,
+with the JAX side's flash attention on its Pallas kernels in interpret
+mode.
 """
 
 import dataclasses
@@ -124,20 +126,28 @@ def test_segment_positions_match():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-HEAD_DIM_CONFIGS = {'head_dim_128': 2, 'head_dim_32': 8}
+# name: (widths, head dim)
+HEAD_DIM_CONFIGS = {
+    'head_dim_128': (dict(n_heads=2), 128),
+    'head_dim_32': (dict(n_heads=8), 32),
+    'head_dim_256_mqa': (dict(d_model=512, n_heads=2, n_kv_heads=1), 256),
+}
 
 
 @pytest.mark.parametrize('name', sorted(HEAD_DIM_CONFIGS))
 def test_head_dims_match_pallas_interpret(name, monkeypatch):
-    """Logits, loss and every leaf's gradient at head dims 128 and 32, the
-    JAX LM's flash attention run on its Pallas kernels (interpret mode)."""
+    """Logits, loss and every leaf's gradient at head dims 128, 32 and 256
+    (one kv head), the JAX LM's flash attention run on its Pallas kernels
+    (interpret mode)."""
     monkeypatch.setattr(jtlm, 'flash_attention', functools.partial(
         jtlm.flash_attention, backend='interpret', block_q=32, block_k=32))
-    base = dict(vocab_size=128, d_model=256, n_heads=HEAD_DIM_CONFIGS[name],
-                n_layers=2, d_ff=512, max_seq_len=64, attention='flash')
+    widths, head_dim = HEAD_DIM_CONFIGS[name]
+    base = dict(vocab_size=128, d_model=256, n_layers=2, d_ff=512,
+                max_seq_len=64, attention='flash')
+    base.update(widths)
     jcfg = jtlm.TransformerConfig(dtype=jnp.float32, **base)
     tcfg = ttlm.TransformerConfig(dtype=torch.float32, **base)
-    assert tcfg.head_dim == 256 // HEAD_DIM_CONFIGS[name]
+    assert tcfg.head_dim == head_dim
     jp = jtlm.init(jax.random.PRNGKey(4), jcfg)
     tp = params_from_jax(jax.device_get(jp), tcfg, device='cpu')
     rng = np.random.default_rng(4)
