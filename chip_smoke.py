@@ -7,9 +7,10 @@ printing one line or a few:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the four CUDA kernels from ``csrc/``, one ``nvcc`` call a
    source, all started together, then one link (bf16 K1, K2, K3 on
-   Hopper's tensor cores at head dims 32, 64, 128 and 256:
-   ``flash_fwd_sm90.cu``, ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``;
-   float32 K1-K3 on the FP32 cores at 16, 32, 64, 128 and 256:
+   Hopper's tensor cores at head dims 32, 64, 128 and 256, and their wide
+   kernels at any multiple of 64 past 256: ``flash_fwd_sm90.cu``,
+   ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``; float32 K1-K3 on the
+   FP32 cores at 16, 32, 64, 128 and 256, and wide past 256:
    ``flash_fwd.cu``, ``flash_bwd.cu``; K4 ``normalize.cu``);
 3. kernels: the registers and spills of each kernel (``ptxas -v``); K1
    (forward), K2 (dq) and K3 (dk/dv) against their plain PyTorch twins run
@@ -21,9 +22,10 @@ printing one line or a few:
    (2, 2, 32, 16), causal, non-causal and GQA 2->1. Float32 outputs:
    atol = rtol = 1e-4. bf16 o, dq, dk and dv
    come from the tensor-core kernels, which round p (K1), ds (K2), or p and
-   ds (K3) to bf16 before the second product: within half a bf16 ulp of
-   the twin + 2^-8 B + 1e-5 (1 + |ref|) (``kernels.flash_gate_limit``, B
-   what that rounding can move the output); and on non-negative q, k, v
+   ds (K3) to bf16 before the second product: within 2^-8 B + 1e-5 (1 +
+   |ref|) of the twin (B what that rounding can move the output) + half a
+   bf16 ulp of the largest value within those of the twin
+   (``kernels.flash_gate_limit``); and on non-negative q, k, v
    and do with delta = 0 (so p, ds and every term of o, dq, dk and dv are
    non-negative), the mean signed error within +-0.1 of the mean 2^-8 B
    (``kernels.BIAS_LIMIT``: rounding to nearest has no bias; truncation
@@ -570,6 +572,29 @@ printing one line or a few:
    times each at head dim 256, and ``torch.cuda.max_memory_allocated()``
    printed. The timing phase times K1-K3 at (8, 2, 2048, 256) beside SDPA
    and aten's flash backward (H x D = 512: the other rows' bounds).
+31. head dims past 256 line (after phase 30; ``wider_head_line``). (a)
+   K1-K3 on the wide kernels at head dims 320, 512, 576 and 1024, bf16
+   and float32, against their float32 twins over phase 30's edge shapes
+   (ragged, non-causal cross, GQA 8->2, segments with a fully masked row,
+   window 128, MQA 8->1), each launching each kernel once, and in bf16 at
+   a causal path shape each (``WIDER_PATHS``), under phase 3's gates; the
+   padded head dim 300 (launched at 320) on ragged, GQA and MQA. (b) the
+   public ``flash_attention`` at DeepSeek-V3's absorbed-MLA widths
+   (``MLA_SHAPE``: q (1, 128, 2048, 576) bf16 causal over one kv head of
+   576 columns, v's last 64 columns zero, q times sqrt(576 / 192)),
+   forward and backward through autograd, K1-K3 once each: o against the
+   twin's forward, dq, dk and dv against the twins' backward on the
+   kernels' own o and lse, in float32 on the card, under
+   ``flash_gate_limit``; the peak memory printed. (c) the flagship LM with
+   one 512-wide head (``TransformerConfig(attention='flash', n_heads=1)``:
+   d_model 512, 4 layers, L 2048): ``reference_check`` on the parameters
+   it then trains, then phase 5's main path (5 AdamW steps of 8 windows),
+   K1-K3 launched 5 x 4 times each, the step time and peak memory
+   printed. The timing phase times K1-K3 at (8, 1, 2048, 512) (H x D =
+   512: the other rows' bounds) and at the MLA shape (GQA 128 -> 1: 128 x
+   2,098,176 live pairs; K3 writes float32 partials per q head), each
+   beside SDPA (the backend it picks, named; ``enable_gqa`` at the MLA
+   shape) and that backend's backward through autograd.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -705,9 +730,12 @@ def _max_err(torch, got, ref, label, kernels=None, bound=None):
         limit = TOL_F32 * (1 + ref.abs())
     bad = err > limit
     worst = float(err.max()) if err.numel() else 0.0   # Lk = 0: dk, dv empty
-    check(not bool(bad.any()),
-          '%s: %d elements beyond the limit (max abs err %.3g)'
-          % (label, int(bad.sum()), worst))
+    if bool(bad.any()):
+        at = tuple(int(i) for i in torch.nonzero(bad)[0])
+        check(False, '%s: %d elements beyond the limit (max abs err %.3g; '
+              'the first at %s: kernel %.8g, twin %.8g, limit %.4g)'
+              % (label, int(bad.sum()), worst, at, float(got[at]),
+                 float(ref[at]), float(limit[at])))
     return worst
 
 
@@ -772,7 +800,7 @@ def compare_case(torch, kernels, label, gen, *, b, h, hkv, lq, lk, d, dtype,
     if dtype == torch.float32:
         limits = 'atol=rtol=%g' % TOL_F32
     else:
-        limits = 'o, dq, dk, dv: half bf16 ulp + 2^-8 B + 1e-5(1+|ref|)'
+        limits = 'o, dq, dk, dv: 2^-8 B + 1e-5(1+|ref|) + half bf16 ulp'
     log('kernels %-26s max_abs_err fwd %.3g dq %.3g dkdv %.3g (limit %s)%s'
         % (label, errs['flash_fwd'], errs['flash_bwd_dq'],
            errs['flash_bwd_dkdv'], limits, bias))
@@ -5168,17 +5196,23 @@ def time_ms(torch, fn, reps):
     return statistics.median(samples)
 
 
-def bounds(shape):
-    """(bound_ms, bound_by, flops) per kernel at the causal bf16 path shape:
-    operations over the bf16 tensor-core peak against compulsory bytes
-    (each input read once, each output written once) over HBM rate."""
+def bounds(shape, hkv=None):
+    """(bound_ms, bound_by, flops) per kernel at the causal bf16 path shape
+    (``hkv`` kv heads, H by default): operations over the bf16 tensor-core
+    peak against compulsory bytes (each input read once, each output
+    written once: under GQA K3's float32 partials per q head) over HBM
+    rate."""
     b, h, l, d = shape
+    hkv = h if hkv is None else hkv
     pairs = b * h * l * (l + 1) // 2            # live causal (q, k) pairs
     elem = b * h * l * d * 2                    # one bf16 (B, H, L, D)
+    kv = b * hkv * l * d * 2                    # one bf16 k or v
     row = b * h * l * 4                         # one float32 (B, H, L)
-    work = {'flash_fwd': (4 * d * pairs, 4 * elem + row),
-            'flash_bwd_dq': (6 * d * pairs, 5 * elem + 2 * row),
-            'flash_bwd_dkdv': (8 * d * pairs, 6 * elem + 2 * row)}
+    dkdv = 2 * kv if hkv == h else 2 * b * h * l * d * 4
+    work = {'flash_fwd': (4 * d * pairs, 2 * elem + 2 * kv + row),
+            'flash_bwd_dq': (6 * d * pairs, 3 * elem + 2 * kv + 2 * row),
+            'flash_bwd_dkdv': (8 * d * pairs,
+                               2 * elem + 2 * kv + dkdv + 2 * row)}
     out = {}
     for name, (flops, nbytes) in work.items():
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -5187,10 +5221,22 @@ def bounds(shape):
     return out
 
 
-def timings(torch, kernels, gen, reps, shape=PATH_SHAPE):
+def sdpa_backend(torch, q, k, v, **kw):
+    """The name of the backend ``scaled_dot_product_attention`` picks for
+    these operands, causal (``torch._fused_sdp_choice``)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True,
+                                                  **kw)).name
+    except Exception as exc:     # an older torch: name what is known
+        return 'unknown (%s: %s)' % (type(exc).__name__, exc)
+
+
+def timings(torch, kernels, gen, reps, shape=PATH_SHAPE, hkv=None):
     b, h, l, d = shape
-    q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.bfloat16)
-    kw = dict(n_heads=h, n_kv_heads=h, causal=True)
+    hkv = h if hkv is None else hkv
+    q, k, v, do = _operands(torch, gen, b, h, hkv, l, l, d, torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=hkv, causal=True)
     o, lse = kernels.flash_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     runs = {
@@ -5210,8 +5256,11 @@ def timings(torch, kernels, gen, reps, shape=PATH_SHAPE):
         out[name] = {'ms': time_ms(torch, kern, reps),
                      'plain_ms': time_ms(torch, plain, max(3, reps // 4))}
     # yardsticks only: the port never calls these
-    q4, k4, v4, do4 = (x.view(b, h, l, d) for x in (q, k, v, do))
+    q4, do4 = (x.view(b, h, l, d) for x in (q, do))
+    k4, v4 = (x.view(b, hkv, l, d) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    if d > 256 or hkv != h:
+        return _wide_library_times(torch, sdpa, out, q4, k4, v4, do4, reps)
     out['flash_fwd']['library_ms'] = time_ms(
         torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps)
     out['flash_fwd']['library'] = 'scaled_dot_product_attention'
@@ -5227,6 +5276,29 @@ def timings(torch, kernels, gen, reps, shape=PATH_SHAPE):
         out[name]['library_ms'] = bwd_ms
         out[name]['library'] = ('_scaled_dot_product_flash_attention_backward'
                                 ' (dq, dk, dv in one call)')
+    return out
+
+
+def _wide_library_times(torch, sdpa, out, q, k, v, do, reps):
+    """``timings``' yardsticks past head dim 256 or under GQA, where aten's
+    flash attention takes neither: SDPA (``enable_gqa`` for fewer kv
+    heads) with the backend it picks, named, and that backend's backward
+    (dq, dk, dv in one call) through autograd."""
+    kw = {'enable_gqa': True} if k.shape[1] != q.shape[1] else {}
+    backend = sdpa_backend(torch, q, k, v, **kw)
+    out['flash_fwd']['library_ms'] = time_ms(
+        torch, lambda: sdpa(q, k, v, is_causal=True, **kw), reps)
+    out['flash_fwd']['library'] = ('scaled_dot_product_attention (%s)'
+                                   % backend)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = sdpa(qg, kg, vg, is_causal=True, **kw)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), do, retain_graph=True), reps)
+    for name in ('flash_bwd_dq', 'flash_bwd_dkdv'):
+        out[name]['library_ms'] = bwd_ms
+        out[name]['library'] = ('scaled_dot_product_attention (%s) backward '
+                                'through autograd (dq, dk, dv in one call)'
+                                % backend)
     return out
 
 
@@ -8933,20 +9005,30 @@ def gemma_lm(torch, np, tlm, kernels, args):
                     cfg.head_dim, cfg.kv_heads, cfg.d_ff, cfg.n_layers,
                     cfg.max_seq_len, GEMMA_BATCH, cfg.n_layers, GEMMA_BATCH,
                     time.perf_counter() - start))
+    return checked_main_path(torch, np, tlm, kernels, args, cfg, params,
+                             'D=256 Gemma-width', GEMMA_BATCH)
+
+
+def checked_main_path(torch, np, tlm, kernels, args, cfg, params, label,
+                      batch_size=BATCH):
+    """Phases 30 (c) and 31 (c): the first step's loss and gradients on
+    ``params`` held against blockwise attention (``reference_check``),
+    then phase 5's main path at ``cfg``, each of K1-K3 launched once a
+    layer a step; returns (launches, steady step seconds, peak bytes)."""
     reference_check(torch, tlm, args.seed, cfg, params,
-                    label='D=256 Gemma-width reference')
+                    label='%s reference' % label)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     launches = main_path(torch, np, tlm, kernels, args, cfg=cfg,
-                         label='D=256 Gemma-width LM', stats=stats,
-                         batch_size=GEMMA_BATCH, params=params)
+                         label='%s LM' % label, stats=stats,
+                         batch_size=batch_size, params=params)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     want = STEPS * cfg.n_layers
     check(all(launches[k] == want for k in FLASH),
-          'Gemma-width LM: launches %r, expected %d of each of K1-K3'
-          % (launches, want))
+          '%s LM: launches %r, expected %d of each of K1-K3'
+          % (label, launches, want))
     return launches, stats['steady_s'], peak
 
 
@@ -8978,6 +9060,158 @@ def wide_head_line(torch, np, tlm, kernels, args, gen, errs):
     return launches, steady * 1e3
 
 
+# ---------------------------------------------------------------------------
+# phase 31: head dims past 256 (K1-K3 on the wide kernels; attention at
+# DeepSeek-V3's absorbed-MLA widths; the flagship LM with 512-wide heads)
+# ---------------------------------------------------------------------------
+
+# (a): a causal bf16 path shape at each wide head dim the gates hold: at 512
+# the timed shape (H x D = 512, the table's bounds), else 2 x 2 heads
+WIDER_PATHS = {320: (2, 2, 2048, 320), 512: (8, 1, 2048, 512),
+               576: (2, 2, 2048, 576), 1024: (2, 2, 2048, 1024)}
+WIDER_EDGE_CASES = WIDE_EDGE_CASES[:-1]   # phase 30's, less Lk = 0
+WIDER_PADDED = (300,)             # launched at 320 with zero columns
+# (b): deepseek-ai/DeepSeek-V3's config.json (num_attention_heads 128,
+# kv_lora_rank 512, qk_rope_head_dim 64, qk_nope_head_dim 128): absorbed
+# MLA attends 128 query heads over one shared latent head of 512 + 64 =
+# 576 columns; the values are its 512 latent columns (v's rope columns
+# zero), and q is scaled by sqrt(576 / 192) so the kernels' 1/sqrt(576)
+# gives the model's 1/sqrt(qk_nope + qk_rope) = 1/sqrt(192). One sequence
+# of 2,048 tokens.
+MLA_SHAPE = (1, 128, 2048, 576)   # B, H, L, D; one kv head
+MLA_HKV = 1
+MLA_ROPE = 64
+MLA_QK_DIM = 192
+WIDER_HEADS = 1                   # (c): d_model 512 over 1 head: D = 512
+
+
+def mla_operands(torch, gen, device='cuda', shape=MLA_SHAPE, rope=MLA_ROPE,
+                 qk_dim=MLA_QK_DIM):
+    """(b)'s bf16 q (B, H, L, D), k and v (B, 1, L, D), do: seeded normal
+    values, q times sqrt(D / qk_dim), v's last ``rope`` columns zero."""
+    b, h, l, d = shape
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=gen.device)
+    q = (rnd(b, h, l, d) * math.sqrt(d / qk_dim)).to(torch.bfloat16)
+    k = rnd(b, MLA_HKV, l, d).to(torch.bfloat16)
+    v = rnd(b, MLA_HKV, l, d)
+    v[..., d - rope:] = 0
+    do = rnd(b, h, l, d).to(torch.bfloat16)
+    return [x.to(device) for x in (q, k, v.to(torch.bfloat16), do)]
+
+
+def mla_case(torch, kernels, gen, device='cuda', shape=MLA_SHAPE):
+    """(b): the public ``flash_attention`` at absorbed-MLA widths, forward
+    and backward through autograd (K1, K2, K3 once each), against the
+    twins in float32 on the same values: o against the twin's forward, dq,
+    dk and dv against the twins' backward on the kernels' own o and lse
+    (so delta is the same), each under ``flash_gate_limit`` (the bounds of
+    dk and dv summed over the 128 q heads that share the kv head). Returns
+    ({output: max abs err}, launches, peak bytes of the autograd call, its
+    seconds)."""
+    from petastorm_tpu_torch.ops.attention import (
+        _FlashDims, _chunk_forward, _flash_backward_from_prepared,
+        _prepare_flash_bwd_q_side, flash_attention, flash_attention_with_lse)
+    q, k, v, do = mla_operands(torch, gen, device, shape)
+    cuda = device == 'cuda'
+    b, h, l, d = shape
+    check(bool((v[..., d - MLA_ROPE:] == 0).all()), 'MLA: v rope columns')
+    for _ in range(2):   # the first call warms up; the second is counted
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        o = flash_attention(qg, kg, vg, causal=True)
+        o.backward(do)
+        if cuda:
+            torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    # the gates' inputs, not counted: the kernels' lse, the twins
+    _, lse = flash_attention_with_lse(q, k, v, causal=True)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    dims = _FlashDims(q.shape, k.shape)
+    fq, fk, fv = dims.flat_q(q32), dims.flat_kv(k32), dims.flat_kv(v32)
+    o_ref, _ = _chunk_forward(dims, fq, fk, fv, causal=True, plain=True)
+    prep = _prepare_flash_bwd_q_side(dims, q32, o.detach().float(), lse,
+                                     do32)
+    dq_ref, dk_ref, dv_ref = _flash_backward_from_prepared(
+        dims, prep, fk, fv, causal=True, plain=True,
+        kv_grad_dtype=torch.float32)
+    bound = kernels.flash_rounding_bounds(
+        fq, fk, fv, prep[1].float(), prep[2], prep[3], n_heads=h,
+        n_kv_heads=MLA_HKV, causal=True)
+    kv_sum = lambda x: x.reshape(b, MLA_HKV, h // MLA_HKV, l, d).sum(2)
+    outputs = (('o', o.detach(), dims.unflat_q(o_ref), bound['o']),
+               ('dq', qg.grad, dims.unflat_q(dq_ref), bound['dq']),
+               ('dk', kg.grad, dims.unflat_kv(dk_ref), kv_sum(bound['dk'])),
+               ('dv', vg.grad, dims.unflat_kv(dv_ref), kv_sum(bound['dv'])))
+    errs = {}
+    for name, got, ref, bnd in outputs:
+        errs[name] = _max_err(torch, got, ref, 'MLA %s' % name, kernels,
+                              bnd.reshape(ref.shape))
+    return errs, launches, peak, seconds
+
+
+def wider_lm_config(tlm):
+    """(c)'s model: the flagship at its defaults with one head: D = 512."""
+    return tlm.TransformerConfig(attention='flash', n_heads=WIDER_HEADS)
+
+
+def wider_lm(torch, np, tlm, kernels, args):
+    """(c): the flagship LM with one 512-wide head through
+    ``checked_main_path``; returns (launches, steady step seconds, peak
+    bytes)."""
+    cfg = wider_lm_config(tlm)
+    check(cfg.head_dim == 512, 'head dim %d' % cfg.head_dim)
+    params = tlm.init(cfg, torch.Generator().manual_seed(args.seed),
+                      device='cuda')
+    return checked_main_path(torch, np, tlm, kernels, args, cfg, params,
+                             'D=512')
+
+
+def wider_head_line(torch, np, tlm, kernels, args, gen, errs):
+    """Phase 31. Returns ({'mla': launches of (b), 512: of (c)}, (c)'s
+    steady step ms)."""
+    phase = time.perf_counter()
+    paths = {d: [('path', dict(b=b, h=h, hkv=h, lq=l, lk=l))]
+             for d, (b, h, l, _) in WIDER_PATHS.items()}
+    head_dim_gates(torch, kernels, gen, errs, paths, WIDER_EDGE_CASES,
+                   WIDER_PADDED, (EDGE_CASES[0], EDGE_CASES[2],
+                                  WIDER_EDGE_CASES[-1]))
+    log('phase 31 (a) %s kernel gates at D %s and padded %s %.1f s'
+        % (CARD, tuple(WIDER_PATHS), WIDER_PADDED,
+           time.perf_counter() - phase))
+    phase = time.perf_counter()
+    mla_errs, mla_launches, peak, seconds = mla_case(torch, kernels, gen)
+    check(all(mla_launches[k] == 1 for k in FLASH),
+          'MLA: launches %r, expected 1 of each of K1-K3' % mla_launches)
+    for name, out in (('flash_fwd', ('o',)), ('flash_bwd_dq', ('dq',)),
+                      ('flash_bwd_dkdv', ('dk', 'dv'))):
+        errs[name, 'mla'] = max(mla_errs[o] for o in out)
+    log('phase 31 (b) %s flash_attention at DeepSeek-V3 absorbed-MLA widths '
+        '(q %s bf16 causal over 1 kv head of %d, v\'s last %d columns zero, '
+        'q x sqrt(%d/%d)): forward + backward %.3f s, max abs err o %.3g dq '
+        '%.3g dk %.3g dv %.3g (flash_gate_limit), launches %s, '
+        'max_memory_allocated %.2f GB; %.1f s'
+        % (CARD, MLA_SHAPE, MLA_SHAPE[3], MLA_ROPE, MLA_SHAPE[3], MLA_QK_DIM,
+           seconds, mla_errs['o'], mla_errs['dq'], mla_errs['dk'],
+           mla_errs['dv'], json.dumps(mla_launches), peak / 1e9,
+           time.perf_counter() - phase))
+    phase = time.perf_counter()
+    launches, steady, peak = wider_lm(torch, np, tlm, kernels, args)
+    cfg = wider_lm_config(tlm)
+    log('phase 31 (c) %s D=512 LM (d_model %d over %d head, %d layers, %d x '
+        '%d tokens a step): steady step %.2f ms, %.0f tokens/s, K1-K3 '
+        'launches at D 512 %s, max_memory_allocated %.2f GB; %.1f s'
+        % (CARD, cfg.d_model, WIDER_HEADS, cfg.n_layers, BATCH,
+           cfg.max_seq_len, steady * 1e3, BATCH * cfg.max_seq_len / steady,
+           json.dumps(launches), peak / 1e9, time.perf_counter() - phase))
+    return {'mla': mla_launches, 512: launches}, steady * 1e3
+
+
 def ptxas_instances(log_text):
     """{kernel name: [{dtype, head_dim, out, registers, spill_stores,
     spill_loads}, ...]} of every flash instantiation (and K4's) in nvcc's
@@ -8986,7 +9220,9 @@ def ptxas_instances(log_text):
     instance = re.compile(
         r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_split_kernel|'
         r'dkdv_sm90_kernel|fwd_kernel|dq_kernel|dkdv_kernel|'
-        r'normalize_kernel)I(.*?)EEv')
+        r'normalize_kernel|fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
+        r'dkdv_wide_sm90_kernel|fwd_wide_kernel|dq_wide_kernel|'
+        r'dkdv_wide_kernel)(?:I(.*?)EEv|E)')
     kernel_of = {'fwd': 'flash_fwd', 'dq': 'flash_bwd_dq',
                  'dkdv': 'flash_bwd_dkdv', 'normalize': 'normalize'}
     out = {}
@@ -8997,11 +9233,13 @@ def ptxas_instances(log_text):
             continue
         regs, spill = rest.split(' registers, spill ')
         stores, loads = spill[:-2].split('/')
-        kind, args = m.group(1), m.group(2)
+        kind, args = m.group(1), m.group(2) or ''
         dims = re.findall(r'Li(\d+)', args)
         sm90 = 'sm90' in kind
+        head_dim = ('past 256' if '_wide_' in kind
+                    else int(dims[0]) if dims else None)
         entry = {'dtype': 'bfloat16' if sm90 else 'float32',
-                 'head_dim': int(dims[0]) if dims else None,
+                 'head_dim': head_dim,
                  'registers': int(regs), 'spill_stores': int(stores),
                  'spill_loads': int(loads)}
         if kind.startswith('dkdv_sm90'):
@@ -9279,11 +9517,21 @@ def main(argv=None):
         torch, np, tlm, kernels, args, gen, errs)
     log('phase head-dim 256 line %s %.1f s (Gemma-width LM step %.2f ms)'
         % (CARD, time.perf_counter() - phase, head_steps[256]))
+    phase = time.perf_counter()
+    wider, head_steps[512] = wider_head_line(torch, np, tlm, kernels, args,
+                                             gen, errs)
+    head_launches.update(wider)
+    log('phase head dims past 256 line %s %.1f s (D=512 LM step %.2f ms)'
+        % (CARD, time.perf_counter() - phase, head_steps[512]))
 
     times = timings(torch, kernels, gen, REPS)
-    timed_paths = {**HEAD_DIM_PATHS, 256: WIDE_PATH}
-    head_times = {d: timings(torch, kernels, gen, REPS, shape)
-                  for d, shape in timed_paths.items()}
+    # (label, head dim, shape, kv heads) of each timed row past D = 64
+    timed_paths = [(d, d, shape, None) for d, shape in
+                   {**HEAD_DIM_PATHS, 256: WIDE_PATH,
+                    512: WIDER_PATHS[512]}.items()]
+    timed_paths.append(('mla', MLA_SHAPE[3], MLA_SHAPE, MLA_HKV))
+    head_times = {key: timings(torch, kernels, gen, REPS, shape, hkv)
+                  for key, _, shape, hkv in timed_paths}
     small_head_times(torch, kernels, gen)
     bound = bounds(PATH_SHAPE)
     phase = time.perf_counter()
@@ -9304,15 +9552,16 @@ def main(argv=None):
     bound['normalize'] = k4['bound']
     instances = ptxas_instances(kernels.BUILD_INFO['log'])
     # a row a kernel at each bf16 head dim: D = 64 (the flagship's, every
-    # earlier phase), then 32 and 128 (phase 29's paths and shapes) and 256
-    # (phase 30's)
+    # earlier phase), then 32 and 128 (phase 29's paths and shapes), 256
+    # (phase 30's), 512 (phase 31 (c)'s) and the MLA shape (phase 31 (b)'s)
     rows = [(name, name, 64, times[name], bound[name], launches[name],
              errs[name]) for name in KERNELS]
-    for d, shape in timed_paths.items():
-        head_bound = bounds(shape)
-        rows += [('%s_d%d' % (name, d), name, d, head_times[d][name],
-                  head_bound[name], head_launches[d][name], errs[name, d])
-                 for name in FLASH]
+    for key, d, shape, hkv in timed_paths:
+        head_bound = bounds(shape, hkv)
+        tag = 'd%d' % d if key == d else '%s%d' % (key, d)
+        rows += [('%s_%s' % (name, tag), name, d, head_times[key][name],
+                  head_bound[name], head_launches[key][name],
+                  errs[name, key]) for name in FLASH]
     table = []
     for label, name, d, t, bnd, count, err in rows:
         source, replaces = KERNELS[name]
@@ -9326,9 +9575,10 @@ def main(argv=None):
             row.update(yardstick_ms=t['yardstick_ms'],
                        yardstick=t['yardstick'])
         if name in FLASH:
-            # the float32-only head dim 16 is listed with the D = 64 rows
+            # the float32-only head dim 16 is listed with the D = 64 rows;
+            # past 256 the wide kernels, which take any multiple of 64
             row['head_dim'] = d
-            dims = (d, 16) if d == 64 else (d,)
+            dims = (d, 16) if d == 64 else ('past 256',) if d > 256 else (d,)
             row['ptxas'] = [e for e in instances[name]
                             if e['head_dim'] in dims]
         else:
@@ -9348,10 +9598,10 @@ def main(argv=None):
     for d, t in ((64, times), *head_times.items()):
         bwd = t['flash_bwd_dq']['ms'] + t['flash_bwd_dkdv']['ms']
         aten = t['flash_bwd_dq']['library_ms']
-        log('time D=%d backward K2 + K3 %.4f ms, aten flash backward (dq, dk, '
-            'dv) %.4f ms: %.2fx; K1 %.2fx SDPA'
-            % (d, bwd, aten, bwd / aten, t['flash_fwd']['ms']
-               / t['flash_fwd']['library_ms']))
+        log('time D=%s backward K2 + K3 %.4f ms, %s %.4f ms: %.2fx; K1 %.2fx '
+            '%s' % (d, bwd, t['flash_bwd_dq']['library'], aten, bwd / aten,
+                    t['flash_fwd']['ms'] / t['flash_fwd']['library_ms'],
+                    t['flash_fwd']['library']))
     log('wall %.1f s' % (time.perf_counter() - wall))
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

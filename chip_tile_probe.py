@@ -30,10 +30,13 @@ then, in the first round, each build's K1-K3 against the float32 twins
 ``--head-dim``, under its gates); then each round times every build in
 turn, the order reversed from one round to the next, at the path shape of
 ``--head-dim`` (``chip_smoke``'s (8, 16, 2048, 32), (8, 8, 2048, 64),
-(8, 4, 2048, 128) or (8, 2, 2048, 256), bf16 causal; ``chip_smoke.timings``: median of
-``--reps`` CUDA-event-timed launches, beside SDPA and aten's flash
-backward). The last line is one JSON object of every timing. Needs a CUDA
-device and ``nvcc``.
+(8, 4, 2048, 128), (8, 2, 2048, 256) or (8, 1, 2048, 512), or at 576
+DeepSeek-V3's absorbed-MLA shape (1, 128, 2048, 576) over one kv head;
+bf16 causal; ``chip_smoke.timings``: median of ``--reps``
+CUDA-event-timed launches, beside SDPA and a library backward). Past head
+dim 256 (the wide kernels) a checkout from before them cannot be timed:
+give it with ``--rounds 0`` (machine code only). The last line is one JSON
+object of every timing. Needs a CUDA device and ``nvcc``.
 """
 import argparse
 import ctypes
@@ -132,7 +135,7 @@ def compare_sass(kernels, libs):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--head-dim', type=int, default=128,
-                        choices=(32, 64, 128, 256))
+                        choices=(32, 64, 128, 256, 512, 576))
     parser.add_argument('--variants', nargs='*', default=list(VARIANTS),
                         choices=list(VARIANTS))
     parser.add_argument('--checkouts', nargs='*', default=[],
@@ -148,6 +151,10 @@ def main(argv=None):
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--reps', type=int, default=30)
     args = parser.parse_args(argv)
+    if args.head_dim > 256 and args.rounds and (args.checkouts
+                                                or args.parent):
+        parser.error('a checkout cannot be timed past head dim 256: its '
+                     'kernels may predate the wide ones (use --rounds 0)')
     import torch
     if not torch.cuda.is_available():
         print('chip_tile_probe: no CUDA device; nothing was run',
@@ -164,7 +171,9 @@ def main(argv=None):
     chip_smoke.CARD = card
     print(card, flush=True)
     shape = {**chip_smoke.HEAD_DIM_PATHS, 64: chip_smoke.PATH_SHAPE,
-             256: chip_smoke.WIDE_PATH}[args.head_dim]
+             256: chip_smoke.WIDE_PATH, 512: chip_smoke.WIDER_PATHS[512],
+             576: chip_smoke.MLA_SHAPE}[args.head_dim]
+    hkv = chip_smoke.MLA_HKV if shape == chip_smoke.MLA_SHAPE else shape[1]
     libs = {'sources': (kernels.build(), kernels.BUILD_INFO['log'],
                         kernels.BUILD_INFO['path'])}
     builds = [(name, str(kernels._CSRC), VARIANTS[name])
@@ -201,18 +210,20 @@ def main(argv=None):
                             gen, d=d, dtype=torch.bfloat16, **edge)
                     chip_smoke.compare_case(
                         torch, kernels, '%s D=%d path' % (name, d), gen,
-                        b=b, h=h, hkv=h, lq=l, lk=l, d=d,
+                        b=b, h=h, hkv=hkv, lq=l, lk=l, d=d,
                         dtype=torch.bfloat16)
-                t = chip_smoke.timings(torch, kernels, gen, args.reps, shape)
+                t = chip_smoke.timings(torch, kernels, gen, args.reps, shape,
+                                       hkv)
                 row = {'round': rnd, 'build': name}
                 row.update({k: t[k]['ms'] for k in chip_smoke.FLASH})
                 row.update(sdpa_ms=t['flash_fwd']['library_ms'],
                            aten_bwd_ms=t['flash_bwd_dq']['library_ms'])
                 out['timings'].append(row)
-                print('round %d %-15s D=%d K1 %.4f K2 %.4f K3 %.4f ms (SDPA '
-                      '%.4f, aten backward %.4f)'
+                print('round %d %-15s D=%d K1 %.4f K2 %.4f K3 %.4f ms (%s '
+                      '%.4f, %s %.4f)'
                       % (rnd, name, d, row['flash_fwd'], row['flash_bwd_dq'],
-                         row['flash_bwd_dkdv'], row['sdpa_ms'],
+                         row['flash_bwd_dkdv'], t['flash_fwd']['library'],
+                         row['sdpa_ms'], t['flash_bwd_dq']['library'],
                          row['aten_bwd_ms']), flush=True)
     finally:
         for tmp in tmpdirs:

@@ -34,6 +34,12 @@
 // 64 rows take 263 KB there, past the 227 KB a block may have; at 32 rows
 // K2 takes ~133 KB and K3 ~137 KB. The 16 x 16 thread grid then owns kB /
 // 16 rows and score columns a thread (kS) instead of 4.
+//
+// Past D = 256 (dq_wide_kernel, dkdv_wide_kernel): 64-row blocks that own
+// one slice of the output's columns (256 of dq, 128 of dk and dv;
+// blockIdx.z) and accumulate s and dp over 64-column chunks of q, do, k and
+// v; the output step reads the slice of k (K2) or of q and do (K3). ~145 KB
+// and ~162 KB of shared memory at any D.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -319,6 +325,337 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Head dims past 256: s = q k^T and dp = do v^T over one 64-column chunk of
+// each (row stride SC = kWideChunk + 1), added to the thread's kS x kS part.
+template <int kS>
+__device__ __forceinline__ void score_chunk(const float* sQ, const float* sDO,
+                                            const float* sK, const float* sV,
+                                            const Lane& ln,
+                                            float (&s)[kS][kS],
+                                            float (&dp)[kS][kS]) {
+  constexpr int SC = kWideChunk + 1;
+#pragma unroll 4
+  for (int d = 0; d < kWideChunk; ++d) {
+    float a[kS], g[kS], b[kS], w[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      a[i] = sQ[(ln.ty + 16 * i) * SC + d];
+      g[i] = sDO[(ln.ty + 16 * i) * SC + d];
+    }
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      b[j] = sK[(ln.tx + 16 * j) * SC + d];
+      w[j] = sV[(ln.tx + 16 * j) * SC + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+      }
+  }
+}
+
+// K2 past head dim 256: a block owns 64 q rows and kWideFwdCols of dq's
+// columns (blockIdx.z); s and dp stream over D in chunks of q, do, k and v,
+// and the ds k step reads the slice of k's columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse_g,
+                   const float* __restrict__ delta_g,
+                   const int* __restrict__ segq, const int* __restrict__ segk,
+                   T* __restrict__ dq, int H, int Hkv, int Lq, int Lk, int D,
+                   int causal, int window, float scale) {
+  constexpr int kB = kBlockQ, kC = kWideChunk, SC = kC + 1, SP = kB + 1;
+  constexpr int kW = kWideFwdCols, NJ = kW / 16, kS = kB / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;                  // kB x SC: chunks of q, do, k, v
+  float* sDO = sQ + kB * SC;
+  float* sK = sDO + kB * SC;
+  float* sV = sK + kB * SC;
+  float* sDS = sV + kB * SC;         // kB x SP
+  float* sKs = sDS + kB * SP;        // kB x kW: the slice of k
+
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int col0 = kW * blockIdx.z;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int q0 = qb * kB;
+  const Lane ln = lane_layout();
+  const Mask mask{Lq, Lk, causal, window};
+
+  const T* qp = q + (size_t)bh * Lq * D;
+  const T* dop = dout + (size_t)bh * Lq * D;
+  const T* kp = k + (size_t)kvh * Lk * D;
+  const T* vp = v + (size_t)kvh * Lk * D;
+
+  int qpos[kS], sq[kS];
+  float lse[kS], delta[kS], acc[kS][NJ];
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    qpos[i] = q0 + ln.ty + 16 * i;
+    const bool in = qpos[i] < Lq;
+    const size_t r = (size_t)bh * Lq + qpos[i];
+    sq[i] = (segq != nullptr && in) ? segq[r] : 0;
+    lse[i] = in ? lse_g[r] : kNegInf;
+    delta[i] = in ? delta_g[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nkb = (Lk + kB - 1) / kB;
+  int kb_lo = 0, kb_hi = nkb;
+  if (causal) {
+    kb_hi = min(nkb, (q0 + kB - 1) / kB + 1);
+    if (window > 0) {
+      const int lo = q0 - window + 1;
+      kb_lo = lo >= kB ? lo / kB : 0;
+    }
+  }
+
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    const int k0 = kb * kB;
+    float s[kS][kS], dp[kS][kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+#pragma unroll
+      for (int j = 0; j < kS; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kC) {
+      __syncthreads();
+      load_cols<kC, kB>(sQ, SC, qp, q0, Lq, D, c0);
+      load_cols<kC, kB>(sDO, SC, dop, q0, Lq, D, c0);
+      load_cols<kC, kB>(sK, SC, kp, k0, Lk, D, c0);
+      load_cols<kC, kB>(sV, SC, vp, k0, Lk, D, c0);
+      __syncthreads();
+      score_chunk(sQ, sDO, sK, sV, ln, s, dp);
+    }
+    load_cols<kW, kB>(sKs, kW, kp, k0, Lk, D, col0);
+    int kpos[kS], sk[kS];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      kpos[j] = k0 + ln.tx + 16 * j;
+      sk[j] = (segk != nullptr && kpos[j] < Lk)
+                  ? segk[(size_t)kvh * Lk + kpos[j]]
+                  : 0;
+    }
+    recompute_p_ds(mask, qpos, sq, lse, delta, kpos, sk, scale, s, dp);
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+#pragma unroll
+      for (int j = 0; j < kS; ++j)
+        sDS[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = dp[i][j];
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kB; ++kk) {
+      float a[kS], b[NJ];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) a[i] = sDS[(ln.ty + 16 * i) * SP + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) b[j] = sKs[kk * kW + ln.tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    if (qpos[i] >= Lq) continue;
+    T* row = dq + ((size_t)bh * Lq + qpos[i]) * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = col0 + ln.tx + 16 * j;
+      if (col < D) row[col] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+// K3 past head dim 256: a block owns 64 kv rows and kWideKvCols of dk's and
+// dv's columns (blockIdx.z); s and dp stream over D in chunks, and the dv
+// and dk steps read the slices of do's and q's columns.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse_g,
+                     const float* __restrict__ delta_g,
+                     const int* __restrict__ segq,
+                     const int* __restrict__ segk, TO* __restrict__ dk,
+                     TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
+                     int D, int causal, int window, float scale) {
+  constexpr int kB = kBlockQ, kC = kWideChunk, SC = kC + 1, SP = kB + 1;
+  constexpr int kW = kWideKvCols, NJ = kW / 16, kS = kB / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;                  // kB x SC: chunks of q, do, k, v
+  float* sDO = sQ + kB * SC;
+  float* sK = sDO + kB * SC;
+  float* sV = sK + kB * SC;
+  float* sP = sV + kB * SC;          // kB x SP
+  float* sDS = sP + kB * SP;         // kB x SP
+  float* sQs = sDS + kB * SP;        // kB x kW: the slices of q and do
+  float* sDOs = sQs + kB * kW;
+
+  const int kb = blockIdx.x;
+  const int bh = blockIdx.y;         // q-head row; writes its own partial
+  const int col0 = kW * blockIdx.z;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int k0 = kb * kB;
+  const Lane ln = lane_layout();
+  const Mask mask{Lq, Lk, causal, window};
+
+  const T* kp = k + (size_t)kvh * Lk * D;
+  const T* vp = v + (size_t)kvh * Lk * D;
+  const T* qp = q + (size_t)bh * Lq * D;
+  const T* dop = dout + (size_t)bh * Lq * D;
+
+  int kpos[kS], sk[kS];
+  float dk_acc[kS][NJ], dv_acc[kS][NJ];
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    kpos[j] = k0 + ln.tx + 16 * j;
+    sk[j] = (segk != nullptr && kpos[j] < Lk)
+                ? segk[(size_t)kvh * Lk + kpos[j]]
+                : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kS; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nqb = (Lq + kB - 1) / kB;
+  int qb_lo = 0, qb_hi = nqb;
+  if (causal) {
+    qb_lo = k0 / kB;             // first q block reaching this kv block
+    if (window > 0)                   // last q block the window lets see it
+      qb_hi = min(nqb, (k0 + kB - 2 + window) / kB + 1);
+  }
+
+  for (int qb = qb_lo; qb < qb_hi; ++qb) {
+    const int q0 = qb * kB;
+    int qpos[kS], sq[kS];
+    float lse[kS], delta[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      qpos[i] = q0 + ln.ty + 16 * i;
+      const bool in = qpos[i] < Lq;
+      const size_t r = (size_t)bh * Lq + qpos[i];
+      sq[i] = (segq != nullptr && in) ? segq[r] : 0;
+      lse[i] = in ? lse_g[r] : kNegInf;
+      delta[i] = in ? delta_g[r] : 0.f;
+    }
+    float s[kS][kS], dp[kS][kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+#pragma unroll
+      for (int j = 0; j < kS; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kC) {
+      __syncthreads();
+      load_cols<kC, kB>(sQ, SC, qp, q0, Lq, D, c0);
+      load_cols<kC, kB>(sDO, SC, dop, q0, Lq, D, c0);
+      load_cols<kC, kB>(sK, SC, kp, k0, Lk, D, c0);
+      load_cols<kC, kB>(sV, SC, vp, k0, Lk, D, c0);
+      __syncthreads();
+      score_chunk(sQ, sDO, sK, sV, ln, s, dp);
+    }
+    load_cols<kW, kB>(sQs, kW, qp, q0, Lq, D, col0);
+    load_cols<kW, kB>(sDOs, kW, dop, q0, Lq, D, col0);
+    recompute_p_ds(mask, qpos, sq, lse, delta, kpos, sk, scale, s, dp);
+#pragma unroll
+    for (int i = 0; i < kS; ++i)
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        sP[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = s[i][j];
+        sDS[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = dp[i][j];
+      }
+    __syncthreads();
+
+    // this thread now owns kv rows ty + 16 i and columns tx + 16 j
+#pragma unroll 4
+    for (int qq = 0; qq < kB; ++qq) {
+      float p[kS], ds[kS], g[NJ], a[NJ];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        p[i] = sP[qq * SP + ln.ty + 16 * i];
+        ds[i] = sDS[qq * SP + ln.ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        g[j] = sDOs[qq * kW + ln.tx + 16 * j];
+        a[j] = sQs[qq * kW + ln.tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          dv_acc[i][j] = fmaf(p[i], g[j], dv_acc[i][j]);
+          dk_acc[i][j] = fmaf(ds[i], a[j], dk_acc[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    const int kr = k0 + ln.ty + 16 * i;
+    if (kr >= Lk) continue;
+    const size_t off = ((size_t)bh * Lk + kr) * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = col0 + ln.tx + 16 * j;
+      if (col < D) {
+        dk[off + col] = from_f32<TO>(dk_acc[i][j]);
+        dv[off + col] = from_f32<TO>(dv_acc[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   const int* segq, const int* segk, void* dq, int BH, int H,
+                   int Hkv, int Lq, int Lk, int D, int causal, int window,
+                   float scale, cudaStream_t stream) {
+  constexpr int kB = kBlockQ;
+  const size_t smem = sizeof(float) * (4 * kB * (kWideChunk + 1) +
+                                       kB * (kB + 1) + kB * kWideFwdCols);
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lq + kB - 1) / kB, BH, (D + kWideFwdCols - 1) / kWideFwdCols);
+  dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+      segk, (T*)dq, H, Hkv, Lq, Lk, D, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TO>
+int launch_dkdv_wide(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const int* segq, const int* segk, void* dk, void* dv,
+                     int BH, int H, int Hkv, int Lq, int Lk, int D,
+                     int causal, int window, float scale,
+                     cudaStream_t stream) {
+  constexpr int kB = kBlockQ;
+  const size_t smem =
+      sizeof(float) * (4 * kB * (kWideChunk + 1) + 2 * kB * (kB + 1) +
+                       2 * kB * kWideKvCols);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_wide_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lk + kB - 1) / kB, BH, (D + kWideKvCols - 1) / kWideKvCols);
+  dkdv_wide_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+      segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, D, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, const int* segq,
@@ -359,9 +696,10 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace flash
 
-// dtype: 0 = float32 (D 16, 32, 64, 128 or 256), 1 = bfloat16 (of q, k, v,
-// do and dq; on wgmma, flash_bwd_dq_sm90.cu; D 32, 64, 128 or 256). Returns
-// a cudaError_t (0 = launched).
+// dtype: 0 = float32 (D 16, 32, 64, 128 or 256, or any multiple of 64 past
+// 256 on the wide kernel), 1 = bfloat16 (of q, k, v, do and dq; on wgmma,
+// flash_bwd_dq_sm90.cu; D 32, 64, 128 or 256, or any multiple of 64 past
+// 256). Returns a cudaError_t (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const int* segq,
@@ -383,6 +721,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     FLASH_FOR_HEAD_DIMS_F32(FLASH_DQ_CASE)
 #undef FLASH_DQ_CASE
   }
+  if (D > 256 && D % flash::kWideChunk == 0)
+    return flash::launch_dq_wide<float>(q, k, v, dout, lse, delta, segq, segk,
+                                        dq, BH, H, Hkv, Lq, Lk, D, causal,
+                                        window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -410,5 +752,9 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
     FLASH_FOR_HEAD_DIMS_F32(FLASH_DKDV_CASE)
 #undef FLASH_DKDV_CASE
   }
+  if (D > 256 && D % flash::kWideChunk == 0)
+    return flash::launch_dkdv_wide<float, float>(
+        q, k, v, dout, lse, delta, segq, segk, dk, dv, BH, H, Hkv, Lq, Lk, D,
+        causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

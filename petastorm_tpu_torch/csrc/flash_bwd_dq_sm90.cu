@@ -14,7 +14,8 @@
 // operations. So all three products run on wgmma, fed by TMA.
 //
 // Head dims: instantiated at D = 32, 64, 128 and 256, like K1 (sm90.cuh's
-// Tile<D>); the wrapper pads any other D <= 256 to the next of them.
+// Tile<D>); the wrapper pads any other D <= 256 to the next of them, and
+// any D past 256 to the next multiple of 64 (dq_wide_sm90_kernel, below).
 //
 // Block: 288 threads, one 128-row q tile of one q-head row (GQA: the kv row
 // through the head map; dq is per q head, so there are no partials). Warps
@@ -60,6 +61,21 @@
 // Shared-memory order: Q, dO, the K stages, then the V stages, so that a
 // wgmma reading a K tile with the wrong layout stays inside the block's
 // shared memory.
+//
+// Past D = 256 (dq_wide_sm90_kernel), as K1's wide kernel: a block owns 128
+// q rows and one 256-column slice of dQ (blockIdx.z), 384 threads. Per
+// 32-row kv tile the producer streams D/64 chunks of Q, dO (128 x 64 each)
+// and K, V (32 x 64 each), 40 KB, through a 4-stage ring, then K's slice
+// (32 x 256, 16 KB) with the segment ids through a 2-stage ring; the
+// consumers add each chunk to S and dP (2 x 4 x m64n32k16), then dQ +=
+// dS K_slice as at D = 256. Each slice recomputes S and dP over all of D,
+// and Q and dO are read again for every kv tile. ~194 KB. dP is summed a
+// chunk at a time on the tensor cores and the chunks in float32 adds: a
+// row that sees one key (causal row 0) has dP = delta, so ds = 0 there, and
+// with one wgmma accumulator carried through all 64 k steps at D = 1024
+// its dq fell outside the gate's allowance for the sums' order on the card
+// (tests/test_torch_head_dims.py, MQA); a chunk's 4 k steps keep the
+// accumulator small.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -271,6 +287,231 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// Head dims past 256 (see the top of this file): one 256-column slice of dQ
+// a block, S and dP streamed over D in 64-column chunks.
+struct DqWide {
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kW = 256;                 // dQ columns a block
+  static constexpr int kRowsK = 32;              // kv rows per tile
+  static constexpr int kChunkStages = 4;
+  static constexpr int kSliceStages = 2;
+  static constexpr int kChunkQ = kRowsQ * kChunkRowBytes;   // Q, dO: 16 KB
+  static constexpr int kChunkK = kRowsK * kChunkRowBytes;   // K, V: 4 KB
+  static constexpr int kOffDO = kChunkQ;
+  static constexpr int kOffK = 2 * kChunkQ;
+  static constexpr int kOffV = kOffK + kChunkK;
+  static constexpr int kChunk = kOffV + kChunkK;            // 40 KB
+  static constexpr int kSlice = Tile<kW>::bytes(kRowsK);    // K: 16 KB
+  static constexpr int kOffSlice = kChunkStages * kChunk;
+  static constexpr int kOffSeg = kOffSlice + kSliceStages * kSlice;
+  static constexpr int kOffBar = kOffSeg + kSliceStages * kRowsK * 4;
+  static constexpr int kSmem =
+      kOffBar + 8 * 2 * (kChunkStages + kSliceStages) + 1024;
+};
+
+__global__ void __launch_bounds__(DqWide::kThreads, 1)
+    dq_wide_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                        const __grid_constant__ CUtensorMap tmK,
+                        const __grid_constant__ CUtensorMap tmV,
+                        const __grid_constant__ CUtensorMap tmDO,
+                        const float* __restrict__ lse_g,
+                        const float* __restrict__ delta_g,
+                        const int* __restrict__ segq,
+                        const int* __restrict__ segk,
+                        __nv_bfloat16* __restrict__ dq, int H, int Hkv,
+                        int Lq, int Lk, int Dp, int causal, int window,
+                        float scale) {
+  using C = DqWide;
+  constexpr int kRowsK = C::kRowsK;
+  constexpr int kCS = C::kChunkStages, kSS = C::kSliceStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + C::kOffSeg);
+  const uint32_t cfull0 = base + C::kOffBar, cempty0 = cfull0 + 8 * kCS;
+  const uint32_t sfull0 = cempty0 + 8 * kCS, sempty0 = sfull0 + 8 * kSS;
+
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  const int col0 = C::kW * blockIdx.z;         // this block's dQ columns
+  const int ncols = min(C::kW, Dp - col0);
+  const int nch = Dp / kChunkCols;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int q0 = qb * kRowsQ;
+
+  const int nkb = (Lk + kRowsK - 1) / kRowsK;
+  int kb_lo = 0, kb_hi = nkb;
+  if (causal) {
+    kb_hi = min(nkb, (q0 + kRowsQ - 1) / kRowsK + 1);
+    if (window > 0) {
+      const int lo = q0 - window + 1;   // first position any row can see
+      kb_lo = lo >= kRowsK ? lo / kRowsK : 0;
+    }
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(cfull0 + 8 * s, 1);
+      mbar_init(cempty0 + 8 * s, kConsumers);
+    }
+    for (int s = 0; s < kSS; ++s) {
+      mbar_init(sfull0 + 8 * s, 1 + 32);
+      mbar_init(sempty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {            // producer warpgroup
+    producer_regs();
+    if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    const int lane = threadIdx.x & 31;
+    for (int kb = kb_lo, i = 0, ic = 0; kb < kb_hi; ++kb, ++i) {
+      for (int c = 0; c < nch; ++c, ++ic) {   // Q, dO, K and V chunk c
+        const int s = ic % kCS;
+        const uint32_t full = cfull0 + 8 * s;
+        const uint32_t dst = base + s * C::kChunk;
+        const int col = kChunkCols * c;
+        mbar_wait(cempty0 + 8 * s, ((ic / kCS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_tx(full, C::kChunk);
+          tma_load_3d(dst, &tmQ, full, col, q0, bh);
+          tma_load_3d(dst + C::kOffDO, &tmDO, full, col, q0, bh);
+          tma_load_3d(dst + C::kOffK, &tmK, full, col, kb * kRowsK, kvh);
+          tma_load_3d(dst + C::kOffV, &tmV, full, col, kb * kRowsK, kvh);
+        }
+      }
+      const int s = i % kSS;                  // K's slice, the segment ids
+      const uint32_t full = sfull0 + 8 * s;
+      mbar_wait(sempty0 + 8 * s, ((i / kSS) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(full, ncols / kChunkCols * kRowsK * kChunkRowBytes);
+        load_blocks(base + C::kOffSlice + s * C::kSlice, &tmK, full, col0,
+                    ncols / kChunkCols, kb * kRowsK, kvh, kRowsK);
+      }
+      if (segk != nullptr)
+        for (int j = lane; j < kRowsK; j += 32) {
+          const int kp = kb * kRowsK + j;
+          seg_tile[s * kRowsK + j] =
+              kp < Lk ? segk[(size_t)kvh * Lk + kp] : 0;
+        }
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows r0 .. r0 + 63
+  consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int r0 = q0 + 64 * wg;
+  const float scale2 = scale * kLog2e;
+  const Mask mask{Lq, Lk, causal, window};
+  int qpos[2], sq[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = r0 + frag_row(2 * h);
+    const bool in = qpos[h] < Lq;
+    const size_t r = (size_t)bh * Lq + qpos[h];
+    const float ls = in ? lse_g[r] : kNegInf;
+    lse2[h] = ls > kNegInf * 0.5f ? ls * kLog2e
+                                  : __int_as_float(0x7f800000);  // +inf
+    dlt[h] = in ? delta_g[r] : 0.f;
+    sq[h] = (segq != nullptr && in) ? segq[r] : 0;
+  }
+  float dq_acc[C::kW / 2];
+#pragma unroll
+  for (int r = 0; r < C::kW / 2; ++r) dq_acc[r] = 0.f;
+
+  for (int kb = kb_lo, i = 0, ic = 0; kb < kb_hi; ++kb, ++i) {
+    const int k0 = kb * kRowsK;
+    float sc[kRowsK / 2], dp[kRowsK / 2];
+#pragma unroll
+    for (int r = 0; r < kRowsK / 2; ++r) dp[r] = 0.f;
+    for (int c = 0; c < nch; ++c, ++ic) {     // S, dP over D, chunk by chunk
+      const int s = ic % kCS;
+      const uint32_t chunk = base + s * C::kChunk;
+      float dpc[kRowsK / 2];                  // this chunk's dO V^T
+      mbar_wait(cfull0 + 8 * s, (ic / kCS) & 1);
+      wgmma_fence();
+      wgmma_ss_chunk(sc, chunk, kRowsQ, 64 * wg, chunk + C::kOffK, kRowsK, 0,
+                     c > 0);
+      wgmma_ss_chunk(dpc, chunk + C::kOffDO, kRowsQ, 64 * wg,
+                     chunk + C::kOffV, kRowsK, 0, 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dpc);
+      mbar_arrive(cempty0 + 8 * s);
+#pragma unroll
+      for (int r = 0; r < kRowsK / 2; ++r) dp[r] += dpc[r];  // in float32
+    }
+    const int s = i % kSS;
+    const uint32_t kaddr = base + C::kOffSlice + s * C::kSlice;
+    mbar_wait(sfull0 + 8 * s, (i / kSS) & 1);
+
+    const bool diag = causal && k0 + kRowsK - 1 > r0;  // reaches above it
+    const bool need_mask =
+        diag || segk != nullptr || k0 + kRowsK > Lk || r0 + 64 > Lq ||
+        (causal && window > 0 && r0 + 63 - k0 >= window);
+#pragma unroll
+    for (int r = 0; r < kRowsK / 2; ++r) {
+      const int h = (r >> 1) & 1, c = frag_col(r);
+      float p = exp2f(sc[r] * scale2 - lse2[h]);
+      if (need_mask &&
+          !mask(qpos[h], k0 + c, sq[h],
+                segk != nullptr ? seg_tile[s * kRowsK + c] : 0))
+        p = 0.f;
+      dp[r] = p * (dp[r] - dlt[h]) * scale;   // dp now holds ds
+    }
+
+    uint32_t dsa[kRowsK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kRowsK / 16; ++kk) to_a_frag(dp, kk, dsa[kk]);
+    fence_regs(dq_acc);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowsK / 16; ++kk)   // 16 kv rows of K a step
+      wgmma_rs_tile<C::kW, 1>(dq_acc, dsa[kk], kaddr, kRowsK, 16 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq_acc);
+    mbar_arrive(sempty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (qpos[h] < Lq)
+      store_row_n<C::kW>(dq + ((size_t)bh * Lq + qpos[h]) * Dp + col0,
+                         dq_acc, h, 1.f, ncols);
+}
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const int* segq, const int* segk, void* dq, int BH, int H,
+                int Hkv, int Lq, int Lk, int Dp, int causal, int window,
+                float scale, cudaStream_t stream) {
+  using C = DqWide;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_wide_map(&mq, q, Dp, BH, Lq, kRowsQ) ||
+      !make_wide_map(&mdo, dout, Dp, BH, Lq, kRowsQ) ||
+      !make_wide_map(&mk, k, Dp, BHkv, Lk, C::kRowsK) ||
+      !make_wide_map(&mv, v, Dp, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wide_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ, (Dp + C::kW - 1) / C::kW);
+  dq_wide_sm90_kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
+      Lq, Lk, Dp, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int launch_dq_sm90(const void* q, const void* k, const void* v,
@@ -292,6 +533,9 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
       return launch<256>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
                          Hkv, Lq, Lk, causal, window, scale, stream);
   }
+  if (D > 256 && D % sm90::kChunkCols == 0)
+    return launch_wide(q, k, v, dout, lse, delta, segq, segk, dq, BH, H, Hkv,
+                       Lq, Lk, D, causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,9 @@
 //
 // Head dims: instantiated at D = 32, 64, 128 and 256, like K1 (sm90.cuh's
 // Tile<D>); the wrapper pads any other D <= 256 to the next of them. D = 256
-// runs the split kernel below (dkdv_sm90_split_kernel).
+// runs the split kernel below (dkdv_sm90_split_kernel); any D past 256 is
+// padded to the next multiple of 64 and runs the wide kernel
+// (dkdv_wide_sm90_kernel).
 //
 // Block: 288 threads (384 at D = 128, below), one 128-row kv tile of one
 // q-head row (GQA: the kv row through the head map; each q head writes its
@@ -59,6 +61,19 @@
 // products (the A operand of a bf16 wgmma is bf16), as aten's flash
 // backward does; dk and dv are rounded once to bf16 at the end (float32
 // partials under GQA).
+//
+// Past D = 256 (dkdv_wide_sm90_kernel): K and V (128 x D each) no longer fit
+// beside the Q and dO stages, nor dK and dV over all of D in registers. A
+// block owns 128 kv rows (64 a consumer warpgroup) and one 128-column slice
+// of dK and dV (blockIdx.z), 64 + 64 floats a thread as at D = 128, 384
+// threads with setmaxnreg. Per 64-row q tile the producer streams D/64
+// chunks (K, V 128 x 64 and Q, dO 64 x 64, 48 KB) through a 3-stage ring,
+// then Q's and dO's slices (64 x 128 each) with the tile's lse, delta and
+// segment ids through a 2-stage ring; the consumers add each chunk to S^T
+// and dP^T (2 x 4 x m64n64k16), then run dV += P^T dO_slice and dK += dS^T
+// Q_slice as at D = 128. Each slice recomputes S^T and dP^T over all of D
+// (D/128 times the score products), and K and V are read again for every
+// q tile. ~211 KB.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -474,6 +489,248 @@ __global__ void __launch_bounds__(Split<D>::kThreads, 1)
   }
 }
 
+// Head dims past 256 (see the top of this file): one 128-column slice of
+// dK and dV a block, S^T and dP^T streamed over D in 64-column chunks.
+struct BwdWide {
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kW = 128;                 // dK, dV columns a block
+  static constexpr int kRowsK = 128;             // kv rows per block
+  static constexpr int kRowsQ = 64;              // q rows per tile
+  static constexpr int kChunkStages = 3;
+  static constexpr int kSliceStages = 2;
+  static constexpr int kChunkK = kRowsK * kChunkRowBytes;   // K, V: 16 KB
+  static constexpr int kChunkQ = kRowsQ * kChunkRowBytes;   // Q, dO: 8 KB
+  static constexpr int kOffV = kChunkK;
+  static constexpr int kOffQ = 2 * kChunkK;
+  static constexpr int kOffDO = kOffQ + kChunkQ;
+  static constexpr int kChunk = kOffDO + kChunkQ;            // 48 KB
+  static constexpr int kSliceQ = Tile<kW>::bytes(kRowsQ);    // Q, dO: 16 KB
+  static constexpr int kSlice = 2 * kSliceQ;
+  static constexpr int kOffSlice = kChunkStages * kChunk;
+  static constexpr int kOffSide = kOffSlice + kSliceStages * kSlice;
+  static constexpr int kSide = 3 * kRowsQ;  // lse2, delta, seg per stage
+  static constexpr int kOffBar = kOffSide + kSliceStages * kSide * 4;
+  static constexpr int kSmem =
+      kOffBar + 8 * 2 * (kChunkStages + kSliceStages) + 1024;
+};
+
+template <typename TO>
+__global__ void __launch_bounds__(BwdWide::kThreads, 1)
+    dkdv_wide_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                          const __grid_constant__ CUtensorMap tmK,
+                          const __grid_constant__ CUtensorMap tmV,
+                          const __grid_constant__ CUtensorMap tmDO,
+                          const float* __restrict__ lse_g,
+                          const float* __restrict__ delta_g,
+                          const int* __restrict__ segq,
+                          const int* __restrict__ segk, TO* __restrict__ dk,
+                          TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
+                          int Dp, int causal, int window, float scale) {
+  using C = BwdWide;
+  constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
+  constexpr int kCS = C::kChunkStages, kSS = C::kSliceStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  float* side = reinterpret_cast<float*>(smem_raw + pad + C::kOffSide);
+  const uint32_t cfull0 = base + C::kOffBar, cempty0 = cfull0 + 8 * kCS;
+  const uint32_t sfull0 = cempty0 + 8 * kCS, sempty0 = sfull0 + 8 * kSS;
+
+  const int bh = blockIdx.x;                 // q-head row
+  const int kb = blockIdx.y;
+  const int col0 = C::kW * blockIdx.z;       // this block's dK, dV columns
+  const int ncols = min(C::kW, Dp - col0);
+  const int nch = Dp / kChunkCols;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int k0 = kb * kRowsK;
+
+  const int nqb = (Lq + kRowsQ - 1) / kRowsQ;
+  int qb_lo = 0, qb_hi = nqb;
+  if (causal) {
+    qb_lo = k0 / kRowsQ;                     // first q tile reaching k0
+    if (window > 0)                          // last q tile the window allows
+      qb_hi = min(nqb, (k0 + kRowsK - 2 + window) / kRowsQ + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(cfull0 + 8 * s, 1);
+      mbar_init(cempty0 + 8 * s, kConsumers);
+    }
+    for (int s = 0; s < kSS; ++s) {
+      mbar_init(sfull0 + 8 * s, 1 + 32);
+      mbar_init(sempty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {           // producer warpgroup
+    producer_regs();
+    if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    const int lane = threadIdx.x & 31;
+    for (int qb = qb_lo, i = 0, ic = 0; qb < qb_hi; ++qb, ++i) {
+      const int q0 = qb * kRowsQ;
+      for (int c = 0; c < nch; ++c, ++ic) {  // K, V, Q and dO chunk c
+        const int s = ic % kCS;
+        const uint32_t full = cfull0 + 8 * s;
+        const uint32_t dst = base + s * C::kChunk;
+        const int col = kChunkCols * c;
+        mbar_wait(cempty0 + 8 * s, ((ic / kCS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_tx(full, C::kChunk);
+          tma_load_3d(dst, &tmK, full, col, k0, kvh);
+          tma_load_3d(dst + C::kOffV, &tmV, full, col, k0, kvh);
+          tma_load_3d(dst + C::kOffQ, &tmQ, full, col, q0, bh);
+          tma_load_3d(dst + C::kOffDO, &tmDO, full, col, q0, bh);
+        }
+      }
+      const int s = i % kSS;                 // Q's and dO's slices, the side
+      const uint32_t full = sfull0 + 8 * s;
+      const uint32_t dst = base + C::kOffSlice + s * C::kSlice;
+      const int nblk = ncols / kChunkCols;
+      mbar_wait(sempty0 + 8 * s, ((i / kSS) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * nblk * kRowsQ * kChunkRowBytes);
+        load_blocks(dst, &tmQ, full, col0, nblk, q0, bh, kRowsQ);
+        load_blocks(dst + C::kSliceQ, &tmDO, full, col0, nblk, q0, bh,
+                    kRowsQ);
+      }
+      float* st = side + s * C::kSide;
+      for (int j = lane; j < kRowsQ; j += 32) {
+        const int qp = q0 + j;
+        const bool in = qp < Lq;
+        const size_t r = (size_t)bh * Lq + qp;
+        const float ls = in ? lse_g[r] : kNegInf;
+        st[j] = ls > kNegInf * 0.5f ? ls * kLog2e
+                                    : __int_as_float(0x7f800000);  // +inf
+        st[kRowsQ + j] = in ? delta_g[r] : 0.f;
+        reinterpret_cast<int*>(st)[2 * kRowsQ + j] =
+            (segq != nullptr && in) ? segq[r] : 0;
+      }
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns kv rows kr0 .. kr0 + 63
+  consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int kr0 = k0 + 64 * wg;
+  const float scale2 = scale * kLog2e;
+  const Mask mask{Lq, Lk, causal, window};
+  int kpos[2], sk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kpos[h] = kr0 + frag_row(2 * h);
+    sk[h] = (segk != nullptr && kpos[h] < Lk)
+                ? segk[(size_t)kvh * Lk + kpos[h]]
+                : 0;
+  }
+  float dk_acc[C::kW / 2], dv_acc[C::kW / 2];
+#pragma unroll
+  for (int r = 0; r < C::kW / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+
+  for (int qb = qb_lo, i = 0, ic = 0; qb < qb_hi; ++qb, ++i) {
+    const int q0 = qb * kRowsQ;
+    float sc[kRowsQ / 2], dp[kRowsQ / 2];
+    for (int c = 0; c < nch; ++c, ++ic) {    // S^T, dP^T over D, by chunks
+      const int s = ic % kCS;
+      const uint32_t chunk = base + s * C::kChunk;
+      mbar_wait(cfull0 + 8 * s, (ic / kCS) & 1);
+      wgmma_fence();
+      wgmma_ss_chunk(sc, chunk, kRowsK, 64 * wg, chunk + C::kOffQ, kRowsQ, 0,
+                     c > 0);
+      wgmma_ss_chunk(dp, chunk + C::kOffV, kRowsK, 64 * wg,
+                     chunk + C::kOffDO, kRowsQ, 0, c > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(cempty0 + 8 * s);
+    }
+    const int s = i % kSS;
+    const uint32_t qaddr = base + C::kOffSlice + s * C::kSlice;
+    const uint32_t doaddr = qaddr + C::kSliceQ;
+    const float* st = side + s * C::kSide;
+    mbar_wait(sfull0 + 8 * s, (i / kSS) & 1);
+
+    const bool diag = causal && kr0 + 63 > q0;  // reaches above it
+    const bool need_mask =
+        diag || segq != nullptr || q0 + kRowsQ > Lq || kr0 + 64 > Lk ||
+        (causal && window > 0 && q0 + kRowsQ - 1 - kr0 >= window);
+#pragma unroll
+    for (int r = 0; r < kRowsQ / 2; ++r) {
+      const int c = frag_col(r);
+      float p = exp2f(sc[r] * scale2 - st[c]);
+      if (need_mask &&
+          !mask(q0 + c, kpos[(r >> 1) & 1],
+                reinterpret_cast<const int*>(st)[2 * kRowsQ + c],
+                sk[(r >> 1) & 1]))
+        p = 0.f;
+      sc[r] = p;
+      dp[r] = p * (dp[r] - st[kRowsQ + c]) * scale;
+    }
+
+    uint32_t pa[kRowsQ / 16][4], dsa[kRowsQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk) {
+      to_a_frag(sc, kk, pa[kk]);
+      to_a_frag(dp, kk, dsa[kk]);
+    }
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(pa);
+    fence_regs(dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)   // 16 q rows of dO a step
+      wgmma_rs_tile<C::kW, 1>(dv_acc, pa[kk], doaddr, kRowsQ, 16 * kk);
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)
+      wgmma_rs_tile<C::kW, 1>(dk_acc, dsa[kk], qaddr, kRowsQ, 16 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    mbar_arrive(sempty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= Lk) continue;
+    const size_t off = ((size_t)bh * Lk + kpos[h]) * Dp + col0;
+    store_row_n<C::kW>(dk + off, dk_acc, h, 1.f, ncols);
+    store_row_n<C::kW>(dv + off, dv_acc, h, 1.f, ncols);
+  }
+}
+
+template <typename TO>
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const int* segq, const int* segk, void* dk, void* dv, int BH,
+                int H, int Hkv, int Lq, int Lk, int Dp, int causal,
+                int window, float scale, cudaStream_t stream) {
+  using C = BwdWide;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_wide_map(&mq, q, Dp, BH, Lq, C::kRowsQ) ||
+      !make_wide_map(&mdo, dout, Dp, BH, Lq, C::kRowsQ) ||
+      !make_wide_map(&mk, k, Dp, BHkv, Lk, C::kRowsK) ||
+      !make_wide_map(&mv, v, Dp, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_wide_sm90_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK, (Dp + C::kW - 1) / C::kW);
+  dkdv_wide_sm90_kernel<TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+      Lk, Dp, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename TO>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int* segq,
@@ -568,6 +825,15 @@ int launch_dkdv_sm90(const void* q, const void* k, const void* v,
       return launch_split<__nv_bfloat16>(q, k, v, dout, lse, delta, segq,
                                          segk, dk, dv, BH, H, Hkv, Lq, Lk,
                                          causal, window, scale, stream);
+  }
+  if (D > 256 && D % sm90::kChunkCols == 0) {
+    if (out_f32)
+      return launch_wide<float>(q, k, v, dout, lse, delta, segq, segk, dk, dv,
+                                BH, H, Hkv, Lq, Lk, D, causal, window, scale,
+                                stream);
+    return launch_wide<__nv_bfloat16>(q, k, v, dout, lse, delta, segq, segk,
+                                      dk, dv, BH, H, Hkv, Lq, Lk, D, causal,
+                                      window, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -83,6 +83,29 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
   }
 }
 
+// Head dims past 256 (the wide kernels of flash_fwd.cu and flash_bwd.cu):
+// the contractions over D stream in chunks of kWideChunk columns, and a
+// block owns one slice of the output's columns (kWideFwdCols of o and dq,
+// kWideKvCols of dk and dv).
+constexpr int kWideChunk = 64;
+constexpr int kWideFwdCols = 256;
+constexpr int kWideKvCols = 128;
+
+// Columns c0 .. c0 + kCols - 1 of rows [r0, r0 + kRows) of a row-major
+// (L, ld) matrix into shared memory as float32 with row stride `stride`;
+// rows at or past L and columns at or past ld read as zero.
+template <int kCols, int kRows, typename T>
+__device__ __forceinline__ void load_cols(float* dst, int stride,
+                                          const T* __restrict__ src, int r0,
+                                          int L, int ld, int c0) {
+  for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
+    const int r = idx / kCols, c = idx % kCols;
+    const int g = r0 + r, col = c0 + c;
+    dst[r * stride + c] =
+        g < L && col < ld ? to_f32(src[(size_t)g * ld + col]) : 0.f;
+  }
+}
+
 // The reference's mask (attention.py `_flash_kernel` :312-325): kv tail,
 // q tail, causal q >= k, window q - k < W, and segment equality.
 struct Mask {

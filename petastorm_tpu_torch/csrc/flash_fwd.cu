@@ -27,6 +27,11 @@
 // D+1, conflict-free column reads), a 4 x 4 register micro-tile of the
 // score block and a 4 x D/16 tile of the output per thread. No path of the
 // port runs float32 attention on the card; the bf16 path is the LM's.
+//
+// Past D = 256 (fwd_wide_kernel): a block owns one 256-column slice of o
+// (blockIdx.z; the wrapper pads D to a multiple of 64) and accumulates s =
+// q k^T over 64-column chunks of q and k (each a 64 x 65 float32 tile), so
+// shared memory is ~113 KB at any D; each slice recomputes s.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -188,11 +193,176 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* segq,
   return (int)cudaGetLastError();
 }
 
+// Head dims past 256: a block owns 64 q rows and kWideFwdCols of o's
+// columns (blockIdx.z); s = q k^T streams over D in chunks of kWideChunk
+// columns of q and k, and the p v step reads the slice of v's columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ segq,
+                    const int* __restrict__ segk, T* __restrict__ o,
+                    float* __restrict__ lse, int H, int Hkv, int Lq, int Lk,
+                    int D, int causal, int window, float scale) {
+  constexpr int kC = kWideChunk, SC = kC + 1, kW = kWideFwdCols;
+  constexpr int SP = kBlockK + 1, NJ = kW / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;                    // kBlockQ x SC: a chunk of q
+  float* sK = sQ + kBlockQ * SC;       // kBlockK x SC: a chunk of k
+  float* sV = sK + kBlockK * SC;       // kBlockK x kW: the slice of v
+  float* sP = sV + kBlockK * kW;       // kBlockQ x SP
+
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int col0 = kW * blockIdx.z;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int q0 = qb * kBlockQ;
+  const Lane ln = lane_layout();
+  const Mask mask{Lq, Lk, causal, window};
+
+  const T* qp = q + (size_t)bh * Lq * D;
+  const T* kp = k + (size_t)kvh * Lk * D;
+  const T* vp = v + (size_t)kvh * Lk * D;
+
+  float m[kSub], l[kSub], acc[kSub][NJ];
+  int qpos[kSub], sq[kSub];
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    qpos[i] = q0 + ln.ty + 16 * i;
+    sq[i] = (segq != nullptr && qpos[i] < Lq) ? segq[(size_t)bh * Lq + qpos[i]]
+                                              : 0;
+  }
+
+  const int nkb = (Lk + kBlockK - 1) / kBlockK;
+  int kb_lo = 0, kb_hi = nkb;
+  if (causal) {
+    kb_hi = min(nkb, (q0 + kBlockQ - 1) / kBlockK + 1);
+    if (window > 0) {
+      const int lo = q0 - window + 1;   // first position any row can see
+      kb_lo = lo >= kBlockK ? lo / kBlockK : 0;
+    }
+  }
+
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    const int k0 = kb * kBlockK;
+    float s[kSub][kSub];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i)
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kC) {
+      __syncthreads();                  // previous chunk (or tile) consumed
+      load_cols<kC, kBlockQ>(sQ, SC, qp, q0, Lq, D, c0);
+      load_cols<kC, kBlockK>(sK, SC, kp, k0, Lk, D, c0);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kC; ++d) {
+        float a[kSub], b[kSub];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) a[i] = sQ[(ln.ty + 16 * i) * SC + d];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) b[j] = sK[(ln.tx + 16 * j) * SC + d];
+#pragma unroll
+        for (int i = 0; i < kSub; ++i)
+#pragma unroll
+          for (int j = 0; j < kSub; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
+    }
+    load_cols<kW, kBlockK>(sV, kW, vp, k0, Lk, D, col0);
+
+    int kpos[kSub], sk[kSub];
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      kpos[j] = k0 + ln.tx + 16 * j;
+      sk[j] = (segk != nullptr && kpos[j] < Lk)
+                  ? segk[(size_t)kvh * Lk + kpos[j]]
+                  : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      bool ok[kSub];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        ok[j] = mask(qpos[i], kpos[j], sq[i], sk[j]);
+        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        psum += p;
+        sP[(ln.ty + 16 * i) * SP + ln.tx + 16 * j] = p;
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBlockK; ++kk) {
+      float p[kSub], b[NJ];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) p[i] = sP[(ln.ty + 16 * i) * SP + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) b[j] = sV[kk * kW + ln.tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], b[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kSub; ++i) {
+    if (qpos[i] >= Lq) continue;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    T* orow = o + ((size_t)bh * Lq + qpos[i]) * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = col0 + ln.tx + 16 * j;
+      if (col < D) orow[col] = from_f32<T>(acc[i][j] / safe_l);
+    }
+    if (lse != nullptr && blockIdx.z == 0 && ln.tx == 0)
+      lse[(size_t)bh * Lq + qpos[i]] =
+          l[i] == 0.f ? kNegInf : m[i] + logf(safe_l);
+  }
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v,
+                    const int* segq, const int* segk, void* o, float* lse,
+                    int BH, int H, int Hkv, int Lq, int Lk, int D, int causal,
+                    int window, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((kBlockQ + kBlockK) * (kWideChunk + 1) +
+                       kBlockK * kWideFwdCols + kBlockQ * (kBlockK + 1));
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, BH,
+            (D + kWideFwdCols - 1) / kWideFwdCols);
+  fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, segq, segk, (T*)o, lse, H, Hkv,
+      Lq, Lk, D, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash
 
-// dtype: 0 = float32 (FP32 cores, above; D 16, 32, 64, 128 or 256), 1 =
-// bfloat16 (wgmma, flash_fwd_sm90.cu; D 32, 64, 128 or 256). Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32 (FP32 cores, above; D 16, 32, 64, 128 or 256, or any
+// multiple of 64 past 256 on the wide kernel), 1 = bfloat16 (wgmma,
+// flash_fwd_sm90.cu; D 32, 64, 128 or 256, or any multiple of 64 past 256).
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const int* segq, const int* segk, void* o, float* lse,
                          int BH, int H, int Hkv, int Lq, int Lk, int D,
@@ -212,5 +382,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     FLASH_FOR_HEAD_DIMS_F32(FLASH_FWD_CASE)
 #undef FLASH_FWD_CASE
   }
+  if (D > 256 && D % flash::kWideChunk == 0)
+    return flash::launch_fwd_wide<float>(q, k, v, segq, segk, o, lse, BH, H,
+                                         Hkv, Lq, Lk, D, causal, window,
+                                         scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,8 @@
 // Head dims: instantiated at D = 32, 64, 128 and 256 (sm90.cuh's Tile<D>:
 // 64-byte swizzled rows at 32, one 128-byte block at 64, two at 128, four at
 // 256); the wrapper pads any other D <= 256 with zero columns to the next of
-// them.
+// them, and any D past 256 to the next multiple of 64 (fwd_wide_sm90_kernel,
+// below).
 //
 // Block: 288 threads (384 at D = 256, below). Warps 0-7 are two consumer
 // warpgroups, each owning 64 of the block's 128 q rows of one (batch, head)
@@ -57,6 +58,18 @@
 // and q blocks are launched longest causal row first. A fully masked row
 // gives o = 0 and lse = -1e30. Rows past Lq read as TMA zeros and are not
 // written.
+//
+// Past D = 256 (fwd_wide_sm90_kernel): neither Q (128 x D) beside the K
+// and V stages nor O over all of D (D/2 floats a thread) fits. A block
+// owns 128 q rows and one 256-column slice of O (blockIdx.z; the last
+// slice may be narrower), 384 threads with setmaxnreg as at D = 256. Per
+// 64-row kv tile the producer streams D/64 chunks (Q 128 x 64 and K 64 x 64,
+// one TMA box each, 24 KB) through a 4-stage ring, then V's slice (64 x
+// 256, 32 KB) through a 2-stage ring with the tile's segment ids; the
+// consumers add each chunk to S (4 x m64n64k16), then run the softmax and O
+// += P V_slice as at D = 256. Each slice recomputes S over all of D: D/256
+// times the score products, and Q is read again for every kv tile (from
+// L2). lse is written by the first slice. Shared memory ~162 KB.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -291,6 +304,244 @@ int launch(const void* q, const void* k, const void* v, const int* segq,
   return (int)cudaGetLastError();
 }
 
+// Head dims past 256 (see the top of this file): one 256-column slice of O
+// a block, S streamed over D in 64-column chunks.
+struct FwdWide {
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kW = 256;                 // O columns a block
+  static constexpr int kRowsK = 64;              // kv rows per tile
+  static constexpr int kChunkStages = 4;
+  static constexpr int kSliceStages = 2;
+  static constexpr int kChunkQ = kRowsQ * kChunkRowBytes;   // 16 KB
+  static constexpr int kChunk = kChunkQ + kRowsK * kChunkRowBytes;
+  static constexpr int kSlice = Tile<kW>::bytes(kRowsK);    // V: 32 KB
+  static constexpr int kOffSlice = kChunkStages * kChunk;
+  static constexpr int kOffSeg = kOffSlice + kSliceStages * kSlice;
+  static constexpr int kOffBar = kOffSeg + kSliceStages * kRowsK * 4;
+  static constexpr int kSmem =
+      kOffBar + 8 * 2 * (kChunkStages + kSliceStages) + 1024;
+};
+
+__global__ void __launch_bounds__(FwdWide::kThreads, 1)
+    fwd_wide_sm90_kernel(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmK,
+                         const __grid_constant__ CUtensorMap tmV,
+                         const int* __restrict__ segq,
+                         const int* __restrict__ segk,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int H, int Hkv, int Lq,
+                         int Lk, int Dp, int causal, int window,
+                         float scale) {
+  using C = FwdWide;
+  constexpr int kRowsK = C::kRowsK;
+  constexpr int kCS = C::kChunkStages, kSS = C::kSliceStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + C::kOffSeg);
+  const uint32_t cfull0 = base + C::kOffBar, cempty0 = cfull0 + 8 * kCS;
+  const uint32_t sfull0 = cempty0 + 8 * kCS, sempty0 = sfull0 + 8 * kSS;
+
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  const int col0 = C::kW * blockIdx.z;         // this block's O columns
+  const int ncols = min(C::kW, Dp - col0);
+  const int nch = Dp / kChunkCols;
+  const int kvh = kv_row(bh, H, Hkv);
+  const int q0 = qb * kRowsQ;
+
+  const int nkb = (Lk + kRowsK - 1) / kRowsK;
+  int kb_lo = 0, kb_hi = nkb;
+  if (causal) {
+    kb_hi = min(nkb, (q0 + kRowsQ - 1) / kRowsK + 1);
+    if (window > 0) {
+      const int lo = q0 - window + 1;   // first position any row can see
+      kb_lo = lo >= kRowsK ? lo / kRowsK : 0;
+    }
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kCS; ++s) {
+      mbar_init(cfull0 + 8 * s, 1);
+      mbar_init(cempty0 + 8 * s, kConsumers);
+    }
+    for (int s = 0; s < kSS; ++s) {
+      mbar_init(sfull0 + 8 * s, 1 + 32);
+      mbar_init(sempty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {            // producer warpgroup
+    producer_regs();
+    if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    const int lane = threadIdx.x & 31;
+    for (int kb = kb_lo, i = 0, ic = 0; kb < kb_hi; ++kb, ++i) {
+      for (int c = 0; c < nch; ++c, ++ic) {   // Q and K chunk c
+        const int s = ic % kCS;
+        const uint32_t full = cfull0 + 8 * s;
+        const uint32_t dst = base + s * C::kChunk;
+        mbar_wait(cempty0 + 8 * s, ((ic / kCS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_tx(full, C::kChunk);
+          tma_load_3d(dst, &tmQ, full, kChunkCols * c, q0, bh);
+          tma_load_3d(dst + C::kChunkQ, &tmK, full, kChunkCols * c,
+                      kb * kRowsK, kvh);
+        }
+      }
+      const int s = i % kSS;                  // V's slice, the segment ids
+      const uint32_t full = sfull0 + 8 * s;
+      mbar_wait(sempty0 + 8 * s, ((i / kSS) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(full, ncols / kChunkCols * kRowsK * kChunkRowBytes);
+        load_blocks(base + C::kOffSlice + s * C::kSlice, &tmV, full, col0,
+                    ncols / kChunkCols, kb * kRowsK, kvh, kRowsK);
+      }
+      if (segk != nullptr)
+        for (int j = lane; j < kRowsK; j += 32) {
+          const int kp = kb * kRowsK + j;
+          seg_tile[s * kRowsK + j] =
+              kp < Lk ? segk[(size_t)kvh * Lk + kp] : 0;
+        }
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows r0 .. r0 + 63
+  consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int r0 = q0 + 64 * wg;
+  const float scale2 = scale * kLog2e;
+  const Mask mask{Lq, Lk, causal, window};
+  int qpos[2], sq[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = r0 + frag_row(2 * h);
+    sq[h] = (segq != nullptr && qpos[h] < Lq)
+                ? segq[(size_t)bh * Lq + qpos[h]]
+                : 0;
+    m[h] = kNegInf;
+    l[h] = 0.f;
+  }
+  float acc[C::kW / 2];
+#pragma unroll
+  for (int r = 0; r < C::kW / 2; ++r) acc[r] = 0.f;
+
+  for (int kb = kb_lo, i = 0, ic = 0; kb < kb_hi; ++kb, ++i) {
+    const int k0 = kb * kRowsK;
+    float sc[kRowsK / 2];
+    for (int c = 0; c < nch; ++c, ++ic) {     // S over D, a chunk at a time
+      const int s = ic % kCS;
+      const uint32_t chunk = base + s * C::kChunk;
+      mbar_wait(cfull0 + 8 * s, (ic / kCS) & 1);
+      wgmma_fence();
+      wgmma_ss_chunk(sc, chunk, kRowsQ, 64 * wg, chunk + C::kChunkQ, kRowsK,
+                     0, c > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(cempty0 + 8 * s);
+    }
+    const int s = i % kSS;
+    const uint32_t vaddr = base + C::kOffSlice + s * C::kSlice;
+    mbar_wait(sfull0 + 8 * s, (i / kSS) & 1);
+
+    const bool diag = causal && k0 + kRowsK - 1 > r0;  // reaches above it
+    const bool need_mask =
+        diag || segk != nullptr || k0 + kRowsK > Lk || r0 + 64 > Lq ||
+        (causal && window > 0 && r0 + 63 - k0 >= window);
+    float mx[2] = {kNegInf, kNegInf};
+    if (need_mask) {
+#pragma unroll
+      for (int r = 0; r < kRowsK / 2; ++r) {
+        const int h = (r >> 1) & 1, c = frag_col(r);
+        const int sk = segk != nullptr ? seg_tile[s * kRowsK + c] : 0;
+        sc[r] = mask(qpos[h], k0 + c, sq[h], sk) ? sc[r] * scale2 : kNegInf;
+        mx[h] = fmaxf(mx[h], sc[r]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRowsK / 2; ++r) {
+        sc[r] *= scale2;
+        mx[(r >> 1) & 1] = fmaxf(mx[(r >> 1) & 1], sc[r]);
+      }
+    }
+    float m_use[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // a row with nothing live yet: masked scores (-1e30) give p = 0
+      m_use[h] = m_new == kNegInf ? 0.f : m_new;
+      corr[h] = exp2f(m[h] - m_use[h]);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsK / 2; ++r) {
+      sc[r] = exp2f(sc[r] - m_use[(r >> 1) & 1]);
+      psum[(r >> 1) & 1] += sc[r];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
+#pragma unroll
+    for (int r = 0; r < C::kW / 2; ++r) acc[r] *= corr[(r >> 1) & 1];
+
+    uint32_t a[kRowsK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kRowsK / 16; ++kk) to_a_frag(sc, kk, a[kk]);
+    fence_regs(acc);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowsK / 16; ++kk)   // 16 kv rows of V a step
+      wgmma_rs_tile<C::kW, 1>(acc, a[kk], vaddr, kRowsK, 16 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(sempty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (qpos[h] >= Lq) continue;
+    const float inv = l[h] == 0.f ? 0.f : 1.f / l[h];
+    store_row_n<C::kW>(o + ((size_t)bh * Lq + qpos[h]) * Dp + col0, acc, h,
+                       inv, ncols);
+    if (blockIdx.z == 0 && (threadIdx.x & 3) == 0)
+      lse[(size_t)bh * Lq + qpos[h]] =
+          l[h] == 0.f ? kNegInf : m[h] / kLog2e + logf(l[h]);
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const int* segq,
+                const int* segk, void* o, float* lse, int BH, int H, int Hkv,
+                int Lq, int Lk, int Dp, int causal, int window, float scale,
+                cudaStream_t stream) {
+  using C = FwdWide;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv;
+  if (!make_wide_map(&mq, q, Dp, BH, Lq, kRowsQ) ||
+      !make_wide_map(&mk, k, Dp, BHkv, Lk, C::kRowsK) ||
+      !make_wide_map(&mv, v, Dp, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_wide_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ, (Dp + C::kW - 1) / C::kW);
+  fwd_wide_sm90_kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, Dp,
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
@@ -311,6 +562,9 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v,
       return launch<256>(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk,
                          causal, window, scale, stream);
   }
+  if (D > 256 && D % sm90::kChunkCols == 0)
+    return launch_wide(q, k, v, segq, segk, o, lse, BH, H, Hkv, Lq, Lk, D,
+                       causal, window, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

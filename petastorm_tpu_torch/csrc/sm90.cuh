@@ -16,6 +16,16 @@
 // of 8 rows, and a wgmma descriptor can address any 8-row group and any
 // 16-column k step of it. Blocks 2 and 3 of a D = 256 tile of R rows are laid
 // out as a D = 128 tile of R rows 2 R kRowBytes past its start.
+//
+// Head dims past 256 (the wide kernels; the bottom of this file): a bf16 row
+// of Dp columns (Dp a multiple of 64, any width) is read through one map
+// with 64-column boxes (make_wide_map). A chunk of 64 columns of R rows is
+// one box, laid out as a Tile<64> of R rows: the contractions over D (S = Q
+// K^T, dP = dO V^T) stream chunk by chunk, one 4-k-step wgmma a chunk. A
+// slice of up to kW output columns (256, or 128 for dK and dV) is its
+// column blocks loaded as a Tile<kW> of R rows, the blocks past Dp left
+// unloaded: their products land in accumulator registers that are never
+// stored.
 #pragma once
 
 #include <cuda.h>              // CUtensorMap and its enums (header only)
@@ -477,11 +487,81 @@ __device__ __forceinline__ void store_row(TO* out, const float (&acc)[D / 2],
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dims past 256: chunks and slices of wide rows (see the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkCols = 64;     // contraction columns a chunk: one box
+constexpr int kChunkRowBytes = 128;
+
+// A 3-D (mats, L, Dp) map of a bf16 tensor with rows of Dp columns (a
+// multiple of 64) and boxes of box_rows x 64 columns in the 128-byte
+// swizzle. Returns false on failure (the pointer must be 16-byte aligned).
+static inline bool make_wide_map(CUtensorMap* map, const void* base, int Dp,
+                                 int mats, int L, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)Dp, (cuuint64_t)L,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)Dp * 2,
+                                 (cuuint64_t)L * Dp * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kChunkCols, (cuuint32_t)box_rows,
+                             1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Columns col0 .. col0 + 64 nblk - 1 of rows row0 .. row0 + rows - 1 of
+// matrix `mat` of a wide map into `dst`, laid out as the first nblk column
+// blocks of a (rows, 64 nblk) tile (one box a block); counted on `bar`.
+__device__ __forceinline__ void load_blocks(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col0, int nblk,
+                                            int row0, int mat, int rows) {
+  for (int b = 0; b < nblk; ++b)
+    tma_load_3d(dst + b * rows * kChunkRowBytes, map, bar,
+                col0 + kChunkCols * b, row0, mat);
+}
+
+// S (64 x N, N = 2 R) (+)= A B^T over one 64-column chunk, both K-major:
+// rows a_r0 .. a_r0 + 63 of the (a_rows, 64) chunk at `a` and rows b_r0 ..
+// b_r0 + N - 1 of the (b_rows, 64) chunk at `b`; 4 k steps, the first
+// adding to S only when `acc` (0 for a contraction's first chunk).
+template <int R>
+__device__ __forceinline__ void wgmma_ss_chunk(float (&s)[R], uint32_t a,
+                                               int a_rows, int a_r0,
+                                               uint32_t b, int b_rows,
+                                               int b_r0, int acc) {
+  using T = Tile<kChunkCols>;
+#pragma unroll
+  for (int kk = 0; kk < kChunkCols / 16; ++kk)
+    wgmma_ss(s, T::kmajor(a, a_rows, a_r0, kk),
+             T::kmajor(b, b_rows, b_r0, kk), acc || kk > 0);
+}
+
+// Fragment row h of a 64 x W accumulator, times `mul`, to `out`: that
+// row's first ncols (a multiple of 8, at most W) elements.
+template <int W, typename TO>
+__device__ __forceinline__ void store_row_n(TO* out, const float (&acc)[W / 2],
+                                            int h, float mul, int ncols) {
+  const int cq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int r = 4 * j + 2 * h;
+    if (8 * j < ncols)
+      store2<TO>(out + 8 * j + 2 * cq, acc[r] * mul, acc[r + 1] * mul);
+  }
+}
+
 }  // namespace sm90
 
 // Launchers of the bf16 kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
-// flash_bwd_sm90.cu) at head dim D (32, 64, 128 or 256), called by the C
-// entry points for dtype 1. Return a cudaError_t.
+// flash_bwd_sm90.cu) at head dim D (32, 64, 128 or 256; or any multiple of
+// 64 past 256, on the wide kernels), called by the C entry points for dtype
+// 1. Return a cudaError_t.
 int launch_fwd_sm90(const void* q, const void* k, const void* v,
                     const int* segq, const int* segk, void* o, float* lse,
                     int BH, int H, int Hkv, int Lq, int Lk, int D, int causal,

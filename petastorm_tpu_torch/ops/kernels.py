@@ -29,13 +29,17 @@ started together and linked into
 ``ctypes``; nothing is built or imported from CUDA when this module is
 imported. The attention kernels are instantiated at the head dims of
 :data:`HEAD_DIMS`: 32, 64, 128 and 256 in bf16 (the tensor-core kernels),
-and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels). A launch at
-any other head dim up to :data:`MAX_HEAD_DIM` runs at the next instantiated
-one (:func:`launch_head_dim`): q, k, v and do get zero columns up to it
-(:func:`pad_heads`), the scale stays that of the true head dim, and o, dq,
-dk and dv are cut back (:func:`unpad`). That is exact: zero columns add
-nothing to q k^T and give zero output columns. A head dim past 256 raises
-before anything launches.
+and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels). Past 256
+both dtypes run the wide kernels, which take any multiple of
+:data:`WIDE_STEP` (64): each block owns one slice of the output's columns
+and streams q k^T and do v^T over the head dim in 64-column chunks. A
+launch at any other head dim up to :data:`MAX_HEAD_DIM` runs at the next
+width the kernels take (:func:`launch_head_dim`): q, k, v and do get zero
+columns up to it (:func:`pad_heads`), the scale stays that of the true
+head dim, and o, dq, dk and dv are cut back (:func:`unpad`). That is exact:
+zero columns add nothing to q k^T and give zero output columns. Past
+:data:`MAX_HEAD_DIM` (the grid's limit of 65,535 column slices) a launch
+raises before anything runs.
 
 The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
 bf16 before their second products, where the twins keep float32: their
@@ -77,7 +81,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: for bf16).
 HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
              torch.bfloat16: (32, 64, 128, 256)}
-MAX_HEAD_DIM = 256
+#: Past 256 the wide kernels take any multiple of this head dim.
+WIDE_STEP = 64
+#: The widest head dim: the grid's z dimension (at most 65,535 blocks)
+#: counts K3's 128-column slices of dk and dv.
+MAX_HEAD_DIM = 65535 * 128
 
 #: Launches per kernel since the last :func:`reset_launch_counts`; each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -417,13 +425,16 @@ def flash_rounding_bounds(q, k, v, do, lse, delta, *, n_heads, n_kv_heads,
 
 def flash_gate_limit(ref, bound, dtype) -> torch.Tensor:
     """Per-element limit on ``|kernel - twin|`` for an output of a bf16
-    tensor-core kernel: half a bf16 ulp of ``ref`` when the output is
-    stored in bf16, plus ``BF16_ROUND * bound`` for the rounding of p or
-    ds, plus ``1e-5 (1 + |ref|)`` for the float32 sums' order."""
+    tensor-core kernel: ``BF16_ROUND * bound`` for the rounding of p or
+    ds, plus ``1e-5 (1 + |ref|)`` for the float32 sums' order, plus, when
+    the output is stored in bf16, half a bf16 ulp of the value the kernel
+    rounds. That value lies within the first two terms of ``ref``, so
+    the half ulp is taken at ``|ref|`` plus them: past a power of two
+    that is twice ``ref``'s own half ulp."""
     ref = ref.float()
     limit = BF16_ROUND * bound.float() + 1e-5 * (1 + ref.abs())
     if dtype == torch.bfloat16:
-        _, exp = torch.frexp(ref)
+        _, exp = torch.frexp(ref.abs() + limit)
         limit = limit + torch.ldexp(torch.ones_like(ref), exp - 9)
     return limit
 
@@ -468,14 +479,17 @@ def _check_tma(name, *tensors):
 
 def launch_head_dim(d: int, dtype) -> int:
     """The head dim a CUDA launch at head dim ``d`` runs at: the least one
-    of :data:`HEAD_DIMS` for ``dtype`` that is at least ``d``. Raises
-    ``ValueError`` past :data:`MAX_HEAD_DIM`."""
+    of :data:`HEAD_DIMS` for ``dtype`` that is at least ``d``, or past 256
+    the next multiple of :data:`WIDE_STEP`. Raises ``ValueError`` past
+    :data:`MAX_HEAD_DIM`."""
     for width in HEAD_DIMS.get(dtype, ()):
         if width >= d:
             return width
-    raise ValueError('head dim %d not supported by the CUDA kernels: at most '
-                     '%d (built for %s)' % (d, MAX_HEAD_DIM,
-                                            HEAD_DIMS.get(dtype)))
+    if d > MAX_HEAD_DIM:
+        raise ValueError('head dim %d not supported by the CUDA kernels: at '
+                         'most %d (the grid limit of 65535 column slices of '
+                         '128)' % (d, MAX_HEAD_DIM))
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 
 def pad_heads(width: int, *tensors) -> Tuple[torch.Tensor, ...]:

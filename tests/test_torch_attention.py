@@ -7,9 +7,11 @@ PyTorch twin of each CUDA kernel (K1 forward, K2 dq, K3 dk/dv). All float32;
 tolerance ``atol = rtol = 2e-5`` (the two sum in different block orders:
 Pallas blocks of 16, the twins blocks of 512). The cases run at head dim 16,
 and again at ``HEAD_DIMS`` (32, 128 and 256, which the kernels are built
-for, and 80 and 192, which a CUDA launch pads to 128 and 256). A
-CUDA-marked test holds the kernels themselves against the twins on the
-card.
+for, 80 and 192, which a CUDA launch pads to 128 and 256, and 320, 512 and
+576, which run on the wide kernels); at the wide head dims a grouped-query
+case of 4 q heads over one kv head too (DeepSeek-V3's absorbed attention
+shares one 576-wide kv head). A CUDA-marked test holds the kernels
+themselves against the twins on the card.
 """
 
 import jax
@@ -26,7 +28,9 @@ from petastorm_tpu_torch.ops import kernels
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 BLOCK = 16
-HEAD_DIMS = [32, 80, 128, 192, 256]
+HEAD_DIMS = [32, 80, 128, 192, 256, 320, 512, 576]
+WIDE_HEAD_DIMS = [320, 512, 576]
+MQA_CASE = ('mqa_4_to_1', 4, 1, 40, 40, True, None, False)
 
 # (name, q heads, kv heads, Lq, Lk, causal, window, segmented)
 CASES = [
@@ -79,6 +83,11 @@ def test_forward_matches_pallas_interpret_head_dims(case, d):
     _check_forward(case, d)
 
 
+@pytest.mark.parametrize('d', WIDE_HEAD_DIMS)
+def test_forward_matches_pallas_interpret_mqa_head_dims(d):
+    _check_forward(MQA_CASE, d)
+
+
 def _check_forward(case, d):
     _, h, hkv, lq, lk, causal, window, segmented = case
     q, k, v, _, segs = _inputs(1, h, hkv, lq, lk, d, segmented=segmented)
@@ -103,6 +112,11 @@ def test_backward_matches_pallas_interpret(case):
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_backward_matches_pallas_interpret_head_dims(case, d):
     _check_backward(case, d)
+
+
+@pytest.mark.parametrize('d', WIDE_HEAD_DIMS)
+def test_backward_matches_pallas_interpret_mqa_head_dims(d):
+    _check_backward(MQA_CASE, d)
 
 
 def _check_backward(case, d):
@@ -136,6 +150,11 @@ def test_autograd_matches_jax_grad(case):
 @pytest.mark.parametrize('case', AUTOGRAD_CASES, ids=AUTOGRAD_IDS)
 def test_autograd_matches_jax_grad_head_dims(case, d):
     _check_autograd(case, d)
+
+
+@pytest.mark.parametrize('d', WIDE_HEAD_DIMS)
+def test_autograd_matches_jax_grad_mqa_head_dims(d):
+    _check_autograd(MQA_CASE, d)
 
 
 def _check_autograd(case, d):

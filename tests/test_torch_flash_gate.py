@@ -3,8 +3,9 @@ dk/dv).
 
 Those kernels round p (K1), ds (K2), and p and ds (K3), to nearest bf16
 before their second products, where the float32 twins do not. Their
-outputs are held to ``kernels.flash_gate_limit``: half a bf16 ulp + 2^-8 B
-+ 1e-5 (1 + |ref|), with B from ``kernels.flash_rounding_bounds``; and, on
+outputs are held to ``kernels.flash_gate_limit``: 2^-8 B + 1e-5 (1 +
+|ref|), with B from ``kernels.flash_rounding_bounds``, + half a bf16 ulp
+of the largest value within those of ref; and, on
 non-negative q, k, v and do with delta = 0 (so p, ds and every term of o,
 dq, dk and dv are non-negative), the mean signed error over the mean of
 2^-8 B must lie within ``kernels.BIAS_LIMIT`` (``kernels.rounding_bias``),
@@ -15,7 +16,8 @@ package: the twin with p and ds rounded blockwise at each kernel's kv
 tile) stands in for the kernels: the gate accepts it, and the bias check
 rejects its truncating variants (p truncated for o and dv, ds alone for dk
 and dq). On the card (``-m cuda``) broken copies of the kernels, built
-alone, must each be rejected by the gate.
+alone, must each be rejected by the gate: at head dim 64, and broken copies
+of the wide kernels (head dims past 256) at head dim ``WIDE_D``.
 """
 
 import math
@@ -27,6 +29,7 @@ import torch
 from petastorm_tpu_torch.ops import kernels
 
 D = 64
+WIDE_D = 320          # the wide kernels' card cases: 5 chunks, 2 / 3 slices
 TILE = 128            # kv rows per tile of K1 (the online-softmax step)
 TILE_DQ = 64          # kv rows per tile of K2
 
@@ -49,17 +52,17 @@ def _bf16_values(rng, shape, nonneg=False):
 
 
 def _operands(seed, h, hkv, lq, lk, segmented=False, nonneg=False,
-              low_scores=False):
-    """q, k, v, do (|x| with ``nonneg``). With ``low_scores`` q = |x| + 3
-    and k = -(|x| + 3), so every score q k^T / 8 lies near -115 and
-    exp(-lse) overflows float32."""
+              low_scores=False, d=D):
+    """q, k, v, do of head dim ``d`` (|x| with ``nonneg``). With
+    ``low_scores`` q = |x| + 3 and k = -(|x| + 3), so every score q k^T /
+    sqrt(d) lies near -115 sqrt(d / 64) and exp(-lse) overflows float32."""
     rng = np.random.default_rng(seed)
-    q = _bf16_values(rng, (h, lq, D), nonneg)
-    k = _bf16_values(rng, (hkv, lk, D), nonneg)
+    q = _bf16_values(rng, (h, lq, d), nonneg)
+    k = _bf16_values(rng, (hkv, lk, d), nonneg)
     if low_scores:
         q, k = _nearest(q.abs() + 3), _nearest(-(k.abs() + 3))
-    v = _bf16_values(rng, (hkv, lk, D), nonneg)
-    do = _bf16_values(rng, (h, lq, D), nonneg)
+    v = _bf16_values(rng, (hkv, lk, d), nonneg)
+    do = _bf16_values(rng, (h, lq, d), nonneg)
     kw = {}
     if segmented:   # kv position 0 has an id no query has: q row 0 is empty
         seg_q = (torch.arange(lq) >= lq // 2).int()
@@ -160,14 +163,14 @@ def _emulate_dq(q, k, v, do, lse, delta, rnd, *, n_heads, n_kv_heads,
 OUTPUTS = ('o', 'dq', 'dk', 'dv')
 
 
-def _case(seed, case, nonneg=False, low_scores=False):
+def _case(seed, case, nonneg=False, low_scores=False, d=D):
     """Operands, geometry keywords, the twins' outputs and the bounds.
     With ``nonneg`` delta is 0: ds = p (do v^T) scale is then non-negative
     too (and so is k), so a truncated ds biases dq and dk as a truncated p
     biases o and dv."""
     _, h, hkv, lq, lk, causal, window, segmented = case
     q, k, v, do, segs = _operands(seed, h, hkv, lq, lk, segmented, nonneg,
-                                  low_scores)
+                                  low_scores, d)
     kw = dict(n_heads=h, n_kv_heads=hkv, causal=causal, window=window,
               **segs)
     o, lse = kernels.flash_fwd_plain(q, k, v, **kw)
@@ -254,6 +257,29 @@ def test_bias_check_rejects_truncation(output):
     assert bias < -kernels.BIAS_LIMIT, bias
 
 
+@pytest.mark.parametrize('top', [-5, -3, 0])
+def test_gate_holds_any_rounding_within_the_bound(top):
+    """The gate's contract: any value within 2^-8 B + 1e-5 (1 + |ref|) of
+    ref, rounded to nearest bf16, passes; here with |ref| just below the
+    power of two 2^top and B up to 4 x 2^top, so that many such values
+    lie past the power of two, where half a bf16 ulp is twice ref's (as a
+    few of the kernels' outputs at head dims 512 and 576 did on the card).
+    A half ulp taken at |ref| alone rejects some of them."""
+    n = 4096
+    rng = np.random.default_rng(16 - top)
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], n)).float()
+    ref = sign * torch.from_numpy(
+        2.0 ** top * (1 - rng.uniform(0, 2 ** -7, n))).float()
+    bound = torch.from_numpy(rng.uniform(0, 4, n) * 2.0 ** top).float()
+    slack = kernels.BF16_ROUND * bound + 1e-5 * (1 + ref.abs())
+    frac = torch.from_numpy(rng.uniform(-0.99, 0.99, n)).float()
+    got = (ref + frac * slack).to(torch.bfloat16)
+    assert _n_beyond(got, ref, bound) == 0
+    _, exp = torch.frexp(ref)
+    at_ref = slack + torch.ldexp(torch.ones_like(ref), exp - 9)
+    assert int(((got.float() - ref).abs() > at_ref).sum()) > 0
+
+
 @pytest.mark.parametrize('case', [CASES[0], CASES[2], CASES[3]],
                          ids=['causal_ragged', 'gqa', 'segments_masked_row'])
 def test_bounds_match_their_definition(case):
@@ -332,6 +358,30 @@ MUTANTS = {
     'dq_kv_tail_unmasked': ('flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
                             'k0 + kRowsK > Lk || ', ''),
 }
+# mutants of the wide kernels (head dims past 256), held at WIDE_D: each
+# drops a chunk's sum (S, or dP, from the last chunk alone) or reads the
+# first slice's columns for every slice
+WIDE_MUTANTS = {
+    'fwd_wide_s_last_chunk_only': (
+        'flash_fwd', 'flash_fwd_sm90.cu',
+        'chunk + C::kChunkQ, kRowsK,\n                     0, c > 0);',
+        'chunk + C::kChunkQ, kRowsK,\n                     0, 0);'),
+    'fwd_wide_v_first_slice': (
+        'flash_fwd', 'flash_fwd_sm90.cu',
+        '&tmV, full, col0,\n                    ncols / kChunkCols',
+        '&tmV, full, 0,\n                    ncols / kChunkCols'),
+    'dq_wide_dp_last_chunk_only': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        'dp[r] += dpc[r];', 'dp[r] = dpc[r];'),
+    'dkdv_wide_dp_last_chunk_only': (
+        'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
+        'chunk + C::kOffDO, kRowsQ, 0, c > 0);',
+        'chunk + C::kOffDO, kRowsQ, 0, 0);'),
+    'dkdv_wide_q_first_slice': (
+        'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
+        'load_blocks(dst, &tmQ, full, col0, nblk',
+        'load_blocks(dst, &tmQ, full, 0, nblk'),
+}
 # flash_bwd.cu's C entry points call into both sm90 backward files, and a
 # library missing either fails to load (ctypes binds every symbol at once)
 _BWD_SOURCES = ('flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')
@@ -355,14 +405,15 @@ CARD_CASES = [
 ]
 
 
-def gate_verdicts(name):
-    """For kernel ``name`` (the one bound in ``kernels._lib``): per card case,
-    the elements beyond the limit and the bias ratio of each output."""
+def gate_verdicts(name, d=D):
+    """For kernel ``name`` (the one bound in ``kernels._lib``): per card case
+    at head dim ``d``, the elements beyond the limit and the bias ratio of
+    each output."""
     out = {}
     for label, case, kind in CARD_CASES:
         nonneg = kind == 'nonneg'
         ops, kw, refs, bounds = _case(15, case, nonneg,
-                                      low_scores=kind == 'low_scores')
+                                      low_scores=kind == 'low_scores', d=d)
         q, k, v, do, lse, delta = (x.cuda() for x in ops)
         kwd = {n: (t.cuda() if torch.is_tensor(t) else t)
                for n, t in kw.items()}
@@ -405,19 +456,25 @@ def test_gate_accepts_kernel_on_card(kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('mutant', sorted(MUTANTS))
-def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
-    """A broken copy of K1, K2 or K3, built alone on the card, fails the
-    gate in some card case: truncated p (or p and ds, or ds alone), the
-    causal mask dropped on the diagonal tile (K2: or on the window's edge
-    tile, or on the kv-tail tile), the transpose bit of P V (or dS K, or
-    dS^T Q) flipped."""
+@pytest.mark.parametrize('kernel', sorted(_KERNEL_SOURCES))
+def test_gate_accepts_wide_kernel_on_card(kernel):
+    """The built wide kernels pass every card case of the gate at head dim
+    WIDE_D (run on a GPU host)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = gate_verdicts(kernel, WIDE_D)
+    print('%s at D=%d: %s' % (kernel, WIDE_D, verdicts))
+    assert not any(_rejected(v) for v in verdicts.values()), verdicts
+
+
+def _mutant_verdicts(mutants, mutant, d, tmp_path, monkeypatch):
+    """Build the broken copy ``mutant`` of ``mutants`` alone and bind it in
+    place of the kernels; returns its kernel's gate verdicts at head dim
+    ``d``."""
     import ctypes
     import shutil
     import subprocess
-    kernel, name, old, new = MUTANTS[mutant]
+    kernel, name, old, new = mutants[mutant]
     csrc = tmp_path / 'csrc'
     shutil.copytree(kernels._CSRC, csrc)
     src = (csrc / name).read_text()
@@ -431,8 +488,38 @@ def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
     lib = kernels.bind(ctypes.CDLL(str(so)),
                        {kernel: kernels._SIGNATURES[kernel]})
     monkeypatch.setattr(kernels, '_lib', lib)
-    verdicts = gate_verdicts(kernel)
+    return gate_verdicts(kernel, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mutant', sorted(MUTANTS))
+def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
+    """A broken copy of K1, K2 or K3, built alone on the card, fails the
+    gate in some card case: truncated p (or p and ds, or ds alone), the
+    causal mask dropped on the diagonal tile (K2: or on the window's edge
+    tile, or on the kv-tail tile), the transpose bit of P V (or dS K, or
+    dS^T Q) flipped."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = _mutant_verdicts(MUTANTS, mutant, D, tmp_path, monkeypatch)
     rejected = [c for c, v in verdicts.items() if _rejected(v)]
     print('mutant %s rejected by: %s; verdicts %s'
+          % (mutant, rejected, verdicts))
+    assert rejected, verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mutant', sorted(WIDE_MUTANTS))
+def test_gate_rejects_broken_wide_kernel(mutant, tmp_path, monkeypatch):
+    """A broken copy of a wide kernel, built alone on the card, fails the
+    gate at head dim WIDE_D in some card case: S (K1) or dP (K2, K3) from
+    the last 64-column chunk alone, or the first slice's columns of V (K1)
+    or Q (K3) read for every slice."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = _mutant_verdicts(WIDE_MUTANTS, mutant, WIDE_D, tmp_path,
+                                monkeypatch)
+    rejected = [c for c, v in verdicts.items() if _rejected(v)]
+    print('wide mutant %s rejected by: %s; verdicts %s'
           % (mutant, rejected, verdicts))
     assert rejected, verdicts

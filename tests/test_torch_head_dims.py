@@ -1,18 +1,20 @@
 """Head dims of the port's flash kernels (K1 forward, K2 dq, K3 dk/dv).
 
 The kernels are instantiated at ``kernels.HEAD_DIMS`` (bf16 32, 64, 128,
-256; float32 16, 32, 64, 128, 256). A launch at another head dim up to 256
-pads q, k, v and do with zero columns to the next instantiated one, keeps
-the scale of the true head dim and cuts the outputs back. On the CPU the
-padding is held against the plain twins at the true head dim (float32,
-within 1e-6: zero columns add exact zeros, but the sums may be blocked
-differently), and the head-dim table and its raise past 256 are checked. On
-the card (``-m cuda``) every new instantiation (32, 128 and 256) and the
-padded head dims 80, 96, 160 and 192 are held against the twins run in
-float32 on the same values: atol = rtol = 1e-4 for float32 outputs,
-``kernels.flash_gate_limit`` for the bf16 tensor-core outputs; K4 at 8
-channels is bit-equal to its twin. This file imports no JAX, so its card
-tests run where JAX is not installed.
+256; float32 16, 32, 64, 128, 256), and past 256 the wide kernels take any
+multiple of 64. A launch at another head dim pads q, k, v and do with zero
+columns to the next width the kernels take, keeps the scale of the true
+head dim and cuts the outputs back. On the CPU the padding is held against
+the plain twins at the true head dim (float32, within 1e-6: zero columns
+add exact zeros, but the sums may be blocked differently), and the
+head-dim table and its raise past ``kernels.MAX_HEAD_DIM`` are checked. On
+the card (``-m cuda``) every instantiation past 16 (32, 128, 256), the wide
+kernels at 320, 512, 576 and 1024, and the padded head dims 80, 96, 160,
+192 and 300 are held against the twins run in float32 on the same values:
+atol = rtol = 1e-4 for float32 outputs, ``kernels.flash_gate_limit`` for
+the bf16 tensor-core outputs; K4 at 8 channels is bit-equal to its twin.
+This file imports no JAX, so its card tests run where JAX is not
+installed.
 """
 
 import math
@@ -60,22 +62,28 @@ def _operands(seed, case, d):
 
 def test_head_dim_table():
     """Each instantiated head dim launches as itself, 256 among them; any
-    other up to 256 as the next one (192 at 256); past 256 raises naming
-    256."""
+    other up to 256 as the next one (192 at 256); past 256 at the next
+    multiple of 64 (257 and 300 at 320, 576 as itself, 1000 at 1024), up to
+    the grid's limit of 65,535 slices of 128 columns, past which it raises
+    naming that limit."""
     for dtype, widths in kernels.HEAD_DIMS.items():
-        assert 256 in widths and kernels.MAX_HEAD_DIM == 256
+        assert 256 in widths and kernels.WIDE_STEP == 64
         for width in widths:
             assert kernels.launch_head_dim(width, dtype) == width
         assert kernels.launch_head_dim(192, dtype) == 256
         assert kernels.launch_head_dim(129, dtype) == 256
+        for d, width in ((257, 320), (300, 320), (320, 320), (512, 512),
+                         (576, 576), (1000, 1024), (1024, 1024)):
+            assert kernels.launch_head_dim(d, dtype) == width
+        assert kernels.MAX_HEAD_DIM == 65535 * 128
+        assert (kernels.launch_head_dim(kernels.MAX_HEAD_DIM, dtype)
+                == kernels.MAX_HEAD_DIM)
+        with pytest.raises(ValueError, match='grid limit of 65535'):
+            kernels.launch_head_dim(kernels.MAX_HEAD_DIM + 1, dtype)
     assert kernels.launch_head_dim(80, torch.bfloat16) == 128
     assert kernels.launch_head_dim(48, torch.float32) == 64
     assert kernels.launch_head_dim(8, torch.bfloat16) == 32
     assert kernels.launch_head_dim(8, torch.float32) == 16
-    for dtype in kernels.HEAD_DIMS:
-        for d in (257, 320):
-            with pytest.raises(ValueError, match='at most 256'):
-                kernels.launch_head_dim(d, dtype)
 
 
 def test_pad_and_unpad_shapes():
@@ -88,7 +96,7 @@ def test_pad_and_unpad_shapes():
     assert torch.equal(u, x) and u.is_contiguous()
 
 
-PADDED = [48, 80, 96, 160, 192, 224]
+PADDED = [48, 80, 96, 160, 192, 224, 300]
 
 
 @pytest.mark.parametrize('d', PADDED)
@@ -126,6 +134,38 @@ def test_padded_backward_equals_twin_at_true_head_dim(case, d):
         assert not got[..., d:].any(), name
         torch.testing.assert_close(kernels.unpad(d, got)[0], want,
                                    msg=name, **PAD_TOL)
+
+
+@pytest.mark.parametrize('case', SMALL_CASES, ids=[c[0] for c in SMALL_CASES])
+def test_padded_wide_head_dim_is_bit_exact(case):
+    """D 600, launched at 640: with q, k, v and do multiples of 1/4 in [-2,
+    2], every sum over the head dim is exact in float32 (its partial sums
+    are multiples of 1/16 below 2^14), so the 40 zero columns change no
+    bit: o, lse, dq, dk and dv of the padded twins, cut back, equal the
+    twins at the true head dim, and the padded columns are zeros. (On
+    normal operands the two sums over 600 and 640 columns are blocked
+    differently and differ by float32 rounding, about 3e-6.)"""
+    d = 600
+    width = kernels.launch_head_dim(d, torch.bfloat16)
+    assert width == 640
+    q, k, v, do, kw = _operands(d, case, d)
+    q, k, v, do = (torch.round(x * 4).clamp(-8, 8) / 4 for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    o_ref, lse_ref = kernels.flash_fwd_plain(q, k, v, **kw)
+    delta = (do * o_ref).sum(-1)
+    ref = (o_ref, kernels.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta,
+                                             **kw),
+           *kernels.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, delta, **kw))
+    padded = kernels.pad_heads(width, q, k, v, do)
+    o, lse = kernels.flash_fwd_plain(*padded[:3], scale=scale, **kw)
+    assert torch.equal(lse, lse_ref)
+    got = (o, kernels.flash_bwd_dq_plain(*padded, lse, delta, scale=scale,
+                                         **kw),
+           *kernels.flash_bwd_dkdv_plain(*padded, lse, delta, scale=scale,
+                                         **kw))
+    for name, g, want in zip(('o', 'dq', 'dk', 'dv'), got, ref):
+        assert not g[..., d:].any(), name
+        assert torch.equal(kernels.unpad(d, g)[0], want), name
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +225,17 @@ def _card_case(case, d, dtype, seed):
                                      (32, 'float32'), (128, 'float32'),
                                      (80, 'bfloat16'), (96, 'float32'),
                                      (256, 'bfloat16'), (256, 'float32'),
-                                     (192, 'bfloat16'), (160, 'float32')])
+                                     (192, 'bfloat16'), (160, 'float32'),
+                                     (320, 'bfloat16'), (320, 'float32'),
+                                     (512, 'bfloat16'), (512, 'float32'),
+                                     (576, 'bfloat16'), (576, 'float32'),
+                                     (1024, 'bfloat16'), (1024, 'float32'),
+                                     (300, 'bfloat16')])
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
 def test_cuda_head_dims_match_plain_twins(case, d, dtype):
-    """Each new instantiation (and a padded head dim) of K1-K3 against the
-    twins in every edge case (run on a GPU host)."""
+    """Each instantiation past 16 and the wide kernels at 320, 512, 576 and
+    1024 (and a padded head dim) of K1-K3 against the twins in every edge
+    case (run on a GPU host)."""
     _needs_card()
     beyond = _card_case(case, d, getattr(torch, dtype), seed=d)
     assert not any(beyond.values()), beyond
@@ -198,20 +244,36 @@ def test_cuda_head_dims_match_plain_twins(case, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
 def test_cuda_head_dim_past_128_raises(dtype):
-    """A CUDA launch past the widest instantiation, at head dim 320, raises
-    naming 256, and launches none of K1-K3 (run on a GPU host). (The name
-    is from when 128 was the widest.)"""
+    """A CUDA launch past 256, at head dim 320, launches each of K1-K3 once
+    (the wide kernels); past ``kernels.MAX_HEAD_DIM`` a launch raises naming
+    the grid's limit and launches nothing (run on a GPU host). (The name is
+    from when 128 was the widest and 320 raised.)"""
     _needs_card()
-    x = torch.zeros(2, 64, 320, device='cuda', dtype=getattr(torch, dtype))
+    dt = getattr(torch, dtype)
+    x = torch.zeros(2, 64, 320, device='cuda', dtype=dt)
     lse = torch.zeros(2, 64, device='cuda')
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match='at most 256'):
-        kernels.flash_fwd(x, x, x, n_heads=2, n_kv_heads=2)
-    with pytest.raises(ValueError, match='at most 256'):
-        kernels.flash_bwd_dq(x, x, x, x, lse, lse, n_heads=2, n_kv_heads=2)
-    with pytest.raises(ValueError, match='at most 256'):
-        kernels.flash_bwd_dkdv(x, x, x, x, lse, lse, n_heads=2,
-                               n_kv_heads=2)
+    o, _ = kernels.flash_fwd(x, x, x, n_heads=2, n_kv_heads=2)
+    dq = kernels.flash_bwd_dq(x, x, x, x, lse, lse, n_heads=2, n_kv_heads=2)
+    dk, dv = kernels.flash_bwd_dkdv(x, x, x, x, lse, lse, n_heads=2,
+                                    n_kv_heads=2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {'flash_fwd': 1, 'flash_bwd_dq': 1,
+                                'flash_bwd_dkdv': 1, 'normalize': 0}
+    assert o.shape == dq.shape == dk.shape == dv.shape == x.shape
+    assert not (o.any() or dq.any() or dk.any() or dv.any())
+    wide = torch.zeros(1, 1, kernels.MAX_HEAD_DIM + 64, device='cuda',
+                       dtype=dt)
+    lse1 = torch.zeros(1, 1, device='cuda')
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match='grid limit of 65535'):
+        kernels.flash_fwd(wide, wide, wide, n_heads=1, n_kv_heads=1)
+    with pytest.raises(ValueError, match='grid limit of 65535'):
+        kernels.flash_bwd_dq(wide, wide, wide, wide, lse1, lse1, n_heads=1,
+                             n_kv_heads=1)
+    with pytest.raises(ValueError, match='grid limit of 65535'):
+        kernels.flash_bwd_dkdv(wide, wide, wide, wide, lse1, lse1, n_heads=1,
+                               n_kv_heads=1)
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -290,3 +352,47 @@ def test_phase_29_northstar_lm_rehearses_on_the_cpu(tmp_path):
         assert not any(launches.values())
     assert math.isfinite(losses['flash'])
     assert abs(losses['flash'] - losses['blockwise']) < 1e-2
+
+
+def test_phase_31_rehearses_on_the_cpu():
+    """``chip_smoke.py``'s phase 31 at small widths on the CPU: (b)'s
+    absorbed-MLA operands (v's rope columns zero, q scaled by sqrt(D /
+    192)) through the public ``flash_attention`` forward and backward,
+    held against the twins under ``flash_gate_limit`` with no kernel
+    launched; (c)'s model is the flagship with one 512-wide head, launched
+    at 512; (d)'s bounds at the MLA shape (128 q heads over one kv head,
+    2,098,176 live pairs a head) are the operations' 4, 6 and 8 D FLOP a
+    pair over the bf16 peak, with K3's float32 partials written per q
+    head."""
+    import chip_smoke
+    from petastorm_tpu_torch.models import transformer_lm as tlm
+    gen = torch.Generator().manual_seed(0)
+    shape = (1, 8, 64, 320)
+    q, k, v, do = chip_smoke.mla_operands(torch, gen, 'cpu', shape)
+    assert q.shape == (1, 8, 64, 320) and k.shape == v.shape == (1, 1, 64,
+                                                                   320)
+    assert not v[..., 320 - chip_smoke.MLA_ROPE:].any()
+    assert v[..., :320 - chip_smoke.MLA_ROPE].any()
+    errs, launches, peak, _ = chip_smoke.mla_case(
+        torch, kernels, torch.Generator().manual_seed(1), 'cpu', shape)
+    assert not any(launches.values()) and peak == 0
+    assert set(errs) == {'o', 'dq', 'dk', 'dv'}
+    assert all(math.isfinite(e) for e in errs.values())
+    cfg = chip_smoke.wider_lm_config(tlm)
+    assert (cfg.head_dim, cfg.n_heads, cfg.kv_heads, cfg.d_model,
+            cfg.n_layers, cfg.max_seq_len) == (512, 1, 1, 512, 4, 2048)
+    assert kernels.launch_head_dim(cfg.head_dim, cfg.dtype) == 512
+    assert chip_smoke.MLA_SHAPE == (1, 128, 2048, 576)
+    bound = chip_smoke.bounds(chip_smoke.MLA_SHAPE, chip_smoke.MLA_HKV)
+    pairs = 128 * 2_098_176
+    for name, flop in (('flash_fwd', 4), ('flash_bwd_dq', 6),
+                       ('flash_bwd_dkdv', 8)):
+        ms, by, flops = bound[name]
+        assert flops == flop * 576 * pairs and by == 'operations'
+        assert ms == pytest.approx(flops / chip_smoke.PEAK_BF16_FLOPS * 1e3)
+    assert bound['flash_fwd'][0] == pytest.approx(0.6257, abs=1e-4)
+    # H x D = 512 at (8, 1, 2048, 512): the bounds of the other rows
+    wide = chip_smoke.bounds(chip_smoke.WIDER_PATHS[512])
+    path = chip_smoke.bounds(chip_smoke.PATH_SHAPE)
+    for name in wide:
+        assert wide[name] == path[name]

@@ -131,14 +131,16 @@ HEAD_DIM_CONFIGS = {
     'head_dim_128': (dict(n_heads=2), 128),
     'head_dim_32': (dict(n_heads=8), 32),
     'head_dim_256_mqa': (dict(d_model=512, n_heads=2, n_kv_heads=1), 256),
+    'head_dim_512': (dict(d_model=512, n_heads=1), 512),
+    'head_dim_576_mqa': (dict(d_model=1152, n_heads=2, n_kv_heads=1), 576),
 }
 
 
 @pytest.mark.parametrize('name', sorted(HEAD_DIM_CONFIGS))
 def test_head_dims_match_pallas_interpret(name, monkeypatch):
-    """Logits, loss and every leaf's gradient at head dims 128, 32 and 256
-    (one kv head), the JAX LM's flash attention run on its Pallas kernels
-    (interpret mode)."""
+    """Logits, loss and every leaf's gradient at head dims 128, 32, 256 (one
+    kv head), 512 (one head) and 576 (one kv head), the JAX LM's flash
+    attention run on its Pallas kernels (interpret mode)."""
     monkeypatch.setattr(jtlm, 'flash_attention', functools.partial(
         jtlm.flash_attention, backend='interpret', block_q=32, block_k=32))
     widths, head_dim = HEAD_DIM_CONFIGS[name]
