@@ -7,8 +7,10 @@ printing one line or a few:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the four CUDA kernels from ``csrc/``, one ``nvcc`` call a
    source, all started together, then one link (bf16 K1, K2, K3 on
-   Hopper's tensor cores at head dims 32, 64, 128 and 256, and their wide
-   kernels at any multiple of 64 past 256: ``flash_fwd_sm90.cu``,
+   Hopper's tensor cores at head dims 32, 64, 128 and 256, K2 and K3 at 32
+   on kernels of their own whose two consumer warpgroups take turns at the
+   tensor cores, and the wide kernels at any multiple of 64 past 256:
+   ``flash_fwd_sm90.cu``,
    ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``; float32 K1-K3 on the
    FP32 cores at 16, 32, 64, 128 and 256, and wide past 256:
    ``flash_fwd.cu``, ``flash_bwd.cu``; K4 ``normalize.cu``);
@@ -534,8 +536,8 @@ printing one line or a few:
    dims 32 and 128, bf16 and float32, against their float32 twins over
    phase 3's edge shapes, and in bf16 at the causal path shapes
    (8, 16, 2048, 32) and (8, 4, 2048, 128) (H x D = 512, the flagship's
-   d_model), under phase 3's gates; (b) the padded head dims 80 and 96,
-   bf16 and float32, through the wrappers against the twins at the true
+   d_model), under phase 3's gates; (b) the padded head dims 24, 80 and
+   96, bf16 and float32, through the wrappers against the twins at the true
    head dim, each kernel launched; (c) the flagship LM with 128-wide heads
    (``TransformerConfig(attention='flash', n_heads=4)``): ``reference_check``
    at that config, then phase 5's main path (NGram ``make_reader`` ->
@@ -595,6 +597,20 @@ printing one line or a few:
    2,098,176 live pairs; K3 writes float32 partials per q head), each
    beside SDPA (the backend it picks, named; ``enable_gqa`` at the MLA
    shape) and that backend's backward through autograd.
+32. grid-limit line (after phase 31; ``grid_limit_line``). A grid holds at
+   most 65,535 blocks along y; past that the C launchers run several
+   launches with absolute block indices. (a) K1-K3 at batch x heads 65,536
+   (65,536 x 1 head, and 8,192 x 8 q heads over 2 kv heads, the launches'
+   boundary at flat row 65,535 inside a kv group), L 64, D 64, bf16 and
+   float32, against the twins over the whole output under phase 3's gates;
+   (b) in bf16 at one sequence past 65,535 row tiles, causal with a window
+   of 128: L 8,388,736 at D 64 (65,537 tiles of 128 q rows for K1 and K2,
+   of 128 kv rows for K3) and L 4,194,368 at D 256 (65,537 tiles of 64 kv
+   rows for K3's split kernel), the last 256 rows of o, lse, dq, dk and dv
+   against the twins run on the last 512 rows (rows past the first 256 of
+   them see the same keys in both), each kernel launched once; (c) K2 and
+   K3 at the D 32 path shape (8, 16, 2048, 32) launched twice on the same
+   inputs: bit-equal outputs.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -8757,7 +8773,7 @@ EDGE_CASES = [('ragged L=300', dict(b=2, h=2, hkv=2, lq=300, lk=300)),
 # the causal bf16 path shape at each new head dim: H x D = 512, the
 # flagship's d_model, so each kernel's bound is the same at every head dim
 HEAD_DIM_PATHS = {32: (8, 16, 2048, 32), 128: (8, 4, 2048, 128)}
-PADDED_HEAD_DIMS = (80, 96)       # launched at 128 with zero columns
+PADDED_HEAD_DIMS = (24, 80, 96)   # launched at 32, 128 with zero columns
 WIDE_HEADS = 4                    # (c): d_model 512 over 4 heads: D = 128
 # (d): JAX's north-star bench widths (petastorm_tpu/benchmark/
 # northstar.py:372-373): d_model 256 over 8 heads, head dim 32
@@ -9212,6 +9228,117 @@ def wider_head_line(torch, np, tlm, kernels, args, gen, errs):
     return {'mla': mla_launches, 512: launches}, steady * 1e3
 
 
+# ---------------------------------------------------------------------------
+# phase 32: past the grid's 65,535 blocks along y; D 32 determinism
+# ---------------------------------------------------------------------------
+
+# (a): batch x heads 65,536 (B, H, Hkv, L, D)
+GRID_ROWS_CASES = [('BH 65,536', dict(b=65536, h=1, hkv=1, lq=64, lk=64,
+                                      d=64)),
+                   ('BH 65,536 GQA 8->2', dict(b=8192, h=8, hkv=2, lq=64,
+                                               lk=64, d=64))]
+# (b): one sequence past 65,535 row tiles (L, D), causal, window GRID_WINDOW
+GRID_LONG_CASES = [('L 8,388,736 D 64', dict(l=65537 * 128, d=64)),
+                   ('Lk 4,194,368 D 256', dict(l=65537 * 64, d=256))]
+GRID_WINDOW = 128
+GRID_TAIL = 256                   # rows held against the twins at the end
+
+
+def tail_case(torch, kernels, label, gen, *, l, d, window=GRID_WINDOW,
+              tail=GRID_TAIL):
+    """(b): K1-K3 in bf16 over one causal sequence of ``l`` rows with a
+    window, the last ``tail`` rows against the twins in float32 on the last
+    ``tail + 2 window`` rows of the same q, k, v and do. A row from ``window
+    - 1`` into that slice on sees the same keys as in the whole sequence, so
+    its o and lse match; the backward passes get the kernel's lse and a
+    delta from its o, with the last ``tail`` rows replaced by the twins'
+    (the rows dq there and dk, dv there read). Returns {output: max abs
+    err}, each under phase 3's gates, and checks one launch a kernel."""
+    def rnd():
+        return torch.randn(1, l, d, generator=gen,
+                           device=gen.device).to(torch.bfloat16)
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    kw = dict(n_heads=1, n_kv_heads=1, causal=True, window=window)
+    kernels.reset_launch_counts()
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    m = tail + 2 * window
+    tq, tk, tv, tdo = (x[:, -m:].float() for x in (q, k, v, do))
+    o_ref, lse_ref = kernels.flash_fwd_plain(tq, tk, tv, **kw)
+    delta_ref = (tdo * o_ref).sum(-1)
+    lse_in = lse.clone()
+    lse_in[:, -tail:] = lse_ref[:, -tail:]
+    delta_in = torch.cat([(do[:, :-tail].float() * o[:, :-tail].float())
+                          .sum(-1), delta_ref[:, -tail:]], 1)
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse_in, delta_in, **kw)
+    dk, dv = kernels.flash_bwd_dkdv(q, k, v, do, lse_in, delta_in, **kw)
+    launched = dict(kernels.LAUNCHES)
+    cuda = q.is_cuda
+    check(all(launched[n] == int(cuda) for n in FLASH),
+          '%s: launches %r' % (label, launched))
+    dq_ref = kernels.flash_bwd_dq_plain(tq, tk, tv, tdo, lse_ref, delta_ref,
+                                        **kw)
+    dk_ref, dv_ref = kernels.flash_bwd_dkdv_plain(tq, tk, tv, tdo, lse_ref,
+                                                  delta_ref, **kw)
+    bound = kernels.flash_rounding_bounds(tq, tk, tv, tdo, lse_ref,
+                                          delta_ref, **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    errs = {'lse': _max_err(torch, lse[:, -tail:], lse_ref[:, -tail:],
+                            label + ' lse')}
+    for name, got, ref in (('o', o, o_ref), ('dq', dq, dq_ref),
+                           ('dk', dk, dk_ref), ('dv', dv, dv_ref)):
+        errs[name] = _max_err(torch, got[:, -tail:], ref[:, -tail:],
+                              '%s %s' % (label, name), kernels,
+                              bound[name][:, -tail:])
+    return errs
+
+
+def determinism_case(torch, kernels, gen, shape):
+    """(c): K2 and K3 launched twice on the same bf16 inputs at ``shape``
+    (causal); returns whether dq, dk and dv came out bit-equal."""
+    b, h, l, d = shape
+    q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=h, causal=True)
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *kernels.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    return {name: bool(torch.equal(a, b)) for name, a, b in
+            zip(('dq', 'dk', 'dv'), *runs)}
+
+
+def grid_limit_line(torch, kernels, gen):
+    """Phase 32."""
+    torch.cuda.empty_cache()       # (b) takes some 25 GB of its own
+    phase = time.perf_counter()
+    for dtype, tag in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+        for label, case in GRID_ROWS_CASES:
+            kernels.reset_launch_counts()
+            compare_case(torch, kernels, '%s %s' % (label, tag), gen,
+                         dtype=dtype, **case)
+            check(all(kernels.LAUNCHES[n] == 1 for n in FLASH),
+                  '%s %s: launches %r' % (label, tag, kernels.LAUNCHES))
+    log('phase 32 (a) %s batch x heads 65,536, bf16 and float32: %.1f s'
+        % (CARD, time.perf_counter() - phase))
+    for label, case in GRID_LONG_CASES:
+        phase = time.perf_counter()
+        errs = tail_case(torch, kernels, label, gen, **case)
+        torch.cuda.empty_cache()
+        log('phase 32 (b) %s %s bf16 causal window %d: last %d rows against '
+            'the twins, max abs err %s; %.1f s'
+            % (CARD, label, GRID_WINDOW, GRID_TAIL,
+               ' '.join('%s %.3g' % kv for kv in errs.items()),
+               time.perf_counter() - phase))
+    phase = time.perf_counter()
+    same = determinism_case(torch, kernels, gen, HEAD_DIM_PATHS[32])
+    check(all(same.values()), 'D=32: two launches differ: %r' % same)
+    log('phase 32 (c) %s K2, K3 at %s launched twice: bit-equal %s; %.1f s'
+        % (CARD, HEAD_DIM_PATHS[32], json.dumps(same),
+           time.perf_counter() - phase))
+
+
 def ptxas_instances(log_text):
     """{kernel name: [{dtype, head_dim, out, registers, spill_stores,
     spill_loads}, ...]} of every flash instantiation (and K4's) in nvcc's
@@ -9219,7 +9346,8 @@ def ptxas_instances(log_text):
     import re
     instance = re.compile(
         r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_split_kernel|'
-        r'dkdv_sm90_kernel|fwd_kernel|dq_kernel|dkdv_kernel|'
+        r'dkdv_sm90_kernel|dq_sm90_d32_kernel|dkdv_sm90_d32_kernel|'
+        r'fwd_kernel|dq_kernel|dkdv_kernel|'
         r'normalize_kernel|fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
         r'dkdv_wide_sm90_kernel|fwd_wide_kernel|dq_wide_kernel|'
         r'dkdv_wide_kernel)(?:I(.*?)EEv|E)')
@@ -9236,7 +9364,7 @@ def ptxas_instances(log_text):
         kind, args = m.group(1), m.group(2) or ''
         dims = re.findall(r'Li(\d+)', args)
         sm90 = 'sm90' in kind
-        head_dim = ('past 256' if '_wide_' in kind
+        head_dim = ('past 256' if '_wide_' in kind else 32 if '_d32_' in kind
                     else int(dims[0]) if dims else None)
         entry = {'dtype': 'bfloat16' if sm90 else 'float32',
                  'head_dim': head_dim,
@@ -9523,6 +9651,10 @@ def main(argv=None):
     head_launches.update(wider)
     log('phase head dims past 256 line %s %.1f s (D=512 LM step %.2f ms)'
         % (CARD, time.perf_counter() - phase, head_steps[512]))
+    phase = time.perf_counter()
+    grid_limit_line(torch, kernels, gen)
+    torch.cuda.empty_cache()
+    log('phase grid-limit line %s %.1f s' % (CARD, time.perf_counter() - phase))
 
     times = timings(torch, kernels, gen, REPS)
     # (label, head dim, shape, kv heads) of each timed row past D = 64

@@ -20,6 +20,16 @@ warpgroup handing its registers to the two consumer warpgroups, 232 a
 thread) against a 288-thread block at the 168 registers its launch bound
 allows, where ptxas spills. ``k3_d64_realloc`` gives head dim 64 the
 384-thread block too, where the sources' 288 threads spill 16 bytes.
+Variants of K2 and K3 at head dim 32: ``d32_lockstep`` drops the two
+consumer warpgroups' turns at the tensor cores (both issue at once);
+``d32_exp2f`` puts exp2f's full-range 2^x back in place of ex2.approx;
+``diag_d32_no_softmax`` and ``diag_d32_no_scores`` leave out the
+elementwise work (p = s) or the score products, to see what each costs
+(their outputs are wrong: timed, never checked). ``parent_*`` variants
+edit the checkout given with ``--parent`` instead: the parent commit's
+head dim 32 kernels (the Tile<32> instantiations these replaced) on two
+blocks an SM, with ex2.approx, with 4 stages, without the exponential.
+Every build prints ptxas's performance warnings (a serialized wgmma).
 
 First every build's ``ptxas`` registers and spills of the bf16 kernels;
 with ``--sass``, each other build's machine code (``cuobjdump -sass``)
@@ -39,6 +49,7 @@ give it with ``--rounds 0`` (machine code only). The last line is one JSON
 object of every timing. Needs a CUDA device and ``nvcc``.
 """
 import argparse
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -59,7 +70,79 @@ VARIANTS = {
     'k3_d64_realloc': [
         ('flash_bwd_sm90.cu', 'static constexpr bool kRealloc = D == 128;',
          'static constexpr bool kRealloc = D >= 64;')],
+    # the head dim 32 kernels without their ping-pong: both warpgroups issue
+    # their products at once, as the other head dims' kernels do
+    'd32_lockstep': [
+        (name, old, '') for name in ('flash_bwd_sm90.cu',
+                                     'flash_bwd_dq_sm90.cu')
+        for old in ('    turn_wait(wg);\n',
+                    '  if (wg == 1) turn_pass(wg);\n',
+                    '    if (kScores || wg == 0) turn_pass(wg);   // as many '
+                    'passes as waits\n')],
+    # diagnostics of the head dim 32 kernels: the exponentials and the
+    # elementwise work left out (p = s), or the score products
+    'diag_d32_no_softmax': [
+        ('flash_bwd_sm90.cu', 'const float p = ex2(sc[r] * scale2 - st[c]);',
+         'const float p = sc[r];'),
+        ('flash_bwd_sm90.cu', 'sc[r] = ex2(sc[r] * scale2 - st[c]);', ''),
+        ('flash_bwd_sm90.cu',
+         'dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;',
+         'dp[r] += sc[r];'),
+        ('flash_bwd_dq_sm90.cu',
+         'const float p = ex2(sc[r] * scale2 - lse2[h]);',
+         'const float p = sc[r];'),
+        ('flash_bwd_dq_sm90.cu',
+         'dp[r] = (live ? p : 0.f) * (dp[r] - dlt[h]) * scale;',
+         'dp[r] += live ? p : 0.f;'),
+        ('flash_bwd_dq_sm90.cu',
+         'dp[r] = ex2(sc[r] * scale2 - lse2[h]) * (dp[r] - dlt[h]) * scale;',
+         'dp[r] += sc[r];')],
+    'diag_d32_no_scores': [
+        (name, '      wgmma_ss_tile<D>(%s, base + C::kOff%s, %s, 64 * wg,\n'
+         % (acc, op, rows), '      if constexpr (false) wgmma_ss_tile<D>'
+         '(%s, base + C::kOff%s, %s, 64 * wg,\n' % (acc, op, rows))
+        for name, rows, ops in (
+            ('flash_bwd_sm90.cu', 'kRowsK', (('sc', 'K'), ('dp', 'V'))),
+            ('flash_bwd_dq_sm90.cu', 'kRowsQ', (('sc', 'Q'), ('dp', 'DO'))))
+        for acc, op in ops],
+    # ... and with exp2f's full-range 2^x in place of ex2.approx
+    'd32_exp2f': [
+        (name, '= ex2(', '= exp2f(')
+        for name in ('flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')],
 }
+# Variants of the parent's head dim 32 kernels (the Tile<32> instantiations
+# of dq_sm90_kernel and dkdv_sm90_kernel that this PR's commit replaced),
+# built from the checkout given with --parent.
+PARENT_VARIANTS = {
+    # two blocks an SM (ptxas then caps a thread at 96 registers and spills)
+    'parent_d32_two_blocks': [
+        ('flash_bwd_sm90.cu', '__launch_bounds__(Bwd<D>::kThreads, 1)',
+         '__launch_bounds__(Bwd<D>::kThreads, D == 32 ? 2 : 1)'),
+        ('flash_bwd_dq_sm90.cu', '__launch_bounds__(Dq<D>::kThreads, 1)',
+         '__launch_bounds__(Dq<D>::kThreads, D == 32 ? 2 : 1)')],
+    'parent_d32_ex2_approx': [
+        ('sm90.cuh', 'constexpr float kLog2e = 1.4426950408889634f;',
+         'constexpr float kLog2e = 1.4426950408889634f;\n'
+         '__device__ __forceinline__ float ex2f(float x) {\n'
+         '  float y;\n'
+         '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
+         '  return y;\n}'),
+        ('flash_bwd_sm90.cu', 'exp2f(', 'ex2f('),
+        ('flash_bwd_dq_sm90.cu', 'exp2f(', 'ex2f(')],
+    'parent_k3_4_stages': [
+        ('flash_bwd_sm90.cu', 'constexpr int kStages = 2;',
+         'constexpr int kStages = 4;')],
+    'parent_diag_no_exp': [
+        ('flash_bwd_sm90.cu', 'exp2f(', '('),
+        ('flash_bwd_dq_sm90.cu', 'exp2f(', '(')],
+}
+PARENT_VARIANTS['parent_d32_two_blocks_ex2'] = (
+    PARENT_VARIANTS['parent_d32_two_blocks']
+    + PARENT_VARIANTS['parent_d32_ex2_approx'])
+#: Variants whose outputs are knowingly wrong (a step of the work left
+#: out, to see what it costs): timed, never held against the twins.
+DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax',
+              'diag_d32_no_scores'}
 
 
 def build_variant(kernels, csrc_from, edits, tmpdir):
@@ -137,7 +220,7 @@ def main(argv=None):
     parser.add_argument('--head-dim', type=int, default=128,
                         choices=(32, 64, 128, 256, 512, 576))
     parser.add_argument('--variants', nargs='*', default=list(VARIANTS),
-                        choices=list(VARIANTS))
+                        choices=list(VARIANTS) + list(PARENT_VARIANTS))
     parser.add_argument('--checkouts', nargs='*', default=[],
                         help='checkouts whose kernels are built and timed, '
                              'each named by its directory')
@@ -176,24 +259,36 @@ def main(argv=None):
     hkv = chip_smoke.MLA_HKV if shape == chip_smoke.MLA_SHAPE else shape[1]
     libs = {'sources': (kernels.build(), kernels.BUILD_INFO['log'],
                         kernels.BUILD_INFO['path'])}
-    builds = [(name, str(kernels._CSRC), VARIANTS[name])
+    if set(args.variants) & set(PARENT_VARIANTS) and not args.parent:
+        parser.error('variants of the parent need --parent')
+    parent_csrc = os.path.join(args.parent or '', 'petastorm_tpu_torch',
+                               'csrc')
+    builds = [(name, parent_csrc, PARENT_VARIANTS[name])
+              if name in PARENT_VARIANTS else
+              (name, str(kernels._CSRC), VARIANTS[name])
               for name in args.variants]
     checkouts = args.checkouts + ([args.parent] if args.parent else [])
     builds += [(os.path.basename(os.path.normpath(path)),
                 os.path.join(path, 'petastorm_tpu_torch', 'csrc'), [])
                for path in checkouts]
-    tmpdirs = []
+    tmpdirs = [tempfile.mkdtemp(prefix='chip_tile_probe_') for _ in builds]
     try:
-        for name, csrc, edits in builds:
-            tmpdirs.append(tempfile.mkdtemp(prefix='chip_tile_probe_'))
-            start = time.perf_counter()
-            libs[name] = build_variant(kernels, csrc, edits, tmpdirs[-1])
-            print('%s built in %.1f s' % (name, time.perf_counter() - start),
-                  flush=True)
+        start = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(builds) or 1) as pool:
+            built = pool.map(lambda b, tmp: build_variant(kernels, b[1], b[2],
+                                                          tmp),
+                             builds, tmpdirs)
+            for (name, _, _), lib in zip(builds, built):
+                libs[name] = lib
+        print('%d builds in %.1f s (nvcc, all at once)'
+              % (len(builds), time.perf_counter() - start), flush=True)
         for name, (_, report, _) in libs.items():
             for line in chip_smoke.ptxas_summary(report):
                 if 'sm90' in line:
                     print('ptxas %s %s' % (name, line), flush=True)
+            for line in report.splitlines():
+                if 'Performance' in line or 'serialized' in line:
+                    print('ptxas %s %s' % (name, line.strip()), flush=True)
         if args.sass:
             compare_sass(kernels, libs)
         gen = torch.Generator(device='cuda').manual_seed(0)
@@ -203,7 +298,7 @@ def main(argv=None):
             order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
             for name in order:
                 kernels._lib = libs[name][0]
-                if rnd == 0:
+                if rnd == 0 and name not in DIAGNOSTIC:
                     for label, edge in chip_smoke.EDGE_CASES:
                         chip_smoke.compare_case(
                             torch, kernels, '%s D=%d %s' % (name, d, label),

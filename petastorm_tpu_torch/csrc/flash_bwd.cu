@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ lse_g,
               const float* __restrict__ delta_g, const int* __restrict__ segq,
               const int* __restrict__ segk, T* __restrict__ dq, int H, int Hkv,
-              int Lq, int Lk, int causal, int window, float scale) {
+              int Lq, int Lk, int causal, int window, float scale, int bh0) {
   constexpr int SD = D + 1, SP = kB + 1, NJ = D / 16, kS = kB / 16;
   extern __shared__ float smem[];
   float* sQ = smem;                  // kB x SD
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDS = sV + kB * SD;         // kB x SP
 
   const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = bh0 + (int)blockIdx.y;
   const int kvh = kv_row(bh, H, Hkv);
   const int q0 = qb * kB;
   const Lane ln = lane_layout();
@@ -214,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ delta_g,
                 const int* __restrict__ segq, const int* __restrict__ segk,
                 TO* __restrict__ dk, TO* __restrict__ dv, int H, int Hkv,
-                int Lq, int Lk, int causal, int window, float scale) {
+                int Lq, int Lk, int causal, int window, float scale, int bh0) {
   constexpr int SD = D + 1, SP = kB + 1, NJ = D / 16, kS = kB / 16;
   extern __shared__ float smem[];
   float* sK = smem;                  // kB x SD
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDS = sP + kB * SP;         // kB x SP
 
   const int kb = blockIdx.x;
-  const int bh = blockIdx.y;         // q-head row; writes its own partial
+  const int bh = bh0 + (int)blockIdx.y;  // q-head row: its own partial
   const int kvh = kv_row(bh, H, Hkv);
   const int k0 = kb * kB;
   const Lane ln = lane_layout();
@@ -368,7 +368,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ delta_g,
                    const int* __restrict__ segq, const int* __restrict__ segk,
                    T* __restrict__ dq, int H, int Hkv, int Lq, int Lk, int D,
-                   int causal, int window, float scale) {
+                   int causal, int window, float scale, int bh0) {
   constexpr int kB = kBlockQ, kC = kWideChunk, SC = kC + 1, SP = kB + 1;
   constexpr int kW = kWideFwdCols, NJ = kW / 16, kS = kB / 16;
   extern __shared__ float smem[];
@@ -380,7 +380,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sKs = sDS + kB * SP;        // kB x kW: the slice of k
 
   const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = bh0 + (int)blockIdx.y;
   const int col0 = kW * blockIdx.z;
   const int kvh = kv_row(bh, H, Hkv);
   const int q0 = qb * kB;
@@ -487,7 +487,7 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ segq,
                      const int* __restrict__ segk, TO* __restrict__ dk,
                      TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
-                     int D, int causal, int window, float scale) {
+                     int D, int causal, int window, float scale, int bh0) {
   constexpr int kB = kBlockQ, kC = kWideChunk, SC = kC + 1, SP = kB + 1;
   constexpr int kW = kWideKvCols, NJ = kW / 16, kS = kB / 16;
   extern __shared__ float smem[];
@@ -501,7 +501,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDOs = sQs + kB * kW;
 
   const int kb = blockIdx.x;
-  const int bh = blockIdx.y;         // q-head row; writes its own partial
+  const int bh = bh0 + (int)blockIdx.y;  // q-head row: its own partial
   const int col0 = kW * blockIdx.z;
   const int kvh = kv_row(bh, H, Hkv);
   const int k0 = kb * kB;
@@ -627,11 +627,13 @@ int launch_dq_wide(const void* q, const void* k, const void* v,
       dq_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kB - 1) / kB, BH, (D + kWideFwdCols - 1) / kWideFwdCols);
-  dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
-      segk, (T*)dq, H, Hkv, Lq, Lk, D, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lq + kB - 1) / kB, nbh, (D + kWideFwdCols - 1) / kWideFwdCols);
+    dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+        segk, (T*)dq, H, Hkv, Lq, Lk, D, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T, typename TO>
@@ -649,11 +651,13 @@ int launch_dkdv_wide(const void* q, const void* k, const void* v,
       dkdv_wide_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lk + kB - 1) / kB, BH, (D + kWideKvCols - 1) / kWideKvCols);
-  dkdv_wide_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
-      segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, D, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lk + kB - 1) / kB, nbh, (D + kWideKvCols - 1) / kWideKvCols);
+    dkdv_wide_kernel<T, TO><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+        segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, D, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T, int D>
@@ -668,11 +672,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       dq_kernel<T, D, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kB - 1) / kB, BH);
-  dq_kernel<T, D, kB><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
-      segk, (T*)dq, H, Hkv, Lq, Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lq + kB - 1) / kB, nbh);
+    dq_kernel<T, D, kB><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+        segk, (T*)dq, H, Hkv, Lq, Lk, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T, typename TO, int D>
@@ -687,11 +693,13 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
       dkdv_kernel<T, TO, D, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lk + kB - 1) / kB, BH);
-  dkdv_kernel<T, TO, D, kB><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
-      segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lk + kB - 1) / kB, nbh);
+    dkdv_kernel<T, TO, D, kB><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, segq,
+        segk, (TO*)dk, (TO*)dv, H, Hkv, Lq, Lk, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace flash

@@ -12,11 +12,11 @@
 // FLOP/byte (the forward's ~510 and more): bound by operations, so all
 // four products run on wgmma, fed by TMA.
 //
-// Head dims: instantiated at D = 32, 64, 128 and 256, like K1 (sm90.cuh's
-// Tile<D>); the wrapper pads any other D <= 256 to the next of them. D = 256
-// runs the split kernel below (dkdv_sm90_split_kernel); any D past 256 is
-// padded to the next multiple of 64 and runs the wide kernel
-// (dkdv_wide_sm90_kernel).
+// Head dims: D = 32 runs its own kernel (dkdv_sm90_d32_kernel, below), D =
+// 64 and 128 the one described next, D = 256 the split kernel
+// (dkdv_sm90_split_kernel); the wrapper pads any other D <= 256 to the next
+// of them (bf16 D 16 and 24 to 32), and any D past 256 to the next multiple
+// of 64, which runs the wide kernel (dkdv_wide_sm90_kernel).
 //
 // Block: 288 threads (384 at D = 128, below), one 128-row kv tile of one
 // q-head row (GQA: the kv row through the head map; each q head writes its
@@ -56,6 +56,24 @@
 // its dV and dK products over the whole q tile (2 x 4 x 2 m64n64k16).
 // Shared memory: K, V 32 KB each; Q and dO 32 KB a stage each, 2 stages;
 // the swap 16 KB; ~211 KB. 384 threads, setmaxnreg as at D = 128.
+//
+// D = 32 (dkdv_sm90_d32_kernel): the block and tiles of D = 64, but at this
+// width a (q, k) pair costs as much in elementwise work (one exponential on
+// the special-function unit, 16 a clock an SM, and some eight more
+// instructions) as in products, and the D = 64 design runs the two in
+// turn, each warpgroup waiting out its products and then the other unit.
+// Here the two consumer warpgroups take turns at the tensor cores (named
+// barriers 2 and 3; sm90.cuh's turn_wait, turn_pass), so one warpgroup's
+// exponentials run under the other's products; each phase issues dV and
+// dK of q tile i - 1 with S^T and dP^T of tile i (a phase's products are
+// fixed at compile time: ptxas serializes every wgmma of a kernel that
+// issues one under a run-time branch). The exponential is ex2.approx (its
+// result rounded to bf16 next), and the mask selects instead of branching
+// (Mask::live): with a branch an element the compiler could not interleave
+// the elements' exponentials, and each waited out the last. Q and dO
+// stream through 4 stages; the producer loads a tile's lse, delta and
+// segment ids one tile ahead (load_side), off the ring's path. 384 threads
+// with setmaxnreg; shared memory ~53 KB.
 //
 // Precision: P^T and dS^T are rounded to nearest bf16 before the second
 // products (the A operand of a bf16 wgmma is bf16), as aten's flash
@@ -164,7 +182,7 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
                      const int* __restrict__ segq,
                      const int* __restrict__ segk, TO* __restrict__ dk,
                      TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
-                     int causal, int window, float scale) {
+                     int causal, int window, float scale, int y0) {
   using C = Bwd<D>;
   constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
   extern __shared__ uint8_t smem_raw[];
@@ -176,7 +194,7 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   const uint32_t full0 = kvbar + 8, empty0 = full0 + 8 * kStages;
 
   const int bh = blockIdx.x;                 // q-head row
-  const int kb = blockIdx.y;                 // longest (first) kv tiles first
+  const int kb = y0 + (int)blockIdx.y;      // longest (first) kv tiles first
   const int kvh = kv_row(bh, H, Hkv);
   const int k0 = kb * kRowsK;
 
@@ -295,6 +313,259 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   }
 }
 
+// Head dim 32 (see the top of this file): the two consumer warpgroups take
+// turns at the tensor cores, and each issues the second products of one q
+// tile together with the score products of the next.
+struct BwdD32 {
+  static constexpr int D = 32;
+  static constexpr int kThreads = kConsumers + 128;  // producer warpgroup
+  static constexpr int kStages = 4;
+  static constexpr int kRowsK = 128;                 // kv rows per block
+  static constexpr int kRowsQ = 64;                  // q rows per tile
+  static constexpr int kTileK = Tile<D>::bytes(kRowsK);
+  static constexpr int kTileQ = Tile<D>::bytes(kRowsQ);
+  static constexpr int kOffK = 0;
+  static constexpr int kOffV = kOffK + kTileK;
+  static constexpr int kOffQ = kOffV + kTileK;
+  static constexpr int kOffDO = kOffQ + kStages * kTileQ;
+  static constexpr int kOffSide = kOffDO + kStages * kTileQ;
+  static constexpr int kSide = 3 * kRowsQ;  // lse2, delta, seg per stage
+  static constexpr int kOffBar = kOffSide + kStages * kSide * 4;
+  static constexpr int kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// A tile's lse, delta and q segment ids as the producer's lanes load them
+// (rows lane and lane + 32), written to shared memory a tile later.
+struct SideRows {
+  float lse[2], delta[2];
+  int seg[2];
+};
+
+__device__ __forceinline__ SideRows load_side(
+    const float* __restrict__ lse_g, const float* __restrict__ delta_g,
+    const int* __restrict__ segq, int bh, int q0, int Lq, int lane) {
+  SideRows t;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qp = q0 + lane + 32 * j;
+    const bool in = qp < Lq;
+    const size_t r = (size_t)bh * Lq + qp;
+    t.lse[j] = in ? lse_g[r] : kNegInf;
+    t.delta[j] = in ? delta_g[r] : 0.f;
+    t.seg[j] = (segq != nullptr && in) ? segq[r] : 0;
+  }
+  return t;
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(BwdD32::kThreads, 1)
+    dkdv_sm90_d32_kernel(const __grid_constant__ CUtensorMap tmQ,
+                         const __grid_constant__ CUtensorMap tmK,
+                         const __grid_constant__ CUtensorMap tmV,
+                         const __grid_constant__ CUtensorMap tmDO,
+                         const float* __restrict__ lse_g,
+                         const float* __restrict__ delta_g,
+                         const int* __restrict__ segq,
+                         const int* __restrict__ segk, TO* __restrict__ dk,
+                         TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
+                         int causal, int window, float scale, int y0) {
+  using C = BwdD32;
+  constexpr int D = C::D, kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
+  constexpr int kS = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t base = raw + pad;
+  float* side = reinterpret_cast<float*>(smem_raw + pad + C::kOffSide);
+  const uint32_t kvbar = base + C::kOffBar;
+  const uint32_t full0 = kvbar + 8, empty0 = full0 + 8 * kS;
+
+  const int bh = blockIdx.x;                 // q-head row
+  const int kb = y0 + (int)blockIdx.y;       // longest (first) kv tiles first
+  const int kvh = kv_row(bh, H, Hkv);
+  const int k0 = kb * kRowsK;
+
+  const int nqb = (Lq + kRowsQ - 1) / kRowsQ;
+  int qb_lo = 0, qb_hi = nqb;
+  if (causal) {
+    qb_lo = k0 / kRowsQ;                     // first q tile reaching k0
+    if (window > 0)                          // last q tile the window allows
+      qb_hi = min(nqb, (k0 + kRowsK - 2 + window) / kRowsQ + 1);
+  }
+  const int n = max(qb_hi - qb_lo, 0);       // q tiles of this block
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 1 + 32);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {           // producer warpgroup
+    producer_regs();
+    if (threadIdx.x >= kConsumers + 32) return;  // the idle three warps
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * C::kTileK);
+      Tile<D>::load(base + C::kOffK, &tmK, kvbar, k0, kvh, kRowsK);
+      Tile<D>::load(base + C::kOffV, &tmV, kvbar, k0, kvh, kRowsK);
+    }
+    // the side rows of tile i + 1 are loaded while tile i's wait for its
+    // stage, so their latency is off the ring's path
+    SideRows next = load_side(lse_g, delta_g, segq, bh, qb_lo * kRowsQ, Lq,
+                              lane);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kS;
+      const int q0 = (qb_lo + i) * kRowsQ;
+      const uint32_t full = full0 + 8 * s;
+      mbar_wait(empty0 + 8 * s, ((i / kS) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(full, 2 * C::kTileQ);
+        Tile<D>::load(base + C::kOffQ + s * C::kTileQ, &tmQ, full, q0, bh,
+                      kRowsQ);
+        Tile<D>::load(base + C::kOffDO + s * C::kTileQ, &tmDO, full, q0, bh,
+                      kRowsQ);
+      }
+      float* st = side + s * C::kSide;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = lane + 32 * j;
+        st[row] = next.lse[j] > kNegInf * 0.5f
+                      ? next.lse[j] * kLog2e
+                      : __int_as_float(0x7f800000);  // +inf: p = 0
+        st[kRowsQ + row] = next.delta[j];
+        reinterpret_cast<int*>(st)[2 * kRowsQ + row] = next.seg[j];
+      }
+      if (i + 1 < n)
+        next = load_side(lse_g, delta_g, segq, bh, q0 + kRowsQ, Lq, lane);
+      mbar_arrive(full);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns kv rows kr0 .. kr0 + 63
+  consumer_regs();
+  const int wg = threadIdx.x >> 7;
+  const int kr0 = k0 + 64 * wg;
+  const float scale2 = scale * kLog2e;
+  const Mask mask{Lq, Lk, causal, window};
+  int kpos[2], sk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kpos[h] = kr0 + frag_row(2 * h);
+    sk[h] = (segk != nullptr && kpos[h] < Lk)
+                ? segk[(size_t)kvh * Lk + kpos[h]]
+                : 0;
+  }
+  float dk_acc[D / 2], dv_acc[D / 2], sc[kRowsQ / 2], dp[kRowsQ / 2];
+  uint32_t pa[kRowsQ / 16][4], dsa[kRowsQ / 16][4];
+#pragma unroll
+  for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < kRowsQ / 2; ++r) sc[r] = dp[r] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kRowsQ / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[kk][j] = dsa[kk][j] = 0u;
+  mbar_wait(kvbar, 0);
+
+  // Phase i issues dV += P^T dO and dK += dS^T Q of tile i - 1 (A = its P^T
+  // and dS^T fragments; kSecond) and S^T = K Q^T and dP^T = V dO^T of tile
+  // i (kScores), waits for them, frees tile i - 1's stage and turns tile
+  // i's scores into its fragments. The products are chosen at compile time:
+  // ptxas serializes every wgmma of a kernel that issues one under a
+  // run-time branch. Warpgroup 0 issues first; warpgroup 1 lets it start.
+  auto phase = [&](auto second, auto scores, int i) {
+    constexpr bool kSecond = decltype(second)::value;
+    constexpr bool kScores = decltype(scores)::value;
+    const int s = i % kS, sp = (i + kS - 1) % kS;  // tile i's, tile i - 1's
+    if (kScores) mbar_wait(full0 + 8 * s, (i / kS) & 1);
+    turn_wait(wg);
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(pa);
+    fence_regs(dsa);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    if constexpr (kSecond) {
+      const uint32_t qaddr = base + C::kOffQ + sp * C::kTileQ;
+      const uint32_t doaddr = base + C::kOffDO + sp * C::kTileQ;
+#pragma unroll
+      for (int kk = 0; kk < kRowsQ / 16; ++kk)   // 16 q rows of dO a step
+        wgmma_rs_tile<D, 1>(dv_acc, pa[kk], doaddr, kRowsQ, 16 * kk);
+#pragma unroll
+      for (int kk = 0; kk < kRowsQ / 16; ++kk)
+        wgmma_rs_tile<D, 1>(dk_acc, dsa[kk], qaddr, kRowsQ, 16 * kk);
+    }
+    if constexpr (kScores) {
+      wgmma_ss_tile<D>(sc, base + C::kOffK, kRowsK, 64 * wg,
+                       base + C::kOffQ + s * C::kTileQ);
+      wgmma_ss_tile<D>(dp, base + C::kOffV, kRowsK, 64 * wg,
+                       base + C::kOffDO + s * C::kTileQ);
+    }
+    wgmma_commit();
+    if (kScores || wg == 0) turn_pass(wg);   // as many passes as waits
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    if (kSecond) mbar_arrive(empty0 + 8 * sp);
+    if constexpr (kScores) {
+      const int q0 = (qb_lo + i) * kRowsQ;
+      const float* st = side + s * C::kSide;
+      const bool diag = causal && kr0 + 63 > q0;  // reaches above it
+      const bool need_mask =
+          diag || segq != nullptr || q0 + kRowsQ > Lq || kr0 + 64 > Lk ||
+          (causal && window > 0 && q0 + kRowsQ - 1 - kr0 >= window);
+      // sc becomes p^T and dp dS^T; the mask, where a tile needs it,
+      // selects
+      if (need_mask) {
+        const int* seg = reinterpret_cast<const int*>(st) + 2 * kRowsQ;
+#pragma unroll
+        for (int r = 0; r < kRowsQ / 2; ++r) {
+          const int c = frag_col(r), h = (r >> 1) & 1;
+          const float p = ex2(sc[r] * scale2 - st[c]);
+          sc[r] = mask.live(q0 + c, kpos[h], seg[c], sk[h]) ? p : 0.f;
+          dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRowsQ / 2; ++r) {
+          const int c = frag_col(r);
+          sc[r] = ex2(sc[r] * scale2 - st[c]);
+          dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kRowsQ / 16; ++kk) {
+        to_a_frag(sc, kk, pa[kk]);
+        to_a_frag(dp, kk, dsa[kk]);
+      }
+    }
+  };
+  if (wg == 1) turn_pass(wg);
+  if (n > 0) {
+    phase(Flag<false>{}, Flag<true>{}, 0);
+    for (int i = 1; i < n; ++i) phase(Flag<true>{}, Flag<true>{}, i);
+    phase(Flag<true>{}, Flag<false>{}, n);
+  } else {
+    phase(Flag<false>{}, Flag<false>{}, 0);  // the turns alone
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpos[h] >= Lk) continue;
+    const size_t off = ((size_t)bh * Lk + kpos[h]) * D;
+    store_row<D>(dk + off, dk_acc, h, 1.f);
+    store_row<D>(dv + off, dv_acc, h, 1.f);
+  }
+}
+
 // Head dim 256 (see the top of this file): 64 kv rows a block, D split
 // between the two consumer warpgroups, P^T and dS^T swapped through shared
 // memory.
@@ -330,7 +601,7 @@ __global__ void __launch_bounds__(Split<D>::kThreads, 1)
                            const int* __restrict__ segk,
                            TO* __restrict__ dk, TO* __restrict__ dv, int H,
                            int Hkv, int Lq, int Lk, int causal, int window,
-                           float scale) {
+                           float scale, int y0) {
   using C = Split<D>;
   constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
   constexpr int kHalf = D / 2;               // dK, dV columns a warpgroup
@@ -344,7 +615,7 @@ __global__ void __launch_bounds__(Split<D>::kThreads, 1)
   const uint32_t full0 = kvbar + 8, empty0 = full0 + 8 * kStages;
 
   const int bh = blockIdx.x;                 // q-head row
-  const int kb = blockIdx.y;
+  const int kb = y0 + (int)blockIdx.y;
   const int kvh = kv_row(bh, H, Hkv);
   const int k0 = kb * kRowsK;
 
@@ -525,7 +796,7 @@ __global__ void __launch_bounds__(BwdWide::kThreads, 1)
                           const int* __restrict__ segq,
                           const int* __restrict__ segk, TO* __restrict__ dk,
                           TO* __restrict__ dv, int H, int Hkv, int Lq, int Lk,
-                          int Dp, int causal, int window, float scale) {
+                          int Dp, int causal, int window, float scale, int y0) {
   using C = BwdWide;
   constexpr int kRowsK = C::kRowsK, kRowsQ = C::kRowsQ;
   constexpr int kCS = C::kChunkStages, kSS = C::kSliceStages;
@@ -538,7 +809,7 @@ __global__ void __launch_bounds__(BwdWide::kThreads, 1)
   const uint32_t sfull0 = cempty0 + 8 * kCS, sempty0 = sfull0 + 8 * kSS;
 
   const int bh = blockIdx.x;                 // q-head row
-  const int kb = blockIdx.y;
+  const int kb = y0 + (int)blockIdx.y;
   const int col0 = C::kW * blockIdx.z;       // this block's dK, dV columns
   const int ncols = min(C::kW, Dp - col0);
   const int nch = Dp / kChunkCols;
@@ -724,11 +995,14 @@ int launch_wide(const void* q, const void* k, const void* v,
       dkdv_wide_sm90_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK, (Dp + C::kW - 1) / C::kW);
-  dkdv_wide_sm90_kernel<TO><<<grid, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
-      Lk, Dp, causal, window, scale);
-  return (int)cudaGetLastError();
+  const int nkb = (Lk + C::kRowsK - 1) / C::kRowsK;
+  return launch_in_chunks(nkb, [&](int y0, int ny) {
+    dim3 grid(BH, ny, (Dp + C::kW - 1) / C::kW);
+    dkdv_wide_sm90_kernel<TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+        Lk, Dp, causal, window, scale, y0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <int D, typename TO>
@@ -749,11 +1023,42 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       dkdv_sm90_kernel<D, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK);
-  dkdv_sm90_kernel<D, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
-      Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  const int nkb = (Lk + C::kRowsK - 1) / C::kRowsK;
+  return launch_in_chunks(nkb, [&](int y0, int ny) {
+    dim3 grid(BH, ny);
+    dkdv_sm90_kernel<D, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+        Lk, causal, window, scale, y0);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename TO>
+int launch_d32(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const int* segq,
+               const int* segk, void* dk, void* dv, int BH, int H, int Hkv,
+               int Lq, int Lk, int causal, int window, float scale,
+               cudaStream_t stream) {
+  using C = BwdD32;
+  const int BHkv = BH / H * Hkv;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!Tile<32>::make_map(&mq, q, BH, Lq, C::kRowsQ) ||
+      !Tile<32>::make_map(&mdo, dout, BH, Lq, C::kRowsQ) ||
+      !Tile<32>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
+      !Tile<32>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_sm90_d32_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nkb = (Lk + C::kRowsK - 1) / C::kRowsK;
+  return launch_in_chunks(nkb, [&](int y0, int ny) {
+    dim3 grid(BH, ny);
+    dkdv_sm90_d32_kernel<TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+        Lk, causal, window, scale, y0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename TO>
@@ -774,11 +1079,14 @@ int launch_split(const void* q, const void* k, const void* v,
       dkdv_sm90_split_kernel<256, TO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lk + C::kRowsK - 1) / C::kRowsK);
-  dkdv_sm90_split_kernel<256, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
-      Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  const int nkb = (Lk + C::kRowsK - 1) / C::kRowsK;
+  return launch_in_chunks(nkb, [&](int y0, int ny) {
+    dim3 grid(BH, ny);
+    dkdv_sm90_split_kernel<256, TO><<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, mdo, lse, delta, segq, segk, (TO*)dk, (TO*)dv, H, Hkv, Lq,
+        Lk, causal, window, scale, y0);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <int D>
@@ -806,9 +1114,13 @@ int launch_dkdv_sm90(const void* q, const void* k, const void* v,
                      cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_d<32>(q, k, v, dout, lse, delta, segq, segk, dk, dv,
-                          out_f32, BH, H, Hkv, Lq, Lk, causal, window, scale,
-                          stream);
+      if (out_f32)
+        return launch_d32<float>(q, k, v, dout, lse, delta, segq, segk, dk,
+                                 dv, BH, H, Hkv, Lq, Lk, causal, window,
+                                 scale, stream);
+      return launch_d32<__nv_bfloat16>(q, k, v, dout, lse, delta, segq, segk,
+                                       dk, dv, BH, H, Hkv, Lq, Lk, causal,
+                                       window, scale, stream);
     case 64:
       return launch_d<64>(q, k, v, dout, lse, delta, segq, segk, dk, dv,
                           out_f32, BH, H, Hkv, Lq, Lk, causal, window, scale,

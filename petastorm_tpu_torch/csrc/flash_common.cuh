@@ -119,12 +119,38 @@ struct Mask {
     }
     return ok;
   }
+  // The same test with every term evaluated (bitwise, no short circuit),
+  // so that in a loop unrolled over a fragment it compiles to predicates
+  // and a select: a branch an element keeps the compiler from interleaving
+  // the elements' exponentials.
+  __device__ __forceinline__ bool live(int qp, int kp, int sq, int sk) const {
+    const bool in_band = (qp >= kp) & ((window <= 0) | (qp - kp < window));
+    return (kp < Lk) & (qp < Lq) & (sq == sk) & (!causal | in_band);
+  }
 };
 
 // Grouped-query head map (attention.py `_FlashDims.kv_program_index`):
 // flat q row b reads kv row (b / H) * Hkv + (b % H) / (H / Hkv).
 __device__ __forceinline__ int kv_row(int bh, int H, int Hkv) {
   return (bh / H) * Hkv + (bh % H) / (H / Hkv);
+}
+
+// A grid holds at most 65,535 blocks along y and along z (2^31 - 1 along
+// x). A launch with more rows of blocks than that along y runs as several
+// launches of at most kGridRows rows each, in order: launch(first, count)
+// launches rows first .. first + count - 1 (the kernel adds `first` to
+// blockIdx.y, so every index it computes, and with it every mask and
+// offset, stays absolute) and returns a cudaError_t; the first error ends
+// the loop.
+constexpr int kGridRows = 65535;
+template <class Launch>
+inline int launch_in_chunks(int rows, Launch&& launch) {
+  for (int first = 0; first < rows; first += kGridRows) {
+    const int count = rows - first < kGridRows ? rows - first : kGridRows;
+    const int err = launch(first, count);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace flash

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(kThreads)
                const T* __restrict__ v, const int* __restrict__ segq,
                const int* __restrict__ segk, T* __restrict__ o,
                float* __restrict__ lse, int H, int Hkv, int Lq, int Lk,
-               int causal, int window, float scale) {
+               int causal, int window, float scale, int bh0) {
   constexpr int SD = D + 1, SP = kBlockK + 1, NJ = D / 16;
   extern __shared__ float smem[];
   float* sQ = smem;                    // kBlockQ x SD
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sP = sV + kBlockK * D;        // kBlockQ x SP
 
   const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = bh0 + (int)blockIdx.y;
   const int kvh = kv_row(bh, H, Hkv);
   const int q0 = qb * kBlockQ;
   const Lane ln = lane_layout();
@@ -186,11 +186,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* segq,
       fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, BH);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, segq, segk, (T*)o, lse, H, Hkv,
-      Lq, Lk, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lq + kBlockQ - 1) / kBlockQ, nbh);
+    fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, segq, segk, (T*)o, lse, H, Hkv,
+        Lq, Lk, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 // Head dims past 256: a block owns 64 q rows and kWideFwdCols of o's
@@ -202,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ v, const int* __restrict__ segq,
                     const int* __restrict__ segk, T* __restrict__ o,
                     float* __restrict__ lse, int H, int Hkv, int Lq, int Lk,
-                    int D, int causal, int window, float scale) {
+                    int D, int causal, int window, float scale, int bh0) {
   constexpr int kC = kWideChunk, SC = kC + 1, kW = kWideFwdCols;
   constexpr int SP = kBlockK + 1, NJ = kW / 16;
   extern __shared__ float smem[];
@@ -212,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sP = sV + kBlockK * kW;       // kBlockQ x SP
 
   const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = bh0 + (int)blockIdx.y;
   const int col0 = kW * blockIdx.z;
   const int kvh = kv_row(bh, H, Hkv);
   const int q0 = qb * kBlockQ;
@@ -349,12 +351,14 @@ int launch_fwd_wide(const void* q, const void* k, const void* v,
       fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, BH,
-            (D + kWideFwdCols - 1) / kWideFwdCols);
-  fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, segq, segk, (T*)o, lse, H, Hkv,
-      Lq, Lk, D, causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks(BH, [&](int bh0, int nbh) {
+    dim3 grid((Lq + kBlockQ - 1) / kBlockQ, nbh,
+              (D + kWideFwdCols - 1) / kWideFwdCols);
+    fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, segq, segk, (T*)o, lse, H, Hkv,
+        Lq, Lk, D, causal, window, scale, bh0);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace flash

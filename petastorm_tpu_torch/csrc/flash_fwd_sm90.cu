@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
                     const int* __restrict__ segk,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int H, int Hkv, int Lq, int Lk, int causal, int window,
-                    float scale) {
+                    float scale, int y0) {
   using C = Fwd<D>;
   constexpr int kRowsK = C::kRowsK;
   extern __shared__ uint8_t smem_raw[];
@@ -120,7 +120,8 @@ __global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
   const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * kStages;
 
   const int bh = blockIdx.x;
-  const int qb = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  // longest causal rows first: the last q tile in the first block
+  const int qb = (Lq - 1) / kRowsQ - (y0 + (int)blockIdx.y);
   const int kvh = kv_row(bh, H, Hkv);
   const int q0 = qb * kRowsQ;
 
@@ -297,11 +298,13 @@ int launch(const void* q, const void* k, const void* v, const int* segq,
       fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ);
-  fwd_sm90_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, causal,
-      window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks((Lq + kRowsQ - 1) / kRowsQ, [&](int y0, int ny) {
+    dim3 grid(BH, ny);
+    fwd_sm90_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, causal,
+        window, scale, y0);
+    return (int)cudaGetLastError();
+  });
 }
 
 // Head dims past 256 (see the top of this file): one 256-column slice of O
@@ -331,7 +334,7 @@ __global__ void __launch_bounds__(FwdWide::kThreads, 1)
                          __nv_bfloat16* __restrict__ o,
                          float* __restrict__ lse, int H, int Hkv, int Lq,
                          int Lk, int Dp, int causal, int window,
-                         float scale) {
+                         float scale, int y0) {
   using C = FwdWide;
   constexpr int kRowsK = C::kRowsK;
   constexpr int kCS = C::kChunkStages, kSS = C::kSliceStages;
@@ -344,7 +347,8 @@ __global__ void __launch_bounds__(FwdWide::kThreads, 1)
   const uint32_t sfull0 = cempty0 + 8 * kCS, sempty0 = sfull0 + 8 * kSS;
 
   const int bh = blockIdx.x;
-  const int qb = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  // longest causal rows first: the last q tile in the first block
+  const int qb = (Lq - 1) / kRowsQ - (y0 + (int)blockIdx.y);
   const int col0 = C::kW * blockIdx.z;         // this block's O columns
   const int ncols = min(C::kW, Dp - col0);
   const int nch = Dp / kChunkCols;
@@ -535,11 +539,13 @@ int launch_wide(const void* q, const void* k, const void* v, const int* segq,
       fwd_wide_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (Lq + kRowsQ - 1) / kRowsQ, (Dp + C::kW - 1) / C::kW);
-  fwd_wide_sm90_kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, Dp,
-      causal, window, scale);
-  return (int)cudaGetLastError();
+  return launch_in_chunks((Lq + kRowsQ - 1) / kRowsQ, [&](int y0, int ny) {
+    dim3 grid(BH, ny, (Dp + C::kW - 1) / C::kW);
+    fwd_wide_sm90_kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, segq, segk, (__nv_bfloat16*)o, lse, H, Hkv, Lq, Lk, Dp,
+        causal, window, scale, y0);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -29,7 +29,8 @@ started together and linked into
 ``ctypes``; nothing is built or imported from CUDA when this module is
 imported. The attention kernels are instantiated at the head dims of
 :data:`HEAD_DIMS`: 32, 64, 128 and 256 in bf16 (the tensor-core kernels),
-and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels). Past 256
+and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels); bf16 K2
+and K3 at 32 run kernels of their own, designed for that width. Past 256
 both dtypes run the wide kernels, which take any multiple of
 :data:`WIDE_STEP` (64): each block owns one slice of the output's columns
 and streams q k^T and do v^T over the head dim in 64-column chunks. A
@@ -39,7 +40,8 @@ columns up to it (:func:`pad_heads`), the scale stays that of the true
 head dim, and o, dq, dk and dv are cut back (:func:`unpad`). That is exact:
 zero columns add nothing to q k^T and give zero output columns. Past
 :data:`MAX_HEAD_DIM` (the grid's limit of 65,535 column slices) a launch
-raises before anything runs.
+raises before anything runs. Batch x heads and the lengths have no limit:
+past the grid's 65,535 blocks along y a C launcher runs several launches.
 
 The bf16 tensor-core kernels round p (K1), ds (K2), and p and ds (K3), to
 bf16 before their second products, where the twins keep float32: their
@@ -507,11 +509,11 @@ def unpad(d: int, *tensors) -> Tuple[torch.Tensor, ...]:
 
 
 def _launch_args(q, n_heads, n_kv_heads, causal, window):
-    bh, lq, d = q.shape
-    width = launch_head_dim(d, q.dtype)
-    if bh > 65535:
-        raise ValueError('batch x heads = %d exceeds the grid limit 65535'
-                         % bh)
+    """(launch head dim, H, Hkv, causal, window) of a CUDA launch. Any
+    batch x heads and any length launch: past the grid's 65,535 blocks
+    along y the C launchers run several launches, each block's indices
+    absolute (``csrc/flash_common.cuh``'s ``launch_in_chunks``)."""
+    width = launch_head_dim(q.shape[-1], q.dtype)
     return (width, n_heads, n_kv_heads, int(bool(causal)),
             int(window) if causal and window is not None else 0)
 

@@ -16,8 +16,9 @@ package: the twin with p and ds rounded blockwise at each kernel's kv
 tile) stands in for the kernels: the gate accepts it, and the bias check
 rejects its truncating variants (p truncated for o and dv, ds alone for dk
 and dq). On the card (``-m cuda``) broken copies of the kernels, built
-alone, must each be rejected by the gate: at head dim 64, and broken copies
-of the wide kernels (head dims past 256) at head dim ``WIDE_D``.
+alone, must each be rejected by the gate: at head dim 64, broken copies
+of the wide kernels (head dims past 256) at head dim ``WIDE_D``, and of K2's
+and K3's head dim 32 kernels at 32.
 """
 
 import math
@@ -382,6 +383,16 @@ WIDE_MUTANTS = {
         'load_blocks(dst, &tmQ, full, col0, nblk',
         'load_blocks(dst, &tmQ, full, 0, nblk'),
 }
+# mutants of K2's and K3's head dim 32 kernels, held at head dim 32: the
+# mask's select (which replaces the other kernels' branch) dropped
+D32_MUTANTS = {
+    'dkdv_d32_mask_select_dropped': (
+        'flash_bwd_dkdv', 'flash_bwd_sm90.cu', 'sc[r] = mask.live(',
+        'sc[r] = 1 || mask.live('),
+    'dq_d32_mask_select_dropped': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu', 'const bool live = mask.live(',
+        'const bool live = 1 || mask.live('),
+}
 # flash_bwd.cu's C entry points call into both sm90 backward files, and a
 # library missing either fails to load (ctypes binds every symbol at once)
 _BWD_SOURCES = ('flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')
@@ -521,5 +532,34 @@ def test_gate_rejects_broken_wide_kernel(mutant, tmp_path, monkeypatch):
                                 monkeypatch)
     rejected = [c for c, v in verdicts.items() if _rejected(v)]
     print('wide mutant %s rejected by: %s; verdicts %s'
+          % (mutant, rejected, verdicts))
+    assert rejected, verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kernel', ['flash_bwd_dkdv', 'flash_bwd_dq'])
+def test_gate_accepts_head_dim_32_kernel_on_card(kernel):
+    """K2's and K3's head dim 32 kernels pass every card case of the gate
+    at head dim 32 (run on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = gate_verdicts(kernel, 32)
+    print('%s at D=32: %s' % (kernel, verdicts))
+    assert not any(_rejected(v) for v in verdicts.values()), verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mutant', sorted(D32_MUTANTS))
+def test_gate_rejects_broken_head_dim_32_kernel(mutant, tmp_path,
+                                                monkeypatch):
+    """A copy of K2's or K3's head dim 32 kernel whose mask no longer
+    selects, built alone on the card, fails the gate at head dim 32 in some
+    card case (run on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = _mutant_verdicts(D32_MUTANTS, mutant, 32, tmp_path,
+                                monkeypatch)
+    rejected = [c for c, v in verdicts.items() if _rejected(v)]
+    print('head dim 32 mutant %s rejected by: %s; verdicts %s'
           % (mutant, rejected, verdicts))
     assert rejected, verdicts

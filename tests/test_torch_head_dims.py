@@ -9,10 +9,12 @@ the plain twins at the true head dim (float32, within 1e-6: zero columns
 add exact zeros, but the sums may be blocked differently), and the
 head-dim table and its raise past ``kernels.MAX_HEAD_DIM`` are checked. On
 the card (``-m cuda``) every instantiation past 16 (32, 128, 256), the wide
-kernels at 320, 512, 576 and 1024, and the padded head dims 80, 96, 160,
-192 and 300 are held against the twins run in float32 on the same values:
-atol = rtol = 1e-4 for float32 outputs, ``kernels.flash_gate_limit`` for
-the bf16 tensor-core outputs; K4 at 8 channels is bit-equal to its twin.
+kernels at 320, 512, 576 and 1024, and the padded head dims 16 and 24
+(bf16, launched at 32), 80, 96, 160, 192 and 300 are held against the twins
+run in float32 on the same values: atol = rtol = 1e-4 for float32 outputs,
+``kernels.flash_gate_limit`` for the bf16 tensor-core outputs; K2 and K3 at
+head dim 32 give bit-equal outputs from two launches; K4 at 8 channels is
+bit-equal to its twin.
 This file imports no JAX, so its card tests run where JAX is not
 installed.
 """
@@ -222,6 +224,7 @@ def _card_case(case, d, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('d,dtype', [(32, 'bfloat16'), (128, 'bfloat16'),
+                                     (16, 'bfloat16'), (24, 'bfloat16'),
                                      (32, 'float32'), (128, 'float32'),
                                      (80, 'bfloat16'), (96, 'float32'),
                                      (256, 'bfloat16'), (256, 'float32'),
@@ -239,6 +242,28 @@ def test_cuda_head_dims_match_plain_twins(case, d, dtype):
     _needs_card()
     beyond = _card_case(case, d, getattr(torch, dtype), seed=d)
     assert not any(beyond.values()), beyond
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', [32, 24, 16])
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_cuda_d32_backward_is_deterministic(case, d):
+    """K2 and K3 at head dim 32 (and at 24 and 16, launched at 32), bf16,
+    launched twice on the same inputs: dq, dk and dv bit-equal (each kernel
+    sums its tiles in one fixed order, with no atomics; run on a GPU
+    host)."""
+    _needs_card()
+    q, k, v, do, kw = _operands(300 + d, case, d)
+    q, k, v, do = (x.cuda().to(torch.bfloat16) for x in (q, k, v, do))
+    kw = {n: (t.cuda() if torch.is_tensor(t) else t) for n, t in kw.items()}
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *kernels.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dq', 'dk', 'dv'), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -396,3 +421,41 @@ def test_phase_31_rehearses_on_the_cpu():
     path = chip_smoke.bounds(chip_smoke.PATH_SHAPE)
     for name in wide:
         assert wide[name] == path[name]
+
+
+def test_ptxas_instances_name_the_head_dim_32_kernels():
+    """``chip_smoke.ptxas_instances`` files the head dim 32 backward kernels
+    (``dq_sm90_d32_kernel``, ``dkdv_sm90_d32_kernel`` in both output dtypes)
+    under K2 and K3 at head dim 32, beside the other instantiations."""
+    import chip_smoke
+
+    def entry(name, regs, spill=0):
+        return ("ptxas info    : Compiling entry function '%s' for 'sm_90a'\n"
+                'ptxas info    : Function properties for %s\n'
+                '    0 bytes stack frame, %d bytes spill stores, %d bytes '
+                'spill loads\nptxas info    : Used %d registers\n'
+                % (name, name, spill, spill, regs))
+    log = ''.join([
+        entry('_ZN5flash53_GLOBAL__N__9f0f383c_20_flash_bwd_dq_sm90_cu_f212f7'
+              '2a18dq_sm90_d32_kernelE14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_'
+              'P13__nv_bfloat16iiiiiifi', 143),
+        entry('_ZN5flash50_GLOBAL__N__965bde5d_17_flash_bwd_sm90_cu_11078b7f'
+              '20dkdv_sm90_d32_kernelI13__nv_bfloat16EEv14CUtensorMap_stS3_S3'
+              '_S3_PKfS5_PKiS7_PT_S9_iiiiiifi', 168),
+        entry('_ZN5flash50_GLOBAL__N__965bde5d_17_flash_bwd_sm90_cu_11078b7f'
+              '20dkdv_sm90_d32_kernelIfEEv14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6'
+              '_PT_S8_iiiiiifi', 168, 8),
+        entry('_ZN5flash53_GLOBAL__N__9f0f383c_20_flash_bwd_dq_sm90_cu_f212f7'
+              '2a14dq_sm90_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6'
+              '_P13__nv_bfloat16iiiiiifi', 154)])
+    got = chip_smoke.ptxas_instances(log)
+    assert got['flash_bwd_dq'] == [
+        {'dtype': 'bfloat16', 'head_dim': 32, 'registers': 143,
+         'spill_stores': 0, 'spill_loads': 0},
+        {'dtype': 'bfloat16', 'head_dim': 64, 'registers': 154,
+         'spill_stores': 0, 'spill_loads': 0}]
+    assert got['flash_bwd_dkdv'] == [
+        {'dtype': 'bfloat16', 'head_dim': 32, 'registers': 168,
+         'spill_stores': 0, 'spill_loads': 0, 'out': 'bfloat16'},
+        {'dtype': 'bfloat16', 'head_dim': 32, 'registers': 168,
+         'spill_stores': 8, 'spill_loads': 8, 'out': 'float32'}]
