@@ -7,9 +7,10 @@ printing one line or a few:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the four CUDA kernels from ``csrc/``, one ``nvcc`` call a
    source, all started together, then one link (bf16 K1, K2, K3 on
-   Hopper's tensor cores at head dims 32, 64, 128 and 256, K2 and K3 at 32
-   on kernels of their own whose two consumer warpgroups take turns at the
-   tensor cores, and the wide kernels at any multiple of 64 past 256:
+   Hopper's tensor cores at head dims 32, 64, 128 and 256 (K2 and K3 at
+   32 with the exponential on ``ex2.approx`` and the mask a select, K3 on
+   a kernel of its own), and the wide kernels at any multiple of 64 past
+   256:
    ``flash_fwd_sm90.cu``,
    ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``; float32 K1-K3 on the
    FP32 cores at 16, 32, 64, 128 and 256, and wide past 256:
@@ -606,11 +607,12 @@ printing one line or a few:
    (b) in bf16 at one sequence past 65,535 row tiles, causal with a window
    of 128: L 8,388,736 at D 64 (65,537 tiles of 128 q rows for K1 and K2,
    of 128 kv rows for K3) and L 4,194,368 at D 256 (65,537 tiles of 64 kv
-   rows for K3's split kernel), the last 256 rows of o, lse, dq, dk and dv
-   against the twins run on the last 512 rows (rows past the first 256 of
-   them see the same keys in both), each kernel launched once; (c) K2 and
-   K3 at the D 32 path shape (8, 16, 2048, 32) launched twice on the same
-   inputs: bit-equal outputs.
+   rows for K3's split kernel), the first and the last 256 rows of o, lse,
+   dq, dk and dv against the twins run on the first 384 and the last 512
+   rows (the rows that the launches past the limit compute: K1 and K2 the
+   first, which they launch last; K3 the last), each kernel launched once;
+   (c) K2 and K3 at the D 32 path shape (8, 16, 2048, 32) launched twice
+   on the same inputs: bit-equal outputs.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -9247,13 +9249,20 @@ GRID_TAIL = 256                   # rows held against the twins at the end
 def tail_case(torch, kernels, label, gen, *, l, d, window=GRID_WINDOW,
               tail=GRID_TAIL):
     """(b): K1-K3 in bf16 over one causal sequence of ``l`` rows with a
-    window, the last ``tail`` rows against the twins in float32 on the last
-    ``tail + 2 window`` rows of the same q, k, v and do. A row from ``window
-    - 1`` into that slice on sees the same keys as in the whole sequence, so
-    its o and lse match; the backward passes get the kernel's lse and a
-    delta from its o, with the last ``tail`` rows replaced by the twins'
-    (the rows dq there and dk, dv there read). Returns {output: max abs
-    err}, each under phase 3's gates, and checks one launch a kernel."""
+    window, the first and the last ``tail`` rows of each output against the
+    twins in float32 on a slice of the same q, k, v and do. The first
+    ``tail + window`` rows see no key before the slice, so there the twins
+    give o, lse and dq as over the whole sequence, and dk, dv on the first
+    ``tail`` kv rows (read by q rows below ``tail + window - 1``). In the
+    last ``tail + 2 window`` rows a row from ``window - 1`` on sees the
+    same keys as in the whole sequence, so o, lse and dq match on the last
+    ``tail`` rows, and dk, dv there (read by q rows at or past them). The
+    launches past the grid's 65,535 rows of blocks compute the first rows
+    (K1, K2: the last q tiles first) or the last (K3). The backward passes
+    get the kernel's lse and a delta from its o, with the rows that the
+    checked rows read replaced by the twins'. Returns {output: max abs
+    err} over both ends, each under phase 3's gates, and checks one launch
+    a kernel."""
     def rnd():
         return torch.randn(1, l, d, generator=gen,
                            device=gen.device).to(torch.bfloat16)
@@ -9261,35 +9270,46 @@ def tail_case(torch, kernels, label, gen, *, l, d, window=GRID_WINDOW,
     kw = dict(n_heads=1, n_kv_heads=1, causal=True, window=window)
     kernels.reset_launch_counts()
     o, lse = kernels.flash_fwd(q, k, v, **kw)
-    m = tail + 2 * window
-    tq, tk, tv, tdo = (x[:, -m:].float() for x in (q, k, v, do))
-    o_ref, lse_ref = kernels.flash_fwd_plain(tq, tk, tv, **kw)
-    delta_ref = (tdo * o_ref).sum(-1)
     lse_in = lse.clone()
-    lse_in[:, -tail:] = lse_ref[:, -tail:]
-    delta_in = torch.cat([(do[:, :-tail].float() * o[:, :-tail].float())
-                          .sum(-1), delta_ref[:, -tail:]], 1)
+    delta_in = (do.float() * o.float()).sum(-1)
+    # (slice's first row, its end, the rows its twins replace and check)
+    spans = ((0, tail + window, slice(0, tail + window), slice(0, tail)),
+             (l - tail - 2 * window, l, slice(l - tail, l),
+              slice(l - tail, l)))
+    twins = []
+    for a, b, swap, _ in spans:
+        x = [t[:, a:b].float() for t in (q, k, v, do)]
+        o_ref, lse_ref = kernels.flash_fwd_plain(*x[:3], **kw)
+        delta_ref = (x[3] * o_ref).sum(-1)
+        at = slice(swap.start - a, swap.stop - a)
+        lse_in[:, swap] = lse_ref[:, at]
+        delta_in[:, swap] = delta_ref[:, at]
+        twins.append((x, o_ref, lse_ref, delta_ref))
     dq = kernels.flash_bwd_dq(q, k, v, do, lse_in, delta_in, **kw)
     dk, dv = kernels.flash_bwd_dkdv(q, k, v, do, lse_in, delta_in, **kw)
     launched = dict(kernels.LAUNCHES)
     cuda = q.is_cuda
     check(all(launched[n] == int(cuda) for n in FLASH),
           '%s: launches %r' % (label, launched))
-    dq_ref = kernels.flash_bwd_dq_plain(tq, tk, tv, tdo, lse_ref, delta_ref,
-                                        **kw)
-    dk_ref, dv_ref = kernels.flash_bwd_dkdv_plain(tq, tk, tv, tdo, lse_ref,
-                                                  delta_ref, **kw)
-    bound = kernels.flash_rounding_bounds(tq, tk, tv, tdo, lse_ref,
-                                          delta_ref, **kw)
     if cuda:
         torch.cuda.synchronize()
-    errs = {'lse': _max_err(torch, lse[:, -tail:], lse_ref[:, -tail:],
-                            label + ' lse')}
-    for name, got, ref in (('o', o, o_ref), ('dq', dq, dq_ref),
-                           ('dk', dk, dk_ref), ('dv', dv, dv_ref)):
-        errs[name] = _max_err(torch, got[:, -tail:], ref[:, -tail:],
-                              '%s %s' % (label, name), kernels,
-                              bound[name][:, -tail:])
+    errs = {}
+    for (a, _, _, rows), (x, o_ref, lse_ref, delta_ref), end in zip(
+            spans, twins, ('first', 'last')):
+        dq_ref = kernels.flash_bwd_dq_plain(*x, lse_ref, delta_ref, **kw)
+        dk_ref, dv_ref = kernels.flash_bwd_dkdv_plain(*x, lse_ref,
+                                                      delta_ref, **kw)
+        bound = kernels.flash_rounding_bounds(*x, lse_ref, delta_ref, **kw)
+        at = slice(rows.start - a, rows.stop - a)
+        err = _max_err(torch, lse[:, rows], lse_ref[:, at],
+                       '%s lse, %s rows' % (label, end))
+        errs['lse'] = max(errs.get('lse', 0.0), err)
+        for name, got, ref in (('o', o, o_ref), ('dq', dq, dq_ref),
+                               ('dk', dk, dk_ref), ('dv', dv, dv_ref)):
+            err = _max_err(torch, got[:, rows], ref[:, at],
+                           '%s %s, %s rows' % (label, name, end), kernels,
+                           bound[name][:, at])
+            errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
 
@@ -9326,8 +9346,8 @@ def grid_limit_line(torch, kernels, gen):
         phase = time.perf_counter()
         errs = tail_case(torch, kernels, label, gen, **case)
         torch.cuda.empty_cache()
-        log('phase 32 (b) %s %s bf16 causal window %d: last %d rows against '
-            'the twins, max abs err %s; %.1f s'
+        log('phase 32 (b) %s %s bf16 causal window %d: first and last %d '
+            'rows against the twins, max abs err %s; %.1f s'
             % (CARD, label, GRID_WINDOW, GRID_TAIL,
                ' '.join('%s %.3g' % kv for kv in errs.items()),
                time.perf_counter() - phase))
@@ -9346,7 +9366,7 @@ def ptxas_instances(log_text):
     import re
     instance = re.compile(
         r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_split_kernel|'
-        r'dkdv_sm90_kernel|dq_sm90_d32_kernel|dkdv_sm90_d32_kernel|'
+        r'dkdv_sm90_kernel|dkdv_sm90_d32_kernel|'
         r'fwd_kernel|dq_kernel|dkdv_kernel|'
         r'normalize_kernel|fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
         r'dkdv_wide_sm90_kernel|fwd_wide_kernel|dq_wide_kernel|'

@@ -1,6 +1,7 @@
 """K1-K3 (bf16) builds timed against each other on one card, in one call.
 
-    python3 chip_tile_probe.py [--head-dim 128] [--variants ...]
+    python3 chip_tile_probe.py [--head-dim 128 | --shape B H L D]
+                               [--variants ...]
                                [--checkouts DIR ...] [--parent [DIR]]
                                [--rounds 2] [--reps 30]
 
@@ -20,15 +21,13 @@ warpgroup handing its registers to the two consumer warpgroups, 232 a
 thread) against a 288-thread block at the 168 registers its launch bound
 allows, where ptxas spills. ``k3_d64_realloc`` gives head dim 64 the
 384-thread block too, where the sources' 288 threads spill 16 bytes.
-Variants of K2 and K3 at head dim 32: ``d32_lockstep`` drops the two
-consumer warpgroups' turns at the tensor cores (both issue at once);
-``d32_exp2f`` puts exp2f's full-range 2^x back in place of ex2.approx;
-``diag_d32_no_softmax`` and ``diag_d32_no_scores`` leave out the
-elementwise work (p = s) or the score products, to see what each costs
-(their outputs are wrong: timed, never checked). ``parent_*`` variants
-edit the checkout given with ``--parent`` instead: the parent commit's
-head dim 32 kernels (the Tile<32> instantiations these replaced) on two
-blocks an SM, with ex2.approx, with 4 stages, without the exponential.
+Variants of K2 and K3 at head dim 32: ``d32_exp2f`` puts exp2f's
+full-range 2^x back in place of ex2.approx; ``diag_d32_no_softmax`` leaves
+out the elementwise work (p = s), to see what it costs (its outputs are
+wrong: timed, never checked). ``parent_*`` variants edit the checkout given
+with ``--parent`` instead: the parent commit's head dim 32 kernels on two
+blocks an SM, with ex2.approx, with the mask a select in one loop, with
+K3's 4 stages and 384-thread block, without the exponential.
 Every build prints ptxas's performance warnings (a serialized wgmma).
 
 First every build's ``ptxas`` registers and spills of the bf16 kernels;
@@ -42,7 +41,8 @@ turn, the order reversed from one round to the next, at the path shape of
 ``--head-dim`` (``chip_smoke``'s (8, 16, 2048, 32), (8, 8, 2048, 64),
 (8, 4, 2048, 128), (8, 2, 2048, 256) or (8, 1, 2048, 512), or at 576
 DeepSeek-V3's absorbed-MLA shape (1, 128, 2048, 576) over one kv head;
-bf16 causal; ``chip_smoke.timings``: median of ``--reps``
+or at ``--shape``, say the north-star LM's attention (8, 8, 256, 32); bf16
+causal; ``chip_smoke.timings``: median of ``--reps``
 CUDA-event-timed launches, beside SDPA and a library backward). Past head
 dim 256 (the wide kernels) a checkout from before them cannot be timed:
 give it with ``--rounds 0`` (machine code only). The last line is one JSON
@@ -70,17 +70,8 @@ VARIANTS = {
     'k3_d64_realloc': [
         ('flash_bwd_sm90.cu', 'static constexpr bool kRealloc = D == 128;',
          'static constexpr bool kRealloc = D >= 64;')],
-    # the head dim 32 kernels without their ping-pong: both warpgroups issue
-    # their products at once, as the other head dims' kernels do
-    'd32_lockstep': [
-        (name, old, '') for name in ('flash_bwd_sm90.cu',
-                                     'flash_bwd_dq_sm90.cu')
-        for old in ('    turn_wait(wg);\n',
-                    '  if (wg == 1) turn_pass(wg);\n',
-                    '    if (kScores || wg == 0) turn_pass(wg);   // as many '
-                    'passes as waits\n')],
-    # diagnostics of the head dim 32 kernels: the exponentials and the
-    # elementwise work left out (p = s), or the score products
+    # a diagnostic of the head dim 32 kernels: the exponentials and the
+    # elementwise work left out (p = s)
     'diag_d32_no_softmax': [
         ('flash_bwd_sm90.cu', 'const float p = ex2(sc[r] * scale2 - st[c]);',
          'const float p = sc[r];'),
@@ -97,14 +88,6 @@ VARIANTS = {
         ('flash_bwd_dq_sm90.cu',
          'dp[r] = ex2(sc[r] * scale2 - lse2[h]) * (dp[r] - dlt[h]) * scale;',
          'dp[r] += sc[r];')],
-    'diag_d32_no_scores': [
-        (name, '      wgmma_ss_tile<D>(%s, base + C::kOff%s, %s, 64 * wg,\n'
-         % (acc, op, rows), '      if constexpr (false) wgmma_ss_tile<D>'
-         '(%s, base + C::kOff%s, %s, 64 * wg,\n' % (acc, op, rows))
-        for name, rows, ops in (
-            ('flash_bwd_sm90.cu', 'kRowsK', (('sc', 'K'), ('dp', 'V'))),
-            ('flash_bwd_dq_sm90.cu', 'kRowsQ', (('sc', 'Q'), ('dp', 'DO'))))
-        for acc, op in ops],
     # ... and with exp2f's full-range 2^x in place of ex2.approx
     'd32_exp2f': [
         (name, '= ex2(', '= exp2f(')
@@ -129,6 +112,39 @@ PARENT_VARIANTS = {
          '  return y;\n}'),
         ('flash_bwd_sm90.cu', 'exp2f(', 'ex2f('),
         ('flash_bwd_dq_sm90.cu', 'exp2f(', 'ex2f(')],
+    # the mask as a select: every term evaluated, no branch an element
+    'parent_d32_select': [
+        ('flash_common.cuh', '    return ok;\n  }\n',
+         '    return ok;\n  }\n'
+         '  __device__ __forceinline__ bool live(int qp, int kp, int sq,\n'
+         '                                       int sk) const {\n'
+         '    const bool in_band = (qp >= kp) & ((window <= 0) |\n'
+         '                                       (qp - kp < window));\n'
+         '    return (kp < Lk) & (qp < Lq) & (sq == sk) & (!causal | '
+         'in_band);\n  }\n'),
+        ('flash_bwd_sm90.cu',
+         '      if (need_mask &&\n'
+         '          !mask(q0 + c, kpos[(r >> 1) & 1],\n'
+         '                reinterpret_cast<const int*>(st)[2 * kRowsQ + c],\n'
+         '                sk[(r >> 1) & 1]))\n'
+         '        p = 0.f;\n',
+         '      p = (!need_mask |\n'
+         '           mask.live(q0 + c, kpos[(r >> 1) & 1],\n'
+         '                     reinterpret_cast<const int*>(st)[2 * kRowsQ '
+         '+ c],\n'
+         '                     sk[(r >> 1) & 1])) ? p : 0.f;\n'),
+        ('flash_bwd_dq_sm90.cu',
+         '      if (need_mask &&\n'
+         '          !mask(qpos[h], k0 + c, sq[h],\n'
+         '                segk != nullptr ? seg_tile[s * kRowsK + c] : 0))\n'
+         '        p = 0.f;\n',
+         '      p = (!need_mask |\n'
+         '           mask.live(qpos[h], k0 + c, sq[h],\n'
+         '                     segk != nullptr ? seg_tile[s * kRowsK + c] '
+         ': 0)) ? p : 0.f;\n')],
+    'parent_k3_d32_realloc': [
+        ('flash_bwd_sm90.cu', 'static constexpr bool kRealloc = D == 128;',
+         'static constexpr bool kRealloc = D == 128 || D == 32;')],
     'parent_k3_4_stages': [
         ('flash_bwd_sm90.cu', 'constexpr int kStages = 2;',
          'constexpr int kStages = 4;')],
@@ -139,10 +155,19 @@ PARENT_VARIANTS = {
 PARENT_VARIANTS['parent_d32_two_blocks_ex2'] = (
     PARENT_VARIANTS['parent_d32_two_blocks']
     + PARENT_VARIANTS['parent_d32_ex2_approx'])
+# the parent's templates with the mask a select and ex2.approx (what the
+# head dim 32 kernels change in the elementwise work), and with K3's 4
+# stages and 384-thread block too
+PARENT_VARIANTS['parent_d32_select_ex2'] = (
+    PARENT_VARIANTS['parent_d32_select']
+    + PARENT_VARIANTS['parent_d32_ex2_approx'])
+PARENT_VARIANTS['parent_d32_select_ex2_k3_4_stages_realloc'] = (
+    PARENT_VARIANTS['parent_d32_select_ex2']
+    + PARENT_VARIANTS['parent_k3_4_stages']
+    + PARENT_VARIANTS['parent_k3_d32_realloc'])
 #: Variants whose outputs are knowingly wrong (a step of the work left
 #: out, to see what it costs): timed, never held against the twins.
-DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax',
-              'diag_d32_no_scores'}
+DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax'}
 
 
 def build_variant(kernels, csrc_from, edits, tmpdir):
@@ -228,12 +253,18 @@ def main(argv=None):
                         const=os.path.join(ROOT, '_archive', 'parent'),
                         help='add the parent commit unpacked at this '
                              'directory (default _archive/parent)')
+    parser.add_argument('--shape', type=int, nargs=4, default=None,
+                        metavar=('B', 'H', 'L', 'D'),
+                        help='time at this (batch, heads, length, head dim) '
+                             'instead of the head dim\'s path shape')
     parser.add_argument('--sass', action='store_true',
                         help="compare each build's machine code with the "
                              "sources', kernel by kernel")
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--reps', type=int, default=30)
     args = parser.parse_args(argv)
+    if args.shape:
+        args.head_dim = args.shape[3]
     if args.head_dim > 256 and args.rounds and (args.checkouts
                                                 or args.parent):
         parser.error('a checkout cannot be timed past head dim 256: its '
@@ -255,7 +286,12 @@ def main(argv=None):
     print(card, flush=True)
     shape = {**chip_smoke.HEAD_DIM_PATHS, 64: chip_smoke.PATH_SHAPE,
              256: chip_smoke.WIDE_PATH, 512: chip_smoke.WIDER_PATHS[512],
-             576: chip_smoke.MLA_SHAPE}[args.head_dim]
+             576: chip_smoke.MLA_SHAPE}.get(args.head_dim)
+    if args.shape:
+        shape = tuple(args.shape)
+    if shape is None:
+        parser.error('no path shape at head dim %d: give --shape'
+                     % args.head_dim)
     hkv = chip_smoke.MLA_HKV if shape == chip_smoke.MLA_SHAPE else shape[1]
     libs = {'sources': (kernels.build(), kernels.BUILD_INFO['log'],
                         kernels.BUILD_INFO['path'])}

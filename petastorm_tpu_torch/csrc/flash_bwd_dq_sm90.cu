@@ -13,10 +13,10 @@
 // read once), ~610 FLOP/byte, above the bf16 ridge (~295): bound by
 // operations. So all three products run on wgmma, fed by TMA.
 //
-// Head dims: instantiated at D = 64, 128 and 256 (sm90.cuh's Tile<D>); D =
-// 32 runs its own kernel (dq_sm90_d32_kernel, below). The wrapper pads any
-// other D <= 256 to the next of them (bf16 D 16 and 24 to 32), and any D
-// past 256 to the next multiple of 64 (dq_wide_sm90_kernel, below).
+// Head dims: instantiated at D = 32, 64, 128 and 256 (sm90.cuh's Tile<D>).
+// The wrapper pads any other D <= 256 to the next of them (bf16 D 16 and
+// 24 to 32), and any D past 256 to the next multiple of 64
+// (dq_wide_sm90_kernel, below).
 //
 // Block: 288 threads, one 128-row q tile of one q-head row (GQA: the kv row
 // through the head map; dq is per q head, so there are no partials). Warps
@@ -48,13 +48,18 @@
 // has 384 threads, the producer warp in a warpgroup of its own whose
 // setmaxnreg.dec hands its registers to the consumers (to 232; sm90.cuh).
 //
-// D = 32 (dq_sm90_d32_kernel): the block, tiles and ring of D = 64, but at
-// this width a (q, k) pair costs as much in elementwise work as in
-// products, and the D = 64 design runs the two in turn. Here the two
-// consumer warpgroups take turns at the tensor cores (as K3's D = 32
-// kernel, flash_bwd_sm90.cu), each phase issuing dQ += dS K of kv tile i -
-// 1 with S and dP of tile i; the exponential is ex2.approx and the mask
-// selects instead of branching (Mask::live).
+// D = 32: at this width a (q, k) pair costs as much in elementwise work
+// (one exponential on the special-function unit, 16 a clock an SM, and
+// some eight more instructions) as in products. So there the exponential
+// is ex2.approx (its result rounded to bf16 next), and the mask selects
+// instead of branching (Mask::live), in a loop of its own for the tiles
+// that need it: with a branch an element the compiler could not
+// interleave the elements' exponentials, and each waited out the last.
+// K3 does the same at D = 32 in a kernel of its own (flash_bwd_sm90.cu).
+// Two ways to overlap the exponentials with the products, the consumer
+// warpgroups taking turns at the tensor cores and one tile's second
+// products issued with the next tile's scores, measured within the spread
+// of this schedule in both kernels (PERF.md), so neither is kept.
 //
 // Precision: dS is rounded to nearest bf16 before dS K (the A operand of a
 // bf16 wgmma is bf16), as aten's flash backward does; dq is rounded once to
@@ -241,15 +246,36 @@ __global__ void __launch_bounds__(Dq<D>::kThreads, 1)
     const bool need_mask =
         diag || segk != nullptr || k0 + kRowsK > Lk || r0 + 64 > Lq ||
         (causal && window > 0 && r0 + 63 - k0 >= window);
+    if constexpr (D == 32) {    // see the top of this file
+      // dp becomes ds; the mask, where a tile needs it, selects
+      if (need_mask) {
+        const int* seg = seg_tile + s * kRowsK;
 #pragma unroll
-    for (int r = 0; r < kRowsK / 2; ++r) {
-      const int h = (r >> 1) & 1, c = frag_col(r);
-      float p = exp2f(sc[r] * scale2 - lse2[h]);
-      if (need_mask &&
-          !mask(qpos[h], k0 + c, sq[h],
-                segk != nullptr ? seg_tile[s * kRowsK + c] : 0))
-        p = 0.f;
-      dp[r] = p * (dp[r] - dlt[h]) * scale;   // dp now holds ds
+        for (int r = 0; r < kRowsK / 2; ++r) {
+          const int h = (r >> 1) & 1, c = frag_col(r);
+          const float p = ex2(sc[r] * scale2 - lse2[h]);
+          const bool live = mask.live(qpos[h], k0 + c, sq[h],
+                                      segk != nullptr ? seg[c] : 0);
+          dp[r] = (live ? p : 0.f) * (dp[r] - dlt[h]) * scale;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRowsK / 2; ++r) {
+          const int h = (r >> 1) & 1;
+          dp[r] = ex2(sc[r] * scale2 - lse2[h]) * (dp[r] - dlt[h]) * scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRowsK / 2; ++r) {
+        const int h = (r >> 1) & 1, c = frag_col(r);
+        float p = exp2f(sc[r] * scale2 - lse2[h]);
+        if (need_mask &&
+            !mask(qpos[h], k0 + c, sq[h],
+                  segk != nullptr ? seg_tile[s * kRowsK + c] : 0))
+          p = 0.f;
+        dp[r] = p * (dp[r] - dlt[h]) * scale;   // dp now holds ds
+      }
     }
 
     uint32_t dsa[kRowsK / 16][4];
@@ -293,223 +319,6 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return launch_in_chunks((Lq + kRowsQ - 1) / kRowsQ, [&](int y0, int ny) {
     dim3 grid(BH, ny);
     dq_sm90_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
-        mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
-        Lq, Lk, causal, window, scale, y0);
-    return (int)cudaGetLastError();
-  });
-}
-
-// Head dim 32 (see the top of this file): 128 q rows a block as at the
-// other head dims, the two consumer warpgroups taking turns at the tensor
-// cores, each issuing dQ += dS K of one kv tile together with S and dP of
-// the next.
-__global__ void __launch_bounds__(Dq<32>::kThreads, 1)
-    dq_sm90_d32_kernel(const __grid_constant__ CUtensorMap tmQ,
-                       const __grid_constant__ CUtensorMap tmK,
-                       const __grid_constant__ CUtensorMap tmV,
-                       const __grid_constant__ CUtensorMap tmDO,
-                       const float* __restrict__ lse_g,
-                       const float* __restrict__ delta_g,
-                       const int* __restrict__ segq,
-                       const int* __restrict__ segk,
-                       __nv_bfloat16* __restrict__ dq, int H, int Hkv, int Lq,
-                       int Lk, int causal, int window, float scale, int y0) {
-  constexpr int D = 32;
-  using C = Dq<D>;
-  constexpr int kRowsK = C::kRowsK, kStages = C::kStages;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
-  const uint32_t base = raw + pad;
-  int* seg_tile = reinterpret_cast<int*>(smem_raw + pad + C::kOffSeg);
-  const uint32_t qbar = base + C::kOffBar;
-  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * kStages;
-
-  const int bh = blockIdx.x;
-  // longest causal rows first: the last q tile in the first block
-  const int qb = (Lq - 1) / kRowsQ - (y0 + (int)blockIdx.y);
-  const int kvh = kv_row(bh, H, Hkv);
-  const int q0 = qb * kRowsQ;
-
-  const int nkb = (Lk + kRowsK - 1) / kRowsK;
-  int kb_lo = 0, kb_hi = nkb;
-  if (causal) {
-    kb_hi = min(nkb, (q0 + kRowsQ - 1) / kRowsK + 1);
-    if (window > 0) {
-      const int lo = q0 - window + 1;   // first position any row can see
-      kb_lo = lo >= kRowsK ? lo / kRowsK : 0;
-    }
-  }
-  const int n = max(kb_hi - kb_lo, 0);  // kv tiles of this block
-
-  if (threadIdx.x == 0) {
-    mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1 + 32);
-      mbar_init(empty0 + 8 * s, kConsumers);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kConsumers) {            // producer warp
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_arrive_tx(qbar, 2 * C::kTileQ);
-      Tile<D>::load(base + C::kOffQ, &tmQ, qbar, q0, bh, kRowsQ);
-      Tile<D>::load(base + C::kOffDO, &tmDO, qbar, q0, bh, kRowsQ);
-    }
-    for (int i = 0; i < n; ++i) {
-      const int s = i % kStages;
-      const int k0 = (kb_lo + i) * kRowsK;
-      const uint32_t full = full0 + 8 * s;
-      mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
-      if (lane == 0) {
-        mbar_arrive_tx(full, 2 * C::kTileK);
-        Tile<D>::load(base + C::kOffK + s * C::kTileK, &tmK, full, k0, kvh,
-                      kRowsK);
-        Tile<D>::load(base + C::kOffV + s * C::kTileK, &tmV, full, k0, kvh,
-                      kRowsK);
-      }
-      for (int j = lane; j < kRowsK; j += 32) {  // 0 without segment ids
-        const int kp = k0 + j;
-        seg_tile[s * kRowsK + j] =
-            (segk != nullptr && kp < Lk) ? segk[(size_t)kvh * Lk + kp] : 0;
-      }
-      mbar_arrive(full);
-    }
-    return;
-  }
-
-  // consumer warpgroup wg owns q rows r0 .. r0 + 63
-  const int wg = threadIdx.x >> 7;
-  const int r0 = q0 + 64 * wg;
-  const float scale2 = scale * kLog2e;
-  const Mask mask{Lq, Lk, causal, window};
-  int qpos[2], sq[2];
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    qpos[h] = r0 + frag_row(2 * h);
-    const bool in = qpos[h] < Lq;
-    const size_t r = (size_t)bh * Lq + qpos[h];
-    const float ls = in ? lse_g[r] : kNegInf;
-    lse2[h] = ls > kNegInf * 0.5f ? ls * kLog2e
-                                  : __int_as_float(0x7f800000);  // +inf
-    dlt[h] = in ? delta_g[r] : 0.f;
-    sq[h] = (segq != nullptr && in) ? segq[r] : 0;
-  }
-  float dq_acc[D / 2], sc[kRowsK / 2], dp[kRowsK / 2];
-  uint32_t dsa[kRowsK / 16][4];
-#pragma unroll
-  for (int r = 0; r < D / 2; ++r) dq_acc[r] = 0.f;
-#pragma unroll
-  for (int r = 0; r < kRowsK / 2; ++r) sc[r] = dp[r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kRowsK / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dsa[kk][j] = 0u;
-  mbar_wait(qbar, 0);
-
-  // Phase i issues dQ += dS K of tile i - 1 (A = its dS fragments;
-  // kSecond) and S = Q K^T and dP = dO V^T of tile i (kScores), waits for
-  // them, frees tile i - 1's stage and turns tile i's scores into dS
-  // fragments. The products are chosen at compile time: ptxas serializes
-  // every wgmma of a kernel that issues one under a run-time branch.
-  // Warpgroup 0 issues first; warpgroup 1 lets it start.
-  auto phase = [&](auto second, auto scores, int i) {
-    constexpr bool kSecond = decltype(second)::value;
-    constexpr bool kScores = decltype(scores)::value;
-    const int s = i % kStages, sp = (i + kStages - 1) % kStages;
-    if (kScores) mbar_wait(full0 + 8 * s, (i / kStages) & 1);
-    turn_wait(wg);
-    fence_regs(dq_acc);
-    fence_regs(dsa);
-    fence_regs(sc);
-    fence_regs(dp);
-    wgmma_fence();
-    if constexpr (kSecond) {
-#pragma unroll
-      for (int kk = 0; kk < kRowsK / 16; ++kk)   // 16 kv rows of K a step
-        wgmma_rs_tile<D, 1>(dq_acc, dsa[kk], base + C::kOffK + sp * C::kTileK,
-                            kRowsK, 16 * kk);
-    }
-    if constexpr (kScores) {
-      wgmma_ss_tile<D>(sc, base + C::kOffQ, kRowsQ, 64 * wg,
-                       base + C::kOffK + s * C::kTileK);
-      wgmma_ss_tile<D>(dp, base + C::kOffDO, kRowsQ, 64 * wg,
-                       base + C::kOffV + s * C::kTileK);
-    }
-    wgmma_commit();
-    if (kScores || wg == 0) turn_pass(wg);   // as many passes as waits
-    wgmma_wait_all();
-    fence_regs(sc);
-    fence_regs(dp);
-    fence_regs(dq_acc);
-    if (kSecond) mbar_arrive(empty0 + 8 * sp);
-    if constexpr (kScores) {
-      const int k0 = (kb_lo + i) * kRowsK;
-      const bool diag = causal && k0 + kRowsK - 1 > r0;  // reaches above it
-      const bool need_mask =
-          diag || segk != nullptr || k0 + kRowsK > Lk || r0 + 64 > Lq ||
-          (causal && window > 0 && r0 + 63 - k0 >= window);
-      // dp becomes ds; the mask, where a tile needs it, selects
-      if (need_mask) {
-        const int* seg = seg_tile + s * kRowsK;
-#pragma unroll
-        for (int r = 0; r < kRowsK / 2; ++r) {
-          const int h = (r >> 1) & 1, c = frag_col(r);
-          const float p = ex2(sc[r] * scale2 - lse2[h]);
-          const bool live = mask.live(qpos[h], k0 + c, sq[h], seg[c]);
-          dp[r] = (live ? p : 0.f) * (dp[r] - dlt[h]) * scale;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < kRowsK / 2; ++r) {
-          const int h = (r >> 1) & 1;
-          dp[r] = ex2(sc[r] * scale2 - lse2[h]) * (dp[r] - dlt[h]) * scale;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kRowsK / 16; ++kk) to_a_frag(dp, kk, dsa[kk]);
-    }
-  };
-  if (wg == 1) turn_pass(wg);
-  if (n > 0) {
-    phase(Flag<false>{}, Flag<true>{}, 0);
-    for (int i = 1; i < n; ++i) phase(Flag<true>{}, Flag<true>{}, i);
-    phase(Flag<true>{}, Flag<false>{}, n);
-  } else {
-    phase(Flag<false>{}, Flag<false>{}, 0);  // the turns alone
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (qpos[h] < Lq)
-      store_row<D>(dq + ((size_t)bh * Lq + qpos[h]) * D, dq_acc, h, 1.f);
-}
-
-int launch_d32(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, const int* segq,
-               const int* segk, void* dq, int BH, int H, int Hkv, int Lq,
-               int Lk, int causal, int window, float scale,
-               cudaStream_t stream) {
-  constexpr int D = 32;
-  using C = Dq<D>;
-  const int BHkv = BH / H * Hkv;
-  CUtensorMap mq, mk, mv, mdo;
-  if (!Tile<D>::make_map(&mq, q, BH, Lq, kRowsQ) ||
-      !Tile<D>::make_map(&mdo, dout, BH, Lq, kRowsQ) ||
-      !Tile<D>::make_map(&mk, k, BHkv, Lk, C::kRowsK) ||
-      !Tile<D>::make_map(&mv, v, BHkv, Lk, C::kRowsK))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_sm90_d32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  return launch_in_chunks((Lq + kRowsQ - 1) / kRowsQ, [&](int y0, int ny) {
-    dim3 grid(BH, ny);
-    dq_sm90_d32_kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
         mq, mk, mv, mdo, lse, delta, segq, segk, (__nv_bfloat16*)dq, H, Hkv,
         Lq, Lk, causal, window, scale, y0);
     return (int)cudaGetLastError();
@@ -753,8 +562,8 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
                    float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_d32(q, k, v, dout, lse, delta, segq, segk, dq, BH, H, Hkv,
-                        Lq, Lk, causal, window, scale, stream);
+      return launch<32>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
+                        Hkv, Lq, Lk, causal, window, scale, stream);
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, segq, segk, dq, BH, H,
                         Hkv, Lq, Lk, causal, window, scale, stream);

@@ -57,19 +57,13 @@
 // Shared memory: K, V 32 KB each; Q and dO 32 KB a stage each, 2 stages;
 // the swap 16 KB; ~211 KB. 384 threads, setmaxnreg as at D = 128.
 //
-// D = 32 (dkdv_sm90_d32_kernel): the block and tiles of D = 64, but at this
-// width a (q, k) pair costs as much in elementwise work (one exponential on
-// the special-function unit, 16 a clock an SM, and some eight more
-// instructions) as in products, and the D = 64 design runs the two in
-// turn, each warpgroup waiting out its products and then the other unit.
-// Here the two consumer warpgroups take turns at the tensor cores (named
-// barriers 2 and 3; sm90.cuh's turn_wait, turn_pass), so one warpgroup's
-// exponentials run under the other's products; each phase issues dV and
-// dK of q tile i - 1 with S^T and dP^T of tile i (a phase's products are
-// fixed at compile time: ptxas serializes every wgmma of a kernel that
-// issues one under a run-time branch). The exponential is ex2.approx (its
-// result rounded to bf16 next), and the mask selects instead of branching
-// (Mask::live): with a branch an element the compiler could not interleave
+// D = 32 (dkdv_sm90_d32_kernel): the block, tiles and schedule of D = 64,
+// but at this width a (q, k) pair costs as much in elementwise work (one
+// exponential on the special-function unit, 16 a clock an SM, and some
+// eight more instructions) as in products. So the exponential is
+// ex2.approx (its result rounded to bf16 next), and the mask selects
+// instead of branching (Mask::live), in a loop of its own for the tiles
+// that need it: with a branch an element the compiler could not interleave
 // the elements' exponentials, and each waited out the last. Q and dO
 // stream through 4 stages; the producer loads a tile's lse, delta and
 // segment ids one tile ahead (load_side), off the ring's path. 384 threads
@@ -313,9 +307,8 @@ __global__ void __launch_bounds__(Bwd<D>::kThreads, 1)
   }
 }
 
-// Head dim 32 (see the top of this file): the two consumer warpgroups take
-// turns at the tensor cores, and each issues the second products of one q
-// tile together with the score products of the next.
+// Head dim 32 (see the top of this file): D = 64's schedule, the
+// exponential on ex2.approx, the mask a select, a deeper ring.
 struct BwdD32 {
   static constexpr int D = 32;
   static constexpr int kThreads = kConsumers + 128;  // producer warpgroup
@@ -460,101 +453,73 @@ __global__ void __launch_bounds__(BwdD32::kThreads, 1)
                 ? segk[(size_t)kvh * Lk + kpos[h]]
                 : 0;
   }
-  float dk_acc[D / 2], dv_acc[D / 2], sc[kRowsQ / 2], dp[kRowsQ / 2];
-  uint32_t pa[kRowsQ / 16][4], dsa[kRowsQ / 16][4];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
-#pragma unroll
-  for (int r = 0; r < kRowsQ / 2; ++r) sc[r] = dp[r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kRowsQ / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pa[kk][j] = dsa[kk][j] = 0u;
   mbar_wait(kvbar, 0);
 
-  // Phase i issues dV += P^T dO and dK += dS^T Q of tile i - 1 (A = its P^T
-  // and dS^T fragments; kSecond) and S^T = K Q^T and dP^T = V dO^T of tile
-  // i (kScores), waits for them, frees tile i - 1's stage and turns tile
-  // i's scores into its fragments. The products are chosen at compile time:
-  // ptxas serializes every wgmma of a kernel that issues one under a
-  // run-time branch. Warpgroup 0 issues first; warpgroup 1 lets it start.
-  auto phase = [&](auto second, auto scores, int i) {
-    constexpr bool kSecond = decltype(second)::value;
-    constexpr bool kScores = decltype(scores)::value;
-    const int s = i % kS, sp = (i + kS - 1) % kS;  // tile i's, tile i - 1's
-    if (kScores) mbar_wait(full0 + 8 * s, (i / kS) & 1);
-    turn_wait(wg);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kS;
+    const int q0 = (qb_lo + i) * kRowsQ;
+    const uint32_t qaddr = base + C::kOffQ + s * C::kTileQ;
+    const uint32_t doaddr = base + C::kOffDO + s * C::kTileQ;
+    const float* st = side + s * C::kSide;
+    mbar_wait(full0 + 8 * s, (i / kS) & 1);
+
+    float sc[kRowsQ / 2], dp[kRowsQ / 2];
+    wgmma_fence();
+    wgmma_ss_tile<D>(sc, base + C::kOffK, kRowsK, 64 * wg, qaddr);
+    wgmma_ss_tile<D>(dp, base + C::kOffV, kRowsK, 64 * wg, doaddr);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool diag = causal && kr0 + 63 > q0;  // reaches above it
+    const bool need_mask =
+        diag || segq != nullptr || q0 + kRowsQ > Lq || kr0 + 64 > Lk ||
+        (causal && window > 0 && q0 + kRowsQ - 1 - kr0 >= window);
+    // sc becomes p^T and dp dS^T; the mask, where a tile needs it, selects
+    if (need_mask) {
+      const int* seg = reinterpret_cast<const int*>(st) + 2 * kRowsQ;
+#pragma unroll
+      for (int r = 0; r < kRowsQ / 2; ++r) {
+        const int c = frag_col(r), h = (r >> 1) & 1;
+        const float p = ex2(sc[r] * scale2 - st[c]);
+        sc[r] = mask.live(q0 + c, kpos[h], seg[c], sk[h]) ? p : 0.f;
+        dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRowsQ / 2; ++r) {
+        const int c = frag_col(r);
+        sc[r] = ex2(sc[r] * scale2 - st[c]);
+        dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+      }
+    }
+
+    uint32_t pa[kRowsQ / 16][4], dsa[kRowsQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk) {
+      to_a_frag(sc, kk, pa[kk]);
+      to_a_frag(dp, kk, dsa[kk]);
+    }
     fence_regs(dk_acc);
     fence_regs(dv_acc);
     fence_regs(pa);
     fence_regs(dsa);
-    fence_regs(sc);
-    fence_regs(dp);
     wgmma_fence();
-    if constexpr (kSecond) {
-      const uint32_t qaddr = base + C::kOffQ + sp * C::kTileQ;
-      const uint32_t doaddr = base + C::kOffDO + sp * C::kTileQ;
 #pragma unroll
-      for (int kk = 0; kk < kRowsQ / 16; ++kk)   // 16 q rows of dO a step
-        wgmma_rs_tile<D, 1>(dv_acc, pa[kk], doaddr, kRowsQ, 16 * kk);
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)   // 16 q rows of dO a step
+      wgmma_rs_tile<D, 1>(dv_acc, pa[kk], doaddr, kRowsQ, 16 * kk);
 #pragma unroll
-      for (int kk = 0; kk < kRowsQ / 16; ++kk)
-        wgmma_rs_tile<D, 1>(dk_acc, dsa[kk], qaddr, kRowsQ, 16 * kk);
-    }
-    if constexpr (kScores) {
-      wgmma_ss_tile<D>(sc, base + C::kOffK, kRowsK, 64 * wg,
-                       base + C::kOffQ + s * C::kTileQ);
-      wgmma_ss_tile<D>(dp, base + C::kOffV, kRowsK, 64 * wg,
-                       base + C::kOffDO + s * C::kTileQ);
-    }
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)
+      wgmma_rs_tile<D, 1>(dk_acc, dsa[kk], qaddr, kRowsQ, 16 * kk);
     wgmma_commit();
-    if (kScores || wg == 0) turn_pass(wg);   // as many passes as waits
     wgmma_wait_all();
-    fence_regs(sc);
-    fence_regs(dp);
     fence_regs(dk_acc);
     fence_regs(dv_acc);
-    if (kSecond) mbar_arrive(empty0 + 8 * sp);
-    if constexpr (kScores) {
-      const int q0 = (qb_lo + i) * kRowsQ;
-      const float* st = side + s * C::kSide;
-      const bool diag = causal && kr0 + 63 > q0;  // reaches above it
-      const bool need_mask =
-          diag || segq != nullptr || q0 + kRowsQ > Lq || kr0 + 64 > Lk ||
-          (causal && window > 0 && q0 + kRowsQ - 1 - kr0 >= window);
-      // sc becomes p^T and dp dS^T; the mask, where a tile needs it,
-      // selects
-      if (need_mask) {
-        const int* seg = reinterpret_cast<const int*>(st) + 2 * kRowsQ;
-#pragma unroll
-        for (int r = 0; r < kRowsQ / 2; ++r) {
-          const int c = frag_col(r), h = (r >> 1) & 1;
-          const float p = ex2(sc[r] * scale2 - st[c]);
-          sc[r] = mask.live(q0 + c, kpos[h], seg[c], sk[h]) ? p : 0.f;
-          dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < kRowsQ / 2; ++r) {
-          const int c = frag_col(r);
-          sc[r] = ex2(sc[r] * scale2 - st[c]);
-          dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kRowsQ / 16; ++kk) {
-        to_a_frag(sc, kk, pa[kk]);
-        to_a_frag(dp, kk, dsa[kk]);
-      }
-    }
-  };
-  if (wg == 1) turn_pass(wg);
-  if (n > 0) {
-    phase(Flag<false>{}, Flag<true>{}, 0);
-    for (int i = 1; i < n; ++i) phase(Flag<true>{}, Flag<true>{}, i);
-    phase(Flag<true>{}, Flag<false>{}, n);
-  } else {
-    phase(Flag<false>{}, Flag<false>{}, 0);  // the turns alone
+    mbar_arrive(empty0 + 8 * s);
   }
 
 #pragma unroll

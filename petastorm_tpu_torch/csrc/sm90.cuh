@@ -242,26 +242,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// Ping-pong of the two consumer warpgroups (the head dim 32 backward
-// kernels): warpgroup wg waits on named barrier 2 + wg before it issues a
-// phase of products, and once they are issued lets the other warpgroup
-// issue its own by arriving on barrier 3 - wg. Each barrier counts 256
-// threads: the 128 that wait and the 128 that arrive. So the tensor cores
-// run one warpgroup's products while the other computes its exponentials.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
-}
-
-// A compile-time flag passed as a value (the phases of the head dim 32
-// kernels are one generic lambda whose products `if constexpr` chooses).
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
 // 2^x on the special-function unit (ex2.approx, flushing results below
 // 2^-126 to zero; 2^-inf = 0), about 2^-22 relative error: far inside the
 // bf16 rounding of p and ds that follows. exp2f's full-range path costs

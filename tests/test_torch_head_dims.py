@@ -425,8 +425,9 @@ def test_phase_31_rehearses_on_the_cpu():
 
 def test_ptxas_instances_name_the_head_dim_32_kernels():
     """``chip_smoke.ptxas_instances`` files the head dim 32 backward kernels
-    (``dq_sm90_d32_kernel``, ``dkdv_sm90_d32_kernel`` in both output dtypes)
-    under K2 and K3 at head dim 32, beside the other instantiations."""
+    (K2's ``dq_sm90_kernel<32>``, K3's ``dkdv_sm90_d32_kernel`` in both
+    output dtypes) under K2 and K3 at head dim 32, beside the other
+    instantiations."""
     import chip_smoke
 
     def entry(name, regs, spill=0):
@@ -437,8 +438,8 @@ def test_ptxas_instances_name_the_head_dim_32_kernels():
                 % (name, name, spill, spill, regs))
     log = ''.join([
         entry('_ZN5flash53_GLOBAL__N__9f0f383c_20_flash_bwd_dq_sm90_cu_f212f7'
-              '2a18dq_sm90_d32_kernelE14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_'
-              'P13__nv_bfloat16iiiiiifi', 143),
+              '2a14dq_sm90_kernelILi32EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6'
+              '_P13__nv_bfloat16iiiiiifi', 143),
         entry('_ZN5flash50_GLOBAL__N__965bde5d_17_flash_bwd_sm90_cu_11078b7f'
               '20dkdv_sm90_d32_kernelI13__nv_bfloat16EEv14CUtensorMap_stS3_S3'
               '_S3_PKfS5_PKiS7_PT_S9_iiiiiifi', 168),
