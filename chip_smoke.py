@@ -9,8 +9,9 @@ printing one line or a few:
    source, all started together, then one link (bf16 K1, K2, K3 on
    Hopper's tensor cores at head dims 32, 64, 128 and 256 (K2 and K3 at
    32 with the exponential on ``ex2.approx`` and the mask a select, K3 on
-   a kernel of its own), and the wide kernels at any multiple of 64 past
-   256:
+   a kernel of its own; K1 at 32 and 128 on the Hopper schedule, its
+   softmax under its products), and the wide kernels at any multiple of
+   64 past 256:
    ``flash_fwd_sm90.cu``,
    ``flash_bwd_dq_sm90.cu``, ``flash_bwd_sm90.cu``; float32 K1-K3 on the
    FP32 cores at 16, 32, 64, 128 and 256, and wide past 256:
@@ -169,7 +170,10 @@ printing one line or a few:
    and a pass decodes on the host; 5 LM steps on K1-K3 from lineage-on
    batches, and ``goodput.explain_step`` naming a source row group. The
    card's name and power limit stand beside each number;
-16. times: each kernel's time at its path shape beside its bound, its plain
+16. times: each kernel's time at its path shape beside its bound (the
+   largest of the tensor operations over the bf16 peak, the compulsory
+   bytes over the memory rate, and one 2^x a live pair over the
+   special-function rate: ``bounds``), its plain
    twin's time, and a library call's time as a yardstick (never used by
    the port): ``scaled_dot_product_attention`` for the forward, aten's
    flash-attention backward (dq, dk and dv in one call) for K2 and K3
@@ -640,6 +644,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12            # float32 outside the tensor cores
+# 2^x on the special-function unit: 16 a clock an SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0), at the
+# max SM clock nvidia-smi reports (``exp_rate``), else the H100 SXM's
+EXP_PER_CLOCK = 16
+MAX_SM_MHZ = 1980
+EXP_RATE = EXP_PER_CLOCK * 132 * MAX_SM_MHZ * 1e6   # 132 SMs: 4.18e12 / s
 
 PATH_SHAPE = (8, 8, 2048, 64)     # B, H, L, head_dim of the LM's attention
 TOL_F32 = 1e-4                    # atol = rtol: float32 sums in other order
@@ -5200,6 +5210,10 @@ def resilience_line(torch, np, tlm, kernels, args, device='cuda', cfg=None,
 
 
 def time_ms(torch, fn, reps):
+    """Median of ``reps`` single calls of ``fn``, each between two events:
+    the device's time from the first event to the second, which takes in
+    whatever the host spends inside ``fn`` before its launch (a Python
+    wrapper's checks and tensor maps) when the card has nothing queued."""
     for _ in range(2):
         fn()
     samples = []
@@ -5214,12 +5228,29 @@ def time_ms(torch, fn, reps):
     return statistics.median(samples)
 
 
-def bounds(shape, hkv=None):
+def exp_rate(torch):
+    """2^x a second on the card: ``EXP_PER_CLOCK`` an SM, times its SMs,
+    times the max SM clock of ``nvidia-smi --query-gpu=clocks.max.sm``
+    (``MAX_SM_MHZ`` where the query fails)."""
+    try:
+        mhz = float(subprocess.run(
+            ['nvidia-smi', '--query-gpu=clocks.max.sm',
+             '--format=csv,noheader,nounits'], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        mhz = MAX_SM_MHZ
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK * sms * mhz * 1e6
+
+
+def bounds(shape, hkv=None, exp_per_s=EXP_RATE):
     """(bound_ms, bound_by, flops) per kernel at the causal bf16 path shape
-    (``hkv`` kv heads, H by default): operations over the bf16 tensor-core
-    peak against compulsory bytes (each input read once, each output
+    (``hkv`` kv heads, H by default): the largest of three times, named by
+    ``bound_by``: ``operations``, the tensor operations over the bf16
+    peak; ``bytes``, compulsory bytes (each input read once, each output
     written once: under GQA K3's float32 partials per q head) over HBM
-    rate."""
+    rate; ``exponentials``, one 2^x a live (q, k) pair (each kernel
+    computes p once a pair) over ``exp_per_s``."""
     b, h, l, d = shape
     hkv = h if hkv is None else hkv
     pairs = b * h * l * (l + 1) // 2            # live causal (q, k) pairs
@@ -5233,9 +5264,11 @@ def bounds(shape, hkv=None):
                                2 * elem + 2 * kv + dkdv + 2 * row)}
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     'operations' if t_ops >= t_bytes else 'bytes', flops)
+        terms = {'operations': flops / PEAK_BF16_FLOPS,
+                 'bytes': nbytes / PEAK_BYTES,
+                 'exponentials': pairs / exp_per_s}
+        by = max(terms, key=terms.get)
+        out[name] = (terms[by] * 1e3, by, flops)
     return out
 
 
@@ -5271,7 +5304,8 @@ def timings(torch, kernels, gen, reps, shape=PATH_SHAPE, hkv=None):
     }
     out = {}
     for name, (kern, plain) in runs.items():
-        out[name] = {'ms': time_ms(torch, kern, reps),
+        ms, call_ms = device_and_call_ms(torch, kern, reps)
+        out[name] = {'ms': ms, 'call_ms': call_ms,
                      'plain_ms': time_ms(torch, plain, max(3, reps // 4))}
     # yardsticks only: the port never calls these
     q4, do4 = (x.view(b, h, l, d) for x in (q, do))
@@ -5279,22 +5313,36 @@ def timings(torch, kernels, gen, reps, shape=PATH_SHAPE, hkv=None):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if d > 256 or hkv != h:
         return _wide_library_times(torch, sdpa, out, q4, k4, v4, do4, reps)
-    out['flash_fwd']['library_ms'] = time_ms(
-        torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps)
-    out['flash_fwd']['library'] = 'scaled_dot_product_attention'
+    _library(out, ('flash_fwd',), 'scaled_dot_product_attention',
+             *device_and_call_ms(
+                 torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps))
     aten = torch.ops.aten
     fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
     o4, lse4, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
     lib_bwd = aten._scaled_dot_product_flash_attention_backward
-    bwd_ms = time_ms(torch, lambda: lib_bwd(do4, q4, k4, v4, o4, lse4, cum_q,
-                                            cum_k, max_q, max_k, 0.0, True,
-                                            seed, offset), reps)
-    for name in ('flash_bwd_dq', 'flash_bwd_dkdv'):
-        # one call computes dq, dk and dv: compare it with K2 + K3 together
-        out[name]['library_ms'] = bwd_ms
-        out[name]['library'] = ('_scaled_dot_product_flash_attention_backward'
-                                ' (dq, dk, dv in one call)')
+    # one call computes dq, dk and dv: compare it with K2 + K3 together
+    _library(out, ('flash_bwd_dq', 'flash_bwd_dkdv'),
+             '_scaled_dot_product_flash_attention_backward (dq, dk, dv in '
+             'one call)',
+             *device_and_call_ms(
+                 torch, lambda: lib_bwd(do4, q4, k4, v4, o4, lse4, cum_q,
+                                        cum_k, max_q, max_k, 0.0, True, seed,
+                                        offset), reps))
     return out
+
+
+def device_and_call_ms(torch, fn, reps):
+    """(ms, call_ms) of ``fn``: its device time, ``reps`` calls back to
+    back behind a sleep kernel (``loop_ms``: the host's time in ``fn``
+    hidden), and one call between two events (``time_ms``: the host's time
+    in ``fn`` included, as a caller that waits on the result sees it)."""
+    return loop_ms(torch, fn, reps), time_ms(torch, fn, reps)
+
+
+def _library(out, names, library, ms, call_ms):
+    for name in names:
+        out[name].update(library_ms=ms, library_call_ms=call_ms,
+                         library=library)
 
 
 def _wide_library_times(torch, sdpa, out, q, k, v, do, reps):
@@ -5304,19 +5352,17 @@ def _wide_library_times(torch, sdpa, out, q, k, v, do, reps):
     (dq, dk, dv in one call) through autograd."""
     kw = {'enable_gqa': True} if k.shape[1] != q.shape[1] else {}
     backend = sdpa_backend(torch, q, k, v, **kw)
-    out['flash_fwd']['library_ms'] = time_ms(
-        torch, lambda: sdpa(q, k, v, is_causal=True, **kw), reps)
-    out['flash_fwd']['library'] = ('scaled_dot_product_attention (%s)'
-                                   % backend)
+    _library(out, ('flash_fwd',),
+             'scaled_dot_product_attention (%s)' % backend,
+             *device_and_call_ms(
+                 torch, lambda: sdpa(q, k, v, is_causal=True, **kw), reps))
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     o = sdpa(qg, kg, vg, is_causal=True, **kw)
-    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        o, (qg, kg, vg), do, retain_graph=True), reps)
-    for name in ('flash_bwd_dq', 'flash_bwd_dkdv'):
-        out[name]['library_ms'] = bwd_ms
-        out[name]['library'] = ('scaled_dot_product_attention (%s) backward '
-                                'through autograd (dq, dk, dv in one call)'
-                                % backend)
+    _library(out, ('flash_bwd_dq', 'flash_bwd_dkdv'),
+             'scaled_dot_product_attention (%s) backward through autograd '
+             '(dq, dk, dv in one call)' % backend,
+             *device_and_call_ms(torch, lambda: torch.autograd.grad(
+                 o, (qg, kg, vg), do, retain_graph=True), reps))
     return out
 
 
@@ -9365,7 +9411,8 @@ def ptxas_instances(log_text):
     ``-Xptxas -v`` report, from the mangled names."""
     import re
     instance = re.compile(
-        r'(fwd_sm90_kernel|dq_sm90_kernel|dkdv_sm90_split_kernel|'
+        r'(fwd_sm90_kernel|fwd_persistent_sm90_kernel|dq_sm90_kernel|'
+        r'dkdv_sm90_split_kernel|'
         r'dkdv_sm90_kernel|dkdv_sm90_d32_kernel|'
         r'fwd_kernel|dq_kernel|dkdv_kernel|'
         r'normalize_kernel|fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
@@ -9685,7 +9732,10 @@ def main(argv=None):
     head_times = {key: timings(torch, kernels, gen, REPS, shape, hkv)
                   for key, _, shape, hkv in timed_paths}
     small_head_times(torch, kernels, gen)
-    bound = bounds(PATH_SHAPE)
+    exps = exp_rate(torch)
+    log('exponentials %.4g 2^x a second (%d a clock an SM)'
+        % (exps, EXP_PER_CLOCK))
+    bound = bounds(PATH_SHAPE, exp_per_s=exps)
     phase = time.perf_counter()
     k4 = k4_times(torch, kernels, args.seed)
     k4_c8 = k4_times(torch, kernels, args.seed,
@@ -9709,7 +9759,7 @@ def main(argv=None):
     rows = [(name, name, 64, times[name], bound[name], launches[name],
              errs[name]) for name in KERNELS]
     for key, d, shape, hkv in timed_paths:
-        head_bound = bounds(shape, hkv)
+        head_bound = bounds(shape, hkv, exps)
         tag = 'd%d' % d if key == d else '%s%d' % (key, d)
         rows += [('%s_%s' % (name, tag), name, d, head_times[key][name],
                   head_bound[name], head_launches[key][name],
@@ -9721,11 +9771,16 @@ def main(argv=None):
                'replaces': replaces, 'status': 'ported',
                'launches': count, 'max_abs_err': err, 'ms': t['ms'],
                'plain_ms': t['plain_ms'], 'bound_ms': bnd[0],
-               'bound_by': bnd[1],
+               # the exponentials are operations too, on their own unit
+               'bound_by': 'bytes' if bnd[1] == 'bytes' else 'operations',
+               'bound_term': bnd[1],
                'library_ms': t['library_ms'], 'library': t['library']}
         if 'yardstick_ms' in t:
             row.update(yardstick_ms=t['yardstick_ms'],
                        yardstick=t['yardstick'])
+        if 'call_ms' in t:   # one call, the wrapper's host time included
+            row.update(call_ms=t['call_ms'],
+                       library_call_ms=t['library_call_ms'])
         if name in FLASH:
             # the float32-only head dim 16 is listed with the D = 64 rows;
             # past 256 the wide kernels, which take any multiple of 64
@@ -9739,21 +9794,30 @@ def main(argv=None):
         rate = ('%.1f TFLOP/s, ' % (bnd[2] / t['ms'] / 1e9)
                 if name in FLASH else '')
         log('time %-20s %.4f ms, %s%.1f%% of its bound (bound %.4f ms by %s, '
-            'plain %.4f ms, library %s: %s%s)'
+            'plain %.4f ms, library %s: %s%s%s)'
             % (label, t['ms'], rate, 100 * bnd[0] / t['ms'],
                bnd[0], bnd[1], t['plain_ms'],
                'n/a' if t['library_ms'] is None
                else '%.4f ms' % t['library_ms'], t['library'],
                '; yardstick %.4f ms, %s' % (t['yardstick_ms'],
                                             t['yardstick'])
-               if 'yardstick_ms' in t else ''))
+               if 'yardstick_ms' in t else '',
+               '; one call %.4f ms, library %.4f ms'
+               % (t['call_ms'], t['library_call_ms'])
+               if 'call_ms' in t else ''))
     for d, t in ((64, times), *head_times.items()):
-        bwd = t['flash_bwd_dq']['ms'] + t['flash_bwd_dkdv']['ms']
-        aten = t['flash_bwd_dq']['library_ms']
-        log('time D=%s backward K2 + K3 %.4f ms, %s %.4f ms: %.2fx; K1 %.2fx '
-            '%s' % (d, bwd, t['flash_bwd_dq']['library'], aten, bwd / aten,
-                    t['flash_fwd']['ms'] / t['flash_fwd']['library_ms'],
-                    t['flash_fwd']['library']))
+        factors = []
+        for key in ('ms', 'call_ms'):
+            lib = 'library_' + key
+            bwd = t['flash_bwd_dq'][key] + t['flash_bwd_dkdv'][key]
+            factors.append('K2 + K3 %.4f ms, library %.4f ms: %.2fx; K1 '
+                           '%.2fx' % (bwd, t['flash_bwd_dq'][lib],
+                                      bwd / t['flash_bwd_dq'][lib],
+                                      t['flash_fwd'][key]
+                                      / t['flash_fwd'][lib]))
+        log('time D=%s device (back to back): %s; one call: %s (%s; %s)'
+            % (d, factors[0], factors[1], t['flash_bwd_dq']['library'],
+               t['flash_fwd']['library']))
     log('wall %.1f s' % (time.perf_counter() - wall))
     print(json.dumps({'kernels': table}))
     print(json.dumps({'ok': True, 'device': {

@@ -15,6 +15,17 @@ sources' wrappers pass. ``--parent`` adds the checkout at ``DIR``
 (``_archive/parent`` by default: the parent commit unpacked there with
 ``git archive``), timed as ``parent``.
 
+Variants of K1 (flash forward) at head dims 32 and 128, each the sources'
+Hopper schedule without one of its parts: ``k1_exp2f`` puts exp2f's
+full-range 2^x back in place of ex2.approx; ``k1_branch_mask`` the mask's
+branch an element in place of its selects; ``k1_live_on_diagonal``
+``Mask::live`` in place of the causal test alone on a causal band's
+diagonal tile; ``k1_not_persistent`` a block an item in place of a block
+an SM; ``k1_round_robin`` a block's items in plain round robin (b, G + b,
+...) in place of every other row reversed; ``k1_d128_64rows_288`` the parent's 64-row kv tiles in a 288-thread
+block (168 registers, no setmaxnreg) at D 128; ``k1_d128_2_stages`` 2
+stages in place of 3 at D 128; ``diag_k1_no_exp`` leaves its exponential
+out (p = s scale2 - m: timed, never checked).
 Variants of K3 (flash dk/dv): ``k3_d128_168regs`` is what setmaxnreg buys
 it at head dim 128: the sources' block (384 threads, the producer
 warpgroup handing its registers to the two consumer warpgroups, 232 a
@@ -42,8 +53,10 @@ turn, the order reversed from one round to the next, at the path shape of
 (8, 4, 2048, 128), (8, 2, 2048, 256) or (8, 1, 2048, 512), or at 576
 DeepSeek-V3's absorbed-MLA shape (1, 128, 2048, 576) over one kv head;
 or at ``--shape``, say the north-star LM's attention (8, 8, 256, 32); bf16
-causal; ``chip_smoke.timings``: median of ``--reps``
-CUDA-event-timed launches, beside SDPA and a library backward). Past head
+causal; ``chip_smoke.timings``: ``--reps`` launches back to back between
+two CUDA events, median of 5 such loops, and the median of as many single
+calls, each between two events, beside SDPA and a library backward). Past
+head
 dim 256 (the wide kernels) a checkout from before them cannot be timed:
 give it with ``--rounds 0`` (machine code only). The last line is one JSON
 object of every timing. Needs a CUDA device and ``nvcc``.
@@ -92,6 +105,40 @@ VARIANTS = {
     'd32_exp2f': [
         (name, '= ex2(', '= exp2f(')
         for name in ('flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')],
+    # K1's Hopper schedule (head dims 32 and 128) without each of its parts
+    'k1_exp2f': [('flash_fwd_sm90.cu', '= ex2(', '= exp2f(')],
+    'k1_branch_mask': [
+        ('flash_fwd_sm90.cu',
+         '      sc[r] = mask.live(qpos[h], k0 + c, sq[h], seg != nullptr ? '
+         'seg[c] : 0)\n                  ? sc[r] : neg_inf();\n',
+         '      if (!mask(qpos[h], k0 + c, sq[h], seg != nullptr ? seg[c] '
+         ': 0))\n        sc[r] = neg_inf();\n'),
+        ('flash_fwd_sm90.cu',
+         'sc[r] = k0 + c <= qpos[h] ? sc[r] : neg_inf();',
+         'if (k0 + c > qpos[h]) sc[r] = neg_inf();')],
+    'k1_live_on_diagonal': [
+        ('flash_fwd_sm90.cu',
+         'sc[r] = k0 + c <= qpos[h] ? sc[r] : neg_inf();',
+         'sc[r] = mask.live(qpos[h], k0 + c, sq[h], 0) ? sc[r] : neg_inf();')],
+    'k1_not_persistent': [
+        ('flash_fwd_sm90.cu',
+         'const int grid = (int)(items < sms ? items : sms);',
+         'const int grid = (int)items;')],
+    'k1_round_robin': [('flash_fwd_sm90.cu',
+                        '((k & 1) ? G - 1 - b : b)', 'b')],
+    'k1_d128_64rows_288': [
+        ('flash_fwd_sm90.cu', 'constexpr int kRowsKH = 128;',
+         'constexpr int kRowsKH = 64;'),
+        ('flash_fwd_sm90.cu', 'static constexpr bool kRealloc = true;',
+         'static constexpr bool kRealloc = D == 32;')],
+    'k1_d128_2_stages': [
+        ('flash_fwd_sm90.cu',
+         'static constexpr int kStages = D == 32 ? 4 : 3;',
+         'static constexpr int kStages = D == 32 ? 4 : 2;')],
+    # a diagnostic of K1's Hopper schedule: the exponential left out
+    'diag_k1_no_exp': [('flash_fwd_sm90.cu',
+                        'sc[r] = ex2(fmaf(sc[r], scale2, neg_m[h]));',
+                        'sc[r] = fmaf(sc[r], scale2, neg_m[h]);')],
 }
 # Variants of the parent's head dim 32 kernels (the Tile<32> instantiations
 # of dq_sm90_kernel and dkdv_sm90_kernel that this PR's commit replaced),
@@ -167,7 +214,8 @@ PARENT_VARIANTS['parent_d32_select_ex2_k3_4_stages_realloc'] = (
     + PARENT_VARIANTS['parent_k3_d32_realloc'])
 #: Variants whose outputs are knowingly wrong (a step of the work left
 #: out, to see what it costs): timed, never held against the twins.
-DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax'}
+DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax',
+              'diag_k1_no_exp'}
 
 
 def build_variant(kernels, csrc_from, edits, tmpdir):
@@ -349,13 +397,21 @@ def main(argv=None):
                 row.update({k: t[k]['ms'] for k in chip_smoke.FLASH})
                 row.update(sdpa_ms=t['flash_fwd']['library_ms'],
                            aten_bwd_ms=t['flash_bwd_dq']['library_ms'])
+                row['call_ms'] = {k: t[k]['call_ms'] for k in chip_smoke.FLASH}
+                row['call_ms'].update(
+                    sdpa=t['flash_fwd']['library_call_ms'],
+                    aten_bwd=t['flash_bwd_dq']['library_call_ms'])
                 out['timings'].append(row)
                 print('round %d %-15s D=%d K1 %.4f K2 %.4f K3 %.4f ms (%s '
-                      '%.4f, %s %.4f)'
+                      '%.4f, %s %.4f); one call K1 %.4f K2 %.4f K3 %.4f, '
+                      'library %.4f, %.4f'
                       % (rnd, name, d, row['flash_fwd'], row['flash_bwd_dq'],
                          row['flash_bwd_dkdv'], t['flash_fwd']['library'],
                          row['sdpa_ms'], t['flash_bwd_dq']['library'],
-                         row['aten_bwd_ms']), flush=True)
+                         row['aten_bwd_ms'],
+                         *(row['call_ms'][k] for k in (*chip_smoke.FLASH,
+                                                       'sdpa', 'aten_bwd'))),
+                      flush=True)
     finally:
         for tmp in tmpdirs:
             shutil.rmtree(tmp, ignore_errors=True)

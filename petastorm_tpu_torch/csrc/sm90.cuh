@@ -265,6 +265,13 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N of the warpgroup's committed wgmma groups are still
+// pending (the most recent N): wgmma_wait<1> lets the last group run on.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  static_assert(N > 0, "wgmma_wait_all waits for every group");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Ties each register of a wgmma operand to this point in the program, so
 // the compiler moves no write of it past a following wgmma_fence and no

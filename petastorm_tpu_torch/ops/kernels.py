@@ -30,7 +30,9 @@ started together and linked into
 imported. The attention kernels are instantiated at the head dims of
 :data:`HEAD_DIMS`: 32, 64, 128 and 256 in bf16 (the tensor-core kernels),
 and 16, 32, 64, 128 and 256 in float32 (the FP32-core kernels); bf16 K2
-and K3 at 32 run kernels of their own, designed for that width. Past 256
+and K3 at 32 run kernels of their own, designed for that width, and bf16
+K1 at 32 and 128 a persistent kernel with its softmax under its products
+(``csrc/flash_fwd_sm90.cu``). Past 256
 both dtypes run the wide kernels, which take any multiple of
 :data:`WIDE_STEP` (64): each block owns one slice of the output's columns
 and streams q k^T and do v^T over the head dim in 64-column chunks. A

@@ -17,8 +17,9 @@ tile) stands in for the kernels: the gate accepts it, and the bias check
 rejects its truncating variants (p truncated for o and dv, ds alone for dk
 and dq). On the card (``-m cuda``) broken copies of the kernels, built
 alone, must each be rejected by the gate: at head dim 64, broken copies
-of the wide kernels (head dims past 256) at head dim ``WIDE_D``, and of K2's
-and K3's head dim 32 kernels at 32.
+of the wide kernels (head dims past 256) at head dim ``WIDE_D``, of K2's
+and K3's head dim 32 kernels at 32, and of K1's Hopper schedule at 32 and
+at 128.
 """
 
 import math
@@ -393,6 +394,18 @@ D32_MUTANTS = {
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu', 'const bool live = mask.live(',
         'const bool live = 1 || mask.live('),
 }
+# mutants of K1's Hopper schedule (head dims 32 and 128), each held at both
+# head dims: the mask's select dropped, the diagonal tile left unmasked
+HOPPER_DIMS = (32, 128)
+K1_HOPPER_MUTANTS = {
+    'fwd_hopper_mask_select_dropped': (
+        'flash_fwd', 'flash_fwd_sm90.cu', 'sc[r] = mask.live(',
+        'sc[r] = 1 || mask.live('),
+    'fwd_hopper_diagonal_unmasked': (
+        'flash_fwd', 'flash_fwd_sm90.cu',
+        'const bool diagonal = mask.causal && k0 + kRowsK - 1 > r0;',
+        'const bool diagonal = false;'),
+}
 # flash_bwd.cu's C entry points call into both sm90 backward files, and a
 # library missing either fails to load (ctypes binds every symbol at once)
 _BWD_SOURCES = ('flash_bwd.cu', 'flash_bwd_sm90.cu', 'flash_bwd_dq_sm90.cu')
@@ -563,3 +576,47 @@ def test_gate_rejects_broken_head_dim_32_kernel(mutant, tmp_path,
     print('head dim 32 mutant %s rejected by: %s; verdicts %s'
           % (mutant, rejected, verdicts))
     assert rejected, verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', HOPPER_DIMS)
+def test_gate_accepts_hopper_k1_on_card(d):
+    """K1's Hopper schedule (head dims 32 and 128: the softmax under the
+    products, ex2.approx, the mask a select) passes every card case of the
+    gate at its head dim (run on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = gate_verdicts('flash_fwd', d)
+    print('flash_fwd at D=%d: %s' % (d, verdicts))
+    assert not any(_rejected(v) for v in verdicts.values()), verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('d', HOPPER_DIMS)
+@pytest.mark.parametrize('mutant', sorted(K1_HOPPER_MUTANTS))
+def test_gate_rejects_broken_hopper_k1(mutant, d, tmp_path, monkeypatch):
+    """A copy of K1's Hopper schedule whose mask no longer selects, or
+    whose diagonal tile goes unmasked, built alone on the card, fails the
+    gate at head dim 32 and at 128 in some card case (run on a GPU
+    host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = _mutant_verdicts(K1_HOPPER_MUTANTS, mutant, d, tmp_path,
+                                monkeypatch)
+    rejected = [c for c, v in verdicts.items() if _rejected(v)]
+    print('K1 mutant %s at D=%d rejected by: %s; verdicts %s'
+          % (mutant, d, rejected, verdicts))
+    assert rejected, verdicts
+
+
+@pytest.mark.parametrize('table', ['MUTANTS', 'WIDE_MUTANTS', 'D32_MUTANTS',
+                                   'K1_HOPPER_MUTANTS'])
+def test_mutants_edit_the_sources(table):
+    """Every mutant's text is in its source, so each card mutant still
+    builds a broken copy; each of K1's Hopper mutants edits one place."""
+    for mutant, (_, name, old, new) in globals()[table].items():
+        src = (kernels._CSRC / name).read_text()
+        assert old in src and old != new, mutant
+    fwd = (kernels._CSRC / 'flash_fwd_sm90.cu').read_text()
+    for _, _, old, _ in K1_HOPPER_MUTANTS.values():
+        assert fwd.count(old) == 1

@@ -460,3 +460,87 @@ def test_ptxas_instances_name_the_head_dim_32_kernels():
          'spill_stores': 0, 'spill_loads': 0, 'out': 'bfloat16'},
         {'dtype': 'bfloat16', 'head_dim': 32, 'registers': 168,
          'spill_stores': 8, 'spill_loads': 8, 'out': 'float32'}]
+
+
+def test_bounds_carry_the_exponentials_term():
+    """``chip_smoke.bounds`` takes the largest of the tensor operations,
+    the compulsory bytes and one 2^x a live pair over the special-function
+    rate (16 a clock an SM x 132 SMs x 1,980 MHz by default): at (8, 16,
+    2048, 32) K1 and K2 are bound by the exponentials, 268,566,528 pairs
+    in 0.0642 ms, and K3 by its operations (0.0695 ms); at (8, 4, 2048,
+    128) and at the flagship's (8, 8, 2048, 64) every kernel stays bound by
+    its operations."""
+    import chip_smoke
+    assert chip_smoke.EXP_RATE == pytest.approx(16 * 132 * 1.98e9)
+    pairs = 8 * 16 * 2048 * 2049 // 2
+    assert pairs == 268_566_528
+    d32 = chip_smoke.bounds((8, 16, 2048, 32))
+    for name in ('flash_fwd', 'flash_bwd_dq'):
+        ms, by, _ = d32[name]
+        assert by == 'exponentials'
+        assert ms == pytest.approx(pairs / chip_smoke.EXP_RATE * 1e3)
+        assert ms == pytest.approx(0.0642, abs=1e-4)
+    ms, by, flops = d32['flash_bwd_dkdv']
+    assert by == 'operations' and flops == 8 * 32 * pairs
+    assert ms == pytest.approx(0.0695, abs=1e-4)
+    for shape in ((8, 4, 2048, 128), chip_smoke.PATH_SHAPE):
+        for name, (ms, by, flops) in chip_smoke.bounds(shape).items():
+            assert by == 'operations', (shape, name)
+            assert ms == pytest.approx(flops / chip_smoke.PEAK_BF16_FLOPS
+                                       * 1e3)
+    # a slower special-function rate moves the bound with it
+    slow = chip_smoke.bounds((8, 16, 2048, 32),
+                             exp_per_s=chip_smoke.EXP_RATE / 2)
+    assert slow['flash_fwd'][0] == pytest.approx(2 * d32['flash_fwd'][0])
+    assert slow['flash_bwd_dkdv'][1] == 'exponentials'
+
+
+def test_exp_rate_falls_back_to_the_max_clock(monkeypatch):
+    """``chip_smoke.exp_rate``: 16 a clock an SM x the card's SMs x the
+    max SM clock that ``nvidia-smi`` reports, or 1,980 MHz where the query
+    fails."""
+    import subprocess
+    import types
+    import chip_smoke
+    props = types.SimpleNamespace(multi_processor_count=132)
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        get_device_properties=lambda i: props))
+
+    def no_smi(*a, **kw):
+        raise FileNotFoundError('nvidia-smi')
+    monkeypatch.setattr(subprocess, 'run', no_smi)
+    assert chip_smoke.exp_rate(fake) == pytest.approx(chip_smoke.EXP_RATE)
+
+    def smi(*a, **kw):
+        return types.SimpleNamespace(stdout='1755\n')
+    monkeypatch.setattr(subprocess, 'run', smi)
+    props.multi_processor_count = 114
+    assert chip_smoke.exp_rate(fake) == pytest.approx(16 * 114 * 1755e6)
+
+
+def test_ptxas_instances_name_the_hopper_k1_kernels():
+    """K1's Hopper schedule runs in ``fwd_persistent_sm90_kernel<D>``:
+    ``chip_smoke.ptxas_instances`` files its head dim 32 and 128
+    instances under K1 at those head dims, beside ``fwd_sm90_kernel<64>``
+    and ``<256>``."""
+    import chip_smoke
+
+    def entry(kernel, d, regs, spill=0):
+        name = ('_ZN5flash50_GLOBAL__N__1b2c3d4e_17_flash_fwd_sm90_cu_8a9b0c1d'
+                '%d%sILi%dEEEv14CUtensorMap_stS2_S2_PKiS4_P13__nv_bfloat16Pfi'
+                'iiiiiifi' % (len(kernel), kernel, d))
+        return ("ptxas info    : Compiling entry function '%s' for 'sm_90a'\n"
+                'ptxas info    : Function properties for %s\n'
+                '    0 bytes stack frame, %d bytes spill stores, %d bytes '
+                'spill loads\nptxas info    : Used %d registers\n'
+                % (name, name, spill, spill, regs))
+    got = chip_smoke.ptxas_instances(
+        entry('fwd_sm90_kernel', 256, 168)
+        + entry('fwd_persistent_sm90_kernel', 128, 168, 12)
+        + entry('fwd_sm90_kernel', 64, 166)
+        + entry('fwd_persistent_sm90_kernel', 32, 168))
+    assert got['flash_fwd'] == [
+        {'dtype': 'bfloat16', 'head_dim': d, 'registers': r,
+         'spill_stores': sp, 'spill_loads': sp}
+        for d, r, sp in ((256, 168, 0), (128, 168, 12), (64, 166, 0),
+                         (32, 168, 0))]
