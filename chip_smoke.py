@@ -615,8 +615,10 @@ printing one line or a few:
    dq, dk and dv against the twins run on the first 384 and the last 512
    rows (the rows that the launches past the limit compute: K1 and K2 the
    first, which they launch last; K3 the last), each kernel launched once;
-   (c) K2 and K3 at the D 32 path shape (8, 16, 2048, 32) launched twice
-   on the same inputs: bit-equal outputs.
+   (c) K2 and K3 at the D 32 path shape (8, 16, 2048, 32), at (8, 1,
+   2048, 512) (K2 on its cluster kernel) and at the MLA shape (128 q heads
+   over one kv head of 576), launched twice on the same inputs: bit-equal
+   outputs.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -9359,12 +9361,14 @@ def tail_case(torch, kernels, label, gen, *, l, d, window=GRID_WINDOW,
     return errs
 
 
-def determinism_case(torch, kernels, gen, shape):
+def determinism_case(torch, kernels, gen, shape, hkv=None):
     """(c): K2 and K3 launched twice on the same bf16 inputs at ``shape``
-    (causal); returns whether dq, dk and dv came out bit-equal."""
+    (causal; ``hkv`` kv heads, the q heads' count by default); returns
+    whether dq, dk and dv came out bit-equal."""
     b, h, l, d = shape
-    q, k, v, do = _operands(torch, gen, b, h, h, l, l, d, torch.bfloat16)
-    kw = dict(n_heads=h, n_kv_heads=h, causal=True)
+    hkv = hkv or h
+    q, k, v, do = _operands(torch, gen, b, h, hkv, l, l, d, torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=hkv, causal=True)
     o, lse = kernels.flash_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     runs = [(kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
@@ -9397,12 +9401,16 @@ def grid_limit_line(torch, kernels, gen):
             % (CARD, label, GRID_WINDOW, GRID_TAIL,
                ' '.join('%s %.3g' % kv for kv in errs.items()),
                time.perf_counter() - phase))
-    phase = time.perf_counter()
-    same = determinism_case(torch, kernels, gen, HEAD_DIM_PATHS[32])
-    check(all(same.values()), 'D=32: two launches differ: %r' % same)
-    log('phase 32 (c) %s K2, K3 at %s launched twice: bit-equal %s; %.1f s'
-        % (CARD, HEAD_DIM_PATHS[32], json.dumps(same),
-           time.perf_counter() - phase))
+    for shape, hkv in ((HEAD_DIM_PATHS[32], None), (WIDER_PATHS[512], None),
+                       (MLA_SHAPE, MLA_HKV)):
+        phase = time.perf_counter()
+        same = determinism_case(torch, kernels, gen, shape, hkv)
+        check(all(same.values()), 'D=%d: two launches differ: %r'
+              % (shape[3], same))
+        log('phase 32 (c) %s K2, K3 at %s over %d kv heads launched twice: '
+            'bit-equal %s; %.1f s'
+            % (CARD, shape, hkv or shape[1], json.dumps(same),
+               time.perf_counter() - phase))
 
 
 def ptxas_instances(log_text):
@@ -9415,7 +9423,8 @@ def ptxas_instances(log_text):
         r'dkdv_sm90_split_kernel|'
         r'dkdv_sm90_kernel|dkdv_sm90_d32_kernel|'
         r'fwd_kernel|dq_kernel|dkdv_kernel|'
-        r'normalize_kernel|fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
+        r'normalize_kernel|dq_wide_cluster_sm90_kernel|'
+        r'fwd_wide_sm90_kernel|dq_wide_sm90_kernel|'
         r'dkdv_wide_sm90_kernel|fwd_wide_kernel|dq_wide_kernel|'
         r'dkdv_wide_kernel)(?:I(.*?)EEv|E)')
     kernel_of = {'fwd': 'flash_fwd', 'dq': 'flash_bwd_dq',

@@ -35,7 +35,15 @@ allows, where ptxas spills. ``k3_d64_realloc`` gives head dim 64 the
 Variants of K2 and K3 at head dim 32: ``d32_exp2f`` puts exp2f's
 full-range 2^x back in place of ex2.approx; ``diag_d32_no_softmax`` leaves
 out the elementwise work (p = s), to see what it costs (its outputs are
-wrong: timed, never checked). ``parent_*`` variants edit the checkout given
+wrong: timed, never checked). Variants of K2 and K3 past head dim 256:
+``k2_wide_cluster_all`` runs K2's cluster kernel wherever a cluster of
+up to 8 blocks spans D (the sources take it up to 2 blocks, D 512),
+``k2_wide_streaming`` nowhere; ``diag_k2_cluster_local`` has each block
+of the clusters read its own partials in place of the cluster's, and
+``diag_k2_wide_no_restream`` and ``diag_k3_wide_no_restream`` the
+streaming kernels with their fixed operand (K2's Q and dO, K3's K and V)
+loaded at the first tile only: the traffic model's test (timed, never
+checked). ``parent_*`` variants edit the checkout given
 with ``--parent`` instead: the parent commit's head dim 32 kernels on two
 blocks an SM, with ex2.approx, with the mask a select in one loop, with
 K3's 4 stages and 384-thread block, without the exponential.
@@ -56,8 +64,7 @@ or at ``--shape``, say the north-star LM's attention (8, 8, 256, 32); bf16
 causal; ``chip_smoke.timings``: ``--reps`` launches back to back between
 two CUDA events, median of 5 such loops, and the median of as many single
 calls, each between two events, beside SDPA and a library backward). Past
-head
-dim 256 (the wide kernels) a checkout from before them cannot be timed:
+head dim 256 a checkout from before the wide kernels fails its launches:
 give it with ``--rounds 0`` (machine code only). The last line is one JSON
 object of every timing. Needs a CUDA device and ``nvcc``.
 """
@@ -139,7 +146,46 @@ VARIANTS = {
     'diag_k1_no_exp': [('flash_fwd_sm90.cu',
                         'sc[r] = ex2(fmaf(sc[r], scale2, neg_m[h]));',
                         'sc[r] = fmaf(sc[r], scale2, neg_m[h]);')],
+    # K2's wide kernel on a cluster wherever one spans D (up to kClusterMax
+    # blocks), or nowhere: the streaming kernel at every D past 256
+    'k2_wide_cluster_all': [
+        ('flash_bwd_dq_sm90.cu', 'constexpr int kDqClusterBlocks = 2;',
+         'constexpr int kDqClusterBlocks = kClusterMax;')],
+    'k2_wide_streaming': [
+        ('flash_bwd_dq_sm90.cu', 'constexpr int kDqClusterBlocks = 2;',
+         'constexpr int kDqClusterBlocks = 0;')],
+    # a diagnostic of K2's cluster kernel wherever one spans D: each block
+    # reads its own partials n times in place of the cluster's (the
+    # exchange's barriers kept; timed, never checked)
+    'diag_k2_cluster_local': [
+        ('flash_bwd_dq_sm90.cu', 'constexpr int kDqClusterBlocks = 2;',
+         'constexpr int kDqClusterBlocks = kClusterMax;'),
+        ('sm90.cuh', 'x[r] = ld_cluster4(cluster_map(slot + j * stride, r));',
+         'x[r] = ld_cluster4(slot + j * stride);')],
 }
+# ... and the streaming kernels without their restreaming: K2's Q and dO
+# chunks (K3's K and V) loaded at the first tile only, so each byte of the
+# fixed operand crosses from L2 once a block (timed, never checked)
+VARIANTS['diag_k2_wide_no_restream'] = VARIANTS['k2_wide_streaming'] + [
+    ('flash_bwd_dq_sm90.cu',
+     '          mbar_arrive_tx(full, C::kChunk);\n'
+     '          tma_load_3d(dst, &tmQ, full, col, q0, bh);\n'
+     '          tma_load_3d(dst + C::kOffDO, &tmDO, full, col, q0, bh);\n',
+     '          mbar_arrive_tx(full, i == 0 ? C::kChunk : 2 * C::kChunkK);\n'
+     '          if (i == 0) {\n'
+     '            tma_load_3d(dst, &tmQ, full, col, q0, bh);\n'
+     '            tma_load_3d(dst + C::kOffDO, &tmDO, full, col, q0, bh);\n'
+     '          }\n')]
+VARIANTS['diag_k3_wide_no_restream'] = [
+    ('flash_bwd_sm90.cu',
+     '          mbar_arrive_tx(full, C::kChunk);\n'
+     '          tma_load_3d(dst, &tmK, full, col, k0, kvh);\n'
+     '          tma_load_3d(dst + C::kOffV, &tmV, full, col, k0, kvh);\n',
+     '          mbar_arrive_tx(full, i == 0 ? C::kChunk : 2 * C::kChunkQ);\n'
+     '          if (i == 0) {\n'
+     '            tma_load_3d(dst, &tmK, full, col, k0, kvh);\n'
+     '            tma_load_3d(dst + C::kOffV, &tmV, full, col, k0, kvh);\n'
+     '          }\n')]
 # Variants of the parent's head dim 32 kernels (the Tile<32> instantiations
 # of dq_sm90_kernel and dkdv_sm90_kernel that this PR's commit replaced),
 # built from the checkout given with --parent.
@@ -215,7 +261,8 @@ PARENT_VARIANTS['parent_d32_select_ex2_k3_4_stages_realloc'] = (
 #: Variants whose outputs are knowingly wrong (a step of the work left
 #: out, to see what it costs): timed, never held against the twins.
 DIAGNOSTIC = {'parent_diag_no_exp', 'diag_d32_no_softmax',
-              'diag_k1_no_exp'}
+              'diag_k1_no_exp', 'diag_k2_cluster_local', 'diag_k2_wide_no_restream',
+              'diag_k3_wide_no_restream'}
 
 
 def build_variant(kernels, csrc_from, edits, tmpdir):
@@ -288,6 +335,24 @@ def compare_sass(kernels, libs):
                   flush=True)
 
 
+def backward_ms(torch, kernels, gen, reps, shape, hkv):
+    """{K2, K3: device ms} at the causal bf16 ``shape`` (``hkv`` kv
+    heads): ``chip_smoke.loop_ms`` of ``reps`` launches back to back."""
+    import chip_smoke
+    b, h, l, d = shape
+    q, k, v, do = chip_smoke._operands(torch, gen, b, h, hkv, l, l, d,
+                                       torch.bfloat16)
+    kw = dict(n_heads=h, n_kv_heads=hkv, causal=True)
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    return {
+        'flash_bwd_dq': chip_smoke.loop_ms(torch, lambda: kernels.flash_bwd_dq(
+            q, k, v, do, lse, delta, **kw), reps),
+        'flash_bwd_dkdv': chip_smoke.loop_ms(
+            torch, lambda: kernels.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                                  **kw), reps)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--head-dim', type=int, default=128,
@@ -308,15 +373,18 @@ def main(argv=None):
     parser.add_argument('--sass', action='store_true',
                         help="compare each build's machine code with the "
                              "sources', kernel by kernel")
+    parser.add_argument('--no-check', action='store_true',
+                        help='time the builds without holding them against '
+                             'the twins first (the card tests do that)')
+    parser.add_argument('--backward-only', action='store_true',
+                        help='time K2 and K3 alone (the device time of '
+                             '--reps launches back to back), without K1, '
+                             'the twins and the library calls')
     parser.add_argument('--rounds', type=int, default=2)
     parser.add_argument('--reps', type=int, default=30)
     args = parser.parse_args(argv)
     if args.shape:
         args.head_dim = args.shape[3]
-    if args.head_dim > 256 and args.rounds and (args.checkouts
-                                                or args.parent):
-        parser.error('a checkout cannot be timed past head dim 256: its '
-                     'kernels may predate the wide ones (use --rounds 0)')
     import torch
     if not torch.cuda.is_available():
         print('chip_tile_probe: no CUDA device; nothing was run',
@@ -382,7 +450,7 @@ def main(argv=None):
             order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
             for name in order:
                 kernels._lib = libs[name][0]
-                if rnd == 0 and name not in DIAGNOSTIC:
+                if rnd == 0 and name not in DIAGNOSTIC and not args.no_check:
                     for label, edge in chip_smoke.EDGE_CASES:
                         chip_smoke.compare_case(
                             torch, kernels, '%s D=%d %s' % (name, d, label),
@@ -391,6 +459,15 @@ def main(argv=None):
                         torch, kernels, '%s D=%d path' % (name, d), gen,
                         b=b, h=h, hkv=hkv, lq=l, lk=l, d=d,
                         dtype=torch.bfloat16)
+                if args.backward_only:
+                    row = {'round': rnd, 'build': name}
+                    row.update(backward_ms(torch, kernels, gen, args.reps,
+                                           shape, hkv))
+                    out['timings'].append(row)
+                    print('round %d %-15s D=%d K2 %.4f K3 %.4f ms'
+                          % (rnd, name, d, row['flash_bwd_dq'],
+                             row['flash_bwd_dkdv']), flush=True)
+                    continue
                 t = chip_smoke.timings(torch, kernels, gen, args.reps, shape,
                                        hkv)
                 row = {'round': rnd, 'build': name}

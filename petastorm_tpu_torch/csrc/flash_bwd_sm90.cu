@@ -82,10 +82,18 @@
 // chunks (K, V 128 x 64 and Q, dO 64 x 64, 48 KB) through a 3-stage ring,
 // then Q's and dO's slices (64 x 128 each) with the tile's lse, delta and
 // segment ids through a 2-stage ring; the consumers add each chunk to S^T
-// and dP^T (2 x 4 x m64n64k16), then run dV += P^T dO_slice and dK += dS^T
-// Q_slice as at D = 128. Each slice recomputes S^T and dP^T over all of D
-// (D/128 times the score products), and K and V are read again for every
-// q tile. ~211 KB.
+// and dP^T (2 x 4 x m64n64k16), each chunk's products issued before the
+// last chunk's are retired (wgmma_wait<1>, then that chunk's stage
+// freed), then run dV += P^T dO_slice and dK += dS^T Q_slice as at D =
+// 128, the elementwise work in the D = 32 kernel's form (ex2.approx, one
+// FFMA for the scale and the lse, the mask a select in a loop of its own
+// for the tiles that need it). Each slice recomputes S^T and dP^T over all
+// of D (D/128 times the score products), and K and V are read again for
+// every q tile. ~211 KB. Splitting D across a thread block cluster instead
+// (each block's K and V columns resident, the blocks' partial S^T and dP^T
+// summed through distributed shared memory) ran 1.7-2.5x slower at D 512
+// and 576 on an H100: the partials' traffic between the SMs bound it
+// (PERF.md, PR 28).
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -839,8 +847,8 @@ __global__ void __launch_bounds__(BwdWide::kThreads, 1)
         const bool in = qp < Lq;
         const size_t r = (size_t)bh * Lq + qp;
         const float ls = in ? lse_g[r] : kNegInf;
-        st[j] = ls > kNegInf * 0.5f ? ls * kLog2e
-                                    : __int_as_float(0x7f800000);  // +inf
+        st[j] = ls > kNegInf * 0.5f ? -ls * kLog2e
+                                    : __int_as_float(0xff800000);  // -inf
         st[kRowsQ + j] = in ? delta_g[r] : 0.f;
         reinterpret_cast<int*>(st)[2 * kRowsQ + j] =
             (segq != nullptr && in) ? segq[r] : 0;
@@ -881,11 +889,13 @@ __global__ void __launch_bounds__(BwdWide::kThreads, 1)
       wgmma_ss_chunk(dp, chunk + C::kOffV, kRowsK, 64 * wg,
                      chunk + C::kOffDO, kRowsQ, 0, c > 0);
       wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sc);
-      fence_regs(dp);
-      mbar_arrive(cempty0 + 8 * s);
+      wgmma_wait<1>();     // chunk c - 1's products: its stage is free
+      if (c > 0) mbar_arrive(cempty0 + 8 * ((ic - 1) % kCS));
     }
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(cempty0 + 8 * ((ic - 1) % kCS));
     const int s = i % kSS;
     const uint32_t qaddr = base + C::kOffSlice + s * C::kSlice;
     const uint32_t doaddr = qaddr + C::kSliceQ;
@@ -896,17 +906,23 @@ __global__ void __launch_bounds__(BwdWide::kThreads, 1)
     const bool need_mask =
         diag || segq != nullptr || q0 + kRowsQ > Lq || kr0 + 64 > Lk ||
         (causal && window > 0 && q0 + kRowsQ - 1 - kr0 >= window);
+    // sc becomes p^T and dp dS^T; the mask, where a tile needs it, selects
+    if (need_mask) {
+      const int* seg = reinterpret_cast<const int*>(st) + 2 * kRowsQ;
 #pragma unroll
-    for (int r = 0; r < kRowsQ / 2; ++r) {
-      const int c = frag_col(r);
-      float p = exp2f(sc[r] * scale2 - st[c]);
-      if (need_mask &&
-          !mask(q0 + c, kpos[(r >> 1) & 1],
-                reinterpret_cast<const int*>(st)[2 * kRowsQ + c],
-                sk[(r >> 1) & 1]))
-        p = 0.f;
-      sc[r] = p;
-      dp[r] = p * (dp[r] - st[kRowsQ + c]) * scale;
+      for (int r = 0; r < kRowsQ / 2; ++r) {
+        const int c = frag_col(r), h = (r >> 1) & 1;
+        const float p = ex2(fmaf(sc[r], scale2, st[c]));
+        sc[r] = mask.live(q0 + c, kpos[h], seg[c], sk[h]) ? p : 0.f;
+        dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRowsQ / 2; ++r) {
+        const int c = frag_col(r);
+        sc[r] = ex2(fmaf(sc[r], scale2, st[c]));
+        dp[r] = sc[r] * (dp[r] - st[kRowsQ + c]) * scale;
+      }
     }
 
     uint32_t pa[kRowsQ / 16][4], dsa[kRowsQ / 16][4];

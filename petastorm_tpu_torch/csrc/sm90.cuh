@@ -573,6 +573,158 @@ __device__ __forceinline__ void store_row_n(TO* out, const float (&acc)[W / 2],
   }
 }
 
+// O (64 x 64 NB, f32 fragment of 32 NB registers) += A (64 x 16, registers)
+// B (16 x 64 NB): rows k0 .. k0 + 15 of the first NB column blocks of a
+// (rows, 64 NB) slice at `base` (load_blocks' layout), one m64n64 a block.
+template <int NB, int kTransB>
+__device__ __forceinline__ void wgmma_rs_blocks(float (&o)[32 * NB],
+                                                const uint32_t (&a)[4],
+                                                uint32_t base, int rows,
+                                                int k0) {
+  static_assert(NB >= 1 && NB <= 4, "one to four column blocks");
+  using T = Tile<kChunkCols>;
+  wgmma_rs<64, 0, kTransB>(o, a, T::mnmajor(base, rows, k0, 0));
+  if constexpr (NB > 1)
+    wgmma_rs<64, 32, kTransB>(o, a, T::mnmajor(base, rows, k0, 1));
+  if constexpr (NB > 2)
+    wgmma_rs<64, 64, kTransB>(o, a, T::mnmajor(base, rows, k0, 2));
+  if constexpr (NB > 3)
+    wgmma_rs<64, 96, kTransB>(o, a, T::mnmajor(base, rows, k0, 3));
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters: K2's wide kernel up to D 512 splits D across the
+// blocks of a cluster and sums their partial scores through distributed
+// shared memory (cluster_sum)
+// ---------------------------------------------------------------------------
+
+// Every cluster has at most this many blocks (the portable limit).
+constexpr int kClusterMax = 8;
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// what a block wrote to its shared memory before is seen by the others
+// after (release, acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in block `rank` of the cluster of this block's shared-memory
+// address `addr`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// One arrival on an mbarrier of any block of the cluster (an address from
+// cluster_map), releasing this thread's earlier memory accesses to the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait that acquires what the arrivals of other blocks released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, float a, float b,
+                                           float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The cluster's sum of two float32 fragments of R registers (a block's
+// partial S and dP over its columns of D), for the i-th tile of the loop;
+// on return a and b hold the sums, the same bits in every block. Each
+// consumer thread keeps its own 2 R floats at `slot` (R / 2 float4s,
+// `stride` bytes apart: the thread's index x 16 past the block's exchange
+// area, stride = 16 x the consumer threads, so a warp's stores and loads
+// are coalesced). Per warpgroup two mbarriers of 4 n arrivals (one a warp
+// of each of the n blocks): `full` counts the partials written, `empty`
+// the partials read. A warp waits until every block has read its last
+// partials (empty, tile i - 1), writes its own, arrives on `full` in
+// every block, waits for its own `full`, then reads the n partials from
+// block 0 up and adds them in that order, and arrives on `empty` in every
+// block. Before a block exits, its consumers wait on `empty` for the last
+// tile (cluster_sum_done), so no block reads the shared memory of one that
+// has exited.
+template <int R>
+__device__ __forceinline__ void cluster_sum(float (&a)[R], float (&b)[R],
+                                            uint32_t slot, uint32_t stride,
+                                            uint32_t full, uint32_t empty,
+                                            int n, int i) {
+  static_assert(R % 4 == 0, "whole float4s");
+  constexpr int kV = R / 4;
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (i > 0) mbar_wait_cluster(empty, (i - 1) & 1);
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    st_shared4(slot + j * stride, a[4 * j], a[4 * j + 1], a[4 * j + 2],
+               a[4 * j + 3]);
+    st_shared4(slot + (kV + j) * stride, b[4 * j], b[4 * j + 1],
+               b[4 * j + 2], b[4 * j + 3]);
+  }
+  __syncwarp();
+  if (lead)
+    for (int r = 0; r < n; ++r) mbar_arrive_cluster(cluster_map(full, r));
+  mbar_wait_cluster(full, i & 1);
+  // float4 j of every block in flight at once, then added from block 0 up
+#pragma unroll
+  for (int j = 0; j < 2 * kV; ++j) {
+    float4 x[kClusterMax];
+#pragma unroll
+    for (int r = 0; r < kClusterMax; ++r)
+      if (r < n) x[r] = ld_cluster4(cluster_map(slot + j * stride, r));
+    float4 v = x[0];
+#pragma unroll
+    for (int r = 1; r < kClusterMax; ++r)
+      if (r < n) {
+        v.x += x[r].x; v.y += x[r].y; v.z += x[r].z; v.w += x[r].w;
+      }
+    float* out = j < kV ? a + 4 * j : b + 4 * (j - kV);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __syncwarp();
+  if (lead)
+    for (int r = 0; r < n; ++r) mbar_arrive_cluster(cluster_map(empty, r));
+}
+
+// After a block's last cluster_sum (of `tiles` in all): wait until every
+// block has read this one's partials.
+__device__ __forceinline__ void cluster_sum_done(uint32_t empty, int tiles) {
+  if (tiles > 0) mbar_wait_cluster(empty, (tiles - 1) & 1);
+}
+
 }  // namespace sm90
 
 // Launchers of the bf16 kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,

@@ -35,7 +35,11 @@ K1 at 32 and 128 a persistent kernel with its softmax under its products
 (``csrc/flash_fwd_sm90.cu``). Past 256
 both dtypes run the wide kernels, which take any multiple of
 :data:`WIDE_STEP` (64): each block owns one slice of the output's columns
-and streams q k^T and do v^T over the head dim in 64-column chunks. A
+and streams q k^T and do v^T over the head dim in 64-column chunks; bf16
+K2 up to head dim 512 instead splits the head dim across the two blocks
+of a thread block cluster, each keeping its columns of q and do resident
+and the pair summing their partial scores through distributed shared
+memory. A
 launch at any other head dim up to :data:`MAX_HEAD_DIM` runs at the next
 width the kernels take (:func:`launch_head_dim`): q, k, v and do get zero
 columns up to it (:func:`pad_heads`), the scale stays that of the true

@@ -17,7 +17,8 @@ tile) stands in for the kernels: the gate accepts it, and the bias check
 rejects its truncating variants (p truncated for o and dv, ds alone for dk
 and dq). On the card (``-m cuda``) broken copies of the kernels, built
 alone, must each be rejected by the gate: at head dim 64, broken copies
-of the wide kernels (head dims past 256) at head dim ``WIDE_D``, of K2's
+of the wide kernels (head dims past 256) at ``WIDE_D`` and, those of
+K2's and K3's streaming kernels, at 576, of K2's
 and K3's head dim 32 kernels at 32, and of K1's Hopper schedule at 32 and
 at 128.
 """
@@ -360,9 +361,12 @@ MUTANTS = {
     'dq_kv_tail_unmasked': ('flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
                             'k0 + kRowsK > Lk || ', ''),
 }
-# mutants of the wide kernels (head dims past 256), held at WIDE_D: each
-# drops a chunk's sum (S, or dP, from the last chunk alone) or reads the
-# first slice's columns for every slice
+# mutants of the wide kernels (head dims past 256), each held at the head
+# dims where its code runs (WIDE_MUTANT_DIMS: WIDE_D unless named): each
+# drops a chunk's sum (S, or dP, from the last chunk alone), reads the
+# first slice's columns for every slice, or (K2's cluster kernel, which
+# runs up to D 512; K3's streaming kernel) drops the cluster's sum of the
+# last block's partials or the mask's select
 WIDE_MUTANTS = {
     'fwd_wide_s_last_chunk_only': (
         'flash_fwd', 'flash_fwd_sm90.cu',
@@ -375,6 +379,21 @@ WIDE_MUTANTS = {
     'dq_wide_dp_last_chunk_only': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
         'dp[r] += dpc[r];', 'dp[r] = dpc[r];'),
+    'dq_wide_cluster_dp_last_chunk_only': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        '64 * wg, vaddr + c * C::kChunkK, kRowsK, 0, c > 0);',
+        '64 * wg, vaddr + c * C::kChunkK, kRowsK, 0, 0);'),
+    'dq_wide_cluster_k_first_slice': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        '&tmK, full, col0, nb,', '&tmK, full, 0, nb,'),
+    'dq_wide_cluster_partial_dropped': (
+        'flash_bwd_dq', 'sm90.cuh',
+        '      if (r < n) {\n        v.x += x[r].x;',
+        '      if (r < n - 1) {\n        v.x += x[r].x;'),
+    'dq_wide_cluster_mask_select_dropped': (
+        'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
+        '\n        const bool live = mask.live(',
+        '\n        const bool live = 1 || mask.live('),
     'dkdv_wide_dp_last_chunk_only': (
         'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
         'chunk + C::kOffDO, kRowsQ, 0, c > 0);',
@@ -383,7 +402,24 @@ WIDE_MUTANTS = {
         'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
         'load_blocks(dst, &tmQ, full, col0, nblk',
         'load_blocks(dst, &tmQ, full, 0, nblk'),
+    'dkdv_wide_mask_select_dropped': (
+        'flash_bwd_dkdv', 'flash_bwd_sm90.cu',
+        'ex2(fmaf(sc[r], scale2, st[c]));\n        sc[r] = mask.live(',
+        'ex2(fmaf(sc[r], scale2, st[c]));\n        sc[r] = 1 || mask.live('),
 }
+WIDE_MLA_D = 576      # the MLA head dim: K2 and K3 on their streaming kernels
+WIDE_MUTANT_DIMS = {'dq_wide_dp_last_chunk_only': (WIDE_MLA_D,),
+                    'dkdv_wide_dp_last_chunk_only': (WIDE_D, WIDE_MLA_D),
+                    'dkdv_wide_q_first_slice': (WIDE_D, WIDE_MLA_D),
+                    'dkdv_wide_mask_select_dropped': (WIDE_D, WIDE_MLA_D)}
+
+
+def wide_mutants_at(d):
+    """The wide mutants whose code runs at head dim ``d``."""
+    return sorted(m for m in WIDE_MUTANTS
+                  if d in WIDE_MUTANT_DIMS.get(m, (WIDE_D,)))
+
+
 # mutants of K2's and K3's head dim 32 kernels, held at head dim 32: the
 # mask's select (which replaces the other kernels' branch) dropped
 D32_MUTANTS = {
@@ -533,12 +569,14 @@ def test_gate_rejects_broken_kernel(mutant, tmp_path, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('mutant', sorted(WIDE_MUTANTS))
+@pytest.mark.parametrize('mutant', wide_mutants_at(WIDE_D))
 def test_gate_rejects_broken_wide_kernel(mutant, tmp_path, monkeypatch):
     """A broken copy of a wide kernel, built alone on the card, fails the
-    gate at head dim WIDE_D in some card case: S (K1) or dP (K2, K3) from
-    the last 64-column chunk alone, or the first slice's columns of V (K1)
-    or Q (K3) read for every slice."""
+    gate at head dim WIDE_D in some card case: S (K1) or dP (K2's cluster
+    kernel, K3) from the last 64-column chunk alone, the first slice's
+    columns of V (K1), K (K2) or Q (K3) read for every slice, K2's
+    cluster's sum without its last block's partials, or the mask's select
+    dropped (K2, K3)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernels have no CPU mode')
     verdicts = _mutant_verdicts(WIDE_MUTANTS, mutant, WIDE_D, tmp_path,
@@ -546,6 +584,24 @@ def test_gate_rejects_broken_wide_kernel(mutant, tmp_path, monkeypatch):
     rejected = [c for c, v in verdicts.items() if _rejected(v)]
     print('wide mutant %s rejected by: %s; verdicts %s'
           % (mutant, rejected, verdicts))
+    assert rejected, verdicts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mutant', wide_mutants_at(WIDE_MLA_D))
+def test_gate_rejects_broken_wide_backward_at_576(mutant, tmp_path,
+                                                  monkeypatch):
+    """A broken copy of K2's or K3's streaming wide kernel, built alone on
+    the card, fails the gate at head dim 576 in some card case: dP from
+    the last chunk alone (K2, K3), Q's first columns read for every slice
+    (K3), the mask's select dropped (K3) (run on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    verdicts = _mutant_verdicts(WIDE_MUTANTS, mutant, WIDE_MLA_D, tmp_path,
+                                monkeypatch)
+    rejected = [c for c, v in verdicts.items() if _rejected(v)]
+    print('wide mutant %s at D=%d rejected by: %s; verdicts %s'
+          % (mutant, WIDE_MLA_D, rejected, verdicts))
     assert rejected, verdicts
 
 

@@ -267,6 +267,29 @@ def test_cuda_d32_backward_is_deterministic(case, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('d', [320, 512, 576])
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_cuda_wide_backward_is_deterministic(case, d):
+    """K2 and K3 past head dim 256 (K2 at 320 and 512 on its cluster
+    kernel, each block's partial scores summed from block 0 up through
+    distributed shared memory; at 576 both on their streaming kernels),
+    bf16, launched twice on the same inputs: dq, dk and dv bit-equal, MQA
+    included (run on a GPU host)."""
+    _needs_card()
+    q, k, v, do, kw = _operands(400 + d, case, d)
+    q, k, v, do = (x.cuda().to(torch.bfloat16) for x in (q, k, v, do))
+    kw = {n: (t.cuda() if torch.is_tensor(t) else t) for n, t in kw.items()}
+    o, lse = kernels.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(kernels.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+             *kernels.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(('dq', 'dk', 'dv'), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
 def test_cuda_head_dim_past_128_raises(dtype):
     """A CUDA launch past 256, at head dim 320, launches each of K1-K3 once
@@ -544,3 +567,39 @@ def test_ptxas_instances_name_the_hopper_k1_kernels():
          'spill_stores': sp, 'spill_loads': sp}
         for d, r, sp in ((256, 168, 0), (128, 168, 12), (64, 166, 0),
                          (32, 168, 0))]
+
+
+def test_ptxas_instances_name_the_wide_cluster_kernels():
+    """K2's wide backward up to head dim 512 runs in
+    ``dq_wide_cluster_sm90_kernel<NB>`` (NB 3 or 4), beside the streaming
+    ``dq_wide_sm90_kernel`` past it: ``chip_smoke.ptxas_instances`` files
+    both under K2 at head dim 'past 256', with K3's
+    ``dkdv_wide_sm90_kernel`` under K3, and none at another head dim."""
+    import chip_smoke
+
+    def entry(source, kernel, args, regs, spill=0):
+        name = ('_ZN5flash50_GLOBAL__N__965bde5d_%d%s_cu_11078b7f%d%s%s'
+                % (len(source) + 3, source, len(kernel), kernel, args))
+        return ("ptxas info    : Compiling entry function '%s' for 'sm_90a'\n"
+                'ptxas info    : Function properties for %s\n'
+                '    0 bytes stack frame, %d bytes spill stores, %d bytes '
+                'spill loads\nptxas info    : Used %d registers\n'
+                % (name, name, spill, spill, regs))
+    tail = 'EEv14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6_P13__nv_bfloat16iiiiiiifi'
+    log = ''.join([
+        entry('flash_bwd_dq_sm90', 'dq_wide_cluster_sm90_kernel', 'ILi3' + tail,
+              168),
+        entry('flash_bwd_dq_sm90', 'dq_wide_cluster_sm90_kernel', 'ILi4' + tail,
+              168, 16),
+        entry('flash_bwd_dq_sm90', 'dq_wide_sm90_kernel',
+              'E14CUtensorMap_stS0_S0_S0_PKfS2_PKiS4_P13__nv_bfloat16iiiiiiifi',
+              168),
+        entry('flash_bwd_sm90', 'dkdv_wide_sm90_kernel',
+              'IfEEv14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6_PT_S8_iiiiiiifi',
+              168, 64)])
+    got = chip_smoke.ptxas_instances(log)
+    wide = lambda regs, spill=0: {
+        'dtype': 'bfloat16', 'head_dim': 'past 256', 'registers': regs,
+        'spill_stores': spill, 'spill_loads': spill}
+    assert got['flash_bwd_dq'] == [wide(168), wide(168, 16), wide(168)]
+    assert got['flash_bwd_dkdv'] == [wide(168, 64)]
