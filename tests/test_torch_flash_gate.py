@@ -379,10 +379,14 @@ WIDE_MUTANTS = {
     'dq_wide_dp_last_chunk_only': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
         'dp[r] += dpc[r];', 'dp[r] = dpc[r];'),
-    'dq_wide_cluster_dp_last_chunk_only': (
+    # dP from each block's first chunk alone (a skipped product: clearing
+    # the accumulate flag instead leaves a wgmma result that the next one
+    # overwrites while it is in flight, and that build faulted)
+    'dq_wide_cluster_dp_first_chunk_only': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
-        '64 * wg, vaddr + c * C::kChunkK, kRowsK, 0, c > 0);',
-        '64 * wg, vaddr + c * C::kChunkK, kRowsK, 0, 0);'),
+        '        wgmma_ss_chunk(dp, base + C::kOffDO + c * C::kChunkQ, kRowsQ,',
+        '        if (c == 0)\n'
+        '        wgmma_ss_chunk(dp, base + C::kOffDO + c * C::kChunkQ, kRowsQ,'),
     'dq_wide_cluster_k_first_slice': (
         'flash_bwd_dq', 'flash_bwd_dq_sm90.cu',
         '&tmK, full, col0, nb,', '&tmK, full, 0, nb,'),
